@@ -1,0 +1,56 @@
+"""JAX parameters -> the port's state.
+
+``Transformer._init_params`` (``bigdl_tpu/nn/attention.py``) builds a
+nested dict: ``embed``, ``ln_f: {weight, bias}``, and per block
+``block{i}: {attn: {wq, wk, wv, wo}, ffn: {w1, b1, w2, b2[, w3]},
+ln1: {weight, bias}, ln2: {weight, bias}}``. The port's modules carry the
+same names, so the flat ``state_dict`` key of a leaf is its path joined
+with dots (``block0.attn.wq``, ``ln_f.weight``). Arrays arrive as numpy
+(``jax.tree_util.tree_map(np.asarray, params)``); this module imports no
+JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dict -> {dotted path: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """{dotted path: leaf} -> nested dict."""
+    out: dict = {}
+    for name, v in flat.items():
+        node = out
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def jax_to_state_dict(params, dtype=None) -> dict:
+    """A JAX Transformer parameter tree of numpy arrays -> a flat
+    ``state_dict`` of CPU tensors (``model.load_state_dict`` moves them to
+    the model's device). ``dtype`` optionally casts floating leaves."""
+    out = {}
+    for name, a in flatten(params).items():
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":   # numpy's bf16 is not torch's
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, copy=True))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out[name] = t
+    return out

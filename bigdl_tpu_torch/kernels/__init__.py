@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version (see ``_build`` for how they are compiled and loaded).
+
+Each wrapper counts its launches in a plain integer attribute,
+``<wrapper>.launches``, bumped only where the kernel is launched, so a run
+can show that its path went through the kernels."""
+from .flash_attention import flash_fwd, flash_fwd_reference
+from .paged_attention import paged_attention_reference, paged_decode_attention
+
+WRAPPERS = {"flash_fwd": flash_fwd, "paged_attention": paged_decode_attention}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = ["flash_fwd", "flash_fwd_reference", "paged_decode_attention",
+           "paged_attention_reference", "launch_counts",
+           "reset_launch_counts", "WRAPPERS"]

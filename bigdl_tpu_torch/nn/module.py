@@ -1,0 +1,66 @@
+"""Module base (counterpart of ``bigdl_tpu/nn/module.py``).
+
+A thin layer over ``torch.nn.Module`` that keeps the facade names of the
+JAX package's Torch-style API:
+
+* ``forward`` - torch's own;
+* ``training()`` / ``evaluate()`` - switch mode and return the module.
+  ``torch.nn.Module`` keeps its mode in an attribute named ``training``, so
+  here ``module.training`` reads as that flag (truthy in training mode) and
+  calling it switches to training mode;
+* ``parameters`` - torch's own;
+* ``params`` - the module's parameters as a nested dict with the JAX
+  parameter tree's names. The model code is written as functions of such a
+  tree (``call(params, x)``, ``Transformer.generate(params, ...)``), as the
+  JAX package is, so a serving registry can hold several versions of one
+  model's weights.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class _TrainingFlag:
+    __slots__ = ("_module",)
+
+    def __init__(self, module):
+        self._module = module
+
+    def __bool__(self):
+        return self._module.__dict__.get("_train_mode", True)
+
+    def __call__(self):
+        return self._module.train(True)
+
+    def __repr__(self):
+        return repr(bool(self))
+
+
+class Module(torch.nn.Module):
+
+    @property
+    def training(self):
+        return _TrainingFlag(self)
+
+    @training.setter
+    def training(self, mode):
+        self.__dict__["_train_mode"] = bool(mode)
+
+    def evaluate(self):
+        return self.train(False)
+
+    @property
+    def params(self) -> dict:
+        """Nested dict of this module's parameters (the tensors
+        themselves, not copies)."""
+        out = {n: p for n, p in self._parameters.items() if p is not None}
+        for n, m in self._modules.items():
+            out[n] = m.params
+        return out
+
+    def call(self, params, x):
+        """The forward as a function of a parameter tree."""
+        raise NotImplementedError(type(self).__name__)
+
+    def forward(self, x):
+        return self.call(self.params, x)
