@@ -1,4 +1,4 @@
-"""JAX parameters -> the port's state.
+"""JAX parameters -> the port's state, and back.
 
 ``Transformer._init_params`` (``bigdl_tpu/nn/attention.py``) builds a
 nested dict: ``embed``, ``ln_f: {weight, bias}``, and per block
@@ -6,8 +6,9 @@ nested dict: ``embed``, ``ln_f: {weight, bias}``, and per block
 ln1: {weight, bias}, ln2: {weight, bias}}``. The port's modules carry the
 same names, so the flat ``state_dict`` key of a leaf is its path joined
 with dots (``block0.attn.wq``, ``ln_f.weight``). Arrays arrive as numpy
-(``jax.tree_util.tree_map(np.asarray, params)``); this module imports no
-JAX.
+(``jax.tree_util.tree_map(np.asarray, params)``) and leave as numpy
+(:func:`to_numpy_tree`, so trained weights can be compared with the JAX
+package's); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -54,3 +55,13 @@ def jax_to_state_dict(params, dtype=None) -> dict:
             t = t.to(dtype)
         out[name] = t
     return out
+
+
+def to_numpy_tree(tree) -> dict:
+    """The port's parameter tree (nested dict of tensors, JAX's names) ->
+    the same nested dict of numpy arrays on the host; bfloat16 leaves
+    become float32 (numpy has no bfloat16 of torch's)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,15 +1,21 @@
-"""Flash attention forward (K1-fwd): the CUDA kernel and its plain version.
+"""Flash attention forward (K1-fwd) and backward (K1-bwd): the CUDA kernels,
+their plain versions and the ``autograd.Function`` around them.
 
-Replaces the Pallas kernel ``bigdl_tpu/kernels/flash_attention.py``
-``_flash_fwd`` (body ``_fwd_kernel``) with ``csrc/flash_fwd.cu``. The
-source's header note says what bounds it on an H100 and what the design
-does about it.
+Replaces the Pallas kernels of ``bigdl_tpu/kernels/flash_attention.py``:
+``_flash_fwd`` (body ``_fwd_kernel``) with ``csrc/flash_fwd.cu``, and
+``_flash_bwd`` (``_bwd_kv_kernel``, ``_bwd_q_kernel``) with
+``csrc/flash_bwd.cu``. Each source's header note says what bounds it on an
+H100 and what the design does about it.
 
-:func:`flash_fwd` is the wrapper: a tensor on the CPU takes
-:func:`flash_fwd_reference`, the plain PyTorch version of the same
-function; a tensor on a CUDA device launches the kernel or raises. The
-serving path needs no gradient, so the wrapper refuses tensors that require
-one (the ``autograd.Function`` arrives with the backward kernels).
+:func:`flash_fwd` and :func:`flash_bwd` are the wrappers: tensors on the CPU
+take :func:`flash_fwd_reference` / :func:`flash_bwd_reference`, the plain
+PyTorch versions of the same functions; tensors on a CUDA device launch the
+kernels or raise. :class:`FlashAttention` is the counterpart of the JAX
+package's ``_flash`` ``custom_vjp``: forward through :func:`flash_fwd`,
+saving (q, k, v, o, lse), backward through :func:`flash_bwd`. The wrappers
+themselves build no graph, so they refuse tensors that require a gradient
+while grad mode is on (inside the Function's forward it is off); the chunk
+form (``q_offset``/``kv_len``) stays forward-only, as in JAX.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -59,34 +67,37 @@ def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
     return o.to(q.dtype), lse
 
 
-def _check(q, k, v, q_offset, kv_len):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(fn, q, k, v, *same_as_q):
+    """What both kernels take: (B, H, T, D) contiguous tensors of one
+    dtype (float32 or bfloat16) on q's device, k/v of one shape, D in
+    ``_HEAD_DIMS``; ``same_as_q`` (o, dO) of q's shape."""
+    for name, t in (("q", q), ("k", k), ("v", v)) + same_as_q:
         if t.device != q.device:
-            raise ValueError(f"flash_fwd: {name} on {t.device}, q on "
-                             f"{q.device}")
+            raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
-            raise TypeError(f"flash_fwd: {name} is {t.dtype}, q is "
-                            f"{q.dtype}")
+            raise TypeError(f"{fn}: {name} is {t.dtype}, q is {q.dtype}")
         if t.dim() != 4:
-            raise ValueError(f"flash_fwd: {name} must be (B, H, T, D), got "
+            raise ValueError(f"{fn}: {name} must be (B, H, T, D), got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_fwd: {name} must be contiguous")
-        if t.requires_grad:
-            raise ValueError("flash_fwd: forward-only kernel; run under "
-                             "torch.no_grad()")
+            raise ValueError(f"{fn}: {name} must be contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{fn}: the kernel builds no autograd graph; "
+                             f"differentiate through FlashAttention or run "
+                             f"under torch.no_grad()")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_fwd: dtype {q.dtype} not supported "
+        raise TypeError(f"{fn}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
     B, H, _, D = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
-        raise ValueError(f"flash_fwd: shapes q{tuple(q.shape)} "
+        raise ValueError(f"{fn}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} disagree")
+    for name, t in same_as_q:
+        if t.shape != q.shape:
+            raise ValueError(f"{fn}: {name}{tuple(t.shape)} is not shaped "
+                             f"like q{tuple(q.shape)}")
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {D} not in {_HEAD_DIMS}")
-    if not 0 <= kv_len <= k.shape[2] or q_offset < 0:
-        raise ValueError(f"flash_fwd: kv_len {kv_len} / q_offset "
-                         f"{q_offset} out of range for {k.shape[2]} keys")
+        raise ValueError(f"{fn}: head dim {D} not in {_HEAD_DIMS}")
 
 
 def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
@@ -99,7 +110,10 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
         return flash_fwd_reference(q, k, v, causal, q_offset, kv_len)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_fwd: no kernel for device {q.device}")
-    _check(q, k, v, q_offset, kv_len)
+    _check("flash_fwd", q, k, v)
+    if not 0 <= kv_len <= k.shape[2] or q_offset < 0:
+        raise ValueError(f"flash_fwd: kv_len {kv_len} / q_offset "
+                         f"{q_offset} out of range for {k.shape[2]} keys")
     B, H, Tq, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
@@ -117,3 +131,85 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
 
 
 flash_fwd.launches = 0
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False):
+    """Plain version of the backward: gradients of
+    softmax(q k^T / sqrt(D)) v (causal: key c visible to row r iff
+    c <= r) from the forward's o and lse and the output gradient ``do``.
+    Recomputes p = exp(s - lse) in float32 (0 on masked keys and on rows
+    whose lse is -inf), then dV = p^T dO, ds = p (dO v^T - rowsum(dO o))
+    / sqrt(D), dK = ds^T q, dQ = ds k. Returns (dq, dk, dv) in the input
+    dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    keep = torch.isfinite(lse)[..., None].expand_as(s)
+    if causal:
+        rows = torch.arange(q.shape[2], device=q.device)
+        cols = torch.arange(k.shape[2], device=q.device)
+        keep = keep & (cols[None, :] <= rows[:, None])
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd(q, k, v, o, lse, do, causal: bool = False):
+    """Flash attention backward (K1-bwd): q (B, H, Tq, D), k/v (B, H, Tkv,
+    D), the forward's o (like q) and lse (B, H, Tq) float32, and the output
+    gradient ``do`` (like q). Returns (dq, dk, dv) in the input dtype.
+    delta = rowsum(dO * O) is computed here in float32 with one torch op,
+    as the JAX package computes it in XLA outside its kernels; the CUDA
+    side launches the dK/dV kernel and then the dQ kernel (one launch of
+    the pair is one count in ``flash_bwd.launches``)."""
+    if q.device.type == "cpu":
+        return flash_bwd_reference(q, k, v, o, lse, do, causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_bwd: no kernel for device {q.device}")
+    _check("flash_bwd", q, k, v, ("o", o), ("do", do))
+    B, H, Tq, D = q.shape
+    if (lse.shape != (B, H, Tq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_bwd: lse must be contiguous float32 "
+                         f"{(B, H, Tq)} on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    delta = (do.float() * o.float()).sum(-1)
+    fn = _build.function("flash_bwd", "bigdl_flash_bwd", _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), _DTYPES[q.dtype], B, H, Tq, k.shape[2], D,
+             int(bool(causal)), 1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the JAX package's ``_flash``
+    ``custom_vjp``): ``FlashAttention.apply(q, k, v, causal)`` -> o. The
+    forward saves (q, k, v, o, lse); the backward runs :func:`flash_bwd` on
+    a contiguous dO."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal)
+        return dq, dk, dv, None

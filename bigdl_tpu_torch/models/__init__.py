@@ -1,3 +1,3 @@
-from .transformer_lm import TransformerLM
+from .transformer_lm import TransformerLM, lm_loss_chunked
 
-__all__ = ["TransformerLM"]
+__all__ = ["TransformerLM", "lm_loss_chunked"]

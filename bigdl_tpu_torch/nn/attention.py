@@ -13,8 +13,11 @@ are updated IN PLACE: ``decode_chunk`` writes into the cache tensors it is
 given and ``decode_paged`` scatters into the pages with ``index_put_``;
 both return the same tensors for symmetry with the JAX signatures.
 
-Every inference entry point runs under ``torch.no_grad()``: this slice of
-the port is forward-only (the flash backward kernels come with training).
+The training forward (``hidden_states`` and ``call`` with ``training`` and
+a dropout ``generator``; ``forward``) is differentiable; self-attention
+there goes through the flash ``autograd.Function`` (K1-fwd forward, K1-bwd
+backward). Every cached inference entry point (``prefill``, the decode
+steps, ``generate``) runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel.flash import (flash_attention, flash_chunk_attention,
                               paged_attention)
@@ -58,15 +62,27 @@ def rotary_embedding(x, positions, base: float = 10000.0):
     return out.to(x.dtype)
 
 
-def dot_product_attention(q, k, v, mask=None):
+def dropout(x, p: float, generator):
+    """Inverted dropout: each element kept with probability 1 - p (drawn
+    from ``generator``, on x's device) and scaled by 1 / (1 - p)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def dot_product_attention(q, k, v, mask=None, dropout_p: float = 0.0,
+                          generator=None, training: bool = False):
     """q, k, v: (B, H, T, D); mask additive (broadcastable) or None.
-    Computes in float32, returns q's dtype."""
+    Computes in float32, returns q's dtype. With ``training``, ``dropout_p
+    > 0`` and a ``generator``, the attention weights are dropped out (as
+    the JAX package does with an rng)."""
     d = q.shape[-1]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         / math.sqrt(d)
     if mask is not None:
         logits = logits + mask
     w = torch.softmax(logits, dim=-1)
+    if training and dropout_p > 0.0 and generator is not None:
+        w = dropout(w, dropout_p, generator)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
@@ -101,11 +117,14 @@ def embed_ids(embed, ids, hidden_size, with_pe: bool = True, pe=None):
 
 class Attention(Module):
     """Multi-head self-attention with optional grouped-query K/V heads
-    (``num_kv_heads``) and rotary embeddings."""
+    (``num_kv_heads``) and rotary embeddings. ``attention_dropout`` drops
+    attention weights in training (then the einsum path runs instead of
+    flash, as in the JAX package). ``generator`` seeds the weights."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  use_flash: bool = True, causal: bool = False,
-                 num_kv_heads=None, rope: bool = False, generator=None):
+                 num_kv_heads=None, rope: bool = False, generator=None,
+                 attention_dropout: float = 0.0):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} not a multiple of "
@@ -118,6 +137,7 @@ class Attention(Module):
         self.hidden_size, self.num_heads = hidden_size, num_heads
         self.use_flash, self.causal = use_flash, causal
         self.num_kv_heads, self.rope = num_kv_heads, rope
+        self.attention_dropout = attention_dropout
         H = hidden_size
         kvd = self._kvh() * (H // num_heads)
         P = torch.nn.Parameter
@@ -213,36 +233,44 @@ class Attention(Module):
                             positions)
         return self._merge(o, params), k_pages, v_pages
 
-    def call(self, params, x):
-        """Self-attention over x (B, T, H); causal when built so."""
+    def call(self, params, x, training: bool = False, generator=None):
+        """Self-attention over x (B, T, H); causal when built so.
+        Differentiable; dropout on the weights only with ``training`` and a
+        ``generator``."""
         q, k, v = self.qkv(params, x)
         if self.rope:
             pos = torch.arange(q.shape[2], device=x.device)
             q = rotary_embedding(q, pos)
             k = rotary_embedding(k, pos)
         k, v = self._expand_kv(k, v)
-        if self.causal and self.use_flash:
+        drop = (training and self.attention_dropout > 0.0
+                and generator is not None)
+        if self.causal and self.use_flash and not drop:
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True)
         else:
             mask = (causal_mask(q.shape[2], x.device) if self.causal
                     else None)
-            o = dot_product_attention(q, k, v, mask)
+            o = dot_product_attention(q, k, v, mask, self.attention_dropout,
+                                      generator, training)
         return self._merge(o, params)
 
 
 class FeedForwardNetwork(Module):
     """Position-wise FFN: 'relu', 'gelu' (tanh form, as jax.nn.gelu) or
-    'swiglu' (``(silu(x@w1 + b1) * (x@w3)) @ w2 + b2``)."""
+    'swiglu' (``(silu(x@w1 + b1) * (x@w3)) @ w2 + b2``). ``relu_dropout``
+    drops the hidden activations in training."""
 
     def __init__(self, hidden_size: int, filter_size: int,
-                 activation: str = "relu", generator=None):
+                 activation: str = "relu", generator=None,
+                 relu_dropout: float = 0.0):
         super().__init__()
         if activation not in ("relu", "gelu", "swiglu"):
             raise ValueError(f"activation must be relu/gelu/swiglu, "
                              f"got {activation!r}")
         self.hidden_size, self.filter_size = hidden_size, filter_size
         self.activation = activation
+        self.relu_dropout = relu_dropout
         P = torch.nn.Parameter
         self.w1 = P(_glorot(generator, (hidden_size, filter_size)))
         self.b1 = P(torch.zeros(filter_size))
@@ -251,7 +279,7 @@ class FeedForwardNetwork(Module):
         if activation == "swiglu":
             self.w3 = P(_glorot(generator, (hidden_size, filter_size)))
 
-    def call(self, params, x):
+    def call(self, params, x, training: bool = False, generator=None):
         a = x @ params["w1"] + params["b1"]
         if self.activation == "swiglu":
             h = F.silu(a) * (x @ params["w3"])
@@ -259,6 +287,8 @@ class FeedForwardNetwork(Module):
             h = F.gelu(a, approximate="tanh")
         else:
             h = F.relu(a)
+        if training and self.relu_dropout > 0.0 and generator is not None:
+            h = dropout(h, self.relu_dropout, generator)
         return h @ params["w2"] + params["b2"]
 
 
@@ -268,25 +298,30 @@ class TransformerBlock(Module):
     def __init__(self, hidden_size: int, num_heads: int, filter_size: int,
                  causal: bool = True, use_flash: bool = True,
                  num_kv_heads=None, rope: bool = False,
-                 ffn_activation: str = "relu", generator=None):
+                 ffn_activation: str = "relu", generator=None,
+                 attn_dropout: float = 0.0, ffn_dropout: float = 0.0):
         super().__init__()
         self.attn = Attention(hidden_size, num_heads, use_flash=use_flash,
                               causal=causal, num_kv_heads=num_kv_heads,
-                              rope=rope, generator=generator)
+                              rope=rope, generator=generator,
+                              attention_dropout=attn_dropout)
         self.ffn = FeedForwardNetwork(hidden_size, filter_size,
                                       activation=ffn_activation,
-                                      generator=generator)
+                                      generator=generator,
+                                      relu_dropout=ffn_dropout)
         self.ln1 = LayerNormalization(hidden_size)
         self.ln2 = LayerNormalization(hidden_size)
 
-    def _ffn_sublayer(self, params, h):
+    def _ffn_sublayer(self, params, h, training=False, generator=None):
         return h + self.ffn.call(params["ffn"],
-                                 self.ln2.call(params["ln2"], h))
+                                 self.ln2.call(params["ln2"], h),
+                                 training, generator)
 
-    def call(self, params, h):
+    def call(self, params, h, training: bool = False, generator=None):
         h = h + self.attn.call(params["attn"],
-                               self.ln1.call(params["ln1"], h))
-        return self._ffn_sublayer(params, h)
+                               self.ln1.call(params["ln1"], h),
+                               training, generator)
+        return self._ffn_sublayer(params, h, training, generator)
 
     def prefill(self, params, h):
         """Causal forward over a whole prompt that also returns the
@@ -329,12 +364,19 @@ class Transformer(Module):
     ``device``: where the weights live - a CUDA device by default, which
     raises when there is none; pass ``device='cpu'`` for the CPU.
     ``seed``: the weights are drawn from ``torch.Generator().manual_seed
-    (seed)`` (glorot-uniform matrices, N(0, 0.02) embedding)."""
+    (seed)`` (glorot-uniform matrices, N(0, 0.02) embedding).
+    ``attention_dropout`` / ``relu_dropout`` apply in training when a
+    generator is given; ``postprocess_dropout`` is stored and never applied,
+    exactly as in the JAX package. ``remat`` recomputes each block in the
+    backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint``): activation memory drops to the block inputs."""
 
     def __init__(self, vocab_size: int, hidden_size: int = 256,
                  num_heads: int = 4, filter_size: int = 1024,
-                 num_hidden_layers: int = 2, mode: str = "lm",
-                 max_len: int = 2048, use_flash: bool = True,
+                 num_hidden_layers: int = 2, postprocess_dropout: float = 0.0,
+                 attention_dropout: float = 0.0, relu_dropout: float = 0.0,
+                 mode: str = "lm", max_len: int = 2048,
+                 use_flash: bool = True, remat: bool = False,
                  num_kv_heads=None, pos_encoding: str = "sinusoidal",
                  ffn_activation: str = "relu", device=None, seed: int = 0):
         super().__init__()
@@ -347,6 +389,8 @@ class Transformer(Module):
         gen = torch.Generator().manual_seed(seed)
         self.vocab_size, self.hidden_size = vocab_size, hidden_size
         self.mode, self.max_len = mode, max_len
+        self.dropout_p = postprocess_dropout
+        self.remat = remat
         self.pos_encoding = pos_encoding
         self.embed = torch.nn.Parameter(
             0.02 * torch.randn((vocab_size, hidden_size), generator=gen))
@@ -358,7 +402,9 @@ class Transformer(Module):
                                    num_kv_heads=num_kv_heads,
                                    rope=(pos_encoding == "rope"),
                                    ffn_activation=ffn_activation,
-                                   generator=gen)
+                                   generator=gen,
+                                   attn_dropout=attention_dropout,
+                                   ffn_dropout=relu_dropout)
             self.add_module(f"block{i}", blk)
             blocks.append(blk)
         self.blocks = tuple(blocks)
@@ -387,21 +433,56 @@ class Transformer(Module):
                          with_pe=self.pos_encoding != "rope",
                          pe=self._pe(emb.dtype))
 
-    @torch.no_grad()
-    def hidden_states(self, params, ids):
-        """Final-LayerNorm hidden states (B, T, H)."""
+    def _block(self, blk, params, h, training, generator):
+        if not self.remat:
+            return blk.call(params, h, training, generator)
+        # checkpoint restores the global RNG states for the recomputation,
+        # not a private generator's: each run of the block draws from a
+        # copy of ``generator`` as it stood at the block's start (so the
+        # backward's recomputation sees the same dropout masks), and the
+        # caller's generator then moves on from where the first run ended
+        start = None if generator is None else generator.get_state()
+        end = {}
+
+        def run(h):
+            g = None
+            if start is not None:
+                g = torch.Generator(device=generator.device)
+                g.set_state(start)
+            out = blk.call(params, h, training, g)
+            if g is not None:
+                end["state"] = g.get_state()
+            return out
+
+        out = checkpoint(run, h, use_reentrant=False,
+                         preserve_rng_state=False)
+        if generator is not None:
+            generator.set_state(end["state"])
+        return out
+
+    def hidden_states(self, params, ids, training: bool = False,
+                      generator=None):
+        """Final-LayerNorm hidden states (B, T, H): the LM trunk without
+        the vocab projection (see ``models.lm_loss_chunked``).
+        Differentiable; dropout only with ``training`` and a ``generator``
+        (a ``torch.Generator`` on the model's device)."""
         h = self._embed(params, self._ids(ids))
         for i, blk in enumerate(self.blocks):
-            h = blk.call(params[f"block{i}"], h)
+            h = self._block(blk, params[f"block{i}"], h, training, generator)
         return self.ln_f.call(params["ln_f"], h)
 
-    @torch.no_grad()
-    def call(self, params, ids):
-        return self.hidden_states(params, ids) @ params["embed"].T
+    def call(self, params, ids, training: bool = False, generator=None):
+        """Logits (B, T, vocab) through the tied embedding;
+        differentiable."""
+        return self.hidden_states(params, ids, training, generator) \
+            @ params["embed"].T
 
     def forward(self, ids, params=None):
-        """Logits (B, T, vocab) of token ids (B, T); inference only."""
-        return self.call(self.params if params is None else params, ids)
+        """Logits (B, T, vocab) of token ids (B, T) in the module's mode
+        (``training()`` / ``evaluate()``; no dropout without a generator,
+        which ``call`` takes)."""
+        return self.call(self.params if params is None else params, ids,
+                         bool(self.training))
 
     # -- cached inference --------------------------------------------------
 

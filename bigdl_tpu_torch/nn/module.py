@@ -64,3 +64,33 @@ class Module(torch.nn.Module):
 
     def forward(self, x):
         return self.call(self.params, x)
+
+
+class Criterion:
+    """Loss base (counterpart of the JAX package's ``Criterion``, parity
+    with the reference's AbstractCriterion): ``forward(input, target)`` ->
+    scalar tensor (differentiable in ``input``); ``backward`` derives
+    gradInput with ``torch.autograd.grad`` instead of a hand-written
+    updateGradInput."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+        self.output = None
+        self.grad_input = None
+
+    def _forward(self, input, target):
+        raise NotImplementedError(type(self).__name__)
+
+    def forward(self, input, target):
+        self.output = self._forward(input, target)
+        return self.output
+
+    def __call__(self, input, target):
+        return self.forward(input, target)
+
+    def backward(self, input, target):
+        x = input.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = self._forward(x, target)
+        self.grad_input, = torch.autograd.grad(loss, x)
+        return self.grad_input

@@ -8,20 +8,22 @@ card that did not go through a kernel cannot pass for one that did.
 """
 from __future__ import annotations
 
-from ..kernels.flash_attention import flash_fwd
+from ..kernels.flash_attention import FlashAttention, flash_fwd
 from ..kernels.paged_attention import paged_decode_attention
 
 
 def flash_attention(q, k, v, causal: bool = False):
-    """q, k, v: (B, H, T, D) -> (B, H, T, D)."""
-    return flash_fwd(q, k, v, causal=causal)[0]
+    """q, k, v: (B, H, T, D) -> (B, H, T, D); differentiable (K1-fwd
+    forward, K1-bwd backward)."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def flash_chunk_attention(q, k, v, q_offset: int, kv_len=None):
     """Rectangular-causal chunk attention over the first ``kv_len``
     positions of a dense KV cache: q (B, H, S, D) at global positions
     ``q_offset..``; k/v the whole cache (B, H, Tmax, D), already holding
-    the chunk's keys. The kernel reads only the valid prefix."""
+    the chunk's keys. The kernel reads only the valid prefix. Forward
+    only, as in the JAX package."""
     return flash_fwd(q, k, v, causal=True, q_offset=q_offset,
                      kv_len=kv_len)[0]
 

@@ -30,9 +30,30 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_state = {"seed": None}
+_DEFAULT_SEED = 42     # the JAX package's default when no seed was set
+
+
 def set_seed(seed: int):
-    """Seed Python's, numpy's and torch's global generators (the port's
-    own entry points take explicit ``seed``s / ``torch.Generator``s)."""
+    """Seed Python's, numpy's and torch's global generators and record the
+    seed that :func:`new_generator` starts from (the port's own entry
+    points take explicit ``seed``s / ``torch.Generator``s)."""
+    _state["seed"] = seed
     random.seed(seed)
     np.random.seed(seed % 2**32)
     torch.manual_seed(seed)
+
+
+def get_seed():
+    """The seed last given to :func:`set_seed` (None if never set)."""
+    return _state["seed"]
+
+
+def new_generator(device) -> torch.Generator:
+    """A fresh ``torch.Generator`` on ``device`` seeded from
+    :func:`get_seed` (42 when unset). It stands in for the JAX package's
+    ``next_rng_key`` stream: a training run draws its dropout masks from
+    one such generator. Its bits differ from JAX's for the same seed, so
+    tests compare dropout by its invariants, never mask for mask."""
+    seed = _DEFAULT_SEED if _state["seed"] is None else _state["seed"]
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)

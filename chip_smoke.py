@@ -10,25 +10,40 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
 1. prints the card (``nvidia-smi``), the torch / CUDA versions and the
    kernel build time;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and times kernel, plain version and (for flash
-   attention) ``scaled_dot_product_attention`` with CUDA events over CUDA
-   graphs of back-to-back launches on inputs rotated past the 50 MB L2;
+   serving and training paths' shapes, and times kernel, plain version and
+   the one PyTorch call computing the same function
+   (``scaled_dot_product_attention``, its backward for K1-bwd) with CUDA
+   events, over CUDA graphs of back-to-back launches on inputs rotated
+   past the 50 MB L2 where the call can be captured;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
    against ``prefill_chunked`` (rectangular-causal flash kernel);
 4. serves 16 greedy requests of mixed lengths through
    ``DecodeScheduler`` and checks each against a solo decode of its prompt
-   up to the first near-tie.
+   up to the first near-tie;
+5. trains the flagship with the repository's bf16 LM recipe (float32
+   masters, ``bf16_params``, ``hidden_states(training=True)``,
+   ``lm_loss_chunked(chunk=128)``, ``SGD(0.01, momentum=0.9)``) at batch
+   16 x 1024 tokens, remat off and on: 1 warmup step and 5 steps on one
+   fixed batch, each loss and gradient finite and the last loss below
+   the first;
+6. trains through the normal entry point, ``LocalOptimizer`` with
+   ``LMCriterion`` and ``SGD(0.01, momentum=0.9)``, 4 iterations of
+   batch 8 x 256 tokens on float32 parameters.
 
 The kernels' launch counters are set to 0 just before each path is driven
-(``generate``, ``prefill_chunked``, serving after the scheduler's warmup)
-and read just after; a kernel of a path that was never launched, or the
-flash kernel launched other than once per layer and prefill piece, fails
-the run. Every check that fails exits non-zero. The line before the last
-is one JSON object with each kernel's numbers; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+(``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
+each training step, the ``LocalOptimizer`` run) and read just after; a
+kernel of a path that was never launched, or a flash kernel launched other
+than once per layer and prefill piece or training step (twice for the
+forward with remat), fails the run. Every check that fails exits non-zero.
+The line before the last is one JSON object with each kernel's numbers
+(``flash_fwd`` at the serving prefill shape with the ``generate`` launches,
+``flash_fwd_train`` at the training shape with the launches of the five
+remat-off training steps, ``flash_bwd`` likewise); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 import json
 import math
@@ -89,8 +104,34 @@ def graph_ms(torch, fn, n_sets, reps=20, iters=7):
     return statistics.median(times)
 
 
+def event_ms(torch, fn, reps=5, iters=5):
+    """Median device milliseconds of one ``fn()`` call, timed with CUDA
+    events around ``reps`` eager calls (for calls a CUDA graph cannot
+    capture, such as an autograd backward)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
 def n_copies(bytes_per_set):
     return max(1, math.ceil(2 * L2_BYTES / bytes_per_set))
+
+
+def bound(nbytes, flops, dtype):
+    """(bound ms, 'bytes' | 'operations'): the larger of the two times."""
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -129,8 +170,7 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
     flops = 4.0 * D * B * H * float(seen.sum())
     nbytes = (esz * (2 * B * H * Tq * D + 2 * B * H * kv_len * D)
               + 4 * B * H * Tq)
-    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
     F = torch.nn.functional
     if q_offset == 0 and kv_len == Tkv:
         lib = lambda i: F.scaled_dot_product_attention(
@@ -149,9 +189,59 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
         plain_ms=graph_ms(torch, lambda i: K.flash_fwd_reference(
             qs[i], ks[i], vs[i], causal, q_offset, kv_len), sets),
         library_ms=graph_ms(torch, lib, sets),
-        bound_ms=max(t_mem, t_ops),
-        bound_by="bytes" if t_mem >= t_ops else "operations")
+        bound_ms=bound_ms, bound_by=bound_by)
     print(f"  K1 timing {rec}", flush=True)
+    return rec
+
+
+def bwd_case(torch, K, B, H, T, D, dtype, causal, timed):
+    """K1-bwd (dK/dV kernel, then dQ kernel) against flash_bwd_reference
+    on the residuals of the K1-fwd kernel."""
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + T + D)
+    q, k, v, do = [torch.randn(B, H, T, D, device="cuda",
+                               generator=g).to(dtype) for _ in range(4)]
+    o, lse = K.flash_fwd(q, k, v, causal=causal)
+    got = K.flash_bwd(q, k, v, o, lse, do, causal)
+    ref = K.flash_bwd_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(got, ref)]
+    mag = max(b.float().abs().max().item() for b in ref)
+    # both sides keep p and ds in float32 and round only the gradients to
+    # the input type: float32 differs by summation order (~1e-6 relative
+    # over T <= 1024 terms), bf16 by one rounding (2^-9 relative) - the
+    # tolerances leave a factor of 5-100 over that
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * max(1.0, mag)
+    check(all(torch.isfinite(x).all().item() for x in got),
+          "flash_bwd: non-finite gradient")
+    rec = {"shape": [B, H, T, D], "dtype": str(dtype), "causal": causal,
+           "max_abs_err": max(errs), "err_dq_dk_dv": errs,
+           "max_abs_grad": mag, "tol": tol}
+    print(f"  K1-bwd flash_bwd {rec}", flush=True)
+    check(max(errs) <= tol,
+          f"flash_bwd disagrees with its plain version: {rec}")
+    if not timed:
+        return rec
+    esz = torch.empty((), dtype=dtype).element_size()
+    seen = np.arange(1, T + 1) if causal else np.full(T, T)
+    # five products of 2 * D operations per (row, visible key) pair: 2.5
+    # times the forward's; q, k, v, o, dO, lse and delta read once, dq,
+    # dk and dv written once
+    flops = 10.0 * D * B * H * float(seen.sum())
+    nbytes = esz * 8 * B * H * T * D + 4 * 2 * B * H * T
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    F = torch.nn.functional
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    rec.update(
+        ms=graph_ms(torch, lambda i: K.flash_bwd(q, k, v, o, lse, do,
+                                                 causal), 1, reps=5, iters=5),
+        plain_ms=graph_ms(torch, lambda i: K.flash_bwd_reference(
+            q, k, v, o, lse, do, causal), 1, reps=3, iters=5),
+        library_ms=event_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True)),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"  K1-bwd timing {rec}", flush=True)
     return rec
 
 
@@ -197,16 +287,13 @@ def paged_case(torch, K, B, nH, kvH, S, D, bs, pdtype, timed, max_pos=320):
               + 4 * need_blocks + 4 * B)                # table rows, pos
     keys = sum(int(p) + s + 1 for p in pos for s in range(S))
     flops = 4.0 * D * kvH * G * keys
-    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(pdtype)] * 1e3
+    bound_ms, bound_by = bound(nbytes, flops, pdtype)
     rec.update(
         ms=graph_ms(torch, lambda i: K.paged_decode_attention(
             q, kps[i], vps[i], tb, ps), sets),
         plain_ms=graph_ms(torch, lambda i: K.paged_attention_reference(
             q, kps[i], vps[i], tb, ps), sets),
-        library_ms=None,
-        bound_ms=max(t_mem, t_ops),
-        bound_by="bytes" if t_mem >= t_ops else "operations")
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
     print(f"  K2 timing {rec}", flush=True)
     return rec
 
@@ -227,6 +314,101 @@ def solo_greedy(torch, model, params, prompt, n):
                                               caches)
             pos += 1
     return toks, margins
+
+
+# -- phases 5 and 6: training ---------------------------------------------------
+
+def train_recipe(torch, K, model, init, x, y, remat, steps=5):
+    """The bf16 LM training recipe (bench_extra.py bench_transformer_lm):
+    float32 masters, cast to bf16 inside the loss, hidden_states in
+    training mode, lm_loss_chunked(chunk=128), gradients to the masters,
+    SGD(0.01, momentum=0.9) in place. 1 warmup step, then ``steps`` on the
+    same batch; launch counts are read per step."""
+    from bigdl_tpu_torch.convert import flatten, unflatten
+    from bigdl_tpu_torch.models import lm_loss_chunked
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    model.load_state_dict(init)
+    model.remat = remat
+    params = model.params
+    leaves = flatten(params)
+    optim = SGD(learningrate=0.01, momentum=0.9)
+    opt_state = optim.init_state(params)
+
+    def step():
+        p16 = bf16_params(params)
+        h = model.hidden_states(p16, x, training=True)
+        loss = lm_loss_chunked(h, p16["embed"], y, chunk=128)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        optim.update(unflatten(dict(zip(leaves, grads))), params, opt_state,
+                     0.01)
+        return loss, grads
+
+    L = len(model.blocks)
+    want = {"flash_fwd": 2 * L if remat else L, "flash_bwd": L,
+            "paged_attention": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, total = [], [], {n: 0 for n in want}
+    for i in range(steps + 1):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        check(counts == want, f"training step (remat={remat}) launched "
+              f"{counts}, expected {want}")
+        check(torch.stack([torch.isfinite(g).all() for g in grads])
+              .all().item(), f"non-finite gradient (remat={remat})")
+        losses.append(loss.item())
+        if i > 0:                      # step 0 is the warmup
+            times.append(dt)
+            for n in total:
+                total[n] += counts[n]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return {"remat": remat, "losses": losses,
+            "step_s": statistics.median(times), "step_s_all": times,
+            "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": total}
+
+
+def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
+    """The normal entry point: LocalOptimizer over a DataSet of samples,
+    LMCriterion, SGD(0.01, momentum=0.9), float32 parameters."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.nn import LMCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import max_iteration
+    model.load_state_dict(init)
+    model.remat = False
+    rng = np.random.RandomState(2)
+    ids = rng.randint(1, V, (B * iters, T + 1)).astype(np.int32)
+    samples = [Sample(r[:-1], r[1:]) for r in ids]
+    losses = []
+    stop = max_iteration(iters)
+    end = Trigger(lambda st: losses.append(st["loss"]) or stop(st))
+    opt = LocalOptimizer(model, DataSet.array(samples), LMCriterion(),
+                         SGD(learningrate=0.01, momentum=0.9), end,
+                         batch_size=B)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    L = len(model.blocks)
+    want = {"flash_fwd": L * iters, "flash_bwd": L * iters,
+            "paged_attention": 0}
+    check(counts == want, f"LocalOptimizer launched {counts}, expected "
+          f"{want}")
+    check(len(losses) == iters and all(math.isfinite(v) for v in losses),
+          f"LocalOptimizer losses {losses}")
+    return {"losses": losses, "wall_s": dt,
+            "step_s": opt.metrics.values["step_time"], "launches": counts}
 
 
 def main():
@@ -252,8 +434,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
     build_s = _build.build_all()
-    print(f"    kernel build: {build_s:.2f} s (both sources in parallel)",
-          flush=True)
+    print(f"    kernel build: {build_s:.2f} s ({len(_build.SOURCES)} sources "
+          f"in parallel)", flush=True)
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -274,6 +456,14 @@ def main():
     k1_chunk = flash_case(torch, K, 8, 16, 32, 384, 64, bf, True, 96, 128,
                           timed=True)
     flash_case(torch, K, 8, 16, 32, 384, 64, f32, True, 96, 128, False)
+    k1_train = flash_case(torch, K, 16, 16, 1024, 1024, 64, bf, True, 0,
+                          1024, timed=True)
+    k1b_main = bwd_case(torch, K, 16, 16, 1024, 64, bf, True, timed=True)
+    bwd_case(torch, K, 4, 16, 256, 64, f32, True, False)
+    bwd_case(torch, K, 8, 16, 77, 64, bf, True, False)
+    bwd_case(torch, K, 8, 16, 77, 64, f32, False, False)
+    bwd_case(torch, K, 2, 8, 200, 128, f32, True, False)
+    bwd_case(torch, K, 4, 16, 130, 32, bf, False, False)
     k2_main = paged_case(torch, K, 8, 16, 16, 1, 64, 16, f32, timed=True)
     paged_case(torch, K, 1, 16, 16, 32, 64, 16, f32, timed=True)
     for kvh in (16, 4):
@@ -287,7 +477,8 @@ def main():
     model = TransformerLM(vocab_size=V, hidden_size=1024, num_heads=16,
                           filter_size=4096, num_layers=L, max_len=512,
                           seed=0)
-    params = bf16_params(model.params)
+    with torch.no_grad():      # serving weights are leaves
+        params = bf16_params(model.params)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[3] flagship TransformerLM: {n_params / 1e6:.1f}M params, bf16 "
           f"weights, built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -404,6 +595,46 @@ def main():
     print(f"    served tokens equal solo decode on {compared} steps "
           f"(each request up to its first top-2 margin < {margin_tol})",
           flush=True)
+    del sched, kv, model, params
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the bf16 training recipe on the flagship ------------------
+    TB, TT = 16, 1024
+    t0 = time.perf_counter()
+    tmodel = TransformerLM(vocab_size=V, hidden_size=1024, num_heads=16,
+                           filter_size=4096, num_layers=L, max_len=TT, seed=0)
+    init = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
+    print(f"[5] training recipe, flagship at B{TB}/T{TT} (model built in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    ids = np.random.RandomState(0).randint(1, V, (TB, TT + 1))
+    tx = torch.from_numpy(ids[:, :-1]).cuda()
+    ty = torch.from_numpy(ids[:, 1:]).cuda()
+    attn_ms = L * (k1_train["ms"] + k1b_main["ms"])
+    arms = []
+    for remat in (False, True):
+        r = train_recipe(torch, K, tmodel, init, tx, ty, remat)
+        r["tokens_per_s"] = TB * TT / r["step_s"]
+        fwd_extra = L * k1_train["ms"] if remat else 0.0
+        r["attention_share"] = (attn_ms + fwd_extra) / (r["step_s"] * 1e3)
+        arms.append(r)
+        print(f"    remat={remat}: losses {[round(v, 4) for v in r['losses']]}"
+              f"; step {r['step_s'] * 1e3:.1f} ms (median of 5; all "
+              f"{[round(t * 1e3, 1) for t in r['step_s_all']]}) = "
+              f"{r['tokens_per_s']:.0f} tokens/s (smoke reading); peak "
+              f"memory {r['max_mem_gb']:.2f} GiB; launches over the 5 "
+              f"steps {r['launches']}; {L} x (K1-fwd "
+              f"{k1_train['ms']:.3f}{' x 2' if remat else ''} + K1-bwd "
+              f"{k1b_main['ms']:.3f} ms) = {r['attention_share']:.1%} of "
+              f"the step", flush=True)
+
+    # -- phase 6: the normal entry point ------------------------------------
+    r6 = local_optimizer_run(torch, K, tmodel, init, V)
+    print(f"[6] LocalOptimizer, flagship width, B8/T256, float32 params, "
+          f"SGD(0.01, momentum=0.9), 4 iterations: losses "
+          f"{[round(v, 4) for v in r6['losses']]}; {r6['wall_s']:.2f} s "
+          f"(first step {r6['step_s'][0] * 1e3:.0f} ms, then "
+          f"{[round(t * 1e3) for t in r6['step_s'][1:]]} ms); launches "
+          f"{r6['launches']}", flush=True)
 
     def kernel_rec(name, source, replaces, rec, launches):
         return {"name": name, "route": "cuda", "source": source,
@@ -416,12 +647,22 @@ def main():
     print(f"    flash_fwd chunk form (8x16, S=32, q_offset=96, kv_len=128): "
           f"{k1_chunk['ms']:.4f} ms, plain {k1_chunk['plain_ms']:.4f}, sdpa "
           f"{k1_chunk['library_ms']:.4f}, bound {k1_chunk['bound_ms']:.4f}")
+    print(f"    flash_fwd training shape (16x16, T=1024, causal, bf16): "
+          f"{k1_train['ms']:.4f} ms, plain {k1_train['plain_ms']:.4f}, sdpa "
+          f"{k1_train['library_ms']:.4f}, bound {k1_train['bound_ms']:.4f} "
+          f"({k1_train['bound_by']})")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         kernel_rec("flash_fwd", "bigdl_tpu_torch/csrc/flash_fwd.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
                    gen_counts["flash_fwd"]),
+        kernel_rec("flash_fwd_train", "bigdl_tpu_torch/csrc/flash_fwd.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:128", k1_train,
+                   arms[0]["launches"]["flash_fwd"]),
+        kernel_rec("flash_bwd", "bigdl_tpu_torch/csrc/flash_bwd.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:263", k1b_main,
+                   arms[0]["launches"]["flash_bwd"]),
         kernel_rec("paged_attention",
                    "bigdl_tpu_torch/csrc/paged_attention.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,

@@ -3,13 +3,20 @@ kernels run in interpret mode.
 
 On the CPU a kernel wrapper of ``bigdl_tpu_torch`` runs its plain PyTorch
 version, so these tests pin the plain versions to the Pallas kernels'
-function (o and lse of ``_flash_fwd``; ``paged_decode_attention``). The
-CUDA kernels themselves are held against the same plain versions on the
-card by ``chip_smoke.py``.
+function (o and lse of ``_flash_fwd``; dq, dk, dv of ``_flash_bwd``;
+``paged_decode_attention``). The CUDA kernels themselves are held against
+the same plain versions on the card by ``chip_smoke.py``.
 
-Tolerance: atol = rtol = 1e-5 in float32 - both sides compute the same
-online/exact softmax in float32 and differ only in summation order and in
-the exp implementation (a few ulps on values of order 1).
+Tolerance: atol = rtol = 1e-5 in float32 for the forwards - both sides
+compute the same online/exact softmax in float32 and differ only in
+summation order and in the exp implementation (a few ulps on values of
+order 1). The backward sums T products per gradient element (T up to 200
+here) and recomputes p from lse: atol 5e-5, rtol 1e-4 in float32 (the
+interpret kernel and an einsum autodiff already differ by 1.2e-5 at
+T = 200). With bf16 inputs the Pallas kernel rounds p and ds to bf16 before
+its products (2^-9 relative each) and both sides round the gradients to
+bf16 (2^-8 relative, one ulp = 0.016 at magnitudes of 2-4): atol = rtol =
+2e-2.
 """
 import math
 
@@ -22,7 +29,10 @@ import jax.numpy as jnp
 from bigdl_tpu.kernels import flash_attention as jfa
 from bigdl_tpu.kernels import paged_attention as jpa
 from bigdl_tpu_torch import kernels
-from bigdl_tpu_torch.kernels import flash_fwd, paged_decode_attention
+from bigdl_tpu_torch.kernels import (flash_bwd, flash_fwd,
+                                     paged_decode_attention)
+from bigdl_tpu_torch.nn.attention import causal_mask, dot_product_attention
+from bigdl_tpu_torch.parallel.flash import flash_attention
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -53,6 +63,55 @@ def test_flash_plain_matches_pallas_interpret(B, H, Tq, Tkv, D, causal,
                        q_offset=q_offset, kv_len=kv_len)
     torch.testing.assert_close(o, _t(jo), **TOL)
     torch.testing.assert_close(lse, _t(jlse), **TOL)
+
+
+@pytest.mark.parametrize("T,D,causal,dtype", [
+    (77, 32, True, "float32"),     # ragged T, one JAX block
+    (200, 64, True, "float32"),    # ragged T over two JAX blocks
+    (77, 64, False, "float32"),    # non-causal
+    (200, 32, False, "float32"),
+    (200, 64, True, "bfloat16"),   # bf16 inputs, the training dtype
+])
+def test_flash_bwd_plain_matches_pallas_interpret(T, D, causal, dtype):
+    """flash_bwd's plain version on the Pallas forward's residuals
+    (q, k, v, o, lse) against ``_flash_bwd`` in interpret mode."""
+    rng = np.random.RandomState(T + D)
+    jdt = jnp.dtype(dtype)
+    q, k, v, do = [jnp.asarray(rng.randn(2, 2, T, D).astype(np.float32))
+                   .astype(jdt) for _ in range(4)]
+    scale = 1.0 / math.sqrt(D)
+    o, lse = jfa._flash_fwd(q, k, v, causal, scale, 128, 128, True)
+    want = jfa._flash_bwd(causal, scale, 128, 128, True, (q, k, v, o, lse),
+                          do)
+    tdt = getattr(torch, dtype)
+    tt = lambda a: _t(a.astype(jnp.float32)).to(tdt)
+    got = flash_bwd(tt(q), tt(k), tt(v), tt(o), _t(lse), tt(do), causal)
+    tol = (dict(atol=5e-5, rtol=1e-4) if dtype == "float32"
+           else dict(atol=2e-2, rtol=2e-2))
+    for g, w in zip(got, want):
+        assert g.dtype == tdt
+        torch.testing.assert_close(g.float(), _t(w.astype(jnp.float32)),
+                                   **tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_function_gradients_match_autograd(causal):
+    """The autograd.Function (K1-fwd forward, K1-bwd backward; plain
+    versions here) against autograd through the einsum attention."""
+    rng = np.random.RandomState(3)
+    q, k, v = [_t(rng.randn(2, 3, 37, 16)).requires_grad_()
+               for _ in range(3)]
+    do = _t(rng.randn(2, 3, 37, 16))
+    kernels.reset_launch_counts()
+    o = flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    ref = dot_product_attention(q, k, v, causal_mask(37) if causal else None)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    torch.testing.assert_close(o, ref, **TOL)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
+                                       "paged_attention": 0}
 
 
 def _paged_case(rng, B, nH, kvH, S, D, bs, nblk):
@@ -121,4 +180,5 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tables = torch.zeros((1, 2), dtype=torch.int32)
     paged_decode_attention(q, torch.randn(3, 2, 4, 8), torch.randn(3, 2, 4, 8),
                            tables, torch.zeros((1,), dtype=torch.int32))
-    assert kernels.launch_counts() == {"flash_fwd": 0, "paged_attention": 0}
+    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
+                                      "paged_attention": 0}

@@ -278,8 +278,11 @@ def test_convert_state_dict_round_trip_and_facade():
     flat = convert.flatten(tm.params)
     for name, t in sd.items():
         assert torch.equal(flat[name].detach(), t)
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           convert.to_numpy_tree(tm.params), _np(jp))
     assert tm.evaluate() is tm and not tm.training
     assert tm.training() is tm and tm.training
     kernels.reset_launch_counts()
     tm(_ids(14, 1, 8))
-    assert kernels.launch_counts() == {"flash_fwd": 0, "paged_attention": 0}
+    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
+                                      "paged_attention": 0}
