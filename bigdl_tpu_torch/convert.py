@@ -1,14 +1,21 @@
-"""JAX parameters -> the port's state, and back.
+"""JAX parameters and model state -> the port's state, and back.
 
-``Transformer._init_params`` (``bigdl_tpu/nn/attention.py``) builds a
-nested dict: ``embed``, ``ln_f: {weight, bias}``, and per block
-``block{i}: {attn: {wq, wk, wv, wo}, ffn: {w1, b1, w2, b2[, w3]},
-ln1: {weight, bias}, ln2: {weight, bias}}``. The port's modules carry the
-same names, so the flat ``state_dict`` key of a leaf is its path joined
-with dots (``block0.attn.wq``, ``ln_f.weight``). Arrays arrive as numpy
-(``jax.tree_util.tree_map(np.asarray, params)``) and leave as numpy
-(:func:`to_numpy_tree`, so trained weights can be compared with the JAX
-package's); this module imports no JAX.
+The port's modules carry the JAX trees' names and layouts, so the flat
+``state_dict`` key of a leaf is its path joined with dots:
+
+* ``Transformer._init_params`` (``bigdl_tpu/nn/attention.py``): ``embed``,
+  ``ln_f: {weight, bias}``, per block ``block{i}: {attn: {wq, wk, wv,
+  wo}, ffn: {w1, b1, w2, b2[, w3]}, ln1, ln2}`` -> ``block0.attn.wq``;
+* ``ResNet(format="NHWC", fused="pallas")``: Sequential indices, chain
+  blocks under ``"j"``; the stem weight OIHW, each block's ``w1``/``w2``/
+  ``w3``/``proj_w`` HWIO and ``bn1``/``bn2``/``bn3``/``proj_bn``; its
+  state tree holds each BatchNorm's ``running_mean``/``running_var`` ->
+  ``4.0.w1``, ``4.0.bn1.running_mean``, ``1.running_var``.
+
+Arrays arrive as numpy (``jax.tree_util.tree_map(np.asarray, tree)``) and
+leave as numpy (:func:`to_numpy_tree` of ``model.params`` and
+``model.state``, so trained weights and statistics can be compared with the
+JAX package's); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -40,10 +47,12 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
-def jax_to_state_dict(params, dtype=None) -> dict:
-    """A JAX Transformer parameter tree of numpy arrays -> a flat
-    ``state_dict`` of CPU tensors (``model.load_state_dict`` moves them to
-    the model's device). ``dtype`` optionally casts floating leaves."""
+def jax_to_state_dict(params, state=None, dtype=None) -> dict:
+    """A JAX parameter tree (and model state tree, for models with
+    BatchNorm) of numpy arrays -> one flat ``state_dict`` of CPU tensors
+    (``model.load_state_dict`` moves them to the model's device). ``dtype``
+    optionally casts floating parameter leaves; the state keeps its own
+    dtype (float32 running statistics)."""
     out = {}
     for name, a in flatten(params).items():
         a = np.asarray(a)
@@ -54,6 +63,8 @@ def jax_to_state_dict(params, dtype=None) -> dict:
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out[name] = t
+    if state is not None:
+        out.update(jax_to_state_dict(state))
     return out
 
 
@@ -65,3 +76,10 @@ def to_numpy_tree(tree) -> dict:
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_numpy_trees(model):
+    """``(params, state)`` of a port model as nested dicts of numpy arrays
+    with the JAX trees' names and layouts: the way back of
+    :func:`jax_to_state_dict`."""
+    return to_numpy_tree(model.params), to_numpy_tree(model.state)

@@ -6,10 +6,25 @@ Each wrapper counts its launches in a plain integer attribute,
 can show that its path went through the kernels."""
 from .flash_attention import (FlashAttention, flash_bwd, flash_bwd_reference,
                               flash_fwd, flash_fwd_reference)
+from .fused_chain import (FusedResidualMatmul, fused_chain_bwd,
+                          fused_chain_fwd, fused_residual_matmul_nhwc,
+                          residual_chain_bwd_reference,
+                          residual_chain_reference)
+from .fused_conv import (FusedConv3x3, conv3x3_bwd, conv3x3_reference,
+                         fused_bn_relu_conv3x3, fused_conv_fwd)
+from .fused_matmul import (FusedBnReluMatmul, fused_bn_relu_matmul,
+                           fused_bn_relu_matmul_nhwc, fused_matmul_bwd,
+                           fused_matmul_bwd_reference, fused_matmul_fwd,
+                           fused_matmul_fwd_reference)
 from .paged_attention import paged_attention_reference, paged_decode_attention
 
 WRAPPERS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
-            "paged_attention": paged_decode_attention}
+            "paged_attention": paged_decode_attention,
+            "fused_matmul_fwd": fused_matmul_fwd,
+            "fused_matmul_bwd": fused_matmul_bwd,
+            "fused_chain_fwd": fused_chain_fwd,
+            "fused_chain_bwd": fused_chain_bwd,
+            "fused_conv_fwd": fused_conv_fwd}
 
 
 def launch_counts() -> dict:
@@ -23,5 +38,12 @@ def reset_launch_counts():
 
 __all__ = ["FlashAttention", "flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "paged_decode_attention",
-           "paged_attention_reference", "launch_counts",
-           "reset_launch_counts", "WRAPPERS"]
+           "paged_attention_reference", "FusedBnReluMatmul",
+           "fused_bn_relu_matmul", "fused_bn_relu_matmul_nhwc",
+           "fused_matmul_fwd", "fused_matmul_bwd",
+           "fused_matmul_fwd_reference", "fused_matmul_bwd_reference",
+           "FusedResidualMatmul", "fused_residual_matmul_nhwc",
+           "fused_chain_fwd", "fused_chain_bwd", "residual_chain_reference",
+           "residual_chain_bwd_reference", "FusedConv3x3",
+           "fused_bn_relu_conv3x3", "fused_conv_fwd", "conv3x3_reference",
+           "conv3x3_bwd", "launch_counts", "reset_launch_counts", "WRAPPERS"]

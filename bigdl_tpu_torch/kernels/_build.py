@@ -4,8 +4,10 @@ Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``. Builds
 happen on first use, all sources at once (one ``nvcc`` process each, started
 together), into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``). A library's file name carries a digest of its sources and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``.gitignore``). A library's file name carries a digest of its source, the
+headers it includes and the flags, so an edited source or header rebuilds
+the libraries that include it (and no other), and a stale library is never
+loaded.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside each library as ``<name>-<digest>.log``.
 
@@ -25,9 +27,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-           "paged_attention": "paged_attention.cu"}
-HEADERS = ("attn_tile.cuh",)
+# library name -> (source, the headers under csrc/ that it includes)
+SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
+           "flash_bwd": ("flash_bwd.cu", "attn_tile.cuh"),
+           "paged_attention": ("paged_attention.cu", "attn_tile.cuh"),
+           "fused_matmul": ("fused_matmul.cu", "fused_gemm.cuh"),
+           "fused_chain": ("fused_chain.cu", "fused_gemm.cuh"),
+           "fused_conv": ("fused_conv.cu", "fused_gemm.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,7 +57,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name],) + HEADERS:
+    for f in SOURCES[name]:
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
@@ -70,7 +76,7 @@ def build_all() -> float:
     for name in todo:
         out = lib_path(name)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name][0])]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

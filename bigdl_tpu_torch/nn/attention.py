@@ -477,6 +477,12 @@ class Transformer(Module):
         return self.hidden_states(params, ids, training, generator) \
             @ params["embed"].T
 
+    def apply(self, params, state, ids, training: bool = False,
+              generator=None):
+        """``(call(params, ids, training, generator), state)``: the
+        Transformer keeps no state."""
+        return self.call(params, ids, training, generator), state
+
     def forward(self, ids, params=None):
         """Logits (B, T, vocab) of token ids (B, T) in the module's mode
         (``training()`` / ``evaluate()``; no dropout without a generator,

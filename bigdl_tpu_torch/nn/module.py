@@ -13,7 +13,20 @@ JAX package's Torch-style API:
   parameter tree's names. The model code is written as functions of such a
   tree (``call(params, x)``, ``Transformer.generate(params, ...)``), as the
   JAX package is, so a serving registry can hold several versions of one
-  model's weights.
+  model's weights;
+* ``state`` - the module's state (its buffers: BatchNorm running
+  statistics, ``running_mean`` / ``running_var``) as a nested dict with the
+  JAX state tree's names, and ``apply(params, state, x, training)`` ->
+  ``(output, new_state)``, the functional forward that the training loop
+  differentiates. It returns new state tensors (detached) and leaves the
+  given ones as they are; ``forward`` in training mode writes them back;
+* ``reset(generator)`` - draws the parameters anew from their initialisers
+  (``nn.init``), with ``generator`` (a ``torch.Generator`` on the
+  parameters' device) or torch's global one, and sets the state to its
+  initial values (the JAX package's ``init``).
+
+``torch.nn.Module.apply(fn)`` is shadowed by the JAX package's ``apply``;
+use ``modules()`` to visit submodules.
 """
 from __future__ import annotations
 
@@ -58,12 +71,81 @@ class Module(torch.nn.Module):
             out[n] = m.params
         return out
 
+    @property
+    def state(self) -> dict:
+        """Nested dict of this module's state (its persistent buffers, the
+        tensors themselves)."""
+        skip = self._non_persistent_buffers_set
+        out = {n: b for n, b in self._buffers.items()
+               if b is not None and n not in skip}
+        for n, m in self._modules.items():
+            out[n] = m.state
+        return out
+
     def call(self, params, x):
         """The forward as a function of a parameter tree."""
         raise NotImplementedError(type(self).__name__)
 
+    def apply(self, params, state, x, training: bool = False,
+              generator=None):
+        """The forward as a function of a parameter tree and a state tree:
+        ``(output, new_state)``. Stateless modules return the state they
+        were given."""
+        return self.call(params, x), state
+
     def forward(self, x):
-        return self.call(self.params, x)
+        state = self.state
+        out, new_state = self.apply(self.params, state, x,
+                                    training=bool(self.training))
+        assign_state(state, new_state)
+        return out
+
+    def reset(self, generator=None):
+        """Initialise every parameter and state tensor of this module and
+        its children anew; modules that hold them override ``_reset``."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, Module):
+                    m._reset(generator)
+        return self
+
+    def _reset(self, generator):
+        pass
+
+
+def assign_state(state, new_state):
+    """Copy each leaf of ``new_state`` into the matching tensor of
+    ``state`` in place (leaves that are the same tensor are skipped)."""
+    with torch.no_grad():
+        for k, old in state.items():
+            new = new_state[k]
+            if isinstance(old, dict):
+                assign_state(old, new)
+            elif new is not old:
+                old.copy_(new)
+
+
+class Container(Module):
+    """Base container holding an ordered list of children under the keys
+    ``"0"``, ``"1"``, ... (the JAX package's ``Container``), so the params
+    and state trees are keyed by child index."""
+
+    def __init__(self, *modules):
+        super().__init__()
+        for m in modules:
+            self.add(m)
+
+    def add(self, module):
+        self.add_module(str(len(self._modules)), module)
+        return self
+
+    def __getitem__(self, i):
+        return self._modules[str(i)]
+
+    def child_apply(self, i, params, state, x, training, generator):
+        """Apply child ``i`` to its own subtrees: ``(output, new_sub)``."""
+        return self._modules[str(i)].apply(params[str(i)], state[str(i)], x,
+                                           training, generator)
 
 
 class Criterion:

@@ -1,4 +1,5 @@
-"""Normalization (counterpart of ``bigdl_tpu/nn/norm.py``)."""
+"""Normalization (counterpart of ``bigdl_tpu/nn/norm.py``: LayerNorm, and
+the BatchNorms with their running statistics as module state)."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +22,80 @@ class LayerNormalization(Module):
         var = (x - mean).square().mean(-1, keepdim=True)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * params["weight"] + params["bias"]
+
+
+class BatchNormalization(Module):
+    """BatchNorm over (B, C) input, reducing over the batch
+    (nn/BatchNormalization.scala). Running statistics are the module's
+    state (``running_mean``, ``running_var``, float32 buffers); ``apply``
+    returns the new ones, with the reference's momentum semantics
+    ``(1 - m) * running + m * batch`` and the unbiased batch variance.
+    Training uses the JAX package's shifted one-pass statistics: with
+    s = running_mean (no gradient), mean = E[x - s] + s and var =
+    E[(x - s)^2] - E[x - s]^2, all in float32. The output keeps x's
+    dtype."""
+
+    _channel_axis = 1
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True):
+        super().__init__()
+        self.n_output, self.eps, self.momentum = n_output, eps, momentum
+        if affine:
+            self.weight = torch.nn.Parameter(torch.ones(n_output))
+            self.bias = torch.nn.Parameter(torch.zeros(n_output))
+        self.register_buffer("running_mean", torch.zeros(n_output))
+        self.register_buffer("running_var", torch.ones(n_output))
+
+    def _reset(self, generator):
+        if "weight" in self._parameters:
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def apply(self, params, state, x, training: bool = False,
+              generator=None):
+        ch = self._channel_axis % x.dim()
+        ax = tuple(i for i in range(x.dim()) if i != ch)
+        shape = [1] * x.dim()
+        shape[ch] = self.n_output
+        if training:
+            shift = state["running_mean"].detach().float().reshape(shape)
+            xs = x.float() - shift
+            m1 = xs.mean(ax)
+            var = torch.clamp(xs.square().mean(ax) - m1.square(), min=0.0)
+            mean = m1 + shift.reshape(-1)
+            n = x.numel() // self.n_output
+            unbiased = var * n / max(n - 1, 1)
+            m = self.momentum
+            new_state = {
+                "running_mean": ((1 - m) * state["running_mean"]
+                                 + m * mean).detach(),
+                "running_var": ((1 - m) * state["running_var"]
+                                + m * unbiased).detach()}
+        else:
+            mean, var = state["running_mean"], state["running_var"]
+            new_state = state
+        y = (x - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(
+            shape)
+        if "weight" in params:
+            y = y * params["weight"].reshape(shape) + \
+                params["bias"].reshape(shape)
+        return y.to(x.dtype), new_state
+
+
+class SpatialBatchNormalization(BatchNormalization):
+    """Per-channel BatchNorm over NCHW or NHWC
+    (nn/SpatialBatchNormalization.scala; ``data_format`` as in the
+    reference)."""
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True,
+                 data_format: str = "NCHW"):
+        super().__init__(n_output, eps, momentum, affine)
+        if data_format not in ("NCHW", "NHWC"):
+            raise ValueError(f"data_format must be NCHW or NHWC, got "
+                             f"{data_format!r}")
+        if data_format == "NHWC":
+            self._channel_axis = -1

@@ -1,21 +1,26 @@
 """The training loop (counterpart of ``bigdl_tpu/optim/optimizer.py``: the
 ``BaseOptimizer`` core, ``LocalOptimizer`` and the ``Optimizer`` factory).
 
-One step: forward with ``training=True`` (dropout drawn from one
-``torch.Generator`` per run, the stand-in for JAX's ``next_rng_key``), the
-criterion, gradients of the loss with ``torch.autograd.grad``, gradient
-clipping (constant and global L2 norm), then the optim method's update,
-which writes the model's parameters IN PLACE. A non-finite loss leaves the
-parameters and optimizer state as they were; ``set_nan_policy('error')``
-then raises and ``'skip'`` counts the step and goes on. The loop
+One step: the functional forward ``model.apply(params, state, x,
+training=True, generator)`` (dropout drawn from one ``torch.Generator``
+per run, the stand-in for JAX's ``next_rng_key``), the criterion,
+gradients of the loss with ``torch.autograd.grad``, gradient clipping
+(constant and global L2 norm), then the optim method's update, which
+writes the model's parameters IN PLACE, and the new model state
+(BatchNorm running statistics) copied into the model's buffers. A
+non-finite loss leaves the parameters, the optimizer state and the model
+state as they were (the JAX loop's ``pick(new, old)``);
+``set_nan_policy('error')`` then raises and ``'skip'`` counts the step and
+goes on. The loop
 schedules lr per step, advances ``neval`` / ``epoch`` / ``loss`` /
 ``epoch_finished`` in ``optim_method.state``, reshuffles per epoch (the
 same order as the JAX package for the same data set seed) and stops at
 the end trigger. ``metrics`` records ``data_time``, ``step_time`` and
 ``epoch_time`` per step or epoch.
 
-The model must be one whose ``call(params, x, training, generator)`` is
-the training forward (``Transformer`` is). Not ported yet: supersteps, the
+The model must be one whose ``apply(params, state, x, training,
+generator)`` is the training forward (``Transformer`` and the ResNets
+are). Not ported yet: supersteps, the
 staging thread, async / windowed loss reads, checkpoints and the 'resume'
 policy, validation, summaries, regularizers, frozen modules, remediation,
 fault policies, observability, and ``DistriOptimizer``.
@@ -30,6 +35,7 @@ import torch
 
 from ..convert import flatten, unflatten
 from ..dataset import AbstractDataSet, DataSet, ShardedDataSet
+from ..nn.module import assign_state
 from ..utils import engine
 from .optim_method import SGD, OptimMethod
 from .trigger import Trigger, max_epoch
@@ -166,12 +172,13 @@ class BaseOptimizer:
             return self.training_set  # already yields MiniBatches
         return ShardedDataSet(self.training_set, self.batch_size)
 
-    def _step(self, params, opt_state, x, y, lr, generator) -> float:
+    def _step(self, params, mstate, opt_state, x, y, lr, generator) -> float:
         """One training step; returns the loss as a host float (the one
-        device sync of the step). The update is skipped on a non-finite
-        loss."""
+        device sync of the step). The parameter update and the new model
+        state are skipped on a non-finite loss."""
         leaves = flatten(params)
-        out = self.model.call(params, x, training=True, generator=generator)
+        out, new_mstate = self.model.apply(params, mstate, x, training=True,
+                                           generator=generator)
         loss = self.criterion._forward(out, y)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         loss_val = float(loss.detach())
@@ -179,6 +186,7 @@ class BaseOptimizer:
             g = _clip_grads(unflatten(dict(zip(leaves, grads))),
                             self.clip_const, self.clip_norm)
             self.optim_method.update(g, params, opt_state, lr)
+            assign_state(mstate, new_mstate)
         return loss_val
 
     def optimize(self):
@@ -192,6 +200,7 @@ class BaseOptimizer:
                              f"model with device='{self.device}'")
         model.training()
         params = model.params
+        mstate = model.state
         opt_state = self.optim_method.init_state(params)
         generator = engine.new_generator(self.device)
         state = self.optim_method.state
@@ -202,8 +211,8 @@ class BaseOptimizer:
             batched.shuffle()
             epoch_start = time.time()
             done, nan_streak = self._run_epoch(
-                iter(batched.data(train=True)), state, params, opt_state,
-                generator, nan_streak)
+                iter(batched.data(train=True)), state, params, mstate,
+                opt_state, generator, nan_streak)
             if not done:
                 state["epoch"] += 1
                 state["epoch_finished"] = True
@@ -211,8 +220,8 @@ class BaseOptimizer:
                 done = self.end_trigger(state)
         return model
 
-    def _run_epoch(self, batches, state, params, opt_state, generator,
-                   nan_streak):
+    def _run_epoch(self, batches, state, params, mstate, opt_state,
+                   generator, nan_streak):
         """Steps until the epoch's batches run out (returns (False, ...))
         or the end trigger fires (returns (True, ...))."""
         optim = self.optim_method
@@ -224,7 +233,7 @@ class BaseOptimizer:
             x = _place(mb.input, self.device)
             y = _place(mb.target, self.device)
             t1 = time.time()
-            loss_val = self._step(params, opt_state, x, y,
+            loss_val = self._step(params, mstate, opt_state, x, y,
                                   optim.current_lr(), generator)
             t2 = time.time()
             if not np.isfinite(loss_val):

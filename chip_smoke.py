@@ -10,11 +10,13 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
 1. prints the card (``nvidia-smi``), the torch / CUDA versions and the
    kernel build time;
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving and training paths' shapes, and times kernel, plain version and
-   the one PyTorch call computing the same function
-   (``scaled_dot_product_attention``, its backward for K1-bwd) with CUDA
-   events, over CUDA graphs of back-to-back launches on inputs rotated
-   past the 50 MB L2 where the call can be captured;
+   serving, LM training and ResNet-50 shapes, and times kernel, plain
+   version and the PyTorch call computing the same function
+   (``scaled_dot_product_attention``, its backward for K1-bwd; for the
+   fused ResNet kernels, which no single call computes, the bare product
+   alone: cuBLAS ``x @ w``, or cuDNN's conv for K4) with CUDA events, over
+   CUDA graphs of back-to-back launches on inputs rotated past the 50 MB
+   L2 where the call can be captured;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
@@ -30,24 +32,39 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    the first;
 6. trains through the normal entry point, ``LocalOptimizer`` with
    ``LMCriterion`` and ``SGD(0.01, momentum=0.9)``, 4 iterations of
-   batch 8 x 256 tokens on float32 parameters.
+   batch 8 x 256 tokens on float32 parameters;
+7. runs one float32 training step of ResNet-50 (``fused="pallas"``, NHWC,
+   ``fused_conv2``) at B2/224 on the card and on the CPU with the same
+   weights (logits, running statistics, gradients; the max pool's ties),
+   then trains full-width, full-depth ResNet-50 with the repository's
+   recipe (``bench.py`` ``_build_resnet_step``: float32 masters,
+   ``bf16_params``, bf16 images, ``CrossEntropyCriterion`` on float32
+   logits, ``SGD(0.1, momentum=0.9)``) at B256/224, ``fused_conv2`` off
+   and on: 1 warmup step and 4 steps on one fixed batch;
+8. trains ResNet-50 through ``Optimizer.create`` (a ``LocalOptimizer``)
+   over a DataSet of image Samples, 3 iterations of B32/224, float32.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
-each training step, the ``LocalOptimizer`` run) and read just after; a
-kernel of a path that was never launched, or a flash kernel launched other
-than once per layer and prefill piece or training step (twice for the
-forward with remat), fails the run. Every check that fails exits non-zero.
-The line before the last is one JSON object with each kernel's numbers
-(``flash_fwd`` at the serving prefill shape with the ``generate`` launches,
-``flash_fwd_train`` at the training shape with the launches of the five
-remat-off training steps, ``flash_bwd`` likewise); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or outside a checkout of the repository, it exits non-zero and prints no
-result.
+each training step, each ``LocalOptimizer`` run) and read just after; a
+path's kernel launched other than its expected number of times (once per
+layer and prefill piece or LM training step, twice for the forward with
+remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
+16 K4 forwards with ``fused_conv2``), or any other kernel launched, fails
+the run. Every check that fails exits non-zero. The line before the last
+is one JSON object with each kernel's numbers (``flash_fwd`` at the
+serving prefill shape with the ``generate`` launches, ``flash_fwd_train``
+at the training shape with the launches of the five remat-off training
+steps, ``flash_bwd`` likewise; the fused ResNet kernels at their timed
+shapes with the launches of the four ResNet-50 steps of the arm that runs
+them); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -298,6 +315,184 @@ def paged_case(torch, K, B, nH, kvH, S, D, bs, pdtype, timed, max_pos=320):
     return rec
 
 
+# -- phase 2, the fused ResNet kernels (K3, K3-nhwc, K5, K4) -----------------
+
+def _rel_err(got, want):
+    """Largest |got - want| over max(1, largest |want|)."""
+    return ((got.float() - want.float()).abs().max().item()
+            / max(1.0, want.float().abs().max().item()))
+
+
+FUSED_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
+
+
+def _esz(torch, dtype):
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
+    """K3 forward (and backward) against the plain versions on one set of
+    inputs; timed: kernel, plain version and the bare product (cuBLAS
+    ``x @ w``; for the backward ``dz @ w.T`` and ``x.T @ dz``), which
+    computes the product alone, without the prologue and statistics."""
+    g = torch.Generator(device="cuda").manual_seed(M + Kd + N)
+    x = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
+    w = (0.1 * torch.randn(Kd, N, device="cuda", generator=g)).to(dtype)
+    a = b = None
+    if prologue:
+        a = (torch.rand(Kd, device="cuda", generator=g) + 0.5).to(dtype)
+        b = torch.randn(Kd, device="cuda", generator=g).to(dtype)
+    got = K.fused_matmul_fwd(x, w, a, b, relu, stats)
+    ref = K.fused_matmul_fwd_reference(x, w, a, b, relu, stats)
+    errs = [_rel_err(p, q) for p, q in zip(got, ref) if q is not None]
+    rec = {"shape": [M, Kd, N], "dtype": str(dtype), "prologue": prologue,
+           "relu": relu, "stats": stats, "err_z_s1_s2": errs}
+    if bwd:
+        z = ref[0]
+        dz = torch.randn(M, N, device="cuda", generator=g).to(dtype)
+        ds1 = torch.randn(N, device="cuda", generator=g) if stats else None
+        ds2 = (0.01 * torch.randn(N, device="cuda", generator=g)
+               if stats else None)
+        gb = K.fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu, stats)
+        rb = K.fused_matmul_bwd_reference(x, w, a, b, z, dz, ds1, ds2, relu,
+                                          stats)
+        rec["err_dx_dw_da_db"] = [_rel_err(p, q) for p, q in zip(gb, rb)
+                                  if q is not None]
+        errs = errs + rec["err_dx_dw_da_db"]
+    torch.cuda.synchronize()
+    tol = FUSED_TOL[str(dtype)]
+    rec.update(max_abs_err=max(errs), tol=tol)
+    print(f"  K3 fused_matmul {rec}", flush=True)
+    check(max(errs) <= tol, f"fused_matmul disagrees with its plain version: "
+          f"{rec}")
+    if not timed:
+        return rec
+    e = _esz(torch, dtype)
+    nbytes = e * (M * Kd + Kd * N + M * N) + 4 * (2 * N + (2 * Kd if prologue
+                                                           else 0))
+    rec["fwd"] = dict(
+        ms=graph_ms(torch, lambda i: K.fused_matmul_fwd(x, w, a, b, relu,
+                                                        stats), 1, reps=10),
+        plain_ms=graph_ms(torch, lambda i: K.fused_matmul_fwd_reference(
+            x, w, a, b, relu, stats), 1, reps=5),
+        library_ms=graph_ms(torch, lambda i: x @ w, 1, reps=10))
+    rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
+        nbytes, 2.0 * M * Kd * N, dtype)
+    if bwd:
+        # reads x, w, a, b, dz, z, ds1, ds2; writes dx, dw, da, db
+        nbytes = (e * (2 * M * Kd + 2 * Kd * N + 2 * M * N)
+                  + 4 * (2 * N + (4 * Kd if prologue else 0)))
+        rec["bwd"] = dict(
+            ms=graph_ms(torch, lambda i: K.fused_matmul_bwd(
+                x, w, a, b, z, dz, ds1, ds2, relu, stats), 1, reps=5,
+                iters=5),
+            plain_ms=graph_ms(torch, lambda i: K.fused_matmul_bwd_reference(
+                x, w, a, b, z, dz, ds1, ds2, relu, stats), 1, reps=3,
+                iters=5),
+            library_ms=graph_ms(torch, lambda i: (dz @ w.T, x.T @ dz), 1,
+                                reps=5, iters=5))
+        rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
+            nbytes, 4.0 * M * Kd * N, dtype)
+    print(f"  K3 timing {rec}", flush=True)
+    return rec
+
+
+def k5_case(torch, K, B, H, Kd, N, dtype, timed):
+    """K5 forward and backward against the plain versions; timed like K3,
+    the bare product being ``h @ w`` (and ``dzo @ w.T``, ``h.T @ dzo``)."""
+    g = torch.Generator(device="cuda").manual_seed(B + H + Kd + N)
+    M = B * H * H
+    z = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
+    r = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
+    w = (0.1 * torch.randn(Kd, N, device="cuda", generator=g)).to(dtype)
+    a = (torch.rand(Kd, device="cuda", generator=g) + 0.5).to(dtype)
+    b = torch.randn(Kd, device="cuda", generator=g).to(dtype)
+    got = K.fused_chain_fwd(z, r, a, b, w, True)
+    ref = K.residual_chain_reference(z, r, a, b, w, True)
+    h, zo = ref[0], ref[1]
+    dh = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
+    dzo = torch.randn(M, N, device="cuda", generator=g).to(dtype)
+    ds1 = torch.randn(N, device="cuda", generator=g)
+    ds2 = 0.01 * torch.randn(N, device="cuda", generator=g)
+    gb = K.fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, True)
+    rb = K.residual_chain_bwd_reference(z, r, a, b, w, zo, dh, dzo, ds1, ds2,
+                                        True)
+    torch.cuda.synchronize()
+    errs = [_rel_err(p, q) for p, q in zip(got + gb, ref + rb)]
+    tol = FUSED_TOL[str(dtype)]
+    rec = {"shape": [B, H, H, Kd, N], "dtype": str(dtype),
+           "err_h_zo_s1_s2_dz_dr_da_db_dw": errs, "max_abs_err": max(errs),
+           "tol": tol}
+    print(f"  K5 fused_chain {rec}", flush=True)
+    check(max(errs) <= tol, f"fused_chain disagrees with its plain version: "
+          f"{rec}")
+    if not timed:
+        return rec
+    e = _esz(torch, dtype)
+    rec["fwd"] = dict(
+        ms=graph_ms(torch, lambda i: K.fused_chain_fwd(z, r, a, b, w, True),
+                    1, reps=10),
+        plain_ms=graph_ms(torch, lambda i: K.residual_chain_reference(
+            z, r, a, b, w, True), 1, reps=5),
+        library_ms=graph_ms(torch, lambda i: h @ w, 1, reps=10))
+    # reads z, r, w, a, b; writes h, zo, s1, s2
+    rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
+        e * (3 * M * Kd + Kd * N + M * N) + 4 * (2 * Kd + 2 * N),
+        2.0 * M * Kd * N, dtype)
+    rec["bwd"] = dict(
+        ms=graph_ms(torch, lambda i: K.fused_chain_bwd(
+            z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=5, iters=5),
+        plain_ms=graph_ms(torch, lambda i: K.residual_chain_bwd_reference(
+            z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=3, iters=5),
+        library_ms=graph_ms(torch, lambda i: (dzo @ w.T, h.T @ dzo), 1,
+                            reps=5, iters=5))
+    # reads z, r, w, a, b, dh, dzo, zo, ds1, ds2; writes dz, dr, da, db, dw
+    rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
+        e * (5 * M * Kd + 2 * Kd * N + 2 * M * N) + 4 * (4 * Kd + 2 * N),
+        4.0 * M * Kd * N, dtype)
+    print(f"  K5 timing {rec}", flush=True)
+    return rec
+
+
+def k4_case(torch, K, B, H, C, N, stride, dtype, timed):
+    """K4 forward against its plain version; timed like K3, the library
+    call being cuDNN's bare conv (``F.conv2d`` on the channels-last view,
+    without the prologue and statistics)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(B + H + C + stride)
+    x = torch.randn(B, H, H, C, device="cuda", generator=g).to(dtype)
+    w = (0.1 * torch.randn(3, 3, C, N, device="cuda", generator=g)).to(dtype)
+    a = (torch.rand(C, device="cuda", generator=g) + 0.5).to(dtype)
+    b = torch.randn(C, device="cuda", generator=g).to(dtype)
+    got = K.fused_conv_fwd(x, w, a, b, stride, True)
+    ref = K.conv3x3_reference(x, w, a, b, stride, True)
+    torch.cuda.synchronize()
+    errs = [_rel_err(p, q) for p, q in zip(got, ref)]
+    tol = FUSED_TOL[str(dtype)]
+    rec = {"shape": [B, H, H, C, N], "stride": stride, "dtype": str(dtype),
+           "err_z_s1_s2": errs, "max_abs_err": max(errs), "tol": tol}
+    print(f"  K4 fused_conv {rec}", flush=True)
+    check(max(errs) <= tol, f"fused_conv disagrees with its plain version: "
+          f"{rec}")
+    if not timed:
+        return rec
+    H2 = -(-H // stride)
+    e = _esz(torch, dtype)
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    rec.update(
+        ms=graph_ms(torch, lambda i: K.fused_conv_fwd(x, w, a, b, stride,
+                                                      True), 1, reps=5),
+        plain_ms=graph_ms(torch, lambda i: K.conv3x3_reference(
+            x, w, a, b, stride, True), 1, reps=3),
+        library_ms=graph_ms(torch, lambda i: F.conv2d(
+            xc, wc, stride=stride, padding=1), 1, reps=10))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        e * (B * H * H * C + 9 * C * N + B * H2 * H2 * N) + 4 * (2 * C + 2 * N),
+        2.0 * B * H2 * H2 * 9 * C * N, dtype)
+    print(f"  K4 timing {rec}", flush=True)
+    return rec
+
+
 # -- phase 4 helper ------------------------------------------------------------
 
 def solo_greedy(torch, model, params, prompt, n):
@@ -345,8 +540,8 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
         return loss, grads
 
     L = len(model.blocks)
-    want = {"flash_fwd": 2 * L if remat else L, "flash_bwd": L,
-            "paged_attention": 0}
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(flash_fwd=2 * L if remat else L, flash_bwd=L)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, total = [], [], {n: 0 for n in want}
@@ -401,12 +596,176 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
     L = len(model.blocks)
-    want = {"flash_fwd": L * iters, "flash_bwd": L * iters,
-            "paged_attention": 0}
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(flash_fwd=L * iters, flash_bwd=L * iters)
     check(counts == want, f"LocalOptimizer launched {counts}, expected "
           f"{want}")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"LocalOptimizer losses {losses}")
+    return {"losses": losses, "wall_s": dt,
+            "step_s": opt.metrics.values["step_time"], "launches": counts}
+
+
+# -- phases 7 and 8: ResNet-50 training ---------------------------------------------
+
+def resnet_card_vs_cpu(torch, K, B=2, S=224):
+    """The model on the card (the kernels) against the same weights on the
+    CPU (the kernels' plain versions), float32, TF32 off: logits, new
+    running statistics and gradients of one training step on a small
+    batch, and the exact max pool's tie routing on the card against the
+    CPU's."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.convert import flatten
+    from bigdl_tpu_torch.models import ResNet50
+    rng = np.random.RandomState(3)
+    x = rng.randn(B, S, S, 3).astype(np.float32)
+    y = torch.from_numpy(rng.randint(1, 1001, size=B))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = ResNet50(format="NHWC", fused="pallas", fused_conv2=True,
+                     zero_init_residual=False, device=dev, seed=5)
+        if dev == "cpu":
+            m.load_state_dict({k: v.cpu() for k, v in card_sd.items()})
+        else:
+            card_sd = m.state_dict()
+        params = m.params
+        logits, ns = m.apply(params, m.state, torch.from_numpy(x).to(dev),
+                             training=True)
+        loss = nn.CrossEntropyCriterion()._forward(logits, y.to(dev))
+        leaves = flatten(params)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[dev] = (logits.detach().cpu(),
+                    {k: v.cpu() for k, v in flatten(ns).items()},
+                    {k: g.cpu() for k, g in zip(leaves, grads)})
+    (lc, sc, gc), (lp, sp, gp) = out["cuda"], out["cpu"]
+    gerr = sorted(((_rel_err(gc[k], gp[k]), k) for k in gp), reverse=True)
+    rec = {"logits": _rel_err(lc, lp),
+           "state": max(_rel_err(sc[k], sp[k]) for k in sp),
+           "grad_fc": _rel_err(gc["10.weight"], gp["10.weight"]),
+           "grad_all": gerr[0][0], "grad_worst3": gerr[:3]}
+    # ties, as after the stem's ReLU: the first maximum of each window
+    pool = nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1, format="NHWC")
+    xp = torch.relu(torch.from_numpy(rng.randn(4, 56, 56, 64).astype(
+        np.float32)))
+    gpool = {}
+    for dev in ("cuda", "cpu"):
+        t = xp.to(dev).requires_grad_()
+        pool.forward(t).sum().backward()
+        gpool[dev] = t.grad.cpu()
+    rec["pool_grad_equal"] = bool(torch.equal(gpool["cuda"], gpool["cpu"]))
+    print(f"[7] ResNet-50 card vs CPU (B{B}/{S}, float32, fused_conv2, one "
+          f"training step): {rec}", flush=True)
+    # float32 everywhere, sums in other orders: the logits, statistics and
+    # classifier gradients agree to ~1e-5 (1e-4 allowed); the deeper
+    # gradients pass backwards through the one-pass BatchNorm variances of
+    # stage 3 (98 pixels each at B2), whose cancellation amplifies the
+    # rounding differences (the JAX package's own plain and kernel paths
+    # differ by 2-8% there at small batches; 1e-1 allowed)
+    check(rec["logits"] <= 1e-4 and rec["state"] <= 1e-4
+          and rec["grad_fc"] <= 1e-4 and rec["grad_all"] <= 1e-1,
+          f"ResNet-50 on the card disagrees with the CPU: {rec}")
+    check(rec["pool_grad_equal"], "max pool ties routed differently on the "
+          "card and the CPU")
+    return rec
+
+
+def resnet_recipe(torch, K, model, init, x, y, steps=4):
+    """The repository's ResNet-50 recipe (bench.py _build_resnet_step):
+    float32 masters, ``bf16_params`` inside the loss, bf16 images, the
+    model's functional ``apply`` in training mode, ``CrossEntropyCriterion``
+    on float32 logits, SGD(0.1, momentum=0.9) in place, the new running
+    statistics written back. 1 warmup step, then ``steps`` on the same
+    batch; launch counts are read per step."""
+    from bigdl_tpu_torch.convert import flatten, unflatten
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.nn.module import assign_state
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    model.load_state_dict(init)
+    params, mstate = model.params, model.state
+    leaves = flatten(params)
+    crit = CrossEntropyCriterion()
+    optim = SGD(learningrate=0.1, momentum=0.9)
+    opt_state = optim.init_state(params)
+
+    def step():
+        out, new_state = model.apply(bf16_params(params), mstate, x,
+                                     training=True)
+        loss = crit._forward(out.float(), y)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        optim.update(unflatten(dict(zip(leaves, grads))), params, opt_state,
+                     0.1)
+        assign_state(mstate, new_state)
+        return loss, grads
+
+    conv2 = model[4].blocks[0].fused_conv2
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(fused_matmul_fwd=24, fused_matmul_bwd=24, fused_chain_fwd=12,
+                fused_chain_bwd=12, fused_conv_fwd=16 if conv2 else 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, total = [], [], dict.fromkeys(want, 0)
+    for i in range(steps + 1):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        check(counts == want, f"ResNet-50 step (fused_conv2={conv2}) "
+              f"launched {counts}, expected {want}")
+        check(torch.stack([torch.isfinite(g).all() for g in grads])
+              .all().item(), f"non-finite gradient (fused_conv2={conv2})")
+        losses.append(loss.item())
+        if i > 0:                      # step 0 is the warmup
+            times.append(dt)
+            for n in total:
+                total[n] += counts[n]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    moved = float(model[1].running_mean.abs().max())
+    check(moved > 0, "the stem BatchNorm's running mean never moved")
+    return {"fused_conv2": conv2, "losses": losses,
+            "step_s": statistics.median(times), "step_s_all": times,
+            "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": total}
+
+
+def resnet_local_optimizer(torch, K, model, init, B=32, S=224, iters=3):
+    """The normal entry point: ``Optimizer.create`` (a LocalOptimizer) over
+    a DataSet of image Samples (H, W, 3) with 1-based labels,
+    CrossEntropyCriterion, SGD(0.1, momentum=0.9), float32 parameters."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger, max_iteration
+    model.load_state_dict(init)
+    rng = np.random.RandomState(4)
+    imgs = rng.randn(B * iters, S, S, 3).astype(np.float32)
+    labels = rng.randint(1, 1001, size=B * iters)
+    samples = [Sample(imgs[i], labels[i]) for i in range(B * iters)]
+    losses = []
+    stop = max_iteration(iters)
+    end = Trigger(lambda st: losses.append(st["loss"]) or stop(st))
+    opt = Optimizer.create(model, DataSet.array(samples),
+                           CrossEntropyCriterion(), end, batch_size=B,
+                           optim_method=SGD(learningrate=0.1, momentum=0.9))
+    before = model[1].running_mean.clone()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(fused_matmul_fwd=24 * iters, fused_matmul_bwd=24 * iters,
+                fused_chain_fwd=12 * iters, fused_chain_bwd=12 * iters)
+    check(counts == want, f"ResNet-50 LocalOptimizer launched {counts}, "
+          f"expected {want}")
+    check(len(losses) == iters and all(math.isfinite(v) for v in losses),
+          f"ResNet-50 LocalOptimizer losses {losses}")
+    check(not torch.equal(model[1].running_mean, before),
+          "LocalOptimizer left the running statistics where they were")
     return {"losses": losses, "wall_s": dt,
             "step_s": opt.metrics.values["step_time"], "launches": counts}
 
@@ -436,10 +795,14 @@ def main():
     build_s = _build.build_all()
     print(f"    kernel build: {build_s:.2f} s ({len(_build.SOURCES)} sources "
           f"in parallel)", flush=True)
-    for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+    for name in _build.SOURCES:     # nvcc -Xptxas -v, one line a library
+        log = _build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        if regs:
+            print(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                  f"registers, spill stores up to {max(spills or [0])} bytes")
 
     # -- phase 2 ----------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -470,6 +833,24 @@ def main():
         for S in (1, 32):
             for pdt in (f32, bf):
                 paged_case(torch, K, 8, 16, kvh, S, 64, 16, pdt, False)
+    # the fused ResNet kernels: small and ragged shapes in both dtypes,
+    # then the three timed ResNet-50 shapes at B256/224
+    for dt in (f32, bf):
+        k3_case(torch, K, 300, 24, 40, dt, True, True, True, False)
+        k3_case(torch, K, 257, 130, 70, dt, False, False, True, False)
+        k3_case(torch, K, 129, 16, 8, dt, True, False, False, False)
+        k5_case(torch, K, 2, 5, 48, 24, dt, False)
+        k4_case(torch, K, 2, 8, 16, 24, 1, dt, False)
+        k4_case(torch, K, 2, 7, 32, 40, 2, dt, False)
+    # stage-0 conv3 (prologue BN2 + ReLU), stage-3 projection, stage-0 K5
+    # junction, K4 at stage 0 and at the stage-1 stride-2 entry
+    k3_s0 = k3_case(torch, K, 256 * 56 * 56, 64, 256, bf, True, True, True,
+                    timed=True)
+    k3_s3 = k3_case(torch, K, 256 * 7 * 7, 1024, 2048, bf, False, False, True,
+                    timed=True, bwd=False)
+    k5_s0 = k5_case(torch, K, 256, 56, 256, 64, bf, timed=True)
+    k4_s0 = k4_case(torch, K, 256, 56, 64, 64, 1, bf, timed=True)
+    k4_s1 = k4_case(torch, K, 256, 56, 128, 128, 2, bf, timed=True)
 
     # -- phase 3: generate on the flagship model ---------------------------
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
@@ -636,6 +1017,49 @@ def main():
           f"{[round(t * 1e3) for t in r6['step_s'][1:]]} ms); launches "
           f"{r6['launches']}", flush=True)
 
+    del tmodel, init
+    torch.cuda.empty_cache()
+
+    # -- phase 7: ResNet-50, card against CPU, then the bf16 recipe ----------
+    from bigdl_tpu_torch.models import ResNet50
+    r7 = resnet_card_vs_cpu(torch, K)
+    RB, RS = 256, 224
+    rng = np.random.RandomState(0)
+    rx = torch.from_numpy(rng.randn(RB, RS, RS, 3).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    ry = torch.from_numpy(rng.randint(1, 1001, size=RB)).cuda()
+    rn_arms = []
+    for conv2 in (False, True):
+        t0 = time.perf_counter()
+        rmodel = ResNet50(format="NHWC", fused="pallas", fused_conv2=conv2,
+                          seed=0)
+        if not conv2:
+            rinit = {k: v.detach().clone()
+                     for k, v in rmodel.state_dict().items()}
+        built = time.perf_counter() - t0
+        r = resnet_recipe(torch, K, rmodel, rinit, rx, ry)
+        r["images_per_s"] = RB / r["step_s"]
+        rn_arms.append(r)
+        print(f"    ResNet-50 B{RB}/{RS} bf16 recipe, fused_conv2={conv2} "
+              f"(built in {built:.1f} s): losses "
+              f"{[round(v, 4) for v in r['losses']]}; step "
+              f"{r['step_s'] * 1e3:.1f} ms (median of 4; all "
+              f"{[round(t * 1e3, 1) for t in r['step_s_all']]}) = "
+              f"{r['images_per_s']:.1f} images/s (smoke reading); peak "
+              f"memory {r['max_mem_gb']:.2f} GiB; launches over the 4 steps "
+              f"{r['launches']}", flush=True)
+        del rmodel
+        torch.cuda.empty_cache()
+
+    # -- phase 8: ResNet-50 through the normal entry point --------------------
+    r8 = resnet_local_optimizer(
+        torch, K, ResNet50(format="NHWC", fused="pallas", seed=0), rinit)
+    print(f"[8] Optimizer.create (LocalOptimizer), ResNet-50, B32/224 image "
+          f"Samples, float32 params, SGD(0.1, momentum=0.9), 3 iterations: "
+          f"losses {[round(v, 4) for v in r8['losses']]}; {r8['wall_s']:.2f} "
+          f"s (steps {[round(t * 1e3) for t in r8['step_s']]} ms); launches "
+          f"{r8['launches']}", flush=True)
+
     def kernel_rec(name, source, replaces, rec, launches):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -651,6 +1075,16 @@ def main():
           f"{k1_train['ms']:.4f} ms, plain {k1_train['plain_ms']:.4f}, sdpa "
           f"{k1_train['library_ms']:.4f}, bound {k1_train['bound_ms']:.4f} "
           f"({k1_train['bound_by']})")
+    off, on = rn_arms[0]["launches"], rn_arms[1]["launches"]
+    for name, rec in (("K3-nhwc stage-0 conv3 fwd", k3_s0["fwd"]),
+                      ("K3-nhwc stage-0 conv3 bwd", k3_s0["bwd"]),
+                      ("K3 stage-3 projection fwd", k3_s3["fwd"]),
+                      ("K5 stage-0 junction fwd", k5_s0["fwd"]),
+                      ("K5 stage-0 junction bwd", k5_s0["bwd"]),
+                      ("K4 stage-0 3x3", k4_s0), ("K4 stage-1 3x3/2", k4_s1)):
+        print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
+              f"bare product {rec['library_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": [
@@ -667,6 +1101,32 @@ def main():
                    "bigdl_tpu_torch/csrc/paged_attention.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
                    serve_counts["paged_attention"]),
+        kernel_rec("fused_matmul_nhwc", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:688",
+                   dict(k3_s0["fwd"], max_abs_err=k3_s0["max_abs_err"]),
+                   off["fused_matmul_fwd"]),
+        kernel_rec("fused_matmul", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:344",
+                   dict(k3_s3["fwd"], max_abs_err=k3_s3["max_abs_err"]),
+                   off["fused_matmul_fwd"]),
+        kernel_rec("fused_matmul_bwd", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:580",
+                   dict(k3_s0["bwd"], max_abs_err=k3_s0["max_abs_err"]),
+                   off["fused_matmul_bwd"]),
+        kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:318",
+                   dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"]),
+                   off["fused_chain_fwd"]),
+        kernel_rec("fused_chain_bwd", "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:214",
+                   dict(k5_s0["bwd"], max_abs_err=k5_s0["max_abs_err"]),
+                   off["fused_chain_bwd"]),
+        kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
+                   on["fused_conv_fwd"]),
+        kernel_rec("fused_conv_s2", "bigdl_tpu_torch/csrc/fused_conv.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188", k4_s1,
+                   on["fused_conv_fwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,8 +110,7 @@ def test_flash_attention_function_gradients_match_autograd(causal):
     torch.testing.assert_close(o, ref, **TOL)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
-    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
-                                       "paged_attention": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def _paged_case(rng, B, nH, kvH, S, D, bs, nblk):
@@ -180,5 +179,4 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tables = torch.zeros((1, 2), dtype=torch.int32)
     paged_decode_attention(q, torch.randn(3, 2, 4, 8), torch.randn(3, 2, 4, 8),
                            tables, torch.zeros((1,), dtype=torch.int32))
-    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
-                                      "paged_attention": 0}
+    assert set(kernels.launch_counts().values()) == {0}

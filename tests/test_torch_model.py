@@ -284,5 +284,4 @@ def test_convert_state_dict_round_trip_and_facade():
     assert tm.training() is tm and tm.training
     kernels.reset_launch_counts()
     tm(_ids(14, 1, 8))
-    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
-                                      "paged_attention": 0}
+    assert set(kernels.launch_counts().values()) == {0}

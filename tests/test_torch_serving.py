@@ -262,14 +262,14 @@ def test_rejections_swap_and_shutdown_without_drain():
 # -- hygiene ------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_bigdl_tpu():
-    code = ("import sys, bigdl_tpu_torch, bigdl_tpu_torch.convert, "
-            "bigdl_tpu_torch.models, bigdl_tpu_torch.nn, "
-            "bigdl_tpu_torch.nn.criterion, bigdl_tpu_torch.kernels, "
-            "bigdl_tpu_torch.parallel, bigdl_tpu_torch.serving, "
-            "bigdl_tpu_torch.optim, bigdl_tpu_torch.optim.optimizer, "
-            "bigdl_tpu_torch.optim.optim_method, "
-            "bigdl_tpu_torch.optim.trigger, bigdl_tpu_torch.dataset, "
-            "bigdl_tpu_torch.utils.amp, bigdl_tpu_torch.utils.engine\n"
+    # every module of the package, found by walking it, so a new module
+    # cannot slip past
+    code = ("import pkgutil, importlib, sys, bigdl_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "bigdl_tpu_torch.__path__, 'bigdl_tpu_torch.')]\n"
+            "for n in names:\n"
+            "    importlib.import_module(n)\n"
+            "assert len(names) > 30, names\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bigdl_tpu' or "
             "m.startswith('bigdl_tpu.')]\n"
@@ -289,5 +289,6 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     _, tm = _models()
     with DecodeScheduler(tm, **SCHED) as ts:
         ts.generate([1, 2, 3], 3, timeout=60)
-    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
-                                      "paged_attention": 0}
+    counts = kernels.launch_counts()
+    assert {"flash_fwd", "flash_bwd", "paged_attention"} <= set(counts)
+    assert set(counts.values()) == {0}

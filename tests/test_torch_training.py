@@ -143,8 +143,7 @@ def test_model_gradients_match_jax(arch):
     loss = LMCriterion()._forward(tm.call(tm.params, x, training=True), y)
     torch.testing.assert_close(loss.detach(), _t(jl), **GRAD_TOL)
     _assert_tree_close(_port_grads(loss, tm.params), jg, **GRAD_TOL)
-    assert kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd": 0,
-                                       "paged_attention": 0}
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_model_gradients_match_jax_pallas_flash_interpret(monkeypatch):
