@@ -1,4 +1,5 @@
-// Flash attention backward (K1-bwd) for Hopper, float32 and bfloat16.
+// Flash attention backward (K1-bwd) for Hopper, float32 (bf16 inputs take the
+// tensor-core kernels of flash_bwd_sm90.cu).
 //
 // Replaces the Pallas kernels bigdl_tpu/kernels/flash_attention.py
 // `_flash_bwd`: `_bwd_kv_kernel` (dK and dV over query tiles) and
@@ -9,16 +10,16 @@
 //        col > row, where row >= Tq, and on rows whose lse is -inf;
 //   dp = dO v^T;  ds = p * (dp - delta) * scale
 // tile by tile and accumulate dV = p^T dO and dK = ds^T q (first kernel)
-// and dQ = ds k (second kernel) in float32 registers, written once in the
-// input type. There are no atomics, so the gradients are deterministic.
+// and dQ = ds k (second kernel) in float32 registers, written once in
+// float32. There are no atomics, so the gradients are deterministic.
 //
 // What bounds it on an H100: at the training shape (T = 1024, D = 64) the
 // backward does 10 * D operations per (row, visible key) pair against
 // 8 * 2 * D bytes per row it reads or writes, several hundred operations
-// per byte, so it is bound by arithmetic. This first version does its five
-// products per tile with float32 FMAs on the CUDA cores (67 TF/s peak, and
-// shared-memory reads feed it at about half of that), not the bf16 tensor
-// cores (989 TF/s); mma/wgmma with TMA-staged tiles are later work. What the
+// per byte, so it is bound by arithmetic. It does its five products per tile
+// with float32 FMAs on the CUDA cores (67 TF/s peak, and shared-memory reads
+// feed it at about half of that): float32 callers need float32 products,
+// which the TF32 tensor cores would not give. What the
 // design does: each 64-key (or 64-query) tile is staged once in shared
 // memory as float32 and reused against every tile of the other side; each
 // thread keeps a 4x4 register tile of the 64x64 score block and a 4x(D/16)
@@ -296,32 +297,19 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, void* dq, void* dk, void* dv, int B,
-                         int H, int Tq, int Tkv, int causal, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_bwd<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
-    case 64: return launch_bwd<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
-    case 128: return launch_bwd<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace bigdl
 
-// Launches the dK/dV kernel, then the dQ kernel, on `stream`.
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = both launched).
+// Launches the dK/dV kernel, then the dQ kernel, on `stream`; float32 tensors.
+// Returns a cudaError_t (0 = both launched).
 extern "C" int bigdl_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                               int dtype, int B, int H, int Tq, int Tkv, int D, int causal,
-                               float scale, void* stream) {
+                               int B, int H, int Tq, int Tkv, int D, int causal, float scale,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bigdl::dispatch_bwd<float>(D, q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv,
-                                      causal, scale, s);
-  if (dtype == 1)
-    return bigdl::dispatch_bwd<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq,
-                                              Tkv, causal, scale, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return bigdl::launch_bwd<float, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 64: return bigdl::launch_bwd<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 128: return bigdl::launch_bwd<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,4 +1,5 @@
-// Flash attention forward (K1-fwd) for Hopper, float32 and bfloat16.
+// Flash attention forward (K1-fwd) for Hopper, float32 (bf16 inputs take the
+// tensor-core kernel of flash_fwd_sm90.cu).
 //
 // Replaces the Pallas kernel bigdl_tpu/kernels/flash_attention.py `_flash_fwd`
 // (body `_fwd_kernel`): online-softmax attention over q, k, v of shape
@@ -11,10 +12,10 @@
 // What bounds it on an H100: at serving shapes (D = 64, T of a few hundred)
 // the work is about 2 * T / (bytes per element) operations per byte read, far
 // under the ~295 operations per byte where bf16 tensor cores stop being the
-// limit, so the kernel should be bound by memory and launch latency. This
-// first version does its two products with float32 FMAs on the CUDA cores, so
-// at long T it is bound by those operations instead; wgmma and TMA staging
-// are later work. What the design does: K/V are read once per 64-row query
+// limit, so the kernel should be bound by memory and launch latency. It does
+// its two products with float32 FMAs on the CUDA cores (float32 callers need
+// float32 products, which the TF32 tensor cores would not give), so at long T
+// it is bound by those operations instead. What the design does: K/V are read once per 64-row query
 // tile, scores never leave shared memory, the key loop stops at the causal /
 // kv_len bound (no key tile above the diagonal or past kv_len is read), and
 // the ragged edges are masked in the kernel instead of padding copies.
@@ -92,30 +93,17 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, v
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
-                       int B, int H, int Tq, int Tkv, int causal, int q_offset, int kv_len,
-                       float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
-    case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
-    case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace bigdl
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// float32 q, k, v, o, lse. Returns a cudaError_t (0 = launched).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int dtype, int B, int H, int Tq, int Tkv, int D, int causal,
-                               int q_offset, int kv_len, float scale, void* stream) {
+                               int B, int H, int Tq, int Tkv, int D, int causal, int q_offset,
+                               int kv_len, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bigdl::dispatch_d<float>(D, q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len,
-                                    scale, s);
-  if (dtype == 1)
-    return bigdl::dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset,
-                                            kv_len, scale, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return bigdl::launch_flash<float, 32>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 64: return bigdl::launch_flash<float, 64>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 128: return bigdl::launch_flash<float, 128>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -3,7 +3,9 @@ version (see ``_build`` for how they are compiled and loaded).
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, bumped only where the kernel is launched, so a run
-can show that its path went through the kernels."""
+can show that its path went through the kernels. The flash wrappers also
+count per route (``launches_by_route``: ``"bf16_sm90"`` and ``"f32"``), so a
+run can show which of their kernels it went through."""
 from .flash_attention import (FlashAttention, flash_bwd, flash_bwd_reference,
                               flash_fwd, flash_fwd_reference)
 from .fused_chain import (FusedResidualMatmul, fused_chain_bwd,
@@ -31,9 +33,17 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def launches_by_route() -> dict:
+    """{wrapper name: {route: launches}} for the wrappers with routes."""
+    return {name: dict(fn.launches_by_route) for name, fn in WRAPPERS.items()
+            if hasattr(fn, "launches_by_route")}
+
+
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 __all__ = ["FlashAttention", "flash_fwd", "flash_fwd_reference", "flash_bwd",
@@ -46,4 +56,5 @@ __all__ = ["FlashAttention", "flash_fwd", "flash_fwd_reference", "flash_bwd",
            "fused_chain_fwd", "fused_chain_bwd", "residual_chain_reference",
            "residual_chain_bwd_reference", "FusedConv3x3",
            "fused_bn_relu_conv3x3", "fused_conv_fwd", "conv3x3_reference",
-           "conv3x3_bwd", "launch_counts", "reset_launch_counts", "WRAPPERS"]
+           "conv3x3_bwd", "launch_counts", "launches_by_route",
+           "reset_launch_counts", "WRAPPERS"]

@@ -30,6 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # library name -> (source, the headers under csrc/ that it includes)
 SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
            "flash_bwd": ("flash_bwd.cu", "attn_tile.cuh"),
+           "flash_fwd_sm90": ("flash_fwd_sm90.cu", "attn_sm90.cuh"),
+           "flash_bwd_sm90": ("flash_bwd_sm90.cu", "attn_sm90.cuh"),
            "paged_attention": ("paged_attention.cu", "attn_tile.cuh"),
            "fused_matmul": ("fused_matmul.cu", "fused_gemm.cuh"),
            "fused_chain": ("fused_chain.cu", "fused_gemm.cuh"),

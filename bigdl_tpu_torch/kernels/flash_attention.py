@@ -2,10 +2,19 @@
 their plain versions and the ``autograd.Function`` around them.
 
 Replaces the Pallas kernels of ``bigdl_tpu/kernels/flash_attention.py``:
-``_flash_fwd`` (body ``_fwd_kernel``) with ``csrc/flash_fwd.cu``, and
-``_flash_bwd`` (``_bwd_kv_kernel``, ``_bwd_q_kernel``) with
-``csrc/flash_bwd.cu``. Each source's header note says what bounds it on an
-H100 and what the design does about it.
+``_flash_fwd`` (body ``_fwd_kernel``) and ``_flash_bwd`` (``_bwd_kv_kernel``,
+``_bwd_q_kernel``). Each wrapper picks its kernel by dtype alone, one kernel
+per dtype:
+
+- ``"bf16_sm90"``: bfloat16 inputs take the tensor-core kernels
+  ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (bf16 wgmma over
+  TMA-staged tiles);
+- ``"f32"``: float32 inputs take the CUDA-core kernels ``csrc/flash_fwd.cu``
+  and ``csrc/flash_bwd.cu`` (float32 products, as float32 callers need).
+
+Each source's header note says what bounds it on an H100 and what the design
+does about it. Besides ``<wrapper>.launches``, each wrapper counts its
+launches per route in ``<wrapper>.launches_by_route``.
 
 :func:`flash_fwd` and :func:`flash_bwd` are the wrappers: tensors on the CPU
 take :func:`flash_fwd_reference` / :func:`flash_bwd_reference`, the plain
@@ -26,12 +35,20 @@ import torch
 
 from . import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> route; each route's (library, symbol) for the forward and backward
+_ROUTES = {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+_FWD_FN = {"bf16_sm90": ("flash_fwd_sm90", "bigdl_flash_fwd_sm90"),
+           "f32": ("flash_fwd", "bigdl_flash_fwd")}
+_BWD_FN = {"bf16_sm90": ("flash_bwd_sm90", "bigdl_flash_bwd_sm90"),
+           "f32": ("flash_bwd", "bigdl_flash_bwd")}
 _HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = {
+    "bf16_sm90": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                  + [ctypes.c_float, ctypes.c_void_p]),
+    "f32": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])}
 
 
 def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -40,7 +57,9 @@ def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
     keys, query row r at global position ``q_offset + r`` seeing keys
     ``<= q_offset + r`` when ``causal``. Computes in float32 and returns
     ``(o in q's dtype, lse float32 (B, H, Tq))``; a row that sees no key
-    gives o = 0 and lse = -inf, as the kernel does."""
+    gives o = 0 and lse = -inf, as the kernel does. p is rounded to the
+    input type before the PV product (a no-op in float32), where the JAX
+    kernel rounds it (``flash_attention.py:104``); l sums it unrounded."""
     tkv = k.shape[2]
     kv_len = tkv if kv_len is None else int(kv_len)
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -60,7 +79,8 @@ def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vf) / torch.where(
+    pr = p.to(q.dtype).float()
+    o = torch.einsum("bhqk,bhkd->bhqd", pr, vf) / torch.where(
         l > 0, l, torch.ones_like(l))
     lse = torch.where(l > 0, m + torch.log(l),
                       torch.full_like(l, float("-inf")))[..., 0]
@@ -85,7 +105,7 @@ def _check(fn, q, k, v, *same_as_q):
             raise ValueError(f"{fn}: the kernel builds no autograd graph; "
                              f"differentiate through FlashAttention or run "
                              f"under torch.no_grad()")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _ROUTES:
         raise TypeError(f"{fn}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
     B, H, _, D = q.shape
@@ -119,29 +139,38 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    fn = _build.function("flash_fwd", "bigdl_flash_fwd", _ARGTYPES)
+    route = _ROUTES[q.dtype]
+    fn = _build.function(*_FWD_FN[route], _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), _DTYPES[q.dtype], B, H, Tq, k.shape[2], D,
-             int(bool(causal)), q_offset, kv_len, 1.0 / math.sqrt(D),
+             lse.data_ptr(), B, H, Tq, k.shape[2], D, int(bool(causal)),
+             q_offset, kv_len, 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_fwd kernel launch failed ({route}): "
+                           f"CUDA error {err}")
     flash_fwd.launches += 1
+    flash_fwd.launches_by_route[route] += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_route = dict.fromkeys(_ROUTES.values(), 0)
 
 
-def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False):
+def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
+                        delta=None, out_dtype=None):
     """Plain version of the backward: gradients of
     softmax(q k^T / sqrt(D)) v (causal: key c visible to row r iff
     c <= r) from the forward's o and lse and the output gradient ``do``.
     Recomputes p = exp(s - lse) in float32 (0 on masked keys and on rows
-    whose lse is -inf), then dV = p^T dO, ds = p (dO v^T - rowsum(dO o))
-    / sqrt(D), dK = ds^T q, dQ = ds k. Returns (dq, dk, dv) in the input
-    dtype."""
+    whose lse is -inf), then dV = p^T dO, ds = p (dO v^T - delta) / sqrt(D),
+    dK = ds^T q, dQ = ds k, with p and ds rounded to the input type before
+    their products (a no-op in float32) where the JAX kernels round them
+    (``flash_attention.py:215``, ``:218``, ``:256``). ``delta`` (B, H, Tq)
+    float32 defaults to rowsum(dO * O). Returns (dq, dk, dv) in
+    ``out_dtype`` (default: the input dtype)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
+    dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
     keep = torch.isfinite(lse)[..., None].expand_as(s)
@@ -150,49 +179,73 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False):
         cols = torch.arange(k.shape[2], device=q.device)
         keep = keep & (cols[None, :] <= rows[:, None])
     p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros_like(s))
-    delta = (dof * o.float()).sum(-1, keepdim=True)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if delta is None:
+        delta = (dof * o.float()).sum(-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+              - delta[..., None]) * scale
+    dsr = ds.to(dt).float()
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qf)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsr, kf)
+    out = out_dtype or dt
+    return dq.to(out), dk.to(out), dv.to(out)
 
 
-def flash_bwd(q, k, v, o, lse, do, causal: bool = False):
+def flash_bwd(q, k, v, o, lse, do, causal: bool = False, delta=None,
+              out_dtype=None):
     """Flash attention backward (K1-bwd): q (B, H, Tq, D), k/v (B, H, Tkv,
     D), the forward's o (like q) and lse (B, H, Tq) float32, and the output
-    gradient ``do`` (like q). Returns (dq, dk, dv) in the input dtype.
-    delta = rowsum(dO * O) is computed here in float32 with one torch op,
-    as the JAX package computes it in XLA outside its kernels; the CUDA
-    side launches the dK/dV kernel and then the dQ kernel (one launch of
-    the pair is one count in ``flash_bwd.launches``)."""
+    gradient ``do`` (like q). Returns (dq, dk, dv) in ``out_dtype``: the
+    input dtype by default, or ``torch.float32`` for callers that sum the
+    gradients of several calls (the JAX ``_flash_bwd``'s ``out_dtype``).
+    delta = rowsum(dO * O) (B, H, Tq) float32 is computed here with one
+    torch op, as the JAX package computes it in XLA outside its kernels,
+    unless the caller passes it (``delta``, as a ring backward does). The
+    CUDA side launches the dK/dV kernel and then the dQ kernel (one launch
+    of the pair is one count in ``flash_bwd.launches``)."""
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"flash_bwd: out_dtype {out_dtype} not supported "
+                        f"(the input dtype or float32)")
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, o, lse, do, causal)
+        return flash_bwd_reference(q, k, v, o, lse, do, causal, delta,
+                                   out_dtype)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_bwd: no kernel for device {q.device}")
     _check("flash_bwd", q, k, v, ("o", o), ("do", do))
     B, H, Tq, D = q.shape
-    if (lse.shape != (B, H, Tq) or lse.dtype != torch.float32
-            or lse.device != q.device or not lse.is_contiguous()):
-        raise ValueError(f"flash_bwd: lse must be contiguous float32 "
-                         f"{(B, H, Tq)} on {q.device}, got {lse.dtype} "
-                         f"{tuple(lse.shape)} on {lse.device}")
-    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
-                  torch.empty_like(v))
-    delta = (do.float() * o.float()).sum(-1)
-    fn = _build.function("flash_bwd", "bigdl_flash_bwd", _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), _DTYPES[q.dtype], B, H, Tq, k.shape[2], D,
-             int(bool(causal)), 1.0 / math.sqrt(D),
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.shape != (B, H, Tq)
+                              or t.dtype != torch.float32
+                              or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"flash_bwd: {name} must be contiguous float32 "
+                             f"{(B, H, Tq)} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    route = _ROUTES[q.dtype]
+    out = out_dtype or q.dtype
+    dq = torch.empty(q.shape, dtype=out, device=q.device)
+    dk = torch.empty(k.shape, dtype=out, device=q.device)
+    dv = torch.empty(v.shape, dtype=out, device=q.device)
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1)
+    fn = _build.function(*_BWD_FN[route], _BWD_ARGTYPES[route])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr())
+    flags = (int(out == torch.float32),) if route == "bf16_sm90" else ()
+    err = fn(*ptrs, *flags, B, H, Tq, k.shape[2], D, int(bool(causal)),
+             1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd kernel launch failed ({route}): "
+                           f"CUDA error {err}")
     flash_bwd.launches += 1
+    flash_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.launches_by_route = dict.fromkeys(_ROUTES.values(), 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -16,7 +16,12 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    fused ResNet kernels, which no single call computes, the bare product
    alone: cuBLAS ``x @ w``, or cuDNN's conv for K4) with CUDA events, over
    CUDA graphs of back-to-back launches on inputs rotated past the 50 MB
-   L2 where the call can be captured;
+   L2 where the call can be captured. The flash kernels are checked on both
+   routes (bf16: the tensor-core kernels; float32: the CUDA-core ones) at
+   ragged T, D = 32/64/128, the chunk form and kv_len = 0, the backward
+   also in the ring form (external delta, float32 gradients) and for
+   bitwise-equal reruns; the tensor-core libraries must build without
+   spills;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
@@ -51,11 +56,15 @@ path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
 16 K4 forwards with ``fused_conv2``), or any other kernel launched, fails
-the run. Every check that fails exits non-zero. The line before the last
+the run; so does a flash launch on the other route than the path's dtype
+(bf16 in ``generate``, ``prefill_chunked`` and the bf16 recipe, float32 in
+``LocalOptimizer``). Every check that fails exits non-zero. The line before the last
 is one JSON object with each kernel's numbers (``flash_fwd`` at the
 serving prefill shape with the ``generate`` launches, ``flash_fwd_train``
 at the training shape with the launches of the five remat-off training
-steps, ``flash_bwd`` likewise; the fused ResNet kernels at their timed
+steps, ``flash_bwd`` likewise, ``flash_fwd_chunk`` with the
+``prefill_chunked`` launches, the ``_f32`` rows at the ``LocalOptimizer``
+shape with its launches; the flash rows carry their ``dtype_route``; the fused ResNet kernels at their timed
 shapes with the launches of the four ResNet-50 steps of the arm that runs
 them); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -140,6 +149,19 @@ def event_ms(torch, fn, reps=5, iters=5):
     return statistics.median(times)
 
 
+def host_call_ms(torch, fn, n=50):
+    """Median host milliseconds to return from one ``fn()`` call (checks,
+    tensor-map encoding and launch; the device is idle at each call)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def n_copies(bytes_per_set):
     return max(1, math.ceil(2 * L2_BYTES / bytes_per_set))
 
@@ -171,14 +193,24 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
                                      kv_len)
     torch.cuda.synchronize()
     err = (o.float() - ro.float()).abs().max().item()
-    lerr = (lse - rlse).abs().max().item()
+    # rows that see no key (kv_len = 0) give lse = -inf on both sides
+    seen = torch.isfinite(rlse)
+    lerr = ((lse[seen] - rlse[seen]).abs().max().item() if seen.any()
+            else 0.0)
+    same_inf = torch.equal(torch.isneginf(lse), ~seen)
+    # bf16: o is rounded to bf16 on both sides (one ulp is 2^-8 relative,
+    # 0.0078 at |o| in [1, 2)) and p is rounded to bf16 before the PV
+    # product on both sides, but at running (kernel) against final (plain)
+    # maxima, so the two roundings of one p can differ by an ulp; lse is a
+    # float32 sum of unrounded p on both sides
     tol = 2e-5 if dtype == torch.float32 else 1.6e-2
     check(torch.isfinite(o).all().item(), "flash_fwd: non-finite output")
     rec = {"shape": [B, H, Tq, Tkv, D], "dtype": str(dtype),
+           "route": K.flash_attention._ROUTES[dtype],
            "causal": causal, "q_offset": q_offset, "kv_len": kv_len,
            "max_abs_err": err, "lse_err": lerr, "tol": tol}
     print(f"  K1 flash_fwd {rec}", flush=True)
-    check(err <= tol and lerr <= 1e-4,
+    check(err <= tol and lerr <= 1e-4 and same_inf,
           f"flash_fwd disagrees with its plain version: {rec}")
     if not timed:
         return rec
@@ -206,37 +238,57 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
         plain_ms=graph_ms(torch, lambda i: K.flash_fwd_reference(
             qs[i], ks[i], vs[i], causal, q_offset, kv_len), sets),
         library_ms=graph_ms(torch, lib, sets),
+        host_ms=host_call_ms(torch, lambda: K.flash_fwd(
+            qs[0], ks[0], vs[0], causal=causal, q_offset=q_offset,
+            kv_len=kv_len)),
         bound_ms=bound_ms, bound_by=bound_by)
     print(f"  K1 timing {rec}", flush=True)
     return rec
 
 
-def bwd_case(torch, K, B, H, T, D, dtype, causal, timed):
+def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
     """K1-bwd (dK/dV kernel, then dQ kernel) against flash_bwd_reference
-    on the residuals of the K1-fwd kernel."""
+    on the residuals of the K1-fwd kernel. ``ring``: with an external
+    delta and float32 gradients (``out_dtype``), as a ring backward calls
+    it. bf16 inputs: two launches must give bitwise-equal gradients (no
+    atomics)."""
     g = torch.Generator(device="cuda").manual_seed(B * 1000 + T + D)
     q, k, v, do = [torch.randn(B, H, T, D, device="cuda",
                                generator=g).to(dtype) for _ in range(4)]
     o, lse = K.flash_fwd(q, k, v, causal=causal)
-    got = K.flash_bwd(q, k, v, o, lse, do, causal)
-    ref = K.flash_bwd_reference(q, k, v, o, lse, do, causal)
+    kw = {}
+    if ring:
+        kw = dict(delta=(do.float() * o.float()).sum(-1),
+                  out_dtype=torch.float32)
+    got = K.flash_bwd(q, k, v, o, lse, do, causal, **kw)
+    ref = K.flash_bwd_reference(q, k, v, o, lse, do, causal, **kw)
+    again = K.flash_bwd(q, k, v, o, lse, do, causal, **kw)
     torch.cuda.synchronize()
     errs = [(a.float() - b.float()).abs().max().item()
             for a, b in zip(got, ref)]
     mag = max(b.float().abs().max().item() for b in ref)
-    # both sides keep p and ds in float32 and round only the gradients to
-    # the input type: float32 differs by summation order (~1e-6 relative
-    # over T <= 1024 terms), bf16 by one rounding (2^-9 relative) - the
+    # both sides round p and ds to the input type before their products
+    # (as the JAX kernels do) and sum in float32: float32 differs by
+    # summation order (~1e-6 relative over T <= 1024 terms); bf16 by a
+    # rounding of p or ds that falls the other way (2^-8 relative on one
+    # term) and by the rounding of the gradients (2^-9 relative) - the
     # tolerances leave a factor of 5-100 over that
     tol = (1e-4 if dtype == torch.float32 else 1e-2) * max(1.0, mag)
     check(all(torch.isfinite(x).all().item() for x in got),
           "flash_bwd: non-finite gradient")
-    rec = {"shape": [B, H, T, D], "dtype": str(dtype), "causal": causal,
-           "max_abs_err": max(errs), "err_dq_dk_dv": errs,
-           "max_abs_grad": mag, "tol": tol}
+    want_dt = torch.float32 if ring else dtype
+    check(all(x.dtype == want_dt for x in got),
+          f"flash_bwd returned {[x.dtype for x in got]}, expected {want_dt}")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    rec = {"shape": [B, H, T, D], "dtype": str(dtype),
+           "route": K.flash_attention._ROUTES[dtype], "causal": causal,
+           "external_delta_f32_out": ring, "max_abs_err": max(errs),
+           "err_dq_dk_dv": errs, "max_abs_grad": mag, "tol": tol,
+           "rerun_bitwise_equal": bitwise}
     print(f"  K1-bwd flash_bwd {rec}", flush=True)
     check(max(errs) <= tol,
           f"flash_bwd disagrees with its plain version: {rec}")
+    check(bitwise, f"flash_bwd: two launches differ: {rec}")
     if not timed:
         return rec
     esz = torch.empty((), dtype=dtype).element_size()
@@ -250,9 +302,16 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed):
     F = torch.nn.functional
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
     rec.update(
         ms=graph_ms(torch, lambda i: K.flash_bwd(q, k, v, o, lse, do,
                                                  causal), 1, reps=5, iters=5),
+        # the wrapper's delta = rowsum(dO * O) (one torch expression) and the
+        # kernel pair alone, given that delta
+        delta_ms=graph_ms(torch, lambda i: (do.float() * o.float()).sum(-1),
+                          1, reps=5, iters=5),
+        kernels_ms=graph_ms(torch, lambda i: K.flash_bwd(
+            q, k, v, o, lse, do, causal, delta=delta), 1, reps=5, iters=5),
         plain_ms=graph_ms(torch, lambda i: K.flash_bwd_reference(
             q, k, v, o, lse, do, causal), 1, reps=3, iters=5),
         library_ms=event_ms(torch, lambda: torch.autograd.grad(
@@ -554,6 +613,11 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
         counts = K.launch_counts()
         check(counts == want, f"training step (remat={remat}) launched "
               f"{counts}, expected {want}")
+        routes = K.launches_by_route()
+        check(routes == {n: {"bf16_sm90": want[n], "f32": 0}
+                         for n in routes},
+              f"training step (remat={remat}): flash launches by route "
+              f"{routes}, all expected on bf16_sm90")
         check(torch.stack([torch.isfinite(g).all() for g in grads])
               .all().item(), f"non-finite gradient (remat={remat})")
         losses.append(loss.item())
@@ -564,6 +628,10 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
     check(all(math.isfinite(v) for v in losses), f"non-finite loss "
           f"{losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    # the seed-0 model's loss on the seed-0 batch before any update, as the
+    # CUDA-core kernels gave it (10.5815 with p kept in float32)
+    check(abs(losses[0] - 10.5815) <= 1e-3, f"first loss {losses[0]} is "
+          f"not within 1e-3 of 10.5815")
     return {"remat": remat, "losses": losses,
             "step_s": statistics.median(times), "step_s_all": times,
             "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -600,6 +668,10 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
     want.update(flash_fwd=L * iters, flash_bwd=L * iters)
     check(counts == want, f"LocalOptimizer launched {counts}, expected "
           f"{want}")
+    routes = K.launches_by_route()
+    check(routes == {n: {"bf16_sm90": 0, "f32": want[n]} for n in routes},
+          f"LocalOptimizer (float32 params): flash launches by route "
+          f"{routes}, all expected on f32")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"LocalOptimizer losses {losses}")
     return {"losses": losses, "wall_s": dt,
@@ -795,14 +867,23 @@ def main():
     build_s = _build.build_all()
     print(f"    kernel build: {build_s:.2f} s ({len(_build.SOURCES)} sources "
           f"in parallel)", flush=True)
+    sm90_spills = {}
     for name in _build.SOURCES:     # nvcc -Xptxas -v, one line a library
         log = _build.build_log(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
                                              log)]
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", log)]
         if regs:
             print(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-                  f"registers, spill stores up to {max(spills or [0])} bytes")
+                  f"registers, static smem up to {max(smem or [0])} bytes, "
+                  f"spill stores up to {max(spills or [0])} bytes")
+        if name.endswith("_sm90"):
+            sm90_spills[name] = max(spills or [-1])
+            # ptxas note C7514: wgmma products serialised (a performance
+            # loss, not an error)
+            print(f"    {name}: wgmma serialisation notes (C7514): "
+                  f"{log.count('C7514')}")
 
     # -- phase 2 ----------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -811,22 +892,40 @@ def main():
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
           f"{torch.backends.cudnn.allow_tf32})", flush=True)
     bf, f32 = torch.bfloat16, torch.float32
+    # K1-fwd: bf16 (tensor-core route) at the three timed shapes (serving
+    # prefill, prefill_chunked piece, training), ragged T, D = 32 and 128,
+    # non-causal Tq != Tkv and kv_len = 0; float32 (CUDA-core route) beside
     k1_main = flash_case(torch, K, 8, 16, 128, 128, 64, bf, True, 0, 128,
                          timed=True)
     flash_case(torch, K, 8, 16, 128, 128, 64, f32, True, 0, 128, False)
     flash_case(torch, K, 8, 16, 77, 77, 64, bf, True, 0, 77, False)
     flash_case(torch, K, 8, 16, 77, 77, 64, f32, True, 0, 77, False)
+    flash_case(torch, K, 8, 16, 130, 130, 64, bf, True, 0, 130, False)
+    flash_case(torch, K, 8, 16, 130, 130, 32, bf, True, 0, 130, False)
+    flash_case(torch, K, 2, 8, 200, 200, 128, bf, True, 0, 200, False)
+    flash_case(torch, K, 4, 16, 100, 260, 64, bf, False, 0, 260, False)
+    flash_case(torch, K, 4, 16, 100, 260, 128, bf, False, 0, 200, False)
+    flash_case(torch, K, 2, 4, 16, 64, 64, bf, False, 0, 0, False)
+    flash_case(torch, K, 2, 4, 16, 64, 64, bf, True, 0, 0, False)
     k1_chunk = flash_case(torch, K, 8, 16, 32, 384, 64, bf, True, 96, 128,
                           timed=True)
     flash_case(torch, K, 8, 16, 32, 384, 64, f32, True, 96, 128, False)
     k1_train = flash_case(torch, K, 16, 16, 1024, 1024, 64, bf, True, 0,
                           1024, timed=True)
+    # the float32 route at the LocalOptimizer shape (phase 6: B8/T256)
+    k1_f32 = flash_case(torch, K, 8, 16, 256, 256, 64, f32, True, 0, 256,
+                        timed=True)
+    # K1-bwd: bf16 at the training shape, ragged T, D = 32 and 128, the
+    # ring form (external delta, float32 gradients); float32 beside
     k1b_main = bwd_case(torch, K, 16, 16, 1024, 64, bf, True, timed=True)
-    bwd_case(torch, K, 4, 16, 256, 64, f32, True, False)
+    k1b_f32 = bwd_case(torch, K, 8, 16, 256, 64, f32, True, timed=True)
     bwd_case(torch, K, 8, 16, 77, 64, bf, True, False)
     bwd_case(torch, K, 8, 16, 77, 64, f32, False, False)
-    bwd_case(torch, K, 2, 8, 200, 128, f32, True, False)
+    bwd_case(torch, K, 4, 16, 130, 32, bf, True, False)
     bwd_case(torch, K, 4, 16, 130, 32, bf, False, False)
+    bwd_case(torch, K, 2, 8, 200, 128, bf, True, False)
+    bwd_case(torch, K, 2, 8, 200, 128, f32, True, False)
+    bwd_case(torch, K, 4, 16, 300, 64, bf, False, False, ring=True)
     k2_main = paged_case(torch, K, 8, 16, 16, 1, 64, 16, f32, timed=True)
     paged_case(torch, K, 1, 16, 16, 32, 64, 16, f32, timed=True)
     for kvh in (16, 4):
@@ -878,14 +977,21 @@ def main():
           "generate: prompt not preserved")
     # generate = one causal prefill (one flash launch per layer), then
     # single-token dense decode steps, which take no kernel
+    gen_routes = K.launches_by_route()
     check(gen_counts["flash_fwd"] == L, f"generate launched the flash kernel "
           f"{gen_counts['flash_fwd']} times, expected {L}")
+    check(gen_routes["flash_fwd"] == {"bf16_sm90": L, "f32": 0},
+          f"generate's flash launches by route: {gen_routes}")
     lp, _ = model.prefill(params, prompt, TP + NEW)
     CH = 32
     K.reset_launch_counts()
     lc, _ = model.prefill_chunked(params, prompt, TP + NEW, chunk=CH)
     torch.cuda.synchronize()
     chunk_counts = K.launch_counts()
+    chunk_routes = K.launches_by_route()
+    check(chunk_routes["flash_fwd"] == {"bf16_sm90": L * -(-TP // CH),
+                                        "f32": 0},
+          f"prefill_chunked's flash launches by route: {chunk_routes}")
     check(chunk_counts["flash_fwd"] == L * -(-TP // CH),
           f"prefill_chunked launched the flash kernel "
           f"{chunk_counts['flash_fwd']} times, expected {L * -(-TP // CH)}")
@@ -1061,20 +1167,33 @@ def main():
           f"{r8['launches']}", flush=True)
 
     def kernel_rec(name, source, replaces, rec, launches):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"],
+               "library_ms": rec["library_ms"]}
+        if "route" in rec:          # the flash wrappers' route by dtype
+            out["dtype_route"] = rec["route"]
+        return out
 
-    print(f"    flash_fwd chunk form (8x16, S=32, q_offset=96, kv_len=128): "
-          f"{k1_chunk['ms']:.4f} ms, plain {k1_chunk['plain_ms']:.4f}, sdpa "
-          f"{k1_chunk['library_ms']:.4f}, bound {k1_chunk['bound_ms']:.4f}")
-    print(f"    flash_fwd training shape (16x16, T=1024, causal, bf16): "
-          f"{k1_train['ms']:.4f} ms, plain {k1_train['plain_ms']:.4f}, sdpa "
-          f"{k1_train['library_ms']:.4f}, bound {k1_train['bound_ms']:.4f} "
-          f"({k1_train['bound_by']})")
+    for name, rec in (
+            ("flash_fwd serving prefill (8x16, T=128, causal, bf16)", k1_main),
+            ("flash_fwd chunk form (8x16, S=32, q_offset=96, kv_len=128)",
+             k1_chunk),
+            ("flash_fwd training shape (16x16, T=1024, causal, bf16)",
+             k1_train),
+            ("flash_fwd float32 route (8x16, T=256, causal)", k1_f32),
+            ("flash_bwd training shape (16x16, T=1024, causal, bf16)",
+             k1b_main),
+            ("flash_bwd float32 route (8x16, T=256, causal)", k1b_f32)):
+        print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
+              f"sdpa {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})"
+              + (f", host call {rec['host_ms']:.4f} ms" if "host_ms" in rec
+                 else "")
+              + (f" (delta op {rec['delta_ms']:.4f} ms, kernel pair "
+                 f"{rec['kernels_ms']:.4f} ms)" if "delta_ms" in rec else ""))
     off, on = rn_arms[0]["launches"], rn_arms[1]["launches"]
     for name, rec in (("K3-nhwc stage-0 conv3 fwd", k3_s0["fwd"]),
                       ("K3-nhwc stage-0 conv3 bwd", k3_s0["bwd"]),
@@ -1085,18 +1204,33 @@ def main():
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"bare product {rec['library_ms']:.4f}, bound "
               f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+    # the tensor-core kernels keep their accumulators in registers: ptxas
+    # must report no spill (-1: no build log)
+    check(all(v == 0 for v in sm90_spills.values()),
+          f"spill stores (bytes) in the tensor-core libraries: {sm90_spills}")
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": [
-        kernel_rec("flash_fwd", "bigdl_tpu_torch/csrc/flash_fwd.cu",
+        kernel_rec("flash_fwd", "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
                    gen_counts["flash_fwd"]),
-        kernel_rec("flash_fwd_train", "bigdl_tpu_torch/csrc/flash_fwd.cu",
+        kernel_rec("flash_fwd_chunk",
+                   "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,
+                   chunk_counts["flash_fwd"]),
+        kernel_rec("flash_fwd_train",
+                   "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_train,
                    arms[0]["launches"]["flash_fwd"]),
-        kernel_rec("flash_bwd", "bigdl_tpu_torch/csrc/flash_bwd.cu",
+        kernel_rec("flash_bwd", "bigdl_tpu_torch/csrc/flash_bwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_main,
                    arms[0]["launches"]["flash_bwd"]),
+        kernel_rec("flash_fwd_f32", "bigdl_tpu_torch/csrc/flash_fwd.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:128", k1_f32,
+                   r6["launches"]["flash_fwd"]),
+        kernel_rec("flash_bwd_f32", "bigdl_tpu_torch/csrc/flash_bwd.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
+                   r6["launches"]["flash_bwd"]),
         kernel_rec("paged_attention",
                    "bigdl_tpu_torch/csrc/paged_attention.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,

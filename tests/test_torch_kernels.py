@@ -13,10 +13,20 @@ summation order and in the exp implementation (a few ulps on values of
 order 1). The backward sums T products per gradient element (T up to 200
 here) and recomputes p from lse: atol 5e-5, rtol 1e-4 in float32 (the
 interpret kernel and an einsum autodiff already differ by 1.2e-5 at
-T = 200). With bf16 inputs the Pallas kernel rounds p and ds to bf16 before
-its products (2^-9 relative each) and both sides round the gradients to
-bf16 (2^-8 relative, one ulp = 0.016 at magnitudes of 2-4): atol = rtol =
-2e-2.
+T = 200).
+
+With bf16 inputs both sides round p (and in the backward ds) to bf16 before
+their products, as the Pallas kernels do, and round o or the gradients to
+bf16. What is left: the Pallas forward rounds p against the running maximum
+of its key block, the plain version against the row's final maximum, and the
+two exp implementations differ by an ulp of float32, so a rounding can fall
+the other way - one bf16 ulp of an output (2^-8 relative, 0.004 below 1,
+0.016 at magnitudes of 2-4). bf16 forward: o at atol = rtol = 4e-3, lse (a
+float32 sum of unrounded p on both sides) at the float32 1e-5. bf16
+backward: atol = rtol = 8e-3 (read: 2e-3 at gradients up to 4.9). The
+float32 gradients of the ring form (external delta, ``out_dtype`` float32):
+atol = rtol = 2e-3 (read: 4.4e-4), p and ds still rounded to bf16 on both
+sides.
 """
 import math
 
@@ -42,26 +52,40 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-@pytest.mark.parametrize("B,H,Tq,Tkv,D,causal,q_offset,kv_len", [
-    (2, 2, 16, 16, 8, True, 0, 16),      # causal self-attention
-    (1, 3, 13, 13, 16, True, 0, 13),     # ragged T (not a tile multiple)
-    (2, 2, 11, 20, 8, False, 0, 20),     # non-causal, Tq != Tkv
-    (1, 2, 9, 40, 8, True, 12, 21),      # chunk: q_offset + kv_len prefix
-    (2, 1, 8, 32, 16, False, 0, 19),     # non-causal over a kv_len prefix
-])
+_FWD_CASES = [  # (B, H, Tq, Tkv, D, causal, q_offset, kv_len, dtype)
+    (2, 2, 16, 16, 8, True, 0, 16, "float32"),    # causal self-attention
+    (1, 3, 13, 13, 16, True, 0, 13, "float32"),   # ragged T (not a tile multiple)
+    (2, 2, 11, 20, 8, False, 0, 20, "float32"),   # non-causal, Tq != Tkv
+    (1, 2, 9, 40, 8, True, 12, 21, "float32"),    # chunk: q_offset + kv_len prefix
+    (2, 1, 8, 32, 16, False, 0, 19, "float32"),   # non-causal over a kv_len prefix
+    (2, 2, 16, 16, 8, True, 0, 16, "bfloat16"),   # bf16: causal
+    (1, 3, 13, 13, 16, True, 0, 13, "bfloat16"),  # bf16: ragged T
+    (2, 2, 150, 150, 16, True, 0, 150, "bfloat16"),   # bf16: two JAX blocks
+    (1, 2, 9, 40, 8, True, 12, 21, "bfloat16"),   # bf16: chunk form
+    (1, 2, 40, 200, 16, True, 100, 140, "bfloat16"),  # bf16: chunk, longer
+]
+
+
+@pytest.mark.parametrize(
+    "B,H,Tq,Tkv,D,causal,q_offset,kv_len,dtype", _FWD_CASES,
+    ids=["-".join(map(str, c[:-1])) + ("" if c[-1] == "float32" else "-bf16")
+         for c in _FWD_CASES])
 def test_flash_plain_matches_pallas_interpret(B, H, Tq, Tkv, D, causal,
-                                              q_offset, kv_len):
+                                              q_offset, kv_len, dtype):
     rng = np.random.RandomState(B * 100 + Tq)
-    q = rng.randn(B, H, Tq, D).astype(np.float32)
-    k = rng.randn(B, H, Tkv, D).astype(np.float32)
-    v = rng.randn(B, H, Tkv, D).astype(np.float32)
-    jo, jlse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
-                              jnp.asarray(v), causal, 1.0 / math.sqrt(D),
+    jdt = jnp.dtype(dtype)
+    q, k, v = [jnp.asarray(rng.randn(B, H, t, D).astype(np.float32))
+               .astype(jdt) for t in (Tq, Tkv, Tkv)]
+    jo, jlse = jfa._flash_fwd(q, k, v, causal, 1.0 / math.sqrt(D),
                               128, 128, True, q_offset=q_offset,
                               kv_len=kv_len)
-    o, lse = flash_fwd(_t(q), _t(k), _t(v), causal=causal,
+    tdt = getattr(torch, dtype)
+    tt = lambda a: _t(a.astype(jnp.float32)).to(tdt)
+    o, lse = flash_fwd(tt(q), tt(k), tt(v), causal=causal,
                        q_offset=q_offset, kv_len=kv_len)
-    torch.testing.assert_close(o, _t(jo), **TOL)
+    assert o.dtype == tdt
+    otol = TOL if dtype == "float32" else dict(atol=4e-3, rtol=4e-3)
+    torch.testing.assert_close(o.float(), _t(jo.astype(jnp.float32)), **otol)
     torch.testing.assert_close(lse, _t(jlse), **TOL)
 
 
@@ -87,11 +111,38 @@ def test_flash_bwd_plain_matches_pallas_interpret(T, D, causal, dtype):
     tt = lambda a: _t(a.astype(jnp.float32)).to(tdt)
     got = flash_bwd(tt(q), tt(k), tt(v), tt(o), _t(lse), tt(do), causal)
     tol = (dict(atol=5e-5, rtol=1e-4) if dtype == "float32"
-           else dict(atol=2e-2, rtol=2e-2))
+           else dict(atol=8e-3, rtol=8e-3))
     for g, w in zip(got, want):
         assert g.dtype == tdt
         torch.testing.assert_close(g.float(), _t(w.astype(jnp.float32)),
                                    **tol)
+
+
+@pytest.mark.parametrize("T,D,causal", [(200, 64, True), (77, 32, False)])
+def test_flash_bwd_external_delta_f32_out_matches_pallas_interpret(T, D,
+                                                                   causal):
+    """The ring-backward form: bf16 residuals, delta = rowsum(dO * O)
+    passed in, float32 gradients (``_flash_bwd(..., delta=,
+    out_dtype=jnp.float32)``, as ``parallel/ring_flash.py`` calls it)."""
+    rng = np.random.RandomState(T + D)
+    q, k, v, do = [jnp.asarray(rng.randn(2, 2, T, D).astype(np.float32))
+                   .astype(jnp.bfloat16) for _ in range(4)]
+    scale = 1.0 / math.sqrt(D)
+    o, lse = jfa._flash_fwd(q, k, v, causal, scale, 128, 128, True)
+    delta = jnp.sum(do.astype(jnp.float32) * o.astype(jnp.float32), -1)
+    want = jfa._flash_bwd(causal, scale, 128, 128, True, (q, k, v, o, lse),
+                          do, delta=delta, out_dtype=jnp.float32)
+    tt = lambda a: _t(a.astype(jnp.float32)).to(torch.bfloat16)
+    got = flash_bwd(tt(q), tt(k), tt(v), tt(o), _t(lse), tt(do), causal,
+                    delta=_t(delta), out_dtype=torch.float32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, _t(w), atol=2e-3, rtol=2e-3)
+    # the delta passed in is the one used: a zero delta changes dq
+    dq0 = flash_bwd(tt(q), tt(k), tt(v), tt(o), _t(lse), tt(do), causal,
+                    delta=torch.zeros_like(_t(delta)),
+                    out_dtype=torch.float32)[0]
+    assert not torch.allclose(dq0, got[0], atol=1e-2)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -180,3 +231,35 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     paged_decode_attention(q, torch.randn(3, 2, 4, 8), torch.randn(3, 2, 4, 8),
                            tables, torch.zeros((1,), dtype=torch.int32))
     assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_flash_routes_by_dtype_one_kernel_each():
+    """bf16 goes to the tensor-core sources, float32 to the CUDA-core ones;
+    every route's library is in the build list with its header, and each
+    source exists."""
+    from bigdl_tpu_torch.kernels import _build
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    assert fa._ROUTES == {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+    for table in (fa._FWD_FN, fa._BWD_FN):
+        assert set(table) == set(fa._ROUTES.values())
+        libs = {route: lib for route, (lib, _) in table.items()}
+        assert libs["bf16_sm90"].endswith("_sm90")
+        for lib in libs.values():
+            src, header = _build.SOURCES[lib]
+            assert (_build.CSRC / src).exists()
+            assert (_build.CSRC / header).exists()
+    assert _build.SOURCES["flash_fwd_sm90"][1] == "attn_sm90.cuh"
+
+
+def test_cpu_flash_calls_count_no_launch_on_any_route():
+    kernels.reset_launch_counts()
+    assert kernels.launches_by_route() == {
+        "flash_fwd": {"bf16_sm90": 0, "f32": 0},
+        "flash_bwd": {"bf16_sm90": 0, "f32": 0}}
+    q = torch.randn(1, 2, 8, 8).to(torch.bfloat16)
+    o, lse = flash_fwd(q, q, q, causal=True)
+    flash_bwd(q, q, q, o, lse, q, True, out_dtype=torch.float32)
+    assert set(kernels.launches_by_route()["flash_fwd"].values()) == {0}
+    assert set(kernels.launches_by_route()["flash_bwd"].values()) == {0}
+    with pytest.raises(TypeError):
+        flash_bwd(q, q, q, o, lse, q, True, out_dtype=torch.float16)
