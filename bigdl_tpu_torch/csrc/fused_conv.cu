@@ -1,5 +1,7 @@
 // Fused BatchNorm-apply + ReLU + 3x3 conv (pad 1, stride 1 or 2) + batch
-// statistics (K4) for Hopper, float32 and bfloat16, forward only.
+// statistics (K4) for Hopper on the CUDA cores, forward only: the float32
+// route, and the route of bfloat16 shapes whose C or N is not a multiple of
+// 8 (the bf16 tensor-core route is fused_conv_sm90.cu).
 //
 // Replaces the Pallas kernel of bigdl_tpu/kernels/fused_conv.py `_cvfwd`
 // (its backward, `_cv_bwd`, is plain XLA there and plain PyTorch here):
@@ -16,7 +18,7 @@
 //
 // What bounds it on an H100: ResNet-50's 3x3 convs do 18 C N operations per
 // output pixel against about (C / stride^2 + N) elements moved, far above
-// the bf16 balance point, so the tensor cores bound them. This version
+// the bf16 balance point, so the product bounds them. This kernel
 // multiplies with float32 FMAs on the CUDA cores (fused_gemm.cuh) and is
 // bound by those; the gather also recomputes each input pixel's prologue
 // for each of the 9 taps that read it. What the design does: x_hat and the

@@ -1,5 +1,9 @@
-// Shared core of the fused ResNet kernels (fused_matmul.cu: K3 and K3-nhwc,
-// fused_chain.cu: K5, fused_conv.cu: K4): a tiled float32-FMA product
+// Shared core of the fused ResNet kernels on the CUDA cores (fused_matmul.cu:
+// K3 and K3-nhwc, fused_conv.cu: K4, both on their float32 route and for
+// bf16 shapes outside the tensor-core rule; fused_chain.cu: K5 in both
+// dtypes): a tiled float32-FMA product. The bf16 tensor-core route of K3
+// and K4 is fused_gemm_sm90.cuh, which reuses this header's operand
+// rounding helpers and second pass.
 //
 //   C[r][c] = sum_k A(r, k) * B(c, k)      r < rows, c < cols, k in a range
 //

@@ -1,5 +1,7 @@
 // Fused BatchNorm-apply + ReLU + matmul + batch statistics (K3, and K3-nhwc
-// through a view) for Hopper, float32 and bfloat16.
+// through a view) for Hopper on the CUDA cores: the float32 route, and the
+// route of bfloat16 shapes whose K or N is not a multiple of 8 (the bf16
+// tensor-core route, for every other bf16 shape, is fused_matmul_sm90.cu).
 //
 // Replaces the Pallas kernels of bigdl_tpu/kernels/fused_matmul.py:
 // `_fwd` / `_fwd4` (forward) and `_bwd` / `_bwd4` (the dx + da/db kernel and
@@ -19,9 +21,9 @@
 // per pixel against (K + N) elements read and written, so stage 0 (K, N of
 // 64-256) sits below the card's ~295 operations per byte in bf16 and is
 // bound by memory, while stages 2-3 (K, N up to 2048) are bound by the
-// tensor cores. This first version multiplies with float32 FMAs on the CUDA
-// cores (fused_gemm.cuh), so it is bound by those (67 TF/s peak) at every
-// stage; mma/wgmma over TMA-staged bf16 tiles are later work. What the design
+// product. These kernels multiply with float32 FMAs on the CUDA cores
+// (fused_gemm.cuh), so they are bound by those (67 TF/s peak) at every
+// stage, which is what float32 callers ask for. What the design
 // does: the prologue, the stats-gradient injection and the ReLU mask run in
 // the tile loads and the epilogue, so x_hat and dz_eff never reach device
 // memory; the column sums go to per-block partials summed in a second pass

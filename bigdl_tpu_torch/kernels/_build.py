@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# library name -> (source, the headers under csrc/ that it includes)
+# library name -> (source, the headers under csrc/ that it includes,
+# directly or through another header)
 SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
            "flash_bwd": ("flash_bwd.cu", "attn_tile.cuh"),
            "flash_fwd_sm90": ("flash_fwd_sm90.cu", "attn_sm90.cuh"),
@@ -35,7 +36,11 @@ SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
            "paged_attention": ("paged_attention.cu", "attn_tile.cuh"),
            "fused_matmul": ("fused_matmul.cu", "fused_gemm.cuh"),
            "fused_chain": ("fused_chain.cu", "fused_gemm.cuh"),
-           "fused_conv": ("fused_conv.cu", "fused_gemm.cuh")}
+           "fused_conv": ("fused_conv.cu", "fused_gemm.cuh"),
+           "fused_matmul_sm90": ("fused_matmul_sm90.cu", "fused_gemm_sm90.cuh",
+                                 "attn_sm90.cuh", "fused_gemm.cuh"),
+           "fused_conv_sm90": ("fused_conv_sm90.cu", "fused_gemm_sm90.cuh",
+                               "attn_sm90.cuh", "fused_gemm.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,9 +2,19 @@
 kernel, its plain version and the ``autograd.Function`` around it.
 
 Replaces the Pallas kernel of ``bigdl_tpu/kernels/fused_conv.py``
-``fused_bn_relu_conv3x3`` (``_cvfwd``) with ``csrc/fused_conv.cu``, whose
-header note says what bounds it on an H100 and what the design does about
-it. The backward stays what it is in the JAX package (``_cv_bwd``): plain
+``fused_bn_relu_conv3x3`` (``_cvfwd``). The wrapper picks its kernel by
+dtype and one shape rule (``fused_matmul.route`` over C and N):
+
+- ``"bf16_sm90"``: bfloat16 with C and N multiples of 8 (every ResNet-50
+  call) takes ``csrc/fused_conv_sm90.cu`` (an implicit GEMM on bf16 wgmma,
+  the tap gather and the prologue in registers);
+- ``"bf16_ragged"``: other bfloat16 shapes take the CUDA-core kernel of
+  ``csrc/fused_conv.cu`` in bf16;
+- ``"f32"``: float32 takes ``csrc/fused_conv.cu``.
+
+Each source's header note says what bounds it on an H100 and what the
+design does about it; ``fused_conv_fwd.launches_by_route`` counts the
+launches per route. The backward stays what it is in the JAX package (``_cv_bwd``): plain
 ops outside any kernel, here PyTorch's - recompute x_hat, inject the
 statistics' gradient, take the conv's input and weight gradients, then the
 ReLU mask, da and db.
@@ -23,9 +33,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_matmul import _BM, _DTYPES, _f32, _ptr, _stream
+from .fused_matmul import (_DTYPES, _PART_ROWS, _RAGGED, _check_aligned,
+                           _f32, _ptr, _stream, route)
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# each route's (library, symbol)
+_FWD_FN = {"bf16_sm90": ("fused_conv_sm90", "bigdl_fused_conv_sm90_fwd"),
+           _RAGGED: ("fused_conv", "bigdl_fused_conv_fwd"),
+           "f32": ("fused_conv", "bigdl_fused_conv_fwd")}
 
 
 def _xhat(x, a, b):
@@ -93,28 +108,33 @@ def fused_conv_fwd(x, w, a, b, stride: int = 1, stats: bool = True):
     _check(x, w, a, b, stride)
     B, H, W, C = x.shape
     N = w.shape[3]
+    rt = route(x.dtype, C, N)
+    if rt == "bf16_sm90":
+        _check_aligned("fused_conv_fwd", x, w)
     H2, W2 = -(-H // stride), -(-W // stride)
     M = B * H2 * W2
     z = torch.empty((B, H2, W2, N), dtype=x.dtype, device=x.device)
     part = s = None
     if stats:
-        part = torch.empty((2, -(-M // _BM), N), device=x.device)
+        part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=x.device)
         s = torch.empty((2, N), device=x.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    fn = _build.function("fused_conv", "bigdl_fused_conv_fwd", _ARGTYPES)
+    fn = _build.function(*_FWD_FN[rt], _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), af.data_ptr(), bf.data_ptr(),
              z.data_ptr(), _ptr(part),
              None if part is None else part[1].data_ptr(), _ptr(s),
              None if s is None else s[1].data_ptr(), _DTYPES[x.dtype], B, H,
              W, C, N, int(stride), int(bool(stats)), _stream(x))
     if err:
-        raise RuntimeError(f"fused_conv_fwd kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"fused_conv_fwd kernel launch failed ({rt}): "
+                           f"CUDA error {err}")
     fused_conv_fwd.launches += 1
+    fused_conv_fwd.launches_by_route[rt] += 1
     return (z, s[0], s[1]) if stats else (z, None, None)
 
 
 fused_conv_fwd.launches = 0
+fused_conv_fwd.launches_by_route = dict.fromkeys(_FWD_FN, 0)
 
 
 def conv3x3_bwd(x, w, a, b, z, dz, ds1, ds2, stride: int, stats: bool):

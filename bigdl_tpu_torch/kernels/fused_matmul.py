@@ -4,12 +4,25 @@ them.
 
 Replaces the Pallas kernels of ``bigdl_tpu/kernels/fused_matmul.py``:
 ``fused_bn_relu_matmul`` (``_fwd``, ``_bwd``) and
-``fused_bn_relu_matmul_nhwc`` (``_fwd4``, ``_bwd4``), both with
-``csrc/fused_matmul.cu``, whose header note says what bounds it on an H100
-and what the design does about it. A contiguous NHWC activation already is
-a (B*H*W, K) matrix, so :func:`fused_bn_relu_matmul_nhwc` is a view onto
-the flat entry, and an M that is not a multiple of the kernel's 128-row
-tile is masked in the kernel (the JAX kernels' row masks), never padded.
+``fused_bn_relu_matmul_nhwc`` (``_fwd4``, ``_bwd4``). A contiguous NHWC
+activation already is a (B*H*W, K) matrix, so
+:func:`fused_bn_relu_matmul_nhwc` is a view onto the flat entry, and an M
+that is not a multiple of the kernels' row tile is masked in the
+kernels (the JAX kernels' row masks), never padded. Each wrapper picks its
+kernels by dtype and one shape rule (:func:`route`):
+
+- ``"bf16_sm90"``: bfloat16 with K and N multiples of 8 (every ResNet-50
+  call) takes ``csrc/fused_matmul_sm90.cu`` (bf16 wgmma, the weight
+  through TMA, the prologue in registers);
+- ``"bf16_ragged"``: other bfloat16 shapes take the CUDA-core kernels of
+  ``csrc/fused_matmul.cu`` in bf16 (the tensor-core kernels need rows of
+  16-byte multiples for TMA);
+- ``"f32"``: float32 takes ``csrc/fused_matmul.cu`` (float32 products, as
+  float32 callers need).
+
+Each source's header note says what bounds it on an H100 and what the
+design does about it. Besides ``<wrapper>.launches``, each wrapper counts
+its launches per route in ``<wrapper>.launches_by_route``.
 
 :func:`fused_matmul_fwd` and :func:`fused_matmul_bwd` are the wrappers:
 tensors on the CPU take :func:`fused_matmul_fwd_reference` /
@@ -18,7 +31,7 @@ rounding points (the affine prologue and ``dz_eff`` rounded to x's dtype,
 float32 sums and statistics); tensors on a CUDA device launch the kernels
 or raise. :class:`FusedBnReluMatmul` is the counterpart of JAX's
 ``custom_vjp``. JAX's VMEM fitter and its unfused fallback for shapes that
-overflow VMEM are not ported: the kernel tiles K and N and takes any shape.
+overflow VMEM are not ported: the kernels tile K and N and take any shape.
 
 Without ``stats`` the statistics come back as None (the Pallas kernels
 leave them unwritten); in the backward None gradients of ``s1``/``s2``
@@ -34,7 +47,20 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BM = 128          # rows of the kernels' output tile (csrc/fused_gemm.cuh kBM)
+# dtype -> route; bf16 shapes outside the tensor-core kernels' rule take
+# _RAGGED; each route's (library, symbol) for the forward and backward
+_ROUTES = {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+_RAGGED = "bf16_ragged"
+_FWD_FN = {"bf16_sm90": ("fused_matmul_sm90", "bigdl_fused_matmul_sm90_fwd"),
+           _RAGGED: ("fused_matmul", "bigdl_fused_matmul_fwd"),
+           "f32": ("fused_matmul", "bigdl_fused_matmul_fwd")}
+_BWD_FN = {"bf16_sm90": ("fused_matmul_sm90", "bigdl_fused_matmul_sm90_bwd"),
+           _RAGGED: ("fused_matmul", "bigdl_fused_matmul_bwd"),
+           "f32": ("fused_matmul", "bigdl_fused_matmul_bwd")}
+_BM = 128          # rows of the CUDA-core kernels' output tile (kBM)
+# rows each partial of the column sums covers, per route (fused_gemm.cuh
+# kBM; fused_gemm_sm90.cuh kPartRows: one per consumer warpgroup)
+_PART_ROWS = {"bf16_sm90": 64, _RAGGED: _BM, "f32": _BM}
 _SMS = 132         # streaming multiprocessors of an H100 SXM
 _FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
@@ -58,6 +84,39 @@ def dw_splits(rows: int, k: int, n: int):
     want = max(1, min(-(-4 * _SMS // tiles), -(-rows // 256)))
     per = -(-(-(-rows // want)) // 16) * 16
     return -(-rows // per), per
+
+
+def dw_splits_sm90(rows: int, k: int, n: int):
+    """(splits, rows per split) of the tensor-core weight gradient: its
+    blocks own 64 x BN tiles of dw (BN = 64 for N <= 64, else 128), so
+    enough (K/64 x N/BN x splits) blocks for one per SM, at least 256
+    pixels per split, a multiple of 128 rows each (the block's two
+    warpgroups take alternate 64-pixel chunks). Each split writes two
+    float32 partials."""
+    bn = 64 if n <= 64 else 128
+    tiles = -(-k // 64) * -(-n // bn)
+    want = max(1, min(-(-_SMS // tiles), -(-rows // 256)))
+    per = -(-(-(-rows // want)) // 128) * 128
+    return -(-rows // per), per
+
+
+def route(dtype, k: int, n: int) -> str:
+    """The route of a CUDA call with contraction / input channels ``k``
+    and output columns ``n``: float32 -> ``"f32"``; bfloat16 ->
+    ``"bf16_sm90"`` when k and n are multiples of 8, else
+    ``"bf16_ragged"``."""
+    rt = _ROUTES[dtype]
+    if rt == "bf16_sm90" and (k % 8 or n % 8):
+        return _RAGGED
+    return rt
+
+
+def _check_aligned(fn, *tensors):
+    """The tensor-core kernels read through TMA: 16-byte aligned bases."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: the bf16 kernels need 16-byte aligned "
+                             f"tensors (data_ptr {t.data_ptr():#x})")
 
 
 def _prologue(x, a, b, relu):
@@ -139,10 +198,14 @@ def _check(fn, x, w, a, b, *like_x):
 
 
 def _f32(t):
-    """t as contiguous float32 (a copy unless it already is); the caller
+    """t as contiguous, 16-byte aligned float32 (a copy unless it already
+    is: the tensor-core kernels copy it 16 bytes at a time); the caller
     holds the result until the kernel is queued, since a temporary freed
     earlier could hand its memory to the next allocation."""
-    return None if t is None else t.float().contiguous()
+    if t is None:
+        return None
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_matmul_fwd(x, w, a=None, b=None, relu: bool = False,
@@ -158,27 +221,31 @@ def fused_matmul_fwd(x, w, a=None, b=None, relu: bool = False,
     _check("fused_matmul_fwd", x, w, a, b)
     M, K = x.shape
     N = w.shape[1]
+    rt = route(x.dtype, K, N)
+    if rt == "bf16_sm90":
+        _check_aligned("fused_matmul_fwd", x, w)
     z = torch.empty((M, N), dtype=x.dtype, device=x.device)
     part = s = None
     if stats:
-        part = torch.empty((2, -(-M // _BM), N), device=x.device)
+        part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=x.device)
         s = torch.empty((2, N), device=x.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    fn = _build.function("fused_matmul", "bigdl_fused_matmul_fwd",
-                         _FWD_ARGTYPES)
+    fn = _build.function(*_FWD_FN[rt], _FWD_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), _ptr(af), _ptr(bf),
              z.data_ptr(), _ptr(part), None if part is None else
              part[1].data_ptr(), _ptr(s), None if s is None else
              s[1].data_ptr(), _DTYPES[x.dtype], M, K, N, int(a is not None),
              int(bool(relu)), int(bool(stats)), _stream(x))
     if err:
-        raise RuntimeError(f"fused_matmul_fwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_matmul_fwd kernel launch failed ({rt}): "
+                           f"CUDA error {err}")
     fused_matmul_fwd.launches += 1
+    fused_matmul_fwd.launches_by_route[rt] += 1
     return (z, s[0], s[1]) if stats else (z, None, None)
 
 
 fused_matmul_fwd.launches = 0
+fused_matmul_fwd.launches_by_route = dict.fromkeys(_FWD_FN, 0)
 
 
 def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
@@ -201,18 +268,24 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
            *((("z", z),) if stats else ()))
     M, K = x.shape
     N = w.shape[1]
+    rt = route(x.dtype, K, N)
+    if rt == "bf16_sm90":
+        _check_aligned("fused_matmul_bwd", x, w, dz, *((z,) if stats else ()))
     prologue = a is not None
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     dadb = torch.empty((2, K), device=x.device) if prologue else None
-    splits, per = dw_splits(M, K, N)
-    ws = torch.empty((splits, K, N), device=x.device)
-    part = (torch.empty((2, -(-M // _BM), K), device=x.device) if prologue
-            else None)
+    if rt == "bf16_sm90":       # two partials a split, one per warpgroup
+        splits, per = dw_splits_sm90(M, K, N)
+        ws = torch.empty((2 * splits, K, N), device=x.device)
+    else:
+        splits, per = dw_splits(M, K, N)
+        ws = torch.empty((splits, K, N), device=x.device)
+    part = (torch.empty((2, -(-M // _PART_ROWS[rt]), K), device=x.device)
+            if prologue else None)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
     d1, d2 = (_f32(ds1), _f32(ds2)) if stats else (None, None)
-    fn = _build.function("fused_matmul", "bigdl_fused_matmul_bwd",
-                         _BWD_ARGTYPES)
+    fn = _build.function(*_BWD_FN[rt], _BWD_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), _ptr(af), _ptr(bf),
              dz.data_ptr(), _ptr(z if stats else None), _ptr(d1), _ptr(d2),
              dx.data_ptr(),
@@ -222,15 +295,17 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
              M, K, N, int(prologue), int(bool(relu)), int(stats), splits, per,
              _stream(x))
     if err:
-        raise RuntimeError(f"fused_matmul_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_matmul_bwd kernel launch failed ({rt}): "
+                           f"CUDA error {err}")
     fused_matmul_bwd.launches += 1
+    fused_matmul_bwd.launches_by_route[rt] += 1
     if not prologue:
         return dx, dw, None, None
     return dx, dw, dadb[0], dadb[1]
 
 
 fused_matmul_bwd.launches = 0
+fused_matmul_bwd.launches_by_route = dict.fromkeys(_BWD_FN, 0)
 
 
 class FusedBnReluMatmul(torch.autograd.Function):

@@ -20,8 +20,14 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    routes (bf16: the tensor-core kernels; float32: the CUDA-core ones) at
    ragged T, D = 32/64/128, the chunk form and kv_len = 0, the backward
    also in the ring form (external delta, float32 gradients) and for
-   bitwise-equal reruns; the tensor-core libraries must build without
-   spills;
+   bitwise-equal reruns. The fused ResNet kernels are checked on all three
+   routes (bf16 on the tensor cores, ragged bf16 and float32 on the CUDA
+   cores) at small and ragged shapes, at pad taps where relu(b) != 0, and,
+   in bf16 with two launches bit for bit equal, at every distinct
+   ResNet-50 B256/224 shape of K3 (forward and backward), K4 and K5, each
+   timed with its library call and bound; the launches a step times the
+   time of each family is printed against the measured steps of phase 7.
+   The tensor-core libraries (``*_sm90``) must build without spills;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
@@ -38,9 +44,10 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
 6. trains through the normal entry point, ``LocalOptimizer`` with
    ``LMCriterion`` and ``SGD(0.01, momentum=0.9)``, 4 iterations of
    batch 8 x 256 tokens on float32 parameters;
-7. runs one float32 training step of ResNet-50 (``fused="pallas"``, NHWC,
+7. runs one training step of ResNet-50 (``fused="pallas"``, NHWC,
    ``fused_conv2``) at B2/224 on the card and on the CPU with the same
-   weights (logits, running statistics, gradients; the max pool's ties),
+   weights, in float32 and through the bf16 recipe (logits, running
+   statistics, gradients; the max pool's ties in float32),
    then trains full-width, full-depth ResNet-50 with the repository's
    recipe (``bench.py`` ``_build_resnet_step``: float32 masters,
    ``bf16_params``, bf16 images, ``CrossEntropyCriterion`` on float32
@@ -56,17 +63,19 @@ path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
 16 K4 forwards with ``fused_conv2``), or any other kernel launched, fails
-the run; so does a flash launch on the other route than the path's dtype
-(bf16 in ``generate``, ``prefill_chunked`` and the bf16 recipe, float32 in
-``LocalOptimizer``). Every check that fails exits non-zero. The line before the last
+the run; so does a flash, K3 or K4 launch on another route than the path's
+dtype gives (``bf16_sm90`` in ``generate``, ``prefill_chunked`` and the
+bf16 recipes, ``f32`` in the ``LocalOptimizer`` runs). Every check that fails exits non-zero. The line before the last
 is one JSON object with each kernel's numbers (``flash_fwd`` at the
 serving prefill shape with the ``generate`` launches, ``flash_fwd_train``
 at the training shape with the launches of the five remat-off training
 steps, ``flash_bwd`` likewise, ``flash_fwd_chunk`` with the
 ``prefill_chunked`` launches, the ``_f32`` rows at the ``LocalOptimizer``
-shape with its launches; the flash rows carry their ``dtype_route``; the fused ResNet kernels at their timed
-shapes with the launches of the four ResNet-50 steps of the arm that runs
-them); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
+shape with its launches; the fused ResNet kernels at their timed shapes
+with the launches of the four ResNet-50 steps of the arm that runs them,
+their ``_f32`` rows at phase 8's shape with its launches (K4's with those
+of phase 7's float32 step); the flash, K3 and K4 rows carry their
+``dtype_route``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -103,12 +112,20 @@ def card_line():
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+_CAPTURE = {}
+
+
 def graph_ms(torch, fn, n_sets, reps=20, iters=7):
     """Median device milliseconds of one ``fn(i)`` call: ``reps`` calls
     (i = 0, 1, ...; callers rotate over ``n_sets`` input copies) are
     captured in one CUDA graph and replayed ``iters`` times between CUDA
-    events."""
-    s = torch.cuda.Stream()
+    events. All captures share one side stream: cuBLAS keeps a workspace
+    for every stream it has run on for the life of the process, so a new
+    stream per capture would leave tens of MiB allocated per timed call
+    and inflate the later phases' peak-memory readings."""
+    s = _CAPTURE.get("stream")
+    if s is None:
+        s = _CAPTURE["stream"] = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         for i in range(2):
@@ -389,11 +406,20 @@ def _esz(torch, dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
+def _same(torch, got, again):
+    """Two launches on the same inputs agree bit for bit (no atomics)."""
+    return all((p is None and q is None) or torch.equal(p, q)
+               for p, q in zip(got, again))
+
+
+def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
+            plain=True):
     """K3 forward (and backward) against the plain versions on one set of
-    inputs; timed: kernel, plain version and the bare product (cuBLAS
+    inputs, and a second launch bit for bit against the first; timed:
+    kernel, plain version (with ``plain``) and the bare product (cuBLAS
     ``x @ w``; for the backward ``dz @ w.T`` and ``x.T @ dz``), which
     computes the product alone, without the prologue and statistics."""
+    from bigdl_tpu_torch.kernels.fused_matmul import route
     g = torch.Generator(device="cuda").manual_seed(M + Kd + N)
     x = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
     w = (0.1 * torch.randn(Kd, N, device="cuda", generator=g)).to(dtype)
@@ -404,8 +430,10 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
     got = K.fused_matmul_fwd(x, w, a, b, relu, stats)
     ref = K.fused_matmul_fwd_reference(x, w, a, b, relu, stats)
     errs = [_rel_err(p, q) for p, q in zip(got, ref) if q is not None]
+    same = _same(torch, got, K.fused_matmul_fwd(x, w, a, b, relu, stats))
     rec = {"shape": [M, Kd, N], "dtype": str(dtype), "prologue": prologue,
-           "relu": relu, "stats": stats, "err_z_s1_s2": errs}
+           "relu": relu, "stats": stats, "route": route(dtype, Kd, N),
+           "err_z_s1_s2": errs}
     if bwd:
         z = ref[0]
         dz = torch.randn(M, N, device="cuda", generator=g).to(dtype)
@@ -418,12 +446,15 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
         rec["err_dx_dw_da_db"] = [_rel_err(p, q) for p, q in zip(gb, rb)
                                   if q is not None]
         errs = errs + rec["err_dx_dw_da_db"]
+        same = same and _same(torch, gb, K.fused_matmul_bwd(
+            x, w, a, b, z, dz, ds1, ds2, relu, stats))
     torch.cuda.synchronize()
     tol = FUSED_TOL[str(dtype)]
-    rec.update(max_abs_err=max(errs), tol=tol)
+    rec.update(max_abs_err=max(errs), tol=tol, reruns_equal=same)
     print(f"  K3 fused_matmul {rec}", flush=True)
     check(max(errs) <= tol, f"fused_matmul disagrees with its plain version: "
           f"{rec}")
+    check(same, f"fused_matmul: two launches differ: {rec}")
     if not timed:
         return rec
     e = _esz(torch, dtype)
@@ -433,7 +464,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
         ms=graph_ms(torch, lambda i: K.fused_matmul_fwd(x, w, a, b, relu,
                                                         stats), 1, reps=10),
         plain_ms=graph_ms(torch, lambda i: K.fused_matmul_fwd_reference(
-            x, w, a, b, relu, stats), 1, reps=5),
+            x, w, a, b, relu, stats), 1, reps=5) if plain else None,
         library_ms=graph_ms(torch, lambda i: x @ w, 1, reps=10))
     rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
         nbytes, 2.0 * M * Kd * N, dtype)
@@ -447,7 +478,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
                 iters=5),
             plain_ms=graph_ms(torch, lambda i: K.fused_matmul_bwd_reference(
                 x, w, a, b, z, dz, ds1, ds2, relu, stats), 1, reps=3,
-                iters=5),
+                iters=5) if plain else None,
             library_ms=graph_ms(torch, lambda i: (dz @ w.T, x.T @ dz), 1,
                                 reps=5, iters=5))
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
@@ -456,7 +487,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True):
     return rec
 
 
-def k5_case(torch, K, B, H, Kd, N, dtype, timed):
+def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True):
     """K5 forward and backward against the plain versions; timed like K3,
     the bare product being ``h @ w`` (and ``dzo @ w.T``, ``h.T @ dzo``)."""
     g = torch.Generator(device="cuda").manual_seed(B + H + Kd + N)
@@ -492,7 +523,7 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed):
         ms=graph_ms(torch, lambda i: K.fused_chain_fwd(z, r, a, b, w, True),
                     1, reps=10),
         plain_ms=graph_ms(torch, lambda i: K.residual_chain_reference(
-            z, r, a, b, w, True), 1, reps=5),
+            z, r, a, b, w, True), 1, reps=5) if plain else None,
         library_ms=graph_ms(torch, lambda i: h @ w, 1, reps=10))
     # reads z, r, w, a, b; writes h, zo, s1, s2
     rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
@@ -502,7 +533,8 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed):
         ms=graph_ms(torch, lambda i: K.fused_chain_bwd(
             z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=5, iters=5),
         plain_ms=graph_ms(torch, lambda i: K.residual_chain_bwd_reference(
-            z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=3, iters=5),
+            z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=3, iters=5)
+        if plain else None,
         library_ms=graph_ms(torch, lambda i: (dzo @ w.T, h.T @ dzo), 1,
                             reps=5, iters=5))
     # reads z, r, w, a, b, dh, dzo, zo, ds1, ds2; writes dz, dr, da, db, dw
@@ -513,26 +545,35 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed):
     return rec
 
 
-def k4_case(torch, K, B, H, C, N, stride, dtype, timed):
-    """K4 forward against its plain version; timed like K3, the library
-    call being cuDNN's bare conv (``F.conv2d`` on the channels-last view,
-    without the prologue and statistics)."""
+def k4_case(torch, K, B, H, C, N, stride, dtype, timed, bias=None,
+            plain=True):
+    """K4 forward against its plain version, and a second launch bit for
+    bit against the first; ``bias`` (a constant b) instead of random
+    ones: with b > 0 every tap in the zero padding would give relu(b) != 0
+    if the kernel applied the prologue after the padding. Timed like K3,
+    the library call being cuDNN's bare conv (``F.conv2d`` on the
+    channels-last view, without the prologue and statistics)."""
+    from bigdl_tpu_torch.kernels.fused_matmul import route
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(B + H + C + stride)
     x = torch.randn(B, H, H, C, device="cuda", generator=g).to(dtype)
     w = (0.1 * torch.randn(3, 3, C, N, device="cuda", generator=g)).to(dtype)
     a = (torch.rand(C, device="cuda", generator=g) + 0.5).to(dtype)
-    b = torch.randn(C, device="cuda", generator=g).to(dtype)
+    b = (torch.randn(C, device="cuda", generator=g) if bias is None
+         else torch.full((C,), float(bias), device="cuda")).to(dtype)
     got = K.fused_conv_fwd(x, w, a, b, stride, True)
     ref = K.conv3x3_reference(x, w, a, b, stride, True)
+    same = _same(torch, got, K.fused_conv_fwd(x, w, a, b, stride, True))
     torch.cuda.synchronize()
     errs = [_rel_err(p, q) for p, q in zip(got, ref)]
     tol = FUSED_TOL[str(dtype)]
     rec = {"shape": [B, H, H, C, N], "stride": stride, "dtype": str(dtype),
-           "err_z_s1_s2": errs, "max_abs_err": max(errs), "tol": tol}
+           "bias": bias, "route": route(dtype, C, N), "err_z_s1_s2": errs,
+           "max_abs_err": max(errs), "tol": tol, "reruns_equal": same}
     print(f"  K4 fused_conv {rec}", flush=True)
     check(max(errs) <= tol, f"fused_conv disagrees with its plain version: "
           f"{rec}")
+    check(same, f"fused_conv: two launches differ: {rec}")
     if not timed:
         return rec
     H2 = -(-H // stride)
@@ -542,7 +583,7 @@ def k4_case(torch, K, B, H, C, N, stride, dtype, timed):
         ms=graph_ms(torch, lambda i: K.fused_conv_fwd(x, w, a, b, stride,
                                                       True), 1, reps=5),
         plain_ms=graph_ms(torch, lambda i: K.conv3x3_reference(
-            x, w, a, b, stride, True), 1, reps=3),
+            x, w, a, b, stride, True), 1, reps=3) if plain else None,
         library_ms=graph_ms(torch, lambda i: F.conv2d(
             xc, wc, stride=stride, padding=1), 1, reps=10))
     rec["bound_ms"], rec["bound_by"] = bound(
@@ -550,6 +591,68 @@ def k4_case(torch, K, B, H, C, N, stride, dtype, timed):
         2.0 * B * H2 * H2 * 9 * C * N, dtype)
     print(f"  K4 timing {rec}", flush=True)
     return rec
+
+
+# ResNet-50 at B256/224 (models/resnet.py): the fused calls of one training
+# step, (name, shape, launches a step). K3: (M, K, N, prologue BN2 + ReLU);
+# K4: (H, C, N, stride); K5: (H, K, N).
+RB = 256
+RESNET_K3 = [("s0 conv1", (RB * 56 * 56, 64, 64, False), 1),
+             ("s1 conv1", (RB * 56 * 56, 256, 128, False), 1),
+             ("s2 conv1", (RB * 28 * 28, 512, 256, False), 1),
+             ("s3 conv1", (RB * 14 * 14, 1024, 512, False), 1),
+             ("s0 conv3", (RB * 56 * 56, 64, 256, True), 3),
+             ("s1 conv3", (RB * 28 * 28, 128, 512, True), 4),
+             ("s2 conv3", (RB * 14 * 14, 256, 1024, True), 6),
+             ("s3 conv3", (RB * 7 * 7, 512, 2048, True), 3),
+             ("s0 proj", (RB * 56 * 56, 64, 256, False), 1),
+             ("s1 proj", (RB * 28 * 28, 256, 512, False), 1),
+             ("s2 proj", (RB * 14 * 14, 512, 1024, False), 1),
+             ("s3 proj", (RB * 7 * 7, 1024, 2048, False), 1)]
+RESNET_K4 = [("s0 3x3", (56, 64, 64, 1), 3),
+             ("s1 3x3/2", (56, 128, 128, 2), 1),
+             ("s2 3x3/2", (28, 256, 256, 2), 1),
+             ("s3 3x3/2", (14, 512, 512, 2), 1),
+             ("s1 3x3", (28, 128, 128, 1), 3),
+             ("s2 3x3", (14, 256, 256, 1), 5),
+             ("s3 3x3", (7, 512, 512, 1), 2)]
+RESNET_K5 = [("s0 junction", (56, 256, 64), 2),
+             ("s1 junction", (28, 512, 128), 3),
+             ("s2 junction", (14, 1024, 256), 5),
+             ("s3 junction", (7, 2048, 512), 2)]
+# the shapes whose plain versions are timed too (the kernels line's rows)
+JSON_SHAPES = ("s0 conv3", "s3 proj", "s0 3x3", "s1 3x3/2", "s0 junction")
+
+
+def resnet_shapes(torch, K):
+    """Every distinct ResNet-50 B256/224 shape of K3 (forward and backward)
+    and K4 held against the plain versions (bf16, two launches bit for
+    bit) and timed with the library call and the bound, and K5 (forward
+    and backward) likewise. Returns ({family: [(name, launches a step,
+    timing)]}, {name: case record})."""
+    bf = torch.bfloat16
+    fam = {"K3 fwd": [], "K3 bwd": [], "K4": [], "K5 fwd": [], "K5 bwd": []}
+    recs = {}
+    for name, (M, Kd, N, pro), n in RESNET_K3:
+        r = recs[name] = k3_case(torch, K, M, Kd, N, bf, pro, pro, True, True,
+                                 plain=name in JSON_SHAPES)
+        fam["K3 fwd"].append((name, n, r["fwd"]))
+        fam["K3 bwd"].append((name, n, r["bwd"]))
+    for name, (H, C, N, st), n in RESNET_K4:
+        r = recs[name] = k4_case(torch, K, RB, H, C, N, st, bf, True,
+                                 plain=name in JSON_SHAPES)
+        fam["K4"].append((name, n, r))
+    for name, (H, Kd, N), n in RESNET_K5:
+        r = recs[name] = k5_case(torch, K, RB, H, Kd, N, bf, True,
+                                 plain=name in JSON_SHAPES)
+        fam["K5 fwd"].append((name, n, r["fwd"]))
+        fam["K5 bwd"].append((name, n, r["bwd"]))
+    for f, rows in fam.items():
+        for name, n, r in rows:
+            print(f"  {f} {name}: {n} a step x {r['ms']:.4f} ms (library "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"{r['bound_by']})", flush=True)
+    return fam, recs
 
 
 # -- phase 4 helper ------------------------------------------------------------
@@ -614,8 +717,8 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
         check(counts == want, f"training step (remat={remat}) launched "
               f"{counts}, expected {want}")
         routes = K.launches_by_route()
-        check(routes == {n: {"bf16_sm90": want[n], "f32": 0}
-                         for n in routes},
+        check(all(routes[n] == {"bf16_sm90": want[n], "f32": 0}
+                  for n in ("flash_fwd", "flash_bwd")),
               f"training step (remat={remat}): flash launches by route "
               f"{routes}, all expected on bf16_sm90")
         check(torch.stack([torch.isfinite(g).all() for g in grads])
@@ -669,7 +772,8 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
     check(counts == want, f"LocalOptimizer launched {counts}, expected "
           f"{want}")
     routes = K.launches_by_route()
-    check(routes == {n: {"bf16_sm90": 0, "f32": want[n]} for n in routes},
+    check(all(routes[n] == {"bf16_sm90": 0, "f32": want[n]}
+              for n in ("flash_fwd", "flash_bwd")),
           f"LocalOptimizer (float32 params): flash launches by route "
           f"{routes}, all expected on f32")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
@@ -680,18 +784,38 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
 
 # -- phases 7 and 8: ResNet-50 training ---------------------------------------------
 
-def resnet_card_vs_cpu(torch, K, B=2, S=224):
+def _step_errs(got, want):
+    """Relative errors of one ResNet-50 training step's (logits, running
+    statistics, gradients) against another's."""
+    (lc, sc, gc), (lp, sp, gp) = got, want
+    gerr = sorted(((_rel_err(gc[k], gp[k]), k) for k in gp), reverse=True)
+    return {"logits": _rel_err(lc, lp),
+            "state": max(_rel_err(sc[k], sp[k]) for k in sp),
+            "grad_fc": _rel_err(gc["10.weight"], gp["10.weight"]),
+            "grad_all": gerr[0][0], "grad_worst3": gerr[:3]}
+
+
+STEP_METRICS = ("logits", "state", "grad_fc", "grad_all")
+
+
+def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     """The model on the card (the kernels) against the same weights on the
-    CPU (the kernels' plain versions), float32, TF32 off: logits, new
-    running statistics and gradients of one training step on a small
-    batch, and the exact max pool's tie routing on the card against the
-    CPU's."""
+    CPU (the kernels' plain versions), TF32 off: logits, new running
+    statistics and gradients of one training step on a small batch, in
+    float32, or through the bf16 recipe (``bf16_params`` of float32
+    masters, bf16 images, float32 logits into the loss) with every fused
+    launch on the card on the ``bf16_sm90`` route, where both bf16 runs are
+    also held against ``truth``, the float32 step on the CPU; in float32
+    also the exact max pool's tie routing on the card against the CPU's.
+    Returns (record, the CPU's step)."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.convert import flatten
     from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.utils.amp import bf16_params
     rng = np.random.RandomState(3)
     x = rng.randn(B, S, S, 3).astype(np.float32)
     y = torch.from_numpy(rng.randint(1, 1001, size=B))
+    bf16 = dtype == torch.bfloat16
     out = {}
     for dev in ("cuda", "cpu"):
         m = ResNet50(format="NHWC", fused="pallas", fused_conv2=True,
@@ -701,20 +825,48 @@ def resnet_card_vs_cpu(torch, K, B=2, S=224):
         else:
             card_sd = m.state_dict()
         params = m.params
-        logits, ns = m.apply(params, m.state, torch.from_numpy(x).to(dev),
+        K.reset_launch_counts()
+        logits, ns = m.apply(bf16_params(params) if bf16 else params, m.state,
+                             torch.from_numpy(x).to(dev, dtype),
                              training=True)
-        loss = nn.CrossEntropyCriterion()._forward(logits, y.to(dev))
+        loss = nn.CrossEntropyCriterion()._forward(logits.float(), y.to(dev))
         leaves = flatten(params)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        out[dev] = (logits.detach().cpu(),
-                    {k: v.cpu() for k, v in flatten(ns).items()},
-                    {k: g.cpu() for k, g in zip(leaves, grads)})
-    (lc, sc, gc), (lp, sp, gp) = out["cuda"], out["cpu"]
-    gerr = sorted(((_rel_err(gc[k], gp[k]), k) for k in gp), reverse=True)
-    rec = {"logits": _rel_err(lc, lp),
-           "state": max(_rel_err(sc[k], sp[k]) for k in sp),
-           "grad_fc": _rel_err(gc["10.weight"], gp["10.weight"]),
-           "grad_all": gerr[0][0], "grad_worst3": gerr[:3]}
+        if dev == "cuda":
+            routes = K.launches_by_route()
+        out[dev] = (logits.detach().float().cpu(),
+                    {k: v.float().cpu() for k, v in flatten(ns).items()},
+                    {k: g.float().cpu() for k, g in zip(leaves, grads)})
+    rec = dict(dtype=str(dtype), **_step_errs(out["cuda"], out["cpu"]))
+    rec["fused_routes"] = {n: routes[n] for n in ("fused_matmul_fwd",
+                                                  "fused_matmul_bwd",
+                                                  "fused_conv_fwd")}
+    want = "bf16_sm90" if bf16 else "f32"
+    check(all(r[want] > 0 and sum(r.values()) == r[want]
+              for r in rec["fused_routes"].values()),
+          f"ResNet-50 on the card ({dtype}): fused launches by route "
+          f"{rec['fused_routes']}, expected all on {want}")
+    if bf16:
+        card = _step_errs(out["cuda"], truth)
+        cpu = _step_errs(out["cpu"], truth)
+        rec["card_vs_f32"] = {k: card[k] for k in STEP_METRICS}
+        rec["cpu_vs_f32"] = {k: cpu[k] for k in STEP_METRICS}
+        print(f"[7] ResNet-50 card vs CPU (B{B}/{S}, bf16 recipe, "
+              f"fused_conv2, one training step): {rec}", flush=True)
+        # bf16 keeps 8 significant bits, and the two runs round every
+        # activation at the same points but after float32 sums taken in
+        # other orders, so a sum that lands on the other side of a bf16
+        # rounding boundary moves by one ulp (2^-8) and carries that
+        # through 50 layers and the one-pass BatchNorm variances of the B2
+        # batch (cancellation in stage 3): the two bf16 runs differ by
+        # percents, and by more in the deep gradients. What the kernels
+        # must not do is add error: the card's bf16 step has to be as close
+        # to the float32 step as the CPU's bf16 step is (at most twice its
+        # distance, plus 1e-3)
+        check(all(card[k] <= 2 * cpu[k] + 1e-3 for k in STEP_METRICS),
+              f"ResNet-50 bf16 on the card is further from float32 than "
+              f"bf16 on the CPU: {rec}")
+        return rec, out["cpu"]
     # ties, as after the stem's ReLU: the first maximum of each window
     pool = nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1, format="NHWC")
     xp = torch.relu(torch.from_numpy(rng.randn(4, 56, 56, 64).astype(
@@ -738,7 +890,7 @@ def resnet_card_vs_cpu(torch, K, B=2, S=224):
           f"ResNet-50 on the card disagrees with the CPU: {rec}")
     check(rec["pool_grad_equal"], "max pool ties routed differently on the "
           "card and the CPU")
-    return rec
+    return rec, out["cpu"]
 
 
 def resnet_recipe(torch, K, model, init, x, y, steps=4):
@@ -774,6 +926,10 @@ def resnet_recipe(torch, K, model, init, x, y, steps=4):
     want = dict.fromkeys(K.WRAPPERS, 0)
     want.update(fused_matmul_fwd=24, fused_matmul_bwd=24, fused_chain_fwd=12,
                 fused_chain_bwd=12, fused_conv_fwd=16 if conv2 else 0)
+    # every bf16 K3 / K4 launch on the tensor-core route
+    want_routes = {n: {"bf16_sm90": want[n], "bf16_ragged": 0, "f32": 0}
+                   for n in ("fused_matmul_fwd", "fused_matmul_bwd",
+                             "fused_conv_fwd")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, total = [], [], dict.fromkeys(want, 0)
@@ -786,6 +942,10 @@ def resnet_recipe(torch, K, model, init, x, y, steps=4):
         counts = K.launch_counts()
         check(counts == want, f"ResNet-50 step (fused_conv2={conv2}) "
               f"launched {counts}, expected {want}")
+        routes = K.launches_by_route()
+        check(all(routes[n] == r for n, r in want_routes.items()),
+              f"ResNet-50 step (fused_conv2={conv2}) launches by route "
+              f"{routes}, expected {want_routes}")
         check(torch.stack([torch.isfinite(g).all() for g in grads])
               .all().item(), f"non-finite gradient (fused_conv2={conv2})")
         losses.append(loss.item())
@@ -829,17 +989,23 @@ def resnet_local_optimizer(torch, K, model, init, B=32, S=224, iters=3):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
+    routes = K.launches_by_route()
     want = dict.fromkeys(K.WRAPPERS, 0)
     want.update(fused_matmul_fwd=24 * iters, fused_matmul_bwd=24 * iters,
                 fused_chain_fwd=12 * iters, fused_chain_bwd=12 * iters)
     check(counts == want, f"ResNet-50 LocalOptimizer launched {counts}, "
           f"expected {want}")
+    # float32 parameters: every K3 launch on the float32 route
+    for n in ("fused_matmul_fwd", "fused_matmul_bwd"):
+        check(routes[n] == {"bf16_sm90": 0, "bf16_ragged": 0, "f32": want[n]},
+              f"ResNet-50 LocalOptimizer {n} launches by route {routes[n]}")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"ResNet-50 LocalOptimizer losses {losses}")
     check(not torch.equal(model[1].running_mean, before),
           "LocalOptimizer left the running statistics where they were")
     return {"losses": losses, "wall_s": dt,
-            "step_s": opt.metrics.values["step_time"], "launches": counts}
+            "step_s": opt.metrics.values["step_time"], "launches": counts,
+            "routes": routes}
 
 
 def main():
@@ -941,15 +1107,19 @@ def main():
         k5_case(torch, K, 2, 5, 48, 24, dt, False)
         k4_case(torch, K, 2, 8, 16, 24, 1, dt, False)
         k4_case(torch, K, 2, 7, 32, 40, 2, dt, False)
-    # stage-0 conv3 (prologue BN2 + ReLU), stage-3 projection, stage-0 K5
-    # junction, K4 at stage 0 and at the stage-1 stride-2 entry
-    k3_s0 = k3_case(torch, K, 256 * 56 * 56, 64, 256, bf, True, True, True,
-                    timed=True)
-    k3_s3 = k3_case(torch, K, 256 * 7 * 7, 1024, 2048, bf, False, False, True,
-                    timed=True, bwd=False)
-    k5_s0 = k5_case(torch, K, 256, 56, 256, 64, bf, timed=True)
-    k4_s0 = k4_case(torch, K, 256, 56, 64, 64, 1, bf, timed=True)
-    k4_s1 = k4_case(torch, K, 256, 56, 128, 128, 2, bf, timed=True)
+    # bf16 pad taps that would give relu(b) = 1 or 2 if the prologue came
+    # after the padding, at stride 1 and 2 and with C not a multiple of 64
+    k4_case(torch, K, 2, 7, 64, 64, 1, bf, False, bias=1.0)
+    k4_case(torch, K, 2, 9, 64, 64, 2, bf, False, bias=1.0)
+    k4_case(torch, K, 2, 9, 72, 16, 1, bf, False, bias=2.0)
+    # every ResNet-50 B256/224 shape of K3, K4 and K5, checked and timed
+    fam, recs = resnet_shapes(torch, K)
+    k3_s0, k3_s3, k5_s0 = recs["s0 conv3"], recs["s3 proj"], recs["s0 junction"]
+    k4_s0, k4_s1 = recs["s0 3x3"], recs["s1 3x3/2"]
+    # the float32 route (CUDA cores) at phase 8's stage-0 shape (B32)
+    k3_f32 = k3_case(torch, K, 32 * 56 * 56, 64, 256, f32, True, True, True,
+                     timed=True)
+    k4_f32 = k4_case(torch, K, 32, 56, 64, 64, 1, f32, timed=True)
 
     # -- phase 3: generate on the flagship model ---------------------------
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
@@ -1128,7 +1298,8 @@ def main():
 
     # -- phase 7: ResNet-50, card against CPU, then the bf16 recipe ----------
     from bigdl_tpu_torch.models import ResNet50
-    r7 = resnet_card_vs_cpu(torch, K)
+    r7, truth = resnet_card_vs_cpu(torch, K, torch.float32)
+    r7b, _ = resnet_card_vs_cpu(torch, K, torch.bfloat16, truth)
     RB, RS = 256, 224
     rng = np.random.RandomState(0)
     rx = torch.from_numpy(rng.randn(RB, RS, RS, 3).astype(
@@ -1204,6 +1375,18 @@ def main():
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"bare product {rec['library_ms']:.4f}, bound "
               f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+    # launches x ms of each fused family over the ResNet-50 shapes, against
+    # the measured steps (K4 runs in the fused_conv2 arm only)
+    step_off, step_on = (r["step_s"] * 1e3 for r in rn_arms)
+    for f, rows in fam.items():
+        tot = sum(n * r["ms"] for _, n, r in rows)
+        lib = sum(n * r["library_ms"] for _, n, r in rows)
+        bnd = sum(n * r["bound_ms"] for _, n, r in rows)
+        step = step_on if f == "K4" else step_off
+        print(f"    {f}: {sum(n for _, n, _ in rows)} launches a step, "
+              f"sum of launches x ms {tot:.3f} ms = {tot / step:.1%} of the "
+              f"{step:.1f} ms step (fused_conv2={f == 'K4'}); library "
+              f"{lib:.3f} ms, bound {bnd:.3f} ms", flush=True)
     # the tensor-core kernels keep their accumulators in registers: ptxas
     # must report no spill (-1: no build log)
     check(all(v == 0 for v in sm90_spills.values()),
@@ -1235,18 +1418,31 @@ def main():
                    "bigdl_tpu_torch/csrc/paged_attention.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
                    serve_counts["paged_attention"]),
-        kernel_rec("fused_matmul_nhwc", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+        kernel_rec("fused_matmul_nhwc",
+                   "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:688",
-                   dict(k3_s0["fwd"], max_abs_err=k3_s0["max_abs_err"]),
-                   off["fused_matmul_fwd"]),
-        kernel_rec("fused_matmul", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   dict(k3_s0["fwd"], max_abs_err=k3_s0["max_abs_err"],
+                        route=k3_s0["route"]), off["fused_matmul_fwd"]),
+        kernel_rec("fused_matmul", "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:344",
-                   dict(k3_s3["fwd"], max_abs_err=k3_s3["max_abs_err"]),
-                   off["fused_matmul_fwd"]),
-        kernel_rec("fused_matmul_bwd", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   dict(k3_s3["fwd"], max_abs_err=k3_s3["max_abs_err"],
+                        route=k3_s3["route"]), off["fused_matmul_fwd"]),
+        kernel_rec("fused_matmul_bwd",
+                   "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:580",
-                   dict(k3_s0["bwd"], max_abs_err=k3_s0["max_abs_err"]),
-                   off["fused_matmul_bwd"]),
+                   dict(k3_s0["bwd"], max_abs_err=k3_s0["max_abs_err"],
+                        route=k3_s0["route"]), off["fused_matmul_bwd"]),
+        kernel_rec("fused_matmul_f32", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:344",
+                   dict(k3_f32["fwd"], max_abs_err=k3_f32["max_abs_err"],
+                        route=k3_f32["route"]),
+                   r8["routes"]["fused_matmul_fwd"]["f32"]),
+        kernel_rec("fused_matmul_bwd_f32",
+                   "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:229",
+                   dict(k3_f32["bwd"], max_abs_err=k3_f32["max_abs_err"],
+                        route=k3_f32["route"]),
+                   r8["routes"]["fused_matmul_bwd"]["f32"]),
         kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"]),
@@ -1255,12 +1451,15 @@ def main():
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_s0["bwd"], max_abs_err=k5_s0["max_abs_err"]),
                    off["fused_chain_bwd"]),
-        kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv.cu",
+        kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),
-        kernel_rec("fused_conv_s2", "bigdl_tpu_torch/csrc/fused_conv.cu",
+        kernel_rec("fused_conv_s2", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s1,
                    on["fused_conv_fwd"]),
+        kernel_rec("fused_conv_f32", "bigdl_tpu_torch/csrc/fused_conv.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188", k4_f32,
+                   r7["fused_routes"]["fused_conv_fwd"]["f32"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,8 @@ K3_CASES = [
     (77, 16, 24, True, True, False, F32),    # eval: no statistics
     (77, 16, 24, False, True, True, F32),    # ReLU without an affine
     (130, 136, 72, True, True, True, BF16),  # K and N past one tile
+    (77, 72, 40, True, True, False, BF16),   # bf16 eval; K not a multiple of 64
+    (200, 16, 136, False, True, True, BF16),  # bf16 ReLU alone, ragged M
 ]
 
 
@@ -222,6 +224,8 @@ def test_fused_chain_without_stats_matches_pallas_interpret():
     (2, 7, 5, 16, 8, 2, F32),      # odd planes: the last tap in the padding
     (2, 8, 8, 16, 24, 1, BF16),
     (2, 8, 8, 16, 24, 2, BF16),
+    (2, 7, 5, 16, 8, 2, BF16),     # odd planes in bf16
+    (1, 5, 6, 72, 16, 1, BF16),    # C not a multiple of 64: chunks span taps
 ])
 def test_fused_conv_plain_matches_pallas_interpret(B, H, W, C, N, stride, dt):
     js, ts = _inputs(B + H + C + stride, [
@@ -250,6 +254,27 @@ def test_fused_conv_plain_matches_pallas_interpret(B, H, W, C, N, stride, dt):
     for name, t, g in zip("xwab", ts, jg):
         assert t.grad.dtype == t.dtype, name
         assert _rel(t.grad, g) <= GRAD_TOL[dt], (name, _rel(t.grad, g))
+
+
+def test_fused_conv_without_stats_matches_pallas_interpret():
+    """bf16, stride 2 over odd planes, no statistics (the Pallas kernel
+    leaves them unwritten; the port returns None)."""
+    B, H, W, C, N = 2, 7, 7, 24, 16
+    js, ts = _inputs(21, [((B, H, W, C), "randn"), ((3, 3, C, N), "w"),
+                          ((C,), "scale"), ((C,), "randn")], BF16)
+
+    def jz(x, w, a, b):
+        return jcv.fused_bn_relu_conv3x3(x, w, a, b, stride=2, stats=False,
+                                         interpret=True)[0]
+
+    jg = jax.grad(lambda *a: jnp.sum(jnp.tanh(jz(*a).astype(jnp.float32))),
+                  argnums=(0, 1, 2, 3))(*js)
+    z, s1, s2 = fused_bn_relu_conv3x3(*ts, stride=2, stats=False)
+    assert s1 is None and s2 is None and z.shape == (B, 4, 4, N)
+    assert _rel(z, jz(*js)) <= VAL_TOL[BF16]
+    torch.tanh(z.float()).sum().backward()
+    for name, t, g in zip("xwab", ts, jg):
+        assert _rel(t.grad, g) <= GRAD_TOL[BF16], (name, _rel(t.grad, g))
 
 
 def test_fused_conv_padding_comes_after_the_prologue():
@@ -295,12 +320,21 @@ def test_dw_splits_cover_every_row_once(M, K, N):
 
 
 def test_each_library_digest_covers_the_headers_its_source_includes():
+    """A library's digest covers every header under csrc/ that its source
+    includes, directly or through another header."""
+    def includes(f, seen):
+        for h in re.findall(r'#include "([^"]+)"',
+                            (_build.CSRC / f).read_text()):
+            if h not in seen:
+                seen.add(h)
+                includes(h, seen)
+        return seen
+
     for name, (source, *headers) in _build.SOURCES.items():
-        text = (_build.CSRC / source).read_text()
-        included = re.findall(r'#include "([^"]+)"', text)
-        assert sorted(included) == sorted(headers), name
+        assert sorted(includes(source, set())) == sorted(headers), name
     attention = {n for n, f in _build.SOURCES.items()
                  if "attn_tile.cuh" in f}
     fused = {n for n, f in _build.SOURCES.items() if "fused_gemm.cuh" in f}
     assert attention == {"flash_fwd", "flash_bwd", "paged_attention"}
-    assert fused == {"fused_matmul", "fused_chain", "fused_conv"}
+    assert fused == {"fused_matmul", "fused_chain", "fused_conv",
+                     "fused_matmul_sm90", "fused_conv_sm90"}

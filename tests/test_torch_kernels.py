@@ -255,7 +255,10 @@ def test_cpu_flash_calls_count_no_launch_on_any_route():
     kernels.reset_launch_counts()
     assert kernels.launches_by_route() == {
         "flash_fwd": {"bf16_sm90": 0, "f32": 0},
-        "flash_bwd": {"bf16_sm90": 0, "f32": 0}}
+        "flash_bwd": {"bf16_sm90": 0, "f32": 0},
+        "fused_matmul_fwd": {"bf16_sm90": 0, "bf16_ragged": 0, "f32": 0},
+        "fused_matmul_bwd": {"bf16_sm90": 0, "bf16_ragged": 0, "f32": 0},
+        "fused_conv_fwd": {"bf16_sm90": 0, "bf16_ragged": 0, "f32": 0}}
     q = torch.randn(1, 2, 8, 8).to(torch.bfloat16)
     o, lse = flash_fwd(q, q, q, causal=True)
     flash_bwd(q, q, q, o, lse, q, True, out_dtype=torch.float32)
