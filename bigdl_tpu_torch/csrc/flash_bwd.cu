@@ -299,17 +299,28 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 
 }  // namespace bigdl
 
-// Launches the dK/dV kernel, then the dQ kernel, on `stream`; float32 tensors.
-// Returns a cudaError_t (0 = both launched).
+// Launches the dK/dV kernel, then the dQ kernel, on `stream`; float32 tensors,
+// D a multiple of 16 up to 192 (four float32 64-row tiles of D + 1 columns
+// fill the block's shared memory there; the wrapper pads any other D to the
+// next one). Returns a cudaError_t (0 = both launched).
 extern "C" int bigdl_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, void* dk, void* dv,
                                int B, int H, int Tq, int Tkv, int D, int causal, float scale,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return bigdl::launch_bwd<float, 16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     case 32: return bigdl::launch_bwd<float, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 48: return bigdl::launch_bwd<float, 48>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     case 64: return bigdl::launch_bwd<float, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 80: return bigdl::launch_bwd<float, 80>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 96: return bigdl::launch_bwd<float, 96>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 112: return bigdl::launch_bwd<float, 112>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     case 128: return bigdl::launch_bwd<float, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 144: return bigdl::launch_bwd<float, 144>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 160: return bigdl::launch_bwd<float, 160>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 176: return bigdl::launch_bwd<float, 176>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 192: return bigdl::launch_bwd<float, 192>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

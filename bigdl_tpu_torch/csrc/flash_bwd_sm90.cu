@@ -46,7 +46,7 @@ struct BwdCfg {
   static constexpr int BN = 128;  // keys (dK/dV) or queries (dQ) a block owns
   static constexpr int BT = 64;   // rows of each streamed tile
   static constexpr int kStages = 2;
-  static constexpr int SW = D >= 64 ? 128 : 64;
+  static constexpr int SW = head_sw<D>();
   static constexpr int FIX_BYTES = BN * D * 2;
   static constexpr int TILE_BYTES = BT * D * 2;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
@@ -410,8 +410,13 @@ cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v, con
                          const float* lse, const float* delta, void* dq, void* dk, void* dv,
                          int B, int H, int Tq, int Tkv, int causal, float scale, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_bwd<16, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     case 32: return launch_bwd<32, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 48: return launch_bwd<48, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     case 64: return launch_bwd<64, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 80: return launch_bwd<80, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 96: return launch_bwd<96, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
+    case 112: return launch_bwd<112, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     case 128: return launch_bwd<128, OT>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tkv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
@@ -420,7 +425,8 @@ cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v, con
 }  // namespace sm90
 }  // namespace bigdl
 
-// bf16 q, k, v, dout (contiguous (B, H, T, D)); lse and delta float32
+// bf16 q, k, v, dout (contiguous (B, H, T, D)), D a multiple of 16 up to
+// 128; lse and delta float32
 // (B, H, Tq); dq, dk, dv bf16, or float32 when out_f32. Launches the dK/dV
 // kernel, then the dQ kernel, on `stream`. Returns a cudaError_t (0 = both
 // launched).

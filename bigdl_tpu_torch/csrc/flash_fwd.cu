@@ -95,15 +95,29 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o, v
 
 }  // namespace bigdl
 
-// float32 q, k, v, o, lse. Returns a cudaError_t (0 = launched).
+// float32 q, k, v, o, lse; D a multiple of 16 up to 256 (the wrapper pads
+// any other D to the next one). Returns a cudaError_t (0 = launched).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int B, int H, int Tq, int Tkv, int D, int causal, int q_offset,
                                int kv_len, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return bigdl::launch_flash<float, 16>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     case 32: return bigdl::launch_flash<float, 32>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 48: return bigdl::launch_flash<float, 48>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     case 64: return bigdl::launch_flash<float, 64>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 80: return bigdl::launch_flash<float, 80>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 96: return bigdl::launch_flash<float, 96>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 112: return bigdl::launch_flash<float, 112>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     case 128: return bigdl::launch_flash<float, 128>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 144: return bigdl::launch_flash<float, 144>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 160: return bigdl::launch_flash<float, 160>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 176: return bigdl::launch_flash<float, 176>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 192: return bigdl::launch_flash<float, 192>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 208: return bigdl::launch_flash<float, 208>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 224: return bigdl::launch_flash<float, 224>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 240: return bigdl::launch_flash<float, 240>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 256: return bigdl::launch_flash<float, 256>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas kernel bigdl_tpu/kernels/flash_attention.py `_flash_fwd`
 // (body `_fwd_kernel`) for bf16 inputs: online-softmax attention over q of
-// shape (B, H, Tq, D) and k, v of shape (B, H, Tkv, D), D in {32, 64, 128},
-// causal or rectangular-causal (query row r sits at global position
+// shape (B, H, Tq, D) and k, v of shape (B, H, Tkv, D), D a multiple of 16
+// up to 128, causal or rectangular-causal (query row r sits at global position
 // q_offset + r and sees keys <= q_offset + r), over the first kv_len keys only.
 // Returns o (B, H, Tq, D) in bf16 and the per-row log-sum-exp lse (B, H, Tq)
 // in float32; rows that see no key give o = 0 and lse = -inf. float32 inputs
@@ -46,7 +46,7 @@ struct FwdCfg {
   static constexpr int BM = 128;                 // query rows per block
   static constexpr int BK = 128;                 // keys per tile
   static constexpr int kStages = 2;
-  static constexpr int SW = D >= 64 ? 128 : 64;  // swizzle = bytes per chunk row
+  static constexpr int SW = head_sw<D>();        // swizzle = bytes per chunk row
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K tile, then V tile
@@ -257,15 +257,20 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
 }  // namespace sm90
 }  // namespace bigdl
 
-// bf16 q, k, v (contiguous (B, H, T, D)); o bf16, lse float32. Returns a
-// cudaError_t (0 = launched).
+// bf16 q, k, v (contiguous (B, H, T, D)), D a multiple of 16 up to 128; o
+// bf16, lse float32. Returns a cudaError_t (0 = launched).
 extern "C" int bigdl_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int H, int Tq, int Tkv, int D, int causal,
                                     int q_offset, int kv_len, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return bigdl::sm90::launch_fwd<16>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     case 32: return bigdl::sm90::launch_fwd<32>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 48: return bigdl::sm90::launch_fwd<48>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     case 64: return bigdl::sm90::launch_fwd<64>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 80: return bigdl::sm90::launch_fwd<80>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 96: return bigdl::sm90::launch_fwd<96>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
+    case 112: return bigdl::sm90::launch_fwd<112>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     case 128: return bigdl::sm90::launch_fwd<128>(q, k, v, o, lse, B, H, Tq, Tkv, causal, q_offset, kv_len, scale, s);
     default: return cudaErrorInvalidValue;
   }

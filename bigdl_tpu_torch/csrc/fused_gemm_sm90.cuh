@@ -1,11 +1,12 @@
 // Shared core of the bf16 tensor-core routes of the fused ResNet kernels for
 // Hopper (fused_matmul_sm90.cu: K3 and K3-nhwc, forward and backward;
-// fused_conv_sm90.cu: K4). It computes what fused_gemm.cuh computes - the
-// same operands (x_hat = act(x * a + b), dz_eff = dz + ds1 + 2 z ds2, the
-// 3x3 conv's tap gather), the same epilogues (z with its column sums s1/s2,
-// dx with da/db) and the same fixed-order second pass (sum_rows) - with
-// bf16 wgmma and float32 accumulators in registers; fused_gemm.cuh stays
-// the float32 route and K5's core.
+// fused_conv_sm90.cu: K4; fused_chain_sm90.cu: K5, forward and backward).
+// It computes what fused_gemm.cuh computes - the same operands (x_hat =
+// act(x * a + b), dz_eff = dz + ds1 + 2 z ds2, the 3x3 conv's tap gather,
+// the residual junction h = relu(z * a + b + r)), the same epilogues (z
+// with its column sums s1/s2, dx with da/db, K5's dz and dr) and the same
+// fixed-order second pass (sum_rows) - with bf16 wgmma and float32
+// accumulators in registers; fused_gemm.cuh stays the float32 route.
 //
 // gemm_rs_kernel: C (rows x cols) = A (rows x kdim) B (kdim x cols).
 // - One block: a producer warpgroup (one working thread, registers given
@@ -32,8 +33,13 @@
 //   converts each chunk before its product, from copies three chunks ahead.
 //   Elements outside the operand (rows >= rows, columns >= kdim, the conv's
 //   zero padding) are 0 after the prologue.
+// - K5's forward also writes its A operand (h): the tiles of column tile 0
+//   put each converted chunk through a 64 x 64 staging box (stmatrix) and
+//   out with one TMA store, so h is written once and never read back.
 // - Epilogue: the functor sees each finished float32 pair once and hands
-//   back the pair to write, which goes through a swizzled staging tile in
+//   back the pair to write (K5's dx: two pairs, dz and dr, the second
+//   through the same staging tile once the first store has read it),
+//   which goes through a swizzled staging tile in
 //   shared memory (stmatrix) and out with one TMA store per 64 x 64 box
 //   (the unit clips rows and columns past the end), and values whose column
 //   sums are reduced over the thread's two rows, across the accumulator's
@@ -45,7 +51,8 @@
 //
 // dw_kernel: the weight gradient (K, N) = x_hat^T dz_eff, a contraction
 // over the M pixels. Both operands are transformed, so both go to shared
-// memory: TMA stages raw x, dz and z tiles (64 pixels deep), the consumer
+// memory: TMA stages raw x, dz and z tiles (64 pixels deep; for K5 also the
+// residual r beside x, x_hat being relu(x * a + b + r)), the consumer
 // warpgroup that owns the stage rewrites them in place (x_hat, dz_eff) in
 // the swizzled layout, runs fence.proxy.async, and wgmma reads both
 // through transposed (MN-major) descriptors. A block owns a 64 x BN tile of
@@ -265,6 +272,7 @@ __device__ __forceinline__ __nv_bfloat162 affine2(uint32_t v, float2 a, float2 b
 template <int TAPS>
 struct XHatA {
   static constexpr int kTiles = 1;
+  static constexpr bool kStoreA = false;
   const bf16* x;
   const float* a;
   const float* b;
@@ -375,6 +383,7 @@ struct XHatA {
 // never written.
 struct DzEffA {
   static constexpr int kTiles = 2;
+  static constexpr bool kStoreA = false;
   const bf16* dz;
   const bf16* z;
   const float* ds1;
@@ -431,12 +440,79 @@ struct DzEffA {
   }
 };
 
+// h(m, k) = relu(z * a + b + r) rounded to bf16 of row-major (rows, ld) z
+// and r: K5's residual junction, the A operand of its forward (the kernel
+// also writes h, from the converted fragments: kStoreA). A slot holds the z
+// tile, then the r tile, with the chunk's a and b beside them. Columns past
+// ld read z = r = a = b = 0 and give 0; rows past the end give values whose
+// products and h are never written.
+struct ResidA {
+  static constexpr int kTiles = 2;
+  static constexpr bool kStoreA = true;
+  const bf16* z;
+  const bf16* r;
+  const float* a;
+  const float* b;
+  int rows, ld;
+  struct State {
+    int ir0;  // the first copy row
+  };
+
+  __device__ __forceinline__ void issue_rows(State& st, int r0) const { st.ir0 = r0; }
+  __device__ __forceinline__ void frag_rows(State&, int) const {}
+  __device__ __forceinline__ void issue(const State& st, uint8_t* raw, uint8_t* prm,
+                                        int k0) const {
+    const int lt = threadIdx.x % 128;
+    const int u = lt & 7;
+    const int c = k0 + 8 * u;
+    const bool in = c < ld;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = st.ir0 + 16 * i;
+      const bool ok = in && row < rows;
+      const int o = swz((lt >> 3) + 16 * i, u);
+      const int e = row * ld + c;
+      cp_async16(raw + o, ok ? z + e : z, ok);
+      cp_async16(raw + kATile + o, ok ? r + e : r, ok);
+    }
+    if (lt < 8) {
+      unit_params(prm + 32 * u, a, c, in, 0.f);
+      unit_params(prm + 256 + 32 * u, b, c, in, 0.f);
+    }
+  }
+  __device__ __forceinline__ void convert(const State&, uint32_t (&f)[4][4],
+                                          const uint8_t* raw, const uint8_t* prm) const {
+    const int q = threadIdx.x % 4;
+    uint32_t rf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      ldsm_frag(f[kk], raw, kk);
+      ldsm_frag(rf[kk], raw + kATile, kk);
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float2 av = lds_f2(prm + 32 * s + 8 * q);
+      const float2 bv = lds_f2(prm + 256 + 32 * s + 8 * q);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t& w = f[s >> 1][2 * (s & 1) + i];
+        const float2 zz = unpack(w);
+        const float2 rr = unpack(rf[s >> 1][2 * (s & 1) + i]);
+        w = pack_bf16(relu_f(__fadd_rn(affine(zz.x, av.x, bv.x), rr.x)),
+                      relu_f(__fadd_rn(affine(zz.y, av.y, bv.y), rr.y)));
+      }
+    }
+  }
+};
+
 // -- epilogues: pair(r, c, v0, v1, s1, s2) for columns c, c + 1 of row r
 // (both inside C) returns the two values to write and sets the values s1 /
-// s2 whose column sums are kept -------------------------------------------------------
+// s2 whose column sums are kept; an epilogue with kOut2 has pair2 instead,
+// which also sets the pair of a second output of C's shape ---------------------------
 
 // z in bf16; with stats, s1 = z and s2 = z^2 from the float32 sums
 struct StoreZ2 {
+  static constexpr bool kOut2 = false;
   __device__ __forceinline__ float2 pair(int, int, float v0, float v1, float2& s1,
                                          float2& s2) const {
     s1 = make_float2(v0, v1);
@@ -448,6 +524,7 @@ struct StoreZ2 {
 // K3's dx: the ReLU mask from the recomputed x * a + b, dx = dxn * a, and
 // da = sum dxn x, db = sum dxn (fused_matmul.cu's DxEpi)
 struct DxEpi2 {
+  static constexpr bool kOut2 = false;
   const bf16* x;
   const float* a;
   const float* b;
@@ -466,6 +543,33 @@ struct DxEpi2 {
     s1 = make_float2(d0 * xv.x, d1 * xv.y);
     s2 = make_float2(d0, d1);
     return prologue ? make_float2(d0 * av.x, d1 * av.y) : make_float2(d0, d1);
+  }
+};
+
+// K5's dz / dr: g = [z * a + b + r > 0] (dh + v), dz = g a, dr = g (the
+// second output), and da = sum g z, db = sum g (fused_chain.cu's ChainDxEpi)
+struct ChainDxEpi2 {
+  static constexpr bool kOut2 = true;
+  const bf16* z;
+  const bf16* r;
+  const bf16* dh;
+  const float* a;
+  const float* b;
+  int ld;
+  __device__ __forceinline__ float2 pair2(int m, int c, float v0, float v1, float2& s1,
+                                          float2& s2, float2& o2) const {
+    const size_t i = (size_t)m * ld + c;
+    const float2 zv = unpack(ldg_pair(z + i));
+    const float2 rv = unpack(ldg_pair(r + i));
+    const float2 dv = unpack(ldg_pair(dh + i));
+    const float2 av = ldg_f2(a + c);
+    const float2 bv = ldg_f2(b + c);
+    const float g0 = __fadd_rn(affine(zv.x, av.x, bv.x), rv.x) > 0.f ? v0 + dv.x : 0.f;
+    const float g1 = __fadd_rn(affine(zv.y, av.y, bv.y), rv.y) > 0.f ? v1 + dv.y : 0.f;
+    s1 = make_float2(g0 * zv.x, g1 * zv.y);
+    s2 = make_float2(g0, g1);
+    o2 = make_float2(g0, g1);
+    return make_float2(g0 * av.x, g1 * av.y);
   }
 };
 
@@ -506,15 +610,17 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 // Shared memory of gemm_rs_kernel: SA slots of A (raw tiles, then the
-// parameters), the output staging (128 x BN bf16), the column-sum scratch,
-// SB stages of B (four where they fit, else two), the barriers.
-template <int BN, int KT>
+// parameters), the output staging (128 x BN bf16), with AS a 64 x 64 staging
+// box of the converted A per consumer warpgroup, the column-sum scratch, SB
+// stages of B (four where they fit, else two), the barriers.
+template <int BN, int KT, bool AS>
 struct RsCfg {
   static constexpr int SA = 4;
   static constexpr int A_BYTES = KT * kATile + 2 * kParams;
   static constexpr int B_BYTES = BN * kBK * 2;
   static constexpr int OUT_OFF = SA * A_BYTES;
-  static constexpr int RED_OFF = OUT_OFF + kBM * BN * 2;  // float red[8][2][BN]
+  static constexpr int AOUT_OFF = OUT_OFF + kBM * BN * 2;
+  static constexpr int RED_OFF = AOUT_OFF + (AS ? 2 * kChunk : 0);  // float red[8][2][BN]
   static constexpr int B_OFF = RED_OFF + 8 * 2 * BN * 4;
   static constexpr int SB = 1024 + B_OFF + 4 * B_BYTES + 64 <= 232448 ? 4 : 2;
   static constexpr int BAR_OFF = B_OFF + SB * B_BYTES;
@@ -530,18 +636,23 @@ struct RsCfg {
 // whose copies it started two chunks earlier. C goes out in bf16 through
 // omap (cols, rows) in 64 x 64 boxes; with part1 != nullptr, the column
 // sums of the epilogue's s1 / s2 over each 64 rows (a warpgroup's half of
-// a tile) go to part1 / part2[64-row tile * cols + c].
+// a tile) go to part1 / part2[64-row tile * cols + c]. omap2 is a second
+// output: with AOp::kStoreA the converted A (rows, kdim), written once by
+// the tiles of column tile 0; with Epi::kOut2 the epilogue's second value
+// (rows, cols), through the same staging tile after the first.
 template <int BN, int TB, class AOp, class Epi>
 __global__ void __launch_bounds__(384, 1)
     gemm_rs_kernel(const __grid_constant__ CUtensorMap bmap,
-                   const __grid_constant__ CUtensorMap omap, const AOp aop0, const Epi epi,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __grid_constant__ CUtensorMap omap2, const AOp aop0, const Epi epi,
                    int rows, int cols, int kdim, float* __restrict__ part1,
                    float* __restrict__ part2) {
-  using Cfg = RsCfg<BN, AOp::kTiles>;
+  using Cfg = RsCfg<BN, AOp::kTiles, AOp::kStoreA>;
   constexpr int SA = Cfg::SA, SB = Cfg::SB;
   // BN = 256 keeps one set of A fragments: a second one beside its 128
   // accumulators would spill, so its chunks convert before their products
   constexpr bool kOverlap = BN <= 128;
+  static_assert(kOverlap || !AOp::kStoreA, "A is stored from the overlapped conversion");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~uintptr_t(1023));
@@ -598,6 +709,7 @@ __global__ void __launch_bounds__(384, 1)
   uint8_t* aw = smem + wg * (kATile / 2);                      // slot 0: raw rows
   uint8_t* pw = smem + AOp::kTiles * kATile + wg * kParams;    // ... parameters
   uint8_t* ost = smem + Cfg::OUT_OFF + wg * (BN * 128);
+  uint8_t* ast = smem + Cfg::AOUT_OFF + wg * kChunk;
   // the copies run SA - 2 chunks ahead of the conversion, through the same
   // (tile, chunk) sequence; one cp.async group per chunk (empty past the end)
   int ti = blockIdx.x, ji = 0, issued = 0;
@@ -617,6 +729,26 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
   for (int p = 0; p < SA - 1; ++p) issue_next();
 
+  // (kStoreA) chunk jj of tile tt's converted A, in column tile 0: stmatrix
+  // into this warpgroup's staging box and out by one TMA store (thread 0
+  // waited for the previous store to read the box before the barrier that
+  // precedes the conversion)
+  auto store_a = [&](const uint32_t(&f)[4][4], int tt, int jj) {
+    if constexpr (AOp::kStoreA) {
+      if (tt < ntiles && tt % ntn == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) stsm_frag(ast, kk, f[kk]);
+        fence_proxy_async();
+        bar_sync(6 + wg, 128);
+        const int rw = (tt / ntn) * kBM + 64 * wg;
+        if (lt == 0 && rw < rows) {
+          tma_store_3d(&omap2, ast, jj * kBK, rw);
+          bulk_commit();
+        }
+      }
+    }
+  };
+
   float acc[BN / 2];
   uint32_t fa[4][4], fb[4][4];  // the A fragments of this chunk and the next
   int t = blockIdx.x, j = 0, it = 0;
@@ -625,6 +757,7 @@ __global__ void __launch_bounds__(384, 1)
     cp_async_wait<SA - 2>();
     bar_sync(2 + wg, 128);
     aop.convert(st, fa, aw, pw);
+    store_a(fa, t, 0);
   }
   // chunk `it` (tile t, chunk j): its product from fcur while the next
   // chunk's A goes into fnext, then after a tile's last chunk its epilogue;
@@ -668,9 +801,11 @@ __global__ void __launch_bounds__(384, 1)
       // the next chunk's A while the product runs (past the end: a stale
       // slot, never used)
       cp_async_wait<SA - 3>();
+      if (AOp::kStoreA && lt == 0) bulk_wait_read();
       bar_sync(2 + wg, 128);
       const int o = ((it + 1) % SA) * Cfg::A_BYTES;
       aop.convert(st, fnext, aw + o, pw + o);
+      store_a(fnext, tn, jn);
     }
     fence_regs(acc);
     fence_regs(fcur);
@@ -690,6 +825,7 @@ __global__ void __launch_bounds__(384, 1)
       // 16 columns (pairs jj = 2 p, 2 p + 1) of the warp's 16 rows at a
       // time, written by one stmatrix: the four 8x8 matrices (rows g / g +
       // 8, columns 0-7 / 8-15) are the fragment layout of the accumulator
+      uint32_t out2[Epi::kOut2 ? BN / 16 : 1][4];  // the second output, packed
 #pragma unroll
       for (int p = 0; p < BN / 16; ++p) {
         uint32_t out[4];
@@ -701,16 +837,21 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int r = rw0 + 16 * wq + g + 8 * i;
-            float2 v = make_float2(0.f, 0.f);
+            float2 v = make_float2(0.f, 0.f), v2 = make_float2(0.f, 0.f);
             if (r < rows && col0 + c < cols) {
               float2 s1, s2;
-              v = epi.pair(r, col0 + c, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1], s1, s2);
+              if constexpr (Epi::kOut2)
+                v = epi.pair2(r, col0 + c, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1], s1, s2,
+                              v2);
+              else
+                v = epi.pair(r, col0 + c, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1], s1, s2);
               t1.x += s1.x;
               t1.y += s1.y;
               t2.x += s2.x;
               t2.y += s2.y;
             }
             out[2 * h + i] = pack_bf16(v.x, v.y);
+            if constexpr (Epi::kOut2) out2[p][2 * h + i] = pack_bf16(v2.x, v2.y);
           }
           acc[4 * jj] = t1.x;
           acc[4 * jj + 1] = t1.y;
@@ -719,13 +860,30 @@ __global__ void __launch_bounds__(384, 1)
         }
         stsm_frag(ost + (p / 4) * kChunk, p % 4, out);
       }
-        fence_proxy_async();
+      fence_proxy_async();
       bar_sync(4 + wg, 128);
       if (lt == 0 && rw0 < rows) {
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c)
           if (col0 + 64 * c < cols) tma_store_3d(&omap, ost + c * kChunk, col0 + 64 * c, rw0);
         bulk_commit();
+      }
+      if constexpr (Epi::kOut2) {
+        // the second output through the same staging tile, once the first
+        // store has read it
+        if (lt == 0) bulk_wait_read();
+        bar_sync(4 + wg, 128);
+#pragma unroll
+        for (int p = 0; p < BN / 16; ++p) stsm_frag(ost + (p / 4) * kChunk, p % 4, out2[p]);
+        fence_proxy_async();
+        bar_sync(4 + wg, 128);
+        if (lt == 0 && rw0 < rows) {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            if (col0 + 64 * c < cols)
+              tma_store_3d(&omap2, ost + c * kChunk, col0 + 64 * c, rw0);
+          bulk_commit();
+        }
       }
       if (part1 != nullptr) {
         // sum over the eight row groups g of the warp: lane (g, q) ends
@@ -777,11 +935,12 @@ __global__ void __launch_bounds__(384, 1)
 
 // -- the weight gradient: both operands transformed in shared memory -------------
 
-template <int BN>
+template <int BN, bool RES>
 struct DwCfg {
   static constexpr int X_BYTES = kChunk;                 // 64 pixels x 64 rows of dw
   static constexpr int D_BYTES = BN / 64 * kChunk;       // 64 pixels x BN columns
-  static constexpr int STAGE = X_BYTES + 2 * D_BYTES;    // x, dz, z
+  // x, dz, z (and with RES the residual r, like x)
+  static constexpr int STAGE = (RES ? 2 : 1) * X_BYTES + 2 * D_BYTES;
   static constexpr int BAR_OFF = kStages * STAGE;
   static constexpr int SMEM = 1024 + BAR_OFF + 2 * kStages * 8;
 };
@@ -801,15 +960,17 @@ __device__ __forceinline__ uint4 map8(uint4 u, F f) {
 // Grid (ceil(K / 64), ceil(N / BN), splits), 384 threads; split z covers
 // pixels [z * per, min(M, (z + 1) * per)), per a multiple of 128.
 // Consumer warpgroup w writes its float32 partial of the block's 64 x BN
-// tile of dw to ws[((2 z + w) * K + k) * N + n].
-template <int BN>
+// tile of dw to ws[((2 z + w) * K + k) * N + n]. With RES (K5) x_hat is
+// relu(x * a + b + r) of x and the residual r (rmap, staged like x).
+template <int BN, bool RES>
 __global__ void __launch_bounds__(384, 1)
     dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dzmap,
-              const __grid_constant__ CUtensorMap zmap, const float* __restrict__ a,
-              const float* __restrict__ b, const float* __restrict__ ds1,
-              const float* __restrict__ ds2, float* __restrict__ ws, int M, int K, int N,
-              int prologue, int relu, int stats, int per) {
-  using Cfg = DwCfg<BN>;
+              const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap rmap,
+              const float* __restrict__ a, const float* __restrict__ b,
+              const float* __restrict__ ds1, const float* __restrict__ ds2,
+              float* __restrict__ ws, int M, int K, int N, int prologue, int relu, int stats,
+              int per) {
+  using Cfg = DwCfg<BN, RES>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~uintptr_t(1023));
@@ -836,10 +997,12 @@ __global__ void __launch_bounds__(384, 1)
       for (int j = 0; j < nch; ++j) {
         const int s = j % kStages;
         mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], Cfg::X_BYTES + (stats ? 2 : 1) * Cfg::D_BYTES);
+        mbar_arrive_expect_tx(&full[s],
+                              (RES ? 2 : 1) * Cfg::X_BYTES + (stats ? 2 : 1) * Cfg::D_BYTES);
         uint8_t* dst = smem + s * Cfg::STAGE;
         const int m = mb + 64 * j;
         tma_load_3d(dst, &xmap, &full[s], kc0, m, 0);
+        if (RES) tma_load_3d(dst + Cfg::X_BYTES + 2 * Cfg::D_BYTES, &rmap, &full[s], kc0, m, 0);
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c) {
           tma_load_3d(dst + Cfg::X_BYTES + c * kChunk, &dzmap, &full[s], n0 + 64 * c, m, 0);
@@ -864,6 +1027,7 @@ __global__ void __launch_bounds__(384, 1)
     uint8_t* xt = smem + s * Cfg::STAGE;
     uint8_t* dzt = xt + Cfg::X_BYTES;
     const uint8_t* zt = dzt + Cfg::D_BYTES;
+    const uint8_t* rt = zt + Cfg::D_BYTES;
     const int m0 = mb + 64 * j;
     // x -> x_hat in place; unit p of row m holds columns 8 (p ^ (m % 8)) ..
     // (the 128-byte swizzle); pixels past the slice and columns past K give 0
@@ -873,6 +1037,14 @@ __global__ void __launch_bounds__(384, 1)
       uint4* p = reinterpret_cast<uint4*>(xt + m * 128 + (u & 7) * 16);
       if (m0 + m >= me || kc >= K) {
         *p = make_uint4(0, 0, 0, 0);
+      } else if constexpr (RES) {
+        const uint4 ru = *reinterpret_cast<const uint4*>(rt + m * 128 + (u & 7) * 16);
+        const uint32_t rw[4] = {ru.x, ru.y, ru.z, ru.w};
+        *p = map8(*p, [&](int e, float v) {
+          const float2 rr = unpack(rw[e >> 1]);
+          return relu_f(__fadd_rn(affine(v, __ldg(a + kc + e), __ldg(b + kc + e)),
+                                  (e & 1) ? rr.y : rr.x));
+        });
       } else if (prologue || relu) {
         *p = map8(*p, [&](int e, float v) {
           if (prologue) v = round_to<bf16>(affine(v, __ldg(a + kc + e), __ldg(b + kc + e)));
@@ -941,14 +1113,20 @@ inline int sm_count() {
 
 template <int BN, int TB, class AOp, class Epi>
 cudaError_t run_rs(const void* w, void* out, const AOp& aop, const Epi& epi, int rows, int cols,
-                   int kdim, float* part1, float* part2, cudaStream_t s) {
+                   int kdim, float* part1, float* part2, cudaStream_t s, void* out2) {
   // TB: w (kdim, cols), boxes of 64 columns x 64 rows; else w (cols,
-  // kdim), boxes of 64 columns x BN rows; out (rows, cols) in 64 x 64 boxes
-  using Cfg = RsCfg<BN, AOp::kTiles>;
-  CUtensorMap bmap, omap;
-  const bool ok = (TB ? make_map(&bmap, w, cols, kdim, 1, 64, 128)
-                      : make_map(&bmap, w, kdim, cols, 1, BN, 128)) &&
-                  make_map(&omap, out, cols, rows, 1, 64, 128);
+  // kdim), boxes of 64 columns x BN rows; out (rows, cols) in 64 x 64
+  // boxes, out2 (rows, kdim) with kStoreA, (rows, cols) with kOut2
+  using Cfg = RsCfg<BN, AOp::kTiles, AOp::kStoreA>;
+  CUtensorMap bmap, omap, omap2;
+  bool ok = (TB ? make_map(&bmap, w, cols, kdim, 1, 64, 128)
+                : make_map(&bmap, w, kdim, cols, 1, BN, 128)) &&
+            make_map(&omap, out, cols, rows, 1, 64, 128);
+  if (AOp::kStoreA || Epi::kOut2)
+    ok = ok && out2 != nullptr &&
+         make_map(&omap2, out2, AOp::kStoreA ? kdim : cols, rows, 1, 64, 128);
+  else
+    omap2 = omap;
   if (!ok) return cudaErrorInvalidValue;
   auto kern = gemm_rs_kernel<BN, TB, AOp, Epi>;
   cudaError_t e =
@@ -956,52 +1134,61 @@ cudaError_t run_rs(const void* w, void* out, const AOp& aop, const Epi& epi, int
   if (e != cudaSuccess) return e;
   const int tiles = ((rows + kBM - 1) / kBM) * ((cols + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, 384, Cfg::SMEM, s>>>(bmap, omap, aop, epi, rows, cols, kdim, part1, part2);
+  kern<<<grid, 384, Cfg::SMEM, s>>>(bmap, omap, omap2, aop, epi, rows, cols, kdim, part1, part2);
   return cudaGetLastError();
 }
 
 // out (rows x cols, bf16) = A B with BN = 64, 128 or (BNMAX 256) 256
 // fitted to cols; with part1 != nullptr, the epilogue's column sums per 64
-// rows
+// rows; out2: the second output of an operand with kStoreA or an epilogue
+// with kOut2
 template <int BNMAX, int TB, class AOp, class Epi>
 cudaError_t gemm_rs(const void* w, void* out, const AOp& aop, const Epi& epi, int rows, int cols,
-                    int kdim, float* part1, float* part2, cudaStream_t s) {
-  if (cols <= 64) return run_rs<64, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s);
+                    int kdim, float* part1, float* part2, cudaStream_t s,
+                    void* out2 = nullptr) {
+  if (cols <= 64)
+    return run_rs<64, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
   if constexpr (BNMAX >= 256) {
-    if (cols > 128) return run_rs<256, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s);
+    if (cols > 128)
+      return run_rs<256, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
   }
-  return run_rs<128, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s);
+  return run_rs<128, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
 }
 
-template <int BN>
-cudaError_t run_dw(const void* x, const void* dz, const void* z, const float* a, const float* b,
-                   const float* ds1, const float* ds2, float* ws, int M, int K, int N,
-                   int prologue, int relu, int stats, int splits, int per, cudaStream_t s) {
-  CUtensorMap xm, dm, zm;
+template <int BN, bool RES>
+cudaError_t run_dw(const void* x, const void* dz, const void* z, const void* r, const float* a,
+                   const float* b, const float* ds1, const float* ds2, float* ws, int M, int K,
+                   int N, int prologue, int relu, int stats, int splits, int per,
+                   cudaStream_t s) {
+  using Cfg = DwCfg<BN, RES>;
+  CUtensorMap xm, dm, zm, rm;
   if (!make_map(&xm, x, K, M, 1, 64, 128) || !make_map(&dm, dz, N, M, 1, 64, 128) ||
-      !make_map(&zm, stats ? z : dz, N, M, 1, 64, 128))
+      !make_map(&zm, stats ? z : dz, N, M, 1, 64, 128) ||
+      !make_map(&rm, RES ? r : x, K, M, 1, 64, 128))
     return cudaErrorInvalidValue;
-  auto kern = dw_kernel<BN>;
+  auto kern = dw_kernel<BN, RES>;
   cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, DwCfg<BN>::SMEM);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (e != cudaSuccess) return e;
   dim3 grid((K + kDwRows - 1) / kDwRows, (N + BN - 1) / BN, splits);
-  kern<<<grid, 384, DwCfg<BN>::SMEM, s>>>(xm, dm, zm, a, b, ds1, ds2, ws, M, K, N, prologue, relu,
-                                          stats, per);
+  kern<<<grid, 384, Cfg::SMEM, s>>>(xm, dm, zm, rm, a, b, ds1, ds2, ws, M, K, N, prologue, relu,
+                                    stats, per);
   return cudaGetLastError();
 }
 
 // ws holds 2 x splits x K x N float32 partials of dw (one per consumer
-// warpgroup and split); BN = 64 for N <= 64, else 128
-inline cudaError_t gemm_dw(const void* x, const void* dz, const void* z, const float* a,
-                           const float* b, const float* ds1, const float* ds2, float* ws, int M,
-                           int K, int N, int prologue, int relu, int stats, int splits, int per,
-                           cudaStream_t s) {
+// warpgroup and split); BN = 64 for N <= 64, else 128. RES: x_hat =
+// relu(x * a + b + r) of x and the residual r (K5)
+template <bool RES = false>
+cudaError_t gemm_dw(const void* x, const void* dz, const void* z, const float* a, const float* b,
+                    const float* ds1, const float* ds2, float* ws, int M, int K, int N,
+                    int prologue, int relu, int stats, int splits, int per, cudaStream_t s,
+                    const void* r = nullptr) {
   if (N <= 64)
-    return run_dw<64>(x, dz, z, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats, splits, per,
-                      s);
-  return run_dw<128>(x, dz, z, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats, splits, per,
-                     s);
+    return run_dw<64, RES>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
+                           splits, per, s);
+  return run_dw<128, RES>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
+                          splits, per, s);
 }
 
 }  // namespace sm90

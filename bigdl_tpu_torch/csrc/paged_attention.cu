@@ -115,16 +115,30 @@ cudaError_t dispatch_d(int D, const void* q, const void* kp, const void* vp, con
                        const int* positions, void* o, int B, int kvH, int rows, int S, int bs,
                        int max_blocks, float scale, cudaStream_t s) {
   switch (D) {
+    case 16: return dispatch_tpr<T, 16>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
     case 32: return dispatch_tpr<T, 32>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 48: return dispatch_tpr<T, 48>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
     case 64: return dispatch_tpr<T, 64>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 80: return dispatch_tpr<T, 80>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 96: return dispatch_tpr<T, 96>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 112: return dispatch_tpr<T, 112>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
     case 128: return dispatch_tpr<T, 128>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 144: return dispatch_tpr<T, 144>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 160: return dispatch_tpr<T, 160>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 176: return dispatch_tpr<T, 176>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 192: return dispatch_tpr<T, 192>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 208: return dispatch_tpr<T, 208>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 224: return dispatch_tpr<T, 224>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 240: return dispatch_tpr<T, 240>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
+    case 256: return dispatch_tpr<T, 256>(q, kp, vp, tables, positions, o, B, kvH, rows, S, bs, max_blocks, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace bigdl
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pages and output share it). rows = G * S.
+// dtype: 0 = float32, 1 = bfloat16 (q, pages and output share it). rows = G * S;
+// D a multiple of 16 up to 256 (the wrapper pads any other D to the next one).
 // Returns a cudaError_t (0 = launched).
 extern "C" int bigdl_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                      const void* tables, const void* positions, void* o,

@@ -7,6 +7,7 @@ from typing import Iterable, List, Sequence
 
 import numpy as np
 
+from ..utils.engine import refuse_unported
 from .sample import Sample
 from .transformer import SampleToMiniBatch
 
@@ -76,13 +77,20 @@ class LocalDataSet(AbstractDataSet):
 
 class ShardedDataSet(AbstractDataSet):
     """Batch-level view for the optimizer: MiniBatches of ``batch_size``
-    from one shard (a single GPU; more shards come with multi-GPU
-    training). The last short batch is dropped."""
+    from one shard (a single GPU: ``num_shards`` > 1 comes with multi-GPU
+    training; padded batches are not ported). The last short batch is
+    dropped unless ``drop_last`` is False."""
 
-    def __init__(self, dataset: AbstractDataSet, batch_size: int):
+    def __init__(self, dataset: AbstractDataSet, batch_size: int,
+                 num_shards: int = 1, drop_last: bool = True,
+                 feature_padding=None, label_padding=None):
+        refuse_unported("ShardedDataSet", num_shards=(num_shards, 1),
+                        feature_padding=(feature_padding, None),
+                        label_padding=(label_padding, None))
         self.dataset = dataset
         self.batch_size = batch_size
-        self.to_batch = SampleToMiniBatch(batch_size)
+        self.num_shards = num_shards
+        self.to_batch = SampleToMiniBatch(batch_size, drop_last=drop_last)
 
     def size(self):
         return self.dataset.size()

@@ -3,10 +3,10 @@ version (see ``_build`` for how they are compiled and loaded).
 
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, bumped only where the kernel is launched, so a run
-can show that its path went through the kernels. The flash, K3 and K4
+can show that its path went through the kernels. The flash, K3, K4 and K5
 wrappers also count per route (``launches_by_route``: ``"bf16_sm90"``,
-``"f32"``, and for K3 / K4 ``"bf16_ragged"``), so a run can show which of
-their kernels it went through."""
+``"f32"``, and for K3 / K4 / K5 ``"bf16_ragged"``), so a run can show which
+of their kernels it went through."""
 from .flash_attention import (FlashAttention, flash_bwd, flash_bwd_reference,
                               flash_fwd, flash_fwd_reference)
 from .fused_chain import (FusedResidualMatmul, fused_chain_bwd,

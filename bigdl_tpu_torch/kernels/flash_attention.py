@@ -16,6 +16,13 @@ Each source's header note says what bounds it on an H100 and what the design
 does about it. Besides ``<wrapper>.launches``, each wrapper counts its
 launches per route in ``<wrapper>.launches_by_route``.
 
+Head dims: each route's kernels are instantiated for the widths in
+``_FWD_DIMS`` / ``_BWD_DIMS`` (the ``case`` lines of the sources). A D
+between them goes to the next wider one with q, k, v (and dO)
+zero-padded and the scale of the true D (:func:`head_dim_width`), which is
+exact: zero columns add nothing to q.k and give zero output columns. Such
+calls count under ``"<route>_padded"``. A D past the widest raises.
+
 :func:`flash_fwd` and :func:`flash_bwd` are the wrappers: tensors on the CPU
 take :func:`flash_fwd_reference` / :func:`flash_bwd_reference`, the plain
 PyTorch versions of the same functions; tensors on a CUDA device launch the
@@ -32,6 +39,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -41,7 +49,16 @@ _FWD_FN = {"bf16_sm90": ("flash_fwd_sm90", "bigdl_flash_fwd_sm90"),
            "f32": ("flash_fwd", "bigdl_flash_fwd")}
 _BWD_FN = {"bf16_sm90": ("flash_bwd_sm90", "bigdl_flash_bwd_sm90"),
            "f32": ("flash_bwd", "bigdl_flash_bwd")}
-_HEAD_DIMS = (32, 64, 128)
+# the head dims each route's kernels are instantiated for: every multiple
+# of 16 (a wgmma k16 slice), up to 128 on the tensor cores (the
+# accumulators of wider rows would not fit the consumers' registers), and
+# on the CUDA cores as far as their float32 tiles fit in shared memory (the
+# backward keeps four 64-row tiles of D + 1 floats)
+_FWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
+             "f32": tuple(range(16, 257, 16))}
+_BWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
+             "f32": tuple(range(16, 193, 16))}
+_PADDED = "_padded"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = {
@@ -87,10 +104,28 @@ def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
     return o.to(q.dtype), lse
 
 
+def head_dim_width(fn: str, route: str, d: int, dims) -> int:
+    """The instantiated width a call with head dim ``d`` launches on
+    ``route``, whose kernels take ``dims``: d itself, or the next wider one
+    (the wrapper zero-pads to it). Raises past the widest."""
+    for w in dims:
+        if w >= d:
+            return w
+    raise ValueError(f"{fn}: head dim {d} is wider than the {route!r} "
+                     f"kernels take (at most {dims[-1]}); see ROADMAP.md "
+                     f"B.5 (head dims past the widest instantiation)")
+
+
+def _pad_d(t, w):
+    """t with its last dim zero-padded to ``w`` (a new contiguous
+    tensor)."""
+    return F.pad(t, (0, w - t.shape[-1]))
+
+
 def _check(fn, q, k, v, *same_as_q):
     """What both kernels take: (B, H, T, D) contiguous tensors of one
-    dtype (float32 or bfloat16) on q's device, k/v of one shape, D in
-    ``_HEAD_DIMS``; ``same_as_q`` (o, dO) of q's shape."""
+    dtype (float32 or bfloat16) on q's device, k/v of one shape;
+    ``same_as_q`` (o, dO) of q's shape."""
     for name, t in (("q", q), ("k", k), ("v", v)) + same_as_q:
         if t.device != q.device:
             raise ValueError(f"{fn}: {name} on {t.device}, q on {q.device}")
@@ -116,8 +151,6 @@ def _check(fn, q, k, v, *same_as_q):
         if t.shape != q.shape:
             raise ValueError(f"{fn}: {name}{tuple(t.shape)} is not shaped "
                              f"like q{tuple(q.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {D} not in {_HEAD_DIMS}")
 
 
 def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
@@ -135,26 +168,33 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
         raise ValueError(f"flash_fwd: kv_len {kv_len} / q_offset "
                          f"{q_offset} out of range for {k.shape[2]} keys")
     B, H, Tq, D = q.shape
+    route = _ROUTES[q.dtype]
+    w = head_dim_width("flash_fwd", route, D, _FWD_DIMS[route])
+    if w != D:
+        q, k, v = (_pad_d(t, w) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
-        return o, lse
-    route = _ROUTES[q.dtype]
+        return o[..., :D], lse
     fn = _build.function(*_FWD_FN[route], _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, H, Tq, k.shape[2], D, int(bool(causal)),
+             lse.data_ptr(), B, H, Tq, k.shape[2], w, int(bool(causal)),
              q_offset, kv_len, 1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed ({route}): "
                            f"CUDA error {err}")
     flash_fwd.launches += 1
-    flash_fwd.launches_by_route[route] += 1
-    return o, lse
+    if w == D:
+        flash_fwd.launches_by_route[route] += 1
+        return o, lse
+    flash_fwd.launches_by_route[route + _PADDED] += 1
+    return o[..., :D].contiguous(), lse
 
 
 flash_fwd.launches = 0
-flash_fwd.launches_by_route = dict.fromkeys(_ROUTES.values(), 0)
+flash_fwd.launches_by_route = dict.fromkeys(
+    [r + p for r in _ROUTES.values() for p in ("", _PADDED)], 0)
 
 
 def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
@@ -223,29 +263,35 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False, delta=None,
                              f"{tuple(t.shape)} on {t.device}")
     route = _ROUTES[q.dtype]
     out = out_dtype or q.dtype
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1)
+    w = head_dim_width("flash_bwd", route, D, _BWD_DIMS[route])
+    if w != D:
+        q, k, v, do = (_pad_d(t, w) for t in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=out, device=q.device)
     dk = torch.empty(k.shape, dtype=out, device=q.device)
     dv = torch.empty(v.shape, dtype=out, device=q.device)
-    if delta is None:
-        delta = (do.float() * o.float()).sum(-1)
     fn = _build.function(*_BWD_FN[route], _BWD_ARGTYPES[route])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr())
     flags = (int(out == torch.float32),) if route == "bf16_sm90" else ()
-    err = fn(*ptrs, *flags, B, H, Tq, k.shape[2], D, int(bool(causal)),
+    err = fn(*ptrs, *flags, B, H, Tq, k.shape[2], w, int(bool(causal)),
              1.0 / math.sqrt(D),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_bwd kernel launch failed ({route}): "
                            f"CUDA error {err}")
     flash_bwd.launches += 1
-    flash_bwd.launches_by_route[route] += 1
-    return dq, dk, dv
+    if w == D:
+        flash_bwd.launches_by_route[route] += 1
+        return dq, dk, dv
+    flash_bwd.launches_by_route[route + _PADDED] += 1
+    return tuple(t[..., :D].contiguous() for t in (dq, dk, dv))
 
 
 flash_bwd.launches = 0
-flash_bwd.launches_by_route = dict.fromkeys(_ROUTES.values(), 0)
+flash_bwd.launches_by_route = dict.fromkeys(flash_fwd.launches_by_route, 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -3,18 +3,31 @@
 around them.
 
 Replaces the Pallas kernels of ``bigdl_tpu/kernels/fused_chain.py``
-``fused_residual_matmul_nhwc`` (``_cfwd``, ``_cbwd``) with
-``csrc/fused_chain.cu``, whose header note says what bounds it on an H100
-and what the design does about it. At a ResNet bottleneck junction,
+``fused_residual_matmul_nhwc`` (``_cfwd``, ``_cbwd``). At a ResNet
+bottleneck junction,
 
     h  = relu(z * a + b + r)        block n's output (block n+1's residual)
     zo = h @ w                      block n+1's 1x1 reduce conv
     s1, s2 = sum zo, sum zo^2       BN1 statistics of block n+1
 
-run as one kernel that writes h once. :func:`fused_chain_fwd` and
-:func:`fused_chain_bwd` are the wrappers over flat (M, K) rows: tensors on
-the CPU take :func:`residual_chain_reference` /
-:func:`residual_chain_bwd_reference` (plain PyTorch with the kernels'
+run as one kernel that writes h once. Each wrapper picks its kernels by
+dtype and K3's shape rule (:func:`route`, ``fused_matmul.route`` of (K,
+N)):
+
+- ``"bf16_sm90"``: bfloat16 with K and N multiples of 8 (every ResNet-50
+  junction) takes ``csrc/fused_chain_sm90.cu`` (bf16 wgmma over the core of
+  ``csrc/fused_gemm_sm90.cuh``, the junction made in registers as the A
+  operand);
+- ``"bf16_ragged"``: other bfloat16 shapes, and ``"f32"``: float32, take
+  the CUDA-core kernels of ``csrc/fused_chain.cu``.
+
+Each source's header note says what bounds it on an H100 and what the
+design does about it. Besides ``<wrapper>.launches``, each wrapper counts
+its launches per route in ``<wrapper>.launches_by_route``.
+
+:func:`fused_chain_fwd` and :func:`fused_chain_bwd` are the wrappers over
+flat (M, K) rows: tensors on the CPU take :func:`residual_chain_reference`
+/ :func:`residual_chain_bwd_reference` (plain PyTorch with the kernels'
 rounding points: h and ``dzo_eff`` rounded to z's dtype, float32 sums and
 statistics); tensors on a CUDA device launch the kernels or raise.
 :class:`FusedResidualMatmul` is the counterpart of JAX's ``_chain``
@@ -27,10 +40,18 @@ import ctypes
 
 import torch
 
+from ..utils.engine import refuse_unported
 from . import _build
-from .fused_matmul import _BM, _DTYPES, _dz_eff, _f32, _ptr, _stream, \
-    dw_splits
+from .fused_matmul import _DTYPES, _PART_ROWS, _RAGGED, _check_aligned, \
+    _dz_eff, _f32, _ptr, _stream, dw_splits, dw_splits_sm90, route
 
+# each route's (library, symbol) for the forward and backward
+_FWD_FN = {"bf16_sm90": ("fused_chain_sm90", "bigdl_fused_chain_sm90_fwd"),
+           _RAGGED: ("fused_chain", "bigdl_fused_chain_fwd"),
+           "f32": ("fused_chain", "bigdl_fused_chain_fwd")}
+_BWD_FN = {"bf16_sm90": ("fused_chain_sm90", "bigdl_fused_chain_sm90_bwd"),
+           _RAGGED: ("fused_chain", "bigdl_fused_chain_bwd"),
+           "f32": ("fused_chain", "bigdl_fused_chain_bwd")}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p])
@@ -111,28 +132,32 @@ def fused_chain_fwd(z, r, a, b, w, stats: bool = True):
     _check("fused_chain_fwd", z, r, a, b, w)
     M, K = z.shape
     N = w.shape[1]
+    rt = route(z.dtype, K, N)
+    if rt == "bf16_sm90":
+        _check_aligned("fused_chain_fwd", z, r, w)
     h = torch.empty_like(z)
     zo = torch.empty((M, N), dtype=z.dtype, device=z.device)
     part = s = None
     if stats:
-        part = torch.empty((2, -(-M // _BM), N), device=z.device)
+        part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=z.device)
         s = torch.empty((2, N), device=z.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    fn = _build.function("fused_chain", "bigdl_fused_chain_fwd",
-                         _FWD_ARGTYPES)
+    fn = _build.function(*_FWD_FN[rt], _FWD_ARGTYPES)
     err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),
              w.data_ptr(), h.data_ptr(), zo.data_ptr(), _ptr(part),
              None if part is None else part[1].data_ptr(), _ptr(s),
              None if s is None else s[1].data_ptr(), _DTYPES[z.dtype], M, K,
              N, int(bool(stats)), _stream(z))
     if err:
-        raise RuntimeError(f"fused_chain_fwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_chain_fwd kernel launch failed ({rt}): "
+                           f"CUDA error {err}")
     fused_chain_fwd.launches += 1
+    fused_chain_fwd.launches_by_route[rt] += 1
     return (h, zo, s[0], s[1]) if stats else (h, zo, None, None)
 
 
 fused_chain_fwd.launches = 0
+fused_chain_fwd.launches_by_route = dict.fromkeys(_FWD_FN, 0)
 
 
 def fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats: bool = True):
@@ -154,16 +179,23 @@ def fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats: bool = True):
            *((("zo", zo),) if stats else ()))
     M, K = z.shape
     N = w.shape[1]
+    rt = route(z.dtype, K, N)
+    if rt == "bf16_sm90":
+        _check_aligned("fused_chain_bwd", z, r, w, dh, dzo,
+                       *((zo,) if stats else ()))
     dz, dr = torch.empty_like(z), torch.empty_like(z)
     dw = torch.empty_like(w)
     dadb = torch.empty((2, K), device=z.device)
-    part = torch.empty((2, -(-M // _BM), K), device=z.device)
-    splits, per = dw_splits(M, K, N)
-    ws = torch.empty((splits, K, N), device=z.device)
+    part = torch.empty((2, -(-M // _PART_ROWS[rt]), K), device=z.device)
+    if rt == "bf16_sm90":       # two partials a split, one per warpgroup
+        splits, per = dw_splits_sm90(M, K, N)
+        ws = torch.empty((2 * splits, K, N), device=z.device)
+    else:
+        splits, per = dw_splits(M, K, N)
+        ws = torch.empty((splits, K, N), device=z.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
     d1, d2 = (_f32(ds1), _f32(ds2)) if stats else (None, None)
-    fn = _build.function("fused_chain", "bigdl_fused_chain_bwd",
-                         _BWD_ARGTYPES)
+    fn = _build.function(*_BWD_FN[rt], _BWD_ARGTYPES)
     err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),
              w.data_ptr(), dh.data_ptr(), dzo.data_ptr(),
              _ptr(zo if stats else None), _ptr(d1), _ptr(d2), dz.data_ptr(),
@@ -171,13 +203,15 @@ def fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats: bool = True):
              part[1].data_ptr(), dadb.data_ptr(), dadb[1].data_ptr(),
              _DTYPES[z.dtype], M, K, N, int(stats), splits, per, _stream(z))
     if err:
-        raise RuntimeError(f"fused_chain_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"fused_chain_bwd kernel launch failed ({rt}): "
+                           f"CUDA error {err}")
     fused_chain_bwd.launches += 1
+    fused_chain_bwd.launches_by_route[rt] += 1
     return dz, dr, dadb[0], dadb[1], dw
 
 
 fused_chain_bwd.launches = 0
+fused_chain_bwd.launches_by_route = dict.fromkeys(_BWD_FN, 0)
 
 
 class FusedResidualMatmul(torch.autograd.Function):
@@ -201,12 +235,16 @@ class FusedResidualMatmul(torch.autograd.Function):
         return dz, dr, da.to(a.dtype), db.to(b.dtype), dw, None
 
 
-def fused_residual_matmul_nhwc(z, r, w, scale, bias, *, stats: bool = True):
+def fused_residual_matmul_nhwc(z, r, w, scale, bias, *, stats: bool = True,
+                               interpret: bool = False):
     """relu(z * scale + bias + r) fused with the next 1x1 conv. z, r
     (B, H, W, K) NHWC (block n's conv3 output and its shortcut); w (K, N)
     the next block's reduce weight; scale/bias (K,) BN3's affine. Returns
     ``(h, z_next, s1, s2)``: h (B, H, W, K) is block n's output, z_next
-    (B, H, W, N), s1 / s2 float32 (N,) or None without ``stats``."""
+    (B, H, W, N), s1 / s2 float32 (N,) or None without ``stats``. JAX's
+    ``interpret`` is not ported."""
+    refuse_unported("fused_residual_matmul_nhwc",
+                    interpret=(interpret, False))
     B, H, W, K = z.shape
     h, zo, s1, s2 = FusedResidualMatmul.apply(
         z.reshape(-1, K), r.reshape(-1, K), scale, bias, w, bool(stats))

@@ -32,6 +32,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.engine import refuse_unported
 from . import _build
 from .fused_matmul import (_DTYPES, _PART_ROWS, _RAGGED, _check_aligned,
                            _f32, _ptr, _stream, route)
@@ -180,8 +181,10 @@ class FusedConv3x3(torch.autograd.Function):
 
 
 def fused_bn_relu_conv3x3(x, w, scale, bias, *, stride: int = 1,
-                          stats: bool = True):
+                          stats: bool = True, interpret: bool = False):
     """relu(x * scale + bias) -> 3x3 conv (padding 1) -> (z, s1, s2). x
     (B, H, W, C) NHWC; w (3, 3, C, N) HWIO; stride 1 or 2. s1 / s2 are
-    float32 (N,), or None without ``stats``."""
+    float32 (N,), or None without ``stats``. JAX's ``interpret`` is not
+    ported."""
+    refuse_unported("fused_bn_relu_conv3x3", interpret=(interpret, False))
     return FusedConv3x3.apply(x, w, scale, bias, int(stride), bool(stats))

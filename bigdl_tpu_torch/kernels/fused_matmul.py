@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from ..utils.engine import refuse_unported
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -333,13 +334,18 @@ class FusedBnReluMatmul(torch.autograd.Function):
 
 
 def fused_bn_relu_matmul(x, w, scale=None, bias=None, *, relu=None,
-                         stats: bool = True):
+                         stats: bool = True, block_m: int = 512,
+                         block_n: int = 512, interpret: bool = False):
     """``z = act(x * scale + bias) @ w`` with fused per-channel output
     statistics. x (M, K), w (K, N), scale/bias (K,) (the previous
     BatchNorm folded to an affine) or None; ``relu`` defaults to True with
     a prologue. Returns ``(z, s1, s2)``, s1 = sum_m z and s2 = sum_m z^2 in
     float32 (None without ``stats``). Differentiable in x, w, scale and
-    bias, through the statistics too."""
+    bias, through the statistics too. JAX's TPU tile sizes (``block_m``,
+    ``block_n``) and ``interpret`` are not ported (the CUDA kernels pick
+    their own tiles)."""
+    refuse_unported("fused_bn_relu_matmul", block_m=(block_m, 512),
+                    block_n=(block_n, 512), interpret=(interpret, False))
     if relu is None:
         relu = scale is not None
     return FusedBnReluMatmul.apply(x, w, scale, bias, bool(relu),
@@ -347,10 +353,13 @@ def fused_bn_relu_matmul(x, w, scale=None, bias=None, *, relu=None,
 
 
 def fused_bn_relu_matmul_nhwc(x, w, scale=None, bias=None, *, relu=None,
-                              stats: bool = True):
+                              stats: bool = True, block_n: int = 512,
+                              interpret: bool = False):
     """The NHWC form: x (B, H, W, K) -> ``(z (B, H, W, N), s1, s2)``, a
     view onto :func:`fused_bn_relu_matmul` over the B*H*W rows (a
     non-contiguous x is copied once by ``reshape``)."""
+    refuse_unported("fused_bn_relu_matmul_nhwc", block_n=(block_n, 512),
+                    interpret=(interpret, False))
     B, H, W, K = x.shape
     z, s1, s2 = fused_bn_relu_matmul(x.reshape(B * H * W, K), w, scale, bias,
                                      relu=relu, stats=stats)

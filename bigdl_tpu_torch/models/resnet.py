@@ -38,7 +38,7 @@ from ..nn import (Linear, ReLU, Sequential, SpatialAveragePooling,
                   SpatialMaxPooling, View)
 from ..nn.init import MsraFiller
 from ..nn.module import Module
-from ..utils.engine import resolve_device
+from ..utils.engine import refuse_unported, resolve_device
 
 
 def _max0(u):
@@ -82,13 +82,18 @@ class FusedBottleneck(Module):
     BatchNorm statistics here are the unshifted ``s2 / m - mean^2`` from
     the kernels' sums (the JAX package's ``_bn_affine``); each affine
     ``(a, b)`` is computed in float32 and rounded to the activations'
-    dtype before it reaches a kernel."""
+    dtype before it reaches a kernel. ``kernel`` other than JAX's default
+    'pallas' (the XLA-fused arm) is not ported; ``fused_conv2`` is the
+    keyword form of JAX's ``BIGDL_TPU_FUSED_CONV2`` switch (the port reads
+    no environment)."""
 
     def __init__(self, nin: int, nmid: int, stride: int = 1,
                  expansion: int = 4, zero_init_residual: bool = False,
                  eps: float = 1e-5, momentum: float = 0.1,
+                 kernel: str = "pallas", name=None,
                  fused_conv2: bool = False):
-        super().__init__()
+        super().__init__(name=name)
+        refuse_unported("FusedBottleneck", kernel=(kernel, "pallas"))
         self.nin, self.nmid, self.stride = nin, nmid, stride
         self.nout = nmid * expansion
         self.eps, self.momentum = eps, momentum
@@ -213,8 +218,8 @@ class FusedBottleneckChain(Module):
     once. The stage's first block (projecting or striding) keeps its
     plain entry; the last block's epilogue is an elementwise pass."""
 
-    def __init__(self, blocks):
-        super().__init__()
+    def __init__(self, blocks, name=None):
+        super().__init__(name=name)
         if not blocks:
             raise ValueError("empty chain")
         for blk in blocks[1:]:

@@ -10,8 +10,8 @@ from .module import Module
 class ReLU(Module):
     """max(x, 0) (``ip`` is accepted and ignored, as in the JAX package)."""
 
-    def __init__(self, ip: bool = False):
-        super().__init__()
+    def __init__(self, ip: bool = False, name=None):
+        super().__init__(name=name)
 
     def call(self, params, x):
         return torch.relu(x)

@@ -28,9 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.paged_attention import paged_attention_reference
 from ..parallel.flash import (flash_attention, flash_chunk_attention,
                               paged_attention)
-from ..utils.engine import resolve_device
+from ..utils.engine import refuse_unported, resolve_device
 from .module import Module
 from .norm import LayerNormalization
 
@@ -86,7 +87,7 @@ def dot_product_attention(q, k, v, mask=None, dropout_p: float = 0.0,
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
-def causal_mask(t, device=None, dtype=torch.float32):
+def causal_mask(t, dtype=torch.float32, device=None):
     keep = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
     return torch.where(keep, 0.0, -1e9).to(dtype)[None, None]
 
@@ -102,10 +103,15 @@ def position_encoding(length, hidden_size, dtype=torch.float32,
     return torch.from_numpy(pe).to(device=device, dtype=dtype)
 
 
-def embed_ids(embed, ids, hidden_size, with_pe: bool = True, pe=None):
+def embed_ids(embed, ids, hidden_size, with_pe: bool = True):
     """Token embedding * sqrt(hidden) + sinusoidal PE cast to the
-    embedding dtype (an f32 PE would promote every bf16 activation).
-    ``pe`` optionally passes a precomputed (>= T, H) table."""
+    embedding dtype (an f32 PE would promote every bf16 activation)."""
+    return _embed_ids(embed, ids, hidden_size, with_pe)
+
+
+def _embed_ids(embed, ids, hidden_size, with_pe: bool = True, pe=None):
+    """:func:`embed_ids` with ``pe`` a precomputed (>= T, H) table (the
+    model's cache), or None to compute it."""
     h = embed[ids.long()] * math.sqrt(hidden_size)
     if not with_pe:
         return h
@@ -119,13 +125,17 @@ class Attention(Module):
     """Multi-head self-attention with optional grouped-query K/V heads
     (``num_kv_heads``) and rotary embeddings. ``attention_dropout`` drops
     attention weights in training (then the einsum path runs instead of
-    flash, as in the JAX package). ``generator`` seeds the weights."""
+    flash, as in the JAX package). Sequence parallelism (``seq_axis``,
+    ``seq_impl``) is not ported. ``generator`` seeds the weights."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 use_flash: bool = True, causal: bool = False,
-                 num_kv_heads=None, rope: bool = False, generator=None,
-                 attention_dropout: float = 0.0):
-        super().__init__()
+                 attention_dropout: float = 0.0, use_flash: bool = True,
+                 seq_axis=None, causal: bool = False, seq_impl: str = "ring",
+                 num_kv_heads=None, rope: bool = False, name=None,
+                 generator=None):
+        super().__init__(name=name)
+        refuse_unported("Attention", seq_axis=(seq_axis, None),
+                        seq_impl=(seq_impl, "ring"))
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} not a multiple of "
                              f"num_heads {num_heads}")
@@ -229,8 +239,10 @@ class Attention(Module):
         # occur between padded slots aimed at the null block
         k_pages[blk, :, off, :] = k_t.transpose(1, 2).to(k_pages.dtype)
         v_pages[blk, :, off, :] = v_t.transpose(1, 2).to(v_pages.dtype)
-        o = paged_attention(q.contiguous(), k_pages, v_pages, block_tables,
-                            positions)
+        o = paged_attention(
+            q.contiguous(), k_pages, v_pages, block_tables, positions,
+            lambda: paged_attention_reference(q, k_pages, v_pages,
+                                              block_tables, positions))
         return self._merge(o, params), k_pages, v_pages
 
     def call(self, params, x, training: bool = False, generator=None):
@@ -249,7 +261,7 @@ class Attention(Module):
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True)
         else:
-            mask = (causal_mask(q.shape[2], x.device) if self.causal
+            mask = (causal_mask(q.shape[2], device=x.device) if self.causal
                     else None)
             o = dot_product_attention(q, k, v, mask, self.attention_dropout,
                                       generator, training)
@@ -262,9 +274,9 @@ class FeedForwardNetwork(Module):
     drops the hidden activations in training."""
 
     def __init__(self, hidden_size: int, filter_size: int,
-                 activation: str = "relu", generator=None,
-                 relu_dropout: float = 0.0):
-        super().__init__()
+                 relu_dropout: float = 0.0, activation: str = "relu",
+                 name=None, generator=None):
+        super().__init__(name=name)
         if activation not in ("relu", "gelu", "swiglu"):
             raise ValueError(f"activation must be relu/gelu/swiglu, "
                              f"got {activation!r}")
@@ -293,14 +305,18 @@ class FeedForwardNetwork(Module):
 
 
 class TransformerBlock(Module):
-    """Pre-LN decoder block: self-attention then FFN, each residual."""
+    """Pre-LN block: self-attention then FFN, each residual; causal only
+    when asked (``causal=False``, JAX's default, attends both ways). The
+    cross-attention sublayer (``with_cross``) is not ported."""
 
     def __init__(self, hidden_size: int, num_heads: int, filter_size: int,
-                 causal: bool = True, use_flash: bool = True,
-                 num_kv_heads=None, rope: bool = False,
-                 ffn_activation: str = "relu", generator=None,
-                 attn_dropout: float = 0.0, ffn_dropout: float = 0.0):
-        super().__init__()
+                 attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
+                 with_cross: bool = False, causal: bool = False,
+                 use_flash: bool = True, num_kv_heads=None,
+                 rope: bool = False, ffn_activation: str = "relu", name=None,
+                 generator=None):
+        super().__init__(name=name)
+        refuse_unported("TransformerBlock", with_cross=(with_cross, False))
         self.attn = Attention(hidden_size, num_heads, use_flash=use_flash,
                               causal=causal, num_kv_heads=num_kv_heads,
                               rope=rope, generator=generator,
@@ -338,7 +354,8 @@ class TransformerBlock(Module):
                                 ve.contiguous(), causal=True)
         else:
             o = dot_product_attention(q, ke, ve,
-                                      causal_mask(q.shape[2], h.device))
+                                      causal_mask(q.shape[2],
+                                                  device=h.device))
         h = h + self.attn._merge(o, params["attn"])
         return self._ffn_sublayer(params, h), (k, v)
 
@@ -378,8 +395,9 @@ class Transformer(Module):
                  mode: str = "lm", max_len: int = 2048,
                  use_flash: bool = True, remat: bool = False,
                  num_kv_heads=None, pos_encoding: str = "sinusoidal",
-                 ffn_activation: str = "relu", device=None, seed: int = 0):
-        super().__init__()
+                 ffn_activation: str = "relu", name=None, device=None,
+                 seed: int = 0):
+        super().__init__(name=name)
         if mode != "lm":
             raise NotImplementedError("only mode='lm' is ported")
         if pos_encoding not in ("sinusoidal", "rope"):
@@ -429,9 +447,9 @@ class Transformer(Module):
 
     def _embed(self, params, ids):
         emb = params["embed"]
-        return embed_ids(emb, ids, self.hidden_size,
-                         with_pe=self.pos_encoding != "rope",
-                         pe=self._pe(emb.dtype))
+        return _embed_ids(emb, ids, self.hidden_size,
+                          with_pe=self.pos_encoding != "rope",
+                          pe=self._pe(emb.dtype))
 
     def _block(self, blk, params, h, training, generator):
         if not self.remat:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.engine import refuse_unported
 from .init import Xavier, Zeros
 from .module import Module
 
@@ -15,15 +16,28 @@ class SpatialConvolution(Module):
     input goes to ``F.conv2d`` as its channels-last NCHW view
     (``permute(0, 3, 1, 2)``, no copy) and the output comes back the same
     way. Weights default to ``Xavier``, biases to ``Zeros``. Explicit
-    padding only (pad -1, SAME, is not ported), one group, no
-    dilation."""
+    padding only (pad -1, SAME, is not ported); ``n_group``,
+    ``propagate_back=False``, the regularizers, ``init_weight`` /
+    ``init_bias`` and dilation are not ported and raise at a value other
+    than their default."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
-                 with_bias: bool = True, init_method=None,
-                 bias_init_method=None, format: str = "NCHW"):
-        super().__init__()
+                 n_group: int = 1, propagate_back: bool = True,
+                 w_regularizer=None, b_regularizer=None, init_weight=None,
+                 init_bias=None, with_bias: bool = True, init_method=None,
+                 bias_init_method=None, dilation_w: int = 1,
+                 dilation_h: int = 1, format: str = "NCHW", name=None):
+        super().__init__(name=name)
+        refuse_unported("SpatialConvolution", n_group=(n_group, 1),
+                        propagate_back=(propagate_back, True),
+                        w_regularizer=(w_regularizer, None),
+                        b_regularizer=(b_regularizer, None),
+                        init_weight=(init_weight, None),
+                        init_bias=(init_bias, None),
+                        dilation_w=(dilation_w, 1),
+                        dilation_h=(dilation_h, 1))
         if format not in ("NCHW", "NHWC"):
             raise ValueError(f"format must be NCHW or NHWC, got {format!r}")
         if pad_w < 0 or pad_h < 0:

@@ -50,6 +50,16 @@ class _TrainingFlag:
 
 
 class Module(torch.nn.Module):
+    """``name`` labels the module as the JAX package's ``name`` does (the
+    class name and a process-wide instance number when not given)."""
+
+    _instance_counter = [0]
+
+    def __init__(self, name=None):
+        super().__init__()
+        Module._instance_counter[0] += 1
+        n = Module._instance_counter[0]
+        self.name = name or f"{type(self).__name__}{n}"
 
     @property
     def training(self):
@@ -130,8 +140,8 @@ class Container(Module):
     ``"0"``, ``"1"``, ... (the JAX package's ``Container``), so the params
     and state trees are keyed by child index."""
 
-    def __init__(self, *modules):
-        super().__init__()
+    def __init__(self, *modules, name=None):
+        super().__init__(name=name)
         for m in modules:
             self.add(m)
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.engine import refuse_unported
 from .module import Module
 
 
@@ -11,8 +12,8 @@ class LayerNormalization(Module):
     """LayerNorm over the last dim. ``eps`` defaults to 1e-6, the JAX
     package's value (not torch's 1e-5)."""
 
-    def __init__(self, hidden_size: int, eps: float = 1e-6):
-        super().__init__()
+    def __init__(self, hidden_size: int, eps: float = 1e-6, name=None):
+        super().__init__(name=name)
         self.hidden_size, self.eps = hidden_size, eps
         self.weight = torch.nn.Parameter(torch.ones(hidden_size))
         self.bias = torch.nn.Parameter(torch.zeros(hidden_size))
@@ -33,13 +34,17 @@ class BatchNormalization(Module):
     Training uses the JAX package's shifted one-pass statistics: with
     s = running_mean (no gradient), mean = E[x - s] + s and var =
     E[(x - s)^2] - E[x - s]^2, all in float32. The output keeps x's
-    dtype."""
+    dtype. ``init_weight`` / ``init_bias`` are not ported and raise at a
+    value other than None."""
 
     _channel_axis = 1
 
     def __init__(self, n_output: int, eps: float = 1e-5,
-                 momentum: float = 0.1, affine: bool = True):
-        super().__init__()
+                 momentum: float = 0.1, affine: bool = True,
+                 init_weight=None, init_bias=None, name=None):
+        super().__init__(name=name)
+        refuse_unported(type(self).__name__, init_weight=(init_weight, None),
+                        init_bias=(init_bias, None))
         self.n_output, self.eps, self.momentum = n_output, eps, momentum
         if affine:
             self.weight = torch.nn.Parameter(torch.ones(n_output))
@@ -92,8 +97,10 @@ class SpatialBatchNormalization(BatchNormalization):
 
     def __init__(self, n_output: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
-                 data_format: str = "NCHW"):
-        super().__init__(n_output, eps, momentum, affine)
+                 init_weight=None, init_bias=None,
+                 data_format: str = "NCHW", name=None):
+        super().__init__(n_output, eps, momentum, affine, init_weight,
+                         init_bias, name)
         if data_format not in ("NCHW", "NHWC"):
             raise ValueError(f"data_format must be NCHW or NHWC, got "
                              f"{data_format!r}")

@@ -5,13 +5,14 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ..utils.engine import refuse_unported
 from .module import Module
 
 
 class _Pool2D(Module):
     def __init__(self, kw, kh, dw=None, dh=None, pad_w=0, pad_h=0,
-                 format="NCHW"):
-        super().__init__()
+                 format="NCHW", name=None):
+        super().__init__(name=name)
         if format not in ("NCHW", "NHWC"):
             raise ValueError(f"format must be NCHW or NHWC, got {format!r}")
         if pad_w < 0 or pad_h < 0:
@@ -45,8 +46,8 @@ class SpatialMaxPooling(_Pool2D):
     right padding is never read in floor mode, so the windows agree."""
 
     def __init__(self, kw, kh, dw=None, dh=None, pad_w=0, pad_h=0,
-                 format="NCHW", grad_mode: str = "exact"):
-        super().__init__(kw, kh, dw, dh, pad_w, pad_h, format)
+                 format="NCHW", grad_mode: str = "exact", name=None):
+        super().__init__(kw, kh, dw, dh, pad_w, pad_h, format, name)
         if grad_mode != "exact":
             raise NotImplementedError(f"grad_mode={grad_mode!r} is not "
                                       f"ported (only 'exact')")
@@ -61,11 +62,17 @@ class SpatialAveragePooling(_Pool2D):
     """Average pooling (nn/SpatialAveragePooling.scala) with
     ``global_pooling``: each whole plane, summed over H and W and divided
     by H W (the kernel size is then ignored, as in the reference). Window
-    pooling is not ported."""
+    pooling, ``ceil_mode``, ``count_include_pad=False`` and
+    ``divide=False`` are not ported."""
 
     def __init__(self, kw, kh, dw=None, dh=None, pad_w=0, pad_h=0,
-                 global_pooling=False, format="NCHW"):
-        super().__init__(kw, kh, dw, dh, pad_w, pad_h, format)
+                 global_pooling=False, ceil_mode=False,
+                 count_include_pad=True, divide=True, format="NCHW",
+                 name=None):
+        super().__init__(kw, kh, dw, dh, pad_w, pad_h, format, name)
+        refuse_unported("SpatialAveragePooling", ceil_mode=(ceil_mode, False),
+                        count_include_pad=(count_include_pad, True),
+                        divide=(divide, True))
         if not global_pooling:
             raise NotImplementedError("only global_pooling=True is ported")
 

@@ -11,8 +11,8 @@ class View(Module):
     """Reshape to ``sizes``, keeping the batch dimension when the rest of
     the input holds exactly ``prod(sizes)`` elements (nn/View.scala)."""
 
-    def __init__(self, *sizes):
-        super().__init__()
+    def __init__(self, *sizes, name=None):
+        super().__init__(name=name)
         if len(sizes) == 1 and isinstance(sizes[0], (list, tuple)):
             sizes = tuple(sizes[0])
         self.sizes = tuple(sizes)

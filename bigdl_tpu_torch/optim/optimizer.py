@@ -45,7 +45,8 @@ class Metrics:
     """Per-phase timings in seconds: ``values[name]`` lists every
     reading."""
 
-    def __init__(self):
+    def __init__(self, namespace: str = "optim"):
+        engine.refuse_unported("Metrics", namespace=(namespace, "optim"))
         self.values = {}
 
     def add(self, name, value):

@@ -28,9 +28,12 @@ def flash_chunk_attention(q, k, v, q_offset: int, kv_len=None):
                      kv_len=kv_len)[0]
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, positions):
+def paged_attention(q, k_pages, v_pages, block_tables, positions,
+                    dense_fn):
     """q (B, nH, S, D); pages (num_blocks, kvH, block_size, D) already
     holding this chunk's K/V; block_tables (B, max_blocks) int32;
-    positions (B,) int32."""
+    positions (B,) int32. ``dense_fn()`` is the caller's gathered-view
+    einsum, JAX's fallback and oracle; the port never falls back (on the
+    CPU the kernel's plain version is that einsum), so it is not called."""
     return paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   positions)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..optim.predictor import bucket_for
+from ..utils.engine import refuse_unported
 from .batching import DeadlineExceeded, EngineStopped, QueueFull, ServeFuture
 from .kv_cache import KVCacheOOM, PagedKVCache, blocks_for_tokens
 from .registry import ModelRegistry
@@ -98,7 +99,8 @@ class LMRequest:
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline_s, rid,
                  temperature: float = 0.0, top_p: float = 1.0,
-                 seed: int = 0):
+                 seed: int = 0, priority: int = 0):
+        refuse_unported("LMRequest", priority=(priority, 0))
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -145,16 +147,45 @@ class DecodeScheduler:
         when the previous one fully drained - the baseline).
     eos_id : default end-of-sequence id (per-request override at submit).
     sampling_seed : base of the per-request seeds of sampled requests.
+    prefix_cache : JAX's default (True) shares the KV blocks of equal
+        prompt prefixes; the port has no prefix cache yet (ROADMAP A.1),
+        so True and False both serve without sharing (the tokens are the
+        same, the block use is not).
+    preempt : as in JAX, preemption needs the host KV tier
+        (``host_blocks`` > 0), which is not ported, so it never fires.
+
+    Not ported, and refused at a value other than JAX's default:
+    ``draft_model`` / ``spec_k`` (speculative decoding),
+    ``stall_deadline_s``, ``prefix_cache_entries``, ``mesh`` /
+    ``placement``, ``name``, ``tags``, ``fault_policy``, ``audit_every``
+    (periodic audits; :meth:`audit` runs one on demand) and
+    ``host_blocks``.
     """
 
     def __init__(self, model, *, max_slots: int = 8, block_size: int = 16,
                  max_seq_len: int = 256, num_blocks: Optional[int] = None,
-                 prefill_chunk: int = 32, max_queue: int = 256,
+                 prefill_chunk: int = 32, draft_model=None, spec_k: int = 4,
+                 max_queue: int = 256,
                  default_deadline_ms: Optional[float] = None,
                  eos_id: Optional[int] = None,
                  registry: Optional[ModelRegistry] = None,
                  admission: str = "continuous",
-                 static_wait_ms: float = 4.0, sampling_seed: int = 0):
+                 static_wait_ms: float = 4.0,
+                 stall_deadline_s: Optional[float] = None,
+                 sampling_seed: int = 0, prefix_cache: bool = True,
+                 prefix_cache_entries: Optional[int] = None, mesh=None,
+                 placement=None, name: Optional[str] = None, tags=(),
+                 fault_policy=None, audit_every: int = 256,
+                 host_blocks: int = 0, preempt: bool = True):
+        refuse_unported("DecodeScheduler", draft_model=(draft_model, None),
+                        spec_k=(spec_k, 4),
+                        stall_deadline_s=(stall_deadline_s, None),
+                        prefix_cache_entries=(prefix_cache_entries, None),
+                        mesh=(mesh, None), placement=(placement, None),
+                        name=(name, None), tags=(tuple(tags), ()),
+                        fault_policy=(fault_policy, None),
+                        audit_every=(audit_every, 256),
+                        host_blocks=(host_blocks, 0))
         if model.mode != "lm":
             raise ValueError("DecodeScheduler serves LM-mode models")
         if max_slots < 2:
@@ -185,7 +216,8 @@ class DecodeScheduler:
                                block_size=block_size, max_blocks_per_seq=mbs)
         self.registry = registry or ModelRegistry(device=self.device)
         if self.registry.current() is None:
-            self.registry.publish(model.params, version="v0", activate=True)
+            self.registry.publish(model.params, model.state, version="v0",
+                                  activate=True)
         self.static_wait_ms = float(static_wait_ms)
         self.max_queue = int(max_queue)
         self._q: queue.Queue = queue.Queue(maxsize=self.max_queue)
@@ -372,10 +404,15 @@ class DecodeScheduler:
                                "it as a context manager")
         return self.submit(prompt_ids, max_new_tokens, **kw).result(timeout)
 
-    def swap(self, params, version: Optional[str] = None) -> str:
-        """Hot swap: publish and activate new params. In-flight requests
-        keep the version they pinned at admission."""
-        v = self.registry.publish(params, version=version, activate=True)
+    def swap(self, params, state=None, version: Optional[str] = None) -> str:
+        """Hot swap: publish and activate new params (and state). In-flight
+        requests keep the version they pinned at admission. ``state=None``
+        inherits the active version's state."""
+        if state is None:
+            cur = self.registry.current()
+            state = cur.state if cur is not None else self.model.state
+        v = self.registry.publish(params, state, version=version,
+                                  activate=True)
         self._bump("swaps")
         return v
 
@@ -392,7 +429,7 @@ class DecodeScheduler:
 
     def audit(self) -> dict:
         """The KV ledger audit (call at a quiesced point)."""
-        return self.kv.audit(pins={})
+        return self.kv.audit(prefix_pins={})
 
     # -- scheduler loop --------------------------------------------------
 

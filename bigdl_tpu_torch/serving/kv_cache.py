@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.engine import refuse_unported
+
 
 class KVCacheOOM(RuntimeError):
     """The free list cannot cover a requested allocation (typed, so
@@ -44,7 +46,11 @@ class PagedKVCache:
     written; ``retain``/``release`` add and drop ownerless references."""
 
     def __init__(self, model, *, num_blocks: int, block_size: int = 16,
-                 max_blocks_per_seq: int, dtype=torch.float32):
+                 max_blocks_per_seq: int, dtype=torch.float32,
+                 metric_prefix: str = "serve/kv", sharding=None):
+        refuse_unported("PagedKVCache", metric_prefix=(metric_prefix,
+                                                        "serve/kv"),
+                        sharding=(sharding, None))
         if num_blocks < 2:
             raise ValueError(f"num_blocks must be >= 2 (block 0 is the "
                              f"reserved null block), got {num_blocks}")
@@ -205,13 +211,14 @@ class PagedKVCache:
 
     # -- auditor ---------------------------------------------------------
 
-    def audit(self, pins: Optional[Dict[int, int]] = None) -> dict:
+    def audit(self, prefix_pins: Optional[Dict[int, int]] = None) -> dict:
         """Ledger invariant check over one consistent snapshot; never
         raises. Partition (every id 1..num_blocks-1 free XOR referenced,
         block 0 neither), table references within refcounts, no owner
         aliasing a block twice, no table entry on a dead block, and - with
-        ``pins`` ({block: ownerless references}) - refcount equal to table
-        references plus pins. Returns ``{"ok", "violations", "blocks",
+        ``prefix_pins`` ({block: ownerless references}, the prefix cache's
+        pins; ``{}`` without one) - refcount equal to table references plus
+        pins. Returns ``{"ok", "violations", "blocks",
         "owners"}``."""
         with self._lock:
             free = list(self._free)
@@ -249,9 +256,9 @@ class PagedKVCache:
             if t > r:
                 v.append(f"block {b} aliased: {t} table references exceed "
                          f"refcount {r}")
-            elif pins is not None and r - t != pins.get(b, 0):
+            elif prefix_pins is not None and r - t != prefix_pins.get(b, 0):
                 v.append(f"block {b} refcount {r} != {t} table refs + "
-                         f"{pins.get(b, 0)} pins")
+                         f"{prefix_pins.get(b, 0)} pins")
         return {"ok": not v, "violations": v,
                 "blocks": self.num_blocks - 1, "owners": len(owned)}
 

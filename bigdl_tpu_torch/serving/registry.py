@@ -1,9 +1,10 @@
 """Versioned model registry with atomic hot swap (counterpart of
 ``bigdl_tpu/serving/registry.py``, without mesh placement).
 
-``publish`` places a parameter tree on the registry's device on the
-caller's thread; ``activate`` is a pointer write under a lock, so a swap
-lands on a dispatch boundary."""
+``publish`` places a parameter tree and a state tree (the model's
+non-trained state; ``None`` or ``{}`` for a TransformerLM) on the
+registry's device on the caller's thread; ``activate`` is a pointer write
+under a lock, so a swap lands on a dispatch boundary."""
 from __future__ import annotations
 
 import threading
@@ -13,19 +14,22 @@ import torch
 
 
 class ModelVersion:
-    """(version id, device-resident parameter tree)."""
+    """(version id, device-resident parameter tree, state tree)."""
 
-    __slots__ = ("version", "params")
+    __slots__ = ("version", "params", "state")
 
-    def __init__(self, version: str, params):
+    def __init__(self, version: str, params, state):
         self.version = version
         self.params = params
+        self.state = state
 
     def __repr__(self):
         return f"ModelVersion({self.version!r})"
 
 
 def _place(tree, device):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _place(v, device) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
@@ -36,9 +40,18 @@ def _place(tree, device):
 
 class ModelRegistry:
     """Thread-safe version store: ``publish`` loads, ``activate`` swaps,
-    ``retire`` drops a version that is not active."""
+    ``retire`` drops a version that is not active. JAX's mesh placement
+    (``mesh``, ``param_specs``, ``state_specs``) is not ported: the port
+    serves on one device (``device``)."""
 
-    def __init__(self, device=None):
+    def __init__(self, mesh=None, param_specs=None, state_specs=None,
+                 device=None):
+        for name, v in (("mesh", mesh), ("param_specs", param_specs),
+                        ("state_specs", state_specs)):
+            if v is not None:
+                raise NotImplementedError(
+                    f"ModelRegistry({name}=...): mesh placement is not "
+                    f"ported (one device; ROADMAP A.6)")
         self.device = device
         self._versions: Dict[str, ModelVersion] = {}
         self._order: List[str] = []
@@ -47,12 +60,17 @@ class ModelRegistry:
         self._used: set = set()
         self._lock = threading.Lock()
 
-    def publish(self, params, version: Optional[str] = None,
-                activate: bool = False) -> str:
-        """Place ``params`` on the registry's device and store it as a new
-        version; activate it when asked or when it is the first. Returns
-        the version id (``v<n>`` when not given)."""
-        placed = ModelVersion("", _place(params, self.device))
+    def publish(self, params, state=None, version: Optional[str] = None,
+                activate: bool = False, transform=None) -> str:
+        """Place ``params`` and ``state`` on the registry's device and
+        store them as a new version; activate it when asked or when it is
+        the first. ``transform`` (``params -> params``) runs once, here,
+        before placement; the version holds its result. Returns the
+        version id (``v<n>`` when not given)."""
+        if transform is not None:
+            params = transform(params)
+        placed = ModelVersion("", _place(params, self.device),
+                              _place(state, self.device))
         with self._lock:
             if version is None:
                 while f"v{self._counter}" in self._used:

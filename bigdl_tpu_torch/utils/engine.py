@@ -57,3 +57,18 @@ def new_generator(device) -> torch.Generator:
     tests compare dropout by its invariants, never mask for mask."""
     seed = _DEFAULT_SEED if _state["seed"] is None else _state["seed"]
     return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+
+
+def refuse_unported(owner: str, **given):
+    """The port takes every parameter of its JAX twin's signature, in
+    order, with the same defaults; what it does not do yet it refuses,
+    never ignores. ``given`` maps a parameter name to ``(value, JAX
+    default)``: the first whose value differs from its default raises
+    ``NotImplementedError`` naming ``owner`` and the parameter."""
+    for name, (value, default) in given.items():
+        if value is default:
+            continue
+        if value is None or default is None or value != default:
+            raise NotImplementedError(
+                f"{owner}: {name}={value!r} is not ported (only the JAX "
+                f"default {default!r}; ROADMAP.md lists what is left)")

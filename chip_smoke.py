@@ -20,14 +20,23 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    routes (bf16: the tensor-core kernels; float32: the CUDA-core ones) at
    ragged T, D = 32/64/128, the chunk form and kv_len = 0, the backward
    also in the ring form (external delta, float32 gradients) and for
-   bitwise-equal reruns. The fused ResNet kernels are checked on all three
-   routes (bf16 on the tensor cores, ragged bf16 and float32 on the CUDA
-   cores) at small and ragged shapes, at pad taps where relu(b) != 0, and,
-   in bf16 with two launches bit for bit equal, at every distinct
-   ResNet-50 B256/224 shape of K3 (forward and backward), K4 and K5, each
-   timed with its library call and bound; the launches a step times the
-   time of each family is printed against the measured steps of phase 7.
-   The tensor-core libraries (``*_sm90``) must build without spills;
+   bitwise-equal reruns; then every other head dim the attention kernels
+   are instantiated for (each multiple of 16 up to 128 on the bf16 flash
+   kernels, up to 256 on the float32 flash forward and K2, up to 192 on
+   the float32 backward) and their padded route (a D not a multiple of
+   16), with the launches by route, and the bf16 flash pair timed at D =
+   96 (hidden 768, 8 heads) at the training shape. The fused ResNet kernels are
+   checked on all three routes (bf16 on the tensor cores, ragged bf16 and
+   float32 on the CUDA cores) at small and ragged shapes, at pad taps
+   where relu(b) != 0, K5 also without statistics at M = 147 and at the
+   ReLU's tie, and, in bf16 with two launches bit for bit equal, at every
+   distinct ResNet-50 B256/224 shape of K3 (forward and backward), K4 and
+   K5 (its h also written into a NaN-filled buffer, which must come back
+   whole), each timed with its library call and bound; the launches a
+   step times the time of each family is printed against the measured
+   steps of phase 7. K5's stage-0 junction must take at most 1.0 ms
+   forward and 3.0 ms backward. The tensor-core libraries (``*_sm90``)
+   must build without spills;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
@@ -52,7 +61,9 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    recipe (``bench.py`` ``_build_resnet_step``: float32 masters,
    ``bf16_params``, bf16 images, ``CrossEntropyCriterion`` on float32
    logits, ``SGD(0.1, momentum=0.9)``) at B256/224, ``fused_conv2`` off
-   and on: 1 warmup step and 4 steps on one fixed batch;
+   and on: 1 warmup step and 4 steps on one fixed batch, then (off arm)
+   2 steps under ``torch.profiler``: CUDA kernel time a step against the
+   untraced step, and the largest kernels;
 8. trains ResNet-50 through ``Optimizer.create`` (a ``LocalOptimizer``)
    over a DataSet of image Samples, 3 iterations of B32/224, float32.
 
@@ -63,9 +74,10 @@ path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
 16 K4 forwards with ``fused_conv2``), or any other kernel launched, fails
-the run; so does a flash, K3 or K4 launch on another route than the path's
-dtype gives (``bf16_sm90`` in ``generate``, ``prefill_chunked`` and the
-bf16 recipes, ``f32`` in the ``LocalOptimizer`` runs). Every check that fails exits non-zero. The line before the last
+the run; so does a flash, K3, K4 or K5 launch on another route than the
+path's dtype gives (``bf16_sm90`` in ``generate``, ``prefill_chunked`` and
+the bf16 recipes, ``f32`` in the ``LocalOptimizer`` runs). Every check that
+fails exits non-zero. The line before the last
 is one JSON object with each kernel's numbers (``flash_fwd`` at the
 serving prefill shape with the ``generate`` launches, ``flash_fwd_train``
 at the training shape with the launches of the five remat-off training
@@ -74,7 +86,7 @@ steps, ``flash_bwd`` likewise, ``flash_fwd_chunk`` with the
 shape with its launches; the fused ResNet kernels at their timed shapes
 with the launches of the four ResNet-50 steps of the arm that runs them,
 their ``_f32`` rows at phase 8's shape with its launches (K4's with those
-of phase 7's float32 step); the flash, K3 and K4 rows carry their
+of phase 7's float32 step); the flash, K3, K4 and K5 rows carry their
 ``dtype_route``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -103,6 +115,12 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def only_on(counts, route, n):
+    """A wrapper's launches by route are ``n`` on ``route`` and none on
+    any other (the padded routes and ``bf16_ragged`` included)."""
+    return counts == {r: (n if r == route else 0) for r in counts}
 
 
 def card_line():
@@ -487,9 +505,41 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
     return rec
 
 
-def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True):
-    """K5 forward and backward against the plain versions; timed like K3,
-    the bare product being ``h @ w`` (and ``dzo @ w.T``, ``h.T @ dzo``)."""
+def _k5_nan_h(torch, K, z, r, a, b, w, h_ref):
+    """The K5 forward's C entry on its route, with an h pre-filled with NaN:
+    True when every element of h came back as the plain version's."""
+    from bigdl_tpu_torch.kernels import _build, fused_chain as fc
+    from bigdl_tpu_torch.kernels.fused_matmul import _PART_ROWS, route
+    M, Kd = z.shape
+    N = w.shape[1]
+    rt = route(z.dtype, Kd, N)
+    h = torch.full_like(z, float("nan"))
+    zo = torch.empty((M, N), dtype=z.dtype, device="cuda")
+    part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device="cuda")
+    st = torch.empty((2, N), device="cuda")
+    af, bf = a.float().contiguous(), b.float().contiguous()
+    fn = _build.function(*fc._FWD_FN[rt], fc._FWD_ARGTYPES)
+    err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),
+             w.data_ptr(), h.data_ptr(), zo.data_ptr(), part.data_ptr(),
+             part[1].data_ptr(), st.data_ptr(), st[1].data_ptr(),
+             fc._DTYPES[z.dtype], M, Kd, N, 1,
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"fused_chain forward C entry: CUDA error {err}")
+    torch.cuda.synchronize()
+    return bool(torch.equal(h, h_ref))
+
+
+def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
+            tie=False, nan_h=False):
+    """K5 forward and backward against the plain versions, and a second
+    launch bit for bit against the first; timed like K3, the bare product
+    being ``h @ w`` (and ``dzo @ w.T``, ``h.T @ dzo``). ``tie``: z = r = 0
+    and b = 0 on every other channel, so u = z a + b + r is exactly 0 there
+    (the ReLU's tie, whose gradient is 0 on both sides). ``nan_h``: the
+    forward's C entry is also called on an h pre-filled with NaN, which
+    must come back equal to the plain version's h everywhere (written in
+    full by the kernel)."""
+    from bigdl_tpu_torch.kernels.fused_matmul import route
     g = torch.Generator(device="cuda").manual_seed(B + H + Kd + N)
     M = B * H * H
     z = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
@@ -497,25 +547,39 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True):
     w = (0.1 * torch.randn(Kd, N, device="cuda", generator=g)).to(dtype)
     a = (torch.rand(Kd, device="cuda", generator=g) + 0.5).to(dtype)
     b = torch.randn(Kd, device="cuda", generator=g).to(dtype)
-    got = K.fused_chain_fwd(z, r, a, b, w, True)
-    ref = K.residual_chain_reference(z, r, a, b, w, True)
+    if tie:
+        z[:, ::2] = 0
+        r[:, ::2] = 0
+        b[::2] = 0
+    got = K.fused_chain_fwd(z, r, a, b, w, stats)
+    ref = K.residual_chain_reference(z, r, a, b, w, stats)
+    same = _same(torch, got, K.fused_chain_fwd(z, r, a, b, w, stats))
     h, zo = ref[0], ref[1]
     dh = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
     dzo = torch.randn(M, N, device="cuda", generator=g).to(dtype)
-    ds1 = torch.randn(N, device="cuda", generator=g)
-    ds2 = 0.01 * torch.randn(N, device="cuda", generator=g)
-    gb = K.fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, True)
+    ds1 = torch.randn(N, device="cuda", generator=g) if stats else None
+    ds2 = 0.01 * torch.randn(N, device="cuda", generator=g) if stats else None
+    gb = K.fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats)
     rb = K.residual_chain_bwd_reference(z, r, a, b, w, zo, dh, dzo, ds1, ds2,
-                                        True)
+                                        stats)
+    same = same and _same(torch, gb, K.fused_chain_bwd(
+        z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats))
     torch.cuda.synchronize()
-    errs = [_rel_err(p, q) for p, q in zip(got + gb, ref + rb)]
+    errs = [_rel_err(p, q) for p, q in zip(got + gb, ref + rb)
+            if q is not None]
     tol = FUSED_TOL[str(dtype)]
-    rec = {"shape": [B, H, H, Kd, N], "dtype": str(dtype),
+    rec = {"shape": [B, H, H, Kd, N], "M": M, "dtype": str(dtype),
+           "stats": stats, "tie": tie, "route": route(dtype, Kd, N),
            "err_h_zo_s1_s2_dz_dr_da_db_dw": errs, "max_abs_err": max(errs),
-           "tol": tol}
+           "tol": tol, "reruns_equal": same}
+    if nan_h:
+        rec["nan_h_equal"] = _k5_nan_h(torch, K, z, r, a, b, w, h)
     print(f"  K5 fused_chain {rec}", flush=True)
     check(max(errs) <= tol, f"fused_chain disagrees with its plain version: "
           f"{rec}")
+    check(same, f"fused_chain: two launches differ: {rec}")
+    check(rec.get("nan_h_equal", True), f"fused_chain: h not written in full "
+          f"(NaN left in a pre-filled h): {rec}")
     if not timed:
         return rec
     e = _esz(torch, dtype)
@@ -644,7 +708,7 @@ def resnet_shapes(torch, K):
         fam["K4"].append((name, n, r))
     for name, (H, Kd, N), n in RESNET_K5:
         r = recs[name] = k5_case(torch, K, RB, H, Kd, N, bf, True,
-                                 plain=name in JSON_SHAPES)
+                                 plain=name in JSON_SHAPES, nan_h=True)
         fam["K5 fwd"].append((name, n, r["fwd"]))
         fam["K5 bwd"].append((name, n, r["bwd"]))
     for f, rows in fam.items():
@@ -717,7 +781,7 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
         check(counts == want, f"training step (remat={remat}) launched "
               f"{counts}, expected {want}")
         routes = K.launches_by_route()
-        check(all(routes[n] == {"bf16_sm90": want[n], "f32": 0}
+        check(all(only_on(routes[n], "bf16_sm90", want[n])
                   for n in ("flash_fwd", "flash_bwd")),
               f"training step (remat={remat}): flash launches by route "
               f"{routes}, all expected on bf16_sm90")
@@ -772,7 +836,7 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
     check(counts == want, f"LocalOptimizer launched {counts}, expected "
           f"{want}")
     routes = K.launches_by_route()
-    check(all(routes[n] == {"bf16_sm90": 0, "f32": want[n]}
+    check(all(only_on(routes[n], "f32", want[n])
               for n in ("flash_fwd", "flash_bwd")),
           f"LocalOptimizer (float32 params): flash launches by route "
           f"{routes}, all expected on f32")
@@ -838,9 +902,9 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
                     {k: v.float().cpu() for k, v in flatten(ns).items()},
                     {k: g.float().cpu() for k, g in zip(leaves, grads)})
     rec = dict(dtype=str(dtype), **_step_errs(out["cuda"], out["cpu"]))
-    rec["fused_routes"] = {n: routes[n] for n in ("fused_matmul_fwd",
-                                                  "fused_matmul_bwd",
-                                                  "fused_conv_fwd")}
+    rec["fused_routes"] = {n: routes[n] for n in (
+        "fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
+        "fused_chain_bwd", "fused_conv_fwd")}
     want = "bf16_sm90" if bf16 else "f32"
     check(all(r[want] > 0 and sum(r.values()) == r[want]
               for r in rec["fused_routes"].values()),
@@ -893,13 +957,60 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     return rec, out["cpu"]
 
 
-def resnet_recipe(torch, K, model, init, x, y, steps=4):
+def trace_steps(torch, step, n=2, top=20):
+    """``n`` calls of ``step`` under ``torch.profiler``: the wall ms per
+    step (profiled, so inflated by the profiler's own host work), the
+    device ms per step (the sum of the CUDA kernels' own times), the
+    kernel launches per step, the device ms per step of each family of
+    kernels (the port's own, cuDNN's convolutions, cuBLAS's products,
+    PyTorch's elementwise / reduction / copy kernels, the rest) and the
+    ``top`` kernels by time, (name, ms per step, launches per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    own = lambda e: getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted(((e.key, own(e), e.count / n) for e in kern),
+                  key=lambda r: -r[1])
+
+    def family(name):
+        low = name.lower()
+        if "bigdl" in low:
+            return "port kernels"
+        if any(w in low for w in ("conv", "cudnn", "xmma", "dgrad",
+                                  "wgrad", "implicit")):
+            return "cuDNN conv"
+        if "gemm" in low or "cutlass" in low or "cublas" in low:
+            return "cuBLAS"
+        if "at::native" in low:
+            return "PyTorch elementwise/reduce/copy"
+        return "other"
+    fams = {}
+    for k, ms, _ in rows:
+        fams[family(k)] = fams.get(family(k), 0.0) + ms
+    return {"wall_ms": wall, "device_ms": sum(r[1] for r in rows),
+            "launches": sum(r[2] for r in rows),
+            "families": {f: round(ms, 2) for f, ms in sorted(
+                fams.items(), key=lambda f: -f[1])},
+            "top": [(k[:90], round(ms, 3), c) for k, ms, c in rows[:top]]}
+
+
+def resnet_recipe(torch, K, model, init, x, y, steps=4, trace=False):
     """The repository's ResNet-50 recipe (bench.py _build_resnet_step):
     float32 masters, ``bf16_params`` inside the loss, bf16 images, the
     model's functional ``apply`` in training mode, ``CrossEntropyCriterion``
     on float32 logits, SGD(0.1, momentum=0.9) in place, the new running
     statistics written back. 1 warmup step, then ``steps`` on the same
-    batch; launch counts are read per step."""
+    batch; launch counts are read per step. ``trace``: then two more steps
+    under the profiler (:func:`trace_steps`)."""
     from bigdl_tpu_torch.convert import flatten, unflatten
     from bigdl_tpu_torch.nn import CrossEntropyCriterion
     from bigdl_tpu_torch.nn.module import assign_state
@@ -926,10 +1037,9 @@ def resnet_recipe(torch, K, model, init, x, y, steps=4):
     want = dict.fromkeys(K.WRAPPERS, 0)
     want.update(fused_matmul_fwd=24, fused_matmul_bwd=24, fused_chain_fwd=12,
                 fused_chain_bwd=12, fused_conv_fwd=16 if conv2 else 0)
-    # every bf16 K3 / K4 launch on the tensor-core route
-    want_routes = {n: {"bf16_sm90": want[n], "bf16_ragged": 0, "f32": 0}
-                   for n in ("fused_matmul_fwd", "fused_matmul_bwd",
-                             "fused_conv_fwd")}
+    # every bf16 K3 / K4 / K5 launch on the tensor-core route
+    fused = ("fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
+             "fused_chain_bwd", "fused_conv_fwd")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, total = [], [], dict.fromkeys(want, 0)
@@ -943,9 +1053,9 @@ def resnet_recipe(torch, K, model, init, x, y, steps=4):
         check(counts == want, f"ResNet-50 step (fused_conv2={conv2}) "
               f"launched {counts}, expected {want}")
         routes = K.launches_by_route()
-        check(all(routes[n] == r for n, r in want_routes.items()),
+        check(all(only_on(routes[n], "bf16_sm90", want[n]) for n in fused),
               f"ResNet-50 step (fused_conv2={conv2}) launches by route "
-              f"{routes}, expected {want_routes}")
+              f"{routes}, expected all on bf16_sm90")
         check(torch.stack([torch.isfinite(g).all() for g in grads])
               .all().item(), f"non-finite gradient (fused_conv2={conv2})")
         losses.append(loss.item())
@@ -957,10 +1067,13 @@ def resnet_recipe(torch, K, model, init, x, y, steps=4):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     moved = float(model[1].running_mean.abs().max())
     check(moved > 0, "the stem BatchNorm's running mean never moved")
-    return {"fused_conv2": conv2, "losses": losses,
-            "step_s": statistics.median(times), "step_s_all": times,
-            "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": total}
+    out = {"fused_conv2": conv2, "losses": losses,
+           "step_s": statistics.median(times), "step_s_all": times,
+           "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": total}
+    if trace:
+        out["trace"] = trace_steps(torch, step)
+    return out
 
 
 def resnet_local_optimizer(torch, K, model, init, B=32, S=224, iters=3):
@@ -995,9 +1108,10 @@ def resnet_local_optimizer(torch, K, model, init, B=32, S=224, iters=3):
                 fused_chain_fwd=12 * iters, fused_chain_bwd=12 * iters)
     check(counts == want, f"ResNet-50 LocalOptimizer launched {counts}, "
           f"expected {want}")
-    # float32 parameters: every K3 launch on the float32 route
-    for n in ("fused_matmul_fwd", "fused_matmul_bwd"):
-        check(routes[n] == {"bf16_sm90": 0, "bf16_ragged": 0, "f32": want[n]},
+    # float32 parameters: every K3 and K5 launch on the float32 route
+    for n in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
+              "fused_chain_bwd"):
+        check(only_on(routes[n], "f32", want[n]),
               f"ResNet-50 LocalOptimizer {n} launches by route {routes[n]}")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"ResNet-50 LocalOptimizer losses {losses}")
@@ -1098,6 +1212,50 @@ def main():
         for S in (1, 32):
             for pdt in (f32, bf):
                 paged_case(torch, K, 8, 16, kvh, S, 64, 16, pdt, False)
+    # head dims: every instantiation the first cases left out (each
+    # multiple of 16 up to 128 on the bf16 flash kernels, up to 256 on the
+    # float32 flash forward and K2, up to 192 on the float32 backward) and
+    # the padded route of each kernel (a D not a multiple of 16), each
+    # against its plain version; then the launches by route
+    K.reset_launch_counts()
+    new_dims = [d for d in range(16, 257, 16) if d not in (32, 64, 128)]
+    for D in new_dims:
+        flash_case(torch, K, 2, 4, 77, 77, D, f32, True, 0, 77, False)
+        paged_case(torch, K, 4, 8, 4, 1, D, 16, f32, False)
+        if D <= 192:
+            bwd_case(torch, K, 2, 4, 77, D, f32, True, False)
+        if D <= 128:
+            flash_case(torch, K, 2, 4, 77, 77, D, bf, True, 0, 77, False)
+            bwd_case(torch, K, 2, 4, 77, D, bf, True, False)
+            paged_case(torch, K, 4, 8, 4, 1, D, 16, bf, False)
+    flash_case(torch, K, 2, 4, 77, 77, 40, f32, True, 0, 77, False)
+    bwd_case(torch, K, 2, 4, 77, 40, f32, False, False)
+    flash_case(torch, K, 4, 4, 100, 260, 40, bf, False, 0, 200, False)
+    bwd_case(torch, K, 2, 4, 77, 100, bf, True, False)
+    paged_case(torch, K, 4, 8, 4, 4, 40, 16, f32, False)
+    hd_routes = K.launches_by_route()
+    n_f32 = len(new_dims)
+    n_bwd = len([d for d in new_dims if d <= 192])
+    n_bf = len([d for d in new_dims if d <= 128])
+    # bwd_case launches the forward once and the backward twice (the rerun
+    # check)
+    hd_want = {
+        "flash_fwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
+                      "f32": n_f32 + n_bwd, "f32_padded": 2},
+        "flash_bwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
+                      "f32": 2 * n_bwd, "f32_padded": 2},
+        "paged_attention": {"f32": n_f32, "f32_padded": 1, "bf16": n_bf,
+                            "bf16_padded": 0}}
+    print(f"    head dims {new_dims} (bf16 flash and K2 up to 128, float32 "
+          f"backward up to 192), padded D = 40 / 100; launches by route "
+          f"{ {n: hd_routes[n] for n in hd_want} }", flush=True)
+    check(all(hd_routes[n] == r for n, r in hd_want.items()),
+          f"head-dim cases launched {hd_routes}, expected {hd_want}")
+    # a TransformerLM with hidden 768 and 8 heads (D = 96) at the training
+    # shape, both passes, timed
+    k1_d96 = flash_case(torch, K, 16, 8, 1024, 1024, 96, bf, True, 0, 1024,
+                        timed=True)
+    k1b_d96 = bwd_case(torch, K, 16, 8, 1024, 96, bf, True, timed=True)
     # the fused ResNet kernels: small and ragged shapes in both dtypes,
     # then the three timed ResNet-50 shapes at B256/224
     for dt in (f32, bf):
@@ -1112,6 +1270,12 @@ def main():
     k4_case(torch, K, 2, 7, 64, 64, 1, bf, False, bias=1.0)
     k4_case(torch, K, 2, 9, 64, 64, 2, bf, False, bias=1.0)
     k4_case(torch, K, 2, 9, 72, 16, 1, bf, False, bias=2.0)
+    # K5 on the tensor cores: M = 147 (not a multiple of 128) without
+    # statistics, the ReLU's tie (u == 0 on every other channel), and a
+    # bf16 shape outside the rule (K, N not multiples of 8: bf16_ragged)
+    k5_case(torch, K, 3, 7, 256, 64, bf, False, stats=False)
+    k5_case(torch, K, 3, 7, 256, 64, bf, False, tie=True)
+    k5_case(torch, K, 2, 5, 44, 20, bf, False)
     # every ResNet-50 B256/224 shape of K3, K4 and K5, checked and timed
     fam, recs = resnet_shapes(torch, K)
     k3_s0, k3_s3, k5_s0 = recs["s0 conv3"], recs["s3 proj"], recs["s0 junction"]
@@ -1120,6 +1284,11 @@ def main():
     k3_f32 = k3_case(torch, K, 32 * 56 * 56, 64, 256, f32, True, True, True,
                      timed=True)
     k4_f32 = k4_case(torch, K, 32, 56, 64, 64, 1, f32, timed=True)
+    k5_f32 = k5_case(torch, K, 32, 56, 256, 64, f32, timed=True)
+    # the K5 bf16 stage-0 junction's limits (ms a call)
+    check(k5_s0["fwd"]["ms"] <= 1.0 and k5_s0["bwd"]["ms"] <= 3.0,
+          f"K5 stage-0 junction over its limits (1.0 ms forward, 3.0 ms "
+          f"backward): {k5_s0['fwd']['ms']:.4f} / {k5_s0['bwd']['ms']:.4f}")
 
     # -- phase 3: generate on the flagship model ---------------------------
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
@@ -1150,7 +1319,7 @@ def main():
     gen_routes = K.launches_by_route()
     check(gen_counts["flash_fwd"] == L, f"generate launched the flash kernel "
           f"{gen_counts['flash_fwd']} times, expected {L}")
-    check(gen_routes["flash_fwd"] == {"bf16_sm90": L, "f32": 0},
+    check(only_on(gen_routes["flash_fwd"], "bf16_sm90", L),
           f"generate's flash launches by route: {gen_routes}")
     lp, _ = model.prefill(params, prompt, TP + NEW)
     CH = 32
@@ -1159,8 +1328,7 @@ def main():
     torch.cuda.synchronize()
     chunk_counts = K.launch_counts()
     chunk_routes = K.launches_by_route()
-    check(chunk_routes["flash_fwd"] == {"bf16_sm90": L * -(-TP // CH),
-                                        "f32": 0},
+    check(only_on(chunk_routes["flash_fwd"], "bf16_sm90", L * -(-TP // CH)),
           f"prefill_chunked's flash launches by route: {chunk_routes}")
     check(chunk_counts["flash_fwd"] == L * -(-TP // CH),
           f"prefill_chunked launched the flash kernel "
@@ -1314,7 +1482,8 @@ def main():
             rinit = {k: v.detach().clone()
                      for k, v in rmodel.state_dict().items()}
         built = time.perf_counter() - t0
-        r = resnet_recipe(torch, K, rmodel, rinit, rx, ry)
+        r = resnet_recipe(torch, K, rmodel, rinit, rx, ry,
+                          trace=not conv2)
         r["images_per_s"] = RB / r["step_s"]
         rn_arms.append(r)
         print(f"    ResNet-50 B{RB}/{RS} bf16 recipe, fused_conv2={conv2} "
@@ -1325,6 +1494,16 @@ def main():
               f"{r['images_per_s']:.1f} images/s (smoke reading); peak "
               f"memory {r['max_mem_gb']:.2f} GiB; launches over the 4 steps "
               f"{r['launches']}", flush=True)
+        if "trace" in r:
+            tr = r["trace"]
+            busy = tr["device_ms"] / (r["step_s"] * 1e3)
+            print(f"    traced (torch.profiler, 2 more steps): "
+                  f"{tr['device_ms']:.1f} ms of CUDA kernels a step in "
+                  f"{tr['launches']:.0f} launches = {busy:.1%} of the "
+                  f"untraced median step (profiled wall "
+                  f"{tr['wall_ms']:.1f} ms); ms a step by family "
+                  f"{tr['families']}; largest kernels (ms a step, "
+                  f"launches a step): {tr['top']}", flush=True)
         del rmodel
         torch.cuda.empty_cache()
 
@@ -1357,7 +1536,9 @@ def main():
             ("flash_fwd float32 route (8x16, T=256, causal)", k1_f32),
             ("flash_bwd training shape (16x16, T=1024, causal, bf16)",
              k1b_main),
-            ("flash_bwd float32 route (8x16, T=256, causal)", k1b_f32)):
+            ("flash_bwd float32 route (8x16, T=256, causal)", k1b_f32),
+            ("flash_fwd D=96 (16x8, T=1024, causal, bf16)", k1_d96),
+            ("flash_bwd D=96 (16x8, T=1024, causal, bf16)", k1b_d96)):
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"sdpa {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
               f"({rec['bound_by']})"
@@ -1371,6 +1552,8 @@ def main():
                       ("K3 stage-3 projection fwd", k3_s3["fwd"]),
                       ("K5 stage-0 junction fwd", k5_s0["fwd"]),
                       ("K5 stage-0 junction bwd", k5_s0["bwd"]),
+                      ("K5 float32 stage-0 junction fwd (B32)", k5_f32["fwd"]),
+                      ("K5 float32 stage-0 junction bwd (B32)", k5_f32["bwd"]),
                       ("K4 stage-0 3x3", k4_s0), ("K4 stage-1 3x3/2", k4_s1)):
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"bare product {rec['library_ms']:.4f}, bound "
@@ -1443,14 +1626,26 @@ def main():
                    dict(k3_f32["bwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_bwd"]["f32"]),
-        kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain.cu",
+        kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
-                   dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"]),
-                   off["fused_chain_fwd"]),
-        kernel_rec("fused_chain_bwd", "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"],
+                        route=k5_s0["route"]), off["fused_chain_fwd"]),
+        kernel_rec("fused_chain_bwd",
+                   "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
-                   dict(k5_s0["bwd"], max_abs_err=k5_s0["max_abs_err"]),
-                   off["fused_chain_bwd"]),
+                   dict(k5_s0["bwd"], max_abs_err=k5_s0["max_abs_err"],
+                        route=k5_s0["route"]), off["fused_chain_bwd"]),
+        kernel_rec("fused_chain_f32", "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:318",
+                   dict(k5_f32["fwd"], max_abs_err=k5_f32["max_abs_err"],
+                        route=k5_f32["route"]),
+                   r8["routes"]["fused_chain_fwd"]["f32"]),
+        kernel_rec("fused_chain_bwd_f32",
+                   "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:214",
+                   dict(k5_f32["bwd"], max_abs_err=k5_f32["max_abs_err"],
+                        route=k5_f32["route"]),
+                   r8["routes"]["fused_chain_bwd"]["f32"]),
         kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),

@@ -337,4 +337,5 @@ def test_each_library_digest_covers_the_headers_its_source_includes():
     fused = {n for n, f in _build.SOURCES.items() if "fused_gemm.cuh" in f}
     assert attention == {"flash_fwd", "flash_bwd", "paged_attention"}
     assert fused == {"fused_matmul", "fused_chain", "fused_conv",
-                     "fused_matmul_sm90", "fused_conv_sm90"}
+                     "fused_matmul_sm90", "fused_conv_sm90",
+                     "fused_chain_sm90"}

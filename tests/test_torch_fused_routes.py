@@ -1,5 +1,6 @@
-"""Routes of the fused ResNet kernels K3 (``fused_matmul``) and K4
-(``fused_conv``): which CUDA kernel a call on the card takes, that every
+"""Routes of the fused ResNet kernels K3 (``fused_matmul``), K4
+(``fused_conv``) and K5 (``fused_chain``): which CUDA kernel a call on the
+card takes, that every
 ResNet-50 B256/224 call takes the tensor-core route, that the wrappers'
 partial and split sizes cover every row once, and that calls on the CPU
 launch nothing. The kernels themselves run only on the card
@@ -12,6 +13,7 @@ import torch
 import chip_smoke
 from bigdl_tpu_torch import kernels
 from bigdl_tpu_torch.kernels import _build
+from bigdl_tpu_torch.kernels import fused_chain as fch
 from bigdl_tpu_torch.kernels import fused_conv as fc
 from bigdl_tpu_torch.kernels import fused_matmul as fm
 
@@ -24,6 +26,7 @@ ROUTES = {"bf16_sm90", "bf16_ragged", "f32"}
 B = chip_smoke.RB
 K3_SHAPES = [shape[:3] for _, shape, _ in chip_smoke.RESNET_K3]
 K4_SHAPES = [shape for _, shape, _ in chip_smoke.RESNET_K4]
+K5_SHAPES = [shape for _, shape, _ in chip_smoke.RESNET_K5]
 
 
 def test_resnet50_tables_hold_every_fused_launch_of_a_step():
@@ -48,18 +51,25 @@ def test_fused_routes_by_dtype_and_one_shape_rule():
     assert fm.route(torch.bfloat16, 130, 64) == "bf16_ragged"
     assert fm.route(torch.bfloat16, 64, 70) == "bf16_ragged"
     assert fm.route(torch.float32, 64, 256) == "f32"
-    for table in (fm._FWD_FN, fm._BWD_FN, fc._FWD_FN):
+    for table in (fm._FWD_FN, fm._BWD_FN, fc._FWD_FN, fch._FWD_FN,
+                  fch._BWD_FN):
         assert set(table) == ROUTES
         assert table["bf16_sm90"][0].endswith("_sm90")
         assert table["bf16_ragged"] == table["f32"]
         for lib, _ in table.values():
             for f in _build.SOURCES[lib]:
                 assert (_build.CSRC / f).exists(), f
-    for name in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_conv_fwd"):
+    assert fch._FWD_FN["bf16_sm90"] == ("fused_chain_sm90",
+                                        "bigdl_fused_chain_sm90_fwd")
+    assert fch._BWD_FN["f32"] == ("fused_chain", "bigdl_fused_chain_bwd")
+    assert fch.route is fm.route      # K5 takes K3's rule over (K, N)
+    for name in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_conv_fwd",
+                 "fused_chain_fwd", "fused_chain_bwd"):
         assert set(kernels.WRAPPERS[name].launches_by_route) == ROUTES
 
 
-@pytest.mark.parametrize("lib", ["fused_matmul_sm90", "fused_conv_sm90"])
+@pytest.mark.parametrize("lib", ["fused_matmul_sm90", "fused_conv_sm90",
+                                 "fused_chain_sm90"])
 def test_tensor_core_sources_call_no_library(lib):
     """The products are PTX wgmma written out in the core header; no
     source or header of the library names a GEMM or conv library."""
@@ -95,6 +105,21 @@ def test_resnet50_k4_calls_take_the_tensor_core_route(H, C, N, stride):
     assert (parts - 1) * rows < M <= parts * rows
 
 
+@pytest.mark.parametrize("H,K,N", K5_SHAPES)
+def test_resnet50_k5_calls_take_the_tensor_core_route(H, K, N):
+    """Every junction (K = 4 N, N = 64 ... 512) takes bf16_sm90: its
+    forward's column tiles (64 wide at N = 64, else 128) leave h to the
+    first; partials and dw splits cover every row once."""
+    assert fm.route(torch.bfloat16, K, N) == "bf16_sm90"
+    assert K == 4 * N and N % 64 == 0
+    M = B * H * H
+    rows = fm._PART_ROWS["bf16_sm90"]
+    parts = -(-M // rows)
+    assert (parts - 1) * rows < M <= parts * rows
+    splits, per = fm.dw_splits_sm90(M, K, N)
+    assert per % 128 == 0 and (splits - 1) * per < M <= splits * per
+
+
 @pytest.mark.parametrize("M,K,N", [(802816, 64, 256), (802816, 64, 64),
                                    (12544, 1024, 2048), (50176, 512, 1024),
                                    (300, 24, 40), (1, 8, 8), (129, 16, 8)])
@@ -123,6 +148,10 @@ def test_cpu_fused_calls_launch_nothing_on_any_route(dt):
                                  torch.randn(N), torch.randn(N), True, True)
         kernels.fused_conv_fwd(torch.randn(1, 5, 5, K).to(dt),
                                torch.randn(3, 3, K, N).to(dt), a, b, 2, True)
+        z5, r5 = torch.randn(40, K).to(dt), torch.randn(40, K).to(dt)
+        h, zo, s1, s2 = kernels.fused_chain_fwd(z5, r5, a, b, w, True)
+        kernels.fused_chain_bwd(z5, r5, a, b, w, zo, torch.randn(40, K),
+                                torch.randn(40, N), s1, s2, True)
     for counts in kernels.launches_by_route().values():
         assert set(counts.values()) == {0}
     assert set(kernels.launch_counts().values()) == {0}

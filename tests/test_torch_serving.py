@@ -109,15 +109,15 @@ def test_kv_ledger_alloc_oom_truncate_free_audit():
     assert kv.null_table().tolist() == [0] * 5
     pin = kv.owner_blocks("a")[0]
     kv.retain([pin])
-    assert kv.audit(pins={pin: 1})["ok"]
-    assert not kv.audit(pins={})["ok"]            # the pin is unaccounted
+    assert kv.audit(prefix_pins={pin: 1})["ok"]
+    assert not kv.audit(prefix_pins={})["ok"]     # the pin is unaccounted
     assert kv.free("a") == 3 and kv.free("a") == 0
     assert kv.block_refs(pin) == 1                # the pin outlives "a"
     assert kv.release([pin]) == 1
     with pytest.raises(ValueError):
         kv.release([pin])                          # double free refused
     kv.free("b")
-    rep = kv.audit(pins={})
+    rep = kv.audit(prefix_pins={})
     assert rep["ok"], rep["violations"]
     assert kv.stats()["blocks_in_use"] == 0 and kv.stats()["high_water"] == 8
 
@@ -257,6 +257,63 @@ def test_rejections_swap_and_shutdown_without_drain():
     ts.shutdown(drain=False)
     assert f2.done() and ts.stats()["kv"]["blocks_in_use"] == 0
     assert ts.audit()["ok"]
+
+
+# -- the serving API keeps JAX's state (ROADMAP C.2) --------------------------
+
+def test_registry_publish_reads_positional_state_and_version_like_jax():
+    """JAX's positional ``publish(p, None, "v1")`` names the version "v1"
+    in both packages; a state tree travels with its version; ``transform``
+    runs once, before placement."""
+    from bigdl_tpu.serving.registry import ModelRegistry as JaxRegistry
+    from bigdl_tpu_torch.serving import ModelRegistry
+    p = {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}
+    jr, tr = JaxRegistry(), ModelRegistry(device="cpu")
+    assert jr.publish(p, None, "v1") == tr.publish(
+        {"w": torch.from_numpy(p["w"])}, None, "v1") == "v1"
+    assert tr.current().state is None and jr.current().state is None
+    calls = []
+    state = {"running_mean": torch.ones(3)}
+    v = tr.publish({"w": torch.zeros(2, 3)}, state, "v2", True,
+                   lambda t: calls.append(1) or {"w": t["w"] + 1})
+    assert v == "v2" and tr.active_version == "v2" and calls == [1]
+    cur = tr.current()
+    assert torch.equal(cur.params["w"], torch.ones(2, 3))
+    assert torch.equal(cur.state["running_mean"], torch.ones(3))
+
+
+def test_model_version_carries_params_and_state():
+    from bigdl_tpu.serving.registry import ModelVersion as JaxVersion
+    from bigdl_tpu_torch.serving import ModelVersion
+    for cls in (JaxVersion, ModelVersion):
+        mv = cls("v3", {"w": 1}, {"s": 2})
+        assert (mv.version, mv.params, mv.state) == ("v3", {"w": 1}, {"s": 2})
+
+
+def test_swap_reads_positional_state_and_version_and_inherits_state():
+    _, tm = _models()
+    with DecodeScheduler(tm, **SCHED) as ts:
+        before = ts.registry.current().state
+        assert ts.swap(tm.params, None, "v9") == "v9"
+        cur = ts.registry.current()
+        assert cur.version == "v9" and cur.state == before
+        assert ts.swap(tm.params, {}, "v10") == "v10"
+        assert ts.registry.current().state == {}
+        fut = ts.submit([3, 4, 5], 3)
+        assert fut.result(60).size == 3 and fut.version == "v10"
+
+
+def test_kv_audit_takes_prefix_pins_like_jax():
+    from bigdl_tpu.serving.kv_cache import PagedKVCache as JaxKV
+    jm, tm = _models()
+    for cls, model in ((JaxKV, jm), (PagedKVCache, tm)):
+        kv = cls(model, num_blocks=6, block_size=4, max_blocks_per_seq=3)
+        kv.ensure_capacity("a", 5)
+        pin = kv.owner_blocks("a")[0]
+        kv.retain([pin])
+        assert kv.audit(prefix_pins={pin: 1})["ok"]
+        assert not kv.audit(prefix_pins={})["ok"]
+        assert kv.audit(prefix_pins=None)["ok"]      # pins unknown
 
 
 # -- hygiene ------------------------------------------------------------------
