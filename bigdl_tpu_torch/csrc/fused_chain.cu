@@ -1,6 +1,9 @@
 // Cross-layer fused residual junction + next 1x1 conv + batch statistics (K5)
-// for Hopper, float32 and bfloat16 (bf16 inputs whose K and N are multiples
-// of 8 take the tensor-core kernels of fused_chain_sm90.cu).
+// for Hopper on the CUDA cores: the route of float32 shapes whose K or N is
+// not a multiple of 4 (f32) and of bfloat16 shapes whose K or N is not a
+// multiple of 8 (bf16_ragged). Every other shape - every ResNet-50
+// junction - takes a tensor-core route: fused_chain_sm90.cu (bf16) or
+// fused_chain_tf32_sm90.cu (float32, 3xTF32).
 //
 // Replaces the Pallas kernels of bigdl_tpu/kernels/fused_chain.py: `_cfwd`
 // (forward) and `_cbwd` (the dz/dr/da/db kernel and the dw kernel). Over a
@@ -18,8 +21,8 @@
 // 3 K + N elements moved, below the bf16 balance point of ~295 operations
 // per byte in stages 0-1, so a kernel at its best is bound by memory there.
 // This version multiplies with float32 FMAs on the CUDA cores through the
-// core it shares with K3's float32 route (fused_gemm.cuh) and is bound by
-// those (float32 callers need float32 products). What the
+// core it shares with K3's CUDA-core route (fused_gemm.cuh) and is bound by
+// those. What the
 // design does: the epilogue of block n runs in the loads of block n+1's
 // first product, so the junction output is written once (by the blocks of
 // column tile 0) and never read back for the product; the backward rebuilds

@@ -5,8 +5,8 @@
 // kernels of bigdl_tpu/kernels/fused_chain.py: `_cfwd` (forward) and `_cbwd`
 // (the dz/dr/da/db kernel and the dw kernel). It computes what
 // fused_chain.cu computes (that file's note gives the formulas; it stays the
-// float32 route and the route of bf16 shapes outside that rule), with the
-// same C entry points and arguments.
+// route of bf16 shapes outside that rule and of float32 shapes outside the
+// 3xTF32 rule), with the same C entry points and arguments.
 //
 // What bounds it on an H100: the junction is the widest activation of a
 // stage (K = 4 N). The forward does 2 K N operations per pixel against 3 K
@@ -67,7 +67,7 @@ cudaError_t bwd(const void* z, const void* r, const float* a, const float* b, co
   aop.rows = M;
   aop.ld = N;
   aop.stats = stats;
-  ChainDxEpi2 epi{static_cast<const bf16*>(z), static_cast<const bf16*>(r),
+  ChainDxEpi2<bf16> epi{static_cast<const bf16*>(z), static_cast<const bf16*>(r),
                   static_cast<const bf16*>(dh), a, b, K};
   cudaError_t e = gemm_rs<128, 0>(w, dz, aop, epi, M, K, N, part1, part2, s, dr);
   if (e != cudaSuccess) return e;

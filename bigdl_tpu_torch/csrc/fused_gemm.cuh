@@ -1,9 +1,11 @@
-// Shared core of the fused ResNet kernels on the CUDA cores (fused_matmul.cu:
-// K3 and K3-nhwc, fused_conv.cu: K4, both on their float32 route and for
-// bf16 shapes outside the tensor-core rule; fused_chain.cu: K5 in both
-// dtypes): a tiled float32-FMA product. The bf16 tensor-core route of K3
-// and K4 is fused_gemm_sm90.cuh, which reuses this header's operand
-// rounding helpers and second pass.
+// Shared core of the fused ResNet kernels on the CUDA cores: a tiled
+// float32-FMA product. It serves fused_matmul.cu (K3 and K3-nhwc) and
+// fused_chain.cu (K5) for float32 shapes whose K or N is not a multiple of
+// 4 (route f32) and bf16 shapes whose K or N is not a multiple of 8 (route
+// bf16_ragged), and fused_conv.cu (K4) for every float32 call and those bf16
+// shapes. The tensor-core routes are fused_gemm_sm90.cuh (bf16: K3, K4, K5)
+// and fused_gemm_tf32_sm90.cuh (float32 in 3xTF32: K3, K5), which reuse this
+// header's operand rounding helpers and second pass.
 //
 //   C[r][c] = sum_k A(r, k) * B(c, k)      r < rows, c < cols, k in a range
 //

@@ -6,7 +6,9 @@
 // the residual junction h = relu(z * a + b + r)), the same epilogues (z
 // with its column sums s1/s2, dx with da/db, K5's dz and dr) and the same
 // fixed-order second pass (sum_rows) - with bf16 wgmma and float32
-// accumulators in registers; fused_gemm.cuh stays the float32 route.
+// accumulators in registers; fused_gemm.cuh stays the CUDA-core route of
+// other shapes, fused_gemm_tf32_sm90.cuh (which reuses this header's rings,
+// staging stores and column sums) the float32 tensor-core route.
 //
 // gemm_rs_kernel: C (rows x cols) = A (rows x kdim) B (kdim x cols).
 // - One block: a producer warpgroup (one working thread, registers given
@@ -173,6 +175,10 @@ __device__ __forceinline__ float2 unpack(uint32_t v) {
 __device__ __forceinline__ float2 ldg_f2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
+
+// two neighbouring elements of a bf16 or float32 array, as floats
+__device__ __forceinline__ float2 ld2(const bf16* p) { return unpack(ldg_pair(p)); }
+__device__ __forceinline__ float2 ld2(const float* p) { return ldg_f2(p); }
 
 // -- A operands ---------------------------------------------------------------------
 //
@@ -522,16 +528,18 @@ struct StoreZ2 {
 };
 
 // K3's dx: the ReLU mask from the recomputed x * a + b, dx = dxn * a, and
-// da = sum dxn x, db = sum dxn (fused_matmul.cu's DxEpi)
+// da = sum dxn x, db = sum dxn (fused_matmul.cu's DxEpi); x in T (bf16 or
+// float32)
+template <typename T>
 struct DxEpi2 {
   static constexpr bool kOut2 = false;
-  const bf16* x;
+  const T* x;
   const float* a;
   const float* b;
   int ld, prologue, relu;
   __device__ __forceinline__ float2 pair(int r, int c, float v0, float v1, float2& s1,
                                          float2& s2) const {
-    const float2 xv = unpack(ldg_pair(x + ((size_t)r * ld + c)));
+    const float2 xv = ld2(x + ((size_t)r * ld + c));
     float2 av = make_float2(1.f, 1.f), xn = xv;
     if (prologue) {
       av = ldg_f2(a + c);
@@ -547,21 +555,23 @@ struct DxEpi2 {
 };
 
 // K5's dz / dr: g = [z * a + b + r > 0] (dh + v), dz = g a, dr = g (the
-// second output), and da = sum g z, db = sum g (fused_chain.cu's ChainDxEpi)
+// second output), and da = sum g z, db = sum g (fused_chain.cu's
+// ChainDxEpi); z, r and dh in T
+template <typename T>
 struct ChainDxEpi2 {
   static constexpr bool kOut2 = true;
-  const bf16* z;
-  const bf16* r;
-  const bf16* dh;
+  const T* z;
+  const T* r;
+  const T* dh;
   const float* a;
   const float* b;
   int ld;
   __device__ __forceinline__ float2 pair2(int m, int c, float v0, float v1, float2& s1,
                                           float2& s2, float2& o2) const {
     const size_t i = (size_t)m * ld + c;
-    const float2 zv = unpack(ldg_pair(z + i));
-    const float2 rv = unpack(ldg_pair(r + i));
-    const float2 dv = unpack(ldg_pair(dh + i));
+    const float2 zv = ld2(z + i);
+    const float2 rv = ld2(r + i);
+    const float2 dv = ld2(dh + i);
     const float2 av = ldg_f2(a + c);
     const float2 bv = ldg_f2(b + c);
     const float g0 = __fadd_rn(affine(zv.x, av.x, bv.x), rv.x) > 0.f ? v0 + dv.x : 0.f;
@@ -607,6 +617,47 @@ __device__ __forceinline__ void bulk_wait_read() {
 }
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The column sums of a finished tile (consumer warpgroup wg, rows rw0 ..
+// rw0 + 63, columns col0 ..): on entry acc[4 jj ..] holds s1 of columns
+// 8 jj + 2 q (+1), then s2 of them, summed over the thread's two rows. The
+// sum over the eight row groups g of the warp leaves lane (g, q) with pairs
+// jj = BN / 64 * g + p, p < BN / 64, in acc[4 p ..]; then over the
+// warpgroup's four warps in `red` (float[8][2][BN]) in a fixed order, one
+// partial per 64 rows: part1 / part2[(rw0 / 64) * cols + col0 + c].
+template <int BN>
+__device__ __forceinline__ void col_sums(float (&acc)[BN / 2], float* red, int wg, int rw0,
+                                         int col0, int rows, int cols, float* part1,
+                                         float* part2) {
+  const int lt = threadIdx.x % 128;
+  const int wq = lt / 32;
+  const int g = (lt % 32) / 4;
+  const int q = lt % 4;
+  halve<BN / 2, 16>(acc);
+  halve<BN / 4, 8>(acc);
+  halve<BN / 8, 4>(acc);
+  float* rw = red + (4 * wg + wq) * 2 * BN + 2 * q;
+#pragma unroll
+  for (int p = 0; p < BN / 64; ++p) {
+    const int c = 8 * (BN / 64 * g + p);
+    rw[c] = acc[4 * p];
+    rw[c + 1] = acc[4 * p + 1];
+    rw[BN + c] = acc[4 * p + 2];
+    rw[BN + c + 1] = acc[4 * p + 3];
+  }
+  bar_sync(4 + wg, 128);
+  for (int c = lt; c < BN && col0 + c < cols && rw0 < rows; c += 128) {
+    const float* rr = red + 4 * wg * 2 * BN + c;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int w4 = 0; w4 < 4; ++w4) {
+      s1 += rr[w4 * 2 * BN];
+      s2 += rr[w4 * 2 * BN + BN];
+    }
+    part1[(size_t)(rw0 / 64) * cols + col0 + c] = s1;
+    part2[(size_t)(rw0 / 64) * cols + col0 + c] = s2;
+  }
 }
 
 // Shared memory of gemm_rs_kernel: SA slots of A (raw tiles, then the
@@ -885,36 +936,7 @@ __global__ void __launch_bounds__(384, 1)
           bulk_commit();
         }
       }
-      if (part1 != nullptr) {
-        // sum over the eight row groups g of the warp: lane (g, q) ends
-        // with pairs jj = BN / 64 * g + p, p < BN / 64, in acc[4 p ..]: s1
-        // of columns 8 jj + 2 q (+1), then s2 of them; then over the
-        // warpgroup's four warps, one partial per 64-row half tile
-        halve<BN / 2, 16>(acc);
-        halve<BN / 4, 8>(acc);
-        halve<BN / 8, 4>(acc);
-        float* rw = red + (4 * wg + wq) * 2 * BN + 2 * q;
-#pragma unroll
-        for (int p = 0; p < BN / 64; ++p) {
-          const int c = 8 * (BN / 64 * g + p);
-          rw[c] = acc[4 * p];
-          rw[c + 1] = acc[4 * p + 1];
-          rw[BN + c] = acc[4 * p + 2];
-          rw[BN + c + 1] = acc[4 * p + 3];
-        }
-        bar_sync(4 + wg, 128);
-        for (int c = lt; c < BN && col0 + c < cols && rw0 < rows; c += 128) {
-          const float* rr = red + 4 * wg * 2 * BN + c;
-          float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-          for (int w4 = 0; w4 < 4; ++w4) {
-            s1 += rr[w4 * 2 * BN];
-            s2 += rr[w4 * 2 * BN + BN];
-          }
-          part1[(size_t)(rw0 / 64) * cols + col0 + c] = s1;
-          part2[(size_t)(rw0 / 64) * cols + col0 + c] = s2;
-        }
-      }
+      if (part1 != nullptr) col_sums<BN>(acc, red, wg, rw0, col0, rows, cols, part1, part2);
     }
     t = tn;
     j = jn;

@@ -1,7 +1,9 @@
 // Fused BatchNorm-apply + ReLU + matmul + batch statistics (K3, and K3-nhwc
-// through a view) for Hopper on the CUDA cores: the float32 route, and the
-// route of bfloat16 shapes whose K or N is not a multiple of 8 (the bf16
-// tensor-core route, for every other bf16 shape, is fused_matmul_sm90.cu).
+// through a view) for Hopper on the CUDA cores: the route of float32 shapes
+// whose K or N is not a multiple of 4 (route f32) and of bfloat16 shapes
+// whose K or N is not a multiple of 8 (bf16_ragged). Every other shape -
+// every ResNet-50 call - takes a tensor-core route: fused_matmul_sm90.cu
+// (bf16) or fused_matmul_tf32_sm90.cu (float32, 3xTF32).
 //
 // Replaces the Pallas kernels of bigdl_tpu/kernels/fused_matmul.py:
 // `_fwd` / `_fwd4` (forward) and `_bwd` / `_bwd4` (the dx + da/db kernel and
@@ -23,7 +25,7 @@
 // bound by memory, while stages 2-3 (K, N up to 2048) are bound by the
 // product. These kernels multiply with float32 FMAs on the CUDA cores
 // (fused_gemm.cuh), so they are bound by those (67 TF/s peak) at every
-// stage, which is what float32 callers ask for. What the design
+// stage. What the design
 // does: the prologue, the stats-gradient injection and the ReLU mask run in
 // the tile loads and the epilogue, so x_hat and dz_eff never reach device
 // memory; the column sums go to per-block partials summed in a second pass

@@ -5,8 +5,9 @@
 // kernels of bigdl_tpu/kernels/fused_matmul.py: `_fwd` / `_fwd4` (forward)
 // and `_bwd` / `_bwd4` (the dx + da/db kernel and the dw kernel). It
 // computes what fused_matmul.cu computes (that file's note gives the
-// formulas; it stays the float32 route and the route of bf16 shapes
-// outside that rule), with the same C entry points and arguments.
+// formulas; it stays the route of bf16 shapes outside that rule and of
+// float32 shapes outside the 3xTF32 rule), with the same C entry points and
+// arguments.
 //
 // What bounds it on an H100: a 1x1 conv of ResNet-50 does 2 K N operations
 // per pixel against (K + N) bf16 elements read and written. At stage 0 (K
@@ -64,7 +65,7 @@ cudaError_t bwd(const void* x, const void* w, const float* a, const float* b, co
   aop.rows = M;
   aop.ld = N;
   aop.stats = stats;
-  DxEpi2 epi{static_cast<const bf16*>(x), a, b, K, prologue, relu};
+  DxEpi2<bf16> epi{static_cast<const bf16*>(x), a, b, K, prologue, relu};
   cudaError_t e =
       gemm_rs<128, 0>(w, dx, aop, epi, M, K, N, prologue ? part1 : nullptr, part2, s);
   if (e != cudaSuccess) return e;

@@ -18,8 +18,12 @@ N)):
   junction) takes ``csrc/fused_chain_sm90.cu`` (bf16 wgmma over the core of
   ``csrc/fused_gemm_sm90.cuh``, the junction made in registers as the A
   operand);
-- ``"bf16_ragged"``: other bfloat16 shapes, and ``"f32"``: float32, take
-  the CUDA-core kernels of ``csrc/fused_chain.cu``.
+- ``"f32_sm90"``: float32 with K and N multiples of 4 (every ResNet-50
+  junction) takes ``csrc/fused_chain_tf32_sm90.cu`` (3xTF32 wgmma over the
+  core of ``csrc/fused_gemm_tf32_sm90.cuh``: each float32 operand split
+  into tf32 hi and lo halves, three products);
+- ``"bf16_ragged"``: other bfloat16 shapes, and ``"f32"``: other float32
+  shapes, take the CUDA-core kernels of ``csrc/fused_chain.cu``.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it. Besides ``<wrapper>.launches``, each wrapper counts
@@ -42,15 +46,19 @@ import torch
 
 from ..utils.engine import refuse_unported
 from . import _build
-from .fused_matmul import _DTYPES, _PART_ROWS, _RAGGED, _check_aligned, \
-    _dz_eff, _f32, _ptr, _stream, dw_splits, dw_splits_sm90, route
+from .fused_matmul import _DTYPES, _TC_SPLITS, _PART_ROWS, _RAGGED, \
+    _check_aligned, _dz_eff, _f32, _ptr, _stream, _wsplit, dw_splits, route
 
 # each route's (library, symbol) for the forward and backward
 _FWD_FN = {"bf16_sm90": ("fused_chain_sm90", "bigdl_fused_chain_sm90_fwd"),
            _RAGGED: ("fused_chain", "bigdl_fused_chain_fwd"),
+           "f32_sm90": ("fused_chain_tf32_sm90",
+                        "bigdl_fused_chain_tf32_sm90_fwd"),
            "f32": ("fused_chain", "bigdl_fused_chain_fwd")}
 _BWD_FN = {"bf16_sm90": ("fused_chain_sm90", "bigdl_fused_chain_sm90_bwd"),
            _RAGGED: ("fused_chain", "bigdl_fused_chain_bwd"),
+           "f32_sm90": ("fused_chain_tf32_sm90",
+                        "bigdl_fused_chain_tf32_sm90_bwd"),
            "f32": ("fused_chain", "bigdl_fused_chain_bwd")}
 _FWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
@@ -133,7 +141,7 @@ def fused_chain_fwd(z, r, a, b, w, stats: bool = True):
     M, K = z.shape
     N = w.shape[1]
     rt = route(z.dtype, K, N)
-    if rt == "bf16_sm90":
+    if rt in _TC_SPLITS:
         _check_aligned("fused_chain_fwd", z, r, w)
     h = torch.empty_like(z)
     zo = torch.empty((M, N), dtype=z.dtype, device=z.device)
@@ -142,12 +150,14 @@ def fused_chain_fwd(z, r, a, b, w, stats: bool = True):
         part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=z.device)
         s = torch.empty((2, N), device=z.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    fn = _build.function(*_FWD_FN[rt], _FWD_ARGTYPES)
+    wsp, extra = _wsplit(rt, K, N, z.device)   # held, like af / bf
+    fn = _build.function(*_FWD_FN[rt],
+                         _FWD_ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),
              w.data_ptr(), h.data_ptr(), zo.data_ptr(), _ptr(part),
              None if part is None else part[1].data_ptr(), _ptr(s),
              None if s is None else s[1].data_ptr(), _DTYPES[z.dtype], M, K,
-             N, int(bool(stats)), _stream(z))
+             N, int(bool(stats)), _stream(z), *extra)
     if err:
         raise RuntimeError(f"fused_chain_fwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
@@ -180,28 +190,31 @@ def fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats: bool = True):
     M, K = z.shape
     N = w.shape[1]
     rt = route(z.dtype, K, N)
-    if rt == "bf16_sm90":
+    if rt in _TC_SPLITS:
         _check_aligned("fused_chain_bwd", z, r, w, dh, dzo,
                        *((zo,) if stats else ()))
     dz, dr = torch.empty_like(z), torch.empty_like(z)
     dw = torch.empty_like(w)
     dadb = torch.empty((2, K), device=z.device)
     part = torch.empty((2, -(-M // _PART_ROWS[rt]), K), device=z.device)
-    if rt == "bf16_sm90":       # two partials a split, one per warpgroup
-        splits, per = dw_splits_sm90(M, K, N)
+    if rt in _TC_SPLITS:        # two partials a split, one per warpgroup
+        splits, per = _TC_SPLITS[rt](M, K, N)
         ws = torch.empty((2 * splits, K, N), device=z.device)
     else:
         splits, per = dw_splits(M, K, N)
         ws = torch.empty((splits, K, N), device=z.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
     d1, d2 = (_f32(ds1), _f32(ds2)) if stats else (None, None)
-    fn = _build.function(*_BWD_FN[rt], _BWD_ARGTYPES)
+    wsp, extra = _wsplit(rt, K, N, z.device)   # held, like af / bf
+    fn = _build.function(*_BWD_FN[rt],
+                         _BWD_ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),
              w.data_ptr(), dh.data_ptr(), dzo.data_ptr(),
              _ptr(zo if stats else None), _ptr(d1), _ptr(d2), dz.data_ptr(),
              dr.data_ptr(), dw.data_ptr(), ws.data_ptr(), part.data_ptr(),
              part[1].data_ptr(), dadb.data_ptr(), dadb[1].data_ptr(),
-             _DTYPES[z.dtype], M, K, N, int(stats), splits, per, _stream(z))
+             _DTYPES[z.dtype], M, K, N, int(stats), splits, per, _stream(z),
+             *extra)
     if err:
         raise RuntimeError(f"fused_chain_bwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")

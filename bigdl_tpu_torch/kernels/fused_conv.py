@@ -3,7 +3,8 @@ kernel, its plain version and the ``autograd.Function`` around it.
 
 Replaces the Pallas kernel of ``bigdl_tpu/kernels/fused_conv.py``
 ``fused_bn_relu_conv3x3`` (``_cvfwd``). The wrapper picks its kernel by
-dtype and one shape rule (``fused_matmul.route`` over C and N):
+dtype and one shape rule (:func:`route`, ``fused_matmul.route`` over C and
+N for bfloat16):
 
 - ``"bf16_sm90"``: bfloat16 with C and N multiples of 8 (every ResNet-50
   call) takes ``csrc/fused_conv_sm90.cu`` (an implicit GEMM on bf16 wgmma,
@@ -35,13 +36,20 @@ import torch.nn.functional as F
 from ..utils.engine import refuse_unported
 from . import _build
 from .fused_matmul import (_DTYPES, _PART_ROWS, _RAGGED, _check_aligned,
-                           _f32, _ptr, _stream, route)
+                           _f32, _ptr, _stream)
+from .fused_matmul import route as _k3_route
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # each route's (library, symbol)
 _FWD_FN = {"bf16_sm90": ("fused_conv_sm90", "bigdl_fused_conv_sm90_fwd"),
            _RAGGED: ("fused_conv", "bigdl_fused_conv_fwd"),
            "f32": ("fused_conv", "bigdl_fused_conv_fwd")}
+
+
+def route(dtype, c: int, n: int) -> str:
+    """K4's route: ``fused_matmul.route`` for bfloat16; every float32 call
+    takes ``"f32"`` (the CUDA-core kernel; K4 has no 3xTF32 kernel)."""
+    return "f32" if dtype == torch.float32 else _k3_route(dtype, c, n)
 
 
 def _xhat(x, a, b):

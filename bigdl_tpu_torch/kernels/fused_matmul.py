@@ -17,8 +17,12 @@ kernels by dtype and one shape rule (:func:`route`):
 - ``"bf16_ragged"``: other bfloat16 shapes take the CUDA-core kernels of
   ``csrc/fused_matmul.cu`` in bf16 (the tensor-core kernels need rows of
   16-byte multiples for TMA);
-- ``"f32"``: float32 takes ``csrc/fused_matmul.cu`` (float32 products, as
-  float32 callers need).
+- ``"f32_sm90"``: float32 with K and N multiples of 4 (every ResNet-50
+  call) takes ``csrc/fused_matmul_tf32_sm90.cu`` (3xTF32 wgmma: each
+  float32 operand split into tf32 hi and lo halves, three products, which
+  keeps float32 accuracy);
+- ``"f32"``: other float32 shapes take ``csrc/fused_matmul.cu`` (float32
+  FMAs on the CUDA cores).
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it. Besides ``<wrapper>.launches``, each wrapper counts
@@ -48,20 +52,26 @@ from ..utils.engine import refuse_unported
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dtype -> route; bf16 shapes outside the tensor-core kernels' rule take
-# _RAGGED; each route's (library, symbol) for the forward and backward
-_ROUTES = {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+# dtype -> (tensor-core route, the multiple K and N must be of for it, the
+# CUDA-core route of the other shapes); each route's (library, symbol) for
+# the forward and backward
+_ROUTES = {torch.bfloat16: ("bf16_sm90", 8, "bf16_ragged"),
+           torch.float32: ("f32_sm90", 4, "f32")}
 _RAGGED = "bf16_ragged"
 _FWD_FN = {"bf16_sm90": ("fused_matmul_sm90", "bigdl_fused_matmul_sm90_fwd"),
            _RAGGED: ("fused_matmul", "bigdl_fused_matmul_fwd"),
+           "f32_sm90": ("fused_matmul_tf32_sm90",
+                        "bigdl_fused_matmul_tf32_sm90_fwd"),
            "f32": ("fused_matmul", "bigdl_fused_matmul_fwd")}
 _BWD_FN = {"bf16_sm90": ("fused_matmul_sm90", "bigdl_fused_matmul_sm90_bwd"),
            _RAGGED: ("fused_matmul", "bigdl_fused_matmul_bwd"),
+           "f32_sm90": ("fused_matmul_tf32_sm90",
+                        "bigdl_fused_matmul_tf32_sm90_bwd"),
            "f32": ("fused_matmul", "bigdl_fused_matmul_bwd")}
 _BM = 128          # rows of the CUDA-core kernels' output tile (kBM)
 # rows each partial of the column sums covers, per route (fused_gemm.cuh
-# kBM; fused_gemm_sm90.cuh kPartRows: one per consumer warpgroup)
-_PART_ROWS = {"bf16_sm90": 64, _RAGGED: _BM, "f32": _BM}
+# kBM; the tensor-core cores' kPartRows: one per consumer warpgroup)
+_PART_ROWS = {"bf16_sm90": 64, _RAGGED: _BM, "f32_sm90": 64, "f32": _BM}
 _SMS = 132         # streaming multiprocessors of an H100 SXM
 _FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
@@ -87,37 +97,63 @@ def dw_splits(rows: int, k: int, n: int):
     return -(-rows // per), per
 
 
+def _dw_splits_sm(rows, k, n, quantum):
+    bn = 64 if n <= 64 else 128
+    tiles = -(-k // 64) * -(-n // bn)
+    want = max(1, min(-(-_SMS // tiles), -(-rows // 256)))
+    per = -(-(-(-rows // want)) // quantum) * quantum
+    return -(-rows // per), per
+
+
 def dw_splits_sm90(rows: int, k: int, n: int):
-    """(splits, rows per split) of the tensor-core weight gradient: its
-    blocks own 64 x BN tiles of dw (BN = 64 for N <= 64, else 128), so
+    """(splits, rows per split) of the bf16 tensor-core weight gradient:
+    its blocks own 64 x BN tiles of dw (BN = 64 for N <= 64, else 128), so
     enough (K/64 x N/BN x splits) blocks for one per SM, at least 256
     pixels per split, a multiple of 128 rows each (the block's two
     warpgroups take alternate 64-pixel chunks). Each split writes two
     float32 partials."""
-    bn = 64 if n <= 64 else 128
-    tiles = -(-k // 64) * -(-n // bn)
-    want = max(1, min(-(-_SMS // tiles), -(-rows // 256)))
-    per = -(-(-(-rows // want)) // 128) * 128
-    return -(-rows // per), per
+    return _dw_splits_sm(rows, k, n, 128)
+
+
+def dw_splits_tf32(rows: int, k: int, n: int):
+    """(splits, rows per split) of the 3xTF32 weight gradient: the same
+    64 x BN blocks, one per SM, at least 256 pixels per split, a multiple
+    of 64 rows each (the block's two warpgroups take alternate 32-pixel
+    chunks). Each split writes two float32 partials."""
+    return _dw_splits_sm(rows, k, n, 64)
+
+
+# the tensor-core routes (TMA: 16-byte aligned operands) and their
+# weight-gradient splits (two partials a split)
+_TC_SPLITS = {"bf16_sm90": dw_splits_sm90, "f32_sm90": dw_splits_tf32}
 
 
 def route(dtype, k: int, n: int) -> str:
     """The route of a CUDA call with contraction / input channels ``k``
-    and output columns ``n``: float32 -> ``"f32"``; bfloat16 ->
-    ``"bf16_sm90"`` when k and n are multiples of 8, else
-    ``"bf16_ragged"``."""
-    rt = _ROUTES[dtype]
-    if rt == "bf16_sm90" and (k % 8 or n % 8):
-        return _RAGGED
-    return rt
+    and output columns ``n``: bfloat16 -> ``"bf16_sm90"`` when k and n are
+    multiples of 8, else ``"bf16_ragged"``; float32 -> ``"f32_sm90"`` when
+    they are multiples of 4, else ``"f32"``."""
+    tc, quantum, other = _ROUTES[dtype]
+    return tc if k % quantum == 0 and n % quantum == 0 else other
 
 
 def _check_aligned(fn, *tensors):
     """The tensor-core kernels read through TMA: 16-byte aligned bases."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"{fn}: the bf16 kernels need 16-byte aligned "
-                             f"tensors (data_ptr {t.data_ptr():#x})")
+            raise ValueError(f"{fn}: the tensor-core kernels need 16-byte "
+                             f"aligned tensors (data_ptr {t.data_ptr():#x})")
+
+
+def _wsplit(rt, k, n, device):
+    """(scratch, the trailing C arguments) of a route: the 3xTF32 entries
+    take 2 x K x N float32 for the weight's tf32 hi and lo halves, which
+    their prep kernel writes each call; the other routes take none. The
+    caller holds the scratch until the launch is queued."""
+    if rt != "f32_sm90":
+        return None, ()
+    t = torch.empty(2 * k * n, device=device)
+    return t, (t.data_ptr(),)
 
 
 def _prologue(x, a, b, relu):
@@ -223,7 +259,7 @@ def fused_matmul_fwd(x, w, a=None, b=None, relu: bool = False,
     M, K = x.shape
     N = w.shape[1]
     rt = route(x.dtype, K, N)
-    if rt == "bf16_sm90":
+    if rt in _TC_SPLITS:
         _check_aligned("fused_matmul_fwd", x, w)
     z = torch.empty((M, N), dtype=x.dtype, device=x.device)
     part = s = None
@@ -231,12 +267,14 @@ def fused_matmul_fwd(x, w, a=None, b=None, relu: bool = False,
         part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=x.device)
         s = torch.empty((2, N), device=x.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    fn = _build.function(*_FWD_FN[rt], _FWD_ARGTYPES)
+    wsp, extra = _wsplit(rt, K, N, x.device)   # held, like af / bf
+    fn = _build.function(*_FWD_FN[rt],
+                         _FWD_ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(x.data_ptr(), w.data_ptr(), _ptr(af), _ptr(bf),
              z.data_ptr(), _ptr(part), None if part is None else
              part[1].data_ptr(), _ptr(s), None if s is None else
              s[1].data_ptr(), _DTYPES[x.dtype], M, K, N, int(a is not None),
-             int(bool(relu)), int(bool(stats)), _stream(x))
+             int(bool(relu)), int(bool(stats)), _stream(x), *extra)
     if err:
         raise RuntimeError(f"fused_matmul_fwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
@@ -270,14 +308,14 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
     M, K = x.shape
     N = w.shape[1]
     rt = route(x.dtype, K, N)
-    if rt == "bf16_sm90":
+    if rt in _TC_SPLITS:
         _check_aligned("fused_matmul_bwd", x, w, dz, *((z,) if stats else ()))
     prologue = a is not None
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     dadb = torch.empty((2, K), device=x.device) if prologue else None
-    if rt == "bf16_sm90":       # two partials a split, one per warpgroup
-        splits, per = dw_splits_sm90(M, K, N)
+    if rt in _TC_SPLITS:        # two partials a split, one per warpgroup
+        splits, per = _TC_SPLITS[rt](M, K, N)
         ws = torch.empty((2 * splits, K, N), device=x.device)
     else:
         splits, per = dw_splits(M, K, N)
@@ -286,7 +324,9 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
             if prologue else None)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
     d1, d2 = (_f32(ds1), _f32(ds2)) if stats else (None, None)
-    fn = _build.function(*_BWD_FN[rt], _BWD_ARGTYPES)
+    wsp, extra = _wsplit(rt, K, N, x.device)   # held, like af / bf
+    fn = _build.function(*_BWD_FN[rt],
+                         _BWD_ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(x.data_ptr(), w.data_ptr(), _ptr(af), _ptr(bf),
              dz.data_ptr(), _ptr(z if stats else None), _ptr(d1), _ptr(d2),
              dx.data_ptr(),
@@ -294,7 +334,7 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
              None if part is None else part[1].data_ptr(), _ptr(dadb),
              None if dadb is None else dadb[1].data_ptr(), _DTYPES[x.dtype],
              M, K, N, int(prologue), int(bool(relu)), int(stats), splits, per,
-             _stream(x))
+             _stream(x), *extra)
     if err:
         raise RuntimeError(f"fused_matmul_bwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")

@@ -26,17 +26,20 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    the float32 backward) and their padded route (a D not a multiple of
    16), with the launches by route, and the bf16 flash pair timed at D =
    96 (hidden 768, 8 heads) at the training shape. The fused ResNet kernels are
-   checked on all three routes (bf16 on the tensor cores, ragged bf16 and
-   float32 on the CUDA cores) at small and ragged shapes, at pad taps
-   where relu(b) != 0, K5 also without statistics at M = 147 and at the
-   ReLU's tie, and, in bf16 with two launches bit for bit equal, at every
-   distinct ResNet-50 B256/224 shape of K3 (forward and backward), K4 and
-   K5 (its h also written into a NaN-filled buffer, which must come back
-   whole), each timed with its library call and bound; the launches a
-   step times the time of each family is printed against the measured
-   steps of phase 7. K5's stage-0 junction must take at most 1.0 ms
-   forward and 3.0 ms backward. The tensor-core libraries (``*_sm90``)
-   must build without spills;
+   checked on all four routes (bf16 and, for K3 and K5, float32 in 3xTF32
+   on the tensor cores; ragged bf16 and the other float32 shapes on the
+   CUDA cores) at small and ragged shapes, at pad taps where relu(b) != 0,
+   K3 and K5 also without statistics at M = 147 and K5 at the ReLU's tie,
+   with the float32 launches by route, and, with two launches bit for bit
+   equal, at every distinct ResNet-50 B256/224 shape of K3 (forward and
+   backward), K4 and K5 in bf16 and every B32/224 shape of K3 and K5 in
+   float32 (K5's h also written into a NaN-filled buffer, which must come
+   back whole), each timed with its library call and bound; the launches
+   a step times the time of each family is printed against the measured
+   steps of phases 7 and 8. K5's bf16 stage-0 junction must take at most
+   1.0 ms forward and 3.0 ms backward; in float32 at B32, K3's stage-0
+   conv3 at most 0.12 / 0.40 ms and K5's stage-0 junction 0.20 / 0.60 ms.
+   The tensor-core libraries (``*_sm90``) must build without spills;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
@@ -65,7 +68,8 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    2 steps under ``torch.profiler``: CUDA kernel time a step against the
    untraced step, and the largest kernels;
 8. trains ResNet-50 through ``Optimizer.create`` (a ``LocalOptimizer``)
-   over a DataSet of image Samples, 3 iterations of B32/224, float32.
+   over a DataSet of image Samples, 3 iterations of B32/224, float32, then
+   2 more under ``torch.profiler``: CUDA kernel time a step by family.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -76,8 +80,9 @@ remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
 16 K4 forwards with ``fused_conv2``), or any other kernel launched, fails
 the run; so does a flash, K3, K4 or K5 launch on another route than the
 path's dtype gives (``bf16_sm90`` in ``generate``, ``prefill_chunked`` and
-the bf16 recipes, ``f32`` in the ``LocalOptimizer`` runs). Every check that
-fails exits non-zero. The line before the last
+the bf16 recipes; ``f32`` for the flash kernels in the ``LocalOptimizer``
+run and K4 in phase 7's float32 step; ``f32_sm90`` for K3 and K5 in phases
+7 and 8). Every check that fails exits non-zero. The line before the last
 is one JSON object with each kernel's numbers (``flash_fwd`` at the
 serving prefill shape with the ``generate`` launches, ``flash_fwd_train``
 at the training shape with the launches of the five remat-off training
@@ -85,12 +90,13 @@ steps, ``flash_bwd`` likewise, ``flash_fwd_chunk`` with the
 ``prefill_chunked`` launches, the ``_f32`` rows at the ``LocalOptimizer``
 shape with its launches; the fused ResNet kernels at their timed shapes
 with the launches of the four ResNet-50 steps of the arm that runs them,
-their ``_f32`` rows at phase 8's shape with its launches (K4's with those
-of phase 7's float32 step); the flash, K3, K4 and K5 rows carry their
-``dtype_route``); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA
-device, or outside a checkout of the repository, it exits non-zero and
-prints no result.
+their ``_f32`` rows (K3 and K5 on the 3xTF32 route) at phase 8's stage-0
+shape with its launches (K4's with those of phase 7's float32 step); the
+flash, K3, K4 and K5 rows carry their ``dtype_route``); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import math
 import os
@@ -104,6 +110,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+TF32_FLOPS = 494.7e12            # dense tf32 tensor cores (data sheet)
 L2_BYTES = 50 * 2**20
 
 
@@ -201,10 +208,16 @@ def n_copies(bytes_per_set):
     return max(1, math.ceil(2 * L2_BYTES / bytes_per_set))
 
 
-def bound(nbytes, flops, dtype):
-    """(bound ms, 'bytes' | 'operations'): the larger of the two times."""
+def bound(nbytes, flops, dtype, route=None):
+    """(bound ms, 'bytes' | 'operations'): the larger of the two times. The
+    3xTF32 route (``f32_sm90``) runs three tf32 products for each float32
+    one, so its operations count three times at the tf32 rate; other
+    float32 work counts at the CUDA cores' float32 rate."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    if route == "f32_sm90":
+        t_ops = 3 * flops / TF32_FLOPS * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
     return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
@@ -485,7 +498,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
             x, w, a, b, relu, stats), 1, reps=5) if plain else None,
         library_ms=graph_ms(torch, lambda i: x @ w, 1, reps=10))
     rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
-        nbytes, 2.0 * M * Kd * N, dtype)
+        nbytes, 2.0 * M * Kd * N, dtype, rec["route"])
     if bwd:
         # reads x, w, a, b, dz, z, ds1, ds2; writes dx, dw, da, db
         nbytes = (e * (2 * M * Kd + 2 * Kd * N + 2 * M * N)
@@ -500,7 +513,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
             library_ms=graph_ms(torch, lambda i: (dz @ w.T, x.T @ dz), 1,
                                 reps=5, iters=5))
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
-            nbytes, 4.0 * M * Kd * N, dtype)
+            nbytes, 4.0 * M * Kd * N, dtype, rec["route"])
     print(f"  K3 timing {rec}", flush=True)
     return rec
 
@@ -508,8 +521,9 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
 def _k5_nan_h(torch, K, z, r, a, b, w, h_ref):
     """The K5 forward's C entry on its route, with an h pre-filled with NaN:
     True when every element of h came back as the plain version's."""
+    import ctypes
     from bigdl_tpu_torch.kernels import _build, fused_chain as fc
-    from bigdl_tpu_torch.kernels.fused_matmul import _PART_ROWS, route
+    from bigdl_tpu_torch.kernels.fused_matmul import _PART_ROWS, _wsplit, route
     M, Kd = z.shape
     N = w.shape[1]
     rt = route(z.dtype, Kd, N)
@@ -518,12 +532,14 @@ def _k5_nan_h(torch, K, z, r, a, b, w, h_ref):
     part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device="cuda")
     st = torch.empty((2, N), device="cuda")
     af, bf = a.float().contiguous(), b.float().contiguous()
-    fn = _build.function(*fc._FWD_FN[rt], fc._FWD_ARGTYPES)
+    wsp, extra = _wsplit(rt, Kd, N, z.device)
+    fn = _build.function(*fc._FWD_FN[rt], fc._FWD_ARGTYPES
+                         + [ctypes.c_void_p] * len(extra))
     err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),
              w.data_ptr(), h.data_ptr(), zo.data_ptr(), part.data_ptr(),
              part[1].data_ptr(), st.data_ptr(), st[1].data_ptr(),
              fc._DTYPES[z.dtype], M, Kd, N, 1,
-             torch.cuda.current_stream().cuda_stream)
+             torch.cuda.current_stream().cuda_stream, *extra)
     check(err == 0, f"fused_chain forward C entry: CUDA error {err}")
     torch.cuda.synchronize()
     return bool(torch.equal(h, h_ref))
@@ -592,7 +608,7 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
     # reads z, r, w, a, b; writes h, zo, s1, s2
     rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
         e * (3 * M * Kd + Kd * N + M * N) + 4 * (2 * Kd + 2 * N),
-        2.0 * M * Kd * N, dtype)
+        2.0 * M * Kd * N, dtype, rec["route"])
     rec["bwd"] = dict(
         ms=graph_ms(torch, lambda i: K.fused_chain_bwd(
             z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=5, iters=5),
@@ -604,7 +620,7 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
     # reads z, r, w, a, b, dh, dzo, zo, ds1, ds2; writes dz, dr, da, db, dw
     rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
         e * (5 * M * Kd + 2 * Kd * N + 2 * M * N) + 4 * (4 * Kd + 2 * N),
-        4.0 * M * Kd * N, dtype)
+        4.0 * M * Kd * N, dtype, rec["route"])
     print(f"  K5 timing {rec}", flush=True)
     return rec
 
@@ -617,7 +633,7 @@ def k4_case(torch, K, B, H, C, N, stride, dtype, timed, bias=None,
     if the kernel applied the prologue after the padding. Timed like K3,
     the library call being cuDNN's bare conv (``F.conv2d`` on the
     channels-last view, without the prologue and statistics)."""
-    from bigdl_tpu_torch.kernels.fused_matmul import route
+    from bigdl_tpu_torch.kernels.fused_conv import route
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(B + H + C + stride)
     x = torch.randn(B, H, H, C, device="cuda", generator=g).to(dtype)
@@ -686,6 +702,9 @@ RESNET_K5 = [("s0 junction", (56, 256, 64), 2),
              ("s3 junction", (7, 2048, 512), 2)]
 # the shapes whose plain versions are timed too (the kernels line's rows)
 JSON_SHAPES = ("s0 conv3", "s3 proj", "s0 3x3", "s1 3x3/2", "s0 junction")
+# ms a call the 3xTF32 route must keep to at phase 8's stage-0 shapes (B32):
+# about the bf16 routes' distance from their bounds
+F32_LIMITS = {"K3 fwd": 0.12, "K3 bwd": 0.40, "K5 fwd": 0.20, "K5 bwd": 0.60}
 
 
 def resnet_shapes(torch, K):
@@ -711,12 +730,78 @@ def resnet_shapes(torch, K):
                                  plain=name in JSON_SHAPES, nan_h=True)
         fam["K5 fwd"].append((name, n, r["fwd"]))
         fam["K5 bwd"].append((name, n, r["bwd"]))
+    _print_families(fam)
+    return fam, recs
+
+
+# phase 8's batch: Optimizer.create at B32/224 on float32 parameters
+FB = 32
+
+
+@contextlib.contextmanager
+def cuda_core_route(torch):
+    """K3 and K5 float32 calls on the CUDA-core route (csrc/fused_matmul.cu,
+    csrc/fused_chain.cu: float32 FMAs, the route of float32 shapes outside
+    the 3xTF32 rule, and of every float32 call before it), at any shape."""
+    from bigdl_tpu_torch.kernels import fused_chain as fc, fused_matmul as fm
+    rule = fm.route
+    fm.route = fc.route = lambda dtype, k, n: (
+        "f32" if dtype == torch.float32 else rule(dtype, k, n))
+    try:
+        yield
+    finally:
+        fm.route = fc.route = rule
+
+
+def resnet_shapes_f32(torch, K):
+    """Every distinct ResNet-50 B32/224 shape of K3 and K5 (forward and
+    backward) in float32, the calls of phase 8, held against the plain
+    versions (two launches bit for bit; K5's h also into a NaN-filled
+    buffer) and timed with the library call and the bound, on the 3xTF32
+    route and then on the CUDA-core route; the plain versions are timed at
+    stage 0. Returns ({family: [(name, launches a step, timing)]} of each
+    route, {name: 3xTF32 case record})."""
+    f32 = torch.float32
+    fams = []
+    for cc in (False, True):
+        fam = {"K3 fwd": [], "K3 bwd": [], "K5 fwd": [], "K5 bwd": []}
+        recs = {}
+        with (cuda_core_route(torch) if cc else contextlib.nullcontext()):
+            for name, (M, Kd, N, pro), n in RESNET_K3:
+                r = recs[name] = k3_case(
+                    torch, K, M // RB * FB, Kd, N, f32, pro, pro, True, True,
+                    plain=name == "s0 conv3" and not cc)
+                fam["K3 fwd"].append((name, n, r["fwd"]))
+                fam["K3 bwd"].append((name, n, r["bwd"]))
+            for name, (H, Kd, N), n in RESNET_K5:
+                r = recs[name] = k5_case(
+                    torch, K, FB, H, Kd, N, f32, True,
+                    plain=name == "s0 junction" and not cc, nan_h=True)
+                fam["K5 fwd"].append((name, n, r["fwd"]))
+                fam["K5 bwd"].append((name, n, r["bwd"]))
+        want = "f32" if cc else "f32_sm90"
+        check(all(r["route"] == want for r in recs.values()),
+              f"float32 ResNet-50 shapes off the {want} route: "
+              f"{ {k: r['route'] for k, r in recs.items()} }")
+        fams.append(fam)
+        if not cc:
+            recs32 = recs
+    for f, rows in fams[0].items():
+        for (name, n, r), (_, _, o) in zip(rows, fams[1][f]):
+            print(f"  float32 B{FB} {f} {name}: {n} a step x {r['ms']:.4f} "
+                  f"ms 3xTF32, {o['ms']:.4f} ms CUDA cores (library "
+                  f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"{r['bound_by']}; CUDA-core bound {o['bound_ms']:.4f})",
+                  flush=True)
+    return fams, recs32
+
+
+def _print_families(fam):
     for f, rows in fam.items():
         for name, n, r in rows:
             print(f"  {f} {name}: {n} a step x {r['ms']:.4f} ms (library "
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
                   f"{r['bound_by']})", flush=True)
-    return fam, recs
 
 
 # -- phase 4 helper ------------------------------------------------------------
@@ -905,11 +990,14 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     rec["fused_routes"] = {n: routes[n] for n in (
         "fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
         "fused_chain_bwd", "fused_conv_fwd")}
-    want = "bf16_sm90" if bf16 else "f32"
-    check(all(r[want] > 0 and sum(r.values()) == r[want]
-              for r in rec["fused_routes"].values()),
+    # bf16: every fused launch on bf16_sm90; float32: K3 and K5 on the
+    # 3xTF32 route, K4 on the CUDA cores
+    want = {n: "bf16_sm90" if bf16 else "f32" if n == "fused_conv_fwd"
+            else "f32_sm90" for n in rec["fused_routes"]}
+    check(all(r[want[n]] > 0 and sum(r.values()) == r[want[n]]
+              for n, r in rec["fused_routes"].items()),
           f"ResNet-50 on the card ({dtype}): fused launches by route "
-          f"{rec['fused_routes']}, expected all on {want}")
+          f"{rec['fused_routes']}, expected {want}")
     if bf16:
         card = _step_errs(out["cuda"], truth)
         cpu = _step_errs(out["cpu"], truth)
@@ -957,9 +1045,10 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     return rec, out["cpu"]
 
 
-def trace_steps(torch, step, n=2, top=20):
-    """``n`` calls of ``step`` under ``torch.profiler``: the wall ms per
-    step (profiled, so inflated by the profiler's own host work), the
+def trace_steps(torch, step, n=2, top=20, per_call=1):
+    """``n`` calls of ``step`` (each ``per_call`` training steps) under
+    ``torch.profiler``: the wall ms per step (profiled, so inflated by
+    the profiler's own host work), the
     device ms per step (the sum of the CUDA kernels' own times), the
     kernel launches per step, the device ms per step of each family of
     kernels (the port's own, cuDNN's convolutions, cuBLAS's products,
@@ -974,7 +1063,8 @@ def trace_steps(torch, step, n=2, top=20):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
+        wall = (time.perf_counter() - t0) * 1e3 / (n * per_call)
+    n *= per_call
     own = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1108,18 +1198,25 @@ def resnet_local_optimizer(torch, K, model, init, B=32, S=224, iters=3):
                 fused_chain_fwd=12 * iters, fused_chain_bwd=12 * iters)
     check(counts == want, f"ResNet-50 LocalOptimizer launched {counts}, "
           f"expected {want}")
-    # float32 parameters: every K3 and K5 launch on the float32 route
+    # float32 parameters: every K3 and K5 launch on the 3xTF32 route
     for n in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
               "fused_chain_bwd"):
-        check(only_on(routes[n], "f32", want[n]),
+        check(only_on(routes[n], "f32_sm90", want[n]),
               f"ResNet-50 LocalOptimizer {n} launches by route {routes[n]}")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"ResNet-50 LocalOptimizer losses {losses}")
     check(not torch.equal(model[1].running_mean, before),
           "LocalOptimizer left the running statistics where they were")
+    # two more iterations (a new Optimizer over the first two batches)
+    # under the profiler: the device's busy time a step against the step
+    again = Optimizer.create(model, DataSet.array(samples[:2 * B]),
+                             CrossEntropyCriterion(), max_iteration(2),
+                             batch_size=B,
+                             optim_method=SGD(learningrate=0.1, momentum=0.9))
+    trace = trace_steps(torch, again.optimize, n=1, per_call=2)
     return {"losses": losses, "wall_s": dt,
             "step_s": opt.metrics.values["step_time"], "launches": counts,
-            "routes": routes}
+            "routes": routes, "trace": trace}
 
 
 def main():
@@ -1276,19 +1373,50 @@ def main():
     k5_case(torch, K, 3, 7, 256, 64, bf, False, stats=False)
     k5_case(torch, K, 3, 7, 256, 64, bf, False, tie=True)
     k5_case(torch, K, 2, 5, 44, 20, bf, False)
+    # K3 and K5 in float32: the 3xTF32 route (K and N multiples of 4) at M
+    # = 147 without statistics, contraction and column tails (K = 20 and
+    # 132, N = 36 and 68) and the ReLU's tie; the CUDA-core route for K or
+    # N not a multiple of 4; then the launches by route (each case launches
+    # the forward and the backward twice: the rerun check)
+    K.reset_launch_counts()
+    k3_case(torch, K, 147, 64, 256, f32, True, True, False, False)
+    k3_case(torch, K, 200, 20, 36, f32, True, True, True, False)
+    k3_case(torch, K, 257, 132, 68, f32, False, False, True, False)
+    k3_case(torch, K, 257, 130, 70, f32, False, False, True, False)
+    k5_case(torch, K, 3, 7, 256, 64, f32, False, stats=False)
+    k5_case(torch, K, 3, 7, 256, 64, f32, False, tie=True, nan_h=True)
+    k5_case(torch, K, 2, 5, 42, 20, f32, False)
+    f32_routes = K.launches_by_route()
+    f32_want = {"fused_matmul_fwd": {"f32_sm90": 6, "f32": 2},
+                "fused_matmul_bwd": {"f32_sm90": 6, "f32": 2},
+                "fused_chain_fwd": {"f32_sm90": 4, "f32": 2},
+                "fused_chain_bwd": {"f32_sm90": 4, "f32": 2}}
+    print(f"    float32 K3 / K5 cases, launches by route "
+          f"{ {n: f32_routes[n] for n in f32_want} }", flush=True)
+    check(all(f32_routes[n] == {r: w.get(r, 0) for r in f32_routes[n]}
+              for n, w in f32_want.items()),
+          f"float32 K3 / K5 cases launched {f32_routes}, expected {f32_want}")
     # every ResNet-50 B256/224 shape of K3, K4 and K5, checked and timed
     fam, recs = resnet_shapes(torch, K)
     k3_s0, k3_s3, k5_s0 = recs["s0 conv3"], recs["s3 proj"], recs["s0 junction"]
     k4_s0, k4_s1 = recs["s0 3x3"], recs["s1 3x3/2"]
-    # the float32 route (CUDA cores) at phase 8's stage-0 shape (B32)
-    k3_f32 = k3_case(torch, K, 32 * 56 * 56, 64, 256, f32, True, True, True,
-                     timed=True)
+    # the float32 routes at phase 8's shapes (B32): every K3 and K5 shape on
+    # the 3xTF32 route, K4's stage-0 3x3 on the CUDA cores
+    (fam32, fam_cc), recs32 = resnet_shapes_f32(torch, K)
+    k3_f32, k5_f32 = recs32["s0 conv3"], recs32["s0 junction"]
     k4_f32 = k4_case(torch, K, 32, 56, 64, 64, 1, f32, timed=True)
-    k5_f32 = k5_case(torch, K, 32, 56, 256, 64, f32, timed=True)
     # the K5 bf16 stage-0 junction's limits (ms a call)
     check(k5_s0["fwd"]["ms"] <= 1.0 and k5_s0["bwd"]["ms"] <= 3.0,
           f"K5 stage-0 junction over its limits (1.0 ms forward, 3.0 ms "
           f"backward): {k5_s0['fwd']['ms']:.4f} / {k5_s0['bwd']['ms']:.4f}")
+    # the 3xTF32 stage-0 limits at B32 (ms a call)
+    f32_ms = {"K3 fwd": k3_f32["fwd"]["ms"], "K3 bwd": k3_f32["bwd"]["ms"],
+              "K5 fwd": k5_f32["fwd"]["ms"], "K5 bwd": k5_f32["bwd"]["ms"]}
+    print(f"    3xTF32 stage-0 B32 ms {f32_ms}, limits {F32_LIMITS}",
+          flush=True)
+    check(all(f32_ms[k] <= v for k, v in F32_LIMITS.items()),
+          f"3xTF32 stage-0 B32 calls over their limits {F32_LIMITS}: "
+          f"{f32_ms}")
 
     # -- phase 3: generate on the flagship model ---------------------------
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
@@ -1515,6 +1643,13 @@ def main():
           f"losses {[round(v, 4) for v in r8['losses']]}; {r8['wall_s']:.2f} "
           f"s (steps {[round(t * 1e3) for t in r8['step_s']]} ms); launches "
           f"{r8['launches']}", flush=True)
+    tr = r8["trace"]
+    print(f"    traced (torch.profiler, 2 more iterations): "
+          f"{tr['device_ms']:.1f} ms of CUDA kernels a step in "
+          f"{tr['launches']:.0f} launches (profiled wall {tr['wall_ms']:.1f} "
+          f"ms a step); ms a step by family {tr['families']}; largest "
+          f"kernels (ms a step, launches a step): {tr['top'][:10]}",
+          flush=True)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -1552,6 +1687,8 @@ def main():
                       ("K3 stage-3 projection fwd", k3_s3["fwd"]),
                       ("K5 stage-0 junction fwd", k5_s0["fwd"]),
                       ("K5 stage-0 junction bwd", k5_s0["bwd"]),
+                      ("K3 float32 stage-0 conv3 fwd (B32)", k3_f32["fwd"]),
+                      ("K3 float32 stage-0 conv3 bwd (B32)", k3_f32["bwd"]),
                       ("K5 float32 stage-0 junction fwd (B32)", k5_f32["fwd"]),
                       ("K5 float32 stage-0 junction bwd (B32)", k5_f32["bwd"]),
                       ("K4 stage-0 3x3", k4_s0), ("K4 stage-1 3x3/2", k4_s1)):
@@ -1570,6 +1707,25 @@ def main():
               f"sum of launches x ms {tot:.3f} ms = {tot / step:.1%} of the "
               f"{step:.1f} ms step (fused_conv2={f == 'K4'}); library "
               f"{lib:.3f} ms, bound {bnd:.3f} ms", flush=True)
+    # the same for the float32 K3 and K5 calls at B32 against phase 8's
+    # steps (the median of the steps after the first)
+    step8 = statistics.median(r8["step_s"][1:]) * 1e3
+    tot32 = tot_cc = 0.0
+    for f, rows in fam32.items():
+        tot = sum(n * r["ms"] for _, n, r in rows)
+        cc = sum(n * r["ms"] for _, n, r in fam_cc[f])
+        tot32 += tot
+        tot_cc += cc
+        print(f"    float32 {f} (B32): {sum(n for _, n, _ in rows)} launches "
+              f"a step, sum of launches x ms {tot:.3f} ms = "
+              f"{tot / step8:.1%} of phase 8's {step8:.1f} ms step (CUDA-core "
+              f"route {cc:.3f} ms); library "
+              f"{sum(n * r['library_ms'] for _, n, r in rows):.3f} ms, bound "
+              f"{sum(n * r['bound_ms'] for _, n, r in rows):.3f} ms",
+              flush=True)
+    print(f"    float32 K3 + K5 a B32 step: {tot32:.3f} ms = "
+          f"{tot32 / step8:.1%} of phase 8's step (CUDA-core route "
+          f"{tot_cc:.3f} ms)", flush=True)
     # the tensor-core kernels keep their accumulators in registers: ptxas
     # must report no spill (-1: no build log)
     check(all(v == 0 for v in sm90_spills.values()),
@@ -1615,17 +1771,18 @@ def main():
                    "bigdl_tpu/kernels/fused_matmul.py:580",
                    dict(k3_s0["bwd"], max_abs_err=k3_s0["max_abs_err"],
                         route=k3_s0["route"]), off["fused_matmul_bwd"]),
-        kernel_rec("fused_matmul_f32", "bigdl_tpu_torch/csrc/fused_matmul.cu",
+        kernel_rec("fused_matmul_f32",
+                   "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:344",
                    dict(k3_f32["fwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
-                   r8["routes"]["fused_matmul_fwd"]["f32"]),
+                   r8["routes"]["fused_matmul_fwd"]["f32_sm90"]),
         kernel_rec("fused_matmul_bwd_f32",
-                   "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:229",
                    dict(k3_f32["bwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
-                   r8["routes"]["fused_matmul_bwd"]["f32"]),
+                   r8["routes"]["fused_matmul_bwd"]["f32_sm90"]),
         kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"],
@@ -1635,17 +1792,18 @@ def main():
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_s0["bwd"], max_abs_err=k5_s0["max_abs_err"],
                         route=k5_s0["route"]), off["fused_chain_bwd"]),
-        kernel_rec("fused_chain_f32", "bigdl_tpu_torch/csrc/fused_chain.cu",
+        kernel_rec("fused_chain_f32",
+                   "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_f32["fwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
-                   r8["routes"]["fused_chain_fwd"]["f32"]),
+                   r8["routes"]["fused_chain_fwd"]["f32_sm90"]),
         kernel_rec("fused_chain_bwd_f32",
-                   "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_f32["bwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
-                   r8["routes"]["fused_chain_bwd"]["f32"]),
+                   r8["routes"]["fused_chain_bwd"]["f32_sm90"]),
         kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),

@@ -1,9 +1,9 @@
 """Routes of the fused ResNet kernels K3 (``fused_matmul``), K4
 (``fused_conv``) and K5 (``fused_chain``): which CUDA kernel a call on the
-card takes, that every
-ResNet-50 B256/224 call takes the tensor-core route, that the wrappers'
-partial and split sizes cover every row once, and that calls on the CPU
-launch nothing. The kernels themselves run only on the card
+card takes, that every ResNet-50 call takes a tensor-core route (bf16 at
+B256/224; K3 and K5 in float32, 3xTF32, at B32 and B256), that the
+wrappers' partial and split sizes cover every row once, and that calls on
+the CPU launch nothing. The kernels themselves run only on the card
 (``chip_smoke.py``)."""
 import re
 
@@ -18,7 +18,10 @@ from bigdl_tpu_torch.kernels import fused_conv as fc
 from bigdl_tpu_torch.kernels import fused_matmul as fm
 
 torch.set_num_threads(1)
-ROUTES = {"bf16_sm90", "bf16_ragged", "f32"}
+ROUTES = {"bf16_sm90", "bf16_ragged", "f32_sm90", "f32"}   # K3, K5
+K4_ROUTES = {"bf16_sm90", "bf16_ragged", "f32"}
+TENSOR_CORE_LIBS = ["fused_matmul_sm90", "fused_conv_sm90", "fused_chain_sm90",
+                    "fused_matmul_tf32_sm90", "fused_chain_tf32_sm90"]
 
 # ResNet-50 at B256/224: the shape tables chip_smoke.py checks and times
 # on the card (models/resnet.py: conv1 of block 0, conv3 and projection per
@@ -43,43 +46,69 @@ def test_resnet50_tables_hold_every_fused_launch_of_a_step():
 
 def test_fused_routes_by_dtype_and_one_shape_rule():
     """bf16 with contraction and columns multiples of 8 goes to the
-    tensor-core sources, other bf16 shapes and float32 to the CUDA-core
-    ones; every route's library is in the build list with its headers."""
-    assert fm._ROUTES == {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+    tensor-core sources, other bf16 shapes to the CUDA-core ones; K3 and
+    K5 in float32 with multiples of 4 go to the 3xTF32 sources, other
+    float32 shapes (and every float32 K4 call) to the CUDA-core ones; every
+    route's library is in the build list with its headers."""
+    assert fm._ROUTES == {torch.bfloat16: ("bf16_sm90", 8, "bf16_ragged"),
+                          torch.float32: ("f32_sm90", 4, "f32")}
     assert fm.route(torch.bfloat16, 64, 256) == "bf16_sm90"
     assert fm.route(torch.bfloat16, 24, 40) == "bf16_sm90"
     assert fm.route(torch.bfloat16, 130, 64) == "bf16_ragged"
     assert fm.route(torch.bfloat16, 64, 70) == "bf16_ragged"
-    assert fm.route(torch.float32, 64, 256) == "f32"
+    assert fm.route(torch.float32, 64, 256) == "f32_sm90"
+    assert fc.route(torch.float32, 64, 64) == "f32"
+    assert fc.route(torch.bfloat16, 64, 64) == "bf16_sm90"
     for table in (fm._FWD_FN, fm._BWD_FN, fc._FWD_FN, fch._FWD_FN,
                   fch._BWD_FN):
-        assert set(table) == ROUTES
+        assert set(table) == (K4_ROUTES if table is fc._FWD_FN else ROUTES)
         assert table["bf16_sm90"][0].endswith("_sm90")
         assert table["bf16_ragged"] == table["f32"]
         for lib, _ in table.values():
             for f in _build.SOURCES[lib]:
                 assert (_build.CSRC / f).exists(), f
+    for table in (fm._FWD_FN, fm._BWD_FN, fch._FWD_FN, fch._BWD_FN):
+        assert table["f32_sm90"][0].endswith("_tf32_sm90")
     assert fch._FWD_FN["bf16_sm90"] == ("fused_chain_sm90",
                                         "bigdl_fused_chain_sm90_fwd")
+    assert fch._BWD_FN["f32_sm90"] == ("fused_chain_tf32_sm90",
+                                       "bigdl_fused_chain_tf32_sm90_bwd")
     assert fch._BWD_FN["f32"] == ("fused_chain", "bigdl_fused_chain_bwd")
     assert fch.route is fm.route      # K5 takes K3's rule over (K, N)
     for name in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_conv_fwd",
                  "fused_chain_fwd", "fused_chain_bwd"):
-        assert set(kernels.WRAPPERS[name].launches_by_route) == ROUTES
+        assert set(kernels.WRAPPERS[name].launches_by_route) == (
+            K4_ROUTES if name == "fused_conv_fwd" else ROUTES)
 
 
-@pytest.mark.parametrize("lib", ["fused_matmul_sm90", "fused_conv_sm90",
-                                 "fused_chain_sm90"])
+@pytest.mark.parametrize("k,n", [(64, 256), (4, 4), (20, 36), (132, 68),
+                                 (2048, 512), (130, 64), (64, 70), (2, 8),
+                                 (7, 9)])
+def test_float32_route_rule(k, n):
+    """float32: K and N multiples of 4 (rows of 16-byte multiples, as TMA
+    needs) take the 3xTF32 route, any other shape the CUDA cores."""
+    want = "f32_sm90" if k % 4 == 0 and n % 4 == 0 else "f32"
+    assert fm.route(torch.float32, k, n) == want
+    assert fch.route(torch.float32, k, n) == want
+    assert fm._PART_ROWS[want] == (64 if want == "f32_sm90" else fm._BM)
+
+
+@pytest.mark.parametrize("lib", TENSOR_CORE_LIBS)
 def test_tensor_core_sources_call_no_library(lib):
-    """The products are PTX wgmma written out in the core header; no
-    source or header of the library names a GEMM or conv library."""
+    """The products are PTX wgmma written out in the core header (bf16
+    k16, or tf32 k8 on the 3xTF32 route); no source or header of the
+    library names a GEMM or conv library."""
     for f in _build.SOURCES[lib]:
         text = (_build.CSRC / f).read_text().lower()
         for word in ("cublas", "cudnn", "cutlass/gemm", "cutlass/conv"):
             assert word not in text, (f, word)
-    core = (_build.CSRC / "fused_gemm_sm90.cuh").read_text()
-    assert "fused_gemm_sm90.cuh" in _build.SOURCES[lib]
-    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k16", core)
+    tf32 = lib.endswith("_tf32_sm90")
+    header = "fused_gemm_tf32_sm90.cuh" if tf32 else "fused_gemm_sm90.cuh"
+    core = (_build.CSRC / header).read_text()
+    assert header in _build.SOURCES[lib]
+    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k8\.f32\.tf32"
+                     if tf32 else
+                     r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k16", core)
 
 
 @pytest.mark.parametrize("M,K,N", K3_SHAPES)
@@ -120,6 +149,54 @@ def test_resnet50_k5_calls_take_the_tensor_core_route(H, K, N):
     assert per % 128 == 0 and (splits - 1) * per < M <= splits * per
 
 
+@pytest.mark.parametrize("M,K,N", [(B // 8 * 56 * 56, 64, 256),
+                                   (B // 8 * 56 * 56, 256, 64),
+                                   (B // 8 * 7 * 7, 1024, 2048),
+                                   (802816, 64, 256), (1568, 2048, 512),
+                                   (300, 24, 40), (1, 4, 4), (147, 256, 64),
+                                   (129, 20, 36)])
+def test_dw_splits_tf32_cover_every_row_once(M, K, N):
+    """Splits of 64-row multiples (the two warpgroups take alternate
+    32-pixel chunks) that together hold every pixel once, and about one
+    block per SM at the large shapes; the wrapper's rule for the 3xTF32
+    route."""
+    assert fm._TC_SPLITS["f32_sm90"] is fm.dw_splits_tf32
+    splits, per = fm.dw_splits_tf32(M, K, N)
+    assert per % 64 == 0 and splits >= 1 and per >= 64
+    assert (splits - 1) * per < M <= splits * per
+    bn = 64 if N <= 64 else 128
+    blocks = splits * -(-K // 64) * -(-N // bn)
+    if M >= 12544:
+        assert fm._SMS // 2 <= blocks <= 2 * fm._SMS
+
+
+@pytest.mark.parametrize("batch", [32, 256])
+@pytest.mark.parametrize("M,K,N", K3_SHAPES)
+def test_resnet50_k3_float32_calls_take_the_3xtf32_route(M, K, N, batch):
+    """Every K3 call of a float32 ResNet-50 step (phase 8's B32, and
+    B256) takes f32_sm90; its partials and dw splits cover every row
+    once."""
+    M = M // B * batch
+    assert fm.route(torch.float32, K, N) == "f32_sm90"
+    rows = fm._PART_ROWS["f32_sm90"]
+    parts = -(-M // rows)
+    assert (parts - 1) * rows < M <= parts * rows
+    splits, per = fm.dw_splits_tf32(M, K, N)
+    assert per % 64 == 0 and (splits - 1) * per < M <= splits * per
+
+
+@pytest.mark.parametrize("batch", [32, 256])
+@pytest.mark.parametrize("H,K,N", K5_SHAPES)
+def test_resnet50_k5_float32_calls_take_the_3xtf32_route(H, K, N, batch):
+    M = batch * H * H
+    assert fch.route(torch.float32, K, N) == "f32_sm90"
+    rows = fm._PART_ROWS["f32_sm90"]
+    parts = -(-M // rows)
+    assert (parts - 1) * rows < M <= parts * rows
+    splits, per = fm.dw_splits_tf32(M, K, N)
+    assert per % 64 == 0 and (splits - 1) * per < M <= splits * per
+
+
 @pytest.mark.parametrize("M,K,N", [(802816, 64, 256), (802816, 64, 64),
                                    (12544, 1024, 2048), (50176, 512, 1024),
                                    (300, 24, 40), (1, 8, 8), (129, 16, 8)])
@@ -138,7 +215,12 @@ def test_dw_splits_sm90_cover_every_row_once(M, K, N):
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
 def test_cpu_fused_calls_launch_nothing_on_any_route(dt):
+    """CPU tensors take the plain versions on every route's shapes (the
+    tensor-core rule, 3xTF32 included, and a ragged shape): no launch is
+    counted, on any route."""
     kernels.reset_launch_counts()
+    assert {"f32_sm90", "bf16_sm90"} <= set(
+        kernels.launches_by_route()["fused_chain_bwd"])
     for K, N in ((16, 24), (130, 70)):      # the sm90 rule and a ragged shape
         x = torch.randn(40, K).to(dt)
         w = torch.randn(K, N).to(dt)

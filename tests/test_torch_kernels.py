@@ -253,7 +253,8 @@ def test_flash_routes_by_dtype_one_kernel_each():
 
 def test_cpu_flash_calls_count_no_launch_on_any_route():
     kernels.reset_launch_counts()
-    fused = {"bf16_sm90": 0, "bf16_ragged": 0, "f32": 0}
+    fused = {"bf16_sm90": 0, "bf16_ragged": 0, "f32_sm90": 0, "f32": 0}
+    conv = {"bf16_sm90": 0, "bf16_ragged": 0, "f32": 0}
     flash = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32": 0,
              "f32_padded": 0}
     assert kernels.launches_by_route() == {
@@ -262,7 +263,7 @@ def test_cpu_flash_calls_count_no_launch_on_any_route():
                             "bf16_padded": 0},
         "fused_matmul_fwd": fused, "fused_matmul_bwd": fused,
         "fused_chain_fwd": fused, "fused_chain_bwd": fused,
-        "fused_conv_fwd": fused}
+        "fused_conv_fwd": conv}
     q = torch.randn(1, 2, 8, 8).to(torch.bfloat16)
     o, lse = flash_fwd(q, q, q, causal=True)
     flash_bwd(q, q, q, o, lse, q, True, out_dtype=torch.float32)
