@@ -50,7 +50,15 @@ SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
            "fused_chain_tf32_sm90": ("fused_chain_tf32_sm90.cu",
                                      "fused_gemm_tf32_sm90.cuh",
                                      "fused_gemm_sm90.cuh", "attn_sm90.cuh",
-                                     "fused_gemm.cuh")}
+                                     "fused_gemm.cuh"),
+           "fused_conv_tf32_sm90": ("fused_conv_tf32_sm90.cu",
+                                    "fused_gemm_tf32_sm90.cuh",
+                                    "fused_gemm_sm90.cuh", "attn_sm90.cuh",
+                                    "fused_gemm.cuh"),
+           "flash_fwd_tf32_sm90": ("flash_fwd_tf32_sm90.cu",
+                                   "fused_gemm_tf32_sm90.cuh",
+                                   "fused_gemm_sm90.cuh", "attn_sm90.cuh",
+                                   "fused_gemm.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,14 +3,19 @@ their plain versions and the ``autograd.Function`` around them.
 
 Replaces the Pallas kernels of ``bigdl_tpu/kernels/flash_attention.py``:
 ``_flash_fwd`` (body ``_fwd_kernel``) and ``_flash_bwd`` (``_bwd_kv_kernel``,
-``_bwd_q_kernel``). Each wrapper picks its kernel by dtype alone, one kernel
-per dtype:
+``_bwd_q_kernel``). Each wrapper picks its kernel by its own route rule:
 
 - ``"bf16_sm90"``: bfloat16 inputs take the tensor-core kernels
   ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (bf16 wgmma over
   TMA-staged tiles);
-- ``"f32"``: float32 inputs take the CUDA-core kernels ``csrc/flash_fwd.cu``
-  and ``csrc/flash_bwd.cu`` (float32 products, as float32 callers need).
+- ``"f32_sm90"``: float32 forward calls whose head dim is at most 112 (the
+  widest the kernel is instantiated for; :func:`fwd_route`) take
+  ``csrc/flash_fwd_tf32_sm90.cu`` (3xTF32 wgmma: each float32 operand split
+  into tf32 hi and lo halves, three products, which keeps float32 accuracy;
+  a split kernel writes K's and V^T's halves into scratch first);
+- ``"f32"``: wider float32 forward calls take the CUDA-core kernel
+  ``csrc/flash_fwd.cu``, and every float32 backward call
+  ``csrc/flash_bwd.cu`` (float32 FMAs).
 
 Each source's header note says what bounds it on an H100 and what the design
 does about it. Besides ``<wrapper>.launches``, each wrapper counts its
@@ -21,7 +26,9 @@ Head dims: each route's kernels are instantiated for the widths in
 between them goes to the next wider one with q, k, v (and dO)
 zero-padded and the scale of the true D (:func:`head_dim_width`), which is
 exact: zero columns add nothing to q.k and give zero output columns. Such
-calls count under ``"<route>_padded"``. A D past the widest raises.
+calls count under ``"<route>_padded"``. A float32 forward call past the
+3xTF32 kernel's widest D takes the CUDA-core route; a D past a dtype's
+widest raises.
 
 :func:`flash_fwd` and :func:`flash_bwd` are the wrappers: tensors on the CPU
 take :func:`flash_fwd_reference` / :func:`flash_bwd_reference`, the plain
@@ -43,24 +50,31 @@ import torch.nn.functional as F
 
 from . import _build
 
-# dtype -> route; each route's (library, symbol) for the forward and backward
-_ROUTES = {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the backward's route by dtype (the forward's: fwd_route); each route's
+# (library, symbol) for the forward and backward
+_BWD_ROUTES = {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
 _FWD_FN = {"bf16_sm90": ("flash_fwd_sm90", "bigdl_flash_fwd_sm90"),
+           "f32_sm90": ("flash_fwd_tf32_sm90", "bigdl_flash_fwd_tf32_sm90"),
            "f32": ("flash_fwd", "bigdl_flash_fwd")}
 _BWD_FN = {"bf16_sm90": ("flash_bwd_sm90", "bigdl_flash_bwd_sm90"),
            "f32": ("flash_bwd", "bigdl_flash_bwd")}
 # the head dims each route's kernels are instantiated for: every multiple
-# of 16 (a wgmma k16 slice), up to 128 on the tensor cores (the
-# accumulators of wider rows would not fit the consumers' registers), and
-# on the CUDA cores as far as their float32 tiles fit in shared memory (the
-# backward keeps four 64-row tiles of D + 1 floats)
+# of 16, up to 128 on the bf16 tensor cores (the accumulators of wider rows
+# would not fit the consumers' registers), up to 112 in 3xTF32 (the two
+# float32 halves of a 128-row Q tile and two stages of K and V^T halves fill
+# a block's shared memory), and on the CUDA cores as far as their float32
+# tiles fit in shared memory (the backward keeps four 64-row tiles of D + 1
+# floats)
 _FWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
+             "f32_sm90": tuple(range(16, 113, 16)),
              "f32": tuple(range(16, 257, 16))}
 _BWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
              "f32": tuple(range(16, 193, 16))}
 _PADDED = "_padded"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
+_SPLIT_KEYS = 8    # the 3xTF32 scratch holds kv_len keys rounded up to 8
 _BWD_ARGTYPES = {
     "bf16_sm90": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                   + [ctypes.c_float, ctypes.c_void_p]),
@@ -116,6 +130,29 @@ def head_dim_width(fn: str, route: str, d: int, dims) -> int:
                      f"B.5 (head dims past the widest instantiation)")
 
 
+def fwd_route(dtype, d: int) -> str:
+    """K1-fwd's route for a call with head dim ``d``: bfloat16 ->
+    ``"bf16_sm90"``; float32 -> ``"f32_sm90"`` (3xTF32) up to the widest
+    head dim that kernel is instantiated for, else ``"f32"`` (the CUDA
+    cores)."""
+    if dtype == torch.bfloat16:
+        return "bf16_sm90"
+    return "f32_sm90" if d <= _FWD_DIMS["f32_sm90"][-1] else "f32"
+
+
+def _kv_split(route, B, H, kv_len, w, device):
+    """(scratch, the trailing C arguments) of a forward route: the 3xTF32
+    entry takes 4 x B x H x kvp x w float32 (kvp: kv_len rounded up to 8,
+    at least 8) for the tf32 hi and lo halves of K and V^T, which its split
+    kernel writes each call; the other routes take none. The caller holds
+    the scratch until the launch is queued."""
+    if route != "f32_sm90":
+        return None, ()
+    kvp = -(-max(kv_len, 1) // _SPLIT_KEYS) * _SPLIT_KEYS
+    t = torch.empty(4 * B * H * kvp * w, device=device)
+    return t, (t.data_ptr(),)
+
+
 def _pad_d(t, w):
     """t with its last dim zero-padded to ``w`` (a new contiguous
     tensor)."""
@@ -140,7 +177,7 @@ def _check(fn, q, k, v, *same_as_q):
             raise ValueError(f"{fn}: the kernel builds no autograd graph; "
                              f"differentiate through FlashAttention or run "
                              f"under torch.no_grad()")
-    if q.dtype not in _ROUTES:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"{fn}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
     B, H, _, D = q.shape
@@ -168,7 +205,7 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
         raise ValueError(f"flash_fwd: kv_len {kv_len} / q_offset "
                          f"{q_offset} out of range for {k.shape[2]} keys")
     B, H, Tq, D = q.shape
-    route = _ROUTES[q.dtype]
+    route = fwd_route(q.dtype, D)
     w = head_dim_width("flash_fwd", route, D, _FWD_DIMS[route])
     if w != D:
         q, k, v = (_pad_d(t, w) for t in (q, k, v))
@@ -176,11 +213,13 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o[..., :D], lse
-    fn = _build.function(*_FWD_FN[route], _ARGTYPES)
+    ws, extra = _kv_split(route, B, H, kv_len, w, q.device)  # held
+    fn = _build.function(*_FWD_FN[route],
+                         _ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, H, Tq, k.shape[2], w, int(bool(causal)),
              q_offset, kv_len, 1.0 / math.sqrt(D),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream, *extra)
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed ({route}): "
                            f"CUDA error {err}")
@@ -194,7 +233,7 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
 
 flash_fwd.launches = 0
 flash_fwd.launches_by_route = dict.fromkeys(
-    [r + p for r in _ROUTES.values() for p in ("", _PADDED)], 0)
+    [r + p for r in _FWD_FN for p in ("", _PADDED)], 0)
 
 
 def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
@@ -261,7 +300,7 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False, delta=None,
             raise ValueError(f"flash_bwd: {name} must be contiguous float32 "
                              f"{(B, H, Tq)} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    route = _ROUTES[q.dtype]
+    route = _BWD_ROUTES[q.dtype]
     out = out_dtype or q.dtype
     if delta is None:
         delta = (do.float() * o.float()).sum(-1)
@@ -291,7 +330,8 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False, delta=None,
 
 
 flash_bwd.launches = 0
-flash_bwd.launches_by_route = dict.fromkeys(flash_fwd.launches_by_route, 0)
+flash_bwd.launches_by_route = dict.fromkeys(
+    [r + p for r in _BWD_FN for p in ("", _PADDED)], 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -3,15 +3,19 @@ kernel, its plain version and the ``autograd.Function`` around it.
 
 Replaces the Pallas kernel of ``bigdl_tpu/kernels/fused_conv.py``
 ``fused_bn_relu_conv3x3`` (``_cvfwd``). The wrapper picks its kernel by
-dtype and one shape rule (:func:`route`, ``fused_matmul.route`` over C and
-N for bfloat16):
+dtype and one shape rule per dtype (:func:`route`):
 
 - ``"bf16_sm90"``: bfloat16 with C and N multiples of 8 (every ResNet-50
   call) takes ``csrc/fused_conv_sm90.cu`` (an implicit GEMM on bf16 wgmma,
   the tap gather and the prologue in registers);
 - ``"bf16_ragged"``: other bfloat16 shapes take the CUDA-core kernel of
   ``csrc/fused_conv.cu`` in bf16;
-- ``"f32"``: float32 takes ``csrc/fused_conv.cu``.
+- ``"f32_sm90"``: float32 with C a multiple of 32 and N a multiple of 4
+  (every ResNet-50 call) takes ``csrc/fused_conv_tf32_sm90.cu`` (the same
+  implicit GEMM in 3xTF32 on wgmma: each float32 operand split into tf32
+  hi and lo halves, three products, which keeps float32 accuracy; a 32-deep
+  chunk of the contraction is one tap);
+- ``"f32"``: other float32 shapes take ``csrc/fused_conv.cu``.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it; ``fused_conv_fwd.launches_by_route`` counts the
@@ -36,20 +40,28 @@ import torch.nn.functional as F
 from ..utils.engine import refuse_unported
 from . import _build
 from .fused_matmul import (_DTYPES, _PART_ROWS, _RAGGED, _check_aligned,
-                           _f32, _ptr, _stream)
+                           _f32, _ptr, _stream, _wsplit)
 from .fused_matmul import route as _k3_route
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # each route's (library, symbol)
 _FWD_FN = {"bf16_sm90": ("fused_conv_sm90", "bigdl_fused_conv_sm90_fwd"),
            _RAGGED: ("fused_conv", "bigdl_fused_conv_fwd"),
+           "f32_sm90": ("fused_conv_tf32_sm90",
+                        "bigdl_fused_conv_tf32_sm90_fwd"),
            "f32": ("fused_conv", "bigdl_fused_conv_fwd")}
+# the tensor-core routes (TMA and 16-byte copies: 16-byte aligned x and w)
+_TC = ("bf16_sm90", "f32_sm90")
 
 
 def route(dtype, c: int, n: int) -> str:
-    """K4's route: ``fused_matmul.route`` for bfloat16; every float32 call
-    takes ``"f32"`` (the CUDA-core kernel; K4 has no 3xTF32 kernel)."""
-    return "f32" if dtype == torch.float32 else _k3_route(dtype, c, n)
+    """K4's route: ``fused_matmul.route`` for bfloat16; float32 takes
+    ``"f32_sm90"`` (3xTF32) when C is a multiple of 32 (a 32-deep chunk of
+    the contraction is one tap) and N a multiple of 4, else ``"f32"`` (the
+    CUDA cores)."""
+    if dtype == torch.float32:
+        return "f32_sm90" if c % 32 == 0 and n % 4 == 0 else "f32"
+    return _k3_route(dtype, c, n)
 
 
 def _xhat(x, a, b):
@@ -118,7 +130,7 @@ def fused_conv_fwd(x, w, a, b, stride: int = 1, stats: bool = True):
     B, H, W, C = x.shape
     N = w.shape[3]
     rt = route(x.dtype, C, N)
-    if rt == "bf16_sm90":
+    if rt in _TC:
         _check_aligned("fused_conv_fwd", x, w)
     H2, W2 = -(-H // stride), -(-W // stride)
     M = B * H2 * W2
@@ -128,12 +140,14 @@ def fused_conv_fwd(x, w, a, b, stride: int = 1, stats: bool = True):
         part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=x.device)
         s = torch.empty((2, N), device=x.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    fn = _build.function(*_FWD_FN[rt], _ARGTYPES)
+    wsp, extra = _wsplit(rt, 9 * C, N, x.device)
+    fn = _build.function(*_FWD_FN[rt],
+                         _ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(x.data_ptr(), w.data_ptr(), af.data_ptr(), bf.data_ptr(),
              z.data_ptr(), _ptr(part),
              None if part is None else part[1].data_ptr(), _ptr(s),
              None if s is None else s[1].data_ptr(), _DTYPES[x.dtype], B, H,
-             W, C, N, int(stride), int(bool(stats)), _stream(x))
+             W, C, N, int(stride), int(bool(stats)), _stream(x), *extra)
     if err:
         raise RuntimeError(f"fused_conv_fwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")

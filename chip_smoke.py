@@ -16,29 +16,36 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    fused ResNet kernels, which no single call computes, the bare product
    alone: cuBLAS ``x @ w``, or cuDNN's conv for K4) with CUDA events, over
    CUDA graphs of back-to-back launches on inputs rotated past the 50 MB
-   L2 where the call can be captured. The flash kernels are checked on both
-   routes (bf16: the tensor-core kernels; float32: the CUDA-core ones) at
-   ragged T, D = 32/64/128, the chunk form and kv_len = 0, the backward
-   also in the ring form (external delta, float32 gradients) and for
-   bitwise-equal reruns; then every other head dim the attention kernels
-   are instantiated for (each multiple of 16 up to 128 on the bf16 flash
-   kernels, up to 256 on the float32 flash forward and K2, up to 192 on
-   the float32 backward) and their padded route (a D not a multiple of
-   16), with the launches by route, and the bf16 flash pair timed at D =
-   96 (hidden 768, 8 heads) at the training shape. The fused ResNet kernels are
-   checked on all four routes (bf16 and, for K3 and K5, float32 in 3xTF32
-   on the tensor cores; ragged bf16 and the other float32 shapes on the
-   CUDA cores) at small and ragged shapes, at pad taps where relu(b) != 0,
-   K3 and K5 also without statistics at M = 147 and K5 at the ReLU's tie,
+   L2 where the call can be captured. The flash kernels are checked on
+   their routes (bf16: the tensor-core kernels; float32: the forward in
+   3xTF32 on the tensor cores up to D = 112, past it and the backward on
+   the CUDA cores) at ragged T, D = 32/64/128, the chunk form and kv_len =
+   0, the backward also in the ring form (external delta, float32
+   gradients) and for bitwise-equal reruns; the float32 forward timed at
+   (8,16,256,64) and (2,16,1024,64) on 3xTF32, each also on the CUDA-core
+   route, and at D = 128 on the CUDA cores; then every other head dim the
+   attention kernels are instantiated for (each multiple of 16 up to 128
+   on the bf16 flash kernels, up to 112 on the float32 forward's 3xTF32
+   route and 256 on its CUDA-core route and on K2, up to 192 on the
+   float32 backward) and their padded route (a D not a multiple of 16),
+   with the launches by route, and the bf16 flash pair timed at D = 96
+   (hidden 768, 8 heads) at the training shape. The fused ResNet kernels
+   are checked on all four routes (bf16 and float32 in 3xTF32 on the
+   tensor cores; ragged bf16 and the other float32 shapes on the CUDA
+   cores) at small and ragged shapes, at pad taps where relu(b) != 0, K3
+   and K5 also without statistics at M = 147 and K5 at the ReLU's tie,
    with the float32 launches by route, and, with two launches bit for bit
    equal, at every distinct ResNet-50 B256/224 shape of K3 (forward and
-   backward), K4 and K5 in bf16 and every B32/224 shape of K3 and K5 in
-   float32 (K5's h also written into a NaN-filled buffer, which must come
-   back whole), each timed with its library call and bound; the launches
-   a step times the time of each family is printed against the measured
-   steps of phases 7 and 8. K5's bf16 stage-0 junction must take at most
-   1.0 ms forward and 3.0 ms backward; in float32 at B32, K3's stage-0
-   conv3 at most 0.12 / 0.40 ms and K5's stage-0 junction 0.20 / 0.60 ms.
+   backward), K4 and K5 in bf16 and every B32/224 shape of K3, K4 and K5
+   in float32 (also on the CUDA-core route, for comparison; K5's h also
+   written into a NaN-filled buffer, which must come back whole), each
+   timed with its library call and bound; the launches a step times the
+   time of each family is printed against the measured steps of phases 7
+   and 8. K5's bf16 stage-0 junction must take at most 1.0 ms forward and
+   3.0 ms backward; in float32 at B32, K3's stage-0 conv3 at most 0.12 /
+   0.40 ms and K5's stage-0 junction 0.20 / 0.60 ms; the float32 flash
+   forward at (8,16,256,64) must beat SDPA and K4's float32 stage-0 call
+   cuDNN's float32 conv, timed in the same run.
    The tensor-core libraries (``*_sm90``) must build without spills;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
@@ -79,20 +86,23 @@ layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
 16 K4 forwards with ``fused_conv2``), or any other kernel launched, fails
 the run; so does a flash, K3, K4 or K5 launch on another route than the
-path's dtype gives (``bf16_sm90`` in ``generate``, ``prefill_chunked`` and
-the bf16 recipes; ``f32`` for the flash kernels in the ``LocalOptimizer``
-run and K4 in phase 7's float32 step; ``f32_sm90`` for K3 and K5 in phases
-7 and 8). Every check that fails exits non-zero. The line before the last
-is one JSON object with each kernel's numbers (``flash_fwd`` at the
-serving prefill shape with the ``generate`` launches, ``flash_fwd_train``
-at the training shape with the launches of the five remat-off training
-steps, ``flash_bwd`` likewise, ``flash_fwd_chunk`` with the
-``prefill_chunked`` launches, the ``_f32`` rows at the ``LocalOptimizer``
-shape with its launches; the fused ResNet kernels at their timed shapes
-with the launches of the four ResNet-50 steps of the arm that runs them,
-their ``_f32`` rows (K3 and K5 on the 3xTF32 route) at phase 8's stage-0
-shape with its launches (K4's with those of phase 7's float32 step); the
-flash, K3, K4 and K5 rows carry their ``dtype_route``); the last line is
+path's dtype and shapes give (``bf16_sm90`` in ``generate``,
+``prefill_chunked`` and the bf16 recipes; in the ``LocalOptimizer`` run
+``f32_sm90`` for the flash forward and ``f32`` for its backward;
+``f32_sm90`` for K3, K4 and K5 in phases 7 and 8). Every check that fails
+exits non-zero. The line before the last is one JSON object with each
+kernel's numbers (``flash_fwd`` at the serving prefill shape with the
+``generate`` launches, ``flash_fwd_train`` at the training shape with the
+launches of the five remat-off training steps, ``flash_bwd`` likewise,
+``flash_fwd_chunk`` with the ``prefill_chunked`` launches, the ``_f32``
+rows at the ``LocalOptimizer`` shape with its launches by route, the
+CUDA-core forward's row at D = 128; the fused ResNet kernels at their
+timed shapes with the launches of the four ResNet-50 steps of the arm
+that runs them, their ``_f32`` rows (3xTF32) at phase 8's stage-0 shape
+with its launches (K4's with those of phase 7's float32 step, and its
+CUDA-core route's row beside it); the flash, K3, K4 and K5 rows carry
+their ``dtype_route``, the 3xTF32 rows their CUDA-core route's
+``cuda_core_ms``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -204,6 +214,29 @@ def host_call_ms(torch, fn, n=50):
     return statistics.median(times)
 
 
+def launch_ms(torch, fn, n=10):
+    """{kernel: device ms a call} of the launches one ``fn()`` call makes
+    (a 3xTF32 wrapper: its split kernel, then its product kernel), from
+    ``torch.profiler`` over ``n`` eager calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |<.*|\(.*", "", e.key).split("::")[-1]
+            out[name] = out.get(name, 0.0) + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0)) / 1e3 / n
+    return out
+
+
 def n_copies(bytes_per_set):
     return max(1, math.ceil(2 * L2_BYTES / bytes_per_set))
 
@@ -223,8 +256,27 @@ def bound(nbytes, flops, dtype, route=None):
 
 # -- phase 2: kernels against their plain versions ---------------------------
 
+@contextlib.contextmanager
+def cuda_core_flash(torch):
+    """float32 flash forward calls on the CUDA-core route (csrc/flash_fwd.cu:
+    float32 FMAs, the route of head dims past the 3xTF32 kernel's widest,
+    and of every float32 call before it), at any head dim it takes."""
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    rule = fa.fwd_route
+    fa.fwd_route = lambda dtype, d: (
+        "f32" if dtype == torch.float32 else rule(dtype, d))
+    try:
+        yield
+    finally:
+        fa.fwd_route = rule
+
+
 def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
                timed):
+    """K1-fwd against flash_fwd_reference; timed: the wrapper's call (on
+    the 3xTF32 route the split kernel and the attention kernel), the plain
+    version and SDPA, and on the 3xTF32 route also the CUDA-core route at
+    the same shape."""
     g = torch.Generator(device="cuda").manual_seed(B * 1000 + Tq)
     esz = torch.empty((), dtype=dtype).element_size()
     per_set = esz * (B * H * Tq * D * 2 + 2 * B * H * Tkv * D) + 4 * B * H * Tq
@@ -254,7 +306,7 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
     tol = 2e-5 if dtype == torch.float32 else 1.6e-2
     check(torch.isfinite(o).all().item(), "flash_fwd: non-finite output")
     rec = {"shape": [B, H, Tq, Tkv, D], "dtype": str(dtype),
-           "route": K.flash_attention._ROUTES[dtype],
+           "route": K.flash_attention.fwd_route(dtype, D),
            "causal": causal, "q_offset": q_offset, "kv_len": kv_len,
            "max_abs_err": err, "lse_err": lerr, "tol": tol}
     print(f"  K1 flash_fwd {rec}", flush=True)
@@ -267,7 +319,7 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
     flops = 4.0 * D * B * H * float(seen.sum())
     nbytes = (esz * (2 * B * H * Tq * D + 2 * B * H * kv_len * D)
               + 4 * B * H * Tq)
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, dtype, rec["route"])
     F = torch.nn.functional
     if q_offset == 0 and kv_len == Tkv:
         lib = lambda i: F.scaled_dot_product_attention(
@@ -290,6 +342,15 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
             qs[0], ks[0], vs[0], causal=causal, q_offset=q_offset,
             kv_len=kv_len)),
         bound_ms=bound_ms, bound_by=bound_by)
+    if rec["route"] == "f32_sm90":
+        with cuda_core_flash(torch):
+            rec["cuda_core_ms"] = graph_ms(torch, lambda i: K.flash_fwd(
+                qs[i], ks[i], vs[i], causal=causal, q_offset=q_offset,
+                kv_len=kv_len), sets)
+            rec["cuda_core_bound_ms"] = bound(nbytes, flops, dtype)[0]
+        rec["launch_ms"] = launch_ms(torch, lambda: K.flash_fwd(
+            qs[0], ks[0], vs[0], causal=causal, q_offset=q_offset,
+            kv_len=kv_len))
     print(f"  K1 timing {rec}", flush=True)
     return rec
 
@@ -329,7 +390,7 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
           f"flash_bwd returned {[x.dtype for x in got]}, expected {want_dt}")
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     rec = {"shape": [B, H, T, D], "dtype": str(dtype),
-           "route": K.flash_attention._ROUTES[dtype], "causal": causal,
+           "route": K.flash_attention._BWD_ROUTES[dtype], "causal": causal,
            "external_delta_f32_out": ring, "max_abs_err": max(errs),
            "err_dq_dk_dv": errs, "max_abs_grad": mag, "tol": tol,
            "rerun_bitwise_equal": bitwise}
@@ -668,7 +729,10 @@ def k4_case(torch, K, B, H, C, N, stride, dtype, timed, bias=None,
             xc, wc, stride=stride, padding=1), 1, reps=10))
     rec["bound_ms"], rec["bound_by"] = bound(
         e * (B * H * H * C + 9 * C * N + B * H2 * H2 * N) + 4 * (2 * C + 2 * N),
-        2.0 * B * H2 * H2 * 9 * C * N, dtype)
+        2.0 * B * H2 * H2 * 9 * C * N, dtype, rec["route"])
+    if rec["route"] == "f32_sm90":
+        rec["launch_ms"] = launch_ms(torch, lambda: K.fused_conv_fwd(
+            x, w, a, b, stride, True))
     print(f"  K4 timing {rec}", flush=True)
     return rec
 
@@ -740,31 +804,38 @@ FB = 32
 
 @contextlib.contextmanager
 def cuda_core_route(torch):
-    """K3 and K5 float32 calls on the CUDA-core route (csrc/fused_matmul.cu,
-    csrc/fused_chain.cu: float32 FMAs, the route of float32 shapes outside
-    the 3xTF32 rule, and of every float32 call before it), at any shape."""
-    from bigdl_tpu_torch.kernels import fused_chain as fc, fused_matmul as fm
-    rule = fm.route
+    """K3, K4 and K5 float32 calls on the CUDA-core route
+    (csrc/fused_matmul.cu, csrc/fused_conv.cu, csrc/fused_chain.cu: float32
+    FMAs, the route of float32 shapes outside the 3xTF32 rules, and of
+    every float32 call before them), at any shape."""
+    from bigdl_tpu_torch.kernels import (fused_chain as fc, fused_conv as fcv,
+                                         fused_matmul as fm)
+    rule, conv_rule = fm.route, fcv.route
     fm.route = fc.route = lambda dtype, k, n: (
         "f32" if dtype == torch.float32 else rule(dtype, k, n))
+    fcv.route = lambda dtype, c, n: (
+        "f32" if dtype == torch.float32 else conv_rule(dtype, c, n))
     try:
         yield
     finally:
         fm.route = fc.route = rule
+        fcv.route = conv_rule
 
 
 def resnet_shapes_f32(torch, K):
     """Every distinct ResNet-50 B32/224 shape of K3 and K5 (forward and
-    backward) in float32, the calls of phase 8, held against the plain
-    versions (two launches bit for bit; K5's h also into a NaN-filled
-    buffer) and timed with the library call and the bound, on the 3xTF32
-    route and then on the CUDA-core route; the plain versions are timed at
-    stage 0. Returns ({family: [(name, launches a step, timing)]} of each
-    route, {name: 3xTF32 case record})."""
+    backward) in float32, the calls of phase 8, and of K4 (phase 7's
+    float32 step runs it), held against the plain versions (two launches
+    bit for bit; K5's h also into a NaN-filled buffer) and timed with the
+    library call and the bound, on the 3xTF32 route and then on the
+    CUDA-core route; the plain versions are timed at stage 0. Returns
+    ({family: [(name, launches a step, timing)]} of each route, {name:
+    case record} of each route)."""
     f32 = torch.float32
-    fams = []
+    fams, recs_by_route = [], []
     for cc in (False, True):
-        fam = {"K3 fwd": [], "K3 bwd": [], "K5 fwd": [], "K5 bwd": []}
+        fam = {"K3 fwd": [], "K3 bwd": [], "K5 fwd": [], "K5 bwd": [],
+               "K4": []}
         recs = {}
         with (cuda_core_route(torch) if cc else contextlib.nullcontext()):
             for name, (M, Kd, N, pro), n in RESNET_K3:
@@ -779,13 +850,16 @@ def resnet_shapes_f32(torch, K):
                     plain=name == "s0 junction" and not cc, nan_h=True)
                 fam["K5 fwd"].append((name, n, r["fwd"]))
                 fam["K5 bwd"].append((name, n, r["bwd"]))
+            for name, (H, C, N, st), n in RESNET_K4:
+                r = recs[name] = k4_case(torch, K, FB, H, C, N, st, f32, True,
+                                         plain=name == "s0 3x3" and not cc)
+                fam["K4"].append((name, n, r))
         want = "f32" if cc else "f32_sm90"
         check(all(r["route"] == want for r in recs.values()),
               f"float32 ResNet-50 shapes off the {want} route: "
               f"{ {k: r['route'] for k, r in recs.items()} }")
         fams.append(fam)
-        if not cc:
-            recs32 = recs
+        recs_by_route.append(recs)
     for f, rows in fams[0].items():
         for (name, n, r), (_, _, o) in zip(rows, fams[1][f]):
             print(f"  float32 B{FB} {f} {name}: {n} a step x {r['ms']:.4f} "
@@ -793,7 +867,7 @@ def resnet_shapes_f32(torch, K):
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
                   f"{r['bound_by']}; CUDA-core bound {o['bound_ms']:.4f})",
                   flush=True)
-    return fams, recs32
+    return fams, recs_by_route
 
 
 def _print_families(fam):
@@ -921,14 +995,16 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
     check(counts == want, f"LocalOptimizer launched {counts}, expected "
           f"{want}")
     routes = K.launches_by_route()
-    check(all(only_on(routes[n], "f32", want[n])
-              for n in ("flash_fwd", "flash_bwd")),
+    check(only_on(routes["flash_fwd"], "f32_sm90", want["flash_fwd"])
+          and only_on(routes["flash_bwd"], "f32", want["flash_bwd"]),
           f"LocalOptimizer (float32 params): flash launches by route "
-          f"{routes}, all expected on f32")
+          f"{routes}, expected the forward all on f32_sm90 and the "
+          f"backward all on f32")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"LocalOptimizer losses {losses}")
     return {"losses": losses, "wall_s": dt,
-            "step_s": opt.metrics.values["step_time"], "launches": counts}
+            "step_s": opt.metrics.values["step_time"], "launches": counts,
+            "routes": routes}
 
 
 # -- phases 7 and 8: ResNet-50 training ---------------------------------------------
@@ -990,10 +1066,10 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     rec["fused_routes"] = {n: routes[n] for n in (
         "fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
         "fused_chain_bwd", "fused_conv_fwd")}
-    # bf16: every fused launch on bf16_sm90; float32: K3 and K5 on the
-    # 3xTF32 route, K4 on the CUDA cores
-    want = {n: "bf16_sm90" if bf16 else "f32" if n == "fused_conv_fwd"
-            else "f32_sm90" for n in rec["fused_routes"]}
+    # bf16: every fused launch on bf16_sm90; float32: every one on the
+    # 3xTF32 route
+    want = {n: "bf16_sm90" if bf16 else "f32_sm90"
+            for n in rec["fused_routes"]}
     check(all(r[want[n]] > 0 and sum(r.values()) == r[want[n]]
               for n, r in rec["fused_routes"].items()),
           f"ResNet-50 on the card ({dtype}): fused launches by route "
@@ -1271,7 +1347,8 @@ def main():
     bf, f32 = torch.bfloat16, torch.float32
     # K1-fwd: bf16 (tensor-core route) at the three timed shapes (serving
     # prefill, prefill_chunked piece, training), ragged T, D = 32 and 128,
-    # non-causal Tq != Tkv and kv_len = 0; float32 (CUDA-core route) beside
+    # non-causal Tq != Tkv and kv_len = 0; float32 (3xTF32 route, D <= 112)
+    # beside
     k1_main = flash_case(torch, K, 8, 16, 128, 128, 64, bf, True, 0, 128,
                          timed=True)
     flash_case(torch, K, 8, 16, 128, 128, 64, f32, True, 0, 128, False)
@@ -1289,9 +1366,19 @@ def main():
     flash_case(torch, K, 8, 16, 32, 384, 64, f32, True, 96, 128, False)
     k1_train = flash_case(torch, K, 16, 16, 1024, 1024, 64, bf, True, 0,
                           1024, timed=True)
-    # the float32 route at the LocalOptimizer shape (phase 6: B8/T256)
+    # the float32 route at the LocalOptimizer shape (phase 6: B8/T256) and
+    # at T = 1024, each also on the CUDA-core route; then a head dim past
+    # the 3xTF32 kernel's widest (112), which stays on the CUDA cores
     k1_f32 = flash_case(torch, K, 8, 16, 256, 256, 64, f32, True, 0, 256,
                         timed=True)
+    k1_f32_long = flash_case(torch, K, 2, 16, 1024, 1024, 64, f32, True, 0,
+                             1024, timed=True)
+    k1_f32_wide = flash_case(torch, K, 8, 16, 256, 256, 128, f32, True, 0,
+                             256, timed=True)
+    check(k1_f32["route"] == k1_f32_long["route"] == "f32_sm90"
+          and k1_f32_wide["route"] == "f32",
+          f"float32 flash routes {k1_f32['route']}, {k1_f32_long['route']}, "
+          f"{k1_f32_wide['route']}: expected f32_sm90 at D = 64, f32 at 128")
     # K1-bwd: bf16 at the training shape, ragged T, D = 32 and 128, the
     # ring form (external delta, float32 gradients); float32 beside
     k1b_main = bwd_case(torch, K, 16, 16, 1024, 64, bf, True, timed=True)
@@ -1310,10 +1397,11 @@ def main():
             for pdt in (f32, bf):
                 paged_case(torch, K, 8, 16, kvh, S, 64, 16, pdt, False)
     # head dims: every instantiation the first cases left out (each
-    # multiple of 16 up to 128 on the bf16 flash kernels, up to 256 on the
-    # float32 flash forward and K2, up to 192 on the float32 backward) and
-    # the padded route of each kernel (a D not a multiple of 16), each
-    # against its plain version; then the launches by route
+    # multiple of 16 up to 128 on the bf16 flash kernels, up to 112 on the
+    # float32 flash forward's 3xTF32 route and up to 256 on its CUDA-core
+    # route and on K2, up to 192 on the float32 backward) and the padded
+    # route of each kernel (a D not a multiple of 16), each against its
+    # plain version; then the launches by route
     K.reset_launch_counts()
     new_dims = [d for d in range(16, 257, 16) if d not in (32, 64, 128)]
     for D in new_dims:
@@ -1334,17 +1422,20 @@ def main():
     n_f32 = len(new_dims)
     n_bwd = len([d for d in new_dims if d <= 192])
     n_bf = len([d for d in new_dims if d <= 128])
-    # bwd_case launches the forward once and the backward twice (the rerun
-    # check)
+    n_tc = len([d for d in new_dims if d <= 112])
+    # float32: flash_case launches the forward once, bwd_case the forward
+    # once (3xTF32 up to D = 112) and the backward twice (the rerun check)
     hd_want = {
         "flash_fwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
-                      "f32": n_f32 + n_bwd, "f32_padded": 2},
+                      "f32_sm90": 2 * n_tc, "f32_sm90_padded": 2,
+                      "f32": n_f32 + n_bwd - 2 * n_tc, "f32_padded": 0},
         "flash_bwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
                       "f32": 2 * n_bwd, "f32_padded": 2},
         "paged_attention": {"f32": n_f32, "f32_padded": 1, "bf16": n_bf,
                             "bf16_padded": 0}}
     print(f"    head dims {new_dims} (bf16 flash and K2 up to 128, float32 "
-          f"backward up to 192), padded D = 40 / 100; launches by route "
+          f"forward on 3xTF32 up to 112, float32 backward up to 192), "
+          f"padded D = 40 / 100; launches by route "
           f"{ {n: hd_routes[n] for n in hd_want} }", flush=True)
     check(all(hd_routes[n] == r for n, r in hd_want.items()),
           f"head-dim cases launched {hd_routes}, expected {hd_want}")
@@ -1376,8 +1467,11 @@ def main():
     # K3 and K5 in float32: the 3xTF32 route (K and N multiples of 4) at M
     # = 147 without statistics, contraction and column tails (K = 20 and
     # 132, N = 36 and 68) and the ReLU's tie; the CUDA-core route for K or
-    # N not a multiple of 4; then the launches by route (each case launches
-    # the forward and the backward twice: the rerun check)
+    # N not a multiple of 4; K4 in float32 on the 3xTF32 route (C a
+    # multiple of 32) at pad taps where relu(b) = 1, stride 1 and 2, and on
+    # the CUDA-core route at C = 72; then the launches by route (each K3 /
+    # K5 case launches the forward and the backward twice, each K4 case the
+    # forward twice: the rerun check)
     K.reset_launch_counts()
     k3_case(torch, K, 147, 64, 256, f32, True, True, False, False)
     k3_case(torch, K, 200, 20, 36, f32, True, True, True, False)
@@ -1386,25 +1480,34 @@ def main():
     k5_case(torch, K, 3, 7, 256, 64, f32, False, stats=False)
     k5_case(torch, K, 3, 7, 256, 64, f32, False, tie=True, nan_h=True)
     k5_case(torch, K, 2, 5, 42, 20, f32, False)
+    k4_case(torch, K, 2, 7, 64, 64, 1, f32, False, bias=1.0)
+    k4_case(torch, K, 2, 9, 64, 64, 2, f32, False, bias=1.0)
+    k4_case(torch, K, 2, 9, 72, 16, 1, f32, False, bias=2.0)
     f32_routes = K.launches_by_route()
     f32_want = {"fused_matmul_fwd": {"f32_sm90": 6, "f32": 2},
                 "fused_matmul_bwd": {"f32_sm90": 6, "f32": 2},
                 "fused_chain_fwd": {"f32_sm90": 4, "f32": 2},
-                "fused_chain_bwd": {"f32_sm90": 4, "f32": 2}}
-    print(f"    float32 K3 / K5 cases, launches by route "
+                "fused_chain_bwd": {"f32_sm90": 4, "f32": 2},
+                "fused_conv_fwd": {"f32_sm90": 4, "f32": 2}}
+    print(f"    float32 K3 / K4 / K5 cases, launches by route "
           f"{ {n: f32_routes[n] for n in f32_want} }", flush=True)
     check(all(f32_routes[n] == {r: w.get(r, 0) for r in f32_routes[n]}
               for n, w in f32_want.items()),
-          f"float32 K3 / K5 cases launched {f32_routes}, expected {f32_want}")
+          f"float32 K3 / K4 / K5 cases launched {f32_routes}, expected "
+          f"{f32_want}")
     # every ResNet-50 B256/224 shape of K3, K4 and K5, checked and timed
     fam, recs = resnet_shapes(torch, K)
     k3_s0, k3_s3, k5_s0 = recs["s0 conv3"], recs["s3 proj"], recs["s0 junction"]
     k4_s0, k4_s1 = recs["s0 3x3"], recs["s1 3x3/2"]
-    # the float32 routes at phase 8's shapes (B32): every K3 and K5 shape on
-    # the 3xTF32 route, K4's stage-0 3x3 on the CUDA cores
-    (fam32, fam_cc), recs32 = resnet_shapes_f32(torch, K)
+    # the float32 routes at phase 8's shapes (B32): every K3, K4 and K5
+    # shape on the 3xTF32 route, then on the CUDA-core route
+    (fam32, fam_cc), (recs32, recs_cc) = resnet_shapes_f32(torch, K)
     k3_f32, k5_f32 = recs32["s0 conv3"], recs32["s0 junction"]
-    k4_f32 = k4_case(torch, K, 32, 56, 64, 64, 1, f32, timed=True)
+    k4_f32 = recs32["s0 3x3"]
+    # the CUDA-core route's row (now taken by K4 float32 shapes with C not
+    # a multiple of 32 only) at the same shape; the plain version is the
+    # same function on the same inputs
+    k4_cc = dict(recs_cc["s0 3x3"], plain_ms=k4_f32["plain_ms"])
     # the K5 bf16 stage-0 junction's limits (ms a call)
     check(k5_s0["fwd"]["ms"] <= 1.0 and k5_s0["bwd"]["ms"] <= 3.0,
           f"K5 stage-0 junction over its limits (1.0 ms forward, 3.0 ms "
@@ -1417,6 +1520,15 @@ def main():
     check(all(f32_ms[k] <= v for k, v in F32_LIMITS.items()),
           f"3xTF32 stage-0 B32 calls over their limits {F32_LIMITS}: "
           f"{f32_ms}")
+    # the float32 flash forward and K4 on 3xTF32 against one library call
+    # computing the same function, timed in this run: SDPA at phase 6's
+    # shape, cuDNN's float32 conv (TF32 off) at stage 0, B32
+    lib_ms = {"K1-fwd f32 (8,16,256,64)": (k1_f32["ms"], k1_f32["library_ms"]),
+              "K4 f32 s0 B32": (k4_f32["ms"], k4_f32["library_ms"])}
+    print(f"    3xTF32 (ms, library ms) {lib_ms}", flush=True)
+    check(all(ms < lib for ms, lib in lib_ms.values()),
+          f"3xTF32 flash forward or K4 not faster than the library call: "
+          f"{lib_ms}")
 
     # -- phase 3: generate on the flagship model ---------------------------
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
@@ -1658,8 +1770,12 @@ def main():
                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                "bound_by": rec["bound_by"],
                "library_ms": rec["library_ms"]}
-        if "route" in rec:          # the flash wrappers' route by dtype
+        if "route" in rec:          # the wrapper's route (dtype, shape rule)
             out["dtype_route"] = rec["route"]
+        if "cuda_core_ms" in rec:   # a 3xTF32 row's CUDA-core route, same call
+            out["cuda_core_ms"] = rec["cuda_core_ms"]
+        if "launch_ms" in rec:      # ms covers these launches (profiler)
+            out["launch_ms"] = rec["launch_ms"]
         return out
 
     for name, rec in (
@@ -1668,7 +1784,12 @@ def main():
              k1_chunk),
             ("flash_fwd training shape (16x16, T=1024, causal, bf16)",
              k1_train),
-            ("flash_fwd float32 route (8x16, T=256, causal)", k1_f32),
+            ("flash_fwd float32 3xTF32 route, split + attention kernel "
+             "(8x16, T=256, causal)", k1_f32),
+            ("flash_fwd float32 3xTF32 route (2x16, T=1024, causal)",
+             k1_f32_long),
+            ("flash_fwd float32 CUDA-core route, D=128 (8x16, T=256, causal)",
+             k1_f32_wide),
             ("flash_bwd training shape (16x16, T=1024, causal, bf16)",
              k1b_main),
             ("flash_bwd float32 route (8x16, T=256, causal)", k1b_f32),
@@ -1680,7 +1801,12 @@ def main():
               + (f", host call {rec['host_ms']:.4f} ms" if "host_ms" in rec
                  else "")
               + (f" (delta op {rec['delta_ms']:.4f} ms, kernel pair "
-                 f"{rec['kernels_ms']:.4f} ms)" if "delta_ms" in rec else ""))
+                 f"{rec['kernels_ms']:.4f} ms)" if "delta_ms" in rec else "")
+              + (f"; CUDA-core route {rec['cuda_core_ms']:.4f} ms (bound "
+                 f"{rec['cuda_core_bound_ms']:.4f})" if "cuda_core_ms" in rec
+                 else "")
+              + (f"; launches (profiler, ms a call) {rec['launch_ms']}"
+                 if "launch_ms" in rec else ""))
     off, on = rn_arms[0]["launches"], rn_arms[1]["launches"]
     for name, rec in (("K3-nhwc stage-0 conv3 fwd", k3_s0["fwd"]),
                       ("K3-nhwc stage-0 conv3 bwd", k3_s0["bwd"]),
@@ -1691,10 +1817,15 @@ def main():
                       ("K3 float32 stage-0 conv3 bwd (B32)", k3_f32["bwd"]),
                       ("K5 float32 stage-0 junction fwd (B32)", k5_f32["fwd"]),
                       ("K5 float32 stage-0 junction bwd (B32)", k5_f32["bwd"]),
-                      ("K4 stage-0 3x3", k4_s0), ("K4 stage-1 3x3/2", k4_s1)):
+                      ("K4 stage-0 3x3", k4_s0), ("K4 stage-1 3x3/2", k4_s1),
+                      ("K4 float32 stage-0 3x3 (B32)", k4_f32),
+                      ("K4 float32 stage-0 3x3 (B32), CUDA-core route",
+                       k4_cc)):
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"bare product {rec['library_ms']:.4f}, bound "
-              f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+              f"{rec['bound_ms']:.4f} ({rec['bound_by']})"
+              + (f"; launches (profiler, ms a call) {rec['launch_ms']}"
+                 if "launch_ms" in rec else ""))
     # launches x ms of each fused family over the ResNet-50 shapes, against
     # the measured steps (K4 runs in the fused_conv2 arm only)
     step_off, step_on = (r["step_s"] * 1e3 for r in rn_arms)
@@ -1707,19 +1838,22 @@ def main():
               f"sum of launches x ms {tot:.3f} ms = {tot / step:.1%} of the "
               f"{step:.1f} ms step (fused_conv2={f == 'K4'}); library "
               f"{lib:.3f} ms, bound {bnd:.3f} ms", flush=True)
-    # the same for the float32 K3 and K5 calls at B32 against phase 8's
-    # steps (the median of the steps after the first)
+    # the same for the float32 K3, K4 and K5 calls at B32 against phase 8's
+    # steps (the median of the steps after the first; K4 runs only with
+    # fused_conv2, which phase 8 leaves off)
     step8 = statistics.median(r8["step_s"][1:]) * 1e3
     tot32 = tot_cc = 0.0
     for f, rows in fam32.items():
         tot = sum(n * r["ms"] for _, n, r in rows)
         cc = sum(n * r["ms"] for _, n, r in fam_cc[f])
-        tot32 += tot
-        tot_cc += cc
+        if f != "K4":
+            tot32 += tot
+            tot_cc += cc
+        share = ("with fused_conv2 only, not in phase 8's step" if f == "K4"
+                 else f"{tot / step8:.1%} of phase 8's {step8:.1f} ms step")
         print(f"    float32 {f} (B32): {sum(n for _, n, _ in rows)} launches "
-              f"a step, sum of launches x ms {tot:.3f} ms = "
-              f"{tot / step8:.1%} of phase 8's {step8:.1f} ms step (CUDA-core "
-              f"route {cc:.3f} ms); library "
+              f"a step, sum of launches x ms {tot:.3f} ms = {share} "
+              f"(CUDA-core route {cc:.3f} ms); library "
               f"{sum(n * r['library_ms'] for _, n, r in rows):.3f} ms, bound "
               f"{sum(n * r['bound_ms'] for _, n, r in rows):.3f} ms",
               flush=True)
@@ -1747,9 +1881,14 @@ def main():
         kernel_rec("flash_bwd", "bigdl_tpu_torch/csrc/flash_bwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_main,
                    arms[0]["launches"]["flash_bwd"]),
-        kernel_rec("flash_fwd_f32", "bigdl_tpu_torch/csrc/flash_fwd.cu",
+        kernel_rec("flash_fwd_f32",
+                   "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32,
-                   r6["launches"]["flash_fwd"]),
+                   r6["routes"]["flash_fwd"]["f32_sm90"]),
+        kernel_rec("flash_fwd_f32_cuda_cores",
+                   "bigdl_tpu_torch/csrc/flash_fwd.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:128", k1_f32_wide,
+                   r6["routes"]["flash_fwd"]["f32"]),
         kernel_rec("flash_bwd_f32", "bigdl_tpu_torch/csrc/flash_bwd.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
                    r6["launches"]["flash_bwd"]),
@@ -1810,8 +1949,14 @@ def main():
         kernel_rec("fused_conv_s2", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s1,
                    on["fused_conv_fwd"]),
-        kernel_rec("fused_conv_f32", "bigdl_tpu_torch/csrc/fused_conv.cu",
-                   "bigdl_tpu/kernels/fused_conv.py:188", k4_f32,
+        kernel_rec("fused_conv_f32",
+                   "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188",
+                   dict(k4_f32, cuda_core_ms=k4_cc["ms"]),
+                   r7["fused_routes"]["fused_conv_fwd"]["f32_sm90"]),
+        kernel_rec("fused_conv_f32_ragged",
+                   "bigdl_tpu_torch/csrc/fused_conv.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,
                    r7["fused_routes"]["fused_conv_fwd"]["f32"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

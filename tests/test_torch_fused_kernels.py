@@ -339,4 +339,5 @@ def test_each_library_digest_covers_the_headers_its_source_includes():
     assert fused == {"fused_matmul", "fused_chain", "fused_conv",
                      "fused_matmul_sm90", "fused_conv_sm90",
                      "fused_chain_sm90", "fused_matmul_tf32_sm90",
-                     "fused_chain_tf32_sm90"}
+                     "fused_chain_tf32_sm90", "fused_conv_tf32_sm90",
+                     "flash_fwd_tf32_sm90"}

@@ -1,7 +1,7 @@
 """Routes of the fused ResNet kernels K3 (``fused_matmul``), K4
 (``fused_conv``) and K5 (``fused_chain``): which CUDA kernel a call on the
 card takes, that every ResNet-50 call takes a tensor-core route (bf16 at
-B256/224; K3 and K5 in float32, 3xTF32, at B32 and B256), that the
+B256/224; K3, K4 and K5 in float32, 3xTF32, at B32 and B256), that the
 wrappers' partial and split sizes cover every row once, and that calls on
 the CPU launch nothing. The kernels themselves run only on the card
 (``chip_smoke.py``)."""
@@ -18,10 +18,10 @@ from bigdl_tpu_torch.kernels import fused_conv as fc
 from bigdl_tpu_torch.kernels import fused_matmul as fm
 
 torch.set_num_threads(1)
-ROUTES = {"bf16_sm90", "bf16_ragged", "f32_sm90", "f32"}   # K3, K5
-K4_ROUTES = {"bf16_sm90", "bf16_ragged", "f32"}
+ROUTES = {"bf16_sm90", "bf16_ragged", "f32_sm90", "f32"}   # K3, K4, K5
 TENSOR_CORE_LIBS = ["fused_matmul_sm90", "fused_conv_sm90", "fused_chain_sm90",
-                    "fused_matmul_tf32_sm90", "fused_chain_tf32_sm90"]
+                    "fused_matmul_tf32_sm90", "fused_chain_tf32_sm90",
+                    "fused_conv_tf32_sm90", "flash_fwd_tf32_sm90"]
 
 # ResNet-50 at B256/224: the shape tables chip_smoke.py checks and times
 # on the card (models/resnet.py: conv1 of block 0, conv3 and projection per
@@ -47,9 +47,10 @@ def test_resnet50_tables_hold_every_fused_launch_of_a_step():
 def test_fused_routes_by_dtype_and_one_shape_rule():
     """bf16 with contraction and columns multiples of 8 goes to the
     tensor-core sources, other bf16 shapes to the CUDA-core ones; K3 and
-    K5 in float32 with multiples of 4 go to the 3xTF32 sources, other
-    float32 shapes (and every float32 K4 call) to the CUDA-core ones; every
-    route's library is in the build list with its headers."""
+    K5 in float32 with multiples of 4, and K4 in float32 with C a multiple
+    of 32 and N of 4, go to the 3xTF32 sources, other float32 shapes to the
+    CUDA-core ones; every route's library is in the build list with its
+    headers."""
     assert fm._ROUTES == {torch.bfloat16: ("bf16_sm90", 8, "bf16_ragged"),
                           torch.float32: ("f32_sm90", 4, "f32")}
     assert fm.route(torch.bfloat16, 64, 256) == "bf16_sm90"
@@ -57,18 +58,22 @@ def test_fused_routes_by_dtype_and_one_shape_rule():
     assert fm.route(torch.bfloat16, 130, 64) == "bf16_ragged"
     assert fm.route(torch.bfloat16, 64, 70) == "bf16_ragged"
     assert fm.route(torch.float32, 64, 256) == "f32_sm90"
-    assert fc.route(torch.float32, 64, 64) == "f32"
+    assert fc.route(torch.float32, 64, 64) == "f32_sm90"
+    assert fc.route(torch.float32, 72, 16) == "f32"
     assert fc.route(torch.bfloat16, 64, 64) == "bf16_sm90"
     for table in (fm._FWD_FN, fm._BWD_FN, fc._FWD_FN, fch._FWD_FN,
                   fch._BWD_FN):
-        assert set(table) == (K4_ROUTES if table is fc._FWD_FN else ROUTES)
+        assert set(table) == ROUTES
         assert table["bf16_sm90"][0].endswith("_sm90")
         assert table["bf16_ragged"] == table["f32"]
         for lib, _ in table.values():
             for f in _build.SOURCES[lib]:
                 assert (_build.CSRC / f).exists(), f
-    for table in (fm._FWD_FN, fm._BWD_FN, fch._FWD_FN, fch._BWD_FN):
+    for table in (fm._FWD_FN, fm._BWD_FN, fc._FWD_FN, fch._FWD_FN,
+                  fch._BWD_FN):
         assert table["f32_sm90"][0].endswith("_tf32_sm90")
+    assert fc._FWD_FN["f32_sm90"] == ("fused_conv_tf32_sm90",
+                                      "bigdl_fused_conv_tf32_sm90_fwd")
     assert fch._FWD_FN["bf16_sm90"] == ("fused_chain_sm90",
                                         "bigdl_fused_chain_sm90_fwd")
     assert fch._BWD_FN["f32_sm90"] == ("fused_chain_tf32_sm90",
@@ -77,8 +82,7 @@ def test_fused_routes_by_dtype_and_one_shape_rule():
     assert fch.route is fm.route      # K5 takes K3's rule over (K, N)
     for name in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_conv_fwd",
                  "fused_chain_fwd", "fused_chain_bwd"):
-        assert set(kernels.WRAPPERS[name].launches_by_route) == (
-            K4_ROUTES if name == "fused_conv_fwd" else ROUTES)
+        assert set(kernels.WRAPPERS[name].launches_by_route) == ROUTES
 
 
 @pytest.mark.parametrize("k,n", [(64, 256), (4, 4), (20, 36), (132, 68),
@@ -104,7 +108,7 @@ def test_tensor_core_sources_call_no_library(lib):
             assert word not in text, (f, word)
     tf32 = lib.endswith("_tf32_sm90")
     header = "fused_gemm_tf32_sm90.cuh" if tf32 else "fused_gemm_sm90.cuh"
-    core = (_build.CSRC / header).read_text()
+    core = "".join((_build.CSRC / f).read_text() for f in _build.SOURCES[lib])
     assert header in _build.SOURCES[lib]
     assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k8\.f32\.tf32"
                      if tf32 else
@@ -121,6 +125,36 @@ def test_resnet50_k3_calls_take_the_tensor_core_route(M, K, N):
     assert (parts - 1) * rows < M <= parts * rows
     splits, per = fm.dw_splits_sm90(M, K, N)
     assert per % 128 == 0 and (splits - 1) * per < M <= splits * per
+
+
+@pytest.mark.parametrize("k,n", [(64, 64), (512, 512), (32, 40), (96, 36),
+                                 (72, 16), (16, 24), (64, 70), (48, 64),
+                                 (2048, 4)])
+def test_k4_float32_route_rule(k, n):
+    """float32 K4: C a multiple of 32 (a 32-deep chunk of the contraction
+    is one tap) and N of 4 (TMA rows of 16-byte multiples) take the 3xTF32
+    route, any other shape the CUDA cores; partials per route."""
+    want = "f32_sm90" if k % 32 == 0 and n % 4 == 0 else "f32"
+    assert fc.route(torch.float32, k, n) == want
+    assert fm._PART_ROWS[want] == (64 if want == "f32_sm90" else fm._BM)
+
+
+@pytest.mark.parametrize("batch", [32, 256])
+@pytest.mark.parametrize("H,C,N,stride", K4_SHAPES)
+def test_resnet50_k4_float32_calls_take_the_3xtf32_route(H, C, N, stride,
+                                                         batch):
+    """Every K4 call of a float32 ResNet-50 step with fused_conv2 (phase
+    7's float32 step, B32 as phase 8, and B256) takes f32_sm90; one
+    partial per 64 rows covers every output pixel once; the weight's
+    split scratch holds its hi and lo halves."""
+    assert fc.route(torch.float32, C, N) == "f32_sm90"
+    H2 = -(-H // stride)
+    M = batch * H2 * H2
+    rows = fm._PART_ROWS["f32_sm90"]
+    parts = -(-M // rows)
+    assert (parts - 1) * rows < M <= parts * rows
+    wsp, extra = fm._wsplit("f32_sm90", 9 * C, N, "cpu")
+    assert wsp.numel() == 2 * 9 * C * N and extra == (wsp.data_ptr(),)
 
 
 @pytest.mark.parametrize("H,C,N,stride", K4_SHAPES)

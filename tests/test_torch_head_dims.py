@@ -3,14 +3,15 @@
 JAX's Pallas kernels take the whole head dim D as one block, so a
 TransformerLM with D = 96 (hidden 768, 8 heads) or 16 runs there. The
 port's CUDA kernels are instantiated per D: every multiple of 16 up to 256
-on the CUDA-core routes (the float32 flash backward up to 192) and up to
-128 on the bf16 tensor-core route; another D takes the next wider
-instantiation, zero-padded (the padded route), and a D past the widest
-raises. These tests hold the plain versions against the Pallas
-kernels in interpret mode at D = 16 and 96, and the wrappers' tables
-against the ``case`` lines of the CUDA sources. The kernels themselves,
-padded route included, are held against the plain versions on the card by
-``chip_smoke.py``.
+on the CUDA-core routes (the float32 flash backward up to 192), up to 128
+on the bf16 tensor-core route and up to 112 on the float32 flash
+forward's 3xTF32 route (a wider float32 forward takes the CUDA cores);
+another D takes the next wider instantiation on its route, zero-padded
+(the padded route), and a D past the widest raises. These tests hold the
+plain versions against the Pallas kernels in interpret mode at D = 16 and
+96, and the wrappers' tables against the ``case`` lines of the CUDA
+sources. The kernels themselves, padded route included, are held against
+the plain versions on the card by ``chip_smoke.py``.
 
 Tolerance, float32: atol = rtol = 1e-5 (same softmax in float32, other
 summation order and exp implementation; the backward here sums at most
@@ -105,12 +106,14 @@ def _cases(source, pattern):
      r"case (\d+): return bigdl::launch_bwd"),
     (fa._FWD_DIMS, "bf16_sm90", "flash_fwd_sm90.cu",
      r"case (\d+): return bigdl::sm90::launch_fwd"),
+    (fa._FWD_DIMS, "f32_sm90", "flash_fwd_tf32_sm90.cu",
+     r"case (\d+): return bigdl_fg::sm90::tf32::launch_flash"),
     (fa._BWD_DIMS, "bf16_sm90", "flash_bwd_sm90.cu",
      r"case (\d+): return launch_bwd"),
     ({"pages": pa._DIMS}, "pages", "paged_attention.cu",
      r"case (\d+): return dispatch_tpr"),
-], ids=["flash_fwd_f32", "flash_bwd_f32", "flash_fwd_bf16", "flash_bwd_bf16",
-        "paged"])
+], ids=["flash_fwd_f32", "flash_bwd_f32", "flash_fwd_bf16",
+        "flash_fwd_f32_tf32", "flash_bwd_bf16", "paged"])
 def test_every_claimed_head_dim_is_instantiated_or_padded(table, route,
                                                           source, pattern):
     """The wrapper's table is exactly the source's instantiations; every D
@@ -135,6 +138,11 @@ def test_routes_cover_every_multiple_of_16_up_to_their_widest():
     assert pa._DIMS == tuple(range(16, 257, 16))
     assert fa._FWD_DIMS["bf16_sm90"] == fa._BWD_DIMS["bf16_sm90"] == tuple(
         range(16, 129, 16))
+    assert fa._FWD_DIMS["f32_sm90"] == tuple(range(16, 113, 16))
+    # float32 forward: past 112 the CUDA-core route, padded there too
+    assert [fa.fwd_route(torch.float32, d) for d in (112, 113, 128, 256)] == [
+        "f32_sm90", "f32", "f32", "f32"]
+    assert fa.head_dim_width("t", "f32", 120, fa._FWD_DIMS["f32"]) == 128
     # the padded route takes the rest: D = 40 -> 48, 100 -> 112, 8 -> 16
     assert [fa.head_dim_width("t", "bf16_sm90", d, fa._FWD_DIMS["bf16_sm90"])
             for d in (40, 100, 8, 96)] == [48, 112, 16, 96]
@@ -154,6 +162,9 @@ def test_cpu_calls_at_any_head_dim_take_the_plain_version(D):
                                    torch.zeros((1,), dtype=torch.int32))
     routes = kernels.launches_by_route()
     assert set(routes["flash_fwd"]) == {"bf16_sm90", "bf16_sm90_padded",
+                                        "f32_sm90", "f32_sm90_padded",
+                                        "f32", "f32_padded"}
+    assert set(routes["flash_bwd"]) == {"bf16_sm90", "bf16_sm90_padded",
                                         "f32", "f32_padded"}
     assert set(routes["paged_attention"]) == {"f32", "f32_padded", "bf16",
                                               "bf16_padded"}

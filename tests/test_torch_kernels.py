@@ -234,31 +234,55 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_flash_routes_by_dtype_one_kernel_each():
-    """bf16 goes to the tensor-core sources, float32 to the CUDA-core ones;
-    every route's library is in the build list with its header, and each
-    source exists."""
+    """bf16 goes to the tensor-core sources; the float32 forward to the
+    3xTF32 source up to its widest head dim and to the CUDA-core one past
+    it, the float32 backward to the CUDA-core one; every route's library is
+    in the build list with its headers, and each source exists."""
     from bigdl_tpu_torch.kernels import _build
     from bigdl_tpu_torch.kernels import flash_attention as fa
-    assert fa._ROUTES == {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+    assert fa._BWD_ROUTES == {torch.bfloat16: "bf16_sm90",
+                              torch.float32: "f32"}
+    assert set(fa._FWD_FN) == {"bf16_sm90", "f32_sm90", "f32"}
+    assert set(fa._BWD_FN) == set(fa._BWD_ROUTES.values())
     for table in (fa._FWD_FN, fa._BWD_FN):
-        assert set(table) == set(fa._ROUTES.values())
         libs = {route: lib for route, (lib, _) in table.items()}
         assert libs["bf16_sm90"].endswith("_sm90")
         for lib in libs.values():
-            src, header = _build.SOURCES[lib]
-            assert (_build.CSRC / src).exists()
-            assert (_build.CSRC / header).exists()
+            for f in _build.SOURCES[lib]:
+                assert (_build.CSRC / f).exists(), f
+    assert fa._FWD_FN["f32_sm90"] == ("flash_fwd_tf32_sm90",
+                                      "bigdl_flash_fwd_tf32_sm90")
     assert _build.SOURCES["flash_fwd_sm90"][1] == "attn_sm90.cuh"
+    assert "fused_gemm_tf32_sm90.cuh" in _build.SOURCES["flash_fwd_tf32_sm90"]
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 64, 100, 112, 113, 120, 128, 256])
+def test_flash_forward_route_by_dtype_and_head_dim(d):
+    """float32: 3xTF32 up to D = 112 (padded between its instantiations),
+    the CUDA cores past it; bf16: its tensor-core route at any D it
+    takes; the backward keeps one route a dtype."""
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    want = "f32_sm90" if d <= 112 else "f32"
+    assert fa.fwd_route(torch.float32, d) == want
+    assert fa.fwd_route(torch.bfloat16, d) == "bf16_sm90"
+    w = fa.head_dim_width("t", want, d, fa._FWD_DIMS[want])
+    assert w >= d and w - d < 16
+    kv, extra = fa._kv_split(want, 2, 3, 77, w, "cpu")
+    if want == "f32_sm90":
+        assert kv.numel() == 4 * 2 * 3 * 80 * w and extra == (kv.data_ptr(),)
+    else:
+        assert kv is None and extra == ()
 
 
 def test_cpu_flash_calls_count_no_launch_on_any_route():
     kernels.reset_launch_counts()
     fused = {"bf16_sm90": 0, "bf16_ragged": 0, "f32_sm90": 0, "f32": 0}
-    conv = {"bf16_sm90": 0, "bf16_ragged": 0, "f32": 0}
+    conv = fused
     flash = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32": 0,
              "f32_padded": 0}
+    fwd = dict(flash, f32_sm90=0, f32_sm90_padded=0)
     assert kernels.launches_by_route() == {
-        "flash_fwd": flash, "flash_bwd": flash,
+        "flash_fwd": fwd, "flash_bwd": flash,
         "paged_attention": {"f32": 0, "f32_padded": 0, "bf16": 0,
                             "bf16_padded": 0},
         "fused_matmul_fwd": fused, "fused_matmul_bwd": fused,
