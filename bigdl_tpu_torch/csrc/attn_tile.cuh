@@ -1,7 +1,8 @@
-// Shared core of the two attention kernels (flash_fwd.cu, paged_attention.cu):
-// one 256-thread block owns R = 256 / TPR query rows, TPR lanes per row, and
-// streams 64-key K/V tiles through shared memory with a float32 online
-// softmax (m, l, acc) kept in registers.
+// Shared core of the CUDA-core attention kernels (flash_fwd.cu,
+// paged_attention.cu; flash_bwd.cu and paged_attention_sm90.cu use parts of
+// it): one 256-thread block owns R = 256 / TPR query rows, TPR lanes per
+// row, and streams 64-key K/V tiles through shared memory with a float32
+// online softmax (m, l, acc) kept in registers.
 //
 // Lane `sub` of a row computes the logits of keys sub, sub + TPR, ... and owns
 // the output columns sub, sub + TPR, ... (interleaved so that neighbouring

@@ -1,5 +1,6 @@
-// Flash attention backward (K1-bwd) for Hopper, float32 (bf16 inputs take the
-// tensor-core kernels of flash_bwd_sm90.cu).
+// Flash attention backward (K1-bwd) for Hopper, float32 with head dims past
+// 64 (bf16 inputs take the tensor-core kernels of flash_bwd_sm90.cu, float32
+// ones with D up to 64 the 3xTF32 kernels of flash_bwd_tf32_sm90.cu).
 //
 // Replaces the Pallas kernels bigdl_tpu/kernels/flash_attention.py
 // `_flash_bwd`: `_bwd_kv_kernel` (dK and dV over query tiles) and

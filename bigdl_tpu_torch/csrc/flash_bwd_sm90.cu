@@ -13,8 +13,8 @@
 // (out_f32, for callers that sum gradients over several calls). p and ds are
 // rounded to bf16 before their products, where JAX rounds them
 // (flash_attention.py:215, :218, :256). There are no atomics: reruns give
-// bitwise-equal gradients. float32 inputs stay on the CUDA-core kernels of
-// flash_bwd.cu.
+// bitwise-equal gradients. float32 inputs take flash_bwd_tf32_sm90.cu (D up
+// to 64) or the CUDA-core kernels of flash_bwd.cu.
 //
 // What bounds it on an H100: the seven products per tile pair (two for S and
 // dP in each kernel, dV and dK in the first, dQ in the second) do 14 * D

@@ -1,4 +1,7 @@
-// Paged attention (K2) for Hopper, float32 and bfloat16 pages.
+// Paged attention (K2) for Hopper, float32 and bfloat16 pages: the unsplit
+// kernel. Every call on the card takes the split-K kernel of
+// paged_attention_sm90.cu; this one keeps its entry point, routed by no rule
+// (chip_smoke.py times it beside the split-K kernel).
 //
 // Replaces the Pallas kernel bigdl_tpu/kernels/paged_attention.py
 // `paged_decode_attention` (body `_kernel`): attention straight out of the

@@ -56,9 +56,17 @@ SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
                                     "fused_gemm_sm90.cuh", "attn_sm90.cuh",
                                     "fused_gemm.cuh"),
            "flash_fwd_tf32_sm90": ("flash_fwd_tf32_sm90.cu",
+                                   "attn_tf32_sm90.cuh",
                                    "fused_gemm_tf32_sm90.cuh",
                                    "fused_gemm_sm90.cuh", "attn_sm90.cuh",
-                                   "fused_gemm.cuh")}
+                                   "fused_gemm.cuh"),
+           "flash_bwd_tf32_sm90": ("flash_bwd_tf32_sm90.cu",
+                                   "attn_tf32_sm90.cuh",
+                                   "fused_gemm_tf32_sm90.cuh",
+                                   "fused_gemm_sm90.cuh", "attn_sm90.cuh",
+                                   "fused_gemm.cuh"),
+           "paged_attention_sm90": ("paged_attention_sm90.cu",
+                                    "attn_tile.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,14 +8,15 @@ Replaces the Pallas kernels of ``bigdl_tpu/kernels/flash_attention.py``:
 - ``"bf16_sm90"``: bfloat16 inputs take the tensor-core kernels
   ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_sm90.cu`` (bf16 wgmma over
   TMA-staged tiles);
-- ``"f32_sm90"``: float32 forward calls whose head dim is at most 112 (the
-  widest the kernel is instantiated for; :func:`fwd_route`) take
-  ``csrc/flash_fwd_tf32_sm90.cu`` (3xTF32 wgmma: each float32 operand split
-  into tf32 hi and lo halves, three products, which keeps float32 accuracy;
-  a split kernel writes K's and V^T's halves into scratch first);
-- ``"f32"``: wider float32 forward calls take the CUDA-core kernel
-  ``csrc/flash_fwd.cu``, and every float32 backward call
-  ``csrc/flash_bwd.cu`` (float32 FMAs).
+- ``"f32_sm90"``: float32 calls up to the widest head dim of the 3xTF32
+  kernels (wgmma on tf32 hi and lo halves of each float32 operand, three
+  products, which keeps float32 accuracy) take them: forwards with D up
+  to 112 ``csrc/flash_fwd_tf32_sm90.cu`` (a split kernel writes K's and
+  V^T's halves into scratch first; :func:`fwd_route`), backwards with D up
+  to 64 ``csrc/flash_bwd_tf32_sm90.cu`` (the streamed tiles split and
+  transposed in shared memory; :func:`bwd_route`);
+- ``"f32"``: wider float32 calls take the CUDA-core kernels
+  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (float32 FMAs).
 
 Each source's header note says what bounds it on an H100 and what the design
 does about it. Besides ``<wrapper>.launches``, each wrapper counts its
@@ -51,35 +52,39 @@ import torch.nn.functional as F
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the backward's route by dtype (the forward's: fwd_route); each route's
-# (library, symbol) for the forward and backward
-_BWD_ROUTES = {torch.bfloat16: "bf16_sm90", torch.float32: "f32"}
+# each route's (library, symbol) for the forward and backward (the routes:
+# fwd_route, bwd_route)
 _FWD_FN = {"bf16_sm90": ("flash_fwd_sm90", "bigdl_flash_fwd_sm90"),
            "f32_sm90": ("flash_fwd_tf32_sm90", "bigdl_flash_fwd_tf32_sm90"),
            "f32": ("flash_fwd", "bigdl_flash_fwd")}
 _BWD_FN = {"bf16_sm90": ("flash_bwd_sm90", "bigdl_flash_bwd_sm90"),
+           "f32_sm90": ("flash_bwd_tf32_sm90", "bigdl_flash_bwd_tf32_sm90"),
            "f32": ("flash_bwd", "bigdl_flash_bwd")}
 # the head dims each route's kernels are instantiated for: every multiple
 # of 16, up to 128 on the bf16 tensor cores (the accumulators of wider rows
-# would not fit the consumers' registers), up to 112 in 3xTF32 (the two
-# float32 halves of a 128-row Q tile and two stages of K and V^T halves fill
-# a block's shared memory), and on the CUDA cores as far as their float32
-# tiles fit in shared memory (the backward keeps four 64-row tiles of D + 1
-# floats)
+# would not fit the consumers' registers), up to 112 for the 3xTF32 forward
+# (the two float32 halves of a 128-row Q tile and two stages of K and V^T
+# halves fill a block's shared memory) and 64 for the 3xTF32 backward (the
+# hi and lo halves of 128 rows of K and V, the split and transposed set of a
+# 32-row tile and two raw stages fill it), and on the CUDA cores as far as
+# their float32 tiles fit in shared memory (the backward keeps four 64-row
+# tiles of D + 1 floats)
 _FWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
              "f32_sm90": tuple(range(16, 113, 16)),
              "f32": tuple(range(16, 257, 16))}
 _BWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
+             "f32_sm90": tuple(range(16, 65, 16)),
              "f32": tuple(range(16, 193, 16))}
 _PADDED = "_padded"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 _SPLIT_KEYS = 8    # the 3xTF32 scratch holds kv_len keys rounded up to 8
+_F32_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                     + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = {
     "bf16_sm90": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                   + [ctypes.c_float, ctypes.c_void_p]),
-    "f32": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p])}
+    "f32_sm90": _F32_BWD_ARGTYPES, "f32": _F32_BWD_ARGTYPES}
 
 
 def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -138,6 +143,16 @@ def fwd_route(dtype, d: int) -> str:
     if dtype == torch.bfloat16:
         return "bf16_sm90"
     return "f32_sm90" if d <= _FWD_DIMS["f32_sm90"][-1] else "f32"
+
+
+def bwd_route(dtype, d: int) -> str:
+    """K1-bwd's route for a call with head dim ``d``: bfloat16 ->
+    ``"bf16_sm90"``; float32 -> ``"f32_sm90"`` (3xTF32) up to the widest
+    head dim that kernel is instantiated for, else ``"f32"`` (the CUDA
+    cores)."""
+    if dtype == torch.bfloat16:
+        return "bf16_sm90"
+    return "f32_sm90" if d <= _BWD_DIMS["f32_sm90"][-1] else "f32"
 
 
 def _kv_split(route, B, H, kv_len, w, device):
@@ -300,7 +315,7 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False, delta=None,
             raise ValueError(f"flash_bwd: {name} must be contiguous float32 "
                              f"{(B, H, Tq)} on {q.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    route = _BWD_ROUTES[q.dtype]
+    route = bwd_route(q.dtype, D)
     out = out_dtype or q.dtype
     if delta is None:
         delta = (do.float() * o.float()).sum(-1)

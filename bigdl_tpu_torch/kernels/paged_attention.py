@@ -1,25 +1,33 @@
-"""Paged attention (K2): the CUDA kernel and its plain version.
+"""Paged attention (K2): the CUDA kernels and their plain version.
 
 Replaces the Pallas kernel ``bigdl_tpu/kernels/paged_attention.py``
-``paged_decode_attention`` (body ``_kernel``) with
-``csrc/paged_attention.cu``. The source's header note says what bounds it
-on an H100 and what the design does about it.
+``paged_decode_attention`` (body ``_kernel``). Every call on the card takes
+the split-K kernel ``csrc/paged_attention_sm90.cu`` (routes ``"f32_split"``
+and ``"bf16_split"`` by page dtype; :func:`route`): the grid splits each
+row's page walk into spans of logical keys (:func:`split_plan` sizes them
+from the table's width and the card's SM count), each block writes a
+float32 partial (acc, m, l) of its span, and a second kernel merges a row's
+partials in split order; a table one split wide takes the first kernel
+alone. ``csrc/paged_attention.cu`` (routes ``"f32"`` and ``"bf16"``: one
+block per batch row and kv head walking the whole history) keeps its entry
+point and counters; no rule picks it. The sources' header notes say what
+bounds each on an H100 and what the design does about it.
 
 :func:`paged_decode_attention` is the wrapper: tensors on the CPU take
 :func:`paged_attention_reference` (the gathered-view einsum of
 ``Attention._paged_gather_attend``, the JAX kernel's own oracle); tensors
-on a CUDA device launch the kernel or raise.
+on a CUDA device launch the kernels or raise.
 
 dtype rule: the pages may be float32 while q is bfloat16 (bf16 weights
 over the default float32 pool). The wrapper casts q to the page dtype (q
 is small), as JAX's type promotion of that pair does, and casts the output
 back to q's dtype, as the Pallas kernel's output does.
 
-Head dims: the kernel is instantiated for every multiple of 16 up to 256
+Head dims: the kernels are instantiated for every multiple of 16 up to 256
 (``_DIMS``); another D up to 256 takes the next one with q and the pages
 zero-padded (exact, as for the flash kernels, but a copy of the pool: such
-calls count under ``"<route>_padded"`` in ``launches_by_route``, the route
-being the page dtype, ``"f32"`` or ``"bf16"``); a wider D raises.
+calls count under ``"<route>_padded"`` in ``launches_by_route``); a wider D
+raises.
 """
 from __future__ import annotations
 
@@ -33,10 +41,63 @@ from . import _build
 from .flash_attention import _PADDED, _pad_d, head_dim_width
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_SPLIT_ROUTES = {torch.float32: "f32_split", torch.bfloat16: "bf16_split"}
+# each route's (library, symbol); the split routes take the partials'
+# scratch, the number of splits and their span beside the other arguments
+_FN = {"f32_split": ("paged_attention_sm90", "bigdl_paged_attention_sm90"),
+       "bf16_split": ("paged_attention_sm90", "bigdl_paged_attention_sm90"),
+       "f32": ("paged_attention", "bigdl_paged_attention"),
+       "bf16": ("paged_attention", "bigdl_paged_attention")}
 _DIMS = tuple(range(16, 257, 16))
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+# split sizing: a span holds 64 to 256 logical keys (a multiple of 16), and
+# the grid aims at _WAVES blocks for each SM of the card (three fit one);
+# measured on an H100 at the smoke's decode and long decode cases
+_MIN_SPAN, _MAX_SPAN, _SPAN_STEP, _WAVES = 64, 256, 16, 2
+_SMS = {}       # device index -> multiprocessor count
+
+
+def route(page_dtype, d: int) -> str:
+    """K2's route for pages of ``page_dtype`` and head dim ``d``: the
+    split-K kernel (``"f32_split"`` / ``"bf16_split"``), which is
+    instantiated for every head dim the wrapper takes (``_DIMS``)."""
+    return _SPLIT_ROUTES[page_dtype]
+
+
+def rows_per_block(d: int) -> int:
+    """Query rows a block of the split-K kernel holds (``PagedCfg::R``): 8
+    up to D = 64, 4 up to 128, 2 past it, so that a lane's D / 16 columns
+    of q and of the output of every row stay within 64 registers."""
+    return 8 if d <= 64 else 4 if d <= 128 else 2
+
+
+def split_plan(B: int, kvH: int, rows: int, table_keys: int, d: int,
+               sms: int):
+    """(splits, span) of the split-K kernel for B batch rows of kvH heads
+    and ``rows`` query rows (G * S) over a table of ``table_keys`` logical
+    keys (max_blocks * block_size), on a card with ``sms``
+    multiprocessors: enough splits that the grid has about _WAVES blocks
+    an SM, each span at least _MIN_SPAN keys, and at most _MAX_SPAN keys a
+    span however many blocks that makes; span a multiple of 16, splits x
+    span covering the table. One split writes o directly."""
+    keys = max(int(table_keys), 1)
+    tiles = -(-rows // rows_per_block(d))
+    want = -(-_WAVES * sms // max(B * kvH * tiles, 1))
+    splits = max(-(-keys // _MAX_SPAN), min(want, keys // _MIN_SPAN), 1)
+    span = -(-keys // splits)
+    span = -(-span // _SPAN_STEP) * _SPAN_STEP
+    return -(-keys // span), span
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, positions,
@@ -121,8 +182,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, positions,
     NB, kvH, bs, _ = k_pages.shape
     G = nH // kvH
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    route = _ROUTES[k_pages.dtype]
-    w = head_dim_width("paged_attention", route, D, _DIMS)
+    rt = route(k_pages.dtype, D)
+    w = head_dim_width("paged_attention", rt, D, _DIMS)
     # (B, nH, S, D) is already the kv-major (B, kvH, G*S, D) fold
     qk = q.to(k_pages.dtype).contiguous()
     if w != D:
@@ -130,24 +191,33 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, positions,
     o = torch.empty_like(qk)
     if qk.numel() == 0:
         return o[..., :D].to(q.dtype)
-    fn = _build.function("paged_attention", "bigdl_paged_attention",
-                         _ARGTYPES)
-    err = fn(qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_tables.data_ptr(), positions.data_ptr(), o.data_ptr(),
-             _DTYPES[k_pages.dtype], B, kvH, G * S, S, w, bs,
-             block_tables.shape[1], scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (qk.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), positions.data_ptr(), o.data_ptr())
+    shape = (B, kvH, G * S, S, w, bs, block_tables.shape[1])
+    if rt.endswith("_split"):
+        splits, span = split_plan(B, kvH, G * S, block_tables.shape[1] * bs,
+                                  w, _sm_count(q.device))
+        # the partials, held until the launches are queued
+        part = (torch.empty(B * kvH * splits * G * S * (w + 2),
+                            device=q.device) if splits > 1 else None)
+        fn = _build.function(*_FN[rt], _SPLIT_ARGTYPES)
+        err = fn(*args, part.data_ptr() if part is not None else None,
+                 _DTYPES[k_pages.dtype], *shape, splits, span, scale, stream)
+    else:
+        fn = _build.function(*_FN[rt], _ARGTYPES)
+        err = fn(*args, _DTYPES[k_pages.dtype], *shape, scale, stream)
     if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged_attention kernel launch failed ({rt}): "
+                           f"CUDA error {err}")
     paged_decode_attention.launches += 1
     if w == D:
-        paged_decode_attention.launches_by_route[route] += 1
+        paged_decode_attention.launches_by_route[rt] += 1
         return o.to(q.dtype)
-    paged_decode_attention.launches_by_route[route + _PADDED] += 1
+    paged_decode_attention.launches_by_route[rt + _PADDED] += 1
     return o[..., :D].to(q.dtype).contiguous()
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_route = dict.fromkeys(
-    [r + p for r in _ROUTES.values() for p in ("", _PADDED)], 0)
+    [r + p for r in _FN for p in ("", _PADDED)], 0)

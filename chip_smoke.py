@@ -17,17 +17,23 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    alone: cuBLAS ``x @ w``, or cuDNN's conv for K4) with CUDA events, over
    CUDA graphs of back-to-back launches on inputs rotated past the 50 MB
    L2 where the call can be captured. The flash kernels are checked on
-   their routes (bf16: the tensor-core kernels; float32: the forward in
-   3xTF32 on the tensor cores up to D = 112, past it and the backward on
-   the CUDA cores) at ragged T, D = 32/64/128, the chunk form and kv_len =
-   0, the backward also in the ring form (external delta, float32
-   gradients) and for bitwise-equal reruns; the float32 forward timed at
-   (8,16,256,64) and (2,16,1024,64) on 3xTF32, each also on the CUDA-core
-   route, and at D = 128 on the CUDA cores; then every other head dim the
-   attention kernels are instantiated for (each multiple of 16 up to 128
-   on the bf16 flash kernels, up to 112 on the float32 forward's 3xTF32
-   route and 256 on its CUDA-core route and on K2, up to 192 on the
-   float32 backward) and their padded route (a D not a multiple of 16),
+   their routes (bf16: the tensor-core kernels; float32: in 3xTF32 on the
+   tensor cores, the forward up to D = 112 and the backward up to D = 64,
+   past them on the CUDA cores) at ragged T, D = 32/64/128, the chunk
+   form and kv_len = 0, the backward also in the ring form (external
+   delta, float32 gradients) and for bitwise-equal reruns; the float32
+   forward and backward timed at (8,16,256,64) and (2,16,1024,64) on
+   3xTF32, each also on the CUDA-core route, and at D = 128 (forward) /
+   96 (backward) on the CUDA cores; K2 (split-K, ``paged_attention_sm90``)
+   at decode in float32 and bf16 pages, at positions up to 4096 and in the
+   chunk form (S = 32), each timed beside the unsplit kernel it succeeds
+   (``paged_attention.cu``), with grouped-query heads, the padded slot at
+   position 0, a table one split wide and bitwise-equal reruns; then
+   every other head dim the attention kernels are instantiated for (each
+   multiple of 16 up to 128 on the bf16 flash kernels, up to 112 on the
+   float32 forward's 3xTF32 route and 256 on its CUDA-core route and on
+   K2, up to 64 on the float32 backward's 3xTF32 route and 192 on its
+   CUDA-core route) and their padded route (a D not a multiple of 16),
    with the launches by route, and the bf16 flash pair timed at D = 96
    (hidden 768, 8 heads) at the training shape. The fused ResNet kernels
    are checked on all four routes (bf16 and float32 in 3xTF32 on the
@@ -44,8 +50,10 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    and 8. K5's bf16 stage-0 junction must take at most 1.0 ms forward and
    3.0 ms backward; in float32 at B32, K3's stage-0 conv3 at most 0.12 /
    0.40 ms and K5's stage-0 junction 0.20 / 0.60 ms; the float32 flash
-   forward at (8,16,256,64) must beat SDPA and K4's float32 stage-0 call
-   cuDNN's float32 conv, timed in the same run.
+   forward and backward at (8,16,256,64) must beat SDPA (forward,
+   backward) and K4's float32 stage-0 call cuDNN's float32 conv, timed in
+   the same run, and K2's decode case must take at most a third of the
+   unsplit kernel's time.
    The tensor-core libraries (``*_sm90``) must build without spills;
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
@@ -88,23 +96,25 @@ remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
 the run; so does a flash, K3, K4 or K5 launch on another route than the
 path's dtype and shapes give (``bf16_sm90`` in ``generate``,
 ``prefill_chunked`` and the bf16 recipes; in the ``LocalOptimizer`` run
-``f32_sm90`` for the flash forward and ``f32`` for its backward;
-``f32_sm90`` for K3, K4 and K5 in phases 7 and 8). Every check that fails
-exits non-zero. The line before the last is one JSON object with each
-kernel's numbers (``flash_fwd`` at the serving prefill shape with the
+``f32_sm90`` for the flash forward and backward; ``f32_split`` for K2 in
+serving; ``f32_sm90`` for K3, K4 and K5 in phases 7 and 8). Every check
+that fails exits non-zero. The line before the last is one JSON object with
+each kernel's numbers (``flash_fwd`` at the serving prefill shape with the
 ``generate`` launches, ``flash_fwd_train`` at the training shape with the
 launches of the five remat-off training steps, ``flash_bwd`` likewise,
 ``flash_fwd_chunk`` with the ``prefill_chunked`` launches, the ``_f32``
 rows at the ``LocalOptimizer`` shape with its launches by route, the
-CUDA-core forward's row at D = 128; the fused ResNet kernels at their
-timed shapes with the launches of the four ResNet-50 steps of the arm
+CUDA-core forward's row at D = 128 and backward's at D = 96; K2's rows at
+the decode and long decode cases with the serving launches by route, and
+the unsplit kernel's row at the decode case; the fused ResNet kernels at
+their timed shapes with the launches of the four ResNet-50 steps of the arm
 that runs them, their ``_f32`` rows (3xTF32) at phase 8's stage-0 shape
 with its launches (K4's with those of phase 7's float32 step, and its
-CUDA-core route's row beside it); the flash, K3, K4 and K5 rows carry
-their ``dtype_route``, the 3xTF32 rows their CUDA-core route's
-``cuda_core_ms``); the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+CUDA-core route's row beside it); the flash, K3, K4 and K5 rows carry their
+``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 import contextlib
 import json
@@ -271,6 +281,35 @@ def cuda_core_flash(torch):
         fa.fwd_route = rule
 
 
+@contextlib.contextmanager
+def cuda_core_bwd(torch):
+    """float32 flash backward calls on the CUDA-core route (csrc/flash_bwd.cu:
+    float32 FMAs, the route of head dims past the 3xTF32 kernel's widest,
+    and of every float32 call before it), at any head dim it takes."""
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    rule = fa.bwd_route
+    fa.bwd_route = lambda dtype, d: (
+        "f32" if dtype == torch.float32 else rule(dtype, d))
+    try:
+        yield
+    finally:
+        fa.bwd_route = rule
+
+
+@contextlib.contextmanager
+def unsplit_paged():
+    """K2 calls on the kernel the split-K one succeeds (csrc/paged_attention.cu:
+    one block per batch row and kv head walking the whole history; routes
+    ``f32`` and ``bf16``)."""
+    from bigdl_tpu_torch.kernels import paged_attention as pa
+    rule = pa.route
+    pa.route = lambda page_dtype, d: rule(page_dtype, d)[:-len("_split")]
+    try:
+        yield
+    finally:
+        pa.route = rule
+
+
 def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
                timed):
     """K1-fwd against flash_fwd_reference; timed: the wrapper's call (on
@@ -390,7 +429,7 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
           f"flash_bwd returned {[x.dtype for x in got]}, expected {want_dt}")
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     rec = {"shape": [B, H, T, D], "dtype": str(dtype),
-           "route": K.flash_attention._BWD_ROUTES[dtype], "causal": causal,
+           "route": K.flash_attention.bwd_route(dtype, D), "causal": causal,
            "external_delta_f32_out": ring, "max_abs_err": max(errs),
            "err_dq_dk_dv": errs, "max_abs_grad": mag, "tol": tol,
            "rerun_bitwise_equal": bitwise}
@@ -407,7 +446,7 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
     # dk and dv written once
     flops = 10.0 * D * B * H * float(seen.sum())
     nbytes = esz * 8 * B * H * T * D + 4 * 2 * B * H * T
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by = bound(nbytes, flops, dtype, rec["route"])
     F = torch.nn.functional
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
@@ -426,11 +465,25 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
         library_ms=event_ms(torch, lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True)),
         bound_ms=bound_ms, bound_by=bound_by)
+    if rec["route"] == "f32_sm90":
+        with cuda_core_bwd(torch):
+            rec["cuda_core_ms"] = graph_ms(torch, lambda i: K.flash_bwd(
+                q, k, v, o, lse, do, causal), 1, reps=5, iters=5)
+            rec["cuda_core_bound_ms"] = bound(nbytes, flops, dtype)[0]
+        rec["launch_ms"] = launch_ms(torch, lambda: K.flash_bwd(
+            q, k, v, o, lse, do, causal))
     print(f"  K1-bwd timing {rec}", flush=True)
     return rec
 
 
 def paged_case(torch, K, B, nH, kvH, S, D, bs, pdtype, timed, max_pos=320):
+    """K2 against paged_attention_reference, and a second launch bit for
+    bit against the first (no atomics); positions drawn from 32 ..
+    max_pos, the last row a padded slot (the null table at position 0)
+    when B > 1. timed: the wrapper's call (split kernel, and the combine
+    kernel when the table is wider than one split), the plain version, and
+    the kernel the split-K one succeeds, at the same inputs."""
+    from bigdl_tpu_torch.kernels import paged_attention as pa
     rng = np.random.RandomState(B * 100 + S + kvH)
     nblk = -(-(max_pos + S) // bs)
     NB = 1 + B * nblk
@@ -453,16 +506,24 @@ def paged_case(torch, K, B, nH, kvH, S, D, bs, pdtype, timed, max_pos=320):
     ps = torch.from_numpy(pos).cuda()
     q = torch.randn(B, nH, S, D, device="cuda", generator=g).to(pdtype)
     o = K.paged_decode_attention(q, kps[0], vps[0], tb, ps)
+    again = K.paged_decode_attention(q, kps[0], vps[0], tb, ps)
     ro = K.paged_attention_reference(q, kps[0], vps[0], tb, ps)
     torch.cuda.synchronize()
     err = (o.float() - ro.float()).abs().max().item()
     tol = 2e-5 if pdtype == torch.float32 else 1.6e-2
     check(torch.isfinite(o).all().item(), "paged_attention: non-finite")
+    w = K.flash_attention.head_dim_width("paged_attention", "t", D, pa._DIMS)
+    splits, span = pa.split_plan(B, kvH, nH // kvH * S, nblk * bs, w,
+                                 pa._sm_count(q.device))
     rec = {"shape": [B, nH, kvH, S, D, bs], "dtype": str(pdtype),
-           "max_abs_err": err, "tol": tol}
+           "route": pa.route(pdtype, D), "max_pos": max_pos,
+           "splits": splits, "span": span, "max_abs_err": err, "tol": tol,
+           "rerun_bitwise_equal": torch.equal(o, again)}
     print(f"  K2 paged_attention {rec}", flush=True)
     check(err <= tol, f"paged_attention disagrees with its plain version: "
           f"{rec}")
+    check(rec["rerun_bitwise_equal"], f"paged_attention: two launches "
+          f"differ: {rec}")
     if not timed:
         return rec
     G = nH // kvH
@@ -473,12 +534,21 @@ def paged_case(torch, K, B, nH, kvH, S, D, bs, pdtype, timed, max_pos=320):
     keys = sum(int(p) + s + 1 for p in pos for s in range(S))
     flops = 4.0 * D * kvH * G * keys
     bound_ms, bound_by = bound(nbytes, flops, pdtype)
+    call = lambda i: K.paged_decode_attention(q, kps[i], vps[i], tb, ps)
     rec.update(
-        ms=graph_ms(torch, lambda i: K.paged_decode_attention(
-            q, kps[i], vps[i], tb, ps), sets),
+        ms=graph_ms(torch, call, sets),
         plain_ms=graph_ms(torch, lambda i: K.paged_attention_reference(
             q, kps[i], vps[i], tb, ps), sets),
-        library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        launch_ms=launch_ms(torch, lambda: call(0)))
+    with unsplit_paged():
+        uo = call(0)
+        torch.cuda.synchronize()
+        rec["unsplit_err"] = (uo.float() - ro.float()).abs().max().item()
+        check(rec["unsplit_err"] <= tol, f"paged_attention.cu (unsplit "
+              f"route) disagrees with its plain version: {rec}")
+        rec["unsplit_ms"] = graph_ms(torch, call, sets)
+    rec["hbm_share"] = bound_ms / rec["ms"]
     print(f"  K2 timing {rec}", flush=True)
     return rec
 
@@ -996,10 +1066,10 @@ def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
           f"{want}")
     routes = K.launches_by_route()
     check(only_on(routes["flash_fwd"], "f32_sm90", want["flash_fwd"])
-          and only_on(routes["flash_bwd"], "f32", want["flash_bwd"]),
+          and only_on(routes["flash_bwd"], "f32_sm90", want["flash_bwd"]),
           f"LocalOptimizer (float32 params): flash launches by route "
-          f"{routes}, expected the forward all on f32_sm90 and the "
-          f"backward all on f32")
+          f"{routes}, expected the forward and the backward all on "
+          f"f32_sm90")
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
           f"LocalOptimizer losses {losses}")
     return {"losses": losses, "wall_s": dt,
@@ -1380,28 +1450,56 @@ def main():
           f"float32 flash routes {k1_f32['route']}, {k1_f32_long['route']}, "
           f"{k1_f32_wide['route']}: expected f32_sm90 at D = 64, f32 at 128")
     # K1-bwd: bf16 at the training shape, ragged T, D = 32 and 128, the
-    # ring form (external delta, float32 gradients); float32 beside
+    # ring form (external delta, float32 gradients); float32 beside: the
+    # 3xTF32 route (D <= 64) timed at phase 6's shape and at T = 1024 (each
+    # also on the CUDA-core route), ragged and non-causal, the ring form,
+    # and D = 96 past its widest (the CUDA-core route, timed)
     k1b_main = bwd_case(torch, K, 16, 16, 1024, 64, bf, True, timed=True)
     k1b_f32 = bwd_case(torch, K, 8, 16, 256, 64, f32, True, timed=True)
+    k1b_f32_long = bwd_case(torch, K, 2, 16, 1024, 64, f32, True, timed=True)
     bwd_case(torch, K, 8, 16, 77, 64, bf, True, False)
     bwd_case(torch, K, 8, 16, 77, 64, f32, False, False)
     bwd_case(torch, K, 4, 16, 130, 32, bf, True, False)
     bwd_case(torch, K, 4, 16, 130, 32, bf, False, False)
+    bwd_case(torch, K, 4, 16, 130, 32, f32, False, False)
     bwd_case(torch, K, 2, 8, 200, 128, bf, True, False)
     bwd_case(torch, K, 2, 8, 200, 128, f32, True, False)
     bwd_case(torch, K, 4, 16, 300, 64, bf, False, False, ring=True)
+    bwd_case(torch, K, 4, 16, 300, 64, f32, True, False, ring=True)
+    k1b_f32_wide = bwd_case(torch, K, 8, 8, 256, 96, f32, True, timed=True)
+    check(k1b_f32["route"] == k1b_f32_long["route"] == "f32_sm90"
+          and k1b_f32_wide["route"] == "f32",
+          f"float32 flash backward routes {k1b_f32['route']}, "
+          f"{k1b_f32_long['route']}, {k1b_f32_wide['route']}: expected "
+          f"f32_sm90 at D = 64, f32 at 96")
+    # K2 (split-K) at the decode shape in float32 and bf16 pages and at
+    # positions up to 4096, timed with the kernel it succeeds; the chunk
+    # form (S = 32); GQA; a table one split wide (no combine kernel)
     k2_main = paged_case(torch, K, 8, 16, 16, 1, 64, 16, f32, timed=True)
-    paged_case(torch, K, 1, 16, 16, 32, 64, 16, f32, timed=True)
+    k2_bf16 = paged_case(torch, K, 8, 16, 16, 1, 64, 16, bf, timed=True)
+    k2_long = paged_case(torch, K, 8, 16, 16, 1, 64, 16, f32, timed=True,
+                         max_pos=4096)
+    k2_chunk = paged_case(torch, K, 1, 16, 16, 32, 64, 16, f32, timed=True)
     for kvh in (16, 4):
         for S in (1, 32):
             for pdt in (f32, bf):
                 paged_case(torch, K, 8, 16, kvh, S, 64, 16, pdt, False)
+    k2_one = paged_case(torch, K, 8, 16, 16, 1, 64, 16, f32, False,
+                        max_pos=48)
+    check(k2_one["splits"] == 1 and k2_main["splits"] > 1
+          and all(r["route"] == "f32_split"
+                  for r in (k2_main, k2_long, k2_chunk, k2_one))
+          and k2_bf16["route"] == "bf16_split",
+          f"K2 routes / splits {[(r['route'], r['splits']) for r in (k2_main, k2_bf16, k2_long, k2_chunk, k2_one)]}")
+    check("paged_combine_kernel" in k2_main["launch_ms"],
+          f"K2 decode case launched {k2_main['launch_ms']}")
     # head dims: every instantiation the first cases left out (each
     # multiple of 16 up to 128 on the bf16 flash kernels, up to 112 on the
     # float32 flash forward's 3xTF32 route and up to 256 on its CUDA-core
-    # route and on K2, up to 192 on the float32 backward) and the padded
-    # route of each kernel (a D not a multiple of 16), each against its
-    # plain version; then the launches by route
+    # route and on K2, up to 64 on the float32 backward's 3xTF32 route and
+    # up to 192 on its CUDA-core route) and the padded route of each kernel
+    # (a D not a multiple of 16), each against its plain version; then the
+    # launches by route
     K.reset_launch_counts()
     new_dims = [d for d in range(16, 257, 16) if d not in (32, 64, 128)]
     for D in new_dims:
@@ -1423,19 +1521,24 @@ def main():
     n_bwd = len([d for d in new_dims if d <= 192])
     n_bf = len([d for d in new_dims if d <= 128])
     n_tc = len([d for d in new_dims if d <= 112])
+    n_tcb = len([d for d in new_dims if d <= 64])
     # float32: flash_case launches the forward once, bwd_case the forward
-    # once (3xTF32 up to D = 112) and the backward twice (the rerun check)
+    # once (3xTF32 up to D = 112) and the backward twice (the rerun check,
+    # 3xTF32 up to D = 64); paged_case launches K2 twice (the rerun check)
     hd_want = {
         "flash_fwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
                       "f32_sm90": 2 * n_tc, "f32_sm90_padded": 2,
                       "f32": n_f32 + n_bwd - 2 * n_tc, "f32_padded": 0},
         "flash_bwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
-                      "f32": 2 * n_bwd, "f32_padded": 2},
-        "paged_attention": {"f32": n_f32, "f32_padded": 1, "bf16": n_bf,
+                      "f32_sm90": 2 * n_tcb, "f32_sm90_padded": 2,
+                      "f32": 2 * (n_bwd - n_tcb), "f32_padded": 0},
+        "paged_attention": {"f32_split": 2 * n_f32, "f32_split_padded": 2,
+                            "bf16_split": 2 * n_bf, "bf16_split_padded": 0,
+                            "f32": 0, "f32_padded": 0, "bf16": 0,
                             "bf16_padded": 0}}
     print(f"    head dims {new_dims} (bf16 flash and K2 up to 128, float32 "
-          f"forward on 3xTF32 up to 112, float32 backward up to 192), "
-          f"padded D = 40 / 100; launches by route "
+          f"forward on 3xTF32 up to 112, float32 backward on 3xTF32 up to "
+          f"64 and up to 192), padded D = 40 / 100; launches by route "
           f"{ {n: hd_routes[n] for n in hd_want} }", flush=True)
     check(all(hd_routes[n] == r for n, r in hd_want.items()),
           f"head-dim cases launched {hd_routes}, expected {hd_want}")
@@ -1524,11 +1627,23 @@ def main():
     # computing the same function, timed in this run: SDPA at phase 6's
     # shape, cuDNN's float32 conv (TF32 off) at stage 0, B32
     lib_ms = {"K1-fwd f32 (8,16,256,64)": (k1_f32["ms"], k1_f32["library_ms"]),
+              "K1-bwd f32 (8,16,256,64)": (k1b_f32["ms"],
+                                           k1b_f32["library_ms"]),
               "K4 f32 s0 B32": (k4_f32["ms"], k4_f32["library_ms"])}
     print(f"    3xTF32 (ms, library ms) {lib_ms}", flush=True)
     check(all(ms < lib for ms, lib in lib_ms.values()),
-          f"3xTF32 flash forward or K4 not faster than the library call: "
-          f"{lib_ms}")
+          f"3xTF32 flash forward, backward or K4 not faster than the "
+          f"library call: {lib_ms}")
+    # K2's split-K kernel against the kernel it succeeds, same call
+    k2_gain = {n: r["unsplit_ms"] / r["ms"] for n, r in (
+        ("decode", k2_main), ("decode bf16", k2_bf16), ("long", k2_long),
+        ("chunk", k2_chunk))}
+    print(f"    K2 split-K speed-up over paged_attention.cu {k2_gain}; long "
+          f"context at {k2_long['hbm_share']:.1%} of its bytes bound",
+          flush=True)
+    check(k2_gain["decode"] >= 3.0 and k2_gain["chunk"] > 1.0,
+          f"K2 split-K under 3x the unsplit kernel at decode, or slower at "
+          f"the chunk: {k2_gain}")
 
     # -- phase 3: generate on the flagship model ---------------------------
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
@@ -1624,6 +1739,10 @@ def main():
     check(sched.audit()["ok"], "KV ledger audit failed")
     check(serve_counts["paged_attention"] > 0, "serving path never "
           "launched the paged-attention kernel")
+    serve_routes = K.launches_by_route()["paged_attention"]
+    check(only_on(serve_routes, "f32_split", serve_counts["paged_attention"]),
+          f"serving's K2 launches by route {serve_routes}, expected all on "
+          f"f32_split (the pool's float32 pages)")
     margin_tol = 0.1     # bf16 logits through two paths (dense vs paged)
     compared = 0
     for i, (p, n, r) in enumerate(zip(prompts, budgets, results)):
@@ -1776,6 +1895,8 @@ def main():
             out["cuda_core_ms"] = rec["cuda_core_ms"]
         if "launch_ms" in rec:      # ms covers these launches (profiler)
             out["launch_ms"] = rec["launch_ms"]
+        if "unsplit_ms" in rec:     # K2: the kernel it succeeds, same call
+            out["unsplit_ms"] = rec["unsplit_ms"]
         return out
 
     for name, rec in (
@@ -1792,7 +1913,12 @@ def main():
              k1_f32_wide),
             ("flash_bwd training shape (16x16, T=1024, causal, bf16)",
              k1b_main),
-            ("flash_bwd float32 route (8x16, T=256, causal)", k1b_f32),
+            ("flash_bwd float32 3xTF32 route, dK/dV + dQ kernels (8x16, "
+             "T=256, causal)", k1b_f32),
+            ("flash_bwd float32 3xTF32 route (2x16, T=1024, causal)",
+             k1b_f32_long),
+            ("flash_bwd float32 CUDA-core route, D=96 (8x8, T=256, causal)",
+             k1b_f32_wide),
             ("flash_fwd D=96 (16x8, T=1024, causal, bf16)", k1_d96),
             ("flash_bwd D=96 (16x8, T=1024, causal, bf16)", k1b_d96)):
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
@@ -1807,6 +1933,18 @@ def main():
                  else "")
               + (f"; launches (profiler, ms a call) {rec['launch_ms']}"
                  if "launch_ms" in rec else ""))
+    for name, rec in (
+            ("K2 decode (8x16, S=1, f32 pages, positions 32-320)", k2_main),
+            ("K2 decode (8x16, S=1, bf16 pages, positions 32-320)", k2_bf16),
+            ("K2 long decode (8x16, S=1, f32 pages, positions 32-4096)",
+             k2_long),
+            ("K2 chunk (1x16, S=32, f32 pages, positions 32-320)",
+             k2_chunk)):
+        print(f"    {name}: {rec['ms']:.4f} ms in {rec['splits']} splits of "
+              f"{rec['span']} keys, plain {rec['plain_ms']:.4f}, unsplit "
+              f"kernel {rec['unsplit_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}, {rec['hbm_share']:.1%}); launches "
+              f"(profiler, ms a call) {rec['launch_ms']}")
     off, on = rn_arms[0]["launches"], rn_arms[1]["launches"]
     for name, rec in (("K3-nhwc stage-0 conv3 fwd", k3_s0["fwd"]),
                       ("K3-nhwc stage-0 conv3 bwd", k3_s0["bwd"]),
@@ -1889,13 +2027,31 @@ def main():
                    "bigdl_tpu_torch/csrc/flash_fwd.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32_wide,
                    r6["routes"]["flash_fwd"]["f32"]),
-        kernel_rec("flash_bwd_f32", "bigdl_tpu_torch/csrc/flash_bwd.cu",
+        kernel_rec("flash_bwd_f32",
+                   "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
-                   r6["launches"]["flash_bwd"]),
+                   r6["routes"]["flash_bwd"]["f32_sm90"]),
+        kernel_rec("flash_bwd_f32_cuda_cores",
+                   "bigdl_tpu_torch/csrc/flash_bwd.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32_wide,
+                   r6["routes"]["flash_bwd"]["f32"]),
         kernel_rec("paged_attention",
-                   "bigdl_tpu_torch/csrc/paged_attention.cu",
+                   "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
-                   serve_counts["paged_attention"]),
+                   serve_routes["f32_split"]),
+        kernel_rec("paged_attention_long",
+                   "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
+                   "bigdl_tpu/kernels/paged_attention.py:107", k2_long,
+                   serve_routes["f32_split"]),
+        kernel_rec("paged_attention_unsplit",
+                   "bigdl_tpu_torch/csrc/paged_attention.cu",
+                   "bigdl_tpu/kernels/paged_attention.py:107",
+                   {"max_abs_err": k2_main["unsplit_err"], "route": "f32",
+                    "ms": k2_main["unsplit_ms"],
+                    "plain_ms": k2_main["plain_ms"],
+                    "bound_ms": k2_main["bound_ms"],
+                    "bound_by": k2_main["bound_by"], "library_ms": None},
+                   serve_routes["f32"]),
         kernel_rec("fused_matmul_nhwc",
                    "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:688",

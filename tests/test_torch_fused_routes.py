@@ -21,7 +21,8 @@ torch.set_num_threads(1)
 ROUTES = {"bf16_sm90", "bf16_ragged", "f32_sm90", "f32"}   # K3, K4, K5
 TENSOR_CORE_LIBS = ["fused_matmul_sm90", "fused_conv_sm90", "fused_chain_sm90",
                     "fused_matmul_tf32_sm90", "fused_chain_tf32_sm90",
-                    "fused_conv_tf32_sm90", "flash_fwd_tf32_sm90"]
+                    "fused_conv_tf32_sm90", "flash_fwd_tf32_sm90",
+                    "flash_bwd_tf32_sm90", "paged_attention_sm90"]
 
 # ResNet-50 at B256/224: the shape tables chip_smoke.py checks and times
 # on the card (models/resnet.py: conv1 of block 0, conv3 and projection per
@@ -100,12 +101,19 @@ def test_float32_route_rule(k, n):
 @pytest.mark.parametrize("lib", TENSOR_CORE_LIBS)
 def test_tensor_core_sources_call_no_library(lib):
     """The products are PTX wgmma written out in the core header (bf16
-    k16, or tf32 k8 on the 3xTF32 route); no source or header of the
-    library names a GEMM or conv library."""
+    k16, or tf32 k8 on the 3xTF32 route); the split-K paged attention, a
+    bandwidth kernel, does its arithmetic on the CUDA cores over cp.async
+    copies; no source or header of the library names a GEMM or conv
+    library."""
     for f in _build.SOURCES[lib]:
         text = (_build.CSRC / f).read_text().lower()
         for word in ("cublas", "cudnn", "cutlass/gemm", "cutlass/conv"):
             assert word not in text, (f, word)
+    if lib == "paged_attention_sm90":
+        core = "".join((_build.CSRC / f).read_text()
+                       for f in _build.SOURCES[lib])
+        assert "wgmma" not in core and "cp.async.cg.shared.global" in core
+        return
     tf32 = lib.endswith("_tf32_sm90")
     header = "fused_gemm_tf32_sm90.cuh" if tf32 else "fused_gemm_sm90.cuh"
     core = "".join((_build.CSRC / f).read_text() for f in _build.SOURCES[lib])

@@ -110,10 +110,15 @@ def _cases(source, pattern):
      r"case (\d+): return bigdl_fg::sm90::tf32::launch_flash"),
     (fa._BWD_DIMS, "bf16_sm90", "flash_bwd_sm90.cu",
      r"case (\d+): return launch_bwd"),
+    (fa._BWD_DIMS, "f32_sm90", "flash_bwd_tf32_sm90.cu",
+     r"case (\d+): return bigdl_fg::sm90::tf32::launch_bwd"),
     ({"pages": pa._DIMS}, "pages", "paged_attention.cu",
      r"case (\d+): return dispatch_tpr"),
+    ({"pages": pa._DIMS}, "pages", "paged_attention_sm90.cu",
+     r"case (\d+): return launch<T"),
 ], ids=["flash_fwd_f32", "flash_bwd_f32", "flash_fwd_bf16",
-        "flash_fwd_f32_tf32", "flash_bwd_bf16", "paged"])
+        "flash_fwd_f32_tf32", "flash_bwd_bf16", "flash_bwd_f32_tf32", "paged",
+        "paged_split"])
 def test_every_claimed_head_dim_is_instantiated_or_padded(table, route,
                                                           source, pattern):
     """The wrapper's table is exactly the source's instantiations; every D
@@ -139,9 +144,16 @@ def test_routes_cover_every_multiple_of_16_up_to_their_widest():
     assert fa._FWD_DIMS["bf16_sm90"] == fa._BWD_DIMS["bf16_sm90"] == tuple(
         range(16, 129, 16))
     assert fa._FWD_DIMS["f32_sm90"] == tuple(range(16, 113, 16))
+    assert fa._BWD_DIMS["f32_sm90"] == tuple(range(16, 65, 16))
     # float32 forward: past 112 the CUDA-core route, padded there too
     assert [fa.fwd_route(torch.float32, d) for d in (112, 113, 128, 256)] == [
         "f32_sm90", "f32", "f32", "f32"]
+    # float32 backward: past 64 the CUDA-core route
+    assert [fa.bwd_route(torch.float32, d) for d in (48, 64, 65, 192)] == [
+        "f32_sm90", "f32_sm90", "f32", "f32"]
+    # K2: the split-K kernel at every head dim, both page dtypes
+    assert {pa.route(dt, d) for dt in (torch.float32, torch.bfloat16)
+            for d in pa._DIMS} == {"f32_split", "bf16_split"}
     assert fa.head_dim_width("t", "f32", 120, fa._FWD_DIMS["f32"]) == 128
     # the padded route takes the rest: D = 40 -> 48, 100 -> 112, 8 -> 16
     assert [fa.head_dim_width("t", "bf16_sm90", d, fa._FWD_DIMS["bf16_sm90"])
@@ -165,8 +177,10 @@ def test_cpu_calls_at_any_head_dim_take_the_plain_version(D):
                                         "f32_sm90", "f32_sm90_padded",
                                         "f32", "f32_padded"}
     assert set(routes["flash_bwd"]) == {"bf16_sm90", "bf16_sm90_padded",
+                                        "f32_sm90", "f32_sm90_padded",
                                         "f32", "f32_padded"}
-    assert set(routes["paged_attention"]) == {"f32", "f32_padded", "bf16",
-                                              "bf16_padded"}
+    assert set(routes["paged_attention"]) == {
+        "f32_split", "f32_split_padded", "bf16_split", "bf16_split_padded",
+        "f32", "f32_padded", "bf16", "bf16_padded"}
     assert all(set(r.values()) == {0} for r in routes.values())
     assert set(kernels.launch_counts().values()) == {0}

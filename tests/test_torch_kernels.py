@@ -234,16 +234,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_flash_routes_by_dtype_one_kernel_each():
-    """bf16 goes to the tensor-core sources; the float32 forward to the
-    3xTF32 source up to its widest head dim and to the CUDA-core one past
-    it, the float32 backward to the CUDA-core one; every route's library is
-    in the build list with its headers, and each source exists."""
+    """bf16 goes to the tensor-core sources; float32 to the 3xTF32 sources
+    up to their widest head dims and to the CUDA-core ones past them;
+    every route's library is in the build list with its headers, and each
+    source exists."""
     from bigdl_tpu_torch.kernels import _build
     from bigdl_tpu_torch.kernels import flash_attention as fa
-    assert fa._BWD_ROUTES == {torch.bfloat16: "bf16_sm90",
-                              torch.float32: "f32"}
+    assert {fa.bwd_route(torch.bfloat16, 64), fa.bwd_route(torch.float32, 64),
+            fa.bwd_route(torch.float32, 80)} == {"bf16_sm90", "f32_sm90",
+                                                  "f32"}
     assert set(fa._FWD_FN) == {"bf16_sm90", "f32_sm90", "f32"}
-    assert set(fa._BWD_FN) == set(fa._BWD_ROUTES.values())
+    assert set(fa._BWD_FN) == set(fa._FWD_FN)
     for table in (fa._FWD_FN, fa._BWD_FN):
         libs = {route: lib for route, (lib, _) in table.items()}
         assert libs["bf16_sm90"].endswith("_sm90")
@@ -252,8 +253,43 @@ def test_flash_routes_by_dtype_one_kernel_each():
                 assert (_build.CSRC / f).exists(), f
     assert fa._FWD_FN["f32_sm90"] == ("flash_fwd_tf32_sm90",
                                       "bigdl_flash_fwd_tf32_sm90")
+    assert fa._BWD_FN["f32_sm90"] == ("flash_bwd_tf32_sm90",
+                                      "bigdl_flash_bwd_tf32_sm90")
     assert _build.SOURCES["flash_fwd_sm90"][1] == "attn_sm90.cuh"
-    assert "fused_gemm_tf32_sm90.cuh" in _build.SOURCES["flash_fwd_tf32_sm90"]
+    for lib in ("flash_fwd_tf32_sm90", "flash_bwd_tf32_sm90"):
+        assert {"attn_tf32_sm90.cuh",
+                "fused_gemm_tf32_sm90.cuh"} <= set(_build.SOURCES[lib])
+
+
+@pytest.mark.parametrize("d", [8, 16, 40, 48, 64, 65, 80, 96, 128, 192])
+def test_flash_backward_route_by_dtype_and_head_dim(d):
+    """float32: 3xTF32 up to D = 64 (padded between its instantiations),
+    the CUDA cores past it; bf16: its tensor-core route; the route's
+    width is the next instantiation."""
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    want = "f32_sm90" if d <= 64 else "f32"
+    assert fa.bwd_route(torch.float32, d) == want
+    assert fa.bwd_route(torch.bfloat16, d) == "bf16_sm90"
+    w = fa.head_dim_width("t", want, d, fa._BWD_DIMS[want])
+    assert w >= d and w - d < 16
+
+
+@pytest.mark.parametrize("dt,d", [(torch.float32, 64), (torch.bfloat16, 64),
+                                  (torch.float32, 256), (torch.bfloat16, 40)])
+def test_paged_route_is_the_split_kernel_for_every_head_dim(dt, d):
+    """Every page dtype and head dim the wrapper takes launches the
+    split-K kernel; the unsplit kernel keeps its entry and counters."""
+    from bigdl_tpu_torch.kernels import _build
+    from bigdl_tpu_torch.kernels import paged_attention as pa
+    want = "f32_split" if dt == torch.float32 else "bf16_split"
+    assert pa.route(dt, d) == want
+    assert pa._FN[want] == ("paged_attention_sm90",
+                            "bigdl_paged_attention_sm90")
+    assert pa._FN[want[:-len("_split")]] == ("paged_attention",
+                                             "bigdl_paged_attention")
+    for lib, _ in pa._FN.values():
+        for f in _build.SOURCES[lib]:
+            assert (_build.CSRC / f).exists(), f
 
 
 @pytest.mark.parametrize("d", [8, 16, 40, 64, 100, 112, 113, 120, 128, 256])
@@ -278,13 +314,13 @@ def test_cpu_flash_calls_count_no_launch_on_any_route():
     kernels.reset_launch_counts()
     fused = {"bf16_sm90": 0, "bf16_ragged": 0, "f32_sm90": 0, "f32": 0}
     conv = fused
-    flash = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32": 0,
-             "f32_padded": 0}
-    fwd = dict(flash, f32_sm90=0, f32_sm90_padded=0)
+    flash = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32_sm90": 0,
+             "f32_sm90_padded": 0, "f32": 0, "f32_padded": 0}
+    paged = {"f32_split": 0, "f32_split_padded": 0, "bf16_split": 0,
+             "bf16_split_padded": 0, "f32": 0, "f32_padded": 0, "bf16": 0,
+             "bf16_padded": 0}
     assert kernels.launches_by_route() == {
-        "flash_fwd": fwd, "flash_bwd": flash,
-        "paged_attention": {"f32": 0, "f32_padded": 0, "bf16": 0,
-                            "bf16_padded": 0},
+        "flash_fwd": flash, "flash_bwd": flash, "paged_attention": paged,
         "fused_matmul_fwd": fused, "fused_matmul_bwd": fused,
         "fused_chain_fwd": fused, "fused_chain_bwd": fused,
         "fused_conv_fwd": conv}
