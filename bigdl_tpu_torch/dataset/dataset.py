@@ -16,7 +16,10 @@ class DataSet:
     """Factory namespace."""
 
     @staticmethod
-    def array(data: Sequence):
+    def array(data: Sequence, transformer=None):
+        """A local data set over ``data``; transformer chains are not
+        ported (``transformer`` must stay None)."""
+        refuse_unported("DataSet.array", transformer=(transformer, None))
         return LocalDataSet(list(data))
 
     @staticmethod

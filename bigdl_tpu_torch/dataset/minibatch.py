@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.engine import refuse_unported
+
 
 class MiniBatch:
     def __init__(self, input, target=None):
@@ -13,9 +15,12 @@ class MiniBatch:
         self.target = target
 
     @staticmethod
-    def from_samples(samples):
+    def from_samples(samples, feature_padding=None, label_padding=None):
         """Stack samples of one shape (padding variable-length samples is
         not ported yet)."""
+        refuse_unported("MiniBatch.from_samples",
+                        feature_padding=(feature_padding, None),
+                        label_padding=(label_padding, None))
         if len(samples[0].features) != 1 or len(samples[0].labels) > 1:
             raise NotImplementedError(
                 "MiniBatch: only samples of one feature and at most one "

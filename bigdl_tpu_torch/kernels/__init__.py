@@ -6,7 +6,9 @@ Each wrapper counts its launches in a plain integer attribute,
 can show that its path went through the kernels. The flash, K3, K4 and K5
 wrappers also count per route (``launches_by_route``: ``"bf16_sm90"``,
 ``"f32"``, and for K3 / K4 / K5 ``"bf16_ragged"``), so a run can show which
-of their kernels it went through."""
+of their kernels it went through; K2's also counts by the query rows of
+a sequence (``launches_by_s``), so a run can count the speculative
+verify's launches apart."""
 from .flash_attention import (FlashAttention, flash_bwd, flash_bwd_reference,
                               flash_fwd, flash_fwd_reference)
 from .fused_chain import (FusedResidualMatmul, fused_chain_bwd,
@@ -45,6 +47,8 @@ def reset_launch_counts():
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        if hasattr(fn, "launches_by_s"):
+            fn.launches_by_s = {}
 
 
 __all__ = ["FlashAttention", "flash_fwd", "flash_fwd_reference", "flash_bwd",

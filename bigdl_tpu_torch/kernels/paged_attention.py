@@ -211,6 +211,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, positions,
         raise RuntimeError(f"paged_attention kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     paged_decode_attention.launches += 1
+    by_s = paged_decode_attention.launches_by_s
+    by_s[S] = by_s.get(S, 0) + 1
     if w == D:
         paged_decode_attention.launches_by_route[rt] += 1
         return o.to(q.dtype)
@@ -221,3 +223,6 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, positions,
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_route = dict.fromkeys(
     [r + p for r in _FN for p in ("", _PADDED)], 0)
+# launches by query rows a sequence (S): decode 1, prefill chunks and the
+# draft catch-up powers of two, the speculative verify spec_k + 1
+paged_decode_attention.launches_by_s = {}

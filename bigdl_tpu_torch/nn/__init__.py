@@ -12,6 +12,7 @@ from .norm import (BatchNormalization, LayerNormalization,
                    SpatialBatchNormalization)
 from .pool import SpatialAveragePooling, SpatialMaxPooling
 from .shape_ops import View
+from .speculative import SpecStats, speculative_generate
 
 __all__ = ["ReLU", "Attention", "FeedForwardNetwork", "Transformer",
            "TransformerBlock", "causal_mask", "dot_product_attention",
@@ -20,4 +21,5 @@ __all__ = ["ReLU", "Attention", "FeedForwardNetwork", "Transformer",
            "LMCriterion", "TimeDistributedMaskCriterion", "Linear",
            "Container", "Criterion", "Module", "BatchNormalization",
            "LayerNormalization", "SpatialBatchNormalization",
-           "SpatialAveragePooling", "SpatialMaxPooling", "View"]
+           "SpatialAveragePooling", "SpatialMaxPooling", "View",
+           "SpecStats", "speculative_generate"]

@@ -163,15 +163,17 @@ class Attention(Module):
         b, t, _ = x.shape
         return x.reshape(b, t, heads or self.num_heads, -1).transpose(1, 2)
 
-    def qkv(self, params, x):
-        """Query (B, nH, T, D) and key/value (B, kvH, T, D) heads. Three
-        matmuls; the JAX package fuses them into one over concatenated
-        weights, which in eager PyTorch would copy the weights every
-        call."""
+    def qkv(self, params, qx, kx=None):
+        """Query (B, nH, T, D) and key/value (B, kvH, T, D) heads of
+        ``qx``. Three matmuls; the JAX package fuses them into one over
+        concatenated weights, which in eager PyTorch would copy the
+        weights every call. ``kx`` (keys from another sequence: the
+        translation mode's cross-attention) is not ported."""
+        refuse_unported("Attention.qkv", kx=(kx, None))
         kvh = self._kvh()
-        return (self._split(x @ params["wq"]),
-                self._split(x @ params["wk"], kvh),
-                self._split(x @ params["wv"], kvh))
+        return (self._split(qx @ params["wq"]),
+                self._split(qx @ params["wk"], kvh),
+                self._split(qx @ params["wv"], kvh))
 
     def _expand_kv(self, k, v):
         g = self.num_heads // self._kvh()
@@ -359,7 +361,13 @@ class TransformerBlock(Module):
         h = h + self.attn._merge(o, params["attn"])
         return self._ffn_sublayer(params, h), (k, v)
 
-    def decode_step(self, params, h_t, kv, pos: int):
+    def decode_step(self, params, h_t, kv, pos: int, cross_kv=None,
+                    cross_mask=None):
+        """One cached block step at ``pos``; the cross-attention operands
+        (translation mode) are not ported."""
+        refuse_unported("TransformerBlock.decode_step",
+                        cross_kv=(cross_kv, None),
+                        cross_mask=(cross_mask, None))
         n = self.ln1.call(params["ln1"], h_t)
         a, k_cache, v_cache = self.attn.decode_chunk(params["attn"], n, kv[0],
                                                      kv[1], pos)
@@ -478,13 +486,13 @@ class Transformer(Module):
             generator.set_state(end["state"])
         return out
 
-    def hidden_states(self, params, ids, training: bool = False,
+    def hidden_states(self, params, x, training: bool = False,
                       generator=None):
         """Final-LayerNorm hidden states (B, T, H): the LM trunk without
         the vocab projection (see ``models.lm_loss_chunked``).
         Differentiable; dropout only with ``training`` and a ``generator``
         (a ``torch.Generator`` on the model's device)."""
-        h = self._embed(params, self._ids(ids))
+        h = self._embed(params, self._ids(x))
         for i, blk in enumerate(self.blocks):
             h = self._block(blk, params[f"block{i}"], h, training, generator)
         return self.ln_f.call(params["ln_f"], h)
@@ -495,18 +503,17 @@ class Transformer(Module):
         return self.hidden_states(params, ids, training, generator) \
             @ params["embed"].T
 
-    def apply(self, params, state, ids, training: bool = False,
+    def apply(self, params, state, x, training: bool = False,
               generator=None):
-        """``(call(params, ids, training, generator), state)``: the
+        """``(call(params, x, training, generator), state)``: the
         Transformer keeps no state."""
-        return self.call(params, ids, training, generator), state
+        return self.call(params, x, training, generator), state
 
-    def forward(self, ids, params=None):
-        """Logits (B, T, vocab) of token ids (B, T) in the module's mode
-        (``training()`` / ``evaluate()``; no dropout without a generator,
-        which ``call`` takes)."""
-        return self.call(self.params if params is None else params, ids,
-                         bool(self.training))
+    def forward(self, x):
+        """Logits (B, T, vocab) of token ids (B, T) with the module's own
+        parameters, in its mode (``training()`` / ``evaluate()``; no
+        dropout without a generator, which ``call`` takes)."""
+        return self.call(self.params, x, bool(self.training))
 
     # -- cached inference --------------------------------------------------
 
@@ -550,9 +557,13 @@ class Transformer(Module):
         return h[:, -1] @ params["embed"].T, caches
 
     @torch.no_grad()
-    def decode_one(self, params, tokens, pos: int, caches):
+    def decode_one(self, params, tokens, pos: int, caches, cross=None,
+                   cross_mask=None):
         """One cached step: tokens (B,) at position ``pos``. Returns
-        (logits (B, V), caches)."""
+        (logits (B, V), caches). The translation mode's ``cross`` /
+        ``cross_mask`` are not ported."""
+        refuse_unported("Transformer.decode_one", cross=(cross, None),
+                        cross_mask=(cross_mask, None))
         logits, caches = self.decode_chunk(
             params, self._ids(tokens)[:, None], pos, caches)
         return logits[:, 0], caches

@@ -1,5 +1,5 @@
 """Continuous batching: iteration-level LM decode scheduling (counterpart
-of ``bigdl_tpu/serving/decode_scheduler.py``, core only).
+of ``bigdl_tpu/serving/decode_scheduler.py``).
 
 Requests join the running batch at the step boundary after they arrive and
 leave at the step they finish; every step is one ``Transformer.decode_paged``
@@ -12,7 +12,29 @@ the paged-attention kernel on a CUDA device.
   paged step, interleaved one chunk per step boundary with the decode
   steps, so a long prompt delays the running batch by one chunk at a time.
 * Admission is FIFO and reserves each request's worst-case blocks up
-  front, so no step runs out of blocks mid-flight.
+  front (speculative overshoot included, less the shared prefix it adopts,
+  plus the copy-on-write forks its plan takes), so no step runs out of
+  blocks mid-flight.
+* Shared prompt prefixes come from the content-addressed prefix cache
+  (``prefix_cache.PrefixCache``, on by default): admission adopts the
+  longest cached prefix aligned to ``max(prefill_chunk, block_size)`` and
+  runs only the cold schedule's remaining chunks, so a warm request's
+  tokens are those of a cold solo decode. A fully cached aligned prompt
+  reruns its last chunk, after copy-on-write forks of the shared blocks
+  that chunk writes (the port's pages are written in place, so without
+  the fork the write would change every holder's prefix).
+* With ``draft_model``, every greedy row of a version group drafts
+  ``spec_k`` tokens in ``spec_k+1`` batched paged draft steps (the token
+  feed stays on the device) and one verify at ``S = spec_k+1`` scores the
+  whole group; each row advances by its own acceptance length
+  (``nn.speculative.batched_acceptance``, one readback a round). Sampled
+  rows ride the verify masked to one real token; sampled-majority groups
+  and boundaries with a prompt mid-prefill take the plain step.
+* With ``host_blocks``, evicted prefix chains spill to host RAM and refill
+  on a later hit, and a higher-``priority`` request under block pressure
+  swaps a lower-priority decoding request out; it resumes from its
+  refilled pages, or recomputes its KV from its tokens when the stage
+  failed (``kv_cache.KVSwapManager``).
 * A request pins the model version active at its admission; each dispatch
   serves one version group (hot swap never mixes versions).
 * Per-request sampling: greedy by default; with ``temperature > 0``,
@@ -20,9 +42,9 @@ the paged-attention kernel on a CUDA device.
   from a ``torch.Generator`` seeded by (request seed, p), so a request's
   samples do not depend on what shares its batch.
 
-Not in this slice (and not accepted by the constructor): the prefix
-cache, speculative decoding, the host KV tier and preemption, mesh/tensor
-parallel serving, fault replay, chaos sites and observability.
+Not in the port yet (refused at a value other than JAX's default): the
+stall watchdog, fault replay, periodic audits, mesh / tensor-parallel
+serving, replica names and tags; chaos sites and observability are absent.
 """
 from __future__ import annotations
 
@@ -37,16 +59,23 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..nn.speculative import batched_acceptance
 from ..optim.predictor import bucket_for
 from ..utils.engine import refuse_unported
 from .batching import DeadlineExceeded, EngineStopped, QueueFull, ServeFuture
-from .kv_cache import KVCacheOOM, PagedKVCache, blocks_for_tokens
+from .kv_cache import (SPILL_PENDING, KVCacheOOM, KVSwapManager,
+                       PagedKVCache, blocks_for_tokens)
+from .prefix_cache import PrefixCache
 from .registry import ModelRegistry
 
 THREAD_NAME = "bigdl_tpu_torch-serving-decode-scheduler"
 
 _STAT_KEYS = ("submitted", "completed", "rejected", "timeouts",
-              "decode_steps", "prefill_chunks", "tokens", "swaps")
+              "decode_steps", "prefill_chunks", "tokens", "swaps",
+              "spec_rounds", "spec_accepted", "spec_row_rounds",
+              "spec_fallbacks", "defrags", "prefix_hits", "prefix_misses",
+              "prefix_reused_tokens", "prefix_cow_forks", "preemptions",
+              "resumes", "resume_recomputes")
 
 _MASK64 = (1 << 64) - 1
 
@@ -95,12 +124,13 @@ class LMRequest:
                  "deadline", "t_enqueue", "t_enqueue_ns", "t_admit_ns",
                  "t_first_ns", "t_done_ns", "prefill_ms", "version",
                  "model_version", "slot", "pos", "generated", "steps",
-                 "chunks", "pf_i", "temperature", "top_p", "seed")
+                 "chunks", "pf_i", "temperature", "top_p", "seed",
+                 "hit_tokens", "draft_pos", "spec_rounds",
+                 "spec_accepted", "priority", "swap_handle", "resume_seq")
 
     def __init__(self, prompt, max_new_tokens, eos_id, deadline_s, rid,
                  temperature: float = 0.0, top_p: float = 1.0,
                  seed: int = 0, priority: int = 0):
-        refuse_unported("LMRequest", priority=(priority, 0))
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -126,6 +156,13 @@ class LMRequest:
         self.steps = 0
         self.chunks = None
         self.pf_i = 0
+        self.hit_tokens = 0   # prefix-cache hit length (tokens)
+        self.draft_pos = 0    # draft-cache frontier; < pos: catch up first
+        self.spec_rounds = 0
+        self.spec_accepted = 0
+        self.priority = int(priority)   # preemption class (higher wins)
+        self.swap_handle = None         # HostKVHandle while preempted
+        self.resume_seq = None          # tokens to re-prefill on recompute
 
     def expired(self, now: Optional[float] = None) -> bool:
         return (self.deadline is not None
@@ -143,23 +180,23 @@ class DecodeScheduler:
     num_blocks : pooled block count (+1 null block); the default lets
         every slot hold a full ``max_seq_len`` sequence.
     prefill_chunk : chunked-prefill piece size (power of two >= 2).
+    draft_model / spec_k : batched greedy speculative decoding with a
+        draft LM over the same vocabulary (its own paged pool,
+        ``metric_prefix="serve/draft_kv"``), ``spec_k`` draft tokens a
+        round.
     admission : ``"continuous"`` or ``"static"`` (a batch admits only
         when the previous one fully drained - the baseline).
     eos_id : default end-of-sequence id (per-request override at submit).
     sampling_seed : base of the per-request seeds of sampled requests.
-    prefix_cache : JAX's default (True) shares the KV blocks of equal
-        prompt prefixes; the port has no prefix cache yet (ROADMAP A.1),
-        so True and False both serve without sharing (the tokens are the
-        same, the block use is not).
-    preempt : as in JAX, preemption needs the host KV tier
-        (``host_blocks`` > 0), which is not ported, so it never fires.
+    prefix_cache / prefix_cache_entries : content-addressed KV block
+        sharing (on by default), optionally capped at a number of entries.
+    host_blocks : size of the host-RAM KV tier in blocks (0: none).
+    preempt : allow swap-based preemption (needs ``host_blocks``).
 
     Not ported, and refused at a value other than JAX's default:
-    ``draft_model`` / ``spec_k`` (speculative decoding),
-    ``stall_deadline_s``, ``prefix_cache_entries``, ``mesh`` /
-    ``placement``, ``name``, ``tags``, ``fault_policy``, ``audit_every``
-    (periodic audits; :meth:`audit` runs one on demand) and
-    ``host_blocks``.
+    ``stall_deadline_s``, ``mesh`` / ``placement``, ``name``, ``tags``,
+    ``fault_policy`` and ``audit_every`` (periodic audits; :meth:`audit`
+    runs one on demand and shutdown needs none to drain).
     """
 
     def __init__(self, model, *, max_slots: int = 8, block_size: int = 16,
@@ -177,15 +214,12 @@ class DecodeScheduler:
                  placement=None, name: Optional[str] = None, tags=(),
                  fault_policy=None, audit_every: int = 256,
                  host_blocks: int = 0, preempt: bool = True):
-        refuse_unported("DecodeScheduler", draft_model=(draft_model, None),
-                        spec_k=(spec_k, 4),
+        refuse_unported("DecodeScheduler",
                         stall_deadline_s=(stall_deadline_s, None),
-                        prefix_cache_entries=(prefix_cache_entries, None),
                         mesh=(mesh, None), placement=(placement, None),
                         name=(name, None), tags=(tuple(tags), ()),
                         fault_policy=(fault_policy, None),
-                        audit_every=(audit_every, 256),
-                        host_blocks=(host_blocks, 0))
+                        audit_every=(audit_every, 256))
         if model.mode != "lm":
             raise ValueError("DecodeScheduler serves LM-mode models")
         if max_slots < 2:
@@ -209,11 +243,33 @@ class DecodeScheduler:
         self.default_deadline_ms = default_deadline_ms
         self.eos_id = eos_id
         self.sampling_seed = int(sampling_seed)
+        self.spec_k = int(spec_k)
         mbs = blocks_for_tokens(max_seq_len, block_size)
         if num_blocks is None:
             num_blocks = self.max_slots * mbs + 1
         self.kv = PagedKVCache(model, num_blocks=num_blocks,
                                block_size=block_size, max_blocks_per_seq=mbs)
+        self.kv_swap = (KVSwapManager(self.kv, host_blocks)
+                        if host_blocks > 0 else None)
+        self.preempt_enabled = bool(preempt) and self.kv_swap is not None
+        # hits align to max(chunk, block): a warm plan reruns exactly the
+        # cold schedule's remaining chunks (same shapes, same inputs)
+        self.hit_align = max(self.prefill_chunk, int(block_size))
+        self.prefix = (PrefixCache(self.kv, max_entries=prefix_cache_entries,
+                                   swap=self.kv_swap)
+                       if prefix_cache else None)
+        self.draft_model = draft_model
+        self.draft_kv = None
+        if draft_model is not None:
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if draft_model.device != self.device:
+                raise ValueError(f"draft model on {draft_model.device}, "
+                                 f"target on {self.device}")
+            self.draft_kv = PagedKVCache(draft_model, num_blocks=num_blocks,
+                                         block_size=block_size,
+                                         max_blocks_per_seq=mbs,
+                                         metric_prefix="serve/draft_kv")
         self.registry = registry or ModelRegistry(device=self.device)
         if self.registry.current() is None:
             self.registry.publish(model.params, model.state, version="v0",
@@ -221,6 +277,7 @@ class DecodeScheduler:
         self.static_wait_ms = float(static_wait_ms)
         self.max_queue = int(max_queue)
         self._q: queue.Queue = queue.Queue(maxsize=self.max_queue)
+        self._defrag_wanted = threading.Event()
         self._backlog: deque = deque()     # arrival order
         self._prefilling: deque = deque()  # admitted, prompt mid-prefill
         self._active: list = []            # decoding requests
@@ -236,16 +293,23 @@ class DecodeScheduler:
 
     # -- the step --------------------------------------------------------
 
-    def _dispatch(self, params, tokens, positions, tables, rows):
-        """One ``decode_paged`` call over the pool (pages updated in
-        place) and the token choice for every (row, chunk position).
-        ``rows``: the requests of the first rows (the rest is padding).
-        Returns (B, S) int numpy choices - the one readback of a step."""
-        dev = self.device
-        logits, _ = self.model.decode_paged(
-            params, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(positions).to(dev), self.kv.pages(),
-            torch.from_numpy(tables).to(dev))
+    def _dev(self, a):
+        return torch.from_numpy(a).to(self.device) if isinstance(
+            a, np.ndarray) else a
+
+    def _forward(self, model, params, kv, tokens, positions, tables):
+        """One ``decode_paged`` call of ``model`` over ``kv``'s pool (pages
+        updated in place): logits (B, S, V). Operands are numpy arrays or
+        device tensors."""
+        logits, _ = model.decode_paged(params, self._dev(tokens),
+                                       self._dev(positions), kv.pages(),
+                                       self._dev(tables))
+        return logits
+
+    def _choose(self, logits, positions, rows):
+        """(B, S) device token choices: argmax, and for the sampled rows
+        of ``rows`` (the first rows; the rest is padding) their sampled
+        tokens."""
         choices = logits.argmax(-1)
         sampled = [(i, r) for i, r in enumerate(rows) if r.temperature > 0.0]
         if sampled:
@@ -253,7 +317,14 @@ class DecodeScheduler:
             for i, r in sampled:
                 choices[i] = self._sample_row(logits[i], int(positions[i]),
                                               r)
-        return choices.cpu().numpy()
+        return choices
+
+    def _dispatch(self, params, tokens, positions, tables, rows):
+        """One target step and the token choice for every (row, chunk
+        position) as (B, S) int numpy - the one readback of a step."""
+        logits = self._forward(self.model, params, self.kv, tokens,
+                               positions, tables)
+        return self._choose(logits, positions, rows).cpu().numpy()
 
     def _sample_row(self, logits, pos0, req):
         """Temperature + top-p (nucleus) choice for one row's S positions:
@@ -275,6 +346,9 @@ class DecodeScheduler:
         idx = torch.minimum(idx, keep.sum(-1, keepdim=True) - 1)
         return order.gather(-1, idx)[:, 0]
 
+    def _draft_params(self):
+        return self.draft_model.params
+
     # -- lifecycle -------------------------------------------------------
 
     def start(self, warmup: bool = True):
@@ -290,11 +364,12 @@ class DecodeScheduler:
         return self
 
     def warmup(self):
-        """Drive every shape the scheduler dispatches once - decode buckets
-        {2, 4, ..., max_slots} and prefill chunk shapes {2, ...,
-        prefill_chunk} - against the null table (writes land in the null
-        block), so kernel builds and library setup happen before the
-        first request."""
+        """Drive every shape the scheduler dispatches once - decode
+        buckets {2, 4, ..., max_slots} and prefill chunk shapes {2, ...,
+        prefill_chunk}, and with a draft the draft steps and the verify
+        at ``S = spec_k+1`` in every bucket - against the null table
+        (writes land in the null block), so kernel builds and library
+        setup happen before the first request."""
         def shapes_upto(cap):
             out, b = [], 2
             while b < cap:
@@ -302,13 +377,27 @@ class DecodeScheduler:
                 b <<= 1
             return out + [cap]
 
+        def drive(model, params, kv, B, S):
+            self._forward(model, params, kv, np.zeros((B, S), np.int32),
+                          np.zeros((B,), np.int32),
+                          np.zeros((B, kv.max_blocks_per_seq), np.int32))
+
         params = self.registry.current().params
-        mbs = self.kv.max_blocks_per_seq
-        for B, S in ([(b, 1) for b in shapes_upto(self.max_slots)]
-                     + [(1, s) for s in shapes_upto(self.prefill_chunk)]):
-            self._dispatch(params, np.zeros((B, S), np.int32),
-                           np.zeros((B,), np.int32),
-                           np.zeros((B, mbs), np.int32), ())
+        for b in shapes_upto(self.max_slots):
+            drive(self.model, params, self.kv, b, 1)
+        for s in shapes_upto(self.prefill_chunk):
+            drive(self.model, params, self.kv, 1, s)
+        if self.draft_model is not None:
+            dparams = self._draft_params()
+            for b in shapes_upto(self.max_slots):
+                drive(self.draft_model, dparams, self.draft_kv, b, 1)
+                drive(self.model, params, self.kv, b, self.spec_k + 1)
+            for s in shapes_upto(self.prefill_chunk):
+                drive(self.draft_model, dparams, self.draft_kv, 1, s)
+        if self.kv_swap is not None:
+            self.kv_swap.warmup()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return self
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -318,7 +407,8 @@ class DecodeScheduler:
     def shutdown(self, drain: bool = True, timeout: float = 60.0):
         """Graceful by default: stop admitting, finish everything queued
         or active, join. ``drain=False`` fails in-flight work with
-        :class:`EngineStopped`. Every KV block returns to the free list."""
+        :class:`EngineStopped`. Every KV block (and host block) returns
+        to its free list."""
         with self._cond:
             self._closed = True
         if not drain:
@@ -337,6 +427,15 @@ class DecodeScheduler:
                         "decode scheduler wedged - skipping state cleanup")
                     return
         self._abandon_inflight("scheduler shut down before completion")
+        self._close_tiers()
+
+    def _close_tiers(self):
+        """Drop the prefix cache's pins (the shared pages return too) and
+        stop the host tier's stager."""
+        if self.prefix is not None:
+            self.prefix.clear()
+        if self.kv_swap is not None:
+            self.kv_swap.shutdown()
 
     def __enter__(self):
         return self.start()
@@ -347,16 +446,22 @@ class DecodeScheduler:
 
     # -- client surface --------------------------------------------------
 
+    def _spec_over(self) -> int:
+        """Per-slot speculative overshoot: a verify writes spec_k+1
+        positions past the row's position."""
+        return (self.spec_k + 1) if self.draft_model is not None else 0
+
     def submit(self, prompt_ids, max_new_tokens: int,
                deadline_ms: Optional[float] = None, eos_id="default",
                temperature: float = 0.0, top_p: float = 1.0,
-               seed: Optional[int] = None) -> ServeFuture:
+               seed: Optional[int] = None, priority: int = 0) -> ServeFuture:
         """Enqueue one generation request: ``prompt_ids`` (1-D int) ->
         future resolving to the GENERATED ids (np.int32, prompt excluded).
         Raises :class:`QueueFull` at capacity and ``ValueError`` for a
         request that cannot fit ``max_seq_len``; a deadline that expires
         fails the future with :class:`DeadlineExceeded` carrying the tokens
-        so far on ``.partial``."""
+        so far on ``.partial``. ``priority`` is the preemption class
+        (higher wins; equal priorities never preempt each other)."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if temperature < 0:
@@ -367,12 +472,12 @@ class DecodeScheduler:
         if prompt.size < 1:
             raise ValueError("prompt must be non-empty")
         worst = max(prefill_padded_end(prompt.size, self.prefill_chunk),
-                    prompt.size + max_new_tokens)
+                    prompt.size + max_new_tokens + self._spec_over())
         if worst > self.max_seq_len:
             raise ValueError(
                 f"prompt {prompt.size} + max_new {max_new_tokens} (+ prefill "
-                f"padding) needs {worst} positions > max_seq_len "
-                f"{self.max_seq_len}")
+                f"padding / speculation headroom) needs {worst} positions > "
+                f"max_seq_len {self.max_seq_len}")
         ms = deadline_ms if deadline_ms is not None \
             else self.default_deadline_ms
         eid = self.eos_id if eos_id == "default" else eos_id
@@ -382,7 +487,8 @@ class DecodeScheduler:
                      + 0xC2B2AE35) & 0xFFFFFFFF)
         req = LMRequest(prompt, max_new_tokens, eid,
                         ms / 1000.0 if ms is not None else None, rid,
-                        temperature=temperature, top_p=top_p, seed=seed)
+                        temperature=temperature, top_p=top_p, seed=seed,
+                        priority=priority)
         try:
             with self._cond:
                 if self._closed:
@@ -416,6 +522,23 @@ class DecodeScheduler:
         self._bump("swaps")
         return v
 
+    def defrag(self) -> int:
+        """Repack both pools at the next step boundary (returns -1:
+        deferred); synchronous before start() or after shutdown (returns
+        the blocks moved)."""
+        if self._thread is None or not self._thread.is_alive():
+            return self._defrag_now()
+        self._defrag_wanted.set()
+        return -1
+
+    def _defrag_now(self) -> int:
+        n = self.kv.defrag()
+        if self.draft_kv is not None:
+            n += self.draft_kv.defrag()
+        if n:
+            self._bump("defrags")
+        return n
+
     def stats(self) -> dict:
         with self._stats_lock:
             out = dict(self._stats)
@@ -425,11 +548,38 @@ class DecodeScheduler:
         out["prefilling"] = len(self._prefilling)
         out["active_version"] = self.registry.active_version
         out["kv"] = self.kv.stats()
+        out["prefix"] = (self.prefix.stats() if self.prefix is not None
+                         else None)
+        out["host"] = (self.kv_swap.stats() if self.kv_swap is not None
+                       else None)
         return out
 
+    def cached_prefix_tokens(self, prompt_ids) -> int:
+        """How many leading tokens of this prompt admission would reuse
+        from the prefix cache under the active version (the cached chain
+        aligned down to ``hit_align``; 0 without a cache)."""
+        if self.prefix is None:
+            return 0
+        mv = self.registry.current()
+        if mv is None:
+            return 0
+        t = self.prefix.peek(prompt_ids, mv.version)
+        return t - t % self.hit_align
+
     def audit(self) -> dict:
-        """The KV ledger audit (call at a quiesced point)."""
-        return self.kv.audit(prefix_pins={})
+        """The KV ledger audit of the target pool (with the prefix cache's
+        exact pins) and the draft pool (call at a quiesced point)."""
+        pins = (self.prefix.pinned_blocks() if self.prefix is not None
+                else {})
+        rep = self.kv.audit(prefix_pins=pins)
+        if self.draft_kv is not None:
+            drep = self.draft_kv.audit(prefix_pins={})
+            rep = {"ok": rep["ok"] and drep["ok"],
+                   "violations": rep["violations"]
+                   + [f"draft: {v}" for v in drep["violations"]],
+                   "blocks": rep["blocks"] + drep["blocks"],
+                   "owners": rep["owners"] + drep["owners"]}
+        return rep
 
     # -- scheduler loop --------------------------------------------------
 
@@ -441,6 +591,9 @@ class DecodeScheduler:
                 stepped = self._advance_prefill()
                 stepped |= self._step_all()
                 self._evict_expired()
+                if self._defrag_wanted.is_set():
+                    self._defrag_wanted.clear()
+                    self._defrag_now()
                 if self._closed and not self._active \
                         and not self._prefilling and not self._backlog \
                         and self._q.empty():
@@ -457,6 +610,7 @@ class DecodeScheduler:
                 self._closed = True
             self._abandon_inflight(
                 f"decode scheduler died: {type(e).__name__}: {e}")
+            self._close_tiers()
             raise
 
     def _pull_pending(self):
@@ -487,9 +641,13 @@ class DecodeScheduler:
 
     def _admit(self):
         """Admit the backlog head-of-line into free slots while its
-        worst-case block need is reservable (FIFO: a smaller later request
-        never overtakes). Static mode waits for the running batch to
-        drain and for a fill window."""
+        worst-case private block need is reservable (FIFO: a smaller later
+        request never overtakes). One transaction per request: adopt the
+        cached prefix, evict unreferenced prefix entries under pressure,
+        reserve, fork copy-on-write pages eagerly; on ``KVCacheOOM`` undo
+        all of it and defer (or preempt a lower-priority request). Static
+        mode waits for the running batch to drain and for a fill
+        window."""
         if self.admission == "static":
             if self._active or self._prefilling:
                 return
@@ -509,55 +667,260 @@ class DecodeScheduler:
                 self._backlog.popleft()
                 self._expire(req)
                 continue
+            if req.swap_handle is not None or req.resume_seq is not None:
+                # a preempted request resumes through its refill, at the
+                # head of the line
+                if not self._resume_preempted(req):
+                    break
+                continue
             worst = max(prefill_padded_end(req.prompt.size,
                                            self.prefill_chunk),
-                        req.prompt.size + req.max_new_tokens)
-            try:
-                self.kv.ensure_capacity(req.rid, worst)
-            except KVCacheOOM:
-                break   # backpressure: retry at the next boundary
+                        req.prompt.size + req.max_new_tokens
+                        + self._spec_over())
             mv = self.registry.current()
+            cold = prefill_schedule(req.prompt.size, self.prefill_chunk)
+            plan, adopted, fork_idxs = self._prefix_plan(req, mv.version,
+                                                         cold)
+            forked = []
+            try:
+                need = (blocks_for_tokens(worst, self.kv.block_size)
+                        - len(adopted) + len(fork_idxs))
+                if adopted:
+                    self.kv.adopt(req.rid, adopted)
+                try:
+                    # the blocks just adopted are pinned (refcount >= 2):
+                    # eviction cannot take them back
+                    if not self._make_room(
+                            need, blocks_for_tokens(worst,
+                                                    self.kv.block_size)):
+                        raise KVCacheOOM(f"need {need} private blocks, "
+                                         f"{self.kv.blocks_free()} free")
+                    self._reserve(req.rid, worst)
+                    if fork_idxs:
+                        # inside the transaction that checked the free
+                        # list: a later admission cannot take the blocks
+                        forked = self.kv.fork_blocks(req.rid, fork_idxs)
+                except KVCacheOOM:
+                    self.kv.free(req.rid)
+                    if self.draft_kv is not None:
+                        self.draft_kv.free(req.rid)
+                    raise
+            except KVCacheOOM:
+                if self._try_preempt(req):
+                    continue
+                break   # backpressure: retry at the next boundary
             self._backlog.popleft()
             req.slot = self._free_slots.pop()
             req.version = mv.version
             req.model_version = mv
             req.t_admit_ns = time.perf_counter_ns()
-            req.chunks = prefill_schedule(req.prompt.size,
-                                          self.prefill_chunk)
+            req.chunks = plan
             req.pf_i = 0
+            if self.prefix is not None:
+                self._bump("prefix_hits" if req.hit_tokens
+                           else "prefix_misses")
+                # tokens the warm plan does not prefill (a rerun last
+                # chunk's tokens are computed again and do not count)
+                reused = int(req.prompt.size) - sum(c[1] for c in plan)
+                if reused:
+                    self._bump("prefix_reused_tokens", reused)
+                if forked:
+                    self._bump("prefix_cow_forks", len(forked))
             if not req.future.set_running_or_notify_cancel():
                 self._finish(req, cancel=True)
                 continue
             self._prefilling.append(req)
 
+    def _make_room(self, need: int, draft_need: int) -> bool:
+        """Evict unreferenced prefix entries while the target pool is
+        short of ``need`` blocks; True when it can cover them and the
+        draft pool (if any) ``draft_need``."""
+        if self.prefix is not None and not self.kv.can_allocate(need):
+            self.prefix.evict(need - self.kv.blocks_free())
+        return self.kv.can_allocate(need) and (
+            self.draft_kv is None or self.draft_kv.can_allocate(draft_need))
+
+    def _reserve(self, rid, upto: int):
+        """Grow ``rid``'s tables in both pools to ``upto`` tokens (the
+        worst case :meth:`_make_room` checked)."""
+        self.kv.ensure_capacity(rid, upto)
+        if self.draft_kv is not None:
+            self.draft_kv.ensure_capacity(rid, upto)
+
+    def _prefix_plan(self, req, version, cold):
+        """``(chunks_to_run, adopted_blocks, cow_fork_idxs)``. A miss runs
+        the cold schedule. A hit adopts the longest cached
+        ``hit_align``-aligned prefix and keeps the cold chunks at and
+        after it; a fully cached aligned prompt keeps its last chunk, and
+        the adopted blocks that chunk writes are returned for the
+        admission transaction to fork."""
+        req.hit_tokens = 0
+        if self.prefix is None:
+            return cold, [], []
+        bs = self.kv.block_size
+        chain = self.prefix.lookup(req.prompt, version)
+        h = min(len(chain) * bs, int(req.prompt.size))
+        h -= h % self.hit_align
+        if h <= 0:
+            return cold, [], []
+        adopted = chain[:h // bs]
+        plan = [c for c in cold if c[0] >= h] or [cold[-1]]
+        fork_idxs = []
+        s0, _, padded0 = plan[0]
+        if s0 < h:
+            fork_idxs = list(range(
+                s0 // bs, min(len(adopted), -(-(s0 + padded0) // bs))))
+        req.hit_tokens = h
+        return plan, adopted, fork_idxs
+
+    def _register_prefix(self, req):
+        """Prefill done: register every FULL prompt block for later hits
+        (the partial tail block, still receiving this request's decode
+        writes, is never shared)."""
+        if self.prefix is None:
+            return
+        nfull = int(req.prompt.size) // self.kv.block_size
+        if nfull:
+            self.prefix.insert(req.prompt, req.version,
+                               self.kv.owner_blocks(req.rid)[:nfull])
+
+    # -- swap-based preemption -------------------------------------------
+
+    def _try_preempt(self, for_req) -> bool:
+        """Admission hit block pressure: swap the cheapest lower-priority
+        DECODING request out to the host tier (its pages gathered at this
+        boundary, its blocks freed) and put it back in the backlog right
+        behind ``for_req``. Returns True when a victim was preempted."""
+        if not self.preempt_enabled:
+            return False
+        cands = [r for r in self._active if r.priority < for_req.priority]
+        if not cands:
+            return False
+        victim = min(cands, key=lambda r: (r.priority,
+                                           self.kv.owned(r.rid)))
+        blocks = self.kv.owner_blocks(victim.rid)
+        if not blocks:
+            return False
+        h = self.kv_swap.spill(blocks, tag="preempt")
+        if h is None and self.prefix is not None \
+                and self.prefix.drop_spilled(len(blocks)):
+            # a running request's state outranks cold spilled chains
+            h = self.kv_swap.spill(blocks, tag="preempt")
+        if h is None:
+            return False
+        victim.swap_handle = h
+        self.kv.free(victim.rid)
+        if self.draft_kv is not None:
+            self.draft_kv.free(victim.rid)
+        victim.draft_pos = 0
+        self._active.remove(victim)
+        self._free_slots.append(victim.slot)
+        victim.slot = None
+        self._backlog.insert(1, victim)
+        self._bump("preemptions")
+        return True
+
+    def _resume_preempted(self, req) -> bool:
+        """Refill-before-resume for the backlog head: land the preempted
+        request's pages back and return it to the running batch at the
+        position it left. A stage in flight or a full pool defers (False);
+        a failed or corrupt stage recomputes the KV from the request's
+        tokens through the ordinary chunk schedule. Returns True when the
+        request left the backlog."""
+        keep = int(req.prompt.size) + req.max_new_tokens + self._spec_over()
+        h = req.swap_handle
+        if h is not None:
+            if h.state == SPILL_PENDING:
+                return False
+            if not self._make_room(h.n_blocks, blocks_for_tokens(
+                    keep, self.kv.block_size)):
+                return False
+            try:
+                ids = self.kv_swap.refill(req.rid, h)
+            except KVCacheOOM:
+                return False
+            if ids is not None:
+                req.swap_handle = None
+                # the refilled blocks are the victim's whole reservation:
+                # the target's reserve is a no-op, the draft's is fresh
+                self._reserve(req.rid, keep)
+                self._backlog.popleft()
+                req.slot = self._free_slots.pop()
+                self._active.append(req)
+                self._bump("resumes")
+                return True
+            # the stage failed (settled by the manager): recompute
+            req.swap_handle = None
+            req.resume_seq = np.concatenate(
+                [req.prompt, np.asarray(req.generated, np.int32)])[:req.pos]
+        seq = req.resume_seq
+        worst = max(prefill_padded_end(seq.size, self.prefill_chunk), keep)
+        need = blocks_for_tokens(worst, self.kv.block_size)
+        if not self._make_room(need, need):
+            return False
+        self._reserve(req.rid, worst)
+        req.chunks = prefill_schedule(seq.size, self.prefill_chunk)
+        req.pf_i = 0
+        self._backlog.popleft()
+        req.slot = self._free_slots.pop()
+        self._prefilling.append(req)
+        self._bump("resume_recomputes")
+        return True
+
+    # -- prefill and decode ------------------------------------------------
+
     def _advance_prefill(self) -> bool:
         """ONE prefill chunk of the head prefilling request. The last
-        chunk's final real position gives the first generated token."""
+        chunk's final real position gives the first generated token (not
+        for a recompute, whose next token comes from the decode step)."""
         if not self._prefilling:
             return False
         req = self._prefilling[0]
         t0 = time.perf_counter_ns()
         s, real, padded = req.chunks[req.pf_i]
         last = req.pf_i == len(req.chunks) - 1
+        resumed = req.resume_seq is not None
+        src = req.resume_seq if resumed else req.prompt
+        # every block this chunk writes is private: warm chunks start past
+        # the adopted prefix, and a rerun chunk's blocks were forked
         toks = np.zeros((1, padded), np.int32)
-        toks[0, :real] = req.prompt[s:s + real]
-        choices = self._dispatch(req.model_version.params, toks,
-                                 np.asarray([s], np.int32),
-                                 self.kv.block_table(req.rid)[None], [req])
+        toks[0, :real] = src[s:s + real]
+        pos = np.asarray([s], np.int32)
+        logits = self._forward(self.model, req.model_version.params, self.kv,
+                               toks, pos, self.kv.block_table(req.rid)[None])
+        if self.draft_kv is not None and req.hit_tokens == 0:
+            # a warm hit's draft catches up lazily on its first round
+            self._forward(self.draft_model, self._draft_params(),
+                          self.draft_kv, toks, pos,
+                          self.draft_kv.block_table(req.rid)[None])
+            req.draft_pos = s + real
+        first_tok = None
+        if last and not resumed:
+            first_tok = int(self._choose(
+                logits[:, real - 1:real], [s + real - 1], [req])[0, 0])
         self._bump("prefill_chunks")
         req.pf_i += 1
         req.prefill_ms += (time.perf_counter_ns() - t0) / 1e6
         if not last:
             return True
         self._prefilling.popleft()
+        self._register_prefix(req)
         # the reservation covered the padded prefill tail; give back the
-        # blocks past what generation needs
-        self.kv.truncate(req.rid, int(req.prompt.size) + req.max_new_tokens)
+        # blocks past what generation (and speculation) needs
+        keep = int(req.prompt.size) + req.max_new_tokens + self._spec_over()
+        self.kv.truncate(req.rid, keep)
+        if self.draft_kv is not None:
+            self.draft_kv.truncate(req.rid, keep)
+        if resumed:
+            req.pos = int(req.resume_seq.size)
+            req.resume_seq = None
+            self._active.append(req)
+            return True
         req.pos = int(req.prompt.size)
         req.t_first_ns = time.perf_counter_ns()
         self._bump("tokens")
         self._active.append(req)
-        self._emit(req, int(choices[0, real - 1]))
+        self._emit(req, first_tok)
         return True
 
     def _emit(self, req, token) -> bool:
@@ -570,14 +933,23 @@ class DecodeScheduler:
         return done
 
     def _step_all(self) -> bool:
-        """One decode dispatch per active version group."""
+        """One dispatch per active version group: a speculative round for
+        a greedy-majority group when a draft is armed and no prompt is
+        mid-prefill, else the plain decode step."""
         if not self._active:
             return False
         groups = {}
         for r in self._active:
             groups.setdefault(r.version, []).append(r)
-        for rows in groups.values():
-            self._step_group(rows)
+        for version, rows in groups.items():
+            n_elig = sum(1 for r in rows if r.temperature <= 0.0)
+            if self.draft_model is not None and n_elig >= 1 \
+                    and 2 * n_elig >= len(rows) and not self._prefilling:
+                self._spec_step(version, rows)
+            else:
+                if self.draft_model is not None:
+                    self._bump("spec_fallbacks")
+                self._step_group(rows)
         return True
 
     def _step_group(self, rows):
@@ -598,6 +970,100 @@ class DecodeScheduler:
             r.pos += 1
             r.steps += 1
             self._emit(r, toks[i])
+
+    def _draft_catchup(self, req, dparams):
+        """Bring one row's draft cache level with its target cache:
+        re-prefill positions ``draft_pos..pos-1`` from the row's prompt
+        and generated tokens in chunk shapes, the tail's padding halved
+        until it fits the row's owned draft capacity."""
+        seq = np.concatenate([req.prompt,
+                              np.asarray(req.generated, np.int32)])
+        dtable = self.draft_kv.block_table(req.rid)[None]
+        cap = min(self.max_seq_len,
+                  self.draft_kv.owned(req.rid) * self.draft_kv.block_size)
+        while req.draft_pos < req.pos:
+            real = min(self.prefill_chunk, req.pos - req.draft_pos)
+            padded = _pow2_bucket(real, self.prefill_chunk)
+            while req.draft_pos + padded > cap:
+                padded >>= 1
+            real = min(real, padded)
+            toks = np.zeros((1, padded), np.int32)
+            toks[0, :real] = seq[req.draft_pos:req.draft_pos + real]
+            self._forward(self.draft_model, dparams, self.draft_kv, toks,
+                          np.asarray([req.draft_pos], np.int32), dtable)
+            req.draft_pos += real
+
+    def _spec_step(self, version, rows):
+        """ONE batched speculative round for a version group: greedy rows
+        that trail the draft cache catch up; ``spec_k+1`` batched draft
+        steps propose (the token feed stays on the device; the extra step
+        writes d_k's K/V; ineligible rows ride against the null table);
+        one verify at ``S = spec_k+1`` scores every row's ``[last, d_1..
+        d_k]``; ``batched_acceptance`` gives each row's acceptance length
+        and tokens in one readback (ineligible rows: 0, their plain
+        step). Rollback is positional: rejected positions hold values the
+        position-masked attention never reads, in both pools, and
+        ``draft_pos`` snaps to ``pos``."""
+        k = self.spec_k
+        n = len(rows)
+        bucket = bucket_for(max(n, 2), self.max_slots)
+        elig = np.zeros((bucket,), bool)
+        last = np.zeros((bucket, 1), np.int32)
+        positions = np.zeros((bucket,), np.int32)
+        dpositions = np.zeros((bucket,), np.int32)
+        tables = np.zeros((bucket, self.kv.max_blocks_per_seq), np.int32)
+        dtables = np.zeros((bucket, self.draft_kv.max_blocks_per_seq),
+                           np.int32)
+        for i, r in enumerate(rows):
+            elig[i] = r.temperature <= 0.0
+            last[i, 0] = r.generated[-1]
+            positions[i] = r.pos
+            tables[i] = self.kv.block_table(r.rid)
+        dparams = self._draft_params()
+        for i, r in enumerate(rows):
+            if elig[i]:
+                if r.draft_pos < r.pos:
+                    self._draft_catchup(r, dparams)
+                dtables[i] = self.draft_kv.block_table(r.rid)
+                dpositions[i] = r.pos
+        last_dev = self._dev(last)
+        dpos_dev = self._dev(dpositions)
+        dtab_dev = self._dev(dtables)
+        tok, drafts = last_dev, []
+        for i in range(k + 1):
+            lg = self._forward(self.draft_model, dparams, self.draft_kv, tok,
+                               dpos_dev + i, dtab_dev)
+            tok = lg.argmax(-1)
+            if i < k:
+                drafts.append(tok)
+        drafts_c = torch.cat(drafts, dim=1)                    # (B, k)
+        chunk = torch.cat([last_dev.to(drafts_c.dtype), drafts_c], dim=1)
+        vlogits = self._forward(self.model, rows[0].model_version.params,
+                                self.kv, chunk, positions, tables)
+        vchoices = self._choose(vlogits, positions, rows)
+        j, emit = batched_acceptance(drafts_c, vchoices, self._dev(elig))
+        got = torch.cat([j[:, None], emit], dim=1).cpu().numpy()
+        j, emit = got[:, 0], got[:, 1:]
+        self._bump("decode_steps")
+        self._bump("spec_rounds")
+        nrow = nacc = ntok = 0
+        for i, r in enumerate(rows):
+            ji = int(j[i])
+            r.pos += ji + 1
+            r.steps += 1
+            if elig[i]:
+                r.draft_pos = r.pos
+                r.spec_rounds += 1
+                r.spec_accepted += ji
+                nrow += 1
+                nacc += ji
+            for t in emit[i, :ji + 1]:
+                ntok += 1
+                if self._emit(r, int(t)):
+                    break
+        self._bump("spec_row_rounds", nrow)
+        self._bump("spec_accepted", nacc)
+        self._bump("tokens", ntok)
 
     # -- eviction / completion -------------------------------------------
 
@@ -643,13 +1109,17 @@ class DecodeScheduler:
             "decode_steps": req.steps,
             "tokens": n,
             "version": version,
+            "prefix_hit_tokens": req.hit_tokens,
+            "spec_rounds": req.spec_rounds,
+            "spec_accepted": req.spec_accepted,
         }
         self._bump("completed")
         if not req.future.done():
             req.future.set_result(out)
 
     def _release(self, req):
-        """Return the request's slot and KV blocks (safe to call twice)."""
+        """Return the request's slot, its KV blocks (both pools) and any
+        host reservation a preemption left (safe to call twice)."""
         if req in self._active:
             self._active.remove(req)
         if req in self._prefilling:
@@ -658,6 +1128,12 @@ class DecodeScheduler:
             self._free_slots.append(req.slot)
             req.slot = None
         self.kv.free(req.rid)
+        if self.draft_kv is not None:
+            self.draft_kv.free(req.rid)
+        if req.swap_handle is not None:
+            self.kv_swap.discard(req.swap_handle)
+            req.swap_handle = None
+        req.resume_seq = None
         req.model_version = None
 
     def _on_done(self, future):

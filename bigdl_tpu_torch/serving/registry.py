@@ -100,6 +100,14 @@ class ModelRegistry:
             return (self._versions[self._active]
                     if self._active is not None else None)
 
+    def get(self, version: str) -> ModelVersion:
+        with self._lock:
+            return self._versions[version]
+
+    def versions(self) -> List[str]:
+        with self._lock:
+            return list(self._order)
+
     @property
     def active_version(self) -> Optional[str]:
         with self._lock:

@@ -25,8 +25,9 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    forward and backward timed at (8,16,256,64) and (2,16,1024,64) on
    3xTF32, each also on the CUDA-core route, and at D = 128 (forward) /
    96 (backward) on the CUDA cores; K2 (split-K, ``paged_attention_sm90``)
-   at decode in float32 and bf16 pages, at positions up to 4096 and in the
-   chunk form (S = 32), each timed beside the unsplit kernel it succeeds
+   at decode in float32 and bf16 pages, at positions up to 4096, in the
+   chunk form (S = 32) and at the speculative verify (B8, S = 5), each
+   timed beside the unsplit kernel it succeeds
    (``paged_attention.cu``), with grouped-query heads, the padded slot at
    position 0, a table one split wide and bitwise-equal reruns; then
    every other head dim the attention kernels are instantiated for (each
@@ -84,11 +85,47 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    untraced step, and the largest kernels;
 8. trains ResNet-50 through ``Optimizer.create`` (a ``LocalOptimizer``)
    over a DataSet of image Samples, 3 iterations of B32/224, float32, then
-   2 more under ``torch.profiler``: CUDA kernel time a step by family.
+   2 more under ``torch.profiler``: CUDA kernel time a step by family;
+9. serves the flagship again (vocab 32000, hidden 1024, 16 heads, filter
+   4096, 12 layers, ``max_len`` 512, bf16 weights, float32 pages) through
+   ``DecodeScheduler(max_slots=8, block_size=16, prefill_chunk=32)`` with
+   the serving depth on: (a) the prefix cache - 6 system prompts of 448
+   tokens with 4 suffixes of 8 each, one request a prompt and then the
+   other 18, without the cache and with it: 18 hits reusing 448 tokens
+   each, only the tail chunk rerun, an exact aligned repeat over
+   copy-on-write forks with the registrant's and a third request's tokens
+   unchanged, ``defrag()`` then a warm hit, every block back and the
+   audit clean at shutdown, cold and warm TTFT; (b) speculative decoding
+   (``spec_k=4``) with a draft whose target adds zero past it
+   (``bench_serving.py`` ``_build_spec_pair``; at least 3.0 of 4 accepted
+   a row round) and a 2-layer draft of its own seed whose final LayerNorm
+   gain is negated (under 1 of 4 accepted: a random LM of this width
+   repeats its last token, so an unchanged random draft would agree), 16
+   requests against
+   the plain scheduler, tokens/s of each, and ``speculative_generate`` at
+   batch 8 against ``generate``, the verify's K2 launches (S = 5) 12 a
+   speculative round; (c) the host tier under a pool that holds 2 of the
+   6 chains, without the tier, with it (each spill staged before the next
+   request) and with it unsettled (refills overlapping the spills their
+   admission starts: the timed run): spills, refills, bytes and GB/s each
+   way, tokens against the run without the tier; then a priority-1
+   request into a pool full of priority-0 ones (preempted, resumed,
+   tokens unchanged), no swap thread left. Tokens are held against a
+   dense teacher-forced forward (or the other run) up to the first step
+   whose top-2 margin is under 0.1. A random LM of this width repeats its
+   last token, so its tokens say little of the KV pages; the pages are
+   checked themselves: each prompt's resident chain against the dense
+   prefill's K / V (within ``PAGE_TOL`` of each layer's largest value),
+   the chains bit for bit unchanged by the copy-on-write repeat and by
+   defrag and equal between the runs with and without the tier, every
+   page copy (fork, defrag) bit for bit equal to its source, and every
+   refill (a chain's, the preempted request's) bit for bit equal to what
+   its spills captured, gathered right after its scatter.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
-each training step, each ``LocalOptimizer`` run) and read just after; a
+each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
+run and ``speculative_generate``) and read just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -97,7 +134,8 @@ the run; so does a flash, K3, K4 or K5 launch on another route than the
 path's dtype and shapes give (``bf16_sm90`` in ``generate``,
 ``prefill_chunked`` and the bf16 recipes; in the ``LocalOptimizer`` run
 ``f32_sm90`` for the flash forward and backward; ``f32_split`` for K2 in
-serving; ``f32_sm90`` for K3, K4 and K5 in phases 7 and 8). Every check
+serving, phase 9 included, where K2 is the only kernel; ``f32_sm90`` for
+K3, K4 and K5 in phases 7 and 8). Every check
 that fails exits non-zero. The line before the last is one JSON object with
 each kernel's numbers (``flash_fwd`` at the serving prefill shape with the
 ``generate`` launches, ``flash_fwd_train`` at the training shape with the
@@ -105,8 +143,9 @@ launches of the five remat-off training steps, ``flash_bwd`` likewise,
 ``flash_fwd_chunk`` with the ``prefill_chunked`` launches, the ``_f32``
 rows at the ``LocalOptimizer`` shape with its launches by route, the
 CUDA-core forward's row at D = 128 and backward's at D = 96; K2's rows at
-the decode and long decode cases with the serving launches by route, and
-the unsplit kernel's row at the decode case; the fused ResNet kernels at
+the decode and long decode cases with the serving launches by route, its
+verify row with the verify launches (S = 5) of phase 9's two speculative
+runs, and the unsplit kernel's row at the decode case; the fused ResNet kernels at
 their timed shapes with the launches of the four ResNet-50 steps of the arm
 that runs them, their ``_f32`` rows (3xTF32) at phase 8's stage-0 shape
 with its launches (K4's with those of phase 7's float32 step, and its
@@ -1365,6 +1404,646 @@ def resnet_local_optimizer(torch, K, model, init, B=32, S=224, iters=3):
             "routes": routes, "trace": trace}
 
 
+# -- phase 9: serving depth ----------------------------------------------------
+
+# bf16 logits through two paths (dense against paged, S = 1 against the
+# verify's S = 5, another batch bucket): a step whose top-2 margin is under
+# this is a near-tie, where two correct paths may choose apart
+SERVE_TOL = 0.1
+
+
+def forced_greedy(torch, model, params, prompt, toks):
+    """(greedy ids, top-2 margins) of one dense forward over prompt + toks
+    at each position of toks (teacher-forced): while toks follow them,
+    these are the tokens a solo greedy decode emits."""
+    ids = torch.from_numpy(np.concatenate([prompt, toks])[None, :-1]).cuda()
+    with torch.no_grad():
+        lg = model.call(params, ids)[0, prompt.size - 1:].float()
+    top = lg.topk(2, dim=-1)
+    return (top.indices[:, 0].cpu().numpy(),
+            (top.values[:, 0] - top.values[:, 1]).cpu().numpy())
+
+
+def agree(what, got, want, margins, tol=SERVE_TOL):
+    """got equals want position by position up to the first near-tie;
+    returns the positions compared."""
+    n = 0
+    for t in range(len(want)):
+        if margins[t] < tol:
+            break
+        g = int(got[t]) if t < len(got) else None
+        check(g == int(want[t]), f"{what} step {t}: {g} against "
+              f"{int(want[t])} (margin {margins[t]:.3g})")
+        n += 1
+    return n
+
+
+def drive(sched, prompts, budgets, **kw):
+    """Submit every request at once: (tokens, traces, wall seconds)."""
+    t0 = time.perf_counter()
+    futs = [sched.submit(p, n, **kw) for p, n in zip(prompts, budgets)]
+    res = [f.result(600) for f in futs]
+    return res, [f.trace for f in futs], time.perf_counter() - t0
+
+
+def settle_spills(sched, deadline_s=60.0):
+    """Spills stage asynchronously: wait until none is still in flight (a
+    lookup that meets one takes the cold path instead of waiting)."""
+    from bigdl_tpu_torch.serving.kv_cache import SPILL_PENDING
+    t0 = time.monotonic()
+    while True:
+        with sched.prefix._lock:
+            pending = [h for h, _ in sched.prefix._spilled.values()
+                       if h.state == SPILL_PENDING]
+        if not pending:
+            return
+        check(time.monotonic() - t0 < deadline_s, "spills never staged")
+        time.sleep(0.002)
+
+
+def path_counts(torch, K, what, n_paged=None):
+    """Read the launch counters after a serving path: K2 launched (only on
+    f32_split, the pools' float32 pages), no other kernel."""
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    routes = K.launches_by_route()["paged_attention"]
+    n = counts["paged_attention"]
+    check(n > 0 and only_on(routes, "f32_split", n),
+          f"{what}: K2 launches by route {routes}")
+    others = {k: v for k, v in counts.items() if k != "paged_attention"}
+    check(not any(others.values()), f"{what}: other kernels launched "
+          f"{others}")
+    return n
+
+
+def p50(xs):
+    return statistics.median(xs)
+
+
+# the float32 pages the scheduler's paged prefill (K2) wrote for a prompt,
+# held against the K / V of the dense prefill (flash) of the same tokens
+# from the same bf16 weights: per layer and half, the largest difference
+# over the reference's largest magnitude. Both round K / V to bf16 (2^-8
+# relative) after layers that summed in different orders; a page of
+# another position or prompt is off by the order of the magnitude itself
+PAGE_TOL = 0.05
+
+
+def gather_pages(torch, kv, blocks):
+    """Device copies of ``blocks``' pages, per layer (k, v), queued on the
+    current stream (after every write queued before)."""
+    idx = torch.as_tensor(list(blocks), dtype=torch.long, device=kv.device)
+    return [(k.index_select(0, idx), v.index_select(0, idx))
+            for k, v in kv.pages()]
+
+
+def dense_pages(torch, model, params, tokens, bs):
+    """K / V of the dense prefill of ``tokens`` (its whole blocks), laid
+    out as pages of ``bs`` positions in float32."""
+    n = tokens.size // bs * bs
+    ids = torch.from_numpy(tokens[None, :n]).cuda()
+    with torch.no_grad():
+        _, caches = model.prefill(params, ids, n)
+    return [tuple(t[0].reshape(t.shape[1], n // bs, bs, t.shape[3])
+                  .transpose(0, 1).float() for t in kv) for kv in caches]
+
+
+def page_err(got, want):
+    return max(float((g.float() - w).abs().max() / w.abs().max())
+               for gl, wl in zip(got, want) for g, w in zip(gl, wl))
+
+
+def same_pages(a, b):
+    """Bit for bit equal, every layer and half."""
+    return len(a) == len(b) and all(x.equal(y) for la, lb in zip(a, b)
+                                    for x, y in zip(la, lb))
+
+
+def resident_chain(torch, sched, tokens):
+    """The prefix cache's resident chain of ``tokens`` (recency left as it
+    is) and a device copy of its pages. Call with the scheduler idle."""
+    blocks = sched.prefix._walk(tokens, sched.registry.current().version,
+                                touch=False)[0]
+    return blocks, gather_pages(torch, sched.kv, blocks)
+
+
+def trace_copies(torch, kv):
+    """Record each page copy of the pool (copy-on-write forks, defrag) as
+    (source pages before it, target pages after it). Returns the list."""
+    copies, plain = [], kv._copy_pages
+
+    def traced(moves):
+        before = gather_pages(torch, kv, [s for s, _ in moves])
+        plain(moves)
+        copies.append((before, gather_pages(torch, kv, [d for _, d in moves])))
+
+    kv._copy_pages = traced
+    return copies
+
+
+def trace_swaps(torch, swap):
+    """Record the pages each spill captures (at its boundary, before the
+    blocks go back) and the pages each refill lands (right after its
+    scatter, in stream order), and the blocks of each stager job:
+    ({handle: pages}, [(handles, pages)], [blocks a job])."""
+    kv, spilled, refills, jobs = swap.kv, {}, [], []
+    spill_many, refill_many, refill = (swap.spill_many, swap.refill_many,
+                                       swap.refill)
+
+    def spill_many_t(groups, tag=None):
+        groups = [[int(b) for b in g] for g in groups]
+        flat = [b for g in groups for b in g]
+        before = gather_pages(torch, kv, flat) if flat else None
+        hs = spill_many(groups, tag=tag)
+        if any(h is not None for h in hs):
+            jobs.append(sum(len(g) for g, h in zip(groups, hs)
+                            if h is not None))
+        s = 0
+        for g, h in zip(groups, hs):
+            if h is not None:
+                spilled[h] = [(k[s:s + len(g)], v[s:s + len(g)])
+                              for k, v in before]
+            s += len(g)
+        return hs
+
+    def refill_many_t(owner, handles):
+        ids, consumed, dropped = refill_many(owner, handles)
+        if consumed:
+            refills.append((list(handles[:consumed]),
+                            gather_pages(torch, kv, ids)))
+        return ids, consumed, dropped
+
+    def refill_t(owner, handle):
+        ids = refill(owner, handle)
+        if ids is not None:
+            refills.append(([handle], gather_pages(torch, kv, ids)))
+        return ids
+
+    swap.spill_many, swap.refill_many, swap.refill = (
+        spill_many_t, refill_many_t, refill_t)
+    return spilled, refills, jobs
+
+
+def check_swaps(torch, what, spilled, refills):
+    """Each refill landed, bit for bit, the pages its spills captured.
+    Returns the blocks compared."""
+    n = 0
+    for hs, got in refills:
+        want = [tuple(torch.cat([spilled[h][li][half] for h in hs])
+                      for half in (0, 1)) for li in range(len(got))]
+        check(same_pages(got, want), f"{what}: a refill of {len(hs)} "
+              f"spilled segments landed other bytes than they captured")
+        n += int(got[0][0].shape[0])
+    return n
+
+
+def serving_depth(torch, K):
+    """Phase 9: the flagship at full width (vocab 32000, hidden 1024, 16
+    heads, filter 4096, 12 layers, max_len 512, bf16 weights, float32
+    pages) through DecodeScheduler(max_slots=8, block_size=16,
+    prefill_chunk=32): (a) the prefix cache, (b) speculative decoding,
+    (c) the host tier and preemption. Returns the readings."""
+    import copy
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import speculative_generate
+    from bigdl_tpu_torch.serving import (DecodeScheduler, blocks_for_tokens,
+                                         kv_swap_threads_alive)
+    V, L, BS = 32000, 12, 16
+    cfg = dict(vocab_size=V, hidden_size=1024, num_heads=16,
+               filter_size=4096, max_len=512)
+    sk = dict(max_slots=8, block_size=BS, prefill_chunk=32)
+    r9 = {}
+    t0 = time.perf_counter()
+    model = TransformerLM(num_layers=L, seed=0, **cfg).to(torch.bfloat16)
+    params = model.params
+    print(f"[9] serving depth on the flagship (bf16 weights, float32 pages; "
+          f"built in {time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # (a) the prefix cache: 6 system prompts of 448 tokens, 4 suffixes of
+    # 8 each; one request a prompt first, then the other 18 together;
+    # without the cache, then with it (JAX's default)
+    rng = np.random.RandomState(9)
+    systems = [rng.randint(1, V, 448).astype(np.int32) for _ in range(6)]
+    reqs = [[np.concatenate([s, rng.randint(1, V, 8).astype(np.int32)])
+             for _ in range(4)] for s in systems]
+    first = [r[0] for r in reqs]
+    rest = [q for r in reqs for q in r[1:]]
+    chain = 448 // BS
+    refs = [dense_pages(torch, model, params, s, BS) for s in systems]
+    runs = {}
+    for pc in (False, True):
+        sched = DecodeScheduler(model, max_seq_len=512, prefix_cache=pc,
+                                **sk)
+        copies = trace_copies(torch, sched.kv)
+        sched.start()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        r1, _, w1 = drive(sched, first, [32] * 6)
+        r2, t2, w2 = drive(sched, rest, [32] * 18)
+        n_k2 = path_counts(torch, K, f"prefix_cache={pc}")
+        st = sched.stats()
+        runs[pc] = dict(tokens=r1 + r2, ttft=[t["ttft_ms"] for t in t2],
+                        chunks=st["prefill_chunks"], wall=w1 + w2,
+                        k2=n_k2, stats=st)
+        if not pc:
+            sched.shutdown()
+            check(sched.stats()["kv"]["blocks_in_use"] == 0,
+                  "cold run leaked blocks")
+            continue
+        check(st["prefix_hits"] == 18 and st["prefix_misses"] == 6
+              and st["prefix_reused_tokens"] == 448 * 18,
+              f"prefix hits {st['prefix_hits']} misses "
+              f"{st['prefix_misses']} reused {st['prefix_reused_tokens']}")
+        # each warm request reruns only its 8-token tail chunk
+        check(st["prefill_chunks"] == 6 * 15 + 18,
+              f"warm prefill chunks {st['prefill_chunks']}")
+        # the pages every warm request read: each prompt's resident chain
+        # against the dense prefill of its tokens
+        chains, errs = [], []
+        for i, sp_ in enumerate(systems):
+            blocks, pages = resident_chain(torch, sched, sp_)
+            check(len(blocks) == chain, f"(a) prompt {i}: {len(blocks)} of "
+                  f"{chain} chain blocks resident")
+            errs.append(page_err(pages, refs[i]))
+            check(errs[-1] <= PAGE_TOL, f"(a) prompt {i}'s chain pages off "
+                  f"the dense prefill's K / V by {errs[-1]:.3g}")
+            chains.append(pages)
+        # an exact aligned repeat reruns its last chunk over
+        # copy-on-write forks; the registrant and a third request then
+        # read the shared pages unchanged
+        forks0 = st["prefix_cow_forks"]
+        cow = sched.generate(systems[0], 32, timeout=600)
+        third = sched.generate(reqs[0][1], 32, timeout=600)
+        again = sched.generate(reqs[0][0], 32, timeout=600)
+        st = sched.stats()
+        check(st["prefix_cow_forks"] >= forks0 + 1 and copies,
+              f"copy-on-write forks {st['prefix_cow_forks']}, page copies "
+              f"{len(copies)}")
+        n_fork = len(copies)
+        check(same_pages(resident_chain(torch, sched, systems[0])[1],
+                         chains[0]),
+              "(a) the shared chain's pages changed under the copy-on-write "
+              "repeat")
+        # defrag at a boundary, then a warm hit
+        frag = sched.kv.frag_blocks()
+        check(sched.defrag() == -1, "defrag not deferred to a boundary")
+        t0 = time.monotonic()
+        while frag and sched.stats()["defrags"] == st["defrags"]:
+            check(time.monotonic() - t0 < 30, "defrag never ran")
+            time.sleep(0.002)
+        frag_after = sched.kv.frag_blocks()
+        after_defrag = sched.generate(reqs[1][2], 32, timeout=600)
+        st = sched.stats()
+        # every chain reads its old bytes through the remapped index, and
+        # every page copy (fork or defrag) landed its source's bytes
+        for i, sp_ in enumerate(systems):
+            blocks, pages = resident_chain(torch, sched, sp_)
+            check(len(blocks) == chain and same_pages(pages, chains[i]),
+                  f"(a) prompt {i}'s chain pages changed across defrag")
+        for before, after in copies:
+            check(same_pages(before, after), "(a) a page copy (fork or "
+                  "defrag) landed other bytes than its source held")
+        sched.shutdown()
+        check(sched.stats()["kv"]["blocks_in_use"] == 0
+              and sched.audit()["ok"], f"warm run: blocks "
+              f"{sched.stats()['kv']} audit {sched.audit()}")
+        check(frag == 0 or (st["defrags"] >= 1 and frag_after == 0
+                            and len(copies) > n_fork),
+              f"defrag: {frag} holes before, {frag_after} after, "
+              f"{len(copies) - n_fork} copies")
+        runs[pc].update(cow_forks=st["prefix_cow_forks"], frag=frag,
+                        frag_after=frag_after, page_err=max(errs),
+                        copied=sum(int(b[0][0].shape[0]) for b, _ in copies),
+                        fork_copies=n_fork,
+                        defrag_copies=len(copies) - n_fork)
+        del chains, copies
+    cold, warm = runs[False], runs[True]
+    compared = 0
+    for i, p in enumerate(first + rest):
+        want, margins = forced_greedy(torch, model, params, p,
+                                      warm["tokens"][i])
+        compared += agree(f"(a) warm request {i}", warm["tokens"][i], want,
+                          margins)
+        agree(f"(a) cold request {i}", cold["tokens"][i], want, margins)
+        if i == 0:
+            agree("(a) registrant after the fork", again, want, margins)
+        if i == 6:
+            agree("(a) third request after the fork", third, want, margins)
+        if i == 6 + 4:
+            agree("(a) warm hit after defrag", after_defrag, want, margins)
+    want, margins = forced_greedy(torch, model, params, systems[0], cow)
+    agree("(a) the aligned repeat", cow, want, margins)
+    r9["a"] = dict(cold_ttft_p50=p50(cold["ttft"]),
+                   warm_ttft_p50=p50(warm["ttft"]),
+                   cold_chunks=cold["chunks"], warm_chunks=warm["chunks"],
+                   cold_wall=cold["wall"], warm_wall=warm["wall"],
+                   k2=warm["k2"], compared=compared,
+                   cow_forks=warm["cow_forks"], frag=warm["frag"],
+                   page_err=warm["page_err"], copied_blocks=warm["copied"])
+    print(f"    (a) prefix cache: 24 requests (6 x 448-token system prompts "
+          f"+ 8-token suffixes, 32 new tokens); second wave TTFT p50 cold "
+          f"{r9['a']['cold_ttft_p50']:.1f} ms, warm "
+          f"{r9['a']['warm_ttft_p50']:.1f} ms; prefill chunks cold "
+          f"{cold['chunks']}, warm {warm['chunks']}; wall cold "
+          f"{cold['wall']:.2f} s, warm {warm['wall']:.2f} s; hits 18, "
+          f"reused tokens {448 * 18}; copy-on-write forks "
+          f"{warm['cow_forks']}; {warm['frag']} holes before defrag, "
+          f"{warm['frag_after']} after; K2 launches {warm['k2']} (cold "
+          f"{cold['k2']}); tokens equal greedy on {compared} steps; pages: "
+          f"the 6 chains within {warm['page_err']:.3g} of the dense "
+          f"prefill's K / V (tolerance {PAGE_TOL}), bit for bit unchanged "
+          f"by the repeat and by defrag; {warm['fork_copies']} fork and "
+          f"{warm['defrag_copies']} defrag copies ({warm['copied']} blocks) "
+          f"bit for bit equal to their sources", flush=True)
+
+    # (b) speculative decoding, spec_k = 4: draft pair 1 is the target's
+    # own embed / ln_f / block0 (its deeper blocks add zero to the
+    # residual: bench_serving.py _build_spec_pair), pair 2 a 2-layer draft
+    # of its own seed. A random LM of this width with tied embeddings
+    # greedily repeats its last token whatever its seed, so a random draft
+    # agrees with the target; pair 2's final LayerNorm gain is negated, so
+    # it proposes the token least like the one the target repeats and its
+    # rounds take the rejection path
+    target = copy.deepcopy(model)
+    draft1 = TransformerLM(num_layers=1, seed=1, **cfg).to(torch.bfloat16)
+    draft2 = TransformerLM(num_layers=2, seed=2, **cfg).to(torch.bfloat16)
+    with torch.no_grad():
+        draft2.ln_f.weight.neg_()
+        tsd = target.state_dict()
+        for k, v in draft1.state_dict().items():
+            tsd[k].copy_(v)
+        for i in range(1, L):
+            for k in ("attn.wo", "ffn.w2", "ffn.b2"):
+                tsd[f"block{i}.{k}"].zero_()
+    tparams = target.params
+    sp = [rng.randint(1, V, rng.randint(4, 33)).astype(np.int32)
+          for _ in range(16)]
+    sb = [int(rng.randint(32, 65)) for _ in range(16)]
+    spec = {}
+    for name, draft in (("plain", None), ("pair1", draft1),
+                        ("pair2", draft2)):
+        sched = DecodeScheduler(target, max_seq_len=128, draft_model=draft,
+                                spec_k=4, **sk).start()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        res, _, wall = drive(sched, sp, sb)
+        n_k2 = path_counts(torch, K, f"(b) {name}")
+        # the verify is the only call at S = spec_k + 1 (decode and draft
+        # steps run at 1, prefill chunks and catch-up at powers of two)
+        n_verify = K.paged_decode_attention.launches_by_s.get(4 + 1, 0)
+        sched.shutdown()
+        st = sched.stats()
+        check(st["kv"]["blocks_in_use"] == 0 and sched.audit()["ok"],
+              f"(b) {name}: blocks {st['kv']} audit {sched.audit()}")
+        check(draft is None or st["spec_rounds"] > 0,
+              f"(b) {name} ran no speculative round")
+        check(n_verify == L * st["spec_rounds"], f"(b) {name}: {n_verify} "
+              f"K2 launches at S = 5, {st['spec_rounds']} verify rounds of "
+              f"{L} layers")
+        spec[name] = dict(tokens=res, tps=sum(r.size for r in res) / wall,
+                          wall=wall, k2=n_k2, verify=n_verify, st=st,
+                          accept=(st["spec_accepted"]
+                                  / max(st["spec_row_rounds"], 1)))
+    compared = 0
+    for i, p in enumerate(sp):
+        want, margins = forced_greedy(torch, target, tparams, p,
+                                      spec["plain"]["tokens"][i])
+        compared += agree(f"(b) plain request {i}",
+                          spec["plain"]["tokens"][i], want, margins)
+        for name in ("pair1", "pair2"):
+            agree(f"(b) {name} request {i}", spec[name]["tokens"][i],
+                  spec["plain"]["tokens"][i], margins)
+    check(spec["pair1"]["accept"] >= 3.0, f"draft pair 1 accepted "
+          f"{spec['pair1']['accept']:.3f} of 4 a row round")
+    check(spec["pair2"]["accept"] < 1.0, f"draft pair 2 accepted "
+          f"{spec['pair2']['accept']:.3f} of 4 a row round: the rejection "
+          f"path did not run")
+    # speculative_generate at batch 8 against generate
+    sg = rng.randint(1, V, (8, 32)).astype(np.int32)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids_spec, sst = speculative_generate(target, tparams, draft1,
+                                         draft1.params, sg, 32, 4,
+                                         return_stats=True)
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0
+    sg_counts = K.launch_counts()
+    sg_routes = K.launches_by_route()["flash_fwd"]
+    check(only_on(sg_routes, "bf16_sm90", L + 1)
+          and sg_counts["flash_fwd"] == L + 1,
+          f"speculative_generate's flash launches {sg_counts} {sg_routes} "
+          f"(one a layer for each prefill)")
+    t0 = time.perf_counter()
+    ids_gen = target.generate(tparams, sg, 32)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    sg_cmp = 0
+    for b in range(8):
+        want, margins = forced_greedy(torch, target, tparams, sg[b],
+                                      ids_gen[b, 32:].cpu().numpy())
+        sg_cmp += agree(f"(b) speculative_generate row {b}",
+                        ids_spec[b, 32:].cpu().numpy(),
+                        ids_gen[b, 32:].cpu().numpy(), margins)
+    r9["b"] = dict({n: dict(tokens_per_s=v["tps"], wall=v["wall"], k2=v["k2"],
+                            spec_rounds=v["st"]["spec_rounds"],
+                            accepted_per_row_round=v["accept"],
+                            fallbacks=v["st"]["spec_fallbacks"])
+                    for n, v in spec.items()},
+                   compared=compared, sg_compared=sg_cmp,
+                   sg_accepted=int(sst.accepted), sg_drafted=int(sst.drafted),
+                   sg_s=t_spec, gen_s=t_gen)
+    print(f"    (b) speculative decoding, spec_k 4, 16 requests (prompts "
+          f"4-32, budgets 32-64): tokens/s plain "
+          f"{spec['plain']['tps']:.1f}, pair 1 {spec['pair1']['tps']:.1f} "
+          f"(accepted {spec['pair1']['accept']:.3f} of 4 a row round), pair "
+          f"2 {spec['pair2']['tps']:.1f} (accepted "
+          f"{spec['pair2']['accept']:.3f}); spec rounds / fallbacks pair 1 "
+          f"{spec['pair1']['st']['spec_rounds']} / "
+          f"{spec['pair1']['st']['spec_fallbacks']}, pair 2 "
+          f"{spec['pair2']['st']['spec_rounds']} / "
+          f"{spec['pair2']['st']['spec_fallbacks']}; K2 launches plain "
+          f"{spec['plain']['k2']}, pair 1 {spec['pair1']['k2']} (verify "
+          f"{spec['pair1']['verify']}), pair 2 {spec['pair2']['k2']} (verify "
+          f"{spec['pair2']['verify']}), all f32_split; tokens equal plain on "
+          f"{compared} steps; speculative_generate batch 8 x 32 in "
+          f"{t_spec:.3f} s ({int(sst.accepted)} of {int(sst.drafted)} "
+          f"drafts accepted) against generate {t_gen:.3f} s, equal on "
+          f"{sg_cmp} steps", flush=True)
+    r9["verify_k2"] = spec["pair1"]["verify"] + spec["pair2"]["verify"]
+    del target, draft1, draft2, tparams
+    torch.cuda.empty_cache()
+
+    # (c) the host tier: a pool that holds 2 of the 6 chains beside two
+    # requests' worst case (bench_serving.py's sizing); the prompts rotate
+    # twice, so chains spill and refill. Without the tier; with it, every
+    # spill staged before the next request (its spills and refills traced
+    # page by page); and with it untraced and unsettled, so refills and
+    # the spills their admission starts overlap (the timed run)
+    worst = blocks_for_tokens(448 + 8 + 16, BS)
+    tight, host = 1 + 2 * chain + 2 * worst, 2 * 6 * chain + 16
+    rot = [np.concatenate([s, rng.randint(1, V, 8).astype(np.int32)])
+           for _ in range(2) for s in systems]
+    tiers = {}
+    for name, hb in (("none", 0), ("tier", host), ("overlap", host)):
+        sched = DecodeScheduler(model, max_seq_len=512, num_blocks=tight,
+                                host_blocks=hb, **sk)
+        spilled, refills, jobs = (trace_swaps(torch, sched.kv_swap)
+                                  if name == "tier" else ({}, [], []))
+        sched.start()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        res, chains = [], []
+        t0 = time.perf_counter()
+        for p in rot:
+            if name == "tier":
+                settle_spills(sched)
+            res.append(sched.generate(p, 16, timeout=600))
+            # the chain this request read (refilled, or prefilled cold)
+            blocks, pages = resident_chain(torch, sched, p)
+            check(len(blocks) == chain, f"(c) {name}: {len(blocks)} of "
+                  f"{chain} chain blocks resident")
+            chains.append(pages)
+        wall = time.perf_counter() - t0
+        n_k2 = path_counts(torch, K, f"(c) {name}")
+        st = sched.stats()
+        sched.shutdown()
+        end = sched.stats()
+        check(end["kv"]["blocks_in_use"] == 0 and sched.audit()["ok"]
+              and (not hb or end["host"]["host_blocks_in_use"] == 0),
+              f"(c) {name}: {end['kv']} {end['host']}")
+        tiers[name] = dict(tokens=res, st=st, wall=wall, k2=n_k2,
+                           chains=chains, jobs=jobs,
+                           swapped=check_swaps(torch, f"(c) {name}", spilled,
+                                               refills))
+        del spilled, refills
+    page_errs = [page_err(c, refs[i % 6])
+                 for i, c in enumerate(tiers["none"]["chains"])]
+    check(max(page_errs) <= PAGE_TOL, f"(c) no-tier chain pages off the "
+          f"dense prefill's K / V by {max(page_errs):.3g}")
+    for name in ("tier", "overlap"):
+        ps = tiers[name]["st"]["prefix"]
+        check(ps["spills"] > 0, f"(c) {name}: no spill {ps}")
+        for i, (a, b) in enumerate(zip(tiers[name]["chains"],
+                                       tiers["none"]["chains"])):
+            check(same_pages(a, b), f"(c) {name} request {i}: its chain's "
+                  f"pages differ from the no-tier run's")
+    tier = tiers["tier"]["st"]
+    hs, ps = tier["host"], tier["prefix"]
+    check(ps["refills"] > 0 and ps["hits_after_spill"] > 0
+          and hs["swap_failures"] == 0 and hs["swap_out_bytes"] > 0
+          and hs["swap_in_bytes"] > 0 and tiers["tier"]["swapped"] > 0,
+          f"(c) host tier: prefix {ps} host {hs}, "
+          f"{tiers['tier']['swapped']} blocks traced")
+    compared = 0
+    for i, p in enumerate(rot):
+        want, margins = forced_greedy(torch, model, params, p,
+                                      tiers["none"]["tokens"][i])
+        compared += agree(f"(c) no-tier request {i}",
+                          tiers["none"]["tokens"][i], want, margins)
+        for name in ("tier", "overlap"):
+            agree(f"(c) {name} request {i}", tiers[name]["tokens"][i],
+                  tiers["none"]["tokens"][i], margins)
+    for t in tiers.values():
+        del t["chains"]
+    gbs = {}
+    for name in ("tier", "overlap"):
+        h = tiers[name]["st"]["host"]
+        gbs[name] = (h["swap_out_bytes"] / h["swap_out_s"] / 1e9,
+                     (h["swap_in_bytes"] / h["swap_in_s"] / 1e9
+                      if h["swap_in_s"] else 0.0))
+    out_gbs, in_gbs = gbs["tier"]
+    # priority preemption: 7 priority-0 requests fill the pool; a
+    # priority-1 request arrives into it
+    pp = [rng.randint(1, V, 64).astype(np.int32) for _ in range(7)]
+    hi = rng.randint(1, V, 32).astype(np.int32)
+    sched = DecodeScheduler(model, max_seq_len=256, num_blocks=1 + 7 * 8,
+                            prefix_cache=False, host_blocks=64, **sk)
+    spilled, refills, _ = trace_swaps(torch, sched.kv_swap)
+    sched.start()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    lows = [sched.submit(p, 64) for p in pp]
+    t0 = time.monotonic()
+    while sched.stats()["active"] < 7:
+        check(time.monotonic() - t0 < 120, "(c) the pool never filled")
+        time.sleep(0.002)
+    high = sched.submit(hi, 16, priority=1)
+    r_hi = high.result(600)
+    r_lo = [f.result(600) for f in lows]
+    n_k2p = path_counts(torch, K, "(c) preemption")
+    pst = sched.stats()
+    sched.shutdown()
+    end = sched.stats()
+    check(pst["preemptions"] >= 1 and pst["resumes"] >= 1
+          and pst["host"]["swap_failures"] == 0,
+          f"(c) preemptions {pst['preemptions']} resumes {pst['resumes']} "
+          f"recomputes {pst['resume_recomputes']} host {pst['host']}")
+    check(end["kv"]["blocks_in_use"] == 0
+          and end["host"]["host_blocks_in_use"] == 0 and sched.audit()["ok"],
+          f"(c) preemption run: {end['kv']} {end['host']}")
+    # the preempted request resumed over the bytes its spill captured
+    p_swapped = check_swaps(torch, "(c) preemption", spilled, refills)
+    check(p_swapped > 0, "(c) no resume went through a refill")
+    del spilled, refills
+    pcmp = 0
+    for i, (p, r) in enumerate(zip(pp + [hi], r_lo + [r_hi])):
+        want, margins = forced_greedy(torch, model, params, p, r)
+        pcmp += agree(f"(c) preemption request {i}", r, want, margins)
+    check(kv_swap_threads_alive() == 0, "swap stager threads left running")
+    ov = tiers["overlap"]["st"]
+    r9["c"] = dict(spills=ps["spills"], refills=ps["refills"],
+                   hits_after_spill=ps["hits_after_spill"],
+                   out_bytes=hs["swap_out_bytes"], out_s=hs["swap_out_s"],
+                   in_bytes=hs["swap_in_bytes"], in_s=hs["swap_in_s"],
+                   out_gbs=out_gbs, in_gbs=in_gbs,
+                   wall_tier=tiers["tier"]["wall"],
+                   wall_none=tiers["none"]["wall"],
+                   wall_overlap=tiers["overlap"]["wall"],
+                   overlap_gbs=gbs["overlap"],
+                   overlap_spills=ov["prefix"]["spills"],
+                   overlap_refills=ov["prefix"]["refills"],
+                   chunks_tier=tier["prefill_chunks"],
+                   chunks_none=tiers["none"]["st"]["prefill_chunks"],
+                   chunks_overlap=ov["prefill_chunks"],
+                   page_err=max(page_errs),
+                   swapped_blocks=tiers["tier"]["swapped"],
+                   spill_jobs=len(tiers["tier"]["jobs"]),
+                   compared=compared, preemptions=pst["preemptions"],
+                   resumes=pst["resumes"], preempt_swapped=p_swapped,
+                   recomputes=pst["resume_recomputes"], preempt_cmp=pcmp,
+                   k2=tiers["tier"]["k2"], k2_preempt=n_k2p)
+    print(f"    (c) host tier: pool {tight} blocks, host {host} blocks; 12 "
+          f"requests rotating the 6 prompts twice. Settled (each spill "
+          f"staged before the next request): spills {ps['spills']}, "
+          f"refills {ps['refills']} ({ps['hits_after_spill']} hits after a "
+          f"spill); device to host {hs['swap_out_bytes']} B in "
+          f"{hs['swap_out_s'] * 1e3:.3f} ms = {out_gbs:.2f} GB/s in "
+          f"{len(tiers['tier']['jobs'])} stager jobs of "
+          f"{min(tiers['tier']['jobs'])}-{max(tiers['tier']['jobs'])} "
+          f"blocks ({2 * L} copies each), host to "
+          f"device {hs['swap_in_bytes']} B in {hs['swap_in_s'] * 1e3:.3f} "
+          f"ms = {in_gbs:.2f} GB/s (CUDA events on the copies); prefill "
+          f"chunks {tier['prefill_chunks']} with the tier, "
+          f"{tiers['none']['st']['prefill_chunks']} without; wall "
+          f"{tiers['tier']['wall']:.2f} s / {tiers['none']['wall']:.2f} s. "
+          f"Unsettled and untraced: spills {ov['prefix']['spills']}, "
+          f"refills {ov['prefix']['refills']}, {gbs['overlap'][0]:.2f} / "
+          f"{gbs['overlap'][1]:.2f} GB/s, prefill chunks "
+          f"{ov['prefill_chunks']}, wall {tiers['overlap']['wall']:.2f} s. "
+          f"Tokens equal the no-tier run on {compared} steps; pages: the "
+          f"no-tier chains within {max(page_errs):.3g} of the dense "
+          f"prefill's K / V, both tier runs' chains bit for bit equal to "
+          f"the no-tier run's, {tiers['tier']['swapped']} refilled blocks "
+          f"bit for bit equal to what their spills captured; preemption: "
+          f"{pst['preemptions']} preempted, {pst['resumes']} resumed over "
+          f"{p_swapped} refilled blocks bit for bit equal to their spill, "
+          f"{pst['resume_recomputes']} recomputed, tokens equal greedy on "
+          f"{pcmp} steps; K2 launches {n_k2p}", flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return r9
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1480,6 +2159,8 @@ def main():
     k2_long = paged_case(torch, K, 8, 16, 16, 1, 64, 16, f32, timed=True,
                          max_pos=4096)
     k2_chunk = paged_case(torch, K, 1, 16, 16, 32, 64, 16, f32, timed=True)
+    # the speculative verify (phase 9): a decode bucket at S = spec_k + 1
+    k2_verify = paged_case(torch, K, 8, 16, 16, 5, 64, 16, f32, timed=True)
     for kvh in (16, 4):
         for S in (1, 32):
             for pdt in (f32, bf):
@@ -1488,7 +2169,7 @@ def main():
                         max_pos=48)
     check(k2_one["splits"] == 1 and k2_main["splits"] > 1
           and all(r["route"] == "f32_split"
-                  for r in (k2_main, k2_long, k2_chunk, k2_one))
+                  for r in (k2_main, k2_long, k2_chunk, k2_one, k2_verify))
           and k2_bf16["route"] == "bf16_split",
           f"K2 routes / splits {[(r['route'], r['splits']) for r in (k2_main, k2_bf16, k2_long, k2_chunk, k2_one)]}")
     check("paged_combine_kernel" in k2_main["launch_ms"],
@@ -1882,6 +2563,9 @@ def main():
           f"kernels (ms a step, launches a step): {tr['top'][:10]}",
           flush=True)
 
+    # -- phase 9: serving depth ---------------------------------------------
+    r9 = serving_depth(torch, K)
+
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
@@ -1939,7 +2623,9 @@ def main():
             ("K2 long decode (8x16, S=1, f32 pages, positions 32-4096)",
              k2_long),
             ("K2 chunk (1x16, S=32, f32 pages, positions 32-320)",
-             k2_chunk)):
+             k2_chunk),
+            ("K2 verify (8x16, S=5, f32 pages, positions 32-320)",
+             k2_verify)):
         print(f"    {name}: {rec['ms']:.4f} ms in {rec['splits']} splits of "
               f"{rec['span']} keys, plain {rec['plain_ms']:.4f}, unsplit "
               f"kernel {rec['unsplit_ms']:.4f}, bound {rec['bound_ms']:.4f} "
@@ -2043,6 +2729,10 @@ def main():
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_long,
                    serve_routes["f32_split"]),
+        kernel_rec("paged_attention_verify",
+                   "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
+                   "bigdl_tpu/kernels/paged_attention.py:107", k2_verify,
+                   r9["verify_k2"]),
         kernel_rec("paged_attention_unsplit",
                    "bigdl_tpu_torch/csrc/paged_attention.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107",

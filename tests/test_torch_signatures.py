@@ -13,6 +13,12 @@ never reads). A parameter the port does not implement yet is accepted and
 raises ``NotImplementedError`` at a value other than JAX's default; the
 behaviour tests below hold the constructors the signature diff found
 wrong to JAX's reading of positional calls.
+
+Public methods are held the same way: every public method of a class in
+both packages takes its twin's parameters (a method the port's modules
+inherit from ``torch.nn.Module`` keeps torch's), and every public JAX
+method the port lacks is listed in ``UNPORTED_METHODS`` by the JAX class
+that defines it, with the ROADMAP item that ports it.
 """
 import importlib
 import inspect
@@ -193,3 +199,161 @@ def test_refuse_unported_passes_defaults_and_names_the_first_change():
         refuse_unported("f", a=(None, None), b=(5, 4))
     with pytest.raises(NotImplementedError, match=r"a=0"):
         refuse_unported("f", a=(0, None))
+
+
+# -- public methods ------------------------------------------------------------
+
+# public JAX methods the port does not have yet, by the JAX class that
+# defines them; each name here must really be missing from the port
+UNPORTED_METHODS = {
+    # the Torch-style stateful facade beyond forward / apply / call: the
+    # save / load family, weights, freezing, the Torch backward protocol,
+    # quantization and the prediction helpers (ROADMAP A.4, A.8)
+    "bigdl_tpu.nn.module.Module": {
+        "acc_grad_parameters", "backward", "clone", "ensure_initialized",
+        "evaluate_dataset", "find_module", "freeze", "get_extra_parameter",
+        "get_name", "get_parameters", "get_weights", "init", "is_frozen",
+        "is_training", "load", "load_orbax", "load_weights", "modules_iter",
+        "predict", "predict_class", "quantize", "save", "save_caffe",
+        "save_orbax", "save_tf", "save_torch", "save_weights",
+        "set_extra_parameter", "set_name", "set_scale_b", "set_scale_w",
+        "set_weights", "unfreeze", "update_grad_input",
+        "zero_grad_parameters"},
+    "bigdl_tpu.nn.module.Container": {"modules_iter"},
+    # beam search and the translation mode (ROADMAP A.3)
+    "bigdl_tpu.nn.attention.Transformer": {"generate_beam", "translate",
+                                           "translate_beam"},
+    "bigdl_tpu.nn.attention.TransformerBlock": {"cross_kv"},
+    "bigdl_tpu.nn.attention.Attention": {"decode"},
+    # the pooling layers' ceil / floor mode switches (ROADMAP A.5)
+    "bigdl_tpu.nn.pool._Pool2D": {"ceil", "floor"},
+    # transformer chains on data sets (ROADMAP A.4)
+    "bigdl_tpu.dataset.dataset.AbstractDataSet": {"arrow", "transform"},
+    "bigdl_tpu.dataset.transformer.Transformer": {"arrow"},
+    # the cross-process page handoff of the fleet tier (ROADMAP A.8)
+    "bigdl_tpu.serving.kv_cache.PagedKVCache": {"export_blocks"},
+    # optimizer-state checkpoints and the training loop's follow-ons
+    # (ROADMAP A.4)
+    "bigdl_tpu.optim.optim_method.OptimMethod": {
+        "clone", "current_lr_vector", "load", "optimize", "save"},
+    "bigdl_tpu.optim.optimizer.BaseOptimizer": {
+        "load_checkpoint", "prepare_input", "set_anomaly_detection",
+        "set_checkpoint", "set_fault_policy", "set_prefetch",
+        "set_remediation", "set_stall_deadline", "set_summary_trigger",
+        "set_superstep", "set_sync_policy", "set_train_summary",
+        "set_val_summary", "set_validation", "wait_for_checkpoints"},
+}
+
+CLASS_PAIRS = [(k, p, t) for k, p, t in PAIRS if inspect.isclass(p)]
+
+
+def _is_method(v):
+    return inspect.isfunction(v) or inspect.ismethod(v)
+
+
+def _definer(fn):
+    fn = inspect.unwrap(fn)
+    return f"{fn.__module__}.{fn.__qualname__.rsplit('.', 1)[0]}"
+
+
+def _public_methods(cls):
+    return [(n, v) for n, v in inspect.getmembers(cls)
+            if not n.startswith("_") and _is_method(v)]
+
+
+def _method_pairs():
+    """(id, port method, JAX method) for every public JAX method the port
+    defines itself (the port's modules subclass ``torch.nn.Module``; a
+    method they inherit from it unchanged, such as ``parameters``, keeps
+    torch's signature)."""
+    out = []
+    for key, port, twin in CLASS_PAIRS:
+        for name, jv in _public_methods(twin):
+            pv = getattr(port, name, None)
+            if not _is_method(pv) \
+                    or pv is getattr(torch.nn.Module, name, None):
+                continue
+            out.append((f"{key}.{name}", pv, jv))
+    return out
+
+
+METHOD_PAIRS = _method_pairs()
+
+
+def test_the_method_pairs_cover_the_serving_tier():
+    ids = {i for i, _, _ in METHOD_PAIRS}
+    for want in ("DecodeScheduler.submit", "DecodeScheduler.defrag",
+                 "DecodeScheduler.cached_prefix_tokens",
+                 "PagedKVCache.fork_blocks", "PagedKVCache.defrag",
+                 "PagedKVCache.snapshot_blocks", "PagedKVCache.adopt",
+                 "PrefixCache.lookup", "PrefixCache.evict",
+                 "KVSwapManager.refill_many", "HostKVPool.alloc",
+                 "ModelRegistry.get", "ModelRegistry.versions"):
+        assert any(i.endswith(want) for i in ids), want
+    assert len(METHOD_PAIRS) >= 150
+
+
+@pytest.mark.parametrize("key,port,twin", METHOD_PAIRS,
+                         ids=[p[0] for p in METHOD_PAIRS])
+def test_method_signature_matches_the_jax_twin(key, port, twin):
+    test_signature_matches_the_jax_twin(key, port, twin)
+
+
+@pytest.mark.parametrize("key,port,twin", CLASS_PAIRS,
+                         ids=[p[0] for p in CLASS_PAIRS])
+def test_every_jax_method_is_ported_or_listed(key, port, twin):
+    missing = sorted((name, _definer(jv)) for name, jv in
+                     _public_methods(twin) if not hasattr(port, name))
+    unlisted = [(n, d) for n, d in missing
+                if n not in UNPORTED_METHODS.get(d, ())]
+    assert not unlisted, f"public JAX methods missing from the port: " \
+                         f"{unlisted}"
+    # a listed method the port now has leaves the list
+    for name, jv in _public_methods(twin):
+        if name in UNPORTED_METHODS.get(_definer(jv), ()):
+            assert not hasattr(port, name), f"{name} is ported: unlist it"
+
+
+def test_translation_and_padding_parameters_raise_at_a_non_default_value():
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch, Sample
+    attn = nn.Attention(16, 2)
+    x = torch.zeros(1, 3, 16)
+    assert [t.shape for t in attn.qkv(attn.params, x)] == [(1, 2, 3, 8)] * 3
+    for call in (lambda: attn.qkv(attn.params, x, x),
+                 lambda: DataSet.array([Sample(np.zeros(2))], object()),
+                 lambda: MiniBatch.from_samples([Sample(np.zeros(2))], 0)):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+# -- serving parameters that were refused and now take values -----------------
+
+@pytest.mark.parametrize("kw,attr,want", [
+    ({"draft_model": "draft"}, "draft_kv", "pool"),
+    ({"draft_model": "draft", "spec_k": 2}, "spec_k", 2),
+    ({"host_blocks": 8}, "preempt_enabled", True),
+    ({"host_blocks": 8, "preempt": False}, "preempt_enabled", False),
+    ({"prefix_cache_entries": 3}, "prefix", 3),
+    ({"prefix_cache": False}, "prefix", None),
+], ids=["draft_model", "spec_k", "host_blocks", "preempt",
+        "prefix_cache_entries", "prefix_cache_off"])
+def test_serving_parameters_are_accepted(kw, attr, want):
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import DecodeScheduler
+    cfg = dict(vocab_size=16, hidden_size=16, num_heads=2, filter_size=32,
+               num_layers=1, max_len=64, device="cpu")
+    kw = dict(kw)
+    if kw.get("draft_model") == "draft":
+        kw["draft_model"] = TransformerLM(seed=1, **cfg)
+    ds = DecodeScheduler(TransformerLM(**cfg), max_slots=2, block_size=4,
+                         max_seq_len=32, prefill_chunk=8, **kw)
+    got = getattr(ds, attr)
+    if want == "pool":
+        assert got.metric_prefix == "serve/draft_kv"
+    elif attr == "prefix" and want is not None:
+        assert got.max_entries == want
+    else:
+        assert got == want
+    ds.shutdown()
+    from bigdl_tpu_torch.serving import kv_swap_threads_alive
+    assert kv_swap_threads_alive() == 0
