@@ -92,6 +92,12 @@ class Module(torch.nn.Module):
             out[n] = m.state
         return out
 
+    def ensure_initialized(self):
+        """The JAX package builds parameters lazily, on first use; the
+        port's modules hold theirs from construction, so this returns the
+        module as it is (the serving entry points call it as JAX's do)."""
+        return self
+
     def call(self, params, x):
         """The forward as a function of a parameter tree."""
         raise NotImplementedError(type(self).__name__)

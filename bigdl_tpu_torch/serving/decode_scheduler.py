@@ -42,9 +42,21 @@ the paged-attention kernel on a CUDA device.
   from a ``torch.Generator`` seeded by (request seed, p), so a request's
   samples do not depend on what shares its batch.
 
-Not in the port yet (refused at a value other than JAX's default): the
-stall watchdog, fault replay, periodic audits, mesh / tensor-parallel
-serving, replica names and tags; chaos sites and observability are absent.
+* The control plane: the loop pulses a stall-watchdog beacon
+  (``stall_deadline_s``, named by ``name``); each prefill chunk, decode
+  group and speculative round is a replay unit under ``fault_policy``
+  (a transient failure restores the rows' counters and dispatches the
+  unit again; its page writes land at the same positions with the same
+  values, so nothing is copied); ``audit_every`` boundaries run the KV
+  ledger audit, and a violation quarantines the ledger (it still serves
+  but adopts and registers no prefixes); a loop that dies leaves a crash
+  bundle with per-request triage. The chaos sites ``serving/prefill``,
+  ``serving/scheduler_step`` and ``serving/spec_round`` fire inside the
+  units, tagged with ``name``; metrics and spans follow the JAX package's
+  names (``serve/ttft_ms``, ``serve/decode_step``, ...).
+
+Mesh / tensor-parallel serving (``mesh``, ``placement``) is not ported and
+is refused at a value other than JAX's default (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -59,8 +71,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..nn.speculative import batched_acceptance
+from ..observability import cluster as _cluster
+from ..observability import flight as _flight
+from ..observability import health as _health
 from ..optim.predictor import bucket_for
+from ..parallel import chaos as _chaos
+from ..parallel.failure import (TRANSIENT, FaultPolicy, TransientDeviceError,
+                                classify_failure)
 from ..utils.engine import refuse_unported
 from .batching import DeadlineExceeded, EngineStopped, QueueFull, ServeFuture
 from .kv_cache import (SPILL_PENDING, KVCacheOOM, KVSwapManager,
@@ -74,8 +93,9 @@ _STAT_KEYS = ("submitted", "completed", "rejected", "timeouts",
               "decode_steps", "prefill_chunks", "tokens", "swaps",
               "spec_rounds", "spec_accepted", "spec_row_rounds",
               "spec_fallbacks", "defrags", "prefix_hits", "prefix_misses",
-              "prefix_reused_tokens", "prefix_cow_forks", "preemptions",
-              "resumes", "resume_recomputes")
+              "prefix_reused_tokens", "prefix_cow_forks", "step_replays",
+              "kv_corruptions", "preemptions", "resumes",
+              "resume_recomputes")
 
 _MASK64 = (1 << 64) - 1
 
@@ -190,13 +210,21 @@ class DecodeScheduler:
     sampling_seed : base of the per-request seeds of sampled requests.
     prefix_cache / prefix_cache_entries : content-addressed KV block
         sharing (on by default), optionally capped at a number of entries.
+    stall_deadline_s : the loop beacon's watchdog deadline (None: the
+        ``BIGDL_TPU_STALL_S`` default; active while observability is
+        enabled).
+    name / tags : replica name (the beacon is
+        ``serving/decode_scheduler[<name>]``, chaos sites are tagged with
+        it) and capability labels a ``Router`` class may demand.
+    fault_policy : the replay budget of a dispatch unit (default
+        ``FaultPolicy(max_restarts=1, backoff_base_s=0)``).
+    audit_every : run the KV ledger audit every this many loop passes
+        (0: only at shutdown).
     host_blocks : size of the host-RAM KV tier in blocks (0: none).
     preempt : allow swap-based preemption (needs ``host_blocks``).
 
-    Not ported, and refused at a value other than JAX's default:
-    ``stall_deadline_s``, ``mesh`` / ``placement``, ``name``, ``tags``,
-    ``fault_policy`` and ``audit_every`` (periodic audits; :meth:`audit`
-    runs one on demand and shutdown needs none to drain).
+    Not ported, and refused at a value other than JAX's default: ``mesh``
+    / ``placement``.
     """
 
     def __init__(self, model, *, max_slots: int = 8, block_size: int = 16,
@@ -214,12 +242,8 @@ class DecodeScheduler:
                  placement=None, name: Optional[str] = None, tags=(),
                  fault_policy=None, audit_every: int = 256,
                  host_blocks: int = 0, preempt: bool = True):
-        refuse_unported("DecodeScheduler",
-                        stall_deadline_s=(stall_deadline_s, None),
-                        mesh=(mesh, None), placement=(placement, None),
-                        name=(name, None), tags=(tuple(tags), ()),
-                        fault_policy=(fault_policy, None),
-                        audit_every=(audit_every, 256))
+        refuse_unported("DecodeScheduler", mesh=(mesh, None),
+                        placement=(placement, None))
         if model.mode != "lm":
             raise ValueError("DecodeScheduler serves LM-mode models")
         if max_slots < 2:
@@ -234,6 +258,7 @@ class DecodeScheduler:
         if admission not in ("continuous", "static"):
             raise ValueError(f"admission must be 'continuous' or 'static', "
                              f"got {admission!r}")
+        model.ensure_initialized()
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -244,12 +269,16 @@ class DecodeScheduler:
         self.eos_id = eos_id
         self.sampling_seed = int(sampling_seed)
         self.spec_k = int(spec_k)
+        self.name = name
+        self.tags = tuple(tags)
+        self.beacon_name = ("serving/decode_scheduler" if name is None
+                            else f"serving/decode_scheduler[{name}]")
         mbs = blocks_for_tokens(max_seq_len, block_size)
         if num_blocks is None:
             num_blocks = self.max_slots * mbs + 1
         self.kv = PagedKVCache(model, num_blocks=num_blocks,
                                block_size=block_size, max_blocks_per_seq=mbs)
-        self.kv_swap = (KVSwapManager(self.kv, host_blocks)
+        self.kv_swap = (KVSwapManager(self.kv, host_blocks, tag=name)
                         if host_blocks > 0 else None)
         self.preempt_enabled = bool(preempt) and self.kv_swap is not None
         # hits align to max(chunk, block): a warm plan reruns exactly the
@@ -290,6 +319,15 @@ class DecodeScheduler:
         self._stats = dict.fromkeys(_STAT_KEYS, 0)
         self._stats_lock = threading.Lock()
         self._rids = itertools.count()
+        self.stall_deadline_s = stall_deadline_s
+        self._beacon = _health.NULL_BEACON
+        self._snap_writer = _cluster.default_writer()
+        self.fault_policy = (fault_policy if fault_policy is not None
+                             else FaultPolicy(max_restarts=1,
+                                              backoff_base_s=0.0))
+        self.audit_every = int(audit_every)
+        self._audit_tick = 0
+        self._quarantined = False
 
     # -- the step --------------------------------------------------------
 
@@ -358,7 +396,9 @@ class DecodeScheduler:
             raise EngineStopped("scheduler was shut down; build a new one")
         if warmup:
             self.warmup()
-        self._thread = threading.Thread(target=self._loop, name=THREAD_NAME,
+        self._beacon = _health.beacon(self.beacon_name,
+                                      deadline_s=self.stall_deadline_s)
+        self._thread = threading.Thread(target=self._run, name=THREAD_NAME,
                                         daemon=True)
         self._thread.start()
         return self
@@ -425,8 +465,13 @@ class DecodeScheduler:
                 if t.is_alive():
                     logging.getLogger(__name__).error(
                         "decode scheduler wedged - skipping state cleanup")
+                    self._beacon.close()
                     return
+        self._beacon.close()
         self._abandon_inflight("scheduler shut down before completion")
+        # the ledger must be consistent at the end of every run
+        # (a violation quarantines and leaves a bundle, never raises)
+        self._audit("shutdown")
         self._close_tiers()
 
     def _close_tiers(self):
@@ -497,6 +542,8 @@ class DecodeScheduler:
                 self._pending += 1
         except queue.Full:
             self._bump("rejected")
+            if obs.enabled():
+                obs.counter("serve/rejected").inc()
             raise QueueFull(f"request queue at capacity ({self.max_queue})")
         req.future.add_done_callback(self._on_done)
         self._bump("submitted")
@@ -520,6 +567,8 @@ class DecodeScheduler:
         v = self.registry.publish(params, state, version=version,
                                   activate=True)
         self._bump("swaps")
+        if obs.enabled():
+            obs.instant("serve/swap", version=v)
         return v
 
     def defrag(self) -> int:
@@ -547,6 +596,7 @@ class DecodeScheduler:
         out["active"] = len(self._active)
         out["prefilling"] = len(self._prefilling)
         out["active_version"] = self.registry.active_version
+        out["quarantined"] = self._quarantined
         out["kv"] = self.kv.stats()
         out["prefix"] = (self.prefix.stats() if self.prefix is not None
                          else None)
@@ -557,14 +607,68 @@ class DecodeScheduler:
     def cached_prefix_tokens(self, prompt_ids) -> int:
         """How many leading tokens of this prompt admission would reuse
         from the prefix cache under the active version (the cached chain
-        aligned down to ``hit_align``; 0 without a cache)."""
-        if self.prefix is None:
+        aligned down to ``hit_align``; 0 without a cache or with the ledger
+        quarantined, whose admission adopts nothing)."""
+        if self.prefix is None or self._quarantined:
             return 0
         mv = self.registry.current()
         if mv is None:
             return 0
         t = self.prefix.peek(prompt_ids, mv.version)
         return t - t % self.hit_align
+
+    # -- transient step replay -------------------------------------------
+
+    def _snapshot_step_state(self, rows):
+        """What one dispatch unit changes on the host, taken before it: the
+        rows' decode counters. The pages need no copy: a unit writes only
+        at positions at or past each row's ``pos`` (``draft_pos`` in the
+        draft pool), into blocks admission made private, and attention
+        never reads a position past the query's, so a replay from these
+        counters writes the same values at the same places."""
+        return [(r, r.pos, r.steps, len(r.generated), r.pf_i, r.draft_pos)
+                for r in rows]
+
+    def _restore_step_state(self, snap):
+        for r, pos, steps, ngen, pf_i, draft_pos in snap:
+            r.pos, r.steps, r.pf_i = pos, steps, pf_i
+            r.draft_pos = draft_pos
+            del r.generated[ngen:]
+
+    def _replay_group(self, stage, rows, fn):
+        """Run the dispatch unit ``fn`` (its readback included, where a
+        CUDA fault surfaces) under the fault policy: a failure in the
+        policy's retry classes restores the snapshot, backs off and runs
+        ``fn`` again; anything else, or an exhausted budget, propagates to
+        :meth:`_die`."""
+        pol = self.fault_policy
+        snap = self._snapshot_step_state(rows)
+        while True:
+            try:
+                out = fn()
+            except BaseException as e:  # noqa: BLE001 - classify, maybe replay
+                cls = classify_failure(e)
+                self._restore_step_state(snap)
+                if pol is None or self._stop.is_set() \
+                        or not pol.should_retry(cls):
+                    raise
+                pol.record_failure()
+                self._bump("step_replays")
+                if obs.enabled():
+                    obs.counter("serve/step_replays").inc()
+                _health.emit("serve_step_replay", stage=stage,
+                             failure_class=cls, attempt=pol.consecutive,
+                             rids=[r.rid for r in rows],
+                             error=f"{type(e).__name__}: {e}")
+                delay = pol.backoff_s()
+                if delay > 0:
+                    pol.sleep(delay)
+                continue
+            if pol is not None:
+                pol.record_success()
+            return out
+
+    # -- KV ledger audit ---------------------------------------------------
 
     def audit(self) -> dict:
         """The KV ledger audit of the target pool (with the prefix cache's
@@ -581,37 +685,116 @@ class DecodeScheduler:
                    "owners": rep["owners"] + drep["owners"]}
         return rep
 
+    def _audit(self, where: str) -> dict:
+        """Cadence and shutdown audit: a violation QUARANTINES the ledger
+        (it serves on, but adopts and registers no prefixes, which would
+        spread the corruption). The first detection counts one
+        ``kv_corruptions``, emits one ``health/kv_corruption`` event and
+        dumps one crash bundle; later audits change nothing."""
+        rep = self.audit()
+        if rep["ok"]:
+            return rep
+        first = not self._quarantined
+        self._quarantined = True
+        if first:
+            self._bump("kv_corruptions")
+            if obs.enabled():
+                obs.counter("serve/kv_corruptions").inc()
+            _health.emit("kv_corruption", component=self.beacon_name,
+                         where=where, n_violations=len(rep["violations"]),
+                         violations=rep["violations"][:8])
+            if obs.enabled():
+                _flight.dump_crash_bundle(error=None, context={
+                    "component": "serving/decode_scheduler",
+                    "event": "kv_corruption", "where": where,
+                    "violations": rep["violations"][:32],
+                    "requests": self._triage()})
+        return rep
+
     # -- scheduler loop --------------------------------------------------
 
-    def _loop(self):
+    def _run(self):
         try:
-            while not self._stop.is_set():
-                self._pull_pending()
-                self._admit()
-                stepped = self._advance_prefill()
-                stepped |= self._step_all()
-                self._evict_expired()
-                if self._defrag_wanted.is_set():
-                    self._defrag_wanted.clear()
-                    self._defrag_now()
-                if self._closed and not self._active \
-                        and not self._prefilling and not self._backlog \
-                        and self._q.empty():
-                    break
-                if not stepped:
-                    try:
-                        self._backlog.append(self._q.get(
-                            timeout=0.002 if self._backlog else 0.02))
-                    except queue.Empty:
-                        pass
-        except BaseException as e:  # noqa: BLE001 - fail every client, then die
+            self._loop()
+        except BaseException as e:  # noqa: BLE001 - post-mortem, then die
             logging.getLogger(__name__).exception("decode scheduler died")
-            with self._cond:
-                self._closed = True
-            self._abandon_inflight(
-                f"decode scheduler died: {type(e).__name__}: {e}")
-            self._close_tiers()
+            self._die(e)
             raise
+
+    def _triage(self):
+        """Per-request state for the crash bundle: who was in flight, how
+        far along, and what it held."""
+        out = []
+
+        def add(r, stage):
+            out.append({"rid": r.rid, "stage": stage,
+                        "prompt_len": int(r.prompt.size),
+                        "tokens": len(r.generated),
+                        "kv_blocks": self.kv.owned(r.rid),
+                        "version": r.version})
+
+        for r in self._active:
+            add(r, "decode")
+        for r in self._prefilling:
+            add(r, "prefill")
+        for r in self._backlog:
+            add(r, "backlog")
+        return out
+
+    def _die(self, error):
+        """Loop death (a permanent fault or a spent replay budget): the
+        crash bundle with per-request triage, then every in-flight request
+        fails typed with its generated tokens on ``exc.partial`` (a Router
+        failover resumes from them), and every block goes back."""
+        if obs.enabled():
+            _flight.dump_crash_bundle(error=error, context={
+                "component": "serving/decode_scheduler",
+                "failure_class": classify_failure(error),
+                "requests": self._triage(),
+                "stats": {k: v for k, v in self.stats().items()
+                          if k not in ("kv", "prefix")}})
+        with self._cond:
+            self._closed = True
+        self._abandon_inflight(
+            f"decode scheduler died: {type(error).__name__}: {error}")
+        self._close_tiers()
+        self._beacon.close()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            self._beacon.pulse()
+            if obs.enabled():
+                self._snap_writer.maybe_write()
+            self._pull_pending()
+            self._admit()
+            stepped = self._advance_prefill()
+            stepped |= self._step_all()
+            self._evict_expired()
+            if self._defrag_wanted.is_set():
+                self._defrag_wanted.clear()
+                try:
+                    self._defrag_now()
+                except Exception as e:  # noqa: BLE001 - transient: skip
+                    # a transient page-copy fault aborts the repack with
+                    # the ledger untouched: skip this round
+                    if classify_failure(e) != TRANSIENT:
+                        raise
+                    _health.emit("serve_defrag_skipped",
+                                 error=f"{type(e).__name__}: {e}")
+            if self.audit_every > 0:
+                self._audit_tick += 1
+                if self._audit_tick >= self.audit_every:
+                    self._audit_tick = 0
+                    self._audit("cadence")
+            if self._closed and not self._active and not self._prefilling \
+                    and not self._backlog and self._q.empty():
+                break
+            if not stepped:
+                try:
+                    self._backlog.append(self._q.get(
+                        timeout=0.002 if self._backlog else 0.02))
+                except queue.Empty:
+                    pass
 
     def _pull_pending(self):
         while True:
@@ -700,15 +883,17 @@ class DecodeScheduler:
                         # inside the transaction that checked the free
                         # list: a later admission cannot take the blocks
                         forked = self.kv.fork_blocks(req.rid, fork_idxs)
-                except KVCacheOOM:
+                except (KVCacheOOM, TransientDeviceError):
                     self.kv.free(req.rid)
                     if self.draft_kv is not None:
                         self.draft_kv.free(req.rid)
                     raise
-            except KVCacheOOM:
-                if self._try_preempt(req):
+            except (KVCacheOOM, TransientDeviceError) as e:
+                # backpressure, or a transient fault inside the transaction
+                # (an injected fork / evict failure): it unwound, defer
+                if isinstance(e, KVCacheOOM) and self._try_preempt(req):
                     continue
-                break   # backpressure: retry at the next boundary
+                break   # retry at the next boundary
             self._backlog.popleft()
             req.slot = self._free_slots.pop()
             req.version = mv.version
@@ -726,16 +911,26 @@ class DecodeScheduler:
                     self._bump("prefix_reused_tokens", reused)
                 if forked:
                     self._bump("prefix_cow_forks", len(forked))
+                if obs.enabled():
+                    obs.counter("serve/prefix_hits" if req.hit_tokens
+                                else "serve/prefix_misses").inc()
+                    if reused:
+                        obs.counter("serve/prefix_reused_tokens").inc(reused)
+                    if forked:
+                        obs.counter("serve/prefix_cow_forks").inc(
+                            len(forked))
             if not req.future.set_running_or_notify_cancel():
                 self._finish(req, cancel=True)
                 continue
             self._prefilling.append(req)
 
-    def _make_room(self, need: int, draft_need: int) -> bool:
-        """Evict unreferenced prefix entries while the target pool is
-        short of ``need`` blocks; True when it can cover them and the
-        draft pool (if any) ``draft_need``."""
-        if self.prefix is not None and not self.kv.can_allocate(need):
+    def _make_room(self, need: int, draft_need: int,
+                   evict: bool = True) -> bool:
+        """Evict unreferenced prefix entries (when ``evict``) while the
+        target pool is short of ``need`` blocks; True when it can cover
+        them and the draft pool (if any) ``draft_need``."""
+        if evict and self.prefix is not None \
+                and not self.kv.can_allocate(need):
             self.prefix.evict(need - self.kv.blocks_free())
         return self.kv.can_allocate(need) and (
             self.draft_kv is None or self.draft_kv.can_allocate(draft_need))
@@ -755,7 +950,9 @@ class DecodeScheduler:
         the adopted blocks that chunk writes are returned for the
         admission transaction to fork."""
         req.hit_tokens = 0
-        if self.prefix is None:
+        if self.prefix is None or self._quarantined:
+            # a quarantined ledger serves, but adopting shared pages out
+            # of it would spread whatever the audit caught
             return cold, [], []
         bs = self.kv.block_size
         chain = self.prefix.lookup(req.prompt, version)
@@ -777,12 +974,21 @@ class DecodeScheduler:
         """Prefill done: register every FULL prompt block for later hits
         (the partial tail block, still receiving this request's decode
         writes, is never shared)."""
-        if self.prefix is None:
+        if self.prefix is None or self._quarantined:
             return
         nfull = int(req.prompt.size) // self.kv.block_size
-        if nfull:
+        if not nfull:
+            return
+        try:
             self.prefix.insert(req.prompt, req.version,
                                self.kv.owner_blocks(req.rid)[:nfull])
+        except Exception as e:  # noqa: BLE001 - transient: skip the entry
+            # a transient fault registering the prefix costs later hits,
+            # never correctness
+            if classify_failure(e) != TRANSIENT:
+                raise
+            _health.emit("prefix_insert_skipped", rid=req.rid,
+                         error=f"{type(e).__name__}: {e}")
 
     # -- swap-based preemption -------------------------------------------
 
@@ -818,6 +1024,10 @@ class DecodeScheduler:
         victim.slot = None
         self._backlog.insert(1, victim)
         self._bump("preemptions")
+        if obs.enabled():
+            obs.counter("serve/preemptions").inc()
+        _flight.record("serve/preempt", rid=victim.rid, for_rid=for_req.rid,
+                       blocks=len(blocks))
         return True
 
     def _resume_preempted(self, req) -> bool:
@@ -833,7 +1043,8 @@ class DecodeScheduler:
             if h.state == SPILL_PENDING:
                 return False
             if not self._make_room(h.n_blocks, blocks_for_tokens(
-                    keep, self.kv.block_size)):
+                    keep, self.kv.block_size),
+                    evict=not self._quarantined):
                 return False
             try:
                 ids = self.kv_swap.refill(req.rid, h)
@@ -848,6 +1059,8 @@ class DecodeScheduler:
                 req.slot = self._free_slots.pop()
                 self._active.append(req)
                 self._bump("resumes")
+                if obs.enabled():
+                    obs.counter("serve/resumes").inc()
                 return True
             # the stage failed (settled by the manager): recompute
             req.swap_handle = None
@@ -856,7 +1069,7 @@ class DecodeScheduler:
         seq = req.resume_seq
         worst = max(prefill_padded_end(seq.size, self.prefill_chunk), keep)
         need = blocks_for_tokens(worst, self.kv.block_size)
-        if not self._make_room(need, need):
+        if not self._make_room(need, need, evict=not self._quarantined):
             return False
         self._reserve(req.rid, worst)
         req.chunks = prefill_schedule(seq.size, self.prefill_chunk)
@@ -865,6 +1078,9 @@ class DecodeScheduler:
         req.slot = self._free_slots.pop()
         self._prefilling.append(req)
         self._bump("resume_recomputes")
+        if obs.enabled():
+            obs.counter("serve/resume_recomputes").inc()
+        _health.emit("kv_swap_recompute", rid=req.rid, tokens=int(seq.size))
         return True
 
     # -- prefill and decode ------------------------------------------------
@@ -886,18 +1102,29 @@ class DecodeScheduler:
         toks = np.zeros((1, padded), np.int32)
         toks[0, :real] = src[s:s + real]
         pos = np.asarray([s], np.int32)
-        logits = self._forward(self.model, req.model_version.params, self.kv,
-                               toks, pos, self.kv.block_table(req.rid)[None])
-        if self.draft_kv is not None and req.hit_tokens == 0:
-            # a warm hit's draft catches up lazily on its first round
-            self._forward(self.draft_model, self._draft_params(),
-                          self.draft_kv, toks, pos,
-                          self.draft_kv.block_table(req.rid)[None])
+        drafted = self.draft_kv is not None and req.hit_tokens == 0
+
+        def dispatch():
+            _chaos.maybe_fire("serving/prefill", tag=self.name)
+            with obs.span("serve/prefill", rid=req.rid, chunk=req.pf_i,
+                          of=len(req.chunks), version=req.version):
+                logits = self._forward(self.model, req.model_version.params,
+                                       self.kv, toks, pos,
+                                       self.kv.block_table(req.rid)[None])
+                if drafted:
+                    # a warm hit's draft catches up lazily on its first
+                    # round
+                    self._forward(self.draft_model, self._draft_params(),
+                                  self.draft_kv, toks, pos,
+                                  self.draft_kv.block_table(req.rid)[None])
+                if last and not resumed:
+                    return int(self._choose(logits[:, real - 1:real],
+                                            [s + real - 1], [req])[0, 0])
+                return None
+
+        first_tok = self._replay_group("prefill", [req], dispatch)
+        if drafted:
             req.draft_pos = s + real
-        first_tok = None
-        if last and not resumed:
-            first_tok = int(self._choose(
-                logits[:, real - 1:real], [s + real - 1], [req])[0, 0])
         self._bump("prefill_chunks")
         req.pf_i += 1
         req.prefill_ms += (time.perf_counter_ns() - t0) / 1e6
@@ -919,6 +1146,12 @@ class DecodeScheduler:
         req.pos = int(req.prompt.size)
         req.t_first_ns = time.perf_counter_ns()
         self._bump("tokens")
+        if obs.enabled():
+            obs.histogram("serve/prefill_ms", unit="ms").observe(
+                req.prefill_ms)
+            obs.histogram("serve/ttft_ms", unit="ms").observe(
+                (req.t_first_ns - req.t_enqueue_ns) / 1e6)
+            obs.counter("serve/lm_tokens").inc()
         self._active.append(req)
         self._emit(req, first_tok)
         return True
@@ -949,6 +1182,8 @@ class DecodeScheduler:
             else:
                 if self.draft_model is not None:
                     self._bump("spec_fallbacks")
+                    if obs.enabled():
+                        obs.counter("serve/spec_fallbacks").inc()
                 self._step_group(rows)
         return True
 
@@ -962,14 +1197,29 @@ class DecodeScheduler:
             tokens[i, 0] = r.generated[-1]
             positions[i] = r.pos
             tables[i] = self.kv.block_table(r.rid)
-        toks = self._dispatch(rows[0].model_version.params, tokens,
-                              positions, tables, rows)[:, 0]
+        params = rows[0].model_version.params
+        version = rows[0].version
+        rids = [r.rid for r in rows]
+
+        def dispatch():
+            _chaos.maybe_fire("serving/scheduler_step", tag=self.name)
+            with obs.span("serve/decode_step", rids=rids, bucket=bucket,
+                          version=version):
+                return self._dispatch(params, tokens, positions, tables,
+                                      rows)[:, 0]
+
+        toks = self._replay_group("decode", rows, dispatch)
         self._bump("decode_steps")
         self._bump("tokens", n)
         for i, r in enumerate(rows):
             r.pos += 1
             r.steps += 1
             self._emit(r, toks[i])
+        if obs.enabled():
+            obs.counter("serve/decode_steps").inc()
+            obs.counter("serve/lm_tokens").inc(n)
+            obs.histogram("serve/decode_occupancy").observe(n / bucket)
+            obs.gauge("serve/active_slots").set(len(self._active))
 
     def _draft_catchup(self, req, dparams):
         """Bring one row's draft cache level with its target cache:
@@ -1020,29 +1270,43 @@ class DecodeScheduler:
             positions[i] = r.pos
             tables[i] = self.kv.block_table(r.rid)
         dparams = self._draft_params()
-        for i, r in enumerate(rows):
-            if elig[i]:
-                if r.draft_pos < r.pos:
-                    self._draft_catchup(r, dparams)
-                dtables[i] = self.draft_kv.block_table(r.rid)
-                dpositions[i] = r.pos
-        last_dev = self._dev(last)
-        dpos_dev = self._dev(dpositions)
-        dtab_dev = self._dev(dtables)
-        tok, drafts = last_dev, []
-        for i in range(k + 1):
-            lg = self._forward(self.draft_model, dparams, self.draft_kv, tok,
-                               dpos_dev + i, dtab_dev)
-            tok = lg.argmax(-1)
-            if i < k:
-                drafts.append(tok)
-        drafts_c = torch.cat(drafts, dim=1)                    # (B, k)
-        chunk = torch.cat([last_dev.to(drafts_c.dtype), drafts_c], dim=1)
-        vlogits = self._forward(self.model, rows[0].model_version.params,
-                                self.kv, chunk, positions, tables)
-        vchoices = self._choose(vlogits, positions, rows)
-        j, emit = batched_acceptance(drafts_c, vchoices, self._dev(elig))
-        got = torch.cat([j[:, None], emit], dim=1).cpu().numpy()
+        params = rows[0].model_version.params
+        rids = [r.rid for r in rows]
+
+        def round_fn():
+            _chaos.maybe_fire("serving/spec_round", tag=self.name)
+            with obs.span("serve/spec_round", rids=rids, k=k, bucket=bucket,
+                          version=version):
+                # inside the replay unit: the snapshot restores draft_pos,
+                # and a replayed catch-up rewrites the same positions
+                for i, r in enumerate(rows):
+                    if elig[i]:
+                        if r.draft_pos < r.pos:
+                            self._draft_catchup(r, dparams)
+                        dtables[i] = self.draft_kv.block_table(r.rid)
+                        dpositions[i] = r.pos
+                last_dev = self._dev(last)
+                dpos_dev = self._dev(dpositions)
+                dtab_dev = self._dev(dtables)
+                tok, drafts = last_dev, []
+                for i in range(k + 1):
+                    lg = self._forward(self.draft_model, dparams,
+                                       self.draft_kv, tok, dpos_dev + i,
+                                       dtab_dev)
+                    tok = lg.argmax(-1)
+                    if i < k:
+                        drafts.append(tok)
+                drafts_c = torch.cat(drafts, dim=1)              # (B, k)
+                chunk = torch.cat([last_dev.to(drafts_c.dtype), drafts_c],
+                                  dim=1)
+                vlogits = self._forward(self.model, params, self.kv, chunk,
+                                        positions, tables)
+                vchoices = self._choose(vlogits, positions, rows)
+                j, emit = batched_acceptance(drafts_c, vchoices,
+                                             self._dev(elig))
+                return torch.cat([j[:, None], emit], dim=1).cpu().numpy()
+
+        got = self._replay_group("spec", rows, round_fn)
         j, emit = got[:, 0], got[:, 1:]
         self._bump("decode_steps")
         self._bump("spec_rounds")
@@ -1057,6 +1321,8 @@ class DecodeScheduler:
                 r.spec_accepted += ji
                 nrow += 1
                 nacc += ji
+                if obs.enabled():
+                    obs.histogram("serve/spec_accepted_len").observe(ji)
             for t in emit[i, :ji + 1]:
                 ntok += 1
                 if self._emit(r, int(t)):
@@ -1064,6 +1330,10 @@ class DecodeScheduler:
         self._bump("spec_row_rounds", nrow)
         self._bump("spec_accepted", nacc)
         self._bump("tokens", ntok)
+        if obs.enabled():
+            obs.counter("serve/spec_rounds").inc()
+            obs.counter("serve/spec_accepted").inc(nacc)
+            obs.counter("serve/lm_tokens").inc(ntok)
 
     # -- eviction / completion -------------------------------------------
 
@@ -1079,6 +1349,8 @@ class DecodeScheduler:
 
     def _expire(self, req):
         self._bump("timeouts")
+        if obs.enabled():
+            obs.counter("serve/timeouts").inc()
         exc = DeadlineExceeded(
             f"deadline passed after {len(req.generated)} of "
             f"{req.max_new_tokens} tokens")
@@ -1114,6 +1386,12 @@ class DecodeScheduler:
             "spec_accepted": req.spec_accepted,
         }
         self._bump("completed")
+        if obs.enabled():
+            obs.counter("serve/lm_completed").inc()
+            if tpot:
+                obs.histogram("serve/tpot_ms", unit="ms").observe(tpot)
+            _flight.record("serve/lm_done", rid=req.rid, tokens=n,
+                           steps=req.steps, version=version)
         if not req.future.done():
             req.future.set_result(out)
 

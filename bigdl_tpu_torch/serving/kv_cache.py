@@ -47,6 +47,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import observability as obs
+from ..observability import health as _health
+from ..parallel import chaos as _chaos
+from ..parallel.failure import TransientDeviceError
 from ..utils.engine import refuse_unported
 
 
@@ -70,9 +74,13 @@ class PagedKVCache:
 
     A block with reference count 1 belongs to one referent and may be
     written; a block referenced more than once is shared and read-only
-    (``fork_blocks`` before writing). ``metric_prefix`` names the pool
-    (the scheduler's draft pool is ``"serve/draft_kv"``); the port records
-    it and exports no metrics yet."""
+    (``fork_blocks`` before writing). ``metric_prefix`` names the pool's
+    metrics (the scheduler's draft pool is ``"serve/draft_kv"``): the
+    counters ``<prefix>_allocs`` / ``_frees`` / ``_cow_forks`` /
+    ``_defrag_moves`` and the gauges ``<prefix>_blocks_*`` /
+    ``_shared_blocks`` / ``_high_water`` / ``_frag_blocks``, as in the JAX
+    package, written while observability is enabled. The chaos sites
+    ``kv/cow_fork`` and ``kv/page_copy`` fire before the ledger changes."""
 
     def __init__(self, model, *, num_blocks: int, block_size: int = 16,
                  max_blocks_per_seq: int, dtype=torch.float32,
@@ -107,6 +115,7 @@ class PagedKVCache:
         self._high_water = 0
         self._lock = threading.Lock()
         self._remap_listeners: List[Callable[[dict], None]] = []
+        self._set_gauges()
 
     # -- device pages ----------------------------------------------------
 
@@ -191,6 +200,9 @@ class PagedKVCache:
                 have.append(b)
             self._high_water = max(self._high_water,
                                    self.num_blocks - 1 - len(self._free))
+        if obs.enabled():
+            obs.counter(f"{self.metric_prefix}_allocs").inc(grow)
+        self._set_gauges()
 
     def adopt(self, owner, blocks: Sequence[int]):
         """Prefix-cache hit: append already-resident shared blocks to
@@ -212,6 +224,7 @@ class PagedKVCache:
             for b in blocks:
                 self._refs[b] += 1
             have.extend(blocks)
+        self._set_gauges()
 
     def retain(self, blocks: Sequence[int]):
         """Ownerless references: refcount +1 each, all or nothing."""
@@ -222,6 +235,7 @@ class PagedKVCache:
                     raise ValueError(f"cannot retain free block {b}")
             for b in ids:
                 self._refs[b] += 1
+        self._set_gauges()
 
     def release(self, blocks: Sequence[int]) -> int:
         """Drop ownerless references; a release past refcount zero is
@@ -242,25 +256,36 @@ class PagedKVCache:
                     freed += 1
                 else:
                     self._refs[b] = r - 1
+        self._count_frees(freed)
         return freed
 
-    def _drop(self, blocks):
+    def _drop(self, blocks) -> int:
         """Drop one reference to each block (caller holds the lock);
-        blocks reaching zero go back to the free list, LIFO."""
+        blocks reaching zero go back to the free list, LIFO. Returns how
+        many did."""
+        returned = 0
         for b in reversed(blocks):
             r = self._refs.get(b, 0)
             if r <= 1:
                 self._refs.pop(b, None)
                 self._free.append(b)
+                returned += 1
             else:
                 self._refs[b] = r - 1
+        return returned
+
+    def _count_frees(self, returned: int):
+        if returned and obs.enabled():
+            obs.counter(f"{self.metric_prefix}_frees").inc(returned)
+        self._set_gauges()
 
     def free(self, owner) -> int:
         """Drop every reference ``owner``'s table holds. Returns the number
         of table entries released (0 for an unknown owner)."""
         with self._lock:
             blocks = self._owned.pop(owner, [])
-            self._drop(blocks)
+            returned = self._drop(blocks)
+        self._count_frees(returned)
         return len(blocks)
 
     def truncate(self, owner, keep_tokens: int) -> int:
@@ -274,7 +299,8 @@ class PagedKVCache:
                 return 0
             tail = have[keep:]
             del have[keep:]
-            self._drop(tail)
+            returned = self._drop(tail)
+        self._count_frees(returned)
         return len(tail)
 
     def fork_blocks(self, owner, idxs: Sequence[int]) -> List[int]:
@@ -284,6 +310,7 @@ class PagedKVCache:
         anything later writes them. Returns the logical indices forked;
         raises :class:`KVCacheOOM` when the free list cannot cover the
         forks (admission reserves them up front)."""
+        _chaos.maybe_fire("kv/cow_fork")
         moves, forked = [], []
         with self._lock:
             have = self._owned.get(owner)
@@ -308,6 +335,9 @@ class PagedKVCache:
             self._copy_pages(moves)
             self._high_water = max(self._high_water,
                                    self.num_blocks - 1 - len(self._free))
+        if obs.enabled():
+            obs.counter(f"{self.metric_prefix}_cow_forks").inc(len(moves))
+        self._set_gauges()
         return forked
 
     # -- page transfer -----------------------------------------------------
@@ -389,6 +419,9 @@ class PagedKVCache:
                 v[dst] = dv.to(v.dtype)
             self._high_water = max(self._high_water,
                                    self.num_blocks - 1 - len(self._free))
+        if obs.enabled():
+            obs.counter(f"{self.metric_prefix}_allocs").inc(n)
+        self._set_gauges()
         return ids
 
     def block_table(self, owner) -> np.ndarray:
@@ -430,7 +463,10 @@ class PagedKVCache:
         layer half) and rewrite every table; a shared page moves once and
         the remap listeners follow it. Returns the number of blocks moved.
         Run at a step boundary. Handles already staged to host RAM are not
-        touched (they hold bytes, not ids)."""
+        touched (they hold bytes, not ids). The ``kv/page_copy`` chaos site
+        fires before the ledger lock: an injected fault leaves the ledger
+        untouched."""
+        _chaos.maybe_fire("kv/page_copy")
         with self._lock:
             live = sorted(self._refs)
             n = len(live)
@@ -448,6 +484,9 @@ class PagedKVCache:
             self._free = list(range(self.num_blocks - 1, n, -1))
         for fn in self._remap_listeners:
             fn(remap)
+        if obs.enabled():
+            obs.counter(f"{self.metric_prefix}_defrag_moves").inc(len(moves))
+        self._set_gauges()
         return len(moves)
 
     # -- auditor ---------------------------------------------------------
@@ -520,6 +559,18 @@ class PagedKVCache:
                     "block_size": self.block_size,
                     "max_blocks_per_seq": self.max_blocks_per_seq}
 
+    def _set_gauges(self):
+        if not obs.enabled():
+            return
+        s = self.stats()
+        pre = self.metric_prefix
+        obs.gauge(f"{pre}_blocks_total").set(s["blocks_total"])
+        obs.gauge(f"{pre}_blocks_in_use").set(s["blocks_in_use"])
+        obs.gauge(f"{pre}_blocks_free").set(s["blocks_free"])
+        obs.gauge(f"{pre}_shared_blocks").set(s["shared_blocks"])
+        obs.gauge(f"{pre}_high_water").set(s["high_water"])
+        obs.gauge(f"{pre}_frag_blocks").set(self.frag_blocks())
+
 
 # -- host-RAM paging tier ------------------------------------------------
 
@@ -565,6 +616,7 @@ class HostKVPool:
         self._lock = threading.Lock()
         self._in_use = 0
         self._spills = 0
+        self._set_gauges()
 
     def alloc(self, n_blocks: int, tag=None) -> HostKVHandle:
         """Reserve ``n_blocks`` slots; :class:`HostPoolOOM` (nothing
@@ -580,7 +632,9 @@ class HostKVPool:
                     f"{self.num_blocks}")
             self._in_use += n
             self._spills += 1
-            return HostKVHandle(n, tag)
+            h = HostKVHandle(n, tag)
+        self._set_gauges()
+        return h
 
     def store(self, handle: HostKVHandle, layers, digest) -> bool:
         """Stager side: land the copied pages. False when the handle was
@@ -611,6 +665,7 @@ class HostKVPool:
             handle.state = SPILL_FAILED
             handle.layers = None
             self._in_use -= handle.n_blocks
+        self._set_gauges()
 
     def free(self, handle: HostKVHandle) -> int:
         """Settle a handle and return its reservation (idempotent).
@@ -621,7 +676,8 @@ class HostKVPool:
             handle.state = SPILL_FREED
             handle.layers = None
             self._in_use -= handle.n_blocks
-            return handle.n_blocks
+        self._set_gauges()
+        return handle.n_blocks
 
     def blocks_in_use(self) -> int:
         with self._lock:
@@ -633,6 +689,16 @@ class HostKVPool:
                     "host_blocks_in_use": self._in_use,
                     "host_blocks_free": self.num_blocks - self._in_use,
                     "host_spills": self._spills}
+
+    def _set_gauges(self):
+        if not obs.enabled():
+            return
+        with self._lock:
+            in_use = self._in_use
+        pre = self.metric_prefix
+        obs.gauge(f"{pre}_blocks_total").set(self.num_blocks)
+        obs.gauge(f"{pre}_blocks_in_use").set(in_use)
+        obs.gauge(f"{pre}_blocks_free").set(self.num_blocks - in_use)
 
 
 def _pages_digest(layers) -> bytes:
@@ -803,7 +869,7 @@ class KVSwapManager:
                 self._fetch(plans, pages, ev)
             except Exception:  # noqa: BLE001 - a swap never kills serving
                 for h, _s, _n in plans:
-                    self._note_failure(h)
+                    self._note_failure(h, "out", "unexpected stager error")
 
     def _fetch(self, plans, pages, ev):
         """Stager thread: copy the gathered pages to host RAM and land each
@@ -811,6 +877,38 @@ class KVSwapManager:
         live = [(h, s, n) for h, s, n in plans if h.state == SPILL_PENDING]
         if not live:
             return
+        host = last = None
+        for _attempt in (0, 1):
+            try:
+                _chaos.maybe_fire("kv/swap_out", tag=live[0][0].tag)
+                host, secs = self._copy_out(pages, ev)
+                break
+            except TransientDeviceError as e:
+                last = e   # the gathered buffer is unchanged: copy again
+            except Exception as e:  # noqa: BLE001 - degrade, never die
+                last = e
+                break
+        if host is None:
+            for h, _s, _n in live:
+                self._note_failure(h, "out", repr(last))
+            return
+        flat = [(k.numpy(), v.numpy()) for k, v in host]
+        stored = 0
+        for h, s, n in live:
+            layers = [(np.array(k[s:s + n]), np.array(v[s:s + n]))
+                      for k, v in flat]
+            if self.pool.store(h, layers, _pages_digest(layers)):
+                stored += h.nbytes
+        with self._stats_lock:
+            self._out_bytes += stored
+            self._out_s += secs
+        if stored and obs.enabled():
+            obs.counter(f"{self.kv.metric_prefix}_swap_out_bytes").inc(
+                stored)
+
+    def _copy_out(self, pages, ev):
+        """The gathered pages in host memory (pinned, on a card: copied on
+        the device-to-host stream after ``ev``) and the copy's seconds."""
         if self._cuda:
             host = self._spill_buffers(int(pages[0][0].shape[0]))
             t0 = torch.cuda.Event(enable_timing=True)
@@ -824,19 +922,8 @@ class KVSwapManager:
                     hv.copy_(v, non_blocking=True)
                 t1.record(self._d2h)
             t1.synchronize()
-            secs = t0.elapsed_time(t1) / 1e3
-        else:
-            host, secs = pages, 0.0
-        flat = [(k.numpy(), v.numpy()) for k, v in host]
-        stored = 0
-        for h, s, n in live:
-            layers = [(np.array(k[s:s + n]), np.array(v[s:s + n]))
-                      for k, v in flat]
-            if self.pool.store(h, layers, _pages_digest(layers)):
-                stored += h.nbytes
-        with self._stats_lock:
-            self._out_bytes += stored
-            self._out_s += secs
+            return host, t0.elapsed_time(t1) / 1e3
+        return pages, 0.0
 
     def _spill_buffers(self, n: int):
         """The pinned (k, v) buffers a layer, first ``n`` blocks: one set,
@@ -849,27 +936,45 @@ class KVSwapManager:
                 for kv in self.kv.pages()]
         return [(hk[:n], hv[:n]) for hk, hv in self._spill_host]
 
-    def _note_failure(self, h: HostKVHandle):
+    def _note_failure(self, h: HostKVHandle, direction: str, error: str):
         self.pool.fail(h)
         with self._stats_lock:
             self._failures += 1
+        if obs.enabled():
+            obs.counter(f"{self.kv.metric_prefix}_swap_failures").inc()
+        _health.emit("kv_swap_failed", direction=direction,
+                     blocks=h.n_blocks, tag=str(h.tag), error=error)
 
     # -- refill -----------------------------------------------------------
 
     def _verified(self, h: HostKVHandle):
         """The handle's layers when READY and its digest holds; None
-        otherwise (a failed, freed or corrupt handle is settled here)."""
+        otherwise (a failed, freed or corrupt handle is settled here).
+        The ``kv/swap_in`` chaos site fires before the check: a transient
+        fault retries it once (the host bytes do not change), any other
+        failure settles the handle."""
         got = self.pool.payload(h)
         if got is None:
             if h.state != SPILL_PENDING:
                 self.pool.free(h)
             return None
         layers, digest = got
-        if _pages_digest(layers) != digest:
-            self._note_failure(h)          # the digest does not hold
-            self.pool.free(h)
-            return None
-        return layers
+        last = None
+        for _attempt in (0, 1):
+            try:
+                _chaos.maybe_fire("kv/swap_in", tag=h.tag)
+                if _pages_digest(layers) != digest:
+                    raise RuntimeError(f"host page digest mismatch over "
+                                       f"{h.n_blocks} blocks")
+                return layers
+            except TransientDeviceError as e:
+                last = e
+            except Exception as e:  # noqa: BLE001 - degrade, never die
+                last = e
+                break
+        self._note_failure(h, "in", repr(last))
+        self.pool.free(h)   # fail() is a no-op on a READY handle
+        return None
 
     def refill(self, owner, handle: HostKVHandle) -> Optional[List[int]]:
         """Boundary op, scheduler thread: land a READY handle's pages in
@@ -929,6 +1034,8 @@ class KVSwapManager:
             owner, layers, stage=self._ring.to_device if self._cuda else None)
         with self._stats_lock:
             self._in_bytes += nbytes
+        if obs.enabled():
+            obs.counter(f"{self.kv.metric_prefix}_swap_in_bytes").inc(nbytes)
         return ids
 
     # -- lifecycle --------------------------------------------------------

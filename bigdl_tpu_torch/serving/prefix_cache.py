@@ -37,6 +37,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .. import observability as obs
+from ..parallel import chaos as _chaos
 from .kv_cache import (SPILL_FAILED, SPILL_FREED, SPILL_PENDING, SPILL_READY,
                        KVCacheOOM, PagedKVCache)
 
@@ -78,8 +80,9 @@ class PrefixCache:
     kv : the ledger whose blocks the index pins.
     max_entries : optional cap on resident entries (insert evicts past it);
         ``None`` bounds the cache by the pool alone.
-    metric_prefix : the ``serve/prefix`` name (recorded; the port exports
-        no metrics yet).
+    metric_prefix : the ``serve/prefix`` namespace of the counters
+        (``_evictions``, ``_spills``, ``_refills``, ``_hits_after_spill``)
+        and gauges (``_entries``, ``_shared_blocks``, ``_spilled_entries``).
     swap : optional :class:`~.kv_cache.KVSwapManager`: evicted entries
         spill to host RAM and refill on a later lookup.
     """
@@ -208,6 +211,10 @@ class PrefixCache:
                 self._refills += 1
                 parent = key
             self._hits_after_spill += 1
+        if obs.enabled():
+            obs.counter(f"{self.metric_prefix}_hits_after_spill").inc()
+            obs.counter(f"{self.metric_prefix}_refills").inc(consumed)
+        self._set_gauges()
         return [int(b) for b in ids]
 
     def peek(self, token_ids, version: str) -> int:
@@ -236,7 +243,9 @@ class PrefixCache:
         """Register a prefilled prompt's FULL blocks (``owner_blocks``:
         the owner's physical ids for chain positions 0..len-1). Present
         entries are refreshed; new ones retain the owner's block. Returns
-        the number of new entries."""
+        the number of new entries. The ``prefix/insert`` chaos site fires
+        before any index change."""
+        _chaos.maybe_fire("prefix/insert")
         keys = chain_keys(token_ids, self.block_size, version,
                           max_blocks=len(owner_blocks))
         new = 0
@@ -267,6 +276,8 @@ class PrefixCache:
             self.swap.discard(h)
         if over > 0:
             self.evict(over)
+        if new:
+            self._set_gauges()
         return new
 
     # -- evict -----------------------------------------------------------
@@ -274,7 +285,9 @@ class PrefixCache:
     def evict(self, n_blocks: int) -> int:
         """Reclaim up to ``n_blocks`` pages from entries only the cache
         references (refcount 1), least recently used first, leaves before
-        parents. Returns the pages returned to the free list."""
+        parents. Returns the pages returned to the free list. The
+        ``prefix/evict`` chaos site fires first."""
+        _chaos.maybe_fire("prefix/evict")
         freed = 0
         while freed < n_blocks:
             victims = []
@@ -314,9 +327,16 @@ class PrefixCache:
                         self.swap.discard(old[0])
                     spilled += 1
                 self._spills += spilled
+                if spilled and obs.enabled():
+                    obs.counter(f"{self.metric_prefix}_spills").inc(spilled)
             self.kv.release([e.block for e in victims])
             freed += len(victims)
             self._evictions += len(victims)
+            if obs.enabled():
+                obs.counter(f"{self.metric_prefix}_evictions").inc(
+                    len(victims))
+        if freed:
+            self._set_gauges()
         return freed
 
     def drop_spilled(self, n_blocks: int) -> int:
@@ -328,7 +348,10 @@ class PrefixCache:
                 _key, (h, _depth) = self._spilled.popitem(last=False)
                 dropped.append(h)
                 got += h.n_blocks
-        return sum(self.swap.discard(h) for h in dropped)
+        freed = sum(self.swap.discard(h) for h in dropped)
+        if dropped:
+            self._set_gauges()
+        return freed
 
     def clear(self) -> int:
         """Release every entry's page and settle every spilled handle.
@@ -342,6 +365,7 @@ class PrefixCache:
             self.kv.release([e.block])
         for h in spilled:
             self.swap.discard(h)
+        self._set_gauges()
         return len(entries)
 
     # -- internals -------------------------------------------------------
@@ -377,3 +401,13 @@ class PrefixCache:
     def __len__(self):
         with self._lock:
             return len(self._entries)
+
+    def _set_gauges(self):
+        if not obs.enabled():
+            return
+        pre = self.metric_prefix
+        obs.gauge(f"{pre}_entries").set(len(self))
+        obs.gauge(f"{pre}_shared_blocks").set(self.kv.shared_blocks())
+        with self._lock:
+            spilled = len(self._spilled)
+        obs.gauge(f"{pre}_spilled_entries").set(spilled)

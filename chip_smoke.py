@@ -120,7 +120,37 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    defrag and equal between the runs with and without the tier, every
    page copy (fork, defrag) bit for bit equal to its source, and every
    refill (a chain's, the preempted request's) bit for bit equal to what
-   its spills captured, gathered right after its scatter.
+   its spills captured, gathered right after its scatter;
+10. drives the serving control plane (``bigdl_tpu_torch.observability``,
+   ``parallel.chaos``, ``parallel.failure``): (a) the flagship of phase 9
+   under ``DecodeScheduler(fault_policy=FaultPolicy(max_restarts=2,
+   backoff_base_s=0))``, each request submitted before the loop starts,
+   once fault-free and once with chaos at ``serving/prefill`` and
+   ``serving/scheduler_step`` and two transient faults raised after a
+   forward wrote its pages, then the same with phase 9's accepting draft
+   pair and chaos at ``serving/spec_round``: tokens and every resident
+   chain bit for bit the fault-free run's, ``step_replays`` the chaos
+   fires plus the post-write faults, K2 on ``f32_split`` only, launched
+   the fault-free run's count plus exactly the failed units' launches;
+   (b) a phantom block reference under the running loop with
+   ``audit_every=1``: ``kv_corruptions`` 1, quarantined, one
+   ``health/kv_corruption`` event and one crash bundle in a temporary
+   directory, the in-flight requests finish and a repeat adopts no
+   prefix; (c) two replicas ``r0`` / ``r1`` (``stall_deadline_s=1.0``)
+   behind ``Router``: a 3 s chaos wedge at r1's second decode step raises
+   ``health/stall``, the router drains r1 and every request finishes on
+   r0, r1 rejoins on ``health/stall_recovered``, a repeated system prompt
+   goes to its holder; (d) ``ServingEngine`` over ResNet-50 (NHWC,
+   ``fused="pallas"``, ``fused_conv2``, float32, eval, 224x224,
+   ``max_batch=32``): 64 requests, one transient fault at
+   ``serving/engine_dispatch``, a hot swap in mid-traffic; every row bit
+   for bit its version's direct ``apply(training=False)`` on the padded
+   bucket, one bucket within 1e-4 of the CPU plain path, 24 K3, 12 K5 and
+   16 K4 a batch on ``f32_sm90`` without statistics and no other kernel;
+   images/s and latency p50 / p99 printed as smoke readings; (e)
+   ``health.sample_device_memory()`` reports bytes in use; and K3, K4 and
+   K5's no-statistics calls at their stage-0 B32 shapes against their
+   plain versions, timed (the ``_eval`` rows).
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -2044,6 +2074,526 @@ def serving_depth(torch, K):
     return r9
 
 
+# -- phase 10: the serving control plane ----------------------------------------
+
+# phase 9's flagship: vocab 32000, hidden 1024, 16 heads, filter 4096, 12
+# layers, max_len 512 (bf16 weights, float32 pages)
+FLAGSHIP = dict(vocab_size=32000, hidden_size=1024, num_heads=16,
+                filter_size=4096, num_layers=12, max_len=512)
+# (d): ResNet-50's image side, the engine's max_batch, the requests
+IMAGE, ENGINE_BATCH, ENGINE_REQUESTS = 224, 32, 64
+
+def eval_case(torch, K, kind):
+    """The served ResNet-50's no-statistics forward of K3 (stage-0 conv3,
+    BN2 + ReLU prologue), K4 (stage-0 3x3) or K5 (stage-0 junction) at
+    B32/224 in float32: against its plain version, a rerun bit for bit,
+    timed with the plain version, the bare product (cuBLAS, cuDNN's conv)
+    and the bound of the no-statistics call."""
+    from bigdl_tpu_torch.kernels.fused_conv import route as conv_route
+    from bigdl_tpu_torch.kernels.fused_matmul import route
+    F = torch.nn.functional
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=g)
+
+    def affine(n):
+        return torch.rand(n, device="cuda", generator=g) + 0.5, rnd(n)
+
+    if kind == "K3":
+        M, Kd, N = FB * 56 * 56, 64, 256
+        x, w = rnd(M, Kd), rnd(Kd, N, scale=0.1)
+        a, b = affine(Kd)
+        call = lambda: K.fused_matmul_fwd(x, w, a, b, True, False)  # noqa: E731
+        plain = lambda: K.fused_matmul_fwd_reference(x, w, a, b, True,  # noqa: E731
+                                                     False)
+        lib = lambda: x @ w  # noqa: E731
+        rt, shape = route(f32, Kd, N), [M, Kd, N]
+        nbytes, flops = 4 * (M * Kd + Kd * N + M * N + 2 * Kd), 2.0 * M * Kd * N
+    elif kind == "K5":
+        M, Kd, N = FB * 56 * 56, 256, 64
+        z, r, w = rnd(M, Kd), rnd(M, Kd), rnd(Kd, N, scale=0.1)
+        a, b = affine(Kd)
+        call = lambda: K.fused_chain_fwd(z, r, a, b, w, False)  # noqa: E731
+        plain = lambda: K.residual_chain_reference(z, r, a, b, w, False)  # noqa: E731
+        h = plain()[0]
+        lib = lambda: h @ w  # noqa: E731
+        rt, shape = route(f32, Kd, N), [FB, 56, 56, Kd, N]
+        # reads z, r, w, a, b; writes h and zo
+        nbytes = 4 * (3 * M * Kd + Kd * N + M * N + 2 * Kd)
+        flops = 2.0 * M * Kd * N
+    else:
+        B, H, C, N = FB, 56, 64, 64
+        x, w = rnd(B, H, H, C), rnd(3, 3, C, N, scale=0.1)
+        a, b = affine(C)
+        call = lambda: K.fused_conv_fwd(x, w, a, b, 1, False)  # noqa: E731
+        plain = lambda: K.conv3x3_reference(x, w, a, b, 1, False)  # noqa: E731
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+        lib = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+        rt, shape = conv_route(f32, C, N), [B, H, H, C, N]
+        nbytes = 4 * (B * H * H * C + 9 * C * N + B * H * H * N + 2 * C)
+        flops = 2.0 * B * H * H * 9 * C * N
+    got, ref, again = call(), plain(), call()
+    torch.cuda.synchronize()
+    outs = [(p, q) for p, q in zip(got, ref) if q is not None]
+    errs = [_rel_err(p, q) for p, q in outs]
+    rec = {"kind": kind, "shape": shape, "route": rt, "stats": False,
+           "outputs": len(outs), "max_abs_err": max(errs),
+           "tol": FUSED_TOL[str(f32)],
+           "no_sums": all(q is None for q in ref[len(outs):]),
+           "reruns_equal": _same(torch, got, again)}
+    check(rt == "f32_sm90" and max(errs) <= rec["tol"] and rec["no_sums"]
+          and rec["reruns_equal"], f"[10] {kind} no-statistics forward: "
+          f"{rec}")
+    rec.update(ms=graph_ms(torch, lambda i: call(), 1, reps=10),
+               plain_ms=graph_ms(torch, lambda i: plain(), 1, reps=5),
+               library_ms=graph_ms(torch, lambda i: lib(), 1, reps=10))
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, f32, rt)
+    print(f"  [10] {kind} eval {rec}", flush=True)
+    return rec
+
+
+def submit_all(sched, prompts, budgets, prepare=None):
+    """Warm the scheduler, call ``prepare()``, zero the launch counters,
+    submit every request before the loop starts (so two runs batch
+    alike), serve them: (tokens, wall seconds)."""
+    import torch
+    import bigdl_tpu_torch.kernels as K
+    sched.warmup()
+    if prepare is not None:
+        prepare()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [sched.submit(p, n) for p, n in zip(prompts, budgets)]
+    sched.start(warmup=False)
+    res = [f.result(600) for f in futs]
+    return res, time.perf_counter() - t0
+
+
+def fault_after_write(sched, hit):
+    """Raise a transient fault from the scheduler's ``_forward`` after it
+    returned (the step's K / V already in the pages) where ``hit(call
+    number, query rows S)`` says so, and count the K2 launches of every
+    failed dispatch unit (a replay must add exactly those). Returns
+    ``{"raised": n, "launches": n}``, updated as the run goes."""
+    import bigdl_tpu_torch.kernels as K
+    from bigdl_tpu_torch.parallel.failure import TransientDeviceError
+    fwd, replay = sched._forward, sched._replay_group
+    calls, out = [0], {"raised": 0, "launches": 0}
+
+    def forward(model, params, kv, tokens, positions, tables):
+        res = fwd(model, params, kv, tokens, positions, tables)
+        calls[0] += 1
+        if hit(calls[0], int(tokens.shape[1])):
+            out["raised"] += 1
+            raise TransientDeviceError(f"after the page write, call "
+                                       f"{calls[0]}")
+        return res
+
+    def replay_group(stage, rows, fn):
+        def unit():
+            k0 = K.launch_counts()["paged_attention"]
+            try:
+                return fn()
+            except BaseException:
+                out["launches"] += K.launch_counts()["paged_attention"] - k0
+                raise
+        return replay(stage, rows, unit)
+
+    sched._forward, sched._replay_group = forward, replay_group
+    return out
+
+
+def replay_drill(torch, K, model, prompts, budgets, sk, plan, hit, **kw):
+    """One fault-free and one faulted run of the same requests on fresh
+    schedulers: the faulted one with ``plan`` armed and faults raised
+    after the page write where ``hit`` says (``fault_after_write``).
+    Tokens and every prompt's resident chain must be bit for bit equal,
+    ``step_replays`` the chaos fires plus the post-write faults, K2 on
+    ``f32_split`` only, and the faulted run's K2 launches the clean run's
+    plus those of its failed units."""
+    from bigdl_tpu_torch.parallel import chaos
+    from bigdl_tpu_torch.parallel.failure import FaultPolicy
+    from bigdl_tpu_torch.serving import DecodeScheduler
+    out = {}
+    for name in ("clean", "faulted"):
+        sched = DecodeScheduler(model, max_seq_len=512, fault_policy=FaultPolicy(
+            max_restarts=2, backoff_base_s=0.0), **sk, **kw)
+        box = {"faults": {"raised": 0, "launches": 0}}
+
+        def prepare():
+            chaos.arm(plan)
+            box["faults"] = fault_after_write(sched, hit)
+        res, wall = submit_all(sched, prompts, budgets,
+                               prepare if name == "faulted" else None)
+        n_k2 = path_counts(torch, K, f"(a) {name}")
+        fired = chaos.stats().get("fires", 0)
+        chaos.disarm()
+        chains = [resident_chain(torch, sched, p)[1] for p in prompts]
+        st = sched.stats()
+        sched.shutdown()
+        check(sched.stats()["kv"]["blocks_in_use"] == 0
+              and sched.audit()["ok"], f"(a) {name}: {sched.stats()['kv']}")
+        out[name] = dict(tokens=res, wall=wall, k2=n_k2,
+                         extra=box["faults"]["launches"],
+                         raised=box["faults"]["raised"], fired=fired, st=st,
+                         chains=chains)
+    c, f = out["clean"], out["faulted"]
+    check(all(np.array_equal(a, b) for a, b in zip(c["tokens"],
+                                                  f["tokens"])),
+          "(a) replayed tokens differ from the fault-free run's")
+    check(all(same_pages(a, b) for a, b in zip(c["chains"], f["chains"]))
+          and sum(len(ch[0][0]) for ch in c["chains"]) > 0,
+          "(a) a resident chain's pages differ after the replays")
+    check(f["raised"] > 0
+          and f["st"]["step_replays"] == f["fired"] + f["raised"],
+          f"(a) step_replays {f['st']['step_replays']}, chaos fires "
+          f"{f['fired']} + {f['raised']} post-write faults")
+    check(f["extra"] > 0 and f["k2"] == c["k2"] + f["extra"],
+          f"(a) K2 launches {f['k2']} faulted, {c['k2']} clean, "
+          f"{f['extra']} in the failed units")
+    return out
+
+
+def control_plane(torch, K, card):
+    """Phase 10: (a) step replay under chaos and after faults past the page
+    write, (b) the audit's quarantine, (c) the stall watchdog behind a
+    Router with prefix affinity and failover, on the flagship; (d) a
+    ServingEngine over ResNet-50; (e) device-memory telemetry; and the
+    kernels' no-statistics calls of (d) against their plain versions.
+    Returns the readings."""
+    import copy
+    import tempfile
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.models import ResNet50, TransformerLM
+    from bigdl_tpu_torch.models import resnet as resnet_mod
+    from bigdl_tpu_torch.observability import health
+    from bigdl_tpu_torch.parallel import chaos
+    from bigdl_tpu_torch.serving import DecodeScheduler, Router, ServingEngine
+    cfg = dict(FLAGSHIP)
+    V, L, BS = cfg["vocab_size"], cfg.pop("num_layers"), 16
+    sk = dict(max_slots=8, block_size=BS, prefill_chunk=32)
+    r10 = {}
+    print(f"[10] the serving control plane ({card})", flush=True)
+    model = TransformerLM(num_layers=L, seed=0, **cfg).to(torch.bfloat16)
+    params = model.params
+    rng = np.random.RandomState(10)
+
+    # (a) replay: chaos at serving/prefill and serving/scheduler_step, and
+    # two faults raised after a forward wrote its pages
+    systems = [rng.randint(1, V, 96).astype(np.int32) for _ in range(3)]
+    prompts = [np.concatenate([systems[i % 3], rng.randint(
+        1, V, rng.randint(1, 40)).astype(np.int32)]) for i in range(8)]
+    budgets = [24] * 8
+    plan = {"sites": {
+        "serving/prefill": [{"kind": "transient", "nth": 3}],
+        "serving/scheduler_step": [{"kind": "transient", "every": 5,
+                                    "max_fires": 3}]}}
+    a = replay_drill(torch, K, model, prompts, budgets, sk, plan,
+                     lambda n, s: n in (7, 40))
+    compared = 0
+    for p, t in zip(prompts, a["clean"]["tokens"]):
+        want, margins = forced_greedy(torch, model, params, p, t)
+        compared += agree("(a) clean", t, want, margins)
+    # the speculative round: phase 9's accepting pair (the target adds
+    # zero past the draft's layer), chaos at serving/spec_round and one
+    # fault after a round's verify wrote its pages
+    target = copy.deepcopy(model)
+    draft = TransformerLM(num_layers=1, seed=1, **cfg).to(torch.bfloat16)
+    with torch.no_grad():
+        tsd = target.state_dict()
+        for k, v in draft.state_dict().items():
+            tsd[k].copy_(v)
+        for i in range(1, L):
+            for k in ("attn.wo", "ffn.w2", "ffn.b2"):
+                tsd[f"block{i}.{k}"].zero_()
+    splan = {"sites": {"serving/spec_round": [
+        {"kind": "transient", "every": 3, "max_fires": 2}]}}
+    verifies = [0]
+
+    def second_verify(n, s):
+        """The second verify (S = spec_k + 1), after its pages and the
+        round's draft pages were written: the replay reruns the round."""
+        verifies[0] += s == 5
+        return s == 5 and verifies[0] == 2
+    sa = replay_drill(torch, K, target, prompts, budgets, sk, splan,
+                      second_verify, draft_model=draft, spec_k=4)
+    check(sa["faulted"]["st"]["spec_rounds"] > 0, "(a) no speculative round")
+    r10["a"] = dict(
+        replays=a["faulted"]["st"]["step_replays"],
+        fires=a["faulted"]["fired"], k2_clean=a["clean"]["k2"],
+        k2_faulted=a["faulted"]["k2"], k2_failed_units=a["faulted"]["extra"],
+        wall_clean=a["clean"]["wall"], wall_faulted=a["faulted"]["wall"],
+        spec_replays=sa["faulted"]["st"]["step_replays"],
+        spec_fires=sa["faulted"]["fired"],
+        spec_rounds=sa["faulted"]["st"]["spec_rounds"],
+        spec_k2_clean=sa["clean"]["k2"], spec_k2_faulted=sa["faulted"]["k2"],
+        spec_k2_failed_units=sa["faulted"]["extra"], compared=compared)
+    print(f"    (a) replay: 8 requests (3 system prompts of 96 tokens), 24 "
+          f"new tokens each: {r10['a']['fires']} chaos fires + 2 post-write "
+          f"faults = {r10['a']['replays']} step replays; tokens and every "
+          f"resident chain bit for bit the fault-free run's; K2 launches "
+          f"{r10['a']['k2_faulted']} = {r10['a']['k2_clean']} + "
+          f"{r10['a']['k2_failed_units']} of the failed units, all "
+          f"f32_split (no K1-fwd: the scheduler's chunked prefill runs "
+          f"K2); wall {r10['a']['wall_clean']:.2f} s clean, "
+          f"{r10['a']['wall_faulted']:.2f} s faulted; tokens equal greedy "
+          f"on {compared} steps. Speculative (spec_k 4): "
+          f"{r10['a']['spec_fires']} chaos fires + 1 post-write fault "
+          f"(after the second verify's write) = "
+          f"{r10['a']['spec_replays']} replays in "
+          f"{r10['a']['spec_rounds']} rounds, bit for bit; K2 "
+          f"{r10['a']['spec_k2_faulted']} = {r10['a']['spec_k2_clean']} + "
+          f"{r10['a']['spec_k2_failed_units']}", flush=True)
+    del target, draft, a, sa
+    torch.cuda.empty_cache()
+
+    # (b) the audit: a refcount corrupted under the running loop
+    # (audit_every=1) quarantines the ledger with one health event and one
+    # crash bundle; in-flight requests finish, a repeat adopts no prefix
+    flight_dir = tempfile.mkdtemp(prefix="bigdl_flight_")
+    os.environ["BIGDL_TPU_FLIGHT_DIR"] = flight_dir
+    obs.enable()
+    events = []
+    sched = DecodeScheduler(model, max_seq_len=512, audit_every=1, **sk)
+    sched.start()
+    with health.listen(events.append):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        futs = [sched.submit(p, 24) for p in prompts[:4]]
+        t0 = time.monotonic()
+        while sched.stats()["active"] == 0:
+            check(time.monotonic() - t0 < 60, "(b) nothing became active")
+            time.sleep(0.001)
+        with sched.kv._lock:
+            phantom = sched.kv._free[0]
+            sched.kv._refs[phantom] = 1
+        first = [f.result(600) for f in futs]
+        rep = sched.submit(prompts[0], 24)
+        rep_tokens = rep.result(600)
+        n_k2 = path_counts(torch, K, "(b)")
+        st = sched.stats()
+        with sched.kv._lock:
+            sched.kv._refs.pop(phantom)
+        sched.shutdown()
+    kinds = [e["kind"] for e in events]
+    bundles = [n for n in os.listdir(flight_dir) if n.startswith("flight_")]
+    check(st["kv_corruptions"] == 1 and st["quarantined"]
+          and kinds.count("health/kv_corruption") == 1 and len(bundles) == 1,
+          f"(b) corruptions {st['kv_corruptions']} quarantined "
+          f"{st['quarantined']} events {kinds} bundles {bundles}")
+    check(rep.trace["prefix_hit_tokens"] == 0 and st["completed"] == 5
+          and sched.stats()["kv"]["blocks_in_use"] == 0,
+          f"(b) repeat hit {rep.trace['prefix_hit_tokens']}, completed "
+          f"{st['completed']}, blocks {sched.stats()['kv']}")
+    compared = 0
+    for p, t in zip(prompts[:4] + [prompts[0]], first + [rep_tokens]):
+        want, margins = forced_greedy(torch, model, params, p, t)
+        compared += agree("(b)", t, want, margins)
+    with open(os.path.join(flight_dir, bundles[0])) as fh:
+        bundle = json.load(fh)
+    r10["b"] = dict(corruptions=st["kv_corruptions"],
+                    quarantined=st["quarantined"], bundles=len(bundles),
+                    triaged=len(bundle["context"]["requests"]), k2=n_k2,
+                    compared=compared)
+    print(f"    (b) audit: one phantom reference under the running loop -> "
+          f"kv_corruptions 1, quarantined, 1 health/kv_corruption event, 1 "
+          f"crash bundle ({r10['b']['triaged']} requests triaged) in a "
+          f"temporary directory; the 4 in-flight requests and the repeat "
+          f"finished (repeat adopted 0 prefix tokens); K2 {n_k2}; tokens "
+          f"equal greedy on {compared} steps", flush=True)
+
+    # (c) the stall watchdog behind a Router: a 3 s wedge at r1's second
+    # decode step silences its beacon (stall_deadline_s=1.0); the router
+    # drains r1, its requests finish on r0, r1 rejoins on recovery
+    events = []
+    reps = [DecodeScheduler(model, max_seq_len=512, name=f"r{i}",
+                            stall_deadline_s=1.0, **sk) for i in range(2)]
+    router = Router(reps).start()
+    with health.listen(events.append):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        sysp = systems[0]
+        warm = router.submit(prompts[0], max_new_tokens=16)
+        warm_tokens = warm.result(600)
+        holder = warm.trace["router"]["replica"]
+        check(holder == "r1", f"(c) the first request went to {holder}")
+        chaos.arm({"sites": {"serving/scheduler_step": [
+            {"kind": "wedge", "nth": 2, "wedge_s": 3.0, "tag": "r1"}]}})
+        late = [np.concatenate([sysp, rng.randint(1, V, 8).astype(np.int32)])
+                ] + [rng.randint(1, V, rng.randint(20, 120)).astype(np.int32)
+                     for _ in range(5)]
+        t0 = time.perf_counter()
+        futs = [router.submit(p, max_new_tokens=16) for p in late]
+        res = [f.result(600) for f in futs]
+        wall = time.perf_counter() - t0
+        served = [f.trace["router"]["replica"] for f in futs]
+        t0 = time.monotonic()
+        while router.healthy_replicas() != ["r0", "r1"]:
+            check(time.monotonic() - t0 < 60, "(c) r1 never rejoined")
+            time.sleep(0.01)
+        n_k2 = path_counts(torch, K, "(c)")
+        rst = router.stats()
+    router.shutdown()
+    chaos.disarm()
+    stalls = [e for e in events if e["kind"] == "health/stall"]
+    check(stalls and stalls[0]["component"] == reps[1].beacon_name
+          and any(e["kind"] == "health/stall_recovered"
+                  and e["component"] == reps[1].beacon_name for e in events),
+          f"(c) health events {[(e['kind'], e.get('component')) for e in events]}")
+    check(served == ["r0"] * len(late) and rst["drains"] >= 1
+          and rst["failovers"] >= 1 and rst["rejoins"] >= 1
+          and rst["affinity_hits"] >= 1,
+          f"(c) served by {served}; router stats {rst}")
+    compared = 0
+    for p, t in zip([prompts[0]] + late, [warm_tokens] + res):
+        want, margins = forced_greedy(torch, model, params, p, t)
+        compared += agree("(c)", t, want, margins)
+    r10["c"] = dict(stall_s=stalls[0]["age_s"], drains=rst["drains"],
+                    failovers=rst["failovers"], rejoins=rst["rejoins"],
+                    affinity_hits=rst["affinity_hits"], wall=wall, k2=n_k2,
+                    compared=compared)
+    print(f"    (c) watchdog + router: r1 wedged 3 s at its second decode "
+          f"step; health/stall after {r10['c']['stall_s']} s of silence "
+          f"(deadline 1.0 s); drains {rst['drains']}, failovers "
+          f"{rst['failovers']}, rejoins {rst['rejoins']} (on "
+          f"health/stall_recovered), affinity hits {rst['affinity_hits']}; "
+          f"the {len(late)} requests all served by r0 in {wall:.2f} s; K2 "
+          f"{n_k2}; tokens equal greedy on {compared} steps", flush=True)
+    obs.disable()
+    health.reset()
+    del model, params, reps, router
+    torch.cuda.empty_cache()
+
+    # (d) ServingEngine over ResNet-50 (NHWC, fused="pallas", fused_conv2,
+    # float32, eval): 64 concurrent requests, one transient fault at
+    # serving/engine_dispatch, a hot swap in mid-traffic
+    m0 = ResNet50(format="NHWC", fused="pallas", fused_conv2=True,
+                  zero_init_residual=False, seed=5).evaluate()
+    m1 = ResNet50(format="NHWC", fused="pallas", fused_conv2=True,
+                  zero_init_residual=False, seed=6)
+    S, NB, NR = IMAGE, ENGINE_BATCH, ENGINE_REQUESTS
+    eng = ServingEngine(m0, input_shape=(S, S, 3), max_batch=NB)
+    check(eng.device.type == "cuda", f"(d) engine on {eng.device}")
+    eng.start()
+    stats_seen = []
+    spied = {}
+    for name in ("fused_bn_relu_matmul_nhwc", "fused_residual_matmul_nhwc",
+                 "fused_bn_relu_conv3x3"):
+        fn = getattr(resnet_mod, name)
+
+        def spy(*a, _fn=fn, **kw):
+            stats_seen.append(kw.get("stats"))
+            return _fn(*a, **kw)
+        spied[name] = fn
+        setattr(resnet_mod, name, spy)
+    imgs = [rng.randn(S, S, 3).astype(np.float32) for _ in range(NR)]
+    chaos.arm({"sites": {"serving/engine_dispatch": [
+        {"kind": "transient", "nth": 2}]}})
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    done, t_sub = {}, {}
+
+    def submit(i):
+        t_sub[i] = time.perf_counter()
+        f = eng.submit(imgs[i])
+        f.add_done_callback(lambda _f, i=i: done.__setitem__(
+            i, time.perf_counter()))
+        return f
+    t0 = time.perf_counter()
+    futs = [submit(i) for i in range(NR // 2)]
+    futs[0].result(600)       # the swap lands while the rest is in flight
+    eng.swap(m1.params, m1.state, version="v1")
+    futs += [submit(i) for i in range(NR // 2, NR)]
+    outs = [f.result(600) for f in futs]
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts, routes = K.launch_counts(), K.launches_by_route()
+    est = eng.stats()
+    eng.shutdown()
+    chaos.disarm()
+    for name, fn in spied.items():
+        setattr(resnet_mod, name, fn)
+    nb = est["batches"]
+    fused = {"fused_matmul_fwd": 24 * nb, "fused_chain_fwd": 12 * nb,
+             "fused_conv_fwd": 16 * nb}
+    check(all(only_on(routes[k], "f32_sm90", n) and counts[k] == n
+              for k, n in fused.items())
+          and not any(v for k, v in counts.items() if k not in fused)
+          and stats_seen and not any(stats_seen),
+          f"(d) {nb} batches: launches {counts}, routes "
+          f"{ {k: routes[k] for k in fused} }, statistics asked "
+          f"{sum(bool(s) for s in stats_seen)} of {len(stats_seen)} calls")
+    check(est["transient_retries"] == 1 and est["completed"] == NR
+          and est["swaps"] == 1 and est["batch_errors"] == 0,
+          f"(d) engine stats {est}")
+    vers = [f.version for f in futs]
+    check(vers[0] == "v0" and set(vers[NR // 2:]) == {"v1"}
+          and set(vers) <= {"v0", "v1"}, f"(d) versions {vers}")
+    # each batch again, directly: apply(training=False) of its version on
+    # the same padded bucket, bit for bit; one bucket also on the CPU
+    batches = {}
+    for i, f in enumerate(futs):
+        t = f.trace
+        batches.setdefault((t["version"], t["dispatch_ms"], t["bucket"]),
+                           []).append(i)
+    check(sum(len(v) for v in batches.values()) == NR
+          and len(batches) == nb, f"(d) {nb} batches, {len(batches)} found")
+    models = {"v0": m0, "v1": m1}
+    worst_cpu = None
+    for (ver, _, bucket), rows in batches.items():
+        x = np.zeros((bucket, S, S, 3), np.float32)
+        x[:len(rows)] = np.stack([imgs[i] for i in rows])
+        m = models[ver]
+        with torch.inference_mode():
+            direct = m.apply(m.params, m.state, torch.from_numpy(x).cuda(),
+                             training=False)[0].cpu()
+        check(all(torch.equal(torch.from_numpy(outs[i]), direct[j])
+                  for j, i in enumerate(rows)),
+              f"(d) a {ver} batch of {len(rows)} differs from its direct "
+              f"apply on the padded bucket")
+        if worst_cpu is None:
+            cpu = ResNet50(format="NHWC", fused="pallas", fused_conv2=True,
+                           zero_init_residual=False, device="cpu")
+            cpu.load_state_dict({k: v.cpu() for k, v in
+                                 m.state_dict().items()})
+            with torch.inference_mode():
+                want = cpu.apply(cpu.params, cpu.state, torch.from_numpy(x),
+                                 training=False)[0]
+            worst_cpu = _rel_err(direct, want)
+            check(worst_cpu <= 1e-4, f"(d) the card's logits off the CPU's "
+                  f"plain path by {worst_cpu:.3g}")
+            del cpu
+    lat = sorted((done[i] - t_sub[i]) * 1e3 for i in range(NR))
+    r10["d"] = dict(batches=nb, images_per_s=NR / wall,
+                    p50_ms=statistics.median(lat),
+                    p99_ms=lat[int(round(0.99 * (NR - 1)))],
+                    cpu_rel_err=worst_cpu, launches=dict(fused))
+    print(f"    (d) ServingEngine ResNet-50 float32 eval, {S}x{S}, max_batch "
+          f"{NB}: {NR} requests in {nb} batches, 1 transient retry, a swap to v1 "
+          f"mid-traffic; every row bit for bit its version's direct apply "
+          f"on the padded bucket, one bucket within {worst_cpu:.3g} of the "
+          f"CPU plain path; launches {fused} on f32_sm90 without "
+          f"statistics. Smoke readings, not benchmark cells: "
+          f"{r10['d']['images_per_s']:.1f} images/s, latency p50 "
+          f"{r10['d']['p50_ms']:.1f} ms, p99 {r10['d']['p99_ms']:.1f} ms",
+          flush=True)
+    del m0, m1, eng
+    torch.cuda.empty_cache()
+
+    # (e) device-memory telemetry from torch.cuda.memory_stats
+    mem = health.sample_device_memory()
+    check(health.memory_stats_available() and mem is not None
+          and mem["live_bytes"] > 0, f"(e) memory telemetry {mem}")
+    r10["e"] = mem
+    print(f"    (e) memory telemetry: {mem}", flush=True)
+    # the kernels' no-statistics calls of (d), at their stage-0 B32 shapes
+    r10["eval"] = {k: eval_case(torch, K, k) for k in ("K3", "K4", "K5")}
+    return r10
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2566,6 +3116,9 @@ def main():
     # -- phase 9: serving depth ---------------------------------------------
     r9 = serving_depth(torch, K)
 
+    # -- phase 10: the serving control plane ----------------------------------
+    r10 = control_plane(torch, K, card)
+
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
@@ -2650,6 +3203,11 @@ def main():
               f"{rec['bound_ms']:.4f} ({rec['bound_by']})"
               + (f"; launches (profiler, ms a call) {rec['launch_ms']}"
                  if "launch_ms" in rec else ""))
+    for name, rec in r10["eval"].items():
+        print(f"    {name} no-statistics forward, stage 0, B32 float32 (the "
+              f"served ResNet-50's call): {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f}, bare product {rec['library_ms']:.4f}, "
+              f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})")
     # launches x ms of each fused family over the ResNet-50 shapes, against
     # the measured steps (K4 runs in the fused_conv2 arm only)
     step_off, step_on = (r["step_s"] * 1e3 for r in rn_arms)
@@ -2804,6 +3362,18 @@ def main():
                    "bigdl_tpu_torch/csrc/fused_conv.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,
                    r7["fused_routes"]["fused_conv_fwd"]["f32"]),
+        kernel_rec("fused_matmul_eval",
+                   "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:688", r10["eval"]["K3"],
+                   r10["d"]["launches"]["fused_matmul_fwd"]),
+        kernel_rec("fused_conv_eval",
+                   "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188", r10["eval"]["K4"],
+                   r10["d"]["launches"]["fused_conv_fwd"]),
+        kernel_rec("fused_chain_eval",
+                   "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:318", r10["eval"]["K5"],
+                   r10["d"]["launches"]["fused_chain_fwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -333,6 +333,11 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "for n in names:\n"
             "    importlib.import_module(n)\n"
             "assert len(names) > 30, names\n"
+            "for want in ('observability', 'observability.health', "
+            "'observability.flight', 'observability.cluster', "
+            "'parallel.chaos', 'parallel.failure', 'optim.staging', "
+            "'serving.engine', 'serving.router'):\n"
+            "    assert 'bigdl_tpu_torch.' + want in names, want\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bigdl_tpu' or "
             "m.startswith('bigdl_tpu.')]\n"

@@ -210,8 +210,7 @@ UNPORTED_METHODS = {
     # save / load family, weights, freezing, the Torch backward protocol,
     # quantization and the prediction helpers (ROADMAP A.4, A.8)
     "bigdl_tpu.nn.module.Module": {
-        "acc_grad_parameters", "backward", "clone", "ensure_initialized",
-        "evaluate_dataset", "find_module", "freeze", "get_extra_parameter",
+        "acc_grad_parameters", "backward", "clone", "evaluate_dataset", "find_module", "freeze", "get_extra_parameter",
         "get_name", "get_parameters", "get_weights", "init", "is_frozen",
         "is_training", "load", "load_orbax", "load_weights", "modules_iter",
         "predict", "predict_class", "quantize", "save", "save_caffe",
@@ -314,6 +313,41 @@ def test_every_jax_method_is_ported_or_listed(key, port, twin):
             assert not hasattr(port, name), f"{name} is ported: unlist it"
 
 
+# public JAX members of the modules the port mirrors that it does not have
+# yet, by module, with the ROADMAP item that ports them
+UNPORTED_MEMBERS = {
+    # the multi-device failure detectors (ROADMAP A.6)
+    "parallel.failure": {"MeshProbeResult", "probe_mesh", "Heartbeat",
+                         "FileHeartbeat", "StragglerMonitor"},
+    # batch prediction and the training input stager (ROADMAP A.8)
+    "optim.predictor": {"leading_dim", "Predictor", "PredictionService"},
+    "optim.staging": {"BatchStager", "staged", "stager_threads_alive"},
+}
+MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
+            "observability.trace", "observability.exporters",
+            "observability.flight", "observability.health",
+            "observability.cluster", "serving.engine", "serving.router",
+            "serving.batching", "optim.predictor", "optim.staging"]
+
+
+@pytest.mark.parametrize("mod", MIRRORED)
+def test_every_jax_member_is_ported_or_listed(mod):
+    jm = importlib.import_module("bigdl_tpu." + mod)
+    pm = importlib.import_module("bigdl_tpu_torch." + mod)
+    listed = UNPORTED_MEMBERS.get(mod, set())
+    missing = {n for n, v in vars(jm).items()
+               if not n.startswith("_")
+               and (inspect.isclass(v) or inspect.isfunction(v))
+               and v.__module__ == jm.__name__ and not hasattr(pm, n)}
+    assert missing == listed
+    # what the port has is public: its __all__ names it
+    jnames = {n for n, v in vars(jm).items()
+              if not n.startswith("_")
+              and (inspect.isclass(v) or inspect.isfunction(v))
+              and v.__module__ == jm.__name__}
+    assert jnames - listed <= set(pm.__all__)
+
+
 def test_translation_and_padding_parameters_raise_at_a_non_default_value():
     from bigdl_tpu_torch.dataset import DataSet, MiniBatch, Sample
     attn = nn.Attention(16, 2)
@@ -335,8 +369,14 @@ def test_translation_and_padding_parameters_raise_at_a_non_default_value():
     ({"host_blocks": 8, "preempt": False}, "preempt_enabled", False),
     ({"prefix_cache_entries": 3}, "prefix", 3),
     ({"prefix_cache": False}, "prefix", None),
+    ({"stall_deadline_s": 1.5}, "stall_deadline_s", 1.5),
+    ({"name": "r0"}, "beacon_name", "serving/decode_scheduler[r0]"),
+    ({"tags": ["int8"]}, "tags", ("int8",)),
+    ({"audit_every": 1}, "audit_every", 1),
+    ({"fault_policy": "policy"}, "fault_policy", "policy"),
 ], ids=["draft_model", "spec_k", "host_blocks", "preempt",
-        "prefix_cache_entries", "prefix_cache_off"])
+        "prefix_cache_entries", "prefix_cache_off", "stall_deadline_s",
+        "name", "tags", "audit_every", "fault_policy"])
 def test_serving_parameters_are_accepted(kw, attr, want):
     from bigdl_tpu_torch.models import TransformerLM
     from bigdl_tpu_torch.serving import DecodeScheduler
@@ -345,6 +385,9 @@ def test_serving_parameters_are_accepted(kw, attr, want):
     kw = dict(kw)
     if kw.get("draft_model") == "draft":
         kw["draft_model"] = TransformerLM(seed=1, **cfg)
+    if kw.get("fault_policy") == "policy":
+        from bigdl_tpu_torch.parallel.failure import FaultPolicy
+        kw["fault_policy"] = want = FaultPolicy(max_restarts=2)
     ds = DecodeScheduler(TransformerLM(**cfg), max_slots=2, block_size=4,
                          max_seq_len=32, prefill_chunk=8, **kw)
     got = getattr(ds, attr)
@@ -357,3 +400,16 @@ def test_serving_parameters_are_accepted(kw, attr, want):
     ds.shutdown()
     from bigdl_tpu_torch.serving import kv_swap_threads_alive
     assert kv_swap_threads_alive() == 0
+
+
+@pytest.mark.parametrize("kw", [{"mesh": "mesh"}, {"placement": "tp"}],
+                         ids=["mesh", "placement"])
+def test_scheduler_still_refuses_mesh_serving(kw):
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import DecodeScheduler
+    lm = TransformerLM(vocab_size=16, hidden_size=16, num_heads=2,
+                       filter_size=32, num_layers=1, max_len=64,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match=next(iter(kw))):
+        DecodeScheduler(lm, max_slots=2, block_size=4, max_seq_len=32,
+                        prefill_chunk=8, **kw)
