@@ -6,6 +6,9 @@ The port's modules carry the JAX trees' names and layouts, so the flat
 * ``Transformer._init_params`` (``bigdl_tpu/nn/attention.py``): ``embed``,
   ``ln_f: {weight, bias}``, per block ``block{i}: {attn: {wq, wk, wv,
   wo}, ffn: {w1, b1, w2, b2[, w3]}, ln1, ln2}`` -> ``block0.attn.wq``;
+  in translation mode each decoder block also holds ``cross: {wq, wk, wv,
+  wo}`` and ``ln3``, beside the encoder's ``enc_block{i}`` ->
+  ``enc_block0.attn.wq``, ``block0.cross.wq``, ``block0.ln3.weight``;
 * ``ResNet(format="NHWC", fused="pallas")``: Sequential indices, chain
   blocks under ``"j"``; the stem weight OIHW, each block's ``w1``/``w2``/
   ``w3``/``proj_w`` HWIO and ``bn1``/``bn2``/``bn3``/``proj_bn``; its

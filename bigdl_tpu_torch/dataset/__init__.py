@@ -1,7 +1,8 @@
 from .dataset import AbstractDataSet, DataSet, LocalDataSet, ShardedDataSet
-from .minibatch import MiniBatch
+from .minibatch import MiniBatch, PaddingParam
 from .sample import Sample
 from .transformer import SampleToMiniBatch, Transformer
 
 __all__ = ["AbstractDataSet", "DataSet", "LocalDataSet", "ShardedDataSet",
-           "MiniBatch", "Sample", "SampleToMiniBatch", "Transformer"]
+           "MiniBatch", "PaddingParam", "Sample", "SampleToMiniBatch",
+           "Transformer"]

@@ -81,19 +81,18 @@ class LocalDataSet(AbstractDataSet):
 class ShardedDataSet(AbstractDataSet):
     """Batch-level view for the optimizer: MiniBatches of ``batch_size``
     from one shard (a single GPU: ``num_shards`` > 1 comes with multi-GPU
-    training; padded batches are not ported). The last short batch is
-    dropped unless ``drop_last`` is False."""
+    training), padded by the ``PaddingParam``s given. The last short batch
+    is dropped unless ``drop_last`` is False."""
 
     def __init__(self, dataset: AbstractDataSet, batch_size: int,
                  num_shards: int = 1, drop_last: bool = True,
                  feature_padding=None, label_padding=None):
-        refuse_unported("ShardedDataSet", num_shards=(num_shards, 1),
-                        feature_padding=(feature_padding, None),
-                        label_padding=(label_padding, None))
+        refuse_unported("ShardedDataSet", num_shards=(num_shards, 1))
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_shards = num_shards
-        self.to_batch = SampleToMiniBatch(batch_size, drop_last=drop_last)
+        self.to_batch = SampleToMiniBatch(batch_size, feature_padding,
+                                          label_padding, drop_last=drop_last)
 
     def size(self):
         return self.dataset.size()

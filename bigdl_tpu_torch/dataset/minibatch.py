@@ -1,12 +1,51 @@
-"""MiniBatch: a batch of one input and one target, stacked numpy arrays on
-the host (counterpart of ``bigdl_tpu/dataset/minibatch.py``; samples with
-several features or labels, which the JAX package batches into a
-``Table``, are not ported yet)."""
+"""MiniBatch: a batch of inputs and targets, stacked numpy arrays on the
+host (counterpart of ``bigdl_tpu/dataset/minibatch.py``, parity with the
+reference's ``dataset/MiniBatch.scala`` and ``PaddingParam``). Samples
+with several features (or labels) batch into a ``Table`` of arrays, one a
+feature; variable-length samples are padded to the batch's longest (or a
+fixed length)."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..utils.engine import refuse_unported
+from ..utils.table import Table
+
+
+class PaddingParam:
+    """Padding spec for variable-length samples (dataset/MiniBatch.scala:260).
+    ``padding_value`` fills; ``fixed_length`` pads to at least that length
+    (one value, or a list with one a dimension; -1 or None = pad to the
+    batch's longest)."""
+
+    def __init__(self, padding_value=0.0, fixed_length=None):
+        self.padding_value = padding_value
+        self.fixed_length = fixed_length
+
+
+def _pad_stack(arrays, padding: PaddingParam):
+    """Stack equal shapes as they are; otherwise (or with ``padding``)
+    into a batch of each dimension's longest (or ``fixed_length``),
+    filled with ``padding_value`` (0 without ``padding``), in the first
+    array's dtype."""
+    shapes = [a.shape for a in arrays]
+    if all(s == shapes[0] for s in shapes) and padding is None:
+        return np.stack(arrays)
+    ndim = arrays[0].ndim
+    target = []
+    for d in range(ndim):
+        mx = max(s[d] for s in shapes)
+        if padding is not None and padding.fixed_length is not None:
+            fl = padding.fixed_length
+            fl = fl[d] if isinstance(fl, (list, tuple)) else fl
+            if fl and fl > 0:
+                mx = max(mx, fl)
+        target.append(mx)
+    val = padding.padding_value if padding is not None else 0.0
+    out = np.full((len(arrays),) + tuple(target), val, dtype=arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        sl = (i,) + tuple(slice(0, s) for s in a.shape)
+        out[sl] = a
+    return out
 
 
 class MiniBatch:
@@ -16,19 +55,19 @@ class MiniBatch:
 
     @staticmethod
     def from_samples(samples, feature_padding=None, label_padding=None):
-        """Stack samples of one shape (padding variable-length samples is
-        not ported yet)."""
-        refuse_unported("MiniBatch.from_samples",
-                        feature_padding=(feature_padding, None),
-                        label_padding=(label_padding, None))
-        if len(samples[0].features) != 1 or len(samples[0].labels) > 1:
-            raise NotImplementedError(
-                "MiniBatch: only samples of one feature and at most one "
-                "label are ported (Table batches are not)")
-        inp = np.stack([s.features[0] for s in samples])
+        """Stack each feature (and label) across ``samples``: one array,
+        or a ``Table`` of arrays for several; padded by
+        :func:`_pad_stack`."""
+        nfeat = len(samples[0].features)
+        feats = [_pad_stack([s.features[i] for s in samples], feature_padding)
+                 for i in range(nfeat)]
+        inp = feats[0] if nfeat == 1 else Table(*feats)
         tgt = None
         if samples[0].labels:
-            tgt = np.stack([s.labels[0] for s in samples])
+            nlab = len(samples[0].labels)
+            labs = [_pad_stack([s.labels[i] for s in samples], label_padding)
+                    for i in range(nlab)]
+            tgt = labs[0] if nlab == 1 else Table(*labs)
         return MiniBatch(inp, tgt)
 
     def get_input(self):
@@ -38,15 +77,21 @@ class MiniBatch:
         return self.target
 
     def size(self):
-        return self.input.shape[0]
+        first = self.input[1] if isinstance(self.input, Table) else self.input
+        return first.shape[0]
 
     def slice(self, offset: int, length: int):
-        """Rows offset .. offset + length - 1, 1-based as in the
-        reference."""
+        """Rows offset .. offset + length - 1 of every array, 1-based as in
+        the reference."""
         s = slice(offset - 1, offset - 1 + length)
-        return MiniBatch(self.input[s],
-                         None if self.target is None else self.target[s])
+
+        def cut(x):
+            if isinstance(x, Table):
+                return Table(*[cut(i) for i in x])
+            return None if x is None else x[s]
+        return MiniBatch(cut(self.input), cut(self.target))
 
     def __repr__(self):
-        tgt = None if self.target is None else self.target.shape
-        return f"MiniBatch(input={self.input.shape}, target={tgt})"
+        shp = lambda x: [i.shape for i in x] if isinstance(x, Table) else \
+            (None if x is None else x.shape)
+        return f"MiniBatch(input={shp(self.input)}, target={shp(self.target)})"

@@ -4,8 +4,6 @@ from __future__ import annotations
 
 from typing import Iterable, Iterator
 
-from ..utils.engine import refuse_unported
-
 
 class Transformer:
     def apply(self, it: Iterator) -> Iterator:
@@ -17,17 +15,16 @@ class Transformer:
 
 class SampleToMiniBatch(Transformer):
     """Group Samples into MiniBatches of ``batch_size``; the last, shorter
-    one too unless ``drop_last``. ``partition_num`` is accepted and
-    ignored, as in the JAX package; padded batches (the padding
-    parameters) are not ported."""
+    one too unless ``drop_last``. Features and labels are padded by the
+    ``PaddingParam``s given (``MiniBatch.from_samples``).
+    ``partition_num`` is accepted and ignored, as in the JAX package."""
 
     def __init__(self, batch_size: int, feature_padding_param=None,
                  label_padding_param=None, partition_num=None,
                  drop_last: bool = False):
-        refuse_unported("SampleToMiniBatch",
-                        feature_padding_param=(feature_padding_param, None),
-                        label_padding_param=(label_padding_param, None))
         self.batch_size = batch_size
+        self.feature_padding = feature_padding_param
+        self.label_padding = label_padding_param
         self.drop_last = drop_last
 
     def apply(self, it):
@@ -36,7 +33,9 @@ class SampleToMiniBatch(Transformer):
         for s in it:
             buf.append(s)
             if len(buf) == self.batch_size:
-                yield MiniBatch.from_samples(buf)
+                yield MiniBatch.from_samples(buf, self.feature_padding,
+                                             self.label_padding)
                 buf = []
         if buf and not self.drop_last:
-            yield MiniBatch.from_samples(buf)
+            yield MiniBatch.from_samples(buf, self.feature_padding,
+                                         self.label_padding)

@@ -1,7 +1,8 @@
 from .activation import ReLU
 from .attention import (Attention, FeedForwardNetwork, Transformer,
                         TransformerBlock, causal_mask, dot_product_attention,
-                        embed_ids, position_encoding, rotary_embedding)
+                        embed_ids, padding_mask, position_encoding,
+                        rotary_embedding)
 from .containers import Sequential
 from .conv import SpatialConvolution
 from .criterion import (ClassNLLCriterion, CrossEntropyCriterion, LMCriterion,
@@ -16,7 +17,8 @@ from .speculative import SpecStats, speculative_generate
 
 __all__ = ["ReLU", "Attention", "FeedForwardNetwork", "Transformer",
            "TransformerBlock", "causal_mask", "dot_product_attention",
-           "embed_ids", "position_encoding", "rotary_embedding", "Sequential",
+           "embed_ids", "padding_mask", "position_encoding",
+           "rotary_embedding", "Sequential",
            "SpatialConvolution", "ClassNLLCriterion", "CrossEntropyCriterion",
            "LMCriterion", "TimeDistributedMaskCriterion", "Linear",
            "Container", "Criterion", "Module", "BatchNormalization",

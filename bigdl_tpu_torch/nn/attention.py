@@ -1,5 +1,6 @@
-"""Attention and the decoder-only Transformer (counterpart of
-``bigdl_tpu/nn/attention.py``, LM mode).
+"""Attention and the Transformer (counterpart of
+``bigdl_tpu/nn/attention.py``): the decoder-only LM mode and the
+encoder-decoder translation mode, with greedy and beam-search decoding.
 
 The model code is written as functions of a parameter tree (``params``,
 the nested dict of :attr:`Module.params`) as in the JAX package, so one
@@ -14,10 +15,19 @@ given and ``decode_paged`` scatters into the pages with ``index_put_``;
 both return the same tensors for symmetry with the JAX signatures.
 
 The training forward (``hidden_states`` and ``call`` with ``training`` and
-a dropout ``generator``; ``forward``) is differentiable; self-attention
-there goes through the flash ``autograd.Function`` (K1-fwd forward, K1-bwd
-backward). Every cached inference entry point (``prefill``, the decode
-steps, ``generate``) runs under ``torch.no_grad()``.
+a dropout ``generator``; ``forward``) is differentiable; LM-mode
+self-attention there goes through the flash ``autograd.Function`` (K1-fwd
+forward, K1-bwd backward). The translation mode keeps additive masks (a
+source padding mask is no static causal pattern), so it runs the masked
+einsum everywhere, as the JAX package does. Every cached inference entry
+point (``prefill``, the decode steps, ``generate``, the beam searches,
+``translate``) runs under ``torch.no_grad()``.
+
+Dtypes follow ``jnp``'s promotion: attention with an additive float32 mask
+returns float32 for bf16 operands (the JAX package adds the mask to the
+q-dtype logits), and from there the residual stream is float32. Every
+product therefore casts both operands to their promoted dtype first
+(:func:`_mm`), because ``torch.matmul`` refuses a float32 x bf16 pair.
 """
 from __future__ import annotations
 
@@ -32,8 +42,20 @@ from ..kernels.paged_attention import paged_attention_reference
 from ..parallel.flash import (flash_attention, flash_chunk_attention,
                               paged_attention)
 from ..utils.engine import refuse_unported, resolve_device
+from ..utils.table import Table
 from .module import Module
 from .norm import LayerNormalization
+
+NEG = -1e30     # a dead or frozen beam's candidate score (float32)
+
+
+def _mm(a, b):
+    """``a @ b`` in the promoted dtype of the two (``jnp.matmul``'s rule):
+    a float32 activation times a bf16 weight is a float32 product."""
+    if a.dtype == b.dtype:
+        return a @ b
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def _glorot(gen, shape):
@@ -73,23 +95,35 @@ def dropout(x, p: float, generator):
 def dot_product_attention(q, k, v, mask=None, dropout_p: float = 0.0,
                           generator=None, training: bool = False):
     """q, k, v: (B, H, T, D); mask additive (broadcastable) or None.
-    Computes in float32, returns q's dtype. With ``training``, ``dropout_p
-    > 0`` and a ``generator``, the attention weights are dropped out (as
-    the JAX package does with an rng)."""
+    Computes in float32. Returns q's dtype without a mask and, with one,
+    the dtype q's and the mask's promote to, as ``jnp`` does (float32 for
+    bf16 q and the float32 masks of :func:`causal_mask` and
+    :func:`padding_mask`). With ``training``, ``dropout_p > 0`` and a
+    ``generator``, the attention weights are dropped out (as the JAX
+    package does with an rng)."""
     d = q.shape[-1]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
         / math.sqrt(d)
+    out_dtype = q.dtype
     if mask is not None:
         logits = logits + mask
+        out_dtype = torch.promote_types(q.dtype, mask.dtype)
     w = torch.softmax(logits, dim=-1)
     if training and dropout_p > 0.0 and generator is not None:
         w = dropout(w, dropout_p, generator)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(out_dtype)
 
 
 def causal_mask(t, dtype=torch.float32, device=None):
     keep = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
     return torch.where(keep, 0.0, -1e9).to(dtype)[None, None]
+
+
+def padding_mask(lengths_or_mask, t):
+    """Additive (B, 1, 1, T) float32 mask from a (B, T) 0/1 keep-mask:
+    0 where kept, -1e9 where padded."""
+    m = lengths_or_mask.float()
+    return (m[:, None, None, :] - 1.0) * 1e9
 
 
 def position_encoding(length, hidden_size, dtype=torch.float32,
@@ -122,11 +156,14 @@ def _embed_ids(embed, ids, hidden_size, with_pe: bool = True, pe=None):
 
 
 class Attention(Module):
-    """Multi-head self-attention with optional grouped-query K/V heads
-    (``num_kv_heads``) and rotary embeddings. ``attention_dropout`` drops
-    attention weights in training (then the einsum path runs instead of
-    flash, as in the JAX package). Sequence parallelism (``seq_axis``,
-    ``seq_impl``) is not ported. ``generator`` seeds the weights."""
+    """Multi-head attention with optional grouped-query K/V heads
+    (``num_kv_heads``) and rotary embeddings. Its input is one tensor
+    (self-attention) or ``Table(query, key_value[, additive_mask])``
+    (cross-attention when ``key_value`` is another sequence).
+    ``attention_dropout`` drops attention weights in training (then the
+    einsum path runs instead of flash, as in the JAX package). Sequence
+    parallelism (``seq_axis``, ``seq_impl``) is not ported. ``generator``
+    seeds the weights."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attention_dropout: float = 0.0, use_flash: bool = True,
@@ -164,16 +201,17 @@ class Attention(Module):
         return x.reshape(b, t, heads or self.num_heads, -1).transpose(1, 2)
 
     def qkv(self, params, qx, kx=None):
-        """Query (B, nH, T, D) and key/value (B, kvH, T, D) heads of
-        ``qx``. Three matmuls; the JAX package fuses them into one over
+        """Query heads (B, nH, T, D) of ``qx`` and key/value heads
+        (B, kvH, Tk, D) of ``kx`` (``qx`` when None: self-attention; the
+        translation mode's cross-attention passes the encoder output).
+        Three matmuls; the JAX package fuses them into one over
         concatenated weights, which in eager PyTorch would copy the
-        weights every call. ``kx`` (keys from another sequence: the
-        translation mode's cross-attention) is not ported."""
-        refuse_unported("Attention.qkv", kx=(kx, None))
+        weights every call."""
         kvh = self._kvh()
-        return (self._split(qx @ params["wq"]),
-                self._split(qx @ params["wk"], kvh),
-                self._split(qx @ params["wv"], kvh))
+        kx = qx if kx is None else kx
+        return (self._split(_mm(qx, params["wq"])),
+                self._split(_mm(kx, params["wk"]), kvh),
+                self._split(_mm(kx, params["wv"]), kvh))
 
     def _expand_kv(self, k, v):
         g = self.num_heads // self._kvh()
@@ -184,7 +222,13 @@ class Attention(Module):
 
     def _merge(self, o, params):
         b, h, t, d = o.shape
-        return o.transpose(1, 2).reshape(b, t, h * d) @ params["wo"]
+        return _mm(o.transpose(1, 2).reshape(b, t, h * d), params["wo"])
+
+    def decode(self, params, x_t, k_cache, v_cache, pos: int):
+        """One autoregressive step: x_t (B, 1, H) at position ``pos``, its
+        K/V written into the caches in place. The S = 1 case of
+        :meth:`decode_chunk`; returns (out (B, 1, H), k_cache, v_cache)."""
+        return self.decode_chunk(params, x_t, k_cache, v_cache, pos)
 
     def decode_chunk(self, params, x, k_cache, v_cache, pos: int):
         """S cached positions: project x (B, S, H), write K/V into the
@@ -248,23 +292,33 @@ class Attention(Module):
         return self._merge(o, params), k_pages, v_pages
 
     def call(self, params, x, training: bool = False, generator=None):
-        """Self-attention over x (B, T, H); causal when built so.
-        Differentiable; dropout on the weights only with ``training`` and a
-        ``generator``."""
-        q, k, v = self.qkv(params, x)
+        """Attention over x: a tensor (B, T, H) attends to itself, causal
+        when built so; ``Table(query, key_value[, mask])`` attends from
+        the query to ``key_value`` under the additive ``mask`` (None: the
+        causal flag decides). Differentiable; dropout on the weights only
+        with ``training`` and a ``generator``."""
+        if isinstance(x, Table):
+            qx = x[1]
+            kx = x[2] if len(x) >= 2 else qx
+            mask = x[3] if len(x) >= 3 else None
+        else:
+            qx, kx, mask = x, x, None
+        q, k, v = self.qkv(params, qx, kx)
         if self.rope:
-            pos = torch.arange(q.shape[2], device=x.device)
+            if kx is not qx:
+                raise ValueError("RoPE supports self-attention only")
+            pos = torch.arange(q.shape[2], device=qx.device)
             q = rotary_embedding(q, pos)
             k = rotary_embedding(k, pos)
         k, v = self._expand_kv(k, v)
         drop = (training and self.attention_dropout > 0.0
                 and generator is not None)
-        if self.causal and self.use_flash and not drop:
+        if self.causal and mask is None and self.use_flash and not drop:
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True)
         else:
-            mask = (causal_mask(q.shape[2], device=x.device) if self.causal
-                    else None)
+            if self.causal and mask is None:
+                mask = causal_mask(q.shape[2], device=qx.device)
             o = dot_product_attention(q, k, v, mask, self.attention_dropout,
                                       generator, training)
         return self._merge(o, params)
@@ -294,22 +348,23 @@ class FeedForwardNetwork(Module):
             self.w3 = P(_glorot(generator, (hidden_size, filter_size)))
 
     def call(self, params, x, training: bool = False, generator=None):
-        a = x @ params["w1"] + params["b1"]
+        a = _mm(x, params["w1"]) + params["b1"]
         if self.activation == "swiglu":
-            h = F.silu(a) * (x @ params["w3"])
+            h = F.silu(a) * _mm(x, params["w3"])
         elif self.activation == "gelu":
             h = F.gelu(a, approximate="tanh")
         else:
             h = F.relu(a)
         if training and self.relu_dropout > 0.0 and generator is not None:
             h = dropout(h, self.relu_dropout, generator)
-        return h @ params["w2"] + params["b2"]
+        return _mm(h, params["w2"]) + params["b2"]
 
 
 class TransformerBlock(Module):
-    """Pre-LN block: self-attention then FFN, each residual; causal only
-    when asked (``causal=False``, JAX's default, attends both ways). The
-    cross-attention sublayer (``with_cross``) is not ported."""
+    """Pre-LN block: self-attention, then (``with_cross``, the translation
+    decoder's blocks) cross-attention to the encoder output, then the FFN,
+    each residual; causal only when asked (``causal=False``, JAX's
+    default, attends both ways)."""
 
     def __init__(self, hidden_size: int, num_heads: int, filter_size: int,
                  attn_dropout: float = 0.0, ffn_dropout: float = 0.0,
@@ -318,7 +373,6 @@ class TransformerBlock(Module):
                  rope: bool = False, ffn_activation: str = "relu", name=None,
                  generator=None):
         super().__init__(name=name)
-        refuse_unported("TransformerBlock", with_cross=(with_cross, False))
         self.attn = Attention(hidden_size, num_heads, use_flash=use_flash,
                               causal=causal, num_kv_heads=num_kv_heads,
                               rope=rope, generator=generator,
@@ -329,16 +383,35 @@ class TransformerBlock(Module):
                                       relu_dropout=ffn_dropout)
         self.ln1 = LayerNormalization(hidden_size)
         self.ln2 = LayerNormalization(hidden_size)
+        self.with_cross = with_cross
+        if with_cross:
+            self.cross = Attention(hidden_size, num_heads, attn_dropout,
+                                   generator=generator)
+            self.ln3 = LayerNormalization(hidden_size)
 
     def _ffn_sublayer(self, params, h, training=False, generator=None):
         return h + self.ffn.call(params["ffn"],
                                  self.ln2.call(params["ln2"], h),
                                  training, generator)
 
-    def call(self, params, h, training: bool = False, generator=None):
-        h = h + self.attn.call(params["attn"],
-                               self.ln1.call(params["ln1"], h),
-                               training, generator)
+    def call(self, params, x, training: bool = False, generator=None):
+        """x: hidden states (B, T, H), or ``Table(h, mask[, enc,
+        enc_mask])`` with an additive self-attention ``mask`` (None: the
+        causal flag decides) and, for a ``with_cross`` block, the encoder
+        output and its additive padding mask."""
+        if isinstance(x, Table):
+            h, mask = x[1], x[2]
+            enc = x[3] if len(x) >= 3 else None
+            enc_mask = x[4] if len(x) >= 4 else None
+        else:
+            h, mask, enc, enc_mask = x, None, None, None
+        n = self.ln1.call(params["ln1"], h)
+        h = h + self.attn.call(params["attn"], Table(n, n, mask), training,
+                               generator)
+        if self.with_cross and enc is not None:
+            n = self.ln3.call(params["ln3"], h)
+            h = h + self.cross.call(params["cross"], Table(n, enc, enc_mask),
+                                    training, generator)
         return self._ffn_sublayer(params, h, training, generator)
 
     def prefill(self, params, h):
@@ -361,17 +434,33 @@ class TransformerBlock(Module):
         h = h + self.attn._merge(o, params["attn"])
         return self._ffn_sublayer(params, h), (k, v)
 
+    def cross_kv(self, params, enc):
+        """The cross-attention K/V heads of the encoder output enc
+        (B, Ts, H), constant across decode steps (the query is per step)."""
+        if not self.with_cross:
+            raise ValueError("cross_kv needs a block built with_cross=True")
+        p = params["cross"]
+        return (self.cross._split(_mm(enc, p["wk"])),
+                self.cross._split(_mm(enc, p["wv"])))
+
     def decode_step(self, params, h_t, kv, pos: int, cross_kv=None,
                     cross_mask=None):
-        """One cached block step at ``pos``; the cross-attention operands
-        (translation mode) are not ported."""
-        refuse_unported("TransformerBlock.decode_step",
-                        cross_kv=(cross_kv, None),
-                        cross_mask=(cross_mask, None))
+        """S cached positions: h_t (B, S, H) lands at pos..pos+S-1, its
+        K/V written into ``kv`` = (k_cache, v_cache) in place. A
+        translation block also takes ``cross_kv`` (from :meth:`cross_kv`)
+        and the additive source padding ``cross_mask``. Returns
+        (h (B, S, H), (k_cache, v_cache))."""
         n = self.ln1.call(params["ln1"], h_t)
-        a, k_cache, v_cache = self.attn.decode_chunk(params["attn"], n, kv[0],
-                                                     kv[1], pos)
-        return self._ffn_sublayer(params, h_t + a), (k_cache, v_cache)
+        a, k_cache, v_cache = self.attn.decode(params["attn"], n, kv[0],
+                                               kv[1], pos)
+        h_t = h_t + a
+        if self.with_cross and cross_kv is not None:
+            n = self.ln3.call(params["ln3"], h_t)
+            q = self.cross._split(_mm(n, params["cross"]["wq"]))
+            o = dot_product_attention(q, cross_kv[0], cross_kv[1],
+                                      cross_mask)
+            h_t = h_t + self.cross._merge(o, params["cross"])
+        return self._ffn_sublayer(params, h_t), (k_cache, v_cache)
 
     def decode_step_paged(self, params, h_t, k_pages, v_pages,
                           block_tables, positions):
@@ -382,9 +471,13 @@ class TransformerBlock(Module):
 
 
 class Transformer(Module):
-    """Decoder-only Transformer LM over token ids (``mode='lm'``; the
-    translation mode is not ported yet). Returns logits over the vocab
-    through the tied embedding.
+    """Transformer over token ids: ``mode='lm'`` (decoder-only causal LM;
+    input ids (B, T)) or ``mode='translation'`` (encoder-decoder; input
+    ``Table(src_ids, tgt_ids)``, id 0 is the source's padding). Returns
+    logits over the vocab through the tied embedding. The translation mode
+    adds ``enc_block{i}`` (bidirectional, relu, full heads) beside the
+    decoder's ``block{i}``, which are built ``with_cross=True`` and take
+    an explicit causal mask; RoPE is LM-only, as in the JAX package.
 
     ``device``: where the weights live - a CUDA device by default, which
     raises when there is none; pass ``device='cpu'`` for the CPU.
@@ -406,11 +499,15 @@ class Transformer(Module):
                  ffn_activation: str = "relu", name=None, device=None,
                  seed: int = 0):
         super().__init__(name=name)
-        if mode != "lm":
-            raise NotImplementedError("only mode='lm' is ported")
+        if mode not in ("lm", "translation"):
+            raise ValueError(f"mode must be 'lm' or 'translation', got "
+                             f"{mode!r}")
         if pos_encoding not in ("sinusoidal", "rope"):
             raise ValueError(f"pos_encoding must be 'sinusoidal' or "
                              f"'rope', got {pos_encoding!r}")
+        if pos_encoding == "rope" and mode != "lm":
+            raise ValueError("RoPE is LM-mode only (cross-attention has "
+                             "no rotary form here)")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.vocab_size, self.hidden_size = vocab_size, hidden_size
@@ -421,25 +518,40 @@ class Transformer(Module):
         self.embed = torch.nn.Parameter(
             0.02 * torch.randn((vocab_size, hidden_size), generator=gen))
         self.ln_f = LayerNormalization(hidden_size)
+        translation = mode == "translation"
         blocks = []
         for i in range(num_hidden_layers):
             blk = TransformerBlock(hidden_size, num_heads, filter_size,
-                                   causal=True, use_flash=use_flash,
+                                   attention_dropout, relu_dropout,
+                                   with_cross=translation,
+                                   causal=not translation,
+                                   use_flash=use_flash,
                                    num_kv_heads=num_kv_heads,
                                    rope=(pos_encoding == "rope"),
                                    ffn_activation=ffn_activation,
-                                   generator=gen,
-                                   attn_dropout=attention_dropout,
-                                   ffn_dropout=relu_dropout)
+                                   generator=gen)
             self.add_module(f"block{i}", blk)
             blocks.append(blk)
         self.blocks = tuple(blocks)
+        enc_blocks = []
+        for i in range(num_hidden_layers if translation else 0):
+            blk = TransformerBlock(hidden_size, num_heads, filter_size,
+                                   attention_dropout, relu_dropout,
+                                   generator=gen)
+            self.add_module(f"enc_block{i}", blk)
+            enc_blocks.append(blk)
+        self.enc_blocks = tuple(enc_blocks)
         self._pe_cache = {}
         self.to(dev)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _need_mode(self, mode, what):
+        if self.mode != mode:
+            raise ValueError(f"{what} needs mode={mode!r}, this model is "
+                             f"mode={self.mode!r}")
 
     def _pe(self, dtype):
         pe = self._pe_cache.get(dtype)
@@ -459,9 +571,14 @@ class Transformer(Module):
                           with_pe=self.pos_encoding != "rope",
                           pe=self._pe(emb.dtype))
 
-    def _block(self, blk, params, h, training, generator):
+    def _block(self, blk, params, h, training, generator, extra=None):
+        """One block of a stack on h; ``extra`` = (mask, enc, enc_mask) of
+        the translation mode (None: the LM's causal flag decides)."""
+        def block_input(h):
+            return h if extra is None else Table(h, *extra)
+
         if not self.remat:
-            return blk.call(params, h, training, generator)
+            return blk.call(params, block_input(h), training, generator)
         # checkpoint restores the global RNG states for the recomputation,
         # not a private generator's: each run of the block draws from a
         # copy of ``generator`` as it stood at the block's start (so the
@@ -475,7 +592,7 @@ class Transformer(Module):
             if start is not None:
                 g = torch.Generator(device=generator.device)
                 g.set_state(start)
-            out = blk.call(params, h, training, g)
+            out = blk.call(params, block_input(h), training, g)
             if g is not None:
                 end["state"] = g.get_state()
             return out
@@ -486,22 +603,53 @@ class Transformer(Module):
             generator.set_state(end["state"])
         return out
 
+    def _stack(self, blocks, prefix, params, h, training, generator,
+               extra=None):
+        for i, blk in enumerate(blocks):
+            h = self._block(blk, params[f"{prefix}{i}"], h, training,
+                            generator, extra)
+        return h
+
     def hidden_states(self, params, x, training: bool = False,
                       generator=None):
         """Final-LayerNorm hidden states (B, T, H): the LM trunk without
         the vocab projection (see ``models.lm_loss_chunked``).
         Differentiable; dropout only with ``training`` and a ``generator``
         (a ``torch.Generator`` on the model's device)."""
+        self._need_mode("lm", "hidden_states")
         h = self._embed(params, self._ids(x))
-        for i, blk in enumerate(self.blocks):
-            h = self._block(blk, params[f"block{i}"], h, training, generator)
+        h = self._stack(self.blocks, "block", params, h, training, generator)
         return self.ln_f.call(params["ln_f"], h)
 
-    def call(self, params, ids, training: bool = False, generator=None):
+    def _logits(self, params, h):
+        """The tied output projection, in the promoted dtype."""
+        return _mm(h, params["embed"].T)
+
+    def _encode_src(self, params, src, training=False, generator=None):
+        """The source side of the translation mode: the padding mask of
+        ids (B, Ts) (0 is padding) and the encoder stack, (enc,
+        src_mask)."""
+        src_mask = padding_mask(src != 0, src.shape[1])
+        enc = self._embed(params, src)
+        enc = self._stack(self.enc_blocks, "enc_block", params, enc,
+                          training, generator, (src_mask,))
+        return enc, src_mask
+
+    def call(self, params, x, training: bool = False, generator=None):
         """Logits (B, T, vocab) through the tied embedding;
-        differentiable."""
-        return self.hidden_states(params, ids, training, generator) \
-            @ params["embed"].T
+        differentiable. LM mode: x is ids (B, T). Translation mode: x is
+        ``Table(src_ids, tgt_ids)``; the source padding mask comes from
+        ``src_ids != 0`` and the target self-attention is causal."""
+        if self.mode != "translation":
+            return self._logits(params, self.hidden_states(
+                params, x, training, generator))
+        src, tgt = self._ids(x[1]), self._ids(x[2])
+        enc, src_mask = self._encode_src(params, src, training, generator)
+        h = self._embed(params, tgt)
+        mask = causal_mask(tgt.shape[1], device=h.device)
+        h = self._stack(self.blocks, "block", params, h, training, generator,
+                        (mask, enc, src_mask))
+        return self._logits(params, self.ln_f.call(params["ln_f"], h))
 
     def apply(self, params, state, x, training: bool = False,
               generator=None):
@@ -510,9 +658,10 @@ class Transformer(Module):
         return self.call(params, x, training, generator), state
 
     def forward(self, x):
-        """Logits (B, T, vocab) of token ids (B, T) with the module's own
-        parameters, in its mode (``training()`` / ``evaluate()``; no
-        dropout without a generator, which ``call`` takes)."""
+        """Logits (B, T, vocab) of token ids (B, T), or of ``Table(src_ids,
+        tgt_ids)`` in translation mode, with the module's own parameters,
+        in its mode (``training()`` / ``evaluate()``; no dropout without a
+        generator, which ``call`` takes)."""
         return self.call(self.params, x, bool(self.training))
 
     # -- cached inference --------------------------------------------------
@@ -530,6 +679,7 @@ class Transformer(Module):
     def prefill(self, params, ids, max_len: int):
         """Run the prompt once (flash, causal): (last-position logits,
         caches)."""
+        self._need_mode("lm", "prefill")
         ids = self._ids(ids)
         B, Tp = ids.shape
         h = self._embed(params, ids)
@@ -539,12 +689,13 @@ class Transformer(Module):
             caches[i][0][:, :, :Tp] = k.to(caches[i][0].dtype)
             caches[i][1][:, :, :Tp] = v.to(caches[i][1].dtype)
         h = self.ln_f.call(params["ln_f"], h)
-        return h[:, -1] @ params["embed"].T, caches
+        return self._logits(params, h[:, -1]), caches
 
     @torch.no_grad()
     def prefill_chunked(self, params, ids, max_len: int, chunk: int = 512):
         """Prompt prefill in ``chunk``-sized pieces through the cached
         decode trunk (rectangular-causal flash for pieces of >= 8)."""
+        self._need_mode("lm", "prefill_chunked")
         ids = self._ids(ids)
         B, Tp = ids.shape
         if Tp > max_len:
@@ -554,21 +705,34 @@ class Transformer(Module):
         for s in range(0, Tp, chunk):
             h, caches = self._decode_trunk(params, ids[:, s:s + chunk], s,
                                            caches)
-        return h[:, -1] @ params["embed"].T, caches
+        return self._logits(params, h[:, -1]), caches
 
     @torch.no_grad()
     def decode_one(self, params, tokens, pos: int, caches, cross=None,
                    cross_mask=None):
-        """One cached step: tokens (B,) at position ``pos``. Returns
-        (logits (B, V), caches). The translation mode's ``cross`` /
-        ``cross_mask`` are not ported."""
-        refuse_unported("Transformer.decode_one", cross=(cross, None),
-                        cross_mask=(cross_mask, None))
-        logits, caches = self.decode_chunk(
-            params, self._ids(tokens)[:, None], pos, caches)
-        return logits[:, 0], caches
+        """One cached step: tokens (B,) at position ``pos``, K/V written
+        into ``caches`` in place. Returns (logits (B, V), caches). The
+        translation mode passes each block's cross-attention K/V
+        (``cross``, from ``TransformerBlock.cross_kv``) and the additive
+        source padding ``cross_mask``; the LM path is the S = 1 case of
+        :meth:`decode_chunk`."""
+        if cross is None:
+            logits, caches = self.decode_chunk(
+                params, self._ids(tokens)[:, None], pos, caches)
+            return logits[:, 0], caches
+        emb = params["embed"]
+        h = emb[self._ids(tokens)] * math.sqrt(self.hidden_size)
+        if self.pos_encoding != "rope":
+            h = h + self._pe(emb.dtype)[pos:pos + 1]
+        h = h[:, None, :]
+        for i, blk in enumerate(self.blocks):
+            h, caches[i] = blk.decode_step(params[f"block{i}"], h, caches[i],
+                                           pos, cross[i], cross_mask)
+        h = self.ln_f.call(params["ln_f"], h)
+        return self._logits(params, h[:, 0]), caches
 
     def _decode_trunk(self, params, tokens, pos: int, caches):
+        self._need_mode("lm", "the LM decode trunk")
         emb = params["embed"]
         h = emb[tokens] * math.sqrt(self.hidden_size)
         S = tokens.shape[1]
@@ -585,7 +749,7 @@ class Transformer(Module):
         Returns (logits (B, S, V), caches)."""
         h, caches = self._decode_trunk(params, self._ids(tokens), pos,
                                        caches)
-        return h @ params["embed"].T, caches
+        return self._logits(params, h), caches
 
     @torch.no_grad()
     def decode_paged(self, params, tokens, positions, pages, block_tables):
@@ -594,6 +758,7 @@ class Transformer(Module):
         (B,) int32; pages a per-block list of (k_pages, v_pages), each
         (num_blocks, kvH, block_size, D), updated in place; block_tables
         (B, max_blocks) int32. Returns (logits (B, S, V), pages)."""
+        self._need_mode("lm", "decode_paged")
         tokens = self._ids(tokens)
         emb = params["embed"]
         h = emb[tokens] * math.sqrt(self.hidden_size)
@@ -607,7 +772,7 @@ class Transformer(Module):
                 params[f"block{i}"], h, pages[i][0], pages[i][1],
                 block_tables, positions)
         h = self.ln_f.call(params["ln_f"], h)
-        return h @ params["embed"].T, pages
+        return self._logits(params, h), pages
 
     @torch.no_grad()
     def generate(self, params, prompt_ids, max_new_tokens: int,
@@ -659,3 +824,193 @@ class Transformer(Module):
                 done = done | (tok == eos_id)
             out.append(tok[:, None])
         return torch.cat(out, 1)
+
+    @torch.no_grad()
+    def generate_beam(self, params, prompt_ids, max_new_tokens: int,
+                      beam_size: int = 4, eos_id=None,
+                      length_penalty: float = 0.0):
+        """Beam-search generation (LM mode): the prompt is prefilled ONCE
+        on the un-repeated batch (flash, one launch a layer), the caches
+        are then repeated to the (B * beam) layout and the beams ride the
+        cached decode step of :meth:`generate`. Score = sum of float32
+        log-probs / len ** ``length_penalty`` (len counts non-zero ids:
+        id 0 is pad, as in the JAX package); beams that emit ``eos_id``
+        freeze with their score and emit 0. Returns (B, Tp +
+        max_new_tokens) int64 ids of each row's best beam.
+        ``beam_size=1`` is greedy :meth:`generate`, token for token."""
+        self._need_mode("lm", "generate_beam")
+        prompt = self._ids(prompt_ids)
+        B, Tp = prompt.shape
+        K = beam_size
+        if max_new_tokens <= 0:
+            return prompt
+        total = Tp + max_new_tokens
+        if total > self.max_len:
+            raise ValueError(f"prompt + new tokens {total} > max_len "
+                             f"{self.max_len}")
+        logits, caches = self.prefill(params, prompt, total)
+        caches = [(k.repeat_interleave(K, 0), v.repeat_interleave(K, 0))
+                  for k, v in caches]
+        logp0 = torch.log_softmax(logits.float(), -1)
+        scores0, tok0 = _top_k(logp0, K)                     # (B, K)
+        tok = tok0.reshape(-1)
+        done = (tok == eos_id) if eos_id is not None \
+            else torch.zeros_like(tok, dtype=torch.bool)
+        scores, toks, parents = self._beam_scan(
+            lambda t, p, c: self.decode_one(params, t, p, c),
+            caches, tok, scores0.reshape(-1), done, Tp, max_new_tokens - 1,
+            B, K, eos_id)
+        paths, roots = _beam_backtrack(toks, parents, B, K)
+        paths = torch.cat([tok0.gather(1, roots)[None], paths], 0)
+        return torch.cat([prompt, _beam_select(scores, paths, B, K,
+                                               length_penalty)], 1)
+
+    def _beam_scan(self, step_fn, caches, tok, scores, done, pos0: int,
+                   steps: int, B: int, K: int, eos_id):
+        """``steps`` beam expansions in the flattened (B * K) layout, the
+        one implementation behind :meth:`generate_beam` and
+        :meth:`translate_beam`. ``step_fn(tok, pos, caches) -> (logits,
+        caches)`` is the cached decode step. Candidates are (V + 1) wide:
+        the extra column is a frozen beam's one "stay" continuation (score
+        unchanged, emits 0), so vocab column 0 stays selectable by live
+        beams. The top K are picked lower index first among equal scores
+        (``jax.lax.top_k``'s order). Each expansion gathers the caches of
+        the surviving beams into NEW tensors: the decode step writes the
+        caches in place, and a reorder in place would overwrite rows it
+        still has to read. Runs every step even when all beams are done,
+        as the JAX scan does. Returns (scores (B * K,), toks, parents),
+        the last two (steps, B, K) int64."""
+        V = self.vocab_size
+        dev = tok.device
+        base = (torch.arange(B, device=dev) * K)[:, None]
+        toks, parents = [], []
+        pos = pos0
+        for _ in range(steps):
+            logits, caches = step_fn(tok, pos, caches)
+            logp = torch.log_softmax(logits.float(), -1)
+            live = torch.where(done[:, None], NEG, logp) + scores[:, None]
+            stay = torch.where(done, scores, NEG)[:, None]
+            cand = torch.cat([live, stay], 1).reshape(B, K * (V + 1))
+            top, flat_idx = _top_k(cand, K)                  # (B, K)
+            beam_idx = flat_idx // (V + 1)
+            col = (flat_idx % (V + 1)).reshape(-1)
+            rows = (base + beam_idx).reshape(-1)
+            caches = [(k.index_select(0, rows), v.index_select(0, rows))
+                      for k, v in caches]
+            done = done[rows]
+            emitted = torch.where(col == V, 0, col)          # stay -> pad
+            if eos_id is not None:
+                done = done | ((col != V) & (emitted == eos_id))
+            tok, scores, pos = emitted, top.reshape(-1), pos + 1
+            toks.append(emitted.reshape(B, K))
+            parents.append(beam_idx)
+        if not steps:
+            empty = torch.zeros((0, B, K), dtype=torch.long, device=dev)
+            return scores, empty, empty
+        return scores, torch.stack(toks), torch.stack(parents)
+
+    @torch.no_grad()
+    def translate(self, params, src_ids, max_new_tokens: int,
+                  bos_id: int = 1, eos_id=None):
+        """Greedy encoder-decoder decoding (translation mode): encode the
+        source once, build each block's cross-attention K/V once, then
+        one cached decode step a target token from ``bos_id``. Tokens
+        after a row's first ``eos_id`` are emitted as 0 (the argmax is
+        still fed back, as in the JAX package). The caches take the
+        encoder output's dtype. Returns (B, max_new_tokens) int64 ids
+        (BOS excluded)."""
+        self._need_mode("translation", "translate")
+        src = self._ids(src_ids)
+        B = src.shape[0]
+        self._check_target_len(max_new_tokens)
+        enc, src_mask = self._encode_src(params, src)
+        cross = [blk.cross_kv(params[f"block{i}"], enc)
+                 for i, blk in enumerate(self.blocks)]
+        caches = self.init_cache(B, max_new_tokens + 1, enc.dtype)
+        tok = torch.full((B,), bos_id, dtype=torch.long, device=src.device)
+        done = torch.zeros((B,), dtype=torch.bool, device=src.device)
+        out = []
+        for pos in range(max_new_tokens):
+            logits, caches = self.decode_one(params, tok, pos, caches, cross,
+                                             src_mask)
+            tok = logits.argmax(-1)
+            out.append(torch.where(done, 0, tok))
+            if eos_id is not None:
+                done = done | (tok == eos_id)
+        return torch.stack(out, 1)
+
+    @torch.no_grad()
+    def translate_beam(self, params, src_ids, max_new_tokens: int,
+                       beam_size: int = 4, bos_id: int = 1, eos_id=None,
+                       length_penalty: float = 0.0):
+        """Beam-search decoding (translation mode) through the cached
+        decode step of :meth:`translate`: the cross-attention K/V are
+        built once on the un-repeated encoder output and repeated to the
+        (B * beam) layout; beam 0 of each row starts live and the others
+        at -1e30, so the first expansion draws ``beam_size`` distinct
+        continuations of BOS. Scoring and freezing as in
+        :meth:`generate_beam`. Returns (B, max_new_tokens) int64 ids of
+        each row's best beam (BOS excluded). ``beam_size=1`` is
+        :meth:`translate`."""
+        self._need_mode("translation", "translate_beam")
+        src = self._ids(src_ids)
+        B = src.shape[0]
+        K = beam_size
+        self._check_target_len(max_new_tokens)
+        enc, src_mask = self._encode_src(params, src)
+        cross = [tuple(t.repeat_interleave(K, 0)
+                       for t in blk.cross_kv(params[f"block{i}"], enc))
+                 for i, blk in enumerate(self.blocks)]
+        mask_k = src_mask.repeat_interleave(K, 0)
+        caches = self.init_cache(B * K, max_new_tokens + 1, enc.dtype)
+        dev = src.device
+        scores0 = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
+        scores0[:, 0] = 0.0
+        bos = torch.full((B * K,), bos_id, dtype=torch.long, device=dev)
+        done0 = torch.zeros((B * K,), dtype=torch.bool, device=dev)
+        scores, toks, parents = self._beam_scan(
+            lambda t, p, c: self.decode_one(params, t, p, c, cross, mask_k),
+            caches, bos, scores0.reshape(-1), done0, 0, max_new_tokens,
+            B, K, eos_id)
+        paths, _ = _beam_backtrack(toks, parents, B, K)
+        return _beam_select(scores, paths, B, K, length_penalty)
+
+    def _check_target_len(self, max_new_tokens):
+        if max_new_tokens + 1 > self.max_len:
+            raise ValueError(f"BOS + {max_new_tokens} new tokens > max_len "
+                             f"{self.max_len}")
+
+
+def _top_k(x, k):
+    """The k largest entries of each row of x and their indices, larger
+    first and, among equal values, lower index first: the order of
+    ``jax.lax.top_k`` (``torch.topk`` promises none among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _beam_backtrack(toks, parents, B, K):
+    """Follow parent pointers from the final beam slots back to step 0
+    (beam slots are re-gathered every expansion, so a slot's column of
+    ``toks`` mixes hypotheses). toks / parents: (steps, B, K). Returns
+    (paths (steps, B, K), roots (B, K)): ``roots[b, k]`` is final beam
+    k's slot at entry to step 0."""
+    beams = torch.arange(K, device=toks.device).repeat(B, 1)
+    rev = []
+    for t in range(toks.shape[0] - 1, -1, -1):
+        rev.append(toks[t].gather(1, beams))
+        beams = parents[t].gather(1, beams)
+    paths = torch.stack(rev[::-1]) if rev else toks.new_zeros((0, B, K))
+    return paths, beams
+
+
+def _beam_select(scores, paths, B, K, length_penalty):
+    """Each row's best beam under the length penalty, as (B, T) ids:
+    length = count of non-zero ids (id 0 is pad), at least 1; score =
+    sum of log-probs / length ** ``length_penalty``; the first best beam
+    among equal scores (``argmax``)."""
+    lens = (paths != 0).sum(0).float()                      # (B, K)
+    final = scores.reshape(B, K) / lens.clamp(min=1.0) ** length_penalty
+    best = final.argmax(1)                                  # (B,)
+    out = paths.gather(2, best[None, :, None].expand(paths.shape[0], B, 1))
+    return out[:, :, 0].T

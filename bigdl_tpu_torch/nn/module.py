@@ -98,6 +98,12 @@ class Module(torch.nn.Module):
         module as it is (the serving entry points call it as JAX's do)."""
         return self
 
+    def evaluate_dataset(self, dataset, methods, batch_size=32):
+        """Evaluate this module on ``dataset`` with the validation
+        ``methods`` (``optim.evaluator.Evaluator``): one result each."""
+        from ..optim.evaluator import Evaluator
+        return Evaluator(self).evaluate(dataset, methods, batch_size)
+
     def call(self, params, x):
         """The forward as a function of a parameter tree."""
         raise NotImplementedError(type(self).__name__)

@@ -3,12 +3,16 @@ from .optim_method import (SGD, Adam, AdamW, CosineAnnealing, Default,
                            EpochStep, Exponential, LearningRateSchedule,
                            MultiStep, NaturalExp, OptimMethod, Poly, Regime,
                            SequentialSchedule, Step, Warmup)
+from .evaluator import Evaluator, LocalValidator
 from .optimizer import BaseOptimizer, LocalOptimizer, Metrics, Optimizer
 from .predictor import bucket_for
 from .trigger import (EveryEpoch, MaxEpoch, MaxIteration, MaxScore, MinLoss,
                       SeveralIteration, Trigger, TriggerAnd, TriggerOr, and_,
                       every_epoch, max_epoch, max_iteration, max_score,
                       min_loss, or_, several_iteration)
+from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
+                         LossResult, Top1Accuracy, Top5Accuracy,
+                         TreeNNAccuracy, ValidationMethod, ValidationResult)
 
 __all__ = ["SGD", "Adam", "AdamW", "CosineAnnealing", "Default", "EpochDecay",
            "EpochDecayWithWarmUp", "EpochSchedule", "EpochStep",
@@ -19,4 +23,7 @@ __all__ = ["SGD", "Adam", "AdamW", "CosineAnnealing", "Default", "EpochDecay",
            "MaxIteration", "MaxScore", "MinLoss", "SeveralIteration",
            "Trigger", "TriggerAnd", "TriggerOr", "and_", "every_epoch",
            "max_epoch", "max_iteration", "max_score", "min_loss", "or_",
-           "several_iteration"]
+           "several_iteration", "Evaluator", "LocalValidator", "MAE", "NDCG",
+           "AccuracyResult", "HitRatio", "Loss", "LossResult", "Top1Accuracy",
+           "Top5Accuracy", "TreeNNAccuracy", "ValidationMethod",
+           "ValidationResult"]

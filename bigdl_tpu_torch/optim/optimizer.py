@@ -16,14 +16,21 @@ schedules lr per step, advances ``neval`` / ``epoch`` / ``loss`` /
 ``epoch_finished`` in ``optim_method.state``, reshuffles per epoch (the
 same order as the JAX package for the same data set seed) and stops at
 the end trigger. ``metrics`` records ``data_time``, ``step_time`` and
-``epoch_time`` per step or epoch.
+``epoch_time`` per step or epoch. Batches (arrays, or ``Table``s of arrays
+for models with several inputs) are placed member by member
+(``staging.place_host_value``). With ``set_validation``, the validation
+trigger is asked after every step and at every epoch's end, before the
+end trigger, as in the JAX loop: the model goes to evaluate mode, the
+``Evaluator`` runs the methods, the model goes back, and the first
+method's value is written to ``state["score"]`` (what ``max_score``
+reads).
 
 The model must be one whose ``apply(params, state, x, training,
 generator)`` is the training forward (``Transformer`` and the ResNets
 are). Not ported yet: supersteps, the
 staging thread, async / windowed loss reads, checkpoints and the 'resume'
-policy, validation, summaries, regularizers, frozen modules, remediation,
-fault policies, observability, and ``DistriOptimizer``.
+policy, summaries, regularizers, frozen modules, remediation, fault
+policies, observability, and ``DistriOptimizer``.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from ..dataset import AbstractDataSet, DataSet, ShardedDataSet
 from ..nn.module import assign_state
 from ..utils import engine
 from .optim_method import SGD, OptimMethod
+from .staging import place_host_value
 from .trigger import Trigger, max_epoch
 
 
@@ -78,17 +86,6 @@ def _clip_grads(grads, clip_const=None, clip_norm=None):
     return unflatten(flat)
 
 
-def _place(a, device):
-    """A host batch array as a tensor on ``device`` (float64 becomes
-    float32, as JAX's default 32-bit mode makes it)."""
-    if a is None:
-        return None
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if t.dtype == torch.float64:
-        t = t.float()
-    return t.to(device)
-
-
 class BaseOptimizer:
     """``device``: where training runs - the CUDA device by default, which
     raises when there is none; ``'cpu'`` for the CPU. The model must already
@@ -110,6 +107,10 @@ class BaseOptimizer:
         self.nan_policy = "error"
         self.max_nan_retries = 10  # consecutive non-finite steps before abort
         self.metrics = Metrics()
+        self.validation_trigger = None
+        self.validation_set = None
+        self.validation_methods = None
+        self.validation_batch = None
 
     # -- reference API surface ------------------------------------------
     def set_model(self, model):
@@ -126,6 +127,16 @@ class BaseOptimizer:
         self.training_set = self._as_dataset(training_set)
         if batch_size:
             self.batch_size = batch_size
+        return self
+
+    def set_validation(self, trigger, dataset, methods, batch_size=None):
+        """Evaluate ``methods`` on ``dataset`` (a data set, or a list of
+        Samples) whenever ``trigger`` fires; batches of ``batch_size``
+        (the training batch size when None)."""
+        self.validation_trigger = trigger
+        self.validation_set = self._as_dataset(dataset)
+        self.validation_methods = list(methods)
+        self.validation_batch = batch_size or self.batch_size
         return self
 
     def set_end_when(self, trigger):
@@ -167,6 +178,31 @@ class BaseOptimizer:
         if hasattr(ds, "data") and hasattr(ds, "size"):
             return ds  # a batch-level data set
         raise TypeError(f"unsupported dataset {type(ds)}")
+
+    def _validate(self, state):
+        """Run the validation methods in evaluate mode; ``{repr(method):
+        value}``, the first value written to ``state["score"]`` (None
+        without a validation set)."""
+        if self.validation_set is None:
+            return None
+        from .evaluator import Evaluator
+        was_training = bool(self.model.training)
+        self.model.evaluate()
+        results = Evaluator(self.model).evaluate(
+            self.validation_set, self.validation_methods,
+            self.validation_batch)
+        if was_training:
+            self.model.training()
+        scores = {repr(m): r.result()[0]
+                  for m, r in zip(self.validation_methods, results)}
+        if scores:
+            state["score"] = next(iter(scores.values()))
+        return scores
+
+    def _fire_validation(self, state):
+        if self.validation_trigger is not None and \
+                self.validation_trigger(state):
+            self._validate(state)
 
     def _batched(self):
         if hasattr(self.training_set, "batches_per_epoch"):
@@ -218,6 +254,7 @@ class BaseOptimizer:
                 state["epoch"] += 1
                 state["epoch_finished"] = True
                 self.metrics.add("epoch_time", time.time() - epoch_start)
+                self._fire_validation(state)
                 done = self.end_trigger(state)
         return model
 
@@ -231,8 +268,8 @@ class BaseOptimizer:
             mb = next(batches, None)
             if mb is None:
                 return False, nan_streak
-            x = _place(mb.input, self.device)
-            y = _place(mb.target, self.device)
+            x = place_host_value(mb.input, self.device)
+            y = place_host_value(mb.target, self.device)
             t1 = time.time()
             loss_val = self._step(params, mstate, opt_state, x, y,
                                   optim.current_lr(), generator)
@@ -258,6 +295,7 @@ class BaseOptimizer:
             state["epoch_finished"] = False
             self.metrics.add("data_time", t1 - t0)
             self.metrics.add("step_time", t2 - t1)
+            self._fire_validation(state)
             if self.end_trigger(state):
                 return True, nan_streak
 

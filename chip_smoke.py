@@ -150,12 +150,35 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    images/s and latency p50 / p99 printed as smoke readings; (e)
    ``health.sample_device_memory()`` reports bytes in use; and K3, K4 and
    K5's no-statistics calls at their stage-0 B32 shapes against their
-   plain versions, timed (the ``_eval`` rows).
+   plain versions, timed (the ``_eval`` rows);
+11. drives generation depth: (a) ``generate_beam`` on the flagship of
+   phase 9 (bf16 weights) at batch 8, prompt 128, 32 new tokens, beam 4:
+   one prefill on the un-repeated batch (12 K1-fwd launches on
+   ``bf16_sm90``, no other kernel), shape, id range, the prompt kept, and
+   ``beam_size=1`` token for token ``generate``'s greedy ids; (b) the
+   Transformer "base" of Vaswani et al. 2017 (6 + 6 layers, d_model 512,
+   8 heads, d_ff 2048, the 37000 shared vocabulary of WMT14 En-De,
+   ``max_len`` 256, float32, random weights from seed 0) trained through
+   ``LocalOptimizer`` for 4 iterations on one repeated batch of 64
+   synthetic pairs (source and target lengths drawn in 16-64, padded with
+   0 by ``PaddingParam`` into ``Table`` batches) with
+   ``TimeDistributedMaskCriterion(CrossEntropyCriterion(), 0)`` and
+   ``SGD(0.1, momentum=0.9)``, validated every 2 iterations with ``Loss``
+   and ``Top1Accuracy`` on 128 held-out pairs: losses finite and
+   falling, ``state["score"]`` written, validation results finite; then
+   ``translate`` and ``translate_beam`` (beam 4) at batch 8, source 64,
+   64 new tokens: ids in range, ``beam_size=1`` bit for bit
+   ``translate``; no kernel launched by any of (b), whose attention is the
+   masked einsum as in JAX; (c) the same initial weights cut to 2 layers,
+   full width, float32, on the CPU and on the card: logits within 1e-4 of
+   the largest, greedy tokens equal up to the first step whose top-2
+   margin is under that tolerance.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
-run and ``speculative_generate``) and read just after; a
+run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
+its translation paths) and read just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -168,7 +191,7 @@ serving, phase 9 included, where K2 is the only kernel; ``f32_sm90`` for
 K3, K4 and K5 in phases 7 and 8). Every check
 that fails exits non-zero. The line before the last is one JSON object with
 each kernel's numbers (``flash_fwd`` at the serving prefill shape with the
-``generate`` launches, ``flash_fwd_train`` at the training shape with the
+launches of ``generate`` and of phase 11's ``generate_beam``, ``flash_fwd_train`` at the training shape with the
 launches of the five remat-off training steps, ``flash_bwd`` likewise,
 ``flash_fwd_chunk`` with the ``prefill_chunked`` launches, the ``_f32``
 rows at the ``LocalOptimizer`` shape with its launches by route, the
@@ -2594,6 +2617,274 @@ def control_plane(torch, K, card):
     return r10
 
 
+# -- phase 11: generation depth: beam search and the translation model -----------
+
+# Transformer "base" of Vaswani et al. 2017, Table 3 (N = 6, d_model 512,
+# 8 heads, d_ff 2048) with the 37000 shared BPE vocabulary of WMT14 En-De
+# (section 5.1); max_len 256
+TRANSLATION = dict(vocab_size=37000, hidden_size=512, num_heads=8,
+                   filter_size=2048, num_hidden_layers=6, mode="translation",
+                   max_len=256)
+# (b): training batch, source / target lengths, held-out pairs, decode shape
+TR_BATCH, TR_LENGTHS, TR_HELD, TR_ITERS = 64, (16, 64), 128, 4
+DEC_BATCH, DEC_SRC, DEC_NEW, BEAM = 8, 64, 64, 4
+# (c): the model tolerance of the port's parity tests, relative to the
+# largest logit
+CPU_TOL = 1e-4
+
+
+def pair_samples(rng, n, V, lengths):
+    """Synthetic translation pairs: Sample([src, tgt_in], tgt_out) with
+    source and target lengths drawn in ``lengths`` and ids in 1..V-1 (0 is
+    padding); the label is the target shifted by one."""
+    from bigdl_tpu_torch.dataset import Sample
+    lo, hi = lengths
+    out = []
+    for _ in range(n):
+        src = rng.randint(1, V, rng.randint(lo, hi + 1)).astype(np.int32)
+        tgt = rng.randint(1, V, rng.randint(lo, hi + 1) + 1).astype(np.int32)
+        out.append(Sample([src, tgt[:-1]], tgt[1:]))
+    return out
+
+
+def block_index(key):
+    """The layer of a ``block{i}.`` / ``enc_block{i}.`` state_dict key; -1
+    for the embedding and the final LayerNorm."""
+    m = re.match(r"(?:enc_)?block(\d+)\.", key)
+    return int(m.group(1)) if m else -1
+
+
+def no_launches(K, what):
+    counts = K.launch_counts()
+    check(not any(counts.values()), f"{what} launched kernels {counts}; the "
+          f"translation mode runs the masked einsum only, as in JAX")
+
+
+def greedy_margins(torch, model, params, src, n):
+    """Greedy translation through ``decode_one`` with each step's top-2
+    logit margin (the smallest over the batch), as float32 host values."""
+    enc, mask = model._encode_src(params, model._ids(src))
+    cross = [b.cross_kv(params[f"block{i}"], enc)
+             for i, b in enumerate(model.blocks)]
+    caches = model.init_cache(src.shape[0], n + 1, enc.dtype)
+    tok = torch.ones(src.shape[0], dtype=torch.long, device=model.device)
+    toks, margins = [], []
+    for pos in range(n):
+        logits, caches = model.decode_one(params, tok, pos, caches, cross,
+                                          mask)
+        top = logits.float().topk(2, -1).values
+        margins.append(float((top[:, 0] - top[:, 1]).min()))
+        tok = logits.argmax(-1)
+        toks.append(tok.cpu())
+    return torch.stack(toks, 1), margins
+
+
+def generation_depth(torch, K, card):
+    """Phase 11: (a) ``generate_beam`` on the flagship (bf16 weights); (b)
+    the Transformer-base translation model trained through
+    ``LocalOptimizer`` on padded Table batches with validation, then
+    ``translate`` / ``translate_beam``; (c) the translation model's
+    logits and greedy tokens on the card against the CPU. Returns the
+    readings."""
+    from bigdl_tpu_torch.dataset import DataSet, PaddingParam, ShardedDataSet
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn import (CrossEntropyCriterion, Transformer,
+                                    TimeDistributedMaskCriterion)
+    from bigdl_tpu_torch.optim import (SGD, Loss, LocalOptimizer,
+                                       Top1Accuracy, Trigger, max_iteration,
+                                       several_iteration)
+    from bigdl_tpu_torch.utils.table import Table
+    r11 = {}
+    print(f"[11] generation depth: beam search and the translation model "
+          f"({card})", flush=True)
+
+    # (a) generate_beam on the flagship: one prefill on the un-repeated
+    # batch (12 flash launches), then dense beam decode steps (no kernel)
+    cfg = dict(FLAGSHIP)
+    L = cfg.pop("num_layers")
+    V = cfg["vocab_size"]
+    B, TP, NEW = 8, 128, 32
+    t0 = time.perf_counter()
+    model = TransformerLM(num_layers=L, seed=0, **cfg).to(torch.bfloat16)
+    params = model.params
+    build_s = time.perf_counter() - t0
+    prompt = np.random.RandomState(11).randint(1, V, (B, TP)) \
+        .astype(np.int32)
+    model.generate_beam(params, prompt[:, :16], 2, beam_size=BEAM)  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate_beam(params, prompt, NEW, beam_size=BEAM)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, routes = K.launch_counts(), K.launches_by_route()
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want["flash_fwd"] = L
+    check(counts == want, f"(a) generate_beam launched {counts}, expected "
+          f"{want}")
+    check(only_on(routes["flash_fwd"], "bf16_sm90", L),
+          f"(a) generate_beam's flash launches by route {routes}")
+    check(tuple(out.shape) == (B, TP + NEW), f"(a) shape {out.shape}")
+    check(bool(((out >= 0) & (out < V)).all()), "(a) ids out of range")
+    check(torch.equal(out[:, :TP].cpu(), torch.from_numpy(prompt).long()),
+          "(a) generate_beam: prompt not preserved")
+    greedy = model.generate(params, prompt, NEW)
+    beam1 = model.generate_beam(params, prompt, NEW, beam_size=1)
+    check(torch.equal(beam1, greedy), "(a) generate_beam(beam_size=1) is "
+          "not generate's greedy tokens")
+    r11["beam_flash"] = counts["flash_fwd"]
+    r11["beam_tokens_s"] = B * NEW / dt
+    print(f"    (a) generate_beam: flagship built in {build_s:.1f} s; "
+          f"{B}x{NEW} new tokens, beam {BEAM}, prompt {TP}: {dt:.3f} s = "
+          f"{r11['beam_tokens_s']:.1f} tokens/s (prefill included); "
+          f"launches {counts}; beam_size=1 == generate, token for token",
+          flush=True)
+    del model, params, out, greedy, beam1
+    torch.cuda.empty_cache()
+
+    # (b) Transformer-base: LocalOptimizer on padded Table batches, float32
+    V = TRANSLATION["vocab_size"]
+    t0 = time.perf_counter()
+    tr = Transformer(seed=0, **TRANSLATION)
+    n_params = sum(p.numel() for p in tr.parameters())
+    init = {k: v.detach().cpu().clone() for k, v in tr.state_dict().items()}
+    rng = np.random.RandomState(12)
+    batch = pair_samples(rng, TR_BATCH, V, TR_LENGTHS)   # one batch, again
+    held = pair_samples(rng, TR_HELD, V, TR_LENGTHS)
+    pad = PaddingParam(0)
+    train = ShardedDataSet(DataSet.array(batch), TR_BATCH,
+                           feature_padding=pad, label_padding=pad)
+    crit = TimeDistributedMaskCriterion(CrossEntropyCriterion(),
+                                        padding_value=0)
+    methods = [Loss(crit), Top1Accuracy()]
+    losses = {}
+    stop = max_iteration(TR_ITERS)
+
+    def record_and_stop(st):    # asked after each step and at epoch ends
+        losses[st["neval"]] = st["loss"]
+        return stop(st)
+    end = Trigger(record_and_stop)
+    opt = LocalOptimizer(tr, train, crit, SGD(learningrate=0.1,
+                                              momentum=0.9),
+                         end, batch_size=TR_BATCH)
+    opt.set_validation(several_iteration(2), held, methods)
+    print(f"    (b) Transformer-base translation: {n_params / 1e6:.1f}M "
+          f"params, float32, built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    no_launches(K, "(b) translation training")
+    peak = torch.cuda.max_memory_allocated()
+    st = opt.optim_method.state
+    loss = [losses[i] for i in sorted(losses)]
+    check(len(loss) == TR_ITERS and all(math.isfinite(v) for v in loss)
+          and loss[-1] < loss[0], f"(b) losses {loss}: not finite and "
+          f"falling on one repeated batch")
+    check("score" in st and math.isfinite(st["score"]),
+          f"(b) validation wrote no finite state['score']: {st}")
+    step_ms = [s * 1e3 for s in opt.metrics.values["step_time"]]
+    # target tokens the loss counts a step (the batch's non-pad labels),
+    # over the median step after the first
+    n_tgt = sum(int(smp.labels[0].size) for smp in batch)
+    train_tokens_s = n_tgt / (statistics.median(step_ms[1:]) / 1e3)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    val = tr.evaluate_dataset(DataSet.array(held), methods, TR_BATCH)
+    val_s = time.perf_counter() - t0
+    no_launches(K, "(b) validation")
+    val = {repr(m): r.result()[0] for m, r in zip(methods, val)}
+    check(all(math.isfinite(v) for v in val.values())
+          and 0.0 <= val["Top1Accuracy"] <= 1.0, f"(b) validation {val}")
+    r11.update(losses=loss, step_ms=step_ms, val_ms=val_s * 1e3,
+               score=st["score"], peak_gb=peak / 1e9, val=val,
+               train_tokens_s=train_tokens_s)
+    print(f"    (b) LocalOptimizer B{TR_BATCH}, lengths {TR_LENGTHS}: "
+          f"losses {loss}; step ms {[round(s, 3) for s in step_ms]} "
+          f"({train_tokens_s:.0f} target tokens/s at the median after the "
+          f"first, {n_tgt} a step); "
+          f"{train_s:.3f} s with validation on {TR_HELD} pairs every 2 "
+          f"iterations; "
+          f"validation alone {val_s * 1e3:.1f} ms ({val}); state['score'] "
+          f"{st['score']:.6g}; peak {peak / 1e9:.2f} GB; no kernel "
+          f"launched", flush=True)
+
+    # decode: greedy and beam at batch 8, source 64, 64 new tokens
+    tr.evaluate()
+    p = tr.params
+    src = np.random.RandomState(13).randint(1, V, (DEC_BATCH, DEC_SRC)) \
+        .astype(np.int32)
+    src[1::2, DEC_SRC // 2:] = 0                     # padded rows
+    tr.translate(p, src[:, :8], 2)
+    tr.translate_beam(p, src[:, :8], 2, beam_size=BEAM)      # warm-up
+    rates = {}
+    K.reset_launch_counts()
+    for name, fn in (("translate", lambda: tr.translate(p, src, DEC_NEW)),
+                     ("translate_beam", lambda: tr.translate_beam(
+                         p, src, DEC_NEW, beam_size=BEAM))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = fn()
+        torch.cuda.synchronize()
+        rates[name] = DEC_BATCH * DEC_NEW / (time.perf_counter() - t0)
+        check(tuple(ids.shape) == (DEC_BATCH, DEC_NEW)
+              and bool(((ids >= 0) & (ids < V)).all()),
+              f"(b) {name}: shape {ids.shape} or ids out of range")
+    no_launches(K, "(b) translate / translate_beam")
+    check(torch.equal(tr.translate_beam(p, src, DEC_NEW, beam_size=1),
+                      tr.translate(p, src, DEC_NEW)),
+          "(b) translate_beam(beam_size=1) is not translate, bit for bit")
+    r11["decode_tokens_s"] = rates
+    print(f"    (b) batch {DEC_BATCH}, source {DEC_SRC}, {DEC_NEW} new "
+          f"tokens: translate {rates['translate']:.1f} tokens/s, "
+          f"translate_beam (beam {BEAM}) {rates['translate_beam']:.1f} "
+          f"tokens/s; beam_size=1 == translate, bit for bit", flush=True)
+    del tr, opt, p
+    torch.cuda.empty_cache()
+
+    # (c) the same weights cut to 2 layers, full width, float32: the card
+    # against the CPU
+    cut = dict(TRANSLATION, num_hidden_layers=2)
+    keep = {k: v for k, v in init.items() if block_index(k) < 2}
+    cpu = Transformer(device="cpu", **cut)
+    cpu.load_state_dict(keep)
+    gpu = Transformer(**cut)
+    gpu.load_state_dict(keep)
+    rng = np.random.RandomState(14)
+    src = rng.randint(1, V, (2, 24)).astype(np.int32)
+    src[1, 17:] = 0
+    tgt = rng.randint(1, V, (2, 16)).astype(np.int32)
+    with torch.no_grad():
+        want = cpu.call(cpu.params, Table(src, tgt))
+        got = gpu.call(gpu.params, Table(src, tgt)).cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= CPU_TOL * scale, f"(c) card logits {err:.3g} from the "
+          f"CPU's (largest |logit| {scale:.3g}, tolerance {CPU_TOL} of it)")
+    n = 16
+    tc, margins = greedy_margins(torch, cpu, cpu.params, src, n)
+    tg, _ = greedy_margins(torch, gpu, gpu.params, src, n)
+    low = [i for i, m in enumerate(margins) if m < CPU_TOL * scale]
+    trusted = low[0] + 1 if low else n
+    check(torch.equal(tg[:, :trusted], tc[:, :trusted]),
+          f"(c) greedy tokens differ before the first near-tie (step "
+          f"{trusted}): card {tg.tolist()}, CPU {tc.tolist()}")
+    check(torch.equal(gpu.translate(gpu.params, src, n).cpu(),
+                      tg), "(c) translate is not its own decode_one loop")
+    r11["cpu"] = {"max_abs_err": err, "scale": scale, "trusted": trusted}
+    print(f"    (c) 2 layers, full width, float32: logits max |card - CPU| "
+          f"{err:.3g} (largest |logit| {scale:.3g}, tolerance "
+          f"{CPU_TOL * scale:.3g}); greedy tokens equal for {trusted} of "
+          f"{n} steps (up to the first top-2 margin under the tolerance)",
+          flush=True)
+    return r11
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3118,6 +3409,8 @@ def main():
 
     # -- phase 10: the serving control plane ----------------------------------
     r10 = control_plane(torch, K, card)
+    # -- phase 11: beam search and the translation model ----------------------
+    r11 = generation_depth(torch, K, card)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -3251,7 +3544,7 @@ def main():
     print(json.dumps({"kernels": [
         kernel_rec("flash_fwd", "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
-                   gen_counts["flash_fwd"]),
+                   gen_counts["flash_fwd"] + r11["beam_flash"]),
         kernel_rec("flash_fwd_chunk",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,

@@ -174,11 +174,10 @@ def test_positional_dropouts_land_where_jax_puts_them():
     lambda: nn.SpatialAveragePooling(7, 7, global_pooling=True,
                                      count_include_pad=False),
     lambda: nn.SpatialBatchNormalization(8, 1e-5, 0.1, True, np.ones(8)),
-    lambda: nn.TransformerBlock(16, 2, 32, 0.0, 0.0, True),        # with_cross
     lambda: nn.Attention(16, 2, 0.0, True, "seq"),                 # seq_axis
 ], ids=["conv_n_group", "conv_dilation", "linear_w_regularizer",
         "linear_init_weight", "avgpool_ceil_mode", "avgpool_count_pad",
-        "bn_init_weight", "block_with_cross", "attention_seq_axis"])
+        "bn_init_weight", "attention_seq_axis"])
 def test_unported_parameters_raise_at_a_non_default_value(build):
     with pytest.raises(NotImplementedError):
         build()
@@ -210,7 +209,8 @@ UNPORTED_METHODS = {
     # save / load family, weights, freezing, the Torch backward protocol,
     # quantization and the prediction helpers (ROADMAP A.4, A.8)
     "bigdl_tpu.nn.module.Module": {
-        "acc_grad_parameters", "backward", "clone", "evaluate_dataset", "find_module", "freeze", "get_extra_parameter",
+        "acc_grad_parameters", "backward", "clone", "find_module", "freeze",
+        "get_extra_parameter",
         "get_name", "get_parameters", "get_weights", "init", "is_frozen",
         "is_training", "load", "load_orbax", "load_weights", "modules_iter",
         "predict", "predict_class", "quantize", "save", "save_caffe",
@@ -219,11 +219,6 @@ UNPORTED_METHODS = {
         "set_weights", "unfreeze", "update_grad_input",
         "zero_grad_parameters"},
     "bigdl_tpu.nn.module.Container": {"modules_iter"},
-    # beam search and the translation mode (ROADMAP A.3)
-    "bigdl_tpu.nn.attention.Transformer": {"generate_beam", "translate",
-                                           "translate_beam"},
-    "bigdl_tpu.nn.attention.TransformerBlock": {"cross_kv"},
-    "bigdl_tpu.nn.attention.Attention": {"decode"},
     # the pooling layers' ceil / floor mode switches (ROADMAP A.5)
     "bigdl_tpu.nn.pool._Pool2D": {"ceil", "floor"},
     # transformer chains on data sets (ROADMAP A.4)
@@ -240,7 +235,9 @@ UNPORTED_METHODS = {
         "set_checkpoint", "set_fault_policy", "set_prefetch",
         "set_remediation", "set_stall_deadline", "set_summary_trigger",
         "set_superstep", "set_sync_policy", "set_train_summary",
-        "set_val_summary", "set_validation", "wait_for_checkpoints"},
+        "set_val_summary", "wait_for_checkpoints"},
+    # the evaluation superstep (ROADMAP A.4, with the optimizer's)
+    "bigdl_tpu.optim.evaluator.Evaluator": {"set_superstep"},
 }
 
 CLASS_PAIRS = [(k, p, t) for k, p, t in PAIRS if inspect.isclass(p)]
@@ -322,12 +319,15 @@ UNPORTED_MEMBERS = {
     # batch prediction and the training input stager (ROADMAP A.8)
     "optim.predictor": {"leading_dim", "Predictor", "PredictionService"},
     "optim.staging": {"BatchStager", "staged", "stager_threads_alive"},
+    # mesh-sharded validation (ROADMAP A.6)
+    "optim.evaluator": {"DistriValidator"},
 }
 MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "observability.trace", "observability.exporters",
             "observability.flight", "observability.health",
             "observability.cluster", "serving.engine", "serving.router",
-            "serving.batching", "optim.predictor", "optim.staging"]
+            "serving.batching", "optim.predictor", "optim.staging",
+            "optim.validation", "optim.evaluator", "utils.table"]
 
 
 @pytest.mark.parametrize("mod", MIRRORED)
@@ -349,15 +349,45 @@ def test_every_jax_member_is_ported_or_listed(mod):
 
 
 def test_translation_and_padding_parameters_raise_at_a_non_default_value():
-    from bigdl_tpu_torch.dataset import DataSet, MiniBatch, Sample
+    """Transformer chains on data sets stay refused (ROADMAP A.4); the
+    translation and padding parameters this test refused before are
+    accepted now (the cases below, one for each)."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample
     attn = nn.Attention(16, 2)
     x = torch.zeros(1, 3, 16)
     assert [t.shape for t in attn.qkv(attn.params, x)] == [(1, 2, 3, 8)] * 3
-    for call in (lambda: attn.qkv(attn.params, x, x),
-                 lambda: DataSet.array([Sample(np.zeros(2))], object()),
-                 lambda: MiniBatch.from_samples([Sample(np.zeros(2))], 0)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        DataSet.array([Sample(np.zeros(2))], object())
+
+
+# -- translation and padding parameters that were refused and now take values -
+
+def _accepts_cross_block():
+    b = nn.TransformerBlock(16, 2, 32, 0.0, 0.0, True)
+    assert b.with_cross and b.cross.hidden_size == 16
+    assert {"cross", "ln3"} <= set(b.params)
+
+
+def _accepts_qkv_kx():
+    attn = nn.Attention(16, 2)
+    q, k, v = attn.qkv(attn.params, torch.zeros(1, 3, 16),
+                       torch.zeros(1, 5, 16))
+    assert q.shape == (1, 2, 3, 8) and k.shape == v.shape == (1, 2, 5, 8)
+
+
+def _accepts_feature_padding():
+    from bigdl_tpu_torch.dataset import MiniBatch, PaddingParam, Sample
+    mb = MiniBatch.from_samples([Sample(np.ones(2)), Sample(np.ones(3))],
+                                PaddingParam(-1.0))
+    np.testing.assert_array_equal(mb.input, [[1, 1, -1], [1, 1, 1]])
+
+
+@pytest.mark.parametrize("case", [_accepts_cross_block, _accepts_qkv_kx,
+                                  _accepts_feature_padding],
+                         ids=["block_with_cross", "qkv_kx",
+                              "from_samples_feature_padding"])
+def test_translation_and_padding_parameters_are_accepted(case):
+    case()
 
 
 # -- serving parameters that were refused and now take values -----------------
