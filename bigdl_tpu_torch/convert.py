@@ -81,6 +81,16 @@ def to_numpy_tree(tree) -> dict:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def host_copy_tree(tree) -> dict:
+    """:func:`to_numpy_tree` with every leaf a host copy of its own, never
+    a view of a CPU tensor's memory: what a checkpoint or ``get_weights``
+    holds while training goes on writing the tensors in place."""
+    if isinstance(tree, dict):
+        return {k: host_copy_tree(v) for k, v in tree.items()}
+    a = to_numpy_tree(tree)
+    return np.array(a, copy=True) if tree.device.type == "cpu" else a
+
+
 def to_numpy_trees(model):
     """``(params, state)`` of a port model as nested dicts of numpy arrays
     with the JAX trees' names and layouts: the way back of

@@ -17,9 +17,10 @@ class SpatialConvolution(Module):
     (``permute(0, 3, 1, 2)``, no copy) and the output comes back the same
     way. Weights default to ``Xavier``, biases to ``Zeros``. Explicit
     padding only (pad -1, SAME, is not ported); ``n_group``,
-    ``propagate_back=False``, the regularizers, ``init_weight`` /
-    ``init_bias`` and dilation are not ported and raise at a value other
-    than their default."""
+    ``propagate_back=False``, ``init_weight`` / ``init_bias`` and dilation
+    are not ported and raise at a value other than their default.
+    ``w_regularizer`` / ``b_regularizer`` (``optim.regularizer``) add their
+    penalty to the training loss."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
@@ -32,8 +33,6 @@ class SpatialConvolution(Module):
         super().__init__(name=name)
         refuse_unported("SpatialConvolution", n_group=(n_group, 1),
                         propagate_back=(propagate_back, True),
-                        w_regularizer=(w_regularizer, None),
-                        b_regularizer=(b_regularizer, None),
                         init_weight=(init_weight, None),
                         init_bias=(init_bias, None),
                         dilation_w=(dilation_w, 1),
@@ -43,6 +42,7 @@ class SpatialConvolution(Module):
         if pad_w < 0 or pad_h < 0:
             raise NotImplementedError("SAME padding (pad -1) is not ported")
         self.format = format
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
         self.n_input_plane, self.n_output_plane = n_input_plane, n_output_plane
         self.kernel = (kernel_h, kernel_w)
         self.stride = (stride_h, stride_w)
@@ -63,6 +63,15 @@ class SpatialConvolution(Module):
         self.weight.copy_(self.init_method(self.weight.shape, **fans))
         if self.bias is not None:
             self.bias.copy_(self.bias_init_method(self.bias.shape, **fans))
+
+    def _regularizers(self):
+        """{param name: Regularizer} for the training step's penalty."""
+        r = {}
+        if self.w_regularizer is not None:
+            r["weight"] = self.w_regularizer
+        if self.b_regularizer is not None and self.bias is not None:
+            r["bias"] = self.b_regularizer
+        return r
 
     def call(self, params, x):
         squeeze = x.dim() == 3

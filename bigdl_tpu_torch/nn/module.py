@@ -23,14 +23,25 @@ JAX package's Torch-style API:
 * ``reset(generator)`` - draws the parameters anew from their initialisers
   (``nn.init``), with ``generator`` (a ``torch.Generator`` on the
   parameters' device) or torch's global one, and sets the state to its
-  initial values (the JAX package's ``init``).
+  initial values (the JAX package's ``init``);
+* ``modules_iter`` / ``find_module`` / ``get_name`` / ``set_name``, and
+  fine-tuning: ``freeze(*names)`` / ``unfreeze(*names)`` / ``is_frozen``
+  flag whole subtrees of ``modules_iter`` (a container and its children;
+  a composite module such as a fused ResNet stage is one module), and the
+  training loop zeroes a frozen leaf's gradient and keeps its value;
+* ``get_weights`` / ``set_weights`` (nested dicts of numpy arrays) and
+  ``save_weights`` / ``load_weights``: one ``.npz`` with the JAX trees'
+  "/"-joined names and layouts, so either package loads the other's file.
 
 ``torch.nn.Module.apply(fn)`` is shadowed by the JAX package's ``apply``;
 use ``modules()`` to visit submodules.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..convert import flatten, host_copy_tree, to_numpy_tree, unflatten
 
 
 class _TrainingFlag:
@@ -134,6 +145,105 @@ class Module(torch.nn.Module):
     def _reset(self, generator):
         pass
 
+    # -- names and the module walk ----------------------------------------
+    def set_name(self, name):
+        self.name = name
+        return self
+
+    def get_name(self):
+        return self.name
+
+    def modules_iter(self):
+        """This module and, for a container, its children's walks in
+        order (the JAX package's module walk: a composite module that is
+        not a container counts as one)."""
+        yield self
+
+    def find_module(self, name):
+        for m in self.modules_iter():
+            if m.name == name:
+                return m
+        return None
+
+    # -- fine-tuning ------------------------------------------------------
+    def freeze(self, *names):
+        """Mark this module (or the named descendants) and every module
+        under it as not to be updated: the training loop zeroes their
+        gradients and keeps their parameters through the update, so
+        weight decay does not move them either."""
+        for t in self._freeze_targets(names, "freeze"):
+            for m in t.modules_iter():
+                m._frozen = True
+        return self
+
+    def unfreeze(self, *names):
+        for t in self._freeze_targets(names, "unfreeze"):
+            for m in t.modules_iter():
+                m._frozen = False
+        return self
+
+    def _freeze_targets(self, names, what):
+        if not names:
+            return [self]
+        targets = []
+        for n in names:
+            m = self.find_module(n)
+            if m is None:
+                raise ValueError(f"{what}: no module named {n}")
+            targets.append(m)
+        return targets
+
+    def is_frozen(self):
+        return getattr(self, "_frozen", False)
+
+    # -- weights ----------------------------------------------------------
+    def get_weights(self):
+        """The parameters as a nested dict of host numpy arrays (copies)."""
+        return host_copy_tree(self.params)
+
+    def set_weights(self, weights):
+        """Copy a nested dict of arrays (the tree ``get_weights`` gives)
+        into the parameters, each cast to its parameter's dtype."""
+        copy_tree_into(self.params, weights)
+        return self
+
+    def save_weights(self, path):
+        """The parameters in one ``.npz``, keyed by their "/"-joined tree
+        names (numpy's ``savez`` adds the suffix when ``path`` lacks it)."""
+        flat = flatten(to_numpy_tree(self.params))
+        np.savez(path, **{k.replace(".", "/"): v for k, v in flat.items()})
+        return self
+
+    def load_weights(self, path):
+        path = str(path)
+        data = np.load(path if path.endswith(".npz") else path + ".npz")
+        copy_tree_into(self.params, unflatten(
+            {k: data[k.replace(".", "/")] for k in flatten(self.params)}))
+        return self
+
+
+def copy_tree_into(live, host):
+    """Copy each leaf of ``host`` (arrays or tensors, the same tree as
+    ``live``) into the matching tensor of ``live`` in place, cast to the
+    live tensor's dtype and device; numpy's bfloat16 (``ml_dtypes``) goes
+    through float32."""
+    with torch.no_grad():
+        for k, t in live.items():
+            if isinstance(t, dict):
+                if flatten(t):      # a subtree without leaves has no key
+                    copy_tree_into(t, host[k])
+                continue
+            v = host[k]
+            if not isinstance(v, torch.Tensor):
+                a = np.asarray(v)
+                if a.dtype.name == "bfloat16":
+                    a = a.astype(np.float32)
+                v = torch.from_numpy(np.array(a, copy=True))
+            if tuple(v.shape) != tuple(t.shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} does not "
+                                 f"match {tuple(t.shape)}")
+            t.copy_(v)
+
 
 def assign_state(state, new_state):
     """Copy each leaf of ``new_state`` into the matching tensor of
@@ -163,6 +273,11 @@ class Container(Module):
 
     def __getitem__(self, i):
         return self._modules[str(i)]
+
+    def modules_iter(self):
+        yield self
+        for m in self._modules.values():
+            yield from m.modules_iter()
 
     def child_apply(self, i, params, state, x, training, generator):
         """Apply child ``i`` to its own subtrees: ``(output, new_sub)``."""

@@ -1,15 +1,23 @@
 """Optimization methods and learning-rate schedules (counterpart of
-``bigdl_tpu/optim/optim_method.py``; this slice ports ``SGD``, ``Adam``,
-``AdamW`` and every schedule but ``Plateau``, which needs validation).
+``bigdl_tpu/optim/optim_method.py``: every schedule, ``SGD``, ``Adam``,
+``AdamW``, ``ParallelAdam``, ``Adagrad``, ``Adadelta``, ``Adamax``,
+``RMSprop``, ``Ftrl`` and ``LarsSGD``; ``LBFGS`` and ``optimize`` are not
+ported yet).
 
 The contract is the JAX package's, over parameter trees (nested dicts of
 tensors): ``init_state(params) -> state`` and ``update(grads, params,
-state, lr) -> (params, state)``. Unlike JAX's pure update, the port writes
-the new values INTO the given parameter and state tensors (no second copy
-of a model's masters) and returns the same trees. Writing back with
-``copy_`` casts to each tensor's own dtype (JAX's ``_keep_dtype``), so bf16
-params stay bf16. Schedules run on the host each step and feed ``lr`` in
-as a float.
+state, lr) -> (params, state)``, with JAX's state tree names (``v``,
+``m``, ``t``, ``accum``, ...), so checkpoints carry across. Unlike JAX's
+pure update, the port writes the new values INTO the given parameter and
+state tensors (no second copy of a model's masters) and returns the same
+trees. Each method computes its new values first (``_updates``: a list of
+(tensor, new value) pairs) and :func:`write_guarded` writes them: one
+``copy_`` each, cast to each tensor's own dtype (JAX's ``_keep_dtype``, so
+bf16 params stay bf16), or, in the training step, through the device-side
+NaN guard, which keeps every old value where the loss is not finite with
+a few launches for the whole tree. A step counter ``t`` (Adam, Adamax) is
+a device int32 scalar, as in JAX, so a guarded step does not advance it.
+Schedules run on the host each step and feed ``lr`` in as a float.
 """
 from __future__ import annotations
 
@@ -23,9 +31,45 @@ from ..convert import flatten
 
 def _zeros_like(params):
     """A tree of zeros shaped like ``params``, leaf for leaf."""
+    return _full_like(params, 0.0)
+
+
+def _full_like(params, value):
     if isinstance(params, dict):
-        return {k: _zeros_like(v) for k, v in params.items()}
-    return torch.zeros_like(params, requires_grad=False)
+        return {k: _full_like(v, value) for k, v in params.items()}
+    return torch.full_like(params, value, requires_grad=False)
+
+
+def _step_counter(params):
+    """A device int32 0 beside the parameters (Adam's and Adamax's
+    ``t``)."""
+    dev = next(iter(flatten(params).values())).device if flatten(params) \
+        else torch.device("cpu")
+    return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def write_guarded(pairs, ok=None):
+    """Write each ``(tensor, new value)`` pair in place, cast to the
+    tensor's dtype. With ``ok`` (a 0-d bool tensor on the tensors' device)
+    a tensor keeps its old value where ``ok`` is false: per dtype, the new
+    and the old values are gathered into one flat buffer each, selected by
+    one ``torch.where`` and scattered back by one ``_foreach_copy_``, a
+    few launches however many tensors there are."""
+    with torch.no_grad():
+        if ok is None:
+            for dst, new in pairs:
+                dst.copy_(new)
+            return
+        groups = {}
+        for dst, new in pairs:
+            groups.setdefault((dst.dtype, dst.device), []).append((dst, new))
+        for (dt, _), grp in groups.items():
+            dsts = [d for d, _ in grp]
+            new = torch.cat([n.to(dt).reshape(-1) for _, n in grp])
+            old = torch.cat([d.reshape(-1) for d in dsts])
+            sel = torch.where(ok, new, old).split([d.numel() for d in dsts])
+            torch._foreach_copy_(dsts, [s.view(d.shape)
+                                        for s, d in zip(sel, dsts)])
 
 
 def _leaves(*trees):
@@ -219,6 +263,55 @@ class EpochSchedule(LearningRateSchedule):
         return lr
 
 
+class Plateau(LearningRateSchedule):
+    """Reduce the rate by ``factor`` when the monitored value
+    (``state[monitor]``: ``"score"``, written by validation, or ``"loss"``)
+    has not improved by ``epsilon`` for ``patience`` calls, then wait
+    ``cooldown`` calls; never below ``min_lr``."""
+
+    def __init__(self, monitor: str = "score", factor: float = 0.1,
+                 patience: int = 10, mode: str = "min", epsilon: float = 1e-4,
+                 cooldown: int = 0, min_lr: float = 0.0):
+        self.monitor, self.factor, self.patience = monitor, factor, patience
+        self.mode, self.epsilon, self.cooldown = mode, epsilon, cooldown
+        self.min_lr = min_lr
+        self.best = None
+        self.wait = 0
+        self.cooldown_counter = 0
+        self.multiplier = 1.0
+
+    def _better(self, cur, best):
+        if self.mode == "min":
+            return cur < best - self.epsilon
+        return cur > best + self.epsilon
+
+    def update_lr(self, lr, state):
+        cur = state.get(self.monitor)
+        if cur is not None:
+            if self.best is None or self._better(cur, self.best):
+                self.best = cur
+                self.wait = 0
+            elif self.cooldown_counter > 0:
+                self.cooldown_counter -= 1
+                self.wait = 0
+            else:
+                self.wait += 1
+                if self.wait >= self.patience:
+                    self.multiplier *= self.factor
+                    self.wait = 0
+                    self.cooldown_counter = self.cooldown
+        return max(lr * self.multiplier, self.min_lr)
+
+    def force_reduction(self) -> float:
+        """One reduction now, whatever the patience counter says; resets
+        the patience window and enters the cooldown as a reduction by
+        patience does. Returns the new multiplier."""
+        self.multiplier *= self.factor
+        self.wait = 0
+        self.cooldown_counter = self.cooldown
+        return self.multiplier
+
+
 class EpochDecayWithWarmUp(LearningRateSchedule):
     """Linear warmup for ``warmup_iteration`` steps, then epoch decay."""
 
@@ -240,7 +333,9 @@ class EpochDecayWithWarmUp(LearningRateSchedule):
 # ---------------------------------------------------------------------------
 class OptimMethod:
     """Base: hyperparameters plus the host step state
-    ``{'neval': 0, 'epoch': 1}`` the optimizer loop advances."""
+    ``{'neval': 0, 'epoch': 1}`` the optimizer loop advances. A method
+    defines ``init_state`` and ``_updates(grads, params, opt_state, lr)``,
+    the (tensor, new value) pairs of one update."""
 
     def __init__(self, learningrate: float = 1e-3):
         self.learningrate = learningrate
@@ -249,14 +344,65 @@ class OptimMethod:
     def init_state(self, params):
         return {}
 
+    def _updates(self, grads, params, opt_state, lr):
+        raise NotImplementedError(type(self).__name__)
+
     def update(self, grads, params, opt_state, lr):
-        raise NotImplementedError
+        """One update, written in place; returns ``(params, opt_state)``,
+        the trees given."""
+        write_guarded(self._updates(grads, params, opt_state, lr))
+        return params, opt_state
+
+    def save(self, path, overwrite=True):
+        """Pickle this method (hyperparameters, schedule and step state)
+        with the checkpoints' atomic write. The pickle holds the port's
+        classes: the JAX package's ``load`` does not read it."""
+        import os
+        if not overwrite and os.path.exists(path):
+            raise IOError(f"{path} exists and overwrite=False")
+        from .optimizer import _atomic_pickle
+        _atomic_pickle(path, self)
+        return self
+
+    @staticmethod
+    def load(path):
+        """An optim method written by :meth:`save`."""
+        import pickle
+        with open(path, "rb") as f:
+            m = pickle.load(f)
+        if not isinstance(m, OptimMethod):
+            raise TypeError(f"{path} does not contain an OptimMethod "
+                            f"(got {type(m).__name__})")
+        return m
 
     def get_learning_rate(self):
         return self.current_lr()
 
     def current_lr(self):
         return self.learningrate
+
+    def current_lr_vector(self, k: int):
+        """The rates of the next ``k`` steps, ``[lr(neval), ...,
+        lr(neval + k - 1)]``, for a superstep: ``state['neval']`` is
+        advanced through the window (a stateful schedule sees one
+        ``update_lr`` call a step, as with K=1) and restored; a loss- or
+        score-driven schedule sees the values as of the superstep's
+        start."""
+        if k == 1:
+            return [self.current_lr()]
+        n0 = self.state["neval"]
+        try:
+            lrs = []
+            for i in range(k):
+                self.state["neval"] = n0 + i
+                lrs.append(self.current_lr())
+        finally:
+            self.state["neval"] = n0
+        return lrs
+
+    def clone(self):
+        import copy
+        return copy.deepcopy(self)
 
 
 class SGD(OptimMethod):
@@ -293,23 +439,25 @@ class SGD(OptimMethod):
             return {}
         return {"v": _zeros_like(params)}
 
-    def update(self, grads, params, opt_state, lr):
+    def _updates(self, grads, params, opt_state, lr):
         wd, mom, damp = self.weightdecay, self.momentum, self.dampening
         vs = flatten(opt_state["v"]) if mom > 0 else None
-        with torch.no_grad():
-            for name, (w, g) in _leaves(params, grads).items():
-                if wd > 0:
-                    g = g + wd * w
-                if mom > 0:
-                    v = vs[name]
-                    v.copy_(mom * v + (1 - damp) * g)
-                    g = g + mom * v if self.nesterov else v
-                w.copy_(w - lr * g)
-        return params, opt_state
+        out = []
+        for name, (w, g) in _leaves(params, grads).items():
+            if wd > 0:
+                g = g + wd * w
+            if mom > 0:
+                v = mom * vs[name] + (1 - damp) * g
+                out.append((vs[name], v))
+                g = g + mom * v if self.nesterov else v
+            out.append((w, w - lr * g))
+        return out
 
 
 class Adam(OptimMethod):
-    """Adam with bias correction; lr / (1 + neval * learningrate_decay)."""
+    """Adam with bias correction; lr / (1 + neval * learningrate_decay).
+    The step counter ``t`` is a device int32 scalar and the bias
+    corrections are computed from it in float32, as in JAX."""
 
     def __init__(self, learningrate: float = 1e-3,
                  learningrate_decay: float = 0.0, beta1: float = 0.9,
@@ -323,28 +471,32 @@ class Adam(OptimMethod):
                                     self.learningrate_decay)
 
     def init_state(self, params):
-        return {"m": _zeros_like(params), "v": _zeros_like(params), "t": 0}
+        return {"m": _zeros_like(params), "v": _zeros_like(params),
+                "t": _step_counter(params)}
 
-    def _step(self, w, g, m, v, lr, bc1, bc2):
-        """New value of one leaf; updates its moments m, v in place."""
+    def _leaf(self, w, g, m, v, lr, bc1, bc2):
+        """New (m, v, w) of one leaf."""
         b1, b2 = self.beta1, self.beta2
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        return w - lr * (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        return m, v, w - lr * (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon)
 
-    def update(self, grads, params, opt_state, lr):
+    def _updates(self, grads, params, opt_state, lr):
         t = opt_state["t"] + 1
-        # the bias corrections rounded to float32, as the JAX package
-        # computes them
-        f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))
-        bc1 = f32(1 - f32(f32(self.beta1) ** t))
-        bc2 = f32(1 - f32(f32(self.beta2) ** t))
-        with torch.no_grad():
-            for w, g, m, v in _leaves(params, grads, opt_state["m"],
-                                      opt_state["v"]).values():
-                w.copy_(self._step(w, g, m, v, lr, bc1, bc2))
-        opt_state["t"] = t
-        return params, opt_state
+        tf = t.float()
+        bc1 = 1 - self.beta1 ** tf
+        bc2 = 1 - self.beta2 ** tf
+        out = [(opt_state["t"], t)]
+        for w, g, m, v in _leaves(params, grads, opt_state["m"],
+                                  opt_state["v"]).values():
+            nm, nv, nw = self._leaf(w, g, m, v, lr, bc1, bc2)
+            out += [(m, nm), (v, nv), (w, nw)]
+        return out
+
+
+class ParallelAdam(Adam):
+    """Adam's update (the reference's parallel form is a sharding of it,
+    which the one-device port does not need)."""
 
 
 class AdamW(Adam):
@@ -362,9 +514,191 @@ class AdamW(Adam):
         self.weight_decay = weight_decay
         self.decay_filter = decay_filter
 
-    def _step(self, w, g, m, v, lr, bc1, bc2):
-        new = super()._step(w, g, m, v, lr, bc1, bc2)
+    def _leaf(self, w, g, m, v, lr, bc1, bc2):
+        m, v, new = super()._leaf(w, g, m, v, lr, bc1, bc2)
         keep = self.decay_filter or (lambda x: x.dim() >= 2)
         if self.weight_decay and keep(w):
             new = new - lr * self.weight_decay * w
-        return new
+        return m, v, new
+
+
+class Adagrad(OptimMethod):
+    """Adagrad (optim/Adagrad.scala): accum += g^2, w -= lr g / (sqrt(accum)
+    + 1e-10); lr / (1 + neval * learningrate_decay)."""
+
+    def __init__(self, learningrate: float = 1e-3,
+                 learningrate_decay: float = 0.0, weightdecay: float = 0.0,
+                 **_ignored):
+        super().__init__(learningrate)
+        self.learningrate_decay = learningrate_decay
+        self.weightdecay = weightdecay
+
+    def current_lr(self):
+        return self.learningrate / (1 + self.state["neval"] *
+                                    self.learningrate_decay)
+
+    def init_state(self, params):
+        return {"accum": _zeros_like(params)}
+
+    def _updates(self, grads, params, opt_state, lr):
+        out = []
+        for w, g, a in _leaves(params, grads, opt_state["accum"]).values():
+            if self.weightdecay > 0:
+                g = g + self.weightdecay * w
+            na = a + g * g
+            out += [(a, na), (w, w - lr * g / (torch.sqrt(na) + 1e-10))]
+        return out
+
+
+class Adadelta(OptimMethod):
+    """Adadelta (optim/Adadelta.scala) with decay rate rho."""
+
+    def __init__(self, decayrate: float = 0.9, epsilon: float = 1e-10,
+                 **_ignored):
+        super().__init__(1.0)
+        self.rho, self.epsilon = decayrate, epsilon
+
+    def init_state(self, params):
+        return {"accum": _zeros_like(params),
+                "delta_accum": _zeros_like(params)}
+
+    def _updates(self, grads, params, opt_state, lr):
+        rho, eps = self.rho, self.epsilon
+        out = []
+        for w, g, a, d in _leaves(params, grads, opt_state["accum"],
+                                  opt_state["delta_accum"]).values():
+            na = rho * a + (1 - rho) * g * g
+            delta = g * torch.sqrt(d + eps) / torch.sqrt(na + eps)
+            nd = rho * d + (1 - rho) * delta * delta
+            out += [(a, na), (d, nd), (w, w - lr * delta)]
+        return out
+
+
+class Adamax(OptimMethod):
+    """Adamax (optim/Adamax.scala); ``t`` a device int32 scalar."""
+
+    def __init__(self, learningrate: float = 0.002, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-38, **_ignored):
+        super().__init__(learningrate)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def init_state(self, params):
+        return {"m": _zeros_like(params), "u": _zeros_like(params),
+                "t": _step_counter(params)}
+
+    def _updates(self, grads, params, opt_state, lr):
+        b1, b2 = self.beta1, self.beta2
+        t = opt_state["t"] + 1
+        bc = 1 - b1 ** t.float()
+        out = [(opt_state["t"], t)]
+        for w, g, m, u in _leaves(params, grads, opt_state["m"],
+                                  opt_state["u"]).values():
+            nm = b1 * m + (1 - b1) * g
+            nu = torch.maximum(b2 * u, g.abs() + self.epsilon)
+            out += [(m, nm), (u, nu), (w, w - (lr / bc) * nm / nu)]
+        return out
+
+
+class RMSprop(OptimMethod):
+    """RMSprop (optim/RMSprop.scala)."""
+
+    def __init__(self, learningrate: float = 1e-2,
+                 learningrate_decay: float = 0.0, decayrate: float = 0.99,
+                 epsilon: float = 1e-8, **_ignored):
+        super().__init__(learningrate)
+        self.learningrate_decay = learningrate_decay
+        self.decayrate, self.epsilon = decayrate, epsilon
+
+    def current_lr(self):
+        return self.learningrate / (1 + self.state["neval"] *
+                                    self.learningrate_decay)
+
+    def init_state(self, params):
+        return {"accum": _zeros_like(params)}
+
+    def _updates(self, grads, params, opt_state, lr):
+        rho = self.decayrate
+        out = []
+        for w, g, a in _leaves(params, grads, opt_state["accum"]).values():
+            na = rho * a + (1 - rho) * g * g
+            out += [(a, na),
+                    (w, w - lr * g / (torch.sqrt(na) + self.epsilon))]
+        return out
+
+
+class Ftrl(OptimMethod):
+    """FTRL-proximal (optim/Ftrl.scala)."""
+
+    def __init__(self, learningrate: float = 1e-3,
+                 learningrate_power: float = -0.5,
+                 initial_accumulator_value: float = 0.1,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0,
+                 l2_shrinkage_regularization_strength: float = 0.0,
+                 **_ignored):
+        super().__init__(learningrate)
+        self.lr_power = learningrate_power
+        self.init_accum = initial_accumulator_value
+        self.l1 = l1_regularization_strength
+        self.l2 = l2_regularization_strength
+        self.l2_shrinkage = l2_shrinkage_regularization_strength
+
+    def init_state(self, params):
+        return {"accum": _full_like(params, self.init_accum),
+                "linear": _zeros_like(params)}
+
+    def _updates(self, grads, params, opt_state, lr):
+        lp = self.lr_power
+        out = []
+        for w, g, a, lin in _leaves(params, grads, opt_state["accum"],
+                                    opt_state["linear"]).values():
+            g_shrunk = g + 2 * self.l2_shrinkage * w
+            na = a + g * g
+            if lp == -0.5:
+                # sqrt(na) - sqrt(a) as (na - a) / (sqrt(na) + sqrt(a)):
+                # the same value, without the cancellation that turns an
+                # ulp of either root into ~1e-4 of sigma when g is small
+                root = torch.sqrt(na)
+                sigma = (na - a) / (root + torch.sqrt(a)) / lr
+            else:
+                root = torch.pow(na, -lp)
+                sigma = (root - torch.pow(a, -lp)) / lr
+            nl = lin + g_shrunk - sigma * w
+            quad = root / lr + 2 * self.l2
+            l_reg = torch.clamp(nl, -self.l1, self.l1)
+            out += [(a, na), (lin, nl), (w, (l_reg - nl) / quad)]
+        return out
+
+
+class LarsSGD(OptimMethod):
+    """Layer-wise adaptive rate scaling (optim/LarsSGD.scala), the trust
+    ratio computed per parameter leaf."""
+
+    def __init__(self, learningrate: float = 1e-2, trust: float = 1.0,
+                 momentum: float = 0.9, weightdecay: float = 0.0,
+                 learningrate_schedule=None, **_ignored):
+        super().__init__(learningrate)
+        self.trust, self.momentum, self.weightdecay = \
+            trust, momentum, weightdecay
+        self.learningrate_schedule = learningrate_schedule or Default()
+
+    def current_lr(self):
+        return self.learningrate_schedule.update_lr(self.learningrate,
+                                                    self.state)
+
+    def init_state(self, params):
+        return {"v": _zeros_like(params)}
+
+    def _updates(self, grads, params, opt_state, lr):
+        out = []
+        for w, g, v in _leaves(params, grads, opt_state["v"]).values():
+            wn = torch.linalg.vector_norm(w.reshape(-1))
+            gn = torch.linalg.vector_norm(g.reshape(-1))
+            local_lr = torch.where(
+                (wn > 0) & (gn > 0),
+                self.trust * wn / (gn + self.weightdecay * wn + 1e-9),
+                torch.ones_like(wn))
+            nv = self.momentum * v + lr * local_lr * \
+                (g + self.weightdecay * w)
+            out += [(v, nv), (w, w - nv)]
+        return out

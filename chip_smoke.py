@@ -172,13 +172,46 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    masked einsum as in JAX; (c) the same initial weights cut to 2 layers,
    full width, float32, on the CPU and on the card: logits within 1e-4 of
    the largest, greedy tokens equal up to the first step whose top-2
-   margin is under that tolerance.
+   margin is under that tolerance;
+12. drives the training loop's depth on ResNet-50 (NHWC, ``fused="pallas"``,
+   float32, B32/224, built once from seed 0, its initial weights kept on
+   the host) through ``Optimizer.create`` over 256 image Samples (8
+   batches), ``CrossEntropyCriterion`` and ``SGD(0.1, momentum=0.9)``,
+   with cuDNN deterministic (restored afterwards): (a) the reference,
+   ``set_prefetch(0)``, 'sync', checkpoints every 4 iterations
+   (``overwrite=False``), 8 iterations, run twice as the determinism
+   control (when the two differ, ``torch.use_deterministic_algorithms``
+   names the op and the other runs are held to 4x their spread instead
+   of bit for bit); (b) ``set_prefetch(2)``, 'window:4', ``set_superstep
+   (4)`` and async checkpoints: parameters, model state, every step's
+   loss and both checkpoints as (a)'s, ``optim/loss_syncs`` 2 against 8,
+   (a)'s launches, no stager thread left; (c) a fresh start that loads
+   (a)'s iteration-4 checkpoint and trains the epoch's other four
+   batches (the loop restarts its epoch, as JAX's does): (a)'s end state
+   and optimizer state; (d) (a) with 'resume' and a NaN image in batch
+   6: one restore, the state right after it the iteration-4 checkpoint's
+   bit for bit, a finite loss, neval / epoch 8 / 2 (what the CPU test
+   shows JAX's loop gives); (e) the stem and the first stage frozen, 2
+   iterations, also with ``fused_conv2``: the frozen parameters bit for
+   bit, every other module moved, the same K3 / K5 launches (16 K4 an
+   iteration with ``fused_conv2``); (f) ``Adagrad``, ``Adadelta``,
+   ``Adamax``, ``RMSprop``, ``Ftrl``, ``LarsSGD``, ``ParallelAdam`` and
+   SGD under ``Plateau``, 2 iterations each (finite losses, parameters
+   moved), then one update of ResNet-50's parameter tree with seeded
+   gradients on the card within 1e-6 (relative to each leaf's largest
+   value) of the same update on the CPU; (g) a regularized conv / linear
+   net trained 2 steps on the card and on the CPU, within 1e-5; it
+   prints (a)'s and (b)'s step_time and data_time medians and wall
+   times and a checkpoint's bytes and seconds, sync and async, with the
+   card's name and power limit, and two timing arms without checkpoints:
+   (a) with cuDNN's default algorithms and (b) with its groups stacked
+   inline (``set_prefetch(0)``; its end state held to (a)'s).
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
 run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
-its translation paths) and read just after; a
+its translation paths, each phase 12 run) and read just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -202,7 +235,8 @@ runs, and the unsplit kernel's row at the decode case; the fused ResNet kernels 
 their timed shapes with the launches of the four ResNet-50 steps of the arm
 that runs them, their ``_f32`` rows (3xTF32) at phase 8's stage-0 shape
 with its launches (K4's with those of phase 7's float32 step, and its
-CUDA-core route's row beside it); the flash, K3, K4 and K5 rows carry their
+CUDA-core route's row beside it; each with phase 12's launches added);
+the flash, K3, K4 and K5 rows carry their
 ``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -212,6 +246,7 @@ import contextlib
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -2885,6 +2920,484 @@ def generation_depth(torch, K, card):
     return r11
 
 
+# -- phase 12: the training loop's depth ---------------------------------------
+
+LOOP_B, LOOP_N, LOOP_S = 32, 256, 224     # 8 batches of B32/224 images
+
+
+class FixedBatches:
+    """A batch-level data set of fixed MiniBatches in a fixed order (what
+    ``Optimizer`` takes beside Sample data sets): the epoch's tail for a
+    resume, a NaN image at a known iteration."""
+
+    def __init__(self, mbs):
+        self.mbs = list(mbs)
+
+    def size(self):
+        return sum(len(m.get_input()) for m in self.mbs)
+
+    def batches_per_epoch(self):
+        return len(self.mbs)
+
+    def shuffle(self):
+        return self
+
+    def data(self, train=True):
+        return iter(self.mbs)
+
+
+def host_trees(model, opt_state=None):
+    """Host copies of a model's parameters and state (and an optimizer
+    state tree)."""
+    from bigdl_tpu_torch.convert import host_copy_tree
+    out = {"params": host_copy_tree(model.params),
+           "model_state": host_copy_tree(model.state)}
+    if opt_state is not None:
+        out["opt_state"] = opt_state
+    return out
+
+
+def tree_diff(a, b):
+    """Largest absolute difference between two host trees of one
+    structure (0.0: bit for bit equal)."""
+    from bigdl_tpu_torch.convert import flatten
+    fa, fb = flatten(a), flatten(b)
+    if set(fa) != set(fb):
+        return float("inf")
+    return max([float(np.max(np.abs(np.asarray(fa[k], np.float64)
+                                    - np.asarray(fb[k], np.float64))))
+                for k in fa if np.size(fa[k])] + [0.0])
+
+
+def loop_run(torch, K, model, init, data, iters, method=None, setup=None,
+             dev="cuda"):
+    """Load ``init`` into ``model``, train it through ``Optimizer.create``
+    (CrossEntropyCriterion, SGD(0.1, momentum=0.9) unless ``method``)
+    for ``iters`` iterations after ``setup(opt)``, with the launch
+    counters set to 0 just before and read just after. Returns the
+    optimizer and the readings: every step's loss (the device tensors
+    the step returns, read after the run), wall time, launches, routes,
+    checkpoint submit times and the observability counters."""
+    import bigdl_tpu_torch.observability as obs
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Optimizer, max_iteration
+    model.load_state_dict(init)
+    opt = Optimizer.create(model, data, CrossEntropyCriterion(),
+                           max_iteration(iters), LOOP_B,
+                           method or SGD(0.1, momentum=0.9), device=dev)
+    opt.set_prefetch(0)
+    losses, ckpt_s = [], []
+    step, ckpt = opt._step, opt._checkpoint
+    opt._step = lambda *a: losses.append(step(*a)) or losses[-1]
+
+    def timed_checkpoint(*a, **kw):
+        t0 = time.perf_counter()
+        path = ckpt(*a, **kw)
+        ckpt_s.append((path, time.perf_counter() - t0))
+        return path
+    opt._checkpoint = timed_checkpoint
+    if setup is not None:
+        setup(opt)
+    obs.enable()
+    obs.registry().reset()
+    try:
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routes = K.launch_counts(), K.launches_by_route()
+        reg = obs.registry()
+        syncs = reg.counter("optim/loss_syncs").value
+    finally:
+        obs.disable()
+        obs.registry().reset()
+    return opt, {"losses": [float(v) for v in losses], "wall_s": wall,
+                 "counts": counts, "routes": routes, "loss_syncs": syncs,
+                 "step_s": opt.metrics.values.get("step_time", []),
+                 "data_s": opt.metrics.values.get("data_time", []),
+                 "checkpoints": ckpt_s}
+
+
+def resnet_launches(K, n, conv2=False):
+    """The launch counts ``n`` ResNet-50 float32 training steps make: 24
+    K3 and 12 K5 forwards and as many backwards (16 K4 forwards with
+    ``fused_conv2``), nothing else."""
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(fused_matmul_fwd=24 * n, fused_matmul_bwd=24 * n,
+                fused_chain_fwd=12 * n, fused_chain_bwd=12 * n)
+    if conv2:
+        want["fused_conv_fwd"] = 16 * n
+    return want
+
+
+def check_resnet_launches(K, r, n, what, conv2=False):
+    want = resnet_launches(K, n, conv2)
+    check(r["counts"] == want, f"{what} launched {r['counts']}, expected "
+          f"{want}")
+    for name, cnt in want.items():
+        if cnt:
+            check(only_on(r["routes"][name], "f32_sm90", cnt),
+                  f"{what} {name} launches by route {r['routes'][name]}")
+
+
+def loop_depth(torch, K, card, S=LOOP_S, dev="cuda", tmp=None):
+    """Phase 12: ResNet-50 (NHWC, ``fused="pallas"``, float32) trained
+    through ``Optimizer.create`` with the training loop's depth: (a) the
+    reference run twice, (b) prefetch / window / superstep / async
+    checkpoints, (c) a resume, (d) 'resume' on a NaN, (e) frozen stem and
+    first stage (and ``fused_conv2``), (f) the new optim methods, (g)
+    regularizers card against CPU. Returns the readings."""
+    import tempfile
+    from bigdl_tpu_torch.convert import flatten, host_copy_tree, unflatten
+    from bigdl_tpu_torch.dataset import (DataSet, MiniBatch, Sample,
+                                         ShardedDataSet)
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.nn.module import copy_tree_into
+    from bigdl_tpu_torch.optim import (SGD, Adadelta, Adagrad, Adamax, Ftrl,
+                                       L1L2Regularizer, L2Regularizer,
+                                       LarsSGD, ParallelAdam, Plateau,
+                                       RMSprop, several_iteration)
+    from bigdl_tpu_torch.optim.staging import stager_threads_alive
+    r12 = {}
+    print(f"[12] the training loop's depth: ResNet-50 B{LOOP_B}/{S} float32 "
+          f"through Optimizer.create, 8 batches ({card})", flush=True)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    tmp = tmp or tempfile.mkdtemp(prefix="loop_depth_")
+    try:
+        model = ResNet50(format="NHWC", fused="pallas", seed=0, device=dev)
+        init = {k: v.detach().cpu().clone()
+                for k, v in model.state_dict().items()}
+        rng = np.random.RandomState(12)
+        imgs = rng.randn(LOOP_N, S, S, 3).astype(np.float32)
+        labels = rng.randint(1, 1001, size=LOOP_N)
+        samples = [Sample(imgs[i], labels[i]) for i in range(LOOP_N)]
+        epoch = ShardedDataSet(DataSet.array(samples), LOOP_B).shuffle()
+        mbs = list(epoch.data(train=True))      # the epoch's batches
+
+        # (a) the reference, twice: the determinism control
+        def ref_setup(opt, d):
+            opt.set_checkpoint(several_iteration(4), d, overwrite=False)
+        runs = []
+        for i in range(2):
+            d = os.path.join(tmp, f"a{i}")
+            opt, r = loop_run(torch, K, model, init,
+                              DataSet.array(samples), 8,
+                              setup=lambda o, d=d: ref_setup(o, d), dev=dev)
+            r["end"] = host_trees(model)
+            r["dir"] = d
+            check(len(r["losses"]) == 8 and all(
+                math.isfinite(v) for v in r["losses"]),
+                f"(a) losses {r['losses']}")
+            check(r["loss_syncs"] == 8, f"(a) loss syncs {r['loss_syncs']}")
+            check_resnet_launches(K, r, 8, "(a)")
+            runs.append(r)
+        a = runs[0]
+        spread = max(tree_diff(runs[0]["end"], runs[1]["end"]),
+                     max(abs(x - y) for x, y in zip(runs[0]["losses"],
+                                                    runs[1]["losses"])))
+        r12["spread"] = spread
+        culprit = None
+        if spread > 0:
+            # name the op with no deterministic implementation
+            prev = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True)
+            try:
+                loop_run(torch, K, model, init, FixedBatches(mbs[:1]), 1,
+                         dev=dev)
+            except RuntimeError as e:
+                culprit = str(e).splitlines()[0]
+            finally:
+                torch.use_deterministic_algorithms(prev)
+        r12["culprit"] = culprit
+        tol = 4 * spread
+        print(f"    (a) reference twice: losses "
+              f"{[round(v, 5) for v in a['losses']]}; the two runs "
+              + ("bit for bit equal" if spread == 0 else
+                 f"differ by up to {spread:.3g} (the op: {culprit}); the "
+                 f"other runs are held to {tol:.3g}"), flush=True)
+
+        def same(x, y, what):
+            d = tree_diff(x, y)
+            check(d <= tol, f"{what}: differs by {d:.3g} (control "
+                  f"{spread:.3g})")
+            return d
+
+        def ckpt(d, n, e=1):
+            with open(os.path.join(d, f"checkpoint_e{e}_i{n}.bigdl"),
+                      "rb") as f:
+                return pickle.load(f)
+
+        # (b) the loop's options on
+        db = os.path.join(tmp, "b")
+
+        def opts(o):
+            o.set_prefetch(2)
+            o.set_sync_policy("window:4")
+            o.set_superstep(4)
+            o.set_checkpoint(several_iteration(4), db, overwrite=False,
+                             async_write=True)
+        _, b = loop_run(torch, K, model, init, DataSet.array(samples), 8,
+                        setup=opts, dev=dev)
+        b["end"] = host_trees(model)
+        same(b["end"], a["end"], "(b) end state against (a)")
+        check(max(abs(x - y) for x, y in zip(b["losses"], a["losses"]))
+              <= tol, f"(b) losses {b['losses']} against {a['losses']}")
+        for n in (4, 8):
+            pa, pb = ckpt(a["dir"], n), ckpt(db, n)
+            for part in ("params", "opt_state", "model_state"):
+                same(pb[part], pa[part], f"(b) checkpoint i{n} {part}")
+        check(b["loss_syncs"] == 2, f"(b) loss syncs {b['loss_syncs']}")
+        check(b["counts"] == a["counts"], f"(b) launches {b['counts']}")
+        check_resnet_launches(K, b, 8, "(b)")
+        check(stager_threads_alive() == 0, "(b) left a stager thread")
+        a_opt_end = ckpt(a["dir"], 8)["opt_state"]
+
+        # timing arms, no checkpoints: (a) with cuDNN's default algorithms
+        # (the cost of determinism), and (b) with its groups stacked
+        # inline (the stager thread's share of (b)'s step)
+        torch.backends.cudnn.deterministic = False
+        _, a_fast = loop_run(torch, K, model, init, DataSet.array(samples), 8,
+                             dev=dev)
+        torch.backends.cudnn.deterministic = True
+        check_resnet_launches(K, a_fast, 8, "(a) with cuDNN's defaults")
+
+        def inline(o):
+            o.set_sync_policy("window:4")
+            o.set_superstep(4)
+        _, b_inline = loop_run(torch, K, model, init, DataSet.array(samples),
+                               8, setup=inline, dev=dev)
+        same(host_trees(model), a["end"], "(b) stacked inline, end state")
+        check_resnet_launches(K, b_inline, 8, "(b) stacked inline")
+
+        # (c) resume from (a)'s iteration-4 checkpoint: the loop restarts
+        # its epoch, so the data set is the epoch's other four batches
+        def resume(o):
+            o.load_checkpoint(os.path.join(a["dir"],
+                                           "checkpoint_e1_i4.bigdl"))
+            o.set_checkpoint(several_iteration(4), os.path.join(tmp, "c"),
+                             overwrite=False)
+        _, c = loop_run(torch, K, model, init, FixedBatches(mbs[4:]),
+                        8, setup=resume, dev=dev)
+        same(host_trees(model), a["end"], "(c) resumed end state")
+        same(ckpt(os.path.join(tmp, "c"), 8)["opt_state"], a_opt_end,
+             "(c) resumed optimizer state")
+        check_resnet_launches(K, c, 4, "(c)")
+
+        # (d) 'resume' on a NaN image in batch 6
+        poisoned = [MiniBatch(m.get_input().copy(), m.get_target())
+                    for m in mbs]
+        poisoned[5].get_input()[0, 0, 0, 0] = np.nan
+        dd, restored = os.path.join(tmp, "d"), []
+
+        def nan_resume(o):
+            ref_setup(o, dd)
+            o.set_nan_policy("resume")
+            restore = o._restore_step_state
+
+            def spy(payload, params, opt_state, mstate):
+                restore(payload, params, opt_state, mstate)
+                restored.append(host_trees(o.model,
+                                           host_copy_tree(opt_state)))
+            o._restore_step_state = spy
+        dopt, dr = loop_run(torch, K, model, init, FixedBatches(poisoned), 8,
+                            setup=nan_resume, dev=dev)
+        state = dopt.optim_method.state
+        check(len(dopt.metrics.values.get("nan_resumes", [])) == 1,
+              f"(d) nan resumes {dopt.metrics.values.get('nan_resumes')}")
+        check(len(restored) == 1, f"(d) restores {len(restored)}")
+        i4 = ckpt(dd, 4)
+        for part in ("params", "opt_state", "model_state"):
+            check(tree_diff(restored[0][part], i4[part]) == 0,
+                  f"(d) state after the restore: {part} is not the "
+                  f"iteration-4 checkpoint's")
+        check(math.isfinite(state["loss"]), f"(d) loss {state['loss']}")
+        check((state["neval"], state["epoch"]) == (8, 2),
+              f"(d) neval / epoch {state['neval']} / {state['epoch']}, "
+              f"expected 8 / 2 (the CPU test's schedule)")
+        check_resnet_launches(K, dr, 10, "(d)")
+        print(f"    (b) prefetch 2, window:4, superstep 4, async "
+              f"checkpoints: end state and checkpoints within {tol:.3g} of "
+              f"(a), loss syncs {b['loss_syncs']:.0f} against "
+              f"{a['loss_syncs']:.0f}; (c) resumed from (a)'s iteration 4: "
+              f"end state as (a)'s; (d) 'resume' on a NaN in batch 6: 1 "
+              f"restore to the iteration-4 checkpoint, neval / epoch "
+              f"{state['neval']} / {state['epoch']}, loss "
+              f"{state['loss']:.5f}", flush=True)
+
+        # (e) fine-tuning: stem and first stage frozen
+        e_counts = {}
+        for conv2 in (False, True):
+            m = model if not conv2 else ResNet50(
+                format="NHWC", fused="pallas", seed=0, device=dev,
+                fused_conv2=True)
+            m.freeze(m[0].name, m[1].name, m[4].name)
+            _, e = loop_run(torch, K, m, init, FixedBatches(mbs[:2]), 2,
+                            dev=dev)
+            got = flatten(host_trees(m)["params"])
+            start = flatten({k: v.numpy() for k, v in init.items()})
+            moved = {k for k, v in got.items()
+                     if not np.array_equal(v, start[k])}
+            # every frozen leaf keeps its bits; every other module with
+            # parameters moves (a leaf alone may not: BN3's zero gamma
+            # scales its block's first gradients to below a float32 ulp
+            # of the other gammas' 1.0)
+            check(not {k for k in moved
+                       if k.split(".")[0] in ("0", "1", "4")},
+                  f"(e) fused_conv2={conv2}: frozen leaves moved")
+            check({k.split(".")[0] for k in moved} == {"5", "6", "7", "10"},
+                  f"(e) fused_conv2={conv2}: modules moved "
+                  f"{sorted({k.split('.')[0] for k in moved})}")
+            check_resnet_launches(K, e, 2, f"(e) fused_conv2={conv2}",
+                                  conv2)
+            e_counts[conv2] = e["counts"]
+            m.unfreeze()
+            if conv2:
+                del m
+        print(f"    (e) stem and stage 1 frozen, 2 iterations: frozen "
+              f"parameters bit for bit unchanged, the others moved; "
+              f"launches {e_counts[False]}, with fused_conv2 "
+              f"{e_counts[True]}", flush=True)
+
+        # (f) the new optim methods: 2 iterations each, then one update on
+        # ResNet-50's parameter tree on the card against the CPU
+        methods = {
+            "Adagrad": lambda: Adagrad(0.01), "Adadelta": lambda: Adadelta(),
+            "Adamax": lambda: Adamax(0.002), "RMSprop": lambda: RMSprop(1e-3),
+            "Ftrl": lambda: Ftrl(0.01, l1_regularization_strength=1e-4,
+                                 l2_regularization_strength=1e-4),
+            "LarsSGD": lambda: LarsSGD(0.1, 0.001),
+            "ParallelAdam": lambda: ParallelAdam(1e-3),
+            "SGD+Plateau": lambda: SGD(0.1, momentum=0.9,
+                                       learningrate_schedule=Plateau("loss"))}
+        grng = np.random.RandomState(7)
+        shapes = {k: tuple(v.shape) for k, v in flatten(model.params).items()}
+        grads = {k: (1e-2 * grng.randn(*s)).astype(np.float32)
+                 for k, s in shapes.items()}
+        f_out = {}
+        start = unflatten({k: init[k].numpy() for k in shapes})
+        for name, make in methods.items():
+            _, f = loop_run(torch, K, model, init, FixedBatches(mbs[:2]), 2,
+                            method=make(), dev=dev)
+            check(all(math.isfinite(v) for v in f["losses"]),
+                  f"(f) {name} losses {f['losses']}")
+            check(tree_diff(host_trees(model)["params"], start) > 0,
+                  f"(f) {name} left the parameters where they were")
+            errs = []
+            outs = {}
+            for where in (dev, "cpu"):
+                p = unflatten({k: init[k].to(where).clone() for k in shapes})
+                g = unflatten({k: torch.from_numpy(v).to(where)
+                               for k, v in grads.items()})
+                meth = make()
+                st = meth.init_state(p)
+                meth.update(g, p, st, 0.05)
+                outs[where] = flatten(p)
+            for k, v in outs["cpu"].items():
+                ref = float(v.abs().max()) or 1.0
+                errs.append(float((outs[dev][k].cpu() - v).abs().max())
+                            / ref)
+            f_out[name] = {"losses": f["losses"], "rel_err": max(errs)}
+            check(max(errs) <= 1e-6, f"(f) {name} update on the card "
+                  f"against the CPU: relative error {max(errs):.3g}")
+        print(f"    (f) 2 iterations each, losses finite, parameters moved; "
+              f"one update of ResNet-50's tree on the card against the CPU "
+              f"(relative): " + ", ".join(
+                  f"{n} {v['rel_err']:.2g}" for n, v in f_out.items()),
+              flush=True)
+
+        # (g) regularizers, card against CPU
+        r12["g"] = regularized_card_vs_cpu(torch, dev)
+
+        # readings
+        med = lambda xs: statistics.median(xs) if xs else float("nan")
+        sync_ck = [t for _, t in a["checkpoints"]]
+        async_ck = [t for _, t in b["checkpoints"]]
+        ck_bytes = os.path.getsize(a["checkpoints"][0][0])
+        r12.update(a=a, b=b, a_fast=a_fast, b_inline=b_inline, c=c, d=dr,
+                   e=e_counts, f=f_out,
+                   ckpt_bytes=ck_bytes, sync_ckpt_s=sync_ck,
+                   async_ckpt_s=async_ck)
+        launches = {n: sum(r["counts"][n] for r in
+                           runs + [b, a_fast, b_inline, c, dr])
+                    + sum(e_counts[cv][n] for cv in e_counts)
+                    for n in ("fused_matmul_fwd", "fused_matmul_bwd",
+                              "fused_chain_fwd", "fused_chain_bwd",
+                              "fused_conv_fwd")}
+        r12["launches"] = launches
+        print(f"    readings ({card}): (a) step_time median "
+              f"{med(a['step_s'][1:]) * 1e3:.2f} ms, data_time median "
+              f"{med(a['data_s'][1:]) * 1e3:.2f} ms, 8 iterations "
+              f"{a['wall_s']:.3f} s (second run {runs[1]['wall_s']:.3f} s); "
+              f"(b) a group of 4: step_time median "
+              f"{med(b['step_s']) * 1e3:.2f} ms "
+              f"({med(b['step_s']) * 1e3 / 4:.2f} ms a step), data_time "
+              f"median {med(b['data_s']) * 1e3:.2f} ms, 8 iterations "
+              f"{b['wall_s']:.3f} s; (a) with cuDNN's default algorithms: "
+              f"step_time median {med(a_fast['step_s'][1:]) * 1e3:.2f} ms, "
+              f"8 iterations {a_fast['wall_s']:.3f} s (no checkpoint); (b) "
+              f"stacked inline (prefetch 0): a group "
+              f"{med(b_inline['step_s']) * 1e3:.2f} ms, data_time median "
+              f"{med(b_inline['data_s']) * 1e3:.2f} ms, 8 iterations "
+              f"{b_inline['wall_s']:.3f} s (no checkpoint); one checkpoint "
+              f"{ck_bytes} bytes: "
+              f"synchronous {[round(t, 3) for t in sync_ck]} s, async "
+              f"(the loop's share) {[round(t, 3) for t in async_ck]} s; "
+              f"phase 12 launches {launches}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            det
+    return r12
+
+
+def regularized_card_vs_cpu(torch, dev, S=16, B=16, steps=2):
+    """(g): conv3x3 (L2 on its weight) -> ReLU -> View -> Linear (L1L2 on
+    its weight), the same weights trained ``steps`` steps on the card and
+    on the CPU: losses and parameters within 1e-5."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.convert import host_copy_tree
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.optim import (SGD, L1L2Regularizer, L2Regularizer,
+                                       LocalOptimizer, max_iteration)
+    rng = np.random.RandomState(3)
+    data = [Sample(rng.randn(S, S, 3).astype(np.float32),
+                   rng.randint(1, 11)) for _ in range(B * steps)]
+    out = {}
+    for where in ("cpu", dev):
+        torch.manual_seed(0)
+        m = nn.Sequential(
+            nn.SpatialConvolution(3, 8, 3, 3, 1, 1, 1, 1,
+                                  w_regularizer=L2Regularizer(1e-3),
+                                  format="NHWC"),
+            nn.ReLU(), nn.View(8 * S * S),
+            nn.Linear(8 * S * S, 10,
+                      w_regularizer=L1L2Regularizer(1e-4, 1e-3)))
+        m.reset(torch.Generator().manual_seed(0))
+        m.to(where)
+        losses = []
+        opt = LocalOptimizer(m, DataSet.array(data),
+                             nn.CrossEntropyCriterion(),
+                             SGD(0.05, momentum=0.9), max_iteration(steps),
+                             B, device=where)
+        step = opt._step
+        opt._step = lambda *a: losses.append(step(*a)) or losses[-1]
+        opt.set_prefetch(0).optimize()
+        out[where] = ([float(v) for v in losses], host_copy_tree(m.params))
+    dl = max(abs(x - y) for x, y in zip(out["cpu"][0], out[dev][0]))
+    dp = tree_diff(out["cpu"][1], out[dev][1])
+    check(dl <= 1e-5 and dp <= 1e-5, f"(g) regularized training, card "
+          f"against CPU: losses {dl:.3g}, parameters {dp:.3g}")
+    print(f"    (g) regularizers (L2 on the conv, L1L2 on the linear), "
+          f"{steps} steps card against CPU: losses within {dl:.2g}, "
+          f"parameters within {dp:.2g}", flush=True)
+    return {"loss_err": dl, "param_err": dp}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3411,6 +3924,9 @@ def main():
     r10 = control_plane(torch, K, card)
     # -- phase 11: beam search and the translation model ----------------------
     r11 = generation_depth(torch, K, card)
+    # -- phase 12: the training loop's depth ----------------------------------
+    r12 = loop_depth(torch, K, card)
+    l12 = r12["launches"]
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -3612,13 +4128,15 @@ def main():
                    "bigdl_tpu/kernels/fused_matmul.py:344",
                    dict(k3_f32["fwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
-                   r8["routes"]["fused_matmul_fwd"]["f32_sm90"]),
+                   r8["routes"]["fused_matmul_fwd"]["f32_sm90"]
+                   + l12["fused_matmul_fwd"]),
         kernel_rec("fused_matmul_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:229",
                    dict(k3_f32["bwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
-                   r8["routes"]["fused_matmul_bwd"]["f32_sm90"]),
+                   r8["routes"]["fused_matmul_bwd"]["f32_sm90"]
+                   + l12["fused_matmul_bwd"]),
         kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"],
@@ -3633,13 +4151,15 @@ def main():
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_f32["fwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
-                   r8["routes"]["fused_chain_fwd"]["f32_sm90"]),
+                   r8["routes"]["fused_chain_fwd"]["f32_sm90"]
+                   + l12["fused_chain_fwd"]),
         kernel_rec("fused_chain_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_f32["bwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
-                   r8["routes"]["fused_chain_bwd"]["f32_sm90"]),
+                   r8["routes"]["fused_chain_bwd"]["f32_sm90"]
+                   + l12["fused_chain_bwd"]),
         kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),
@@ -3650,7 +4170,8 @@ def main():
                    "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188",
                    dict(k4_f32, cuda_core_ms=k4_cc["ms"]),
-                   r7["fused_routes"]["fused_conv_fwd"]["f32_sm90"]),
+                   r7["fused_routes"]["fused_conv_fwd"]["f32_sm90"]
+                   + l12["fused_conv_fwd"]),
         kernel_rec("fused_conv_f32_ragged",
                    "bigdl_tpu_torch/csrc/fused_conv.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,

@@ -337,7 +337,8 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "'observability.flight', 'observability.cluster', "
             "'parallel.chaos', 'parallel.failure', 'optim.staging', "
             "'serving.engine', 'serving.router', 'utils.table', "
-            "'optim.validation', 'optim.evaluator'):\n"
+            "'optim.validation', 'optim.evaluator', 'optim.regularizer', "
+            "'parallel.elastic'):\n"
             "    assert 'bigdl_tpu_torch.' + want in names, want\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bigdl_tpu' or "

@@ -168,19 +168,36 @@ def test_positional_dropouts_land_where_jax_puts_them():
 @pytest.mark.parametrize("build", [
     lambda: nn.SpatialConvolution(4, 8, 3, 3, 1, 1, 1, 1, 2),      # n_group
     lambda: nn.SpatialConvolution(4, 8, 3, 3, dilation_w=2),
-    lambda: nn.Linear(4, 3, True, "l2"),                        # w_regularizer
     lambda: nn.Linear(4, 3, True, None, None, np.ones((3, 4))),  # init_weight
     lambda: nn.SpatialAveragePooling(7, 7, 1, 1, 0, 0, True, True),  # ceil
     lambda: nn.SpatialAveragePooling(7, 7, global_pooling=True,
                                      count_include_pad=False),
     lambda: nn.SpatialBatchNormalization(8, 1e-5, 0.1, True, np.ones(8)),
     lambda: nn.Attention(16, 2, 0.0, True, "seq"),                 # seq_axis
-], ids=["conv_n_group", "conv_dilation", "linear_w_regularizer",
-        "linear_init_weight", "avgpool_ceil_mode", "avgpool_count_pad",
+], ids=["conv_n_group", "conv_dilation", "linear_init_weight", "avgpool_ceil_mode", "avgpool_count_pad",
         "bn_init_weight", "attention_seq_axis"])
 def test_unported_parameters_raise_at_a_non_default_value(build):
     with pytest.raises(NotImplementedError):
         build()
+
+
+@pytest.mark.parametrize("build,where", [
+    (lambda r: nn.Linear(4, 3, True, r), ("weight",)),
+    (lambda r: nn.Linear(4, 3, True, None, r), ("bias",)),
+    (lambda r: nn.Linear(4, 3, False, None, r), ()),
+    (lambda r: nn.SpatialConvolution(4, 8, 3, 3, 1, 1, 1, 1, 1, True, r),
+     ("weight",)),
+    (lambda r: nn.SpatialConvolution(4, 8, 3, 3, b_regularizer=r),
+     ("bias",)),
+], ids=["linear_w_regularizer", "linear_b_regularizer",
+        "linear_b_regularizer_without_bias", "conv_w_regularizer",
+        "conv_b_regularizer"])
+def test_regularizer_parameters_are_accepted(build, where):
+    """The regularizers were refused before they were ported; a positional
+    regularizer lands where JAX puts it."""
+    from bigdl_tpu_torch.optim import L2Regularizer
+    r = L2Regularizer(0.1)
+    assert tuple(build(r)._regularizers()) == where
 
 
 def test_positional_defaults_build_what_they_built():
@@ -205,20 +222,17 @@ def test_refuse_unported_passes_defaults_and_names_the_first_change():
 # public JAX methods the port does not have yet, by the JAX class that
 # defines them; each name here must really be missing from the port
 UNPORTED_METHODS = {
-    # the Torch-style stateful facade beyond forward / apply / call: the
-    # save / load family, weights, freezing, the Torch backward protocol,
-    # quantization and the prediction helpers (ROADMAP A.4, A.8)
+    # the Torch-style stateful facade beyond forward / apply / call and
+    # the weights / freezing methods: the save / load family, the Torch
+    # backward protocol, quantization and the prediction helpers (ROADMAP
+    # A.4, A.8)
     "bigdl_tpu.nn.module.Module": {
-        "acc_grad_parameters", "backward", "clone", "find_module", "freeze",
-        "get_extra_parameter",
-        "get_name", "get_parameters", "get_weights", "init", "is_frozen",
-        "is_training", "load", "load_orbax", "load_weights", "modules_iter",
+        "acc_grad_parameters", "backward", "clone", "get_extra_parameter",
+        "get_parameters", "init", "is_training", "load", "load_orbax",
         "predict", "predict_class", "quantize", "save", "save_caffe",
-        "save_orbax", "save_tf", "save_torch", "save_weights",
-        "set_extra_parameter", "set_name", "set_scale_b", "set_scale_w",
-        "set_weights", "unfreeze", "update_grad_input",
+        "save_orbax", "save_tf", "save_torch", "set_extra_parameter",
+        "set_scale_b", "set_scale_w", "update_grad_input",
         "zero_grad_parameters"},
-    "bigdl_tpu.nn.module.Container": {"modules_iter"},
     # the pooling layers' ceil / floor mode switches (ROADMAP A.5)
     "bigdl_tpu.nn.pool._Pool2D": {"ceil", "floor"},
     # transformer chains on data sets (ROADMAP A.4)
@@ -226,18 +240,13 @@ UNPORTED_METHODS = {
     "bigdl_tpu.dataset.transformer.Transformer": {"arrow"},
     # the cross-process page handoff of the fleet tier (ROADMAP A.8)
     "bigdl_tpu.serving.kv_cache.PagedKVCache": {"export_blocks"},
-    # optimizer-state checkpoints and the training loop's follow-ons
-    # (ROADMAP A.4)
-    "bigdl_tpu.optim.optim_method.OptimMethod": {
-        "clone", "current_lr_vector", "load", "optimize", "save"},
+    # the closure form of an optim method, with LBFGS, and the training
+    # loop's health, summary and input follow-ons (ROADMAP A.4)
+    "bigdl_tpu.optim.optim_method.OptimMethod": {"optimize"},
     "bigdl_tpu.optim.optimizer.BaseOptimizer": {
-        "load_checkpoint", "prepare_input", "set_anomaly_detection",
-        "set_checkpoint", "set_fault_policy", "set_prefetch",
+        "prepare_input", "set_anomaly_detection", "set_fault_policy",
         "set_remediation", "set_stall_deadline", "set_summary_trigger",
-        "set_superstep", "set_sync_policy", "set_train_summary",
-        "set_val_summary", "wait_for_checkpoints"},
-    # the evaluation superstep (ROADMAP A.4, with the optimizer's)
-    "bigdl_tpu.optim.evaluator.Evaluator": {"set_superstep"},
+        "set_train_summary", "set_val_summary"},
 }
 
 CLASS_PAIRS = [(k, p, t) for k, p, t in PAIRS if inspect.isclass(p)]
@@ -316,18 +325,21 @@ UNPORTED_MEMBERS = {
     # the multi-device failure detectors (ROADMAP A.6)
     "parallel.failure": {"MeshProbeResult", "probe_mesh", "Heartbeat",
                          "FileHeartbeat", "StragglerMonitor"},
-    # batch prediction and the training input stager (ROADMAP A.8)
+    # batch prediction (ROADMAP A.8)
     "optim.predictor": {"leading_dim", "Predictor", "PredictionService"},
-    "optim.staging": {"BatchStager", "staged", "stager_threads_alive"},
     # mesh-sharded validation (ROADMAP A.6)
     "optim.evaluator": {"DistriValidator"},
+    # the restart supervisor of multi-GPU training (ROADMAP A.6)
+    "parallel.elastic": {"ElasticRunner", "shrink_devices",
+                         "data_parallel_factory"},
 }
 MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "observability.trace", "observability.exporters",
             "observability.flight", "observability.health",
             "observability.cluster", "serving.engine", "serving.router",
             "serving.batching", "optim.predictor", "optim.staging",
-            "optim.validation", "optim.evaluator", "utils.table"]
+            "optim.validation", "optim.evaluator", "optim.regularizer",
+            "parallel.elastic", "utils.table"]
 
 
 @pytest.mark.parametrize("mod", MIRRORED)

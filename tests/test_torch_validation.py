@@ -253,8 +253,9 @@ def test_evaluator_matches_jax_on_the_translation_model(device_path):
     assert [r.result() for r in again] == [r.result() for r in got]
     assert Evaluator(tm).evaluate(DataSet.array([]), tmeth) == \
         [None] * len(tmeth)
-    with pytest.raises(NotImplementedError, match="prefetch_depth"):
-        Evaluator(tm, prefetch_depth=3)
+    # the inline stager evaluates what the lookahead thread does
+    serial = Evaluator(tm, prefetch_depth=0).evaluate(ts, tmeth, batch_size=4)
+    assert [r.result() for r in serial] == [r.result() for r in got]
 
 
 # -- LocalOptimizer with set_validation ----------------------------------------
