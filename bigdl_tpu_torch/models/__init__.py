@@ -1,5 +1,16 @@
-from .resnet import FusedBottleneck, FusedBottleneckChain, ResNet, ResNet50
+from .autoencoder import Autoencoder
+from .inception import (Inception_v1, Inception_v1_NoAuxClassifier,
+                        Inception_v2, Inception_v2_NoAuxClassifier,
+                        inception_block, inception_layer_v2)
+from .lenet import LeNet5
+from .resnet import (FusedBottleneck, FusedBottleneckChain, ResNet,
+                     ResNet50, ResNetCifar)
 from .transformer_lm import TransformerLM, lm_loss_chunked
+from .vgg import Vgg_16, Vgg_19, VggForCifar10
 
-__all__ = ["FusedBottleneck", "FusedBottleneckChain", "ResNet", "ResNet50",
-           "TransformerLM", "lm_loss_chunked"]
+__all__ = ["Autoencoder", "Inception_v1", "Inception_v1_NoAuxClassifier",
+           "Inception_v2", "Inception_v2_NoAuxClassifier", "inception_block",
+           "inception_layer_v2", "LeNet5", "FusedBottleneck",
+           "FusedBottleneckChain", "ResNet", "ResNet50", "ResNetCifar",
+           "TransformerLM", "lm_loss_chunked", "Vgg_16", "Vgg_19",
+           "VggForCifar10"]

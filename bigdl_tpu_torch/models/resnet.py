@@ -1,44 +1,146 @@
 """ResNet (counterpart of ``bigdl_tpu/models/resnet.py``).
 
-This slice ports the ImageNet family's ``fused="pallas"`` NHWC arm, the
-repository's headline training model: the 7x7 stem (``stem="conv7"``),
-BatchNorm, ReLU, the 3x3/2 max pool with exact gradients, then stages of
-:class:`FusedBottleneck` blocks chained by :class:`FusedBottleneckChain`
-(the cross-layer junction kernel is always on, as it is by default in the
-JAX package), global average pooling, ``View`` and ``Linear``. Every 1x1
-conv runs through K3 (``kernels.fused_bn_relu_matmul_nhwc``), every
-junction through K5 (``kernels.fused_residual_matmul_nhwc``) and, with
-``fused_conv2=True`` (the JAX package's ``BIGDL_TPU_FUSED_CONV2=1``), every
-3x3 conv through K4 (``kernels.fused_bn_relu_conv3x3``); on the CPU these
-are the kernels' plain versions.
+Both families of the JAX package: the ImageNet bottleneck ResNets (depths
+50, 101, 152; the 7x7 stem, or ``stem="s2d"``'s space-to-depth form of
+it in NHWC) and the CIFAR basic-block ResNets (depth 6n + 2,
+:func:`ResNetCifar`, shortcut A by default). ``fused="none"``, JAX's
+default, builds the plain Torch-style blocks (:func:`bottleneck`,
+:func:`basic_block`: ``ConcatTable`` of the main branch and the shortcut,
+``CAddTable``, ``ReLU``) in NCHW or NHWC, their convolutions PyTorch's.
+``fused="pallas"`` (NHWC) builds stages of :class:`FusedBottleneck`
+blocks chained by :class:`FusedBottleneckChain` (the cross-layer junction
+kernel always on, as it is by default in the JAX package): every 1x1 conv
+runs through K3 (``kernels.fused_bn_relu_matmul_nhwc``), every junction
+through K5 (``kernels.fused_residual_matmul_nhwc``) and, with
+``fused_conv2=True`` (the JAX package's ``BIGDL_TPU_FUSED_CONV2=1``),
+every 3x3 conv through K4 (``kernels.fused_bn_relu_conv3x3``); on the CPU
+these are the kernels' plain versions.
 
-Not ported yet (they raise): ``fused="xla"`` and ``fused="none"`` (which
-need ``ConcatTable``, ``CAddTable`` and ``Identity``), the NCHW format,
-``stem="s2d"`` (``SpaceToDepthStem``), ``pool_grad="fast"``, the CIFAR
-family, ``with_log_softmax``, shortcut types A and C, and the chain-off
-control arm. The JAX package's TPU tuning knobs (block sizes, the
-flattened layout, VMEM fitting) have no counterpart.
+Not ported (it raises): ``fused="xla"``, the TPU's XLA-fused control arm
+of the fused bottleneck, and the chain-off control arm. The JAX package's
+TPU tuning knobs (block sizes, the flattened layout, VMEM fitting) have no
+counterpart.
 
 Parameter and state trees keep the JAX names and layouts: Sequential
-indices, chain blocks under ``"0"``, ``"1"``, ...; the stem weight OIHW;
-each block's ``w1``/``w2``/``w3``/``proj_w`` HWIO with ``bn1``/``bn2``/
-``bn3``/``proj_bn`` (``weight``, ``bias``; state ``running_mean``,
-``running_var``), so ``convert.jax_to_state_dict`` carries JAX weights
-across by name.
+indices; the plain blocks' ``"0"`` (ConcatTable) / ``"0"`` (main) /
+``"1"`` (shortcut) nesting; the convs' weights OIHW; fused chain blocks
+under ``"0"``, ``"1"``, ..., each block's ``w1``/``w2``/``w3``/``proj_w``
+HWIO with ``bn1``/``bn2``/``bn3``/``proj_bn`` (``weight``, ``bias``;
+state ``running_mean``, ``running_var``), so ``convert.jax_to_state_dict``
+carries JAX weights across by name.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..kernels import (fused_bn_relu_conv3x3, fused_bn_relu_matmul_nhwc,
                        fused_residual_matmul_nhwc)
-from ..nn import (Linear, ReLU, Sequential, SpatialAveragePooling,
+from ..nn import (CAddTable, ConcatTable, Identity, Linear, LogSoftMax,
+                  Padding, ReLU, Sequential, SpatialAveragePooling,
                   SpatialBatchNormalization, SpatialConvolution,
                   SpatialMaxPooling, View)
 from ..nn.init import MsraFiller
 from ..nn.module import Module
-from ..utils.engine import refuse_unported, resolve_device
+from ..utils.engine import refuse_unported
+from ._build import placed
+
+__all__ = ["SpaceToDepthStem", "ShortcutType", "basic_block", "bottleneck",
+           "FusedBottleneck", "FusedBottleneckChain", "ResNet",
+           "ResNetCifar", "ResNet50"]
+
+
+def _conv(nin, nout, k, stride=1, pad=0, fmt="NCHW"):
+    return SpatialConvolution(nin, nout, k, k, stride, stride, pad, pad,
+                              with_bias=False, init_method=MsraFiller(False),
+                              format=fmt)
+
+
+class SpaceToDepthStem(SpatialConvolution):
+    """The 7x7/2 ImageNet stem computed as the identical 4x4/1 conv over a
+    2x2 space-to-depth input (NHWC (N, H, W, 3) -> (N, H/2, W/2, 12)), the
+    weight kept in the plain stem's (64, 3, 7, 7) OIHW layout and the
+    equivalent kernel rebuilt on each call: y[oh] reads x rows 2 oh + kh -
+    3, kh in [0, 7); writing kh - 3 = 2 t + dh (dh in {0, 1}) gives taps t
+    in {-2..1} over s2d row oh + t and sub-row dh, a stride-1 conv padded
+    (2, 1) whose kernel is the 7x7 one zero-padded to 8x8 (one leading row
+    and column) and 2x2-blocked to (4, 4, 12, nout)."""
+
+    def __init__(self, n_output_plane: int = 64, name=None):
+        super().__init__(3, n_output_plane, 7, 7, 2, 2, 3, 3,
+                         with_bias=False, init_method=MsraFiller(False),
+                         format="NHWC", name=name)
+
+    def call(self, params, x):
+        squeeze = x.dim() == 3
+        if squeeze:
+            x = x[None]
+        n, h, w, c = x.shape
+        if c != 3 or h % 2 or w % 2:
+            raise ValueError(f"SpaceToDepthStem wants NHWC with even H, W "
+                             f"and C = 3, got {tuple(x.shape)}")
+        x2 = x.reshape(n, h // 2, 2, w // 2, 2, 3).permute(
+            0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 12)
+        wk = params["weight"].permute(2, 3, 1, 0)          # HWIO (7,7,3,O)
+        wk = F.pad(wk, (0, 0, 0, 0, 1, 0, 1, 0))           # (8,8,3,O)
+        wk = wk.reshape(4, 2, 4, 2, 3, -1).permute(0, 2, 1, 3, 4, 5) \
+            .reshape(4, 4, 12, -1)
+        y = F.conv2d(F.pad(x2.permute(0, 3, 1, 2), (2, 1, 2, 1)),
+                     wk.permute(3, 2, 0, 1).to(x2.dtype))
+        y = y.permute(0, 2, 3, 1)
+        return y[0] if squeeze else y
+
+
+def _bn(n, zero_gamma=False, fmt="NCHW"):
+    return SpatialBatchNormalization(
+        n, init_weight=np.zeros(n, np.float32) if zero_gamma else None,
+        data_format=fmt)
+
+
+class ShortcutType:
+    A = "A"     # identity, channels zero-padded (CIFAR)
+    B = "B"     # a 1x1 conv projection where the shape changes
+    C = "C"     # as B here (the JAX package's reading)
+
+
+def _shortcut(nin, nout, stride, shortcut_type=ShortcutType.B, fmt="NCHW"):
+    if nin != nout or stride != 1:
+        if shortcut_type == ShortcutType.A:
+            if fmt != "NCHW":
+                raise ValueError("shortcut A (CIFAR) is NCHW only")
+            # every stride-th pixel, then the new channels zero-padded
+            return Sequential(SpatialAveragePooling(1, 1, stride, stride),
+                              Padding(2, nout - nin, 4))
+        return Sequential(_conv(nin, nout, 1, stride, fmt=fmt),
+                          _bn(nout, fmt=fmt))
+    return Identity()
+
+
+def basic_block(nin, nout, stride=1, shortcut_type=ShortcutType.B,
+                zero_init_residual=False, fmt="NCHW"):
+    """Two 3x3 conv + BN (ReLU between) beside the shortcut, added, ReLU."""
+    main = Sequential(
+        _conv(nin, nout, 3, stride, 1, fmt), _bn(nout, fmt=fmt), ReLU(),
+        _conv(nout, nout, 3, 1, 1, fmt), _bn(nout, zero_init_residual, fmt))
+    return Sequential(
+        ConcatTable(main, _shortcut(nin, nout, stride, shortcut_type, fmt)),
+        CAddTable(), ReLU())
+
+
+def bottleneck(nin, nmid, stride=1, expansion=4,
+               shortcut_type=ShortcutType.B, zero_init_residual=False,
+               fmt="NCHW"):
+    """1x1 reduce, 3x3 with the stride (v1.5 placement), 1x1 expand, each
+    with BN (ReLU after the first two), beside the shortcut, added, ReLU."""
+    nout = nmid * expansion
+    main = Sequential(
+        _conv(nin, nmid, 1, fmt=fmt), _bn(nmid, fmt=fmt), ReLU(),
+        _conv(nmid, nmid, 3, stride, 1, fmt), _bn(nmid, fmt=fmt), ReLU(),
+        _conv(nmid, nout, 1, fmt=fmt), _bn(nout, zero_init_residual, fmt))
+    return Sequential(
+        ConcatTable(main, _shortcut(nin, nout, stride, shortcut_type, fmt)),
+        CAddTable(), ReLU())
 
 
 def _max0(u):
@@ -258,49 +360,100 @@ def ResNet(class_num: int = 1000, depth: int = 50, shortcut_type: str = "B",
            fused: str = "none", fused_conv2: bool = False, device=None,
            seed: int = 0):
     """The JAX package's factory (the reference's ``ResNet(classNum,
-    opt)``), for the ported arm: ``format="NHWC", fused="pallas"`` over the
-    ImageNet depths 50, 101 and 152. ``fused_conv2`` routes the 3x3 convs
-    through K4. The model is built on ``device`` (the CUDA device by
-    default, which raises without one; ``'cpu'`` for the CPU) with weights
-    drawn from a generator seeded with ``seed``."""
-    unported = {
-        "data_set": (data_set.lower(), "imagenet"),
-        "fused": (fused, "pallas"), "format": (format, "NHWC"),
-        "stem": (stem, "conv7"), "pool_grad": (pool_grad, "exact"),
-        "shortcut_type": (shortcut_type, "B"),
-        "with_log_softmax": (with_log_softmax, False)}
-    for name, (got, ported) in unported.items():
-        if got != ported:
-            raise NotImplementedError(
-                f"ResNet({name}={got!r}) is not ported; the port builds "
-                f"format='NHWC', fused='pallas' ImageNet ResNets")
+    opt)``): ``data_set="cifar10"`` gives :func:`ResNetCifar` (with this
+    ``shortcut_type``); otherwise the ImageNet depths 50, 101 and 152 in
+    ``format`` NCHW or NHWC, ``fused="none"`` (plain blocks) or
+    ``"pallas"`` (NHWC, shortcut B: the kernels, ``fused_conv2`` routing
+    the 3x3 convs through K4). ``stem="s2d"`` (NHWC) is the space-to-depth
+    stem, ``pool_grad`` the stem max pool's ``grad_mode``. The model is
+    built on ``device`` (the CUDA device by default, which raises without
+    one; ``'cpu'`` for the CPU) with weights drawn from a generator seeded
+    with ``seed``."""
+    if data_set.lower() == "cifar10":
+        return ResNetCifar(class_num, depth, shortcut_type, device=device,
+                           seed=seed)
+    if fused == "xla":
+        raise NotImplementedError(
+            "ResNet(fused='xla') is not ported: it is the TPU's XLA-fused "
+            "control arm of the fused bottleneck (ROADMAP A.5)")
+    if fused not in ("none", "pallas"):
+        raise ValueError(f"fused must be 'none', 'pallas' or 'xla', got "
+                         f"{fused!r}")
     if depth not in _IMAGENET_CFG:
         raise ValueError(f"ImageNet ResNet depth must be one of "
                          f"{sorted(_IMAGENET_CFG)}, got {depth}")
-    dev = resolve_device(device)
-    model = Sequential(
-        SpatialConvolution(3, 64, 7, 7, 2, 2, 3, 3, with_bias=False,
-                           init_method=MsraFiller(False), format="NHWC"),
-        SpatialBatchNormalization(64, data_format="NHWC"), ReLU(),
-        SpatialMaxPooling(3, 3, 2, 2, 1, 1, format="NHWC",
-                          grad_mode=pool_grad))
+    fmt = format
+    if fused == "pallas":
+        if fmt != "NHWC":
+            raise ValueError("fused bottlenecks are the NHWC path")
+        if shortcut_type != ShortcutType.B:
+            raise NotImplementedError(
+                f"fused='pallas' implements shortcut type B only (requested "
+                f"{shortcut_type!r}), as the JAX package's fused arms do")
+    elif fused_conv2:
+        raise ValueError("fused_conv2 routes the fused bottlenecks' 3x3 "
+                         "convs: it needs fused='pallas'")
+    model = Sequential()
+    if stem == "s2d":
+        if fmt != "NHWC":
+            raise ValueError("the space-to-depth stem is the NHWC path")
+        model.add(SpaceToDepthStem(64))
+    else:
+        model.add(_conv(3, 64, 7, 2, 3, fmt))
+    model.add(_bn(64, fmt=fmt))
+    model.add(ReLU())
+    model.add(SpatialMaxPooling(3, 3, 2, 2, 1, 1, format=fmt,
+                                grad_mode=pool_grad))
     nin = 64
     for stage, n_blocks in enumerate(_IMAGENET_CFG[depth]):
         nmid = 64 * 2 ** stage
         blocks = []
         for b in range(n_blocks):
             stride = 2 if (stage > 0 and b == 0) else 1
-            blocks.append(FusedBottleneck(nin, nmid, stride, 4,
-                                          zero_init_residual,
-                                          fused_conv2=fused_conv2))
+            if fused == "pallas":
+                blocks.append(FusedBottleneck(nin, nmid, stride, 4,
+                                              zero_init_residual,
+                                              fused_conv2=fused_conv2))
+            else:
+                model.add(bottleneck(nin, nmid, stride, 4, shortcut_type,
+                                     zero_init_residual, fmt))
             nin = nmid * 4
-        model.add(FusedBottleneckChain(blocks))
+        if blocks:
+            model.add(FusedBottleneckChain(blocks))
     model.add(SpatialAveragePooling(7, 7, 1, 1, global_pooling=True,
-                                    format="NHWC"))
+                                    format=fmt))
     model.add(View(nin))
     model.add(Linear(nin, class_num))
-    model.to(dev)
-    return model.reset(torch.Generator(device=dev).manual_seed(seed))
+    if with_log_softmax:
+        model.add(LogSoftMax())
+    return placed(model, device, seed)
+
+
+def ResNetCifar(class_num: int = 10, depth: int = 20,
+                shortcut_type: str = ShortcutType.A, device=None,
+                seed: int = 0):
+    """The CIFAR-10 ResNet of depth 6n + 2 (20, 32, 44, 56, 110): a 3x3
+    stem, three stages of n basic blocks (16, 32, 64 channels), global
+    average pooling, ``Linear`` and log-softmax, NCHW."""
+    if depth < 8 or (depth - 2) % 6:
+        raise ValueError(f"CIFAR depth must be 6n + 2, got {depth}")
+    n = (depth - 2) // 6
+    model = Sequential()
+    model.add(_conv(3, 16, 3, 1, 1))
+    model.add(_bn(16))
+    model.add(ReLU())
+    nin = 16
+    for stage in range(3):
+        nout = 16 * 2 ** stage
+        for b in range(n):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            model.add(basic_block(nin, nout, stride, shortcut_type))
+            nin = nout
+    model.add(SpatialAveragePooling(8, 8, 1, 1, global_pooling=True))
+    model.add(View(nin))
+    model.add(Linear(nin, class_num))
+    model.add(LogSoftMax())
+    return placed(model, device, seed)
 
 
 def ResNet50(class_num: int = 1000, **kw):

@@ -1,27 +1,30 @@
-from .activation import ReLU
+from . import (activation, containers, conv, criterion, dropout, elementwise,
+               init, norm, pool, shape_ops, table_ops)
+from .activation import *  # noqa: F401,F403
 from .attention import (Attention, FeedForwardNetwork, Transformer,
                         TransformerBlock, causal_mask, dot_product_attention,
                         embed_ids, padding_mask, position_encoding,
                         rotary_embedding)
-from .containers import Sequential
-from .conv import SpatialConvolution
-from .criterion import (ClassNLLCriterion, CrossEntropyCriterion, LMCriterion,
-                        TimeDistributedMaskCriterion)
+from .containers import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .criterion import *  # noqa: F401,F403
+from .dropout import *  # noqa: F401,F403
+from .elementwise import *  # noqa: F401,F403
+from .init import *  # noqa: F401,F403
 from .linear import Linear
 from .module import Container, Criterion, Module
-from .norm import (BatchNormalization, LayerNormalization,
-                   SpatialBatchNormalization)
-from .pool import SpatialAveragePooling, SpatialMaxPooling
-from .shape_ops import View
+from .norm import *  # noqa: F401,F403
+from .pool import *  # noqa: F401,F403
+from .shape_ops import *  # noqa: F401,F403
 from .speculative import SpecStats, speculative_generate
+from .table_ops import *  # noqa: F401,F403
 
-__all__ = ["ReLU", "Attention", "FeedForwardNetwork", "Transformer",
-           "TransformerBlock", "causal_mask", "dot_product_attention",
-           "embed_ids", "padding_mask", "position_encoding",
-           "rotary_embedding", "Sequential",
-           "SpatialConvolution", "ClassNLLCriterion", "CrossEntropyCriterion",
-           "LMCriterion", "TimeDistributedMaskCriterion", "Linear",
-           "Container", "Criterion", "Module", "BatchNormalization",
-           "LayerNormalization", "SpatialBatchNormalization",
-           "SpatialAveragePooling", "SpatialMaxPooling", "View",
-           "SpecStats", "speculative_generate"]
+__all__ = (["Attention", "FeedForwardNetwork", "Transformer",
+            "TransformerBlock", "causal_mask", "dot_product_attention",
+            "embed_ids", "padding_mask", "position_encoding",
+            "rotary_embedding", "Linear", "Container", "Criterion", "Module",
+            "SpecStats", "speculative_generate"]
+           + activation.__all__ + containers.__all__ + conv.__all__
+           + criterion.__all__ + dropout.__all__ + elementwise.__all__
+           + init.__all__ + norm.__all__ + pool.__all__ + shape_ops.__all__
+           + table_ops.__all__)

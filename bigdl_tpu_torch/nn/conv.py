@@ -1,26 +1,72 @@
-"""Convolution (counterpart of ``bigdl_tpu/nn/conv.py``; the ResNet slice
-ports ``SpatialConvolution``)."""
+"""Convolution (counterpart of ``bigdl_tpu/nn/conv.py``; this port has the
+2-D family: ``SpatialConvolution`` with groups, dilation and SAME padding,
+``SpatialShareConvolution``, ``SpatialDilatedConvolution``, the transposed
+``SpatialFullConvolution`` and ``SpatialSeparableConvolution``).
+
+pad -1 is SAME, for both dims when either asks for it (the JAX package's
+``_resolve_padding``): out = ceil(in / stride) and the total padding
+``(out - 1) * stride + (k - 1) * dilation + 1 - in`` is split
+``(total // 2, total - total // 2)``, the larger half after the input.
+``F.conv2d(padding='same')`` refuses strides above 1, so an uneven split
+is padded first and the convolution runs VALID. The convolutions are
+PyTorch's (``F.conv2d``, ``F.conv_transpose2d``; cuDNN on the card), as
+the JAX package's are XLA's ``lax.conv_general_dilated``.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.engine import refuse_unported
 from .init import Xavier, Zeros
 from .module import Module
+
+__all__ = ["SpatialConvolution", "SpatialShareConvolution",
+           "SpatialDilatedConvolution", "SpatialFullConvolution",
+           "SpatialSeparableConvolution"]
+
+
+def _same_pad(size, k, stride, dilation=1):
+    out = -(-size // stride)
+    total = max(0, (out - 1) * stride + (k - 1) * dilation + 1 - size)
+    return total // 2, total - total // 2
+
+
+def _conv2d(x, w, bias, stride, pads, dilation=(1, 1), groups=1):
+    """``F.conv2d`` over NCHW x with per-dim (lo, hi) ``pads``; an uneven
+    pair is padded explicitly first."""
+    (hl, hh), (wl, wh) = pads
+    if hl == hh and wl == wh:
+        return F.conv2d(x, w, bias, stride, (hl, wl), dilation, groups)
+    return F.conv2d(F.pad(x, (wl, wh, hl, hh)), w, bias, stride, 0, dilation,
+                    groups)
+
+
+def _resolve_pads(x_hw, kernel, stride, pad, dilation=(1, 1)):
+    """The (lo, hi) pads of H and W: SAME for both when either pad is -1."""
+    if -1 in pad:
+        return tuple(_same_pad(n, k, s, d) for n, k, s, d in
+                     zip(x_hw, kernel, stride, dilation))
+    return tuple((p, p) for p in pad)
+
+
+def _host_array(a, shape=None):
+    a = np.array(a, np.float32, copy=True)
+    return a.reshape(shape) if shape is not None else a
 
 
 class SpatialConvolution(Module):
     """2-D convolution (nn/SpatialConvolution.scala). ``format`` NCHW or
-    NHWC; the weight stays OIHW (the reference layout) either way. An NHWC
-    input goes to ``F.conv2d`` as its channels-last NCHW view
-    (``permute(0, 3, 1, 2)``, no copy) and the output comes back the same
-    way. Weights default to ``Xavier``, biases to ``Zeros``. Explicit
-    padding only (pad -1, SAME, is not ported); ``n_group``,
-    ``propagate_back=False``, ``init_weight`` / ``init_bias`` and dilation
-    are not ported and raise at a value other than their default.
-    ``w_regularizer`` / ``b_regularizer`` (``optim.regularizer``) add their
-    penalty to the training loss."""
+    NHWC; the weight stays OIHW, (n_output_plane, n_input_plane / n_group,
+    kh, kw), the reference layout, either way. An NHWC input goes to
+    ``F.conv2d`` as its channels-last NCHW view (``permute(0, 3, 1, 2)``,
+    no copy) and the output comes back the same way. Weights default to
+    ``Xavier`` (fan-in (n_input_plane / n_group) kh kw), biases to
+    ``Zeros``; ``init_weight`` / ``init_bias`` give their values.
+    ``propagate_back=False`` is accepted and, as in the JAX package, the
+    input's gradient is still computed. ``w_regularizer`` /
+    ``b_regularizer`` (``optim.regularizer``) add their penalty to the
+    training loss."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
@@ -31,38 +77,43 @@ class SpatialConvolution(Module):
                  bias_init_method=None, dilation_w: int = 1,
                  dilation_h: int = 1, format: str = "NCHW", name=None):
         super().__init__(name=name)
-        refuse_unported("SpatialConvolution", n_group=(n_group, 1),
-                        propagate_back=(propagate_back, True),
-                        init_weight=(init_weight, None),
-                        init_bias=(init_bias, None),
-                        dilation_w=(dilation_w, 1),
-                        dilation_h=(dilation_h, 1))
         if format not in ("NCHW", "NHWC"):
             raise ValueError(f"format must be NCHW or NHWC, got {format!r}")
-        if pad_w < 0 or pad_h < 0:
-            raise NotImplementedError("SAME padding (pad -1) is not ported")
+        if n_input_plane % n_group or n_output_plane % n_group:
+            raise ValueError(f"n_group {n_group} must divide the planes "
+                             f"{n_input_plane} -> {n_output_plane}")
         self.format = format
         self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
         self.n_input_plane, self.n_output_plane = n_input_plane, n_output_plane
+        self.n_group = n_group
         self.kernel = (kernel_h, kernel_w)
         self.stride = (stride_h, stride_w)
         self.padding = (pad_h, pad_w)
+        self.dilation = (dilation_h, dilation_w)
+        self.init_weight = (None if init_weight is None else _host_array(
+            init_weight, (n_output_plane, n_input_plane // n_group,
+                          kernel_h, kernel_w)))
+        self.init_bias = None if init_bias is None else _host_array(init_bias)
         self.init_method = init_method or Xavier()
         self.bias_init_method = bias_init_method or Zeros()
-        self.weight = torch.nn.Parameter(
-            torch.empty(n_output_plane, n_input_plane, kernel_h, kernel_w))
+        self.weight = torch.nn.Parameter(torch.empty(
+            n_output_plane, n_input_plane // n_group, kernel_h, kernel_w))
         self.bias = (torch.nn.Parameter(torch.empty(n_output_plane))
                      if with_bias else None)
         self.reset()
 
     def _reset(self, generator):
         kh, kw = self.kernel
-        fans = dict(fan_in=self.n_input_plane * kh * kw,
+        fans = dict(fan_in=self.n_input_plane // self.n_group * kh * kw,
                     fan_out=self.n_output_plane * kh * kw,
                     generator=generator, device=self.weight.device)
-        self.weight.copy_(self.init_method(self.weight.shape, **fans))
+        self.weight.copy_(
+            torch.from_numpy(self.init_weight) if self.init_weight is not None
+            else self.init_method(self.weight.shape, **fans))
         if self.bias is not None:
-            self.bias.copy_(self.bias_init_method(self.bias.shape, **fans))
+            self.bias.copy_(
+                torch.from_numpy(self.init_bias) if self.init_bias is not None
+                else self.bias_init_method(self.bias.shape, **fans))
 
     def _regularizers(self):
         """{param name: Regularizer} for the training step's penalty."""
@@ -78,8 +129,134 @@ class SpatialConvolution(Module):
         if squeeze:
             x = x[None]
         nhwc = self.format == "NHWC"
-        y = F.conv2d(x.permute(0, 3, 1, 2) if nhwc else x, params["weight"],
-                     params.get("bias"), self.stride, self.padding)
+        if nhwc:
+            x = x.permute(0, 3, 1, 2)
+        pads = _resolve_pads(x.shape[2:], self.kernel, self.stride,
+                             self.padding, self.dilation)
+        y = _conv2d(x, params["weight"], params.get("bias"), self.stride,
+                    pads, self.dilation, self.n_group)
         if nhwc:
             y = y.permute(0, 2, 3, 1)
         return y[0] if squeeze else y
+
+
+class SpatialShareConvolution(SpatialConvolution):
+    """nn/SpatialShareConvolution.scala: the reference's buffer-sharing
+    ``SpatialConvolution``, the same layer here."""
+
+
+class SpatialDilatedConvolution(SpatialConvolution):
+    """nn/SpatialDilatedConvolution.scala."""
+
+    def __init__(self, n_input_plane, n_output_plane, kw, kh, dw=1, dh=1,
+                 pad_w=0, pad_h=0, dilation_w=1, dilation_h=1,
+                 w_regularizer=None, b_regularizer=None, name=None):
+        super().__init__(n_input_plane, n_output_plane, kw, kh, dw, dh,
+                         pad_w, pad_h, w_regularizer=w_regularizer,
+                         b_regularizer=b_regularizer,
+                         dilation_w=dilation_w, dilation_h=dilation_h,
+                         name=name)
+
+
+class SpatialFullConvolution(Module):
+    """Transposed 2-D convolution (nn/SpatialFullConvolution.scala) over
+    NCHW, weight (n_input_plane, n_output_plane / n_group, kh, kw) - torch's
+    ``conv_transpose2d`` layout -, Xavier with fan-in n_input_plane kh kw,
+    bias zero. The output is the full transposed convolution, (H - 1) dh
+    + kh rows, less pad_h rows at the top and pad_h - adj_h at the bottom
+    (zero rows added where that is negative): (H - 1) dh - 2 pad_h + kh
+    + adj_h rows, as the JAX package's input-dilated convolution gives for
+    any adj (``F.conv_transpose2d``'s ``output_padding`` must stay below
+    the stride).
+    The regularizers are stored and, as in the JAX package, not applied."""
+
+    def __init__(self, n_input_plane: int, n_output_plane: int,
+                 kw: int, kh: int, dw: int = 1, dh: int = 1,
+                 pad_w: int = 0, pad_h: int = 0, adj_w: int = 0,
+                 adj_h: int = 0, n_group: int = 1, no_bias: bool = False,
+                 w_regularizer=None, b_regularizer=None, name=None):
+        super().__init__(name=name)
+        self.n_input_plane, self.n_output_plane = n_input_plane, n_output_plane
+        self.kw, self.kh, self.dw, self.dh = kw, kh, dw, dh
+        self.pad_w, self.pad_h = pad_w, pad_h
+        self.adj_w, self.adj_h = adj_w, adj_h
+        self.n_group, self.no_bias = n_group, no_bias
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
+        self.weight = torch.nn.Parameter(torch.empty(
+            n_input_plane, n_output_plane // n_group, kh, kw))
+        self.bias = (None if no_bias else
+                     torch.nn.Parameter(torch.empty(n_output_plane)))
+        self.reset()
+
+    def _reset(self, generator):
+        self.weight.copy_(Xavier()(
+            self.weight.shape, fan_in=self.n_input_plane * self.kh * self.kw,
+            fan_out=self.n_output_plane * self.kh * self.kw,
+            generator=generator, device=self.weight.device))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def call(self, params, x):
+        squeeze = x.dim() == 3
+        if squeeze:
+            x = x[None]
+        full = F.conv_transpose2d(x, params["weight"], None,
+                                  (self.dh, self.dw), groups=self.n_group)
+        # a negative width crops
+        y = F.pad(full, (-self.pad_w, self.adj_w - self.pad_w,
+                         -self.pad_h, self.adj_h - self.pad_h))
+        if not self.no_bias:
+            y = y + params["bias"][None, :, None, None]
+        return y[0] if squeeze else y
+
+
+class SpatialSeparableConvolution(Module):
+    """A depthwise convolution (``depth_multiplier`` maps per input
+    channel, ``depth_weight`` (cin * multiplier, 1, kh, kw)) then a
+    pointwise one (``point_weight`` (n_output_channel, cin * multiplier, 1,
+    1)) over NCHW (nn/SpatialSeparableConvolution.scala); Xavier weights,
+    bias zero."""
+
+    def __init__(self, n_input_channel: int, n_output_channel: int,
+                 depth_multiplier: int, kw: int, kh: int, sw: int = 1,
+                 sh: int = 1, pw: int = 0, ph: int = 0, has_bias: bool = True,
+                 w_regularizer=None, b_regularizer=None, p_regularizer=None,
+                 name=None):
+        super().__init__(name=name)
+        self.n_input_channel = n_input_channel
+        self.n_output_channel = n_output_channel
+        self.depth_multiplier = depth_multiplier
+        self.kw, self.kh, self.sw, self.sh = kw, kh, sw, sh
+        self.pw, self.ph = pw, ph
+        self.has_bias = has_bias
+        cmid = n_input_channel * depth_multiplier
+        self.depth_weight = torch.nn.Parameter(torch.empty(cmid, 1, kh, kw))
+        self.point_weight = torch.nn.Parameter(
+            torch.empty(n_output_channel, cmid, 1, 1))
+        self.bias = (torch.nn.Parameter(torch.empty(n_output_channel))
+                     if has_bias else None)
+        self.reset()
+
+    def _reset(self, generator):
+        cmid = self.n_input_channel * self.depth_multiplier
+        dev = self.depth_weight.device
+        k = self.kh * self.kw
+        self.depth_weight.copy_(Xavier()(self.depth_weight.shape, fan_in=k,
+                                         fan_out=k, generator=generator,
+                                         device=dev))
+        self.point_weight.copy_(Xavier()(
+            self.point_weight.shape, fan_in=cmid,
+            fan_out=self.n_output_channel, generator=generator, device=dev))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def call(self, params, x):
+        stride = (self.sh, self.sw)
+        pads = _resolve_pads(x.shape[2:], (self.kh, self.kw), stride,
+                             (self.ph, self.pw))
+        y = _conv2d(x, params["depth_weight"], None, stride, pads,
+                    groups=self.n_input_channel)
+        y = F.conv2d(y, params["point_weight"])
+        if self.has_bias:
+            y = y + params["bias"][None, :, None, None]
+        return y

@@ -1,7 +1,7 @@
-"""Weight initialisation methods (counterpart of ``bigdl_tpu/nn/init.py``;
-the ones the ResNet slice needs: ``Zeros``, ``Ones``, ``RandomUniform`` -
-``Linear``'s default -, ``Xavier`` - ``SpatialConvolution``'s - and
-``MsraFiller``).
+"""Weight initialisation methods (counterpart of ``bigdl_tpu/nn/init.py``:
+``Zeros``, ``Ones``, ``ConstInit``, ``RandomUniform`` - ``Linear``'s
+default -, ``RandomNormal``, ``Xavier`` - ``SpatialConvolution``'s -,
+``MsraFiller`` and ``BilinearFiller``).
 
 The fan conventions are the JAX package's (the reference's): a 2-D weight
 (out, in) has fan-in ``in`` and fan-out ``out``; a conv weight (out, in,
@@ -15,7 +15,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+__all__ = ["InitializationMethod", "Zeros", "Ones", "ConstInit",
+           "ConstInitMethod", "RandomUniform", "RandomNormal", "Xavier",
+           "MsraFiller", "BilinearFiller"]
 
 
 def _fans(shape, fan_in=None, fan_out=None):
@@ -48,6 +53,16 @@ class Ones(InitializationMethod):
         return torch.ones(shape, device=device, dtype=dtype)
 
 
+class ConstInit(InitializationMethod):
+    def __init__(self, value):
+        self.value = value
+
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None,
+                 device=None, dtype=torch.float32):
+        return torch.full(tuple(shape), self.value, device=device,
+                          dtype=dtype)
+
+
 class RandomUniform(InitializationMethod):
     """U(lower, upper); without bounds U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
 
@@ -64,6 +79,18 @@ class RandomUniform(InitializationMethod):
             lo, hi = self.lower, self.upper
         return torch.empty(shape, device=device, dtype=dtype).uniform_(
             lo, hi, generator=generator)
+
+
+class RandomNormal(InitializationMethod):
+    """N(mean, stdv^2)."""
+
+    def __init__(self, mean=0.0, stdv=1.0):
+        self.mean, self.stdv = mean, stdv
+
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None,
+                 device=None, dtype=torch.float32):
+        return torch.empty(shape, device=device, dtype=dtype).normal_(
+            self.mean, self.stdv, generator=generator)
 
 
 class Xavier(InitializationMethod):
@@ -91,3 +118,23 @@ class MsraFiller(InitializationMethod):
         std = math.sqrt(2.0 / max(n, 1.0))
         return torch.empty(shape, device=device, dtype=dtype).normal_(
             0.0, std, generator=generator)
+
+
+class BilinearFiller(InitializationMethod):
+    """The bilinear upsampling kernel of a transposed convolution, the same
+    (kh, kw) plane in every (out, in) slot of the weight."""
+
+    def __call__(self, shape, fan_in=None, fan_out=None, generator=None,
+                 device=None, dtype=torch.float32):
+        kh, kw = shape[-2], shape[-1]
+        f = int(np.ceil(kw / 2.0))
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        xs = np.arange(kh * kw)
+        vals = (1 - np.abs(xs % kw / f - c)) * (1 - np.abs(xs // kw / f - c))
+        w = np.broadcast_to(vals.reshape(kh, kw).astype(np.float32),
+                            tuple(shape))
+        return torch.tensor(w, device=device, dtype=dtype)
+
+
+# the pyspark nn/initialization_method.py spelling
+ConstInitMethod = ConstInit

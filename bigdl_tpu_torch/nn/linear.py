@@ -1,5 +1,5 @@
-"""Dense layers (counterpart of ``bigdl_tpu/nn/linear.py``; the ResNet
-slice ports ``Linear``)."""
+"""Dense layers (counterpart of ``bigdl_tpu/nn/linear.py``; ``Linear`` so
+far, the rest of the module with the sequence layers, ROADMAP A.7)."""
 from __future__ import annotations
 
 import torch

@@ -31,7 +31,21 @@ JAX package's Torch-style API:
   training loop zeroes a frozen leaf's gradient and keeps its value;
 * ``get_weights`` / ``set_weights`` (nested dicts of numpy arrays) and
   ``save_weights`` / ``load_weights``: one ``.npz`` with the JAX trees'
-  "/"-joined names and layouts, so either package loads the other's file.
+  "/"-joined names and layouts, so either package loads the other's file;
+* the Torch backward protocol: ``backward(x, grad_output)`` returns the
+  input's gradient and adds the parameters' gradients, times
+  ``set_scale_w``'s factor, into ``grad_params`` (a tree like ``params``);
+  ``update_grad_input`` only the former, ``acc_grad_parameters`` both (as
+  JAX's); ``zero_grad_parameters``; ``get_parameters`` -> one flat weight
+  vector, one flat gradient vector (copies, in the JAX trees' flattening
+  order: keys sorted at every level) and the unravel of a flat vector
+  back into the tree. ``backward`` recomputes the forward through
+  autograd on the module's state; in training mode it draws what the
+  last ``forward`` drew (a dropout mask), from a generator the stateful
+  facade keeps per device (seeded by ``engine.new_generator``), where
+  JAX's draws a new key. ``parameters()`` stays torch's iterator of the
+  parameter tensors (the JAX package's returns the pair of weight and
+  gradient lists): PyTorch itself, ``.to`` aside, walks it.
 
 ``torch.nn.Module.apply(fn)`` is shadowed by the JAX package's ``apply``;
 use ``modules()`` to visit submodules.
@@ -42,6 +56,8 @@ import numpy as np
 import torch
 
 from ..convert import flatten, host_copy_tree, to_numpy_tree, unflatten
+from ..utils import engine
+from ..utils.table import Table
 
 
 class _TrainingFlag:
@@ -71,6 +87,11 @@ class Module(torch.nn.Module):
         Module._instance_counter[0] += 1
         n = Module._instance_counter[0]
         self.name = name or f"{type(self).__name__}{n}"
+        self.grad_params = None
+        self.output = None
+        self.grad_input = None
+        self._scale_w = 1.0
+        self._scale_b = 1.0
 
     @property
     def training(self):
@@ -128,10 +149,124 @@ class Module(torch.nn.Module):
 
     def forward(self, x):
         state = self.state
-        out, new_state = self.apply(self.params, state, x,
-                                    training=bool(self.training))
+        training = bool(self.training)
+        gen = self._draw_generator(x) if training else None
+        out, new_state = self.apply(self.params, state, x, training=training,
+                                    generator=gen)
         assign_state(state, new_state)
+        self.output = out
         return out
+
+    # -- the Torch backward protocol --------------------------------------
+    def _draw_generator(self, x):
+        """The facade's generator on x's device, its state recorded so a
+        following ``backward`` draws the same values."""
+        dev = _first_tensor(x).device
+        gens = self.__dict__.setdefault("_facade_generators", {})
+        if str(dev) not in gens:
+            gens[str(dev)] = engine.new_generator(dev)
+        g = gens[str(dev)]
+        self.__dict__["_forward_draw"] = (str(dev), g.get_state())
+        return g
+
+    def _replay_generator(self, x):
+        if not self.training:
+            return None
+        dev = _first_tensor(x).device
+        last = self.__dict__.get("_forward_draw")
+        if last is None or last[0] != str(dev):
+            return self._draw_generator(x)
+        g = torch.Generator(device=dev)
+        g.set_state(last[1])
+        return g
+
+    def _vjp(self, x, grad_output, with_params):
+        """(gradient of the input, gradient tree of the parameters or
+        None) of the forward on this module's state at ``grad_output``."""
+        xs = _tensor_leaves(x)
+        xr = [t.detach().requires_grad_(True) if t.is_floating_point()
+              else t for t in xs]
+        params = self.params
+        pleaves = flatten(params)
+        with torch.enable_grad():
+            out, _ = self.apply(params, self.state, _rebuild(x, iter(xr)),
+                                training=bool(self.training),
+                                generator=self._replay_generator(x))
+            wrt = [t for t in xr if t.requires_grad]
+            if with_params:
+                wrt += list(pleaves.values())
+            grads = torch.autograd.grad(
+                _tensor_leaves(out), wrt, _tensor_leaves(grad_output),
+                allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for w, g in zip(wrt, grads)]
+        it = iter(grads)
+        gx = _rebuild(x, (next(it) if t.requires_grad else
+                          torch.zeros_like(t) for t in xr))
+        gp = (unflatten(dict(zip(pleaves, it))) if with_params and pleaves
+              else None)
+        return gx, gp
+
+    def _grad_tree(self):
+        if self.grad_params is None:
+            self.grad_params = unflatten(
+                {k: torch.zeros_like(v, requires_grad=False).detach()
+                 for k, v in flatten(self.params).items()})
+        return self.grad_params
+
+    def backward(self, x, grad_output):
+        """The input's gradient; the parameters' gradients (times the
+        weight scale) are added into ``grad_params``."""
+        gi, gp = self._vjp(x, grad_output, True)
+        acc = flatten(self._grad_tree())
+        if gp is not None:
+            with torch.no_grad():
+                for k, g in flatten(gp).items():
+                    acc[k].add_(g, alpha=self._scale_w)
+        self.grad_input = gi
+        return gi
+
+    def update_grad_input(self, x, grad_output):
+        self.grad_input = self._vjp(x, grad_output, False)[0]
+        return self.grad_input
+
+    def acc_grad_parameters(self, x, grad_output):
+        self.backward(x, grad_output)
+
+    def zero_grad_parameters(self):
+        if self.grad_params is not None:
+            with torch.no_grad():
+                for g in flatten(self.grad_params).values():
+                    g.zero_()
+
+    def get_parameters(self):
+        """(flat weights, flat gradients, unravel): copies, in the JAX
+        trees' order (keys sorted at every level, as ``ravel_pytree``
+        flattens)."""
+        names = _sorted_paths(self.params)
+        w, g = flatten(self.params), flatten(self._grad_tree())
+        flat_w = _cat([w[k] for k in names])
+        flat_g = _cat([g[k] for k in names])
+        shapes = [(k, tuple(w[k].shape), w[k].numel()) for k in names]
+
+        def unravel(v):
+            out, i = {}, 0
+            for k, shape, n in shapes:
+                out[k] = v[i:i + n].reshape(shape)
+                i += n
+            return unflatten(out)
+        return flat_w, flat_g, unravel
+
+    def is_training(self):
+        return bool(self.training)
+
+    def set_scale_w(self, s):
+        self._scale_w = s
+        return self
+
+    def set_scale_b(self, s):
+        self._scale_b = s
+        return self
 
     def reset(self, generator=None):
         """Initialise every parameter and state tensor of this module and
@@ -222,6 +357,45 @@ class Module(torch.nn.Module):
         return self
 
 
+def _first_tensor(x):
+    return _tensor_leaves(x)[0]
+
+
+def _tensor_leaves(x):
+    """The tensors of x (a tensor, or a Table / list / tuple of them,
+    nested), depth first."""
+    if torch.is_tensor(x):
+        return [x]
+    return [t for item in x for t in _tensor_leaves(item)]
+
+
+def _rebuild(x, leaves):
+    """x's structure with its tensors taken in order from ``leaves``."""
+    if torch.is_tensor(x):
+        return next(leaves)
+    items = [_rebuild(item, leaves) for item in x]
+    return Table(*items) if isinstance(x, Table) else type(x)(items)
+
+
+def _sorted_paths(tree, prefix=""):
+    """The dotted leaf paths of a nested dict, keys sorted at every level
+    (the JAX trees' flattening order)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _sorted_paths(v, f"{prefix}{k}.")
+        else:
+            out.append(f"{prefix}{k}")
+    return out
+
+
+def _cat(ts):
+    if not ts:
+        return torch.zeros(0)
+    return torch.cat([t.detach().reshape(-1) for t in ts])
+
+
 def copy_tree_into(live, host):
     """Copy each leaf of ``host`` (arrays or tensors, the same tree as
     ``live``) into the matching tensor of ``live`` in place, cast to the
@@ -308,8 +482,13 @@ class Criterion:
         return self.forward(input, target)
 
     def backward(self, input, target):
-        x = input.detach().requires_grad_(True)
+        """The loss's gradient in ``input``: a tensor, or a Table of them
+        for a Table input."""
+        xs = [t.detach().requires_grad_(True) for t in _tensor_leaves(input)]
         with torch.enable_grad():
-            loss = self._forward(x, target)
-        self.grad_input, = torch.autograd.grad(loss, x)
+            loss = self._forward(_rebuild(input, iter(xs)), target)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        self.grad_input = _rebuild(input, (
+            torch.zeros_like(x) if g is None else g
+            for x, g in zip(xs, grads)))
         return self.grad_input

@@ -205,13 +205,39 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    times and a checkpoint's bytes and seconds, sync and async, with the
    card's name and power limit, and two timing arms without checkpoints:
    (a) with cuDNN's default algorithms and (b) with its groups stacked
-   inline (``set_prefetch(0)``; its end state held to (a)'s).
+   inline (``set_prefetch(0)``; its end state held to (a)'s);
+13. drives the Torch-style layer library and the classic image zoo in
+   float32 with TF32 off, where no port kernel may launch: (a) LeNet-5
+   through ``Optimizer`` (``ClassNLLCriterion``, ``SGD(0.05,
+   learningrate_decay=0.0002)``, ``max_epoch(2)``, B128) on 2048
+   seeded synthetic digits with ``set_validation(every_epoch(), ...,
+   [Top1Accuracy(), Top5Accuracy(), Loss()])`` (the loss falls), then
+   one manual Torch-protocol step (``forward``, criterion ``forward`` /
+   ``backward``, ``backward``, ``get_parameters``) on the card against
+   the CPU within 1e-4; (b) Inception v1 at B64/224 through
+   ``Optimizer.create`` (``SGD(0.01, momentum=0.9)``, 1 warmup
+   iteration then 4) and (c) the three-head Inception v2 at B32/224 (3
+   iterations; the mean NLL of its heads), each with one evaluation-mode
+   step at B2/224 on the card against the CPU (logits and the median
+   gradient leaf within 1e-4, the worst leaf 1e-2); (d) VGG-16 at
+   B32/224 and VggForCifar10 at B128/32, 3 iterations each; (e) JAX's
+   default ResNet-50 (NCHW, ``fused="none"``) at phase 8's recipe
+   (B32/224, ``CrossEntropyCriterion``, ``SGD(0.1, momentum=0.9)``, 3
+   iterations, then 2 under ``torch.profiler``), its step and CUDA
+   kernel time by family printed beside phase 8's fused step, and one
+   NHWC and one ``stem="s2d"`` run (B8, 2 iterations); (f) ResNetCifar-20
+   (shortcut A) at B128/32, 3 iterations. Every model trains on one
+   fixed batch: every loss finite, the batch's loss with the same
+   dropout draws lower after than before and its gradients finite; it
+   prints each model's step ms, images/s and peak memory and the
+   phase's time.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
 run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
-its translation paths, each phase 12 run) and read just after; a
+its translation paths, each phase 12 run, each phase 13 model) and read
+just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -3398,6 +3424,350 @@ def regularized_card_vs_cpu(torch, dev, S=16, B=16, steps=2):
     return {"loss_err": dl, "param_err": dp}
 
 
+# -- phase 13: the layer library and the classic image zoo ---------------------
+
+# (batch, input shape) of each phase 13 model; a CPU rehearsal shrinks them
+ZOO = {"lenet": (128, (28, 28)), "lenet_n": 2048, "inception_v1": (64, 224),
+       "inception_v2": (32, 224), "vgg16": (32, 224), "vgg_cifar": (128, 32),
+       "resnet50": (32, 224), "resnet50_arms": (8, 224),
+       "resnet_cifar": (128, 32), "check": (2, 224)}
+ZOO_TOL = 1e-4          # card against CPU, float32 with TF32 off
+
+
+class ThreeHeadNLL:
+    """Inception v2's loss: the mean of ClassNLL over its three heads
+    (its output is the three log-softmaxes side by side, (N, 3 C))."""
+
+    def __init__(self, classes):
+        from bigdl_tpu_torch.nn import ClassNLLCriterion
+        self.classes, self.nll = classes, ClassNLLCriterion()
+
+    def _forward(self, out, y):
+        heads = out.reshape(out.shape[0], 3, self.classes)
+        return sum(self.nll._forward(heads[:, i], y) for i in range(3)) / 3
+
+
+def fixed_batch_loss(torch, model, crit, x, y, grads=False):
+    """The training-mode loss of ``model`` on one fixed batch, with the same
+    dropout draws every call (a generator seeded 7) and the running
+    statistics left alone; with ``grads``, also whether every parameter
+    gradient is finite."""
+    from bigdl_tpu_torch.convert import flatten
+    g = torch.Generator(device=x.device).manual_seed(7)
+    with torch.set_grad_enabled(grads):
+        out, _ = model.apply(model.params, model.state, x, training=True,
+                             generator=g)
+        loss = crit._forward(out, y)
+    if not grads:
+        return loss.item(), None
+    gs = torch.autograd.grad(loss, list(flatten(model.params).values()))
+    return loss.item(), bool(torch.stack([torch.isfinite(t).all()
+                                          for t in gs]).all())
+
+
+def zoo_images(shape, n, classes, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, *shape).astype(np.float32),
+            rng.randint(1, classes + 1, size=n))
+
+
+def zoo_train(torch, K, name, model, crit, optim, B, shape, classes, iters,
+              warmup=1, dev="cuda", seed=11):
+    """``model`` trained through ``Optimizer.create`` for ``iters``
+    iterations on one fixed batch of B seeded images: the losses, the
+    steps' times (after ``warmup``), images/s, peak memory, and the fixed
+    batch's loss before and after (same dropout draws), every parameter
+    gradient of the latter finite. Fails if a loss is not finite, the
+    fixed batch's loss did not fall or a port kernel launched."""
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.optim import Optimizer, Trigger, max_iteration
+    imgs, labels = zoo_images(shape, B, classes, seed)
+    x = torch.from_numpy(imgs).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    before, _ = fixed_batch_loss(torch, model, crit, x, y)
+    losses, stop = [], max_iteration(iters)
+
+    def end(st):
+        if not st.get("epoch_finished"):    # one call a step (B is one epoch)
+            losses.append(st["loss"])
+        return stop(st)
+    opt = Optimizer.create(model, DataSet.array(
+        [Sample(imgs[i], labels[i]) for i in range(B)]), crit, Trigger(end),
+        batch_size=B, optim_method=optim, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(not any(counts.values()), f"[13] {name} launched port kernels "
+          f"{counts}: no TPU kernel lies on the layer library's path")
+    after, finite = fixed_batch_loss(torch, model, crit, x, y, grads=True)
+    steps = opt.metrics.values["step_time"]
+    step = statistics.median(steps[warmup:]) if len(steps) > warmup \
+        else steps[-1]
+    rec = {"losses": losses, "fixed_batch_loss": (before, after),
+           "step_ms": step * 1e3, "step_ms_all": [t * 1e3 for t in steps],
+           "images_per_s": B / step, "wall_s": wall,
+           "max_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                          if dev == "cuda" else None)}
+    check(len(losses) == iters and all(math.isfinite(v) for v in losses),
+          f"[13] {name}: losses {losses}")
+    check(finite, f"[13] {name}: a gradient on the fixed batch is not finite")
+    check(after < before, f"[13] {name}: the fixed batch's loss did not "
+          f"fall: {before} -> {after}")
+    print(f"[13] {name} B{B}: losses {[round(v, 4) for v in losses]}, fixed "
+          f"batch {before:.4f} -> {after:.4f}; step {rec['step_ms']:.2f} ms "
+          f"(all {[round(t, 1) for t in rec['step_ms_all']]}), "
+          f"{rec['images_per_s']:.1f} images/s, peak "
+          f"{rec['max_mem_gb'] or 0:.2f} GiB", flush=True)
+    return rec, opt
+
+
+def card_vs_cpu_step(torch, name, make, crit, shape, classes, training,
+                     dev="cuda", B=2):
+    """One step of ``make(device)`` on the card against the same weights
+    and inputs on the CPU (TF32 off): logits, then every parameter's
+    gradient, as the largest error over the largest magnitude. The logits
+    hold to ``ZOO_TOL``; the gradients' median leaf too and the worst to
+    1e-2 (at full width a few pre-activations or pooled maxima sit within
+    float32 rounding of a kink or a tie and take the other side in the
+    other summation order - the CPU tests hold the same models to JAX in
+    float64 to 1e-9)."""
+    from bigdl_tpu_torch.convert import flatten
+    card = make(dev)
+    host = make("cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    imgs, labels = zoo_images(shape, B, classes, 5)
+    out = {}
+    for m, d in ((card, dev), (host, "cpu")):
+        if not training:
+            m.evaluate()
+        params = m.params
+        logits, _ = m.apply(params, m.state, torch.from_numpy(imgs).to(d),
+                            training=training,
+                            generator=torch.Generator(device=d).manual_seed(1)
+                            if training else None)
+        loss = crit._forward(logits, torch.from_numpy(labels).to(d))
+        leaves = flatten(params)
+        gs = torch.autograd.grad(loss, list(leaves.values()))
+        out[d] = (logits.detach().cpu(), {k: g.cpu() for k, g in
+                                          zip(leaves, gs)})
+    (lc, gc), (lh, gh) = out[dev], out["cpu"]
+    errs = sorted(_rel_err(gc[k], gh[k]) for k in gh)
+    rec = {"logits": _rel_err(lc, lh), "grad_median": errs[len(errs) // 2],
+           "grad_worst": errs[-1], "leaves": len(errs)}
+    print(f"[13] {name} card vs CPU (B{B}, one "
+          f"{'training' if training else 'evaluation'}-mode step): {rec}",
+          flush=True)
+    check(rec["logits"] <= ZOO_TOL and rec["grad_median"] <= ZOO_TOL
+          and rec["grad_worst"] <= 1e-2,
+          f"[13] {name} on the card disagrees with the CPU: {rec}")
+    del card, host
+    return rec
+
+
+def lenet_data(n, seed):
+    """MNIST-shaped images whose class is a bright bar at a class-dependent
+    place on noise (the JAX package's synthetic MNIST, normalised), 1-based
+    labels."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=n)
+    imgs = rng.randint(0, 40, size=(n, 28, 28)).astype(np.float32)
+    for c in range(10):
+        r, col = 2 + (c // 5) * 12, 2 + (c % 5) * 5
+        imgs[labels == c, r:r + 9, col:col + 4] = 220 + (c * 3) % 35
+    return ((imgs / 255.0 - 0.1307) / 0.3081).astype(np.float32), labels + 1
+
+
+def zoo(torch, K, card, r8, dev="cuda"):
+    """Phase 13: the Torch-style layer library and the classic image zoo
+    on the card, float32 with TF32 off, no port kernel launched: (a)
+    LeNet-5 through ``Optimizer`` with validation, then one manual Torch
+    protocol step card against CPU; (b) Inception v1 at B64/224, (c)
+    Inception v2 at B32/224, each with an evaluation-mode step card against
+    CPU; (d) VGG-16 at B32/224 and VggForCifar10 at B128/32; (e) the
+    unfused ResNet-50 (NCHW, ``fused="none"``) at phase 8's B32/224 with a
+    profiler trace beside phase 8's fused step, and one NHWC and one
+    space-to-depth step; (f) ResNetCifar-20 at B128/32."""
+    from bigdl_tpu_torch import models, nn
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, Top1Accuracy,
+                                       Top5Accuracy, Trigger, every_epoch,
+                                       max_epoch, max_iteration)
+    t13 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[13] the layer library and the image zoo, float32, TF32 off "
+          f"({card})", flush=True)
+    r13 = {}
+    nll = nn.ClassNLLCriterion()
+    # (a) LeNet-5, the reference example
+    B, shape = ZOO["lenet"]
+    n = ZOO["lenet_n"]
+    imgs, labels = lenet_data(n + 512, 3)
+    train = [Sample(imgs[i], labels[i]) for i in range(n)]
+    val = [Sample(imgs[i], labels[i]) for i in range(n, n + 512)]
+    lenet = models.LeNet5(10, device=dev, seed=1)
+    losses, scores, stop = [], [], max_epoch(2)
+
+    def end(st):
+        if st.get("epoch_finished"):     # after the epoch's validation
+            scores.append(st.get("score"))
+        else:
+            losses.append(st["loss"])
+        return stop(st)
+    opt = Optimizer(model=lenet, training_set=DataSet.array(train),
+                    criterion=nll,
+                    optim_method=SGD(0.05, learningrate_decay=0.0002),
+                    end_trigger=Trigger(end), batch_size=B, device=dev)
+    opt.set_validation(every_epoch(), DataSet.array(val),
+                       [Top1Accuracy(), Top5Accuracy(), Loss()])
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    check(not any(K.launch_counts().values()), "[13] LeNet-5 launched port "
+          "kernels")
+    res = lenet.evaluate_dataset(DataSet.array(val), [Top1Accuracy(),
+                                                     Top5Accuracy(), Loss()])
+    val_res = [r.result()[0] for r in res]
+    lenet.training()
+    per_epoch = -(-n // B)
+    check(len(losses) == 2 * per_epoch and all(math.isfinite(v)
+                                               for v in losses),
+          f"[13] LeNet-5 losses {losses}")
+    first, last = (statistics.mean(losses[:4]), statistics.mean(losses[-4:]))
+    check(last < first, f"[13] LeNet-5's loss did not fall: {losses}")
+    steps = opt.metrics.values["step_time"]
+    r13["lenet"] = {"losses": losses, "val_top1_by_epoch": scores,
+                    "val": val_res, "wall_s": wall,
+                    "step_ms": statistics.median(steps[1:]) * 1e3,
+                    "images_per_s": B / statistics.median(steps[1:])}
+    print(f"[13] (a) LeNet-5 through Optimizer, {n} images B{B}, "
+          f"SGD(0.05, learningrate_decay=0.0002), 2 epochs: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 4 {first:.4f}, last 4 "
+          f"{last:.4f}); validation Top1 by epoch {scores}, after "
+          f"Top1/Top5/Loss {[round(v, 4) for v in val_res]}; {wall:.2f} s, "
+          f"step {r13['lenet']['step_ms']:.2f} ms", flush=True)
+    # one manual Torch-protocol step, card against the CPU
+    x, yb = torch.from_numpy(imgs[:B]), labels[:B]
+    flat = {}
+    for d in (dev, "cpu"):
+        m = models.LeNet5(10, device=d)
+        m.load_state_dict({k: v.to(d) for k, v in lenet.state_dict().items()})
+        m.zero_grad_parameters()
+        out = m.forward(x.to(d))
+        crit = nn.ClassNLLCriterion()
+        loss = crit.forward(out, yb)
+        gi = m.backward(x.to(d), crit.backward(out, yb))
+        w, g, _ = m.get_parameters()
+        flat[d] = (loss.item(), gi.cpu(), w.cpu(), g.cpu())
+    (lc, gic, wc, gc), (lh, gih, wh, gh) = flat[dev], flat["cpu"]
+    r13["lenet_protocol"] = {"loss": abs(lc - lh) / abs(lh),
+                             "grad_input": _rel_err(gic, gih),
+                             "weights": _rel_err(wc, wh),
+                             "grads": _rel_err(gc, gh), "n": int(wh.numel())}
+    print(f"[13] (a) LeNet-5 Torch protocol step (forward, criterion "
+          f"forward/backward, backward, get_parameters) card vs CPU: "
+          f"{r13['lenet_protocol']}", flush=True)
+    check(all(v <= ZOO_TOL for k, v in r13["lenet_protocol"].items()
+              if k != "n"), f"[13] LeNet-5 protocol step card vs CPU "
+          f"{r13['lenet_protocol']}")
+    del lenet, opt
+    # (b) Inception v1 at full width
+    B, S = ZOO["inception_v1"]
+    m = models.Inception_v1_NoAuxClassifier(1000, device=dev, seed=2)
+    r13["inception_v1"], _ = zoo_train(
+        torch, K, "(b) Inception v1", m, nll, SGD(0.01, momentum=0.9), B,
+        (3, S, S), 1000, 5, dev=dev)
+    del m
+    r13["inception_v1_check"] = card_vs_cpu_step(
+        torch, "(b) Inception v1",
+        lambda d: models.Inception_v1_NoAuxClassifier(1000, device=d,
+                                                      seed=3),
+        nll, (3, ZOO["check"][1], ZOO["check"][1]), 1000, False, dev,
+        ZOO["check"][0])
+    # (c) Inception v2, three heads
+    B, S = ZOO["inception_v2"]
+    three = ThreeHeadNLL(1000)
+    m = models.Inception_v2(1000, device=dev, seed=2)
+    r13["inception_v2"], _ = zoo_train(
+        torch, K, "(c) Inception v2 (3 heads)", m, three,
+        SGD(0.01, momentum=0.9), B, (3, S, S), 1000, 3, dev=dev)
+    del m
+    r13["inception_v2_check"] = card_vs_cpu_step(
+        torch, "(c) Inception v2", lambda d: models.Inception_v2(
+            1000, device=d, seed=3), three,
+        (3, ZOO["check"][1], ZOO["check"][1]), 1000, False, dev,
+        ZOO["check"][0])
+    # (d) VGG
+    B, S = ZOO["vgg16"]
+    m = models.Vgg_16(1000, device=dev, seed=2)
+    r13["vgg16"], _ = zoo_train(
+        torch, K, "(d) VGG-16", m, nll, SGD(0.01, momentum=0.9), B,
+        (3, S, S), 1000, 3, dev=dev)
+    del m
+    B, S = ZOO["vgg_cifar"]
+    m = models.VggForCifar10(10, device=dev, seed=2)
+    r13["vgg_cifar"], _ = zoo_train(
+        torch, K, "(d) VggForCifar10", m, nll, SGD(0.01, momentum=0.9), B,
+        (3, S, S), 10, 3, dev=dev)
+    del m
+    # (e) the unfused ResNet-50, JAX's default arm, at phase 8's recipe
+    B, S = ZOO["resnet50"]
+    ce = nn.CrossEntropyCriterion()
+    m = models.ResNet50(device=dev, seed=0)
+    r13["resnet50"], _ = zoo_train(
+        torch, K, "(e) ResNet-50 NCHW fused='none'", m, ce,
+        SGD(0.1, momentum=0.9), B, (3, S, S), 1000, 3, dev=dev)
+    imgs, labels = zoo_images((3, S, S), 2 * B, 1000, 12)
+    again = Optimizer.create(m, DataSet.array(
+        [Sample(imgs[i], labels[i]) for i in range(2 * B)]), ce,
+        max_iteration(2), batch_size=B,
+        optim_method=SGD(0.1, momentum=0.9), device=dev)
+    if dev == "cuda":
+        tr = trace_steps(torch, again.optimize, n=1, per_call=2)
+        r13["resnet50"]["trace"] = tr
+        step8 = statistics.median(r8["step_s"][1:]) * 1e3
+        tr8 = r8["trace"]
+        print(f"[13] (e) unfused ResNet-50 B{B}/{S} float32 step "
+              f"{r13['resnet50']['step_ms']:.2f} ms against phase 8's fused "
+              f"(K3 / K5) step {step8:.2f} ms, same run; traced: "
+              f"{tr['device_ms']:.1f} ms of CUDA kernels a step in "
+              f"{tr['launches']:.0f} launches (phase 8: "
+              f"{tr8['device_ms']:.1f} ms in {tr8['launches']:.0f}); ms a "
+              f"step by family {tr['families']} (phase 8: "
+              f"{tr8['families']}); largest kernels (ms a step, launches a "
+              f"step): {tr['top'][:10]}", flush=True)
+    del m, again
+    B, S = ZOO["resnet50_arms"]
+    for arm, kw in (("NHWC", dict(format="NHWC")),
+                    ("NHWC stem='s2d'", dict(format="NHWC", stem="s2d"))):
+        m = models.ResNet50(device=dev, seed=0, **kw)
+        shape = (S, S, 3)
+        r13[f"resnet50 {arm}"], _ = zoo_train(
+            torch, K, f"(e) ResNet-50 {arm} fused='none'", m, ce,
+            SGD(0.1, momentum=0.9), B, shape, 1000, 2, dev=dev)
+        del m
+    # (f) ResNetCifar-20, shortcut A, log-softmax
+    B, S = ZOO["resnet_cifar"]
+    m = models.ResNetCifar(10, 20, device=dev, seed=2)
+    r13["resnet_cifar20"], _ = zoo_train(
+        torch, K, "(f) ResNetCifar-20", m, nll, SGD(0.1, momentum=0.9), B,
+        (3, S, S), 10, 3, dev=dev)
+    del m
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    r13["phase_s"] = time.perf_counter() - t13
+    print(f"[13] phase 13: {r13['phase_s']:.1f} s", flush=True)
+    return r13
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3927,6 +4297,8 @@ def main():
     # -- phase 12: the training loop's depth ----------------------------------
     r12 = loop_depth(torch, K, card)
     l12 = r12["launches"]
+    # -- phase 13: the layer library and the classic image zoo ----------------
+    r13 = zoo(torch, K, card, r8)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
