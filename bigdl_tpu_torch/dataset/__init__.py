@@ -1,3 +1,4 @@
+from . import news20, sentence, text
 from .dataset import AbstractDataSet, DataSet, LocalDataSet, ShardedDataSet
 from .minibatch import MiniBatch, PaddingParam
 from .sample import Sample

@@ -35,6 +35,13 @@ def _fans(shape, fan_in=None, fan_out=None):
     return shape[1] * receptive, shape[0] * receptive
 
 
+def _uniform(shape, stdv, generator=None, device=None):
+    """U(-stdv, stdv), the layers' ``jax.random.uniform(minval=-stdv,
+    maxval=stdv)``."""
+    return RandomUniform(-stdv, stdv)(shape, generator=generator,
+                                      device=device)
+
+
 class InitializationMethod:
     def __call__(self, shape, fan_in=None, fan_out=None, generator=None,
                  device=None, dtype=torch.float32):

@@ -1,5 +1,5 @@
-from .optim_method import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
-                           CosineAnnealing, Default, EpochDecay,
+from .optim_method import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
+                           AdamW, CosineAnnealing, Default, EpochDecay,
                            EpochDecayWithWarmUp, EpochSchedule, EpochStep,
                            Exponential, Ftrl, LarsSGD, LearningRateSchedule,
                            MultiStep, NaturalExp, OptimMethod, ParallelAdam,
@@ -18,7 +18,7 @@ from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
                          LossResult, Top1Accuracy, Top5Accuracy,
                          TreeNNAccuracy, ValidationMethod, ValidationResult)
 
-__all__ = ["SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Ftrl",
+__all__ = ["LBFGS", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Ftrl",
            "LarsSGD", "ParallelAdam", "Plateau", "RMSprop", "L1L2Regularizer",
            "L1Regularizer", "L2Regularizer", "Regularizer", "CosineAnnealing", "Default", "EpochDecay",
            "EpochDecayWithWarmUp", "EpochSchedule", "EpochStep",

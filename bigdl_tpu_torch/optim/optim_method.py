@@ -1,8 +1,8 @@
 """Optimization methods and learning-rate schedules (counterpart of
 ``bigdl_tpu/optim/optim_method.py``: every schedule, ``SGD``, ``Adam``,
 ``AdamW``, ``ParallelAdam``, ``Adagrad``, ``Adadelta``, ``Adamax``,
-``RMSprop``, ``Ftrl`` and ``LarsSGD``; ``LBFGS`` and ``optimize`` are not
-ported yet).
+``RMSprop``, ``Ftrl``, ``LarsSGD`` and ``LBFGS``, and the reference's
+closure form ``optimize(feval, x)``).
 
 The contract is the JAX package's, over parameter trees (nested dicts of
 tensors): ``init_state(params) -> state`` and ``update(grads, params,
@@ -404,6 +404,50 @@ class OptimMethod:
         import copy
         return copy.deepcopy(self)
 
+    def optimize(self, feval, x):
+        """The reference's closure form, one step: ``feval(x) -> (loss,
+        gradient)`` on ``x`` (a tensor or a tree of them), then one
+        ``update`` of ``x`` IN PLACE (the method's state is kept between
+        calls); returns ``(x, [loss])``."""
+        tree = x if isinstance(x, dict) else {"x": x}
+        if not hasattr(self, "_flat_state"):
+            self._flat_state = self.init_state(tree)
+        loss, g = feval(x)
+        lr = self.current_lr()
+        self.update(g if isinstance(g, dict) else {"x": g}, tree,
+                    self._flat_state, lr)
+        self.state["neval"] += 1
+        return x, [loss]
+
+
+def _sorted_leaves(tree):
+    """The leaves of a tree, dict keys sorted at every level (the order
+    JAX's ``ravel_pytree`` flattens in)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [t for k in sorted(tree) for t in _sorted_leaves(tree[k])]
+
+
+def _ravel(tree):
+    """(the leaves of ``tree`` as one flat vector, in ``_sorted_leaves``
+    order; the function taking such a vector back to a tree of views)."""
+    if not isinstance(tree, dict):
+        shape = tree.shape
+        return tree.reshape(-1), lambda v: v.reshape(shape)
+    leaves = _sorted_leaves(tree)
+    flat = torch.cat([t.reshape(-1) for t in leaves]) if leaves \
+        else torch.zeros(0)
+
+    def unravel(v):
+        it = iter(v.split([t.numel() for t in leaves]))
+
+        def rebuild(node):
+            if not isinstance(node, dict):
+                return next(it).reshape(node.shape)
+            return {k: rebuild(node[k]) for k in sorted(node)}
+        return rebuild(tree)
+    return flat, unravel
+
 
 class SGD(OptimMethod):
     """SGD with momentum, dampening, Nesterov, L2 weight decay and the
@@ -702,3 +746,99 @@ class LarsSGD(OptimMethod):
                 (g + self.weightdecay * w)
             out += [(v, nv), (w, w - nv)]
         return out
+
+
+class LBFGS(OptimMethod):
+    """Limited-memory BFGS (optim/LBFGS.scala), driven from the host over
+    flat vectors as in the JAX package: ``optimize(feval, x)`` flattens
+    ``x`` (a tensor or a tree of them, leaves in the order JAX's
+    ``ravel_pytree`` takes them), runs up to ``max_iter`` iterations of the
+    two-loop recursion over the last ``n_correction`` (s, y) pairs (a
+    pair kept only when s.y > 1e-10), the first step scaled by min(1, 1 /
+    sum|g|), with Armijo backtracking (halving, at most 25 tries) when
+    ``line_search``, and stops when max|g| <= ``tol_fun``, the directional
+    derivative > -``tol_x``, the loss moves less than ``tol_fun`` or
+    ``max_eval`` evaluations are spent. Returns ``(x, losses)``, x a new
+    tree. The vectors stay on x's device; the loop reads back the scalars
+    it decides on. ``update`` is a plain gradient step, for the training
+    loop."""
+
+    def __init__(self, max_iter: int = 20, max_eval: Optional[float] = None,
+                 tol_fun: float = 1e-5, tol_x: float = 1e-9,
+                 n_correction: int = 100, learningrate: float = 1.0,
+                 line_search: bool = False, **_ignored):
+        super().__init__(learningrate)
+        self.max_iter, self.tol_fun, self.tol_x = max_iter, tol_fun, tol_x
+        self.n_correction = n_correction
+        self.line_search = line_search
+        self.max_eval = max_eval or max_iter * 1.25
+
+    def optimize(self, feval, x):
+        x_flat, unravel = _ravel(x)
+        x_flat = x_flat.detach().clone()
+
+        def f(v):
+            loss, g = feval(unravel(v))
+            return float(loss), _ravel(g)[0].detach()
+
+        losses, s_list, y_list, rho_list = [], [], [], []
+        loss, g = f(x_flat)
+        losses.append(loss)
+        n_eval = 1
+        for it in range(self.max_iter):
+            if float(g.abs().max()) <= self.tol_fun:
+                break
+            # two-loop recursion
+            q = g
+            alphas = []
+            for s, y, rho in zip(reversed(s_list), reversed(y_list),
+                                 reversed(rho_list)):
+                a = rho * torch.dot(s, q)
+                alphas.append(a)
+                q = q - a * y
+            if y_list:
+                q = torch.dot(s_list[-1], y_list[-1]) \
+                    / torch.dot(y_list[-1], y_list[-1]) * q
+            for (s, y, rho), a in zip(zip(s_list, y_list, rho_list),
+                                      reversed(alphas)):
+                b = rho * torch.dot(y, q)
+                q = q + (a - b) * s
+            d = -q
+            t = self.learningrate if it > 0 or s_list else \
+                min(1.0, 1.0 / float(g.abs().sum())) * self.learningrate
+            gtd = float(torch.dot(g, d))
+            if gtd > -self.tol_x:
+                break
+            if self.line_search:
+                for _ in range(25):
+                    new_loss, _ = f(x_flat + t * d)
+                    n_eval += 1
+                    if new_loss <= loss + 1e-4 * t * gtd:
+                        break
+                    t *= 0.5
+            x_new = x_flat + t * d
+            loss_new, g_new = f(x_new)
+            n_eval += 1
+            s, y = x_new - x_flat, g_new - g
+            sy = float(torch.dot(s, y))
+            if sy > 1e-10:
+                if len(s_list) >= self.n_correction:
+                    s_list.pop(0)
+                    y_list.pop(0)
+                    rho_list.pop(0)
+                s_list.append(s)
+                y_list.append(y)
+                rho_list.append(1.0 / sy)
+            converged = abs(loss_new - loss) < self.tol_fun
+            x_flat, loss, g = x_new, loss_new, g_new
+            losses.append(loss)
+            if converged or n_eval >= self.max_eval:
+                break
+        self.state["neval"] += 1
+        return unravel(x_flat), losses
+
+    def init_state(self, params):
+        return {}
+
+    def _updates(self, grads, params, opt_state, lr):
+        return [(w, w - lr * g) for w, g in _leaves(params, grads).values()]

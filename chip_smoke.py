@@ -230,13 +230,37 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    fixed batch: every loss finite, the batch's loss with the same
    dropout draws lower after than before and its gradients finite; it
    prints each model's step ms, images/s and peak memory and the
-   phase's time.
+   phase's time;
+14. drives the sequence zoo in float32 with TF32 off, where no port
+   kernel may launch: (a) PTBModel at PTB's medium width (vocab 10000,
+   hidden 650, 2 LSTM layers, T35, B64) through ``Optimizer.create``
+   (``TimeDistributedCriterion(ClassNLLCriterion())``, ``SGD(0.01)``, 6
+   iterations) on one fixed batch of ``ptb_synthetic``'s stream, then two
+   iterations under ``torch.profiler`` (CUDA kernel ms by family,
+   launches a step, the device's busy share) and two ``cell_type="gru"``
+   iterations; (b) TextClassifier (20 classes, embedding 50, sequence 500,
+   256 filters or LSTM units; ``cnn`` and ``lstm``) at B128 on
+   ``tokenize_to_glove_sequences`` of ``news20.synthetic`` with
+   ``set_validation(every_epoch(), ..., [Top1Accuracy()])``; (c)
+   BinaryTreeLSTM (embedding 300, hidden 150) under a Linear +
+   LogSoftMax head on the root at B25 on random binary trees of 30 leaves
+   (59 nodes, the full sweep) with ``TreeNNAccuracy``; each model trains
+   on one fixed batch, checked as in phase 13, and prints its step ms,
+   tokens (documents, trees)/s and peak memory; (d) every other new
+   class (the rest of ``nn/linear.py``, each cell under ``Recurrent``,
+   ``MultiRNNCell``, ``BiRecurrent``, ``RecurrentDecoder``,
+   ``TimeDistributed``, ``ConvLSTMPeephole``, the temporal, connection-
+   table, volumetric and locally connected convolutions,
+   ``BinaryTreeLSTM``, ``SimpleRNN``) on the card against the CPU, one
+   training-mode forward and every gradient within 1e-4 of the largest
+   value; (e) ``LBFGS.optimize`` with its line search on a softmax
+   regression on the card against the CPU, the losses within 1e-4.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
 run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
-its translation paths, each phase 12 run, each phase 13 model) and read
+its translation paths, each phase 12 run, each phase 13 and 14 model) and read
 just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
@@ -1344,7 +1368,7 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     return rec, out["cpu"]
 
 
-def trace_steps(torch, step, n=2, top=20, per_call=1):
+def trace_steps(torch, step, n=2, top=20, per_call=1, convs=True):
     """``n`` calls of ``step`` (each ``per_call`` training steps) under
     ``torch.profiler``: the wall ms per step (profiled, so inflated by
     the profiler's own host work), the
@@ -1352,7 +1376,9 @@ def trace_steps(torch, step, n=2, top=20, per_call=1):
     kernel launches per step, the device ms per step of each family of
     kernels (the port's own, cuDNN's convolutions, cuBLAS's products,
     PyTorch's elementwise / reduction / copy kernels, the rest) and the
-    ``top`` kernels by time, (name, ms per step, launches per step)."""
+    ``top`` kernels by time, (name, ms per step, launches per step). On a
+    path without convolutions (``convs=False``) the ``xmma`` kernels are
+    cuBLAS's GEMMs, not cuDNN's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1374,6 +1400,8 @@ def trace_steps(torch, step, n=2, top=20, per_call=1):
         low = name.lower()
         if "bigdl" in low:
             return "port kernels"
+        if not convs and "xmma_gemm" in low:
+            return "cuBLAS"
         if any(w in low for w in ("conv", "cudnn", "xmma", "dgrad",
                                   "wgrad", "implicit")):
             return "cuDNN conv"
@@ -3453,7 +3481,7 @@ def fixed_batch_loss(torch, model, crit, x, y, grads=False):
     statistics left alone; with ``grads``, also whether every parameter
     gradient is finite."""
     from bigdl_tpu_torch.convert import flatten
-    g = torch.Generator(device=x.device).manual_seed(7)
+    g = torch.Generator(device=y.device).manual_seed(7)
     with torch.set_grad_enabled(grads):
         out, _ = model.apply(model.params, model.state, x, training=True,
                              generator=g)
@@ -3473,16 +3501,31 @@ def zoo_images(shape, n, classes, seed):
 
 def zoo_train(torch, K, name, model, crit, optim, B, shape, classes, iters,
               warmup=1, dev="cuda", seed=11):
+    """``model`` trained by :func:`train_fixed` on one fixed batch of B
+    seeded images of ``shape`` with labels in 1 .. ``classes``."""
+    imgs, labels = zoo_images(shape, B, classes, seed)
+    return train_fixed(torch, K, "[13]", name, model, crit, optim, [imgs],
+                       labels, iters, warmup, dev)
+
+
+def train_fixed(torch, K, tag, name, model, crit, optim, feats, labels,
+                iters, warmup=1, dev="cuda", unit="images", per_sample=1,
+                validation=None):
     """``model`` trained through ``Optimizer.create`` for ``iters``
-    iterations on one fixed batch of B seeded images: the losses, the
-    steps' times (after ``warmup``), images/s, peak memory, and the fixed
-    batch's loss before and after (same dropout draws), every parameter
-    gradient of the latter finite. Fails if a loss is not finite, the
-    fixed batch's loss did not fall or a port kernel launched."""
+    iterations on one fixed batch (``feats``: one numpy array a feature,
+    a row a sample; several reach the model as a ``Table``): the losses,
+    the steps' times (after ``warmup``), ``unit``/s (``per_sample`` units
+    a row), peak memory, and the fixed batch's loss before and after
+    (same dropout draws), every parameter gradient of the latter finite.
+    ``validation`` (trigger, samples, methods) is set on the optimizer.
+    Fails if a loss is not finite, the fixed batch's loss did not fall or
+    a port kernel launched."""
     from bigdl_tpu_torch.dataset import DataSet, Sample
     from bigdl_tpu_torch.optim import Optimizer, Trigger, max_iteration
-    imgs, labels = zoo_images(shape, B, classes, seed)
-    x = torch.from_numpy(imgs).to(dev)
+    from bigdl_tpu_torch.utils.table import Table
+    B = len(labels)
+    xs = [torch.from_numpy(f).to(dev) for f in feats]
+    x = xs[0] if len(xs) == 1 else Table(*xs)
     y = torch.from_numpy(labels).to(dev)
     before, _ = fixed_batch_loss(torch, model, crit, x, y)
     losses, stop = [], max_iteration(iters)
@@ -3492,11 +3535,16 @@ def zoo_train(torch, K, name, model, crit, optim, B, shape, classes, iters,
             losses.append(st["loss"])
         return stop(st)
     opt = Optimizer.create(model, DataSet.array(
-        [Sample(imgs[i], labels[i]) for i in range(B)]), crit, Trigger(end),
+        [Sample([f[i] for f in feats] if len(feats) > 1 else feats[0][i],
+                labels[i]) for i in range(B)]), crit, Trigger(end),
         batch_size=B, optim_method=optim, device=dev)
+    if validation is not None:
+        opt.set_validation(*validation)
+    held = 0
     if dev == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
     K.reset_launch_counts()
     t0 = time.perf_counter()
     opt.optimize()
@@ -3504,7 +3552,7 @@ def zoo_train(torch, K, name, model, crit, optim, B, shape, classes, iters,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
-    check(not any(counts.values()), f"[13] {name} launched port kernels "
+    check(not any(counts.values()), f"{tag} {name} launched port kernels "
           f"{counts}: no TPU kernel lies on the layer library's path")
     after, finite = fixed_batch_loss(torch, model, crit, x, y, grads=True)
     steps = opt.metrics.values["step_time"]
@@ -3512,19 +3560,22 @@ def zoo_train(torch, K, name, model, crit, optim, B, shape, classes, iters,
         else steps[-1]
     rec = {"losses": losses, "fixed_batch_loss": (before, after),
            "step_ms": step * 1e3, "step_ms_all": [t * 1e3 for t in steps],
-           "images_per_s": B / step, "wall_s": wall,
+           f"{unit}_per_s": B * per_sample / step, "wall_s": wall,
            "max_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
-                          if dev == "cuda" else None)}
+                          if dev == "cuda" else None),
+           "held_gb": held / 2**30}
     check(len(losses) == iters and all(math.isfinite(v) for v in losses),
-          f"[13] {name}: losses {losses}")
-    check(finite, f"[13] {name}: a gradient on the fixed batch is not finite")
-    check(after < before, f"[13] {name}: the fixed batch's loss did not "
+          f"{tag} {name}: losses {losses}")
+    check(finite, f"{tag} {name}: a gradient on the fixed batch is not "
+          f"finite")
+    check(after < before, f"{tag} {name}: the fixed batch's loss did not "
           f"fall: {before} -> {after}")
-    print(f"[13] {name} B{B}: losses {[round(v, 4) for v in losses]}, fixed "
+    print(f"{tag} {name} B{B}: losses {[round(v, 4) for v in losses]}, fixed "
           f"batch {before:.4f} -> {after:.4f}; step {rec['step_ms']:.2f} ms "
           f"(all {[round(t, 1) for t in rec['step_ms_all']]}), "
-          f"{rec['images_per_s']:.1f} images/s, peak "
-          f"{rec['max_mem_gb'] or 0:.2f} GiB", flush=True)
+          f"{rec[f'{unit}_per_s']:.1f} {unit}/s, peak "
+          f"{rec['max_mem_gb'] or 0:.2f} GiB ({rec['held_gb']:.2f} GiB held "
+          f"before the run)", flush=True)
     return rec, opt
 
 
@@ -3766,6 +3817,331 @@ def zoo(torch, K, card, r8, dev="cuda"):
     r13["phase_s"] = time.perf_counter() - t13
     print(f"[13] phase 13: {r13['phase_s']:.1f} s", flush=True)
     return r13
+
+# -- phase 14: the sequence zoo ----------------------------------------------------
+
+# the sizes of phase 14: PTB's "medium" LSTM (Zaremba et al. 2014, JAX's
+# bench_lstm_ptb), TextClassifier's defaults on 20 Newsgroups, the SST
+# widths of the Tree-LSTM (Tai et al. 2015); a CPU rehearsal shrinks them
+SEQ = {"ptb": dict(vocab=10000, hidden=650, layers=2, steps=35, batch=64,
+                   iters=6),
+       "text": dict(classes=20, emb=50, seq=500, filters=256, batch=128,
+                    per_class=7, iters=3),
+       "tree": dict(emb=300, hidden=150, leaves=30, batch=25, classes=5,
+                    iters=4)}
+SEQ_TOL = 1e-4        # card against CPU, float32 with TF32 off
+LBFGS_TOL = 1e-4      # LBFGS losses, card against CPU (relative)
+
+
+def ptb_batch(B, T, vocab, seed=0):
+    """B rows of T + 1 consecutive ids from ``ptb_synthetic``'s corpus
+    (1000 words, through the port's ``Dictionary``, 1-based): inputs the
+    first T, targets the last T, as the PTB example batches its stream."""
+    from bigdl_tpu_torch.dataset.text import Dictionary, ptb_synthetic
+    n = B * (T + 1)
+    sents = ptb_synthetic(n_sentences=max(16, n // 8), vocab=1000,
+                          max_len=30, seed=seed)
+    d = Dictionary(sents, vocab_size=vocab - 1)
+    stream = np.array([d.get_index(w) + 1 for st in sents for w in st],
+                      np.int64)
+    check(len(stream) >= n and stream.max() <= vocab,
+          f"[14] the PTB stream has {len(stream)} ids, {n} needed")
+    rows = stream[:n].reshape(B, T + 1)
+    return rows[:, :T].astype(np.float32), rows[:, 1:].astype(np.float32)
+
+
+def random_tree(rng, n_leaves):
+    """A random binary tree over ``n_leaves`` words in ``TensorTree`` rows
+    (2 n - 1 nodes in preorder, node 1 the root with -1 in its word column,
+    children 1-based, each leaf its word left to right)."""
+    rows = []
+
+    def build(lo, hi):
+        at = len(rows)
+        rows.append(None)
+        if hi - lo == 1:
+            rows[at] = [0, 0, lo + 1]
+        else:
+            cut = rng.randint(lo + 1, hi)
+            left = build(lo, cut)
+            rows[at] = [left, build(cut, hi), -1 if at == 0 else 0]
+        return at + 1
+    build(0, n_leaves)
+    return np.array(rows, np.float32)
+
+
+def tree_batch(n, n_leaves, emb, classes, seed):
+    """n random trees with 0.5 N(0, 1) word vectors; the label a quantile
+    class (1-based) of the words' summed first component."""
+    rng = np.random.RandomState(seed)
+    words = (0.5 * rng.randn(n, n_leaves, emb)).astype(np.float32)
+    trees = np.stack([random_tree(rng, n_leaves) for _ in range(n)])
+    score = words[:, :, 0].sum(1)
+    cuts = np.quantile(score, np.linspace(0, 1, classes + 1)[1:-1])
+    return words, trees, (np.digitize(score, cuts) + 1).astype(np.int64)
+
+
+def _float_leaves(x):
+    import torch
+    if torch.is_tensor(x):
+        return [x] if x.is_floating_point() else []
+    return [t for item in x for t in _float_leaves(item)]
+
+
+def module_card_vs_cpu(torch, name, make, inputs, dev="cuda"):
+    """One training-mode forward of ``make()`` (built on the CPU from
+    torch's generator seeded 0) and the gradients of sum(sin(out / 2)) in
+    its parameters and float inputs, on the card against the same module
+    and inputs on the CPU: the largest error over the largest value
+    (``_rel_err``) of every output and gradient."""
+    import copy
+    from bigdl_tpu_torch.convert import flatten
+    from bigdl_tpu_torch.utils.table import Table
+    torch.manual_seed(0)
+    host = make()
+    card = copy.deepcopy(host).to(dev)
+    res = {}
+    for m, d in ((card, dev), (host, "cpu")):
+        xs = [torch.from_numpy(a).to(d) for a in inputs]
+        fl = [t.requires_grad_() for t in xs if t.is_floating_point()]
+        x = xs[0] if len(xs) == 1 else Table(*xs)
+        params = m.params
+        out, _ = m.apply(params, m.state, x, training=True)
+        outs = _float_leaves(out)
+        wrt = list(flatten(params).values()) + fl
+        gs = torch.autograd.grad(sum(torch.sin(0.5 * o).sum() for o in outs),
+                                 wrt)
+        res[d] = [t.detach().cpu() for t in outs + list(gs)]
+    err = max(_rel_err(a, b) for a, b in zip(res[dev], res["cpu"]))
+    check(math.isfinite(err) and err <= SEQ_TOL,
+          f"[14] {name} on the card disagrees with the CPU: {err}")
+    return err
+
+
+def seq_cases(nn, r):
+    """(name, constructor, numpy inputs) of every class of phase 14 not
+    trained at full width, at small widths; ``r(*shape)`` draws N(0, 1)
+    float32."""
+    tree = random_tree(np.random.RandomState(5), 6)[None].repeat(3, 0)
+    ids = np.random.RandomState(6).randint(0, 40, size=(4, 7))
+    table = nn.SpatialConvolutionMap.random(6, 8, 3)
+    return [
+        ("Linear", lambda: nn.Linear(16, 8), [r(4, 16)]),
+        ("Bilinear", lambda: nn.Bilinear(16, 12, 8), [r(4, 16), r(4, 12)]),
+        ("Cosine", lambda: nn.Cosine(16, 8), [r(4, 16)]),
+        ("Euclidean", lambda: nn.Euclidean(16, 8), [r(4, 16)]),
+        ("Add", lambda: nn.Add(16), [r(4, 16)]),
+        ("Mul", lambda: nn.Mul(), [r(4, 16)]),
+        ("CMul", lambda: nn.CMul((4, 1)), [r(2, 3, 4, 5)]),
+        ("CAdd", lambda: nn.CAdd((1, 5)), [r(2, 3, 5)]),
+        ("Scale", lambda: nn.Scale((3, 1, 1)), [r(2, 3, 4, 4)]),
+        ("Highway", lambda: nn.Highway(16), [r(4, 16)]),
+        ("LookupTable max_norm mask_zero", lambda: nn.LookupTable(
+            32, 8, max_norm=1.0, mask_zero=True), [ids]),
+        ("Recurrent(RnnCell relu)", lambda: nn.Recurrent(nn.RnnCell(
+            8, 16, "relu")), [r(4, 7, 8)]),
+        ("Recurrent(LSTM)", lambda: nn.Recurrent(nn.LSTM(8, 16)),
+         [r(4, 7, 8)]),
+        ("Recurrent(LSTMPeephole)", lambda: nn.Recurrent(nn.LSTMPeephole(
+            8, 16)), [r(4, 7, 8)]),
+        ("Recurrent(GRU)", lambda: nn.Recurrent(nn.GRU(8, 16)),
+         [r(4, 7, 8)]),
+        ("Recurrent(MultiRNNCell)", lambda: nn.Recurrent(nn.MultiRNNCell(
+            [nn.LSTM(8, 16), nn.GRU(16, 12)])), [r(4, 7, 8)]),
+        ("Recurrent(ConvLSTMPeephole)", lambda: nn.Recurrent(
+            nn.ConvLSTMPeephole(3, 4, 3, 3)), [r(2, 4, 3, 6, 6)]),
+        ("BiRecurrent concat", lambda: nn.BiRecurrent("concat").add(
+            nn.LSTM(8, 16)), [r(4, 7, 8)]),
+        ("BiRecurrent add", lambda: nn.BiRecurrent().add(nn.GRU(8, 16)),
+         [r(4, 7, 8)]),
+        ("RecurrentDecoder", lambda: nn.RecurrentDecoder(5).add(
+            nn.LSTM(8, 8)), [r(4, 8)]),
+        ("TimeDistributed", lambda: nn.TimeDistributed(nn.Linear(8, 6)),
+         [r(4, 7, 8)]),
+        ("TemporalConvolution", lambda: nn.TemporalConvolution(8, 12, 3, 2),
+         [r(4, 15, 8)]),
+        ("SpatialConvolutionMap", lambda: nn.SpatialConvolutionMap(
+            table, 3, 3, 1, 1, 1, 1), [r(2, 6, 9, 9)]),
+        ("VolumetricConvolution", lambda: nn.VolumetricConvolution(
+            3, 6, 3, 3, 3, 2, 2, 2, -1, -1, -1), [r(2, 3, 7, 8, 9)]),
+        ("VolumetricFullConvolution adj >= stride", lambda:
+         nn.VolumetricFullConvolution(3, 4, 3, 3, 3, 2, 2, 2, 1, 1, 1, 2, 1,
+                                      3), [r(2, 3, 4, 5, 4)]),
+        ("LocallyConnected1D", lambda: nn.LocallyConnected1D(12, 8, 6, 3, 2),
+         [r(4, 12, 8)]),
+        ("LocallyConnected2D", lambda: nn.LocallyConnected2D(
+            3, 9, 8, 5, 3, 3, 2, 2, 1, 1), [r(2, 3, 8, 9)]),
+        ("BinaryTreeLSTM", lambda: nn.BinaryTreeLSTM(8, 12),
+         [r(3, 6, 8), tree.astype(np.int64)]),
+    ]
+
+
+def seq_zoo(torch, K, card, dev="cuda"):
+    """Phase 14: the sequence zoo on the card, float32 with TF32 off, no
+    port kernel launched (JAX computes these with XLA's scans, convolutions
+    and gathers): (a) PTBModel at PTB's medium width through
+    ``Optimizer.create`` (``TimeDistributedCriterion(ClassNLLCriterion())``,
+    ``SGD(0.01)``) on one fixed batch of ``ptb_synthetic``'s stream, then
+    two iterations under ``torch.profiler``, then two GRU iterations; (b)
+    TextClassifier (cnn and lstm encoders; ``Adam``, JAX's example's) on
+    ``news20.synthetic`` through ``tokenize_to_glove_sequences``, with
+    ``set_validation(Top1Accuracy)``; (c) BinaryTreeLSTM under a Linear +
+    LogSoftMax head on the root (``SGD(0.5, momentum=0.9)``, JAX's
+    example's), with ``TreeNNAccuracy``; (d) every other class card
+    against CPU; (e) ``LBFGS.optimize`` card against CPU."""
+    from bigdl_tpu_torch import models, nn
+    from bigdl_tpu_torch.dataset import DataSet, Sample, news20
+    from bigdl_tpu_torch.models._build import placed
+    from bigdl_tpu_torch.optim import (LBFGS, SGD, Adam, Optimizer,
+                                       Top1Accuracy, TreeNNAccuracy,
+                                       every_epoch, max_iteration)
+    t14 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[14] the sequence zoo, float32, TF32 off ({card})", flush=True)
+    r14 = {}
+    # (a) PTBModel
+    c = SEQ["ptb"]
+    V, H, L, T, B = c["vocab"], c["hidden"], c["layers"], c["steps"], \
+        c["batch"]
+    x, y = ptb_batch(B, T, V)
+    crit = nn.TimeDistributedCriterion(nn.ClassNLLCriterion())
+    m = models.PTBModel(V, H, num_layers=L, device=dev, seed=1)
+    rec, _ = train_fixed(
+        torch, K, "[14]", f"(a) PTBModel V{V} H{H} L{L} T{T}", m, crit,
+        SGD(learningrate=0.01), [x], y, c["iters"], dev=dev, unit="tokens",
+        per_sample=T)
+    # FLOPs a step: per token 2 (L 8 H^2 + H V) forward, 3x for training
+    flops = 3 * 2 * B * T * (L * 8 * H * H + H * V)
+    rec["flop_ms"] = flops / PEAK_FLOPS["torch.float32"] * 1e3
+    if dev == "cuda":
+        again = Optimizer.create(m, DataSet.array(
+            [Sample(x[i], y[i]) for i in range(B)]), crit, max_iteration(2),
+            batch_size=B, optim_method=SGD(learningrate=0.01), device=dev)
+        tr = trace_steps(torch, again.optimize, n=1, per_call=2, convs=False)
+        rec["trace"] = tr
+        rec["busy"] = tr["device_ms"] / tr["wall_ms"]
+        rec["busy_unprofiled"] = tr["device_ms"] / rec["step_ms"]
+        print(f"[14] (a) PTBModel step {rec['step_ms']:.2f} ms against "
+              f"{flops / 1e9:.1f} GFLOP = {rec['flop_ms']:.2f} ms at 67 "
+              f"TFLOP/s float32 ({rec['step_ms'] / rec['flop_ms']:.1f}x); "
+              f"traced: {tr['device_ms']:.1f} ms of CUDA kernels a step in "
+              f"{tr['launches']:.0f} launches, profiled wall "
+              f"{tr['wall_ms']:.1f} ms, device busy {rec['busy']:.1%} of it "
+              f"({rec['busy_unprofiled']:.1%} of the unprofiled step); ms a "
+              f"step by family {tr['families']}; largest kernels (ms a step, "
+              f"launches a step): {tr['top'][:10]}", flush=True)
+    r14["ptb"] = rec
+    del m
+    m = models.PTBModel(V, H, num_layers=L, cell_type="gru", device=dev,
+                        seed=2)
+    r14["ptb_gru"], _ = train_fixed(
+        torch, K, "[14]", f"(a) PTBModel GRU V{V} H{H} L{L} T{T}", m, crit,
+        SGD(learningrate=0.01), [x], y, 2, dev=dev, unit="tokens",
+        per_sample=T)
+    del m
+    # (b) TextClassifier on GloVe-style sequences of 20 Newsgroups
+    c = SEQ["text"]
+    texts = news20.synthetic(n_per_class=c["per_class"],
+                             class_num=c["classes"], doc_len=c["seq"])
+    feats, labels = models.tokenize_to_glove_sequences(
+        texts, None, c["seq"], c["emb"])
+    order = np.random.RandomState(4).permutation(len(labels))
+    tr_i, va_i = order[:c["batch"]], order[c["batch"]:]
+    val = [Sample(feats[i], labels[i]) for i in va_i]
+    # JAX's example's Adam(0.01) for the convolution; the LSTM over 500
+    # steps takes 1e-3 (at 0.01 its fixed batch's loss rose on the card)
+    for enc, lr in (("cnn", 0.01), ("lstm", 0.001)):
+        m = models.TextClassifier(c["classes"], c["emb"], c["seq"], enc,
+                                  c["filters"], device=dev, seed=3)
+        rec, _ = train_fixed(
+            torch, K, "[14]", f"(b) TextClassifier {enc} L{c['seq']} "
+            f"D{c['emb']} {c['filters']}", m, nn.ClassNLLCriterion(),
+            Adam(learningrate=lr), [feats[tr_i]],
+            labels[tr_i], c["iters"], dev=dev, unit="documents",
+            validation=(every_epoch(), val, [Top1Accuracy()]))
+        rec["val_top1"] = m.evaluate_dataset(
+            DataSet.array(val), [Top1Accuracy()])[0].result()[0]
+        print(f"[14] (b) TextClassifier {enc}: validation Top1 "
+              f"{rec['val_top1']:.3f} on {len(val)} held-out documents",
+              flush=True)
+        r14[f"text_{enc}"] = rec
+        del m
+    # (c) BinaryTreeLSTM on random binary trees
+    c = SEQ["tree"]
+    words, trees, ty = tree_batch(2 * c["batch"], c["leaves"], c["emb"],
+                                  c["classes"], 6)
+    B = c["batch"]
+    m = placed(nn.Sequential(nn.BinaryTreeLSTM(c["emb"], c["hidden"]),
+                             nn.Select(2, 1), nn.Linear(c["hidden"],
+                                                        c["classes"]),
+                             nn.LogSoftMax()), dev, 4)
+    val = [Sample([words[i], trees[i]], ty[i]) for i in range(B, 2 * B)]
+    rec, _ = train_fixed(
+        torch, K, "[14]", f"(c) BinaryTreeLSTM D{c['emb']} H{c['hidden']} "
+        f"{trees.shape[1]} nodes", m, nn.ClassNLLCriterion(),
+        SGD(learningrate=0.5, momentum=0.9), [words[:B], trees[:B]], ty[:B],
+        c["iters"], dev=dev, unit="trees",
+        validation=(every_epoch(), val, [TreeNNAccuracy()]))
+    rec["val_tree_acc"] = m.evaluate_dataset(
+        DataSet.array(val), [TreeNNAccuracy()])[0].result()[0]
+    print(f"[14] (c) BinaryTreeLSTM: {trees.shape[1]} nodes a tree, the "
+          f"full sweep ({trees.shape[1]} compositions of every node); "
+          f"TreeNNAccuracy {rec['val_tree_acc']:.3f} on {B} held-out trees",
+          flush=True)
+    r14["tree"] = rec
+    del m
+    # (d) every other class, card against CPU
+    rng = np.random.RandomState(8)
+    r = lambda *shape: rng.randn(*shape).astype(np.float32)
+    errs = {name: module_card_vs_cpu(torch, name, make, inputs, dev)
+            for name, make, inputs in seq_cases(nn, r)}
+    errs["SimpleRNN"] = module_card_vs_cpu(
+        torch, "SimpleRNN", lambda: models.SimpleRNN(8, 16, 5, device="cpu"),
+        [r(4, 6, 8)], dev)
+    r14["card_vs_cpu"] = errs
+    worst = max(errs, key=errs.get)
+    print(f"[14] (d) card vs CPU, one training-mode forward and every "
+          f"gradient (largest error over largest value), {len(errs)} "
+          f"classes: worst {worst} {errs[worst]:.2e}; "
+          f"{ {k: float(f'{v:.2e}') for k, v in errs.items()} }", flush=True)
+    # (e) LBFGS.optimize on a full-batch softmax regression
+    rng = np.random.RandomState(9)
+    X, Y = r(256, 32), rng.randint(0, 10, size=256)
+    w0 = {"w": 0.1 * r(32, 10), "b": np.zeros(10, np.float32)}
+    runs = {}
+    for d in (dev, "cpu"):
+        xt, yt = torch.from_numpy(X).to(d), torch.from_numpy(Y).to(d)
+
+        def feval(p):
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            logp = torch.log_softmax(xt @ leaves["w"] + leaves["b"], -1)
+            loss = -logp[torch.arange(len(yt), device=d), yt].mean() \
+                + 0.01 * (leaves["w"] ** 2).sum()
+            g = torch.autograd.grad(loss, list(leaves.values()))
+            return loss.item(), dict(zip(leaves, g))
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, losses = LBFGS(max_iter=10, tol_fun=1e-12, line_search=True) \
+            .optimize(feval, {k: torch.from_numpy(v).to(d)
+                              for k, v in w0.items()})
+        runs[d] = (losses, time.perf_counter() - t0)
+        check(not any(K.launch_counts().values()), "[14] LBFGS launched "
+              "port kernels")
+    (lc, tc), (lh, _) = runs[dev], runs["cpu"]
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    r14["lbfgs"] = {"losses": lc, "rel_err": lerr, "wall_s": tc}
+    print(f"[14] (e) LBFGS.optimize (max_iter 10, Armijo line search) on "
+          f"a 256 x 32 softmax regression: losses {[round(v, 5) for v in lc]}"
+          f", card against CPU {lerr:.2e} (relative), {tc:.3f} s",
+          flush=True)
+    check(len(lc) == len(lh) and lerr <= LBFGS_TOL and lc[-1] < lc[0],
+          f"[14] LBFGS on the card {lc} against the CPU {lh}")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    r14["phase_s"] = time.perf_counter() - t14
+    print(f"[14] phase 14: {r14['phase_s']:.1f} s", flush=True)
+    return r14
 
 
 def main():
@@ -4299,6 +4675,8 @@ def main():
     l12 = r12["launches"]
     # -- phase 13: the layer library and the classic image zoo ----------------
     r13 = zoo(torch, K, card, r8)
+    # -- phase 14: the sequence zoo -------------------------------------------
+    seq_zoo(torch, K, card)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,

@@ -52,8 +52,15 @@ def _twins(make):
     return jm, tm
 
 
+def _seq_net(m):
+    return m.Sequential(m.Recurrent(m.LSTM(3, 4)), m.Select(2, -1),
+                        m.Linear(4, 2))
+
+
 CASES = {
     "conv_bn_net": (_net, lambda: _x(3, 2, 4, 4), lambda: _x(3, 4, seed=1)),
+    "recurrent_net": (_seq_net, lambda: _x(2, 5, 3),
+                      lambda: _x(2, 2, seed=1)),
     "table_net": (_table_net, lambda: [_x(2, 3), _x(2, 5, seed=2)],
                   lambda: _x(2, 4, seed=1)),
 }

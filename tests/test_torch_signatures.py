@@ -273,9 +273,8 @@ UNPORTED_METHODS = {
     "bigdl_tpu.dataset.transformer.Transformer": {"arrow"},
     # the cross-process page handoff of the fleet tier (ROADMAP A.8)
     "bigdl_tpu.serving.kv_cache.PagedKVCache": {"export_blocks"},
-    # the closure form of an optim method, with LBFGS, and the training
-    # loop's health, summary and input follow-ons (ROADMAP A.4)
-    "bigdl_tpu.optim.optim_method.OptimMethod": {"optimize"},
+    # the training loop's health, summary and input follow-ons (ROADMAP
+    # A.4)
     "bigdl_tpu.optim.optimizer.BaseOptimizer": {
         "prepare_input", "set_anomaly_detection", "set_fault_policy",
         "set_remediation", "set_stall_deadline", "set_summary_trigger",
@@ -365,11 +364,6 @@ UNPORTED_MEMBERS = {
     # the restart supervisor of multi-GPU training (ROADMAP A.6)
     "parallel.elastic": {"ElasticRunner", "shrink_devices",
                          "data_parallel_factory"},
-    # the temporal, volumetric, connection-table and locally connected
-    # convolutions come with the sequence zoo (ROADMAP A.7)
-    "nn.conv": {"SpatialConvolutionMap", "TemporalConvolution",
-                "VolumetricConvolution", "VolumetricFullConvolution",
-                "LocallyConnected1D", "LocallyConnected2D"},
     # ROI pooling comes with the detection slice (ROADMAP A.7)
     "nn.pool": {"RoiPooling"},
 }
@@ -383,7 +377,9 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "nn.activation", "nn.dropout", "nn.table_ops", "nn.containers",
             "nn.shape_ops", "nn.pool", "nn.conv", "nn.norm", "nn.criterion",
             "nn.init", "models.lenet", "models.vgg", "models.inception",
-            "models.autoencoder"]
+            "models.autoencoder", "nn.recurrent", "nn.tree_lstm", "nn.linear",
+            "models.rnn", "models.textclassifier", "dataset.text",
+            "dataset.sentence", "dataset.news20"]
 
 
 @pytest.mark.parametrize("mod", MIRRORED)

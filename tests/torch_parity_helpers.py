@@ -65,10 +65,17 @@ def sin_loss(out, xp):
                if o.dtype in (jnp.float32, torch.float32))
 
 
-def jax_params(jm, seed=0, redraw=True, state=None):
+def jax_params(jm, seed=0, redraw=True, state=None, jit=False):
     """JAX parameters (and state) of ``jm`` as numpy, every float leaf
-    redrawn as 0.5 N(0, 1) from ``seed`` unless ``redraw`` is False."""
-    jp, js = jm.init(jax.random.PRNGKey(seed))
+    redrawn as 0.5 N(0, 1) from ``seed`` unless ``redraw`` is False. With
+    ``jit`` and ``redraw`` JAX's initialisers are not run: the parameters'
+    shapes come from ``jax.eval_shape`` (no compilation) and the state
+    from ``_init_state``."""
+    if jit and redraw:
+        jp = jax.eval_shape(jm._init_params, jax.random.PRNGKey(seed))
+        js = jm._init_state()
+    else:
+        jp, js = jm.init(jax.random.PRNGKey(seed))
     rng = np.random.RandomState(seed + 100)
     jp = jax.tree_util.tree_map(
         lambda a: (0.5 * rng.randn(*np.shape(a))).astype(np.float32)
@@ -86,17 +93,20 @@ def load(tm, jp, js):
     return tm
 
 
-def run_jax(jm, jp, js, x, training, loss=sin_loss):
-    """(output, new state, parameter gradients, float-input gradients)."""
+def run_jax(jm, jp, js, x, training, loss=sin_loss, jit=False):
+    """(output, new state, parameter gradients, float-input gradients);
+    with ``jit`` the loss and its gradients are one compiled function (one
+    compilation, where op-by-op dispatch compiles every primitive: faster
+    for a module of many small ops, such as a recurrence)."""
     fl = [jnp.asarray(leaves(x)[i]) for i in float_slots(x)]
 
     def f(p, fl):
         out, ns = jm.apply(p, js, substitute(x, fl, jnp.asarray),
                            training=training)
         return loss(out, jnp), (out, ns)
-    (_, (out, ns)), (gp, gx) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(jax.tree_util.tree_map(
-            jnp.asarray, jp), fl)
+    vg = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)
+    (_, (out, ns)), (gp, gx) = (jax.jit(vg) if jit else vg)(
+        jax.tree_util.tree_map(jnp.asarray, jp), fl)
     return out, ns, gp, gx
 
 
@@ -138,12 +148,13 @@ def close(got, want, tol=TOL, what=""):
 
 
 def check_pair(jm, tm, x, training, seed=0, redraw=True, state=None,
-               loss=sin_loss, tol=TOL):
+               loss=sin_loss, tol=TOL, jit=False):
     """Hold the port module against its JAX twin on input ``x``: output,
-    new state, parameter and input gradients."""
-    jp, js = jax_params(jm, seed, redraw, state)
+    new state, parameter and input gradients (JAX's compiled as one
+    function with ``jit``)."""
+    jp, js = jax_params(jm, seed, redraw, state, jit)
     load(tm, jp, js)
-    jout, jns, jgp, jgx = run_jax(jm, jp, js, x, training, loss)
+    jout, jns, jgp, jgx = run_jax(jm, jp, js, x, training, loss, jit)
     out, ns, gp, gx = run_port(tm, x, training, loss)
     close(out, jout, tol, "output")
     close(convert.to_numpy_tree(ns), jns, tol, "state")
