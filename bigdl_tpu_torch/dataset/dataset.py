@@ -11,6 +11,8 @@ from ..utils.engine import refuse_unported
 from .sample import Sample
 from .transformer import SampleToMiniBatch
 
+__all__ = ["DataSet", "AbstractDataSet", "LocalDataSet", "ShardedDataSet"]
+
 
 class DataSet:
     """Factory namespace."""

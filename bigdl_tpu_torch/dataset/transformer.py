@@ -39,3 +39,6 @@ class SampleToMiniBatch(Transformer):
         if buf and not self.drop_last:
             yield MiniBatch.from_samples(buf, self.feature_padding,
                                          self.label_padding)
+
+
+__all__ = ["Transformer", "SampleToMiniBatch"]

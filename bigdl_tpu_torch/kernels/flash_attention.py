@@ -367,3 +367,47 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal)
         return dq, dk, dv, None
+
+
+def flash_attention_fused(q, k, v, causal: bool = False,
+                          scale: float | None = None,
+                          block_q: int = 512, block_k: int = 512,
+                          interpret: bool = False):
+    """Differentiable flash attention, the JAX package's public entry:
+    q, k, v (B, H, T, D) -> (B, H, T, D), ``FlashAttention.apply``
+    (K1-fwd, and K1-bwd for the gradient). ``scale`` is 1/sqrt(D) and
+    ``block_q`` / ``block_k`` are the TPU kernel's tile sizes: other
+    values are refused. ``interpret`` selects JAX's Pallas interpreter,
+    which has no counterpart here; it is accepted and does nothing (a CPU
+    tensor always runs the plain version, a CUDA tensor the kernel)."""
+    _refuse_tiles("flash_attention_fused", q, scale, block_q, block_k)
+    return FlashAttention.apply(q, k, v, bool(causal))
+
+
+def flash_chunk_attention(q, k, v, q_offset: int, kv_len: int = None,
+                          scale: float | None = None,
+                          block_q: int = 512, block_k: int = 512,
+                          interpret: bool = False):
+    """Rectangular-causal flash attention for chunked cached decode, the
+    JAX package's public entry: q (B, H, S, D) at positions
+    ``q_offset..q_offset+S-1`` over the first ``kv_len`` keys of k / v
+    (all of them by default); row r attends keys <= q_offset + r. Forward
+    only, as JAX's. ``scale``, ``block_q`` / ``block_k`` and
+    ``interpret`` as in :func:`flash_attention_fused`."""
+    _refuse_tiles("flash_chunk_attention", q, scale, block_q, block_k)
+    return flash_fwd(q, k, v, causal=True, q_offset=int(q_offset),
+                     kv_len=kv_len)[0]
+
+
+def _refuse_tiles(owner, q, scale, block_q, block_k):
+    from ..utils.engine import refuse_unported
+    default = 1.0 / math.sqrt(q.shape[-1])
+    refuse_unported(owner,
+                    scale=(default if scale is None else float(scale),
+                           default),
+                    block_q=(int(block_q), 512), block_k=(int(block_k), 512))
+
+
+__all__ = ["flash_fwd_reference", "head_dim_width", "fwd_route", "bwd_route",
+           "flash_fwd", "flash_bwd_reference", "flash_bwd", "FlashAttention",
+           "flash_attention_fused", "flash_chunk_attention"]

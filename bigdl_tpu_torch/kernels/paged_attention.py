@@ -226,3 +226,7 @@ paged_decode_attention.launches_by_route = dict.fromkeys(
 # launches by query rows a sequence (S): decode 1, prefill chunks and the
 # draft catch-up powers of two, the speculative verify spec_k + 1
 paged_decode_attention.launches_by_s = {}
+
+
+__all__ = ["route", "rows_per_block", "split_plan", "paged_attention_reference",
+           "paged_decode_attention"]

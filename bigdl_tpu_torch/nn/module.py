@@ -492,3 +492,6 @@ class Criterion:
             torch.zeros_like(x) if g is None else g
             for x, g in zip(xs, grads)))
         return self.grad_input
+
+
+__all__ = ["Module", "Container", "Criterion", "copy_tree_into", "assign_state"]

@@ -67,6 +67,8 @@ from .regularizer import regularization_loss, regularizer_tree
 from .staging import _first_leaf, _index, _stack, place_host_value, staged
 from .trigger import Trigger, max_epoch
 
+__all__ = ["Metrics", "BaseOptimizer", "LocalOptimizer", "Optimizer"]
+
 
 def _read_umask():
     """The process umask, read from /proc where Linux has it (the

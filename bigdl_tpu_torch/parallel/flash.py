@@ -37,3 +37,6 @@ def paged_attention(q, k_pages, v_pages, block_tables, positions,
     CPU the kernel's plain version is that einsum), so it is not called."""
     return paged_decode_attention(q, k_pages, v_pages, block_tables,
                                   positions)
+
+
+__all__ = ["flash_attention", "flash_chunk_attention", "paged_attention"]

@@ -207,3 +207,41 @@ def test_resnet50_engine_matches_jax_and_its_own_apply(monkeypatch):
         direct, _ = tm.apply(tm.params, tm.state, torch.from_numpy(bucket),
                              training=False)
     np.testing.assert_array_equal(out["port"], direct.numpy()[:3])
+
+
+# -- utils.engine (the runtime engine, not the serving one) ---------------
+
+def test_utils_engine_members():
+    """The engine's CUDA members: ``init`` records its numbers and seeds,
+    ``device_count`` counts CUDA devices, ``RandomGenerator`` draws from
+    the port's seeded generator (reproducible, not JAX's values)."""
+    from bigdl_tpu.utils import engine as jengine
+    from bigdl_tpu_torch.utils import engine
+    import random
+    saved = (dict(engine._state), torch.get_rng_state(),
+             np.random.get_state(), random.getstate())
+    try:
+        _engine_members(engine, jengine)
+    finally:    # the process's engine and generators as they were
+        engine._state.clear()
+        engine._state.update(saved[0])
+        torch.set_rng_state(saved[1])
+        np.random.set_state(saved[2])
+        random.setstate(saved[3])
+
+
+def _engine_members(engine, jengine):
+    engine.init(node_number=2, core_number=3, seed=7)
+    assert engine.is_initialized() and engine.get_seed() == 7
+    assert (engine.node_number(), engine.core_number()) == (2, 3)
+    assert engine.engine_type() == "cuda"
+    assert engine.device_count() == torch.cuda.device_count()
+    assert engine.default_dtype() is jengine.default_dtype()
+    engine.RandomGenerator.set_seed(5)
+    a = engine.RandomGenerator.uniform(-1.0, 2.0, (64,))
+    n = engine.RandomGenerator.normal(3.0, 0.5, (2, 3))
+    engine.RandomGenerator.set_seed(5)
+    torch.testing.assert_close(engine.RandomGenerator.uniform(-1.0, 2.0,
+                                                              (64,)), a)
+    assert float(a.min()) >= -1.0 and float(a.max()) < 2.0
+    assert n.shape == (2, 3)

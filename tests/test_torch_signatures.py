@@ -366,6 +366,29 @@ UNPORTED_MEMBERS = {
                          "data_parallel_factory"},
     # ROI pooling comes with the detection slice (ROADMAP A.7)
     "nn.pool": {"RoiPooling"},
+    # transformer chains on data sets (ROADMAP A.4)
+    "dataset.dataset": {"TransformedDataSet"},
+    "dataset.transformer": {"ChainedTransformer", "Identity",
+                            "FuncTransformer"},
+    # the graph container's node comes with the detection slice (ROADMAP
+    # A.7)
+    "nn.module": {"Node"},
+    # the loop's remediation policy (ROADMAP A.4); mesh training (ROADMAP
+    # A.6)
+    "optim.optimizer": {"RemediationPolicy", "DistriOptimizer",
+                        "ParallelOptimizer"},
+    # the mesh's serving context (ROADMAP A.6); by design, no port: the
+    # environment switches (the port has one route per device)
+    "parallel.flash": {"paged_serving_context", "flash_mode", "paged_mode"},
+    # by design, no port: a trace-time spy (the port counts launches)
+    "kernels.paged_attention": {"trace_count"},
+    # the device mesh (ROADMAP A.6); by design, no port: JAX's key stream
+    # (the port passes torch.Generators) and XLA's compilation cache
+    "utils.engine": {"get_mesh", "next_rng_key", "next_rng_keys",
+                     "enable_compilation_cache",
+                     "maybe_enable_compilation_cache",
+                     "compilation_cache_dir", "compilation_cache_stats",
+                     "compilation_cache_entries"},
 }
 MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "observability.trace", "observability.exporters",
@@ -379,7 +402,10 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "nn.init", "models.lenet", "models.vgg", "models.inception",
             "models.autoencoder", "nn.recurrent", "nn.tree_lstm", "nn.linear",
             "models.rnn", "models.textclassifier", "dataset.text",
-            "dataset.sentence", "dataset.news20"]
+            "dataset.sentence", "dataset.news20", "dataset.dataset",
+            "dataset.transformer", "kernels.flash_attention",
+            "kernels.paged_attention", "nn.module", "optim.optimizer",
+            "parallel.flash", "utils.engine"]
 
 
 @pytest.mark.parametrize("mod", MIRRORED)
@@ -482,6 +508,61 @@ def test_serving_parameters_are_accepted(kw, attr, want):
     ds.shutdown()
     from bigdl_tpu_torch.serving import kv_swap_threads_alive
     assert kv_swap_threads_alive() == 0
+
+
+@pytest.mark.parametrize("call", [
+    lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
+                         fromlist=["x"]).flash_attention_fused(
+        q, q, q, scale=0.5),
+    lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
+                         fromlist=["x"]).flash_attention_fused(
+        q, q, q, block_q=128),
+    lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
+                         fromlist=["x"]).flash_chunk_attention(
+        q, q, q, 0, block_k=256),
+    lambda q: __import__("bigdl_tpu_torch.utils.engine",
+                         fromlist=["x"]).init(mesh_shape=(2,)),
+], ids=["flash_scale", "flash_block_q", "chunk_block_k", "engine_mesh"])
+def test_tile_mesh_and_multi_gpu_parameters_are_refused(call):
+    """TPU tile sizes, a scale other than 1/sqrt(D) and the engine's mesh
+    (ROADMAP A.6) raise at a value other than JAX's default."""
+    with pytest.raises(NotImplementedError):
+        call(torch.zeros(1, 1, 4, 8))
+
+
+def test_flash_entries_match_the_jax_kernels_on_the_cpu():
+    """``flash_attention_fused`` (forward and gradient) and
+    ``flash_chunk_attention`` against JAX's Pallas kernels in interpret
+    mode; ``interpret`` is accepted and changes nothing."""
+    from bigdl_tpu.kernels import flash_attention as jfa
+    from bigdl_tpu_torch.kernels import flash_attention as tfa
+    rng = np.random.RandomState(0)
+    q, k, v, g = (rng.randn(1, 2, 16, 8).astype(np.float32)
+                  for _ in range(4))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    out = tfa.flash_attention_fused(tq, tk, tv, causal=True,
+                                    interpret=True)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+
+    def f(q, k, v):
+        return jnp.sum(jfa.flash_attention_fused(
+            q, k, v, causal=True, block_q=8, block_k=8, interpret=True)
+            * g)
+    want = jfa.flash_attention_fused(q, k, v, causal=True, block_q=8,
+                                     block_k=8, interpret=True)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               **MOD_TOL)
+    for got, w in zip(grads, jax.grad(f, (0, 1, 2))(q, k, v)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), **MOD_TOL)
+    kc, vc = (rng.randn(1, 2, 32, 8).astype(np.float32) for _ in range(2))
+    qc = rng.randn(1, 2, 4, 8).astype(np.float32)
+    got = tfa.flash_chunk_attention(torch.from_numpy(qc),
+                                    torch.from_numpy(kc),
+                                    torch.from_numpy(vc), 12, kv_len=16)
+    want = jfa.flash_chunk_attention(qc, kc, vc, 12, kv_len=16, block_q=8,
+                                     block_k=8, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MOD_TOL)
 
 
 @pytest.mark.parametrize("kw", [{"mesh": "mesh"}, {"placement": "tp"}],
