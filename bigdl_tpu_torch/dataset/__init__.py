@@ -1,9 +1,12 @@
 from . import news20, sentence, text
-from .dataset import AbstractDataSet, DataSet, LocalDataSet, ShardedDataSet
+from .dataset import (AbstractDataSet, DataSet, LocalDataSet, ShardedDataSet,
+                      TransformedDataSet)
 from .minibatch import MiniBatch, PaddingParam
 from .sample import Sample
-from .transformer import SampleToMiniBatch, Transformer
+from .transformer import (ChainedTransformer, FuncTransformer, Identity,
+                          SampleToMiniBatch, Transformer)
 
 __all__ = ["AbstractDataSet", "DataSet", "LocalDataSet", "ShardedDataSet",
            "MiniBatch", "PaddingParam", "Sample", "SampleToMiniBatch",
-           "Transformer"]
+           "Transformer", "TransformedDataSet", "ChainedTransformer",
+           "FuncTransformer", "Identity"]

@@ -3,26 +3,27 @@ sample store with the JAX package's per-epoch shuffle, and the batch-level
 view the optimizer reads (one shard: multi-GPU comes later)."""
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
 from ..utils.engine import refuse_unported
 from .sample import Sample
-from .transformer import SampleToMiniBatch
+from .transformer import SampleToMiniBatch, Transformer
 
-__all__ = ["DataSet", "AbstractDataSet", "LocalDataSet", "ShardedDataSet"]
+__all__ = ["DataSet", "AbstractDataSet", "LocalDataSet", "TransformedDataSet",
+           "ShardedDataSet"]
 
 
 class DataSet:
     """Factory namespace."""
 
     @staticmethod
-    def array(data: Sequence, transformer=None):
-        """A local data set over ``data``; transformer chains are not
-        ported (``transformer`` must stay None)."""
-        refuse_unported("DataSet.array", transformer=(transformer, None))
-        return LocalDataSet(list(data))
+    def array(data: Sequence, transformer: Optional[Transformer] = None):
+        """A local data set over ``data``, seen through ``transformer``
+        when one is given."""
+        ds = LocalDataSet(list(data))
+        return ds.transform(transformer) if transformer else ds
 
     @staticmethod
     def from_arrays(features: np.ndarray, labels: Optional[np.ndarray] = None):
@@ -43,6 +44,14 @@ class AbstractDataSet:
 
     def data(self, train: bool) -> Iterable:
         raise NotImplementedError
+
+    def transform(self, transformer: Transformer) -> "AbstractDataSet":
+        """This data set seen through ``transformer``, lazily."""
+        return TransformedDataSet(self, transformer)
+
+    def arrow(self, transformer):
+        """The reference's ``->``: :meth:`transform`."""
+        return self.transform(transformer)
 
 
 class LocalDataSet(AbstractDataSet):
@@ -78,6 +87,24 @@ class LocalDataSet(AbstractDataSet):
         if train:
             return (self._data[i] for i in self._train_order())
         return iter(self._data)
+
+
+class TransformedDataSet(AbstractDataSet):
+    """``base`` with ``transformer`` applied to each pass over it: the
+    base's size and shuffle, the transformer's elements."""
+
+    def __init__(self, base: AbstractDataSet, transformer: Transformer):
+        self.base, self.transformer = base, transformer
+
+    def size(self):
+        return self.base.size()
+
+    def shuffle(self):
+        self.base.shuffle()
+        return self
+
+    def data(self, train: bool = True):
+        return self.transformer.apply(iter(self.base.data(train)))
 
 
 class ShardedDataSet(AbstractDataSet):

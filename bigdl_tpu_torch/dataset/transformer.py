@@ -1,5 +1,7 @@
 """Iterator stages (counterpart of ``bigdl_tpu/dataset/transformer.py``):
-the base ``Transformer`` and the batching stage the optimizer reads."""
+composable transformers (``a | b``, or the reference's ``a.arrow(b)``),
+the identity, a per-element function, and the batching stage the
+optimizer reads."""
 from __future__ import annotations
 
 from typing import Iterable, Iterator
@@ -11,6 +13,36 @@ class Transformer:
 
     def __call__(self, it: Iterable) -> Iterator:
         return self.apply(iter(it))
+
+    def __or__(self, other: "Transformer") -> "ChainedTransformer":
+        return ChainedTransformer(self, other)
+
+    def arrow(self, other):
+        """The reference's ``->`` composition: ``self | other``."""
+        return self.__or__(other)
+
+
+class ChainedTransformer(Transformer):
+    def __init__(self, first: Transformer, second: Transformer):
+        self.first, self.second = first, second
+
+    def apply(self, it):
+        return self.second.apply(self.first.apply(it))
+
+
+class Identity(Transformer):
+    def apply(self, it):
+        return it
+
+
+class FuncTransformer(Transformer):
+    """A per-element function as a stage."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def apply(self, it):
+        return (self.fn(x) for x in it)
 
 
 class SampleToMiniBatch(Transformer):
@@ -41,4 +73,5 @@ class SampleToMiniBatch(Transformer):
                                          self.label_padding)
 
 
-__all__ = ["Transformer", "SampleToMiniBatch"]
+__all__ = ["Transformer", "ChainedTransformer", "Identity", "FuncTransformer",
+           "SampleToMiniBatch"]

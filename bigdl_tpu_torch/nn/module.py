@@ -32,6 +32,16 @@ JAX package's Torch-style API:
 * ``get_weights`` / ``set_weights`` (nested dicts of numpy arrays) and
   ``save_weights`` / ``load_weights``: one ``.npz`` with the JAX trees'
   "/"-joined names and layouts, so either package loads the other's file;
+* ``init(generator)`` -> freshly drawn ``(params, state)`` trees (the
+  module keeps its own), ``clone`` (a deep copy sharing no storage),
+  ``get_extra_parameter`` / ``set_extra_parameter`` (the state leaves in
+  the JAX trees' order: keys sorted at every level), ``predict`` /
+  ``predict_class`` (``optim.predictor.Predictor``), and ``save`` /
+  ``load``: a pickle with JAX's payload keys (``module``, ``params``,
+  ``state``), the trees as numpy in JAX's layout and the module without
+  its tensors. ``load`` refuses a file the JAX package wrote (it would
+  import ``bigdl_tpu``): ``save_weights`` / ``load_weights`` or
+  ``convert`` cross between the packages;
 * the Torch backward protocol: ``backward(x, grad_output)`` returns the
   input's gradient and adds the parameters' gradients, times
   ``set_scale_w``'s factor, into ``grad_params`` (a tree like ``params``);
@@ -51,6 +61,10 @@ JAX package's Torch-style API:
 use ``modules()`` to visit submodules.
 """
 from __future__ import annotations
+
+import copy
+import os
+import pickle
 
 import numpy as np
 import torch
@@ -355,6 +369,114 @@ class Module(torch.nn.Module):
         copy_tree_into(self.params, unflatten(
             {k: data[k.replace(".", "/")] for k in flatten(self.params)}))
         return self
+
+    # -- the functional init, copies and extra parameters -----------------
+    def init(self, generator=None):
+        """``(params, state)`` drawn afresh from the initialisers (with
+        ``generator``, a ``torch.Generator`` on the parameters' device, or
+        torch's global one) as new trees; this module keeps its own."""
+        fresh = self.clone().reset(generator)
+        return fresh.params, fresh.state
+
+    def clone(self):
+        """A deep copy: the same structure and values, no shared storage."""
+        return copy.deepcopy(self)
+
+    def get_extra_parameter(self):
+        """The state leaves (BatchNorm running statistics) as a list of
+        copies, in the JAX trees' order (keys sorted at every level)."""
+        flat = flatten(self.state)
+        return [flat[k].detach().clone() for k in _sorted_paths(self.state)]
+
+    def set_extra_parameter(self, extra):
+        """Copy a list in :meth:`get_extra_parameter`'s order into the
+        state, each leaf cast to its tensor's dtype."""
+        flat = flatten(self.state)
+        names = _sorted_paths(self.state)
+        if len(extra) != len(names):
+            raise ValueError(f"expected {len(names)} extra parameters, "
+                             f"got {len(extra)}")
+        with torch.no_grad():
+            for i, (k, e) in enumerate(zip(names, extra)):
+                cur = flat[k]
+                v = e if isinstance(e, torch.Tensor) else \
+                    torch.as_tensor(np.asarray(e))
+                if tuple(v.shape) != tuple(cur.shape):
+                    raise ValueError(f"extra parameter {i}: shape "
+                                     f"{tuple(v.shape)} does not match "
+                                     f"{tuple(cur.shape)}")
+                cur.copy_(v)
+        return self
+
+    # -- prediction -------------------------------------------------------
+    def predict(self, dataset, batch_size=32):
+        """Outputs over ``dataset`` (``optim.predictor.Predictor``)."""
+        from ..optim.predictor import Predictor
+        return Predictor(self).predict(dataset, batch_size)
+
+    def predict_class(self, dataset, batch_size=32):
+        from ..optim.predictor import Predictor
+        return Predictor(self).predict_class(dataset, batch_size)
+
+    # -- serialization ----------------------------------------------------
+    def save(self, path, overwrite=True):
+        """Pickle the module to ``path`` with the JAX package's payload
+        keys: ``params`` / ``state`` as numpy trees in JAX's names and
+        layouts, ``module`` this module with its tensors on the meta
+        device (no storage)."""
+        if not overwrite and os.path.exists(path):
+            raise IOError(f"{path} exists and overwrite=False")
+        payload = {"module": self._strip_runtime(),
+                   "params": host_copy_tree(self.params),
+                   "state": host_copy_tree(self.state)}
+        with open(path, "wb") as f:
+            pickle.dump(payload, f)
+        return self
+
+    def _strip_runtime(self):
+        """A copy whose parameters and buffers are meta tensors and whose
+        runtime attributes are cleared; the live tensors are not copied."""
+        memo = {}
+        for t in list(self.parameters()) + list(self.buffers()):
+            meta = torch.empty_like(t, device="meta")
+            memo[id(t)] = torch.nn.Parameter(
+                meta, requires_grad=t.requires_grad) \
+                if isinstance(t, torch.nn.Parameter) else meta
+        c = copy.deepcopy(self, memo)
+        for m in c.modules():
+            if isinstance(m, Module):
+                m.grad_params = m.output = m.grad_input = None
+                m.__dict__.pop("_facade_generators", None)
+                m.__dict__.pop("_forward_draw", None)
+        return c
+
+    @staticmethod
+    def load(path, device=None):
+        """The module :meth:`save` wrote, its tensors on ``device`` (the
+        CUDA device by default; ``'cpu'`` for the CPU). A file the JAX
+        package wrote holds its own module classes and is refused without
+        importing them."""
+        with open(path, "rb") as f:
+            payload = _PortUnpickler(f).load()
+        m = payload["module"].to_empty(device=engine.resolve_device(device))
+        copy_tree_into(m.params, payload["params"])
+        copy_tree_into(m.state, payload["state"])
+        return m
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Refuses every global of the JAX package (``bigdl_tpu.``), so a JAX
+    pickle fails before anything of it is imported."""
+
+    def find_class(self, module, name):
+        if module == "bigdl_tpu" or module.startswith("bigdl_tpu."):
+            raise pickle.UnpicklingError(
+                f"{module}.{name}: this file was written by the JAX package "
+                f"(bigdl_tpu), whose modules the port does not import; save "
+                f"its weights with save_weights and read them with "
+                f"load_weights, or carry them over with bigdl_tpu_torch."
+                f"convert")
+        return super().find_class(module, name)
 
 
 def _first_tensor(x):

@@ -37,14 +37,35 @@ after every step and at every epoch's end. ``metrics`` records
 ``optim/loss_syncs``, ``engine/dispatches`` (a step, or a superstep) and
 ``optim/steps`` are counted as in JAX.
 
+Summaries (``set_train_summary`` / ``set_val_summary``): ``Loss``,
+``LearningRate`` and ``Throughput`` after every step, the validation
+scores after every validation, each gated by its ``set_summary_trigger``.
+With observability on, the loop records JAX's spans (``step``,
+``step/data_fetch``, ``step/dispatch``, ``step/loss_sync``,
+``step/superstep``, ``step/validate``, ``step/checkpoint_submit``), its
+flight records (``train/start``, ``step``, ``nan``, ``epoch``,
+``checkpoint``; a lagged loss carries the step that produced it), a crash
+bundle on any failure but ``TrainingHalted``, the ``optim/throughput``
+gauge, memory telemetry, metric snapshots and ``BIGDL_TPU_PROFILE``
+windows, and pulses a stall beacon (``set_stall_deadline``) that opens at
+the startup grace (the first step builds the kernels) and tightens after
+the first dispatch. The loss anomaly detector (``set_anomaly_detection``)
+reads the losses the sync policy resolved. ``set_fault_policy`` snapshots
+the step's trees (on the device) and the dropout generator before every
+dispatch and replays a transient failure from that snapshot, bit for bit
+the fault-free run; ``set_remediation`` halts a stalled run with a
+checkpoint taken on a side thread, and drives the lr and early stopping
+from plateaus and spikes. Not ported: ``DistriOptimizer``, the heartbeat,
+straggler and mesh-probe parts of ``RemediationPolicy`` (multi-GPU), the
+compiled-program cost notes of JAX's ``observability.perf``.
+
 The model must be one whose ``apply(params, state, x, training,
 generator)`` is the training forward (``Transformer`` and the ResNets
-are). Not ported yet: summaries, remediation, stall deadlines, fault
-policies, anomaly detection, the loop's spans and flight records,
-``prepare_input`` and ``DistriOptimizer``.
+are).
 """
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 import queue
@@ -60,15 +81,23 @@ from .. import observability as obs
 from ..convert import flatten, host_copy_tree, unflatten
 from ..dataset import AbstractDataSet, DataSet, ShardedDataSet
 from ..nn.module import Container, copy_tree_into
+from ..observability import cluster as _cluster
+from ..observability import flight as _flight
+from ..observability import health as _health
 from ..parallel import chaos as _chaos
+from ..parallel.failure import (PERMANENT, TRANSIENT, FaultPolicy,
+                                TrainingHalted, _run_with_timeout,
+                                classify_failure)
 from ..utils import engine
-from .optim_method import SGD, OptimMethod, write_guarded
+from .optim_method import SGD, OptimMethod, Plateau, write_guarded
 from .regularizer import regularization_loss, regularizer_tree
 from .staging import _first_leaf, _index, _stack, place_host_value, staged
 from .trigger import Trigger, max_epoch
 
-__all__ = ["Metrics", "BaseOptimizer", "LocalOptimizer", "Optimizer"]
+__all__ = ["Metrics", "RemediationPolicy", "BaseOptimizer", "LocalOptimizer",
+           "Optimizer"]
 
+_LOG = logging.getLogger(__name__)
 
 def _read_umask():
     """The process umask, read from /proc where Linux has it (the
@@ -198,7 +227,11 @@ class Metrics:
         self.values = {}
 
     def add(self, name, value):
+        """Record one reading; with observability on it is also observed
+        in the ``optim/<name>`` histogram, as in JAX."""
         self.values.setdefault(name, []).append(value)
+        if obs.enabled():
+            obs.histogram(f"optim/{name}").observe(value)
 
     def mean(self, name):
         if name not in self.values:
@@ -251,6 +284,72 @@ def _clip_grads(grads, clip_const=None, clip_norm=None):
     return unflatten(flat)
 
 
+class RemediationPolicy:
+    """What the loop does when the health layer sees trouble (JAX's
+    Tier 1), with JAX's parameters:
+
+    * stalls: when the step beacon stalls (observability on),
+      ``halt_on_stall`` checkpoints the last completed step's
+      state from a side thread (the loop is wedged), dumps a flight bundle
+      and queues a :class:`~bigdl_tpu_torch.parallel.failure.TrainingHalted`
+      that the loop raises when it moves again, before its next step;
+      ``exit_process`` then ``os._exit(86)``. The wait for the loop to
+      reach its data fetch, and the checkpoint's device-to-host copy, are
+      each bounded by ``halt_artifact_timeout_s``. A transient verdict re-arms the beacon.
+      The port has no mesh to probe, so without ``halt_on_stall`` every
+      stall is transient (``probe_timeout_s`` is kept for the signature);
+    * anomalies: a ``health/plateau`` from the loss monitor reduces the lr
+      (``plateau_lr``: ``Plateau.force_reduction`` for a ``Plateau``
+      schedule, else a ``plateau_factor`` multiplier down to
+      ``min_lr_scale``), ``early_stop_plateaus`` ends the run cleanly after
+      that many plateaus, and ``max_spikes`` loss spikes checkpoint and
+      halt.
+
+    ``heartbeat`` and ``straggler_monitor`` are multi-GPU (ROADMAP A.6) and
+    refused at a value other than None.
+    """
+
+    def __init__(self, halt_on_stall: bool = False,
+                 probe_timeout_s: float = 30.0,
+                 exit_process: bool = False,
+                 halt_artifact_timeout_s: float = 120.0,
+                 heartbeat=None, heartbeat_every: int = 0,
+                 heartbeat_timeout_s: float = 60.0,
+                 plateau_lr: bool = False, plateau_factor: float = 0.1,
+                 min_lr_scale: float = 1e-4,
+                 early_stop_plateaus: Optional[int] = None,
+                 max_spikes: Optional[int] = None,
+                 straggler_monitor=None, straggler_every: int = 0):
+        engine.refuse_unported("RemediationPolicy",
+                               heartbeat=(heartbeat, None),
+                               straggler_monitor=(straggler_monitor, None))
+        self.halt_on_stall = halt_on_stall
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.exit_process = exit_process
+        self.halt_artifact_timeout_s = float(halt_artifact_timeout_s)
+        self.heartbeat = heartbeat
+        self.heartbeat_every = int(heartbeat_every)
+        self.heartbeat_timeout_s = float(heartbeat_timeout_s)
+        self.plateau_lr = plateau_lr
+        self.plateau_factor = float(plateau_factor)
+        self.min_lr_scale = float(min_lr_scale)
+        self.early_stop_plateaus = early_stop_plateaus
+        self.max_spikes = max_spikes
+        self.straggler_monitor = straggler_monitor
+        self.straggler_every = int(straggler_every)
+        # per-run bookkeeping (reset by optimize())
+        self.plateaus = 0
+        self.spikes = 0
+        self._last_beat_neval = 0
+        self._last_straggler_neval = 0
+
+    def reset_run_state(self):
+        self.plateaus = 0
+        self.spikes = 0
+        self._last_beat_neval = 0
+        self._last_straggler_neval = 0
+
+
 class BaseOptimizer:
     """``device``: where training runs - the CUDA device by default, which
     raises when there is none; ``'cpu'`` for the CPU. The model must already
@@ -288,6 +387,33 @@ class BaseOptimizer:
         self._resolved_step = None  # the step of the last resolved loss
         self._resume_opt_state = None
         self.metrics = Metrics()
+        self.train_summary = None
+        self.val_summary = None
+        # the health layer (active while observability is on): the stall
+        # deadline and its callback, the loss monitor's configuration
+        # (None disables it; a dict overrides SeriesMonitor's defaults)
+        self.stall_deadline_s = None        # None: BIGDL_TPU_STALL_S
+        self.stall_startup_grace_s = None   # None: max(deadline, default)
+        self._stall_grace_pending = False
+        self.on_stall = None
+        self.anomaly_config: Optional[dict] = {}
+        self._step_beacon = _health.NULL_BEACON
+        self._loss_monitor = None
+        self._profiler = None
+        self._snap_writer = _cluster.MetricSnapshotWriter(every_s=0)
+        # the remediation tiers and the halt channel the side thread
+        # writes into
+        self.remediation: Optional[RemediationPolicy] = None
+        self.fault_policy: Optional[FaultPolicy] = None
+        self._halt_requested: Optional[TrainingHalted] = None
+        self._live_state = None     # (params, opt_state, mstate, event)
+        # held by the loop except while it waits for data: the stall
+        # remediation copies the live tensors under it, between two steps
+        self._live_lock = threading.Lock()
+        self._running = False
+        self._fault_snap = None     # (live leaves, device copies)
+        self._remediation_lr_scale = 1.0
+        self._remediating = False
 
     # -- reference API surface ------------------------------------------
     def set_model(self, model):
@@ -306,6 +432,114 @@ class BaseOptimizer:
         self.training_set = self._as_dataset(training_set)
         if batch_size:
             self.batch_size = batch_size
+        return self
+
+    def set_summary_trigger(self, name, trigger):
+        """Record the summary tag ``name`` only when ``trigger`` fires.
+        Train tags: "Loss", "LearningRate", "Throughput". "Validation"
+        gates every validation scalar, a method's repr gates its own."""
+        val_tags = {repr(m) for m in (self.validation_methods or ())}
+        if name.startswith("Validation") or name in val_tags:
+            if self.val_summary is None:
+                raise ValueError(
+                    "set_summary_trigger(%r): validation tag but no "
+                    "validation summary is set - call set_val_summary "
+                    "first (the train loop only consults Loss/"
+                    "LearningRate/Throughput)" % (name,))
+            target = self.val_summary
+        elif self.train_summary is not None:
+            target = self.train_summary
+        else:
+            raise ValueError("set a train/val summary before "
+                             "set_summary_trigger")
+        target.set_summary_trigger(name, trigger)
+        return self
+
+    def prepare_input(self):
+        """Touch one element of the training data before ``optimize`` so an
+        IO error shows early (data sets with an open epoch are
+        skipped)."""
+        if getattr(self.training_set, "_epoch_open", None) is not None:
+            return self
+        it = iter(self.training_set.data(train=False))
+        try:
+            next(it, None)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+        return self
+
+    def set_train_summary(self, summary):
+        self.train_summary = summary
+        return self
+
+    def set_val_summary(self, summary):
+        self.val_summary = summary
+        return self
+
+    def set_stall_deadline(self, seconds: float, on_stall=None,
+                           startup_grace_s=None):
+        """Arm the stall watchdog (observability on): the step loop and
+        its stager pulse beacons, and ``seconds`` of silence fires a
+        ``health/stall`` event (and ``on_stall(beacon, age_s)``). Until
+        the first dispatch completes the deadline is ``startup_grace_s``
+        (default ``max(seconds, BIGDL_TPU_STALL_S)``): the first step
+        builds the kernels, a legitimate silence."""
+        seconds = float(seconds)
+        if seconds <= 0:
+            raise ValueError(f"stall deadline must be > 0, got {seconds}")
+        if startup_grace_s is not None and float(startup_grace_s) < seconds:
+            raise ValueError(
+                f"startup_grace_s ({startup_grace_s}) must be >= the "
+                f"steady-state deadline ({seconds})")
+        self.stall_deadline_s = seconds
+        self.stall_startup_grace_s = None if startup_grace_s is None \
+            else float(startup_grace_s)
+        self.on_stall = on_stall
+        return self
+
+    def set_remediation(self, policy: Optional[RemediationPolicy]):
+        """Arm :class:`RemediationPolicy`; ``None`` disarms."""
+        if policy is not None and not isinstance(policy, RemediationPolicy):
+            raise TypeError(f"expected RemediationPolicy, got {policy!r}")
+        self.remediation = policy
+        return self
+
+    def set_fault_policy(self, policy: Optional[FaultPolicy]):
+        """Arm dispatch replay: before every dispatch the step's trees are
+        copied into device buffers kept for the run, and the dropout
+        generator's state is saved (the step writes the tensors in place,
+        so a fault can leave them half updated); a TRANSIENT failure backs off, copies the snapshot back
+        into the live tensors and replays the step, or the whole superstep
+        group, with the same batches and lr: bit for bit the fault-free
+        run. The armed dispatch synchronises the device, so an
+        asynchronous CUDA fault surfaces inside the guard. Permanent
+        failures raise. The snapshot costs one device copy of the
+        parameters, the optimizer state and the model state per dispatch,
+        and as much device memory again. ``None`` disarms.
+        One process only: a replay under ``torch.distributed`` with more
+        than one rank would desynchronise the collectives (a warning)."""
+        if policy is not None and not isinstance(policy, FaultPolicy):
+            raise TypeError(f"expected FaultPolicy, got {policy!r}")
+        dist = torch.distributed
+        if policy is not None and dist.is_available() and \
+                dist.is_initialized() and dist.get_world_size() > 1:
+            _LOG.warning(
+                "FaultPolicy replay is single-controller: in this "
+                "%d-process run a one-sided transient replay would "
+                "desynchronize the mesh's collectives - rely on "
+                "Tier 1 heartbeat remediation + elastic restart for "
+                "cross-process faults", dist.get_world_size())
+        self.fault_policy = policy
+        return self
+
+    def set_anomaly_detection(self, enabled: bool = True, **config):
+        """The loss anomaly detector (``observability.health.
+        SeriesMonitor``: spikes, plateaus, NaN streaks; ``config``
+        overrides its defaults). It reads the losses the sync policy
+        resolved, no extra readback. ``enabled=False`` turns it off."""
+        self.anomaly_config = dict(config) if enabled else None
         return self
 
     def set_validation(self, trigger, dataset, methods, batch_size=None):
@@ -553,10 +787,15 @@ class BaseOptimizer:
                 f"_e{state['epoch']}_i{state['neval']}"
         path = os.path.join(self.checkpoint_path, f"checkpoint{tag}.bigdl")
         payload = self._checkpoint_payload(params, opt_state, mstate, state)
-        if self.checkpoint_async and not force_sync:
-            self._ckpt_writer.submit(path, payload)
-        else:
-            _atomic_pickle(path, payload)
+        async_write = self.checkpoint_async and not force_sync
+        with obs.span("step/checkpoint_submit", async_write=async_write):
+            if async_write:
+                self._ckpt_writer.submit(path, payload)
+            else:
+                _atomic_pickle(path, payload)
+        if obs.enabled():
+            _flight.record("checkpoint", path=path, neval=state["neval"],
+                           epoch=state["epoch"], async_write=async_write)
         return path
 
     def wait_for_checkpoints(self):
@@ -596,13 +835,22 @@ class BaseOptimizer:
         from .evaluator import Evaluator
         was_training = bool(self.model.training)
         self.model.evaluate()
-        results = Evaluator(self.model).evaluate(
-            self.validation_set, self.validation_methods,
-            self.validation_batch)
+        with obs.span("step/validate", neval=state["neval"]):
+            results = Evaluator(self.model).evaluate(
+                self.validation_set, self.validation_methods,
+                self.validation_batch)
         if was_training:
             self.model.training()
-        scores = {repr(m): r.result()[0]
-                  for m, r in zip(self.validation_methods, results)}
+        scores = {}
+        for method, res in zip(self.validation_methods, results):
+            val = res.result()[0]
+            scores[repr(method)] = val
+            if self.val_summary is not None:
+                # "Validation" gates every scalar, the method's tag its own
+                rec = self.val_summary.should_record
+                if rec("Validation", state) and rec(repr(method), state):
+                    self.val_summary.add_scalar(repr(method), val,
+                                                state["neval"])
         if scores:
             state["score"] = next(iter(scores.values()))
         return scores
@@ -652,13 +900,88 @@ class BaseOptimizer:
     # -- main loop -------------------------------------------------------
     def optimize(self):
         """Train to the end trigger; returns the model, whose parameters
-        now hold the trained values."""
+        now hold the trained values. With observability on the run is
+        health-instrumented (beacons, the loss monitor, flight records,
+        memory gauges) and a failure other than ``TrainingHalted`` dumps a
+        flight-recorder crash bundle before it propagates."""
+        self._halt_requested = None
+        self._live_state = None
+        self._fault_snap = None
+        self._remediation_lr_scale = 1.0
+        self._remediating = False
+        if self.remediation is not None:
+            self.remediation.reset_run_state()
+        # with a remediation policy the stall callback is its handler
+        # (which calls the user's on_stall first)
+        on_stall = self._stall_handler if self.remediation is not None \
+            else self.on_stall
+        deadline = self.stall_deadline_s \
+            if self.stall_deadline_s is not None \
+            else _health.default_stall_deadline()
+        grace = self.stall_startup_grace_s \
+            if self.stall_startup_grace_s is not None \
+            else max(deadline, _health.default_stall_deadline())
+        self._step_beacon = _health.beacon(
+            "optim/step", deadline_s=max(grace, deadline),
+            on_stall=on_stall)
+        self._stall_grace_pending = (
+            grace > deadline
+            and self._step_beacon is not _health.NULL_BEACON)
+        self._profiler = _health.profiler_window_from_env()
+        self._loss_monitor = None
+        if self.anomaly_config is not None and \
+                (obs.enabled() or self.remediation is not None):
+            # remediation acts on the monitor's events even with
+            # observability off
+            self._loss_monitor = _health.SeriesMonitor(
+                "loss", **self.anomaly_config)
+        if obs.enabled():
+            _health.ensure_memory_telemetry()
+            self._snap_writer = _cluster.default_writer()
+            st = self.optim_method.state
+            _flight.record("train/start", epoch=st.get("epoch"),
+                           neval=st.get("neval"), seed=engine.get_seed(),
+                           batch_size=self.batch_size,
+                           superstep=self.superstep,
+                           sync_policy=self.sync_policy)
+        self._live_lock.acquire()   # released while waiting for data
+        self._running = True
         try:
             return self._optimize_impl()
+        except TrainingHalted:
+            raise   # the halt already landed its checkpoint and bundle
+        except BaseException as e:
+            if obs.enabled():
+                st = self.optim_method.state
+                _flight.dump_crash_bundle(error=e, context={
+                    "component": "optimizer",
+                    "epoch": st.get("epoch"), "neval": st.get("neval"),
+                    "seed": engine.get_seed(),
+                    "batch_size": self.batch_size,
+                    "superstep": self.superstep,
+                    "sync_policy": self.sync_policy,
+                    "nan_policy": self.nan_policy})
+            raise
         finally:
-            # idempotent after the clean path's unbounded close: a crash
-            # must not leak the writer thread
-            self._close_checkpoints(timeout=30.0)
+            self._running = False
+            self._live_lock.release()
+            if self._snap_writer.enabled and obs.enabled():
+                # the final snapshot: a finished process is not a straggler
+                self._snap_writer.write(
+                    step=self.optim_method.state.get("neval"), final=True)
+            self._step_beacon.close()
+            self._step_beacon = _health.NULL_BEACON
+            self._live_state = None
+            self._fault_snap = None
+            if self._profiler is not None:
+                self._profiler.close()
+                self._profiler = None
+            try:
+                # idempotent after the clean path's unbounded close: a
+                # crash must not leak the writer thread or wait forever
+                self._close_checkpoints(timeout=30.0)
+            except Exception:
+                _LOG.exception("async checkpoint writer close failed")
 
     def _optimize_impl(self):
         model = self.model
@@ -693,12 +1016,14 @@ class BaseOptimizer:
                                  depth=self.prefetch_depth, name="stager",
                                  group=k, group_fn=self._stage_group,
                                  group_key=self._stage_group_key,
+                                 stall_deadline_s=self.stall_deadline_s,
                                  device=self.device)
                 run = self._run_epoch_supersteps
             else:
                 batches = staged(batched.data(train=True),
                                  self._stage_minibatch,
                                  depth=self.prefetch_depth, name="stager",
+                                 stall_deadline_s=self.stall_deadline_s,
                                  device=self.device)
                 run = self._run_epoch_steps
             try:
@@ -710,57 +1035,408 @@ class BaseOptimizer:
                 state["epoch"] += 1
                 state["epoch_finished"] = True
                 self.metrics.add("epoch_time", time.time() - epoch_start)
+                if obs.enabled():
+                    _flight.record("epoch", epoch=state["epoch"] - 1,
+                                   neval=state["neval"],
+                                   epoch_time_s=time.time() - epoch_start)
                 self._fire_epoch(state, params, opt_state, mstate)
                 done = self.end_trigger(state)
         self._drain_pending_losses(state)
         self._close_checkpoints()   # land async writes, stop the writer
         return model
 
+    # -- the self-healing tiers -------------------------------------------
+    def _dispatch_guarded(self, run, params, opt_state, mstate, generator):
+        """``run()`` (one step, or a superstep group's steps), wrapped by
+        the fault policy when one is armed: the step's trees are copied
+        into device buffers and the generator's state is saved first; on a
+        retryable failure the loop backs off, copies the buffers back into
+        the live tensors (the failed attempt may have written some of
+        them), rewinds the generator and runs the same steps again. Other
+        failures propagate."""
+        fp = self.fault_policy
+        if fp is None:
+            return run()
+        live, snap = self._snapshot_step_state(params, opt_state, mstate)
+        gen_state = generator.get_state()
+        if obs.enabled():
+            obs.counter("optim/fault_snapshots").inc()
+        while True:
+            try:
+                out = run()
+                # CUDA reports a fault at a later sync; make it surface
+                # here, where the retry can catch it
+                if out.device.type == "cuda":
+                    torch.cuda.synchronize(out.device)
+                fp.record_success()
+                return out
+            except FloatingPointError:
+                raise   # numeric failures belong to the NaN policy
+            except Exception as e:
+                cls = classify_failure(e)
+                if not fp.should_retry(cls):
+                    if obs.enabled():
+                        _health.emit("fault_exhausted", failure_class=cls,
+                                     error=f"{type(e).__name__}: {e}",
+                                     consecutive=fp.consecutive)
+                    raise
+                fp.record_failure()
+                delay = fp.backoff_s()
+                self.metrics.add("fault_retries", 1.0)
+                if obs.enabled():
+                    _health.emit("fault_retry", failure_class=cls,
+                                 error=f"{type(e).__name__}: {e}",
+                                 attempt=fp.consecutive,
+                                 backoff_s=round(delay, 3))
+                if delay > 0:
+                    fp.sleep(delay)
+                with torch.no_grad():
+                    torch._foreach_copy_(live, snap)
+                generator.set_state(gen_state)
+
+    def _snapshot_step_state(self, params, opt_state, mstate):
+        """The fault policy's snapshot: ``(live leaves, copies)``, the
+        step's tensors copied into device buffers allocated once for the
+        run (anew only if a leaf was rebound). The copy is queued on the
+        stream the step runs on, so it reads the state before the step."""
+        live = [t for tree in (params, opt_state, mstate)
+                for t in flatten(tree).values()]
+        snap = self._fault_snap
+        if snap is None or len(snap[0]) != len(live) or \
+                any(a is not b for a, b in zip(snap[0], live)):
+            snap = self._fault_snap = (
+                live, [torch.empty_like(t) for t in live])
+        with torch.no_grad():
+            torch._foreach_copy_(snap[1], live)
+        return snap
+
+    def _mark_live(self, params, opt_state, mstate):
+        """Name the trees of the last completed dispatch for the stall
+        remediation's side thread, with a CUDA event after that dispatch
+        (the side thread waits on it before it copies)."""
+        if self.remediation is None:
+            return
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._live_state = (params, opt_state, mstate, event)
+
+    def _tighten_stall_deadline(self):
+        """Drop the beacon's startup grace to the steady-state deadline
+        once the first dispatch completed (one bool check after that)."""
+        if not self._stall_grace_pending:
+            return
+        self._stall_grace_pending = False
+        # pulse first: the age still spans the kernel build
+        self._step_beacon.pulse()
+        self._step_beacon.deadline_s = self.stall_deadline_s
+        _health.watchdog().poke()
+
+    def _check_halt(self):
+        """Raise a halt the side thread queued while the loop was
+        blocked."""
+        if self._halt_requested is not None:
+            ex, self._halt_requested = self._halt_requested, None
+            raise ex
+
+    def _next_batch(self, batches):
+        """``next(batches)`` with the live lock let go while the loop
+        waits: a stall remediation copies the live tensors then. Taking
+        the lock back waits for a copy in progress, and the halt it queued
+        is raised before the next step writes the tensors, so the
+        checkpoint holds one step's state."""
+        self._live_lock.release()
+        try:
+            return next(batches)
+        finally:
+            self._live_lock.acquire()
+            self._check_halt()
+
+    def _try_halt_checkpoint(self, state, live):
+        """Drain queued async writes, then write the remediation
+        checkpoint of ``live`` ``(params, opt_state, mstate, event)``
+        synchronously. A failure is logged and gives None: it must not
+        mask the halt."""
+        try:
+            self.wait_for_checkpoints()
+        except Exception:
+            _LOG.exception("async checkpoint drain failed during remediation")
+        if live is None:
+            return None
+        try:
+            p, o, m, event = live
+            if event is not None:
+                event.synchronize()     # the last completed dispatch
+            return self._checkpoint(
+                p, o, m, state, force_sync=True,
+                tag=f"_remediation_e{state.get('epoch', 0)}"
+                    f"_i{state.get('neval', 0)}")
+        except Exception:
+            _LOG.exception("remediation checkpoint failed (halting anyway)")
+            return None
+
+    def _land_halt_checkpoint(self, state, live, timeout_s=None):
+        """The halt's checkpoint, bounded by ``timeout_s`` on a daemon
+        thread when given (a wedged device copy must not wedge the
+        remediation); on expiry the halt goes on without one."""
+        if not self.checkpoint_path:
+            return None
+        if timeout_s is None:
+            return self._try_halt_checkpoint(state, live)
+        res = _run_with_timeout(
+            lambda: self._try_halt_checkpoint(state, live), timeout_s)
+        if res.get("timeout"):
+            _LOG.error("remediation checkpoint did not land within %.1fs; "
+                       "halting without one", timeout_s)
+            return None
+        return res.get("value")
+
+    def _land_halt_artifacts(self, cause, state, live, error=None,
+                             failure_class=PERMANENT, lost_processes=(),
+                             ckpt_timeout_s=None, **extra):
+        """The one landing of a halt, for the loop and the side thread:
+        the checkpoint (async writes drained first, so a queued older
+        write cannot land after it), the flight bundle, a
+        ``health/remediation`` event; returns the ``TrainingHalted`` for
+        the caller to raise or queue."""
+        ckpt = self._land_halt_checkpoint(state, live,
+                                          timeout_s=ckpt_timeout_s)
+        bundle = _flight.dump_crash_bundle(error=error, context={
+            "component": "optimizer/remediation", "cause": cause,
+            "failure_class": failure_class,
+            "epoch": state.get("epoch"), "neval": state.get("neval"),
+            "checkpoint": ckpt,
+            "lost_processes": list(lost_processes), **extra})
+        _health.emit("remediation", cause=cause,
+                     failure_class=failure_class, checkpoint=ckpt,
+                     bundle=bundle, neval=state.get("neval"),
+                     lost_processes=list(lost_processes), **extra)
+        return TrainingHalted(
+            cause=cause, failure_class=failure_class, checkpoint_path=ckpt,
+            bundle_path=bundle, epoch=state.get("epoch"),
+            neval=state.get("neval"), lost_processes=lost_processes)
+
+    def _halt(self, cause, state, params, opt_state, mstate, error=None,
+              failure_class=PERMANENT, lost_processes=()):
+        """Checkpoint and halt from the loop itself (bounded as the side
+        thread's is)."""
+        pol = self.remediation
+        raise self._land_halt_artifacts(
+            cause, state, (params, opt_state, mstate, None), error=error,
+            failure_class=failure_class, lost_processes=lost_processes,
+            ckpt_timeout_s=pol.halt_artifact_timeout_s
+            if pol is not None else None) from error
+
+    def _stall_handler(self, beacon, age_s):
+        """The watchdog's stall callback under a remediation policy: the
+        user's ``on_stall`` inline, then the remediation on a side thread
+        (the one watchdog thread keeps watching the other beacons). One
+        episode, one remediation."""
+        if self.on_stall is not None:
+            try:
+                self.on_stall(beacon, age_s)
+            except Exception:
+                _LOG.exception("on_stall failed")
+        pol = self.remediation
+        if pol is None or self._halt_requested is not None \
+                or self._remediating:
+            return
+        self._remediating = True
+        threading.Thread(target=self._remediate_stall,
+                         args=(beacon, age_s),
+                         name="bigdl-stall-remediation",
+                         daemon=True).start()
+
+    def _remediate_stall(self, beacon, age_s):
+        """Side thread: with ``halt_on_stall`` land the halt artifacts
+        from the last completed dispatch's trees and queue the halt for
+        the loop (``exit_process`` exits); otherwise the stall is
+        transient and the beacon re-arms. The artifacts land under the
+        live lock, which the loop lets go only while it waits for data, so
+        no step writes the tensors while they are copied; a loop that does
+        not let go within ``halt_artifact_timeout_s`` (wedged elsewhere)
+        halts without a checkpoint. The port has no mesh to probe
+        (multi-GPU is ROADMAP A.6)."""
+        locked = False
+        try:
+            pol = self.remediation
+            if not pol.halt_on_stall:
+                beacon.rearm()
+                return
+            locked = self._live_lock.acquire(
+                timeout=pol.halt_artifact_timeout_s)
+            if not self._running:
+                return      # the run ended meanwhile
+            # one snapshot of the counters: tag, payload and exception
+            # agree
+            state = dict(self.optim_method.state)
+            self._halt_requested = self._land_halt_artifacts(
+                "stall", state, self._live_state if locked else None,
+                error=None, failure_class=TRANSIENT,
+                stalled_component=beacon.name, age_s=round(age_s, 3),
+                ckpt_timeout_s=pol.halt_artifact_timeout_s)
+            if pol.exit_process:
+                os._exit(86)
+        except Exception:
+            _LOG.exception("stall remediation failed")
+        finally:
+            if locked:
+                self._live_lock.release()
+            self._remediating = False
+
+    def _apply_anomaly_events(self, pol, state, events):
+        """Act on the loss monitor's events of this iteration; True when
+        the run should end cleanly (a plateau early stop)."""
+        for ev in events:
+            kind = ev.get("kind", "")
+            if kind == "health/plateau":
+                pol.plateaus += 1
+                if pol.plateau_lr:
+                    self._reduce_lr_for_plateau(pol, state)
+                if pol.early_stop_plateaus is not None and \
+                        pol.plateaus >= pol.early_stop_plateaus:
+                    _health.emit("early_stop", reason="plateau",
+                                 neval=state["neval"],
+                                 plateaus=pol.plateaus)
+                    return True
+            elif kind.endswith("_spike"):
+                pol.spikes += 1
+                if pol.max_spikes is not None and \
+                        pol.spikes >= pol.max_spikes:
+                    raise FloatingPointError(
+                        f"{pol.spikes} loss spikes "
+                        f"(RemediationPolicy.max_spikes="
+                        f"{pol.max_spikes}) - the run is diverging")
+        return False
+
+    def _reduce_lr_for_plateau(self, pol, state):
+        sched = getattr(self.optim_method, "learningrate_schedule", None)
+        if isinstance(sched, Plateau):
+            mult = sched.force_reduction()
+        else:
+            self._remediation_lr_scale = max(
+                self._remediation_lr_scale * pol.plateau_factor,
+                pol.min_lr_scale)
+            mult = self._remediation_lr_scale
+        _health.emit("lr_reduced", reason="plateau", neval=state["neval"],
+                     multiplier=mult,
+                     schedule=type(sched).__name__ if sched else None)
+        if obs.enabled():
+            obs.counter("optim/lr_reductions").inc()
+            obs.instant("optim/lr_reduced", neval=state["neval"],
+                        multiplier=mult)
+
+    def _remediation_tick(self, state, params, opt_state, mstate, events):
+        """One pass of the policy after a step (a group under supersteps):
+        True ends the run cleanly; spike overload halts."""
+        pol = self.remediation
+        if pol is None:
+            return False
+        try:
+            return bool(events) and \
+                self._apply_anomaly_events(pol, state, events)
+        except FloatingPointError as e:
+            self._halt("loss_spikes", state, params, opt_state, mstate,
+                       error=e, failure_class=PERMANENT)
+
+    def _record_summaries(self, state, loss_val, lr, throughput):
+        rec = self.train_summary.should_record
+        if loss_val is not None and rec("Loss", state):
+            self.train_summary.add_scalar("Loss", loss_val, state["neval"])
+        if rec("LearningRate", state):
+            self.train_summary.add_scalar("LearningRate", lr,
+                                          state["neval"])
+        if rec("Throughput", state):
+            self.train_summary.add_scalar("Throughput", throughput,
+                                          state["neval"])
+
     def _run_epoch_steps(self, batches, state, params, mstate, opt_state,
                          generator, nan_streak):
         """One epoch of the per-step loop: returns (False, streak) when the
-        batches run out, (True, streak) when the end trigger fires."""
+        batches run out, (True, streak) when the end trigger fires (or the
+        remediation stops the run)."""
         optim = self.optim_method
         while True:
-            t0 = time.time()
-            try:
-                x, y = next(batches)
-            except StopIteration:
-                return False, nan_streak
-            t1 = time.time()
-            loss = self._step(params, mstate, opt_state, x, y,
-                              optim.current_lr(), generator)
-            if obs.enabled():
-                obs.counter("engine/dispatches").inc()
-            # the step just queued is iteration neval+1; 'async' and
-            # 'window:K' read an older one (_resolved_step)
-            loss_val = self._observe_loss(loss, state["neval"] + 1)
-            t2 = time.time()
-            if loss_val is not None and not np.isfinite(loss_val):
-                nan_streak += 1
-                self._nan_check(loss_val, state, nan_streak)
-                if self.nan_policy == "resume":
-                    self._resume(state, params, opt_state, mstate)
-                    # the in-flight losses are of steps the restore undid
-                    self._pending_loss = None
-                    self._loss_window.clear()
+            self._step_beacon.pulse()
+            self._check_halt()
+            with obs.span("step", neval=state["neval"]):
+                t0 = time.time()
+                with obs.span("step/data_fetch"):
+                    try:
+                        x, y = self._next_batch(batches)
+                    except StopIteration:
+                        return False, nan_streak
+                t1 = time.time()
+                # * 1.0 is exact: the scale moves only after a plateau
+                lr = optim.current_lr() * self._remediation_lr_scale
+                with obs.span("step/dispatch"):
+                    loss = self._dispatch_guarded(
+                        lambda: self._step(params, mstate, opt_state, x, y,
+                                           lr, generator),
+                        params, opt_state, mstate, generator)
+                self._mark_live(params, opt_state, mstate)
+                self._tighten_stall_deadline()
+                if obs.enabled():
+                    obs.counter("engine/dispatches").inc()
+                with obs.span("step/loss_sync"):
+                    # the step just queued is iteration neval+1; 'async'
+                    # and 'window:K' read an older one (_resolved_step)
+                    loss_val = self._observe_loss(loss, state["neval"] + 1)
+                t2 = time.time()
+                if loss_val is not None and not np.isfinite(loss_val):
+                    nan_streak += 1
+                    if obs.enabled():
+                        _flight.record("nan", neval=self._resolved_step,
+                                       epoch=state["epoch"], loss=loss_val,
+                                       policy=self.nan_policy)
+                    if self._loss_monitor is not None:
+                        self._loss_monitor.observe(loss_val,
+                                                   self._resolved_step)
+                    self._nan_check(loss_val, state, nan_streak)
+                    if self.nan_policy == "resume":
+                        self._resume(state, params, opt_state, mstate)
+                        # the in-flight losses are of steps the restore undid
+                        self._pending_loss = None
+                        self._loss_window.clear()
+                        obs.instant("step/nan_resume", neval=state["neval"])
+                        continue
+                    # 'skip': the guard kept the state; the iteration counts
+                    self.metrics.add("nan_skips", 1.0)
+                    obs.instant("step/nan_skip", neval=state["neval"])
+                    state["neval"] += 1
                     continue
-                # 'skip': the guard kept the state; the iteration counts
-                self.metrics.add("nan_skips", 1.0)
+                if loss_val is not None:
+                    nan_streak = 0
+                    state["loss"] = loss_val
                 state["neval"] += 1
-                continue
-            if loss_val is not None:
-                nan_streak = 0
-                state["loss"] = loss_val
-            state["neval"] += 1
-            state["epoch_finished"] = False
-            self.metrics.add("data_time", t1 - t0)
-            self.metrics.add("step_time", t2 - t1)
-            if obs.enabled():
-                obs.counter("optim/steps").inc()
-            self._fire_mid_epoch(state, params, opt_state, mstate)
-            if self.end_trigger(state):
-                return True, nan_streak
+                state["epoch_finished"] = False
+                events = []
+                if loss_val is not None:
+                    if obs.enabled():
+                        _flight.record("step", neval=self._resolved_step,
+                                       epoch=state["epoch"], loss=loss_val)
+                    if self._loss_monitor is not None:
+                        events = self._loss_monitor.observe(
+                            loss_val, self._resolved_step)
+                if self._profiler is not None:
+                    self._profiler.maybe_tick(state["neval"])
+                self.metrics.add("data_time", t1 - t0)
+                self.metrics.add("step_time", t2 - t1)
+                throughput = self.batch_size / max(t2 - t0, 1e-9)
+                if obs.enabled():
+                    obs.counter("optim/steps").inc()
+                    obs.gauge("optim/throughput",
+                              unit="samples/s").set(throughput)
+                    self._snap_writer.maybe_write(step=state["neval"])
+                if self.train_summary is not None:
+                    self._record_summaries(state, loss_val, lr, throughput)
+                if self._remediation_tick(state, params, opt_state, mstate,
+                                          events):
+                    return True, nan_streak
+                self._fire_mid_epoch(state, params, opt_state, mstate)
+                if self.end_trigger(state):
+                    return True, nan_streak
 
     def _clamp_superstep(self, state, k):
         """The largest j <= k such that no end, validation or checkpoint
@@ -789,21 +1465,25 @@ class BaseOptimizer:
                               opt_state, generator, nan_streak):
         """The superstep epoch loop: ``batches`` yields ``(k, xs, ys)``
         stacks; k steps run on their slices and the k losses are read at
-        once, then the per-step bookkeeping (NaN policy, loss, counters)
-        replays on the host over them. A NaN in a step is skipped by the
-        guard and the later steps go on from the kept state, as in JAX.
-        Returns as ``_run_epoch_steps`` does."""
+        once, then the per-step bookkeeping (NaN policy, loss, flight
+        records, the loss monitor, summaries) replays on the host over
+        them. A NaN in a step is skipped by the guard and the later steps
+        go on from the kept state, as in JAX. A fault replays the whole
+        group. Returns as ``_run_epoch_steps`` does."""
         optim = self.optim_method
         pending = None  # the clamped rest of a group (device slices)
         while True:
+            self._step_beacon.pulse()
+            self._check_halt()
             t0 = time.time()
             if pending is not None:
                 (k, xs, ys), pending = pending, None
             else:
-                try:
-                    k, xs, ys = next(batches)
-                except StopIteration:
-                    return False, nan_streak
+                with obs.span("step/data_fetch"):
+                    try:
+                        k, xs, ys = self._next_batch(batches)
+                    except StopIteration:
+                        return False, nan_streak
             j = self._clamp_superstep(state, k)
             if j < k:
                 # a trigger fires inside the group: run the first j now
@@ -811,41 +1491,85 @@ class BaseOptimizer:
                            _index(ys, slice(j, None)))
                 xs, ys = _index(xs, slice(0, j)), _index(ys, slice(0, j))
                 k = j
-            lrs = optim.current_lr_vector(k)
+            scale = self._remediation_lr_scale   # * 1.0 is exact
+            lrs = [lr * scale for lr in optim.current_lr_vector(k)]
             t1 = time.time()
-            losses = torch.stack([
-                self._step(params, mstate, opt_state, _index(xs, i),
-                           _index(ys, i), lrs[i], generator)
-                for i in range(k)])
-            if obs.enabled():
-                obs.counter("engine/dispatches").inc()
-            losses = losses.cpu().tolist()     # the one [k] readback
-            if obs.enabled():
-                obs.counter("optim/loss_syncs").inc()
+
+            def run(k=k, xs=xs, ys=ys, lrs=lrs):
+                return torch.stack([
+                    self._step(params, mstate, opt_state, _index(xs, i),
+                               _index(ys, i), lrs[i], generator)
+                    for i in range(k)])
+
+            with obs.span("step/superstep", neval=state["neval"], k=k):
+                with obs.span("step/dispatch"):
+                    losses = self._dispatch_guarded(
+                        run, params, opt_state, mstate, generator)
+                self._mark_live(params, opt_state, mstate)
+                self._tighten_stall_deadline()
+                if obs.enabled():
+                    obs.counter("engine/dispatches").inc()
+                with obs.span("step/loss_sync"):
+                    losses = losses.cpu().tolist()     # the one [k] readback
+                if obs.enabled():
+                    obs.counter("optim/loss_syncs").inc()
             t2 = time.time()
             self.metrics.add("data_time", t1 - t0)
             self.metrics.add("step_time", t2 - t1)
+            throughput = k * self.batch_size / max(t2 - t0, 1e-9)
             if obs.enabled():
                 obs.counter("optim/steps").inc(k)
+                obs.gauge("optim/throughput",
+                          unit="samples/s").set(throughput)
+                self._snap_writer.maybe_write(step=state["neval"])
             restored = False
-            for loss_val in losses:
+            events = []
+            for i, loss_val in enumerate(losses):
                 if not np.isfinite(loss_val):
                     nan_streak += 1
+                    if obs.enabled():
+                        _flight.record("nan", neval=state["neval"],
+                                       epoch=state["epoch"], loss=loss_val,
+                                       policy=self.nan_policy,
+                                       superstep_k=k, microstep=i)
+                    if self._loss_monitor is not None:
+                        self._loss_monitor.observe(loss_val, state["neval"])
                     self._nan_check(loss_val, state, nan_streak)
                     if self.nan_policy == "resume":
                         # the group's later losses are of undone updates
                         self._resume(state, params, opt_state, mstate)
+                        obs.instant("step/nan_resume", neval=state["neval"])
                         restored = True
                         break
                     self.metrics.add("nan_skips", 1.0)
+                    obs.instant("step/nan_skip", neval=state["neval"])
                     state["neval"] += 1
                     continue
                 nan_streak = 0
                 state["loss"] = loss_val
                 state["neval"] += 1
                 state["epoch_finished"] = False
+                if obs.enabled():
+                    _flight.record("step", neval=state["neval"],
+                                   epoch=state["epoch"], loss=loss_val,
+                                   superstep_k=k, microstep=i)
+                if self._loss_monitor is not None:
+                    events.extend(self._loss_monitor.observe(
+                        loss_val, state["neval"]))
+                if self.train_summary is not None:
+                    self._record_summaries(state, loss_val, lrs[i],
+                                           throughput)
             if restored:
+                # the group's events before the NaN are of real losses
+                if self._remediation_tick(state, params, opt_state, mstate,
+                                          events):
+                    return True, nan_streak
                 continue
+            if self._profiler is not None:
+                self._profiler.maybe_tick(state["neval"])
+            if self._remediation_tick(state, params, opt_state, mstate,
+                                      events):
+                return True, nan_streak
             # the triggers are asked once, at the group's boundary, where
             # the parameters and the counters agree
             self._fire_mid_epoch(state, params, opt_state, mstate)

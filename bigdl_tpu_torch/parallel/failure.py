@@ -11,8 +11,9 @@ here as the type ``classify_failure`` knows.
 """
 from __future__ import annotations
 
+import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -172,3 +173,24 @@ class HeartbeatLost(RuntimeError):
     service surfaced the peer's failure as an error). The training loop
     should halt cleanly — checkpoint and exit — rather than stall inside
     the next collective."""
+
+
+def _run_with_timeout(fn, timeout_s: float) -> Dict:
+    """Run ``fn`` on a daemon thread: ``{'value': ...}`` when it returns,
+    ``{'error': str}`` when it raised, ``{'timeout': True}`` when it did
+    not finish in ``timeout_s`` (the thread, which cannot be cancelled, is
+    abandoned and the caller escalates)."""
+    result: Dict = {}
+
+    def run():
+        try:
+            result["value"] = fn()
+        except Exception as e:  # noqa: BLE001 - reported, not raised
+            result["error"] = f"{type(e).__name__}: {e}"
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(timeout_s)
+    if th.is_alive():
+        return {"timeout": True}
+    return result

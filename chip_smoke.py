@@ -254,14 +254,39 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``BinaryTreeLSTM``, ``SimpleRNN``) on the card against the CPU, one
    training-mode forward and every gradient within 1e-4 of the largest
    value; (e) ``LBFGS.optimize`` with its line search on a softmax
-   regression on the card against the CPU, the losses within 1e-4.
+   regression on the card against the CPU, the losses within 1e-4;
+15. drives the training loop's remainder on the flagship at full width
+   (float32 parameters, B8/T256, ``LMCriterion``, ``SGD(0.01,
+   momentum=0.9)``, 6 iterations): (a0) plainly, then (a) with
+   observability on, a ``FuncTransformer`` chain over the samples,
+   ``prepare_input``, train and validation summaries (validation every 3
+   iterations, ``LearningRate`` every 2), anomaly detection and a stall
+   deadline, the event files read back with ``read_scalar`` and the
+   flight ring checked; (b) the same with a ``FaultPolicy`` and one
+   ``TransientDeviceError`` raised after the third step wrote its tensors,
+   the final parameters bit for bit (a)'s; (c) a data set that blocks
+   before batch 3 until ``RemediationPolicy(halt_on_stall=True)`` queued
+   its halt (2 s deadline after the grace): ``TrainingHalted`` with the
+   side thread's checkpoint at neval 2, equal to the parameters after
+   step 2, and no thread left; (d) lr 0 on one repeated batch with
+   ``Plateau`` and an early stop at the first plateau; (e) ``save`` /
+   ``load`` of (a)'s model (logits bit for bit), a ``clone`` stepped once
+   beside the unchanged original, ``predict`` over a chained data set
+   with a ragged last batch against the per-batch forward, and
+   ``predict_class`` on float32 ResNet-50 (``fused_conv2``) at B32/224
+   against the argmax of its eval forward, with its BatchNorm state
+   through ``get_extra_parameter`` / ``set_extra_parameter``; (f)
+   ``flash_attention_fused`` (forward and gradient) and
+   ``flash_chunk_attention`` against the plain versions at phase 2's
+   tolerances. It prints each run's step ms: (a) against (a0) is the
+   cost of observability, (b) against (a) the fault policy's snapshot.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
 run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
-its translation paths, each phase 12 run, each phase 13 and 14 model) and read
-just after; a
+its translation paths, each phase 12 run, each phase 13 and 14 model, each
+phase 15 run, ``predict_class`` and flash entry) and read just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -285,7 +310,10 @@ runs, and the unsplit kernel's row at the decode case; the fused ResNet kernels 
 their timed shapes with the launches of the four ResNet-50 steps of the arm
 that runs them, their ``_f32`` rows (3xTF32) at phase 8's stage-0 shape
 with its launches (K4's with those of phase 7's float32 step, and its
-CUDA-core route's row beside it; each with phase 12's launches added);
+CUDA-core route's row beside it; each with phase 12's launches added;
+phase 15's K1 launches on the ``_f32`` rows and its flash entries' on
+their routes' rows, its ``predict_class`` launches on the ``_eval``
+rows);
 the flash, K3, K4 and K5 rows carry their
 ``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -4144,6 +4172,525 @@ def seq_zoo(torch, K, card, dev="cuda"):
     return r14
 
 
+# -- phase 15: the training loop's remainder and module I/O ---------------------
+
+# the sizes of phase 15 (a CPU rehearsal shrinks them): the flagship's
+# LocalOptimizer shape (phase 6), samples an epoch, the held-out set, the
+# predict set and ResNet-50's predict_class batch
+LOOP15 = dict(B=8, T=256, iters=6, samples=40, held=8, pred_n=20, pred_T=64,
+              image=224, image_B=32, stall_deadline_s=2.0, grace_s=600.0,
+              plateau_iters=40)
+
+
+class _Batches:
+    """A batch-level data set of fixed MiniBatches (no shuffle) that, with
+    ``at``, blocks before batch ``at`` until ``release()`` is true (polled,
+    up to 60 s; ``waited_s`` stays None when it never was), then yields
+    the rest."""
+
+    def __init__(self, batches, at=None, release=None):
+        self.batches, self.at, self.release = batches, at, release
+        self.waited_s = None
+
+    def size(self):
+        return sum(len(b.get_input()) for b in self.batches)
+
+    def batches_per_epoch(self):
+        return len(self.batches)
+
+    def shuffle(self):
+        return self
+
+    def data(self, train=True):
+        for i, mb in enumerate(self.batches):
+            if i == self.at:
+                t0 = time.monotonic()
+                while time.monotonic() - t0 < 60:
+                    if self.release():
+                        self.waited_s = time.monotonic() - t0
+                        break
+                    time.sleep(0.01)
+            yield mb
+
+
+def _lm_samples(V, n, T, seed):
+    from bigdl_tpu_torch.dataset import Sample
+    ids = np.random.RandomState(seed).randint(1, V, (n, T + 1)) \
+        .astype(np.int32)
+    return [Sample(r[:-1], r[1:]) for r in ids]
+
+
+def _trees_equal(torch, a, b):
+    from bigdl_tpu_torch.convert import flatten
+    fa, fb = flatten(a), flatten(b)
+    return set(fa) == set(fb) and all(
+        torch.equal(torch.as_tensor(fa[k]), torch.as_tensor(fb[k]))
+        for k in fa)
+
+
+def _host_params(torch, model):
+    from bigdl_tpu_torch.convert import host_copy_tree
+    return host_copy_tree(model.params)
+
+
+def loop_remainder(torch, K, card, dev="cuda", tmp=None):
+    """Phase 15: the training loop's remainder on the flagship (float32
+    parameters, B8/T256, ``LMCriterion``, ``SGD(0.01, momentum=0.9)``,
+    observability on): (a) a clean run with a chained data set,
+    ``prepare_input``, train and validation summaries, a LearningRate
+    trigger, anomaly detection and a stall deadline, its event files read
+    back; (b) the same run with a fault policy and one transient fault
+    after the third step wrote its tensors, bit for bit (a); (c) a stall
+    halted by the remediation with a checkpoint from its side thread; (d)
+    a plateau that drives a ``Plateau`` schedule and stops the run; (e)
+    save / load / clone / predict of (a)'s model, ``predict_class`` on
+    float32 ResNet-50 (K3 / K4 / K5 on their no-statistics path) and its
+    BatchNorm state through the extra parameters; (f) the JAX package's
+    public flash entries against the plain versions."""
+    import tempfile
+    import threading
+    import bigdl_tpu_torch.observability as obs
+    from bigdl_tpu_torch.dataset import (DataSet, FuncTransformer,
+                                         MiniBatch, Sample,
+                                         TransformedDataSet)
+    from bigdl_tpu_torch.models import ResNet50, TransformerLM
+    from bigdl_tpu_torch.nn import LMCriterion
+    from bigdl_tpu_torch.nn.module import Module
+    from bigdl_tpu_torch.observability import flight, health
+    from bigdl_tpu_torch.optim import (SGD, Loss, LocalOptimizer, Plateau,
+                                       max_iteration, several_iteration)
+    from bigdl_tpu_torch.optim.optimizer import RemediationPolicy
+    from bigdl_tpu_torch.optim.staging import stager_threads_alive
+    from bigdl_tpu_torch.parallel.failure import (FaultPolicy,
+                                                  TrainingHalted,
+                                                  TransientDeviceError)
+    from bigdl_tpu_torch.visualization import (TrainSummary,
+                                               ValidationSummary,
+                                               read_scalar)
+    t15 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = LOOP15
+    B, T, iters = c["B"], c["T"], c["iters"]
+    tmp = tmp or tempfile.mkdtemp(prefix="phase15_")
+    os.environ["BIGDL_TPU_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+    print(f"[15] the training loop's remainder, flagship width, float32 "
+          f"params, B{B}/T{T} ({card})", flush=True)
+    cfg = dict(FLAGSHIP)
+    V, L = cfg["vocab_size"], cfg["num_layers"]
+    model = TransformerLM(**cfg, seed=0, device=dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    raw = _lm_samples(V, c["samples"], T, seed=3)
+    held = _lm_samples(V, c["held"], T, seed=4)
+    r15 = {}
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def train(tag, cls=LocalOptimizer, setup=None, data=None, method=None,
+              end=None, observe=True):
+        """One LocalOptimizer run from ``init`` with the launch counters
+        and observability (on unless ``observe`` is False) reset just
+        before it and read just after."""
+        model.load_state_dict(init)
+        model.remat = False
+        ds = data if data is not None else DataSet.array(
+            raw, FuncTransformer(lambda s: Sample(s.features[0],
+                                                  s.labels[0])))
+        opt = cls(model, ds, LMCriterion(),
+                  method or SGD(learningrate=0.01, momentum=0.9),
+                  end or max_iteration(iters), batch_size=B, device=dev)
+        losses = []
+        step = opt._step
+        opt._step = lambda *a: losses.append(step(*a)) or losses[-1]
+        if setup is not None:
+            setup(opt)
+        if observe:
+            obs.enable()
+        obs.registry().reset()
+        flight.reset()
+        err = None
+        sync()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            opt.optimize()
+        except TrainingHalted as e:
+            err = e
+        sync()
+        wall = time.perf_counter() - t0
+        rec = {"opt": opt, "halt": err, "wall_s": wall,
+               "counts": K.launch_counts(), "routes": K.launches_by_route(),
+               "losses": [float(v) for v in losses],
+               "step_ms": [1e3 * s for s in
+                           opt.metrics.values.get("step_time", [])],
+               "flight": [(e["kind"], e.get("neval"))
+                          for e in flight.recorder().events()],
+               "fault_retries": opt.metrics.values.get("fault_retries", []),
+               "snapshots": obs.registry().counter(
+                   "optim/fault_snapshots").value}
+        obs.disable()
+        obs.registry().reset()
+        steps = rec["step_ms"][1:] or rec["step_ms"]
+        rec["step_ms_median"] = statistics.median(steps) if steps else None
+        print(f"[15] ({tag}) {len(rec['step_ms'])} steps in {wall:.2f} s, "
+              f"step ms {[round(s, 1) for s in rec['step_ms']]} (median "
+              f"after the first {rec['step_ms_median']}); launches "
+              f"{rec['counts']}", flush=True)
+        return rec
+
+    def check_k1(rec, n, tag, val_fwd=0):
+        """n training steps' K1 launches, and ``val_fwd`` validation
+        forwards (one K1-fwd a layer and batch), all on f32_sm90."""
+        want = dict.fromkeys(K.WRAPPERS, 0)
+        want.update(flash_fwd=n + val_fwd, flash_bwd=n)
+        if dev == "cuda":
+            check(rec["counts"] == want and only_on(
+                rec["routes"]["flash_fwd"], "f32_sm90", n + val_fwd)
+                and only_on(rec["routes"]["flash_bwd"], "f32_sm90", n),
+                f"[15] ({tag}) launches {rec['counts']} by route "
+                f"{rec['routes']}, expected {n} + {val_fwd} K1-fwd and "
+                f"{n} K1-bwd on f32_sm90")
+
+    # (a0) the plain run: observability off, no summary, no detector
+    ra0 = train("a0", observe=False)
+    check_k1(ra0, L * iters, "a0")
+    # (a) the clean run
+    logs = os.path.join(tmp, "logs")
+
+    def setup_a(opt, log_dir=logs):
+        opt.set_validation(several_iteration(3), held,
+                           [Loss(LMCriterion())], B)
+        opt.set_train_summary(TrainSummary(log_dir, "lm"))
+        opt.set_val_summary(ValidationSummary(log_dir, "lm"))
+        opt.set_summary_trigger("LearningRate", several_iteration(2))
+        opt.set_anomaly_detection()
+        opt.set_stall_deadline(120.0, startup_grace_s=c["grace_s"])
+        opt.prepare_input()
+
+    ra = train("a", setup=setup_a)
+    check(len(ra["losses"]) == iters
+          and all(math.isfinite(v) for v in ra["losses"]),
+          f"[15] (a) losses {ra['losses']}")
+    # two validations (at 3 and 6) of one held-out batch
+    n_val = L * (iters // 3) * (-(-c["held"] // B))
+    check_k1(ra, L * iters, "a", n_val)
+    loss_rows = read_scalar(os.path.join(logs, "lm", "train"), "Loss")
+    lr_rows = read_scalar(os.path.join(logs, "lm", "train"), "LearningRate")
+    val_rows = read_scalar(os.path.join(logs, "lm", "validation"),
+                           repr(Loss(LMCriterion())))
+    f32 = [float(np.float32(v)) for v in ra["losses"]]
+    check([s for s, _ in loss_rows] == list(range(1, iters + 1))
+          and [v for _, v in loss_rows] == f32,
+          f"[15] (a) Loss summary {loss_rows}, losses {ra['losses']}")
+    check([s for s, _ in lr_rows] == list(range(2, iters + 1, 2)),
+          f"[15] (a) LearningRate summary {lr_rows}")
+    check([s for s, _ in val_rows] == list(range(3, iters + 1, 3))
+          and all(math.isfinite(v) for _, v in val_rows),
+          f"[15] (a) validation summary {val_rows}")
+    kinds = [k for k, _ in ra["flight"] if not k.startswith("health/")]
+    check(kinds[0] == "train/start" and kinds.count("step") == iters
+          and kinds.count("epoch") == (iters * B) // c["samples"],
+          f"[15] (a) flight records {ra['flight']}")
+    print(f"[15] (a) event files: Loss at {[s for s, _ in loss_rows]} equal "
+          f"the resolved losses, LearningRate at "
+          f"{[s for s, _ in lr_rows]}, validation at "
+          f"{[s for s, _ in val_rows]}; flight {kinds}", flush=True)
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    check(ra["losses"] == ra0["losses"], f"[15] (a) losses {ra['losses']} "
+          f"against the plain run's {ra0['losses']}")
+    r15["observability_ms"] = ra["step_ms_median"] - ra0["step_ms_median"]
+    print(f"[15] (a) against (a0): step ms median {ra['step_ms_median']:.2f}"
+          f" with observability, summaries and the detector on, "
+          f"{ra0['step_ms_median']:.2f} off ({r15['observability_ms']:+.2f}"
+          f" ms a step; validations excluded from both)", flush=True)
+
+    # (b) the same run under a fault policy, a transient fault after the
+    # third step's writes
+    class Flaky(LocalOptimizer):
+        calls = 0
+
+        def _step(self, *a):
+            Flaky.calls += 1
+            loss = LocalOptimizer._step(self, *a)
+            if Flaky.calls == 3:
+                raise TransientDeviceError("injected after the writes")
+            return loss
+
+    def setup_b(opt):
+        setup_a(opt, os.path.join(tmp, "logs_b"))
+        opt.set_fault_policy(FaultPolicy(max_restarts=2, backoff_base_s=0))
+
+    rb = train("b", cls=Flaky, setup=setup_b)
+    check(_trees_equal(torch, model.state_dict(), trained)
+          and rb["losses"][-1] == ra["losses"][-1],
+          "[15] (b) the replayed run's parameters differ from (a)'s")
+    check(rb["fault_retries"] == [1.0] and Flaky.calls == iters + 1,
+          f"[15] (b) fault retries {rb['fault_retries']}, calls "
+          f"{Flaky.calls}")
+    check_k1(rb, L * (iters + 1), "b", n_val)
+    r15["snapshot_ms"] = rb["step_ms_median"] - ra["step_ms_median"]
+    print(f"[15] (b) replay bit for bit (a); fault_retries 1; step ms "
+          f"median {rb['step_ms_median']:.1f} against (a)'s "
+          f"{ra['step_ms_median']:.1f}: the per-dispatch device snapshot "
+          f"of parameters and momentum costs {r15['snapshot_ms']:.1f} ms a "
+          f"step ({int(rb['snapshots'])} snapshots)", flush=True)
+
+    # (c) a stall: the data set blocks before batch 3 until the side
+    # thread starts the halt checkpoint, and lets go while it copies; the
+    # live parameters are read just before the copy (the loop is blocked
+    # after step 2), and the loop must not run step 3 under the copy
+    from bigdl_tpu_torch.dataset import ShardedDataSet
+    mbs = list(ShardedDataSet(DataSet.array(raw), B).data(train=False))
+    box = {}
+    stall = _Batches(mbs, 2, lambda: "live" in box)
+
+    def setup_c(opt):
+        real = opt._checkpoint
+
+        def checkpoint(*a, **kw):
+            box["live"] = _host_params(torch, model)
+            return real(*a, **kw)
+        opt._checkpoint = checkpoint
+        opt.set_checkpoint(several_iteration(10 ** 6),
+                           os.path.join(tmp, "ck_c"))
+        opt.set_stall_deadline(c["stall_deadline_s"],
+                               startup_grace_s=c["grace_s"])
+        opt.set_remediation(RemediationPolicy(halt_on_stall=True))
+
+    rc = train("c", data=stall, setup=setup_c, end=max_iteration(len(mbs)))
+    halt = rc["halt"]
+    check(stall.waited_s is not None and halt is not None
+          and halt.cause == "stall" and halt.neval == 2,
+          f"[15] (c) expected TrainingHalted(cause='stall', neval=2), got "
+          f"{halt!r}")
+    with open(halt.checkpoint_path, "rb") as f:
+        payload = pickle.load(f)
+    check(payload["neval"] == 2
+          and _trees_equal(torch, payload["params"], box["live"])
+          and _trees_equal(torch, _host_params(torch, model), box["live"]),
+          "[15] (c) the halt checkpoint, or the model after the halt, is "
+          "not the state after step 2")
+    check(halt.bundle_path and os.path.exists(halt.bundle_path),
+          f"[15] (c) no flight bundle: {halt.bundle_path}")
+    # steps 1 and 2 only: the batch that came during the copy is not run
+    check_k1(rc, L * 2, "c")
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < 10 and (
+            health.watchdog_threads_alive() or stager_threads_alive()
+            or any(t.name == "bigdl-stall-remediation"
+                   for t in threading.enumerate())):
+        time.sleep(0.02)
+    left = [t.name for t in threading.enumerate()
+            if t.name == "bigdl-stall-remediation"]
+    check(health.watchdog_threads_alive() == 0 and not left
+          and stager_threads_alive() == 0,
+          f"[15] (c) threads left: watchdog "
+          f"{health.watchdog_threads_alive()}, {left}, stagers "
+          f"{stager_threads_alive()}")
+    print(f"[15] (c) stall: TrainingHalted(cause='stall', neval=2) after "
+          f"{stall.waited_s:.2f} s blocked (deadline "
+          f"{c['stall_deadline_s']} s after the grace, the data let go "
+          f"while the checkpoint copied), checkpoint from the side thread "
+          f"and the model equal to the parameters after step 2, bundle "
+          f"{os.path.basename(halt.bundle_path)}; no thread left",
+          flush=True)
+    os.remove(halt.checkpoint_path)
+
+    # (d) a plateau: lr 0 on one repeated batch
+    one = _Batches(mbs[:1] * c["plateau_iters"])
+    sched = Plateau(factor=0.1, patience=10 ** 6)
+
+    def setup_d(opt):
+        opt.set_prefetch(0)
+        opt.set_anomaly_detection(min_points=2, window=8, plateau_window=3,
+                                  plateau_rel=1e-7)
+        opt.set_remediation(RemediationPolicy(plateau_lr=True,
+                                              early_stop_plateaus=1))
+
+    rd = train("d", data=one, setup=setup_d,
+               method=SGD(learningrate=0.0, learningrate_schedule=sched),
+               end=max_iteration(c["plateau_iters"]))
+    nd = rd["opt"].optim_method.state["neval"]
+    check(rd["halt"] is None and nd < c["plateau_iters"]
+          and abs(sched.multiplier - 0.1) < 1e-12,
+          f"[15] (d) plateau: stopped at {nd}, multiplier "
+          f"{sched.multiplier}")
+    check_k1(rd, L * nd, "d")
+    print(f"[15] (d) plateau: lr 0 on one batch, early stop at neval {nd} of "
+          f"{c['plateau_iters']}, Plateau multiplier {sched.multiplier}",
+          flush=True)
+
+    # (e) module I/O on (a)'s model
+    model.load_state_dict(trained)
+    model.evaluate()
+    x = torch.from_numpy(np.stack([s.features[0] for s in raw[:B]])).to(dev)
+    with torch.no_grad():
+        want = model.forward(x)
+    path = os.path.join(tmp, "lm.bigdl")
+    t0 = time.perf_counter()
+    model.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = Module.load(path, device=dev)
+    load_s = time.perf_counter() - t0
+    loaded.evaluate()
+    with torch.no_grad():
+        got = loaded.forward(x)
+    check(torch.equal(got, want), "[15] (e) the loaded model's logits "
+          "differ from the trained model's")
+    del loaded
+    os.remove(path)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    clone = model.clone()
+    clone.training()
+    LocalOptimizer(clone, raw[:B], LMCriterion(), SGD(learningrate=0.01),
+                   max_iteration(1), batch_size=B, device=dev).optimize()
+    check(_trees_equal(torch, model.state_dict(), before)
+          and not _trees_equal(torch, clone.state_dict(), before),
+          "[15] (e) stepping the clone moved the original (or nothing)")
+    del clone
+    pred = [Sample(s.features[0][:c["pred_T"]]) for s in
+            _lm_samples(V, c["pred_n"], c["pred_T"], seed=5)]
+    pds = DataSet.array(pred, FuncTransformer(lambda s: s))
+    check(isinstance(pds, TransformedDataSet), "[15] (e) not chained")
+    K.reset_launch_counts()
+    out = model.predict(pds, B)
+    with torch.no_grad():
+        ref = torch.cat([model.forward(torch.from_numpy(np.stack(
+            [s.features[0] for s in pred[i:i + B]])).to(dev)).cpu()
+            for i in range(0, len(pred), B)]).numpy()
+    perr = float(np.abs(out - ref).max())
+    check(out.shape == ref.shape and perr <= 1e-5,
+          f"[15] (e) predict {out.shape} against the per-batch forward "
+          f"{ref.shape}: {perr}")
+    print(f"[15] (e) save {save_s:.2f} s / load {load_s:.2f} s, logits bit "
+          f"for bit; the clone stepped, the original unchanged; predict "
+          f"over {len(pred)} samples at batch {B} (last batch ragged) "
+          f"within {perr:.1e} of the per-batch forward", flush=True)
+    model.training()
+    del model, trained, before, init
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    S, RB = c["image"], c["image_B"]
+    rn = ResNet50(format="NHWC", fused="pallas", fused_conv2=True, seed=0,
+                  device=dev)
+    rng = np.random.RandomState(6)
+    rn.set_extra_parameter([torch.from_numpy(
+        (rng.rand(*t.shape) + 0.5).astype(np.float32))
+        for t in rn.get_extra_parameter()])
+    extra = rn.get_extra_parameter()
+    imgs = rng.randn(RB, S, S, 3).astype(np.float32)
+    rn.evaluate()
+    sync()
+    K.reset_launch_counts()
+    classes = rn.predict_class(DataSet.array([Sample(i) for i in imgs]), RB)
+    sync()
+    pc_counts, pc_routes = K.launch_counts(), K.launches_by_route()
+    with torch.no_grad():
+        logits = rn.forward(torch.from_numpy(imgs).to(dev))
+    want_cls = logits.argmax(-1).cpu().numpy() + 1
+    check(np.array_equal(classes, want_cls),
+          f"[15] (e) predict_class {classes} against argmax {want_cls}")
+    if dev == "cuda":
+        # one batch: 24 K3, 16 K4 and 12 K5 forwards, nothing else
+        want = dict.fromkeys(K.WRAPPERS, 0)
+        want.update(fused_matmul_fwd=24, fused_conv_fwd=16,
+                    fused_chain_fwd=12)
+        check(pc_counts == want
+              and all(only_on(pc_routes[k], "f32_sm90", n)
+                      for k, n in want.items() if n),
+              f"[15] (e) predict_class launches {pc_counts} by route "
+              f"{pc_routes}, expected {want} on f32_sm90")
+    rn.set_extra_parameter([t * 0.5 for t in extra])
+    rn.set_extra_parameter(extra)
+    check(all(torch.equal(a, b) for a, b in
+              zip(rn.get_extra_parameter(), extra)),
+          "[15] (e) the extra parameters did not round-trip")
+    print(f"[15] (e) ResNet-50 fused_conv2 float32 predict_class at "
+          f"B{RB}/{S} equals argmax of the eval forward; launches "
+          f"{ {k: v for k, v in pc_counts.items() if v} } by route "
+          f"{ {k: {r: n for r, n in v.items() if n} for k, v in pc_routes.items() if any(v.values())} }"
+          f"; {len(extra)} BatchNorm state leaves round-trip bit for bit",
+          flush=True)
+    r15["predict_class"] = pc_counts
+    del rn
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (f) the JAX package's public flash entries
+    from bigdl_tpu_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(15)
+    entries = {}
+    entry_routes = {"flash_fwd": {}, "flash_bwd": {}}
+
+    def add_routes(routes):
+        for fn, acc in entry_routes.items():
+            for r, n in routes[fn].items():
+                acc[r] = acc.get(r, 0) + n
+    for dtype, ftol, btol in ((torch.bfloat16, 1.6e-2, 1e-2),
+                              (torch.float32, 2e-5, 1e-4)):
+        q, k, v, do = [torch.randn(2, 16, 256, 64, device=dev, generator=g)
+                       .to(dtype) for _ in range(4)]
+        K.reset_launch_counts()
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = fa.flash_attention_fused(qq, kk, vv, causal=True)
+        grads = torch.autograd.grad(o, (qq, kk, vv), do)
+        sync()
+        counts, routes = K.launch_counts(), K.launches_by_route()
+        add_routes(routes)
+        ro, _ = K.flash_fwd_reference(q, k, v, True)
+        # the backward's plain version on the kernel's residuals, as in
+        # phase 2
+        ko, klse = K.flash_fwd(q, k, v, causal=True)
+        rg = K.flash_bwd_reference(q, k, v, ko, klse, do, True)
+        ferr = (o.float() - ro.float()).abs().max().item()
+        mag = max(b.float().abs().max().item() for b in rg)
+        berr = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(grads, rg))
+        check(ferr <= ftol and berr <= btol * max(1.0, mag),
+              f"[15] (f) flash_attention_fused {dtype}: forward {ferr}, "
+              f"gradient {berr}")
+        if dev == "cuda":
+            check(counts["flash_fwd"] == 1 and counts["flash_bwd"] == 1,
+                  f"[15] (f) flash_attention_fused launches {counts}")
+        entries[f"fused {dtype}"] = {
+            "fwd_err": ferr, "bwd_err": berr,
+            "fwd": {r: n for r, n in routes["flash_fwd"].items() if n},
+            "bwd": {r: n for r, n in routes["flash_bwd"].items() if n}}
+    for dtype, ftol in ((torch.bfloat16, 1.6e-2), (torch.float32, 2e-5)):
+        q = torch.randn(2, 16, 32, 64, device=dev, generator=g).to(dtype)
+        k, v = [torch.randn(2, 16, 256, 64, device=dev, generator=g)
+                .to(dtype) for _ in range(2)]
+        K.reset_launch_counts()
+        o = fa.flash_chunk_attention(q, k, v, 96, kv_len=128)
+        sync()
+        counts, routes = K.launch_counts(), K.launches_by_route()
+        add_routes(routes)
+        ro, _ = K.flash_fwd_reference(q, k, v, True, 96, 128)
+        ferr = (o.float() - ro.float()).abs().max().item()
+        check(ferr <= ftol, f"[15] (f) flash_chunk_attention {dtype}: "
+              f"{ferr}")
+        if dev == "cuda":
+            check(counts["flash_fwd"] == 1, f"[15] (f) flash_chunk_attention "
+                  f"launches {counts}")
+        entries[f"chunk {dtype}"] = {
+            "fwd_err": ferr,
+            "fwd": {r: n for r, n in routes["flash_fwd"].items() if n}}
+    print(f"[15] (f) the flash entries against the plain versions, "
+          f"launches by route: {entries}", flush=True)
+    r15.update(a0=ra0, a=ra, b=rb, c=rc, d=rd, flash_entries=entries,
+               entry_routes=entry_routes,
+               k1=sum(r["counts"]["flash_fwd"] for r in (ra0, ra, rb, rc, rd)),
+               k1b=sum(r["counts"]["flash_bwd"] for r in (ra0, ra, rb, rc, rd)))
+    for rec in (ra0, ra, rb, rc, rd):
+        rec.pop("opt")
+    r15["phase_s"] = time.perf_counter() - t15
+    print(f"[15] phase 15: {r15['phase_s']:.1f} s", flush=True)
+    return r15
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4677,6 +5224,8 @@ def main():
     r13 = zoo(torch, K, card, r8)
     # -- phase 14: the sequence zoo -------------------------------------------
     seq_zoo(torch, K, card)
+    # -- phase 15: the training loop's remainder and module I/O ---------------
+    r15 = loop_remainder(torch, K, card)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -4810,7 +5359,8 @@ def main():
     print(json.dumps({"kernels": [
         kernel_rec("flash_fwd", "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
-                   gen_counts["flash_fwd"] + r11["beam_flash"]),
+                   gen_counts["flash_fwd"] + r11["beam_flash"]
+                   + r15["entry_routes"]["flash_fwd"].get("bf16_sm90", 0)),
         kernel_rec("flash_fwd_chunk",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,
@@ -4821,11 +5371,13 @@ def main():
                    arms[0]["launches"]["flash_fwd"]),
         kernel_rec("flash_bwd", "bigdl_tpu_torch/csrc/flash_bwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_main,
-                   arms[0]["launches"]["flash_bwd"]),
+                   arms[0]["launches"]["flash_bwd"]
+                   + r15["entry_routes"]["flash_bwd"].get("bf16_sm90", 0)),
         kernel_rec("flash_fwd_f32",
                    "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32,
-                   r6["routes"]["flash_fwd"]["f32_sm90"]),
+                   r6["routes"]["flash_fwd"]["f32_sm90"] + r15["k1"]
+                   + r15["entry_routes"]["flash_fwd"].get("f32_sm90", 0)),
         kernel_rec("flash_fwd_f32_cuda_cores",
                    "bigdl_tpu_torch/csrc/flash_fwd.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32_wide,
@@ -4833,7 +5385,8 @@ def main():
         kernel_rec("flash_bwd_f32",
                    "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
-                   r6["routes"]["flash_bwd"]["f32_sm90"]),
+                   r6["routes"]["flash_bwd"]["f32_sm90"] + r15["k1b"]
+                   + r15["entry_routes"]["flash_bwd"].get("f32_sm90", 0)),
         kernel_rec("flash_bwd_f32_cuda_cores",
                    "bigdl_tpu_torch/csrc/flash_bwd.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32_wide,
@@ -4929,15 +5482,18 @@ def main():
         kernel_rec("fused_matmul_eval",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:688", r10["eval"]["K3"],
-                   r10["d"]["launches"]["fused_matmul_fwd"]),
+                   r10["d"]["launches"]["fused_matmul_fwd"]
+                   + r15["predict_class"]["fused_matmul_fwd"]),
         kernel_rec("fused_conv_eval",
                    "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", r10["eval"]["K4"],
-                   r10["d"]["launches"]["fused_conv_fwd"]),
+                   r10["d"]["launches"]["fused_conv_fwd"]
+                   + r15["predict_class"]["fused_conv_fwd"]),
         kernel_rec("fused_chain_eval",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318", r10["eval"]["K5"],
-                   r10["d"]["launches"]["fused_chain_fwd"]),
+                   r10["d"]["launches"]["fused_chain_fwd"]
+                   + r15["predict_class"]["fused_chain_fwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -260,25 +260,12 @@ def test_refuse_unported_passes_defaults_and_names_the_first_change():
 # public JAX methods the port does not have yet, by the JAX class that
 # defines them; each name here must really be missing from the port
 UNPORTED_METHODS = {
-    # the Torch-style stateful facade beyond forward / apply / call, the
-    # weights / freezing methods and the Torch backward protocol: the save
-    # / load family, quantization and the prediction helpers (ROADMAP
-    # A.4, A.8)
+    # the foreign-format savers, Orbax and quantization (ROADMAP A.8)
     "bigdl_tpu.nn.module.Module": {
-        "clone", "get_extra_parameter", "init", "load", "load_orbax",
-        "predict", "predict_class", "quantize", "save", "save_caffe",
-        "save_orbax", "save_tf", "save_torch", "set_extra_parameter"},
-    # transformer chains on data sets (ROADMAP A.4)
-    "bigdl_tpu.dataset.dataset.AbstractDataSet": {"arrow", "transform"},
-    "bigdl_tpu.dataset.transformer.Transformer": {"arrow"},
+        "load_orbax", "quantize", "save_caffe", "save_orbax", "save_tf",
+        "save_torch"},
     # the cross-process page handoff of the fleet tier (ROADMAP A.8)
     "bigdl_tpu.serving.kv_cache.PagedKVCache": {"export_blocks"},
-    # the training loop's health, summary and input follow-ons (ROADMAP
-    # A.4)
-    "bigdl_tpu.optim.optimizer.BaseOptimizer": {
-        "prepare_input", "set_anomaly_detection", "set_fault_policy",
-        "set_remediation", "set_stall_deadline", "set_summary_trigger",
-        "set_train_summary", "set_val_summary"},
 }
 
 CLASS_PAIRS = [(k, p, t) for k, p, t in PAIRS if inspect.isclass(p)]
@@ -357,8 +344,6 @@ UNPORTED_MEMBERS = {
     # the multi-device failure detectors (ROADMAP A.6)
     "parallel.failure": {"MeshProbeResult", "probe_mesh", "Heartbeat",
                          "FileHeartbeat", "StragglerMonitor"},
-    # batch prediction (ROADMAP A.8)
-    "optim.predictor": {"leading_dim", "Predictor", "PredictionService"},
     # mesh-sharded validation (ROADMAP A.6)
     "optim.evaluator": {"DistriValidator"},
     # the restart supervisor of multi-GPU training (ROADMAP A.6)
@@ -366,17 +351,11 @@ UNPORTED_MEMBERS = {
                          "data_parallel_factory"},
     # ROI pooling comes with the detection slice (ROADMAP A.7)
     "nn.pool": {"RoiPooling"},
-    # transformer chains on data sets (ROADMAP A.4)
-    "dataset.dataset": {"TransformedDataSet"},
-    "dataset.transformer": {"ChainedTransformer", "Identity",
-                            "FuncTransformer"},
     # the graph container's node comes with the detection slice (ROADMAP
     # A.7)
     "nn.module": {"Node"},
-    # the loop's remediation policy (ROADMAP A.4); mesh training (ROADMAP
-    # A.6)
-    "optim.optimizer": {"RemediationPolicy", "DistriOptimizer",
-                        "ParallelOptimizer"},
+    # mesh training (ROADMAP A.6)
+    "optim.optimizer": {"DistriOptimizer", "ParallelOptimizer"},
     # the mesh's serving context (ROADMAP A.6); by design, no port: the
     # environment switches (the port has one route per device)
     "parallel.flash": {"paged_serving_context", "flash_mode", "paged_mode"},
@@ -427,15 +406,17 @@ def test_every_jax_member_is_ported_or_listed(mod):
 
 
 def test_translation_and_padding_parameters_raise_at_a_non_default_value():
-    """Transformer chains on data sets stay refused (ROADMAP A.4); the
-    translation and padding parameters this test refused before are
-    accepted now (the cases below, one for each)."""
-    from bigdl_tpu_torch.dataset import DataSet, Sample
+    """Nothing of these constructors is refused any more: the transformer
+    chains on data sets this test refused are accepted (``DataSet.array``
+    with a transformer), and so are the translation and padding
+    parameters (the cases below, one for each)."""
+    from bigdl_tpu_torch.dataset import DataSet, FuncTransformer, Sample
     attn = nn.Attention(16, 2)
     x = torch.zeros(1, 3, 16)
     assert [t.shape for t in attn.qkv(attn.params, x)] == [(1, 2, 3, 8)] * 3
-    with pytest.raises(NotImplementedError):
-        DataSet.array([Sample(np.zeros(2))], object())
+    ds = DataSet.array([Sample(np.full(2, i)) for i in range(3)],
+                       FuncTransformer(lambda s: s.features[0][0]))
+    assert list(ds.data(train=False)) == [0, 1, 2]
 
 
 # -- translation and padding parameters that were refused and now take values -
@@ -522,10 +503,18 @@ def test_serving_parameters_are_accepted(kw, attr, want):
         q, q, q, 0, block_k=256),
     lambda q: __import__("bigdl_tpu_torch.utils.engine",
                          fromlist=["x"]).init(mesh_shape=(2,)),
-], ids=["flash_scale", "flash_block_q", "chunk_block_k", "engine_mesh"])
+    lambda q: __import__("bigdl_tpu_torch.optim.optimizer",
+                         fromlist=["x"]).RemediationPolicy(
+        heartbeat="hb", heartbeat_every=1),
+    lambda q: __import__("bigdl_tpu_torch.optim.optimizer",
+                         fromlist=["x"]).RemediationPolicy(
+        straggler_monitor="sm", straggler_every=1),
+], ids=["flash_scale", "flash_block_q", "chunk_block_k", "engine_mesh",
+        "remediation_heartbeat", "remediation_straggler"])
 def test_tile_mesh_and_multi_gpu_parameters_are_refused(call):
-    """TPU tile sizes, a scale other than 1/sqrt(D) and the engine's mesh
-    (ROADMAP A.6) raise at a value other than JAX's default."""
+    """TPU tile sizes, a scale other than 1/sqrt(D), the engine's mesh and
+    the remediation's multi-GPU detectors (ROADMAP A.6) raise at a value
+    other than JAX's default."""
     with pytest.raises(NotImplementedError):
         call(torch.zeros(1, 1, 4, 8))
 
