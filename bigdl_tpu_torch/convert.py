@@ -9,11 +9,14 @@ The port's modules carry the JAX trees' names and layouts, so the flat
   in translation mode each decoder block also holds ``cross: {wq, wk, wv,
   wo}`` and ``ln3``, beside the encoder's ``enc_block{i}`` ->
   ``enc_block0.attn.wq``, ``block0.cross.wq``, ``block0.ln3.weight``;
-* ``ResNet(format="NHWC", fused="pallas")``: Sequential indices, chain
-  blocks under ``"j"``; the stem weight OIHW, each block's ``w1``/``w2``/
-  ``w3``/``proj_w`` HWIO and ``bn1``/``bn2``/``bn3``/``proj_bn``; its
-  state tree holds each BatchNorm's ``running_mean``/``running_var`` ->
-  ``4.0.w1``, ``4.0.bn1.running_mean``, ``1.running_var``.
+* ``ResNet(format="NHWC", fused="pallas")`` (and ``"xla"``): Sequential
+  indices, chain blocks under ``"j"``; the stem weight OIHW, each block's
+  ``w1``/``w2``/``w3``/``proj_w`` HWIO and ``bn1``/``bn2``/``bn3``/
+  ``proj_bn``; its state tree holds each BatchNorm's ``running_mean``/
+  ``running_var`` -> ``4.0.w1``, ``4.0.bn1.running_mean``,
+  ``1.running_var``; unchained (``fused_chain=False``, JAX's
+  ``BIGDL_TPU_FUSED_CHAIN=0``) the blocks sit at the Sequential's own
+  indices -> ``4.w1`` ... ``19.bn3.weight``, and the classifier at 22.
 
 Arrays arrive as numpy (``jax.tree_util.tree_map(np.asarray, tree)``) and
 leave as numpy (:func:`to_numpy_tree` of ``model.params`` and

@@ -1,12 +1,16 @@
-from . import news20, sentence, text
+from . import base, cifar, imagenet, mnist, news20, sentence, text, tfrecord
 from .dataset import (AbstractDataSet, DataSet, LocalDataSet, ShardedDataSet,
                       TransformedDataSet)
 from .minibatch import MiniBatch, PaddingParam
 from .sample import Sample
+from .tfrecord import (load_tfrecord_dataset, make_example, parse_example,
+                       read_tfrecords, write_tfrecords)
 from .transformer import (ChainedTransformer, FuncTransformer, Identity,
                           SampleToMiniBatch, Transformer)
 
 __all__ = ["AbstractDataSet", "DataSet", "LocalDataSet", "ShardedDataSet",
            "MiniBatch", "PaddingParam", "Sample", "SampleToMiniBatch",
            "Transformer", "TransformedDataSet", "ChainedTransformer",
-           "FuncTransformer", "Identity"]
+           "FuncTransformer", "Identity", "read_tfrecords",
+           "write_tfrecords", "parse_example", "make_example",
+           "load_tfrecord_dataset"]

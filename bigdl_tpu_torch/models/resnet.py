@@ -8,23 +8,29 @@ default, builds the plain Torch-style blocks (:func:`bottleneck`,
 :func:`basic_block`: ``ConcatTable`` of the main branch and the shortcut,
 ``CAddTable``, ``ReLU``) in NCHW or NHWC, their convolutions PyTorch's.
 ``fused="pallas"`` (NHWC) builds stages of :class:`FusedBottleneck`
-blocks chained by :class:`FusedBottleneckChain` (the cross-layer junction
-kernel always on, as it is by default in the JAX package): every 1x1 conv
-runs through K3 (``kernels.fused_bn_relu_matmul_nhwc``), every junction
-through K5 (``kernels.fused_residual_matmul_nhwc``) and, with
+blocks chained by :class:`FusedBottleneckChain`: every 1x1 conv runs
+through K3 (``kernels.fused_bn_relu_matmul_nhwc``), every identity
+junction through K5 (``kernels.fused_residual_matmul_nhwc``) and, with
 ``fused_conv2=True`` (the JAX package's ``BIGDL_TPU_FUSED_CONV2=1``),
 every 3x3 conv through K4 (``kernels.fused_bn_relu_conv3x3``); on the CPU
-these are the kernels' plain versions.
+these are the kernels' plain versions. ``fused_chain=False`` (the JAX
+package's ``BIGDL_TPU_FUSED_CHAIN=0``) leaves the blocks unchained in the
+``Sequential``: each block runs its own junction as one elementwise pass
+and its conv1 through K3 (36 K3 launches a training forward of ResNet-50
+and no K5, against 24 and 12 chained).
 
-Not ported (it raises): ``fused="xla"``, the TPU's XLA-fused control arm
-of the fused bottleneck, and the chain-off control arm. The JAX package's
-TPU tuning knobs (block sizes, the flattened layout, VMEM fitting) have no
-counterpart.
+``fused="xla"`` is the JAX package's control arm: the same restructured
+blocks (1x1 convs as products over the last axis of the NHWC tensor with
+the affine prologue and float32 sums of z and z^2; the chain's junction
+written out) in eager PyTorch ops, calling no wrapper of ``kernels``.
+The JAX package's TPU tuning knobs (block sizes, the flattened layout,
+VMEM fitting) have no counterpart.
 
 Parameter and state trees keep the JAX names and layouts: Sequential
 indices; the plain blocks' ``"0"`` (ConcatTable) / ``"0"`` (main) /
 ``"1"`` (shortcut) nesting; the convs' weights OIHW; fused chain blocks
-under ``"0"``, ``"1"``, ..., each block's ``w1``/``w2``/``w3``/``proj_w``
+under ``"0"``, ``"1"``, ... (unchained blocks at the ``Sequential``'s own
+indices, 4-19 for ResNet-50), each block's ``w1``/``w2``/``w3``/``proj_w``
 HWIO with ``bn1``/``bn2``/``bn3``/``proj_bn`` (``weight``, ``bias``;
 state ``running_mean``, ``running_var``), so ``convert.jax_to_state_dict``
 carries JAX weights across by name.
@@ -43,7 +49,6 @@ from ..nn import (CAddTable, ConcatTable, Identity, Linear, LogSoftMax,
                   SpatialMaxPooling, View)
 from ..nn.init import MsraFiller
 from ..nn.module import Module
-from ..utils.engine import refuse_unported
 from ._build import placed
 
 __all__ = ["SpaceToDepthStem", "ShortcutType", "basic_block", "bottleneck",
@@ -174,20 +179,20 @@ class _BN(Module):
 
 class FusedBottleneck(Module):
     """NHWC bottleneck (1x1 reduce, 3x3 with the stride - v1.5 placement -,
-    1x1 expand, shortcut B) whose 1x1 convs run through K3 with the
-    previous BatchNorm's affine + ReLU as the prologue and the next
-    BatchNorm's batch statistics from the epilogue; with ``fused_conv2``
-    the 3x3 conv runs through K4 the same way, otherwise BN1 + ReLU is one
-    elementwise pass, the conv is ``F.conv2d`` on the channels-last view
-    and BN2's statistics are two reductions (as in the JAX package).
+    1x1 expand, shortcut B) whose 1x1 convs are products over the last
+    axis with the previous BatchNorm's affine + ReLU as the prologue and
+    the next BatchNorm's batch statistics from the epilogue: through K3
+    with ``kernel="pallas"``, in eager ops with ``kernel="xla"`` (JAX's
+    control arm). With ``fused_conv2`` (pallas only) the 3x3 conv runs
+    through K4 the same way, otherwise BN1 + ReLU is one elementwise pass,
+    the conv is ``F.conv2d`` on the channels-last view and BN2's
+    statistics are two reductions (as in the JAX package).
 
     BatchNorm statistics here are the unshifted ``s2 / m - mean^2`` from
-    the kernels' sums (the JAX package's ``_bn_affine``); each affine
-    ``(a, b)`` is computed in float32 and rounded to the activations'
-    dtype before it reaches a kernel. ``kernel`` other than JAX's default
-    'pallas' (the XLA-fused arm) is not ported; ``fused_conv2`` is the
-    keyword form of JAX's ``BIGDL_TPU_FUSED_CONV2`` switch (the port reads
-    no environment)."""
+    the sums (the JAX package's ``_bn_affine``); each affine ``(a, b)`` is
+    computed in float32 and rounded to the activations' dtype before it
+    is applied. ``fused_conv2`` is the keyword form of JAX's
+    ``BIGDL_TPU_FUSED_CONV2`` switch (the port reads no environment)."""
 
     def __init__(self, nin: int, nmid: int, stride: int = 1,
                  expansion: int = 4, zero_init_residual: bool = False,
@@ -195,7 +200,13 @@ class FusedBottleneck(Module):
                  kernel: str = "pallas", name=None,
                  fused_conv2: bool = False):
         super().__init__(name=name)
-        refuse_unported("FusedBottleneck", kernel=(kernel, "pallas"))
+        if kernel not in ("pallas", "xla"):
+            raise ValueError(f"kernel must be 'pallas' or 'xla', got "
+                             f"{kernel!r}")
+        if fused_conv2 and kernel != "pallas":
+            raise ValueError("fused_conv2 routes the 3x3 conv through K4: "
+                             "it needs kernel='pallas'")
+        self.kernel = kernel
         self.nin, self.nmid, self.stride = nin, nmid, stride
         self.nout = nmid * expansion
         self.eps, self.momentum = eps, momentum
@@ -249,11 +260,29 @@ class FusedBottleneck(Module):
         a = g * torch.rsqrt(var + self.eps)
         return a, beta - mean * a, new
 
+    def _mm(self, x, w, a, b, relu, stats):
+        """One 1x1 conv as a product over the last axis of ``x`` (..., K):
+        ``(z (..., N), s1, s2)``. K3 on the 'pallas' arm; on the 'xla' arm
+        the JAX package's plain ops: the affine prologue in x's dtype,
+        max(., 0), ``torch.matmul`` (no reshape of the NHWC tensor) and
+        float32 sums of z and z^2."""
+        if self.kernel == "pallas":
+            return fused_bn_relu_matmul_nhwc(x, w, a, b, relu=relu,
+                                             stats=stats)
+        xh = x if a is None else x * a + b
+        if relu:
+            xh = _max0(xh)
+        z = torch.matmul(xh, w)
+        if not stats:
+            return z, None, None
+        zf = z.float()
+        red = tuple(range(z.dim() - 1))
+        return z, zf.sum(red), (zf * zf).sum(red)
+
     def _conv1(self, params, x, training):
         """Block entry: the 1x1 reduce conv (+ BN1's statistics)."""
         w1 = params["w1"].reshape(self.nin, self.nmid).to(x.dtype)
-        return fused_bn_relu_matmul_nhwc(x, w1, None, None, relu=False,
-                                         stats=training)
+        return self._mm(x, w1, None, None, relu=False, stats=training)
 
     def _body(self, params, state, z1, s11, s12, x_short, training):
         """From conv1's output to ``(z3, a3, b3, short, new_state)``: what
@@ -284,8 +313,8 @@ class FusedBottleneck(Module):
         a2, b2, new_state["bn2"] = self._bn_affine(
             params, state, "bn2", s21, s22, m2, training)
         w3 = params["w3"].reshape(self.nmid, self.nout).to(dt)
-        z3, s31, s32 = fused_bn_relu_matmul_nhwc(
-            z2, w3, a2.to(dt), b2.to(dt), relu=True, stats=training)
+        z3, s31, s32 = self._mm(z2, w3, a2.to(dt), b2.to(dt), relu=True,
+                                stats=training)
         a3, b3, new_state["bn3"] = self._bn_affine(
             params, state, "bn3", s31, s32, m2, training)
         if self.project:
@@ -294,8 +323,8 @@ class FusedBottleneck(Module):
             # slice before the Pallas call
             xs = x_short[:, ::self.stride, ::self.stride, :]
             wp = params["proj_w"].reshape(self.nin, self.nout).to(dt)
-            zp, sp1, sp2 = fused_bn_relu_matmul_nhwc(
-                xs, wp, None, None, relu=False, stats=training)
+            zp, sp1, sp2 = self._mm(xs, wp, None, None, relu=False,
+                                    stats=training)
             ap, bp, new_state["proj_bn"] = self._bn_affine(
                 params, state, "proj_bn", sp1, sp2, m2, training)
             short = zp * ap.to(dt) + bp.to(dt)
@@ -315,10 +344,13 @@ class FusedBottleneck(Module):
 
 class FusedBottleneckChain(Module):
     """A stage of :class:`FusedBottleneck` blocks whose identity junctions
-    run through K5: block n's epilogue ``relu(z3 * a3 + b3 + short)`` and
-    block n+1's 1x1 reduce conv in one kernel that writes the junction
-    once. The stage's first block (projecting or striding) keeps its
-    plain entry; the last block's epilogue is an elementwise pass."""
+    fuse block n's epilogue ``relu(z3 * a3 + b3 + short)`` with block
+    n+1's 1x1 reduce conv: through K5, one kernel that writes the junction
+    once, for 'pallas' blocks; written out (the elementwise epilogue, then
+    the block's product) for 'xla' blocks, as the JAX package's
+    ``_junction`` does off its kernel. The stage's first block (projecting
+    or striding) keeps its plain entry; the last block's epilogue is an
+    elementwise pass."""
 
     def __init__(self, blocks, name=None):
         super().__init__(name=name)
@@ -332,6 +364,16 @@ class FusedBottleneckChain(Module):
             self.add_module(str(i), blk)
         self.blocks = tuple(blocks)
 
+    def _junction(self, z3, a3, b3, short, w1n, training):
+        """``(out, z1, s1, s2)``: the junction ``out = relu(z3 * a3 + b3 +
+        short)`` and the next block's conv1 on it."""
+        if self.blocks[0].kernel == "pallas":
+            return fused_residual_matmul_nhwc(z3, short, w1n, a3, b3,
+                                              stats=training)
+        out = _max0(z3 * a3 + b3 + short)
+        return (out,) + self.blocks[0]._mm(out, w1n, None, None, False,
+                                           training)
+
     def apply(self, params, state, x, training: bool = False,
               generator=None):
         dt = x.dtype
@@ -343,8 +385,8 @@ class FusedBottleneckChain(Module):
         for i in range(1, len(self.blocks)):
             nxt, key = self.blocks[i], str(i)
             w1n = params[key]["w1"].reshape(nxt.nin, nxt.nmid).to(dt)
-            out, z1, s11, s12 = fused_residual_matmul_nhwc(
-                z3, short, w1n, a3.to(dt), b3.to(dt), stats=training)
+            out, z1, s11, s12 = self._junction(z3, a3.to(dt), b3.to(dt),
+                                               short, w1n, training)
             z3, a3, b3, short, new_state[key] = nxt._body(
                 params[key], state[key], z1, s11, s12, out, training)
         return _max0(z3 * a3.to(dt) + b3.to(dt) + short), new_state
@@ -357,42 +399,41 @@ def ResNet(class_num: int = 1000, depth: int = 50, shortcut_type: str = "B",
            data_set: str = "ImageNet", zero_init_residual: bool = True,
            with_log_softmax: bool = False, format: str = "NCHW",
            stem: str = "conv7", pool_grad: str = "exact",
-           fused: str = "none", fused_conv2: bool = False, device=None,
-           seed: int = 0):
+           fused: str = "none", fused_conv2: bool = False,
+           fused_chain: bool = True, device=None, seed: int = 0):
     """The JAX package's factory (the reference's ``ResNet(classNum,
     opt)``): ``data_set="cifar10"`` gives :func:`ResNetCifar` (with this
     ``shortcut_type``); otherwise the ImageNet depths 50, 101 and 152 in
-    ``format`` NCHW or NHWC, ``fused="none"`` (plain blocks) or
-    ``"pallas"`` (NHWC, shortcut B: the kernels, ``fused_conv2`` routing
-    the 3x3 convs through K4). ``stem="s2d"`` (NHWC) is the space-to-depth
-    stem, ``pool_grad`` the stem max pool's ``grad_mode``. The model is
-    built on ``device`` (the CUDA device by default, which raises without
-    one; ``'cpu'`` for the CPU) with weights drawn from a generator seeded
-    with ``seed``."""
+    ``format`` NCHW or NHWC, ``fused="none"`` (plain blocks), ``"pallas"``
+    (NHWC, shortcut B: the kernels, ``fused_conv2`` routing the 3x3 convs
+    through K4) or ``"xla"`` (the same blocks in eager ops, no kernel).
+    ``fused_chain=False`` (the JAX package's ``BIGDL_TPU_FUSED_CHAIN=0``)
+    leaves the fused blocks unchained. ``stem="s2d"`` (NHWC) is the
+    space-to-depth stem, ``pool_grad`` the stem max pool's ``grad_mode``.
+    The model is built on ``device`` (the CUDA device by default, which
+    raises without one; ``'cpu'`` for the CPU) with weights drawn from a
+    generator seeded with ``seed``."""
     if data_set.lower() == "cifar10":
         return ResNetCifar(class_num, depth, shortcut_type, device=device,
                            seed=seed)
-    if fused == "xla":
-        raise NotImplementedError(
-            "ResNet(fused='xla') is not ported: it is the TPU's XLA-fused "
-            "control arm of the fused bottleneck (ROADMAP A.5)")
-    if fused not in ("none", "pallas"):
+    if fused not in ("none", "pallas", "xla"):
         raise ValueError(f"fused must be 'none', 'pallas' or 'xla', got "
                          f"{fused!r}")
     if depth not in _IMAGENET_CFG:
         raise ValueError(f"ImageNet ResNet depth must be one of "
                          f"{sorted(_IMAGENET_CFG)}, got {depth}")
     fmt = format
-    if fused == "pallas":
+    if fused != "none":
         if fmt != "NHWC":
             raise ValueError("fused bottlenecks are the NHWC path")
         if shortcut_type != ShortcutType.B:
             raise NotImplementedError(
-                f"fused='pallas' implements shortcut type B only (requested "
-                f"{shortcut_type!r}), as the JAX package's fused arms do")
-    elif fused_conv2:
+                f"fused={fused!r} implements shortcut type B only "
+                f"(requested {shortcut_type!r}), as the JAX package's fused "
+                f"arms do")
+    if fused_conv2 and fused != "pallas":
         raise ValueError("fused_conv2 routes the fused bottlenecks' 3x3 "
-                         "convs: it needs fused='pallas'")
+                         "convs through K4: it needs fused='pallas'")
     model = Sequential()
     if stem == "s2d":
         if fmt != "NHWC":
@@ -410,10 +451,14 @@ def ResNet(class_num: int = 1000, depth: int = 50, shortcut_type: str = "B",
         blocks = []
         for b in range(n_blocks):
             stride = 2 if (stage > 0 and b == 0) else 1
-            if fused == "pallas":
-                blocks.append(FusedBottleneck(nin, nmid, stride, 4,
-                                              zero_init_residual,
-                                              fused_conv2=fused_conv2))
+            if fused != "none":
+                blk = FusedBottleneck(nin, nmid, stride, 4,
+                                      zero_init_residual, kernel=fused,
+                                      fused_conv2=fused_conv2)
+                if fused_chain:
+                    blocks.append(blk)
+                else:
+                    model.add(blk)
             else:
                 model.add(bottleneck(nin, nmid, stride, 4, shortcut_type,
                                      zero_init_residual, fmt))

@@ -280,6 +280,26 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``flash_chunk_attention`` against the plain versions at phase 2's
    tolerances. It prints each run's step ms: (a) against (a0) is the
    cost of observability, (b) against (a) the fault policy's snapshot.
+16. drives the image input pipeline into ResNet-50's three fused arms,
+   the counterpart of ``examples/imagenet_folder_train.py`` at its
+   defaults: (a) a folder of 4 classes of 128 JPEGs at 256x256, written
+   with the port's ``encode_jpeg``, through ``JpegFolderPrefetcher(
+   out="bf16_nhwc", augment=True, stage_to_device=True)`` (pinned slots,
+   non-blocking copies, a CUDA event a slot) into the bf16 recipe at
+   B256/224 (SGD(0.05, momentum=0.9)) under ``fused="xla"`` (no kernel),
+   ``fused="pallas"`` chained (24 K3 and 12 K5 a step, forward and
+   backward) and ``fused_chain=False`` (36 K3, no K5), printing per arm
+   the step ms, images/s, peak memory, the host's decode images/s and the
+   share of the step spent in ``pf_next``; without libjpeg in the native
+   build it says so on its own line and feeds the arms from
+   ``NativePrefetcher`` over raw uint8 arrays; (b) the three arms on one
+   float32 batch, TF32 off, with the same weights carried across their
+   layouts, against the ``"xla"`` arm; (c) ``ImageNetDataSet(train=False)``
+   over a validation folder into the chained model with ``fused_conv2``
+   (K3 / K4 / K5 without statistics), LeNet-5 and ResNetCifar-20 trained
+   through ``LocalOptimizer`` from ``NativePrefetcher`` over the MNIST /
+   CIFAR ``synthetic`` arrays, and ``read_tfrecords_native`` against the
+   Python reader.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -313,7 +333,8 @@ with its launches (K4's with those of phase 7's float32 step, and its
 CUDA-core route's row beside it; each with phase 12's launches added;
 phase 15's K1 launches on the ``_f32`` rows and its flash entries' on
 their routes' rows, its ``predict_class`` launches on the ``_eval``
-rows);
+rows; phase 16's bf16 K3 / K5 launches on the bf16 rows, its float32
+ones on the ``_f32`` rows and its validation's on the ``_eval`` rows);
 the flash, K3, K4 and K5 rows carry their
 ``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -4691,6 +4712,471 @@ def loop_remainder(torch, K, card, dev="cuda", tmp=None):
     return r15
 
 
+
+# -- phase 16: the image input pipeline and ResNet-50's three fused arms ----------
+
+# the sizes of phase 16 (a CPU rehearsal shrinks them): the example's
+# defaults (examples/imagenet_folder_train.py: B256 at 224 from 256x256
+# JPEGs, its mean / std, lr 0.05), the folder (classes x per_class), the
+# measured steps of each arm, the arm-agreement batch, the validation
+# folder and batch, and the small loaders' sizes
+IMG16 = dict(B=256, S=224, src=256, classes=4, per_class=128, steps=4,
+             agree_B=8, val_per_class=16, val_B=32, mnist_n=4096,
+             mnist_B=128, mnist_iters=24, cifar_n=2048, cifar_B=128,
+             cifar_iters=8, tfr_n=2000)
+IMG_MEAN, IMG_STD = (124.0, 117.0, 104.0), (59.0, 57.0, 57.0)
+# the three arms on one float32 batch (TF32 off, zero_init_residual off:
+# with BN3's gamma at 0 every junction sits on the ReLU's kink, where
+# K5's VJP passes no gradient and the written-out junction's max(u, 0)
+# half), against the xla arm: the largest error over the largest value,
+# the training gradients as the norm of all differences over the norm of
+# all gradients. Training-mode gradients through the batch statistics are
+# ill-conditioned: the port's own float32 and float64 runs of the xla arm
+# on these inputs differ by a few percent in that norm and by up to a
+# fifth on single stage-3 leaves, in evaluation mode by two orders of
+# magnitude less (tools/torch_resnet_f32_spread.py, on the CPU)
+AGREE_TOL = {"train_logits": 1e-3, "train_state": 1e-3, "train_grads": 0.1,
+             "eval_logits": 1e-4, "eval_grads": 2e-2}
+# the K3 / K5 launches of a training step of each arm (forwards; as many
+# backwards)
+ARM_LAUNCHES = {"xla": (0, 0), "pallas": (24, 12), "pallas_unchained": (36, 0)}
+
+
+def _image_folder(root, classes, per_class, size, seed):
+    """``root/c<k>/<i>.jpg``: per class a base colour with a bright bar at
+    a class-dependent place, plus noise, written with the port's JPEG
+    encoder. Returns ``scan_folder``'s (paths, labels, classes)."""
+    from bigdl_tpu_torch.dataset.imagenet import scan_folder
+    from bigdl_tpu_torch.native import encode_jpeg
+    rng = np.random.RandomState(seed)
+    for c in range(classes):
+        d = os.path.join(root, f"c{c}")
+        os.makedirs(d)
+        base = np.zeros((size, size, 3), np.float32)
+        base[:] = 40 + 50 * c
+        lo = c * size // classes
+        base[lo:lo + size // (2 * classes), :, c % 3] = 230
+        for i in range(per_class):
+            img = np.clip(base + rng.randn(size, size, 3) * 20, 0, 255)
+            with open(os.path.join(d, f"{i:04d}.jpg"), "wb") as f:
+                f.write(encode_jpeg(img.astype(np.uint8), 90))
+    return scan_folder(root)
+
+
+def _relayout(torch, src, dst):
+    """``dst`` with ``src``'s weights and statistics: the arms' layouts
+    (chained or not) list the same tensors in the same order."""
+    a, b = src.state_dict(), dst.state_dict()
+    check([tuple(v.shape) for v in a.values()]
+          == [tuple(v.shape) for v in b.values()], "arm layouts differ")
+    dst.load_state_dict(dict(zip(b, a.values())))
+    return dst
+
+
+def _arm(fused, chain, **kw):
+    from bigdl_tpu_torch.models import ResNet
+    return ResNet(format="NHWC", fused=fused, fused_chain=chain, **kw)
+
+
+def image_pipeline(torch, K, card, dev="cuda", tmp=None):
+    """Phase 16: the port's image input pipeline into ResNet-50's three
+    fused arms, the counterpart of ``examples/imagenet_folder_train.py``
+    at its defaults: (a) an image folder written with ``encode_jpeg`` (4
+    classes of 128 JPEGs at 256x256) through
+    ``JpegFolderPrefetcher(out="bf16_nhwc", augment=True,
+    stage_to_device=True)`` into the bf16 recipe (float32 masters,
+    ``bf16_params``, SGD(0.05, momentum=0.9)) at B256/224 under
+    ``fused="xla"``, ``fused="pallas"`` chained and unchained: per arm the
+    step ms, images/s, peak memory, the host's decode images/s, the share
+    of the step spent in ``pf_next`` and the K3 / K4 / K5 launches a step
+    (24 K3 + 12 K5 chained, 36 + 0 unchained, none for ``"xla"``, each
+    forward and backward); without libjpeg in the native build it says so
+    and feeds the arms from ``NativePrefetcher`` over raw uint8 arrays;
+    (b) the three arms on one float32 batch (TF32 off) with the same
+    weights: logits and every parameter gradient against the ``"xla"``
+    arm's; (c) ``ImageNetDataSet(train=False)``'s Python pipeline into the
+    evaluation of the chained model with ``fused_conv2`` (K3 / K4 / K5 on
+    their no-statistics path) against the ``"xla"`` arm's logits,
+    ``NativePrefetcher`` over MNIST / CIFAR ``synthetic`` arrays training
+    LeNet-5 and ResNetCifar-20 through ``LocalOptimizer``, and
+    ``read_tfrecords_native`` against the Python reader."""
+    import shutil
+    import tempfile
+    import bigdl_tpu_torch.observability as obs
+    from bigdl_tpu_torch import native, nn
+    from bigdl_tpu_torch.convert import flatten, unflatten
+    from bigdl_tpu_torch.dataset import cifar, mnist, tfrecord
+    from bigdl_tpu_torch.dataset.imagenet import ImageNetDataSet
+    from bigdl_tpu_torch.models import LeNet5, ResNetCifar
+    from bigdl_tpu_torch.nn.module import assign_state
+    from bigdl_tpu_torch.optim import (SGD, LocalOptimizer, Trigger,
+                                       max_iteration)
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    t16 = time.perf_counter()
+    on_card = dev == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = IMG16
+    B, S = cfg["B"], cfg["S"]
+    root = tempfile.mkdtemp(prefix="phase16_", dir=tmp)
+    r16 = {"launches": {"bf16": dict.fromkeys(K.WRAPPERS, 0),
+                        "f32": dict.fromkeys(K.WRAPPERS, 0),
+                        "eval": dict.fromkeys(K.WRAPPERS, 0)}}
+
+    def add(kind, counts):
+        for n, v in counts.items():
+            r16["launches"][kind][n] += v
+
+    # -- (a) the folder, the prefetcher, the three arms ----------------------
+    jpeg = native.jpeg_available()
+    workers = min(16, max(4, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    if jpeg:
+        paths, labels, classes = _image_folder(
+            os.path.join(root, "train"), cfg["classes"], cfg["per_class"],
+            cfg["src"], 0)
+        pf = native.JpegFolderPrefetcher(
+            paths, labels, S, S, IMG_MEAN, IMG_STD, batch_size=B,
+            n_workers=workers, queue_capacity=4, out="bf16_nhwc",
+            augment=True, stage_to_device=True, device=dev)
+        what = (f"{len(paths)} JPEGs ({cfg['classes']} classes, "
+                f"{cfg['src']}x{cfg['src']}) through JpegFolderPrefetcher "
+                f"(bf16 NHWC, augmented, pinned staging), {workers} workers")
+    else:
+        n = cfg["classes"] * cfg["per_class"]
+        rng = np.random.RandomState(0)
+        raw = rng.randint(0, 256, size=(n, 3, S, S)).astype(np.uint8)
+        raw_labels = rng.randint(1, cfg["classes"] + 1, size=n)
+        pf = native.NativePrefetcher(
+            raw, raw_labels, IMG_MEAN, IMG_STD, batch_size=B,
+            n_workers=workers, queue_capacity=4, stage_to_device=True,
+            device=dev)
+        print("[16] (a) the native library was built WITHOUT libjpeg on this "
+              "machine: no JPEG is decoded; the arms are fed from "
+              "NativePrefetcher over raw uint8 arrays (float32 CHW, cast to "
+              "bf16 NHWC on the card)", flush=True)
+        what = (f"{n} raw uint8 images through NativePrefetcher (float32 "
+                f"CHW, pinned staging), {workers} workers")
+    write_s = time.perf_counter() - t0
+    bpe = pf.batches_per_epoch()
+    check(bpe >= 2, f"[16] (a) {bpe} batches an epoch, want at least 2")
+    print(f"[16] the image pipeline and ResNet-50's fused arms ({card}): "
+          f"{what}; data written in {write_s:.1f} s, {bpe} batches an "
+          f"epoch", flush=True)
+
+    def batches():
+        """(x bf16 NHWC, y int64) on the device for every step, epochs
+        looped in one worker run."""
+        for mb in pf.data(train=True, loop_epochs=
+                          (cfg["steps"] + 1) // bpe + 1):
+            x, y = mb.get_input(), mb.get_target()
+            check(x.device.type == torch.device(dev).type,
+                  f"[16] (a) a staged batch on {x.device}")
+            if not jpeg:                        # float32 CHW
+                x = x.permute(0, 2, 3, 1).to(torch.bfloat16)
+            yield x, y.long()
+
+    def decode_rate():
+        """Images a second through the host pipeline alone (one epoch,
+        decode and staging, no model)."""
+        sync()
+        t0 = time.perf_counter()
+        n = 0
+        for mb in pf.data(train=True):
+            n += len(mb.get_target())
+        sync()
+        return n / (time.perf_counter() - t0)
+
+    obs.enable()
+    wait = obs.histogram("dataset/native_next_wait_s", unit="s")
+    crit = nn.CrossEntropyCriterion()
+    arms = (("xla", "xla", True), ("pallas", "pallas", True),
+            ("pallas_unchained", "pallas", False))
+    fused = ("fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
+             "fused_chain_bwd", "fused_conv_fwd")
+    trained = {}
+    for name, arm_fused, chain in arms:
+        model = _arm(arm_fused, chain, class_num=cfg["classes"], device=dev,
+                     seed=0)
+        params, mstate = model.params, model.state
+        leaves = flatten(params)
+        optim = SGD(learningrate=0.05, momentum=0.9)
+        opt_state = optim.init_state(params)
+        k3, k5 = ARM_LAUNCHES[name]
+        want = dict.fromkeys(K.WRAPPERS, 0)
+        want.update(fused_matmul_fwd=k3, fused_matmul_bwd=k3,
+                    fused_chain_fwd=k5, fused_chain_bwd=k5)
+        rate = decode_rate()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        losses, times, waits, per_step = [], [], [], None
+        it = batches()
+        for i in range(cfg["steps"] + 1):
+            sync()
+            K.reset_launch_counts()
+            w0 = wait.total
+            t0 = time.perf_counter()
+            x, y = next(it)
+            out, new_state = model.apply(bf16_params(params), mstate, x,
+                                         training=True)
+            loss = crit._forward(out.float(), y)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            optim.update(unflatten(dict(zip(leaves, grads))), params,
+                         opt_state, 0.05)
+            assign_state(mstate, new_state)
+            sync()
+            dt = time.perf_counter() - t0
+            counts = K.launch_counts()
+            losses.append(loss.item())
+            if on_card:
+                check(counts == want, f"[16] (a) {name} step launched "
+                      f"{counts}, expected {want}")
+                routes = K.launches_by_route()
+                check(all(only_on(routes[n], "bf16_sm90", want[n])
+                          for n in fused),
+                      f"[16] (a) {name} launches by route {routes}")
+            add("bf16", counts)
+            per_step = {"K3": counts["fused_matmul_fwd"],
+                        "K4": counts["fused_conv_fwd"],
+                        "K5": counts["fused_chain_fwd"]}
+            if i > 0:                           # step 0 is the warmup
+                times.append(dt)
+                waits.append(wait.total - w0)
+        it.close()
+        check(all(math.isfinite(v) for v in losses),
+              f"[16] (a) {name} losses {losses}")
+        step = statistics.median(times)
+        rec = {"losses": losses, "step_ms": step * 1e3,
+               "step_ms_all": [t * 1e3 for t in times],
+               "images_per_s": B / step, "decode_images_per_s": rate,
+               "wait_share": sum(waits) / sum(times),
+               "max_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                              if on_card else float("nan")),
+               "launches_a_step": per_step}
+        r16[name] = rec
+        print(f"[16] (a) {name}: losses {[round(v, 4) for v in losses]}; "
+              f"step {rec['step_ms']:.1f} ms (median of {len(times)}; all "
+              f"{[round(t, 1) for t in rec['step_ms_all']]}) = "
+              f"{rec['images_per_s']:.1f} images/s; peak memory "
+              f"{rec['max_mem_gb']:.2f} GiB; host decode "
+              f"{rate:.1f} images/s; waiting in pf_next "
+              f"{rec['wait_share']:.1%} of the step; launches a step "
+              f"(forward, as many backward) {per_step}", flush=True)
+        trained[name] = {k: v.detach().clone()
+                         for k, v in model.state_dict().items()}
+        del model, params, mstate, leaves, opt_state, grads, out
+        if on_card:
+            torch.cuda.empty_cache()
+    obs.disable()
+    del pf
+
+    # -- (b) the three arms on one float32 batch ------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(16)
+    xb = torch.from_numpy(rng.randn(cfg["agree_B"], S, S, 3).astype(
+        np.float32)).to(dev)
+    yb = torch.from_numpy(rng.randint(1, 1001, size=cfg["agree_B"])).to(dev)
+    ref_model = _arm("xla", True, zero_init_residual=False, device=dev,
+                     seed=5)
+    agree = {}
+    for name, arm_fused, chain in arms:
+        model = _relayout(torch, ref_model, _arm(
+            arm_fused, chain, zero_init_residual=False, device=dev, seed=0))
+        params = model.params
+        leaves = flatten(params)
+        k3, k5 = ARM_LAUNCHES[name]
+        got = {}
+        for training in (True, False):
+            sync()
+            K.reset_launch_counts()
+            out, ns = model.apply(params, model.state, xb, training=training)
+            loss = crit._forward(out, yb)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            sync()
+            counts = K.launch_counts()
+            if on_card:
+                check(counts["fused_matmul_fwd"] == counts["fused_matmul_bwd"]
+                      == k3 and counts["fused_chain_fwd"] == k5
+                      and counts["fused_chain_bwd"] == k5,
+                      f"[16] (b) {name} launched {counts}")
+            # training forwards with sums on the _f32 rows, evaluation
+            # forwards (no sums) on the _eval rows, every backward on _f32
+            add("f32", counts if training else {
+                n: v for n, v in counts.items() if n.endswith("_bwd")})
+            if not training:
+                add("eval", {n: v for n, v in counts.items()
+                             if n.endswith("_fwd")})
+            got[training] = (out.detach(), [g.detach() for g in grads],
+                             [v.detach() for v in flatten(ns).values()])
+        agree[name] = got
+        del model, params, leaves
+    del ref_model
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+
+    def norm_rel(a, b):     # over all the gradients at once
+        num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+        return math.sqrt(num / sum(float((y ** 2).sum()) for y in b))
+    r16["agree"] = {}
+    for name in ("pallas", "pallas_unchained"):
+        (to, tg, ts), (eo, eg, _) = agree[name][True], agree[name][False]
+        (rto, rtg, rts), (reo, reg, _) = agree["xla"][True], \
+            agree["xla"][False]
+        errs = {"train_logits": rel(to, rto),
+                "train_state": max(rel(a, b) for a, b in zip(ts, rts)),
+                "train_grads": norm_rel(tg, rtg),
+                "eval_logits": rel(eo, reo),
+                "eval_grads": max(rel(a, b) for a, b in zip(eg, reg))}
+        r16["agree"][name] = errs
+        for what, tol in AGREE_TOL.items():
+            check(errs[what] <= tol, f"[16] (b) {name} against xla: {what} "
+                  f"{errs[what]} > {tol}")
+    print(f"[16] (b) the three arms on one float32 B{cfg['agree_B']}/{S} "
+          f"batch, TF32 off, the same weights, against fused='xla' "
+          f"(largest error over the largest value; training gradients: the "
+          f"norm of all the differences over the norm of all the "
+          f"gradients): {r16['agree']} (limits {AGREE_TOL})", flush=True)
+    del agree
+
+    # -- (c) validation through ImageNetDataSet's Python pipeline ------------
+    val = os.path.join(root, "val")
+    if jpeg:
+        _image_folder(val, cfg["classes"], cfg["val_per_class"], cfg["src"],
+                      1)
+    vds = ImageNetDataSet(val if jpeg else None, cfg["val_B"], train=False,
+                          crop_size=S, n_synthetic=cfg["classes"]
+                          * cfg["val_per_class"])
+    source = ("the folder, decoded by the native libjpeg codec"
+              if vds.paths is not None else "the synthetic stand-in (no "
+              "decoder on this machine)")
+    chained = _arm("pallas", True, fused_conv2=True,
+                   class_num=cfg["classes"], device=dev, seed=0)
+    chained.load_state_dict(trained["pallas"])
+    plain = _relayout(torch, chained, _arm("xla", True,
+                                           class_num=cfg["classes"],
+                                           device=dev, seed=0))
+    t0 = time.perf_counter()
+    correct = seen = 0
+    verr = 0.0
+    evals = dict.fromkeys(K.WRAPPERS, 0)
+    with torch.no_grad():
+        for mb in vds.data(train=False):
+            x = torch.from_numpy(mb.get_input()).permute(0, 2, 3, 1) \
+                .contiguous().to(dev)
+            y = torch.from_numpy(mb.get_target()).to(dev)
+            sync()
+            K.reset_launch_counts()
+            out, _ = chained.apply(chained.params, chained.state, x)
+            sync()
+            counts = K.launch_counts()
+            if on_card:
+                check(counts["fused_matmul_fwd"] == 24
+                      and counts["fused_chain_fwd"] == 12
+                      and counts["fused_conv_fwd"] == 16
+                      and counts["fused_matmul_bwd"] == 0,
+                      f"[16] (c) evaluation launched {counts}")
+                routes = K.launches_by_route()
+                check(only_on(routes["fused_matmul_fwd"], "f32_sm90", 24),
+                      f"[16] (c) evaluation routes {routes}")
+            for n, v in counts.items():
+                evals[n] += v
+            want, _ = plain.apply(plain.params, plain.state, x)
+            verr = max(verr, rel(out, want))
+            correct += int((out.argmax(1) + 1 == y.long()).sum())
+            seen += len(y)
+    add("eval", evals)
+    check(seen == vds.batches_per_epoch() * cfg["val_B"] and
+          verr <= AGREE_TOL["eval_logits"],
+          f"[16] (c) validation: {seen} images, logits against xla {verr}")
+    r16["val"] = {"images": seen, "top1": correct / seen, "err": verr,
+                  "s": time.perf_counter() - t0, "launches": evals}
+    print(f"[16] (c) validation of the chained model (fused_conv2, float32) "
+          f"on {seen} images of {source} through ImageNetDataSet(train="
+          f"False): top-1 {correct / seen:.3f}, logits within {verr:.2e} of "
+          f"the xla arm's, {r16['val']['s']:.2f} s; launches {evals}",
+          flush=True)
+    del chained, plain, trained
+
+    # LeNet-5 and ResNetCifar-20 fed by NativePrefetcher (the counterparts
+    # of examples/lenet_mnist.py and resnet_cifar10.py)
+    small = {}
+    for name, (imgs, labels), mean, std, make, crit_s, method, bs, iters in (
+            ("lenet5", mnist.synthetic(cfg["mnist_n"]), [mnist.TRAIN_MEAN],
+             [mnist.TRAIN_STD], lambda: LeNet5(10, device=dev, seed=1),
+             nn.ClassNLLCriterion(),
+             SGD(learningrate=0.05, learningrate_decay=0.0002),
+             cfg["mnist_B"], cfg["mnist_iters"]),
+            ("resnet_cifar20", cifar.synthetic(cfg["cifar_n"]),
+             cifar.TRAIN_MEAN, cifar.TRAIN_STD,
+             lambda: ResNetCifar(10, 20, device=dev, seed=1),
+             nn.CrossEntropyCriterion(),
+             SGD(learningrate=0.1, momentum=0.9, weightdecay=1e-4,
+                 nesterov=True), cfg["cifar_B"], cfg["cifar_iters"])):
+        spf = native.NativePrefetcher(imgs, labels, mean, std,
+                                      batch_size=bs, n_workers=workers,
+                                      stage_to_device=name != "lenet5",
+                                      device=dev)
+        seen_losses = []
+        stop = max_iteration(iters)
+        end = Trigger(lambda st: seen_losses.append(st["loss"]) or stop(st))
+        opt = LocalOptimizer(make(), spf, crit_s, method, end, bs,
+                             device=dev)
+        sync()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        sync()
+        wall = time.perf_counter() - t0
+        check(set(K.launch_counts().values()) == {0},
+              f"[16] (c) {name} launched a port kernel")
+        check(len(seen_losses) == iters
+              and all(math.isfinite(v) for v in seen_losses),
+              f"[16] (c) {name} losses {seen_losses}")
+        if name == "lenet5":
+            check(seen_losses[-1] < seen_losses[0],
+                  f"[16] (c) LeNet-5's loss did not fall: {seen_losses}")
+        small[name] = {"losses": seen_losses, "s": wall,
+                       "images_per_s": iters * bs / wall}
+        print(f"[16] (c) {name} from NativePrefetcher "
+              f"({'pinned staging' if name != 'lenet5' else 'host batches'}"
+              f"), B{bs}, {iters} iterations: losses "
+              f"{[round(v, 3) for v in seen_losses[::max(1, iters // 6)]]}"
+              f"...{seen_losses[-1]:.3f}; {wall:.2f} s = "
+              f"{small[name]['images_per_s']:.0f} images/s (with the first "
+              f"step)", flush=True)
+    r16["small"] = small
+
+    # TFRecord: the C++ reader against the Python one
+    rng = np.random.RandomState(7)
+    recs = [tfrecord.make_example({"features": rng.rand(64).astype(
+        np.float32), "label": np.array([i % 10 + 1])})
+        for i in range(cfg["tfr_n"])]
+    tp = os.path.join(root, "data.tfrecord")
+    tfrecord.write_tfrecords(tp, recs)
+    t0 = time.perf_counter()
+    got = native.read_tfrecords_native(tp)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = list(tfrecord.read_tfrecords(tp, use_native=False))
+    t_py = time.perf_counter() - t0
+    check(got == want == recs, "[16] (c) read_tfrecords_native differs "
+          "from the Python reader")
+    mb = os.path.getsize(tp) / 1e6
+    print(f"[16] (c) TFRecord: {len(got)} records ({mb:.2f} MB), the C++ "
+          f"reader equal to the Python one; {mb / t_native:.0f} against "
+          f"{mb / t_py:.1f} MB/s", flush=True)
+    shutil.rmtree(root)
+    r16["phase_s"] = time.perf_counter() - t16
+    print(f"[16] phase 16: {r16['phase_s']:.1f} s; launches: bf16 "
+          f"{ {n: v for n, v in r16['launches']['bf16'].items() if v} }, "
+          f"float32 { {n: v for n, v in r16['launches']['f32'].items() if v} }"
+          f", evaluation "
+          f"{ {n: v for n, v in r16['launches']['eval'].items() if v} }",
+          flush=True)
+    return r16
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5226,6 +5712,9 @@ def main():
     seq_zoo(torch, K, card)
     # -- phase 15: the training loop's remainder and module I/O ---------------
     r15 = loop_remainder(torch, K, card)
+    # -- phase 16: the image input pipeline and ResNet-50's fused arms --------
+    r16 = image_pipeline(torch, K, card)
+    l16 = r16["launches"]
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -5416,53 +5905,58 @@ def main():
                    "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:688",
                    dict(k3_s0["fwd"], max_abs_err=k3_s0["max_abs_err"],
-                        route=k3_s0["route"]), off["fused_matmul_fwd"]),
+                        route=k3_s0["route"]),
+                   off["fused_matmul_fwd"] + l16["bf16"]["fused_matmul_fwd"]),
         kernel_rec("fused_matmul", "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:344",
                    dict(k3_s3["fwd"], max_abs_err=k3_s3["max_abs_err"],
-                        route=k3_s3["route"]), off["fused_matmul_fwd"]),
+                        route=k3_s3["route"]),
+                   off["fused_matmul_fwd"] + l16["bf16"]["fused_matmul_fwd"]),
         kernel_rec("fused_matmul_bwd",
                    "bigdl_tpu_torch/csrc/fused_matmul_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:580",
                    dict(k3_s0["bwd"], max_abs_err=k3_s0["max_abs_err"],
-                        route=k3_s0["route"]), off["fused_matmul_bwd"]),
+                        route=k3_s0["route"]),
+                   off["fused_matmul_bwd"] + l16["bf16"]["fused_matmul_bwd"]),
         kernel_rec("fused_matmul_f32",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:344",
                    dict(k3_f32["fwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_fwd"]["f32_sm90"]
-                   + l12["fused_matmul_fwd"]),
+                   + l12["fused_matmul_fwd"] + l16["f32"]["fused_matmul_fwd"]),
         kernel_rec("fused_matmul_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:229",
                    dict(k3_f32["bwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_bwd"]["f32_sm90"]
-                   + l12["fused_matmul_bwd"]),
+                   + l12["fused_matmul_bwd"] + l16["f32"]["fused_matmul_bwd"]),
         kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"],
-                        route=k5_s0["route"]), off["fused_chain_fwd"]),
+                        route=k5_s0["route"]),
+                   off["fused_chain_fwd"] + l16["bf16"]["fused_chain_fwd"]),
         kernel_rec("fused_chain_bwd",
                    "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_s0["bwd"], max_abs_err=k5_s0["max_abs_err"],
-                        route=k5_s0["route"]), off["fused_chain_bwd"]),
+                        route=k5_s0["route"]),
+                   off["fused_chain_bwd"] + l16["bf16"]["fused_chain_bwd"]),
         kernel_rec("fused_chain_f32",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_f32["fwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
                    r8["routes"]["fused_chain_fwd"]["f32_sm90"]
-                   + l12["fused_chain_fwd"]),
+                   + l12["fused_chain_fwd"] + l16["f32"]["fused_chain_fwd"]),
         kernel_rec("fused_chain_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_f32["bwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
                    r8["routes"]["fused_chain_bwd"]["f32_sm90"]
-                   + l12["fused_chain_bwd"]),
+                   + l12["fused_chain_bwd"] + l16["f32"]["fused_chain_bwd"]),
         kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),
@@ -5483,17 +5977,20 @@ def main():
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:688", r10["eval"]["K3"],
                    r10["d"]["launches"]["fused_matmul_fwd"]
-                   + r15["predict_class"]["fused_matmul_fwd"]),
+                   + r15["predict_class"]["fused_matmul_fwd"]
+                   + l16["eval"]["fused_matmul_fwd"]),
         kernel_rec("fused_conv_eval",
                    "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", r10["eval"]["K4"],
                    r10["d"]["launches"]["fused_conv_fwd"]
-                   + r15["predict_class"]["fused_conv_fwd"]),
+                   + r15["predict_class"]["fused_conv_fwd"]
+                   + l16["eval"]["fused_conv_fwd"]),
         kernel_rec("fused_chain_eval",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318", r10["eval"]["K5"],
                    r10["d"]["launches"]["fused_chain_fwd"]
-                   + r15["predict_class"]["fused_chain_fwd"]),
+                   + r15["predict_class"]["fused_chain_fwd"]
+                   + l16["eval"]["fused_chain_fwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -278,13 +278,18 @@ def test_resnet50_factory_layout_and_unported_arms(monkeypatch):
     assert sum(int(b.bn3.weight.abs().sum()) for c in chains
                for b in c.blocks) == 0          # zero_init_residual
     # the plain arms, the space-to-depth stem and the fast pool are
-    # ported; the XLA-fused arm is not, and the fused arm is NHWC only
+    # ported, and so is the XLA-fused arm, whose 3x3 convs never go
+    # through K4; the fused arms are NHWC only
     for kw in (dict(format="NHWC"),
                dict(format="NHWC", fused="pallas", stem="s2d"),
                dict(format="NHWC", fused="pallas", pool_grad="fast")):
         ResNet50(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ResNet50(device="cpu", format="NHWC", fused="xla")
+    xla = ResNet50(device="cpu", format="NHWC", fused="xla")
+    assert {b.kernel for c in xla.modules()
+            if isinstance(c, FusedBottleneckChain) for b in c.blocks} \
+        == {"xla"}
+    with pytest.raises(ValueError, match="fused='pallas'"):
+        ResNet50(device="cpu", format="NHWC", fused="xla", fused_conv2=True)
     with pytest.raises(ValueError, match="NHWC"):
         ResNet50(device="cpu", format="NCHW", fused="pallas")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -338,7 +338,11 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "'parallel.chaos', 'parallel.failure', 'optim.staging', "
             "'serving.engine', 'serving.router', 'utils.table', "
             "'optim.validation', 'optim.evaluator', 'optim.regularizer', "
-            "'parallel.elastic'):\n"
+            "'parallel.elastic', 'native', 'transform', "
+            "'transform.vision', 'transform.vision.image', "
+            "'transform.image_frame', 'transform._vision_impl', "
+            "'dataset.base', 'dataset.imagenet', 'dataset.mnist', "
+            "'dataset.cifar', 'dataset.tfrecord'):\n"
             "    assert 'bigdl_tpu_torch.' + want in names, want\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bigdl_tpu' or "

@@ -39,8 +39,10 @@ torch.set_num_threads(1)
 MOD_TOL = dict(atol=1e-5, rtol=1e-5)     # float32 modules, as elsewhere
 
 PORT_ADDITIONS = {"device", "generator", "seed"}
-# JAX's BIGDL_TPU_FUSED_CONV2 environment switch as a keyword
-PORT_SWITCHES = {("ResNet", "fused_conv2"), ("FusedBottleneck", "fused_conv2")}
+# JAX's BIGDL_TPU_FUSED_CONV2 and BIGDL_TPU_FUSED_CHAIN environment
+# switches as keywords
+PORT_SWITCHES = {("ResNet", "fused_conv2"), ("FusedBottleneck", "fused_conv2"),
+                 ("ResNet", "fused_chain")}
 
 
 def _twin(obj, name, package):
@@ -384,7 +386,10 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "dataset.sentence", "dataset.news20", "dataset.dataset",
             "dataset.transformer", "kernels.flash_attention",
             "kernels.paged_attention", "nn.module", "optim.optimizer",
-            "parallel.flash", "utils.engine"]
+            "parallel.flash", "utils.engine", "native",
+            "transform._vision_impl", "transform.image_frame",
+            "transform.vision", "dataset.base", "dataset.imagenet",
+            "dataset.mnist", "dataset.cifar", "dataset.tfrecord"]
 
 
 @pytest.mark.parametrize("mod", MIRRORED)

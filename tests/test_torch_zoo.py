@@ -221,8 +221,12 @@ def test_resnet_factory_arms():
     m = models.ResNetCifar(10, 32, "C", device="cpu")
     assert len([c for c in m.modules() if isinstance(c, nn.ConcatTable)]) \
         == 15
-    with pytest.raises(NotImplementedError, match="not ported"):
-        models.ResNet50(format="NHWC", fused="xla", device="cpu")
+    assert isinstance(models.ResNet50(format="NHWC", fused="xla",
+                                      device="cpu")[4],
+                      models.FusedBottleneckChain)
+    with pytest.raises(ValueError, match="fused='pallas'"):
+        models.ResNet50(format="NHWC", fused="xla", fused_conv2=True,
+                        device="cpu")
     for kw in (dict(format="NCHW", fused="pallas"),
                dict(format="NCHW", stem="s2d"), dict(fused_conv2=True)):
         with pytest.raises(ValueError):
