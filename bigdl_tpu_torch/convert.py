@@ -16,7 +16,19 @@ The port's modules carry the JAX trees' names and layouts, so the flat
   ``running_var`` -> ``4.0.w1``, ``4.0.bn1.running_mean``,
   ``1.running_var``; unchained (``fused_chain=False``, JAX's
   ``BIGDL_TPU_FUSED_CHAIN=0``) the blocks sit at the Sequential's own
-  indices -> ``4.w1`` ... ``19.bn3.weight``, and the classifier at 22.
+  indices -> ``4.w1`` ... ``19.bn3.weight``, and the classifier at 22;
+* ``MoETransformerLM``: the Transformer's names, a MoE block's ``ffn``
+  holding ``router`` (D, E), ``w1`` (E, D, F) and ``w2`` (E, F, D) ->
+  ``block1.ffn.router``; its state tree is ``aux_loss`` alone;
+* ``Graph`` / ``StaticGraph`` / ``DynamicGraph``: each node's module
+  under ``str(mod_idx)``, its index in the graph's topological order ->
+  ``3.weight``;
+* the sparse layers: ``SparseLinear`` is ``Linear``'s ``weight`` (out,
+  in) / ``bias``, ``LookupTableSparse`` ``LookupTable``'s ``weight``;
+* ``NeuralCF``: ``0.{mf_user, mf_item, mlp_user, mlp_item}``,
+  ``1.mlp.{0, 2, ...}.{weight, bias}``, ``1.final``; ``WideAndDeep``:
+  ``0.{wide_user, wide_item, wide_cross, emb_user, emb_item}``,
+  ``1.deep.{0, 2, ...}``, ``1.deep_out``, ``1.bias`` (a scalar).
 
 Arrays arrive as numpy (``jax.tree_util.tree_map(np.asarray, tree)``) and
 leave as numpy (:func:`to_numpy_tree` of ``model.params`` and

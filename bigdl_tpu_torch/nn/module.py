@@ -74,6 +74,35 @@ from ..utils import engine
 from ..utils.table import Table
 
 
+class Node:
+    """A node of a computation DAG (the reference's ``utils/Node.scala``
+    with ``nn/Graph``), made by calling a module on other nodes: ``y =
+    Linear(3, 4)(x_node)``. ``mod_idx`` is the module's index in the
+    ``Graph`` that holds it (set by the graph; copies keep it)."""
+
+    __slots__ = ("module", "prevs", "name", "mod_idx")
+
+    def __init__(self, module, prevs, name=None):
+        self.module = module
+        self.prevs = list(prevs)
+        self.name = name or (module.name if module is not None else "input")
+        self.mod_idx = None
+
+    def __repr__(self):
+        return f"Node({self.name})"
+
+
+def _node_args(args):
+    """The nodes a call on nodes connects (one, several, or one list of
+    them, as in JAX), or None for a call on data."""
+    if args and all(isinstance(a, Node) for a in args):
+        return list(args)
+    if len(args) == 1 and isinstance(args[0], (list, tuple)) and args[0] \
+            and all(isinstance(a, Node) for a in args[0]):
+        return list(args[0])
+    return None
+
+
 class _TrainingFlag:
     __slots__ = ("_module",)
 
@@ -160,6 +189,17 @@ class Module(torch.nn.Module):
         ``(output, new_state)``. Stateless modules return the state they
         were given."""
         return self.call(params, x), state
+
+    def __call__(self, *args):
+        """On nodes, a new graph node of this module; on data, torch's
+        call (its hooks, then :meth:`forward`), several arguments as one
+        ``Table``."""
+        prevs = _node_args(args)
+        if prevs is not None:
+            return Node(self, prevs)
+        if len(args) == 1:
+            return super().__call__(args[0])
+        return super().__call__(Table(*args))
 
     def forward(self, x):
         state = self.state
@@ -484,10 +524,15 @@ def _first_tensor(x):
 
 
 def _tensor_leaves(x):
-    """The tensors of x (a tensor, or a Table / list / tuple of them,
-    nested), depth first."""
+    """The tensors of x (a tensor, an object with ``_leaves()`` such as
+    ``nn.sparse.SparseTensor``, or a Table / list / tuple of them,
+    nested), depth first; other values hold none."""
     if torch.is_tensor(x):
         return [x]
+    if hasattr(x, "_leaves"):
+        return list(x._leaves())
+    if not isinstance(x, (Table, list, tuple)):
+        return []           # no tensor in it (a sentinel, a number)
     return [t for item in x for t in _tensor_leaves(item)]
 
 
@@ -495,6 +540,10 @@ def _rebuild(x, leaves):
     """x's structure with its tensors taken in order from ``leaves``."""
     if torch.is_tensor(x):
         return next(leaves)
+    if hasattr(x, "_leaves"):
+        return x._with_leaves(leaves)
+    if not isinstance(x, (Table, list, tuple)):
+        return x
     items = [_rebuild(item, leaves) for item in x]
     return Table(*items) if isinstance(x, Table) else type(x)(items)
 
@@ -616,4 +665,5 @@ class Criterion:
         return self.grad_input
 
 
-__all__ = ["Module", "Container", "Criterion", "copy_tree_into", "assign_state"]
+__all__ = ["Module", "Container", "Criterion", "Node", "copy_tree_into",
+           "assign_state"]

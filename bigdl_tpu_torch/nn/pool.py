@@ -14,7 +14,8 @@ padding gives the same windows (floor mode, pad <= k / 2), it pads.
 its first maximum, as XLA's select_and_scatter does; ``'fast'`` is the
 JAX package's max-tree of strided slices, whose ``jnp.maximum`` ties split
 the gradient in half at each level (``torch.maximum`` splits them the same
-way). ``RoiPooling`` is not ported.
+way). ``RoiPooling`` takes each bin's maximum over its columns, then its
+rows, in masked reductions over a chunk of rois at a time.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from .module import Module
 
 __all__ = ["SpatialMaxPooling", "SpatialAveragePooling",
            "TemporalMaxPooling", "VolumetricMaxPooling",
-           "VolumetricAveragePooling"]
+           "VolumetricAveragePooling", "RoiPooling"]
 
 
 def _pool_pads(size, k, stride, pad, ceil_mode):
@@ -268,3 +269,65 @@ class VolumetricAveragePooling(VolumetricMaxPooling):
     def _pool(self, x):
         k, s, pads = self._window(x)
         return _average(x, k, s, pads, self.count_include_pad)
+
+
+_ROI_CHUNK = 32     # rois a masked reduction (bounds its temporaries)
+
+
+class RoiPooling(Module):
+    """ROI max pooling (nn/RoiPooling.scala): input Table(features NCHW,
+    rois (R, 5) [batchIdx, x1, y1, x2, y2] in input pixels) -> (R, C,
+    pooled_h, pooled_w). A roi's corners are rounded after scaling by
+    ``spatial_scale``; bin (ph, pw) covers rows floor(y1 + ph rh / PH) to
+    ceil(y1 + (ph + 1) rh / PH) and the like for columns (at least one
+    each), and an empty bin (outside the map) gives 0. The maximum over a
+    bin's rectangle is taken over its columns, then its rows (one masked
+    reduction each), 32 rois at a time."""
+
+    def __init__(self, pooled_w: int, pooled_h: int,
+                 spatial_scale: float = 1.0, name=None):
+        super().__init__(name=name)
+        self.pooled_w, self.pooled_h = pooled_w, pooled_h
+        self.spatial_scale = spatial_scale
+
+    def _bins(self, lo, size, n, extent, device):
+        """(R, n, extent) bool: which of ``extent`` positions each of the
+        ``n`` bins over [lo, lo + size) covers."""
+        p = torch.arange(n, device=device, dtype=torch.float32)
+        # divided by a tensor: CUDA divides by a Python number through its
+        # reciprocal, which can move a bin edge across an integer
+        nt = torch.full((len(lo), n), float(n), device=device)
+        start = torch.floor(lo[:, None] + p * size[:, None] / nt)
+        end = torch.ceil(lo[:, None] + (p + 1) * size[:, None] / nt)
+        end = torch.maximum(end, start + 1)
+        pos = torch.arange(extent, device=device, dtype=torch.float32)
+        return (pos >= start[..., None]) & (pos < end[..., None])
+
+    def call(self, params, x):
+        feats, rois = x[1], x[2]
+        rois = rois.to(device=feats.device, dtype=torch.float32)
+        C, H, W = feats.shape[1:]
+        s = self.spatial_scale
+        x1, y1, x2, y2 = (torch.round(rois[:, i] * s) for i in (1, 2, 3, 4))
+        rw = torch.clamp(x2 - x1 + 1, min=1.0)
+        rh = torch.clamp(y2 - y1 + 1, min=1.0)
+        rows = self._bins(y1, rh, self.pooled_h, H, feats.device)
+        cols = self._bins(x1, rw, self.pooled_w, W, feats.device)
+        bi = rois[:, 0].to(torch.int64)
+        neg = torch.tensor(-math.inf, dtype=feats.dtype, device=feats.device)
+        outs = []
+        for a in range(0, rois.shape[0], _ROI_CHUNK):
+            b = slice(a, a + _ROI_CHUNK)
+            fm = feats[bi[b]]                               # (r, C, H, W)
+            cm = cols[b]                                    # (r, PW, W)
+            # max over each bin's columns: (r, C, H, PW)
+            colmax = torch.where(cm[:, None, None], fm[:, :, :, None, :],
+                                 neg).amax(-1)
+            rm = rows[b]                                    # (r, PH, H)
+            # then over its rows: (r, C, PH, PW)
+            m = torch.where(rm[:, None, :, :, None], colmax[:, :, None],
+                            neg).amax(3)
+            outs.append(torch.where(torch.isfinite(m), m, 0.0))
+        if not outs:
+            return feats.new_zeros((0, C, self.pooled_h, self.pooled_w))
+        return torch.cat(outs)

@@ -1,0 +1,4 @@
+from .directed_graph import DirectedGraph, Edge
+from .directed_graph import Node as GraphNode
+
+__all__ = ["DirectedGraph", "GraphNode", "Edge"]

@@ -300,13 +300,44 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    through ``LocalOptimizer`` from ``NativePrefetcher`` over the MNIST /
    CIFAR ``synthetic`` arrays, and ``read_tfrecords_native`` against the
    Python reader.
+17. drives the recommender and detection slice: (a) ``MoETransformerLM``
+   at ``bench_extra.py bench_moe_lm``'s width (vocab 32000, hidden 1024,
+   16 heads, filter 4096, 12 layers, 8 experts on every second block) at
+   B8/T1024 through its bf16 recipe (``bf16_params``,
+   ``hidden_states(training=True)``, ``lm_loss_chunked(chunk=128) + 0.01
+   aux``, SGD(0.01, momentum=0.9)), remat off and on, 2 warm-up and 5
+   timed steps each: step ms, tokens/s, peak memory, the K1 launches a
+   step by route (12 K1-fwd, 24 with remat, and 12 K1-bwd, all on
+   ``bf16_sm90``) and each MoE layer's dropped tokens and shared capacity
+   slots; the bf16 flash pair at its shape (8,16,1024,64) timed with SDPA
+   and its bound; (b) ``generate`` at batch 8, prompt 128, 32 new tokens
+   (12 K1-fwd launches), and the full-width model at depth 2 in float32
+   against the CPU at 1e-4; (c) ``top1_routing`` on seed-0 bf16 logits at
+   8192 tokens over 8 experts, card against CPU bit for bit (the bf16
+   queue positions share slots past 256 on both); (d) NeuralCF and
+   Wide&Deep at ``examples/ncf_movielens.py``'s widths on MovieLens'
+   synthetic stand-in at ML-1M's counts (its leave-one-out split runs in
+   a process of its own from the start of the run) through
+   ``LocalOptimizer`` (B256, Adam(0.02), BCECriterion, 300 steps over a
+   seeded sample of the training pairs), HitRatio@10 and NDCG@10 over
+   every user, step ms and samples/s, and one batch card against CPU; (e)
+   LeNet-5 as a ``Graph`` against its ``Sequential`` twin (bit for bit)
+   and against the CPU, and a ``DynamicGraph`` with ``Switch`` /
+   ``Merge`` down both branches; (f) SSD300-VOC's post-processing (six
+   ``PriorBox`` maps, 8732 priors, ``DetectionOutputSSD(21, nms_topk 400,
+   keep_topk 200)`` at B8) and Faster R-CNN VGG-16's test settings
+   (``Proposal(6000, 300)`` on a 38x50 map, ``RoiPooling(7, 7, 1/16)``
+   and ``RoiAlign`` over its rois of a (1, 512, 38, 50) map,
+   ``DetectionOutputFrcnn``), each card against CPU with the detections,
+   labels and scores equal, and ms a call.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
 run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
 its translation paths, each phase 12 run, each phase 13 and 14 model, each
-phase 15 run, ``predict_class`` and flash entry) and read just after; a
+phase 15 run, ``predict_class`` and flash entry, each phase 17 training
+step and ``generate``) and read just after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -334,22 +365,27 @@ CUDA-core route's row beside it; each with phase 12's launches added;
 phase 15's K1 launches on the ``_f32`` rows and its flash entries' on
 their routes' rows, its ``predict_class`` launches on the ``_eval``
 rows; phase 16's bf16 K3 / K5 launches on the bf16 rows, its float32
-ones on the ``_f32`` rows and its validation's on the ``_eval`` rows);
+ones on the ``_f32`` rows and its validation's on the ``_eval`` rows;
+``flash_fwd_moe`` / ``flash_bwd_moe`` at the MoE LM's shape with phase
+17's training launches, and its ``generate`` launches on ``flash_fwd``);
 the flash, K3, K4 and K5 rows carry their
 ``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
+import atexit
 import contextlib
 import json
 import math
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3937,7 +3973,8 @@ def _float_leaves(x):
     return [t for item in x for t in _float_leaves(item)]
 
 
-def module_card_vs_cpu(torch, name, make, inputs, dev="cuda"):
+def module_card_vs_cpu(torch, name, make, inputs, dev="cuda", tag="[14]",
+                       tol=SEQ_TOL):
     """One training-mode forward of ``make()`` (built on the CPU from
     torch's generator seeded 0) and the gradients of sum(sin(out / 2)) in
     its parameters and float inputs, on the card against the same module
@@ -3962,8 +3999,8 @@ def module_card_vs_cpu(torch, name, make, inputs, dev="cuda"):
                                  wrt)
         res[d] = [t.detach().cpu() for t in outs + list(gs)]
     err = max(_rel_err(a, b) for a, b in zip(res[dev], res["cpu"]))
-    check(math.isfinite(err) and err <= SEQ_TOL,
-          f"[14] {name} on the card disagrees with the CPU: {err}")
+    check(math.isfinite(err) and err <= tol,
+          f"{tag} {name} on the card disagrees with the CPU: {err}")
     return err
 
 
@@ -5177,6 +5214,531 @@ def image_pipeline(torch, K, card, dev="cuda", tmp=None):
     return r16
 
 
+# -- phase 17: the MoE LM, graph containers, recommenders and detection ---------
+
+# bench_extra.py bench_moe_lm at its TPU sizes: the flagship's widths, 8
+# experts on every second block, B8/T1024, bf16 recipe
+MOE_LM = dict(vocab_size=32000, hidden_size=1024, num_heads=16,
+              filter_size=4096, num_layers=12, n_experts=8, moe_every=2,
+              capacity_factor=1.25, max_len=1024)
+MOE17 = dict(B=8, T=1024, warmup=2, steps=5, gen=(8, 128, 32), cpu_T=128,
+             route_t=8192, route_E=8)
+# MovieLens-1M's counts (users, items, ratings) and the example's training
+# (examples/ncf_movielens.py: batch 256, Adam(0.02), BCECriterion)
+ML1M = (6040, 3706, 1000209)
+REC17 = dict(batch=256, steps=300, eval_k=10)
+# SSD300 on VOC (21 classes): each source map's (size, min, max, extra
+# aspect ratios, step), 8732 priors in all
+SSD300 = [(38, 30, 60, (2,), 8), (19, 60, 111, (2, 3), 16),
+          (10, 111, 162, (2, 3), 32), (5, 162, 213, (2, 3), 64),
+          (3, 213, 264, (2,), 100), (1, 264, 315, (2,), 300)]
+DET17 = dict(ssd_batch=8, classes=21, frcnn_map=(38, 50), frcnn_c=512,
+             rois=300, im=(600, 800))
+MOE_TOL = 1e-4          # card against CPU, float32 with TF32 off
+
+
+def movielens_split_start(root, tmp):
+    """Start MovieLens' leave-one-out split at ML-1M's counts in a process
+    of its own (a few minutes of host work, overlapped with phases 2-16);
+    it writes an ``.npz`` into ``tmp``. Returns (process, path)."""
+    path = os.path.join(tmp, "ml1m_split.npz")
+    code = ("import sys, numpy as np\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "from bigdl_tpu_torch.dataset import movielens as m\n"
+            f"d = m.synthetic(*{ML1M!r}, seed=0)\n"
+            "tr, y, eu, ei = m.train_test_split_leave_one_out(d)\n"
+            f"np.savez({path!r}, n=len(d), train=tr, labels=y, "
+            "ev_users=eu, ev_items=ei)\n")
+    return subprocess.Popen([sys.executable, "-c", code]), path
+
+
+def moe_recipe(torch, K, model, init, x, y, remat, warmup, steps):
+    """bench_extra.py bench_moe_lm's step: float32 masters cast to bf16
+    inside the loss, ``hidden_states(training=True)`` -> (h, aux),
+    ``lm_loss_chunked(chunk=128) + 0.01 aux``, gradients to the masters,
+    SGD(0.01, momentum=0.9) in place; ``warmup`` steps, then ``steps``
+    timed, on one batch, the launches read per step."""
+    from bigdl_tpu_torch.convert import flatten, unflatten
+    from bigdl_tpu_torch.models import lm_loss_chunked
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    model.load_state_dict(init)
+    model.remat = remat
+    params = model.params
+    leaves = flatten(params)
+    optim = SGD(learningrate=0.01, momentum=0.9)
+    opt_state = optim.init_state(params)
+
+    def step():
+        p16 = bf16_params(params)
+        h, aux = model.hidden_states(p16, x, training=True)
+        loss = lm_loss_chunked(h, p16["embed"], y, chunk=128) \
+            + 0.01 * aux.float()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        optim.update(unflatten(dict(zip(leaves, grads))), params, opt_state,
+                     0.01)
+        return loss, grads
+
+    L = len(model.blocks)
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(flash_fwd=2 * L if remat else L, flash_bwd=L)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, total = [], [], dict.fromkeys(K.WRAPPERS, 0)
+    for i in range(warmup + steps):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, routes = K.launch_counts(), K.launches_by_route()
+        check(counts == want, f"[17] (a) MoE LM step (remat={remat}) "
+              f"launched {counts}, expected {want}")
+        check(all(only_on(routes[n], "bf16_sm90", want[n])
+                  for n in ("flash_fwd", "flash_bwd")),
+              f"[17] (a) MoE LM step (remat={remat}): flash launches by "
+              f"route {routes}, all expected on bf16_sm90")
+        check(torch.stack([torch.isfinite(g).all() for g in grads])
+              .all().item(), f"[17] (a) non-finite gradient "
+              f"(remat={remat})")
+        losses.append(loss.item())
+        for n in total:
+            total[n] += counts[n]
+        if i >= warmup:
+            times.append(dt)
+    check(all(math.isfinite(v) for v in losses),
+          f"[17] (a) non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"[17] (a) loss did not fall: {losses}")
+    return {"losses": losses, "step_s": statistics.median(times),
+            "step_s_all": times,
+            "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": total,
+            "per_step": {n: routes[n] for n in ("flash_fwd", "flash_bwd")}}
+
+
+@contextlib.contextmanager
+def routing_recorder(stats):
+    """Record each MoE layer's routing (tokens dropped, slots holding more
+    than one token, the fullest slot) while the block runs."""
+    from bigdl_tpu_torch.nn import moe as nn_moe
+    real = nn_moe.top1_routing
+
+    def rec(logits, capacity):
+        d, c, a = real(logits, capacity)
+        occ = d.float().sum(0)
+        stats.append({"tokens": logits.shape[0], "capacity": capacity,
+                      "dropped": int(logits.shape[0] - occ.sum().item()),
+                      "shared": int((occ > 1).sum().item()),
+                      "fullest": int(occ.max().item())})
+        return d, c, a
+    nn_moe.top1_routing = rec
+    try:
+        yield stats
+    finally:
+        nn_moe.top1_routing = real
+
+
+def _ms_calls(torch, fn, n=3):
+    """Median wall ms of ``n`` calls of ``fn`` (synchronized)."""
+    out, times = None, []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def _ssd_priors(nn, dev):
+    """SSD300's six PriorBox layers over their maps: (1, 2, 8732 * 4)."""
+    import torch
+    maps = []
+    for size, lo, hi, ars, step in SSD300:
+        pb = nn.PriorBox([lo], [hi], list(ars), is_flip=True, is_clip=False,
+                         variances=[0.1, 0.1, 0.2, 0.2], img_size=300,
+                         step=float(step))
+        maps.append(pb.call({}, torch.zeros((1, 1, size, size),
+                                            device=dev)))
+    return torch.cat(maps, 2)
+
+
+def moe_zoo(torch, K, card, split=None, dev="cuda"):
+    """Phase 17 (``examples`` and bench counterparts of the recommender and
+    detection slice): (a) the MoE LM at ``bench_moe_lm``'s full width
+    through its bf16 recipe, remat off and on, ``MOE17['warmup']`` + 5
+    timed steps each, with the K1 launches a step by route and each MoE
+    layer's routing (dropped tokens, shared slots); (b) ``generate`` at
+    batch 8, prompt 128, 32 new tokens, and the full-width model at depth
+    2 in float32 (TF32 off) against the CPU; (c) ``top1_routing`` on bf16
+    logits at 8192 tokens over 8 experts, card against CPU bit for bit;
+    (d) NeuralCF and Wide&Deep at the example's widths on MovieLens'
+    synthetic stand-in at ML-1M's counts through ``LocalOptimizer``, then
+    HitRatio@10 / NDCG@10, and one batch card against CPU; (e) LeNet-5 as a
+    ``Graph`` against its ``Sequential`` twin and a ``DynamicGraph`` with
+    ``Switch`` / ``Merge`` down both branches; (f) SSD300-VOC's
+    post-processing and Faster R-CNN VGG-16's test-time heads at their
+    published sizes, each card against CPU. Returns the launches and
+    timings."""
+    import copy
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.models import (LeNet5, MoETransformerLM, NeuralCF,
+                                        WideAndDeep)
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import max_iteration
+    from bigdl_tpu_torch.optim.validation import HitRatio, NDCG
+    from bigdl_tpu_torch.parallel import moe as pmoe
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    from bigdl_tpu_torch.utils.table import Table
+    t17 = time.perf_counter()
+    r17 = {}
+    cfg = MOE17
+    B, T = cfg["B"], cfg["T"]
+    # the bf16 flash pair at the MoE LM's attention shape
+    H = MOE_LM["num_heads"]
+    D = MOE_LM["hidden_size"] // H
+    r17["k1"] = flash_case(torch, K, B, H, T, T, D, torch.bfloat16, True, 0,
+                           T, timed=True)
+    r17["k1b"] = bwd_case(torch, K, B, H, T, D, torch.bfloat16, True,
+                          timed=True)
+
+    # -- (a) the MoE LM through the bf16 recipe ----------------------------
+    t0 = time.perf_counter()
+    model = MoETransformerLM(**MOE_LM, device=dev, seed=0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    L = len(model.blocks)
+    print(f"[17] {card}: MoETransformerLM V{MOE_LM['vocab_size']} H"
+          f"{MOE_LM['hidden_size']} heads {MOE_LM['num_heads']} F"
+          f"{MOE_LM['filter_size']} L{L} E{MOE_LM['n_experts']} (MoE blocks "
+          f"{sorted(model.moe_idx)}), {n_params / 1e6:.1f}M params, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ids = np.random.RandomState(0).randint(1, MOE_LM["vocab_size"],
+                                           (B, T + 1))
+    x = torch.from_numpy(ids[:, :-1]).to(dev)
+    y = torch.from_numpy(ids[:, 1:]).to(dev)
+    arms = []
+    for remat in (False, True):
+        r = moe_recipe(torch, K, model, init, x, y, remat, cfg["warmup"],
+                       cfg["steps"])
+        r["tokens_per_s"] = B * T / r["step_s"]
+        arms.append(r)
+        print(f"[17] (a) {card}: bf16 recipe B{B}/T{T}, remat={remat}: "
+              f"losses {[round(v, 4) for v in r['losses']]}; step "
+              f"{r['step_s'] * 1e3:.1f} ms (median of {cfg['steps']} after "
+              f"{cfg['warmup']} warm-up; all "
+              f"{[round(t * 1e3, 1) for t in r['step_s_all']]}) = "
+              f"{r['tokens_per_s']:.0f} tokens/s; peak memory "
+              f"{r['max_mem_gb']:.2f} GiB; K1 launches a step by route "
+              f"{r['per_step']}", flush=True)
+    check(abs(arms[0]["losses"][0] - arms[1]["losses"][0])
+          <= 1e-3 * abs(arms[0]["losses"][0]),
+          f"[17] (a) remat changed the first loss: "
+          f"{arms[0]['losses'][0]} / {arms[1]['losses'][0]}")
+    stats = []
+    with torch.no_grad(), routing_recorder(stats):
+        model.load_state_dict(init)
+        model.hidden_states(bf16_params(model.params), x)
+    print(f"[17] (a) routing of the first batch (bf16, capacity "
+          f"{stats[0]['capacity']} of {stats[0]['tokens']} tokens an "
+          f"expert queue): per MoE layer (dropped tokens, shared slots, "
+          f"fullest slot) {[(s['dropped'], s['shared'], s['fullest']) for s in stats]}",
+          flush=True)
+    r17["arms"] = arms
+    r17["routing"] = stats
+
+    # -- (b) generate, and depth 2 in float32 against the CPU -------------
+    bg, tp, new = cfg["gen"]
+    with torch.no_grad():
+        model.load_state_dict(init)
+        p16 = bf16_params(model.params)
+    prompt = np.random.RandomState(1).randint(1, MOE_LM["vocab_size"],
+                                              (bg, tp))
+    model.generate(p16, prompt[:, :16], 2)            # library warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(p16, prompt, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    gen_counts, gen_routes = K.launch_counts(), K.launches_by_route()
+    check(tuple(out.shape) == (bg, tp + new)
+          and torch.equal(out[:, :tp].cpu(), torch.from_numpy(prompt)),
+          f"[17] (b) generate gave {tuple(out.shape)} or lost the prompt")
+    check(gen_counts["flash_fwd"] == L
+          and only_on(gen_routes["flash_fwd"], "bf16_sm90", L),
+          f"[17] (b) generate's flash launches {gen_routes['flash_fwd']}, "
+          f"expected {L} on bf16_sm90 (one prefill a layer)")
+    r17["gen_flash"] = gen_counts["flash_fwd"]
+    print(f"[17] (b) {card}: generate B{bg}, prompt {tp}, {new} new tokens: "
+          f"{dt:.3f} s = {bg * new / dt:.1f} tokens/s (prefill included); "
+          f"K1-fwd launches {gen_counts['flash_fwd']} "
+          f"({gen_routes['flash_fwd']})", flush=True)
+    del model, init, p16, arms
+    torch.cuda.empty_cache()
+    small = dict(MOE_LM, num_layers=2)
+    ids_s = np.random.RandomState(2).randint(1, MOE_LM["vocab_size"],
+                                             (1, cfg["cpu_T"]))
+    logits = {}
+    for d in (dev, "cpu"):
+        m = MoETransformerLM(**small, device=d, seed=0)
+        with torch.no_grad():
+            logits[d], st = m.apply(m.params, m.state, ids_s)
+            logits[d] = logits[d].float().cpu()
+    err = _rel_err(logits[dev], logits["cpu"])
+    check(math.isfinite(err) and err <= MOE_TOL,
+          f"[17] (b) depth-2 float32 logits: card against CPU {err}")
+    print(f"[17] (b) {card}: depth 2, float32, B1/T{cfg['cpu_T']}: logits "
+          f"card against CPU {err:.3g} (tol {MOE_TOL})", flush=True)
+
+    # -- (c) routing on the card against the CPU, bit for bit --------------
+    t, E = cfg["route_t"], cfg["route_E"]
+    cap = pmoe.expert_capacity(t, E, 1.25)
+    lg = torch.from_numpy(np.random.RandomState(0).randn(t, E).astype(
+        np.float32)).bfloat16()
+    res = {d: [v.cpu() for v in pmoe.top1_routing(lg.to(d), cap)]
+           for d in (dev, "cpu")}
+    same = all(torch.equal(a, b) for a, b in zip(res[dev], res["cpu"]))
+    occ = res[dev][0].float().sum(0)
+    pos_same = torch.equal(res[dev][0].float().argmax(-1),
+                           res["cpu"][0].float().argmax(-1))
+    r17["route"] = {"same": same, "shared": int((occ > 1).sum()),
+                    "fullest": int(occ.max())}
+    print(f"[17] (c) {card}: top1_routing bf16, t={t}, E={E}, C={cap}: "
+          f"dispatch, combine and aux card == CPU bit for bit: {same}; "
+          f"positions equal: {pos_same}; slots holding more than one token "
+          f"{r17['route']['shared']}, fullest {r17['route']['fullest']}",
+          flush=True)
+    check(same and pos_same, "[17] (c) routing differs between card and CPU")
+
+    # -- (d) the recommenders ----------------------------------------------
+    if isinstance(split, tuple):
+        proc, path = split
+        t0 = time.perf_counter()
+        check(proc.wait(timeout=900) == 0, "[17] (d) the MovieLens split "
+              "process failed")
+        waited = time.perf_counter() - t0
+        with np.load(path) as z:
+            split = {k: z[k] for k in z.files}
+        os.remove(path)
+        print(f"[17] (d) MovieLens split (ML-1M counts, run beside phases "
+              f"2-16) ready; waited {waited:.1f} s for it", flush=True)
+    n_users, n_items = ML1M[0], ML1M[1]
+    train, labels = split["train"], split["labels"]
+    ev_users, ev_items = split["ev_users"], split["ev_items"]
+    rc = REC17
+    n_take = rc["batch"] * rc["steps"]
+    take = np.random.RandomState(0).choice(len(train), n_take,
+                                           replace=False)
+    samples = [Sample(train[i].astype(np.float32),
+                      np.float32(labels[i])) for i in take]
+    builds = {"NeuralCF": lambda d: NeuralCF(n_users + 1, n_items + 1, 8, 16,
+                                             (32, 16, 8), device=d),
+              "WideAndDeep": lambda d: WideAndDeep(n_users + 1, n_items + 1,
+                                                   16, device=d)}
+    r17["rec"] = {}
+    for name, build in builds.items():
+        model = build(dev)
+        losses = []
+        stop = max_iteration(rc["steps"])
+        end = Trigger(lambda st: losses.append(st["loss"]) or stop(st))
+        opt = LocalOptimizer(model, DataSet.array(samples),
+                             nn.BCECriterion(), Adam(learningrate=0.02),
+                             end, batch_size=rc["batch"], device=dev)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(set(K.launch_counts().values()) == {0},
+              f"[17] (d) {name} launched a port kernel")
+        steps_s = opt.metrics.values["step_time"]
+        step_ms = statistics.median(steps_s[1:]) * 1e3
+        check(len(losses) == rc["steps"]
+              and all(math.isfinite(v) for v in losses)
+              and np.mean(losses[-20:]) < np.mean(losses[:20]),
+              f"[17] (d) {name} losses {losses[:5]}...{losses[-5:]}")
+        model.evaluate()
+        pairs = np.stack([np.repeat(ev_users, ev_items.shape[1]),
+                          ev_items.reshape(-1)], 1).astype(np.float32)
+        with torch.no_grad():
+            scores = model.forward(torch.from_numpy(pairs).to(dev))
+        scores = scores.float().cpu().numpy().reshape(ev_items.shape)
+        target = np.zeros(ev_items.shape[1], np.float32)
+        target[0] = 1
+        hr = HitRatio(rc["eval_k"], ev_items.shape[1] - 1)
+        nd = NDCG(rc["eval_k"], ev_items.shape[1] - 1)
+        hr_res = nd_res = None
+        for row in scores:
+            a, b = hr(row, target), nd(row, target)
+            hr_res = a if hr_res is None else hr_res + a
+            nd_res = b if nd_res is None else nd_res + b
+        hit, ndcg = hr_res.result()[0], nd_res.result()[0]
+        check(0.0 <= ndcg <= hit <= 1.0, f"[17] (d) {name} HR {hit} NDCG "
+              f"{ndcg}")
+        r17["rec"][name] = {"step_ms": step_ms,
+                            "samples_per_s": rc["batch"] / step_ms * 1e3,
+                            "hr": hit, "ndcg": ndcg}
+        print(f"[17] (d) {card}: {name} (ML-1M counts: {n_users} users, "
+              f"{n_items} items, {int(split['n'])} ratings after "
+              f"de-duplication; {len(train)} training pairs, {n_take} "
+              f"sampled), LocalOptimizer B{rc['batch']}, Adam(0.02), "
+              f"{rc['steps']} steps: loss {np.mean(losses[:20]):.4f} -> "
+              f"{np.mean(losses[-20:]):.4f} (means of 20 steps); step "
+              f"{step_ms:.2f} ms (median) = "
+              f"{r17['rec'][name]['samples_per_s']:.0f} samples/s; "
+              f"{wall:.2f} s in all; HitRatio@{rc['eval_k']} {hit:.4f}, "
+              f"NDCG@{rc['eval_k']} {ndcg:.4f} over {len(ev_users)} users",
+              flush=True)
+        batch = [train[take[:rc["batch"]]].astype(np.int64)]
+        err = module_card_vs_cpu(torch, name, lambda: build("cpu"), batch,
+                                 dev, tag="[17] (d)", tol=MOE_TOL)
+        print(f"[17] (d) {card}: {name}, one batch of {rc['batch']}: scores "
+              f"and every gradient card against CPU {err:.3g}", flush=True)
+        del model, opt
+
+    # -- (e) graphs ----------------------------------------------------------
+    seq = LeNet5(device=dev)
+    graph = _graph_of(nn, seq)
+    imgs = torch.from_numpy(np.random.RandomState(3).randn(
+        128, 28, 28).astype(np.float32)).to(dev)
+    outs = []
+    for m in (seq, graph):
+        m.evaluate()
+        with torch.no_grad():
+            outs.append(m.forward(imgs))
+    check(torch.equal(outs[0], outs[1]), "[17] (e) LeNet-5 as a Graph "
+          "differs from its Sequential twin")
+    err = module_card_vs_cpu(torch, "LeNet-5 Graph", lambda: _graph_of(
+        nn, LeNet5(device="cpu")), [np.random.RandomState(4).randn(
+            8, 28, 28).astype(np.float32)], dev, tag="[17] (e)",
+        tol=MOE_TOL)
+    sw_in, sw_p = nn.Input(), nn.Input()
+    sw = nn.Switch()(sw_in, sw_p)
+    lin = nn.Linear(64, 64)
+    dyn = nn.DynamicGraph([sw_in, sw_p], nn.Merge()(
+        nn.MulConstant(2.0)(nn.SelectTable(1)(sw)),
+        lin(nn.SelectTable(2)(sw)))).to(dev)
+    dyn.evaluate()
+    xd = torch.randn(16, 64, device=dev)
+    with torch.no_grad():
+        f_out = dyn.forward(Table(xd, torch.tensor(False)))
+        t_out = dyn.forward(Table(xd, torch.tensor(True)))
+        want_t = lin.call(lin.params, xd)
+    check(torch.equal(f_out, 2.0 * xd) and torch.equal(t_out, want_t),
+          "[17] (e) DynamicGraph's branches give the wrong outputs")
+    print(f"[17] (e) {card}: LeNet-5 as a Graph of {len(graph._modules)} "
+          f"nodes equal to its Sequential twin bit for bit at B128; its "
+          f"outputs and gradients card against CPU {err:.3g}; DynamicGraph "
+          f"Switch / Merge: the false branch (x * 2) and the true branch "
+          f"(Linear) each exact", flush=True)
+
+    # -- (f) detection at published sizes -------------------------------------
+    dc = DET17
+    rng = np.random.RandomState(5)
+    prior = _ssd_priors(nn, dev)
+    n_pri = prior.shape[2] // 4
+    check(n_pri == 8732, f"[17] (f) SSD300 priors {n_pri}, expected 8732")
+    Bs, C = dc["ssd_batch"], dc["classes"]
+    loc = torch.from_numpy((0.5 * rng.randn(Bs, n_pri * 4)).astype(
+        np.float32))
+    conf = torch.from_numpy((2.0 * rng.randn(Bs, n_pri * C)).astype(
+        np.float32))
+    ssd = nn.DetectionOutputSSD(C, nms_topk=400, keep_topk=200).evaluate()
+    det = {}
+    det["ssd"], ssd_ms = _ms_calls(torch, lambda: ssd.forward(Table(
+        loc.to(dev), conf.to(dev), prior)))
+    ssd_cpu = ssd.forward(Table(loc, conf, _ssd_priors(nn, "cpu")))
+    _det_same(torch, "SSD300 DetectionOutputSSD", det["ssd"], ssd_cpu)
+    n_det = det["ssd"][:, 0].int().tolist()
+    # Faster R-CNN VGG-16 test settings
+    A, (Hf, Wf) = 9, dc["frcnn_map"]
+    cls = torch.from_numpy(rng.randn(1, 2 * A, Hf, Wf).astype(np.float32))
+    dlt = torch.from_numpy((0.1 * rng.randn(1, 4 * A, Hf, Wf)).astype(
+        np.float32))
+    info = torch.tensor([[float(dc["im"][0]), float(dc["im"][1]), 1.0, 1.0]])
+    prop = nn.Proposal(6000, dc["rois"], (0.5, 1, 2), (8, 16, 32)).evaluate()
+    rois, prop_ms = _ms_calls(torch, lambda: prop.forward(Table(
+        cls.to(dev), dlt.to(dev), info.to(dev))))
+    rois_cpu = prop.forward(Table(cls, dlt, info))
+    _det_same(torch, "Faster R-CNN Proposal", rois, rois_cpu)
+    # the CPU's rois on both sides from here (a roi corner one ulp apart
+    # can round into another pooling bin)
+    rois = rois_cpu.to(dev)
+    feats = torch.from_numpy(rng.randn(1, dc["frcnn_c"], Hf, Wf).astype(
+        np.float32))
+    pool = {}
+    for name, mod in (("RoiPooling", nn.RoiPooling(7, 7, 1 / 16.0)),
+                      ("RoiAlign", nn.RoiAlign(7, 7, 1 / 16.0))):
+        mod.evaluate()
+        with torch.no_grad():
+            got, ms = _ms_calls(torch, lambda: mod.forward(Table(
+                feats.to(dev), rois)))
+            want = mod.forward(Table(feats, rois_cpu))
+        e = _rel_err(got.cpu(), want)
+        check(tuple(got.shape) == (rois.shape[0], dc["frcnn_c"], 7, 7)
+              and e <= MOE_TOL, f"[17] (f) {name} card against CPU {e}")
+        pool[name] = (ms, e)
+    n_r = rois.shape[0]
+    sc = np.exp(rng.randn(n_r, C).astype(np.float32))
+    sc = torch.from_numpy(sc / sc.sum(1, keepdims=True))
+    bd = torch.from_numpy((0.1 * rng.randn(n_r, 4 * C)).astype(np.float32))
+    frcnn = nn.DetectionOutputFrcnn(0.3, C, max_per_image=100,
+                                    thresh=0.05).evaluate()
+    det["frcnn"], fr_ms = _ms_calls(torch, lambda: frcnn.forward(Table(
+        info.to(dev), rois, bd.to(dev), sc.to(dev))))
+    fr_cpu = frcnn.forward(Table(info, rois_cpu, bd, sc))
+    _det_same(torch, "Faster R-CNN DetectionOutputFrcnn", det["frcnn"],
+              fr_cpu)
+    print(f"[17] (f) {card}: SSD300-VOC (8732 priors from six PriorBox "
+          f"maps, 21 classes, nms_topk 400, keep_topk 200) at B{Bs}: "
+          f"{ssd_ms:.1f} ms a call, detections per image {n_det}; Faster "
+          f"R-CNN VGG-16 test settings: Proposal(6000, {dc['rois']}) on a "
+          f"{Hf}x{Wf} map {prop_ms:.1f} ms -> {n_r} rois; RoiPooling(7, 7, "
+          f"1/16) {pool['RoiPooling'][0]:.2f} ms and RoiAlign "
+          f"{pool['RoiAlign'][0]:.2f} ms over (1, {dc['frcnn_c']}, {Hf}, "
+          f"{Wf}) (card against CPU {pool['RoiPooling'][1]:.3g} / "
+          f"{pool['RoiAlign'][1]:.3g}); DetectionOutputFrcnn {fr_ms:.1f} ms "
+          f"-> {int(det['frcnn'][0, 0])} detections; every output equal to "
+          f"the CPU's (detections, labels and scores exactly, boxes within "
+          f"{MOE_TOL})", flush=True)
+    r17["det_ms"] = {"ssd": ssd_ms, "proposal": prop_ms,
+                     "roi_pooling": pool["RoiPooling"][0],
+                     "roi_align": pool["RoiAlign"][0], "frcnn": fr_ms}
+    r17["phase_s"] = time.perf_counter() - t17
+    print(f"[17] phase 17: {r17['phase_s']:.1f} s", flush=True)
+    return r17
+
+
+def _graph_of(nn, seq):
+    """A ``Graph`` chaining a ``Sequential``'s own modules in order."""
+    x = nn.Input()
+    node = x
+    for m in seq._modules.values():
+        node = m(node)
+    return nn.Graph(x, node)
+
+
+def _det_same(torch, name, got, want):
+    """A detection output on the card against the CPU's: the same shape,
+    the counts / labels / scores / rows exactly where they index, the box
+    coordinates within MOE_TOL."""
+    got = got.float().cpu()
+    check(tuple(got.shape) == tuple(want.shape),
+          f"[17] (f) {name}: card {tuple(got.shape)} against CPU "
+          f"{tuple(want.shape)}")
+    e = _rel_err(got, want)
+    check(e <= MOE_TOL, f"[17] (f) {name}: card against CPU {e}")
+    if got.dim() == 2 and got.shape[1] > 1 and got.shape[1] % 6 == 1:
+        lab = lambda t: t[:, 1:].reshape(t.shape[0], -1, 6)[..., :2]
+        check(torch.equal(got[:, 0], want[:, 0])
+              and torch.equal(lab(got), lab(want)),
+              f"[17] (f) {name}: the detections (count, label, score) "
+              f"differ between card and CPU")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5186,6 +5748,11 @@ def main():
         fail("bigdl_tpu_torch not found beside chip_smoke.py: run from a "
              "checkout of the repository")
     sys.path.insert(0, root)
+    # phase 17's MovieLens split: host work started now, read in phase 17
+    split_tmp = tempfile.mkdtemp(prefix="phase17_")
+    split17 = movielens_split_start(root, split_tmp)
+    atexit.register(shutil.rmtree, split_tmp, True)
+    atexit.register(split17[0].kill)
     import bigdl_tpu_torch.kernels as K
     from bigdl_tpu_torch.kernels import _build
     from bigdl_tpu_torch.models import TransformerLM
@@ -5715,6 +6282,10 @@ def main():
     # -- phase 16: the image input pipeline and ResNet-50's fused arms --------
     r16 = image_pipeline(torch, K, card)
     l16 = r16["launches"]
+    # -- phase 17: the MoE LM, graphs, recommenders and detection -----------
+    r17 = moe_zoo(torch, K, card, split=split17)
+    l17 = {n: sum(a["launches"][n] for a in r17["arms"])
+           for n in ("flash_fwd", "flash_bwd")}
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -5754,7 +6325,11 @@ def main():
             ("flash_bwd float32 CUDA-core route, D=96 (8x8, T=256, causal)",
              k1b_f32_wide),
             ("flash_fwd D=96 (16x8, T=1024, causal, bf16)", k1_d96),
-            ("flash_bwd D=96 (16x8, T=1024, causal, bf16)", k1b_d96)):
+            ("flash_bwd D=96 (16x8, T=1024, causal, bf16)", k1b_d96),
+            ("flash_fwd MoE LM shape (8x16, T=1024, causal, bf16)",
+             r17["k1"]),
+            ("flash_bwd MoE LM shape (8x16, T=1024, causal, bf16)",
+             r17["k1b"])):
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"sdpa {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
               f"({rec['bound_by']})"
@@ -5849,7 +6424,8 @@ def main():
         kernel_rec("flash_fwd", "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
                    gen_counts["flash_fwd"] + r11["beam_flash"]
-                   + r15["entry_routes"]["flash_fwd"].get("bf16_sm90", 0)),
+                   + r15["entry_routes"]["flash_fwd"].get("bf16_sm90", 0)
+                   + r17["gen_flash"]),
         kernel_rec("flash_fwd_chunk",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,
@@ -5862,6 +6438,13 @@ def main():
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_main,
                    arms[0]["launches"]["flash_bwd"]
                    + r15["entry_routes"]["flash_bwd"].get("bf16_sm90", 0)),
+        kernel_rec("flash_fwd_moe",
+                   "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:128", r17["k1"],
+                   l17["flash_fwd"]),
+        kernel_rec("flash_bwd_moe", "bigdl_tpu_torch/csrc/flash_bwd_sm90.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:263", r17["k1b"],
+                   l17["flash_bwd"]),
         kernel_rec("flash_fwd_f32",
                    "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32,

@@ -342,7 +342,12 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "'transform.vision', 'transform.vision.image', "
             "'transform.image_frame', 'transform._vision_impl', "
             "'dataset.base', 'dataset.imagenet', 'dataset.mnist', "
-            "'dataset.cifar', 'dataset.tfrecord'):\n"
+            "'dataset.cifar', 'dataset.tfrecord', 'parallel.moe', "
+            "'nn.moe', 'models.moe_lm', 'utils.directed_graph', "
+            "'nn.graph_container', 'nn.dynamic_graph', 'nn.sparse', "
+            "'dataset.movielens', 'models.recommender', "
+            "'dataset.datamining', 'nn.detection', "
+            "'dataset.segmentation'):\n"
             "    assert 'bigdl_tpu_torch.' + want in names, want\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bigdl_tpu' or "
