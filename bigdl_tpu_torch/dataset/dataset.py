@@ -1,13 +1,12 @@
 """Data sets (counterpart of ``bigdl_tpu/dataset/dataset.py``): the local
 sample store with the JAX package's per-epoch shuffle, and the batch-level
-view the optimizer reads (one shard: multi-GPU comes later)."""
+view the optimizer reads (global batches that divide over the data shards)."""
 from __future__ import annotations
 
 from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from ..utils.engine import refuse_unported
 from .sample import Sample
 from .transformer import SampleToMiniBatch, Transformer
 
@@ -108,15 +107,19 @@ class TransformedDataSet(AbstractDataSet):
 
 
 class ShardedDataSet(AbstractDataSet):
-    """Batch-level view for the optimizer: MiniBatches of ``batch_size``
-    from one shard (a single GPU: ``num_shards`` > 1 comes with multi-GPU
-    training), padded by the ``PaddingParam``s given. The last short batch
-    is dropped unless ``drop_last`` is False."""
+    """Batch-level view for the optimizer: global MiniBatches of
+    ``batch_size``, padded by the ``PaddingParam``s given, whose rows
+    divide over ``num_shards`` data shards (``DistriOptimizer`` gives each
+    rank its block of rows). The last short batch is dropped unless
+    ``drop_last`` is False."""
 
     def __init__(self, dataset: AbstractDataSet, batch_size: int,
                  num_shards: int = 1, drop_last: bool = True,
                  feature_padding=None, label_padding=None):
-        refuse_unported("ShardedDataSet", num_shards=(num_shards, 1))
+        if batch_size % num_shards != 0:
+            raise ValueError(
+                f"global batch size {batch_size} must divide over "
+                f"{num_shards} data shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_shards = num_shards

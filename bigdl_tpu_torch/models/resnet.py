@@ -245,6 +245,13 @@ class FusedBottleneck(Module):
         beta = params[key]["bias"].float()
         st = state[key]
         if training:
+            from ..parallel.collective import batch_group, global_sums
+            bg = batch_group()
+            if bg is not None:
+                # a replicated data-parallel step: the kernels' column sums
+                # summed over the ranks give the global batch's statistics
+                s1, s2 = global_sums(s1, s2)
+                m = m * bg[1]
             mean = s1 / m
             var = torch.clamp(s2 / m - mean * mean, min=0.0)
             unbiased = var * m / max(m - 1, 1)

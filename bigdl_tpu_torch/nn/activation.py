@@ -104,9 +104,10 @@ class RReLU(Module):
     def apply(self, params, state, x, training: bool = False,
               generator=None):
         if training and generator is not None:
-            a = torch.rand(x.shape, generator=generator, device=x.device,
-                           dtype=x.dtype) * (self.upper - self.lower) \
-                + self.lower
+            from ..parallel.collective import batch_rows
+            a = batch_rows(lambda s: torch.rand(
+                s, generator=generator, device=x.device, dtype=x.dtype),
+                x.shape) * (self.upper - self.lower) + self.lower
         else:
             a = (self.lower + self.upper) / 2.0
         return torch.where(x >= 0, x, a * x), state

@@ -87,8 +87,12 @@ def rotary_embedding(x, positions, base: float = 10000.0):
 
 def dropout(x, p: float, generator):
     """Inverted dropout: each element kept with probability 1 - p (drawn
-    from ``generator``, on x's device) and scaled by 1 / (1 - p)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    from ``generator``, on x's device; in a replicated data-parallel step,
+    this rank's rows of the global batch's mask) and scaled by 1 / (1 - p)."""
+    from ..parallel.collective import batch_rows
+    keep = batch_rows(lambda s: torch.rand(s, generator=generator,
+                                           device=x.device),
+                      x.shape) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -4,7 +4,11 @@ Targets keep the JAX package's conventions: the torch-parity
 classification criteria take **1-based** class indices, ``LMCriterion``
 takes RAW 0-based token ids (the tied embedding's own indexing, as
 ``models.lm_loss_chunked`` does). Targets may be numpy arrays or tensors.
-``size_average=True`` means the mean (``_reduce``). Where JAX
+``size_average=True`` means the mean (``_reduce``). In a replicated
+data-parallel step every sum over the batch goes through ``_batch_sum``
+and every mean whose count depends on the data through ``_count_mean``,
+so the optimizer's mean over the ranks is the global batch's loss (a
+mean over equal shares of the batch needs neither). Where JAX
 differentiates ``jnp.abs``, ``jnp.clip`` or ``jnp.maximum(0, .)`` the port
 passes JAX's gradient at the kink (``jabs``; ``torch.maximum`` /
 ``torch.minimum`` split a tie in half as JAX's do). ``backward`` takes a
@@ -59,7 +63,27 @@ def _value(target, like):
 
 
 def _reduce(x, size_average):
-    return x.mean() if size_average else x.sum()
+    return x.mean() if size_average else _batch_sum(x.sum())
+
+
+def _count_mean(total, count, floor):
+    """``total / max(count, floor)``. In a replicated data-parallel step
+    (``parallel.collective.global_batch``, n ranks) the count is the
+    global batch's and the result is scaled by n, so the mean over the
+    ranks the optimizer takes is the global batch's loss."""
+    from ..parallel.collective import batch_group, global_count
+    bg = batch_group()
+    if bg is None:
+        return total / count.clamp(min=floor)
+    return total * bg[1] / global_count(count).clamp(min=floor)
+
+
+def _batch_sum(total):
+    """A sum over the batch; scaled by n in a replicated data-parallel
+    step, so the optimizer's mean over the ranks is the global sum."""
+    from ..parallel.collective import batch_group
+    bg = batch_group()
+    return total if bg is None else total * bg[1]
 
 
 def _max0(x):
@@ -108,8 +132,8 @@ class ClassNLLCriterion(Criterion):
         w = w * valid
         loss = -(w * picked).sum()
         if self.size_average:
-            loss = loss / w.sum().clamp(min=1e-8)
-        return loss
+            return _count_mean(loss, w.sum(), 1e-8)
+        return _batch_sum(loss)
 
 
 class CrossEntropyCriterion(Criterion):
@@ -140,7 +164,7 @@ class LMCriterion(Criterion):
         idx = t.clamp(0, logits.shape[-1] - 1)
         gold = logits.gather(-1, idx[:, None])[:, 0]
         valid = (t != self.padding_value).float()
-        return ((lse - gold) * valid).sum() / valid.sum().clamp(min=1.0)
+        return _count_mean(((lse - gold) * valid).sum(), valid.sum(), 1.0)
 
 
 class TimeDistributedMaskCriterion(Criterion):
@@ -163,9 +187,11 @@ class TimeDistributedMaskCriterion(Criterion):
                 self.critrn.weights, True, self.critrn.log_prob_as_input,
                 padding_value=self.padding_value)
             return inner._forward(x, t)
+        from ..parallel.collective import local_batch
         mask = (t != self.padding_value).to(x.dtype)
-        per = torch.func.vmap(self.critrn._forward)(x, t)
-        return (per * mask).sum() / mask.sum().clamp(min=1.0)
+        with local_batch():     # each row's own loss
+            per = torch.func.vmap(self.critrn._forward)(x, t)
+        return _count_mean((per * mask).sum(), mask.sum(), 1.0)
 
 
 class CategoricalCrossEntropy(Criterion):
@@ -233,7 +259,7 @@ class SmoothL1CriterionWithWeights(Criterion):
         loss = out_w * torch.where(ad < 1.0 / self.sigma2,
                                    0.5 * self.sigma2 * d * d,
                                    ad - 0.5 / self.sigma2)
-        s = loss.sum()
+        s = _batch_sum(loss.sum())
         return s / self.num if self.num > 0 else s
 
 
@@ -337,7 +363,7 @@ class DistKLDivCriterion(Criterion):
         loss = torch.where(t > 0, t * (torch.log(t + 1e-12) - input), 0.0)
         if self.size_average and input.dim() > 1:
             return loss.sum() / input.shape[0]
-        return loss.sum()
+        return _batch_sum(loss.sum())
 
 
 class KullbackLeiblerDivergenceCriterion(Criterion):
@@ -356,7 +382,7 @@ class KLDCriterion(Criterion):
         mean, logvar = input[1], input[2]
         kl = 0.5 * (torch.square(mean) + torch.exp(logvar) - 1.0
                     - logvar).sum(-1)
-        return kl.mean() if self.size_average else kl.sum()
+        return kl.mean() if self.size_average else _batch_sum(kl.sum())
 
     def backward(self, input, target=None):
         return super().backward(input, target)
@@ -369,8 +395,9 @@ class GaussianCriterion(Criterion):
     def _forward(self, input, target):
         mean, logvar = input[1], input[2]
         t = _value(target, mean)
-        return (0.5 * (np.log(2 * np.pi) + logvar
-                       + torch.square(t - mean) / torch.exp(logvar))).sum()
+        return _batch_sum((0.5 * (np.log(2 * np.pi) + logvar
+                                  + torch.square(t - mean)
+                                  / torch.exp(logvar))).sum())
 
 
 class CosineEmbeddingCriterion(Criterion):
@@ -449,12 +476,12 @@ class SoftmaxWithCriterion(Criterion):
                  else (t != self.ignore_label).to(picked.dtype))
         loss = -(picked * valid).sum()
         if self.normalize_mode == "VALID":
-            return loss / valid.sum().clamp(min=1.0)
+            return _count_mean(loss, valid.sum(), 1.0)
         if self.normalize_mode == "BATCH_SIZE":
             return loss / input.shape[0]
         if self.normalize_mode == "FULL":
             return loss / picked.numel()
-        return loss
+        return _batch_sum(loss)
 
 
 class TimeDistributedCriterion(Criterion):
@@ -524,7 +551,7 @@ class L1Cost(Criterion):
     """The sum of |x|; the target is ignored."""
 
     def _forward(self, input, target=None):
-        return jabs(input).sum()
+        return _batch_sum(jabs(input).sum())
 
     def backward(self, input, target=None):
         return super().backward(input, target)
@@ -579,7 +606,7 @@ class DotProductCriterion(Criterion):
     """The sum of input * target."""
 
     def _forward(self, input, target):
-        return (input * _value(target, input)).sum()
+        return _batch_sum((input * _value(target, input)).sum())
 
 
 class PGCriterion(Criterion):
@@ -636,8 +663,8 @@ class ActivityRegularization(Criterion):
         self.l1, self.l2 = l1, l2
 
     def _forward(self, input, target=None):
-        return self.l1 * jabs(input).sum() + \
-            self.l2 * torch.square(input).sum()
+        return _batch_sum(self.l1 * jabs(input).sum()
+                          + self.l2 * torch.square(input).sum())
 
 
 class NegativeEntropyPenalty(Criterion):
@@ -648,7 +675,7 @@ class NegativeEntropyPenalty(Criterion):
         self.beta = beta
 
     def _forward(self, input, target=None):
-        return self.beta * (input * torch.log(input + 1e-8)).sum()
+        return _batch_sum(self.beta * (input * torch.log(input + 1e-8)).sum())
 
 
 class TransformerCriterion(Criterion):

@@ -26,13 +26,19 @@ def _require_generator(generator, name):
 
 
 def _keep(shape, p, generator, x):
-    """A boolean mask of ``shape``, True with probability 1 - p."""
-    return torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    """A boolean mask of ``shape``, True with probability 1 - p (in a
+    replicated data-parallel step, this rank's rows of the global
+    batch's mask)."""
+    from ..parallel.collective import batch_rows
+    return batch_rows(lambda s: torch.rand(s, generator=generator,
+                                           device=x.device), shape) < 1.0 - p
 
 
 def _normal(x, generator):
-    return torch.randn(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
+    from ..parallel.collective import batch_rows
+    return batch_rows(lambda s: torch.randn(s, generator=generator,
+                                            device=x.device, dtype=x.dtype),
+                      x.shape)
 
 
 class Dropout(Module):

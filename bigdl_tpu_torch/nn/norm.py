@@ -92,12 +92,21 @@ class BatchNormalization(Module):
         shape = [1] * x.dim()
         shape[ch] = self.n_output
         if training:
+            from ..parallel.collective import batch_group, global_sums
             shift = state["running_mean"].detach().float().reshape(shape)
             xs = x.float() - shift
-            m1 = xs.mean(ax)
-            var = torch.clamp(xs.square().mean(ax) - m1.square(), min=0.0)
-            mean = m1 + shift.reshape(-1)
             n = x.numel() // self.n_output
+            m1 = xs.mean(ax)
+            sq = xs.square().mean(ax)
+            bg = batch_group()
+            if bg is not None:
+                # a replicated data-parallel step: the global batch's
+                # statistics, the mean of the ranks' equal-sized shares
+                m1, sq = global_sums(m1, sq)
+                m1, sq = m1 / bg[1], sq / bg[1]
+                n = n * bg[1]
+            var = torch.clamp(sq - m1.square(), min=0.0)
+            mean = m1 + shift.reshape(-1)
             unbiased = var * n / max(n - 1, 1)
             m = self.momentum
             new_state = {

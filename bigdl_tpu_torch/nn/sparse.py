@@ -7,9 +7,9 @@ A :class:`SparseTensor` is a fixed-size COO triple: indices (nnz, ndim)
 int32, values (nnz,) and the dense shape. Pad entries carry value 0 at
 index 0, which adds nothing to the linear ops here. The products are a
 row gather and a segment sum (``index_add``), as the JAX package computes
-them. The multi-device ``(indices, values)`` gradient exchange that JAX
-re-exports here (``sparse_embedding_grad_allreduce``) is multi-GPU work
-and not ported yet.
+them. The multi-device ``(indices, values)`` gradient exchange
+(``sparse_embedding_grad_allreduce``, from ``parallel.allreduce``) is
+re-exported here, as JAX's module does.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.allreduce import sparse_embedding_grad_allreduce  # noqa: F401
 from ..utils.table import Table
 from .linear import Linear, LookupTable
 from .module import Module

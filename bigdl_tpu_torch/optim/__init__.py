@@ -5,8 +5,10 @@ from .optim_method import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax,
                            MultiStep, NaturalExp, OptimMethod, ParallelAdam,
                            Plateau, Poly, Regime, RMSprop, SequentialSchedule,
                            Step, Warmup)
-from .evaluator import Evaluator, LocalValidator
-from .optimizer import BaseOptimizer, LocalOptimizer, Metrics, Optimizer
+from .evaluator import DistriValidator, Evaluator, LocalValidator
+from .optimizer import (BaseOptimizer, DistriOptimizer, LocalOptimizer,
+                        Metrics, Optimizer, ParallelOptimizer,
+                        RemediationPolicy)
 from .predictor import bucket_for
 from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
                           Regularizer)
@@ -24,12 +26,13 @@ __all__ = ["LBFGS", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Ft
            "EpochDecayWithWarmUp", "EpochSchedule", "EpochStep",
            "Exponential", "LearningRateSchedule", "MultiStep", "NaturalExp",
            "OptimMethod", "Poly", "Regime", "SequentialSchedule", "Step",
-           "Warmup", "BaseOptimizer", "LocalOptimizer", "Metrics",
+           "Warmup", "BaseOptimizer", "LocalOptimizer", "DistriOptimizer",
+           "ParallelOptimizer", "RemediationPolicy", "Metrics",
            "Optimizer", "bucket_for", "EveryEpoch", "MaxEpoch",
            "MaxIteration", "MaxScore", "MinLoss", "SeveralIteration",
            "Trigger", "TriggerAnd", "TriggerOr", "and_", "every_epoch",
            "max_epoch", "max_iteration", "max_score", "min_loss", "or_",
-           "several_iteration", "Evaluator", "LocalValidator", "MAE", "NDCG",
+           "several_iteration", "Evaluator", "LocalValidator", "DistriValidator", "MAE", "NDCG",
            "AccuracyResult", "HitRatio", "Loss", "LossResult", "Top1Accuracy",
            "Top5Accuracy", "TreeNNAccuracy", "ValidationMethod",
            "ValidationResult"]

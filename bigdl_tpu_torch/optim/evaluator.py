@@ -26,7 +26,7 @@ from ..utils.engine import resolve_device
 from ..utils.table import Table
 from .staging import _first_leaf, _index, _stack, place_host_value, staged
 
-__all__ = ["Evaluator", "LocalValidator"]
+__all__ = ["Evaluator", "LocalValidator", "DistriValidator"]
 
 
 def _model_device(model):
@@ -98,7 +98,8 @@ class Evaluator:
             return place((_stack([x for x, _ in items]),
                           _stack([y for _, y in items])))
 
-        host = lambda mb: (mb.get_input(), mb.get_target())
+        host = lambda mb: (self._rows(mb.get_input()),
+                           self._rows(mb.get_target()))
         batches = staged(batched.data(train=False),
                          host if k > 1 else lambda mb: place(host(mb)),
                          depth=self.prefetch_depth, name="eval_stager",
@@ -112,37 +113,101 @@ class Evaluator:
                 for i in range(n):
                     xi, yi = (x, y) if k == 1 else (_index(x, i),
                                                     _index(y, i))
+                    if len(_first_leaf(xi)) == 0:
+                        continue        # no rows of this batch here
                     out = self._forward(xi)
                     stats = [m.device_stats(out, yi) for m in methods]
                     acc = stats if acc is None else \
                         [a + s for a, s in zip(acc, stats)]
         finally:
             batches.close()
+        if acc is not None:
+            # the one readback of the summed statistics
+            acc = list(torch.cat(acc).cpu().split([a.numel() for a in acc]))
+        acc = self._combine(acc)
         if acc is None:
             return [None] * len(methods)
-        # the one readback of the summed statistics
-        host = torch.cat(acc).cpu().split([a.numel() for a in acc])
-        return [m.result_from_stats(s) for m, s in zip(methods, host)]
+        return [m.result_from_stats(s) for m, s in zip(methods, acc)]
 
     def _evaluate_host(self, batched, methods):
         """Per-batch numpy methods (a method without a device form)."""
         dev = _model_device(self.model)
         results = [None] * len(methods)
         batches = staged(batched.data(train=False),
-                         lambda mb: (place_host_value(mb.get_input(), dev),
-                                     mb),
+                         lambda mb: (place_host_value(
+                             self._rows(mb.get_input()), dev),
+                             self._rows(mb.get_target())),
                          depth=self.prefetch_depth, name="eval_stager",
                          device=dev)
         try:
-            for x, mb in batches:
+            for x, y in batches:
+                if len(_first_leaf(x)) == 0:
+                    continue
                 out = self._forward(x)
                 for i, m in enumerate(methods):
-                    r = m(out, mb.get_target())
+                    r = m(out, y)
                     results[i] = r if results[i] is None else results[i] + r
         finally:
             batches.close()
-        return results
+        if all(r is None for r in results):
+            results = None
+        results = self._combine(results)
+        return [None] * len(methods) if results is None else results
+
+    def _rows(self, v):
+        """The rows of a batch this evaluator computes (all of them)."""
+        return v
+
+    def _combine(self, parts):
+        """This process's per-method results -> the evaluation's (as
+        they are)."""
+        return parts
 
 
 class LocalValidator(Evaluator):
     """Name parity: optim/LocalValidator.scala (the same engine)."""
+
+
+class DistriValidator(Evaluator):
+    """Validation sharded over the ``data`` axis of ``mesh`` (the default
+    mesh when None; ``DistriOptimizer`` sets its own), as training
+    batches are: every rank reads the same batches and computes its block
+    of rows (contiguous, ``[r * b // n, (r + 1) * b // n)``, so a short
+    last batch splits unevenly); each method's statistics (or host
+    results) are then summed over the ranks in rank order, with ONE
+    exchange an evaluation, and every rank returns the same results.
+    Every rank of the mesh evaluates at the same point."""
+
+    mesh = None
+
+    def _mesh(self):
+        from ..parallel.mesh import get_default_mesh
+        return self.mesh if self.mesh is not None else get_default_mesh()
+
+    def _rows(self, v):
+        from ..parallel.mesh import axis_size
+        mesh = self._mesh()
+        n = axis_size(mesh, "data")
+        if n == 1 or v is None:
+            return v
+        r = mesh.get_local_rank("data")
+        if isinstance(v, Table):
+            return Table(*(self._rows(i) for i in v))
+        b = len(v)
+        return v[r * b // n:(r + 1) * b // n]
+
+    def _combine(self, parts):
+        import torch.distributed as dist
+        mesh = self._mesh()
+        if mesh.size() == 1:
+            return parts
+        got = [None] * dist.get_world_size(mesh.get_group("data"))
+        dist.all_gather_object(got, parts, group=mesh.get_group("data"))
+        got = [g for g in got if g is not None]
+        if not got:
+            return None
+        out = list(got[0])
+        for g in got[1:]:
+            out = [a if b is None else b if a is None else a + b
+                   for a, b in zip(out, g)]
+        return out

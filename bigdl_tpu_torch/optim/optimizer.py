@@ -1,5 +1,6 @@
 """The training loop (counterpart of ``bigdl_tpu/optim/optimizer.py``: the
-``BaseOptimizer`` core, ``LocalOptimizer`` and the ``Optimizer`` factory).
+``BaseOptimizer`` core, ``LocalOptimizer``, ``DistriOptimizer`` /
+``ParallelOptimizer`` and the ``Optimizer`` factory).
 
 One step: the functional forward ``model.apply(params, state, x,
 training=True, generator)`` (dropout drawn from one ``torch.Generator``
@@ -55,9 +56,10 @@ the step's trees (on the device) and the dropout generator before every
 dispatch and replays a transient failure from that snapshot, bit for bit
 the fault-free run; ``set_remediation`` halts a stalled run with a
 checkpoint taken on a side thread, and drives the lr and early stopping
-from plateaus and spikes. Not ported: ``DistriOptimizer``, the heartbeat,
-straggler and mesh-probe parts of ``RemediationPolicy`` (multi-GPU), the
-compiled-program cost notes of JAX's ``observability.perf``.
+from plateaus and spikes, halts on a lost or stale heartbeat peer, feeds
+a straggler monitor, and probes a distributed run's mesh on a stall.
+``DistriOptimizer`` trains one process a rank (its docstring). Not
+ported: the compiled-program cost notes of JAX's ``observability.perf``.
 
 The model must be one whose ``apply(params, state, x, training,
 generator)`` is the training forward (``Transformer`` and the ResNets
@@ -86,8 +88,9 @@ from ..observability import flight as _flight
 from ..observability import health as _health
 from ..parallel import chaos as _chaos
 from ..parallel.failure import (PERMANENT, TRANSIENT, FaultPolicy,
-                                TrainingHalted, _run_with_timeout,
-                                classify_failure)
+                                HeartbeatLost, TrainingHalted,
+                                _run_with_timeout, classify_failure,
+                                probe_mesh)
 from ..utils import engine
 from .optim_method import SGD, OptimMethod, Plateau, write_guarded
 from .regularizer import regularization_loss, regularizer_tree
@@ -95,7 +98,7 @@ from .staging import _first_leaf, _index, _stack, place_host_value, staged
 from .trigger import Trigger, max_epoch
 
 __all__ = ["Metrics", "RemediationPolicy", "BaseOptimizer", "LocalOptimizer",
-           "Optimizer"]
+           "DistriOptimizer", "ParallelOptimizer", "Optimizer"]
 
 _LOG = logging.getLogger(__name__)
 
@@ -295,18 +298,25 @@ class RemediationPolicy:
       that the loop raises when it moves again, before its next step;
       ``exit_process`` then ``os._exit(86)``. The wait for the loop to
       reach its data fetch, and the checkpoint's device-to-host copy, are
-      each bounded by ``halt_artifact_timeout_s``. A transient verdict re-arms the beacon.
-      The port has no mesh to probe, so without ``halt_on_stall`` every
-      stall is transient (``probe_timeout_s`` is kept for the signature);
+      each bounded by ``halt_artifact_timeout_s``. A distributed run first
+      probes its mesh (``parallel.failure.probe_mesh``, bounded by
+      ``probe_timeout_s``): a probe that fails makes the stall PERMANENT
+      and halts; otherwise, without ``halt_on_stall``, the stall is
+      transient and the beacon re-arms;
+    * heartbeat membership: with a ``heartbeat``
+      (``parallel.failure.Heartbeat``) the loop beats every
+      ``heartbeat_every`` steps with ``heartbeat_timeout_s``; a lost or
+      stale exchange checkpoints and halts with the stale ranks as
+      ``lost_processes`` (what ``ElasticRunner`` shrinks the mesh by);
+    * stragglers: with a ``straggler_monitor`` each step's time is
+      recorded and a report runs every ``straggler_every`` steps
+      (persistent stragglers fire ``health/straggler``);
     * anomalies: a ``health/plateau`` from the loss monitor reduces the lr
       (``plateau_lr``: ``Plateau.force_reduction`` for a ``Plateau``
       schedule, else a ``plateau_factor`` multiplier down to
       ``min_lr_scale``), ``early_stop_plateaus`` ends the run cleanly after
       that many plateaus, and ``max_spikes`` loss spikes checkpoint and
       halt.
-
-    ``heartbeat`` and ``straggler_monitor`` are multi-GPU (ROADMAP A.6) and
-    refused at a value other than None.
     """
 
     def __init__(self, halt_on_stall: bool = False,
@@ -320,9 +330,12 @@ class RemediationPolicy:
                  early_stop_plateaus: Optional[int] = None,
                  max_spikes: Optional[int] = None,
                  straggler_monitor=None, straggler_every: int = 0):
-        engine.refuse_unported("RemediationPolicy",
-                               heartbeat=(heartbeat, None),
-                               straggler_monitor=(straggler_monitor, None))
+        if heartbeat is not None and heartbeat_every < 1:
+            raise ValueError("heartbeat needs heartbeat_every >= 1 "
+                             f"(got {heartbeat_every})")
+        if straggler_monitor is not None and straggler_every < 1:
+            raise ValueError("straggler_monitor needs straggler_every >= 1 "
+                             f"(got {straggler_every})")
         self.halt_on_stall = halt_on_stall
         self.probe_timeout_s = float(probe_timeout_s)
         self.exit_process = exit_process
@@ -674,7 +687,14 @@ class BaseOptimizer:
         if self._reg_tree:
             loss = loss + regularization_loss(self._reg_tree, params)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        loss = loss.detach()
+        return self._apply_update(params, mstate, opt_state, leaves, grads,
+                                  loss.detach(), new_mstate, lr)
+
+    def _apply_update(self, params, mstate, opt_state, leaves, grads, loss,
+                      new_mstate, lr):
+        """The step after the gradients: clipping, frozen leaves zeroed,
+        the update and the new model state, all written through the NaN
+        guard of ``loss``; returns ``loss``."""
         g = _clip_grads(unflatten(dict(zip(leaves, grads))),
                         self.clip_const, self.clip_norm)
         if self._frozen:
@@ -768,8 +788,33 @@ class BaseOptimizer:
         (JAX's names and layouts). The copies are complete when this
         returns, so the next step may write the tensors."""
         return {"params": host_copy_tree(params),
-                "opt_state": host_copy_tree(opt_state),
+                "opt_state": self._opt_state_for_checkpoint(opt_state),
                 "model_state": host_copy_tree(mstate)}
+
+    def _opt_state_for_checkpoint(self, opt_state):
+        """Host optimizer state in CANONICAL form (the state of a local
+        run; the ZeRO-1 override gathers and unflattens its slices)."""
+        return host_copy_tree(opt_state)
+
+    def _writes_files(self) -> bool:
+        """Whether this process writes the run's files: checkpoints
+        (every rank builds the payload, one writes it) and summaries."""
+        return True
+
+    def _prepare_opt_state(self, params):
+        """The optimizer state at the start of ``optimize``: a fresh
+        init, or the state a loaded checkpoint holds."""
+        opt_state = self.optim_method.init_state(params)
+        if self._resume_opt_state is not None:
+            copy_tree_into(opt_state, self._resume_opt_state)
+        return opt_state
+
+    def _new_generator(self):
+        return engine.new_generator(self.device)
+
+    def _evaluator(self):
+        from .evaluator import Evaluator
+        return Evaluator(self.model)
 
     def _checkpoint_payload(self, params, opt_state, mstate, state):
         """The checkpoint: JAX's keys, ``optim_host_state`` from the
@@ -789,7 +834,9 @@ class BaseOptimizer:
         payload = self._checkpoint_payload(params, opt_state, mstate, state)
         async_write = self.checkpoint_async and not force_sync
         with obs.span("step/checkpoint_submit", async_write=async_write):
-            if async_write:
+            if not self._writes_files():
+                pass
+            elif async_write:
                 self._ckpt_writer.submit(path, payload)
             else:
                 _atomic_pickle(path, payload)
@@ -832,11 +879,10 @@ class BaseOptimizer:
         without a validation set)."""
         if self.validation_set is None:
             return None
-        from .evaluator import Evaluator
         was_training = bool(self.model.training)
         self.model.evaluate()
         with obs.span("step/validate", neval=state["neval"]):
-            results = Evaluator(self.model).evaluate(
+            results = self._evaluator().evaluate(
                 self.validation_set, self.validation_methods,
                 self.validation_batch)
         if was_training:
@@ -845,7 +891,7 @@ class BaseOptimizer:
         for method, res in zip(self.validation_methods, results):
             val = res.result()[0]
             scores[repr(method)] = val
-            if self.val_summary is not None:
+            if self.val_summary is not None and self._writes_files():
                 # "Validation" gates every scalar, the method's tag its own
                 rec = self.val_summary.should_record
                 if rec("Validation", state) and rec(repr(method), state):
@@ -993,15 +1039,13 @@ class BaseOptimizer:
         model.training()
         params = model.params
         mstate = model.state
-        opt_state = self.optim_method.init_state(params)
-        if self._resume_opt_state is not None:
-            copy_tree_into(opt_state, self._resume_opt_state)
         self._reg_tree = regularizer_tree(model)
         self._frozen = _frozen_names(model)
+        opt_state = self._prepare_opt_state(params)
         # never read a dead run's in-flight losses
         self._pending_loss = None
         self._loss_window.clear()
-        generator = engine.new_generator(self.device)
+        generator = self._new_generator()
         state = self.optim_method.state
         batched = self._batched()
         done = False
@@ -1256,12 +1300,21 @@ class BaseOptimizer:
         live lock, which the loop lets go only while it waits for data, so
         no step writes the tensors while they are copied; a loop that does
         not let go within ``halt_artifact_timeout_s`` (wedged elsewhere)
-        halts without a checkpoint. The port has no mesh to probe
-        (multi-GPU is ROADMAP A.6)."""
+        halts without a checkpoint. A distributed run probes its mesh
+        first: a failed probe makes the stall PERMANENT and halts."""
         locked = False
         try:
             pol = self.remediation
-            if not pol.halt_on_stall:
+            cls, err = TRANSIENT, None
+            mesh = getattr(self, "mesh", None)
+            if mesh is not None and pol.probe_timeout_s > 0:
+                res = probe_mesh(mesh, timeout_s=pol.probe_timeout_s)
+                if not res.ok:
+                    cls = PERMANENT
+                    err = RuntimeError(
+                        f"mesh probe failed after {age_s:.1f}s stall of "
+                        f"{beacon.name}: {res.error}")
+            if cls != PERMANENT and not pol.halt_on_stall:
                 beacon.rearm()
                 return
             locked = self._live_lock.acquire(
@@ -1273,7 +1326,7 @@ class BaseOptimizer:
             state = dict(self.optim_method.state)
             self._halt_requested = self._land_halt_artifacts(
                 "stall", state, self._live_state if locked else None,
-                error=None, failure_class=TRANSIENT,
+                error=err, failure_class=cls,
                 stalled_component=beacon.name, age_s=round(age_s, 3),
                 ckpt_timeout_s=pol.halt_artifact_timeout_s)
             if pol.exit_process:
@@ -1327,18 +1380,47 @@ class BaseOptimizer:
             obs.instant("optim/lr_reduced", neval=state["neval"],
                         multiplier=mult)
 
-    def _remediation_tick(self, state, params, opt_state, mstate, events):
+    def _remediation_tick(self, state, params, opt_state, mstate, events,
+                          step_time_s=None):
         """One pass of the policy after a step (a group under supersteps):
-        True ends the run cleanly; spike overload halts."""
+        True ends the run cleanly; spike overload and heartbeat loss
+        halt; the straggler monitor records ``step_time_s`` and reports
+        on its cadence."""
         pol = self.remediation
         if pol is None:
             return False
         try:
-            return bool(events) and \
-                self._apply_anomaly_events(pol, state, events)
+            if events and self._apply_anomaly_events(pol, state, events):
+                return True
         except FloatingPointError as e:
             self._halt("loss_spikes", state, params, opt_state, mstate,
                        error=e, failure_class=PERMANENT)
+        hb = pol.heartbeat
+        if hb is not None and \
+                state["neval"] - pol._last_beat_neval >= pol.heartbeat_every:
+            pol._last_beat_neval = state["neval"]
+            try:
+                stale = hb.beat(timeout_s=pol.heartbeat_timeout_s)
+            except HeartbeatLost as e:
+                self._halt("heartbeat_lost", state, params, opt_state,
+                           mstate, error=e, failure_class=PERMANENT)
+            if stale:
+                self._halt("heartbeat_stale", state, params, opt_state,
+                           mstate, failure_class=PERMANENT,
+                           error=HeartbeatLost(
+                               f"peers {stale} stopped advancing their "
+                               f"heartbeat counters"),
+                           lost_processes=stale)
+        sm = pol.straggler_monitor
+        if sm is not None:
+            if step_time_s is not None:
+                sm.record(step_time_s)
+            # distance, not ``%``: a superstep advances neval by K
+            if state["neval"] - pol._last_straggler_neval >= \
+                    pol.straggler_every:
+                pol._last_straggler_neval = state["neval"]
+                sm.report()
+        return False
 
     def _record_summaries(self, state, loss_val, lr, throughput):
         rec = self.train_summary.should_record
@@ -1429,10 +1511,10 @@ class BaseOptimizer:
                     obs.gauge("optim/throughput",
                               unit="samples/s").set(throughput)
                     self._snap_writer.maybe_write(step=state["neval"])
-                if self.train_summary is not None:
+                if self.train_summary is not None and self._writes_files():
                     self._record_summaries(state, loss_val, lr, throughput)
                 if self._remediation_tick(state, params, opt_state, mstate,
-                                          events):
+                                          events, step_time_s=t2 - t1):
                     return True, nan_streak
                 self._fire_mid_epoch(state, params, opt_state, mstate)
                 if self.end_trigger(state):
@@ -1556,19 +1638,19 @@ class BaseOptimizer:
                 if self._loss_monitor is not None:
                     events.extend(self._loss_monitor.observe(
                         loss_val, state["neval"]))
-                if self.train_summary is not None:
+                if self.train_summary is not None and self._writes_files():
                     self._record_summaries(state, loss_val, lrs[i],
                                            throughput)
             if restored:
                 # the group's events before the NaN are of real losses
                 if self._remediation_tick(state, params, opt_state, mstate,
-                                          events):
+                                          events, step_time_s=t2 - t1):
                     return True, nan_streak
                 continue
             if self._profiler is not None:
                 self._profiler.maybe_tick(state["neval"])
             if self._remediation_tick(state, params, opt_state, mstate,
-                                      events):
+                                      events, step_time_s=t2 - t1):
                 return True, nan_streak
             # the triggers are asked once, at the group's boundary, where
             # the parameters and the counters agree
@@ -1581,14 +1663,381 @@ class LocalOptimizer(BaseOptimizer):
     """Training on one device."""
 
 
+def _local_seed_generator(device, rank):
+    """The dropout generator of a rank in a LOCAL-semantics step (ZeRO-1,
+    the sparse wire): the run's seed folded with the rank, as JAX folds
+    ``axis_index`` into its key."""
+    seed = engine.get_seed()
+    seed = engine._DEFAULT_SEED if seed is None else seed
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1000003 + rank) % (2 ** 63))
+
+
+class DistriOptimizer(BaseOptimizer):
+    """Data-parallel training over a mesh's ``data`` axis (parity:
+    optim/DistriOptimizer.scala), one process per rank.
+
+    Every rank reads the same global batches (the data set's seeded
+    shuffle) and trains on its rows (``parallel.sharding.shard_batch``).
+    The two parameter modes compute what JAX's compute:
+
+    * ``parameter_mode="replicated"`` (JAX: the whole step under ``jit``
+      over a sharded batch) is GLOBAL: the forward runs in
+      ``parallel.collective.global_batch``, so BatchNorm takes the global
+      batch's statistics (one all-reduce of its sums) and a criterion
+      that divides by a count of the data divides by the global count;
+      the loss and the gradients are then averaged over the ranks (one
+      all-reduce), and every rank applies the same update to its copy.
+      Every rank holds the run's one dropout generator and draws the
+      global batch's mask, keeping its own rows of it
+      (``parallel.collective.batch_rows``). The result equals a local
+      run over the global batch, dropout included, up to the summation
+      order.
+    * ``parameter_mode="zero1"`` (JAX: a ``shard_map`` body) is LOCAL:
+      forward, BatchNorm statistics and loss per rank; the gradient is the
+      mean over the ranks through ``parallel.allreduce.AllReduceParameter``
+      (reduce-scatter, this rank's slice of the update, all-gather), with
+      ``compress`` / ``wire_dtype`` picking the wire; the model state is
+      averaged over the ranks; dropout draws from the rank's own stream.
+      The optimizer state lives only sharded, and checkpoints hold it in
+      the canonical params-shaped form, so a snapshot restores under any
+      number of ranks (and from or into JAX).
+
+    ``sparse_embedding`` picks the Parallax wire for a leading
+    ``LookupTable``'s gradient in replicated mode (``"auto"`` when it
+    applies safely, ``True`` as a contract, ``False`` off); that step is
+    local, as JAX's explicit ``shard_map`` is. The NaN guard reads the
+    loss after the mean, so every rank takes the same branch; no rank
+    skips a collective. Setup all-gathers the ranks' batch counts and
+    refuses splits that disagree (they would deadlock). Checkpoints are
+    written by the mesh's first rank. ``device``: the mesh's device by
+    default."""
+
+    def __init__(self, model, training_set, criterion, optim_method=None,
+                 end_trigger=None, batch_size: int = 32, mesh=None,
+                 parameter_mode: str = "replicated",
+                 compress: str = "none", wire_dtype: str = "none",
+                 sparse_embedding="auto", device=None):
+        from ..parallel.mesh import get_default_mesh, mesh_device
+        if mesh is None and device is not None:
+            engine.init_process_group(device=device)    # the group's device
+        mesh = mesh or get_default_mesh()
+        super().__init__(model, training_set, criterion, optim_method,
+                         end_trigger, batch_size,
+                         device=device if device is not None
+                         else mesh_device(mesh))
+        self.mesh = mesh
+        if "data" not in tuple(self.mesh.mesh_dim_names):
+            raise ValueError("DistriOptimizer mesh needs a 'data' axis")
+        if parameter_mode not in ("replicated", "zero1"):
+            raise ValueError(f"parameter_mode must be 'replicated' or "
+                             f"'zero1', got {parameter_mode!r}")
+        if sparse_embedding is True and parameter_mode != "replicated":
+            raise ValueError(
+                "sparse_embedding selects per-LAYER gradient wires - "
+                "ZeRO-1 ships one flat vector and has no per-layer "
+                "seam; use parameter_mode='replicated'")
+        self.parameter_mode = parameter_mode
+        self.compress = compress
+        self.wire_dtype = wire_dtype
+        self.sparse_embedding = sparse_embedding
+        self._arp = None
+        self._flat = None
+        self._group = self.mesh.get_group("data")
+        self._rank = self.mesh.get_local_rank("data") \
+            if self._num_shards() > 1 else 0
+
+    def _num_shards(self):
+        from ..parallel.mesh import axis_size
+        return axis_size(self.mesh, "data")
+
+    def _batched(self):
+        if hasattr(self.training_set, "batches_per_epoch"):
+            return self.training_set
+        return ShardedDataSet(self.training_set, self.batch_size,
+                              num_shards=self._num_shards())
+
+    def _writes_files(self) -> bool:
+        import torch.distributed as dist
+        from ..parallel.mesh import mesh_ranks
+        return dist.get_rank() == int(mesh_ranks(self.mesh).flat[0])
+
+    def _evaluator(self):
+        from .evaluator import DistriValidator
+        v = DistriValidator(self.model)
+        v.mesh = self.mesh
+        return v
+
+    def _new_generator(self):
+        if self.parameter_mode == "zero1" or self._sparse_embedding_enabled():
+            return _local_seed_generator(self.device, self._rank)
+        return super()._new_generator()
+
+    # -- batches: this rank's rows of the global batch --------------------
+    def _stage_minibatch(self, mb):
+        from ..parallel.sharding import shard_batch
+        return (shard_batch(mb.get_input(), self.mesh),
+                shard_batch(mb.get_target(), self.mesh))
+
+    def _stage_group(self, items):
+        from ..parallel.sharding import shard_stacked_batch
+        xs = _stack([x for x, _ in items])
+        ys = _stack([y for _, y in items])
+        return (len(items), shard_stacked_batch(xs, self.mesh),
+                shard_stacked_batch(ys, self.mesh))
+
+    # -- setup and checkpoints ---------------------------------------------
+    def _check_split_agreement(self):
+        """Every rank must take the same number of steps an epoch (a rank
+        with more would wait forever in the next collective): the ranks'
+        batch counts are all-gathered at setup and a disagreement
+        raises on every rank."""
+        import torch.distributed as dist
+        n = self._num_shards()
+        if n == 1:
+            return
+        src = self._batched()
+        k = getattr(src, "batches_per_epoch", 0)
+        k = int(k() if callable(k) else (k or 0))
+        t = torch.tensor([k], dtype=torch.int64, device=self.device)
+        out = t.new_empty((n,))
+        dist.all_gather_into_tensor(out, t, group=self._group)
+        counts = out.cpu().tolist()
+        if len(set(counts)) > 1:
+            raise ValueError(
+                "per-process dataset splits disagree on batches/epoch "
+                f"{counts}; pad or trim the local splits so every "
+                "process takes the same number of steps (uneven splits "
+                "deadlock in the cross-process gradient psum)")
+
+    def _prepare_opt_state(self, params):
+        self._check_split_agreement()
+        if self.parameter_mode != "zero1":
+            return super()._prepare_opt_state(params)
+        from ..parallel.allreduce import AllReduceParameter
+        self._arp = AllReduceParameter(
+            self.optim_method, self.mesh, compress=self.compress,
+            wire_dtype=self.wire_dtype)
+        _, opt_state = self._arp.prepare(
+            params, resume_state=self._resume_opt_state)
+        self._flat = self._arp.flat
+        self._flat_mask = None
+        if self._frozen:
+            full = {k: torch.full_like(v, 0.0 if k in self._frozen else 1.0)
+                    for k, v in flatten(params).items()}
+            self._flat_mask = self._flat.flatten(unflatten(full))
+        return opt_state
+
+    def _opt_state_for_checkpoint(self, opt_state):
+        if self.parameter_mode == "zero1" and self._arp is not None:
+            from ..parallel.sharding import gather_to_host
+            return self._arp.state_to_canonical(
+                gather_to_host(opt_state, self.mesh))
+        return super()._opt_state_for_checkpoint(opt_state)
+
+    def _restore_step_state(self, payload, params, opt_state, mstate):
+        copy_tree_into(params, payload["params"])
+        copy_tree_into(mstate, payload["model_state"])
+        if self.parameter_mode == "zero1" and self._arp is not None:
+            copy_tree_into(opt_state, self._arp.place_canonical_state(
+                payload["opt_state"]))
+        else:
+            copy_tree_into(opt_state, payload["opt_state"])
+
+    def _resume(self, state, params, opt_state, mstate):
+        import torch.distributed as dist
+        self.wait_for_checkpoints()
+        dist.barrier(group=self._group)     # the first rank's writes landed
+        super()._resume(state, params, opt_state, mstate)
+
+    # -- the steps ----------------------------------------------------------
+    def _mean_over_ranks(self, tensors):
+        """The mean over the ranks of each tensor: one all-reduce of their
+        float32 concatenation."""
+        import torch.distributed as dist
+        from ..parallel.collective import _record
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        _record("pmean", flat)
+        dist.all_reduce(flat, group=self._group)
+        flat = flat / self._num_shards()
+        return [p.view(t.shape).to(t.dtype) for p, t in
+                zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+    def _local_loss(self, params, mstate, x, y, generator):
+        out, new_mstate = self.model.apply(params, mstate, x, training=True,
+                                           generator=generator)
+        loss = self.criterion._forward(out, y)
+        if self._reg_tree:
+            loss = loss + regularization_loss(self._reg_tree, params)
+        return loss, new_mstate
+
+    def _step(self, params, mstate, opt_state, x, y, lr, generator):
+        from ..parallel import collective
+        with collective.over(self.mesh):
+            if self.parameter_mode == "zero1":
+                return self._zero1_step(params, mstate, opt_state, x, y, lr,
+                                        generator)
+            if self._sparse_embedding_enabled():
+                return self._sparse_step(params, mstate, opt_state, x, y,
+                                         lr, generator)
+            return self._replicated_step(params, mstate, opt_state, x, y,
+                                         lr, generator)
+
+    def _replicated_step(self, params, mstate, opt_state, x, y, lr,
+                         generator):
+        from ..parallel.collective import global_batch
+        leaves = flatten(params)
+        with global_batch(self._group, self._num_shards()):
+            loss, new_mstate = self._local_loss(params, mstate, x, y,
+                                                generator)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        *grads, loss = self._mean_over_ranks(list(grads) + [loss])
+        # BatchNorm's new running statistics came from global statistics:
+        # the same on every rank
+        return self._apply_update(params, mstate, opt_state, leaves, grads,
+                                  loss, new_mstate, lr)
+
+    def _pmean_state(self, mstate, new_mstate):
+        """The new model state averaged over the ranks (JAX's ``pmean`` in
+        the local-semantics steps)."""
+        new = flatten(new_mstate)
+        names = [k for k, t in flatten(mstate).items() if new[k] is not t]
+        if not names:
+            return new_mstate
+        avg = self._mean_over_ranks([new[k] for k in names])
+        return unflatten({**new, **dict(zip(names, avg))})
+
+    def _zero1_step(self, params, mstate, opt_state, x, y, lr, generator):
+        leaves = flatten(params)
+        loss, new_mstate = self._local_loss(params, mstate, x, y, generator)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        flat = self._flat
+        gflat = flat.flatten(unflatten(dict(zip(leaves, grads))))
+        gflat = _clip_grads({"g": gflat}, self.clip_const,
+                            self.clip_norm)["g"]
+        if self._flat_mask is not None:
+            gflat = gflat * self._flat_mask
+        flat_w = flat.flatten(params)
+        new_full, new_opt = self._arp.update(gflat, flat_w, opt_state, lr)
+        if self._flat_mask is not None:
+            new_full = torch.where(self._flat_mask > 0, new_full, flat_w)
+        loss = self._mean_over_ranks([loss.detach()])[0]
+        new_mstate = self._pmean_state(mstate, new_mstate)
+        new_params = flatten(flat.unflatten(new_full))
+        writes = [(t, new_params[k]) for k, t in leaves.items()]
+        new_o = flatten(new_opt)
+        writes += [(t, new_o[k]) for k, t in flatten(opt_state).items()
+                   if new_o[k] is not t]
+        new_m = flatten(new_mstate)
+        writes += [(t, new_m[k]) for k, t in flatten(mstate).items()
+                   if new_m[k] is not t]
+        # after the mean: every rank takes the same branch
+        write_guarded(writes, torch.isfinite(loss))
+        return loss
+
+    # -- the Parallax sparse-embedding wire -------------------------------
+    def _sparse_embedding_path(self):
+        """``(param path, vocab size)`` of the embedding whose ids are the
+        model input: the model itself, or a leading Sequential's first
+        child, a ``LookupTable`` without a ``w_regularizer``."""
+        from ..nn.linear import LookupTable
+        m = self.model
+        emb, path = None, None
+        if isinstance(m, LookupTable):
+            emb, path = m, ("weight",)
+        elif isinstance(m, Container) and len(m._modules) and \
+                isinstance(m[0], LookupTable):
+            emb, path = m[0], ("0", "weight")
+        if emb is None:
+            raise ValueError(
+                "sparse_embedding=True needs the model input to BE the "
+                "embedding ids: a LookupTable model, or a Sequential "
+                "whose first child is a LookupTable - got "
+                f"{type(m).__name__}")
+        if emb.w_regularizer is not None:
+            raise ValueError(
+                "sparse_embedding=True cannot ride a w_regularizer'd "
+                "embedding: the regularizer gradient is dense over the "
+                "whole vocab, which the sparse (indices, values) "
+                "exchange cannot carry - drop the regularizer or the "
+                "sparse wire")
+        return path, emb.n_index
+
+    def _sparse_embedding_enabled(self) -> bool:
+        """``True`` / ``False`` as given; ``"auto"``: the wire exactly
+        when ``_sparse_embedding_path`` accepts the model in replicated
+        mode."""
+        se = self.sparse_embedding
+        if se == "auto":
+            if self.parameter_mode != "replicated":
+                return False
+            try:
+                self._sparse_embedding_path()
+            except ValueError:
+                return False
+            return True
+        return bool(se)
+
+    def _sparse_step(self, params, mstate, opt_state, x, y, lr, generator):
+        """The per-layer wire (local semantics, as JAX's ``shard_map``):
+        the embedding's gradient ships its touched ``(ids, rows)`` when
+        ``B_local * (H + 1) < vocab * H`` elements, every other leaf the
+        dense mean."""
+        from ..nn.sparse import embedding_grad_rows
+        from ..parallel.allreduce import sparse_embedding_grad_allreduce
+        path, vocab = self._sparse_embedding_path()
+        emb_name = ".".join(path)
+        leaves = flatten(params)
+        loss, new_mstate = self._local_loss(params, mstate, x, y, generator)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        ids = torch.clamp(x.reshape(-1).to(torch.int32) - 1, 0, vocab - 1)
+        g = grads[emb_name]
+        sparse = ids.shape[0] * (g.shape[-1] + 1) < g.numel()
+        dense = [k for k in grads if not (sparse and k == emb_name)]
+        if obs.enabled():
+            obs.counter("collective/grad_dense_traced_bytes", unit="B").inc(
+                float(sum(grads[k].numel() * grads[k].element_size()
+                          for k in dense)))
+            obs.gauge("collective/sparse_layers_selected").set(int(sparse))
+        avg = self._mean_over_ranks([grads[k] for k in dense] + [loss])
+        loss = avg.pop()
+        grads.update(zip(dense, avg))
+        if sparse:
+            grads[emb_name] = sparse_embedding_grad_allreduce(
+                ids, embedding_grad_rows(g, ids), vocab_size=vocab,
+                axis="data")
+        new_mstate = self._pmean_state(mstate, new_mstate)
+        return self._apply_update(params, mstate, opt_state, leaves,
+                                  [grads[k] for k in leaves], loss,
+                                  new_mstate, lr)
+
+
+class ParallelOptimizer(DistriOptimizer):
+    """Name parity: optim/ParallelOptimizer.scala (the same engine)."""
+
+
 class Optimizer(BaseOptimizer):
-    """Factory with the reference's signature. The port runs on one GPU
-    so far, so it always builds a :class:`LocalOptimizer`."""
+    """Factory with the reference's signature: a :class:`DistriOptimizer`
+    when the mesh (``mesh``, else the default mesh when this process is
+    in a group of more than one rank) has more than one device, else a
+    :class:`LocalOptimizer` on ``device``."""
 
     def __new__(cls, model=None, training_set=None, training_rdd=None,
                 criterion=None, optim_method=None, end_trigger=None,
-                batch_size: int = 32, device=None):
+                batch_size: int = 32, mesh=None, device=None, **kw):
         training = training_set if training_set is not None else training_rdd
+        m = mesh
+        if m is None:
+            import torch.distributed as dist
+            if dist.is_available() and dist.is_initialized() and \
+                    dist.get_world_size() > 1:
+                from ..parallel.mesh import get_default_mesh
+                m = get_default_mesh()
+        if m is not None and m.size() > 1:
+            return DistriOptimizer(model, training, criterion, optim_method,
+                                   end_trigger, batch_size, mesh=m,
+                                   device=device, **kw)
         return LocalOptimizer(model, training, criterion, optim_method,
                               end_trigger, batch_size, device=device)
 
@@ -1597,7 +2046,8 @@ class Optimizer(BaseOptimizer):
                batch_size=32, optim_method=None, cores=None,
                bigdl_type="float", device=None):
         """pyspark ``Optimizer.create`` spelling (``cores`` and
-        ``bigdl_type`` are ignored)."""
+        ``bigdl_type`` are ignored; local or distributed is picked as the
+        constructor picks it)."""
         return Optimizer(model=model, training_set=training_set,
                          criterion=criterion, optim_method=optim_method,
                          end_trigger=end_trigger, batch_size=batch_size,

@@ -13,7 +13,7 @@ share one capacity slot; the port reproduces this (ROADMAP.md, reference
 caveats) instead of fixing it.
 
 The expert-parallel ``moe_ffn`` (an ``all_to_all`` over a device mesh) is
-multi-GPU work and not ported yet.
+model-parallel multi-GPU work (ROADMAP A.6b) and not ported yet.
 """
 from __future__ import annotations
 

@@ -56,7 +56,7 @@ the paged-attention kernel on a CUDA device.
   names (``serve/ttft_ms``, ``serve/decode_step``, ...).
 
 Mesh / tensor-parallel serving (``mesh``, ``placement``) is not ported and
-is refused at a value other than JAX's default (ROADMAP A.6).
+is refused at a value other than JAX's default (ROADMAP A.6b).
 """
 from __future__ import annotations
 

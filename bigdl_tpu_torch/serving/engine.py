@@ -25,7 +25,7 @@ a stall-watchdog beacon (``serving/batcher[<name>]``).
 The engine runs on its registry's device: the CUDA device unless the
 caller passes ``device="cpu"``. Mesh placement (``mesh``, ``placement``,
 ``batch_spec``) is not ported and is refused at a value other than JAX's
-default (ROADMAP A.6).
+default (ROADMAP A.6b).
 """
 from __future__ import annotations
 

@@ -51,7 +51,7 @@ class ModelRegistry:
             if v is not None:
                 raise NotImplementedError(
                     f"ModelRegistry({name}=...): mesh placement is not "
-                    f"ported (one device; ROADMAP A.6)")
+                    f"ported (one device; ROADMAP A.6b)")
         self.device = device
         self._versions: Dict[str, ModelVersion] = {}
         self._order: List[str] = []

@@ -331,6 +331,24 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``DetectionOutputFrcnn``), each card against CPU with the detections,
    labels and scores equal, and ms a call.
 
+18. trains across GPUs through ``DistriOptimizer`` (phase 18,
+   ``distributed``; sizes in ``DIST18``): (a) the flagship at
+   ``bench_transformer_lm``'s width, float32 parameters, B16/T1024, on a
+   one-rank NCCL group - replicated equal to ``LocalOptimizer`` after 3
+   steps, then ``replicated``, ``zero1``, ``zero1`` with
+   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 2 warm-up and 5
+   timed steps each (step ms, tokens/s, peak GiB, K1 launches by route,
+   the collectives' bytes a step, NCCL's kernel ms in a profiled step);
+   (b) ResNet-50 fused NHWC float32 B32/224, local / replicated (equal
+   running statistics) / ZeRO-1 with ``fused_conv2``; (c) two ranks
+   sharing the card over gloo (this script with ``--phase18-rank``), every
+   mode on the flagship cut to 2 layers against one rank, and a
+   BatchNorm model in replicated mode; (d) ``probe_mesh``, a
+   ``Heartbeat`` and a ``StragglerMonitor`` over the two ranks and an
+   ``ElasticRunner`` drill (ZeRO-1 halts after step 2 on both ranks, rank
+   0 resumes alone on one NCCL rank from the canonical checkpoint to
+   step 4, against an uninterrupted one-rank run).
+
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
 each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
@@ -370,12 +388,14 @@ ones on the ``_f32`` rows and its validation's on the ``_eval`` rows;
 17's training launches, and its ``generate`` launches on ``flash_fwd``);
 the flash, K3, K4 and K5 rows carry their
 ``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
+phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 import atexit
 import contextlib
+import datetime
 import json
 import math
 import os
@@ -1485,6 +1505,8 @@ def trace_steps(torch, step, n=2, top=20, per_call=1, convs=True):
         low = name.lower()
         if "bigdl" in low:
             return "port kernels"
+        if "nccl" in low:
+            return "NCCL"
         if not convs and "xmma_gemm" in low:
             return "cuBLAS"
         if any(w in low for w in ("conv", "cudnn", "xmma", "dgrad",
@@ -5739,6 +5761,578 @@ def _det_same(torch, name, got, want):
               f"differ between card and CPU")
 
 
+
+# -- phase 18: data-parallel training across GPUs -------------------------------
+
+# (a) the flagship at bench_transformer_lm's width through DistriOptimizer,
+# (b) ResNet-50 fused NHWC float32, (c) two ranks sharing the card over
+# gloo, (d) the failure detectors and the elastic restart
+DIST18 = dict(B=16, T=1024, warm=2, timed=5, local_steps=3, res_B=32,
+              res_S=224, res_steps=3, gloo_layers=2, gloo_steps=3,
+              gloo_lr=0.1, elastic_halt=2, elastic_steps=4)
+# (c) and (d) train at lr 0.1 (SGD, momentum 0.9): at (a)'s 0.01 three
+# steps moved the depth-2 flagship's parameters by 4.7e-5 at most, less
+# than the 1e-4 tolerance and near float32's rounding of values ~1
+# chosen before the run from a chip probe of gloo on CUDA tensors (PERF.md):
+# gloo takes all_reduce, reduce_scatter_tensor, all_gather_into_tensor and
+# all_to_all_single in float32 / bf16 / fp16 / int64 / float64, broadcast,
+# barrier and all_gather_object; it refuses send / recv ("writev ... Bad
+# address"), which data-parallel training does not use. So every mode runs.
+MODES18 = [("replicated", {}), ("zero1", {}),
+           ("zero1_compress", {"compress": "bf16"}),
+           ("zero1_wire", {"wire_dtype": "bf16"})]
+GLOO_TOL = 1e-4          # the CPU tests' tolerance after several steps
+GLOO_BF16_TOL = 2e-3     # compress="bf16": the reduce-scatter sums in bf16
+# ... and each error as a share of how far the one-rank run moved the
+# parameters from their initial values (max |param - init|): a broken
+# exchange (no all-reduce, half the batch, a 1/n too many) is off by a
+# large share of that movement, float32 sums in another order by ~1e-5
+# of it at most; both bf16 wires round each rank's gradient (up to 2^-9
+# of it a rounding, on the one-rank and the two-rank side alike)
+GLOO_REL = 1e-3
+GLOO_BF16_REL = 3e-2
+COLLECTIVE_COUNTERS = ("pmean", "psum", "reduce_scatter", "grad_wire",
+                       "all_gather")
+
+
+def _mode_kw(mode):
+    name, kw = mode
+    return ("zero1" if name.startswith("zero1") else name), kw
+
+
+def _collective_bytes(obs):
+    reg = obs.registry()
+    out = {}
+    for op in COLLECTIVE_COUNTERS:
+        c = reg.get(f"collective/{op}_traced_bytes")
+        if c is not None and c.value:
+            out[op] = c.value
+    return out
+
+
+def _max_err(torch, a, b):
+    from bigdl_tpu_torch.convert import flatten
+    fa, fb = flatten(a), flatten(b)
+    host = lambda t: torch.as_tensor(t).detach().float().cpu()
+    return max(float((host(fa[k]) - host(fb[k])).abs().max()) for k in fa)
+
+
+class _FixedBatches:
+    """A batch-level data set of fixed global batches in a fixed order:
+    a resumed run sees the batches an uninterrupted one sees."""
+
+    def __init__(self, samples, B):
+        from bigdl_tpu_torch.dataset import MiniBatch
+        self._mbs = [MiniBatch(np.stack([s.feature() for s in samples[i:i + B]]),
+                               np.stack([s.label() for s in samples[i:i + B]]))
+                     for i in range(0, len(samples), B)]
+
+    def size(self):
+        return sum(len(m.get_input()) for m in self._mbs)
+
+    def batches_per_epoch(self):
+        return len(self._mbs)
+
+    def shuffle(self):
+        return self
+
+    def data(self, train=True):
+        return iter(self._mbs)
+
+
+def _distri_lm(torch, model, samples, mode, steps, B, mesh, end=None,
+               fixed=False, lr=0.01):
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import LMCriterion
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    pm, kw = _mode_kw(mode)
+    data = _FixedBatches(samples, B) if fixed else DataSet.array(samples)
+    return DistriOptimizer(model, data, LMCriterion(),
+                           SGD(learningrate=lr, momentum=0.9),
+                           end or max_iteration(steps), batch_size=B,
+                           mesh=mesh, parameter_mode=pm, **kw)
+
+
+def _bn_net(nn, dev, seed=0):
+    import torch
+    m = nn.Sequential(
+        nn.SpatialConvolution(3, 8, 3, 3, 1, 1, 1, 1, with_bias=False,
+                              format="NHWC"),
+        nn.SpatialBatchNormalization(8, data_format="NHWC"), nn.ReLU(),
+        nn.View(8 * 16 * 16), nn.Linear(8 * 16 * 16, 10))
+    m.reset(torch.Generator().manual_seed(seed))
+    return m.to(dev)
+
+
+def _bn_run(torch, mesh, dev, steps=3, B=16):
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.convert import host_copy_tree
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.optim import SGD, DistriOptimizer, max_iteration
+    rng = np.random.RandomState(8)
+    x = rng.randn(B * steps, 16, 16, 3).astype(np.float32)
+    y = rng.randint(1, 11, B * steps).astype(np.float32)
+    m = _bn_net(nn, dev)
+    DistriOptimizer(m, DataSet.array([Sample(a, b) for a, b in zip(x, y)]),
+                    nn.CrossEntropyCriterion(), SGD(learningrate=0.1),
+                    max_iteration(steps), batch_size=B, mesh=mesh).optimize()
+    return {"params": host_copy_tree(m.params),
+            "state": host_copy_tree(m.state)}
+
+
+_GLOO_LM = {}
+
+
+def _gloo_lm(torch, dev, seed=7):
+    """The flagship cut to ``gloo_layers`` layers, built once a process
+    and put back to its initial weights at every call (a run trains it in
+    place)."""
+    from bigdl_tpu_torch.models import TransformerLM
+    if dev not in _GLOO_LM:
+        cfg = dict(FLAGSHIP, num_layers=DIST18["gloo_layers"],
+                   max_len=DIST18["T"])
+        m = TransformerLM(**cfg, device=dev, seed=seed)
+        _GLOO_LM[dev] = (m, {k: v.clone() for k, v in
+                             m.state_dict().items()})
+    m, init = _GLOO_LM[dev]
+    m.load_state_dict(init)
+    return m
+
+
+def phase18_rank(rank, n, port, spec):
+    """One of (c)'s two ranks sharing the card over gloo: every mode of
+    MODES18 on the depth-cut flagship, the BatchNorm model, the heartbeat
+    and the straggler monitor, then the elastic drill (rank 1 leaves,
+    rank 0 resumes on one NCCL rank). Rank 0 compares against the
+    one-rank references of ``spec`` and writes its findings."""
+    import torch
+    from bigdl_tpu_torch import kernels as K
+    from bigdl_tpu_torch.convert import host_copy_tree
+    from bigdl_tpu_torch.nn import LMCriterion
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, Trigger,
+                                       several_iteration)
+    from bigdl_tpu_torch.parallel import data_parallel_mesh
+    from bigdl_tpu_torch.parallel.elastic import (ElasticRunner,
+                                                  data_parallel_factory)
+    from bigdl_tpu_torch.parallel.failure import (Heartbeat,
+                                                  StragglerMonitor,
+                                                  TrainingHalted)
+    from bigdl_tpu_torch.utils import engine
+    with open(spec, "rb") as f:
+        cfg = pickle.load(f)
+    DIST18.update(cfg["sizes"][0])
+    FLAGSHIP.update(cfg["sizes"][1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = cfg["dev"]
+    # two ranks share the one card: NCCL refuses that, so the group is
+    # made over gloo here and the engine keeps it
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=n, timeout=datetime.timedelta(seconds=300))
+    engine.init_process_group(device=dev)
+    mesh = data_parallel_mesh()
+    samples = _lm_samples(FLAGSHIP["vocab_size"],
+                          DIST18["B"] * DIST18["gloo_steps"], DIST18["T"],
+                          seed=11)
+    refs = torch.load(cfg["refs"], weights_only=False) if rank == 0 \
+        else None
+    out = {"modes": {}}
+    for mode in MODES18:
+        model = _gloo_lm(torch, dev)
+        opt = _distri_lm(torch, model, samples, mode, DIST18["gloo_steps"],
+                         DIST18["B"], mesh, lr=DIST18["gloo_lr"])
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize()
+        _sync(torch, dev)
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        rec = {"wall_s": dt, "step_s": opt.metrics.values["step_time"],
+               "flash": (counts["flash_fwd"], counts["flash_bwd"])}
+        if rank == 0:
+            rec["err"] = _max_err(torch, model.params, refs[mode[0]])
+        out["modes"][mode[0]] = rec
+        del model, opt
+    bn = _bn_run(torch, mesh, dev)
+    if rank == 0:
+        out["bn_err"] = (_max_err(torch, bn["params"], refs["bn"]["params"]),
+                         _max_err(torch, bn["state"], refs["bn"]["state"]))
+    hb = Heartbeat(stale_after=2)
+    out["heartbeat"] = [hb.beat(timeout_s=60) for _ in range(3)]
+    sm = StragglerMonitor()
+    for t in out["modes"]["replicated"]["step_s"]:
+        sm.record(t)
+    out["straggler"] = sm.report()
+    # (d) the elastic drill: ZeRO-1 on both ranks halts after step 2 with
+    # rank 1 lost; rank 0 resumes alone on one NCCL rank to step 4
+    attempts = []
+
+    def make(m):
+        attempt = len(attempts)
+        attempts.append((m.size(), str(engine.process_group()["backend"])))
+
+        def end(st):
+            if attempt == 0 and st["neval"] == DIST18["elastic_halt"]:
+                raise TrainingHalted("drill", lost_processes=[1],
+                                     neval=st["neval"])
+            return st["neval"] >= DIST18["elastic_steps"]
+        o = _distri_lm(torch, _gloo_lm(torch, dev),
+                       samples[:2 * DIST18["B"]],
+                       ("zero1", {}), 0, DIST18["B"], m, end=Trigger(end),
+                       fixed=True, lr=DIST18["gloo_lr"])
+        o.set_checkpoint(several_iteration(1), cfg["ckpt"])
+        return o
+
+    t0 = time.perf_counter()
+    runner = ElasticRunner(data_parallel_factory(make), cfg["ckpt"],
+                           max_restarts=1, aggregate_bundles=False)
+    model = runner.run()
+    out["elastic"] = {"attempts": attempts, "s": time.perf_counter() - t0,
+                      "restarts": runner.restarts}
+    if rank == 0:
+        out["elastic"]["err"] = _max_err(torch, model.params,
+                                         refs["elastic"])
+    with open(cfg["out"] + f".{rank}", "wb") as f:
+        pickle.dump(out, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _gloo_refs(torch, mesh, tmp, dev):
+    """The one-rank references of (c) and (d), on this process's NCCL
+    world of one, saved for the gloo ranks; returns their path and how far
+    each reference moved from its initial values (max |param - init|, and
+    for the BatchNorm model its running statistics too)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.convert import host_copy_tree
+    from bigdl_tpu_torch.optim import max_iteration
+    samples = _lm_samples(FLAGSHIP["vocab_size"],
+                          DIST18["B"] * DIST18["gloo_steps"], DIST18["T"],
+                          seed=11)
+    init = host_copy_tree(_gloo_lm(torch, dev).params)
+    refs, moves = {}, {}
+    for mode in MODES18:
+        model = _gloo_lm(torch, dev)
+        _distri_lm(torch, model, samples, mode, DIST18["gloo_steps"],
+                   DIST18["B"], mesh, lr=DIST18["gloo_lr"]).optimize()
+        refs[mode[0]] = host_copy_tree(model.params)
+        moves[mode[0]] = _max_err(torch, refs[mode[0]], init)
+    bn0 = _bn_net(nn, dev)
+    bn_init = (host_copy_tree(bn0.params), host_copy_tree(bn0.state))
+    refs["bn"] = _bn_run(torch, mesh, dev)
+    moves["bn"] = (_max_err(torch, refs["bn"]["params"], bn_init[0]),
+                   _max_err(torch, refs["bn"]["state"], bn_init[1]))
+    # the elastic drill's uninterrupted run: 2 batches an epoch, 4 steps
+    model = _gloo_lm(torch, dev)
+    _distri_lm(torch, model, samples[:2 * DIST18["B"]], ("zero1", {}),
+               DIST18["elastic_steps"], DIST18["B"], mesh,
+               fixed=True, lr=DIST18["gloo_lr"]).optimize()
+    refs["elastic"] = host_copy_tree(model.params)
+    moves["elastic"] = _max_err(torch, refs["elastic"], init)
+    path = os.path.join(tmp, "refs18.pt")
+    torch.save(refs, path)
+    return path, moves
+
+
+def distributed(torch, K, card, dev="cuda", tmp=None):
+    """Phase 18: data-parallel training through ``DistriOptimizer``.
+    (a) the flagship (vocab 32000, hidden 1024, 16 heads, filter 4096, 12
+    layers, float32 parameters, B16/T1024, ``LMCriterion``, SGD 0.01
+    momentum 0.9) on this process's one-rank NCCL group: LocalOptimizer 3
+    steps, replicated 3 steps equal to it, then each of MODES18 2 warm-up
+    and 5 timed steps (step ms, tokens/s, peak GiB, K1 launches by route,
+    the collectives' bytes a step from the counters) and one more step
+    under the profiler (NCCL's kernels' ms). (b) ResNet-50 fused NHWC
+    float32 B32/224: LocalOptimizer, replicated (its BatchNorm running
+    statistics equal the local run's) and ZeRO-1 with ``fused_conv2``,
+    3 steps each, step ms, images/s, K3 / K4 / K5 launches by route.
+    (c) two ranks on this card over gloo (processes of this script): each
+    mode on the flagship cut to 2 layers, global B16/T1024 (8 rows a
+    rank), SGD 0.1, 3 steps, against the one-rank runs on the same global
+    batches, each error also as a share of how far the one-rank run moved
+    the parameters, and a BatchNorm model in ``replicated`` against one
+    rank. (d)
+    ``probe_mesh`` on the NCCL group, a ``Heartbeat`` and a
+    ``StragglerMonitor`` over (c)'s ranks, and ``ElasticRunner``: (c)'s
+    ranks in ZeRO-1 halt after step 2, rank 0 resumes on one NCCL rank
+    from the canonical checkpoint to step 4, against an uninterrupted
+    one-rank run. Returns the launches a kernel row adds."""
+    from bigdl_tpu_torch import observability as obs
+    from bigdl_tpu_torch.convert import host_copy_tree
+    from bigdl_tpu_torch.dataset import DataSet, Sample
+    from bigdl_tpu_torch.models import ResNet50, TransformerLM
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, LMCriterion
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, LocalOptimizer,
+                                       max_iteration)
+    from bigdl_tpu_torch.parallel import data_parallel_mesh, probe_mesh
+    from bigdl_tpu_torch.utils import engine
+    t18 = time.perf_counter()
+    tmp = tmp or tempfile.mkdtemp(prefix="phase18_")
+    grp = engine.init_process_group(device=dev)
+    mesh = data_parallel_mesh()
+    print(f"[18] data-parallel training ({card}): group {grp['backend']} "
+          f"world {grp['world_size']} on {grp['device']}", flush=True)
+    check(grp["backend"] == "nccl" and grp["world_size"] == 1,
+          f"phase 18's group: {grp}")
+    launches = dict.fromkeys(("flash_fwd", "flash_bwd", "fused_matmul_fwd",
+                              "fused_matmul_bwd", "fused_chain_fwd",
+                              "fused_chain_bwd", "fused_conv_fwd"), 0)
+    L = FLAGSHIP["num_layers"]
+    B, T = DIST18["B"], DIST18["T"]
+    model = TransformerLM(**dict(FLAGSHIP, max_len=T), device=dev, seed=0)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    steps = DIST18["warm"] + DIST18["timed"]
+    samples = _lm_samples(FLAGSHIP["vocab_size"], B * steps, T, seed=3)
+    # (a) LocalOptimizer, then replicated: equal after 3 steps
+    n3 = DIST18["local_steps"]
+    local = LocalOptimizer(model, DataSet.array(samples[:B * n3]),
+                           LMCriterion(), SGD(learningrate=0.01,
+                                              momentum=0.9),
+                           max_iteration(n3), batch_size=B, device=dev)
+    local.optimize()
+    want = host_copy_tree(model.params)
+    model.load_state_dict(init)
+    _distri_lm(torch, model, samples[:B * n3], ("replicated", {}), n3, B,
+               mesh).optimize()
+    err = _max_err(torch, model.params, want)
+    del want
+    print(f"    (a) replicated against LocalOptimizer after {n3} steps: "
+          f"max abs err {err:.3e} ({card})", flush=True)
+    check(err <= 1e-5, f"replicated DistriOptimizer {err} from "
+          f"LocalOptimizer after {n3} steps")
+    r18 = {"lm": {}, "resnet": {}}
+    for mode in MODES18:
+        model.load_state_dict(init)
+        opt = _distri_lm(torch, model, samples, mode, steps, B, mesh)
+        obs.enable()
+        obs.registry().reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        opt.optimize()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        routes = K.launches_by_route()
+        wire = _collective_bytes(obs)
+        obs.disable()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = dict.fromkeys(K.WRAPPERS, 0)
+        want.update(flash_fwd=L * steps, flash_bwd=L * steps)
+        check(counts == want, f"(a) {mode[0]} launched {counts}, expected "
+              f"{want}")
+        check(only_on(routes["flash_fwd"], "f32_sm90", L * steps)
+              and only_on(routes["flash_bwd"], "f32_sm90", L * steps),
+              f"(a) {mode[0]} flash routes {routes['flash_fwd']} / "
+              f"{routes['flash_bwd']}, expected f32_sm90")
+        launches["flash_fwd"] += counts["flash_fwd"]
+        launches["flash_bwd"] += counts["flash_bwd"]
+        st = opt.metrics.values["step_time"][DIST18["warm"]:]
+        ms = statistics.median(st) * 1e3
+        loss = opt.optim_method.state["loss"]
+        check(math.isfinite(loss), f"(a) {mode[0]} loss {loss}")
+        # one more step under the profiler: NCCL's kernels a step
+        again = _distri_lm(torch, model, samples[:B], mode, 1, B, mesh)
+        tr = trace_steps(torch, again.optimize, n=1, convs=False)
+        nccl = tr["families"].get("NCCL", 0.0)
+        per_step = {k: v / steps for k, v in wire.items()}
+        r18["lm"][mode[0]] = {"step_ms": ms, "tokens_s": B * T / ms * 1e3,
+                              "peak_gib": peak, "bytes": per_step,
+                              "nccl_ms": nccl,
+                              "device_ms": tr["device_ms"], "loss": loss}
+        print(f"    (a) {mode[0]:15s} step {ms:8.1f} ms  "
+              f"{B * T / ms * 1e3:9.0f} tokens/s  peak {peak:5.1f} GiB  "
+              f"K1 a step fwd {counts['flash_fwd'] // steps} / bwd "
+              f"{counts['flash_bwd'] // steps} on f32_sm90  collectives a "
+              f"step {per_step} B  NCCL {nccl:.3f} ms of "
+              f"{tr['device_ms']:.1f} device ms  loss {loss:.4f}  "
+              f"({card})", flush=True)
+        del opt, again
+        torch.cuda.empty_cache()
+    del model, init
+    torch.cuda.empty_cache()
+    print(f"    (a) {time.perf_counter() - t18:.1f} s", flush=True)
+    t_b = time.perf_counter()
+    # (b) ResNet-50 fused NHWC float32 B32
+    RB, S, n = DIST18["res_B"], DIST18["res_S"], DIST18["res_steps"]
+    rng = np.random.RandomState(6)
+    imgs = rng.randn(RB * n, S, S, 3).astype(np.float32)
+    labels = rng.randint(1, 1001, RB * n)
+    rs = [Sample(imgs[i], labels[i]) for i in range(RB * n)]
+    states = {}
+    # cuDNN's deterministic algorithms (as phase 12's reruns), so that the
+    # replicated run can be held to the local one; restored afterwards
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    for arm, conv2 in (("local", False), ("replicated", False),
+                       ("zero1", True)):
+        m = ResNet50(format="NHWC", fused="pallas", fused_conv2=conv2,
+                     zero_init_residual=False, device=dev, seed=5)
+        args = (m, DataSet.array(rs), CrossEntropyCriterion(),
+                SGD(learningrate=0.1, momentum=0.9), max_iteration(n))
+        opt = LocalOptimizer(*args, batch_size=RB, device=dev) \
+            if arm == "local" else \
+            DistriOptimizer(*args, batch_size=RB, mesh=mesh,
+                            parameter_mode=arm)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        opt.optimize()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        routes = K.launches_by_route()
+        want = dict.fromkeys(K.WRAPPERS, 0)
+        want.update(fused_matmul_fwd=24 * n, fused_matmul_bwd=24 * n,
+                    fused_chain_fwd=12 * n, fused_chain_bwd=12 * n)
+        if conv2:
+            want.update(fused_conv_fwd=16 * n)
+        check(counts == want, f"(b) {arm} launched {counts}, expected "
+              f"{want}")
+        for k in want:
+            if want[k]:
+                check(only_on(routes[k], "f32_sm90", want[k]),
+                      f"(b) {arm} {k} routes {routes[k]}")
+        if arm != "local":
+            for k in launches:
+                launches[k] += counts[k]
+        ms = statistics.median(opt.metrics.values["step_time"][1:]) * 1e3
+        states[arm] = host_copy_tree(m.state)
+        r18["resnet"][arm] = {"step_ms": ms, "images_s": RB / ms * 1e3,
+                              "steps_ms": [round(t * 1e3, 1) for t in
+                                           opt.metrics.values["step_time"]]}
+        print(f"    (b) ResNet-50 {arm:10s}{' fused_conv2' if conv2 else ''}"
+              f" step {ms:7.1f} ms  {RB / ms * 1e3:7.1f} images/s  K3 "
+              f"{counts['fused_matmul_fwd'] // n}+"
+              f"{counts['fused_matmul_bwd'] // n} K5 "
+              f"{counts['fused_chain_fwd'] // n}+"
+              f"{counts['fused_chain_bwd'] // n} K4 "
+              f"{counts['fused_conv_fwd'] // n} a step on f32_sm90 "
+              f"(steps {r18['resnet'][arm]['steps_ms']} ms) ({card})",
+              flush=True)
+        del m, opt
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    err = _max_err(torch, states["replicated"], states["local"])
+    print(f"    (b) replicated BatchNorm running statistics against "
+          f"LocalOptimizer after {n} steps: max abs err {err:.3e} "
+          f"({card})", flush=True)
+    check(err <= 1e-5, f"(b) replicated running statistics {err} from "
+          f"the local run's")
+    print(f"    (b) {time.perf_counter() - t_b:.1f} s", flush=True)
+    # (d) the mesh probe on the NCCL group
+    p = probe_mesh(mesh, timeout_s=30)
+    print(f"    (d) probe_mesh on the NCCL group: {p} ({card})", flush=True)
+    check(p.ok and p.n_devices == 1, f"probe_mesh {p}")
+    # (c) + (d) two ranks on the card over gloo
+    print(f"    (c) gloo modes chosen before the run: "
+          f"{[m[0] for m in MODES18]}; not run: none (gloo takes every "
+          f"collective they use on CUDA tensors; it refuses only send / "
+          f"recv, which ppermute_ring uses and data parallelism does not)",
+          flush=True)
+    t0 = time.perf_counter()
+    refs, moves = _gloo_refs(torch, mesh, tmp, dev)
+    ref_s = time.perf_counter() - t0
+    spec = os.path.join(tmp, "spec18.pkl")
+    out = os.path.join(tmp, "out18")
+    with open(spec, "wb") as f:
+        pickle.dump({"refs": refs, "out": out, "dev": dev,
+                     "ckpt": os.path.join(tmp, "ckpt18"),
+                     "sizes": (DIST18, FLAGSHIP)}, f)
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--phase18-rank", str(r), "2", str(port),
+                               spec], cwd=root) for r in range(2)]
+    deadline = time.monotonic() + 240
+    try:
+        while any(p.poll() is None for p in procs):
+            check(time.monotonic() < deadline,
+                  "(c) the gloo ranks did not finish in 240 s")
+            check(all(p.poll() in (None, 0) for p in procs),
+                  f"(c) a gloo rank failed: "
+                  f"{[p.poll() for p in procs]}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    gloo_s = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs),
+          f"(c) gloo ranks exited {[p.returncode for p in procs]}")
+    res = []
+    for r in range(2):
+        with open(out + f".{r}", "rb") as f:
+            res.append(pickle.load(f))
+    r0 = res[0]
+    for name, rec in r0["modes"].items():
+        tol = GLOO_BF16_TOL if name == "zero1_compress" else GLOO_TOL
+        rel_tol = GLOO_BF16_REL if name in ("zero1_compress",
+                                            "zero1_wire") else GLOO_REL
+        rel = rec["err"] / moves[name]
+        ms = statistics.median(rec["step_s"][1:]) * 1e3
+        print(f"    (c) 2 ranks over gloo {name:15s} 3 steps in "
+              f"{rec['wall_s']:.2f} s (step {ms:.0f} ms), K1 fwd/bwd "
+              f"{rec['flash'][0]}/{rec['flash'][1]} a rank, max abs err "
+              f"against one rank {rec['err']:.3e} (tol {tol:g}); the "
+              f"one-rank run moved the parameters by {moves[name]:.3e}, "
+              f"err / move {rel:.3e} (tol {rel_tol:g}) ({card})",
+              flush=True)
+        check(rec["err"] <= tol and rel <= rel_tol,
+              f"(c) {name} on 2 gloo ranks {rec['err']} from one rank "
+              f"({rel} of its movement)")
+        check(rec["flash"] == (2 * 3, 2 * 3), f"(c) {name} K1 launches "
+              f"{rec['flash']}")
+    bn_rel = [e / m for e, m in zip(r0["bn_err"], moves["bn"])]
+    print(f"    (c) BatchNorm model, replicated, 2 ranks against one: max "
+          f"abs err params {r0['bn_err'][0]:.3e}, running statistics "
+          f"{r0['bn_err'][1]:.3e}; the one-rank run moved them by "
+          f"{moves['bn'][0]:.3e} and {moves['bn'][1]:.3e}, err / move "
+          f"{bn_rel[0]:.3e} and {bn_rel[1]:.3e} (tol {GLOO_REL:g}) "
+          f"({card})", flush=True)
+    check(max(r0["bn_err"]) <= 1e-5 and max(bn_rel) <= GLOO_REL,
+          f"(c) BatchNorm {r0['bn_err']} ({bn_rel} of the movement)")
+    print(f"    (d) heartbeat over the gloo ranks: stale {r0['heartbeat']}; "
+          f"straggler report {r0['straggler']['per_host_mean_s']} -> "
+          f"stragglers {r0['straggler']['stragglers']} ({card})",
+          flush=True)
+    check(r0["heartbeat"] == [[], [], []], f"heartbeat {r0['heartbeat']}")
+    el = r0["elastic"]
+    el_rel = el["err"] / moves["elastic"]
+    print(f"    (d) ElasticRunner: attempts (ranks, backend) "
+          f"{el['attempts']}, restarts {el['restarts']}, "
+          f"{el['s']:.1f} s; rank 0 resumed on one NCCL rank, max abs err "
+          f"against an uninterrupted one-rank run {el['err']:.3e}, which "
+          f"moved the parameters by {moves['elastic']:.3e}, err / move "
+          f"{el_rel:.3e} (tol {GLOO_REL:g}) ({card})", flush=True)
+    check(el["attempts"] == [(2, "gloo"), (1, "nccl")]
+          and el["restarts"] == 1, f"elastic attempts {el}")
+    check(res[1]["elastic"]["attempts"] == [(2, "gloo")],
+          f"rank 1's elastic attempts {res[1]['elastic']}")
+    check(el["err"] <= GLOO_TOL and el_rel <= GLOO_REL,
+          f"(d) elastic resume {el['err']} from the uninterrupted run "
+          f"({el_rel} of its movement)")
+    r18.update(gloo=r0, moves=moves, refs_s=ref_s, gloo_s=gloo_s,
+               phase_s=time.perf_counter() - t18, launches=launches)
+    print(f"[18] phase 18: {r18['phase_s']:.1f} s (one-rank references "
+          f"{ref_s:.1f} s, gloo ranks {gloo_s:.1f} s)", flush=True)
+    return r18
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6286,6 +6880,9 @@ def main():
     r17 = moe_zoo(torch, K, card, split=split17)
     l17 = {n: sum(a["launches"][n] for a in r17["arms"])
            for n in ("flash_fwd", "flash_bwd")}
+    # -- phase 18: data-parallel training across GPUs ------------------------
+    r18 = distributed(torch, K, card)
+    l18 = r18["launches"]
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -6449,6 +7046,7 @@ def main():
                    "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32,
                    r6["routes"]["flash_fwd"]["f32_sm90"] + r15["k1"]
+                   + l18["flash_fwd"]
                    + r15["entry_routes"]["flash_fwd"].get("f32_sm90", 0)),
         kernel_rec("flash_fwd_f32_cuda_cores",
                    "bigdl_tpu_torch/csrc/flash_fwd.cu",
@@ -6458,6 +7056,7 @@ def main():
                    "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
                    r6["routes"]["flash_bwd"]["f32_sm90"] + r15["k1b"]
+                   + l18["flash_bwd"]
                    + r15["entry_routes"]["flash_bwd"].get("f32_sm90", 0)),
         kernel_rec("flash_bwd_f32_cuda_cores",
                    "bigdl_tpu_torch/csrc/flash_bwd.cu",
@@ -6507,14 +7106,16 @@ def main():
                    dict(k3_f32["fwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_fwd"]["f32_sm90"]
-                   + l12["fused_matmul_fwd"] + l16["f32"]["fused_matmul_fwd"]),
+                   + l12["fused_matmul_fwd"] + l16["f32"]["fused_matmul_fwd"]
+                   + l18["fused_matmul_fwd"]),
         kernel_rec("fused_matmul_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:229",
                    dict(k3_f32["bwd"], max_abs_err=k3_f32["max_abs_err"],
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_bwd"]["f32_sm90"]
-                   + l12["fused_matmul_bwd"] + l16["f32"]["fused_matmul_bwd"]),
+                   + l12["fused_matmul_bwd"] + l16["f32"]["fused_matmul_bwd"]
+                   + l18["fused_matmul_bwd"]),
         kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"],
@@ -6532,14 +7133,16 @@ def main():
                    dict(k5_f32["fwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
                    r8["routes"]["fused_chain_fwd"]["f32_sm90"]
-                   + l12["fused_chain_fwd"] + l16["f32"]["fused_chain_fwd"]),
+                   + l12["fused_chain_fwd"] + l16["f32"]["fused_chain_fwd"]
+                   + l18["fused_chain_fwd"]),
         kernel_rec("fused_chain_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
                    dict(k5_f32["bwd"], max_abs_err=k5_f32["max_abs_err"],
                         route=k5_f32["route"]),
                    r8["routes"]["fused_chain_bwd"]["f32_sm90"]
-                   + l12["fused_chain_bwd"] + l16["f32"]["fused_chain_bwd"]),
+                   + l12["fused_chain_bwd"] + l16["f32"]["fused_chain_bwd"]
+                   + l18["fused_chain_bwd"]),
         kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),
@@ -6551,7 +7154,7 @@ def main():
                    "bigdl_tpu/kernels/fused_conv.py:188",
                    dict(k4_f32, cuda_core_ms=k4_cc["ms"]),
                    r7["fused_routes"]["fused_conv_fwd"]["f32_sm90"]
-                   + l12["fused_conv_fwd"]),
+                   + l12["fused_conv_fwd"] + l18["fused_conv_fwd"]),
         kernel_rec("fused_conv_f32_ragged",
                    "bigdl_tpu_torch/csrc/fused_conv.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,
@@ -6581,4 +7184,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase18-rank":
+        # one of phase 18 (c)'s gloo ranks, started by the phase itself
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        phase18_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                     sys.argv[5])
     main()

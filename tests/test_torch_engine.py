@@ -212,7 +212,8 @@ def test_resnet50_engine_matches_jax_and_its_own_apply(monkeypatch):
 # -- utils.engine (the runtime engine, not the serving one) ---------------
 
 def test_utils_engine_members():
-    """The engine's CUDA members: ``init`` records its numbers and seeds,
+    """The engine's CUDA members: ``init`` joins the process group, builds
+    the mesh, records its numbers and seeds,
     ``device_count`` counts CUDA devices, ``RandomGenerator`` draws from
     the port's seeded generator (reproducible, not JAX's values)."""
     from bigdl_tpu.utils import engine as jengine
@@ -223,6 +224,7 @@ def test_utils_engine_members():
     try:
         _engine_members(engine, jengine)
     finally:    # the process's engine and generators as they were
+        engine.destroy_process_group()
         engine._state.clear()
         engine._state.update(saved[0])
         torch.set_rng_state(saved[1])
@@ -231,7 +233,11 @@ def test_utils_engine_members():
 
 
 def _engine_members(engine, jengine):
-    engine.init(node_number=2, core_number=3, seed=7)
+    # a process without torchrun's variables is a world of one (gloo on
+    # the CPU), and the engine's mesh is one 'data' axis over it
+    mesh = engine.init(node_number=2, core_number=3, seed=7, device="cpu")
+    assert engine.get_mesh() is mesh and mesh.mesh_dim_names == ("data",)
+    assert engine.process_group()["backend"] == "gloo" and mesh.size() == 1
     assert engine.is_initialized() and engine.get_seed() == 7
     assert (engine.node_number(), engine.core_number()) == (2, 3)
     assert engine.engine_type() == "cuda"

@@ -433,8 +433,18 @@ def test_spike_overload_halts(tmp_path):
     {"straggler_monitor": object(), "straggler_every": 1}],
     ids=["heartbeat", "straggler_monitor"])
 def test_multi_gpu_detectors_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="A.6|not ported"):
-        RemediationPolicy(**kw)
+    """The multi-GPU detectors are ported: a policy takes them with a
+    cadence, and refuses them without one (``*_every`` < 1), as JAX's
+    does (tests/test_torch_mesh_failure.py drives them)."""
+    from bigdl_tpu.optim.optimizer import RemediationPolicy as JaxPolicy
+    pol = RemediationPolicy(**kw)
+    for k, v in kw.items():
+        assert getattr(pol, k) is v if not isinstance(v, int) \
+            else getattr(pol, k) == v
+    every = {k: 0 for k in kw if k.endswith("_every")}
+    for cls in (RemediationPolicy, JaxPolicy):
+        with pytest.raises(ValueError, match="_every >= 1"):
+            cls(**{**kw, **every})
 
 
 def test_policy_defaults_match_jax():

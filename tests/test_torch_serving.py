@@ -347,7 +347,9 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "'nn.graph_container', 'nn.dynamic_graph', 'nn.sparse', "
             "'dataset.movielens', 'models.recommender', "
             "'dataset.datamining', 'nn.detection', "
-            "'dataset.segmentation'):\n"
+            "'dataset.segmentation', 'parallel.mesh', "
+            "'parallel.collective', 'parallel.allreduce', "
+            "'parallel.sharding'):\n"
             "    assert 'bigdl_tpu_torch.' + want in names, want\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'bigdl_tpu' or "

@@ -343,30 +343,27 @@ def test_every_jax_method_is_ported_or_listed(key, port, twin):
 # public JAX members of the modules the port mirrors that it does not have
 # yet, by module, with the ROADMAP item that ports them
 UNPORTED_MEMBERS = {
-    # the multi-device failure detectors (ROADMAP A.6)
-    "parallel.failure": {"MeshProbeResult", "probe_mesh", "Heartbeat",
-                         "FileHeartbeat", "StragglerMonitor"},
-    # mesh-sharded validation (ROADMAP A.6)
-    "optim.evaluator": {"DistriValidator"},
-    # the restart supervisor of multi-GPU training (ROADMAP A.6)
-    "parallel.elastic": {"ElasticRunner", "shrink_devices",
-                         "data_parallel_factory"},
-    # the expert-parallel MoE FFN, an all_to_all over a mesh (ROADMAP A.6)
+    # the expert-parallel MoE FFN, an all_to_all over a mesh (ROADMAP A.6b,
+    # model parallelism)
     "parallel.moe": {"moe_ffn"},
-    # mesh training (ROADMAP A.6)
-    "optim.optimizer": {"DistriOptimizer", "ParallelOptimizer"},
-    # the mesh's serving context (ROADMAP A.6); by design, no port: the
-    # environment switches (the port has one route per device)
+    # the mesh's serving context (ROADMAP A.6b); by design, no
+    # port: the environment switches (the port has one route per device)
     "parallel.flash": {"paged_serving_context", "flash_mode", "paged_mode"},
     # by design, no port: a trace-time spy (the port counts launches)
     "kernels.paged_attention": {"trace_count"},
-    # the device mesh (ROADMAP A.6); by design, no port: JAX's key stream
-    # (the port passes torch.Generators) and XLA's compilation cache
-    "utils.engine": {"get_mesh", "next_rng_key", "next_rng_keys",
+    # by design, no port: JAX's key stream (the port passes
+    # torch.Generators) and XLA's compilation cache
+    "utils.engine": {"next_rng_key", "next_rng_keys",
                      "enable_compilation_cache",
                      "maybe_enable_compilation_cache",
                      "compilation_cache_dir", "compilation_cache_stats",
                      "compilation_cache_entries"},
+    # the tensor-parallel, FSDP and serving specs (ROADMAP A.6b, model
+    # parallelism)
+    "parallel.sharding": {"transformer_tp_specs", "fsdp_specs",
+                          "serving_batch_spec", "batch_shard_count",
+                          "serving_param_specs", "place_with_specs",
+                          "tp_linear_rules", "constraint"},
 }
 MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "observability.trace", "observability.exporters",
@@ -390,14 +387,12 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "parallel.moe", "nn.moe", "models.moe_lm", "utils.directed_graph",
             "nn.graph_container", "nn.dynamic_graph", "nn.sparse",
             "dataset.movielens", "models.recommender", "dataset.datamining",
-            "nn.detection", "dataset.segmentation"]
+            "nn.detection", "dataset.segmentation", "parallel.mesh",
+            "parallel.collective", "parallel.allreduce", "parallel.sharding"]
 # public JAX members a mirrored module re-exports from a module the port
 # does not have yet, with the ROADMAP item that ports them (the member test
 # above counts the members a module defines)
-UNPORTED_REEXPORTS = {
-    # the sparse gradient exchange of parallel/allreduce.py (ROADMAP A.6)
-    "nn.sparse": {"sparse_embedding_grad_allreduce"},
-}
+UNPORTED_REEXPORTS = {}
 
 
 @pytest.mark.parametrize("mod", MIRRORED)
@@ -506,31 +501,37 @@ def test_serving_parameters_are_accepted(kw, attr, want):
     assert kv_swap_threads_alive() == 0
 
 
-@pytest.mark.parametrize("call", [
-    lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
-                         fromlist=["x"]).flash_attention_fused(
-        q, q, q, scale=0.5),
-    lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
-                         fromlist=["x"]).flash_attention_fused(
-        q, q, q, block_q=128),
-    lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
-                         fromlist=["x"]).flash_chunk_attention(
-        q, q, q, 0, block_k=256),
-    lambda q: __import__("bigdl_tpu_torch.utils.engine",
-                         fromlist=["x"]).init(mesh_shape=(2,)),
-    lambda q: __import__("bigdl_tpu_torch.optim.optimizer",
-                         fromlist=["x"]).RemediationPolicy(
-        heartbeat="hb", heartbeat_every=1),
-    lambda q: __import__("bigdl_tpu_torch.optim.optimizer",
-                         fromlist=["x"]).RemediationPolicy(
-        straggler_monitor="sm", straggler_every=1),
+_NI, _VE = NotImplementedError, ValueError
+
+
+@pytest.mark.parametrize("call, exc", [
+    (lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
+                          fromlist=["x"]).flash_attention_fused(
+        q, q, q, scale=0.5), _NI),
+    (lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
+                          fromlist=["x"]).flash_attention_fused(
+        q, q, q, block_q=128), _NI),
+    (lambda q: __import__("bigdl_tpu_torch.kernels.flash_attention",
+                          fromlist=["x"]).flash_chunk_attention(
+        q, q, q, 0, block_k=256), _NI),
+    (lambda q: __import__("bigdl_tpu_torch.parallel.mesh",
+                          fromlist=["x"]).make_mesh((64,), ("data",),
+                                                    devices=[0]), _VE),
+    (lambda q: __import__("bigdl_tpu_torch.optim.optimizer",
+                          fromlist=["x"]).RemediationPolicy(
+        heartbeat="hb", heartbeat_every=0), _VE),
+    (lambda q: __import__("bigdl_tpu_torch.optim.optimizer",
+                          fromlist=["x"]).RemediationPolicy(
+        straggler_monitor="sm", straggler_every=0), _VE),
 ], ids=["flash_scale", "flash_block_q", "chunk_block_k", "engine_mesh",
         "remediation_heartbeat", "remediation_straggler"])
-def test_tile_mesh_and_multi_gpu_parameters_are_refused(call):
-    """TPU tile sizes, a scale other than 1/sqrt(D), the engine's mesh and
-    the remediation's multi-GPU detectors (ROADMAP A.6) raise at a value
-    other than JAX's default."""
-    with pytest.raises(NotImplementedError):
+def test_tile_mesh_and_multi_gpu_parameters_are_refused(call, exc):
+    """TPU tile sizes and a scale other than 1/sqrt(D) raise
+    ``NotImplementedError`` at a value other than JAX's default; the mesh
+    and the remediation's multi-GPU detectors are ported, and refuse what
+    JAX's refuse with ``ValueError``: a mesh larger than its ranks, a
+    heartbeat or straggler monitor without a cadence."""
+    with pytest.raises(exc):
         call(torch.zeros(1, 1, 4, 8))
 
 
