@@ -86,6 +86,7 @@ class MoETransformerLM(Module):
     _need_mode = Transformer._need_mode
     _pe = Transformer._pe
     _ids = Transformer._ids
+    _embed_w = Transformer._embed_w
     _embed = Transformer._embed
     _logits = Transformer._logits
 
@@ -130,6 +131,7 @@ class MoETransformerLM(Module):
     # the flagship's cached inference, bound as-is (MoE routing is token
     # level, so a cached decode step routes its new tokens normally)
     init_cache = Transformer.init_cache
+    _init_cache = Transformer._init_cache
     prefill = Transformer.prefill
     prefill_chunked = Transformer.prefill_chunked
     _decode_trunk = Transformer._decode_trunk

@@ -28,6 +28,31 @@ returns float32 for bf16 operands (the JAX package adds the mask to the
 q-dtype logits), and from there the residual stream is float32. Every
 product therefore casts both operands to their promoted dtype first
 (:func:`_mm`), because ``torch.matmul`` refuses a float32 x bf16 pair.
+
+Model parallelism comes from the parameters a rank is given, as JAX's
+comes from their placement (``parallel.sharding``), with the axes on the
+mesh ``parallel.collective.over`` sets:
+
+* Tensor parallel (``transformer_tp_specs``): a column-split ``wq`` marks
+  the attention's heads split over ``model``; ``wk`` / ``wv``, ``w1`` /
+  ``w3`` / ``b1`` column-split and ``wo`` / ``w2`` row-split hold this
+  rank's heads and filter columns. The attention and the FFN run on them
+  (this rank's q and kv heads, its filter columns) and sum their partial
+  outputs over ``model`` after ``wo`` and after ``w2`` (Megatron's g,
+  whose backward is the identity), with ``b2`` added once after the sum;
+  their replicated inputs carry Megatron's f (identity forward, sum of
+  the input gradients backward). Embedding, norms and the head stay
+  replicated. Where the heads do not divide by the split, the split
+  leaves are gathered and the layer runs whole on every rank (JAX's
+  compiler reshards those columns).
+* FSDP (``fsdp_specs``): any other leaf smaller than the module's own is
+  a slice over ``data``; each block gathers its slices just before it
+  runs and drops them after (``sharding.gather_param``: its gradient is
+  the reduce-scatter), and the embedding is gathered where it is used.
+* Sequence parallel (``Attention(seq_axis=)``): this rank's block of the
+  sequence; RoPE positions are offset by the block, GQA's K/V heads are
+  broadcast before the exchange, and attention runs through the ring
+  (``parallel.ring_flash``) or the all-to-all (``parallel.seq_all_to_all``).
 """
 from __future__ import annotations
 
@@ -39,9 +64,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.paged_attention import paged_attention_reference
-from ..parallel.flash import (flash_attention, flash_chunk_attention,
-                              paged_attention)
-from ..utils.engine import refuse_unported, resolve_device
+from ..parallel import collective
+from ..parallel.flash import (_PAGED_CTX, flash_attention,
+                              flash_chunk_attention, paged_attention)
+from ..utils.engine import resolve_device
 from ..utils.table import Table
 from .module import Module
 from .norm import LayerNormalization
@@ -165,9 +191,15 @@ class Attention(Module):
     (self-attention) or ``Table(query, key_value[, additive_mask])``
     (cross-attention when ``key_value`` is another sequence).
     ``attention_dropout`` drops attention weights in training (then the
-    einsum path runs instead of flash, as in the JAX package). Sequence
-    parallelism (``seq_axis``, ``seq_impl``) is not ported. ``generator``
-    seeds the weights."""
+    einsum path runs instead of flash, as in the JAX package).
+    ``seq_axis`` names a mesh axis the sequence is split over: the input is
+    this rank's block and attention runs sequence-parallel, by
+    ``seq_impl`` ``"ring"`` (``parallel.ring_flash``: K/V blocks around the
+    ring, flash blocks, any head count) or ``"a2a"``
+    (``parallel.seq_all_to_all``: heads exchanged for sequence, needs
+    num_heads % axis size == 0); self-attention only, masked by
+    ``causal``, and without attention dropout (refused, as in JAX).
+    ``generator`` seeds the weights."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  attention_dropout: float = 0.0, use_flash: bool = True,
@@ -175,8 +207,11 @@ class Attention(Module):
                  num_kv_heads=None, rope: bool = False, name=None,
                  generator=None):
         super().__init__(name=name)
-        refuse_unported("Attention", seq_axis=(seq_axis, None),
-                        seq_impl=(seq_impl, "ring"))
+        if seq_axis is not None and attention_dropout > 0:
+            raise ValueError(
+                "seq-parallel attention does not support attention "
+                "dropout (the ring kernel has no dropout path) - set "
+                "attention_dropout=0")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} not a multiple of "
                              f"num_heads {num_heads}")
@@ -189,6 +224,7 @@ class Attention(Module):
         self.use_flash, self.causal = use_flash, causal
         self.num_kv_heads, self.rope = num_kv_heads, rope
         self.attention_dropout = attention_dropout
+        self.seq_axis, self.seq_impl = seq_axis, seq_impl
         H = hidden_size
         kvd = self._kvh() * (H // num_heads)
         P = torch.nn.Parameter
@@ -204,18 +240,43 @@ class Attention(Module):
         b, t, _ = x.shape
         return x.reshape(b, t, heads or self.num_heads, -1).transpose(1, 2)
 
+    def _tp(self, params) -> int:
+        """The tensor-parallel degree of this rank's attention weights: how
+        many ways ``wq``'s columns are split (1: whole)."""
+        return self.hidden_size // params["wq"].shape[1]
+
+    def _local(self, params, keys):
+        """(params, n): this rank's weights and the degree its heads are
+        split over ``model``. When the heads do not divide by the split,
+        the leaves ``keys`` are gathered whole and n is 1 (every rank
+        then runs the whole layer)."""
+        n = self._tp(params)
+        if n == 1 or (self.num_heads % n == 0 and self._kvh() % n == 0):
+            return params, n
+        dims = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+        out = dict(params)
+        for k in keys:
+            out[k] = collective._tp_gather(params[k], dims[k])
+        return out, 1
+
     def qkv(self, params, qx, kx=None):
         """Query heads (B, nH, T, D) of ``qx`` and key/value heads
         (B, kvH, Tk, D) of ``kx`` (``qx`` when None: self-attention; the
         translation mode's cross-attention passes the encoder output).
         Three matmuls; the JAX package fuses them into one over
         concatenated weights, which in eager PyTorch would copy the
-        weights every call."""
-        kvh = self._kvh()
-        kx = qx if kx is None else kx
-        return (self._split(_mm(qx, params["wq"])),
-                self._split(_mm(kx, params["wk"]), kvh),
-                self._split(_mm(kx, params["wv"]), kvh))
+        weights every call. Under tensor parallelism, this rank's nH / n
+        and kvH / n heads."""
+        params, n = self._local(params, ("wq", "wk", "wv"))
+        self_attn = kx is None or kx is qx
+        if n > 1:
+            qx = collective._tp_enter(qx)
+            kx = qx if self_attn else collective._tp_enter(kx)
+        else:
+            kx = qx if self_attn else kx
+        return (self._split(_mm(qx, params["wq"]), self.num_heads // n),
+                self._split(_mm(kx, params["wk"]), self._kvh() // n),
+                self._split(_mm(kx, params["wv"]), self._kvh() // n))
 
     def _expand_kv(self, k, v):
         g = self.num_heads // self._kvh()
@@ -225,8 +286,12 @@ class Attention(Module):
                 v.repeat_interleave(g, dim=1).contiguous())
 
     def _merge(self, o, params):
+        """The heads' output through ``wo``; under tensor parallelism this
+        rank's rows of it, summed over ``model``."""
+        params, n = self._local(params, ("wo",))
         b, h, t, d = o.shape
-        return _mm(o.transpose(1, 2).reshape(b, t, h * d), params["wo"])
+        y = _mm(o.transpose(1, 2).reshape(b, t, h * d), params["wo"])
+        return collective._tp_exit(y) if n > 1 else y
 
     def decode(self, params, x_t, k_cache, v_cache, pos: int):
         """One autoregressive step: x_t (B, 1, H) at position ``pos``, its
@@ -276,6 +341,14 @@ class Attention(Module):
         ``kernels.paged_attention.paged_attention_reference``, is the JAX
         package's ``_paged_gather_attend``). Returns
         (out (B, S, H), k_pages, v_pages)."""
+        mesh, axis = _PAGED_CTX.get()
+        if axis is not None:
+            from ..parallel.mesh import axis_size
+            if k_pages.shape[1] * axis_size(mesh, axis) != self._kvh():
+                raise ValueError(
+                    f"pages split over {axis!r} hold {k_pages.shape[1]} kv "
+                    f"heads, not {self._kvh()} / "
+                    f"{axis_size(mesh, axis)}")
         q, k_t, v_t = self.qkv(params, x)
         S = x.shape[1]
         pos_s = positions.long()[:, None] + torch.arange(S, device=x.device)
@@ -311,13 +384,32 @@ class Attention(Module):
         if self.rope:
             if kx is not qx:
                 raise ValueError("RoPE supports self-attention only")
-            pos = torch.arange(q.shape[2], device=qx.device)
+            t = q.shape[2]
+            pos = torch.arange(t, device=qx.device)
+            if self.seq_axis is not None:
+                # this rank's block -> its global positions
+                pos = pos + collective.axis_group(self.seq_axis)[2] * t
             q = rotary_embedding(q, pos)
             k = rotary_embedding(k, pos)
         k, v = self._expand_kv(k, v)
         drop = (training and self.attention_dropout > 0.0
                 and generator is not None)
-        if self.causal and mask is None and self.use_flash and not drop:
+        if self.seq_axis is not None:
+            if mask is not None:
+                raise ValueError(
+                    "seq-parallel attention supports causal masking only "
+                    "(set causal=True); additive masks cannot cross the "
+                    "ring")
+            if self.seq_impl == "a2a":
+                from ..parallel.seq_all_to_all import a2a_attention
+                o = a2a_attention(q, k, v, axis=self.seq_axis,
+                                  causal=self.causal,
+                                  use_flash=self.use_flash)
+            else:
+                from ..parallel.ring_flash import ring_flash_attention
+                o = ring_flash_attention(q, k, v, axis=self.seq_axis,
+                                         causal=self.causal)
+        elif self.causal and mask is None and self.use_flash and not drop:
             o = flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=True)
         else:
@@ -352,6 +444,12 @@ class FeedForwardNetwork(Module):
             self.w3 = P(_glorot(generator, (hidden_size, filter_size)))
 
     def call(self, params, x, training: bool = False, generator=None):
+        """Under tensor parallelism (``w1``'s columns split over
+        ``model``), this rank's filter columns; the partial outputs are
+        summed after ``w2`` and ``b2`` is added once, after the sum."""
+        n = self.filter_size // params["w1"].shape[1]
+        if n > 1:
+            x = collective._tp_enter(x)
         a = _mm(x, params["w1"]) + params["b1"]
         if self.activation == "swiglu":
             h = F.silu(a) * _mm(x, params["w3"])
@@ -361,7 +459,10 @@ class FeedForwardNetwork(Module):
             h = F.relu(a)
         if training and self.relu_dropout > 0.0 and generator is not None:
             h = dropout(h, self.relu_dropout, generator)
-        return _mm(h, params["w2"]) + params["b2"]
+        y = _mm(h, params["w2"])
+        if n > 1:
+            y = collective._tp_exit(y)
+        return y + params["b2"]
 
 
 class TransformerBlock(Module):
@@ -393,6 +494,23 @@ class TransformerBlock(Module):
                                    generator=generator)
             self.ln3 = LayerNormalization(hidden_size)
 
+    def _whole(self, params):
+        """This block's parameters with every FSDP slice gathered (a leaf
+        smaller than the module's own, outside tensor parallelism, is a
+        slice over ``data``): called just before the block runs, so the
+        whole leaves live only while it does. Tensor-parallel leaves stay
+        this rank's."""
+        if self.attn._tp(params["attn"]) > 1:
+            return params
+        from ..parallel.sharding import gather_param
+
+        def walk(p, own):
+            if isinstance(p, dict):
+                return {k: walk(v, own[k]) for k, v in p.items()}
+            return gather_param(p, own.shape) if p.shape != own.shape \
+                else p
+        return walk(params, self.params)
+
     def _ffn_sublayer(self, params, h, training=False, generator=None):
         return h + self.ffn.call(params["ffn"],
                                  self.ln2.call(params["ln2"], h),
@@ -409,6 +527,7 @@ class TransformerBlock(Module):
             enc_mask = x[4] if len(x) >= 4 else None
         else:
             h, mask, enc, enc_mask = x, None, None, None
+        params = self._whole(params)
         n = self.ln1.call(params["ln1"], h)
         h = h + self.attn.call(params["attn"], Table(n, n, mask), training,
                                generator)
@@ -421,6 +540,7 @@ class TransformerBlock(Module):
     def prefill(self, params, h):
         """Causal forward over a whole prompt that also returns the
         compact (kvH) K/V heads for the decode cache: (h, (k, v))."""
+        params = self._whole(params)
         n = self.ln1.call(params["ln1"], h)
         q, k, v = self.attn.qkv(params["attn"], n)
         if self.attn.rope:
@@ -454,6 +574,7 @@ class TransformerBlock(Module):
         translation block also takes ``cross_kv`` (from :meth:`cross_kv`)
         and the additive source padding ``cross_mask``. Returns
         (h (B, S, H), (k_cache, v_cache))."""
+        params = self._whole(params)
         n = self.ln1.call(params["ln1"], h_t)
         a, k_cache, v_cache = self.attn.decode(params["attn"], n, kv[0],
                                                kv[1], pos)
@@ -468,6 +589,7 @@ class TransformerBlock(Module):
 
     def decode_step_paged(self, params, h_t, k_pages, v_pages,
                           block_tables, positions):
+        params = self._whole(params)
         n = self.ln1.call(params["ln1"], h_t)
         a, k_pages, v_pages = self.attn.decode_paged(
             params["attn"], n, k_pages, v_pages, block_tables, positions)
@@ -569,8 +691,16 @@ class Transformer(Module):
         return torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids)
                                else ids, device=self.device).long()
 
-    def _embed(self, params, ids):
+    def _embed_w(self, params):
+        """The embedding, whole (gathered where FSDP holds a slice)."""
         emb = params["embed"]
+        if emb.shape == self.embed.shape:
+            return emb
+        from ..parallel.sharding import gather_param
+        return gather_param(emb, self.embed.shape)
+
+    def _embed(self, params, ids, emb=None):
+        emb = self._embed_w(params) if emb is None else emb
         return _embed_ids(emb, ids, self.hidden_size,
                           with_pe=self.pos_encoding != "rope",
                           pe=self._pe(emb.dtype))
@@ -625,9 +755,10 @@ class Transformer(Module):
         h = self._stack(self.blocks, "block", params, h, training, generator)
         return self.ln_f.call(params["ln_f"], h)
 
-    def _logits(self, params, h):
+    def _logits(self, params, h, emb=None):
         """The tied output projection, in the promoted dtype."""
-        return _mm(h, params["embed"].T)
+        emb = self._embed_w(params) if emb is None else emb
+        return _mm(h, emb.T)
 
     def _encode_src(self, params, src, training=False, generator=None):
         """The source side of the translation mode: the padding mask of
@@ -672,9 +803,18 @@ class Transformer(Module):
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.float32):
         """Per-block dense (k, v) caches (B, kvH, max_len, D), zeroed."""
+        return self._init_cache(batch, max_len, dtype)
+
+    def _init_cache(self, batch, max_len, dtype, params=None):
+        """:meth:`init_cache`; with the tensor-parallel ``params`` a rank
+        serves, its kvH / n heads (every head where they do not divide)."""
         attn = self.blocks[0].attn
-        shape = (batch, attn._kvh(), max_len,
-                 self.hidden_size // attn.num_heads)
+        kvh = attn._kvh()
+        if params is not None:
+            n = attn._tp(params["block0"]["attn"])
+            if kvh % n == 0 and attn.num_heads % n == 0:
+                kvh //= n
+        shape = (batch, kvh, max_len, self.hidden_size // attn.num_heads)
         return [(torch.zeros(shape, dtype=dtype, device=self.device),
                  torch.zeros(shape, dtype=dtype, device=self.device))
                 for _ in self.blocks]
@@ -686,14 +826,15 @@ class Transformer(Module):
         self._need_mode("lm", "prefill")
         ids = self._ids(ids)
         B, Tp = ids.shape
-        h = self._embed(params, ids)
-        caches = self.init_cache(B, max_len, h.dtype)
+        emb = self._embed_w(params)
+        h = self._embed(params, ids, emb)
+        caches = self._init_cache(B, max_len, h.dtype, params)
         for i, blk in enumerate(self.blocks):
             h, (k, v) = blk.prefill(params[f"block{i}"], h)
             caches[i][0][:, :, :Tp] = k.to(caches[i][0].dtype)
             caches[i][1][:, :, :Tp] = v.to(caches[i][1].dtype)
         h = self.ln_f.call(params["ln_f"], h)
-        return self._logits(params, h[:, -1]), caches
+        return self._logits(params, h[:, -1], emb), caches
 
     @torch.no_grad()
     def prefill_chunked(self, params, ids, max_len: int, chunk: int = 512):
@@ -704,7 +845,8 @@ class Transformer(Module):
         B, Tp = ids.shape
         if Tp > max_len:
             raise ValueError(f"prompt {Tp} > max_len {max_len}")
-        caches = self.init_cache(B, max_len, params["embed"].dtype)
+        caches = self._init_cache(B, max_len, params["embed"].dtype,
+                                   params)
         h = None
         for s in range(0, Tp, chunk):
             h, caches = self._decode_trunk(params, ids[:, s:s + chunk], s,
@@ -724,7 +866,7 @@ class Transformer(Module):
             logits, caches = self.decode_chunk(
                 params, self._ids(tokens)[:, None], pos, caches)
             return logits[:, 0], caches
-        emb = params["embed"]
+        emb = self._embed_w(params)
         h = emb[self._ids(tokens)] * math.sqrt(self.hidden_size)
         if self.pos_encoding != "rope":
             h = h + self._pe(emb.dtype)[pos:pos + 1]
@@ -733,11 +875,11 @@ class Transformer(Module):
             h, caches[i] = blk.decode_step(params[f"block{i}"], h, caches[i],
                                            pos, cross[i], cross_mask)
         h = self.ln_f.call(params["ln_f"], h)
-        return self._logits(params, h[:, 0]), caches
+        return self._logits(params, h[:, 0], emb), caches
 
-    def _decode_trunk(self, params, tokens, pos: int, caches):
+    def _decode_trunk(self, params, tokens, pos: int, caches, emb=None):
         self._need_mode("lm", "the LM decode trunk")
-        emb = params["embed"]
+        emb = self._embed_w(params) if emb is None else emb
         h = emb[tokens] * math.sqrt(self.hidden_size)
         S = tokens.shape[1]
         if self.pos_encoding != "rope":
@@ -751,9 +893,10 @@ class Transformer(Module):
     def decode_chunk(self, params, tokens, pos: int, caches):
         """S cached steps: tokens (B, S) at positions pos..pos+S-1.
         Returns (logits (B, S, V), caches)."""
+        emb = self._embed_w(params)
         h, caches = self._decode_trunk(params, self._ids(tokens), pos,
-                                       caches)
-        return self._logits(params, h), caches
+                                       caches, emb)
+        return self._logits(params, h, emb), caches
 
     @torch.no_grad()
     def decode_paged(self, params, tokens, positions, pages, block_tables):
@@ -764,7 +907,7 @@ class Transformer(Module):
         (B, max_blocks) int32. Returns (logits (B, S, V), pages)."""
         self._need_mode("lm", "decode_paged")
         tokens = self._ids(tokens)
-        emb = params["embed"]
+        emb = self._embed_w(params)
         h = emb[tokens] * math.sqrt(self.hidden_size)
         S = tokens.shape[1]
         if self.pos_encoding != "rope":
@@ -776,7 +919,7 @@ class Transformer(Module):
                 params[f"block{i}"], h, pages[i][0], pages[i][1],
                 block_tables, positions)
         h = self.ln_f.call(params["ln_f"], h)
-        return self._logits(params, h), pages
+        return self._logits(params, h, emb), pages
 
     @torch.no_grad()
     def generate(self, params, prompt_ids, max_new_tokens: int,

@@ -16,8 +16,22 @@ the ``reduce_scatter``, of ``reduce_scatter`` the ``all_gather``, of
 ``all_to_all`` the reverse ``all_to_all`` and of ``ppermute_ring`` the
 reverse rotation.
 
+A ring hop (``ppermute_ring``) is a paired send / receive; gloo has no
+send / receive of CUDA tensors, so on a gloo group a CUDA block is staged
+through host buffers (``_hop_route``, chosen by the group's backend); NCCL
+groups and CPU tensors send the tensor itself.
+
+The model-parallel layers use three private collectives with the
+gradients tensor parallelism needs (every rank holds the whole loss):
+``_tp_enter`` (Megatron's f: identity forward, sum of the input
+gradients backward), ``_tp_exit`` (g: sum forward, identity backward; a
+``psum`` there would sum the replicated cotangent again and scale the
+gradients by n) and ``_tp_gather`` (whole leaves from column blocks, the
+backward keeping this rank's block); ``_pmax`` is JAX's ``lax.pmax``
+(no gradient).
+
 ``over(mesh)`` makes axis names resolve on ``mesh`` inside a block (the
-distributed optimizer's steps); ``global_batch`` marks a replicated
+distributed optimizer's steps, the model-parallel layers); ``global_batch`` marks a replicated
 data-parallel step, where BatchNorm and the count-divided criteria reduce
 over the global batch (``global_sums``, ``global_count``).
 
@@ -185,22 +199,51 @@ def _a2a0(x, group):
     return out
 
 
+def _hop_route(x, group) -> str:
+    """How a ring hop moves ``x`` on ``group``: ``"send_recv"`` (a paired
+    send / receive of the tensor itself: NCCL, or gloo on the CPU) or
+    ``"host_staged"`` (gloo with a CUDA tensor: gloo has no send / receive
+    of CUDA tensors, so the hop copies the block to the host, sends and
+    receives there, and copies the block received back to the card).
+    Chosen by the group's backend and the tensor's device, never by
+    catching a refusal."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return "host_staged"
+    return "send_recv"
+
+
 def _rotate(x, group, n, shift):
     """Send ``x`` to the rank ``shift`` places on, receive from the one
-    ``shift`` places back."""
+    ``shift`` places back (the route: :func:`_hop_route`)."""
     me = dist.get_rank(group)
     x = x.detach().contiguous()
-    out = torch.empty_like(x)
     if n == 1 or shift % n == 0:
-        out.copy_(x)
-        return out
+        return x.clone()
     to = dist.get_global_rank(group, (me + shift) % n)
     frm = dist.get_global_rank(group, (me - shift) % n)
-    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, to, group),
+    staged = _hop_route(x, group) == "host_staged"
+    src = x.cpu() if staged else x
+    out = torch.empty_like(src)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, src, to, group),
                                    dist.P2POp(dist.irecv, out, frm, group)])
     for r in reqs:
         r.wait()
+    return out.to(x.device) if staged else out
+
+
+def _max(x, group):
+    out = x.detach().clone().contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def _pmax(x, axis: str):
+    """The elementwise maximum of ``x`` over the ranks of ``axis`` (JAX's
+    ``lax.pmax``; JAX's collective module has no wrapper either). No
+    gradient: its callers use it as a stabilising shift."""
+    _record("pmax", x)
+    group, _, _ = axis_group(axis)
+    return _max(x, group)
 
 
 class _Psum(torch.autograd.Function):
@@ -256,6 +299,74 @@ class _Rotate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _rotate(g, ctx.group, ctx.n, -ctx.shift), None, None, None
+
+
+class _TPEnter(torch.autograd.Function):
+    """Megatron's "f": the replicated input of a column-parallel product.
+    The identity forward; the backward sums the ranks' partial input
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _TPExit(torch.autograd.Function):
+    """Megatron's "g": the sum of a row-parallel product's partial
+    outputs. The gradient of the replicated sum is already whole on every
+    rank, so the backward is the identity (``psum``'s backward, a second
+    sum, would scale it by n)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPGather(torch.autograd.Function):
+    """The whole of a leaf split along dim 0 over a tensor-parallel group,
+    for a computation every rank then runs in full: the backward keeps
+    this rank's block of the (already whole) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.r, ctx.k = dist.get_rank(group), x.shape[0]
+        return _gather0(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.r * ctx.k:(ctx.r + 1) * ctx.k].contiguous(), None, None
+
+
+def _tp_gather(x, dim: int, axis: str = "model"):
+    """``x``'s blocks along ``dim`` from every rank of ``axis``, whole."""
+    _record("all_gather", x)
+    group, n, _ = axis_group(axis)
+    if n == 1:
+        return x
+    out = _TPGather.apply(x.movedim(dim, 0).contiguous(), group, n)
+    return out.movedim(0, dim)
+
+
+def _tp_enter(x, axis: str = "model"):
+    """Mark ``x`` as the replicated input of a column-parallel region."""
+    group, n, _ = axis_group(axis)
+    return x if n == 1 else _TPEnter.apply(x, group)
+
+
+def _tp_exit(x, axis: str = "model"):
+    """Sum a row-parallel region's partial outputs over ``axis``."""
+    _record("psum", x)
+    group, n, _ = axis_group(axis)
+    return x if n == 1 else _TPExit.apply(x, group)
 
 
 def psum(x, axis: str = "data"):

@@ -12,17 +12,19 @@ that dtype, summed in the order XLA sums it (:func:`_cumsum`). In bf16 the posit
 share one capacity slot; the port reproduces this (ROADMAP.md, reference
 caveats) instead of fixing it.
 
-The expert-parallel ``moe_ffn`` (an ``all_to_all`` over a device mesh) is
-model-parallel multi-GPU work (ROADMAP A.6b) and not ported yet.
+``moe_ffn`` is the expert-parallel layer: one expert per rank of an
+``expert`` axis, which doubles as the token axis; two ``all_to_all``
+exchanges move each rank's queues to the experts' owners and back.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["expert_capacity", "top1_routing"]
+__all__ = ["expert_capacity", "top1_routing", "moe_ffn"]
 
 _SCAN_BLOCK = 16    # XLA's CPU rewrite of a cumulative sum: 16-row blocks
 
@@ -105,3 +107,48 @@ def top1_routing(logits, capacity: int):
     frac_probs = _mean(probs, 0)
     aux = E * _sum(frac_tokens * frac_probs, -1)
     return dispatch, combine, aux
+
+
+def moe_ffn(expert_fn: Callable, axis: str = "expert",
+            capacity_factor: float = 1.25):
+    """The per-rank expert-parallel MoE apply: ``expert_fn(expert_params,
+    x) -> y`` is one expert's FFN over an (n, d) batch. Returns
+    ``run(router_w, expert_params, x)``: ``router_w`` (d, E) the same on
+    every rank, ``expert_params`` this rank's expert (leading expert dim
+    of 1, squeezed here: exactly one expert a rank), ``x`` this rank's
+    (t_local, d) tokens. Returns ((t_local, d) outputs, the aux loss
+    averaged over the axis)."""
+    from . import collective
+    from .collective import all_to_all, pmean
+
+    def squeeze(a):
+        if a.dim() and a.shape[0] != 1:
+            raise ValueError(
+                "moe_ffn supports exactly one expert per device: local "
+                f"expert-param slice has leading dim {a.shape[0]} (shard "
+                "the stacked expert axis over the mesh axis)")
+        return a[0] if a.dim() else a
+
+    def tree(fn, t):
+        if isinstance(t, dict):
+            return {k: tree(fn, v) for k, v in t.items()}
+        return fn(t)
+
+    def run(router_w, expert_params, x):
+        _, E, _ = collective.axis_group(axis)
+        tloc, d = x.shape
+        expert_params = tree(squeeze, expert_params)
+        capacity = expert_capacity(tloc, E, capacity_factor)
+        logits = x @ router_w                                   # (t, E)
+        dispatch, combine, aux = top1_routing(logits, capacity)
+        expert_in = torch.einsum("td,tec->ecd", x, dispatch)    # (E, C, d)
+        # queue e goes to expert e's owner; this rank receives every
+        # rank's queue for its own expert, stacked by source rank
+        recv = all_to_all(expert_in, axis, split_axis=0, concat_axis=0)
+        out = expert_fn(expert_params, recv.reshape(E * capacity, d))
+        back = all_to_all(out.reshape(E, capacity, -1), axis, split_axis=0,
+                          concat_axis=0)
+        y = torch.einsum("tec,ecd->td", combine, back)
+        return y, pmean(aux, axis)
+
+    return run

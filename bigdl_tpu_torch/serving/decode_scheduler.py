@@ -55,8 +55,25 @@ the paged-attention kernel on a CUDA device.
   units, tagged with ``name``; metrics and spans follow the JAX package's
   names (``serve/ttft_ms``, ``serve/decode_step``, ...).
 
-Mesh / tensor-parallel serving (``mesh``, ``placement``) is not ported and
-is refused at a value other than JAX's default (ROADMAP A.6b).
+* Mesh serving (``mesh``, ``placement``): the registry keeps each rank's
+  block of every version (``"tp"``: Megatron tensor parallelism over
+  ``model``, ``"fsdp"``: slices over ``data``; ``parallel.sharding``), and
+  under ``"tp"`` with kv heads that divide by the ``model`` axis each
+  rank's pool holds its kvH / n heads of every block (otherwise every
+  head). The model runs the per-layer collectives itself, so every rank
+  must run every step, with the same shapes, in the same order. JAX has
+  one controller thread for the whole mesh; the port has one process a
+  rank, and keeps them in LOCKSTEP: mesh rank 0 alone takes requests and
+  makes every decision (admission, prefix plans, preemption, defrag,
+  replay, the version pin), and before each step and each page copy
+  (copy-on-write forks, defrag moves) it broadcasts a small command over
+  the mesh's ranks - the op, the tokens, positions and block tables, the
+  copies, the version. A published version reaches the other ranks as a
+  command before any step can use it. On every other rank ``start()`` (or
+  ``with sched:``) runs the worker loop, which replays each command on
+  that rank's shard until rank 0 shuts down, and ``submit`` raises.
+  Speculative decoding and the host tier are single-device (refused with
+  a mesh).
 """
 from __future__ import annotations
 
@@ -80,7 +97,7 @@ from ..optim.predictor import bucket_for
 from ..parallel import chaos as _chaos
 from ..parallel.failure import (TRANSIENT, FaultPolicy, TransientDeviceError,
                                 classify_failure)
-from ..utils.engine import refuse_unported
+from ._lockstep import Lockstep, host as _host
 from .batching import DeadlineExceeded, EngineStopped, QueueFull, ServeFuture
 from .kv_cache import (SPILL_PENDING, KVCacheOOM, KVSwapManager,
                        PagedKVCache, blocks_for_tokens)
@@ -223,8 +240,12 @@ class DecodeScheduler:
     host_blocks : size of the host-RAM KV tier in blocks (0: none).
     preempt : allow swap-based preemption (needs ``host_blocks``).
 
-    Not ported, and refused at a value other than JAX's default: ``mesh``
-    / ``placement``.
+    mesh / placement : serve over a ``parallel.mesh`` mesh, the
+        parameters placed by ``placement`` (``"tp"``, ``"fsdp"``,
+        ``"replicated"`` / None, a callable or a spec tree;
+        ``sharding.serving_param_specs``), in lockstep (module docstring):
+        every rank of the mesh builds the scheduler the same way; rank 0
+        serves, the others run the worker loop.
     """
 
     def __init__(self, model, *, max_slots: int = 8, block_size: int = 16,
@@ -242,8 +263,6 @@ class DecodeScheduler:
                  placement=None, name: Optional[str] = None, tags=(),
                  fault_policy=None, audit_every: int = 256,
                  host_blocks: int = 0, preempt: bool = True):
-        refuse_unported("DecodeScheduler", mesh=(mesh, None),
-                        placement=(placement, None))
         if model.mode != "lm":
             raise ValueError("DecodeScheduler serves LM-mode models")
         if max_slots < 2:
@@ -258,9 +277,48 @@ class DecodeScheduler:
         if admission not in ("continuous", "static"):
             raise ValueError(f"admission must be 'continuous' or 'static', "
                              f"got {admission!r}")
+        if mesh is not None and draft_model is not None:
+            raise ValueError("speculative decoding is single-device only - "
+                             "drop draft_model or the mesh")
         model.ensure_initialized()
         self.model = model
         self.device = model.device
+        self.mesh = mesh
+        self._page_axis = None   # mesh axis the pages' kv heads split over
+        self._ls = None          # the lockstep channel under a mesh
+        page_sharding = None
+        if mesh is not None:
+            from ..parallel import sharding as _sh
+            from ..parallel.mesh import mesh_device
+            if registry is not None and placement is not None:
+                raise ValueError(
+                    "placement= is applied by the registry the scheduler "
+                    "builds - with an explicit registry= it would be "
+                    "silently ignored; construct the registry with "
+                    "mesh/param_specs yourself, or drop one argument")
+            if host_blocks > 0:
+                raise ValueError("the host KV tier is single-device only - "
+                                 "drop host_blocks or the mesh")
+            if mesh_device(mesh) != self.device:
+                raise ValueError(f"mesh on {mesh_device(mesh)}, model on "
+                                 f"{self.device}")
+            if registry is None:
+                registry = ModelRegistry(
+                    mesh=mesh, param_specs=_sh.serving_param_specs(
+                        model.params, mesh, placement))
+            if registry.current() is None:
+                registry.publish(model.params, model.state, version="v0",
+                                 activate=True)
+            # pages split over kv heads where this rank's attention holds
+            # a tensor-parallel share of them (JAX: kvH % tp == 0)
+            attn = model.blocks[0].attn
+            n = attn._tp(registry.current().params["block0"]["attn"])
+            if n > 1 and attn._kvh() % n == 0 and attn.num_heads % n == 0:
+                page_sharding = _sh.Placement(mesh, (None, "model"))
+                self._page_axis = "model"
+            else:
+                page_sharding = _sh.Placement(mesh, ())
+            self._ls = Lockstep(mesh)
         self.max_slots = int(max_slots)
         self.max_seq_len = int(max_seq_len)
         self.prefill_chunk = int(prefill_chunk)
@@ -277,7 +335,8 @@ class DecodeScheduler:
         if num_blocks is None:
             num_blocks = self.max_slots * mbs + 1
         self.kv = PagedKVCache(model, num_blocks=num_blocks,
-                               block_size=block_size, max_blocks_per_seq=mbs)
+                               block_size=block_size, max_blocks_per_seq=mbs,
+                               sharding=page_sharding)
         self.kv_swap = (KVSwapManager(self.kv, host_blocks, tag=name)
                         if host_blocks > 0 else None)
         self.preempt_enabled = bool(preempt) and self.kv_swap is not None
@@ -303,6 +362,10 @@ class DecodeScheduler:
         if self.registry.current() is None:
             self.registry.publish(model.params, model.state, version="v0",
                                   activate=True)
+        if self._ls is not None and self._ls.is_root:
+            # every later publish and page copy reaches the other ranks
+            self.registry.add_publish_listener(self._ls.on_publish)
+            self.kv._mirror = lambda op, payload: self._ls.send((op, payload))
         self.static_wait_ms = float(static_wait_ms)
         self.max_queue = int(max_queue)
         self._q: queue.Queue = queue.Queue(maxsize=self.max_queue)
@@ -338,11 +401,61 @@ class DecodeScheduler:
     def _forward(self, model, params, kv, tokens, positions, tables):
         """One ``decode_paged`` call of ``model`` over ``kv``'s pool (pages
         updated in place): logits (B, S, V). Operands are numpy arrays or
-        device tensors."""
-        logits, _ = model.decode_paged(params, self._dev(tokens),
-                                       self._dev(positions), kv.pages(),
-                                       self._dev(tables))
+        device tensors. Under a mesh, rank 0 first sends the step to the
+        other ranks (they run it on their shards)."""
+        if self._ls is not None and model is self.model:
+            self._ls.send(("fwd", self._version_of(params),
+                           *(_host(a) for a in (tokens, positions, tables))))
+        return self._forward_local(model, params, kv, tokens, positions,
+                                   tables)
+
+    def _forward_local(self, model, params, kv, tokens, positions, tables):
+        """The step on this rank: under a mesh, with the mesh's axes and
+        the pages' head split in scope."""
+        if self.mesh is None:
+            logits, _ = model.decode_paged(params, self._dev(tokens),
+                                           self._dev(positions), kv.pages(),
+                                           self._dev(tables))
+            return logits
+        from ..parallel.collective import over
+        from ..parallel.flash import paged_serving_context
+        with over(self.mesh), paged_serving_context(self.mesh,
+                                                    self._page_axis):
+            logits, _ = model.decode_paged(params, self._dev(tokens),
+                                           self._dev(positions), kv.pages(),
+                                           self._dev(tables))
         return logits
+
+    def _version_of(self, params) -> str:
+        for v in self.registry.versions():
+            if self.registry.get(v).params is params:
+                return v
+        raise KeyError("the step's parameters are no published version")
+
+    # -- lockstep: the other ranks of a mesh --------------------------------
+
+    def _work(self):
+        """The worker loop of a rank other than mesh rank 0: replay rank
+        0's commands on this rank's shard until it shuts down."""
+        while True:
+            cmd = self._ls.recv()
+            op = cmd[0]
+            if op == "stop":
+                return
+            if op == "fwd":
+                _, version, tokens, positions, tables = cmd
+                self._forward_local(self.model,
+                                    self.registry.get(version).params,
+                                    self.kv, tokens, positions, tables)
+            elif op == "copy":
+                self.kv._copy_pages(cmd[1])
+            elif op == "publish":
+                _, version, params, state = cmd
+                self.registry.publish(params, state, version=version,
+                                      activate=True)
+            elif op == "retire":
+                if self.registry.active_version != cmd[1]:
+                    self.registry.retire(cmd[1])
 
     def _choose(self, logits, positions, rows):
         """(B, S) device token choices: argmax, and for the sampled rows
@@ -394,6 +507,13 @@ class DecodeScheduler:
             return self
         if self._closed:
             raise EngineStopped("scheduler was shut down; build a new one")
+        if self._ls is not None and not self._ls.is_root:
+            # a worker rank: replay rank 0's steps (its warmup included)
+            self._thread = threading.Thread(target=self._work,
+                                            name=THREAD_NAME + "-worker",
+                                            daemon=True)
+            self._thread.start()
+            return self
         if warmup:
             self.warmup()
         self._beacon = _health.beacon(self.beacon_name,
@@ -451,6 +571,11 @@ class DecodeScheduler:
         to its free list."""
         with self._cond:
             self._closed = True
+        if self._ls is not None and not self._ls.is_root:
+            # a worker rank runs until rank 0 shuts down
+            if self._thread is not None:
+                self._thread.join()
+            return
         if not drain:
             self._stop.set()
         t = self._thread
@@ -473,6 +598,8 @@ class DecodeScheduler:
         # (a violation quarantines and leaves a bundle, never raises)
         self._audit("shutdown")
         self._close_tiers()
+        if self._ls is not None:
+            self._ls.stop()
 
     def _close_tiers(self):
         """Drop the prefix cache's pins (the shared pages return too) and
@@ -507,6 +634,10 @@ class DecodeScheduler:
         fails the future with :class:`DeadlineExceeded` carrying the tokens
         so far on ``.partial``. ``priority`` is the preemption class
         (higher wins; equal priorities never preempt each other)."""
+        if self._ls is not None and not self._ls.is_root:
+            raise RuntimeError("only mesh rank 0 takes requests; this rank "
+                               "replays its steps (start() runs the worker "
+                               "loop)")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if temperature < 0:
@@ -763,6 +894,8 @@ class DecodeScheduler:
     def _loop(self):
         while not self._stop.is_set():
             self._beacon.pulse()
+            if self._ls is not None:
+                self._ls.keepalive()
             if obs.enabled():
                 self._snap_writer.maybe_write()
             self._pull_pending()

@@ -23,9 +23,19 @@ version, so each response is old or new, never mixed. The batcher pulses
 a stall-watchdog beacon (``serving/batcher[<name>]``).
 
 The engine runs on its registry's device: the CUDA device unless the
-caller passes ``device="cpu"``. Mesh placement (``mesh``, ``placement``,
-``batch_spec``) is not ported and is refused at a value other than JAX's
-default (ROADMAP A.6b).
+caller passes ``device="cpu"``.
+
+Over a mesh (``mesh``, ``placement``, ``batch_spec``): the registry keeps
+each rank's block of every version (``sharding.serving_param_specs``), and
+each padded bucket's rows split over the batch axes
+(``sharding.serving_batch_spec``: ``replica`` x ``data`` where the mesh
+has them), so every bucket is a multiple of the shard count (the bucket
+floor). The ranks run in lockstep (``_lockstep``): mesh rank 0 takes the
+requests and cuts the batches, and for each it sends the padded batch and
+the version to every rank; each rank gathers the version's slices whole
+for the dispatch (a generic model has no per-layer hook; they are dropped
+after it), runs its rows, and rank 0 gathers the rows back. On every other
+rank ``start()`` runs the worker loop and ``submit`` raises.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from .. import observability as obs
 from ..observability import cluster as _cluster
@@ -47,7 +58,8 @@ from ..optim.predictor import (bucket_for, pad_leading, shape_buckets,
 from ..optim.staging import place_host_value
 from ..parallel import chaos as _chaos
 from ..parallel.failure import FaultPolicy, classify_failure
-from ..utils.engine import refuse_unported, resolve_device
+from ..utils.engine import resolve_device
+from ._lockstep import Lockstep
 from .batching import (DeadlineExceeded, EngineStopped, QueueFull, Request,
                        ServeFuture, assemble)
 from .registry import ModelRegistry
@@ -99,9 +111,6 @@ class ServingEngine:
                  mesh=None, placement=None, batch_spec=None,
                  name: Optional[str] = None, tags=(),
                  fault_policy: Optional[FaultPolicy] = None, device=None):
-        refuse_unported("ServingEngine", mesh=(mesh, None),
-                        placement=(placement, None),
-                        batch_spec=(batch_spec, None))
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_queue < 1:
@@ -121,6 +130,36 @@ class ServingEngine:
         self.tags = tuple(tags)
         self.beacon_name = ("serving/batcher" if name is None
                             else f"serving/batcher[{name}]")
+        self.mesh = mesh
+        self._batch_spec = None
+        self._bucket_floor = 1
+        self._ls = None
+        if mesh is not None:
+            from ..parallel import sharding as _sh
+            from ..parallel.mesh import mesh_device
+            if registry is not None and placement is not None:
+                raise ValueError(
+                    "placement= is applied by the registry the engine "
+                    "builds - with an explicit registry= it would be "
+                    "silently ignored; construct the registry with "
+                    "mesh/param_specs yourself, or drop one argument")
+            spec = (tuple(batch_spec) if batch_spec is not None
+                    else _sh.serving_batch_spec(mesh))
+            self._batch_spec = spec
+            self._bucket_floor = _sh.batch_shard_count(mesh, spec)
+            if self._bucket_floor > self.max_batch \
+                    or self.max_batch % self._bucket_floor:
+                raise ValueError(
+                    f"max_batch {self.max_batch} must be a multiple of the "
+                    f"batch shard count {self._bucket_floor} (mesh "
+                    f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, batch "
+                    f"spec {spec}) so every bucket splits into whole "
+                    "per-shard rows")
+            self._specs = _sh.serving_param_specs(model.params, mesh,
+                                                  placement)
+            if registry is None:
+                registry = ModelRegistry(mesh=mesh, param_specs=self._specs)
+            device = mesh_device(mesh)
         if registry is None:
             registry = ModelRegistry(device=resolve_device(device))
         self.device = resolve_device(registry.device if device is None
@@ -129,6 +168,10 @@ class ServingEngine:
         if self.registry.current() is None:
             self.registry.publish(model.params, model.state, version="v0",
                                   activate=True)
+        if mesh is not None:
+            self._ls = Lockstep(mesh)
+            if self._ls.is_root:
+                self.registry.add_publish_listener(self._ls.on_publish)
         self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
         self._thread: Optional[threading.Thread] = None
         self._closed = False      # no new admissions; batcher drains
@@ -154,6 +197,12 @@ class ServingEngine:
             return self
         if self._closed:
             raise EngineStopped("engine was shut down; build a new one")
+        if self._ls is not None and not self._ls.is_root:
+            # a worker rank: run rank 0's batches (its warmup included)
+            self._thread = threading.Thread(
+                target=self._work, name=THREAD_NAME + "-worker", daemon=True)
+            self._thread.start()
+            return self
         if self._warmup_on_start and self.input_shape is not None:
             self.warmup()
         self._beacon = _health.beacon(self.beacon_name,
@@ -170,11 +219,10 @@ class ServingEngine:
         if self.input_shape is None:
             raise ValueError("warmup needs input_shape")
         mv = self.registry.current()
-        for b in shape_buckets(self.max_batch):
+        for b in self._buckets():
             with obs.span("serve/warmup", bucket=b):
-                x = self._place_batch(
-                    np.zeros((b,) + self.input_shape, self.input_dtype))
-                self._fwd(mv.params, mv.state, x).cpu()
+                self._run(mv, np.zeros((b,) + self.input_shape,
+                                       self.input_dtype))
         return self
 
     def drain(self, timeout: Optional[float] = None) -> bool:
@@ -188,6 +236,10 @@ class ServingEngine:
         ``drain=False`` fails queued requests with :class:`EngineStopped`."""
         with self._cond:
             self._closed = True
+        if self._ls is not None and not self._ls.is_root:
+            if self._thread is not None:     # runs until rank 0 stops
+                self._thread.join()
+            return
         if not drain:
             self._stop.set()
         t = self._thread
@@ -197,6 +249,8 @@ class ServingEngine:
                 logging.getLogger(__name__).warning(
                     "serving batcher did not join within %.0fs", timeout)
         self._beacon.close()
+        if self._ls is not None:
+            self._ls.stop()
         while True:
             try:
                 req = self._q.get_nowait()
@@ -224,6 +278,10 @@ class ServingEngine:
         request whose deadline passes before its batch dispatches fails
         with :class:`DeadlineExceeded`. Submitting before :meth:`start`
         queues the request."""
+        if self._ls is not None and not self._ls.is_root:
+            raise RuntimeError("only mesh rank 0 takes requests; this rank "
+                               "runs its batches (start() runs the worker "
+                               "loop)")
         ms = deadline_ms if deadline_ms is not None else \
             self.default_deadline_ms
         req = Request(x, deadline_s=ms / 1000.0 if ms is not None else None,
@@ -367,17 +425,15 @@ class ServingEngine:
                 qh.observe((t_cut_ns - r.t_enqueue_ns) / 1e6)
             obs.histogram("serve/assemble_ms", unit="ms").observe(
                 assemble_ms)
-        bucket = bucket_for(n, self.max_batch)
+        bucket = self._bucket_for(n)
         mv = self.registry.current()  # ONE version per batch
         sp = obs.span("serve/batch", bucket=bucket, n=n, version=mv.version)
         t_fwd_ns = time.perf_counter_ns()
 
         def forward():
             _chaos.maybe_fire("serving/engine_dispatch", tag=self.name)
-            xd = self._place_batch(pad_leading(x, bucket))
-            out = self._fwd(mv.params, mv.state, xd)
             # the readback is inside the unit: a CUDA fault surfaces here
-            return out.cpu().numpy()
+            return self._run(mv, pad_leading(x, bucket))
 
         pol = self.fault_policy
         try:
@@ -450,6 +506,91 @@ class ServingEngine:
                            dispatch_ms=round(dispatch_ms, 3))
 
     # -- internals -------------------------------------------------------
+
+    def _bucket_for(self, n: int) -> int:
+        """Padded batch size for ``n`` live rows: the power-of-two bucket,
+        rounded up to a multiple of the mesh's batch shard count (every
+        shard gets whole rows; ``max_batch`` is a multiple of it)."""
+        b = max(bucket_for(n, self.max_batch), self._bucket_floor)
+        f = self._bucket_floor
+        if b % f:
+            b = min(self.max_batch, -(-b // f) * f)
+        return b
+
+    def _buckets(self):
+        """The reachable buckets: ``shape_buckets`` through the shard
+        rounding (what warmup drives)."""
+        out = []
+        for b in shape_buckets(self.max_batch):
+            rb = self._bucket_for(b)
+            if rb not in out:
+                out.append(rb)
+        return tuple(out)
+
+    def _run(self, mv, x):
+        """The forward of one padded host batch under version ``mv`` and
+        its readback (numpy). Over a mesh, rank 0 first sends the batch to
+        every rank, and the rows come back from the ranks that ran them."""
+        if self._ls is None:
+            return self._fwd(mv.params, mv.state,
+                             self._place_batch(x)).cpu().numpy()
+        self._ls.send(("run", mv.version, np.asarray(x)))
+        return self._run_shard(mv, x)
+
+    def _run_shard(self, mv, x):
+        """This rank's rows of the batch ``x`` (the rows the batch spec
+        gives it) under ``mv``'s gathered parameters; on rank 0, every
+        block gathered back in row order."""
+        import torch.distributed as dist
+        from ..parallel.collective import over
+        from ..parallel.mesh import mesh_ranks
+        from ..parallel.sharding import _axes_index, _gather_whole, _rows
+        axes = self._batch_spec[0] if self._batch_spec else ()
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        xs = _rows(x, self.mesh, axes) if axes else x
+        with over(self.mesh):
+            params = _gather_whole(mv.params, self._specs, self.mesh)
+            out = self._fwd(params, mv.state, self._place_batch(xs))
+        del params
+        out = out.contiguous()
+        # every rank's block (in the lockstep group's rank order), then the
+        # blocks in row order by each rank's batch index
+        both = out.new_empty((self.mesh.size(),) + tuple(out.shape))
+        dist.all_gather_into_tensor(both, out[None], group=self._ls.group)
+        parts = both.unbind(0)
+        if not self._ls.is_root:
+            return None
+        ranks = sorted(int(r) for r in mesh_ranks(self.mesh).flat)
+        n, _ = _axes_index(self.mesh, axes) if axes else (1, 0)
+        coords = {int(r): c for c, r in np.ndenumerate(
+            mesh_ranks(self.mesh))}
+        names = list(self.mesh.mesh_dim_names)
+        blocks = [None] * n
+        for g, t in zip(ranks, parts):
+            i = 0
+            for a in axes:
+                k = names.index(a)
+                i = i * self.mesh.shape[k] + coords[g][k]
+            if blocks[i] is None:
+                blocks[i] = t
+        return torch.cat(blocks).cpu().numpy()
+
+    def _work(self):
+        """The worker loop of a rank other than mesh rank 0: run each of
+        rank 0's batches on this rank's rows until it shuts down."""
+        while True:
+            cmd = self._ls.recv()
+            if cmd[0] == "stop":
+                return
+            if cmd[0] == "run":
+                self._run_shard(self.registry.get(cmd[1]), cmd[2])
+            elif cmd[0] == "publish":
+                _, version, params, state = cmd
+                self.registry.publish(params, state, version=version,
+                                      activate=True)
+            elif cmd[0] == "retire":
+                if self.registry.active_version != cmd[1]:
+                    self.registry.retire(cmd[1])
 
     def _place_batch(self, x):
         return place_host_value(x, self.device)

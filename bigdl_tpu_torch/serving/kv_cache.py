@@ -51,7 +51,6 @@ from .. import observability as obs
 from ..observability import health as _health
 from ..parallel import chaos as _chaos
 from ..parallel.failure import TransientDeviceError
-from ..utils.engine import refuse_unported
 
 
 class KVCacheOOM(RuntimeError):
@@ -80,12 +79,18 @@ class PagedKVCache:
     ``_defrag_moves`` and the gauges ``<prefix>_blocks_*`` /
     ``_shared_blocks`` / ``_high_water`` / ``_frag_blocks``, as in the JAX
     package, written while observability is enabled. The chaos sites
-    ``kv/cow_fork`` and ``kv/page_copy`` fire before the ledger changes."""
+    ``kv/cow_fork`` and ``kv/page_copy`` fire before the ledger changes.
+    ``sharding`` (a ``parallel.sharding.Placement`` of the pages, say
+    ``Placement(mesh, (None, 'model'))``) puts the pool on the mesh's
+    device, with this rank's kvH / n heads when dim 1 is split. A lockstep
+    serving loop sets ``_mirror`` (``fn(op, payload)``) on the rank that
+    decides, so every page copy reaches the other ranks' pools too."""
+
+    _mirror = None
 
     def __init__(self, model, *, num_blocks: int, block_size: int = 16,
                  max_blocks_per_seq: int, dtype=torch.float32,
                  metric_prefix: str = "serve/kv", sharding=None):
-        refuse_unported("PagedKVCache", sharding=(sharding, None))
         if num_blocks < 2:
             raise ValueError(f"num_blocks must be >= 2 (block 0 is the "
                              f"reserved null block), got {num_blocks}")
@@ -105,7 +110,22 @@ class PagedKVCache:
         self.n_layers = len(model.blocks)
         self.page_dtype = dtype
         self.device = model.device
-        shape = (num_blocks, self.kv_heads, block_size, self.head_dim)
+        # mesh-sharded serving: ``sharding`` is a ``parallel.sharding.
+        # Placement`` of the page tensors; with dim 1 (kv heads) split over
+        # an axis, this rank's pool holds its kvH / n heads of every block
+        self.sharding = sharding
+        kvh = self.kv_heads
+        if sharding is not None:
+            from ..parallel.mesh import axis_size, mesh_device
+            self.device = mesh_device(sharding.mesh)
+            spec = tuple(sharding.spec)
+            if len(spec) > 1 and spec[1] is not None:
+                n = axis_size(sharding.mesh, spec[1])
+                if self.kv_heads % n:
+                    raise ValueError(f"{self.kv_heads} kv heads do not "
+                                     f"split over {n} {spec[1]!r} ranks")
+                kvh = self.kv_heads // n
+        shape = (num_blocks, kvh, block_size, self.head_dim)
         self._pages = [(torch.zeros(shape, dtype=dtype, device=self.device),
                         torch.zeros(shape, dtype=dtype, device=self.device))
                        for _ in model.blocks]
@@ -136,6 +156,8 @@ class PagedKVCache:
         and one scatter per layer half, on the current stream (the
         gather completes before the scatter: disjoint or not, no page is
         read after it is written)."""
+        if self._mirror is not None:
+            self._mirror("copy", [(int(a), int(b)) for a, b in moves])
         src = self._idx([s for s, _ in moves])
         dst = self._idx([d for _, d in moves])
         for k, v in self._pages:

@@ -1,10 +1,17 @@
 """Versioned model registry with atomic hot swap (counterpart of
-``bigdl_tpu/serving/registry.py``, without mesh placement).
+``bigdl_tpu/serving/registry.py``).
 
 ``publish`` places a parameter tree and a state tree (the model's
 non-trained state; ``None`` or ``{}`` for a TransformerLM) on the
 registry's device on the caller's thread; ``activate`` is a pointer write
-under a lock, so a swap lands on a dispatch boundary."""
+under a lock, so a swap lands on a dispatch boundary.
+
+With a ``mesh`` and ``param_specs`` (a spec tree, or a callable resolved
+per publish), every publish is a sharded load on the publishing thread:
+this rank keeps its block of each leaf (``sharding.place_with_specs``).
+A serving loop that keeps several ranks in lockstep hears of each publish
+before its version can be activated (``add_publish_listener``) and hands
+the other ranks the tree to load their blocks of."""
 from __future__ import annotations
 
 import threading
@@ -40,19 +47,21 @@ def _place(tree, device):
 
 class ModelRegistry:
     """Thread-safe version store: ``publish`` loads, ``activate`` swaps,
-    ``retire`` drops a version that is not active. JAX's mesh placement
-    (``mesh``, ``param_specs``, ``state_specs``) is not ported: the port
-    serves on one device (``device``)."""
+    ``retire`` drops a version that is not active. Without a mesh the
+    versions live on ``device``; with ``mesh`` + ``param_specs`` each
+    publish keeps this rank's blocks on the mesh's device
+    (``state_specs``: replicated by default)."""
 
     def __init__(self, mesh=None, param_specs=None, state_specs=None,
                  device=None):
-        for name, v in (("mesh", mesh), ("param_specs", param_specs),
-                        ("state_specs", state_specs)):
-            if v is not None:
-                raise NotImplementedError(
-                    f"ModelRegistry({name}=...): mesh placement is not "
-                    f"ported (one device; ROADMAP A.6b)")
+        self.mesh = mesh
+        self._param_specs = param_specs
+        self._state_specs = state_specs
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+            device = mesh_device(mesh)
         self.device = device
+        self._listeners: list = []
         self._versions: Dict[str, ModelVersion] = {}
         self._order: List[str] = []
         self._active: Optional[str] = None
@@ -69,8 +78,9 @@ class ModelRegistry:
         version id (``v<n>`` when not given)."""
         if transform is not None:
             params = transform(params)
-        placed = ModelVersion("", _place(params, self.device),
-                              _place(state, self.device))
+        placed = ModelVersion("", self._place_tree(params,
+                                                   self._param_specs),
+                              self._place_tree(state, self._state_specs))
         with self._lock:
             if version is None:
                 while f"v{self._counter}" in self._used:
@@ -84,9 +94,33 @@ class ModelRegistry:
             placed.version = version
             self._versions[version] = placed
             self._order.append(version)
+            # listeners hear of the version before it can be activated
+            for fn in self._listeners:
+                fn("publish", version, params, state)
             if activate or self._active is None:
                 self._active = version
         return version
+
+    def _place_tree(self, tree, specs):
+        """Placement of one tree: this rank's blocks on the mesh (specs
+        resolved per publish when callable; replicated when None), else
+        the whole tree on the registry's device."""
+        if tree is None:
+            return None
+        if self.mesh is None:
+            return _place(tree, self.device)
+        from ..parallel.sharding import place_with_specs, serving_param_specs
+        specs = specs(tree) if callable(specs) else specs
+        if specs is None:
+            specs = serving_param_specs(tree, self.mesh, None)
+        return place_with_specs(tree, self.mesh, specs)
+
+    def add_publish_listener(self, fn):
+        """``fn(event, version, params, state)`` on every later ``publish``
+        (before the version can be activated) and ``retire`` (params and
+        state None), under the registry's lock: it must only record."""
+        with self._lock:
+            self._listeners.append(fn)
 
     def activate(self, version: str):
         with self._lock:
@@ -121,3 +155,5 @@ class ModelRegistry:
             self._versions.pop(version, None)
             if version in self._order:
                 self._order.remove(version)
+            for fn in self._listeners:
+                fn("retire", version, None, None)

@@ -348,6 +348,21 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``ElasticRunner`` drill (ZeRO-1 halts after step 2 on both ranks, rank
    0 resumes alone on one NCCL rank from the canonical checkpoint to
    step 4, against an uninterrupted one-rank run).
+19. model parallelism (phase 19, ``model_parallel``; sizes in ``MP19``),
+   on two gloo ranks sharing the card (this script with
+   ``--phase19-rank``): (a) the flagship (bf16 weights, float32 pages)
+   served by ``DecodeScheduler(mesh=<('model',) of 2>)`` over a
+   tensor-parallel registry, phase 4's requests, tokens against the
+   one-rank scheduler, each rank's pages (8 of 16 kv heads) against the
+   one-rank pool's heads, K2 launches and resident bytes per rank, and
+   ``generate`` over the placed weights (K1-fwd at 8 heads); (b) the same
+   requests under FSDP on a ('data',) mesh (the flagship cut to 4
+   layers), peak memory per rank; (d) ``Attention(seq_axis='seq')`` by
+   ring and all-to-all, bf16 and float32, B2/T2048, forward and gradients
+   against one rank's flash, the hop's route; (e) the time-sharded decode
+   across the shard edge; (f) tensor-parallel and FSDP training of the
+   depth-2 flagship against one rank; (g) ``gpipe`` and ``moe_ffn`` over
+   the two ranks.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -388,7 +403,10 @@ ones on the ``_f32`` rows and its validation's on the ``_eval`` rows;
 17's training launches, and its ``generate`` launches on ``flash_fwd``);
 the flash, K3, K4 and K5 rows carry their
 ``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
-phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows);
+phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows;
+phase 19's K1 launches, both ranks, on ``flash_fwd`` / ``flash_bwd``
+(bf16) and the ``_f32`` rows, its K2 serving launches on
+``paged_attention``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -6326,6 +6344,711 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
     return r18
 
 
+# -- phase 19: model parallelism across GPUs ------------------------------------
+
+# two gloo ranks of this script share the card (NCCL refuses two ranks on
+# one card): (a) tensor-parallel and (b) FSDP serving of the flagship
+# through DecodeScheduler(mesh=, placement=) with phase 4's requests, (d)
+# sequence-parallel attention (ring-flash and all-to-all), (e) the
+# time-sharded decode, (f) tensor-parallel and FSDP training, (g) GPipe
+# and the expert-parallel MoE FFN; each against one rank in the same
+# process. (b) serves the flagship cut to ``fsdp_layers`` layers: two ranks
+# sharing one card gather FSDP slices through gloo at 0.3-0.6 GB/s
+# (``tools/torch_gloo_gather_probe.py``: 0.32-0.66 s for the full depth's
+# 184 MB a step, however the gathers are cut), which would make the full
+# depth ~100 s; its resident bytes are read at full depth too. The
+# engine over a mesh runs in the CPU tests only.
+MP19 = dict(n_req=16, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
+            chunk=32, max_seq=384, max_len=512,
+            gen_B=8, gen_T=128, gen_new=8, seq_B=2, seq_T=2048, dec_B=4,
+            dec_T=4096, dec_steps=64, train_layers=2, train_B=8,
+            train_T=1024, train_steps=3, train_lr=0.1, fsdp_layers=4,
+            pipe_micro=4,
+            pipe_rows=512, moe_tokens=2048, moe_filter=4096, moe_cap=1.25,
+            timeout=300)
+# sequence-parallel attention against one rank's flash, as a share of the
+# reference's largest |value| (outputs and gradients): float32 with TF32
+# off sums in another order (~1e-6); bf16 keeps 8 bits and the ring merges
+# its blocks' bf16 outputs (JAX merges in o's dtype too)
+SEQ19_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
+DEC19_TOL = 1e-4     # the time-sharded decode, float32, relative
+PIPE19_TOL = 1e-4    # GPipe / MoE against one rank, float32, relative
+_MP_LM = {}
+
+
+def _mp_flagship(torch, dev, layers=None, max_len=None, seed=0):
+    """The flagship (``layers`` deep), built once a process per shape and
+    put back to its initial weights at every call."""
+    from bigdl_tpu_torch.models import TransformerLM
+    key = (layers, max_len, seed)
+    if key not in _MP_LM:
+        cfg = dict(FLAGSHIP, max_len=max_len or MP19["max_len"])
+        if layers is not None:
+            cfg["num_layers"] = layers
+        m = TransformerLM(**cfg, device=dev, seed=seed)
+        _MP_LM[key] = (m, {k: v.clone() for k, v in m.state_dict().items()})
+    m, init = _MP_LM[key]
+    m.load_state_dict(init)
+    return m
+
+
+def _bytes(tree):
+    from bigdl_tpu_torch.convert import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def _rel(got, want):
+    """max |got - want| over max |want| (float32 on the host)."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+
+def _forced_margins(torch, model, params, prompt, toks):
+    """Top-2 margins of one dense teacher-forced forward over prompt +
+    toks at each position of toks (:func:`forced_greedy` on the model's
+    device)."""
+    ids = torch.from_numpy(np.concatenate([prompt, toks])[None, :-1]) \
+        .to(model.device)
+    with torch.no_grad():
+        lg = model.call(params, ids)[0, prompt.size - 1:].float()
+    top = lg.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+
+def _chains(torch, sched, prompts):
+    """The prefix cache's resident chain of each prompt (None where it was
+    evicted), with the scheduler idle."""
+    v = sched.registry.current().version
+    out = []
+    for p in prompts:
+        blocks = sched.prefix._walk(p, v, touch=False)[0]
+        out.append(list(blocks) if blocks else None)
+    return out
+
+
+def _mp_serve(torch, K, dev, rank, n, placement):
+    """(a) / (b): phase 4's requests through the one-rank scheduler and
+    through ``DecodeScheduler(mesh=, placement=)`` over the two ranks (all
+    submitted before ``start()``, so both admit alike); rank 0's tokens,
+    every rank's pages of each prompt chain resident in both pools against
+    the one-rank pool's matching heads, launches, resident bytes, peak
+    memory and seconds."""
+    import torch.distributed as dist
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import over
+    from bigdl_tpu_torch.parallel.sharding import (place_with_specs,
+                                                   serving_param_specs)
+    from bigdl_tpu_torch.serving import DecodeScheduler, ModelRegistry
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    layers = MP19["fsdp_layers"] if placement == "fsdp" else None
+    model = _mp_flagship(torch, dev, layers=layers)
+    with torch.no_grad():
+        params = bf16_params(model.params)
+    V = FLAGSHIP["vocab_size"]
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, V, rng.randint(*MP19["prompt"]))
+               .astype(np.int32) for _ in range(MP19["n_req"])]
+    budgets = [int(rng.randint(*MP19["budget"]))
+               for _ in range(MP19["n_req"])]
+    kw = dict(max_slots=MP19["slots"], block_size=MP19["block"],
+              max_seq_len=MP19["max_seq"], prefill_chunk=MP19["chunk"])
+    out = {}
+    reg1 = ModelRegistry(device=model.device)
+    reg1.publish(params, version="bf16", activate=True)
+    solo = DecodeScheduler(model, registry=reg1, **kw)
+    futs = [solo.submit(p, b) for p, b in zip(prompts, budgets)]
+    solo.start()
+    solo_tok = [f.result(600) for f in futs]
+    solo_chains = _chains(torch, solo, prompts)
+    solo.shutdown()
+    axis = "model" if placement == "tp" else "data"
+    mesh = make_mesh((n,), (axis,), device=dev)
+    reg = ModelRegistry(mesh=mesh, param_specs=serving_param_specs(
+        params, mesh, placement))
+    reg.publish(params, version="bf16", activate=True)
+    out["resident_bytes"] = _bytes(reg.current().params)
+    out["whole_bytes"] = _bytes(params)
+    out["layers"] = len(model.blocks)
+    if layers is not None:      # the full depth's placement, not served
+        full = _mp_flagship(torch, dev)
+        with torch.no_grad():
+            fp = bf16_params(full.params)
+        out["full_resident_bytes"] = _bytes(place_with_specs(
+            fp, mesh, serving_param_specs(fp, mesh, placement)))
+        out["full_whole_bytes"] = _bytes(fp)
+        del full, fp
+    _sync(torch, dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sched = DecodeScheduler(model, registry=reg, mesh=mesh, **kw)
+    out["page_shape"] = tuple(sched.kv.pages()[0][0].shape)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    if rank == 0:
+        # warm up first (the other ranks replay it), then queue every
+        # request before the loop starts, as the one-rank run did
+        sched.warmup()
+        _sync(torch, dev)
+        out["warmup"] = K.launch_counts()
+        K.reset_launch_counts()
+        futs = [sched.submit(p, b) for p, b in zip(prompts, budgets)]
+        t1 = time.perf_counter()
+        sched.start(warmup=False)
+    else:
+        sched.start()
+    if rank == 0:
+        toks = [f.result(600) for f in futs]
+        out["serve_s"] = time.perf_counter() - t1
+        _sync(torch, dev)
+        serve = (K.launch_counts(), K.launches_by_route())
+        out["tokens"] = toks
+        out["solo_tokens"] = solo_tok
+        out["stats"] = {k: sched.stats()[k] for k in
+                        ("decode_steps", "prefill_chunks", "tokens")}
+        chains = _chains(torch, sched, prompts)
+        margins = [_forced_margins(torch, model, params, p, t)
+                   for p, t in zip(prompts, solo_tok)]
+        out["margins"] = margins
+    sched.shutdown()
+    _sync(torch, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    # rank 0: its serving steps (the margins' forwards came after); the
+    # other ranks: every step they replayed, rank 0's warmup included
+    out["counts"], out["routes"] = (serve if rank == 0 else
+                                    (K.launch_counts(),
+                                     K.launches_by_route()))
+    if torch.device(dev).type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    box = [chains if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    chains = box[0]
+    errs = []
+    for mine, theirs in zip(chains, solo_chains):
+        if not mine or not theirs or len(mine) != len(theirs):
+            continue
+        got = gather_pages(torch, sched.kv, mine)
+        want = gather_pages(torch, solo.kv, theirs)
+        h = got[0][0].shape[1]
+        lo = rank * h if h < want[0][0].shape[1] else 0
+        want = [tuple(t[:, lo:lo + h].float() for t in kv) for kv in want]
+        errs.append(page_err(got, want))
+    out["page_errs"] = errs
+    if placement == "tp":
+        # K1-fwd on the tensor-parallel prefill: generate over the placed
+        # bf16 weights (this rank's heads), against one rank's prefill
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            1, V, (MP19["gen_B"], MP19["gen_T"])).astype(np.int64)).to(dev)
+        placed = reg.current().params
+        with torch.no_grad():
+            want, _ = model.prefill(params, ids, MP19["gen_T"] + 1)
+        _sync(torch, dev)
+        K.reset_launch_counts()
+        with over(mesh):
+            gen = model.generate(placed, ids, MP19["gen_new"])
+            got, _ = model.prefill(placed, ids, MP19["gen_T"] + 1)
+        _sync(torch, dev)
+        out["gen_counts"] = K.launch_counts()
+        out["gen_routes"] = K.launches_by_route()
+        out["gen_shape"] = tuple(gen.shape)
+        out["gen_logit_err"] = _rel(got, want)
+    del sched, solo
+    return out
+
+
+def _mp_seq(torch, K, dev, rank, n):
+    """(d): ``Attention(seq_axis='seq')`` at hidden 1024 / 16 heads,
+    causal, over the ranks' blocks of the sequence, by ring and by
+    all-to-all, bf16 and float32: this rank's output block, its input
+    gradient block and the parameters' gradients (summed over the ranks)
+    against one rank's flash on the whole sequence; K1 launches by route
+    and the hop's route."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import (_hop_route,
+                                                     all_reduce_sum,
+                                                     axis_group, over)
+    mesh = make_mesh((n,), ("seq",), device=dev)
+    B, T = MP19["seq_B"], MP19["seq_T"]
+    Hd, heads = FLAGSHIP["hidden_size"], FLAGSHIP["num_heads"]
+    tb = T // n
+    out = {}
+    r = np.random.RandomState(5)
+    x_all = torch.from_numpy(r.randn(B, T, Hd).astype(np.float32))
+    cot_all = torch.from_numpy(r.randn(B, T, Hd).astype(np.float32))
+    for dt in (torch.bfloat16, torch.float32):
+        ref = nn.Attention(Hd, heads, causal=True,
+                           generator=torch.Generator().manual_seed(5))
+        w = {k: v.detach().to(dev, dt) for k, v in ref.params.items()}
+        x = x_all.to(dev, dt).requires_grad_(True)
+        p = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        o = ref.call(p, x)
+        g = torch.autograd.grad((o.float() * cot_all.to(dev)).sum(),
+                                [x] + [p[k] for k in sorted(p)])
+        blk = slice(rank * tb, (rank + 1) * tb)
+        want = (o[:, blk].detach(), g[0][:, blk],
+                dict(zip(sorted(p), g[1:])))
+        for impl in ("ring", "a2a"):
+            m = nn.Attention(Hd, heads, causal=True, seq_axis="seq",
+                             seq_impl=impl)
+            xb = x_all[:, blk].to(dev, dt).contiguous().requires_grad_(True)
+            pb = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+            _sync(torch, dev)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with over(mesh):
+                ob = m.call(pb, xb)
+                gb = torch.autograd.grad(
+                    (ob.float() * cot_all[:, blk].to(dev)).sum(),
+                    [xb] + [pb[k] for k in sorted(pb)])
+                _sync(torch, dev)
+                dt_s = time.perf_counter() - t0
+                counts, routes = K.launch_counts(), K.launches_by_route()
+                pg = {k: all_reduce_sum(v, "seq")
+                      for k, v in zip(sorted(pb), gb[1:])}
+                hop = _hop_route(xb.detach(), axis_group("seq")[0])
+            out[(impl, str(dt))] = {
+                "out_err": _rel(ob, want[0]), "dx_err": _rel(gb[0], want[1]),
+                "dw_err": max(_rel(pg[k], want[2][k]) for k in pg),
+                "counts": counts, "routes": routes, "s": dt_s, "hop": hop}
+    return out
+
+
+def _mp_decode(torch, dev, rank, n):
+    """(e): the time-sharded decode, 16 heads, D 64, float32, ``dec_steps``
+    steps across the shard edge against one rank's dense attention over
+    the whole cache."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.seq_decode import make_seq_sharded_decoder
+    mesh = make_mesh((n,), ("seq",), device=dev)
+    dec = make_seq_sharded_decoder(mesh, "seq")
+    B, T, S = MP19["dec_B"], MP19["dec_T"], MP19["dec_steps"]
+    H, D = FLAGSHIP["num_heads"], FLAGSHIP["hidden_size"] // \
+        FLAGSHIP["num_heads"]
+    tl = T // n
+    start = tl - S // 2                 # the steps cross the first edge
+    r = np.random.RandomState(9)
+    kf = torch.zeros(B, H, T, D, device=dev)
+    vf = torch.zeros(B, H, T, D, device=dev)
+    kf[:, :, :start] = torch.from_numpy(
+        r.randn(B, H, start, D).astype(np.float32)).to(dev)
+    vf[:, :, :start] = torch.from_numpy(
+        r.randn(B, H, start, D).astype(np.float32)).to(dev)
+    kc = kf[:, :, rank * tl:(rank + 1) * tl].clone()
+    vc = vf[:, :, rank * tl:(rank + 1) * tl].clone()
+    err, t0 = 0.0, time.perf_counter()
+    for pos in range(start, start + S):
+        q, kt, vt = (torch.from_numpy(r.randn(B, H, 1, D).astype(np.float32))
+                     .to(dev) for _ in range(3))
+        o, kc, vc = dec(q, kt, vt, kc, vc, pos)
+        kf[:, :, pos], vf[:, :, pos] = kt[:, :, 0], vt[:, :, 0]
+        s = torch.einsum("bhqd,bhtd->bhqt", q, kf[:, :, :pos + 1]) \
+            / math.sqrt(D)
+        want = torch.einsum("bhqt,bhtd->bhqd", torch.softmax(s, -1),
+                            vf[:, :, :pos + 1])
+        err = max(err, _rel(o, want))
+    return {"err": err, "s": time.perf_counter() - t0, "start": start,
+            "edge": tl}
+
+
+def _mp_train(torch, K, dev, rank, n):
+    """(f): the flagship cut to ``train_layers`` layers, float32,
+    B8/T1024, ``train_steps`` SGD steps (lr 0.1, momentum 0.9) of the
+    recipe, tensor-parallel (a ``model`` mesh, the whole batch a rank) and
+    FSDP (a ``data`` mesh, this rank's rows, slices gathered a block at a
+    time; each rank's loss its share and the replicated leaves' gradients
+    summed), each against the one-rank run on the same batch: max |err|
+    over this rank's blocks and the one-rank run's movement."""
+    from bigdl_tpu_torch.convert import flatten, unflatten
+    from bigdl_tpu_torch.models import lm_loss_chunked
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import all_reduce_sum, over
+    from bigdl_tpu_torch.parallel.sharding import (_block_of, fsdp_specs,
+                                                   gather_param,
+                                                   place_with_specs,
+                                                   shard_batch,
+                                                   transformer_tp_specs)
+    B, T, L = MP19["train_B"], MP19["train_T"], MP19["train_layers"]
+    V = FLAGSHIP["vocab_size"]
+    r = np.random.RandomState(13)
+    x = r.randint(1, V, (B, T)).astype(np.int64)
+    y = r.randint(1, V, (B, T)).astype(np.int64)
+
+    def run(p, xb, yb, n_share, mesh, specs):
+        leaves = flatten(p)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        fs = flatten(specs) if specs is not None else {}
+        optim = SGD(learningrate=MP19["train_lr"], momentum=0.9)
+        state = optim.init_state(p)
+        for _ in range(MP19["train_steps"]):
+            h = model.hidden_states(p, xb, training=False)
+            emb = gather_param(p["embed"], model.embed.shape)
+            loss = lm_loss_chunked(h, emb, yb, chunk=128) / n_share
+            g = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
+            if n_share > 1:
+                for k in g:
+                    if not fs[k]:
+                        g[k] = all_reduce_sum(g[k], "data")
+            with torch.no_grad():
+                optim.update(unflatten(g), p, state, MP19["train_lr"])
+        return p
+
+    model = _mp_flagship(torch, dev, layers=L, max_len=T, seed=7)
+    init = {k: v.detach().clone() for k, v in flatten(model.params).items()}
+    ref = run(unflatten({k: v.clone() for k, v in init.items()}),
+              torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), 1,
+              None, None)
+    ref = {k: v.detach() for k, v in flatten(ref).items()}
+    move = max(float((ref[k] - init[k]).abs().max()) for k in ref)
+    out = {"move": move}
+    for placement in ("tp", "fsdp"):
+        axis = "model" if placement == "tp" else "data"
+        mesh = make_mesh((n,), (axis,), device=dev)
+        whole = unflatten({k: v.clone() for k, v in init.items()})
+        specs = (transformer_tp_specs(whole) if placement == "tp"
+                 else fsdp_specs(whole, mesh))
+        p = place_with_specs(whole, mesh, specs)
+        xb, yb = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        if placement == "fsdp":
+            xb, yb = shard_batch(x, mesh), shard_batch(y, mesh)
+        _sync(torch, dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with over(mesh):
+            p = run(p, xb, yb, n if placement == "fsdp" else 1, mesh, specs)
+        _sync(torch, dev)
+        fs = flatten(specs)
+        err = max(float((t.detach() - _block_of(ref[k], mesh, fs[k]))
+                        .abs().max()) for k, t in flatten(p).items())
+        out[placement] = {"err": err, "s": time.perf_counter() - t0,
+                          "counts": K.launch_counts(),
+                          "routes": K.launches_by_route(),
+                          "resident_bytes": _bytes(p),
+                          "whole_bytes": _bytes(whole)}
+        del p
+    return out
+
+
+def _mp_pipe_moe(torch, dev, rank, n):
+    """(g): ``gpipe`` over the ranks as stages and ``moe_ffn`` with one
+    expert a rank, at the MoE LM's width (hidden 1024, filter 4096),
+    float32, against one rank holding every stage / expert."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import all_reduce_sum, over
+    from bigdl_tpu_torch.parallel.moe import moe_ffn, top1_routing, \
+        expert_capacity
+    from bigdl_tpu_torch.parallel.pipeline import gpipe
+    d, F = FLAGSHIP["hidden_size"], MP19["moe_filter"]   # the MoE LM's
+    r = np.random.RandomState(17)
+
+    def t(*s, scale=1.0):
+        return torch.from_numpy((r.randn(*s) * scale).astype(np.float32)) \
+            .to(dev)
+    out = {}
+    # GPipe: stage i is tanh(h @ w_i + b_i)
+    w, b = t(n, d, d, scale=d ** -0.5), t(n, d, scale=0.1)
+    x, y = t(MP19["pipe_micro"], MP19["pipe_rows"], d), \
+        t(MP19["pipe_micro"], MP19["pipe_rows"], d)
+    ws = {"w": w.clone().requires_grad_(True),
+          "b": b.clone().requires_grad_(True)}
+    h = x
+    for i in range(n):
+        h = torch.tanh(h @ ws["w"][i] + ws["b"][i])
+    gw, gb = torch.autograd.grad(((h - y) ** 2).mean(), [ws["w"], ws["b"]])
+    mesh = make_mesh((n,), ("pipe",), device=dev)
+    p = {"w": w[rank:rank + 1].clone().requires_grad_(True),
+         "b": b[rank:rank + 1].clone().requires_grad_(True)}
+    run = gpipe(lambda sp, hh: torch.tanh(hh @ sp["w"] + sp["b"]), "pipe")
+    t0 = time.perf_counter()
+    with over(mesh):
+        o = run(p, x)
+        g = torch.autograd.grad(((o - y) ** 2).mean() / n, [p["w"], p["b"]])
+    _sync(torch, dev)
+    out["pipe"] = {"out_err": _rel(o, h), "dw_err": _rel(g[0], gw[rank:rank
+                                                                   + 1]),
+                   "db_err": _rel(g[1], gb[rank:rank + 1]),
+                   "s": time.perf_counter() - t0}
+    # MoE: expert e is relu(h @ w1_e) @ w2_e; this rank's tokens
+    E, tl = n, MP19["moe_tokens"]
+    router = t(d, E, scale=d ** -0.5)
+    w1, w2 = t(E, d, F, scale=d ** -0.5), t(E, F, d, scale=F ** -0.5)
+    xs = t(E * tl, d)
+    xl = xs[rank * tl:(rank + 1) * tl]
+    cap = expert_capacity(tl, E, MP19["moe_cap"])
+    dispatch, combine, aux_ref = top1_routing(xl @ router, cap)
+    e_in = torch.einsum("td,tec->ecd", xl, dispatch)
+    back = torch.stack([torch.relu(e_in[e] @ w1[e]) @ w2[e]
+                        for e in range(E)])
+    want = torch.einsum("tec,ecd->td", combine, back)
+    mesh = make_mesh((n,), ("expert",), device=dev)
+    run = moe_ffn(lambda ep, hh: torch.relu(hh @ ep["w1"]) @ ep["w2"],
+                  "expert", MP19["moe_cap"])
+    t0 = time.perf_counter()
+    with over(mesh), torch.no_grad():
+        yl, aux = run(router, {"w1": w1[rank:rank + 1],
+                               "w2": w2[rank:rank + 1]}, xl)
+        aux_all = all_reduce_sum(aux_ref, "expert") / n
+    _sync(torch, dev)
+    out["moe"] = {"out_err": _rel(yl, want), "aux": float(aux),
+                  "aux_ref": float(aux_all), "s": time.perf_counter() - t0,
+                  "capacity": cap}
+    return out
+
+
+def phase19_rank(rank, n, port, spec):
+    """One of phase 19's two ranks sharing the card over gloo: (a), (b),
+    (d), (e), (f), (g) in order (every collective a path runs, both
+    ranks run); writes its findings for the main process."""
+    import torch
+    from bigdl_tpu_torch import kernels as K
+    from bigdl_tpu_torch.utils import engine
+    with open(spec, "rb") as f:
+        cfg = pickle.load(f)
+    MP19.update(cfg["sizes"][0])
+    FLAGSHIP.update(cfg["sizes"][1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = cfg["dev"]
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=n, timeout=datetime.timedelta(seconds=MP19["timeout"]))
+    engine.init_process_group(device=dev)
+    out = {}
+    for key, fn in (("a", lambda: _mp_serve(torch, K, dev, rank, n, "tp")),
+                    ("b", lambda: _mp_serve(torch, K, dev, rank, n, "fsdp")),
+                    ("d", lambda: _mp_seq(torch, K, dev, rank, n)),
+                    ("e", lambda: _mp_decode(torch, dev, rank, n)),
+                    ("f", lambda: _mp_train(torch, K, dev, rank, n)),
+                    ("g", lambda: _mp_pipe_moe(torch, dev, rank, n))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key + "_s"] = time.perf_counter() - t0
+        _MP_LM.clear()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    with open(cfg["out"] + f".{rank}", "wb") as f:
+        pickle.dump(out, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _route_sum(outs, name, route):
+    return sum(o.get(name, {}).get(route, 0) for o in outs)
+
+
+def model_parallel(torch, K, card, dev="cuda", tmp=None):
+    """Phase 19: model parallelism on two gloo ranks sharing the card
+    (processes of this script, ``--phase19-rank``; sizes in ``MP19`` and
+    ``FLAGSHIP``). (a) the flagship (bf16 weights, float32 pages) served
+    by ``DecodeScheduler(max_slots=8, block_size=16, prefill_chunk=32,
+    mesh=<('model',) of 2>)`` over a tensor-parallel registry, phase 4's
+    16 requests: tokens against the one-rank scheduler up to the first
+    near-tie, each rank's pages (8 of 16 kv heads) of every prompt chain
+    resident in both pools against the one-rank pool's heads within
+    ``PAGE_TOL``, K2 launches per rank, resident parameter bytes per rank,
+    and ``generate`` over the placed weights (K1-fwd at 8 heads a rank);
+    (b) the same requests under FSDP on a ('data',) mesh of 2, the
+    flagship cut to ``fsdp_layers`` layers (pages whole), with peak memory
+    per rank and the full depth's resident bytes; (d) ``Attention(seq_axis='seq')`` at 1024 / 16
+    heads, causal, B2/T2048 split over the ranks, ring and a2a, bf16 and
+    float32, forward and gradients against one rank's flash, K1 launches
+    by route and the hop's route; (e) the time-sharded decode (16 heads, D
+    64, Tmax 4096, 64 steps across the edge); (f) tensor-parallel and FSDP
+    training of the flagship cut to 2 layers (float32, B8/T1024, 3 steps)
+    against one rank, each error also as a share of the parameters'
+    movement; (g) ``gpipe`` over 2 stages and ``moe_ffn`` over 2 experts
+    at the MoE LM's width against one rank. Returns the model-parallel
+    paths' launches by kernel and route, summed over the ranks."""
+    t19 = time.perf_counter()
+    tmp = tmp or tempfile.mkdtemp(prefix="phase19_")
+    spec = os.path.join(tmp, "spec19.pkl")
+    res_path = os.path.join(tmp, "out19")
+    with open(spec, "wb") as f:
+        pickle.dump({"dev": dev, "out": res_path,
+                     "sizes": (MP19, FLAGSHIP)}, f)
+    port = _free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(f"[19] model parallelism over 2 gloo ranks sharing the card "
+          f"({card})", flush=True)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--phase19-rank", str(r), "2", str(port),
+                               spec], cwd=root) for r in range(2)]
+    deadline = time.monotonic() + MP19["timeout"]
+    try:
+        while any(p.poll() is None for p in procs):
+            check(time.monotonic() < deadline, f"the phase 19 ranks did not "
+                  f"finish in {MP19['timeout']} s")
+            check(all(p.poll() in (None, 0) for p in procs),
+                  f"a phase 19 rank failed: {[p.poll() for p in procs]}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"phase 19 ranks exited {[p.returncode for p in procs]}")
+    res = []
+    for r in range(2):
+        with open(res_path + f".{r}", "rb") as f:
+            res.append(pickle.load(f))
+    r0 = res[0]
+    L = FLAGSHIP["num_layers"]
+    heads = FLAGSHIP["num_heads"]
+    serve_k2 = []
+    for key, placement in (("a", "tp"), ("b", "fsdp")):
+        a = r0[key]
+        compared = 0
+        for i, (got, want, m) in enumerate(zip(a["tokens"], a["solo_tokens"],
+                                               a["margins"])):
+            check(got.size == want.size, f"({key}) request {i}: {got.size} "
+                  f"tokens, one rank {want.size}")
+            compared += agree(f"({key}) request {i}", got, want, m)
+        check(compared > 0, f"({key}) no served step cleared the margin")
+        errs = [e for o in res for e in o[key]["page_errs"]]
+        n_chains = [len(o[key]["page_errs"]) for o in res]
+        kvh = [o[key]["page_shape"][1] for o in res]
+        want_kvh = heads // 2 if placement == "tp" else heads
+        check(min(n_chains) > 0, f"({key}) no prompt chain resident in "
+              f"both pools: {n_chains}")
+        check(max(errs) <= PAGE_TOL, f"({key}) pages against the one-rank "
+              f"pool's heads: max relative err {max(errs)}")
+        check(kvh == [want_kvh, want_kvh], f"({key}) pages hold {kvh} kv "
+              f"heads a rank, expected {want_kvh}")
+        k2 = [a["counts"]["paged_attention"],
+              res[1][key]["counts"]["paged_attention"]
+              - a["warmup"]["paged_attention"]]
+        serve_k2.append(k2)
+        check(k2[0] > 0 and k2[0] == k2[1], f"({key}) K2 launches per "
+              f"rank {k2} (the worker replays every step of rank 0's)")
+        check(only_on(a["routes"]["paged_attention"], "f32_split", k2[0]),
+              f"({key}) K2 routes {a['routes']['paged_attention']}")
+        check(all(o[key]["counts"]["flash_fwd"] == 0 for o in res),
+              f"({key}) serving launched the flash kernel")
+        rb = [o[key]["resident_bytes"] for o in res]
+        check(all(b < a["whole_bytes"] for b in rb),
+              f"({key}) resident parameter bytes {rb} of "
+              f"{a['whole_bytes']}")
+        peak = [o[key].get("peak_bytes") for o in res]
+        st = a["stats"]
+        if "full_resident_bytes" in a:
+            fr = [o[key]["full_resident_bytes"] for o in res]
+            check(all(b < a["full_whole_bytes"] for b in fr),
+                  f"({key}) full-depth resident bytes {fr}")
+            print(f"    ({key}) full-depth {placement} placement: resident "
+                  f"parameter bytes per rank {fr} of "
+                  f"{a['full_whole_bytes']} ({card})", flush=True)
+        print(f"    ({key}) {placement} serving, {a['layers']} layers, "
+              f"{MP19['n_req']} requests: "
+              f"{sum(t.size for t in a['tokens'])} tokens in "
+              f"{a['serve_s']:.3f} s ({st['decode_steps']} decode steps, "
+              f"{st['prefill_chunks']} prefill chunks); tokens equal to one "
+              f"rank's at {compared} steps before a near-tie; pages "
+              f"{kvh[0]} of {heads} kv heads a rank, {sum(n_chains)} chains "
+              f"against the one-rank pool, max relative err {max(errs):.3e} "
+              f"(tol {PAGE_TOL}); K2 launches per rank {k2}; resident "
+              f"parameter bytes per rank {rb} of {a['whole_bytes']}"
+              + (f"; peak memory per rank {[round(p / 2**30, 3) for p in peak]} GiB"
+                 if peak[0] is not None else "")
+              + f" ({card})", flush=True)
+    a = r0["a"]
+    gen = [o["a"]["gen_counts"]["flash_fwd"] for o in res]
+    check(gen == [2 * L, 2 * L] and all(
+        only_on(o["a"]["gen_routes"]["flash_fwd"], "bf16_sm90", 2 * L)
+        for o in res), f"(a) tensor-parallel generate + prefill K1-fwd "
+          f"launches {gen}, expected {2 * L} a rank on bf16_sm90")
+    check(a["gen_logit_err"] <= 1e-2, f"(a) tensor-parallel prefill logits "
+          f"against one rank: relative err {a['gen_logit_err']}")
+    print(f"    (a) generate over the tensor-parallel weights: "
+          f"{a['gen_shape']}, K1-fwd launches per rank {gen} at "
+          f"{heads // 2} heads; prefill logits against one rank's, max "
+          f"relative err {a['gen_logit_err']:.3e} ({card})", flush=True)
+    for (impl, dt), rec in sorted(r0["d"].items()):
+        errs = [max(o["d"][(impl, dt)][k] for k in ("out_err", "dx_err",
+                                                   "dw_err")) for o in res]
+        tol = SEQ19_TOL[dt]
+        route = "bf16_sm90" if "bfloat16" in dt else "f32_sm90"
+        launches = [(o["d"][(impl, dt)]["counts"]["flash_fwd"],
+                     o["d"][(impl, dt)]["counts"]["flash_bwd"])
+                    for o in res]
+        want_l = ([(r + 1, r + 1) for r in range(2)] if impl == "ring"
+                  else [(1, 1), (1, 1)])
+        check(max(errs) <= tol, f"(d) {impl} {dt}: relative errs {errs} "
+              f"(tol {tol})")
+        check(launches == want_l, f"(d) {impl} {dt} K1 launches (fwd, bwd) "
+              f"per rank {launches}, expected {want_l}")
+        check(all(only_on(o["d"][(impl, dt)]["routes"]["flash_fwd"], route,
+                          o["d"][(impl, dt)]["counts"]["flash_fwd"])
+                  for o in res), f"(d) {impl} {dt} routes")
+        hop = rec["hop"]
+        check(hop == ("host_staged" if dev == "cuda" else "send_recv"),
+              f"(d) the hop's route {hop}")
+        print(f"    (d) Attention(seq_axis) {impl} {dt}: output / dx / dW "
+              f"against one rank's flash, max relative err per rank "
+              f"{[round(e, 8) for e in errs]} (tol {tol}); K1 (fwd, bwd) "
+              f"launches per rank {launches} on {route}; hop "
+              f"{hop}; {rec['s']:.3f} s ({card})", flush=True)
+    e = [o["e"]["err"] for o in res]
+    check(max(e) <= DEC19_TOL, f"(e) time-sharded decode errs {e}")
+    print(f"    (e) time-sharded decode, {MP19['dec_steps']} steps from "
+          f"{r0['e']['start']} across the edge at {r0['e']['edge']}: max "
+          f"relative err per rank {e} (tol {DEC19_TOL}); "
+          f"{r0['e']['s']:.3f} s ({card})", flush=True)
+    move = r0["f"]["move"]
+    for placement in ("tp", "fsdp"):
+        errs = [o["f"][placement]["err"] for o in res]
+        rel = [x / move for x in errs]
+        fl = [(o["f"][placement]["counts"]["flash_fwd"],
+               o["f"][placement]["counts"]["flash_bwd"]) for o in res]
+        n_l = MP19["train_layers"] * MP19["train_steps"]
+        check(max(errs) <= GLOO_TOL and max(rel) <= GLOO_REL,
+              f"(f) {placement} training against one rank: errs {errs} "
+              f"({rel} of the movement)")
+        check(fl == [(n_l, n_l)] * 2, f"(f) {placement} K1 launches {fl}, "
+              f"expected {n_l} each a rank")
+        rb = [o["f"][placement]["resident_bytes"] for o in res]
+        print(f"    (f) {placement} training, {MP19['train_layers']} layers, "
+              f"B{MP19['train_B']}/T{MP19['train_T']}, "
+              f"{MP19['train_steps']} steps: max abs err per rank against "
+              f"one rank {errs}; the one-rank run moved the parameters by "
+              f"{move:.3e}, err / move {[round(x, 8) for x in rel]} (tol "
+              f"{GLOO_REL:g}); K1 (fwd, bwd) launches per rank {fl}; "
+              f"resident parameter bytes per rank {rb} of "
+              f"{r0['f'][placement]['whole_bytes']}; "
+              f"{r0['f'][placement]['s']:.3f} s ({card})", flush=True)
+    for o in res:
+        g = o["g"]
+        check(max(g["pipe"]["out_err"], g["pipe"]["dw_err"],
+                  g["pipe"]["db_err"], g["moe"]["out_err"]) <= PIPE19_TOL
+              and abs(g["moe"]["aux"] - g["moe"]["aux_ref"]) <= 1e-5,
+              f"(g) gpipe / moe_ffn against one rank: {g}")
+    g = r0["g"]
+    print(f"    (g) gpipe over 2 stages: output / dW / db relative errs "
+          f"{g['pipe']['out_err']:.3e} / {g['pipe']['dw_err']:.3e} / "
+          f"{g['pipe']['db_err']:.3e}; moe_ffn over 2 experts (capacity "
+          f"{g['moe']['capacity']}): output {g['moe']['out_err']:.3e}, aux "
+          f"{g['moe']['aux']:.6f} against {g['moe']['aux_ref']:.6f} (tol "
+          f"{PIPE19_TOL}) ({card})", flush=True)
+    routes = [o["d"][k]["routes"] for o in res for k in o["d"]] \
+        + [o["f"][p]["routes"] for o in res for p in ("tp", "fsdp")] \
+        + [o["a"]["gen_routes"] for o in res]
+    launches = {
+        "flash_fwd_bf16": _route_sum(routes, "flash_fwd", "bf16_sm90"),
+        "flash_bwd_bf16": _route_sum(routes, "flash_bwd", "bf16_sm90"),
+        "flash_fwd_f32": _route_sum(routes, "flash_fwd", "f32_sm90"),
+        "flash_bwd_f32": _route_sum(routes, "flash_bwd", "f32_sm90"),
+        "paged_attention": sum(sum(k) for k in serve_k2)}
+    secs = {k: round(r0[k + "_s"], 1) for k in "abdefg"}
+    phase_s = time.perf_counter() - t19
+    print(f"[19] phase 19: {phase_s:.1f} s (rank 0's parts {secs}); "
+          f"launches on the model-parallel paths, both ranks {launches}",
+          flush=True)
+    return {"launches": launches, "phase_s": phase_s}
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -6883,6 +7606,8 @@ def main():
     # -- phase 18: data-parallel training across GPUs ------------------------
     r18 = distributed(torch, K, card)
     l18 = r18["launches"]
+    # -- phase 19: model parallelism across GPUs -----------------------------
+    l19 = model_parallel(torch, K, card)["launches"]
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -7022,7 +7747,7 @@ def main():
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
                    gen_counts["flash_fwd"] + r11["beam_flash"]
                    + r15["entry_routes"]["flash_fwd"].get("bf16_sm90", 0)
-                   + r17["gen_flash"]),
+                   + r17["gen_flash"] + l19["flash_fwd_bf16"]),
         kernel_rec("flash_fwd_chunk",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,
@@ -7034,7 +7759,8 @@ def main():
         kernel_rec("flash_bwd", "bigdl_tpu_torch/csrc/flash_bwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_main,
                    arms[0]["launches"]["flash_bwd"]
-                   + r15["entry_routes"]["flash_bwd"].get("bf16_sm90", 0)),
+                   + r15["entry_routes"]["flash_bwd"].get("bf16_sm90", 0)
+                   + l19["flash_bwd_bf16"]),
         kernel_rec("flash_fwd_moe",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", r17["k1"],
@@ -7046,7 +7772,7 @@ def main():
                    "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32,
                    r6["routes"]["flash_fwd"]["f32_sm90"] + r15["k1"]
-                   + l18["flash_fwd"]
+                   + l18["flash_fwd"] + l19["flash_fwd_f32"]
                    + r15["entry_routes"]["flash_fwd"].get("f32_sm90", 0)),
         kernel_rec("flash_fwd_f32_cuda_cores",
                    "bigdl_tpu_torch/csrc/flash_fwd.cu",
@@ -7056,7 +7782,7 @@ def main():
                    "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
                    r6["routes"]["flash_bwd"]["f32_sm90"] + r15["k1b"]
-                   + l18["flash_bwd"]
+                   + l18["flash_bwd"] + l19["flash_bwd_f32"]
                    + r15["entry_routes"]["flash_bwd"].get("f32_sm90", 0)),
         kernel_rec("flash_bwd_f32_cuda_cores",
                    "bigdl_tpu_torch/csrc/flash_bwd.cu",
@@ -7065,7 +7791,7 @@ def main():
         kernel_rec("paged_attention",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
-                   serve_routes["f32_split"]),
+                   serve_routes["f32_split"] + l19["paged_attention"]),
         kernel_rec("paged_attention_long",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_long,
@@ -7188,5 +7914,10 @@ if __name__ == "__main__":
         # one of phase 18 (c)'s gloo ranks, started by the phase itself
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         phase18_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                     sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--phase19-rank":
+        # one of phase 19's gloo ranks, started by the phase itself
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        phase19_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                      sys.argv[5])
     main()

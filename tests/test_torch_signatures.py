@@ -167,12 +167,14 @@ def test_positional_dropouts_land_where_jax_puts_them():
     assert b.attn.attention_dropout == 0.1 and b.ffn.relu_dropout == 0.2
 
 
-@pytest.mark.parametrize("build", [
-    lambda: nn.Linear(4, 3, True, None, None, np.ones((3, 4))),  # init_weight
-    lambda: nn.Attention(16, 2, 0.0, True, "seq"),                 # seq_axis
+@pytest.mark.parametrize("build,error", [
+    (lambda: nn.Linear(4, 3, True, None, None, np.ones((3, 4))),  # init_weight
+     NotImplementedError),
+    # seq_axis is ported; JAX's own refusal stays: attention dropout with it
+    (lambda: nn.Attention(16, 2, 0.1, True, "seq"), ValueError),
 ], ids=["linear_init_weight", "attention_seq_axis"])
-def test_unported_parameters_raise_at_a_non_default_value(build):
-    with pytest.raises(NotImplementedError):
+def test_unported_parameters_raise_at_a_non_default_value(build, error):
+    with pytest.raises(error):
         build()
 
 
@@ -343,12 +345,9 @@ def test_every_jax_method_is_ported_or_listed(key, port, twin):
 # public JAX members of the modules the port mirrors that it does not have
 # yet, by module, with the ROADMAP item that ports them
 UNPORTED_MEMBERS = {
-    # the expert-parallel MoE FFN, an all_to_all over a mesh (ROADMAP A.6b,
-    # model parallelism)
-    "parallel.moe": {"moe_ffn"},
-    # the mesh's serving context (ROADMAP A.6b); by design, no
-    # port: the environment switches (the port has one route per device)
-    "parallel.flash": {"paged_serving_context", "flash_mode", "paged_mode"},
+    # by design, no port: the environment switches (the port has one route
+    # per device)
+    "parallel.flash": {"flash_mode", "paged_mode"},
     # by design, no port: a trace-time spy (the port counts launches)
     "kernels.paged_attention": {"trace_count"},
     # by design, no port: JAX's key stream (the port passes
@@ -358,12 +357,6 @@ UNPORTED_MEMBERS = {
                      "maybe_enable_compilation_cache",
                      "compilation_cache_dir", "compilation_cache_stats",
                      "compilation_cache_entries"},
-    # the tensor-parallel, FSDP and serving specs (ROADMAP A.6b, model
-    # parallelism)
-    "parallel.sharding": {"transformer_tp_specs", "fsdp_specs",
-                          "serving_batch_spec", "batch_shard_count",
-                          "serving_param_specs", "place_with_specs",
-                          "tp_linear_rules", "constraint"},
 }
 MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "observability.trace", "observability.exporters",
@@ -388,7 +381,10 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "nn.graph_container", "nn.dynamic_graph", "nn.sparse",
             "dataset.movielens", "models.recommender", "dataset.datamining",
             "nn.detection", "dataset.segmentation", "parallel.mesh",
-            "parallel.collective", "parallel.allreduce", "parallel.sharding"]
+            "parallel.collective", "parallel.allreduce", "parallel.sharding",
+            "parallel.pipeline", "parallel.ring_attention",
+            "parallel.ring_flash", "parallel.seq_all_to_all",
+            "parallel.seq_decode"]
 # public JAX members a mirrored module re-exports from a module the port
 # does not have yet, with the ROADMAP item that ports them (the member test
 # above counts the members a module defines)
@@ -570,14 +566,22 @@ def test_flash_entries_match_the_jax_kernels_on_the_cpu():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MOD_TOL)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": "mesh"}, {"placement": "tp"}],
+@pytest.mark.parametrize("kw", ["mesh", "placement"],
                          ids=["mesh", "placement"])
 def test_scheduler_still_refuses_mesh_serving(kw):
+    """Mesh serving is ported; JAX's own refusals stay: a draft model with
+    a mesh (speculative decoding is single-device), and ``placement=``
+    together with an explicit registry (it would be ignored)."""
     from bigdl_tpu_torch.models import TransformerLM
-    from bigdl_tpu_torch.serving import DecodeScheduler
-    lm = TransformerLM(vocab_size=16, hidden_size=16, num_heads=2,
-                       filter_size=32, num_layers=1, max_len=64,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serving import DecodeScheduler, ModelRegistry
+    cfg = dict(vocab_size=16, hidden_size=16, num_heads=2, filter_size=32,
+               num_layers=1, max_len=64, device="cpu")
+    lm = TransformerLM(**cfg)
+    mesh = make_mesh((1,), ("model",), device="cpu")
+    extra = ({"draft_model": TransformerLM(**cfg)} if kw == "mesh" else
+             {"placement": "tp", "registry": ModelRegistry(mesh=mesh)})
+    with pytest.raises(ValueError, match=("single-device" if kw == "mesh"
+                                          else "explicit registry")):
         DecodeScheduler(lm, max_slots=2, block_size=4, max_seq_len=32,
-                        prefill_chunk=8, **kw)
+                        prefill_chunk=8, mesh=mesh, **extra)

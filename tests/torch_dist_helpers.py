@@ -648,5 +648,365 @@ def elastic_world(rank, n, case, ckdir):
             "halts": [h.cause for h in runner.halts]}
 
 
+# -- model parallelism -------------------------------------------------------
+
+def _lm(cfg, weights):
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.nn.module import copy_tree_into
+    m = TransformerLM(device="cpu", **cfg)
+    copy_tree_into(m.params, weights)
+    return m
+
+
+def _serve(sched, prompts, max_new):
+    with sched:
+        futs = [sched.submit(p, max_new) for p in prompts]
+        return [np.asarray(f.result(timeout=60)) for f in futs]
+
+
+def _pool(sched):
+    return [(k.clone().numpy(), v.clone().numpy())
+            for k, v in sched.kv.pages()]
+
+
+def mesh_serving(rank, n, cfg, weights, shape, axes, placement, sched_kw,
+                 prompts, max_new, prefix_prompts, swap_prompts):
+    """``DecodeScheduler(mesh=, placement=)`` on a mesh of ``shape`` /
+    ``axes`` against the one-rank scheduler each rank also runs alone:
+    rank 0's tokens (the plain drill, a prefix warm hit and a hot swap
+    mid-traffic), every rank's pool after the plain drill and its shapes.
+    The other ranks run the worker loop under the same ``with``."""
+    import time
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serving import DecodeScheduler
+    from bigdl_tpu_torch.parallel.sharding import fsdp_specs
+    model = _lm(cfg, weights)
+    out = {}
+    mesh = make_mesh(shape, axes, device="cpu")
+    if placement == "fsdp256":       # slices at the test's small widths
+        placement = lambda p: fsdp_specs(p, mesh, min_elems=256)  # noqa
+    solo = DecodeScheduler(model, **sched_kw)
+    out["solo"] = _serve(solo, prompts, max_new)
+    out["solo_pool"] = _pool(solo)
+    sched = DecodeScheduler(model, mesh=mesh, placement=placement,
+                            **sched_kw)
+    out["wq"] = tuple(sched.registry.current().params["block0"]["attn"]
+                      ["wq"].shape)
+    out["resident"] = sum(t.numel() for t in
+                          _flat(sched.registry.current().params).values())
+    out["page"] = tuple(sched.kv.pages()[0][0].shape)
+    with sched:
+        if rank == 0:
+            futs = [sched.submit(p, max_new) for p in prompts]
+            out["tokens"] = [np.asarray(f.result(timeout=60)) for f in futs]
+    out["pool"] = _pool(sched)
+    # a prefix warm hit: the second request adopts the first's blocks
+    sched = DecodeScheduler(model, mesh=mesh, placement=placement,
+                            **sched_kw)
+    with sched:
+        if rank == 0:
+            out["prefix"] = [np.asarray(sched.submit(p, max_new)
+                                        .result(timeout=60))
+                             for p in prefix_prompts]
+            out["prefix_stats"] = {k: sched.stats()[k] for k in
+                                   ("prefix_hits", "prefix_reused_tokens")}
+    # a hot swap mid-traffic: admitted requests keep v0
+    sched = DecodeScheduler(model, mesh=mesh, placement=placement,
+                            **sched_kw)
+    new = {k: v * 1.5 for k, v in _flat(model.params).items()}
+    with sched:
+        if rank == 0:
+            pre = [sched.submit(p, 12) for p in swap_prompts]
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                st = sched.stats()
+                if st["active"] + st["prefilling"] + st["completed"] >= 3:
+                    break
+                time.sleep(0.005)
+            v1 = sched.swap(_unflat(new))
+            post = sched.submit(swap_prompts[0], 8)
+            out["swap_pre"] = [np.asarray(f.result(timeout=60)) for f in pre]
+            out["swap_post"] = np.asarray(post.result(timeout=60))
+            out["swap_versions"] = ([f.version for f in pre], post.version,
+                                    v1)
+    out["swap_wq"] = tuple(sched.registry.get("v1").params["block0"]["attn"]
+                           ["wq"].shape)
+    return out
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v.detach().clone()
+    return out
+
+
+def _unflat(flat):
+    out = {}
+    for key, v in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
+
+
+def mesh_engine(rank, n, weights, shape, axes, placement, max_batch, xs):
+    """``ServingEngine(mesh=, placement=)`` over LeNet-5 on a mesh of
+    ``shape`` / ``axes``: rank 0's outputs for ``xs``, the bucket floor and
+    buckets, and every rank's resident slice of the largest leaf."""
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.nn.module import copy_tree_into
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serving import ServingEngine
+    model = LeNet5(10, device="cpu")
+    copy_tree_into(model.params, weights)
+    mesh = make_mesh(shape, axes, device="cpu")
+    eng = ServingEngine(model, input_shape=(784,), max_batch=max_batch,
+                        mesh=mesh, placement=placement, name="mesh")
+    big = max(_flat(eng.registry.current().params).items(),
+              key=lambda kv: _flat(model.params)[kv[0]].numel())
+    from bigdl_tpu_torch.parallel.sharding import (batch_shard_count,
+                                                   serving_batch_spec)
+    spec = serving_batch_spec(mesh)
+    out = {"floor": eng._bucket_floor, "buckets": eng._buckets(),
+           "spec": spec, "count": batch_shard_count(mesh, spec),
+           "bucket_for": [eng._bucket_for(i) for i in range(1, max_batch
+                                                            + 1)],
+           "big": (big[0], tuple(big[1].shape))}
+    with eng:
+        if rank == 0:
+            out["outs"] = [eng.submit(x).result(timeout=30) for x in xs]
+    try:
+        ServingEngine(model, input_shape=(784,), max_batch=max_batch + 1,
+                      mesh=mesh, placement=placement, warmup=False)
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def mp_generate(rank, n, cfg, weights, ids, max_new, placement):
+    """``generate`` over this rank's ``placement`` ("tp": a ``model`` mesh,
+    "fsdp": a ``data`` mesh with 256-element slices) and alone: (tokens,
+    last-step logits) of both, and the resident parameter elements."""
+    import torch
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import over
+    from bigdl_tpu_torch.parallel.sharding import (fsdp_specs,
+                                                   place_with_specs,
+                                                   transformer_tp_specs)
+    model = _lm(cfg, weights)
+    axis = "model" if placement == "tp" else "data"
+    mesh = make_mesh((n,), (axis,), device="cpu")
+    specs = (transformer_tp_specs(model.params) if placement == "tp"
+             else fsdp_specs(model.params, mesh, min_elems=256))
+    placed = place_with_specs(model.params, mesh, specs)
+    prompt = torch.from_numpy(ids)
+    solo = model.generate(model.params, prompt, max_new)
+    solo_logits, _ = model.prefill(model.params, solo, solo.shape[1] + 1)
+    with over(mesh):
+        got = model.generate(placed, prompt, max_new)
+        logits, _ = model.prefill(placed, got, got.shape[1] + 1)
+    return {"solo": solo.numpy(), "tokens": got.numpy(),
+            "solo_logits": solo_logits.numpy(), "logits": logits.numpy(),
+            "resident": sum(t.numel() for t in _flat(placed).values()),
+            "whole": sum(t.numel() for t in _flat(model.params).values())}
+
+
+def mp_training(rank, n, cfg, weights, x, y, placement, steps):
+    """``steps`` SGD steps (lr 0.1, momentum 0.9) of the flagship's recipe
+    (``hidden_states``, ``lm_loss_chunked``, ``torch.autograd.grad``,
+    ``SGD.update``) over this rank's ``placement``: "tp" on a ``model``
+    mesh (every rank the whole batch), "fsdp" on a ``data`` mesh with
+    256-element slices (this rank's rows; each rank's loss is its share,
+    the replicated leaves' gradients are summed over ``data`` as in data
+    parallelism, the slices' arrive summed through the gathers). Returns
+    the losses and this rank's parameter blocks after each step."""
+    import torch
+    from bigdl_tpu_torch.models import lm_loss_chunked
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import all_reduce_sum, over, psum
+    from bigdl_tpu_torch.parallel.sharding import (fsdp_specs, gather_param,
+                                                   place_with_specs,
+                                                   shard_batch,
+                                                   transformer_tp_specs)
+    model = _lm(cfg, weights)
+    axis = "model" if placement == "tp" else "data"
+    mesh = make_mesh((n,), (axis,), device="cpu")
+    specs = (transformer_tp_specs(model.params) if placement == "tp"
+             else fsdp_specs(model.params, mesh, min_elems=256))
+    p = place_with_specs(model.params, mesh, specs)
+    flat_p, flat_s = _flat_refs(p), _flat_refs(specs)
+    for t in flat_p.values():
+        t.requires_grad_(True)
+    xb, yb = torch.from_numpy(x), torch.from_numpy(y)
+    if placement == "fsdp":
+        xb, yb = shard_batch(x, mesh), shard_batch(y, mesh)
+    optim = SGD(learningrate=0.1, momentum=0.9)
+    state = optim.init_state(p)
+    losses, params = [], []
+    with over(mesh):
+        for _ in range(steps):
+            h = model.hidden_states(p, xb, training=False)
+            emb = gather_param(p["embed"], model.embed.shape)
+            loss = lm_loss_chunked(h, emb, yb, chunk=4)
+            if placement == "fsdp":
+                loss = loss / n
+            keys = list(flat_p)
+            grads = torch.autograd.grad(loss, [flat_p[k] for k in keys])
+            g = dict(zip(keys, grads))
+            if placement == "fsdp":
+                for k in keys:
+                    if not flat_s[k]:
+                        g[k] = all_reduce_sum(g[k], "data")
+                loss = psum(loss.detach(), "data")
+            with torch.no_grad():
+                optim.update(_unflat(g), p, state, 0.1)
+            losses.append(float(loss))
+            params.append({k: v.detach().clone().numpy()
+                           for k, v in flat_p.items()})
+    return {"losses": losses, "params": params}
+
+
+def _flat_refs(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_refs(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def mp_cases(rank, n, cases):
+    """Each ``(kind, kwargs)`` of ``cases`` (``"generate"``: :func:`
+    mp_generate`, ``"train"``: :func:`mp_training`) in one world, in
+    order; their results in a list."""
+    jobs = {"generate": mp_generate, "train": mp_training}
+    return [jobs[kind](rank, n, **kw) for kind, kw in cases]
+
+
+def _seq_block(a, rank, n, dim):
+    import torch
+    k = a.shape[dim] // n
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(a, range(rank * k, (rank + 1) * k), axis=dim)))
+
+
+def seq_parallel(rank, n, qkv, attn_cases, attn_x, attn_weights, decode):
+    """Sequence parallelism on a ``seq`` mesh of every rank: for each
+    function of ``parallel`` (ring, ring-flash, a2a with and without
+    flash; causal and not) this rank's output block for ``qkv`` (global
+    (B, H, T, D) arrays) and its blocks of d(sum(sin(out)))/d(q, k, v);
+    ``Attention(seq_axis=)`` for each ``(impl, kvh)`` of ``attn_cases``
+    (RoPE, causal) on ``attn_x``: its output block, its input gradient
+    block and the parameters' gradients summed over the ranks; and the
+    sequence-sharded decode of ``decode`` (per step q, k_t, v_t over
+    (nH, kvH) cases): every step's output on this rank."""
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn.module import copy_tree_into
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import all_reduce_sum, over
+    from bigdl_tpu_torch.parallel.ring_attention import make_ring_attention
+    from bigdl_tpu_torch.parallel.ring_flash import make_ring_flash_attention
+    from bigdl_tpu_torch.parallel.seq_all_to_all import a2a_attention
+    from bigdl_tpu_torch.parallel.seq_decode import make_seq_sharded_decoder
+    mesh = make_mesh((n,), ("seq",), device="cpu")
+
+    def a2a(flash, causal):
+        def f(q, k, v):
+            with over(mesh):
+                return a2a_attention(q, k, v, "seq", causal, flash)
+        return f
+    fns = {}
+    for causal in (False, True):
+        fns[("ring", causal)] = make_ring_attention(mesh, "seq", causal)
+        fns[("ring_flash", causal)] = make_ring_flash_attention(mesh, "seq",
+                                                                causal)
+        fns[("a2a_flash", causal)] = a2a(True, causal)
+        fns[("a2a", causal)] = a2a(False, causal)
+    out = {}
+    for key, f in fns.items():
+        q, k, v = (_seq_block(a, rank, n, 2).requires_grad_(True)
+                   for a in qkv)
+        o = f(q, k, v)
+        grads = torch.autograd.grad(o.sin().sum(), (q, k, v))
+        out[key] = (o.detach().numpy(), [g.numpy() for g in grads])
+    for impl, kvh in attn_cases:
+        H, heads = attn_x.shape[-1], 8
+        m = nn.Attention(H, heads, causal=True, use_flash=True,
+                         seq_axis="seq", seq_impl=impl, num_kv_heads=kvh,
+                         rope=True)
+        copy_tree_into(m.params, attn_weights[kvh])
+        x = _seq_block(attn_x, rank, n, 1).requires_grad_(True)
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in m.params.items()}
+        with over(mesh):
+            o = m.call(params, x)
+            names = sorted(params)
+            grads = torch.autograd.grad(o.sin().sum(),
+                                        [x] + [params[k] for k in names])
+            pg = {k: all_reduce_sum(g, "seq").numpy()
+                  for k, g in zip(names, grads[1:])}
+        out[("attn", impl, kvh)] = (o.detach().numpy(), grads[0].numpy(),
+                                    pg)
+    dec = make_seq_sharded_decoder(mesh, "seq")
+    for (nh, kvh), steps in decode.items():
+        B, Tmax, D = 2, 16, 8
+        kc = torch.zeros(B, kvh, Tmax // n, D)
+        vc = torch.zeros(B, kvh, Tmax // n, D)
+        outs = []
+        for pos, (q, kt, vt) in enumerate(steps):
+            o, kc, vc = dec(*(torch.from_numpy(a) for a in (q, kt, vt)), kc,
+                            vc, pos)
+            outs.append(o.numpy())
+        out[("decode", nh, kvh)] = np.stack(outs)
+    return out
+
+
+def pipe_moe(rank, n, stages, x, y, router_w, ws, moe_x, cap):
+    """``gpipe`` over a ``pipe`` mesh of every rank (this rank holds stage
+    ``rank`` of ``stages``): the outputs and this stage's gradients of a
+    mean squared error share; and ``moe_ffn`` over an ``expert`` mesh
+    (this rank's expert ``ws[rank]`` and tokens): outputs, the aux loss,
+    the router's gradient summed over the ranks and this expert's."""
+    import torch
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import (all_reduce_sum, over,
+                                                     pmean)
+    from bigdl_tpu_torch.parallel.moe import moe_ffn
+    from bigdl_tpu_torch.parallel.pipeline import gpipe
+    out = {}
+    pmesh = make_mesh((n,), ("pipe",), device="cpu")
+    p = {k: torch.from_numpy(np.ascontiguousarray(v[rank:rank + 1]))
+         .requires_grad_(True) for k, v in stages.items()}
+    run = gpipe(lambda sp, h: torch.tanh(h @ sp["w"] + sp["b"]), "pipe")
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    with over(pmesh):
+        o = run(p, xs)
+        loss = ((o - ys) ** 2).mean() / n      # this rank's share
+        g = torch.autograd.grad(loss, [p["w"], p["b"]])
+    out["pipe"] = (o.detach().numpy(), [t.numpy() for t in g])
+    emesh = make_mesh((n,), ("expert",), device="cpu")
+    rw = torch.from_numpy(router_w).requires_grad_(True)
+    we = {"w": torch.from_numpy(np.ascontiguousarray(ws[rank:rank + 1]))
+          .requires_grad_(True)}
+    xe = _seq_block(moe_x, rank, n, 0)
+    run = moe_ffn(lambda ep, h: torch.tanh(h @ ep["w"]), "expert", cap)
+    with over(emesh):
+        ye, aux = run(rw, we, xe)
+        loss = (pmean((ye ** 2).mean(), "expert") + 0.01 * aux) / n
+        gr, gw = torch.autograd.grad(loss, [rw, we["w"]])
+        gr = all_reduce_sum(gr, "expert")
+    out["moe"] = (ye.detach().numpy(), float(aux), gr.numpy(), gw.numpy())
+    return out
+
+
 if __name__ == "__main__":
     _worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
