@@ -9,8 +9,9 @@ wrappers also count per route (``launches_by_route``: ``"bf16_sm90"``,
 of their kernels it went through; K2's also counts by the query rows of
 a sequence (``launches_by_s``), so a run can count the speculative
 verify's launches apart."""
-from .flash_attention import (FlashAttention, flash_bwd, flash_bwd_reference,
-                              flash_fwd, flash_fwd_reference)
+from .flash_attention import (FlashAttention, flash_attention_fused,
+                              flash_bwd, flash_bwd_reference, flash_fwd,
+                              flash_fwd_reference)
 from .fused_chain import (FusedResidualMatmul, fused_chain_bwd,
                           fused_chain_fwd, fused_residual_matmul_nhwc,
                           residual_chain_bwd_reference,
@@ -62,4 +63,4 @@ __all__ = ["FlashAttention", "flash_fwd", "flash_fwd_reference", "flash_bwd",
            "residual_chain_bwd_reference", "FusedConv3x3",
            "fused_bn_relu_conv3x3", "fused_conv_fwd", "conv3x3_reference",
            "conv3x3_bwd", "launch_counts", "launches_by_route",
-           "reset_launch_counts", "WRAPPERS"]
+           "reset_launch_counts", "WRAPPERS", "flash_attention_fused"]

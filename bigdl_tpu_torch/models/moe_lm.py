@@ -89,6 +89,7 @@ class MoETransformerLM(Module):
     _embed_w = Transformer._embed_w
     _embed = Transformer._embed
     _logits = Transformer._logits
+    _ln_f = Transformer._ln_f
 
     def _block(self, i, blk, params, h, training, generator):
         """Block ``i`` on h: (h, its router loss or None)."""

@@ -17,6 +17,8 @@ from .graph_container import *  # noqa: F401,F403
 from .init import *  # noqa: F401,F403
 from .linear import *  # noqa: F401,F403
 from .module import Container, Criterion, Module, Node
+from .module import Module as Layer
+from ..parallel.flash import flash_attention
 from .moe import MixtureOfExperts
 from .norm import *  # noqa: F401,F403
 from .pool import *  # noqa: F401,F403
@@ -31,7 +33,8 @@ __all__ = (["Attention", "FeedForwardNetwork", "Transformer",
             "TransformerBlock", "causal_mask", "dot_product_attention",
             "embed_ids", "padding_mask", "position_encoding",
             "rotary_embedding", "Container", "Criterion", "Module", "Node",
-            "MixtureOfExperts", "SpecStats", "speculative_generate"]
+            "MixtureOfExperts", "SpecStats", "speculative_generate", "Layer",
+            "flash_attention"]
            + activation.__all__ + containers.__all__ + conv.__all__
            + criterion.__all__ + detection.__all__ + dropout.__all__
            + dynamic_graph.__all__ + elementwise.__all__

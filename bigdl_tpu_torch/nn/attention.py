@@ -57,6 +57,7 @@ mesh ``parallel.collective.over`` sets:
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext as _nullcontext
 
 import numpy as np
 import torch
@@ -114,7 +115,9 @@ def rotary_embedding(x, positions, base: float = 10000.0):
 def dropout(x, p: float, generator):
     """Inverted dropout: each element kept with probability 1 - p (drawn
     from ``generator``, on x's device; in a replicated data-parallel step,
-    this rank's rows of the global batch's mask) and scaled by 1 / (1 - p)."""
+    this rank's rows of the global batch's mask, and under tensor
+    parallelism this rank's heads or filter columns of the whole layer's
+    mask) and scaled by 1 / (1 - p)."""
     from ..parallel.collective import batch_rows
     keep = batch_rows(lambda s: torch.rand(s, generator=generator,
                                            device=x.device),
@@ -415,8 +418,13 @@ class Attention(Module):
         else:
             if self.causal and mask is None:
                 mask = causal_mask(q.shape[2], device=qx.device)
-            o = dot_product_attention(q, k, v, mask, self.attention_dropout,
-                                      generator, training)
+            # heads split over ``model``: the weights' dropout mask is this
+            # rank's heads of the whole layer's
+            with (collective._model_split(1)
+                  if q.shape[1] < self.num_heads else _nullcontext()):
+                o = dot_product_attention(q, k, v, mask,
+                                          self.attention_dropout, generator,
+                                          training)
         return self._merge(o, params)
 
 
@@ -458,7 +466,9 @@ class FeedForwardNetwork(Module):
         else:
             h = F.relu(a)
         if training and self.relu_dropout > 0.0 and generator is not None:
-            h = dropout(h, self.relu_dropout, generator)
+            with (collective._model_split(-1) if n > 1
+                  else _nullcontext()):
+                h = dropout(h, self.relu_dropout, generator)
         y = _mm(h, params["w2"])
         if n > 1:
             y = collective._tp_exit(y)
@@ -495,21 +505,31 @@ class TransformerBlock(Module):
             self.ln3 = LayerNormalization(hidden_size)
 
     def _whole(self, params):
-        """This block's parameters with every FSDP slice gathered (a leaf
-        smaller than the module's own, outside tensor parallelism, is a
-        slice over ``data``): called just before the block runs, so the
-        whole leaves live only while it does. Tensor-parallel leaves stay
-        this rank's."""
-        if self.attn._tp(params["attn"]) > 1:
-            return params
-        from ..parallel.sharding import gather_param
+        """This block's parameters with every FSDP slice gathered over
+        ``data``: called just before the block runs, so the whole leaves
+        live only while it does. Under tensor parallelism (``wq``'s
+        columns split n ways over ``model``) a leaf's tensor-parallel shape
+        is the module's own with its ``transformer_tp_specs`` dimension
+        divided by n, and that ``model`` block stays this rank's; any leaf
+        smaller than that shape (the module's own outside tensor
+        parallelism) is a slice over ``data`` and is gathered, along the
+        one dimension where the shapes differ - a leaf split over both
+        axes gathers its ``data`` dimension only."""
+        from ..parallel.sharding import gather_param, transformer_tp_specs
+        n = self.attn._tp(params["attn"])
+        specs = transformer_tp_specs(self.params) if n > 1 else None
 
-        def walk(p, own):
+        def walk(p, own, spec):
             if isinstance(p, dict):
-                return {k: walk(v, own[k]) for k, v in p.items()}
-            return gather_param(p, own.shape) if p.shape != own.shape \
+                return {k: walk(v, own[k], None if spec is None else spec[k])
+                        for k, v in p.items()}
+            shape = list(own.shape)
+            for d, ax in enumerate(spec or ()):
+                if ax is not None:
+                    shape[d] //= n
+            return gather_param(p, shape) if tuple(p.shape) != tuple(shape) \
                 else p
-        return walk(params, self.params)
+        return walk(params, self.params, specs)
 
     def _ffn_sublayer(self, params, h, training=False, generator=None):
         return h + self.ffn.call(params["ffn"],
@@ -699,6 +719,15 @@ class Transformer(Module):
         from ..parallel.sharding import gather_param
         return gather_param(emb, self.embed.shape)
 
+    def _ln_f(self, params, h):
+        """The final LayerNorm on h, its FSDP slices gathered where this
+        rank holds slices of it."""
+        p, own = params["ln_f"], self.ln_f.params
+        if any(tuple(p[k].shape) != tuple(v.shape) for k, v in own.items()):
+            from ..parallel.sharding import gather_param
+            p = {k: gather_param(p[k], v.shape) for k, v in own.items()}
+        return self.ln_f.call(p, h)
+
     def _embed(self, params, ids, emb=None):
         emb = self._embed_w(params) if emb is None else emb
         return _embed_ids(emb, ids, self.hidden_size,
@@ -753,7 +782,7 @@ class Transformer(Module):
         self._need_mode("lm", "hidden_states")
         h = self._embed(params, self._ids(x))
         h = self._stack(self.blocks, "block", params, h, training, generator)
-        return self.ln_f.call(params["ln_f"], h)
+        return self._ln_f(params, h)
 
     def _logits(self, params, h, emb=None):
         """The tied output projection, in the promoted dtype."""
@@ -784,7 +813,7 @@ class Transformer(Module):
         mask = causal_mask(tgt.shape[1], device=h.device)
         h = self._stack(self.blocks, "block", params, h, training, generator,
                         (mask, enc, src_mask))
-        return self._logits(params, self.ln_f.call(params["ln_f"], h))
+        return self._logits(params, self._ln_f(params, h))
 
     def apply(self, params, state, x, training: bool = False,
               generator=None):
@@ -833,7 +862,7 @@ class Transformer(Module):
             h, (k, v) = blk.prefill(params[f"block{i}"], h)
             caches[i][0][:, :, :Tp] = k.to(caches[i][0].dtype)
             caches[i][1][:, :, :Tp] = v.to(caches[i][1].dtype)
-        h = self.ln_f.call(params["ln_f"], h)
+        h = self._ln_f(params, h)
         return self._logits(params, h[:, -1], emb), caches
 
     @torch.no_grad()
@@ -874,7 +903,7 @@ class Transformer(Module):
         for i, blk in enumerate(self.blocks):
             h, caches[i] = blk.decode_step(params[f"block{i}"], h, caches[i],
                                            pos, cross[i], cross_mask)
-        h = self.ln_f.call(params["ln_f"], h)
+        h = self._ln_f(params, h)
         return self._logits(params, h[:, 0], emb), caches
 
     def _decode_trunk(self, params, tokens, pos: int, caches, emb=None):
@@ -887,7 +916,7 @@ class Transformer(Module):
         for i, blk in enumerate(self.blocks):
             h, caches[i] = blk.decode_step(params[f"block{i}"], h,
                                            caches[i], pos)
-        return self.ln_f.call(params["ln_f"], h), caches
+        return self._ln_f(params, h), caches
 
     @torch.no_grad()
     def decode_chunk(self, params, tokens, pos: int, caches):
@@ -918,7 +947,7 @@ class Transformer(Module):
             h, kp, vp = blk.decode_step_paged(
                 params[f"block{i}"], h, pages[i][0], pages[i][1],
                 block_tables, positions)
-        h = self.ln_f.call(params["ln_f"], h)
+        h = self._ln_f(params, h)
         return self._logits(params, h, emb), pages
 
     @torch.no_grad()

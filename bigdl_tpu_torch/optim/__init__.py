@@ -9,7 +9,7 @@ from .evaluator import DistriValidator, Evaluator, LocalValidator
 from .optimizer import (BaseOptimizer, DistriOptimizer, LocalOptimizer,
                         Metrics, Optimizer, ParallelOptimizer,
                         RemediationPolicy)
-from .predictor import bucket_for
+from .predictor import PredictionService, Predictor, bucket_for
 from .regularizer import (L1L2Regularizer, L1Regularizer, L2Regularizer,
                           Regularizer)
 from .trigger import (EveryEpoch, MaxEpoch, MaxIteration, MaxScore, MinLoss,
@@ -19,6 +19,10 @@ from .trigger import (EveryEpoch, MaxEpoch, MaxIteration, MaxScore, MinLoss,
 from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss,
                          LossResult, Top1Accuracy, Top5Accuracy,
                          TreeNNAccuracy, ValidationMethod, ValidationResult)
+
+# the pyspark optim namespace also exposes these (as JAX's does)
+from ..nn.criterion import ActivityRegularization  # noqa: E402
+from ..visualization import TrainSummary, ValidationSummary  # noqa: E402
 
 __all__ = ["LBFGS", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Ftrl",
            "LarsSGD", "ParallelAdam", "Plateau", "RMSprop", "L1L2Regularizer",
@@ -35,4 +39,5 @@ __all__ = ["LBFGS", "SGD", "Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Ft
            "several_iteration", "Evaluator", "LocalValidator", "DistriValidator", "MAE", "NDCG",
            "AccuracyResult", "HitRatio", "Loss", "LossResult", "Top1Accuracy",
            "Top5Accuracy", "TreeNNAccuracy", "ValidationMethod",
-           "ValidationResult"]
+           "ValidationResult", "Predictor", "PredictionService",
+           "TrainSummary", "ValidationSummary", "ActivityRegularization"]

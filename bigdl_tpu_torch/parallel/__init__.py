@@ -1,6 +1,7 @@
 from .flash import (flash_attention, flash_chunk_attention, paged_attention,
                     paged_serving_context)
 from .moe import moe_ffn, top1_routing
+from .chaos import ChaosError, ChaosPlan
 from .mesh import (make_mesh, make_hybrid_mesh, data_parallel_mesh,
                    get_default_mesh, set_default_mesh, axis_size)
 from .collective import (all_reduce_sum, all_reduce_mean, all_gather,
@@ -43,4 +44,4 @@ __all__ = ["flash_attention", "flash_chunk_attention", "paged_attention",
            "HeartbeatLost", "StragglerMonitor", "TransientDeviceError",
            "TrainingHalted", "FaultPolicy", "classify_failure", "TRANSIENT",
            "PERMANENT", "ElasticRunner", "find_latest_checkpoint",
-           "data_parallel_factory"]
+           "data_parallel_factory", "ChaosError", "ChaosPlan"]

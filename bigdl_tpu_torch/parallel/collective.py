@@ -123,19 +123,49 @@ def batch_group():
     return getattr(_current, "batch", None)
 
 
+@contextlib.contextmanager
+def _model_split(dim: int, axis: str = "model"):
+    """Inside the block (this thread), a tensor-parallel region: the
+    tensors there hold this rank's block along ``dim`` of a whole split
+    over ``axis`` (the attention's heads, the FFN's filter columns), so a
+    random draw over them is this rank's block of the whole's
+    (:func:`batch_rows`)."""
+    prev = getattr(_current, "split", None)
+    _current.split = (int(dim), axis)
+    try:
+        yield
+    finally:
+        _current.split = prev
+
+
 def batch_rows(draw, shape):
     """``draw(shape)``, a random tensor over a batch (dim 0), drawn as a
     local run over the global batch draws it: inside :func:`global_batch`
     every rank draws the global batch's shape from its generator (which
     stays in step with the other ranks') and keeps its own rows, so no
-    two ranks' rows share a draw. Outside, ``draw(shape)``."""
+    two ranks' rows share a draw. Inside a tensor-parallel region
+    (``_model_split``) the split dimension is drawn whole too and this
+    rank's block of it kept, so no two ranks' heads or filter columns
+    share a draw. Outside both, ``draw(shape)``."""
     bg = batch_group()
+    split = getattr(_current, "split", None)
     shape = tuple(shape)
-    if bg is None or not shape:
+    if (bg is None and split is None) or not shape:
         return draw(shape)
-    b = shape[0]
-    r = dist.get_rank(bg[0])
-    return draw((b * bg[1],) + shape[1:])[r * b:(r + 1) * b]
+    full = list(shape)
+    if bg is not None:
+        full[0] *= bg[1]
+    if split is not None:
+        d = split[0] % len(shape)
+        _, n, r_model = axis_group(split[1])
+        full[d] *= n
+    out = draw(tuple(full))
+    if bg is not None:
+        r = dist.get_rank(bg[0])
+        out = out.narrow(0, r * shape[0], shape[0])
+    if split is not None:
+        out = out.narrow(d, r_model * shape[d], shape[d])
+    return out
 
 
 def global_sums(*ts):

@@ -72,8 +72,12 @@ the paged-attention kernel on a CUDA device.
   command before any step can use it. On every other rank ``start()`` (or
   ``with sched:``) runs the worker loop, which replays each command on
   that rank's shard until rank 0 shuts down, and ``submit`` raises.
-  Speculative decoding and the host tier are single-device (refused with
-  a mesh).
+  The host tier (``host_blocks``) runs on every rank: each rank's
+  ``KVSwapManager`` spills and refills its own pool's kv heads, and rank
+  0's spill, refill and discard decisions (prefix evictions, preemption,
+  resumes) go out as lockstep commands of their own, so every rank's pool
+  and host pool stay in step; the stager threads issue no collective.
+  Speculative decoding is single-device (refused with a mesh, as in JAX).
 """
 from __future__ import annotations
 
@@ -296,9 +300,6 @@ class DecodeScheduler:
                     "builds - with an explicit registry= it would be "
                     "silently ignored; construct the registry with "
                     "mesh/param_specs yourself, or drop one argument")
-            if host_blocks > 0:
-                raise ValueError("the host KV tier is single-device only - "
-                                 "drop host_blocks or the mesh")
             if mesh_device(mesh) != self.device:
                 raise ValueError(f"mesh on {mesh_device(mesh)}, model on "
                                  f"{self.device}")
@@ -366,6 +367,8 @@ class DecodeScheduler:
             # every later publish and page copy reaches the other ranks
             self.registry.add_publish_listener(self._ls.on_publish)
             self.kv._mirror = lambda op, payload: self._ls.send((op, payload))
+            if self.kv_swap is not None:
+                self.kv_swap._mirror = self.kv._mirror
         self.static_wait_ms = float(static_wait_ms)
         self.max_queue = int(max_queue)
         self._q: queue.Queue = queue.Queue(maxsize=self.max_queue)
@@ -449,6 +452,8 @@ class DecodeScheduler:
                                     self.kv, tokens, positions, tables)
             elif op == "copy":
                 self.kv._copy_pages(cmd[1])
+            elif op in ("spill", "refill", "hfree"):
+                self.kv_swap._replay(op, cmd[1])
             elif op == "publish":
                 _, version, params, state = cmd
                 self.registry.publish(params, state, version=version,
@@ -575,6 +580,7 @@ class DecodeScheduler:
             # a worker rank runs until rank 0 shuts down
             if self._thread is not None:
                 self._thread.join()
+            self._close_tiers()
             return
         if not drain:
             self._stop.set()

@@ -32,9 +32,13 @@ each padded bucket's rows split over the batch axes
 has them), so every bucket is a multiple of the shard count (the bucket
 floor). The ranks run in lockstep (``_lockstep``): mesh rank 0 takes the
 requests and cuts the batches, and for each it sends the padded batch and
-the version to every rank; each rank gathers the version's slices whole
-for the dispatch (a generic model has no per-layer hook; they are dropped
-after it), runs its rows, and rank 0 gathers the rows back. On every other
+the version to every rank; each rank runs its rows, and rank 0 gathers
+the rows back. A ``Transformer`` / ``TransformerLM`` runs its own
+per-block path on the version's blocks (each block gathers its ``data``
+slices just before it runs and drops them after; its ``model`` blocks
+stay this rank's), so a rank holds at most one gathered block at a time;
+any other model gathers the version's slices whole for the dispatch (a
+generic model has no per-layer hook; they are dropped after it). On every other
 rank ``start()`` runs the worker loop and ``submit`` raises.
 """
 from __future__ import annotations
@@ -157,6 +161,11 @@ class ServingEngine:
                     "per-shard rows")
             self._specs = _sh.serving_param_specs(model.params, mesh,
                                                   placement)
+            from ..nn.attention import Transformer
+            # the model gathers its own slices block by block
+            self._per_block = isinstance(model, Transformer) and all(
+                ax in (None, "data", "model")
+                for ax in _spec_axes(self._specs))
             if registry is None:
                 registry = ModelRegistry(mesh=mesh, param_specs=self._specs)
             device = mesh_device(mesh)
@@ -549,7 +558,8 @@ class ServingEngine:
         axes = axes if isinstance(axes, tuple) else (axes,)
         xs = _rows(x, self.mesh, axes) if axes else x
         with over(self.mesh):
-            params = _gather_whole(mv.params, self._specs, self.mesh)
+            params = (mv.params if self._per_block
+                      else _gather_whole(mv.params, self._specs, self.mesh))
             out = self._fwd(params, mv.state, self._place_batch(xs))
         del params
         out = out.contiguous()
@@ -608,6 +618,15 @@ class ServingEngine:
     def _bump(self, key: str, n: int = 1):
         with self._stats_lock:
             self._stats[key] += n
+
+
+def _spec_axes(specs):
+    """Every axis name a spec tree splits over."""
+    if isinstance(specs, dict):
+        return [a for v in specs.values() for a in _spec_axes(v)]
+    spec = tuple(getattr(specs, "spec", specs) or ())
+    return [a for ax in spec
+            for a in (ax if isinstance(ax, tuple) else (ax,))]
 
 
 def serving_threads_alive() -> int:

@@ -39,8 +39,10 @@ a private copy before its first divergent write.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import queue
 import threading
+import time
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -61,6 +63,19 @@ class KVCacheOOM(RuntimeError):
 class HostPoolOOM(RuntimeError):
     """The host block pool cannot cover a spill reservation (typed, so a
     spill degrades to a drop instead of failing admission)."""
+
+
+def _host_pages(t):
+    """A device page copy on the host: numpy, or a CPU bfloat16 tensor
+    (numpy has no bfloat16)."""
+    t = t.cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _as_pages(a):
+    """Transferred pages (numpy, or a bfloat16 tensor) as a tensor."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
 
 
 def blocks_for_tokens(tokens: int, block_size: int) -> int:
@@ -366,10 +381,53 @@ class PagedKVCache:
 
     def geometry(self) -> dict:
         """The page-shape contract two pools must agree on before pages
-        move between them."""
+        move between them: per-layer pages are ``(n, kv_heads, block_size,
+        head_dim)`` of the page dtype across ``n_layers`` layers. The dtype
+        is tagged as the transport tags the pages' buffers (numpy's
+        ``dtype.str``, JAX's tag, e.g. ``"<f4"``; ``"bfloat16"`` for
+        bfloat16 pages, which numpy lacks)."""
+        dt = ("bfloat16" if self.page_dtype == torch.bfloat16 else
+              np.dtype(str(self.page_dtype).replace("torch.", "")).str)
         return {"n_layers": self.n_layers, "kv_heads": self.kv_heads,
                 "block_size": self.block_size, "head_dim": self.head_dim,
-                "dtype": str(self.page_dtype).replace("torch.", "")}
+                "dtype": dt}
+
+    def export_blocks(self, owner=None, blocks=None):
+        """Host copies of the K/V pages behind ``owner``'s table (or an
+        explicit physical-block list - the prefix cache's chain) for a
+        cross-process handoff: per layer one ``(n, kvH, bs, D)`` pair in
+        logical order, numpy arrays (bfloat16 pages: CPU bfloat16
+        tensors, numpy having no bfloat16). Returns ``(block_ids, [(k, v),
+        ...])``; exporting a dead block is refused (``ValueError``).
+
+        COPY FIRST: the pages here are updated in place, so where the JAX
+        package captures immutable page handles under the ledger lock, the
+        port takes a device copy of the named blocks of every layer (one
+        ``index_select`` a layer half, on the calling thread's stream)
+        while it holds the lock. A defrag (which moves pages and frees
+        their old blocks for reuse) or a decode step that runs after the
+        lock is released writes the pool, never the copy, so the export
+        cannot tear. The host fetch of the copy happens after the lock is
+        released."""
+        with self._lock:
+            if blocks is None:
+                if owner is None:
+                    raise ValueError("export_blocks needs owner= or "
+                                     "blocks=")
+                ids = list(self._owned.get(owner, ()))
+            else:
+                ids = [int(b) for b in blocks]
+            for b in ids:
+                if self._refs.get(b, 0) < 1:
+                    raise ValueError(
+                        f"cannot export dead block {b} - the handle "
+                        "outlived its page")
+            if not ids:
+                return [], []
+            idx = self._idx(ids)
+            copies = [(k.index_select(0, idx), v.index_select(0, idx))
+                      for k, v in self._pages]
+        return ids, [(_host_pages(k), _host_pages(v)) for k, v in copies]
 
     def snapshot_blocks(self, blocks):
         """The spill's capture: ``(ids, [(k, v), ...])`` where each pair is
@@ -389,9 +447,27 @@ class PagedKVCache:
             return ids, [(k.index_select(0, idx), v.index_select(0, idx))
                          for k, v in self._pages]
 
+    def _gather(self, ids):
+        """A fresh device copy of the pages of physical blocks ``ids``,
+        with no ledger check: a lockstep worker's spill, whose ledger is
+        rank 0's (the decision was checked there)."""
+        idx = self._idx(ids)
+        return [(k.index_select(0, idx), v.index_select(0, idx))
+                for k, v in self._pages]
+
+    def _write(self, ids, dev):
+        """``pages[ids] = dev`` for every layer, no ledger change: a
+        lockstep worker's refill into the blocks rank 0 allocated."""
+        dst = self._idx(ids)
+        for (k, v), (dk, dv) in zip(self._pages, dev):
+            k[dst] = dk.to(k.dtype)
+            v[dst] = dv.to(v.dtype)
+
     def adopt_serialized(self, owner, layers, *, stage=None) -> List[int]:
         """Allocate fresh private blocks for ``owner`` and write
-        transferred pages into them. ``layers`` is ``[(k_np, v_np), ...]``,
+        transferred pages into them. ``layers`` is ``[(k_np, v_np), ...]``
+        (bfloat16 pages: CPU bfloat16 tensors, as :meth:`export_blocks`
+        gives and the transport decodes them),
         per layer ``(n, kvH, block_size, D)`` in logical order; geometry is checked before any
         ledger change and the allocation is all or nothing. ``stage``
         (``f(k_np, v_np) -> (k_dev, v_dev)``) replaces the plain
@@ -401,7 +477,8 @@ class PagedKVCache:
         if len(layers) != geo["n_layers"]:
             raise ValueError(f"handoff geometry mismatch: {len(layers)} "
                              f"layers vs this pool's {geo['n_layers']}")
-        want = (geo["kv_heads"], geo["block_size"], geo["head_dim"])
+        # this pool's pages: under a mesh, this rank's kv heads
+        want = tuple(self._pages[0][0].shape[1:])
         n = None
         for li, (k, v) in enumerate(layers):
             if tuple(k.shape) != tuple(v.shape) or k.ndim != 4 \
@@ -417,10 +494,8 @@ class PagedKVCache:
         if not n:
             return []
         if stage is None:
-            dev = [(torch.as_tensor(np.asarray(lk)).to(self.device,
-                                                         self.page_dtype),
-                    torch.as_tensor(np.asarray(lv)).to(self.device,
-                                                         self.page_dtype))
+            dev = [(_as_pages(lk).to(self.device, self.page_dtype),
+                    _as_pages(lv).to(self.device, self.page_dtype))
                    for lk, lv in layers]
         else:
             dev = [stage(lk, lv) for lk, lv in layers]
@@ -612,11 +687,13 @@ class HostKVHandle:
     spilled prefix entry, a preempted request) settles it exactly once: a
     successful refill or a discard."""
 
-    __slots__ = ("n_blocks", "tag", "state", "layers", "digest", "nbytes")
+    __slots__ = ("n_blocks", "tag", "state", "layers", "digest", "nbytes",
+                 "hid")
 
     def __init__(self, n_blocks: int, tag=None):
         self.n_blocks = int(n_blocks)
         self.tag = tag
+        self.hid = None      # the lockstep id a mesh's ranks share
         self.state = SPILL_PENDING
         self.layers = None   # [(k_np, v_np), ...] per layer, once READY
         self.digest = None   # blake2b over the page bytes
@@ -723,6 +800,13 @@ class HostKVPool:
         obs.gauge(f"{pre}_blocks_free").set(self.num_blocks - in_use)
 
 
+def _concat_layers(runs):
+    """Several handles' host layers as one run: per layer (k, v), the
+    handles' blocks in order."""
+    return [tuple(np.concatenate([ls[li][half] for ls in runs])
+                  for half in (0, 1)) for li in range(len(runs[0]))]
+
+
 def _pages_digest(layers) -> bytes:
     """blake2b over host page bytes: a refill re-checks it before the
     pages land."""
@@ -803,11 +887,30 @@ class KVSwapManager:
     prefix chain becomes a cold miss, a preempted request recomputes from
     its host-resident tokens); a digest mismatch on refill does the same.
     On the CPU both directions are plain copies on the calling threads.
+
+    **Under a mesh** (lockstep serving, ``serving/_lockstep.py``) every
+    rank's manager spills and refills its own pool's kv heads. Mesh rank 0
+    decides every spill, refill and discard; ``_mirror`` (set on rank 0,
+    ``fn(op, payload)``) sends each as a lockstep command - ``("spill",
+    [(hid, ids, tag), ...])`` before the gather, ``("refill", ids,
+    [hid, ...])`` after the adopt, ``("hfree", [hid, ...])`` when a
+    handle is settled without a refill - and the other ranks replay them
+    in order (:meth:`_replay`), so every rank's device pool and host pool
+    stay in step. Handles carry the id (``hid``) the ranks share. Only the
+    thread that decides sends; the stager thread never issues a
+    collective. A worker waits for its own stager to land a handle before
+    refilling it; a worker whose copy failed or whose digest does not hold
+    where rank 0's did cannot follow, and raises (the lockstep group then
+    fails as a whole).
     """
+
+    _mirror = None
 
     def __init__(self, kv: PagedKVCache, host_blocks: int, *, tag=None):
         self.kv = kv
         self.tag = tag
+        self._hids = itertools.count(1)
+        self._handles: Dict[int, HostKVHandle] = {}   # a worker's, by hid
         self.pool = HostKVPool(host_blocks,
                                metric_prefix=f"{kv.metric_prefix}_host")
         self._cuda = kv.device.type == "cuda"
@@ -857,7 +960,7 @@ class KVSwapManager:
     def spill_many(self, groups, tag=None):
         """One handle per group of blocks (None where the host pool is
         short), one gather and one stager job for all of them."""
-        plans, flat, handles = [], [], []
+        plans, flat, handles, sent = [], [], [], []
         for blocks in groups:
             ids = [int(b) for b in blocks]
             if not ids:
@@ -869,17 +972,26 @@ class KVSwapManager:
             except HostPoolOOM:
                 handles.append(None)
                 continue
+            h.hid = next(self._hids)
             plans.append((h, len(flat), len(ids)))
+            sent.append((h.hid, ids, h.tag))
             flat += ids
             handles.append(h)
         if plans:
+            if self._mirror is not None:
+                self._mirror("spill", sent)
             _, pages = self.kv.snapshot_blocks(flat)
-            ev = None
-            if self._cuda:
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(self.kv.device))
-            self._q.put((plans, pages, ev))
+            self._stage_out(plans, pages)
         return handles
+
+    def _stage_out(self, plans, pages):
+        """Queue the gathered ``pages`` for the stager (after an event on
+        the compute stream, on a card)."""
+        ev = None
+        if self._cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.kv.device))
+        self._q.put((plans, pages, ev))
 
     def _worker(self):
         while True:
@@ -978,7 +1090,7 @@ class KVSwapManager:
         got = self.pool.payload(h)
         if got is None:
             if h.state != SPILL_PENDING:
-                self.pool.free(h)
+                self._settle([h])
             return None
         layers, digest = got
         last = None
@@ -995,8 +1107,16 @@ class KVSwapManager:
                 last = e
                 break
         self._note_failure(h, "in", repr(last))
-        self.pool.free(h)   # fail() is a no-op on a READY handle
+        self._settle([h])   # fail() is a no-op on a READY handle
         return None
+
+    def _settle(self, handles):
+        """Free settled handles' reservations; under a mesh the other
+        ranks free theirs too."""
+        for h in handles:
+            self.pool.free(h)
+        if self._mirror is not None:
+            self._mirror("hfree", [h.hid for h in handles])
 
     def refill(self, owner, handle: HostKVHandle) -> Optional[List[int]]:
         """Boundary op, scheduler thread: land a READY handle's pages in
@@ -1011,7 +1131,7 @@ class KVSwapManager:
         layers = self._verified(handle)
         if layers is None:
             return None
-        ids = self._adopt(owner, layers, handle.nbytes)
+        ids = self._adopt(owner, layers, handle.nbytes, [handle])
         self.pool.free(handle)
         return ids
 
@@ -1043,29 +1163,83 @@ class KVSwapManager:
         if not run:
             raise KVCacheOOM(
                 f"refill needs {handles[0].n_blocks} blocks, {free} free")
-        cat = [tuple(np.concatenate([ls[li][half] for ls in run_layers])
-                     for half in (0, 1))
-               for li in range(len(run_layers[0]))]
-        ids = self._adopt(owner, cat, sum(h.nbytes for h in run))
+        ids = self._adopt(owner, _concat_layers(run_layers),
+                          sum(h.nbytes for h in run), run)
         for h in run:
             self.pool.free(h)
         return ids, len(run), dropped
 
-    def _adopt(self, owner, layers, nbytes):
+    def _adopt(self, owner, layers, nbytes, handles):
         ids = self.kv.adopt_serialized(
             owner, layers, stage=self._ring.to_device if self._cuda else None)
+        if self._mirror is not None:
+            self._mirror("refill", (ids, [h.hid for h in handles]))
+        self._count_in(nbytes)
+        return ids
+
+    def _count_in(self, nbytes):
         with self._stats_lock:
             self._in_bytes += nbytes
         if obs.enabled():
             obs.counter(f"{self.kv.metric_prefix}_swap_in_bytes").inc(nbytes)
-        return ids
+
+    # -- lockstep: the other ranks of a mesh --------------------------------
+
+    REPLAY_WAIT_S = 60.0
+
+    def _replay(self, op, payload):
+        """Replay one of mesh rank 0's host-tier commands on this rank's
+        pool (see the class docstring)."""
+        if op == "spill":
+            plans, flat = [], []
+            for hid, ids, tag in payload:
+                h = self.pool.alloc(len(ids), tag)
+                h.hid = hid
+                self._handles[hid] = h
+                plans.append((h, len(flat), len(ids)))
+                flat += ids
+            self._stage_out(plans, self.kv._gather(flat))
+        elif op == "refill":
+            ids, hids = payload
+            hs = [self._handles.pop(hid) for hid in hids]
+            run = []
+            for h in hs:
+                deadline = time.monotonic() + self.REPLAY_WAIT_S
+                while h.state == SPILL_PENDING \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                layers = self._verified(h)
+                if layers is None:
+                    raise RuntimeError(
+                        f"lockstep refill of host handle {h.hid}: this "
+                        f"rank's copy is {h.state}, rank 0's refilled - "
+                        "the pools cannot stay in step")
+                run.append(layers)
+            cat = _concat_layers(run)
+            if self._cuda:
+                dev = [self._ring.to_device(lk, lv) for lk, lv in cat]
+            else:
+                dev = [(torch.as_tensor(lk), torch.as_tensor(lv))
+                       for lk, lv in cat]
+            self.kv._write(ids, dev)
+            self._count_in(sum(h.nbytes for h in hs))
+            for h in hs:
+                self.pool.free(h)
+        elif op == "hfree":
+            for hid in payload:
+                h = self._handles.pop(hid, None)
+                if h is not None:
+                    self.pool.free(h)
 
     # -- lifecycle --------------------------------------------------------
 
     def discard(self, handle: HostKVHandle) -> int:
         """Drop a handle without refilling it (idempotent); returns the
         host blocks returned."""
-        return self.pool.free(handle)
+        n = self.pool.free(handle)
+        if self._mirror is not None and handle.hid is not None:
+            self._mirror("hfree", [handle.hid])
+        return n
 
     def stats(self) -> dict:
         """Bytes each way, failures and the host pool's counts; on a card

@@ -355,14 +355,34 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    tensor-parallel registry, phase 4's requests, tokens against the
    one-rank scheduler, each rank's pages (8 of 16 kv heads) against the
    one-rank pool's heads, K2 launches and resident bytes per rank, and
-   ``generate`` over the placed weights (K1-fwd at 8 heads); (b) the same
-   requests under FSDP on a ('data',) mesh (the flagship cut to 4
-   layers), peak memory per rank; (d) ``Attention(seq_axis='seq')`` by
+   ``generate`` over the placed weights (K1-fwd at 8 heads); (a2) the same
+   tensor-parallel scheduler with the host KV tier and a 24-block pool,
+   three requests in turn (the second spills the first's chain, the
+   third refills it): spill / refill counts and bytes equal on both
+   ranks, each rank's refilled pages bit for bit as spilled; (b) the first
+   8 of the same requests under FSDP on a ('data',) mesh (the flagship cut
+   to 4 layers), peak memory per rank; (c) ``ServingEngine(mesh=,
+   placement="fsdp")`` on the flagship's forward at 4 layers against one
+   rank, the model's per-block gathers beside the whole-tree gather, peak
+   memory per rank; (d) ``Attention(seq_axis='seq')`` by
    ring and all-to-all, bf16 and float32, B2/T2048, forward and gradients
    against one rank's flash, the hop's route; (e) the time-sharded decode
    across the shard edge; (f) tensor-parallel and FSDP training of the
    depth-2 flagship against one rank; (g) ``gpipe`` and ``moe_ffn`` over
    the two ranks.
+20. the serving fleet across processes (phase 20, ``fleet``; sizes in
+   ``FLEET20``): three agent processes (``python -m
+   bigdl_tpu_torch.serving.fleet``) of the flagship, bf16 weights from
+   one float32 parameter file, started at once: (a) ``Router`` over the
+   replica r0 serves phase 4's requests, tokens against phase 4's up to
+   the first near-tie; (b) ``DisaggregatedFleet`` from the prefill agent
+   to the decode agent: every aligned prompt hands off (none failed or
+   refused), the decode agent's adopted pages bit for bit the export,
+   the export against the dense prefill; (c) a fleet swap to a second
+   version over the three agents with requests in flight, no response
+   mixing versions; (d) ``FleetController.tick()`` scales up by a fourth
+   agent warmed from r0 and back down, no request lost. The agents report
+   their kernel launches through the ``stats`` op.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -406,7 +426,8 @@ the flash, K3, K4 and K5 rows carry their
 phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows;
 phase 19's K1 launches, both ranks, on ``flash_fwd`` / ``flash_bwd``
 (bf16) and the ``_f32`` rows, its K2 serving launches on
-``paged_attention``);
+``paged_attention``; phase 20's agents' K2 launches on
+``paged_attention`` and their flash launches on ``flash_fwd_chunk``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -6356,15 +6377,22 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
 # sharing one card gather FSDP slices through gloo at 0.3-0.6 GB/s
 # (``tools/torch_gloo_gather_probe.py``: 0.32-0.66 s for the full depth's
 # 184 MB a step, however the gathers are cut), which would make the full
-# depth ~100 s; its resident bytes are read at full depth too. The
-# engine over a mesh runs in the CPU tests only.
+# depth ~100 s; its resident bytes are read at full depth too, and it
+# serves the first ``fsdp_req`` of the 16 requests (tokens and pages
+# checked as in (a)) so that the smoke with phase 20 stays under half its
+# time limit. (a2) adds the host KV tier under the tensor-parallel mesh,
+# (c) the engine over FSDP on the same 4-layer cut.
 MP19 = dict(n_req=16, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
             chunk=32, max_seq=384, max_len=512,
             gen_B=8, gen_T=128, gen_new=8, seq_B=2, seq_T=2048, dec_B=4,
             dec_T=4096, dec_steps=64, train_layers=2, train_B=8,
             train_T=1024, train_steps=3, train_lr=0.1, fsdp_layers=4,
+            fsdp_req=8,
             pipe_micro=4,
             pipe_rows=512, moe_tokens=2048, moe_filter=4096, moe_cap=1.25,
+            tier_prefix=160, tier_tails=(8, 16), tier_other=200, tier_new=16,
+            tier_seq=256,
+            tier_blocks=24, eng_req=4, eng_T=128, eng_batch=4,
             timeout=300)
 # sequence-parallel attention against one rank's flash, as a share of the
 # reference's largest |value| (outputs and gradients): float32 with TF32
@@ -6372,6 +6400,7 @@ MP19 = dict(n_req=16, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
 # its blocks' bf16 outputs (JAX merges in o's dtype too)
 SEQ19_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
 DEC19_TOL = 1e-4     # the time-sharded decode, float32, relative
+ENG19_TOL = 1e-4     # the engine over FSDP against one rank, float32
 PIPE19_TOL = 1e-4    # GPipe / MoE against one rank, float32, relative
 _MP_LM = {}
 
@@ -6450,6 +6479,9 @@ def _mp_serve(torch, K, dev, rank, n, placement):
                .astype(np.int32) for _ in range(MP19["n_req"])]
     budgets = [int(rng.randint(*MP19["budget"]))
                for _ in range(MP19["n_req"])]
+    if placement == "fsdp":     # the first fsdp_req of the same requests
+        prompts, budgets = (prompts[:MP19["fsdp_req"]],
+                            budgets[:MP19["fsdp_req"]])
     kw = dict(max_slots=MP19["slots"], block_size=MP19["block"],
               max_seq_len=MP19["max_seq"], prefill_chunk=MP19["chunk"])
     out = {}
@@ -6797,6 +6829,154 @@ def _mp_pipe_moe(torch, dev, rank, n):
     return out
 
 
+def _trace_mesh_swaps(torch, swap):
+    """Each rank's spilled pages by handle id (at the gather, before the
+    blocks go back) and its pages right after each refill (rank 0 in
+    ``_adopt``, the others in ``_replay``): ({hid: pages}, [(hids,
+    pages)])."""
+    spilled, refills = {}, []
+    stage_out, adopt, replay = swap._stage_out, swap._adopt, swap._replay
+
+    def stage_out_t(plans, pages):
+        for h, s, n in plans:
+            spilled[h.hid] = [(k[s:s + n].clone(), v[s:s + n].clone())
+                              for k, v in pages]
+        return stage_out(plans, pages)
+
+    def adopt_t(owner, layers, nbytes, handles):
+        ids = adopt(owner, layers, nbytes, handles)
+        refills.append(([h.hid for h in handles],
+                        gather_pages(torch, swap.kv, ids)))
+        return ids
+
+    def replay_t(op, payload):
+        replay(op, payload)
+        if op == "refill":
+            refills.append((list(payload[1]),
+                            gather_pages(torch, swap.kv, payload[0])))
+
+    swap._stage_out, swap._adopt, swap._replay = stage_out_t, adopt_t, \
+        replay_t
+    return spilled, refills
+
+
+def _mp_host_tier(torch, K, dev, rank, n):
+    """(a2): the tensor-parallel flagship (bf16 weights, float32 pages,
+    8 of 16 kv heads a rank) with the host tier under the mesh, a device
+    pool of ``tier_blocks`` blocks: three requests in turn, the second's
+    admission spilling the first's chain and the third (the first's
+    prefix) refilling it. Rank 0's tokens against the one-rank scheduler
+    with the same settings, each rank's host-tier counts and bytes, and
+    whether each refill wrote this rank's pages bit for bit as they were
+    spilled."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.sharding import serving_param_specs
+    from bigdl_tpu_torch.serving import DecodeScheduler, ModelRegistry
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    model = _mp_flagship(torch, dev)
+    with torch.no_grad():
+        params = bf16_params(model.params)
+    V = FLAGSHIP["vocab_size"]
+    rng = np.random.RandomState(7)
+    pre = rng.randint(1, V, MP19["tier_prefix"]).astype(np.int32)
+    ta, tc = MP19["tier_tails"]
+    prompts = [np.concatenate([pre, rng.randint(1, V, ta).astype(np.int32)]),
+               rng.randint(1, V, MP19["tier_other"]).astype(np.int32),
+               np.concatenate([pre, rng.randint(1, V, tc).astype(np.int32)])]
+    kw = dict(max_slots=2, block_size=MP19["block"],
+              max_seq_len=MP19["tier_seq"], prefill_chunk=MP19["chunk"],
+              num_blocks=MP19["tier_blocks"], host_blocks=64)
+    new = MP19["tier_new"]
+    out = {}
+    reg1 = ModelRegistry(device=model.device)
+    reg1.publish(params, version="bf16", activate=True)
+    with DecodeScheduler(model, registry=reg1, **kw) as solo:
+        out["solo_tokens"] = [solo.submit(p, new).result(600)
+                              for p in prompts]
+    mesh = make_mesh((n,), ("model",), device=dev)
+    reg = ModelRegistry(mesh=mesh, param_specs=serving_param_specs(
+        params, mesh, "tp"))
+    reg.publish(params, version="bf16", activate=True)
+    sched = DecodeScheduler(model, registry=reg, mesh=mesh, **kw)
+    spilled, refills = _trace_mesh_swaps(torch, sched.kv_swap)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.start(warmup=False)
+    if rank == 0:
+        out["tokens"] = [sched.submit(p, new).result(600) for p in prompts]
+        st = sched.stats()
+        out["prefix"] = {k: st["prefix"][k] for k in
+                         ("spills", "refills", "hits_after_spill")}
+    sched.shutdown()
+    _sync(torch, dev)
+    out["s"] = time.perf_counter() - t0
+    out["counts"], out["routes"] = K.launch_counts(), K.launches_by_route()
+    if rank == 0:
+        out["margins"] = [_forced_margins(torch, model, params, p, t)
+                          for p, t in zip(prompts, out["solo_tokens"])]
+    st = sched.kv_swap.stats()
+    out["host"] = {k: st[k] for k in ("swap_out_bytes", "swap_in_bytes",
+                                      "host_spills", "host_blocks_in_use")}
+    out["n_refills"] = len(refills)
+    same, blocks = [], 0
+    for hids, got in refills:
+        want = [tuple(torch.cat([spilled[h][li][half] for h in hids])
+                      for half in (0, 1)) for li in range(len(got))]
+        same.append(same_pages(got, want))
+        blocks += int(got[0][0].shape[0])
+    out["refilled_bitwise"], out["refilled_blocks"] = same, blocks
+    out["page_heads"] = int(sched.kv.pages()[0][0].shape[1])
+    del sched
+    return out
+
+
+def _mp_engine(torch, K, dev, rank, n):
+    """(c): ``ServingEngine(mesh=<('data',) of 2>, placement="fsdp")`` on
+    the flagship's forward cut to ``fsdp_layers`` layers (float32), the
+    model's per-block gather, then the whole-tree gather the engine runs
+    for a generic model, each with this rank's peak memory; rank 0's
+    outputs against one rank's forward."""
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serving import ServingEngine
+    model = _mp_flagship(torch, dev, layers=MP19["fsdp_layers"])
+    V = FLAGSHIP["vocab_size"]
+    xs = np.random.RandomState(9).randint(
+        1, V, (MP19["eng_req"], MP19["eng_T"])).astype(np.int64)
+    mesh = make_mesh((n,), ("data",), device=dev)
+    out = {}
+    for arm in ("per_block", "whole_tree"):
+        eng = ServingEngine(model, input_shape=(MP19["eng_T"],),
+                            max_batch=MP19["eng_batch"], mesh=mesh,
+                            placement="fsdp", name=f"fsdp_{arm}",
+                            warmup=False)
+        eng._per_block = arm == "per_block"
+        _sync(torch, dev)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with eng:
+            if rank == 0:
+                outs = [f.result(600) for f in
+                        [eng.submit(x) for x in xs]]
+        _sync(torch, dev)
+        rec = {"s": time.perf_counter() - t0,
+               "resident_bytes": _bytes(eng.registry.current().params)}
+        if torch.device(dev).type == "cuda":
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        if rank == 0:
+            with torch.no_grad():
+                want = model.apply(model.params, None,
+                                   torch.from_numpy(xs).to(dev), False)[0]
+            rec["err"] = max(_rel(torch.from_numpy(np.asarray(o)), w)
+                             for o, w in zip(outs, want))
+        out[arm] = rec
+        del eng
+    out["whole_bytes"] = _bytes(model.params)
+    return out
+
+
 def phase19_rank(rank, n, port, spec):
     """One of phase 19's two ranks sharing the card over gloo: (a), (b),
     (d), (e), (f), (g) in order (every collective a path runs, both
@@ -6818,7 +6998,9 @@ def phase19_rank(rank, n, port, spec):
     engine.init_process_group(device=dev)
     out = {}
     for key, fn in (("a", lambda: _mp_serve(torch, K, dev, rank, n, "tp")),
+                    ("a2", lambda: _mp_host_tier(torch, K, dev, rank, n)),
                     ("b", lambda: _mp_serve(torch, K, dev, rank, n, "fsdp")),
+                    ("c", lambda: _mp_engine(torch, K, dev, rank, n)),
                     ("d", lambda: _mp_seq(torch, K, dev, rank, n)),
                     ("e", lambda: _mp_decode(torch, dev, rank, n)),
                     ("f", lambda: _mp_train(torch, K, dev, rank, n)),
@@ -6850,7 +7032,8 @@ def model_parallel(torch, K, card, dev="cuda", tmp=None):
     resident in both pools against the one-rank pool's heads within
     ``PAGE_TOL``, K2 launches per rank, resident parameter bytes per rank,
     and ``generate`` over the placed weights (K1-fwd at 8 heads a rank);
-    (b) the same requests under FSDP on a ('data',) mesh of 2, the
+    (b) the first ``fsdp_req`` (8) of the same requests under FSDP on a
+    ('data',) mesh of 2, the
     flagship cut to ``fsdp_layers`` layers (pages whole), with peak memory
     per rank and the full depth's resident bytes; (d) ``Attention(seq_axis='seq')`` at 1024 / 16
     heads, causal, B2/T2048 split over the ranks, ring and a2a, bf16 and
@@ -6942,7 +7125,7 @@ def model_parallel(torch, K, card, dev="cuda", tmp=None):
                   f"parameter bytes per rank {fr} of "
                   f"{a['full_whole_bytes']} ({card})", flush=True)
         print(f"    ({key}) {placement} serving, {a['layers']} layers, "
-              f"{MP19['n_req']} requests: "
+              f"{len(a['tokens'])} requests: "
               f"{sum(t.size for t in a['tokens'])} tokens in "
               f"{a['serve_s']:.3f} s ({st['decode_steps']} decode steps, "
               f"{st['prefill_chunks']} prefill chunks); tokens equal to one "
@@ -6954,6 +7137,62 @@ def model_parallel(torch, K, card, dev="cuda", tmp=None):
               + (f"; peak memory per rank {[round(p / 2**30, 3) for p in peak]} GiB"
                  if peak[0] is not None else "")
               + f" ({card})", flush=True)
+    # (a2) the host tier under the tensor-parallel mesh
+    t2 = r0["a2"]
+    compared = 0
+    for i, (got, want) in enumerate(zip(t2["tokens"], t2["solo_tokens"])):
+        check(got.size == want.size, f"(a2) request {i}: {got.size} tokens, "
+              f"one rank {want.size}")
+        compared += agree(f"(a2) request {i}", got, want, t2["margins"][i])
+    hosts = [o["a2"]["host"] for o in res]
+    check(all(h == hosts[0] for h in hosts), f"(a2) host-tier counts "
+          f"differ across the ranks: {hosts}")
+    check(hosts[0]["host_spills"] >= 2 and hosts[0]["swap_in_bytes"] > 0
+          and hosts[0]["host_blocks_in_use"] == 0, f"(a2) the pool never "
+          f"spilled and refilled: {hosts[0]} ({t2['prefix']})")
+    check(t2["prefix"]["hits_after_spill"] == 1, f"(a2) prefix {t2['prefix']}")
+    nref = [o["a2"]["n_refills"] for o in res]
+    check(nref[0] > 0 and nref == [nref[0]] * 2 and all(
+        o["a2"]["refilled_bitwise"] and all(o["a2"]["refilled_bitwise"])
+        for o in res), f"(a2) refills per rank {nref}, bit for bit "
+          f"{[o['a2']['refilled_bitwise'] for o in res]}")
+    check(all(o["a2"]["page_heads"] == heads // 2 for o in res),
+          "(a2) pages are not split over the ranks' kv heads")
+    k2_a2 = [o["a2"]["counts"]["paged_attention"] for o in res]
+    check(k2_a2[0] > 0 and k2_a2[0] == k2_a2[1] and all(
+        only_on(o["a2"]["routes"]["paged_attention"], "f32_split", k)
+        for o, k in zip(res, k2_a2)), f"(a2) K2 launches per rank {k2_a2}")
+    serve_k2.append(k2_a2)
+    print(f"    (a2) tensor-parallel serving with the host tier ("
+          f"{MP19['tier_blocks']} device blocks, 3 requests in turn): "
+          f"prefix {t2['prefix']}; per rank spills {hosts[0]['host_spills']}"
+          f", bytes out {[h['swap_out_bytes'] for h in hosts]}, in "
+          f"{[h['swap_in_bytes'] for h in hosts]}; refills per rank {nref}, "
+          f"{[o['a2']['refilled_blocks'] for o in res]} blocks bit for bit "
+          f"their pages before the spill; tokens equal to one rank's at "
+          f"{compared} steps before a near-tie; K2 launches per rank "
+          f"{k2_a2}; {t2['s']:.3f} s ({card})", flush=True)
+    # (c) the engine over FSDP: the per-block gather against the whole tree
+    c = r0["c"]
+    errs = c["per_block"]["err"], c["whole_tree"]["err"]
+    check(max(errs) <= ENG19_TOL, f"(c) engine outputs against one rank: "
+          f"relative errs {errs} (tol {ENG19_TOL})")
+    peaks = [(o["c"]["per_block"].get("peak_bytes"),
+              o["c"]["whole_tree"].get("peak_bytes")) for o in res]
+    if dev == "cuda":
+        check(all(pb < wt for pb, wt in peaks), f"(c) the per-block "
+              f"gather's peak memory is not under the whole tree's: {peaks}")
+    print(f"    (c) ServingEngine(mesh=<('data',) of 2>, placement='fsdp') "
+          f"on the flagship's forward at {MP19['fsdp_layers']} layers, "
+          f"{MP19['eng_req']} requests of {MP19['eng_T']} tokens: relative "
+          f"err against one rank per-block {errs[0]:.3e}, whole-tree "
+          f"{errs[1]:.3e} (tol {ENG19_TOL}); dispatch peak memory per rank "
+          f"(GiB, per-block / whole-tree) "
+          f"{[tuple(round(x / 2**30, 3) for x in p) if p[0] else p for p in peaks]}"
+          f"; resident bytes per rank "
+          f"{[o['c']['per_block']['resident_bytes'] for o in res]} of "
+          f"{c['whole_bytes']}; {c['per_block']['s']:.3f} / "
+          f"{c['whole_tree']['s']:.3f} s ({card})", flush=True)
     a = r0["a"]
     gen = [o["a"]["gen_counts"]["flash_fwd"] for o in res]
     check(gen == [2 * L, 2 * L] and all(
@@ -7041,12 +7280,384 @@ def model_parallel(torch, K, card, dev="cuda", tmp=None):
         "flash_fwd_f32": _route_sum(routes, "flash_fwd", "f32_sm90"),
         "flash_bwd_f32": _route_sum(routes, "flash_bwd", "f32_sm90"),
         "paged_attention": sum(sum(k) for k in serve_k2)}
-    secs = {k: round(r0[k + "_s"], 1) for k in "abdefg"}
+    secs = {k: round(r0[k + "_s"], 1)
+            for k in ("a", "a2", "b", "c", "d", "e", "f", "g")}
     phase_s = time.perf_counter() - t19
     print(f"[19] phase 19: {phase_s:.1f} s (rank 0's parts {secs}); "
           f"launches on the model-parallel paths, both ranks {launches}",
           flush=True)
     return {"launches": launches, "phase_s": phase_s}
+
+
+# -- phase 20: the serving fleet across processes -------------------------------
+
+# three agent processes of ``python -m bigdl_tpu_torch.serving.fleet`` on the
+# card, started at once: a replica r0, a prefill agent pf and a decode agent
+# d0, each the flagship with bf16 weights (from one float32 parameter file)
+# and float32 pages under phase 4's scheduler settings with the prefix
+# cache; a pool of ``num_blocks`` blocks so the handed-off chains stay
+# resident for the page checks
+FLEET20 = dict(slots=8, block=16, chunk=32, max_seq=384, max_len=512,
+               num_blocks=8 * 24 * 2 + 1, beat_s=0.25, start_timeout=240,
+               swap_req=4, warm=2, timeout=600)
+
+
+def _fleet_procs_alive(procs, what):
+    dead = {n: p.poll() for n, p in procs.items() if p.poll() is not None}
+    check(not dead, f"{what}: fleet agent processes exited {dead}")
+
+
+def _spawn_agent(fd, name, role, params_path, dev, idx, root):
+    from bigdl_tpu_torch.serving.fleet import member_path
+    if os.path.exists(member_path(fd, name)):
+        os.remove(member_path(fd, name))
+    cfg = {"fleet_dir": fd, "name": name, "role": role,
+           "beat_s": FLEET20["beat_s"], "process_index": idx,
+           "model": dict(FLAGSHIP, max_len=FLEET20["max_len"]),
+           "params_path": params_path, "device": dev, "dtype": "bfloat16",
+           "scheduler": dict(max_slots=FLEET20["slots"],
+                             block_size=FLEET20["block"],
+                             max_seq_len=FLEET20["max_seq"],
+                             prefill_chunk=FLEET20["chunk"],
+                             num_blocks=FLEET20["num_blocks"])}
+    path = os.path.join(fd, f"cfg_{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    log = open(os.path.join(fd, f"agent_{name}.log"), "w")
+    env = dict(os.environ, PYTHONPATH=root)
+    p = subprocess.Popen([sys.executable, "-m",
+                          "bigdl_tpu_torch.serving.fleet", path],
+                         stdout=log, stderr=subprocess.STDOUT, cwd=root,
+                         env=env)
+    log.close()
+    return p
+
+
+def _wait_agents(fd, procs, timeout_s):
+    """Every agent's member doc, failing as soon as one exits."""
+    from bigdl_tpu_torch.serving.fleet import read_member
+    deadline = time.monotonic() + timeout_s
+    docs = {}
+    while len(docs) < len(procs):
+        _fleet_procs_alive(procs, "start-up")
+        check(time.monotonic() < deadline, f"fleet agents not registered "
+              f"in {timeout_s} s: {sorted(set(procs) - set(docs))}")
+        for n in procs:
+            if n not in docs:
+                d = read_member(fd, n)
+                if d is not None:
+                    docs[n] = d
+        time.sleep(0.05)
+    return docs
+
+
+def _agent_routes(rep):
+    return rep.stats()["launches_by_route"]
+
+
+def _route_delta(after, before, name, route):
+    return after[name].get(route, 0) - before[name].get(route, 0)
+
+
+def fleet(torch, K, card, p4, dev="cuda", tmp=None):
+    """Phase 20: the serving fleet across processes at the flagship's full
+    width. (a) ``Router`` over r0 serves phase 4's 16 requests, tokens
+    against phase 4's up to the first near-tie; (b)
+    ``DisaggregatedFleet(pf -> d0)`` serves them again: every prompt hands
+    its aligned prefix off (none failed or refused), d0's adopted pages
+    bit for bit pf's export, pf's export against the dense prefill's K / V
+    within ``PAGE_TOL``, handoff ms and bytes; (c) a fleet swap to a
+    perturbed second version over r0, pf and d0 with requests in flight:
+    no response mixes versions; (d) a ``FleetController`` scale-up that
+    spawns a fourth agent and warms it from r0, then a scale-down, no
+    request lost. The agents' kernel launches (their ``stats`` op) count
+    toward the kernels line."""
+    from bigdl_tpu_torch import convert
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import (DisaggregatedFleet, FleetController,
+                                         FleetMonitor, RemoteReplica, Router,
+                                         ScalePolicy, fleet_threads_alive,
+                                         transport_threads_alive)
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    t20 = time.perf_counter()
+    own_tmp = tmp is None
+    tmp = tmp or tempfile.mkdtemp(prefix="phase20_")
+    fd = os.path.join(tmp, "fleet")
+    os.makedirs(fd, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    print(f"[20] the serving fleet: three agent processes on the card "
+          f"({card})", flush=True)
+    model = TransformerLM(**dict(FLAGSHIP, max_len=FLEET20["max_len"]),
+                          device=dev, seed=0)
+    params_path = os.path.join(tmp, "params.pkl")
+    with open(params_path, "wb") as f:
+        pickle.dump(convert.host_copy_tree(model.params), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    with torch.no_grad():
+        params = bf16_params(model.params)
+    procs = {n: _spawn_agent(fd, n, role, params_path, dev, i + 1, root)
+             for i, (n, role) in enumerate((("r0", "replica"),
+                                            ("pf", "prefill"),
+                                            ("d0", "decode")))}
+    reps, routers, mon, out = [], [], None, {}
+    try:
+        # the dense prefill's K / V of the first prompts, while the agents
+        # start up
+        bs, al = FLEET20["block"], max(FLEET20["block"], FLEET20["chunk"])
+        dense = {i: dense_pages(torch, model, params, p[:p.size // al * al],
+                                bs)
+                 for i, p in enumerate(p4["prompts"]) if p.size >= al}
+        dense = dict(list(dense.items())[:2])
+        docs = _wait_agents(fd, procs, FLEET20["start_timeout"])
+        t_up = time.perf_counter() - t20
+        r0, pf, d0 = (RemoteReplica(docs[n], fleet_dir=fd)
+                      for n in ("r0", "pf", "d0"))
+        reps = [r0, pf, d0]
+        pf.start()
+        before = {r.name: _agent_routes(r.start()) for r in reps}
+        prompts, budgets = p4["prompts"], p4["budgets"]
+
+        # (a) Router over r0
+        ra = Router([r0]).start()
+        routers.append(ra)
+        t0 = time.perf_counter()
+        futs = [ra.submit(p, max_new_tokens=b) for p, b in
+                zip(prompts, budgets)]
+        toks_a = [f.result(FLEET20["timeout"]) for f in futs]
+        dt_a = time.perf_counter() - t0
+        cmp_a = sum(agree(f"(a) request {i}", g, w, m) for i, (g, w, m) in
+                    enumerate(zip(toks_a, p4["results"], p4["margins"])))
+        check(cmp_a > 0, "(a) no served step cleared the margin")
+        n_a = sum(t.size for t in toks_a)
+        print(f"    (a) Router over r0: {len(prompts)} requests, {n_a} "
+              f"tokens in {dt_a:.3f} s = {n_a / dt_a:.1f} tokens/s; tokens "
+              f"equal to phase 4's at {cmp_a} steps before a near-tie; "
+              f"agents up {t_up:.1f} s after the phase began ({card})",
+              flush=True)
+
+        # (b) disaggregated prefill -> decode
+        rb = Router([d0]).start()
+        routers.append(rb)
+        dis = DisaggregatedFleet(rb, [pf], [d0])
+        exports, hand_ms = [], []
+        export, handoff = pf.prefill_export, dis._handoff
+
+        def export_t(prompt, timeout=None):
+            meta, arrays = export(prompt, timeout=timeout)
+            exports.append((np.asarray(prompt), meta, arrays))
+            return meta, arrays
+
+        def handoff_t(sub):
+            t = time.perf_counter()
+            handoff(sub)
+            hand_ms.append((time.perf_counter() - t) * 1e3)
+
+        pf.prefill_export, dis._handoff = export_t, handoff_t
+        t0 = time.perf_counter()
+        futs = [dis.submit(p, max_new_tokens=b) for p, b in
+                zip(prompts, budgets)]
+        toks_b = [f.result(FLEET20["timeout"]) for f in futs]
+        dt_b = time.perf_counter() - t0
+        pf.prefill_export, dis._handoff = export, handoff
+        st = dis.stats()
+        aligned = sum(1 for p in prompts if p.size >= dis.align)
+        check(st["handoffs"] == aligned and st["handoff_failed"] == 0
+              and st["handoff_refused"] == 0, f"(b) handoffs {st}, "
+              f"{aligned} aligned prompts")
+        cmp_b = sum(agree(f"(b) request {i}", g, w, m) for i, (g, w, m) in
+                    enumerate(zip(toks_b, p4["results"], p4["margins"])))
+        check(cmp_b > 0, "(b) no served step cleared the margin")
+        sd = d0.stats()
+        check(sd["prefix_hits"] >= aligned, f"(b) d0 prefix hits "
+              f"{sd['prefix_hits']} of {aligned} handoffs")
+        # d0's adopted pages, exported back from its prefix cache, against
+        # pf's export bit for bit; pf's against the dense prefill
+        same, hand_bytes = 0, 0
+        for sub, meta, arrays in exports:
+            hand_bytes += sum(int(a.nbytes) for a in arrays[1:])
+            n = int(meta["tokens"])
+            if d0.cached_prefix_tokens(sub[:n]) < n:
+                continue
+            m2, back = d0.prefill_export(sub[:n])
+            check(m2["tokens"] == n and m2["digest"] == meta["digest"]
+                  and all(np.array_equal(x, y) for x, y in
+                          zip(back[1:], arrays[1:])),
+                  f"(b) d0's adopted pages of a {n}-token prefix are not "
+                  f"pf's export")
+            same += 1
+        check(same == len(exports), f"(b) {same} of {len(exports)} adopted "
+              f"chains checked resident on d0")
+        errs = []
+        aligned_i = [i for i, p in enumerate(prompts) if p.size >= dis.align]
+        for j, i in enumerate(aligned_i[:2]):
+            sub, meta, arrays = exports[j]
+            want = dense[i]
+            got = [(torch.from_numpy(arrays[1 + 2 * li]),
+                    torch.from_numpy(arrays[2 + 2 * li]))
+                   for li in range(len(want))]
+            want = [tuple(t.cpu() for t in kv) for kv in want]
+            errs.append(page_err(got, want))
+        check(max(errs) <= PAGE_TOL, f"(b) exported pages against the "
+              f"dense prefill: relative errs {errs} (tol {PAGE_TOL})")
+        n_b = sum(t.size for t in toks_b)
+        hs = sorted(hand_ms)
+        out["handoff_ms"] = (p50(hs), hs[min(len(hs) - 1,
+                                             int(0.99 * len(hs)))])
+        print(f"    (b) DisaggregatedFleet(pf -> d0): {n_b} tokens in "
+              f"{dt_b:.3f} s = {n_b / dt_b:.1f} tokens/s; handoffs "
+              f"{st['handoffs']} of {aligned} aligned prompts "
+              f"({st['handoff_tokens']} tokens), failed "
+              f"{st['handoff_failed']}, refused {st['handoff_refused']}; "
+              f"handoff (export + adopt) ms p50 {out['handoff_ms'][0]:.1f} "
+              f"p99 {out['handoff_ms'][1]:.1f}; {hand_bytes / 2**20:.1f} "
+              f"MiB of float32 pages handed off; d0's adopted pages bit for "
+              f"bit pf's export on {same} chains; pf's pages against the "
+              f"dense prefill max relative err {max(errs):.3e} (tol "
+              f"{PAGE_TOL}); tokens equal to phase 4's at {cmp_b} steps "
+              f"before a near-tie ({card})", flush=True)
+
+        # (c) a fleet swap over r0, pf and d0 with requests in flight
+        p2 = {k: dict(v) if isinstance(v, dict) else v
+              for k, v in params.items()}
+        p2["ln_f"]["weight"] = -p2["ln_f"]["weight"]
+        k = FLEET20["swap_req"]
+        # the second version's own greedy margins (dense, in this process)
+        m1 = [solo_greedy(torch, model, p2, p, 8)[1] for p in prompts[:k]]
+        pre = [ra.submit(p, max_new_tokens=b) for p, b in
+               zip(prompts[:k], budgets[:k])]
+        # swap once r0 has admitted them (they are pinned to v0 there)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            s0 = r0.stats()
+            if s0["active"] + s0["prefilling"] >= k:
+                break
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        v1 = ra.swap(p2, version="v1")
+        dis.swap(p2, version=v1)
+        swap_s = time.perf_counter() - t0
+        post_a = [ra.submit(p, max_new_tokens=8) for p in prompts[:k]]
+        post_b = [dis.submit(p, max_new_tokens=8) for p in prompts[:k]]
+        pre_t = [f.result(FLEET20["timeout"]) for f in pre]
+        pa = [f.result(FLEET20["timeout"]) for f in post_a]
+        pb = [f.result(FLEET20["timeout"]) for f in post_b]
+        check([f.version for f in pre] == ["v0"] * k
+              and [f.version for f in post_a + post_b] == [v1] * (2 * k),
+              f"(c) versions: in flight {[f.version for f in pre]}, after "
+              f"{[f.version for f in post_a + post_b]}")
+        for i, (g, w, m) in enumerate(zip(pre_t, toks_a, p4["margins"])):
+            agree(f"(c) in-flight request {i}", g, w, m)
+        cmp_c = sum(agree(f"(c) r0 / d0 under {v1}, request {i}", x, y, m)
+                    for i, (x, y, m) in enumerate(zip(pa, pb, m1)))
+        check(not all(np.array_equal(x, y[:8]) for x, y in zip(pa, toks_a)),
+              "(c) the new version serves the old version's tokens")
+        st = dis.stats()
+        check(st["handoff_failed"] == 0 and st["handoff_refused"] == 0,
+              f"(c) handoffs after the swap {st}")
+        wire = _bytes(p2)
+        print(f"    (c) fleet swap to a second version (final LayerNorm "
+              f"gain negated) over r0, pf and d0 with {k} requests in "
+              f"flight: publish + activate {swap_s:.3f} s, "
+              f"{3 * wire / 2**20:.1f} MiB of bf16 leaves on the wire "
+              f"({wire / 2**20:.1f} MiB a replica, 2-byte buffers); in-"
+              f"flight responses all v0, later ones all {v1}, r0 and d0 "
+              f"alike at {cmp_c} steps before a near-tie ({card})",
+              flush=True)
+        after = {r.name: _agent_routes(r) for r in reps}
+        out["routes"] = {n: {"paged_attention": _route_delta(
+            after[n], before[n], "paged_attention", "f32_split"),
+            "flash_fwd": _route_delta(after[n], before[n], "flash_fwd",
+                                      "bf16_sm90")} for n in after}
+        check(all(v["paged_attention"] > 0 for v in out["routes"].values()),
+              f"(a-c) an agent never launched K2: {out['routes']}")
+        rb.shutdown()
+        pf.shutdown()
+        routers.remove(rb)
+        check(procs["pf"].wait(60) == 0 and procs["d0"].wait(60) == 0,
+              f"(b) pf / d0 exited {procs['pf'].poll()} / "
+              f"{procs['d0'].poll()}")
+
+        # (d) the controller: scale up by a fourth agent warmed from r0,
+        # then down, no request lost
+        mon = FleetMonitor([r0], fleet_dir=fd, every_s=0.1,
+                           stale_s=30.0).start()
+        spawned = {}
+
+        def spawn(name):
+            procs[name] = _spawn_agent(fd, name, "replica", params_path, dev,
+                                       len(procs) + 1, root)
+            doc = _wait_agents(fd, {name: procs[name]},
+                               FLEET20["start_timeout"])[name]
+            rep = spawned[name] = RemoteReplica(doc, fleet_dir=fd).start()
+            rep.registry.publish(p2, version=v1, activate=True)
+            return rep
+
+        pol = ScalePolicy(min_replicas=1, max_replicas=2, queue_high=0.5,
+                          queue_low=0.5, up_ticks=1, down_ticks=1,
+                          cooldown_s=0.0, warm_limit=FLEET20["warm"])
+        ctl = FleetController(ra, mon, fleet_dir=fd, spawn=spawn,
+                              policy=pol,
+                              warm_prompts=prompts[:FLEET20["warm"]])
+        t0 = time.perf_counter()
+        load = [ra.submit(p, max_new_tokens=b) for p, b in
+                zip(prompts, budgets)]
+        deadline = time.monotonic() + FLEET20["start_timeout"]
+        while ctl.stats()["scale_ups"] == 0 \
+                and time.monotonic() < deadline:
+            ctl.tick()
+            time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        cs = ctl.stats()
+        check(cs["scale_ups"] == 1 and cs["spawn_failed"] == 0,
+              f"(d) scale-up {cs}")
+        done = [f.result(FLEET20["timeout"]) for f in load]
+        check(len(done) == len(load) and all(t.size == b for t, b in
+                                             zip(done, budgets)),
+              "(d) a request was lost or cut under the scale-up")
+        deadline = time.monotonic() + 60
+        while ctl.stats()["scale_downs"] == 0 \
+                and time.monotonic() < deadline:
+            ctl.tick()
+            time.sleep(0.05)
+        cs = ctl.stats()
+        check(cs["scale_downs"] == 1 and ra.healthy_replicas() == ["r0"],
+              f"(d) scale-down {cs}, router {ra.healthy_replicas()}")
+        name = next(iter(spawned))
+        check(procs[name].wait(60) == 0, f"(d) {name} exited "
+              f"{procs[name].poll()}")
+        rs = ra.stats()
+        print(f"    (d) FleetController: scale-up to 2 replicas (spawn + "
+              f"warm {cs['warm_prompts']} prompts from r0 + join) under "
+              f"{len(load)} requests in {up_s:.1f} s, then a drain-retire "
+              f"of {name}; {rs['completed']} requests completed, none lost "
+              f"({card})", flush=True)
+        mon.stop()
+        mon = None
+        ra.shutdown()
+        routers.remove(ra)
+        check(procs["r0"].wait(60) == 0, f"r0 exited {procs['r0'].poll()}")
+    finally:
+        if mon is not None:
+            mon.stop()
+        for r in routers:
+            r.shutdown(drain=False)
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        if own_tmp:     # the parameter file and the fleet directory
+            shutil.rmtree(tmp, True)
+    check(fleet_threads_alive() == 0 and transport_threads_alive() == 0,
+          "fleet or transport threads left running")
+    out["phase_s"] = time.perf_counter() - t20
+    print(f"[20] phase 20: {out['phase_s']:.1f} s; agents' launches by "
+          f"kernel (f32_split / bf16_sm90) {out['routes']} ({card})",
+          flush=True)
+    return out
 
 
 def _free_port():
@@ -7443,9 +8054,11 @@ def main():
           f"f32_split (the pool's float32 pages)")
     margin_tol = 0.1     # bf16 logits through two paths (dense vs paged)
     compared = 0
+    p4_margins = []
     for i, (p, n, r) in enumerate(zip(prompts, budgets, results)):
         check(r.size == n, f"request {i}: {r.size} of {n} tokens")
         solo, margins = solo_greedy(torch, model, params, p, n)
+        p4_margins.append(margins)
         for t in range(n):
             if margins[t] < margin_tol:
                 break
@@ -7453,6 +8066,9 @@ def main():
                   f"{int(r[t])}, solo {solo[t]} (margin {margins[t]:.3g})")
             compared += 1
     check(compared > 0, "no served step cleared the margin")
+    # phase 20 serves these requests again through the fleet
+    p4 = {"prompts": prompts, "budgets": budgets, "results": results,
+          "margins": p4_margins}
 
     # one serving decode step at the full bucket, eager (host-paced) and
     # replayed as a CUDA graph (device time only): the gap is host overhead
@@ -7608,6 +8224,10 @@ def main():
     l18 = r18["launches"]
     # -- phase 19: model parallelism across GPUs -----------------------------
     l19 = model_parallel(torch, K, card)["launches"]
+    # -- phase 20: the serving fleet across processes -------------------------
+    r20 = fleet(torch, K, card, p4)
+    l20 = {k: sum(v[k] for v in r20["routes"].values())
+           for k in ("paged_attention", "flash_fwd")}
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -7751,7 +8371,7 @@ def main():
         kernel_rec("flash_fwd_chunk",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,
-                   chunk_counts["flash_fwd"]),
+                   chunk_counts["flash_fwd"] + l20["flash_fwd"]),
         kernel_rec("flash_fwd_train",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_train,
@@ -7791,7 +8411,8 @@ def main():
         kernel_rec("paged_attention",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
-                   serve_routes["f32_split"] + l19["paged_attention"]),
+                   serve_routes["f32_split"] + l19["paged_attention"]
+                   + l20["paged_attention"]),
         kernel_rec("paged_attention_long",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_long,

@@ -103,6 +103,17 @@ def _default(d):
     return repr(d)
 
 
+def test_the_pairs_cover_the_fleet_classes():
+    names = {key for key, _, _ in PAIRS}
+    for want in ("transport.TransportServer", "transport.TransportClient",
+                 "transport.RemoteError", "fleet.ReplicaAgent",
+                 "fleet.RemoteReplica", "fleet.FleetMonitor",
+                 "fleet.DisaggregatedFleet", "fleet.KVHandoffError",
+                 "fleet.warm_replica", "fleet.agent_from_config",
+                 "controller.FleetController", "controller.ScalePolicy"):
+        assert "bigdl_tpu_torch.serving." + want in names, want
+
+
 def test_the_pairs_cover_the_repaired_constructors():
     names = {key.rsplit(".", 1)[1] for key, _, _ in PAIRS}
     assert {"TransformerBlock", "Attention", "FeedForwardNetwork",
@@ -268,8 +279,6 @@ UNPORTED_METHODS = {
     "bigdl_tpu.nn.module.Module": {
         "load_orbax", "quantize", "save_caffe", "save_orbax", "save_tf",
         "save_torch"},
-    # the cross-process page handoff of the fleet tier (ROADMAP A.8)
-    "bigdl_tpu.serving.kv_cache.PagedKVCache": {"export_blocks"},
 }
 
 CLASS_PAIRS = [(k, p, t) for k, p, t in PAIRS if inspect.isclass(p)]
@@ -384,7 +393,8 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "parallel.collective", "parallel.allreduce", "parallel.sharding",
             "parallel.pipeline", "parallel.ring_attention",
             "parallel.ring_flash", "parallel.seq_all_to_all",
-            "parallel.seq_decode"]
+            "parallel.seq_decode", "serving.transport", "serving.fleet",
+            "serving.controller"]
 # public JAX members a mirrored module re-exports from a module the port
 # does not have yet, with the ROADMAP item that ports them (the member test
 # above counts the members a module defines)

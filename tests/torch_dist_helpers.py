@@ -1008,5 +1008,252 @@ def pipe_moe(rank, n, stages, x, y, router_w, ws, moe_x, cap):
     return out
 
 
+# -- the rest of mesh serving, TP with FSDP, dropout under TP ---------------
+
+def _trace_host_tier(torch, swap, record):
+    """Record this rank's spilled pages by handle id and its pages right
+    after each refill (rank 0 in ``_adopt``, the others in ``_replay``)."""
+    stage_out, adopt, replay = swap._stage_out, swap._adopt, swap._replay
+
+    def stage_out_t(plans, pages):
+        for h, s, n in plans:
+            record["spilled"][h.hid] = [
+                (k[s:s + n].clone().numpy(), v[s:s + n].clone().numpy())
+                for k, v in pages]
+        return stage_out(plans, pages)
+
+    def after_refill(ids, hids):
+        idx = torch.as_tensor(ids)
+        record["refilled"].append((list(hids), [
+            (k[idx].clone().numpy(), v[idx].clone().numpy())
+            for k, v in swap.kv.pages()]))
+
+    def adopt_t(owner, layers, nbytes, handles):
+        ids = adopt(owner, layers, nbytes, handles)
+        after_refill(ids, [h.hid for h in handles])
+        return ids
+
+    def replay_t(op, payload):
+        replay(op, payload)
+        if op == "refill":
+            after_refill(*payload)
+
+    swap._stage_out, swap._adopt, swap._replay = stage_out_t, adopt_t, \
+        replay_t
+
+
+def mesh_host_tier(rank, n, cfg, weights, sched_kw, prompts, max_new):
+    """``DecodeScheduler(mesh=<('model',) of n>, placement="tp",
+    host_blocks=)`` with a device pool small enough that admission evicts
+    (spills) the prefix chains and a repeated prefix refills them: rank
+    0's tokens, every rank's host-tier counts, and whether every refill
+    wrote this rank's pages bit for bit as they were spilled. The
+    one-rank scheduler with the same settings runs first on every rank."""
+    import torch
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serving import DecodeScheduler
+    model = _lm(cfg, weights)
+    out = {}
+    solo = DecodeScheduler(model, **sched_kw)
+    with solo:
+        out["solo"] = [np.asarray(solo.submit(p, max_new).result(60))
+                       for p in prompts]
+        out["solo_prefix"] = {k: solo.stats()["prefix"][k] for k in
+                              ("spills", "refills", "hits_after_spill")}
+    mesh = make_mesh((n,), ("model",), device="cpu")
+    sched = DecodeScheduler(model, mesh=mesh, placement="tp", **sched_kw)
+    record = {"spilled": {}, "refilled": []}
+    _trace_host_tier(torch, sched.kv_swap, record)
+    with sched:
+        if rank == 0:
+            # one at a time: each admission sees the pool the last left
+            out["tokens"] = [np.asarray(sched.submit(p, max_new).result(60))
+                             for p in prompts]
+            out["prefix"] = {k: sched.stats()["prefix"][k] for k in
+                             ("spills", "refills", "hits_after_spill")}
+    st = sched.kv_swap.stats()
+    out["host"] = {k: st[k] for k in ("swap_out_bytes", "swap_in_bytes",
+                                      "host_spills", "host_blocks_in_use")}
+    out["refills"] = len(record["refilled"])
+    same = []
+    for hids, pages in record["refilled"]:
+        want = [tuple(np.concatenate([record["spilled"][h][li][half]
+                                      for h in hids])
+                      for half in (0, 1)) for li in range(len(pages))]
+        same.append(all(np.array_equal(a, b) for (ka, va), (kb, vb)
+                        in zip(pages, want) for a, b in ((ka, kb),
+                                                         (va, vb))))
+    out["refilled_bitwise"] = same
+    out["page_heads"] = int(sched.kv.pages()[0][0].shape[1])
+    return out
+
+
+def tp_fsdp_spec(tp, fs):
+    """One leaf's spec on a ``(data, model)`` mesh: a tensor-parallel
+    matrix is also sliced over ``data`` along its other dimension (a leaf
+    split over both axes), the other tensor-parallel leaves keep their
+    ``model`` split, and the rest take their FSDP spec."""
+    tp, fs = tuple(tp), tuple(fs)
+    if len(tp) == 2:
+        return tuple("data" if a is None else a for a in tp)
+    return tp if tp else fs
+
+
+def tp_fsdp_training(rank, n, cfg, weights, x, y, steps, min_elems):
+    """``steps`` SGD steps of the flagship's recipe on a 2 x 2 ``(data,
+    model)`` mesh: tensor-parallel specs over ``model`` (the matrices
+    sliced over ``data`` too, :func:`tp_fsdp_spec`) and every other leaf
+    of >= ``min_elems`` elements sliced over ``data`` (``fsdp_specs``).
+    Each rank takes its ``data`` rows and its loss / 2; the leaves not
+    sliced over ``data`` have their gradients summed over ``data``.
+    Returns the losses, this rank's blocks after each step and its mesh
+    coordinates."""
+    import torch
+    from bigdl_tpu_torch.models import lm_loss_chunked
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.parallel.collective import all_reduce_sum, over, psum
+    from bigdl_tpu_torch.parallel.sharding import (fsdp_specs, gather_param,
+                                                   place_with_specs,
+                                                   shard_batch,
+                                                   transformer_tp_specs)
+    model = _lm(cfg, weights)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    tp = _flat_refs(transformer_tp_specs(model.params))
+    fs = _flat_refs(fsdp_specs(model.params, mesh, min_elems=min_elems))
+    specs = _unflat({k: tp_fsdp_spec(tp[k], fs[k]) for k in tp})
+    p = place_with_specs(model.params, mesh, specs)
+    flat_p, flat_s = _flat_refs(p), _flat_refs(specs)
+    for t in flat_p.values():
+        t.requires_grad_(True)
+    xb, yb = shard_batch(x, mesh), shard_batch(y, mesh)
+    optim = SGD(learningrate=0.1, momentum=0.9)
+    state = optim.init_state(p)
+    losses, params = [], []
+    with over(mesh):
+        for _ in range(steps):
+            h = model.hidden_states(p, xb, training=False)
+            emb = gather_param(p["embed"], model.embed.shape)
+            loss = lm_loss_chunked(h, emb, yb, chunk=4) / 2
+            keys = list(flat_p)
+            grads = torch.autograd.grad(loss, [flat_p[k] for k in keys])
+            g = dict(zip(keys, grads))
+            for k in keys:
+                if "data" not in tuple(flat_s[k]):
+                    g[k] = all_reduce_sum(g[k], "data")
+            loss = psum(loss.detach(), "data")
+            with torch.no_grad():
+                optim.update(_unflat(g), p, state, 0.1)
+            losses.append(float(loss))
+            params.append({k: v.detach().clone().numpy()
+                           for k, v in flat_p.items()})
+    coords = [int(c) for c in np.argwhere(
+        mesh.mesh.numpy() == rank)[0]]
+    return {"losses": losses, "params": params, "coords": coords,
+            "specs": {k: tuple(v) for k, v in flat_s.items()}}
+
+
+def tp_dropout(rank, n, cfg, weights, x, seed):
+    """One training forward and backward with dropout of the LM over this
+    rank's tensor-parallel block (``model`` of n) and over the whole tree
+    on one rank, each from a generator seeded ``seed``: every dropout draw
+    (``collective.batch_rows``' result) of both, the hidden states and
+    the gradients of ``wq`` and ``w1`` of block 0."""
+    import torch
+    from bigdl_tpu_torch.parallel import collective, make_mesh
+    from bigdl_tpu_torch.parallel.collective import over
+    from bigdl_tpu_torch.parallel.sharding import (place_with_specs,
+                                                   transformer_tp_specs)
+    model = _lm(cfg, weights)
+    draws = []
+    real = collective.batch_rows
+
+    def traced(draw, shape):
+        out = real(draw, shape)
+        draws.append(out.detach().clone().numpy())
+        return out
+
+    collective.batch_rows = traced
+
+    def run(params):
+        del draws[:]
+        ps = {k: v.requires_grad_(True) for k, v in _flat_refs(
+            params).items()}
+        g = torch.Generator().manual_seed(seed)
+        h = model.hidden_states(params, torch.from_numpy(x), training=True,
+                                generator=g)
+        loss = (h * h).sum()
+        keys = ["block0/attn/wq", "block0/ffn/w1"]
+        grads = torch.autograd.grad(loss, [ps[k] for k in keys])
+        return (list(draws), h.detach().numpy(),
+                [gr.numpy() for gr in grads])
+
+    solo = run(_unflat({k: v.detach().clone() for k, v in
+                        _flat(model.params).items()}))
+    mesh = make_mesh((n,), ("model",), device="cpu")
+    p = place_with_specs(model.params, mesh,
+                         transformer_tp_specs(model.params))
+    with over(mesh):
+        tp = run(p)
+    return {"solo": solo, "tp": tp}
+
+
+def mesh_engine_lm(rank, n, cfg, weights, max_batch, xs):
+    """``ServingEngine(mesh=<('data',) of n>, placement=fsdp over 256
+    elements)`` on the LM's forward: rank 0's outputs for ``xs``, whether
+    the whole-tree gather ran, and the bytes each block's gather made
+    against one block's whole bytes."""
+    import torch
+    from bigdl_tpu_torch.nn import attention
+    from bigdl_tpu_torch.parallel import make_mesh, sharding
+    from bigdl_tpu_torch.parallel.sharding import fsdp_specs
+    from bigdl_tpu_torch.serving import ServingEngine
+    model = _lm(cfg, weights)
+    mesh = make_mesh((n,), ("data",), device="cpu")
+    rec = {"whole_tree": 0, "per_block": [], "gathers": []}
+    real_gather, real_whole = sharding.gather_param, sharding._gather_whole
+    real_block = attention.TransformerBlock._whole
+
+    def gather_t(x, full_shape, axis="data"):
+        out = real_gather(x, full_shape, axis)
+        if out is not x:
+            rec["gathers"].append(out.numel() * out.element_size())
+        return out
+
+    def whole_t(*a, **kw):
+        rec["whole_tree"] += 1
+        return real_whole(*a, **kw)
+
+    def block_t(self, params):
+        k = len(rec["gathers"])
+        out = real_block(self, params)
+        rec["per_block"].append(sum(rec["gathers"][k:]))
+        return out
+
+    sharding.gather_param, sharding._gather_whole = gather_t, whole_t
+    attention.TransformerBlock._whole = block_t
+    eng = ServingEngine(model, input_shape=(xs.shape[1],),
+                        max_batch=max_batch, mesh=mesh,
+                        placement=lambda p: fsdp_specs(p, mesh,
+                                                       min_elems=256),
+                        name="lm")
+    out = {}
+    with eng:
+        if rank == 0:
+            out["outs"] = [eng.submit(x).result(timeout=60) for x in xs]
+    blk = _flat(model.params["block0"])
+    out["block_bytes"] = sum(t.numel() * t.element_size()
+                             for t in blk.values())
+    out.update(rec)
+    out["resident"] = sum(t.numel() for t in
+                          _flat(eng.registry.current().params).values())
+    out["whole"] = sum(t.numel() for t in _flat(model.params).values())
+    with torch.no_grad():
+        out["direct"] = model.apply(model.params, None,
+                                    torch.from_numpy(xs), False)[0].numpy()
+    return out
+
+
+
 if __name__ == "__main__":
     _worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
