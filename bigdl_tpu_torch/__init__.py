@@ -13,6 +13,6 @@ paged attention (``kernels``). Entry points run on a CUDA device unless
 the caller passes ``device='cpu'``. The package imports neither JAX nor
 bigdl_tpu.
 """
-from .utils import T, Table  # noqa: E402,F401
+from .utils import T, Table, Shape  # noqa: E402,F401
 
-__all__ = ["Table", "T"]
+__all__ = ["Table", "T", "Shape"]

@@ -33,12 +33,19 @@ The port's modules carry the JAX trees' names and layouts, so the flat
 Arrays arrive as numpy (``jax.tree_util.tree_map(np.asarray, tree)``) and
 leave as numpy (:func:`to_numpy_tree` of ``model.params`` and
 ``model.state``, so trained weights and statistics can be compared with the
-JAX package's); this module imports no JAX.
+JAX package's); this module imports no JAX. A parameter tree that serves
+as it is (a registry version, ``generate``'s params) crosses with
+:func:`to_torch_tree`, which also carries JAX's quantized weights over
+(``quantization.lm``: int8 codes and float32 scales; JAX's int4 codes
+become int8 through numpy); the port's quantized weights leave as the
+port's carriers over numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .utils.carrier import TreeCarrier
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -92,6 +99,8 @@ def to_numpy_tree(tree) -> dict:
     become float32 (numpy has no bfloat16 of torch's)."""
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, TreeCarrier):
+        return tree.map(to_numpy_tree)
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -102,8 +111,40 @@ def host_copy_tree(tree) -> dict:
     holds while training goes on writing the tensors in place."""
     if isinstance(tree, dict):
         return {k: host_copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, TreeCarrier):
+        return tree.map(host_copy_tree)
     a = to_numpy_tree(tree)
     return np.array(a, copy=True) if tree.device.type == "cpu" else a
+
+
+def _host_tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy's bf16 is not torch's
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    elif a.dtype.name == "int4":         # JAX's int4 codes, held as int8
+        t = torch.from_numpy(a.astype(np.int8))
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t if device is None else t.to(device)
+
+
+def to_torch_tree(tree, device=None):
+    """A JAX parameter tree (nested dicts, lists and tuples of numpy or JAX
+    arrays) -> the same tree of tensors on ``device`` (the CPU by
+    default). JAX's quantized weights (objects with ``q`` and ``s``, and
+    ``group`` for int4) become the port's ``QuantizedWeight`` /
+    ``QuantizedWeightInt4``."""
+    if isinstance(tree, dict):
+        return {k: to_torch_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch_tree(v, device) for v in tree)
+    if hasattr(tree, "q") and hasattr(tree, "s"):
+        from .quantization.lm import QuantizedWeight, QuantizedWeightInt4
+        q, s = _host_tensor(tree.q, device), _host_tensor(tree.s, device)
+        if hasattr(tree, "group"):
+            return QuantizedWeightInt4(q, s, group=tree.group)
+        return QuantizedWeight(q, s)
+    return _host_tensor(tree, device)
 
 
 def to_numpy_trees(model):

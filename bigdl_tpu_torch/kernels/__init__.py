@@ -8,7 +8,11 @@ wrappers also count per route (``launches_by_route``: ``"bf16_sm90"``,
 ``"f32"``, and for K3 / K4 / K5 ``"bf16_ragged"``), so a run can show which
 of their kernels it went through; K2's also counts by the query rows of
 a sequence (``launches_by_s``), so a run can count the speculative
-verify's launches apart."""
+verify's launches apart. The int8 contraction (``int8_matmul``,
+``int8_conv2d``; no Pallas twin: the JAX package leaves it to XLA) counts
+by its loader, ``"aligned"`` or ``"ragged"``, on the wrapper itself
+(``int8_matmul.launches_by_route``); :func:`launches_by_route` gathers the
+attention and fused wrappers'."""
 from .flash_attention import (FlashAttention, flash_attention_fused,
                               flash_bwd, flash_bwd_reference, flash_fwd,
                               flash_fwd_reference)
@@ -22,6 +26,8 @@ from .fused_matmul import (FusedBnReluMatmul, fused_bn_relu_matmul,
                            fused_bn_relu_matmul_nhwc, fused_matmul_bwd,
                            fused_matmul_bwd_reference, fused_matmul_fwd,
                            fused_matmul_fwd_reference)
+from .int8_matmul import (int8_conv2d, int8_conv2d_reference, int8_matmul,
+                          int8_matmul_reference)
 from .paged_attention import paged_attention_reference, paged_decode_attention
 
 WRAPPERS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
@@ -30,17 +36,23 @@ WRAPPERS = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
             "fused_matmul_bwd": fused_matmul_bwd,
             "fused_chain_fwd": fused_chain_fwd,
             "fused_chain_bwd": fused_chain_bwd,
-            "fused_conv_fwd": fused_conv_fwd}
+            "fused_conv_fwd": fused_conv_fwd, "int8_matmul": int8_matmul,
+            "int8_conv2d": int8_conv2d}
 
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+_ROUTED = ("flash_fwd", "flash_bwd", "paged_attention", "fused_matmul_fwd",
+           "fused_matmul_bwd", "fused_chain_fwd", "fused_chain_bwd",
+           "fused_conv_fwd")
+
+
 def launches_by_route() -> dict:
-    """{wrapper name: {route: launches}} for the wrappers with routes."""
-    return {name: dict(fn.launches_by_route) for name, fn in WRAPPERS.items()
-            if hasattr(fn, "launches_by_route")}
+    """{wrapper name: {route: launches}} for the attention and fused
+    wrappers."""
+    return {name: dict(WRAPPERS[name].launches_by_route) for name in _ROUTED}
 
 
 def reset_launch_counts():
@@ -63,4 +75,6 @@ __all__ = ["FlashAttention", "flash_fwd", "flash_fwd_reference", "flash_bwd",
            "residual_chain_bwd_reference", "FusedConv3x3",
            "fused_bn_relu_conv3x3", "fused_conv_fwd", "conv3x3_reference",
            "conv3x3_bwd", "launch_counts", "launches_by_route",
-           "reset_launch_counts", "WRAPPERS", "flash_attention_fused"]
+           "reset_launch_counts", "WRAPPERS", "flash_attention_fused",
+           "int8_matmul", "int8_matmul_reference", "int8_conv2d",
+           "int8_conv2d_reference"]

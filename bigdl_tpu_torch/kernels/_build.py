@@ -66,7 +66,8 @@ SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
                                    "fused_gemm_sm90.cuh", "attn_sm90.cuh",
                                    "fused_gemm.cuh"),
            "paged_attention_sm90": ("paged_attention_sm90.cu",
-                                    "attn_tile.cuh")}
+                                    "attn_tile.cuh"),
+           "int8_gemm_sm90": ("int8_gemm_sm90.cu",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

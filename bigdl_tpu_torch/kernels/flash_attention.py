@@ -49,7 +49,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _flops
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # each route's (library, symbol) for the forward and backward (the routes:
@@ -239,6 +239,7 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
         raise RuntimeError(f"flash_fwd kernel launch failed ({route}): "
                            f"CUDA error {err}")
     flash_fwd.launches += 1
+    _flops.tally("flash_fwd", _fwd_flops(q, kv_len, D))
     if w == D:
         flash_fwd.launches_by_route[route] += 1
         return o, lse
@@ -249,6 +250,19 @@ def flash_fwd(q, k, v, causal: bool = False, q_offset: int = 0, kv_len=None):
 flash_fwd.launches = 0
 flash_fwd.launches_by_route = dict.fromkeys(
     [r + p for r in _FWD_FN for p in ("", _PADDED)], 0)
+
+
+def _fwd_flops(q, kv_len, d):
+    """The FLOPs of the plain forward's two products (the cost notes'
+    tally of a launch; ``kernels._flops``)."""
+    B, H, Tq = q.shape[:3]
+    return _flops.attention(B, H, Tq, kv_len, d)
+
+
+def _bwd_flops(q, k, d):
+    """The FLOPs of the plain backward's five (Tq x Tkv x D) products."""
+    B, H, Tq = q.shape[:3]
+    return 10 * B * H * Tq * k.shape[2] * d
 
 
 def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
@@ -337,6 +351,7 @@ def flash_bwd(q, k, v, o, lse, do, causal: bool = False, delta=None,
         raise RuntimeError(f"flash_bwd kernel launch failed ({route}): "
                            f"CUDA error {err}")
     flash_bwd.launches += 1
+    _flops.tally("flash_bwd", _bwd_flops(q, k, D))
     if w == D:
         flash_bwd.launches_by_route[route] += 1
         return dq, dk, dv

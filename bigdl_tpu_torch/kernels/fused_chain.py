@@ -45,7 +45,7 @@ import ctypes
 import torch
 
 from ..utils.engine import refuse_unported
-from . import _build
+from . import _build, _flops
 from .fused_matmul import _DTYPES, _TC_SPLITS, _PART_ROWS, _RAGGED, \
     _check_aligned, _dz_eff, _f32, _ptr, _stream, _wsplit, dw_splits, route
 
@@ -162,6 +162,7 @@ def fused_chain_fwd(z, r, a, b, w, stats: bool = True):
         raise RuntimeError(f"fused_chain_fwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     fused_chain_fwd.launches += 1
+    _flops.tally("fused_chain_fwd", 2 * M * K * N)
     fused_chain_fwd.launches_by_route[rt] += 1
     return (h, zo, s[0], s[1]) if stats else (h, zo, None, None)
 
@@ -219,6 +220,7 @@ def fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats: bool = True):
         raise RuntimeError(f"fused_chain_bwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     fused_chain_bwd.launches += 1
+    _flops.tally("fused_chain_bwd", 4 * M * K * N)
     fused_chain_bwd.launches_by_route[rt] += 1
     return dz, dr, dadb[0], dadb[1], dw
 

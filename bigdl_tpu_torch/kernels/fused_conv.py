@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.engine import refuse_unported
-from . import _build
+from . import _build, _flops
 from .fused_matmul import (_DTYPES, _PART_ROWS, _RAGGED, _check_aligned,
                            _f32, _ptr, _stream, _wsplit)
 from .fused_matmul import route as _k3_route
@@ -152,6 +152,7 @@ def fused_conv_fwd(x, w, a, b, stride: int = 1, stats: bool = True):
         raise RuntimeError(f"fused_conv_fwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     fused_conv_fwd.launches += 1
+    _flops.tally("fused_conv_fwd", 2 * M * N * 9 * C)
     fused_conv_fwd.launches_by_route[rt] += 1
     return (z, s[0], s[1]) if stats else (z, None, None)
 

@@ -49,7 +49,7 @@ import ctypes
 import torch
 
 from ..utils.engine import refuse_unported
-from . import _build
+from . import _build, _flops
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # dtype -> (tensor-core route, the multiple K and N must be of for it, the
@@ -279,6 +279,7 @@ def fused_matmul_fwd(x, w, a=None, b=None, relu: bool = False,
         raise RuntimeError(f"fused_matmul_fwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     fused_matmul_fwd.launches += 1
+    _flops.tally("fused_matmul_fwd", 2 * M * K * N)
     fused_matmul_fwd.launches_by_route[rt] += 1
     return (z, s[0], s[1]) if stats else (z, None, None)
 
@@ -339,6 +340,7 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
         raise RuntimeError(f"fused_matmul_bwd kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     fused_matmul_bwd.launches += 1
+    _flops.tally("fused_matmul_bwd", 4 * M * K * N)
     fused_matmul_bwd.launches_by_route[rt] += 1
     if not prologue:
         return dx, dw, None, None

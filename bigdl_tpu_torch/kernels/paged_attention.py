@@ -37,7 +37,7 @@ import math
 import torch
 
 from ..utils.engine import refuse_unported
-from . import _build
+from . import _build, _flops
 from .flash_attention import _PADDED, _pad_d, head_dim_width
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,6 +126,14 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, positions,
     return o.reshape(B, nH, S, D).to(q.dtype)
 
 
+def _flops_of(q, k_pages, block_tables):
+    """The FLOPs of the plain version's two products over the gathered
+    view (the cost notes' tally of a launch; ``kernels._flops``)."""
+    B, nH, S, D = q.shape
+    return _flops.attention(B, nH, S, block_tables.shape[1]
+                            * k_pages.shape[2], D)
+
+
 def _check(q, k_pages, v_pages, block_tables, positions):
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -211,6 +219,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, positions,
         raise RuntimeError(f"paged_attention kernel launch failed ({rt}): "
                            f"CUDA error {err}")
     paged_decode_attention.launches += 1
+    _flops.tally("paged_attention", _flops_of(q, k_pages, block_tables))
     by_s = paged_decode_attention.launches_by_s
     by_s[S] = by_s.get(S, 0) + 1
     if w == D:

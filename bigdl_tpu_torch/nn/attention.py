@@ -68,6 +68,7 @@ from ..kernels.paged_attention import paged_attention_reference
 from ..parallel import collective
 from ..parallel.flash import (_PAGED_CTX, flash_attention,
                               flash_chunk_attention, paged_attention)
+from ..utils.carrier import TreeCarrier
 from ..utils.engine import resolve_device
 from ..utils.table import Table
 from .module import Module
@@ -78,8 +79,10 @@ NEG = -1e30     # a dead or frozen beam's candidate score (float32)
 
 def _mm(a, b):
     """``a @ b`` in the promoted dtype of the two (``jnp.matmul``'s rule):
-    a float32 activation times a bf16 weight is a float32 product."""
-    if a.dtype == b.dtype:
+    a float32 activation times a bf16 weight is a float32 product. A
+    quantized weight (``quantization.lm``) computes its own product in
+    ``a``'s dtype (its ``__rmatmul__``), as in JAX."""
+    if a.dtype == b.dtype or isinstance(b, TreeCarrier):
         return a @ b
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt) @ b.to(dt)
@@ -257,6 +260,11 @@ class Attention(Module):
         if n == 1 or (self.num_heads % n == 0 and self._kvh() % n == 0):
             return params, n
         dims = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+        if any(isinstance(params[k], TreeCarrier) for k in keys):
+            raise NotImplementedError(
+                f"quantized attention weights split {n} ways over 'model' "
+                f"need the heads ({self.num_heads}, kv {self._kvh()}) to "
+                f"divide by the split")
         out = dict(params)
         for k in keys:
             out[k] = collective._tp_gather(params[k], dims[k])
@@ -527,8 +535,13 @@ class TransformerBlock(Module):
             for d, ax in enumerate(spec or ()):
                 if ax is not None:
                     shape[d] //= n
-            return gather_param(p, shape) if tuple(p.shape) != tuple(shape) \
-                else p
+            if tuple(p.shape) == tuple(shape):
+                return p
+            if isinstance(p, TreeCarrier):
+                raise NotImplementedError(
+                    "quantized weights sliced over 'data' (FSDP) are not "
+                    "gathered; serve them replicated or tensor-parallel")
+            return gather_param(p, shape)
         return walk(params, self.params, specs)
 
     def _ffn_sublayer(self, params, h, training=False, generator=None):

@@ -458,6 +458,13 @@ class Module(torch.nn.Module):
         from ..optim.predictor import Predictor
         return Predictor(self).predict_class(dataset, batch_size)
 
+    # -- conversions ------------------------------------------------------
+    def quantize(self, calibration=None):
+        """Int8-inference copy (parity: AbstractModule.quantize;
+        ``quantization.quantize``)."""
+        from ..quantization.quantize import quantize as _q
+        return _q(self, calibration=calibration)
+
     # -- serialization ----------------------------------------------------
     def save(self, path, overwrite=True):
         """Pickle the module to ``path`` with the JAX package's payload

@@ -15,10 +15,12 @@ and flight recorder are not the JAX package's).
 * ``flight``: a bounded ring of recent events, dumped as a JSON crash
   bundle on failure.
 * ``cluster``: per-process metric snapshots merged by rank 0.
+* ``perf``: what the programs cost: per-call FLOP and memory artifacts
+  from the training step, the evaluator / predictor forwards and the
+  decode step (``compile/*``), and the live MFU / step-phase gauges
+  (``perf/mfu``, ``perf/phase_*_frac``) derived from them.
 
-The JAX package's ``perf`` (compiled-program cost artifacts of
-``jax.jit``) has no counterpart here (ROADMAP A.8). Disabled cost is one
-flag read a site; enable with :func:`enable` or ``BIGDL_TPU_TRACE=1``.
+Disabled cost is one flag read a site; enable with :func:`enable` or ``BIGDL_TPU_TRACE=1``.
 The environment variables keep the JAX package's names.
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .exporters import (chrome_trace, write_chrome_trace, prometheus_text,
                         record_bench_line)
 from . import flight
 from . import health
+from . import perf
 from . import cluster
 
 __all__ = ["Tracer", "enable", "disable", "enabled", "span", "instant",
@@ -42,7 +45,7 @@ __all__ = ["Tracer", "enable", "disable", "enabled", "span", "instant",
            "histogram", "chrome_trace", "write_chrome_trace",
            "prometheus_text", "SummaryBridge", "metrics_dump",
            "write_metrics_dump", "record_bench_line", "flight", "health",
-           "cluster"]
+           "perf", "cluster"]
 
 if _os.environ.get("BIGDL_TPU_TRACE") == "1":
     enable()

@@ -8,7 +8,7 @@ the JAX package so one report tool reads both)::
     {"schema", "written_at", "written_at_iso", "pid",
      "error": {"type", "message", "traceback"} | null,
      "context": {...}, "events": [...], "metrics": {...},
-     "spans": [...], "programs": [],
+     "spans": [...], "programs": [...],
      "env": {"torch", "cuda", "device", "devices", "process_index"}}
 
 Disabled observability means a disabled recorder: :func:`record` returns
@@ -148,9 +148,15 @@ def crash_bundle(error: Optional[BaseException] = None,
         "events": _recorder.events(),
         "metrics": _metrics.registry().snapshot(),
         "spans": _span_tail(),
-        "programs": [],   # compiled-program artifacts: JAX's perf only
+        "programs": _programs(),
         "env": _env_info(),
     }
+
+
+def _programs():
+    """The program cost notes (``perf``'s artifacts) for a bundle."""
+    from . import perf as _perf
+    return _perf.artifacts_snapshot()
 
 
 def bundle_dir() -> str:

@@ -13,7 +13,9 @@ methods. Batches are staged by ``optim.staging`` (on a lookahead thread
 with ``prefetch_depth`` >= 2, the default, inline with 0 or 1); with
 ``set_superstep(K)`` the device path stacks K batches into one placement
 and runs their K forwards back to back, summing the statistics as it
-goes."""
+goes. The forwards run through ``observability.perf.instrument_jit``
+(``eval/forward``, ``eval/forward_stats``; keyed on the batch), as JAX's
+compile sites do."""
 from __future__ import annotations
 
 from typing import List
@@ -21,6 +23,7 @@ from typing import List
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..dataset.dataset import AbstractDataSet, ShardedDataSet
 from ..utils.engine import resolve_device
 from ..utils.table import Table
@@ -58,6 +61,8 @@ class Evaluator:
         self.model = model
         self.prefetch_depth = prefetch_depth
         self._superstep = 1
+        self._fwd = None
+        self._fwd_stats = None
 
     def set_superstep(self, k: int):
         """K evaluation batches a group on the device path (every built-in
@@ -81,9 +86,29 @@ class Evaluator:
             return self._evaluate_host(batched, methods)
 
     def _forward(self, x):
-        out, _ = self.model.apply(self.model.params, self.model.state, x,
-                                  training=False)
-        return out
+        if self._fwd is None:
+            model = self.model
+
+            def fwd(params, state, x):
+                out, _ = model.apply(params, state, x, training=False)
+                return out
+            self._fwd = obs.perf.instrument_jit(
+                fwd, name="eval/forward", kind="forward", key_argnums=(2,))
+        return self._fwd(self.model.params, self.model.state, x)
+
+    def _forward_stats(self, methods, x, y):
+        """The forward and every method's device statistics, one call."""
+        key = tuple(id(m) for m in methods)
+        if self._fwd_stats is None or self._fwd_stats[0] != key:
+            model = self.model
+
+            def fwd_stats(params, state, x, y):
+                out, _ = model.apply(params, state, x, training=False)
+                return [m.device_stats(out, y) for m in methods]
+            self._fwd_stats = (key, obs.perf.instrument_jit(
+                fwd_stats, name="eval/forward_stats", kind="forward",
+                key_argnums=(2, 3)))
+        return self._fwd_stats[1](self.model.params, self.model.state, x, y)
 
     def _evaluate_device(self, batched, methods):
         """Per-batch statistics summed on the device; one readback."""
@@ -115,8 +140,7 @@ class Evaluator:
                                                     _index(y, i))
                     if len(_first_leaf(xi)) == 0:
                         continue        # no rows of this batch here
-                    out = self._forward(xi)
-                    stats = [m.device_stats(out, yi) for m in methods]
+                    stats = self._forward_stats(methods, xi, yi)
                     acc = stats if acc is None else \
                         [a + s for a, s in zip(acc, stats)]
         finally:

@@ -58,8 +58,11 @@ the fault-free run; ``set_remediation`` halts a stalled run with a
 checkpoint taken on a side thread, and drives the lr and early stopping
 from plateaus and spikes, halts on a lost or stale heartbeat peer, feeds
 a straggler monitor, and probes a distributed run's mesh on a stall.
-``DistriOptimizer`` trains one process a rank (its docstring). Not
-ported: the compiled-program cost notes of JAX's ``observability.perf``.
+``DistriOptimizer`` trains one process a rank (its docstring). The step
+runs through ``observability.perf.instrument_jit`` (``optim/step``, keyed
+on the batch's shapes; a superstep group is one program of k steps), and
+with observability on each step after the counted one publishes the
+live MFU and step-phase gauges (``perf.note_step``), as in JAX.
 
 The model must be one whose ``apply(params, state, x, training,
 generator)`` is the training forward (``Transformer`` and the ResNets
@@ -395,6 +398,14 @@ class BaseOptimizer:
         self.sync_policy = "sync"   # or "async" / "window:K"
         self.prefetch_depth = 2     # >= 2: the lookahead stager thread
         self.superstep = 1          # K steps a group, one loss readback
+        # the step and a superstep group through the cost notes (JAX's
+        # InstrumentedJit sites): the batch arguments are the key
+        self._step_fn = obs.perf.instrument_jit(
+            lambda *a: self._step(*a), name="optim/step", kind="train_step",
+            key_argnums=(3, 4))
+        self._group_fn = obs.perf.instrument_jit(
+            self._run_group, name="optim/step", kind="train_step",
+            key_argnums=(3, 4), steps_per_program=lambda args: len(args[5]))
         self._pending_loss = None
         self._loss_window = deque()
         self._resolved_step = None  # the step of the last resolved loss
@@ -689,6 +700,21 @@ class BaseOptimizer:
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return self._apply_update(params, mstate, opt_state, leaves, grads,
                                   loss.detach(), new_mstate, lr)
+
+    def _run_group(self, params, mstate, opt_state, xs, ys, lrs, generator):
+        """A superstep group: ``len(lrs)`` steps over the slices of the
+        ``xs`` / ``ys`` stacks; returns the stacked losses."""
+        return torch.stack([
+            self._step(params, mstate, opt_state, _index(xs, i),
+                       _index(ys, i), lr, generator)
+            for i, lr in enumerate(lrs)])
+
+    def _note_mfu(self, fn, t0, t1, t2, dsp):
+        """The live MFU gauges of a step or group that was not the counted
+        call (its wall includes the counter, as JAX skips a compile)."""
+        if not fn.last_call_compiled:
+            obs.perf.note_step(fn.last_artifact, wall_s=t2 - t0,
+                               host_s=t1 - t0, dispatch_s=dsp.duration_s)
 
     def _apply_update(self, params, mstate, opt_state, leaves, grads, loss,
                       new_mstate, lr):
@@ -1452,10 +1478,11 @@ class BaseOptimizer:
                 t1 = time.time()
                 # * 1.0 is exact: the scale moves only after a plateau
                 lr = optim.current_lr() * self._remediation_lr_scale
-                with obs.span("step/dispatch"):
+                dsp = obs.span("step/dispatch")
+                with dsp:
                     loss = self._dispatch_guarded(
-                        lambda: self._step(params, mstate, opt_state, x, y,
-                                           lr, generator),
+                        lambda: self._step_fn(params, mstate, opt_state, x,
+                                              y, lr, generator),
                         params, opt_state, mstate, generator)
                 self._mark_live(params, opt_state, mstate)
                 self._tighten_stall_deadline()
@@ -1510,6 +1537,7 @@ class BaseOptimizer:
                     obs.counter("optim/steps").inc()
                     obs.gauge("optim/throughput",
                               unit="samples/s").set(throughput)
+                    self._note_mfu(self._step_fn, t0, t1, t2, dsp)
                     self._snap_writer.maybe_write(step=state["neval"])
                 if self.train_summary is not None and self._writes_files():
                     self._record_summaries(state, loss_val, lr, throughput)
@@ -1577,14 +1605,13 @@ class BaseOptimizer:
             lrs = [lr * scale for lr in optim.current_lr_vector(k)]
             t1 = time.time()
 
-            def run(k=k, xs=xs, ys=ys, lrs=lrs):
-                return torch.stack([
-                    self._step(params, mstate, opt_state, _index(xs, i),
-                               _index(ys, i), lrs[i], generator)
-                    for i in range(k)])
+            def run(xs=xs, ys=ys, lrs=lrs):
+                return self._group_fn(params, mstate, opt_state, xs, ys, lrs,
+                                      generator)
 
             with obs.span("step/superstep", neval=state["neval"], k=k):
-                with obs.span("step/dispatch"):
+                dsp = obs.span("step/dispatch")
+                with dsp:
                     losses = self._dispatch_guarded(
                         run, params, opt_state, mstate, generator)
                 self._mark_live(params, opt_state, mstate)
@@ -1603,6 +1630,7 @@ class BaseOptimizer:
                 obs.counter("optim/steps").inc(k)
                 obs.gauge("optim/throughput",
                           unit="samples/s").set(throughput)
+                self._note_mfu(self._group_fn, t0, t1, t2, dsp)
                 self._snap_writer.maybe_write(step=state["neval"])
             restored = False
             events = []

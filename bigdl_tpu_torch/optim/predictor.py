@@ -9,7 +9,10 @@ is what lets a serving registry swap versions under one forward.
 :class:`Predictor` runs it over a data set: a ragged last batch is
 zero-padded on the host to its bucket (:func:`bucket_for`) and sliced
 back, the outputs stay on the model's device, and ``predict`` reads them
-back once, at the end.
+back once, at the end. The forward runs through
+``observability.perf.instrument_jit`` (``predict/forward/<model>``, and a
+superstep group ``predict/forward_scan/<model>``; keyed on the input), as
+JAX's compiled forwards do.
 """
 from __future__ import annotations
 
@@ -90,6 +93,9 @@ class CompiledForward:
         self._model_ref = weakref.ref(model)
         self._shapes = set()
         self._lock = threading.Lock()
+        self._jit = obs.perf.instrument_jit(
+            self.run, name=f"predict/forward/{type(model).__name__}",
+            kind="forward", key_argnums=(2,))
 
     @property
     def model(self):
@@ -98,15 +104,19 @@ class CompiledForward:
     def fn(self):
         return self.__call__
 
-    def __call__(self, params, state, x):
+    def run(self, params, state, x):
+        """The forward itself, outside the cost notes."""
         model = self._model_ref()
         if model is None:
             raise RuntimeError("model was garbage-collected")
-        with self._lock:
-            self._shapes.add(tuple(x.shape))
         with torch.inference_mode():
             out, _ = model.apply(params, state, x, training=False)
         return out
+
+    def __call__(self, params, state, x):
+        with self._lock:
+            self._shapes.add(tuple(x.shape))
+        return self._jit(params, state, x)
 
     def compiled_shape_count(self) -> int:
         with self._lock:
@@ -143,6 +153,7 @@ class Predictor:
         self.batch_per_partition = batch_per_partition
         self.prefetch_depth = prefetch_depth
         self._superstep = 1
+        self._scan_jit = None
 
     def set_superstep(self, k: int):
         """K batches a group: the stager stacks K same-shape batches into
@@ -159,6 +170,22 @@ class Predictor:
 
     def _forward_fn(self):
         return shared_forward(self.model)
+
+    def _scan_fn(self):
+        """A superstep group's forwards, one program of the cost notes
+        (JAX scans them in one compiled program)."""
+        if self._scan_jit is None:
+            from .staging import _index
+            fwd = self._forward_fn()
+
+            def fwd_scan(params, state, xs, n):
+                return [fwd.run(params, state, _index(xs, i))
+                        for i in range(n)]
+            self._scan_jit = obs.perf.instrument_jit(
+                fwd_scan,
+                name=f"predict/forward_scan/{type(self.model).__name__}",
+                kind="forward", key_argnums=(2,))
+        return self._scan_jit
 
     def _iter_outputs(self, dataset, batch_size):
         """Yields ``(output, rows)`` per batch, the output on the model's
@@ -202,8 +229,8 @@ class Predictor:
                 if k > 1:
                     xs, ns = item
                     with sp:
-                        outs = [fwd(self.model.params, self.model.state,
-                                    _index(xs, i)) for i in range(len(ns))]
+                        outs = self._scan_fn()(self.model.params,
+                                               self.model.state, xs, len(ns))
                 else:
                     x, n = item
                     with sp:

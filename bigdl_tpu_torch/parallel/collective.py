@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from .. import observability as obs
+from ..utils.carrier import TreeCarrier
 
 __all__ = ["psum", "pmean", "all_reduce_sum", "all_reduce_mean",
            "all_gather", "reduce_scatter", "ppermute_ring", "all_to_all",
@@ -196,6 +197,8 @@ def _tree_map(fn, tree):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
+    if isinstance(tree, TreeCarrier):       # a quantized weight's tensors
+        return tree.map(lambda t: _tree_map(fn, t))
     return fn(tree)
 
 

@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.carrier import TreeCarrier
 from . import collective
 from .collective import ppermute_ring, psum
 
@@ -34,6 +35,8 @@ def _tree_map(fn, *trees):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (list, tuple)):
         return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
+    if isinstance(t0, TreeCarrier):         # a quantized weight's tensors
+        return t0.map(lambda *xs: _tree_map(fn, *xs), *trees[1:])
     return fn(*trees)
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.carrier import TreeCarrier
 from ..utils.table import Table
 from .mesh import axis_size, mesh_device, mesh_ranks
 
@@ -222,10 +223,16 @@ def mesh_after_loss(mesh, lost_processes=(), devices=None,
 # -- the model-parallel half -------------------------------------------------
 
 def _path_map(fn, tree, path=()):
-    """``fn(path, leaf)`` over a nested dict (JAX's tree_map_with_path)."""
+    """``fn(path, leaf)`` over a nested dict (JAX's tree_map_with_path); a
+    quantized weight's tensors sit under their index, "0" and "1", as in
+    JAX's paths into a registered pytree."""
     if isinstance(tree, dict):
         return {k: _path_map(fn, v, path + (str(k),))
                 for k, v in tree.items()}
+    if isinstance(tree, TreeCarrier):
+        return tree.with_children(tuple(
+            _path_map(fn, c, path + (str(i),))
+            for i, c in enumerate(tree.children())))
     return fn(path, tree)
 
 
@@ -246,6 +253,11 @@ def transformer_tp_specs(params, axis: str = "model"):
     def spec_for(path, leaf):
         joined = "/".join(path)
         nd = len(_shape(leaf))
+        if path[-1:] == ("1",) and nd == 1 and _column_split(joined):
+            # an int8 weight's per-column scales follow its columns: each
+            # rank scales its own (JAX keeps them whole and lets its
+            # compiler match them to the split columns)
+            return (axis,)
         if nd == 2:
             if any(k in joined for k in ("wq", "wk", "wv")):
                 return (None, axis)
@@ -260,6 +272,10 @@ def transformer_tp_specs(params, axis: str = "model"):
         return ()
 
     return _path_map(spec_for, params)
+
+
+def _column_split(joined):
+    return any(k in joined for k in ("wq", "wk", "wv", "w1", "w3"))
 
 
 def fsdp_specs(params, mesh, axis: str = "data", min_elems: int = 16384):
@@ -361,6 +377,8 @@ def place_with_specs(tree, mesh, specs):
     if isinstance(tree, dict):
         return {k: place_with_specs(v, mesh, specs[k])
                 for k, v in tree.items()}
+    if isinstance(tree, TreeCarrier):       # a quantized weight
+        return tree.map(lambda x, s: _block_of(x, mesh, s), specs)
     return _block_of(tree, mesh, specs)
 
 

@@ -18,6 +18,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..utils.carrier import TreeCarrier
+
 
 def host(a):
     """A step operand as host numpy (a command to the other ranks)."""
@@ -27,6 +29,8 @@ def host(a):
 def _host_tree(t):
     if isinstance(t, dict):
         return {k: _host_tree(v) for k, v in t.items()}
+    if isinstance(t, TreeCarrier):          # a quantized weight
+        return t.map(_host_tree)
     return t.detach().cpu().clone() if isinstance(t, torch.Tensor) else t
 
 

@@ -394,6 +394,7 @@ class DecodeScheduler:
         self.audit_every = int(audit_every)
         self._audit_tick = 0
         self._quarantined = False
+        self._step_fns = {}     # id(model) -> its step in the cost notes
 
     # -- the step --------------------------------------------------------
 
@@ -413,8 +414,21 @@ class DecodeScheduler:
                                    tables)
 
     def _forward_local(self, model, params, kv, tokens, positions, tables):
-        """The step on this rank: under a mesh, with the mesh's axes and
-        the pages' head split in scope."""
+        """The step on this rank, through the cost notes
+        (``observability.perf``: ``serve/decode_step``, the draft's
+        ``serve/draft_step``; keyed on the tokens, positions and tables,
+        as JAX's compiled step)."""
+        fn = self._step_fns.get(id(model))
+        if fn is None:
+            fn = self._step_fns[id(model)] = obs.perf.instrument_jit(
+                self._forward_on, name="serve/decode_step"
+                if model is self.model else "serve/draft_step",
+                kind="forward", key_argnums=(3, 4, 5))
+        return fn(model, params, kv, tokens, positions, tables)
+
+    def _forward_on(self, model, params, kv, tokens, positions, tables):
+        """The step itself: under a mesh, with the mesh's axes and the
+        pages' head split in scope."""
         if self.mesh is None:
             logits, _ = model.decode_paged(params, self._dev(tokens),
                                            self._dev(positions), kv.pages(),

@@ -68,6 +68,7 @@ import torch
 from .. import kernels as _kernels
 from .. import observability as obs
 from ..observability import cluster as _cluster
+from ..utils.carrier import TreeCarrier
 from ..observability import flight as _flight
 from ..observability import health as _health
 from ..parallel import chaos as _chaos
@@ -876,6 +877,8 @@ def _np_tree(tree):
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         return t if t.dtype == torch.bfloat16 else t.numpy()
+    if isinstance(tree, TreeCarrier):       # a quantized weight
+        return tree.map(_np_tree)
     return tree
 
 
@@ -888,6 +891,8 @@ def _torch_tree(tree):
         return type(tree)(_torch_tree(v) for v in tree)
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(tree)
+    if isinstance(tree, TreeCarrier):
+        return tree.map(_torch_tree)
     return tree
 
 

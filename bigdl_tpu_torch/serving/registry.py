@@ -19,6 +19,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..utils.carrier import TreeCarrier
+
 
 class ModelVersion:
     """(version id, device-resident parameter tree, state tree)."""
@@ -42,6 +44,8 @@ def _place(tree, device):
     if isinstance(tree, torch.Tensor):
         t = tree.detach()
         return t if device is None else t.to(device)
+    if isinstance(tree, TreeCarrier):       # a quantized weight
+        return tree.map(lambda t: _place(t, device))
     return tree
 
 

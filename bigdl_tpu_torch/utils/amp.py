@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .carrier import TreeCarrier
+
 __all__ = ["bf16_params"]
 
 
@@ -17,9 +19,13 @@ def bf16_params(tree):
     (other tensors pass through). Returns a new tree. The cast is
     differentiable, as JAX's ``astype`` is: gradients of the bf16 copies
     flow back to the float32 originals. Callers that want leaves (serving,
-    a weight registry) cast under ``torch.no_grad()`` or detach."""
+    a weight registry) cast under ``torch.no_grad()`` or detach. A
+    quantized weight (``quantization.lm``) keeps its int8 codes and casts
+    its float32 scales, as JAX's tree_map does."""
     if isinstance(tree, dict):
         return {k: bf16_params(v) for k, v in tree.items()}
+    if isinstance(tree, TreeCarrier):
+        return tree.map(bf16_params)
     if isinstance(tree, torch.Tensor) and tree.dtype == torch.float32:
         return tree.to(torch.bfloat16)
     return tree

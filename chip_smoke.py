@@ -383,6 +383,22 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    mixing versions; (d) ``FleetController.tick()`` scales up by a fourth
    agent warmed from r0 and back down, no request lost. The agents report
    their kernel launches through the ``stats`` op.
+21. int8 quantization (phase 21, ``quantized``; sizes in ``Q21``): (a) the
+   int8 GEMM ``csrc/int8_gemm_sm90.cu`` bit for bit its plain version
+   (int32 on the host) at Inception's first convolution (K = 147), a 3x3
+   at K = 1440, a depthwise 3x3 (G = C, K = 9) and a ragged shape, timed
+   beside ``torch._int_mm`` where it takes the shape, a bf16 product and
+   the bound; (b) int8 Inception v1 (``calibrate`` on 8 images,
+   ``quantize(calibration=)``, B32/224) against the float model (top-1
+   agreement >= 0.5, relative logit error < 0.25), images/s and the
+   kernel's launches; (c) the flagship served from bf16, int8 and int4
+   weights published with ``transform=quantize_lm_params``: logits
+   against bf16 (0.08 / 0.2), served pages against the dense prefill,
+   ``lm_quantized_bytes`` against its formula, tokens/s; (d) phase 5's
+   remat-off step runs through ``observability.perf``: its ``perf/mfu``
+   in (0, 1] and its counted FLOPs 0.98 - 1.25 x bench_extra.py's
+   analytic count. ``int8_gemm`` in the kernels line carries phase 21
+   (b)'s launches (the comparisons of (a) are not counted).
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -1289,12 +1305,39 @@ def solo_greedy(torch, model, params, prompt, n):
 
 # -- phases 5 and 6: training ---------------------------------------------------
 
-def train_recipe(torch, K, model, init, x, y, remat, steps=5):
+def _lm_model_flops(B, T, H, F, L, V, causal=True):
+    """Analytic model FLOPs of one LM training step (forward and twice it
+    backward), bench_extra.py ``_lm_model_flops``: per layer the four
+    projections, the two T^2 attention products (halved when causal), the
+    two FFN products; plus the tied vocab projection."""
+    per_layer = (4 * 2 * B * T * H * H
+                 + (2 * 2 * B * T * T * H) * (0.5 if causal else 1.0)
+                 + 2 * 2 * B * T * H * F)
+    return 3.0 * (L * per_layer + 2 * B * T * H * V)
+
+
+def _lm_counted_flops(B, T, H, F, L, V):
+    """The matrix-product FLOPs the cost notes count for the bf16 recipe
+    step (remat off): the projections and FFN forward and twice it
+    backward, each layer's attention whole (the plain versions' products:
+    4 B T^2 H forward, 10 backward, tallied by the flash wrappers on the
+    card), and the vocab projection forward, again in the chunked loss's
+    backward, and twice backward."""
+    per_layer = 3 * (8 * B * T * H * H + 4 * B * T * H * F) \
+        + 14 * B * T * T * H
+    return L * per_layer + 8 * B * T * H * V
+
+
+def train_recipe(torch, K, model, init, x, y, remat, steps=5, cost=False):
     """The bf16 LM training recipe (bench_extra.py bench_transformer_lm):
     float32 masters, cast to bf16 inside the loss, hidden_states in
     training mode, lm_loss_chunked(chunk=128), gradients to the masters,
     SGD(0.01, momentum=0.9) in place. 1 warmup step, then ``steps`` on the
-    same batch; launch counts are read per step."""
+    same batch; launch counts are read per step. With ``cost`` the step
+    runs through the program cost notes (``observability.perf``, with
+    observability on): the warmup step is the counted one and every later
+    step publishes the live MFU (``note_step``)."""
+    from bigdl_tpu_torch import observability as obs
     from bigdl_tpu_torch.convert import flatten, unflatten
     from bigdl_tpu_torch.models import lm_loss_chunked
     from bigdl_tpu_torch.optim import SGD
@@ -1306,7 +1349,7 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
     optim = SGD(learningrate=0.01, momentum=0.9)
     opt_state = optim.init_state(params)
 
-    def step():
+    def step(x, y):
         p16 = bf16_params(params)
         h = model.hidden_states(p16, x, training=True)
         loss = lm_loss_chunked(h, p16["embed"], y, chunk=128)
@@ -1318,15 +1361,25 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
     L = len(model.blocks)
     want = dict.fromkeys(K.WRAPPERS, 0)
     want.update(flash_fwd=2 * L if remat else L, flash_bwd=L)
+    run = step
+    if cost:
+        obs.enable()
+        obs.perf.reset()
+        run = obs.perf.instrument_jit(step, name="optim/step",
+                                      kind="train_step")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, total = [], [], {n: 0 for n in want}
+    mfus = []
     for i in range(steps + 1):
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        loss, grads = step()
+        loss, grads = run(x, y)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if cost and not run.last_call_compiled:
+            obs.perf.note_step(run.last_artifact, wall_s=dt)
+            mfus.append(obs.registry().gauge("perf/mfu").value)
         counts = K.launch_counts()
         check(counts == want, f"training step (remat={remat}) launched "
               f"{counts}, expected {want}")
@@ -1349,10 +1402,17 @@ def train_recipe(torch, K, model, init, x, y, remat, steps=5):
     # CUDA-core kernels gave it (10.5815 with p kept in float32)
     check(abs(losses[0] - 10.5815) <= 1e-3, f"first loss {losses[0]} is "
           f"not within 1e-3 of 10.5815")
-    return {"remat": remat, "losses": losses,
-            "step_s": statistics.median(times), "step_s_all": times,
-            "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": total}
+    out = {"remat": remat, "losses": losses,
+           "step_s": statistics.median(times), "step_s_all": times,
+           "max_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": total}
+    if cost:
+        art = run.last_artifact
+        obs.disable()
+        out["cost"] = {"artifact": art.to_dict(), "mfu": mfus,
+                       "mfu_mean": obs.registry().gauge(
+                           "perf/mfu_mean").value}
+    return out
 
 
 def local_optimizer_run(torch, K, model, init, V, B=8, T=256, iters=4):
@@ -7660,6 +7720,305 @@ def fleet(torch, K, card, p4, dev="cuda", tmp=None):
     return out
 
 
+# -- phase 21: int8 quantization --------------------------------------------------
+
+# the sizes of phase 21 (a CPU rehearsal shrinks them): (a) the int8 GEMM's
+# shapes (name, (M, N, K) or a depthwise convolution's (B, C, H)), (b)
+# Inception v1's calibration and timed batches, (c) the flagship's
+# requests a version (prompts, budgets) and its scheduler
+INT8_INT32_OPS = 1979e12         # H100 SXM dense int8 tensor cores
+Q21 = dict(gemm=[("inception conv1 im2col", (8 * 112 * 112, 64, 147)),
+                 ("inception 3x3 K1440", (8 * 14 * 14, 320, 1440)),
+                 ("ragged", (1000, 77, 333))],
+           dw=("depthwise 3x3", (8, 256, 28)), main="inception 3x3 K1440",
+           calib=8, B=32, S=224, reps=3, n_req=4, prompt=(64, 129),
+           budget=(24, 33), slots=4, block=16, max_seq=256)
+QUANT_TOL = {8: 0.08, 4: 0.2}    # JAX's logit bounds (test_quantization.py)
+
+
+def _int8_case(torch, K, name, a, b, w=None, dev="cuda"):
+    """The int8 GEMM against its plain version (int32 on the host: no
+    CUDA op takes int32 products) bit for bit, timed on the card beside
+    torch._int_mm where it takes the shape, a bf16 cuBLAS product of the
+    same M, N, K, and the bound. ``w`` set: a depthwise convolution of
+    ``a`` (B, C, H, W) by ``w`` (C, 1, 3, 3), im2col included."""
+    import torch.nn.functional as F
+    import bigdl_tpu_torch.kernels.int8_matmul  # noqa: F401 (the module)
+    I = sys.modules["bigdl_tpu_torch.kernels.int8_matmul"]
+    if w is None:
+        fn = lambda: I.int8_matmul(a, b)
+        plain = lambda: I.int8_matmul_reference(a.cpu(), b.cpu())
+        (M, Kd), N, G = a.shape, b.shape[0], 1
+        nbytes = a.numel() + b.numel() + 4 * M * N
+    else:
+        C = a.shape[1]
+        fn = lambda: I.int8_conv2d(a, w, 1, 1, 1, C)
+        plain = lambda: I.int8_conv2d_reference(a.cpu(), w.cpu(), 1, 1, 1,
+                                                C)
+        M, N, Kd, G = a.shape[0] * a.shape[2] * a.shape[3], 1, 9, C
+        nbytes = a.numel() + w.numel() + 4 * a.numel()
+    got = fn()
+    t0 = time.perf_counter()
+    want = plain()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(got.shape) == tuple(want.shape)
+          and torch.equal(got.cpu(), want), f"[21] (a) int8 GEMM {name}: "
+          f"differs from its plain version")
+    flops = 2 * G * M * N * Kd
+    rec = {"name": name, "M": M, "N": N, "K": Kd, "G": G,
+           "max_abs_err": 0.0, "plain_ms": plain_ms, "library_ms": None}
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / INT8_INT32_OPS * 1e3
+    rec["bound_ms"] = max(t_mem, t_ops)
+    rec["bound_by"] = "bytes" if t_mem >= t_ops else "operations"
+    if dev != "cuda":
+        rec.update(ms=None, bf16_ms=None)
+        return rec
+    rec["ms"] = event_ms(torch, fn)
+    if w is None:
+        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        rec["bf16_ms"] = graph_ms(torch, lambda i: ab @ bb.T, 1, reps=10)
+        if M > 16 and Kd % 8 == 0 and N % 8 == 0:    # what _int_mm takes
+            bt = b.T
+            rec["library_ms"] = graph_ms(
+                torch, lambda i: torch._int_mm(a, bt), 1, reps=10)
+    else:
+        xb = a.to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        rec["bf16_ms"] = graph_ms(torch, lambda i: F.conv2d(
+            xb, wb, None, 1, 1, 1, a.shape[1]), 1, reps=10)
+    return rec
+
+
+def _lm_quant_bytes(cfg, bits, group):
+    """``lm_quantized_bytes``' 'quantized' count from the shapes: per
+    layer wq, wk, wv, wo (H x H), w1 (H x F) and w2 (F x H), their codes
+    (int4: two a byte) and float32 scales (int8: one a column; int4: one
+    a column and group of K rows, the group fitted to K as
+    ``quantize_lm_params`` fits it)."""
+    H, F = cfg["hidden_size"], cfg["filter_size"]
+    mats = [(H, H)] * 4 + [(H, F), (F, H)]
+    fit = lambda k: group if k % group == 0 else math.gcd(k, group)
+    per = sum((k * n if bits == 8 else (k * n + 1) // 2)
+              + 4 * (n if bits == 8 else k // fit(k) * n) for k, n in mats)
+    return cfg["num_layers"] * per
+
+
+def quantized(torch, K, card, dev="cuda"):
+    """Phase 21: (a) the int8 GEMM against its plain version bit for bit at
+    Inception's first convolution (K = 147), a 3x3 at K = 1440, a
+    depthwise 3x3 (G = C, K = 9) and a ragged shape, timed beside
+    torch._int_mm, a bf16 product and the bound; (b) int8 Inception v1:
+    ``calibrate`` on Q21['calib'] images, ``quantize(calibration=)``, a
+    B32/224 forward against the float model's (top-1 agreement >= 0.5,
+    relative logit error < 0.25, JAX's bounds; the logits are the
+    LogSoftMax outputs less their row means), images/s of both and the
+    kernel's launches; (c) the flagship served from bf16, int8 and int4
+    (group 128) weights published through ``ModelRegistry.publish(
+    transform=quantize_lm_params)`` and ``DecodeScheduler`` over the paged
+    pool: logits against the bf16 model's (0.08 / 0.2), the served pages
+    against the dense prefill of the same weights, ``lm_quantized_bytes``
+    against its formula, tokens/s of each."""
+    from bigdl_tpu_torch import models
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.quantization import (calibrate, lm_quantized_bytes,
+                                              quantize, quantize_lm_params)
+    from bigdl_tpu_torch.serving import DecodeScheduler, ModelRegistry
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    t21 = time.perf_counter()
+    out = {"gemm": []}
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                             generator=g)
+
+    # (a) the kernel against its plain version
+    for name, (M, N, Kd) in Q21["gemm"]:
+        out["gemm"].append(_int8_case(torch, K, name, i8(M, Kd), i8(N, Kd),
+                                      dev=dev))
+    name, (B, C, H) = Q21["dw"]
+    out["gemm"].append(_int8_case(torch, K, name, i8(B, C, H, H), None,
+                                  i8(C, 1, 3, 3), dev=dev))
+    for r in out["gemm"]:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        ms = "n/a" if r["ms"] is None else f"{r['ms']:.4f}"
+        bf = "n/a" if r["bf16_ms"] is None else f"{r['bf16_ms']:.4f}"
+        print(f"[21] (a) int8 GEMM {r['name']} (G {r['G']}, M {r['M']}, "
+              f"N {r['N']}, K {r['K']}): equal to the plain version; "
+              f"{ms} ms, torch._int_mm {lib}, bf16 product {bf}, plain "
+              f"(host int32) {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) ({card})", flush=True)
+    out["row"] = next(r for r in out["gemm"] if r["name"] == Q21["main"])
+
+    # (b) int8 Inception v1 (bench_extra.py bench_inception_int8)
+    rng = np.random.RandomState(21)
+    S, B = Q21["S"], Q21["B"]
+    model = models.Inception_v1_NoAuxClassifier(1000, device=dev, seed=21)
+    model.evaluate()
+    cal = torch.from_numpy(rng.randn(Q21["calib"], 3, S, S).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(B, 3, S, S).astype(np.float32)).to(dev)
+    t0 = time.perf_counter()
+    scales = calibrate(model, [cal])
+    qmodel = quantize(model, calibration=scales)
+    t_q = time.perf_counter() - t0
+    with torch.no_grad():
+        ref = model.forward(x).float()
+        K.reset_launch_counts()
+        got = qmodel.forward(x).float()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        lc = K.launch_counts()
+    n_conv = sum(1 for m in qmodel.modules()
+                 if type(m).__name__ == "QuantizedSpatialConvolution")
+    n_lin = sum(1 for m in qmodel.modules()
+                if type(m).__name__ == "QuantizedLinear")
+    want = dict.fromkeys(K.WRAPPERS, 0)
+    want.update(int8_conv2d=n_conv, int8_matmul=n_lin)
+    if dev == "cuda":
+        check(lc == want, f"[21] (b) int8 Inception launched {lc}, expected "
+              f"{want}")
+    check(tuple(got.shape) == (B, 1000) and bool(torch.isfinite(got).all()),
+          f"[21] (b) int8 Inception output {tuple(got.shape)} or "
+          f"non-finite")
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    # the model ends in LogSoftMax: its outputs are the logits less a
+    # constant a row, so the error is taken on the outputs less their row
+    # means (the logits' own deviations)
+    gc, rc = got - got.mean(-1, keepdim=True), ref - ref.mean(-1, keepdim=True)
+    rel = float((gc - rc).abs().max() / (rc.abs().max() + 1e-8))
+    out["inception"] = {"agree": agree, "rel": rel, "launches": lc,
+                        "quantize_s": t_q, "layers": (n_conv, n_lin)}
+    if dev == "cuda":
+        for tag, m in (("int8", qmodel), ("float", model)):
+            with torch.no_grad():
+                ms = event_ms(torch, lambda: m.forward(x), reps=Q21["reps"],
+                              iters=3)
+            out["inception"][f"{tag}_ms"] = ms
+            out["inception"][f"{tag}_images_per_s"] = B / ms * 1e3
+        print(f"[21] (b) int8 Inception v1 B{B}/{S} ({n_conv} int8 "
+              f"convolutions, {n_lin} int8 Linear; calibrate + quantize "
+              f"{t_q:.2f} s): top-1 agreement with float {agree:.3f}, "
+              f"relative logit error {rel:.4f}; int8 "
+              f"{out['inception']['int8_ms']:.2f} ms = "
+              f"{out['inception']['int8_images_per_s']:.1f} images/s, float "
+              f"{out['inception']['float_ms']:.2f} ms = "
+              f"{out['inception']['float_images_per_s']:.1f} images/s; "
+              f"launches {lc} ({card})", flush=True)
+    check(agree >= 0.5 and rel < 0.25, f"[21] (b) int8 Inception: "
+          f"agreement {agree}, relative error {rel} (JAX's bounds: >= 0.5, "
+          f"< 0.25)")
+    del model, qmodel, cal, x, ref, got
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the flagship served from int8 and int4 weights
+    cfg = dict(FLAGSHIP)
+    lm = TransformerLM(**cfg, seed=21, device=dev)
+    with torch.no_grad():
+        p16 = bf16_params(lm.params)
+    reg = ModelRegistry(device=lm.device)
+    versions = {"bf16": reg.publish(p16, version="bf16", activate=True),
+                "int8": reg.publish(p16, version="int8",
+                                    transform=quantize_lm_params),
+                "int4": reg.publish(p16, version="int4", transform=lambda p:
+                                    quantize_lm_params(p, bits=4,
+                                                       group=128))}
+    V = cfg["vocab_size"]
+    dense_b = lm_quantized_bytes(reg.get("bf16").params)["dense"]
+    for v, bits in (("int8", 8), ("int4", 4)):
+        b = lm_quantized_bytes(reg.get(v).params)
+        w = reg.get(v).params["block0"]["attn"]["wq"]
+        check(w.q.device.type == torch.device(dev).type
+              and w.s.device.type == torch.device(dev).type,
+              f"[21] (c) {v}: the registry left the carriers on "
+              f"{w.q.device} / {w.s.device}")
+        want_b = _lm_quant_bytes(cfg, bits, 128)
+        mats = cfg["num_layers"] * (4 * cfg["hidden_size"] ** 2 + 2
+                                    * cfg["hidden_size"] * cfg["filter_size"])
+        check(b["quantized"] == want_b and b["dense"] == dense_b - 2 * mats,
+              f"[21] (c) {v}: lm_quantized_bytes {b}, formula {want_b} "
+              f"quantized and {dense_b - 2 * mats} dense")
+        out[f"{v}_bytes"] = b
+    rng = np.random.RandomState(22)
+    prompts = [rng.randint(1, V, rng.randint(*Q21["prompt"])).astype(
+        np.int32) for _ in range(Q21["n_req"])]
+    budgets = [int(rng.randint(*Q21["budget"])) for _ in prompts]
+    probe = torch.from_numpy(prompts[0][None]).to(dev)
+    with torch.no_grad():
+        ref_logits, _ = lm.prefill(reg.get("bf16").params, probe,
+                                   probe.shape[1] + 1)
+    sched = DecodeScheduler(lm, max_slots=Q21["slots"],
+                            block_size=Q21["block"],
+                            max_seq_len=Q21["max_seq"], registry=reg).start()
+    bs = Q21["block"]
+    try:
+        for v, bits in (("bf16", 16), ("int8", 8), ("int4", 4)):
+            reg.activate(v)
+            params = reg.get(v).params
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            futs = [sched.submit(p, n) for p, n in zip(prompts, budgets)]
+            res = [f.result(600) for f in futs]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            lc = K.launch_counts()
+            n_tok = sum(r.size for r in res)
+            check(all(r.size == n for r, n in zip(res, budgets))
+                  and all(((r >= 0) & (r < V)).all() for r in res),
+                  f"[21] (c) {v}: served {[r.size for r in res]} tokens")
+            if dev == "cuda":
+                pr = K.launches_by_route()["paged_attention"]
+                check(lc["paged_attention"] > 0 and lc["int8_matmul"] == 0
+                      and lc["int8_conv2d"] == 0
+                      and only_on(pr, "f32_split", lc["paged_attention"]),
+                      f"[21] (c) {v}: launches {lc}, K2 by route {pr}")
+            # the served pages against the dense prefill of these weights
+            blocks, got_pages = resident_chain(torch, sched, prompts[0])
+            check(len(blocks) > 0, f"[21] (c) {v}: no resident block of "
+                  f"the first prompt")
+            want_pages = dense_pages(torch, lm, params,
+                                     prompts[0][:len(blocks) * bs], bs)
+            perr = page_err(got_pages, want_pages)
+            check(perr <= PAGE_TOL, f"[21] (c) {v}: served pages against "
+                  f"the dense prefill {perr:.4g} > {PAGE_TOL}")
+            with torch.no_grad():
+                lg, _ = lm.prefill(params, probe, probe.shape[1] + 1)
+            lerr = float((lg.float() - ref_logits.float()).abs().max()
+                         / ref_logits.float().abs().max())
+            if bits < 16:
+                check(bool(torch.isfinite(lg.float()).all())
+                      and lerr < QUANT_TOL[bits], f"[21] (c) {v}: logits "
+                      f"against bf16 {lerr:.4f} (JAX's bound "
+                      f"{QUANT_TOL[bits]})")
+            out[v] = {"tokens": n_tok, "s": dt, "tokens_per_s": n_tok / dt,
+                      "logit_err": lerr, "page_err": perr, "launches": lc}
+            print(f"[21] (c) flagship {v}: {len(res)} requests, {n_tok} "
+                  f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tokens/s; "
+                  f"last logits against bf16 {lerr:.4f}; pages against the "
+                  f"dense prefill {perr:.4f}; launches {lc}"
+                  + (f"; weight bytes {out[v + '_bytes']}" if bits < 16
+                     else "") + f" ({card})", flush=True)
+    finally:
+        sched.shutdown()
+    del lm, p16, reg, sched
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = out["inception"]["launches"]["int8_conv2d"] \
+        + out["inception"]["launches"]["int8_matmul"] + sum(
+            out[v]["launches"]["int8_matmul"] + out[v]["launches"][
+                "int8_conv2d"] for v in ("int8", "int4"))
+    out["paged"] = sum(out[v]["launches"]["paged_attention"]
+                       for v in ("bf16", "int8", "int4"))
+    out["phase_s"] = time.perf_counter() - t21
+    print(f"[21] phase 21: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -8110,7 +8469,8 @@ def main():
     attn_ms = L * (k1_train["ms"] + k1b_main["ms"])
     arms = []
     for remat in (False, True):
-        r = train_recipe(torch, K, tmodel, init, tx, ty, remat)
+        r = train_recipe(torch, K, tmodel, init, tx, ty, remat,
+                         cost=not remat)
         r["tokens_per_s"] = TB * TT / r["step_s"]
         fwd_extra = L * k1_train["ms"] if remat else 0.0
         r["attention_share"] = (attn_ms + fwd_extra) / (r["step_s"] * 1e3)
@@ -8124,6 +8484,38 @@ def main():
               f"{k1_train['ms']:.3f}{' x 2' if remat else ''} + K1-bwd "
               f"{k1b_main['ms']:.3f} ms) = {r['attention_share']:.1%} of "
               f"the step", flush=True)
+        if "cost" in r:
+            # phase 21 (d): the cost notes of this step. The counter sees
+            # the plain versions' products, so attention counts whole (4
+            # and 10 B H T^2 D, forward and backward), where the analytic
+            # count halves it for the causal mask
+            from bigdl_tpu_torch.observability import perf
+            c = r["cost"]
+            art = c["artifact"]
+            flops = art["analysis"]["flops"]
+            model_flops = _lm_model_flops(TB, TT, 1024, 4096, L, V)
+            counted = _lm_counted_flops(TB, TT, 1024, 4096, L, V)
+            ratio = flops / model_flops
+            mfus = c["mfu"]
+            print(f"    cost notes (phase 21 (d)): {flops:.6g} FLOPs "
+                  f"counted = {ratio:.4f} x the analytic model FLOPs "
+                  f"{model_flops:.6g} (bench_extra.py _lm_model_flops), "
+                  f"{counted} expected from the products' shapes; "
+                  f"perf/mfu {[round(m, 4) for m in mfus]} (mean "
+                  f"{c['mfu_mean']:.4f}) against "
+                  f"{perf.peak_flops(art['device_kind']):.4g} FLOP/s; memory "
+                  f"{ {k: v for k, v in art['analysis'].items() if k != 'flops'} }"
+                  f"; counted call {art['compile_seconds']:.2f} s ({card})",
+                  flush=True)
+            check(mfus and all(0 < m <= 1 for m in mfus),
+                  f"[5] perf/mfu {mfus} outside (0, 1]")
+            check(0.98 <= ratio <= 1.25, f"[5] counted FLOPs {flops} are "
+                  f"{ratio:.4f} x the analytic {model_flops} (band 0.98 - "
+                  f"1.25)")
+            # exactly the products' count: without the flash wrappers'
+            # tallies it would be 12 x 14 B T^2 H short
+            check(flops == counted, f"[5] counted FLOPs {flops}, the "
+                  f"products' shapes give {counted}")
 
     # -- phase 6: the normal entry point ------------------------------------
     r6 = local_optimizer_run(torch, K, tmodel, init, V)
@@ -8228,6 +8620,8 @@ def main():
     r20 = fleet(torch, K, card, p4)
     l20 = {k: sum(v[k] for v in r20["routes"].values())
            for k in ("paged_attention", "flash_fwd")}
+    # -- phase 21: int8 quantization ------------------------------------------
+    r21 = quantized(torch, K, card)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -8412,7 +8806,7 @@ def main():
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
                    serve_routes["f32_split"] + l19["paged_attention"]
-                   + l20["paged_attention"]),
+                   + l20["paged_attention"] + r21["paged"]),
         kernel_rec("paged_attention_long",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_long,
@@ -8524,6 +8918,11 @@ def main():
                    r10["d"]["launches"]["fused_chain_fwd"]
                    + r15["predict_class"]["fused_chain_fwd"]
                    + l16["eval"]["fused_chain_fwd"]),
+        # no Pallas twin: the JAX package's int8 contraction is XLA's
+        dict(kernel_rec("int8_gemm", "bigdl_tpu_torch/csrc/int8_gemm_sm90.cu",
+                        "bigdl_tpu/quantization/quantize.py:89", r21["row"],
+                        r21["launches"]),
+             bf16_ms=r21["row"]["bf16_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,17 +14,11 @@ import pytest
 
 PACKAGES = ["", "nn", "optim", "dataset", "models", "parallel", "serving",
             "kernels", "utils", "observability", "transform",
-            "visualization", "native"]
+            "visualization", "native", "quantization"]
 
 # public names of JAX's packages the port does not export yet, by package,
 # with the ROADMAP item that ports them
-UNPORTED = {
-    # A.8.4: utils/shape.py and utils/misc.py
-    "": {"Shape"},
-    "utils": {"Shape", "SingleShape", "MultiShape", "File", "ThreadPool",
-              "crc32", "string_hash", "profile_trace", "device_memory_stats",
-              "redirect_spark_info_logs"},
-}
+UNPORTED = {}
 
 
 def _public(mod):
@@ -74,10 +68,10 @@ def test_the_repaired_reexports_are_the_port_s_own_objects(pkg, name):
                           attr)
 
 
-@pytest.mark.parametrize("pkg", sorted(UNPORTED), ids=lambda p: p or "root")
+@pytest.mark.parametrize("pkg", PACKAGES, ids=[p or "root" for p in PACKAGES])
 def test_the_listed_names_are_really_missing(pkg):
     suffix = "." + pkg if pkg else ""
     pm = importlib.import_module("bigdl_tpu_torch" + suffix)
     jm = importlib.import_module("bigdl_tpu" + suffix)
-    for n in UNPORTED[pkg]:
+    for n in UNPORTED.get(pkg, set()):
         assert hasattr(jm, n) and not hasattr(pm, n), n

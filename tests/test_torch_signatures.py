@@ -275,10 +275,9 @@ def test_refuse_unported_passes_defaults_and_names_the_first_change():
 # public JAX methods the port does not have yet, by the JAX class that
 # defines them; each name here must really be missing from the port
 UNPORTED_METHODS = {
-    # the foreign-format savers, Orbax and quantization (ROADMAP A.8)
+    # the foreign-format savers and Orbax (ROADMAP A.8)
     "bigdl_tpu.nn.module.Module": {
-        "load_orbax", "quantize", "save_caffe", "save_orbax", "save_tf",
-        "save_torch"},
+        "load_orbax", "save_caffe", "save_orbax", "save_tf", "save_torch"},
 }
 
 CLASS_PAIRS = [(k, p, t) for k, p, t in PAIRS if inspect.isclass(p)]
@@ -394,7 +393,9 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "parallel.pipeline", "parallel.ring_attention",
             "parallel.ring_flash", "parallel.seq_all_to_all",
             "parallel.seq_decode", "serving.transport", "serving.fleet",
-            "serving.controller"]
+            "serving.controller", "quantization.quantize",
+            "quantization.calibration", "quantization.lm",
+            "observability.perf", "utils.shape", "utils.misc"]
 # public JAX members a mirrored module re-exports from a module the port
 # does not have yet, with the ROADMAP item that ports them (the member test
 # above counts the members a module defines)
