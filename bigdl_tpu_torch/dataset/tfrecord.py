@@ -19,46 +19,13 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from ..visualization.event_reader import _iter_fields, _read_varint
-from ..visualization.event_writer import _f_bytes as _field_bytes
-from ..visualization.event_writer import _f_string as _field_string
-from ..visualization.event_writer import _masked_crc, _varint
+from ..loaders.wire import (field_bytes, field_packed_float,
+                            field_packed_varint, field_string, iter_fields,
+                            read_float, to_signed, unpack_packed)
+from ..visualization.event_writer import _masked_crc
 
 __all__ = ["read_tfrecords", "write_tfrecords", "parse_example",
            "make_example", "load_tfrecord_dataset"]
-
-
-# -- the wire helpers the event files do not need (the JAX package takes
-# them from its loaders/wire.py) ----------------------------------------------
-
-def _to_signed(v: int, bits: int = 64) -> int:
-    """An unsigned varint read as a two's-complement int64."""
-    return v - (1 << bits) if v >= 1 << (bits - 1) else v
-
-
-def _unpack_packed(buf: bytes, kind: str) -> List:
-    """A packed repeated field: kind 'float' or 'varint'."""
-    if kind == "float":
-        return list(struct.unpack(f"<{len(buf) // 4}f", buf))
-    out, i = [], 0
-    while i < len(buf):
-        v, i = _read_varint(buf, i)
-        out.append(v)
-    return out
-
-
-def _read_float(val: bytes) -> float:
-    return struct.unpack("<f", val)[0]
-
-
-def _field_packed_varint(field: int, vals) -> bytes:
-    """Negative values as two's-complement int64, as protobuf writes them."""
-    return _field_bytes(field, b"".join(_varint(int(v) & (1 << 64) - 1)
-                                        for v in vals))
-
-
-def _field_packed_float(field: int, vals) -> bytes:
-    return _field_bytes(field, struct.pack(f"<{len(vals)}f", *vals))
 
 
 # ---------------------------------------------------------------------------
@@ -180,26 +147,26 @@ def write_tfrecords(path: str, records) -> None:
 
 def _parse_list(buf: bytes, kind: int):
     vals: List = []
-    for fnum, wire, val in _iter_fields(buf):
+    for fnum, wire, val in iter_fields(buf):
         if fnum != 1:
             continue
         if kind == 1:  # bytes_list
             vals.append(val)
         elif wire == 2:  # packed floats/ints (shared wire helpers)
             if kind == 2:
-                vals.extend(_unpack_packed(val, "float"))
+                vals.extend(unpack_packed(val, "float"))
             else:
-                vals.extend(_to_signed(v)
-                            for v in _unpack_packed(val, "varint"))
+                vals.extend(to_signed(v)
+                            for v in unpack_packed(val, "varint"))
         elif kind == 2:  # unpacked float (wire 5, bytes)
-            vals.append(_read_float(val))
+            vals.append(read_float(val))
         else:  # unpacked int64 varint
-            vals.append(_to_signed(val))
+            vals.append(to_signed(val))
     return vals
 
 
 def _parse_feature(buf: bytes):
-    for fnum, wire, val in _iter_fields(buf):
+    for fnum, wire, val in iter_fields(buf):
         if fnum in (1, 2, 3):
             inner = val
             # each list is a message with repeated field 1
@@ -214,14 +181,14 @@ def _parse_feature(buf: bytes):
 def parse_example(record: bytes) -> Dict[str, object]:
     """Decode one serialized tf.Example → {name: np.ndarray | [bytes]}."""
     out: Dict[str, object] = {}
-    for fnum, wire, val in _iter_fields(record):
+    for fnum, wire, val in iter_fields(record):
         if fnum != 1:  # Example.features
             continue
-        for f2, w2, feats in _iter_fields(val):
+        for f2, w2, feats in iter_fields(val):
             if f2 != 1:  # Features.feature map entries
                 continue
             key, feature = None, None
-            for f3, w3, v3 in _iter_fields(feats):
+            for f3, w3, v3 in iter_fields(feats):
                 if f3 == 1:
                     key = v3.decode("utf-8", "replace")
                 elif f3 == 2:
@@ -239,19 +206,19 @@ def make_example(features: Dict[str, object]) -> bytes:
             value = [value]
         if isinstance(value, (list, tuple)) and value and \
                 isinstance(value[0], bytes):
-            lst = b"".join(_field_bytes(1, b) for b in value)
-            feat = _field_bytes(1, lst)
+            lst = b"".join(field_bytes(1, b) for b in value)
+            feat = field_bytes(1, lst)
         else:
             arr = np.asarray(value)
             if np.issubdtype(arr.dtype, np.integer):
-                feat = _field_bytes(3, _field_packed_varint(
+                feat = field_bytes(3, field_packed_varint(
                     1, [int(v) for v in arr.reshape(-1)]))
             else:
-                feat = _field_bytes(2, _field_packed_float(
+                feat = field_bytes(2, field_packed_float(
                     1, arr.reshape(-1).astype(np.float32)))
-        entry = _field_string(1, key) + _field_bytes(2, feat)
-        entries += _field_bytes(1, entry)
-    return _field_bytes(1, entries)
+        entry = field_string(1, key) + field_bytes(2, feat)
+        entries += field_bytes(1, entry)
+    return field_bytes(1, entries)
 
 
 # ---------------------------------------------------------------------------

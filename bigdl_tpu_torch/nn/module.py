@@ -41,7 +41,11 @@ JAX package's Torch-style API:
   ``state``), the trees as numpy in JAX's layout and the module without
   its tensors. ``load`` refuses a file the JAX package wrote (it would
   import ``bigdl_tpu``): ``save_weights`` / ``load_weights`` or
-  ``convert`` cross between the packages;
+  ``convert`` cross between the packages; ``save_torch`` /
+  ``save_caffe`` / ``save_tf`` write the foreign formats
+  (``loaders.torchfile`` / ``caffe_persister`` / ``tf_saver``). JAX's
+  ``save_orbax`` / ``load_orbax`` are not ported, by design (orbax
+  imports ``jax``);
 * the Torch backward protocol: ``backward(x, grad_output)`` returns the
   input's gradient and adds the parameters' gradients, times
   ``set_scale_w``'s factor, into ``grad_params`` (a tree like ``params``);
@@ -464,6 +468,25 @@ class Module(torch.nn.Module):
         ``quantization.quantize``)."""
         from ..quantization.quantize import quantize as _q
         return _q(self, calibration=calibration)
+
+    def save_torch(self, path):
+        """Parity: AbstractModule.saveTorch (``loaders.torchfile``)."""
+        from ..loaders.torchfile import save_torch as _s
+        _s(self, path)
+        return self
+
+    def save_caffe(self, prototxt_path, caffemodel_path,
+                   input_shape=(3, 224, 224)):
+        """Parity: AbstractModule.saveCaffe (``loaders.caffe_persister``)."""
+        from ..loaders.caffe_persister import save_caffe as _s
+        _s(self, prototxt_path, caffemodel_path, input_shape=input_shape)
+        return self
+
+    def save_tf(self, input_shape, path=None):
+        """Parity: AbstractModule.saveTF — returns the GraphDef bytes
+        (``loaders.tf_saver``)."""
+        from ..loaders.tf_saver import save_tf_graph as _s
+        return _s(self, input_shape, path)
 
     # -- serialization ----------------------------------------------------
     def save(self, path, overwrite=True):

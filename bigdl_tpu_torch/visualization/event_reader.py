@@ -9,47 +9,12 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Iterator, List, Tuple, Union
+from typing import Iterator, List, Tuple
 
+from ..loaders.wire import iter_fields
 from .event_writer import _masked_crc
 
 __all__ = ["iter_records", "ScalarCache", "read_scalar"]
-
-
-# -- protobuf wire decoding (the port's own copy of loaders/wire) -------------
-def _read_varint(buf: bytes, i: int) -> Tuple[int, int]:
-    shift, val = 0, 0
-    while True:
-        b = buf[i]
-        i += 1
-        val |= (b & 0x7F) << shift
-        if not b & 0x80:
-            return val, i
-        shift += 7
-
-
-def _iter_fields(buf: bytes) -> Iterator[Tuple[int, int, Union[int, bytes]]]:
-    """Yield (field number, wire type, value): length-delimited and fixed
-    values as bytes, varints as int."""
-    i, n = 0, len(buf)
-    while i < n:
-        key, i = _read_varint(buf, i)
-        field, wire = key >> 3, key & 7
-        if wire == 0:
-            val, i = _read_varint(buf, i)
-        elif wire == 1:
-            val = buf[i:i + 8]
-            i += 8
-        elif wire == 2:
-            ln, i = _read_varint(buf, i)
-            val = buf[i:i + ln]
-            i += ln
-        elif wire == 5:
-            val = buf[i:i + 4]
-            i += 4
-        else:
-            raise ValueError(f"unsupported wire type {wire}")
-        yield field, wire, val
 
 
 def _scan_records(f) -> Iterator[Tuple[bytes, int]]:
@@ -83,16 +48,16 @@ def iter_records(path: str) -> Iterator[bytes]:
 def _event_scalars(record: bytes) -> Tuple[int, float, List]:
     """One Event -> (step, wall time, [(tag, value), ...])."""
     step, wall, vals = 0, 0.0, []
-    for f, w, v in _iter_fields(record):
+    for f, w, v in iter_fields(record):
         if f == 2 and w == 0:            # Event.step
             step = v
         elif f == 1 and w == 1:          # Event.wall_time
             wall = struct.unpack("<d", v)[0]
         elif f == 5 and w == 2:          # Event.summary
-            for f2, w2, v2 in _iter_fields(v):
+            for f2, w2, v2 in iter_fields(v):
                 if f2 == 1 and w2 == 2:              # Summary.value
                     tag, sv = None, None
-                    for f3, w3, v3 in _iter_fields(v2):
+                    for f3, w3, v3 in iter_fields(v2):
                         if f3 == 1 and w3 == 2:      # Value.tag
                             tag = v3.decode("utf-8")
                         elif f3 == 2 and w3 == 5:    # Value.simple_value

@@ -336,7 +336,7 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``bench_transformer_lm``'s width, float32 parameters, B16/T1024, on a
    one-rank NCCL group - replicated equal to ``LocalOptimizer`` after 3
    steps, then ``replicated``, ``zero1``, ``zero1`` with
-   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 2 warm-up and 5
+   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 2 warm-up and 3
    timed steps each (step ms, tokens/s, peak GiB, K1 launches by route,
    the collectives' bytes a step, NCCL's kernel ms in a profiled step);
    (b) ResNet-50 fused NHWC float32 B32/224, local / replicated (equal
@@ -352,8 +352,8 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    on two gloo ranks sharing the card (this script with
    ``--phase19-rank``): (a) the flagship (bf16 weights, float32 pages)
    served by ``DecodeScheduler(mesh=<('model',) of 2>)`` over a
-   tensor-parallel registry, phase 4's requests, tokens against the
-   one-rank scheduler, each rank's pages (8 of 16 kv heads) against the
+   tensor-parallel registry, the first 8 of phase 4's requests, tokens
+   against the one-rank scheduler, each rank's pages (8 of 16 kv heads) against the
    one-rank pool's heads, K2 launches and resident bytes per rank, and
    ``generate`` over the placed weights (K1-fwd at 8 heads); (a2) the same
    tensor-parallel scheduler with the host KV tier and a 24-block pool,
@@ -399,6 +399,25 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    in (0, 1] and its counted FLOPs 0.98 - 1.25 x bench_extra.py's
    analytic count. ``int8_gemm`` in the kernels line carries phase 21
    (b)'s launches (the comparisons of (a) are not counted).
+22. the model-file formats and the TF-style ops (phase 22, ``loaders``;
+   sizes in ``L22``): (a) phase 4's flagship with bf16 weights through
+   ``loaders.bigdl_proto.save_bigdl`` and ``load_bigdl(device=None)``:
+   every leaf bit for bit, ``generate`` at B8 / prompt 128 token for
+   token the original's (12 K1-fwd launches each on ``bf16_sm90``), 4 of
+   phase 4's requests through ``DecodeScheduler`` on both models with
+   tokens and each prompt's resident pages bit for bit, request 0's pages
+   against the loaded model's dense prefill, K2 on ``f32_split``; save
+   and load seconds and the file's bytes; (b) B8/224 against the original
+   in evaluation mode, TF32 off: ResNet-50 through ``save_tf`` ->
+   ``load_tf_graph``, Inception v1 through ``save_caffe`` ->
+   ``load_caffe`` and ``save_bigdl`` -> ``load_bigdl``, VGG-16 through
+   ``save_torch`` -> ``load_torch``, bit for bit where the loaded layers
+   are the original's classes (bigdl.proto, Torch7), else within a
+   relative ``LOAD22_TOL``; each round trip's seconds; (c) every op of
+   ``ops.__all__`` on the card against the CPU (integers, booleans and
+   strings equal, floats within ``OPS22_TOL``; ties in top-k, segment
+   sums, gathers out of range, a shrinking resize). The K1-fwd and K2
+   launches of (a) are on the ``flash_fwd`` / ``paged_attention`` rows.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -5866,7 +5885,7 @@ def _det_same(torch, name, got, want):
 # (a) the flagship at bench_transformer_lm's width through DistriOptimizer,
 # (b) ResNet-50 fused NHWC float32, (c) two ranks sharing the card over
 # gloo, (d) the failure detectors and the elastic restart
-DIST18 = dict(B=16, T=1024, warm=2, timed=5, local_steps=3, res_B=32,
+DIST18 = dict(B=16, T=1024, warm=2, timed=3, local_steps=3, res_B=32,
               res_S=224, res_steps=3, gloo_layers=2, gloo_steps=3,
               gloo_lr=0.1, elastic_halt=2, elastic_steps=4)
 # (c) and (d) train at lr 0.1 (SGD, momentum 0.9): at (a)'s 0.01 three
@@ -6146,7 +6165,7 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
     layers, float32 parameters, B16/T1024, ``LMCriterion``, SGD 0.01
     momentum 0.9) on this process's one-rank NCCL group: LocalOptimizer 3
     steps, replicated 3 steps equal to it, then each of MODES18 2 warm-up
-    and 5 timed steps (step ms, tokens/s, peak GiB, K1 launches by route,
+    and 3 timed steps (step ms, tokens/s, peak GiB, K1 launches by route,
     the collectives' bytes a step from the counters) and one more step
     under the profiler (NCCL's kernels' ms). (b) ResNet-50 fused NHWC
     float32 B32/224: LocalOptimizer, replicated (its BatchNorm running
@@ -6438,16 +6457,18 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
 # (``tools/torch_gloo_gather_probe.py``: 0.32-0.66 s for the full depth's
 # 184 MB a step, however the gathers are cut), which would make the full
 # depth ~100 s; its resident bytes are read at full depth too, and it
-# serves the first ``fsdp_req`` of the 16 requests (tokens and pages
+# serves the first ``fsdp_req`` of the requests (tokens and pages
 # checked as in (a)) so that the smoke with phase 20 stays under half its
-# time limit. (a2) adds the host KV tier under the tensor-parallel mesh,
+# time limit; (a) serves the first ``n_req`` (8) of phase 4's 16 and (b)
+# the first ``fsdp_req`` (4), and phase 18 (a) times 3 steps a mode, which
+# leaves room for phase 22 under that limit. (a2) adds the host KV tier under the tensor-parallel mesh,
 # (c) the engine over FSDP on the same 4-layer cut.
-MP19 = dict(n_req=16, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
+MP19 = dict(n_req=8, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
             chunk=32, max_seq=384, max_len=512,
             gen_B=8, gen_T=128, gen_new=8, seq_B=2, seq_T=2048, dec_B=4,
             dec_T=4096, dec_steps=64, train_layers=2, train_B=8,
             train_T=1024, train_steps=3, train_lr=0.1, fsdp_layers=4,
-            fsdp_req=8,
+            fsdp_req=4,
             pipe_micro=4,
             pipe_rows=512, moe_tokens=2048, moe_filter=4096, moe_cap=1.25,
             tier_prefix=160, tier_tails=(8, 16), tier_other=200, tier_new=16,
@@ -7086,13 +7107,14 @@ def model_parallel(torch, K, card, dev="cuda", tmp=None):
     (processes of this script, ``--phase19-rank``; sizes in ``MP19`` and
     ``FLAGSHIP``). (a) the flagship (bf16 weights, float32 pages) served
     by ``DecodeScheduler(max_slots=8, block_size=16, prefill_chunk=32,
-    mesh=<('model',) of 2>)`` over a tensor-parallel registry, phase 4's
-    16 requests: tokens against the one-rank scheduler up to the first
+    mesh=<('model',) of 2>)`` over a tensor-parallel registry, the first
+    ``n_req`` (8) of phase 4's requests: tokens against the one-rank
+    scheduler up to the first
     near-tie, each rank's pages (8 of 16 kv heads) of every prompt chain
     resident in both pools against the one-rank pool's heads within
     ``PAGE_TOL``, K2 launches per rank, resident parameter bytes per rank,
     and ``generate`` over the placed weights (K1-fwd at 8 heads a rank);
-    (b) the first ``fsdp_req`` (8) of the same requests under FSDP on a
+    (b) the first ``fsdp_req`` (4) of the same requests under FSDP on a
     ('data',) mesh of 2, the
     flagship cut to ``fsdp_layers`` layers (pages whole), with peak memory
     per rank and the full depth's resident bytes; (d) ``Attention(seq_axis='seq')`` at 1024 / 16
@@ -8019,6 +8041,402 @@ def quantized(torch, K, card, dev="cuda"):
     return out
 
 
+# -- phase 22: the model-file formats and the TF-style ops --------------------
+L22 = dict(gen=(8, 128, 32), n_req=4, slots=8, block=16, max_seq=384,
+           conv_B=8, S=224)
+LOAD22_TOL = 1e-5     # relative, float32 with TF32 off, where the loaded
+#                       graph's layers differ from the original's
+OPS22_TOL = 1e-5      # float results, card against CPU
+
+
+def _ops22_cases(np):
+    """(op name, constructor args, inputs) at the unit tests' shapes, with
+    the cases where the card tends to differ: ties in top-k, segment sums,
+    gathers out of range, a shrinking bilinear resize."""
+    r = np.random.RandomState(22)
+    f = lambda *s: r.randn(*s).astype(np.float32)  # noqa: E731
+    a, b = f(3, 4), f(3, 4)
+    pos = np.abs(f(3, 4)) + 0.1
+    i1 = np.array([-7, -4, -1, 0, 3, 7, 9], np.int32)
+    i2 = np.array([2, 3, -2, 5, -3, 2, 4], np.int32)
+    f1 = np.array([-7.5, -4.0, -1.5, 0.5, 3.0, 7.25, 9.0], np.float32)
+    f2 = np.array([2.0, 3.0, -2.0, 5.0, -3.0, 2.0, 4.0], np.float32)
+    half = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5], np.float32)
+    bools = np.array([[True, False, True], [True, True, True]])
+    ties = np.array([[1., 3., 3., 2., 3.], [0., 0., 0., 0., 0.]],
+                    np.float32)
+    obj = lambda *xs: np.array(xs, dtype=object)  # noqa: E731
+    return [
+        ("Equal", (), [a, np.where(a > 0, a, b)]),
+        ("NotEqual", (), [a, b]), ("Greater", (), [a, b]),
+        ("GreaterEqual", (), [a, b]), ("Less", (), [a, b]),
+        ("LessEqual", (), [a, b]), ("ApproximateEqual", (0.5,), [a, b]),
+        ("LogicalAnd", (), [bools, bools[::-1].copy()]),
+        ("LogicalOr", (), [bools, bools[::-1].copy()]),
+        ("LogicalNot", (), [bools]), ("All", (1,), [bools]),
+        ("Any", (0,), [bools]), ("Sum", ((0, 1), True), [a]),
+        ("Sum", (1,), [i1.reshape(1, 7)]), ("Prod", (1,), [a]),
+        ("Max", (1,), [a]), ("Min", (0,), [a]), ("Mean", (), [a]),
+        ("Exp", (), [a]), ("Expm1", (), [a]), ("Log1p", (), [pos]),
+        ("Floor", (), [f1]), ("Ceil", (), [f1]), ("Round", (), [half]),
+        ("Rint", (), [half]), ("Sign", (), [f1]), ("Inv", (), [pos]),
+        ("Erf", (), [a]), ("Erfc", (), [a]), ("Lgamma", (), [pos * 3]),
+        ("Digamma", (), [pos * 3]),
+        ("IsFinite", (), [np.array([1., np.inf, np.nan], np.float32)]),
+        ("IsInf", (), [np.array([1., -np.inf, np.nan], np.float32)]),
+        ("IsNan", (), [np.array([1., np.inf, np.nan], np.float32)]),
+        ("Pow", (), [pos, b]), ("Maximum", (), [a, b]),
+        ("Minimum", (), [a, b]), ("FloorDiv", (), [i1, i2]),
+        ("FloorDiv", (), [f1, f2]), ("FloorMod", (), [i1, i2]),
+        ("FloorMod", (), [f1, f2]), ("Mod", (), [i1, i2]),
+        ("TruncateDiv", (), [i1, i2]), ("TruncateDiv", (), [f1, f2]),
+        ("SquaredDifference", (), [a, b]), ("Shape", (), [f(2, 3, 5)]),
+        ("Rank", (), [f(2, 3, 5)]), ("Cast", (np.int32,), [f1]),
+        ("Gather", (0,), [f(5, 3), np.array([7, -1, -6, 2], np.int32)]),
+        ("Gather", (0,), [np.arange(5, dtype=np.int32),
+                          np.array([7, -1, -6, 2], np.int32)]),
+        ("Select", (), [a > 0, a, b]), ("Slice", ([1, 0], [2, -1]), [a]),
+        ("StridedSlice", ([2, 3], [0, 0], [-1, -2], 0, 0, 2), [a]),
+        ("Tile", ([2, 1],), [a]),
+        ("OneHot", (4, 2.0, -1.0), [np.array([0, 3, -1, 5], np.int32)]),
+        ("TopK", (3,), [ties]), ("InTopK", (2,), [ties, np.array(
+            [4, 2], np.int32)]), ("ArgMax", (1,), [ties]),
+        ("BatchMatMul", (True, False), [f(2, 4, 3), f(2, 4, 5)]),
+        ("SegmentSum", (3,), [f(7, 4), np.array([0, 0, 2, 1, 2, 9, -1],
+                                                np.int32)]),
+        ("SegmentSum", (4,), [np.arange(6, dtype=np.int32),
+                              np.array([3, 3, 0, 1, 9, 0], np.int32)]),
+        ("Pad", ([[1, 0], [0, 2]], 1.5), [a]), ("ExpandDims", (-1,), [a]),
+        ("SplitAndSelect", (1, 1, 2), [a]),
+        ("InvertPermutation", (), [np.array([2, 0, 3, 1], np.int32)]),
+        ("Pack", (1,), [a, b]), ("Split", (2, 1), [a]),
+        ("Unpack", (3, 0), [a]),
+        ("ResizeBilinear", (6, 8), [f(2, 17, 23, 3)]),
+        ("ResizeBilinear", (7, 9, True), [f(2, 4, 5, 2)]),
+        ("Dilation2D", ([1, 2, 2, 1], [1, 1, 1, 1]),
+         [f(1, 7, 6, 2), f(3, 3, 2)]),
+        ("L2Loss", (), [a]),
+        ("CrossEntropy", (), [a, np.eye(4, dtype=np.float32)[:3]]),
+        ("BucketizedCol", ([0.0, 10.0, 100.0],),
+         [np.array([-5.0, 0.0, 10.0, 500.0], np.float32)]),
+        ("CategoricalColHashBucket", (16,), [obj("a", "b", "zz")]),
+        ("CategoricalColVocaList", (["cat", "dog"], -1, 2),
+         [obj("dog", "bird", "cat")]),
+        ("CrossCol", (32,), [obj("a", "b"), obj("x", "y")]),
+        ("IndicatorCol", (4,), [np.array([[0, 2], [3, 3]], np.int32)]),
+        ("Kv2Tensor", (",", ":", 4), [obj("0:1.5,2:3.0", "1:2.0")]),
+        ("MkString", ("-",), [np.array([[1, 2], [3, 4]], dtype=object)]),
+        ("Substr", (1, 2), [obj("hello", "world")]),
+        ("RangeOps", (), [np.int32(2), np.int32(14), np.int32(3)]),
+        ("DepthwiseConv2D", (2, 1, 0, 1, "NHWC"),
+         [f(2, 7, 7, 6), f(3, 3, 6, 2)]),
+        ("NoOp", (), [a]), ("ControlDependency", (), [a]),
+        ("BiasAdd", (), [f(2, 3, 4), np.arange(4, dtype=np.float32)]),
+    ]
+
+
+def _ops_card_vs_cpu(torch, ops, nn, Table, dev):
+    """Every op of ``ops.__all__`` on ``dev`` against the same op on the
+    CPU: (cases compared, largest float error, names covered)."""
+    def to(x, d):
+        if isinstance(x, np.ndarray) and x.dtype == object:
+            return x
+        return torch.from_numpy(np.array(x)).to(d)
+
+    def flat(out):
+        if isinstance(out, Table):
+            return [t for o in out.to_list() for t in flat(o)]
+        return [out]
+
+    def run(op, xs, d):
+        ins = [to(x, d) for x in xs]
+        with torch.no_grad():
+            return flat(op.forward(ins[0] if len(ins) == 1 else Table(*ins)))
+
+    worst, n, covered = 0.0, 0, set()
+
+    class Gt(ops.Compare):
+        def _cmp(self, x, y):
+            return x > y
+
+    class Twice(ops.Operation):
+        def _op(self, x):
+            return 2 * x
+    r = np.random.RandomState(23)
+    x = r.randn(3, 4).astype(np.float32)
+    cases = [(name, lambda n=name, a=args: getattr(ops, n)(*a), xs)
+             for name, args, xs in _ops22_cases(np)] + [
+        ("Compare", Gt, [x, x.T.copy().reshape(3, 4)]),
+        ("Operation", Twice, [x]),
+        ("ModuleToOperation", lambda: ops.ModuleToOperation(nn.Tanh()), [x]),
+        ("TensorModuleWrapper",
+         lambda: ops.TensorModuleWrapper(nn.AddConstant(2.0)), [x]),
+        ("TensorOp", lambda: ops.TensorOp().abs().add(1.0).log().mul(2.0),
+         [x]),
+        ("Assert", ops.Assert, [np.bool_(True), x])]
+    for name, make, xs in cases:
+        op = make().evaluate()
+        want, got = run(op, xs, "cpu"), run(op, xs, dev)
+        check(len(want) == len(got), f"[22] (c) {name}: {len(got)} outputs "
+              f"on the card, {len(want)} on the CPU")
+        for w, g in zip(want, got):
+            if isinstance(w, np.ndarray):          # host string ops
+                check(isinstance(g, np.ndarray) and list(g.reshape(-1)) ==
+                      list(w.reshape(-1)), f"[22] (c) {name}: strings")
+                continue
+            g = g.cpu()
+            check(g.dtype == w.dtype and tuple(g.shape) == tuple(w.shape),
+                  f"[22] (c) {name}: {g.dtype} {tuple(g.shape)} on the card, "
+                  f"{w.dtype} {tuple(w.shape)} on the CPU")
+            if w.is_floating_point():
+                ok = torch.isnan(g) == torch.isnan(w)
+                d = (g - w).abs()[~torch.isnan(w)]
+                e = float((d / w.abs()[~torch.isnan(w)].clamp(min=1.0))
+                          .max()) if d.numel() else 0.0
+                worst = max(worst, e)
+                check(bool(ok.all()) and e <= OPS22_TOL,
+                      f"[22] (c) {name}: error {e:.3g} (NaNs alike "
+                      f"{bool(ok.all())})")
+            else:
+                check(torch.equal(g, w), f"[22] (c) {name}: {g} != {w}")
+        covered.add(name)
+        n += 1
+    # the random ops: the card's stream is its own (not the CPU's): range,
+    # moments and determinism under a seeded generator
+    shape = torch.tensor([400, 50], dtype=torch.int32, device=dev)
+    u = ops.RandomUniform(2.0, 3.0, seed=7)
+    s1, _ = u.apply({}, {}, shape)
+    s2, _ = u.apply({}, {}, shape)
+    tn, _ = ops.TruncatedNormal(1.0, 2.0, seed=7).apply({}, {}, shape)
+    zs = (tn - 1.0) / 2.0
+    check(s1.device.type == torch.device(dev).type and torch.equal(s1, s2)
+          and float(s1.min()) >= 2.0 and float(s1.max()) < 3.0
+          and abs(float(s1.mean()) - 2.5) < 0.01
+          and float(zs.abs().max()) <= 2.0 + 1e-5
+          and abs(float(zs.var()) - 0.7737) < 0.02,
+          "[22] (c) random ops: range, moments or determinism")
+    covered |= {"RandomUniform", "TruncatedNormal"}
+    missing = set(ops.__all__) - covered
+    check(not missing, f"[22] (c) ops not run on the card: {missing}")
+    return n + 2, worst, covered
+
+
+def loaders(torch, K, card, p4, dev="cuda", tmp=None):
+    """Phase 22: (a) phase 4's flagship with bf16 weights through
+    ``save_bigdl`` -> ``load_bigdl(device=None)``: every leaf bit for bit,
+    ``generate`` (B8, prompt 128) token for token the original's with 12
+    K1-fwd launches each on ``bf16_sm90``, and ``DecodeScheduler`` over 4
+    of phase 4's requests on both models: tokens bit for bit, each
+    prompt's resident pages bit for bit, the loaded model's pages of
+    request 0's prompt against its dense prefill, K2 on ``f32_split``; (b) B8/224 convnets
+    through the formats against the original in evaluation mode (TF32
+    off): ResNet-50 ``save_tf`` -> ``load_tf_graph``, Inception v1
+    ``save_caffe`` -> ``load_caffe`` and ``save_bigdl`` -> ``load_bigdl``,
+    VGG-16 ``save_torch`` -> ``load_torch``; bit for bit where the loaded
+    layers are the original's classes (bigdl.proto, Torch7), else within
+    LOAD22_TOL; (c) every op of ``ops.__all__`` on the card against the
+    CPU."""
+    from bigdl_tpu_torch import convert, models, nn, ops
+    from bigdl_tpu_torch.loaders import (load_caffe, load_tf_graph,
+                                         load_torch)
+    from bigdl_tpu_torch.loaders.bigdl_proto import load_bigdl, save_bigdl
+    from bigdl_tpu_torch.models import TransformerLM
+    from bigdl_tpu_torch.serving import DecodeScheduler, ModelRegistry
+    from bigdl_tpu_torch.utils.table import Table
+    t22 = time.perf_counter()
+    tmp = tmp or tempfile.mkdtemp(prefix="phase22_")
+    out = {}
+    sync = (torch.cuda.synchronize if dev == "cuda" else (lambda: None))
+
+    # (a) the flagship from a .bigdl file
+    B, TP, NEW = L22["gen"]
+    model = TransformerLM(**FLAGSHIP, seed=0, device=dev)
+    with torch.no_grad():          # phase 4's serving weights, held bf16
+        for p in model.parameters():
+            p.data = p.data.to(torch.bfloat16)
+    params = model.params
+    path = os.path.join(tmp, "flagship.bigdl")
+    sync()
+    t0 = time.perf_counter()
+    save_bigdl(model, path)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    loaded = load_bigdl(path, device=None if dev == "cuda" else dev)
+    sync()
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    want, got = convert.flatten(params), convert.flatten(loaded.params)
+    check(sorted(want) == sorted(got), "[22] (a) leaf names differ")
+    for k in want:
+        check(got[k].dtype == want[k].dtype == torch.bfloat16
+              and got[k].device == want[k].device
+              and torch.equal(got[k], want[k]),
+              f"[22] (a) leaf {k} not bit for bit")
+    prompt = np.random.RandomState(0).randint(
+        1, FLAGSHIP["vocab_size"], (B, TP)).astype(np.int32)
+    toks, gen_launches = [], 0
+    for m in (model, loaded):
+        sync()
+        K.reset_launch_counts()
+        toks.append(m.generate(m.params, prompt, NEW))
+        sync()
+        c, rt = K.launch_counts(), K.launches_by_route()
+        L = FLAGSHIP["num_layers"]
+        check(c["flash_fwd"] == L and only_on(rt["flash_fwd"], "bf16_sm90", L)
+              and sum(c.values()) == L or dev != "cuda",
+              f"[22] (a) generate launched {c}, routes {rt['flash_fwd']}")
+        gen_launches += c["flash_fwd"]
+    check(torch.equal(toks[0], toks[1]), "[22] (a) generate: the loaded "
+          "model's tokens differ from the original's")
+    prompts, budgets = p4["prompts"][:L22["n_req"]], \
+        p4["budgets"][:L22["n_req"]]
+    served, scheds, k2, serve_flash = [], [], 0, 0
+    for m in (model, loaded):
+        reg = ModelRegistry(device=m.device)
+        reg.publish(m.params, version="bf16", activate=True)
+        sched = DecodeScheduler(m, max_slots=L22["slots"],
+                                block_size=L22["block"],
+                                max_seq_len=L22["max_seq"], registry=reg)
+        sched.warmup()
+        sync()
+        K.reset_launch_counts()
+        futs = [sched.submit(p, n) for p, n in zip(prompts, budgets)]
+        sched.start(warmup=False)     # every request queued: one batching
+        res = [f.result(600) for f in futs]
+        sync()
+        c, rt = K.launch_counts(), K.launches_by_route()
+        check(c["paged_attention"] > 0 and only_on(
+            rt["paged_attention"], "f32_split", c["paged_attention"])
+            or dev != "cuda", f"[22] (a) serving's K2 launches {rt}")
+        k2 += c["paged_attention"]
+        serve_flash += c["flash_fwd"]
+        served.append(res)
+        scheds.append(sched)
+    for i, (x, y) in enumerate(zip(*served)):
+        check(x.size == budgets[i] and np.array_equal(x, y),
+              f"[22] (a) request {i}: served tokens differ")
+    # the pages each request's prompt left resident in the prefix cache
+    # (a pool's never-written blocks hold whatever the allocator gave it)
+    n_blocks = 0
+    for i, p in enumerate(prompts):
+        (b0, pg0), (b1, pg1) = [resident_chain(torch, s, p) for s in scheds]
+        check(len(b0) == len(b1) == len(p) // L22["block"] and len(b0) > 0
+              and same_pages(pg0, pg1), f"[22] (a) request {i}: resident "
+              f"pages not bit for bit ({len(b0)} / {len(b1)} blocks)")
+        n_blocks += len(b0)
+    blocks, pages = resident_chain(torch, scheds[1], prompts[0])
+    dense = dense_pages(torch, loaded, loaded.params,
+                        prompts[0][:len(blocks) * L22["block"]],
+                        L22["block"]) if dev == "cuda" else pages
+    perr = page_err(pages, dense) if dev == "cuda" else 0.0
+    check(perr < PAGE_TOL, f"[22] (a) pages against the dense prefill "
+          f"{perr:.4f}")
+    for s in scheds:
+        s.shutdown()
+    print(f"[22] (a) flagship bf16: save_bigdl {save_s:.2f} s, load_bigdl "
+          f"{load_s:.2f} s, {nbytes} bytes; {len(want)} leaves bit for bit; "
+          f"generate {B}x{NEW} tokens equal, {gen_launches} K1-fwd launches "
+          f"({FLAGSHIP['num_layers']} each, bf16_sm90); {len(prompts)} served "
+          f"requests ({sum(r.size for r in served[0])} tokens) and their "
+          f"{n_blocks} resident prompt blocks bit for bit; the "
+          f"{len(blocks)} of request 0 within "
+          f"{perr:.4f} of the dense prefill; K2 {k2} launches (f32_split), "
+          f"flash {serve_flash} ({card})", flush=True)
+    out.update(save_s=save_s, load_s=load_s, nbytes=nbytes,
+               flash_fwd=gen_launches, paged_attention=k2,
+               serve_flash=serve_flash)
+    del model, loaded, params, scheds, reg, sched
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) convnets through the formats, TF32 off
+    if dev == "cuda":
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    S, CB = L22["S"], L22["conv_B"]
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        CB, 3, S, S).astype(np.float32)).to(dev)
+    kw = {} if dev == "cuda" else {"device": dev}
+
+    def via_tf(m):
+        g = m.save_tf((3, S, S), os.path.join(tmp, "r.pb"))
+        return load_tf_graph(os.path.join(tmp, "r.pb"), **kw), len(g)
+
+    def via_caffe(m):
+        m.save_caffe(os.path.join(tmp, "i.prototxt"),
+                     os.path.join(tmp, "i.caffemodel"), (3, S, S))
+        return load_caffe(os.path.join(tmp, "i.prototxt"),
+                          os.path.join(tmp, "i.caffemodel"), **kw), \
+            os.path.getsize(os.path.join(tmp, "i.caffemodel"))
+
+    def via_bigdl(m):
+        save_bigdl(m, os.path.join(tmp, "i.bigdl"))
+        return load_bigdl(os.path.join(tmp, "i.bigdl"), **kw), \
+            os.path.getsize(os.path.join(tmp, "i.bigdl"))
+
+    def via_t7(m):
+        m.save_torch(os.path.join(tmp, "v.t7"))
+        return load_torch(os.path.join(tmp, "v.t7"), **kw), \
+            os.path.getsize(os.path.join(tmp, "v.t7"))
+
+    trips = [("ResNet-50", "TF GraphDef", lambda: models.ResNet50(
+                  device=dev), via_tf, False),
+             ("Inception v1", "Caffe", lambda: models.Inception_v1(
+                 1000, device=dev), via_caffe, False),
+             ("Inception v1", "bigdl.proto", lambda: models.Inception_v1(
+                 1000, device=dev), via_bigdl, True),
+             ("VGG-16", "Torch7", lambda: models.Vgg_16(1000, device=dev),
+              via_t7, True)]
+    out["trips"] = []
+    try:
+        for name, fmt, make, trip, bitwise in trips:
+            m = make().evaluate()
+            with torch.no_grad():
+                want = m(x)
+            sync()
+            t0 = time.perf_counter()
+            g, size = trip(m)
+            g.evaluate()
+            sync()
+            dt = time.perf_counter() - t0
+            with torch.no_grad():
+                got = g(x).reshape(want.shape)
+            same = bool(torch.equal(got, want))
+            err = _rel_err(got, want)
+            check(same if bitwise else err <= LOAD22_TOL,
+                  f"[22] (b) {name} through {fmt}: bit for bit {same}, "
+                  f"relative error {err:.3g}")
+            print(f"[22] (b) {name} B{CB}/{S} through {fmt}: round trip "
+                  f"{dt:.2f} s ({size} bytes); outputs "
+                  + ("bit for bit" if same else f"within {err:.3g} "
+                     f"(relative, tolerance {LOAD22_TOL})")
+                  + f" of the original's ({card})", flush=True)
+            out["trips"].append((name, fmt, dt, size, same, err))
+            del m, g
+            for f in os.listdir(tmp):
+                os.remove(os.path.join(tmp, f))
+    finally:
+        if dev == "cuda":
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+            torch.cuda.empty_cache()
+
+    # (c) every op on the card against the CPU
+    t0 = time.perf_counter()
+    n_ops, worst, covered = _ops_card_vs_cpu(torch, ops, nn, Table, dev)
+    print(f"[22] (c) {n_ops} op cases over all {len(covered)} names of "
+          f"ops.__all__ on the card against the CPU in "
+          f"{time.perf_counter() - t0:.2f} s: integers, booleans and "
+          f"strings equal, floats within {worst:.3g} (tolerance "
+          f"{OPS22_TOL}) ({card})", flush=True)
+    out["phase_s"] = time.perf_counter() - t22
+    print(f"[22] phase 22: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -8048,6 +8466,13 @@ def main():
     from bigdl_tpu_torch.utils.amp import bf16_params
 
     t_start = time.perf_counter()
+
+    def mark(n):
+        """The smoke's wall clock where phase ``n`` starts (the phases'
+        walls for the time budget)."""
+        print(f"[t] phase {n} starts at {time.perf_counter() - t_start:.1f}"
+              f" s", flush=True)
+
     card = card_line()
     print(f"[1] card: {card}", flush=True)
     print(f"    torch {torch.__version__} cuda {torch.version.cuda} "
@@ -8075,6 +8500,7 @@ def main():
                   f"{log.count('C7514')}")
 
     # -- phase 2 ----------------------------------------------------------
+    mark(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[2] kernels vs plain versions (allow_tf32: matmul "
@@ -8314,6 +8740,7 @@ def main():
           f"the chunk: {k2_gain}")
 
     # -- phase 3: generate on the flagship model ---------------------------
+    mark(3)
     V, L, B, TP, NEW = 32000, 12, 8, 128, 32
     t0 = time.perf_counter()
     model = TransformerLM(vocab_size=V, hidden_size=1024, num_heads=16,
@@ -8373,6 +8800,7 @@ def main():
     check(diff <= tol, "prefill and prefill_chunked disagree")
 
     # -- phase 4: continuous-batching serving ------------------------------
+    mark(4)
     rng = np.random.RandomState(1)
     n_req = 16
     prompts = [rng.randint(1, V, rng.randint(32, 257)).astype(np.int32)
@@ -8456,6 +8884,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 5: the bf16 training recipe on the flagship ------------------
+    mark(5)
     TB, TT = 16, 1024
     t0 = time.perf_counter()
     tmodel = TransformerLM(vocab_size=V, hidden_size=1024, num_heads=16,
@@ -8518,6 +8947,7 @@ def main():
                   f"products' shapes give {counted}")
 
     # -- phase 6: the normal entry point ------------------------------------
+    mark(6)
     r6 = local_optimizer_run(torch, K, tmodel, init, V)
     print(f"[6] LocalOptimizer, flagship width, B8/T256, float32 params, "
           f"SGD(0.01, momentum=0.9), 4 iterations: losses "
@@ -8530,6 +8960,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 7: ResNet-50, card against CPU, then the bf16 recipe ----------
+    mark(7)
     from bigdl_tpu_torch.models import ResNet50
     r7, truth = resnet_card_vs_cpu(torch, K, torch.float32)
     r7b, _ = resnet_card_vs_cpu(torch, K, torch.bfloat16, truth)
@@ -8573,6 +9004,7 @@ def main():
         torch.cuda.empty_cache()
 
     # -- phase 8: ResNet-50 through the normal entry point --------------------
+    mark(8)
     r8 = resnet_local_optimizer(
         torch, K, ResNet50(format="NHWC", fused="pallas", seed=0), rinit)
     print(f"[8] Optimizer.create (LocalOptimizer), ResNet-50, B32/224 image "
@@ -8589,39 +9021,55 @@ def main():
           flush=True)
 
     # -- phase 9: serving depth ---------------------------------------------
+    mark(9)
     r9 = serving_depth(torch, K)
 
     # -- phase 10: the serving control plane ----------------------------------
+    mark(10)
     r10 = control_plane(torch, K, card)
     # -- phase 11: beam search and the translation model ----------------------
+    mark(11)
     r11 = generation_depth(torch, K, card)
     # -- phase 12: the training loop's depth ----------------------------------
+    mark(12)
     r12 = loop_depth(torch, K, card)
     l12 = r12["launches"]
     # -- phase 13: the layer library and the classic image zoo ----------------
+    mark(13)
     r13 = zoo(torch, K, card, r8)
     # -- phase 14: the sequence zoo -------------------------------------------
+    mark(14)
     seq_zoo(torch, K, card)
     # -- phase 15: the training loop's remainder and module I/O ---------------
+    mark(15)
     r15 = loop_remainder(torch, K, card)
     # -- phase 16: the image input pipeline and ResNet-50's fused arms --------
+    mark(16)
     r16 = image_pipeline(torch, K, card)
     l16 = r16["launches"]
     # -- phase 17: the MoE LM, graphs, recommenders and detection -----------
+    mark(17)
     r17 = moe_zoo(torch, K, card, split=split17)
     l17 = {n: sum(a["launches"][n] for a in r17["arms"])
            for n in ("flash_fwd", "flash_bwd")}
     # -- phase 18: data-parallel training across GPUs ------------------------
+    mark(18)
     r18 = distributed(torch, K, card)
     l18 = r18["launches"]
     # -- phase 19: model parallelism across GPUs -----------------------------
+    mark(19)
     l19 = model_parallel(torch, K, card)["launches"]
     # -- phase 20: the serving fleet across processes -------------------------
+    mark(20)
     r20 = fleet(torch, K, card, p4)
     l20 = {k: sum(v[k] for v in r20["routes"].values())
            for k in ("paged_attention", "flash_fwd")}
     # -- phase 21: int8 quantization ------------------------------------------
+    mark(21)
     r21 = quantized(torch, K, card)
+    # -- phase 22: the model-file formats and the TF-style ops --------------
+    mark(22)
+    r22 = loaders(torch, K, card, p4)
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -8761,11 +9209,13 @@ def main():
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_main,
                    gen_counts["flash_fwd"] + r11["beam_flash"]
                    + r15["entry_routes"]["flash_fwd"].get("bf16_sm90", 0)
-                   + r17["gen_flash"] + l19["flash_fwd_bf16"]),
+                   + r17["gen_flash"] + l19["flash_fwd_bf16"]
+                   + r22["flash_fwd"]),
         kernel_rec("flash_fwd_chunk",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_chunk,
-                   chunk_counts["flash_fwd"] + l20["flash_fwd"]),
+                   chunk_counts["flash_fwd"] + l20["flash_fwd"]
+                   + r22["serve_flash"]),
         kernel_rec("flash_fwd_train",
                    "bigdl_tpu_torch/csrc/flash_fwd_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_train,
@@ -8806,7 +9256,8 @@ def main():
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,
                    serve_routes["f32_split"] + l19["paged_attention"]
-                   + l20["paged_attention"] + r21["paged"]),
+                   + l20["paged_attention"] + r21["paged"]
+                   + r22["paged_attention"]),
         kernel_rec("paged_attention_long",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_long,

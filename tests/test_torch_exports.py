@@ -14,7 +14,7 @@ import pytest
 
 PACKAGES = ["", "nn", "optim", "dataset", "models", "parallel", "serving",
             "kernels", "utils", "observability", "transform",
-            "visualization", "native", "quantization"]
+            "visualization", "native", "quantization", "ops", "loaders"]
 
 # public names of JAX's packages the port does not export yet, by package,
 # with the ROADMAP item that ports them

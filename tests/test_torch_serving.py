@@ -349,11 +349,14 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "'dataset.datamining', 'nn.detection', "
             "'dataset.segmentation', 'parallel.mesh', "
             "'parallel.collective', 'parallel.allreduce', "
-            "'parallel.sharding'):\n"
+            "'parallel.sharding', 'ops', 'ops.ops', 'loaders', "
+            "'loaders.wire', 'loaders.bigdl_proto', 'loaders.caffe', "
+            "'loaders.caffe_persister', 'loaders.torchfile', "
+            "'loaders.tensorflow', 'loaders.tf_saver', "
+            "'loaders.tf_session'):\n"
             "    assert 'bigdl_tpu_torch.' + want in names, want\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'bigdl_tpu' or "
-            "m.startswith('bigdl_tpu.')]\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'bigdl_tpu', 'ml_dtypes', 'tensorflow')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
