@@ -393,6 +393,11 @@ class DecodeScheduler:
                                               backoff_base_s=0.0))
         self.audit_every = int(audit_every)
         self._audit_tick = 0
+        # held by the cadence / shutdown audit, and by a fleet agent's
+        # handoff thread while it holds references the audit cannot see
+        # (an export's retained chain, an adopt between its owner table
+        # and the prefix entry), so no audit reads them as corruption
+        self._audit_lock = threading.Lock()
         self._quarantined = False
         self._step_fns = {}     # id(model) -> its step in the cost notes
 
@@ -842,7 +847,8 @@ class DecodeScheduler:
         spread the corruption). The first detection counts one
         ``kv_corruptions``, emits one ``health/kv_corruption`` event and
         dumps one crash bundle; later audits change nothing."""
-        rep = self.audit()
+        with self._audit_lock:
+            rep = self.audit()
         if rep["ok"]:
             return rep
         first = not self._quarantined

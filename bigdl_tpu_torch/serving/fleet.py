@@ -697,16 +697,20 @@ class ReplicaAgent:
         # pin against a concurrent eviction between lookup and export;
         # LOSING that race (an admission-path evict freed the chain
         # between the two calls) is a routine typed refusal - the
-        # client degrades to a plain submit - not a dying specialist
-        try:
-            sched.kv.retain(ids)
-        except ValueError as e:
-            raise KVHandoffError(
-                f"prefix evicted during export: {e}") from e
-        try:
-            _, layers = sched.kv.export_blocks(blocks=ids)
-        finally:
-            sched.kv.release(ids)
+        # client degrades to a plain submit - not a dying specialist.
+        # The pins are no prefix entry's: the scheduler's audit waits
+        # until they are released (else it reads them as a leak and
+        # quarantines the pool)
+        with sched._audit_lock:
+            try:
+                sched.kv.retain(ids)
+            except ValueError as e:
+                raise KVHandoffError(
+                    f"prefix evicted during export: {e}") from e
+            try:
+                _, layers = sched.kv.export_blocks(blocks=ids)
+            finally:
+                sched.kv.release(ids)
         keys = [k.hex() for k in chain_keys(prompt[:usable], bs, v)]
         out_arrays = [prompt[:usable]]
         digest = hashlib.blake2b(digest_size=16)
@@ -784,6 +788,18 @@ class ReplicaAgent:
         layers = [(pages[2 * i], pages[2 * i + 1])
                   for i in range(len(pages) // 2)]
         owner = ("handoff", next(self._handoff_ids))
+        # the owner table and the prefix entry change apart: the
+        # scheduler's audit waits until both are done
+        with sched._audit_lock:
+            ids = self._adopt_pages(sched, prefix, owner, layers, tokens, mv)
+        if obs.enabled():
+            obs.counter("serve/fleet_handoff_adopts").inc()
+            obs.counter("serve/fleet_handoff_blocks").inc(len(ids))
+        reply({"adopted_blocks": len(ids), "tokens": int(tokens.size)})
+
+    def _adopt_pages(self, sched, prefix, owner, layers, tokens, mv):
+        """Adopt the pages under ``owner`` and register them as the
+        prefix entry of ``tokens``; returns the adopted block ids."""
         try:
             try:
                 ids = sched.kv.adopt_serialized(owner, layers)
@@ -808,10 +824,7 @@ class ReplicaAgent:
             prefix.insert(tokens, mv.version, ids)
         finally:
             sched.kv.free(owner)
-        if obs.enabled():
-            obs.counter("serve/fleet_handoff_adopts").inc()
-            obs.counter("serve/fleet_handoff_blocks").inc(len(ids))
-        reply({"adopted_blocks": len(ids), "tokens": int(tokens.size)})
+        return ids
 
 
 # -- the router-side adapter -----------------------------------------------

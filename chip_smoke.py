@@ -336,7 +336,7 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``bench_transformer_lm``'s width, float32 parameters, B16/T1024, on a
    one-rank NCCL group - replicated equal to ``LocalOptimizer`` after 3
    steps, then ``replicated``, ``zero1``, ``zero1`` with
-   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 2 warm-up and 3
+   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 1 warm-up and 3
    timed steps each (step ms, tokens/s, peak GiB, K1 launches by route,
    the collectives' bytes a step, NCCL's kernel ms in a profiled step);
    (b) ResNet-50 fused NHWC float32 B32/224, local / replicated (equal
@@ -352,7 +352,7 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    on two gloo ranks sharing the card (this script with
    ``--phase19-rank``): (a) the flagship (bf16 weights, float32 pages)
    served by ``DecodeScheduler(mesh=<('model',) of 2>)`` over a
-   tensor-parallel registry, the first 8 of phase 4's requests, tokens
+   tensor-parallel registry, the first 4 of phase 4's requests, tokens
    against the one-rank scheduler, each rank's pages (8 of 16 kv heads) against the
    one-rank pool's heads, K2 launches and resident bytes per rank, and
    ``generate`` over the placed weights (K1-fwd at 8 heads); (a2) the same
@@ -360,8 +360,8 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    three requests in turn (the second spills the first's chain, the
    third refills it): spill / refill counts and bytes equal on both
    ranks, each rank's refilled pages bit for bit as spilled; (b) the first
-   8 of the same requests under FSDP on a ('data',) mesh (the flagship cut
-   to 4 layers), peak memory per rank; (c) ``ServingEngine(mesh=,
+   4 of the same requests, budgets capped at 32, under FSDP on a ('data',)
+   mesh (the flagship cut to 4 layers), peak memory per rank; (c) ``ServingEngine(mesh=,
    placement="fsdp")`` on the flagship's forward at 4 layers against one
    rank, the model's per-block gathers beside the whole-tree gather, peak
    memory per rank; (d) ``Attention(seq_axis='seq')`` by
@@ -418,6 +418,21 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    strings equal, floats within ``OPS22_TOL``; ties in top-k, segment
    sums, gathers out of range, a shrinking resize). The K1-fwd and K2
    launches of (a) are on the ``flash_fwd`` / ``paged_attention`` rows.
+23. the Keras-1.2 API and converter, dlframes and util (phase 23,
+   ``keras_frames``; sizes in ``K23``): (a) Keras 1.2.2's ResNet-50 as
+   its functional JSON (``keras_resnet_json``) through
+   ``model_from_json(device=)`` and ``load_weights`` of Keras-layout
+   weights, ``predict`` at B8/224 against the CPU and against its "tf"
+   spelling within ``KERAS23_TOL`` (TF32 off), ``compile`` / ``fit`` of 2
+   steps / ``evaluate``; (b) Keras 1.2.2's ``imdb_cnn_lstm.py``
+   ``Sequential`` trained at batch 30, 3 losses against the CPU's
+   (Dropout p = 0), the real model's step ms; (c) ``DLClassifier`` over
+   float32 ResNet-50 (NHWC, ``fused="pallas"``) fit on a dict of columns
+   at B32/224 for an epoch, ``fused_conv2`` off and on, K3 / K5 (K4)
+   launches on ``f32_sm90``, ``transform`` equal to 1 + argmax of the
+   eval forward; (d) ``util.common`` and ``DLImageTransformer`` on a
+   dict image column. (c)'s and (d)'s launches are on the ``_f32`` and
+   ``_eval`` rows.
 
 The kernels' launch counters are set to 0 just before each path is driven
 (``generate``, ``prefill_chunked``, serving after the scheduler's warmup,
@@ -425,7 +440,8 @@ each training step, each ``LocalOptimizer`` run, each phase 9 scheduler
 run and ``speculative_generate``, phase 11's ``generate_beam`` and each of
 its translation paths, each phase 12 run, each phase 13 and 14 model, each
 phase 15 run, ``predict_class`` and flash entry, each phase 17 training
-step and ``generate``) and read just after; a
+step and ``generate``, each phase 23 fit and transform) and read just
+after; a
 path's kernel launched other than its expected number of times (once per
 layer and prefill piece or LM training step, twice for the forward with
 remat; per ResNet-50 step 24 K3 and 12 K5 forwards and as many backwards,
@@ -462,7 +478,9 @@ phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows;
 phase 19's K1 launches, both ranks, on ``flash_fwd`` / ``flash_bwd``
 (bf16) and the ``_f32`` rows, its K2 serving launches on
 ``paged_attention``; phase 20's agents' K2 launches on
-``paged_attention`` and their flash launches on ``flash_fwd_chunk``);
+``paged_attention`` and their flash launches on ``flash_fwd_chunk``;
+phase 23's DLClassifier fits on the ``_f32`` K3 / K5 / K4 rows and its
+transforms on the ``_eval`` rows);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -5885,8 +5903,8 @@ def _det_same(torch, name, got, want):
 # (a) the flagship at bench_transformer_lm's width through DistriOptimizer,
 # (b) ResNet-50 fused NHWC float32, (c) two ranks sharing the card over
 # gloo, (d) the failure detectors and the elastic restart
-DIST18 = dict(B=16, T=1024, warm=2, timed=3, local_steps=3, res_B=32,
-              res_S=224, res_steps=3, gloo_layers=2, gloo_steps=3,
+DIST18 = dict(B=16, T=1024, warm=1, timed=3, local_steps=3, res_B=32,
+              res_S=224, res_steps=3, gloo_layers=2, gloo_steps=2,
               gloo_lr=0.1, elastic_halt=2, elastic_steps=4)
 # (c) and (d) train at lr 0.1 (SGD, momentum 0.9): at (a)'s 0.01 three
 # steps moved the depth-2 flagship's parameters by 4.7e-5 at most, less
@@ -6164,7 +6182,7 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
     (a) the flagship (vocab 32000, hidden 1024, 16 heads, filter 4096, 12
     layers, float32 parameters, B16/T1024, ``LMCriterion``, SGD 0.01
     momentum 0.9) on this process's one-rank NCCL group: LocalOptimizer 3
-    steps, replicated 3 steps equal to it, then each of MODES18 2 warm-up
+    steps, replicated 3 steps equal to it, then each of MODES18 1 warm-up
     and 3 timed steps (step ms, tokens/s, peak GiB, K1 launches by route,
     the collectives' bytes a step from the counters) and one more step
     under the profiler (NCCL's kernels' ms). (b) ResNet-50 fused NHWC
@@ -6173,7 +6191,8 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
     3 steps each, step ms, images/s, K3 / K4 / K5 launches by route.
     (c) two ranks on this card over gloo (processes of this script): each
     mode on the flagship cut to 2 layers, global B16/T1024 (8 rows a
-    rank), SGD 0.1, 3 steps, against the one-rank runs on the same global
+    rank), SGD 0.1, ``gloo_steps`` (2) steps, against the one-rank runs
+    on the same global
     batches, each error also as a share of how far the one-rank run moved
     the parameters, and a BatchNorm model in ``replicated`` against one
     rank. (d)
@@ -6396,7 +6415,8 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
                                             "zero1_wire") else GLOO_REL
         rel = rec["err"] / moves[name]
         ms = statistics.median(rec["step_s"][1:]) * 1e3
-        print(f"    (c) 2 ranks over gloo {name:15s} 3 steps in "
+        print(f"    (c) 2 ranks over gloo {name:15s} "
+              f"{DIST18['gloo_steps']} steps in "
               f"{rec['wall_s']:.2f} s (step {ms:.0f} ms), K1 fwd/bwd "
               f"{rec['flash'][0]}/{rec['flash'][1]} a rank, max abs err "
               f"against one rank {rec['err']:.3e} (tol {tol:g}); the "
@@ -6406,7 +6426,8 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
         check(rec["err"] <= tol and rel <= rel_tol,
               f"(c) {name} on 2 gloo ranks {rec['err']} from one rank "
               f"({rel} of its movement)")
-        check(rec["flash"] == (2 * 3, 2 * 3), f"(c) {name} K1 launches "
+        n_k1 = DIST18["gloo_layers"] * DIST18["gloo_steps"]
+        check(rec["flash"] == (n_k1, n_k1), f"(c) {name} K1 launches "
               f"{rec['flash']}")
     bn_rel = [e / m for e, m in zip(r0["bn_err"], moves["bn"])]
     print(f"    (c) BatchNorm model, replicated, 2 ranks against one: max "
@@ -6459,16 +6480,18 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
 # depth ~100 s; its resident bytes are read at full depth too, and it
 # serves the first ``fsdp_req`` of the requests (tokens and pages
 # checked as in (a)) so that the smoke with phase 20 stays under half its
-# time limit; (a) serves the first ``n_req`` (8) of phase 4's 16 and (b)
-# the first ``fsdp_req`` (4), and phase 18 (a) times 3 steps a mode, which
-# leaves room for phase 22 under that limit. (a2) adds the host KV tier under the tensor-parallel mesh,
+# time limit; (a) serves the first ``n_req`` (4) of phase 4's 16 and (b)
+# the first ``fsdp_req`` (4) with their budgets capped at ``fsdp_budget``
+# (32: the serving time is the decode steps of the longest budget), and
+# phase 18 (a) times 3 steps a mode after one warm step, which leaves room
+# for phases 22 and 23 under that limit. (a2) adds the host KV tier under the tensor-parallel mesh,
 # (c) the engine over FSDP on the same 4-layer cut.
-MP19 = dict(n_req=8, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
+MP19 = dict(n_req=4, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
             chunk=32, max_seq=384, max_len=512,
             gen_B=8, gen_T=128, gen_new=8, seq_B=2, seq_T=2048, dec_B=4,
             dec_T=4096, dec_steps=64, train_layers=2, train_B=8,
             train_T=1024, train_steps=3, train_lr=0.1, fsdp_layers=4,
-            fsdp_req=4,
+            fsdp_req=4, fsdp_budget=32,
             pipe_micro=4,
             pipe_rows=512, moe_tokens=2048, moe_filter=4096, moe_cap=1.25,
             tier_prefix=160, tier_tails=(8, 16), tier_other=200, tier_new=16,
@@ -6560,9 +6583,11 @@ def _mp_serve(torch, K, dev, rank, n, placement):
                .astype(np.int32) for _ in range(MP19["n_req"])]
     budgets = [int(rng.randint(*MP19["budget"]))
                for _ in range(MP19["n_req"])]
-    if placement == "fsdp":     # the first fsdp_req of the same requests
+    if placement == "fsdp":     # the first fsdp_req of the same requests,
+        # their budgets capped at fsdp_budget
         prompts, budgets = (prompts[:MP19["fsdp_req"]],
-                            budgets[:MP19["fsdp_req"]])
+                            [min(b, MP19["fsdp_budget"])
+                             for b in budgets[:MP19["fsdp_req"]]])
     kw = dict(max_slots=MP19["slots"], block_size=MP19["block"],
               max_seq_len=MP19["max_seq"], prefill_chunk=MP19["chunk"])
     out = {}
@@ -7108,14 +7133,14 @@ def model_parallel(torch, K, card, dev="cuda", tmp=None):
     ``FLAGSHIP``). (a) the flagship (bf16 weights, float32 pages) served
     by ``DecodeScheduler(max_slots=8, block_size=16, prefill_chunk=32,
     mesh=<('model',) of 2>)`` over a tensor-parallel registry, the first
-    ``n_req`` (8) of phase 4's requests: tokens against the one-rank
+    ``n_req`` (4) of phase 4's requests: tokens against the one-rank
     scheduler up to the first
     near-tie, each rank's pages (8 of 16 kv heads) of every prompt chain
     resident in both pools against the one-rank pool's heads within
     ``PAGE_TOL``, K2 launches per rank, resident parameter bytes per rank,
     and ``generate`` over the placed weights (K1-fwd at 8 heads a rank);
-    (b) the first ``fsdp_req`` (4) of the same requests under FSDP on a
-    ('data',) mesh of 2, the
+    (b) the first ``fsdp_req`` (4) of the same requests (budgets capped at
+    ``fsdp_budget``) under FSDP on a ('data',) mesh of 2, the
     flagship cut to ``fsdp_layers`` layers (pages whole), with peak memory
     per rank and the full depth's resident bytes; (d) ``Attention(seq_axis='seq')`` at 1024 / 16
     heads, causal, B2/T2048 split over the ranks, ring and a2a, bf16 and
@@ -7389,6 +7414,58 @@ def _fleet_procs_alive(procs, what):
     check(not dead, f"{what}: fleet agent processes exited {dead}")
 
 
+def _agent_log(root, name):
+    """Where an agent's output goes: under ``chiprun_out/`` of the
+    checkout (listed in .gitignore), so it outlives the phase's temporary
+    directory."""
+    d = os.path.join(root, "chiprun_out", "phase20_agents")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, f"agent_{name}.log")
+
+
+# an agent process: the fleet entry point with every health event written
+# to its log as one "HEALTH {json}" line (quarantines, prefix inserts
+# skipped, refused handoffs)
+_AGENT_MAIN = (
+    "import json, sys\n"
+    "from bigdl_tpu_torch.observability import health\n"
+    "health.listeners.append(lambda e: print('HEALTH', json.dumps(e, "
+    "default=str), file=sys.stderr, flush=True))\n"
+    "from bigdl_tpu_torch.serving.fleet import main\n"
+    "raise SystemExit(main(['fleet', sys.argv[1]]))\n")
+
+
+def _health_events(log_path):
+    """The health events an agent's log holds, by kind."""
+    kinds = {}
+    try:
+        with open(log_path) as f:
+            for line in f:
+                if line.startswith("HEALTH "):
+                    k = json.loads(line[7:]).get("kind", "?")
+                    kinds[k] = kinds.get(k, 0) + 1
+    except OSError:
+        pass
+    return kinds
+
+
+def _pf_report(pf, root, exports):
+    """The prefill agent's ledger state after (b): quarantine,
+    corruptions, prefix evictions, its health events (the
+    ``prefix_insert_skipped`` ones among them) and the tokens each export
+    carried."""
+    st = pf.stats()
+    pre = st.get("prefix") or {}
+    return {"quarantined": st.get("quarantined"),
+            "kv_corruptions": st.get("kv_corruptions"),
+            "prefix_entries": pre.get("entries"),
+            "prefix_evictions": pre.get("evictions"),
+            "prefix_spills": pre.get("spills"),
+            "kv_blocks_in_use": (st.get("kv") or {}).get("blocks_in_use"),
+            "health_events": _health_events(_agent_log(root, "pf")),
+            "export_tokens": [int(m["tokens"]) for _, m, _ in exports]}
+
+
 def _spawn_agent(fd, name, role, params_path, dev, idx, root):
     from bigdl_tpu_torch.serving.fleet import member_path
     if os.path.exists(member_path(fd, name)):
@@ -7405,10 +7482,9 @@ def _spawn_agent(fd, name, role, params_path, dev, idx, root):
     path = os.path.join(fd, f"cfg_{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
-    log = open(os.path.join(fd, f"agent_{name}.log"), "w")
+    log = open(_agent_log(root, name), "w")
     env = dict(os.environ, PYTHONPATH=root)
-    p = subprocess.Popen([sys.executable, "-m",
-                          "bigdl_tpu_torch.serving.fleet", path],
+    p = subprocess.Popen([sys.executable, "-c", _AGENT_MAIN, path],
                          stdout=log, stderr=subprocess.STDOUT, cwd=root,
                          env=env)
     log.close()
@@ -7543,9 +7619,12 @@ def fleet(torch, K, card, p4, dev="cuda", tmp=None):
         pf.prefill_export, dis._handoff = export, handoff
         st = dis.stats()
         aligned = sum(1 for p in prompts if p.size >= dis.align)
+        pf_state = _pf_report(pf, root, exports)
+        print(f"    (b) pf after the handoffs: {pf_state} (agent logs "
+              f"under chiprun_out/phase20_agents/)", flush=True)
         check(st["handoffs"] == aligned and st["handoff_failed"] == 0
               and st["handoff_refused"] == 0, f"(b) handoffs {st}, "
-              f"{aligned} aligned prompts")
+              f"{aligned} aligned prompts; pf {pf_state}")
         cmp_b = sum(agree(f"(b) request {i}", g, w, m) for i, (g, w, m) in
                     enumerate(zip(toks_b, p4["results"], p4["margins"])))
         check(cmp_b > 0, "(b) no served step cleared the margin")
@@ -8437,6 +8516,557 @@ def loaders(torch, K, card, p4, dev="cuda", tmp=None):
     return out
 
 
+# -- phase 23: the Keras-1.2 API and converter, dlframes and util ----------------
+
+# Keras 1.2.2's keras/applications/resnet50.py (ResNet50, include_top): the
+# bottleneck widths of each stage and its blocks; 224 images, 1000 classes
+KERAS_RESNET = dict(blocks=(3, 4, 6, 3), widths=(64, 128, 256, 512),
+                    size=224, classes=1000)
+
+
+def keras_resnet_json(blocks=(3, 4, 6, 3), widths=(64, 128, 256, 512),
+                      size=224, classes=1000, ordering="th"):
+    """Keras 1.2.2's ResNet50 (``keras/applications/resnet50.py``) as its
+    ``model.to_json()`` writes it: the functional ``Model`` config with
+    Keras's layer names (``conv1``, ``bn_conv1``, ``res2a_branch2a``,
+    ``bn2a_branch2a``, ..., ``avg_pool``, ``fc1000``; the unnamed layers
+    ``input_1``, ``zeropadding2d_1``, ``activation_N``, ``merge_N``, ...),
+    ``dim_ordering`` ``ordering`` and BatchNormalization on its channel
+    axis. ``blocks`` / ``widths`` / ``size`` cut it for a test (the
+    average pool spans what is left of the image)."""
+    th = ordering == "th"
+    layers, counts = [], {}
+
+    def auto(kind):
+        counts[kind] = counts.get(kind, 0) + 1
+        return f"{kind}_{counts[kind]}"
+
+    def add(cls, name, cfg, parents):
+        layers.append({"class_name": cls, "name": name,
+                       "config": dict(cfg, name=name, trainable=True),
+                       "inbound_nodes": ([[[p, 0, 0] for p in parents]]
+                                         if parents else [])})
+        return name
+
+    def conv(x, n, k, name, stride=1, same=False):
+        return add("Convolution2D", name, {
+            "nb_filter": n, "nb_row": k, "nb_col": k, "init": "glorot_uniform",
+            "activation": "linear", "border_mode": "same" if same else "valid",
+            "subsample": [stride, stride], "dim_ordering": ordering,
+            "W_regularizer": None, "b_regularizer": None,
+            "activity_regularizer": None, "W_constraint": None,
+            "b_constraint": None, "bias": True}, [x])
+
+    def bn(x, name):
+        return add("BatchNormalization", name, {
+            "epsilon": 0.001, "mode": 0, "axis": 1 if th else 3,
+            "momentum": 0.99, "gamma_regularizer": None,
+            "beta_regularizer": None}, [x])
+
+    def relu(x):
+        return add("Activation", auto("activation"), {"activation": "relu"},
+                   [x])
+
+    def block(x, stage, blk, width, stride, project):
+        cb, bb = f"res{stage}{blk}_branch", f"bn{stage}{blk}_branch"
+        y = relu(bn(conv(x, width, 1, cb + "2a", stride), bb + "2a"))
+        y = relu(bn(conv(y, width, 3, cb + "2b", same=True), bb + "2b"))
+        y = bn(conv(y, 4 * width, 1, cb + "2c"), bb + "2c")
+        short = (bn(conv(x, 4 * width, 1, cb + "1", stride), bb + "1")
+                 if project else x)
+        m = add("Merge", auto("merge"), {
+            "mode": "sum", "concat_axis": -1, "dot_axes": -1,
+            "mode_type": "raw", "output_shape": None,
+            "output_shape_type": "raw", "output_mask": None,
+            "output_mask_type": "raw", "arguments": {}}, [y, short])
+        return relu(m)
+
+    shape = [3, size, size] if th else [size, size, 3]
+    x = add("InputLayer", "input_1", {"batch_input_shape": [None] + shape,
+                                      "input_dtype": "float32",
+                                      "sparse": False}, [])
+    x = add("ZeroPadding2D", auto("zeropadding2d"),
+            {"padding": [3, 3], "dim_ordering": ordering}, [x])
+    x = relu(bn(conv(x, 64, 7, "conv1", 2), "bn_conv1"))
+    x = add("MaxPooling2D", auto("maxpooling2d"), {
+        "pool_size": [3, 3], "strides": [2, 2], "border_mode": "valid",
+        "dim_ordering": ordering}, [x])
+    s = ((size + 6 - 7) // 2 + 1 - 3) // 2 + 1
+    for i, (n, w) in enumerate(zip(blocks, widths)):
+        stride = 1 if i == 0 else 2
+        s = (s - 1) // stride + 1
+        for j in range(n):
+            x = block(x, i + 2, "abcdefghijklmnop"[j], w, stride if j == 0
+                      else 1, j == 0)
+    x = add("AveragePooling2D", "avg_pool", {
+        "pool_size": [s, s], "strides": [s, s], "border_mode": "valid",
+        "dim_ordering": ordering}, [x])
+    x = add("Flatten", auto("flatten"), {}, [x])
+    add("Dense", "fc1000", {"output_dim": classes, "init": "glorot_uniform",
+                            "activation": "softmax", "W_regularizer": None,
+                            "b_regularizer": None,
+                            "activity_regularizer": None,
+                            "W_constraint": None, "b_constraint": None,
+                            "bias": True, "input_dim": None}, [x])
+    return json.dumps({"class_name": "Model", "keras_version": "1.2.2",
+                       "config": {"name": "resnet50", "layers": layers,
+                                  "input_layers": [["input_1", 0, 0]],
+                                  "output_layers": [["fc1000", 0, 0]]}})
+
+
+def keras_resnet_weights(json_def, seed=0, ordering="th"):
+    """Keras-layout weights for :func:`keras_resnet_json`'s model, drawn
+    from ``seed`` in definition order: convolutions (out, in, kh, kw) for
+    ``"th"`` and (kh, kw, in, out) for ``"tf"`` (He-scaled), each with its
+    bias; BatchNormalization [gamma, beta, running mean, running
+    variance]; ``fc1000`` (in, out). The draws are the same for both
+    orderings, so the two models compute one function."""
+    rng = np.random.RandomState(seed)
+    spec = json.loads(json_def)["config"]["layers"]
+    chans, out = {}, {}
+    for ly in spec:
+        c, name = ly["config"], ly["name"]
+        parents = [p[0] for p in ly["inbound_nodes"][0]] \
+            if ly["inbound_nodes"] else []
+        cin = chans.get(parents[0]) if parents else None
+        cls = ly["class_name"]
+        if cls == "InputLayer":
+            shp = c["batch_input_shape"][1:]
+            chans[name] = shp[0] if ordering == "th" else shp[-1]
+        elif cls == "Convolution2D":
+            n, k = c["nb_filter"], c["nb_row"]
+            w = (rng.randn(n, cin, k, k) * np.sqrt(2.0 / (cin * k * k)))
+            b = 0.01 * rng.randn(n)
+            if ordering == "tf":
+                w = w.transpose(2, 3, 1, 0)
+            out[name] = [w.astype(np.float32), b.astype(np.float32)]
+            chans[name] = n
+        elif cls == "BatchNormalization":
+            out[name] = [(0.5 + 0.5 * rng.rand(cin)).astype(np.float32),
+                         (0.1 * rng.randn(cin)).astype(np.float32),
+                         (0.1 * rng.randn(cin)).astype(np.float32),
+                         (0.5 + rng.rand(cin)).astype(np.float32)]
+            chans[name] = cin
+        elif cls == "Dense":
+            out[name] = [(rng.randn(cin, c["output_dim"]) / np.sqrt(cin))
+                         .astype(np.float32),
+                         (0.01 * rng.randn(c["output_dim"]))
+                         .astype(np.float32)]
+        else:
+            chans[name] = cin
+    return out
+
+
+# the sizes of phase 23 (a CPU rehearsal shrinks them): (a) the Keras
+# ResNet-50's predict batch and fit set; (b) Keras 1.2.2's
+# examples/imdb_cnn_lstm.py (max_features 20000, maxlen 100, embedding 128,
+# 64 filters of 5, pool 4, LSTM 70, batch 30), the steps held against the
+# CPU and the steps timed after them; (c) the DLClassifier's rows, batch
+# and image side over the port's ResNet-50; (d) DLImageTransformer's images
+K23 = dict(resnet=KERAS_RESNET, pred_B=8, fit_B=8, fit_steps=2,
+           imdb=dict(vocab=20000, maxlen=100, emb=128, filters=64, kernel=5,
+                     pool=4, lstm=70, batch=30, cpu_steps=3, timed=5),
+           dl=dict(rows=64, B=32, size=224, classes=1000), img=(4, 256))
+KERAS23_TOL = 1e-4    # card against CPU, float32 with TF32 off, relative to
+#                       the largest output (the ResNet's softmax, the LSTM
+#                       model's losses)
+
+
+@contextlib.contextmanager
+def step_record():
+    """Records the loss every training step of any optimizer returns
+    (device tensors, read after the run) and the optimizers that ran
+    them: the Keras ``fit`` and the DLClassifier build their optimizer
+    inside. ``rec["ms"]()``: the last optimizer's step times."""
+    from bigdl_tpu_torch.optim.optimizer import BaseOptimizer
+    step = BaseOptimizer._step
+    rec = {"losses": [], "opts": []}
+
+    def recording(self, *a):
+        rec["losses"].append(step(self, *a))
+        if self not in rec["opts"]:
+            rec["opts"].append(self)
+        return rec["losses"][-1]
+    rec["ms"] = lambda: [v * 1e3 for v in rec["opts"][-1].metrics.values
+                         .get("step_time", [])]
+    BaseOptimizer._step = recording
+    try:
+        yield rec
+    finally:
+        BaseOptimizer._step = step
+
+
+def _moved(before, after):
+    """How many leaves of a host tree changed."""
+    from bigdl_tpu_torch.convert import flatten
+    fa, fb = flatten(before), flatten(after)
+    return sum(not np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def keras_frames(torch, K, card, dev="cuda", sizes=None):
+    """Phase 23: the Keras-1.2 API and converter, dlframes and util on the
+    card. (a) Keras 1.2.2's ResNet-50 written as its functional JSON
+    (``keras_resnet_json``, "th"), ``model_from_json(device=)`` and
+    ``load_weights`` of Keras-layout weights (BatchNorm statistics
+    included), ``predict`` at B8/224 against the same model on the CPU
+    (TF32 off, ``KERAS23_TOL``), the "tf" spelling with its kernels in
+    Keras-tf layout giving the same predictions, then ``compile("sgd",
+    "categorical_crossentropy", ["accuracy"])``, ``fit`` of 2 steps at B8
+    and ``evaluate``: finite losses, the leaves moved. (b) The
+    ``Sequential`` of Keras 1.2.2's ``examples/imdb_cnn_lstm.py`` trained
+    with ``compile("adam", "binary_crossentropy", ["accuracy"])`` at batch
+    30 on seeded token ids: 3 steps' losses against the CPU's (Dropout
+    p = 0), then the real model's step ms. (c) ``DLClassifier`` over the
+    port's ResNet-50 (NHWC, ``fused="pallas"``, float32), fit on a dict of
+    columns (64 rows of 224x224x3, labels 1..1000) at B32 for an epoch,
+    ``fused_conv2`` off and on: finite losses, the leaves moved, 24 K3
+    and 12 K5 forwards and as many backwards a step (16 K4 forwards with
+    ``fused_conv2``) on ``f32_sm90``; ``DLClassifierModel.transform``
+    equal to 1 + argmax of the trained model's own evaluation-mode
+    forward, with the no-statistics launches of its two batches. (d)
+    ``util.common`` (``init_engine``, ``get_node_and_core_number``, a
+    ``JTensor`` round trip of a card tensor, ``RNG.set_seed`` making the
+    card's and the CPU's initial weights equal, ``to_sample_rdd`` into
+    ``LocalOptimizer`` for 2 steps) and ``DLImageTransformer`` on a dict
+    image column, fed to (c)'s model."""
+    from bigdl_tpu_torch import dlframes, keras, nn
+    from bigdl_tpu_torch.convert import flatten, host_copy_tree
+    from bigdl_tpu_torch.keras.converter import load_weights, model_from_json
+    from bigdl_tpu_torch.models import ResNet50
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, max_iteration
+    from bigdl_tpu_torch.transform import vision
+    from bigdl_tpu_torch.util import common
+    from bigdl_tpu_torch.utils import engine
+    c = sizes or K23
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t23 = time.perf_counter()
+    out = {"cells_ms": {}, "launches": {}}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[23] the Keras-1.2 API and converter, dlframes and util "
+          f"({card})", flush=True)
+    try:
+        # (a) Keras 1.2.2's ResNet-50 from its JSON
+        t_a = time.perf_counter()
+        r = c["resnet"]
+        j_th = keras_resnet_json(**r, ordering="th")
+        w_th = keras_resnet_weights(j_th, seed=0, ordering="th")
+        t0 = time.perf_counter()
+        m = model_from_json(j_th, device=dev)
+        sync()
+        json_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_weights(m, w_th)
+        sync()
+        load_s = time.perf_counter() - t0
+        S, B = r["size"], c["pred_B"]
+        rng = np.random.RandomState(23)
+        x = rng.randn(B, 3, S, S).astype(np.float32)
+        sync()
+        t0 = time.perf_counter()
+        p_card = m.predict(x, batch_size=B)
+        pred_ms = (time.perf_counter() - t0) * 1e3
+        cpu = model_from_json(j_th, device="cpu")
+        load_weights(cpu, w_th)
+        p_cpu = cpu.predict(x, batch_size=B)
+        del cpu
+        scale = float(np.abs(p_cpu).max())
+        err = float(np.abs(p_card - p_cpu).max()) / scale
+        check(p_card.shape == (B, r["classes"]) and np.isfinite(p_card).all()
+              and err <= KERAS23_TOL, f"[23] (a) predict {p_card.shape} "
+              f"against the CPU: relative err {err} (tol {KERAS23_TOL})")
+        j_tf = keras_resnet_json(**r, ordering="tf")
+        m_tf = model_from_json(j_tf, device=dev)
+        load_weights(m_tf, keras_resnet_weights(j_tf, seed=0, ordering="tf"))
+        check(m_tf._tf_ordered, "[23] (a) the tf spelling was not tf-ordered")
+        p_tf = m_tf.predict(x, batch_size=B)
+        err_tf = float(np.abs(p_tf - p_card).max()) / scale
+        check(err_tf <= KERAS23_TOL, f"[23] (a) the tf spelling's "
+              f"predictions against th: relative err {err_tf}")
+        del m_tf
+        n_fit = c["fit_B"] * c["fit_steps"]
+        xf = rng.randn(n_fit, 3, S, S).astype(np.float32)
+        yf = np.eye(r["classes"], dtype=np.float32)[
+            rng.randint(0, r["classes"], n_fit)]
+        before = host_copy_tree(m._module().params)
+        m.compile("sgd", "categorical_crossentropy", ["accuracy"])
+        with step_record() as rec:
+            m.fit(xf, yf, batch_size=c["fit_B"], nb_epoch=1)
+        losses = [float(v) for v in rec["losses"]]
+        steps_a = rec["ms"]()
+        moved = _moved(before, host_copy_tree(m._module().params))
+        ev = m.evaluate(xf, yf, batch_size=c["fit_B"])
+        check(len(losses) == c["fit_steps"] and np.isfinite(losses).all()
+              and moved > 0 and np.isfinite(ev).all(),
+              f"[23] (a) fit losses {losses}, leaves moved {moved}, "
+              f"evaluate {ev}")
+        n_leaves = len(flatten(before))
+        del m, before
+        out["a"] = dict(json_s=json_s, load_s=load_s, pred_ms=pred_ms,
+                        err=err, err_tf=err_tf, losses=losses,
+                        step_ms=steps_a)
+        out["cells_ms"]["a"] = (time.perf_counter() - t_a) * 1e3
+        print(f"    (a) Keras-1.2 ResNet-50 ({len(w_th)} weighted layers) "
+              f"from JSON: model_from_json {json_s:.3f} s, load_weights "
+              f"{load_s:.3f} s; predict B{B}/{S} {pred_ms:.1f} ms, against "
+              f"the CPU relative err {err:.2e}, the tf spelling {err_tf:.2e} "
+              f"(tol {KERAS23_TOL}); fit B{c['fit_B']} losses "
+              f"{[round(v, 4) for v in losses]}, step ms "
+              f"{[round(v, 1) for v in steps_a]}, {moved} of "
+              f"{n_leaves} leaves moved; evaluate [loss, acc] "
+              f"{[round(float(v), 4) for v in ev]}", flush=True)
+
+        # (b) Keras 1.2.2's examples/imdb_cnn_lstm.py
+        t_b = time.perf_counter()
+        im = c["imdb"]
+
+        def imdb(p, device):
+            s = keras.Sequential(device=device)
+            s.add(keras.Embedding(im["vocab"], im["emb"],
+                                  input_length=im["maxlen"]))
+            s.add(keras.Dropout(p))
+            s.add(keras.Convolution1D(im["filters"], im["kernel"],
+                                      border_mode="valid", activation="relu",
+                                      subsample_length=1))
+            s.add(keras.MaxPooling1D(pool_length=im["pool"]))
+            s.add(keras.LSTM(im["lstm"]))
+            s.add(keras.Dense(1))
+            s.add(keras.Activation("sigmoid"))
+            return s.compile("adam", "binary_crossentropy", ["accuracy"])
+        n = im["batch"] * im["cpu_steps"]
+        ids = rng.randint(0, im["vocab"], (n, im["maxlen"])).astype(
+            np.float32)
+        lab = rng.randint(0, 2, n).astype(np.float32)
+        runs = {}
+        for where in (dev, "cpu"):
+            torch.manual_seed(23)         # the same initial weights
+            s = imdb(0.0, where)
+            with step_record() as rec:
+                s.fit(ids, lab, batch_size=im["batch"], nb_epoch=1)
+            runs[where] = [float(v) for v in rec["losses"]]
+        lerr = max(abs(a - b) / max(abs(b), 1e-6)
+                   for a, b in zip(runs[dev], runs["cpu"]))
+        check(len(runs[dev]) == im["cpu_steps"]
+              and np.isfinite(runs[dev]).all() and lerr <= KERAS23_TOL,
+              f"[23] (b) losses {runs[dev]} against the CPU's "
+              f"{runs['cpu']}: relative err {lerr}")
+        nt = im["batch"] * (1 + im["timed"])
+        real = imdb(0.25, dev)
+        real.fit(rng.randint(0, im["vocab"], (nt, im["maxlen"])).astype(
+            np.float32), rng.randint(0, 2, nt).astype(np.float32),
+            batch_size=im["batch"], nb_epoch=1)
+        steps_b = [v * 1e3 for v in
+                   real.history.metrics.values.get("step_time", [])]
+        del real, s
+        out["b"] = dict(losses=runs[dev], cpu_losses=runs["cpu"], err=lerr,
+                        step_ms=steps_b)
+        out["cells_ms"]["b"] = (time.perf_counter() - t_b) * 1e3
+        print(f"    (b) imdb_cnn_lstm Sequential (Embedding {im['vocab']} x "
+              f"{im['emb']}, T {im['maxlen']}, LSTM {im['lstm']}), adam, "
+              f"batch {im['batch']}: {im['cpu_steps']} losses "
+              f"{[round(v, 6) for v in runs[dev]]} against the CPU's within "
+              f"{lerr:.2e} (tol {KERAS23_TOL}, Dropout p = 0); Dropout 0.25 "
+              f"step ms {[round(v, 2) for v in steps_b]} (median after the "
+              f"first {statistics.median(steps_b[1:]):.2f})", flush=True)
+
+        # (c) DLClassifier over the port's ResNet-50, fused_conv2 off, on
+        t_c = time.perf_counter()
+        dl = c["dl"]
+        S, R, BB = dl["size"], dl["rows"], dl["B"]
+        feats = rng.randn(R, S * S * 3).astype(np.float32)
+        labels = (rng.randint(0, dl["classes"], R) + 1).astype(np.float32)
+        frame = {"features": feats, "label": labels}
+        steps = R // BB
+        out["c"] = {}
+        model_c = None
+        for conv2 in (False, True):
+            rn = ResNet50(format="NHWC", fused="pallas", fused_conv2=conv2,
+                          seed=0, device=dev)
+            before = host_copy_tree(rn.params)
+            est = dlframes.DLClassifier(rn, nn.CrossEntropyCriterion(),
+                                        [S, S, 3], device=dev)
+            est.set_batch_size(BB).set_max_epoch(1)
+            sync()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with step_record() as rec:
+                fitted = est.fit(frame)
+            sync()
+            fit_s = time.perf_counter() - t0
+            fit_counts, fit_routes = K.launch_counts(), K.launches_by_route()
+            losses = [float(v) for v in rec["losses"]]
+            steps_c = rec["ms"]()
+            moved = _moved(before, host_copy_tree(rn.params))
+            check(isinstance(fitted, dlframes.DLClassifierModel)
+                  and fitted.model is rn and len(losses) == steps
+                  and np.isfinite(losses).all() and moved > 0,
+                  f"[23] (c) fused_conv2={conv2}: losses {losses}, leaves "
+                  f"moved {moved}")
+            if cuda:
+                check_resnet_launches(K, {"counts": fit_counts,
+                                          "routes": fit_routes}, steps,
+                                      f"[23] (c) fit fused_conv2={conv2}",
+                                      conv2)
+            sync()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fitted.transform(frame)
+            sync()
+            tr_ms = (time.perf_counter() - t0) * 1e3
+            tr_counts, tr_routes = K.launch_counts(), K.launches_by_route()
+            rn.evaluate()
+            with torch.no_grad():
+                want = np.concatenate([
+                    rn.forward(torch.from_numpy(
+                        feats[i:i + BB].reshape(-1, S, S, 3)).to(dev))
+                    .argmax(-1).cpu().numpy() + 1
+                    for i in range(0, R, BB)])
+            check(set(res) == {"features", "label", "prediction"}
+                  and np.array_equal(res["prediction"], want),
+                  f"[23] (c) transform {res['prediction'][:8]} against 1 + "
+                  f"argmax of the eval forward {want[:8]}")
+            if cuda:
+                ev_want = dict.fromkeys(K.WRAPPERS, 0)
+                ev_want.update(fused_matmul_fwd=24 * steps,
+                               fused_chain_fwd=12 * steps,
+                               fused_conv_fwd=16 * steps if conv2 else 0)
+                check(tr_counts == ev_want
+                      and all(only_on(tr_routes[k], "f32_sm90", v)
+                              for k, v in ev_want.items() if v),
+                      f"[23] (c) transform launches {tr_counts} by route "
+                      f"{tr_routes}, expected {ev_want} on f32_sm90")
+            out["c"][conv2] = dict(losses=losses, fit_s=fit_s,
+                                   step_ms=steps_c, transform_ms=tr_ms,
+                                   fit=fit_counts, transform=tr_counts)
+            print(f"    (c) DLClassifier ResNet-50 NHWC pallas float32 "
+                  f"fused_conv2={conv2}: fit {R} rows at B{BB} {fit_s:.2f} s "
+                  f"(the columns to Samples included), step ms "
+                  f"{[round(v, 1) for v in steps_c]}, losses "
+                  f"{[round(v, 4) for v in losses]}, "
+                  f"{moved} leaves moved; launches "
+                  f"{ {k: v for k, v in fit_counts.items() if v} }; "
+                  f"transform {tr_ms:.1f} ms equal to 1 + argmax of the "
+                  f"eval forward, launches "
+                  f"{ {k: v for k, v in tr_counts.items() if v} }",
+                  flush=True)
+            if conv2:
+                model_c = fitted
+            else:
+                del rn, fitted, est
+        out["cells_ms"]["c"] = (time.perf_counter() - t_c) * 1e3
+
+        # (d) util.common and DLImageTransformer
+        t_d = time.perf_counter()
+        saved = (dict(engine._state), torch.get_rng_state(),
+                 np.random.get_state())
+        try:
+            common.init_engine(device=dev)
+            nodes = common.get_node_and_core_number(device=dev)
+            check(engine.is_initialized() and nodes[0] >= 1 and nodes[1] >= 1,
+                  f"[23] (d) get_node_and_core_number {nodes}")
+            t = torch.randn(3, 5, device=dev)
+            jt = common.JTensor.from_ndarray(t.cpu().numpy())
+            back = torch.from_numpy(jt.to_ndarray()).to(dev)
+            check(torch.equal(back, t) and list(jt.shape) == [3, 5],
+                  "[23] (d) JTensor round trip")
+            r1 = common.RNG()
+            r1.set_seed(7)
+            draw = r1.uniform(0, 1, (4,))
+            card_lin = nn.Linear(6, 4).to(dev)
+            r1.set_seed(7)
+            check(np.array_equal(r1.uniform(0, 1, (4,)), draw),
+                  "[23] (d) RNG draws")
+            cpu_lin = nn.Linear(6, 4)
+            check(torch.equal(card_lin.weight.cpu(), cpu_lin.weight)
+                  and card_lin.weight.device.type == dev,
+                  "[23] (d) RNG.set_seed: the card's initial weights differ "
+                  "from the CPU's")
+            xs = rng.randn(16, 6).astype(np.float32)
+            ys = (rng.randint(0, 4, 16) + 1).astype(np.float32)
+            mlp = nn.Sequential(nn.Linear(6, 4), nn.LogSoftMax()).to(dev)
+            w0 = host_copy_tree(mlp.params)
+            with step_record() as rec:
+                LocalOptimizer(mlp, common.to_sample_rdd(xs, ys),
+                               nn.ClassNLLCriterion(), SGD(0.5),
+                               max_iteration(2), 8, device=dev).optimize()
+            lu = [float(v) for v in rec["losses"]]
+            check(len(lu) == 2 and np.isfinite(lu).all()
+                  and _moved(w0, host_copy_tree(mlp.params)) > 0,
+                  f"[23] (d) to_sample_rdd -> LocalOptimizer losses {lu}")
+        finally:
+            if engine.process_group() is not None and \
+                    saved[0].get("group") is None:
+                engine.destroy_process_group()
+            engine._state.clear()
+            engine._state.update(saved[0])
+            torch.set_rng_state(saved[1])
+            np.random.set_state(saved[2])
+        n_img, side = c["img"]
+        S = c["dl"]["size"]
+        col = {"image": [{"origin": f"img{i}", "height": side, "width": side,
+                          "nChannels": 3, "mode": 3,
+                          "data": rng.randint(0, 256, (side, side, 3))
+                          .astype(np.uint8)} for i in range(n_img)]}
+        tr = dlframes.DLImageTransformer(
+            vision.Resize(S, S) | vision.ChannelNormalize(
+                123.0, 117.0, 104.0, 58.0, 57.0, 57.0))
+        res = tr.transform(col)
+        outs = [r_["data"] for r_ in res["output"]]
+        direct = list((vision.Resize(S, S) | vision.ChannelNormalize(
+            123.0, 117.0, 104.0, 58.0, 57.0, 57.0))(
+            [np.asarray(i["data"], np.float32) for i in col["image"]]))
+        check(set(res) == {"image", "output"} and all(
+            o.shape == (S, S, 3) and np.array_equal(o, np.asarray(d))
+            for o, d in zip(outs, direct)),
+            "[23] (d) DLImageTransformer's column against the transformer")
+        sync()
+        K.reset_launch_counts()
+        pred = model_c.transform({"features": np.stack(
+            [o.reshape(-1) for o in outs])})["prediction"]
+        sync()
+        img_counts = K.launch_counts()
+        check(pred.shape == (n_img,) and pred.min() >= 1
+              and pred.max() <= dl["classes"],
+              f"[23] (d) the transformed images' classes {pred}")
+        if cuda:
+            want = dict.fromkeys(K.WRAPPERS, 0)
+            want.update(fused_matmul_fwd=24, fused_chain_fwd=12,
+                        fused_conv_fwd=16)
+            check(img_counts == want, f"[23] (d) the transformed images' "
+                  f"transform launched {img_counts}, expected {want}")
+        out["d"] = dict(nodes=nodes, transform=img_counts)
+        out["cells_ms"]["d"] = (time.perf_counter() - t_d) * 1e3
+        print(f"    (d) init_engine / get_node_and_core_number {nodes}; "
+              f"JTensor round trip bit for bit; RNG.set_seed: card and CPU "
+              f"initial weights equal; to_sample_rdd -> LocalOptimizer "
+              f"losses {[round(v, 4) for v in lu]}; DLImageTransformer "
+              f"{n_img} images {side} -> {S} equal to the transformer's, "
+              f"their classes {pred.astype(int).tolist()} from (c)'s model "
+              f"(launches {({k: v for k, v in img_counts.items() if v})})",
+              flush=True)
+        del model_c
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        if cuda:
+            torch.cuda.empty_cache()
+    for k in ("fused_matmul_fwd", "fused_matmul_bwd", "fused_chain_fwd",
+              "fused_chain_bwd", "fused_conv_fwd"):
+        out["launches"][k] = sum(v["fit"][k] for v in out["c"].values())
+    for k in ("fused_matmul_fwd", "fused_chain_fwd", "fused_conv_fwd"):
+        out["launches"][k + "_eval"] = \
+            sum(v["transform"][k] for v in out["c"].values()) \
+            + out["d"]["transform"][k]
+    out["wall_s"] = time.perf_counter() - t23
+    print(f"[23] wall {out['wall_s']:.1f} s; cells ms "
+          f"{ {k: round(v, 1) for k, v in out['cells_ms'].items()} } "
+          f"({card})", flush=True)
+    return out
+
+
 def _free_port():
     import socket
     with socket.socket() as s:
@@ -9070,6 +9700,9 @@ def main():
     # -- phase 22: the model-file formats and the TF-style ops --------------
     mark(22)
     r22 = loaders(torch, K, card, p4)
+    # -- phase 23: the Keras-1.2 API and converter, dlframes and util --------
+    mark(23)
+    l23 = keras_frames(torch, K, card)["launches"]
 
     def kernel_rec(name, source, replaces, rec, launches):
         out = {"name": name, "route": "cuda", "source": source,
@@ -9299,7 +9932,7 @@ def main():
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_fwd"]["f32_sm90"]
                    + l12["fused_matmul_fwd"] + l16["f32"]["fused_matmul_fwd"]
-                   + l18["fused_matmul_fwd"]),
+                   + l18["fused_matmul_fwd"] + l23["fused_matmul_fwd"]),
         kernel_rec("fused_matmul_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:229",
@@ -9307,7 +9940,7 @@ def main():
                         route=k3_f32["route"]),
                    r8["routes"]["fused_matmul_bwd"]["f32_sm90"]
                    + l12["fused_matmul_bwd"] + l16["f32"]["fused_matmul_bwd"]
-                   + l18["fused_matmul_bwd"]),
+                   + l18["fused_matmul_bwd"] + l23["fused_matmul_bwd"]),
         kernel_rec("fused_chain", "bigdl_tpu_torch/csrc/fused_chain_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318",
                    dict(k5_s0["fwd"], max_abs_err=k5_s0["max_abs_err"],
@@ -9326,7 +9959,7 @@ def main():
                         route=k5_f32["route"]),
                    r8["routes"]["fused_chain_fwd"]["f32_sm90"]
                    + l12["fused_chain_fwd"] + l16["f32"]["fused_chain_fwd"]
-                   + l18["fused_chain_fwd"]),
+                   + l18["fused_chain_fwd"] + l23["fused_chain_fwd"]),
         kernel_rec("fused_chain_bwd_f32",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:214",
@@ -9334,7 +9967,7 @@ def main():
                         route=k5_f32["route"]),
                    r8["routes"]["fused_chain_bwd"]["f32_sm90"]
                    + l12["fused_chain_bwd"] + l16["f32"]["fused_chain_bwd"]
-                   + l18["fused_chain_bwd"]),
+                   + l18["fused_chain_bwd"] + l23["fused_chain_bwd"]),
         kernel_rec("fused_conv", "bigdl_tpu_torch/csrc/fused_conv_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_s0,
                    on["fused_conv_fwd"]),
@@ -9346,7 +9979,8 @@ def main():
                    "bigdl_tpu/kernels/fused_conv.py:188",
                    dict(k4_f32, cuda_core_ms=k4_cc["ms"]),
                    r7["fused_routes"]["fused_conv_fwd"]["f32_sm90"]
-                   + l12["fused_conv_fwd"] + l18["fused_conv_fwd"]),
+                   + l12["fused_conv_fwd"] + l18["fused_conv_fwd"]
+                   + l23["fused_conv_fwd"]),
         kernel_rec("fused_conv_f32_ragged",
                    "bigdl_tpu_torch/csrc/fused_conv.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,
@@ -9356,19 +9990,22 @@ def main():
                    "bigdl_tpu/kernels/fused_matmul.py:688", r10["eval"]["K3"],
                    r10["d"]["launches"]["fused_matmul_fwd"]
                    + r15["predict_class"]["fused_matmul_fwd"]
-                   + l16["eval"]["fused_matmul_fwd"]),
+                   + l16["eval"]["fused_matmul_fwd"]
+                   + l23["fused_matmul_fwd_eval"]),
         kernel_rec("fused_conv_eval",
                    "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", r10["eval"]["K4"],
                    r10["d"]["launches"]["fused_conv_fwd"]
                    + r15["predict_class"]["fused_conv_fwd"]
-                   + l16["eval"]["fused_conv_fwd"]),
+                   + l16["eval"]["fused_conv_fwd"]
+                   + l23["fused_conv_fwd_eval"]),
         kernel_rec("fused_chain_eval",
                    "bigdl_tpu_torch/csrc/fused_chain_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_chain.py:318", r10["eval"]["K5"],
                    r10["d"]["launches"]["fused_chain_fwd"]
                    + r15["predict_class"]["fused_chain_fwd"]
-                   + l16["eval"]["fused_chain_fwd"]),
+                   + l16["eval"]["fused_chain_fwd"]
+                   + l23["fused_chain_fwd_eval"]),
         # no Pallas twin: the JAX package's int8 contraction is XLA's
         dict(kernel_rec("int8_gemm", "bigdl_tpu_torch/csrc/int8_gemm_sm90.cu",
                         "bigdl_tpu/quantization/quantize.py:89", r21["row"],

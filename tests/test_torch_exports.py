@@ -14,7 +14,8 @@ import pytest
 
 PACKAGES = ["", "nn", "optim", "dataset", "models", "parallel", "serving",
             "kernels", "utils", "observability", "transform",
-            "visualization", "native", "quantization", "ops", "loaders"]
+            "visualization", "native", "quantization", "ops", "loaders",
+            "keras", "nn.keras", "dlframes", "util"]
 
 # public names of JAX's packages the port does not export yet, by package,
 # with the ROADMAP item that ports them

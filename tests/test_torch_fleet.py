@@ -435,6 +435,51 @@ def test_disaggregated_tokens_bitwise_monolithic_greedy_sampled_and_swap():
     assert fleet_threads_alive() == 0
 
 
+def test_a_cadence_audit_inside_an_export_does_not_quarantine():
+    """An export holds ownerless references to its chain's blocks while it
+    copies them (``retain`` ... ``release``, on the agent's handoff
+    thread), and the scheduler's cadence audit runs on its loop thread at
+    any moment. An audit inside that window must not read the export's
+    references as a leak and quarantine the prefill pool, which then
+    registers no prefix and exports nothing (ROADMAP C.11: a whole smoke
+    handed off 9 of 16 prompts, then none). Here the audit lands inside
+    every export's window; it completes once the export is done."""
+    m = _model()
+    fd = tempfile.mkdtemp(prefix="fleet_audit_")
+    ags, (rpf, rd0) = _agents(fd, m, [("pf", "prefill", {}),
+                                      ("d0", "decode", {})])
+    pf = ags[0].engine
+    export, audits, threads = pf.kv.export_blocks, [], []
+
+    def export_under_audit(*a, **kw):
+        t = threading.Thread(target=lambda: audits.append(
+            pf._audit("cadence")))
+        threads.append(t)
+        t.start()
+        t.join(0.3)         # the loop's audit, inside the export's window
+        return export(*a, **kw)
+    pf.kv.export_blocks = export_under_audit
+    try:
+        rpf.start()
+        router = Router([rd0]).start()
+        dis = DisaggregatedFleet(router, [rpf], [rd0])
+        for p in _prompts(np.random.RandomState(7), (33, 40, 52)):
+            dis.submit(p, max_new_tokens=4).result(timeout=120)
+        for t in threads:
+            t.join(30)
+        st = dis.stats()
+        assert st["handoffs"] == 3 and st["direct"] == 0, st
+        assert len(audits) == 3 and all(r["ok"] for r in audits), audits
+        ps = rpf.stats()
+        assert not ps["quarantined"] and ps["kv_corruptions"] == 0, ps
+        router.shutdown()
+    finally:
+        pf.kv.export_blocks = export
+        for a in ags:
+            a.shutdown()
+    assert fleet_threads_alive() == 0
+
+
 def test_warm_replica_refills_spilled_chains_from_source():
     m = _model()
     fd = tempfile.mkdtemp(prefix="fleet_warm_")

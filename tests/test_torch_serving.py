@@ -353,10 +353,17 @@ def test_port_imports_neither_jax_nor_bigdl_tpu():
             "'loaders.wire', 'loaders.bigdl_proto', 'loaders.caffe', "
             "'loaders.caffe_persister', 'loaders.torchfile', "
             "'loaders.tensorflow', 'loaders.tf_saver', "
-            "'loaders.tf_session'):\n"
+            "'loaders.tf_session', 'keras', 'keras.topology', "
+            "'keras.layers', 'keras.converter', 'keras.backend', "
+            "'nn.keras', 'nn.keras.layer', 'nn.keras.topology', "
+            "'dlframes', 'dlframes.dl_estimator', "
+            "'dlframes.dl_image_reader', 'dlframes.dl_classifier', "
+            "'dlframes.dl_image_transformer', 'util', 'util.common', "
+            "'util._parity', 'util.tf_utils'):\n"
             "    assert 'bigdl_tpu_torch.' + want in names, want\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'bigdl_tpu', 'ml_dtypes', 'tensorflow')]\n"
+            "('jax', 'bigdl_tpu', 'ml_dtypes', 'tensorflow', 'h5py', "
+            "'pandas', 'keras')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,

@@ -398,7 +398,10 @@ MIRRORED = ["parallel.failure", "parallel.chaos", "observability.metrics",
             "observability.perf", "utils.shape", "utils.misc", "ops.ops",
             "loaders.wire", "loaders.bigdl_proto", "loaders.caffe",
             "loaders.caffe_persister", "loaders.torchfile",
-            "loaders.tensorflow", "loaders.tf_saver", "loaders.tf_session"]
+            "loaders.tensorflow", "loaders.tf_saver", "loaders.tf_session",
+            "keras.topology", "keras.layers", "keras.converter",
+            "keras.backend", "dlframes.dl_estimator",
+            "dlframes.dl_image_reader", "util.common", "util.tf_utils"]
 # public JAX members a mirrored module re-exports from a module the port
 # does not have yet, with the ROADMAP item that ports them (the member test
 # above counts the members a module defines)
