@@ -67,7 +67,7 @@ SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
                                    "fused_gemm.cuh"),
            "paged_attention_sm90": ("paged_attention_sm90.cu",
                                     "attn_tile.cuh"),
-           "int8_gemm_sm90": ("int8_gemm_sm90.cu",)}
+           "int8_gemm_sm90": ("int8_gemm_sm90.cu", "attn_sm90.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

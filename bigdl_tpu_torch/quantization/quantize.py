@@ -5,9 +5,12 @@
 Weights are quantized per output channel to int8 (symmetric, scale =
 max|w| / 127); activations per tensor, dynamically (one max-reduce a call)
 or from a static calibrated scale (``calibration.calibrate``). The
-int8 x int8 -> int32 contractions go through ``kernels.int8_matmul``
-(``int8_matmul`` / ``int8_conv2d``): on the card the hand-written
-tensor-core GEMM, on the CPU their exact int32 plain versions. The
+int8 x int8 -> int32 contractions and the float32 rescale and bias after
+them (``acc.to(float32) * (xs * scale) + bias``) go through
+``kernels.int8_matmul`` (``int8_matmul`` / ``int8_conv2d`` with ``scale=``
+/ ``bias=``): on the card the hand-written tensor-core GEMM with the
+rescale and bias in its epilogue, on the CPU their exact int32 plain
+versions followed by the same float32 operations. The quantizing
 rescales are the JAX package's float32 operations in its order:
 ``maximum(absmax, 1e-8) / 127``, then ``round(x / scale)`` (half to even,
 as ``jnp.round``), clipped to +-127.
@@ -132,12 +135,10 @@ class QuantizedLinear(_Quantized):
     def call(self, params, x):
         xq, xs = _activation(params, x)
         k = x.shape[-1]
-        acc = int8_matmul(xq.reshape(-1, k).contiguous(), params["qweight"])
-        acc = acc.reshape(x.shape[:-1] + (self.output_size,))
-        y = acc.to(torch.float32) * (xs * params["scale"])
-        if self.with_bias:
-            y = y + params["bias"]
-        return y
+        y = int8_matmul(xq.reshape(-1, k).contiguous(), params["qweight"],
+                        scale=xs * params["scale"],
+                        bias=params["bias"] if self.with_bias else None)
+        return y.reshape(x.shape[:-1] + (self.output_size,))
 
 
 def _conv_cfg(conv: SpatialConvolution):
@@ -155,10 +156,6 @@ def _sep_cfg(sep: SpatialSeparableConvolution):
         n_input_channel=sep.n_input_channel, kh=sep.kh, kw=sep.kw,
         sh=sep.sh, sw=sep.sw, ph=sep.ph, pw=sep.pw, has_bias=sep.has_bias,
         name=sep.name)
-
-
-def _rescale(acc, xs, scale):
-    return acc.to(torch.float32) * (xs * scale)[None, :, None, None]
 
 
 class QuantizedSpatialConvolution(_Quantized):
@@ -192,11 +189,9 @@ class QuantizedSpatialConvolution(_Quantized):
         xq, xs = _activation(params, x)
         pads = _resolve_pads(x.shape[2:], c.kernel, c.stride, c.padding,
                              c.dilation)
-        acc = int8_conv2d(xq, params["qweight"], c.stride, pads, c.dilation,
-                          c.n_group)
-        y = _rescale(acc, xs, params["scale"])
-        if c.with_bias:
-            y = y + params["bias"][None, :, None, None]
+        y = int8_conv2d(xq, params["qweight"], c.stride, pads, c.dilation,
+                        c.n_group, scale=xs * params["scale"],
+                        bias=params["bias"] if c.with_bias else None)
         return y[0] if squeeze else y
 
 
@@ -237,14 +232,11 @@ class QuantizedSpatialSeparableConvolution(_Quantized):
         xq, xs = _activation(params, x)
         stride = (c.sh, c.sw)
         pads = _resolve_pads(x.shape[2:], (c.kh, c.kw), stride, (c.ph, c.pw))
-        acc = int8_conv2d(xq, params["qdepth"], stride, pads, 1,
-                          c.n_input_channel)
-        mid = _rescale(acc, xs, params["dscale"])
+        mid = int8_conv2d(xq, params["qdepth"], stride, pads, 1,
+                          c.n_input_channel, scale=xs * params["dscale"])
         mq, ms = _dynamic_quantize(mid)
-        acc2 = int8_conv2d(mq, params["qpoint"])
-        y = _rescale(acc2, ms, params["pscale"])
-        if c.has_bias:
-            y = y + params["bias"][None, :, None, None]
+        y = int8_conv2d(mq, params["qpoint"], scale=ms * params["pscale"],
+                        bias=params["bias"] if c.has_bias else None)
         return y[0] if squeeze else y
 
 

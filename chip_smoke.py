@@ -384,21 +384,28 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    agent warmed from r0 and back down, no request lost. The agents report
    their kernel launches through the ``stats`` op.
 21. int8 quantization (phase 21, ``quantized``; sizes in ``Q21``): (a) the
-   int8 GEMM ``csrc/int8_gemm_sm90.cu`` bit for bit its plain version
-   (int32 on the host) at Inception's first convolution (K = 147), a 3x3
-   at K = 1440, a depthwise 3x3 (G = C, K = 9) and a ragged shape, timed
-   beside ``torch._int_mm`` where it takes the shape, a bf16 product and
-   the bound; (b) int8 Inception v1 (``calibrate`` on 8 images,
-   ``quantize(calibration=)``, B32/224) against the float model (top-1
-   agreement >= 0.5, relative logit error < 0.25), images/s and the
-   kernel's launches; (c) the flagship served from bf16, int8 and int4
+   int8 GEMM ``csrc/int8_gemm_sm90.cu`` bit for bit an exact reference, in
+   int32 and with the quantized layers' fused epilogue (float32 acc * s +
+   bias), at Inception's first convolution (K = 147), a 3x3 at K = 1440,
+   a depthwise 3x3 (G = C, K = 9) and a ragged shape (int32 on the host)
+   and at every distinct contraction of (b)'s forward (a float64 product
+   on the card), the kernel timed alone (CUDA graphs) beside
+   ``torch._int_mm`` where it takes the shape, a bf16 product and the
+   bound, and summed over the forward's 58; (b) int8 Inception v1
+   (``calibrate`` on 8 images, ``quantize(calibration=)``, B32/224)
+   against the float model (top-1 agreement >= 0.5, relative logit error
+   < 0.25), images/s and the kernel's launches by route (57 + 1, their
+   shapes (a)'s), and a profile of two forwards split by family (the
+   GEMM, the im2col / pad copies, the activation quantize, what is left
+   of the rescale, everything else), launches and busy share; (c) the flagship served from bf16, int8 and int4
    weights published with ``transform=quantize_lm_params``: logits
    against bf16 (0.08 / 0.2), served pages against the dense prefill,
    ``lm_quantized_bytes`` against its formula, tokens/s; (d) phase 5's
    remat-off step runs through ``observability.perf``: its ``perf/mfu``
    in (0, 1] and its counted FLOPs 0.98 - 1.25 x bench_extra.py's
    analytic count. ``int8_gemm`` in the kernels line carries phase 21
-   (b)'s launches (the comparisons of (a) are not counted).
+   (b)'s launches and routes (the comparisons of (a) are not counted),
+   the fused ms and (a)'s sums over the 58.
 22. the model-file formats and the TF-style ops (phase 22, ``loaders``;
    sizes in ``L22``): (a) phase 4's flagship with bf16 weights through
    ``loaders.bigdl_proto.save_bigdl`` and ``load_bigdl(device=None)``:
@@ -7837,58 +7844,234 @@ Q21 = dict(gemm=[("inception conv1 im2col", (8 * 112 * 112, 64, 147)),
 QUANT_TOL = {8: 0.08, 4: 0.2}    # JAX's logit bounds (test_quantization.py)
 
 
-def _int8_case(torch, K, name, a, b, w=None, dev="cuda"):
-    """The int8 GEMM against its plain version (int32 on the host: no
-    CUDA op takes int32 products) bit for bit, timed on the card beside
-    torch._int_mm where it takes the shape, a bf16 cuBLAS product of the
-    same M, N, K, and the bound. ``w`` set: a depthwise convolution of
-    ``a`` (B, C, H, W) by ``w`` (C, 1, 3, 3), im2col included."""
+def inception_int8_shapes(B=32):
+    """(name, M, N, K) of the int8 Inception v1 forward at B/224
+    (``models/inception.py``): its 57 convolutions in model order (M = B
+    Ho Wo, N = output channels, K = C kh kw), then the classifier."""
+    out = [("conv1/7x7_s2", B * 112 * 112, 64, 147),
+           ("conv2/3x3_reduce", B * 56 * 56, 64, 64),
+           ("conv2/3x3", B * 56 * 56, 192, 576)]
+    blocks = [("3a", 28, 192, (64, 96, 128, 16, 32, 32)),
+              ("3b", 28, 256, (128, 128, 192, 32, 96, 64)),
+              ("4a", 14, 480, (192, 96, 208, 16, 48, 64)),
+              ("4b", 14, 512, (160, 112, 224, 24, 64, 64)),
+              ("4c", 14, 512, (128, 128, 256, 24, 64, 64)),
+              ("4d", 14, 512, (112, 144, 288, 32, 64, 64)),
+              ("4e", 14, 528, (256, 160, 320, 32, 128, 128)),
+              ("5a", 7, 832, (256, 160, 320, 32, 128, 128)),
+              ("5b", 7, 832, (384, 192, 384, 48, 128, 128))]
+    for name, hw, cin, (c1, r3, c3, r5, c5, pp) in blocks:
+        M = B * hw * hw
+        out += [(f"{name}/1x1", M, c1, cin),
+                (f"{name}/3x3_reduce", M, r3, cin),
+                (f"{name}/3x3", M, c3, 9 * r3),
+                (f"{name}/5x5_reduce", M, r5, cin),
+                (f"{name}/5x5", M, c5, 25 * r5),
+                (f"{name}/pool_proj", M, pp, cin)]
+    out.append(("loss3/classifier", B, 1000, 1024))
+    return out
+
+
+def int8_bound(M, N, K, G=1, out_bytes=4, a_bytes=None):
+    """(bound ms, 'bytes' or 'operations') of an int8 contraction: A
+    (``a_bytes``, default G M K) and B read once, the output written once
+    at 3.35 TB/s, against 2 G M N K operations at 1979 TOP/s."""
+    nbytes = (G * M * K if a_bytes is None else a_bytes) + G * N * K \
+        + out_bytes * G * M * N
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * G * M * N * K / INT8_INT32_OPS * 1e3
+    return max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
+
+
+def _int8_case(torch, name, M, N, Kd, i8, g, dev="cuda", host=True,
+               count=1):
+    """The int8 GEMM at (M, N, K) on random int8 operands, bit for bit an
+    exact reference twice: int32 out, and with the quantized layers' fused
+    epilogue (float32 ``acc * s + bias``, random s and bias) against
+    ``acc.to(float32) * s + bias`` by torch ops. ``host``: the reference
+    is ``int8_matmul_reference`` on the host (its ms is the plain
+    version's), else a float64 product on the card (exact: every |sum| <
+    2^31 < 2^53). The kernel alone is timed (CUDA graphs) on the operands
+    the convolution path hands it (rows padded to 16 bytes), int32 and
+    fused, beside torch._int_mm where it takes the shape, a bf16 cuBLAS
+    product of the same M, N, K and the bound."""
+    import bigdl_tpu_torch.kernels.int8_matmul  # noqa: F401 (the module)
+    I = sys.modules["bigdl_tpu_torch.kernels.int8_matmul"]
+    a, b = i8(M, Kd), i8(N, Kd)
+    s = torch.rand(N, device=dev, generator=g) * 1e-3
+    bias = torch.randn(N, device=dev, generator=g)
+    got = I.int8_matmul(a, b)
+    gotf = I.int8_matmul(a, b, scale=s, bias=bias)
+    t0 = time.perf_counter()
+    if host:
+        want = I.int8_matmul_reference(a.cpu(), b.cpu())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        wantf = want.to(torch.float32) * s.cpu() + bias.cpu()
+    else:
+        want = (a.double() @ b.double().T).to(torch.int32)
+        plain_ms = None
+        wantf = want.to(torch.float32) * s + bias
+    check(torch.equal(got.cpu(), want.cpu()), f"[21] (a) int8 GEMM {name}: "
+          f"int32 differs from the exact product")
+    check(torch.equal(gotf.cpu(), wantf.cpu()), f"[21] (a) int8 GEMM {name}: "
+          f"the fused epilogue differs from acc.to(float32) * s + bias")
+    pl = I.plan(1, M, N, Kd, I._sm_count(torch.device(dev)) if dev == "cuda"
+                else I.SMS)
+    rec = {"name": name, "M": M, "N": N, "K": Kd, "G": 1, "count": count,
+           "tile_n": pl.tile_n, "splits": pl.splits, "max_abs_err": 0.0,
+           "plain_ms": plain_ms, "library_ms": None}
+    rec["bound_ms"], rec["bound_by"] = int8_bound(M, N, Kd)
+    if dev != "cuda":
+        rec.update(ms=None, fused_ms=None, bf16_ms=None)
+        return rec
+    ap, lda = I._kmajor(a)
+    bp, ldb = I._kmajor(b)
+    c = torch.empty(M, N, dtype=torch.int32, device=dev)
+    cf = torch.empty(M, N, dtype=torch.float32, device=dev)
+    gemm = (1, M, N, Kd, lda, ldb, N, M * lda, N * ldb, M * N)
+    rec["ms"] = graph_ms(torch, lambda i: I._launch(ap, bp, c, *gemm), 1)
+    rec["fused_ms"] = graph_ms(
+        torch, lambda i: I._launch(ap, bp, cf, *gemm, s, bias, 0), 1)
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    rec["bf16_ms"] = graph_ms(torch, lambda i: ab @ bb.T, 1, reps=10)
+    if M > 16 and Kd % 8 == 0 and N % 8 == 0:    # what _int_mm takes
+        bt = b.T
+        rec["library_ms"] = graph_ms(
+            torch, lambda i: torch._int_mm(a, bt), 1, reps=10)
+    return rec
+
+
+def _int8_depthwise(torch, name, B, C, H, i8, g, dev="cuda"):
+    """A depthwise 3x3 (G = C groups, N = 1, K = 9) through
+    ``int8_conv2d``, im2col included, bit for bit its plain version (int32
+    on the host) in int32 and with the fused epilogue; timed beside a cuDNN
+    bf16 depthwise convolution and the bound (the input read once)."""
     import torch.nn.functional as F
     import bigdl_tpu_torch.kernels.int8_matmul  # noqa: F401 (the module)
     I = sys.modules["bigdl_tpu_torch.kernels.int8_matmul"]
-    if w is None:
-        fn = lambda: I.int8_matmul(a, b)
-        plain = lambda: I.int8_matmul_reference(a.cpu(), b.cpu())
-        (M, Kd), N, G = a.shape, b.shape[0], 1
-        nbytes = a.numel() + b.numel() + 4 * M * N
-    else:
-        C = a.shape[1]
-        fn = lambda: I.int8_conv2d(a, w, 1, 1, 1, C)
-        plain = lambda: I.int8_conv2d_reference(a.cpu(), w.cpu(), 1, 1, 1,
-                                                C)
-        M, N, Kd, G = a.shape[0] * a.shape[2] * a.shape[3], 1, 9, C
-        nbytes = a.numel() + w.numel() + 4 * a.numel()
-    got = fn()
+    x, w = i8(B, C, H, H), i8(C, 1, 3, 3)
+    s = torch.rand(C, device=dev, generator=g) * 1e-3
+    bias = torch.randn(C, device=dev, generator=g)
+    got = I.int8_conv2d(x, w, 1, 1, 1, C)
+    gotf = I.int8_conv2d(x, w, 1, 1, 1, C, scale=s, bias=bias)
     t0 = time.perf_counter()
-    want = plain()
+    want = I.int8_conv2d_reference(x.cpu(), w.cpu(), 1, 1, 1, C)
     plain_ms = (time.perf_counter() - t0) * 1e3
+    wantf = want.to(torch.float32) * s.cpu()[None, :, None, None] \
+        + bias.cpu()[None, :, None, None]
     check(tuple(got.shape) == tuple(want.shape)
           and torch.equal(got.cpu(), want), f"[21] (a) int8 GEMM {name}: "
           f"differs from its plain version")
-    flops = 2 * G * M * N * Kd
-    rec = {"name": name, "M": M, "N": N, "K": Kd, "G": G,
+    check(torch.equal(gotf.cpu(), wantf), f"[21] (a) int8 GEMM {name}: the "
+          f"fused epilogue differs from acc.to(float32) * s + bias")
+    M = B * H * H
+    rec = {"name": name, "M": M, "N": 1, "K": 9, "G": C, "count": 1,
            "max_abs_err": 0.0, "plain_ms": plain_ms, "library_ms": None}
-    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / INT8_INT32_OPS * 1e3
-    rec["bound_ms"] = max(t_mem, t_ops)
-    rec["bound_by"] = "bytes" if t_mem >= t_ops else "operations"
+    rec["bound_ms"], rec["bound_by"] = int8_bound(M, 1, 9, C,
+                                                  a_bytes=x.numel())
     if dev != "cuda":
-        rec.update(ms=None, bf16_ms=None)
+        rec.update(ms=None, fused_ms=None, bf16_ms=None)
         return rec
-    rec["ms"] = event_ms(torch, fn)
-    if w is None:
-        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        rec["bf16_ms"] = graph_ms(torch, lambda i: ab @ bb.T, 1, reps=10)
-        if M > 16 and Kd % 8 == 0 and N % 8 == 0:    # what _int_mm takes
-            bt = b.T
-            rec["library_ms"] = graph_ms(
-                torch, lambda i: torch._int_mm(a, bt), 1, reps=10)
-    else:
-        xb = a.to(torch.bfloat16)
-        wb = w.to(torch.bfloat16)
-        rec["bf16_ms"] = graph_ms(torch, lambda i: F.conv2d(
-            xb, wb, None, 1, 1, 1, a.shape[1]), 1, reps=10)
+    rec["ms"] = graph_ms(torch, lambda i: I.int8_conv2d(x, w, 1, 1, 1, C), 1)
+    rec["fused_ms"] = graph_ms(torch, lambda i: I.int8_conv2d(
+        x, w, 1, 1, 1, C, scale=s, bias=bias), 1)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    rec["bf16_ms"] = graph_ms(torch, lambda i: F.conv2d(
+        xb, wb, None, 1, 1, 1, C), 1, reps=10)
     return rec
+
+
+def _int8_conv_layouts(torch, i8, g, dev="cuda"):
+    """``int8_conv2d`` on NCHW and on channels-last inputs (the layout the
+    kernel writes, which the next layer reads through its own strides) at
+    Inception's kinds of convolution, bit for bit the plain version (int32
+    on the host), int32 and with the fused epilogue. Returns the cases
+    checked."""
+    import bigdl_tpu_torch.kernels.int8_matmul  # noqa: F401 (the module)
+    I = sys.modules["bigdl_tpu_torch.kernels.int8_matmul"]
+    cases = [((2, 64, 28, 28), (48, 64, 1, 1), 1, 0),    # 1x1: no copy
+             ((2, 96, 28, 28), (128, 96, 3, 3), 1, 1),
+             ((2, 24, 14, 14), (64, 24, 5, 5), 1, 2),   # K = 600
+             ((2, 3, 56, 56), (64, 3, 7, 7), 2, 3)]     # K = 147
+    n = 0
+    for xs, ws, st, pd in cases:
+        x, w = i8(*xs), i8(*ws)
+        s = torch.rand(ws[0], device=dev, generator=g) * 1e-3
+        bias = torch.randn(ws[0], device=dev, generator=g)
+        want = I.int8_conv2d_reference(x.cpu(), w.cpu(), st, pd)
+        wantf = want.to(torch.float32) * s.cpu()[None, :, None, None] \
+            + bias.cpu()[None, :, None, None]
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            xf = x.contiguous(memory_format=fmt)
+            got = I.int8_conv2d(xf, w, st, pd)
+            gotf = I.int8_conv2d(xf, w, st, pd, scale=s, bias=bias)
+            check(torch.equal(got.cpu(), want) and torch.equal(gotf.cpu(),
+                                                               wantf),
+                  f"[21] (a) int8_conv2d x{xs} w{ws} ({fmt}) differs from "
+                  f"its plain version")
+            n += 1
+    return n
+
+
+def _int8_profile(torch, fwd, n=2):
+    """``n`` int8 forwards under ``torch.profiler``, the device ms a
+    forward by family: the GEMM (``int8_matmul._launch``), the im2col and
+    pad copies (``_conv_operands``, ``_kmajor``), the activation quantize
+    (``quantize._activation``), what else the quantized layers launch (the
+    rescale and bias left: now the ``xs * scale`` vector products), and
+    everything else (ReLU, pools, LRN, concatenations, the softmax). Each
+    family is a ``record_function`` range around those functions, patched
+    in for the run; on the device timeline each kernel goes to the
+    innermost range that holds it. Also the kernel launches and the device
+    ms a forward (the kernels' own times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import bigdl_tpu_torch.kernels.int8_matmul  # noqa: F401 (the module)
+    import bigdl_tpu_torch.quantization.quantize  # noqa: F401 (the module)
+    I = sys.modules["bigdl_tpu_torch.kernels.int8_matmul"]
+    Q = sys.modules["bigdl_tpu_torch.quantization.quantize"]
+    ranges = [(I, "_launch", "GEMM"), (I, "_conv_operands", "im2col / pad copies"),
+              (I, "_kmajor", "im2col / pad copies"),
+              (Q, "_activation", "activation quantize"),
+              (Q.QuantizedSpatialConvolution, "call", "rescale / bias left"),
+              (Q.QuantizedLinear, "call", "rescale / bias left")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in ranges]
+
+    def wrap(fn, label):
+        def ranged(*args, **kwargs):
+            with record_function("int8/" + label):
+                return fn(*args, **kwargs)
+        return ranged
+    try:
+        for (obj, attr, label), (_, _, fn) in zip(ranges, saved):
+            setattr(obj, attr, wrap(fn, label))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fwd()
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end, e.name[len("int8/"):])
+             for e in dev if e.name.startswith("int8/")]
+    kernels = [e for e in dev if not e.name.startswith("int8/")]
+    fams = dict.fromkeys(["GEMM", "im2col / pad copies",
+                          "activation quantize", "rescale / bias left",
+                          "everything else"], 0.0)
+    for k in kernels:
+        t0, t1 = k.time_range.start, k.time_range.end
+        inside = [sp for sp in spans if sp[0] <= t0 and t1 <= sp[1]]
+        label = min(inside, key=lambda sp: sp[1] - sp[0])[2] if inside \
+            else "everything else"
+        fams[label] += (t1 - t0) / 1e3 / n
+    gemm = sum(k.time_range.end - k.time_range.start for k in kernels
+               if "int8_gemm_kernel" in k.name) / 1e3 / n
+    return {"families_ms": {k: round(v, 4) for k, v in fams.items()},
+            "gemm_kernels_ms": gemm, "device_ms": sum(fams.values()),
+            "launches": len(kernels) / n, "ranges": len(spans) / n}
 
 
 def _lm_quant_bytes(cfg, bits, group):
@@ -7906,15 +8089,16 @@ def _lm_quant_bytes(cfg, bits, group):
 
 
 def quantized(torch, K, card, dev="cuda"):
-    """Phase 21: (a) the int8 GEMM against its plain version bit for bit at
-    Inception's first convolution (K = 147), a 3x3 at K = 1440, a
-    depthwise 3x3 (G = C, K = 9) and a ragged shape, timed beside
+    """Phase 21: (a) the int8 GEMM against exact references bit for bit,
+    int32 and with the fused epilogue, at Inception's first convolution
+    (K = 147), a 3x3 at K = 1440, a depthwise 3x3 (G = C, K = 9), a ragged
+    shape and every distinct contraction of (b)'s forward, timed beside
     torch._int_mm, a bf16 product and the bound; (b) int8 Inception v1:
     ``calibrate`` on Q21['calib'] images, ``quantize(calibration=)``, a
     B32/224 forward against the float model's (top-1 agreement >= 0.5,
     relative logit error < 0.25, JAX's bounds; the logits are the
-    LogSoftMax outputs less their row means), images/s of both and the
-    kernel's launches; (c) the flagship served from bf16, int8 and int4
+    LogSoftMax outputs less their row means), images/s of both, the
+    kernel's launches by route and a profile split by family; (c) the flagship served from bf16, int8 and int4
     (group 128) weights published through ``ModelRegistry.publish(
     transform=quantize_lm_params)`` and ``DecodeScheduler`` over the paged
     pool: logits against the bf16 model's (0.08 / 0.2), the served pages
@@ -7934,22 +8118,55 @@ def quantized(torch, K, card, dev="cuda"):
         return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
                              generator=g)
 
-    # (a) the kernel against its plain version
+    # (a) the kernel against exact references, int32 and fused, at Q21's
+    # four shapes and at every distinct contraction of (b)'s forward
     for name, (M, N, Kd) in Q21["gemm"]:
-        out["gemm"].append(_int8_case(torch, K, name, i8(M, Kd), i8(N, Kd),
-                                      dev=dev))
+        out["gemm"].append(_int8_case(torch, name, M, N, Kd, i8, g, dev))
     name, (B, C, H) = Q21["dw"]
-    out["gemm"].append(_int8_case(torch, K, name, i8(B, C, H, H), None,
-                                  i8(C, 1, 3, 3), dev=dev))
-    for r in out["gemm"]:
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        ms = "n/a" if r["ms"] is None else f"{r['ms']:.4f}"
-        bf = "n/a" if r["bf16_ms"] is None else f"{r['bf16_ms']:.4f}"
+    out["gemm"].append(_int8_depthwise(torch, name, B, C, H, i8, g, dev))
+    n_layouts = _int8_conv_layouts(torch, i8, g, dev)
+    print(f"[21] (a) int8_conv2d at 1x1, 3x3, 5x5 (K = 600) and 7x7 / 2 (K "
+          f"= 147) on NCHW and channels-last inputs: {n_layouts} cases bit "
+          f"for bit the plain version, int32 and fused", flush=True)
+    distinct = {}
+    for name, M, N, Kd in inception_int8_shapes(Q21["B"]):
+        distinct.setdefault((M, N, Kd), []).append(name)
+    out["model_gemm"] = [
+        _int8_case(torch, names[0], M, N, Kd, i8, g, dev, host=False,
+                   count=len(names))
+        for (M, N, Kd), names in distinct.items()]
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    fmt = lambda v: "n/a" if v is None else f"{v:.4f}"
+    for r in out["gemm"] + out["model_gemm"]:
+        plan = f", plan {r['tile_n']} wide x {r['splits']}" \
+            if "tile_n" in r else ""
         print(f"[21] (a) int8 GEMM {r['name']} (G {r['G']}, M {r['M']}, "
-              f"N {r['N']}, K {r['K']}): equal to the plain version; "
-              f"{ms} ms, torch._int_mm {lib}, bf16 product {bf}, plain "
-              f"(host int32) {r['plain_ms']:.1f} ms, bound "
+              f"N {r['N']}, K {r['K']}, x{r['count']}{plan}): int32 and "
+              f"fused epilogue bit for bit; {fmt(r['ms'])} ms, fused "
+              f"{fmt(r['fused_ms'])} ms, torch._int_mm "
+              f"{fmt(r['library_ms'])}, bf16 product {fmt(r['bf16_ms'])}, "
+              f"plain (host int32) {fmt(r['plain_ms'])} ms, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) ({card})", flush=True)
+    mg = out["model_gemm"]
+    out["model_sum"] = {"contractions": sum(r["count"] for r in mg),
+                        "bound_ms": sum(r["count"] * r["bound_ms"]
+                                        for r in mg)}
+    if dev == "cuda":
+        for key in ("ms", "fused_ms", "bf16_ms"):
+            out["model_sum"][key] = sum(r["count"] * r[key] for r in mg)
+        lib = [r for r in mg if r["library_ms"] is not None]
+        out["model_sum"]["int_mm_ms"] = sum(r["count"] * r["library_ms"]
+                                            for r in lib)
+        out["model_sum"]["int_mm_contractions"] = sum(r["count"]
+                                                      for r in lib)
+        ms_ = out["model_sum"]
+        print(f"[21] (a) the B{Q21['B']} forward's {ms_['contractions']} "
+              f"contractions summed: int32 {ms_['ms']:.4f} ms, fused "
+              f"{ms_['fused_ms']:.4f} ms, bound {ms_['bound_ms']:.4f} ms; "
+              f"torch._int_mm {ms_['int_mm_ms']:.4f} ms over the "
+              f"{ms_['int_mm_contractions']} it takes, bf16 products "
+              f"{ms_['bf16_ms']:.4f} ms ({card})", flush=True)
     out["row"] = next(r for r in out["gemm"] if r["name"] == Q21["main"])
 
     # (b) int8 Inception v1 (bench_extra.py bench_inception_int8)
@@ -7964,13 +8181,27 @@ def quantized(torch, K, card, dev="cuda"):
     scales = calibrate(model, [cal])
     qmodel = quantize(model, calibration=scales)
     t_q = time.perf_counter() - t0
+    import bigdl_tpu_torch.kernels.int8_matmul  # noqa: F401 (the module)
+    I = sys.modules["bigdl_tpu_torch.kernels.int8_matmul"]
+    shapes = []
+    launch = I._launch
+
+    def recorded(a, b, c, G, M, N, Kd, *rest, **kw):
+        shapes.append((G, M, N, Kd))
+        return launch(a, b, c, G, M, N, Kd, *rest, **kw)
     with torch.no_grad():
         ref = model.forward(x).float()
         K.reset_launch_counts()
-        got = qmodel.forward(x).float()
+        I._launch = recorded
+        try:
+            got = qmodel.forward(x).float()
+        finally:
+            I._launch = launch
         if dev == "cuda":
             torch.cuda.synchronize()
         lc = K.launch_counts()
+        routes = {"int8_conv2d": dict(I.int8_conv2d.launches_by_route),
+                  "int8_matmul": dict(I.int8_matmul.launches_by_route)}
     n_conv = sum(1 for m in qmodel.modules()
                  if type(m).__name__ == "QuantizedSpatialConvolution")
     n_lin = sum(1 for m in qmodel.modules()
@@ -7980,6 +8211,15 @@ def quantized(torch, K, card, dev="cuda"):
     if dev == "cuda":
         check(lc == want, f"[21] (b) int8 Inception launched {lc}, expected "
               f"{want}")
+        check(all(sum(routes[f].values()) == want[f] for f in routes)
+              and all(set(r) == {"tiles", "split_k"}
+                      for r in routes.values()),
+              f"[21] (b) int8 launches by route {routes}, expected {want}")
+        table = sorted((1, M, N, Kd) for _, M, N, Kd in
+                       inception_int8_shapes(B))
+        check(sorted(shapes) == table and S == 224, f"[21] (b) the "
+              f"forward's contractions {sorted(shapes)} are not (a)'s "
+              f"{table}")
     check(tuple(got.shape) == (B, 1000) and bool(torch.isfinite(got).all()),
           f"[21] (b) int8 Inception output {tuple(got.shape)} or "
           f"non-finite")
@@ -7990,7 +8230,8 @@ def quantized(torch, K, card, dev="cuda"):
     gc, rc = got - got.mean(-1, keepdim=True), ref - ref.mean(-1, keepdim=True)
     rel = float((gc - rc).abs().max() / (rc.abs().max() + 1e-8))
     out["inception"] = {"agree": agree, "rel": rel, "launches": lc,
-                        "quantize_s": t_q, "layers": (n_conv, n_lin)}
+                        "routes": routes, "quantize_s": t_q,
+                        "layers": (n_conv, n_lin)}
     if dev == "cuda":
         for tag, m in (("int8", qmodel), ("float", model)):
             with torch.no_grad():
@@ -7998,6 +8239,10 @@ def quantized(torch, K, card, dev="cuda"):
                               iters=3)
             out["inception"][f"{tag}_ms"] = ms
             out["inception"][f"{tag}_images_per_s"] = B / ms * 1e3
+        with torch.no_grad():
+            prof = _int8_profile(torch, lambda: qmodel.forward(x))
+        prof["busy"] = prof["device_ms"] / out["inception"]["int8_ms"]
+        out["inception"]["profile"] = prof
         print(f"[21] (b) int8 Inception v1 B{B}/{S} ({n_conv} int8 "
               f"convolutions, {n_lin} int8 Linear; calibrate + quantize "
               f"{t_q:.2f} s): top-1 agreement with float {agree:.3f}, "
@@ -8006,7 +8251,16 @@ def quantized(torch, K, card, dev="cuda"):
               f"{out['inception']['int8_images_per_s']:.1f} images/s, float "
               f"{out['inception']['float_ms']:.2f} ms = "
               f"{out['inception']['float_images_per_s']:.1f} images/s; "
-              f"launches {lc} ({card})", flush=True)
+              f"launches {lc}, by route {routes} ({card})", flush=True)
+        print(f"[21] (b) profile of two int8 forwards: device ms a forward "
+              f"by family {prof['families_ms']} (the GEMM's kernels "
+              f"{prof['gemm_kernels_ms']:.4f} ms), device "
+              f"{prof['device_ms']:.3f} ms and {prof['launches']:.0f} "
+              f"kernel launches a "
+              f"forward, busy {prof['busy']:.3f} of the "
+              f"{out['inception']['int8_ms']:.2f} ms forward; float model "
+              f"{out['inception']['float_images_per_s']:.1f} images/s "
+              f"({card})", flush=True)
     check(agree >= 0.5 and rel < 0.25, f"[21] (b) int8 Inception: "
           f"agreement {agree}, relative error {rel} (JAX's bounds: >= 0.5, "
           f"< 0.25)")
@@ -8109,6 +8363,8 @@ def quantized(torch, K, card, dev="cuda"):
     del lm, p16, reg, sched
     if dev == "cuda":
         torch.cuda.empty_cache()
+    out["routes"] = {rt: sum(r[rt] for r in out["inception"]["routes"].values())
+                     for rt in ("tiles", "split_k")}
     out["launches"] = out["inception"]["launches"]["int8_conv2d"] \
         + out["inception"]["launches"]["int8_matmul"] + sum(
             out[v]["launches"]["int8_matmul"] + out[v]["launches"][
@@ -10010,7 +10266,8 @@ def main():
         dict(kernel_rec("int8_gemm", "bigdl_tpu_torch/csrc/int8_gemm_sm90.cu",
                         "bigdl_tpu/quantization/quantize.py:89", r21["row"],
                         r21["launches"]),
-             bf16_ms=r21["row"]["bf16_ms"]),
+             bf16_ms=r21["row"]["bf16_ms"], fused_ms=r21["row"]["fused_ms"],
+             routes=r21["routes"], model_sum=r21["model_sum"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
