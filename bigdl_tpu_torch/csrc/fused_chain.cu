@@ -1,9 +1,11 @@
 // Cross-layer fused residual junction + next 1x1 conv + batch statistics (K5)
-// for Hopper on the CUDA cores: the route of float32 shapes whose K or N is
-// not a multiple of 4 (f32) and of bfloat16 shapes whose K or N is not a
-// multiple of 8 (bf16_ragged). Every other shape - every ResNet-50
-// junction - takes a tensor-core route: fused_chain_sm90.cu (bf16) or
-// fused_chain_tf32_sm90.cu (float32, 3xTF32).
+// for Hopper: the ragged routes, the shapes outside the aligned tensor-core
+// rules of fused_chain_sm90.cu (bf16, K and N multiples of 8) and
+// fused_chain_tf32_sm90.cu (float32, K and N multiples of 4). Both dtypes
+// run those files' kernels with the cores' ragged load / store policy (RG =
+// true), at any K and N:
+// - float32 (route f32): 3xTF32 wgmma on fused_gemm_tf32_sm90.cuh;
+// - bfloat16 (route bf16_ragged): bf16 wgmma on fused_gemm_sm90.cuh.
 //
 // Replaces the Pallas kernels of bigdl_tpu/kernels/fused_chain.py: `_cfwd`
 // (forward) and `_cbwd` (the dz/dr/da/db kernel and the dw kernel). Over a
@@ -17,118 +19,181 @@
 //           dz = g a, dr = g, da = sum_m g z, db = sum_m g;  dw = h^T @ dzo_eff
 //
 // What bounds it on an H100: the junction is the widest activation of a
-// stage (K = 4 N), and the product does 2 K N operations per pixel against
-// 3 K + N elements moved, below the bf16 balance point of ~295 operations
-// per byte in stages 0-1, so a kernel at its best is bound by memory there.
-// This version multiplies with float32 FMAs on the CUDA cores through the
-// core it shares with K3's CUDA-core route (fused_gemm.cuh) and is bound by
-// those. What the
-// design does: the epilogue of block n runs in the loads of block n+1's
-// first product, so the junction output is written once (by the blocks of
-// column tile 0) and never read back for the product; the backward rebuilds
-// h and the ReLU mask from z and r rather than reading h; the column sums
-// and the split-K weight gradient are summed in second passes (no atomics).
-#include "fused_gemm.cuh"
+// stage; the forward does 2 K N operations per pixel against 3 K + N
+// elements moved (z and r read, h and zo written), the backward twice the
+// operations against 5 K + 2 N, so both are bound by memory at ResNet-like
+// widths in either dtype, as on the aligned routes. What the design does:
+// the aligned routes' kernels with the ragged policy (the cores' notes): z
+// and r come by 4-byte copies into the swizzled ring (bf16 rows of odd
+// length by 2-byte loads); h = relu(z a + b + r) is made in registers as
+// the A operand and stored once (column tile 0) from the converted tile by
+// coalesced predicated stores, never read back; the weight is prepared once
+// a call (float32: split hi / lo halves, the contraction zero-padded to a
+// whole stage; bf16: rows zero-padded to 8) and streams by TMA; zo, dz and
+// dr leave from the staging tile by predicated stores; the backward
+// rebuilds h and the ReLU mask from z and r; the column sums, da / db and
+// the split-K weight gradient are summed in fixed-order second passes (no
+// atomics: reruns agree bit for bit).
+#include "fused_gemm_tf32_sm90.cuh"
 
 namespace bigdl_fg {
-
-// The dz/dr epilogue: g = [u > 0] (dh + v), dz = g a, dr = g; sums g z, g.
-template <typename T>
-struct ChainDxEpi {
-  const T* z;
-  const T* r;
-  const T* dh;
-  const float* a;
-  const float* b;
-  T* dz;
-  T* dr;
-  int ld;
-  __device__ __forceinline__ void operator()(int m, int k, float v, float& s1, float& s2) const {
-    const size_t i = (size_t)m * ld + k;
-    const float zf = to_f<T>(z[i]);
-    const float u = __fadd_rn(affine(zf, a[k], b[k]), to_f<T>(r[i]));
-    const float g = u > 0.f ? v + to_f<T>(dh[i]) : 0.f;
-    dz[i] = from_f<T>(g * a[k]);
-    dr[i] = from_f<T>(g);
-    s1 = g * zf;
-    s2 = g;
-  }
-};
-
-}  // namespace bigdl_fg
-
-using namespace bigdl_fg;
-
+namespace sm90 {
 namespace {
 
-template <typename T>
-cudaError_t fwd(const void* z, const void* r, const float* a, const float* b, const void* w,
-                void* h, void* zo, float* part1, float* part2, float* s1, float* s2, int M,
-                int K, int N, int stats, cudaStream_t s) {
-  Resid<T> fa{static_cast<const T*>(z), static_cast<const T*>(r), a, b, static_cast<T*>(h), K};
-  ColsOf<T> fb{static_cast<const T*>(w), N};
-  StoreZ<T> epi{static_cast<T*>(zo), N, stats};
-  cudaError_t e = gemm<true, false, true>(fa, fb, epi, M, N, K, K, 1, stats ? part1 : nullptr,
-                                          part2, s);
+// bfloat16 at any K and N: fused_chain_sm90.cu's kernels with RG, w (K, N)
+// read from its copy with rows of pad8(N) by both products
+cudaError_t fwd_bf16(const void* z, const void* r, const float* a, const float* b, const void* w,
+                     void* h, void* zo, float* part1, float* part2, float* s1, float* s2, int M,
+                     int K, int N, int stats, void* wpad, cudaStream_t s) {
+  cudaError_t e = pad_cols(w, wpad, K, N, s);
+  if (e != cudaSuccess) return e;
+  ResidA<true> aop{};
+  aop.z = static_cast<const bf16*>(z);
+  aop.r = static_cast<const bf16*>(r);
+  aop.a = a;
+  aop.b = b;
+  aop.rows = M;
+  aop.ld = K;
+  e = gemm_rs<128, 1, true>(wpad, zo, aop, StoreZ2{}, M, N, K, stats ? part1 : nullptr, part2,
+                            s, h);
   if (e != cudaSuccess || !stats) return e;
-  const int nm = (M + kBM - 1) / kBM;
+  const int nm = (M + kPartRows - 1) / kPartRows;
   if ((e = sum_rows<float>(part1, nm, N, s1, s)) != cudaSuccess) return e;
   return sum_rows<float>(part2, nm, N, s2, s);
 }
 
-template <typename T>
-cudaError_t bwd(const void* z, const void* r, const float* a, const float* b, const void* w,
-                const void* dh, const void* dzo, const void* zo, const float* ds1,
-                const float* ds2, void* dz, void* dr, void* dw, float* ws, float* part1,
-                float* part2, float* da, float* db, int M, int K, int N, int stats, int splits,
-                int rows_per_split, cudaStream_t s) {
-  const T* zt = static_cast<const T*>(z);
-  const T* rt = static_cast<const T*>(r);
-  DzEff<T> dze{static_cast<const T*>(dzo), static_cast<const T*>(zo), ds1, ds2, N, stats};
-  // dz, dr (M, K) from dzo_eff (M, N) . w (K, N)^T; da, db per block
-  ChainDxEpi<T> epi{zt, rt, static_cast<const T*>(dh), a, b, static_cast<T*>(dz),
-                    static_cast<T*>(dr), K};
-  cudaError_t e = gemm<true, true, true>(dze, RowsOf<T>{static_cast<const T*>(w), N}, epi, M, K,
-                                         N, N, 1, part1, part2, s);
+cudaError_t bwd_bf16(const void* z, const void* r, const float* a, const float* b, const void* w,
+                     const void* dh, const void* dzo, const void* zo, const float* ds1,
+                     const float* ds2, void* dz, void* dr, void* dw, float* ws, float* part1,
+                     float* part2, float* da, float* db, int M, int K, int N, int stats,
+                     int splits, int rows_per_split, void* wpad, cudaStream_t s) {
+  // dz, dr (M, K) from dzo_eff (M, N) . w (K, N)^T, with the ReLU mask, a,
+  // da, db
+  cudaError_t e = pad_cols(w, wpad, K, N, s);
   if (e != cudaSuccess) return e;
-  const int nm = (M + kBM - 1) / kBM;
+  DzEffA<true> aop{};
+  aop.dz = static_cast<const bf16*>(dzo);
+  aop.z = static_cast<const bf16*>(zo);
+  aop.ds1 = ds1;
+  aop.ds2 = ds2;
+  aop.rows = M;
+  aop.ld = N;
+  aop.stats = stats;
+  ChainDxEpi2<bf16, true> epi{static_cast<const bf16*>(z), static_cast<const bf16*>(r),
+                              static_cast<const bf16*>(dh), a, b, K};
+  e = gemm_rs<128, 0, true>(wpad, dz, aop, epi, M, K, N, part1, part2, s, dr);
+  if (e != cudaSuccess) return e;
+  const int nm = (M + kPartRows - 1) / kPartRows;
   if ((e = sum_rows<float>(part1, nm, K, da, s)) != cudaSuccess) return e;
   if ((e = sum_rows<float>(part2, nm, K, db, s)) != cudaSuccess) return e;
-  // dw (K, N) = h^T (K, M) . dzo_eff (M, N), h rebuilt from z and r
-  Swap<Resid<T>> fa{Resid<T>{zt, rt, a, b, nullptr, K}};
-  Swap<DzEff<T>> fb{dze};
-  e = gemm<false, false, false>(fa, fb, StoreSplit{ws, K, N}, K, N, M, rows_per_split, splits,
-                                nullptr, nullptr, s);
+  // dw (K, N) = h^T (K, M) . dzo_eff (M, N), h rebuilt from z and r, split
+  // over M, then summed
+  e = gemm_dw<true, true>(z, dzo, zo, a, b, ds1, ds2, ws, M, K, N, 1, 1, stats, splits,
+                          rows_per_split, s, r);
   if (e != cudaSuccess) return e;
-  return sum_rows<T>(ws, splits, K * N, static_cast<T*>(dw), s);
+  return sum_rows<bf16>(ws, 2 * splits, K * N, static_cast<bf16*>(dw), s);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (z, r, w, h, zo share it; a, b, s1, s2 float32)
+namespace tf32 {
+namespace {
+
+// float32 at any K and N: fused_chain_tf32_sm90.cu's kernels with RG
+cudaError_t fwd_f32(const void* z, const void* r, const float* a, const float* b, const void* w,
+                    void* h, void* zo, float* part1, float* part2, float* s1, float* s2, int M,
+                    int K, int N, int stats, float* wsplit, cudaStream_t s) {
+  // B of zo = h w: w^T (N, kpad(K)), hi and lo
+  float* whi = wsplit;
+  float* wlo = wsplit + (size_t)N * kpad(K);
+  cudaError_t e = split_w(w, whi, wlo, K, N, true, s, true);
+  if (e != cudaSuccess) return e;
+  ResidF<true> aop{};
+  aop.z = static_cast<const float*>(z);
+  aop.r = static_cast<const float*>(r);
+  aop.a = a;
+  aop.b = b;
+  aop.rows = M;
+  aop.ld = K;
+  e = gemm<true>(whi, wlo, zo, aop, StoreZ2{}, M, N, K, stats ? part1 : nullptr, part2, s, h);
+  if (e != cudaSuccess || !stats) return e;
+  const int nm = (M + kPartRows - 1) / kPartRows;
+  if ((e = sum_rows<float>(part1, nm, N, s1, s)) != cudaSuccess) return e;
+  return sum_rows<float>(part2, nm, N, s2, s);
+}
+
+cudaError_t bwd_f32(const void* z, const void* r, const float* a, const float* b, const void* w,
+                    const void* dh, const void* dzo, const void* zo, const float* ds1,
+                    const float* ds2, void* dz, void* dr, void* dw, float* ws, float* part1,
+                    float* part2, float* da, float* db, int M, int K, int N, int stats,
+                    int splits, int rows_per_split, float* wsplit, cudaStream_t s) {
+  // dz, dr (M, K) from dzo_eff (M, N) . w (K, N)^T: its B is w (K, kpad(N))
+  float* whi = wsplit;
+  float* wlo = wsplit + (size_t)K * kpad(N);
+  cudaError_t e = split_w(w, whi, wlo, K, N, false, s, true);
+  if (e != cudaSuccess) return e;
+  DzEffF<true> aop{};
+  aop.dz = static_cast<const float*>(dzo);
+  aop.z = static_cast<const float*>(zo);
+  aop.ds1 = ds1;
+  aop.ds2 = ds2;
+  aop.rows = M;
+  aop.ld = N;
+  aop.stats = stats;
+  ChainDxEpi2<float, true> epi{static_cast<const float*>(z), static_cast<const float*>(r),
+                               static_cast<const float*>(dh), a, b, K};
+  e = gemm<true>(whi, wlo, dz, aop, epi, M, K, N, part1, part2, s, dr);
+  if (e != cudaSuccess) return e;
+  const int nm = (M + kPartRows - 1) / kPartRows;
+  if ((e = sum_rows<float>(part1, nm, K, da, s)) != cudaSuccess) return e;
+  if ((e = sum_rows<float>(part2, nm, K, db, s)) != cudaSuccess) return e;
+  // dw (K, N) = h^T (K, M) . dzo_eff (M, N), h rebuilt from z and r, split
+  // over M, then summed
+  e = gemm_dw<true, true>(z, dzo, zo, a, b, ds1, ds2, ws, M, K, N, 1, 1, stats, splits,
+                          rows_per_split, s, r);
+  if (e != cudaSuccess) return e;
+  return sum_rows<float>(ws, 2 * splits, K * N, static_cast<float*>(dw), s);
+}
+
+}  // namespace
+}  // namespace tf32
+}  // namespace sm90
+}  // namespace bigdl_fg
+
+using namespace bigdl_fg;
+
+// dtype: 0 float32, 1 bfloat16 (z, r, w, h, zo share it; a, b, s1, s2
+// float32); part1/part2 hold ceil(M / 64) x N float32 partial sums; wsplit
+// the weight's scratch: float32 2 x N x kpad(K) float32 (its split halves,
+// kpad: K rounded up to 32), bf16 K x pad8(N) bf16 (its padded copy).
 extern "C" int bigdl_fused_chain_fwd(const void* z, const void* r, const float* a,
                                      const float* b, const void* w, void* h, void* zo,
                                      float* part1, float* part2, float* s1, float* s2,
-                                     int dtype, int M, int K, int N, int stats, void* stream) {
+                                     int dtype, int M, int K, int N, int stats, void* stream,
+                                     float* wsplit) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fwd<float>(z, r, a, b, w, h, zo, part1, part2, s1, s2, M, K, N, stats, s);
-  return fwd<__nv_bfloat16>(z, r, a, b, w, h, zo, part1, part2, s1, s2, M, K, N, stats, s);
+    return sm90::tf32::fwd_f32(z, r, a, b, w, h, zo, part1, part2, s1, s2, M, K, N, stats,
+                               wsplit, s);
+  return sm90::fwd_bf16(z, r, a, b, w, h, zo, part1, part2, s1, s2, M, K, N, stats, wsplit, s);
 }
 
 // z, r, w, dh, dzo, zo, dz, dr, dw in dtype; a, b, ds1, ds2, da, db float32;
-// ws holds splits x K x N float32 partials of dw; part1/part2 ceil(M/128) x K.
+// ws holds 2 x splits x K x N float32 partials of dw (rows_per_split a
+// multiple of 64 for float32, 128 for bf16); part1/part2 ceil(M / 64) x K;
+// wsplit float32 2 x K x kpad(N) float32, bf16 K x pad8(N) bf16.
 extern "C" int bigdl_fused_chain_bwd(const void* z, const void* r, const float* a,
                                      const float* b, const void* w, const void* dh,
                                      const void* dzo, const void* zo, const float* ds1,
                                      const float* ds2, void* dz, void* dr, void* dw, float* ws,
                                      float* part1, float* part2, float* da, float* db,
                                      int dtype, int M, int K, int N, int stats, int splits,
-                                     int rows_per_split, void* stream) {
+                                     int rows_per_split, void* stream, float* wsplit) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows_per_split % (dtype == 0 ? 64 : 128) != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return bwd<float>(z, r, a, b, w, dh, dzo, zo, ds1, ds2, dz, dr, dw, ws, part1, part2, da,
-                      db, M, K, N, stats, splits, rows_per_split, s);
-  return bwd<__nv_bfloat16>(z, r, a, b, w, dh, dzo, zo, ds1, ds2, dz, dr, dw, ws, part1, part2,
-                            da, db, M, K, N, stats, splits, rows_per_split, s);
+    return sm90::tf32::bwd_f32(z, r, a, b, w, dh, dzo, zo, ds1, ds2, dz, dr, dw, ws, part1,
+                               part2, da, db, M, K, N, stats, splits, rows_per_split, wsplit, s);
+  return sm90::bwd_bf16(z, r, a, b, w, dh, dzo, zo, ds1, ds2, dz, dr, dw, ws, part1, part2, da,
+                        db, M, K, N, stats, splits, rows_per_split, wsplit, s);
 }

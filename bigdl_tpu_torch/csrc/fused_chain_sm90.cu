@@ -37,7 +37,7 @@ namespace {
 cudaError_t fwd(const void* z, const void* r, const float* a, const float* b, const void* w,
                 void* h, void* zo, float* part1, float* part2, float* s1, float* s2, int M,
                 int K, int N, int stats, cudaStream_t s) {
-  ResidA aop{};
+  ResidA<> aop{};
   aop.z = static_cast<const bf16*>(z);
   aop.r = static_cast<const bf16*>(r);
   aop.a = a;
@@ -59,7 +59,7 @@ cudaError_t bwd(const void* z, const void* r, const float* a, const float* b, co
                 int rows_per_split, cudaStream_t s) {
   // dz, dr (M, K) from dzo_eff (M, N) . w (K, N)^T, with the ReLU mask, a,
   // da, db
-  DzEffA aop{};
+  DzEffA<> aop{};
   aop.dz = static_cast<const bf16*>(dzo);
   aop.z = static_cast<const bf16*>(zo);
   aop.ds1 = ds1;

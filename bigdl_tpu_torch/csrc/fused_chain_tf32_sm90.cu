@@ -44,7 +44,7 @@ cudaError_t fwd(const void* z, const void* r, const float* a, const float* b, co
   float* wlo = wsplit + (size_t)K * N;
   cudaError_t e = split_w(w, whi, wlo, K, N, true, s);
   if (e != cudaSuccess) return e;
-  ResidF aop{};
+  ResidF<> aop{};
   aop.z = static_cast<const float*>(z);
   aop.r = static_cast<const float*>(r);
   aop.a = a;
@@ -69,7 +69,7 @@ cudaError_t bwd(const void* z, const void* r, const float* a, const float* b, co
   float* wlo = wsplit + (size_t)K * N;
   cudaError_t e = split_w(w, whi, wlo, K, N, false, s);
   if (e != cudaSuccess) return e;
-  DzEffF aop{};
+  DzEffF<> aop{};
   aop.dz = static_cast<const float*>(dzo);
   aop.z = static_cast<const float*>(zo);
   aop.ds1 = ds1;

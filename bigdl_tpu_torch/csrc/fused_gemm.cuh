@@ -1,21 +1,20 @@
 // Shared core of the fused ResNet kernels on the CUDA cores: a tiled
-// float32-FMA product. It serves fused_matmul.cu (K3 and K3-nhwc) and
-// fused_chain.cu (K5) for float32 shapes whose K or N is not a multiple of
-// 4 (route f32) and bf16 shapes whose K or N is not a multiple of 8 (route
-// bf16_ragged), and fused_conv.cu (K4) for every float32 call and those bf16
-// shapes. The tensor-core routes are fused_gemm_sm90.cuh (bf16: K3, K4, K5)
-// and fused_gemm_tf32_sm90.cuh (float32 in 3xTF32: K3, K5), which reuse this
+// float32-FMA product. It serves fused_conv.cu (K4) for float32 calls
+// outside the 3xTF32 rule and bf16 shapes outside the tensor-core rule. The
+// tensor-core routes are fused_gemm_sm90.cuh (bf16: K3, K4, K5; K3 / K5 also
+// at any K and N through its ragged policy) and fused_gemm_tf32_sm90.cuh
+// (float32 in 3xTF32: K3, K4, K5; K3 / K5 likewise), which reuse this
 // header's operand rounding helpers and second pass.
 //
 //   C[r][c] = sum_k A(r, k) * B(c, k)      r < rows, c < cols, k in a range
 //
-// whose operands are not arrays but element functors `f(i, k)`, so that each
-// kernel folds its elementwise prologue (the previous BatchNorm's affine and
-// ReLU, the residual junction, the 3x3 conv's tap gather) into the load of
-// its operand tiles, and whose epilogue functor `epi(r, c, v, s1, s2)` sees
-// each finished float32 sum once (writes the output, and hands back up to
-// two values whose per-column sums over the block's rows the core writes as
-// partials: BatchNorm statistics, or the da/db sums of a backward).
+// whose operands are not arrays but element functors `f(i, k)`, so that a
+// kernel folds its elementwise prologue (the previous BatchNorm's affine
+// and ReLU, the 3x3 conv's tap gather) into the load of its operand tiles,
+// and whose epilogue functor `epi(r, c, v, s1, s2)` sees each finished
+// float32 sum once (writes the output, and hands back up to two values
+// whose per-column sums over the block's rows the core writes as partials:
+// BatchNorm statistics).
 //
 // One 256-thread block owns a 128 x BN tile of C (BN = 64 or 128); thread
 // (ty, tx) = (tid / 16, tid % 16) keeps rows ty + 16 i and columns
@@ -25,11 +24,10 @@
 // broadcast reads of the product hit distinct banks) and feeds 16 x 8 x
 // BN/16 FMAs per thread. Elements outside [0, rows) x [0, cols) or past the
 // contraction range load as 0, which masks ragged edges without padding
-// copies. blockIdx.z selects a contiguous slice of the contraction (split-K
-// for the weight gradients, whose contraction runs over every pixel of the
-// batch); the per-split results are summed by sum_rows_kernel in a second
-// pass. Every cross-block sum goes through such a second pass in a fixed
-// order: there are no atomics, so reruns agree bit for bit.
+// copies. blockIdx.z selects a contiguous slice of the contraction (K4
+// runs one). Every cross-block sum goes through a second pass
+// (sum_rows_kernel) in a fixed order: there are no atomics, so reruns agree
+// bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,61 +70,6 @@ __device__ __forceinline__ float affine(float x, float a, float b) {
 // Operand functors
 // ---------------------------------------------------------------------------
 
-// x_hat(m, k) = act(x * a + b) of a row-major (M, ld) input: the affine in
-// float32, rounded to T (the product's operand type), then ReLU.
-template <typename T>
-struct XHat {
-  const T* x;
-  const float* a;
-  const float* b;
-  int ld;
-  int prologue;
-  int relu;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    float v = to_f<T>(x[(size_t)m * ld + k]);
-    if (prologue) v = round_to<T>(affine(v, a[k], b[k]));
-    return relu ? relu_f(v) : v;
-  }
-};
-
-// dz_eff(m, n) = dz + ds1 + 2 z ds2, rounded to T: the gradients of the
-// statistics s1 = sum z and s2 = sum z^2 folded into the output gradient.
-template <typename T>
-struct DzEff {
-  const T* dz;
-  const T* z;
-  const float* ds1;
-  const float* ds2;
-  int ld;
-  int stats;
-  __device__ __forceinline__ float operator()(int m, int n) const {
-    const size_t i = (size_t)m * ld + n;
-    const float v = to_f<T>(dz[i]);
-    if (!stats) return v;
-    return round_to<T>(__fadd_rn(__fadd_rn(v, ds1[n]),
-                                 __fmul_rn(__fmul_rn(2.f, to_f<T>(z[i])), ds2[n])));
-  }
-};
-
-// h(m, k) = relu(z * a + b + r) rounded to T: block n's residual epilogue.
-// With `h_out`, the blocks of column tile 0 also write it (each element once).
-template <typename T>
-struct Resid {
-  const T* z;
-  const T* r;
-  const float* a;
-  const float* b;
-  T* h_out;
-  int ld;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    const size_t i = (size_t)m * ld + k;
-    const float u = __fadd_rn(affine(to_f<T>(z[i]), a[k], b[k]), to_f<T>(r[i]));
-    const float h = round_to<T>(relu_f(u));
-    if (h_out != nullptr && blockIdx.y == 0) h_out[i] = from_f<T>(h);
-    return h;
-  }
-};
-
 // The implicit im2col of a 3x3 conv (pad 1, stride 1 or 2) over an NHWC
 // input with the BatchNorm prologue: row m is output pixel (b, oh, ow),
 // column kk = tap * C + c with tap = 3 dy + dx (the HWIO weight's row
@@ -165,24 +108,6 @@ struct ColsOf {
   }
 };
 
-// B(c, k) = w[c * ld + k]: the same weight transposed (rows of w as rows of B)
-template <typename T>
-struct RowsOf {
-  const T* w;
-  int ld;
-  __device__ __forceinline__ float operator()(int c, int k) const {
-    return to_f<T>(w[(size_t)c * ld + k]);
-  }
-};
-
-// f with its two indices exchanged (an operand of the weight gradient,
-// whose contraction runs over the pixels m)
-template <class F>
-struct Swap {
-  F f;
-  __device__ __forceinline__ float operator()(int i, int k) const { return f(k, i); }
-};
-
 // ---------------------------------------------------------------------------
 // Epilogue functors: (r, c, v) -> writes; s1, s2 are the values to sum over r
 // ---------------------------------------------------------------------------
@@ -199,16 +124,6 @@ struct StoreZ {
       s1 = v;
       s2 = __fmul_rn(v, v);
     }
-  }
-};
-
-// one split's float32 partial of a weight gradient, summed by sum_rows_kernel
-struct StoreSplit {
-  float* ws;
-  int rows;
-  int cols;
-  __device__ __forceinline__ void operator()(int r, int c, float v, float&, float&) const {
-    ws[((size_t)blockIdx.z * rows + r) * cols + c] = v;
   }
 };
 

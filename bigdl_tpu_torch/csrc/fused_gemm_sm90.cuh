@@ -1,14 +1,13 @@
 // Shared core of the bf16 tensor-core routes of the fused ResNet kernels for
 // Hopper (fused_matmul_sm90.cu: K3 and K3-nhwc, forward and backward;
 // fused_conv_sm90.cu: K4; fused_chain_sm90.cu: K5, forward and backward).
-// It computes what fused_gemm.cuh computes - the same operands (x_hat =
-// act(x * a + b), dz_eff = dz + ds1 + 2 z ds2, the 3x3 conv's tap gather,
-// the residual junction h = relu(z * a + b + r)), the same epilogues (z
-// with its column sums s1/s2, dx with da/db, K5's dz and dr) and the same
-// fixed-order second pass (sum_rows) - with bf16 wgmma and float32
-// accumulators in registers; fused_gemm.cuh stays the CUDA-core route of
-// other shapes, fused_gemm_tf32_sm90.cuh (which reuses this header's rings,
-// staging stores and column sums) the float32 tensor-core route.
+// It computes the fused kernels' operands (x_hat = act(x * a + b), dz_eff
+// = dz + ds1 + 2 z ds2, the 3x3 conv's tap gather, the residual junction h
+// = relu(z * a + b + r)), their epilogues (z with its column sums s1/s2, dx
+// with da/db, K5's dz and dr) and fused_gemm.cuh's fixed-order second pass
+// (sum_rows) with bf16 wgmma and float32 accumulators in registers; fused_gemm_tf32_sm90.cuh (which reuses this
+// header's rings, staging stores and column sums) is the float32
+// tensor-core route, fused_gemm.cuh K4's CUDA-core route of other shapes.
 //
 // gemm_rs_kernel: C (rows x cols) = A (rows x kdim) B (kdim x cols).
 // - One block: a producer warpgroup (one working thread, registers given
@@ -62,6 +61,33 @@
 // slice of the pixels; its two consumer warpgroups take alternate 64-pixel
 // chunks and each writes its own float32 partial, which sum_rows adds in a
 // fixed order.
+//
+// Two load / store policies, a template parameter RG of the operands and
+// kernels (as in fused_gemm_tf32_sm90.cuh). Aligned (RG = false, the
+// bf16_sm90 route: K and N multiples of 8): the 16-byte copies and TMA
+// above. Ragged (RG = true, the bf16_ragged route: any K and N,
+// fused_matmul.cu / fused_chain.cu): the same kernels, rings, swizzle,
+// prologues, fragments and column sums, with
+// - A, and dw's staged x, r, dz and z tiles, copied into the same swizzled
+//   boxes: an operand whose rows are 16-byte multiples by the aligned
+//   policy's 16-byte cp.async; otherwise two bf16 elements (4 bytes) a
+//   thread, a warp reading 64 neighbouring elements of a row at a time, by
+//   4-byte cp.async when the rows start 4-byte aligned (an even row
+//   length), else through registers by 2-byte loads (an odd row length
+//   puts every other row at an odd element address, which no cp.async can
+//   read); dw's producer warpgroup copies its stages (all 128 threads, 56
+//   registers each), waits for its copies and arrives on the full barrier,
+//   which counts the 128 arrivals;
+// - the column parameters by 16-byte cp.async that reads only the columns
+//   before ld, the rest zero-filled (columns k >= K give 0 after the
+//   prologue);
+// - the weight through TMA from a copy with its rows zero-padded to a
+//   multiple of 8 (pad_cols_kernel, once a call: weight-sized scratch, no
+//   activation is copied or padded), BN at most 128;
+// - z, h, dx and K5's dz / dr written from the same staging boxes by
+//   predicated stores (16 bytes where the output's rows are 16-byte
+//   multiples, else pairs, 4 bytes where the rows allow);
+// - dw's partials written element by element.
 #pragma once
 
 #include "attn_sm90.cuh"
@@ -180,6 +206,16 @@ __device__ __forceinline__ float2 ldg_f2(const float* p) {
 __device__ __forceinline__ float2 ld2(const bf16* p) { return unpack(ldg_pair(p)); }
 __device__ __forceinline__ float2 ld2(const float* p) { return ldg_f2(p); }
 
+// ld2, or with RG (rows of any length: p may sit at any element) two
+// element loads, the second only when `two` (else 0)
+template <bool RG, typename T>
+__device__ __forceinline__ float2 ld2g(const T* p, bool two) {
+  if constexpr (RG)
+    return make_float2(to_f<T>(p[0]), two ? to_f<T>(p[1]) : 0.f);
+  else
+    return ld2(p);
+}
+
 // -- A operands ---------------------------------------------------------------------
 //
 // The raw bf16 A tile of a 64-deep chunk lands in a shared-memory slot: per
@@ -207,6 +243,25 @@ constexpr int kParams = 1024;
 __device__ __forceinline__ void cp_async16(uint8_t* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes, zero-filled when !ok
+__device__ __forceinline__ void cp_async4(uint8_t* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+// the 4 floats at src + c (16-byte aligned) that lie before column ld,
+// zeros from ld on
+__device__ __forceinline__ void cp_async16n(uint8_t* dst, const float* src, int c, int ld) {
+  const int n = min(4, max(0, ld - c));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(n > 0 ? src + c : src), "r"(4 * n)
+               : "memory");
+}
+// the tracked cp.async copies of this thread arrive on `bar` once landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -261,6 +316,135 @@ __device__ __forceinline__ float2 lds_f2(const uint8_t* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+// -- the ragged policy's copies ------------------------------------------------
+
+// unit_params of a ragged row: the 8 floats from column c (a multiple of 8)
+// that lie before ld, zeros from ld on; or all `fill` without a source
+__device__ __forceinline__ void unit_params_r(uint8_t* p, const float* src, int c, int ld,
+                                              float fill) {
+  if (src != nullptr) {
+    cp_async16n(p, src, c, ld);
+    cp_async16n(p + 16, src, c + 4, ld);
+  } else {
+    const float4 v = make_float4(fill, fill, fill, fill);
+    *reinterpret_cast<float4*>(p) = v;
+    *reinterpret_cast<float4*>(p + 16) = v;
+  }
+}
+
+// A swizzled box of R rows x 64 bf16 columns <- rows r0 .. r0 + R - 1,
+// columns c0 .. c0 + 63 of row-major (rows, ld) src, zeros outside it (and
+// everywhere without `on`). Rows of 16-byte multiples from a 16-byte
+// aligned base go by 16-byte cp.async, thread lt copying unit lt % 8 of
+// rows lt / 8 + 16 i (the aligned policy's copies). Otherwise thread lt
+// copies the pair of columns c0 + 2 (lt % 32) (+ 1) of rows lt / 32 + 4 i:
+// by 4-byte cp.async when every pair sits on a 4-byte boundary (an even
+// row length), else by two 2-byte loads through registers, stored once all
+// of a batch of rows are in (an odd length puts every other row at an odd
+// element address; a cp.async for the rows that are aligned, or word
+// loads joined across lanes by a shuffle, both measured slower on an H100).
+// FAST: every row's copy in flight at once; else (a producer warpgroup)
+// one row, or eight rows' loads, at a time.
+template <int R, bool FAST = true>
+__device__ __forceinline__ void load_box2(uint8_t* box, const bf16* src, int r0, int rows,
+                                          int ld, int c0, bool on = true) {
+  const int lt = threadIdx.x % 128;
+  if (!(ld & 7) && !(reinterpret_cast<uintptr_t>(src) & 15)) {
+    const int u = lt & 7;
+    const bool in16 = on && c0 + 8 * u < ld;
+    auto unit = [&](int i) {
+      const int rl = (lt >> 3) + 16 * i;
+      const bool ok = in16 && r0 + rl < rows;
+      cp_async16(box + swz(rl, u), ok ? src + (size_t)(r0 + rl) * ld + c0 + 8 * u : src, ok);
+    };
+    if constexpr (FAST) {
+#pragma unroll
+      for (int i = 0; i < R / 16; ++i) unit(i);
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < R / 16; ++i) unit(i);
+    }
+    return;
+  }
+  const int w = lt & 31;
+  const int c = c0 + 2 * w;
+  const bool in = on && c < ld;
+  const bool two = c + 1 < ld;
+  const int wo = 4 * (w & 3);
+  const bf16* p = src + (size_t)(r0 + (lt >> 5)) * ld + c;
+  if (!(ld & 1) && !(reinterpret_cast<uintptr_t>(src) & 3)) {  // every pair 4-byte aligned
+    auto row = [&](int i) {
+      const int rl = (lt >> 5) + 4 * i;
+      const bool ok = in && r0 + rl < rows;
+      cp_async4(box + swz(rl, w >> 2) + wo, ok ? p + (size_t)4 * i * ld : src, ok);
+    };
+    if constexpr (FAST) {
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i) row(i);
+    } else {
+#pragma unroll 1
+      for (int i = 0; i < R / 4; ++i) row(i);
+    }
+    return;
+  }
+  constexpr int G = FAST ? R / 4 : 8;  // rows loaded before they are stored
+#pragma unroll 1
+  for (int i0 = 0; i0 < R / 4; i0 += G) {
+    uint32_t v[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const bool ok = in && r0 + (lt >> 5) + 4 * (i0 + i) < rows;
+      const unsigned short* q =
+          reinterpret_cast<const unsigned short*>(p + (size_t)4 * (i0 + i) * ld);
+      v[i] = (ok ? uint32_t(__ldg(q)) : 0u) | ((ok && two ? uint32_t(__ldg(q + 1)) : 0u) << 16);
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      *reinterpret_cast<uint32_t*>(box + swz((lt >> 5) + 4 * (i0 + i), w >> 2) + wo) = v[i];
+  }
+}
+
+// The inverse: rows r0 .. and columns c0 .. of row-major (rows, ld) dst
+// from a swizzled box of R rows x 64 bf16 columns, elements outside dst
+// skipped: 16-byte stores, unit lt % 8 of rows lt / 8 + 16 i, where dst's
+// rows are 16-byte multiples from a 16-byte aligned base; else pairs,
+// columns c0 + 2 (lt % 32) (+ 1) of rows lt / 32 + 4 i, in 4-byte stores
+// where the rows allow
+template <int R>
+__device__ __forceinline__ void store_box2(bf16* dst, const uint8_t* box, int r0, int rows,
+                                           int ld, int c0) {
+  const int lt = threadIdx.x % 128;
+  if (!(ld & 7) && !(reinterpret_cast<uintptr_t>(dst) & 15)) {
+    const int u = lt & 7;
+    if (c0 + 8 * u >= ld) return;
+#pragma unroll
+    for (int i = 0; i < R / 16; ++i) {
+      const int rl = (lt >> 3) + 16 * i;
+      if (r0 + rl < rows)
+        *reinterpret_cast<uint4*>(dst + (size_t)(r0 + rl) * ld + c0 + 8 * u) =
+            *reinterpret_cast<const uint4*>(box + swz(rl, u));
+    }
+    return;
+  }
+  const int w = lt & 31;
+  const int c = c0 + 2 * w;
+  if (c >= ld) return;
+  const bool pairs = !(ld & 1) && !(reinterpret_cast<uintptr_t>(dst) & 3);
+#pragma unroll
+  for (int i = 0; i < R / 4; ++i) {
+    const int rl = (lt >> 5) + 4 * i;
+    if (r0 + rl >= rows) continue;
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(box + swz(rl, w >> 2) + 4 * (w & 3));
+    unsigned short* q = reinterpret_cast<unsigned short*>(dst + (size_t)(r0 + rl) * ld + c);
+    if (pairs) {
+      *reinterpret_cast<uint32_t*>(q) = v;
+    } else {
+      q[0] = (unsigned short)(v & 0xffffu);
+      if (c + 1 < ld) q[1] = (unsigned short)(v >> 16);
+    }
+  }
+}
+
 // v * a + b in float32 (each operation rounded), then rounded to bf16
 __device__ __forceinline__ __nv_bfloat162 affine2(uint32_t v, float2 a, float2 b) {
   const float2 f = unpack(v);
@@ -275,8 +459,9 @@ __device__ __forceinline__ __nv_bfloat162 affine2(uint32_t v, float2 a, float2 b
 // the contraction read a = b = 0 and x = 0; the ReLU is a max with 0 (or
 // -inf without it) that keeps NaN; a tap in the zero padding, or past the
 // contraction, is masked to 0 after the prologue.
-template <int TAPS>
+template <int TAPS, bool RG = false>
 struct XHatA {
+  static_assert(TAPS == 1 || !RG, "the ragged policy is for the 1x1 conv");
   static constexpr int kTiles = 1;
   static constexpr bool kStoreA = false;
   const bf16* x;
@@ -334,6 +519,14 @@ struct XHatA {
     const int lt = threadIdx.x % 128;
     const int u = lt & 7;
     const int kc = k0 + 8 * u;
+    if constexpr (RG) {
+      load_box2<64>(raw, x, st.ir0 - (lt >> 3), rows, C, k0);
+      if (lt < 8) {
+        unit_params_r(prm + 32 * u, a, kc, C, 1.f);
+        unit_params_r(prm + 256 + 32 * u, b, kc, C, 0.f);
+      }
+      return;
+    }
     const int tap = TAPS == 1 ? (kc < C ? 0 : 1) : kc / C;
     const int c = kc - tap * C;
     const bool in = tap < TAPS;
@@ -387,6 +580,7 @@ struct XHatA {
 // tile; without stats z and ds1 / ds2 are zeros, which leave dz as it is.
 // Columns past ld give 0; rows past the end give values whose products are
 // never written.
+template <bool RG = false>
 struct DzEffA {
   static constexpr int kTiles = 2;
   static constexpr bool kStoreA = false;
@@ -406,6 +600,16 @@ struct DzEffA {
     const int lt = threadIdx.x % 128;
     const int u = lt & 7;
     const int n = k0 + 8 * u;
+    if constexpr (RG) {
+      const int r0 = st.ir0 - (lt >> 3);
+      load_box2<64>(raw, dz, r0, rows, ld, k0);
+      load_box2<64>(raw + kATile, stats ? z : dz, r0, rows, ld, k0, stats);
+      if (lt < 8) {
+        unit_params_r(prm + 32 * u, stats ? ds1 : nullptr, n, ld, 0.f);
+        unit_params_r(prm + 256 + 32 * u, stats ? ds2 : nullptr, n, ld, 0.f);
+      }
+      return;
+    }
     const bool in = n < ld;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -452,6 +656,7 @@ struct DzEffA {
 // tile, then the r tile, with the chunk's a and b beside them. Columns past
 // ld read z = r = a = b = 0 and give 0; rows past the end give values whose
 // products and h are never written.
+template <bool RG = false>
 struct ResidA {
   static constexpr int kTiles = 2;
   static constexpr bool kStoreA = true;
@@ -471,6 +676,16 @@ struct ResidA {
     const int lt = threadIdx.x % 128;
     const int u = lt & 7;
     const int c = k0 + 8 * u;
+    if constexpr (RG) {
+      const int r0 = st.ir0 - (lt >> 3);
+      load_box2<64>(raw, z, r0, rows, ld, k0);
+      load_box2<64>(raw + kATile, r, r0, rows, ld, k0);
+      if (lt < 8) {
+        unit_params_r(prm + 32 * u, a, c, ld, 0.f);
+        unit_params_r(prm + 256 + 32 * u, b, c, ld, 0.f);
+      }
+      return;
+    }
     const bool in = c < ld;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -528,9 +743,9 @@ struct StoreZ2 {
 };
 
 // K3's dx: the ReLU mask from the recomputed x * a + b, dx = dxn * a, and
-// da = sum dxn x, db = sum dxn (fused_matmul.cu's DxEpi); x in T (bf16 or
-// float32)
-template <typename T>
+// da = sum dxn x, db = sum dxn; x in T (bf16 or float32). RG: rows of any
+// length ld, column c + 1 read only inside them
+template <typename T, bool RG = false>
 struct DxEpi2 {
   static constexpr bool kOut2 = false;
   const T* x;
@@ -539,11 +754,12 @@ struct DxEpi2 {
   int ld, prologue, relu;
   __device__ __forceinline__ float2 pair(int r, int c, float v0, float v1, float2& s1,
                                          float2& s2) const {
-    const float2 xv = ld2(x + ((size_t)r * ld + c));
+    const bool two = !RG || c + 1 < ld;
+    const float2 xv = ld2g<RG>(x + ((size_t)r * ld + c), two);
     float2 av = make_float2(1.f, 1.f), xn = xv;
     if (prologue) {
-      av = ldg_f2(a + c);
-      const float2 bv = ldg_f2(b + c);
+      av = ld2g<RG>(a + c, two);
+      const float2 bv = ld2g<RG>(b + c, two);
       xn = make_float2(affine(xv.x, av.x, bv.x), affine(xv.y, av.y, bv.y));
     }
     const float d0 = (relu && !(xn.x > 0.f)) ? 0.f : v0;
@@ -555,9 +771,9 @@ struct DxEpi2 {
 };
 
 // K5's dz / dr: g = [z * a + b + r > 0] (dh + v), dz = g a, dr = g (the
-// second output), and da = sum g z, db = sum g (fused_chain.cu's
-// ChainDxEpi); z, r and dh in T
-template <typename T>
+// second output), and da = sum g z, db = sum g; z, r and dh in T. RG: as
+// DxEpi2's
+template <typename T, bool RG = false>
 struct ChainDxEpi2 {
   static constexpr bool kOut2 = true;
   const T* z;
@@ -569,11 +785,12 @@ struct ChainDxEpi2 {
   __device__ __forceinline__ float2 pair2(int m, int c, float v0, float v1, float2& s1,
                                           float2& s2, float2& o2) const {
     const size_t i = (size_t)m * ld + c;
-    const float2 zv = ld2(z + i);
-    const float2 rv = ld2(r + i);
-    const float2 dv = ld2(dh + i);
-    const float2 av = ldg_f2(a + c);
-    const float2 bv = ldg_f2(b + c);
+    const bool two = !RG || c + 1 < ld;
+    const float2 zv = ld2g<RG>(z + i, two);
+    const float2 rv = ld2g<RG>(r + i, two);
+    const float2 dv = ld2g<RG>(dh + i, two);
+    const float2 av = ld2g<RG>(a + c, two);
+    const float2 bv = ld2g<RG>(b + c, two);
     const float g0 = __fadd_rn(affine(zv.x, av.x, bv.x), rv.x) > 0.f ? v0 + dv.x : 0.f;
     const float g1 = __fadd_rn(affine(zv.y, av.y, bv.y), rv.y) > 0.f ? v1 + dv.y : 0.f;
     s1 = make_float2(g0 * zv.x, g1 * zv.y);
@@ -690,14 +907,17 @@ struct RsCfg {
 // a tile) go to part1 / part2[64-row tile * cols + c]. omap2 is a second
 // output: with AOp::kStoreA the converted A (rows, kdim), written once by
 // the tiles of column tile 0; with Epi::kOut2 the epilogue's second value
-// (rows, cols), through the same staging tile after the first.
-template <int BN, int TB, class AOp, class Epi>
+// (rows, cols), through the same staging tile after the first. With RG the
+// outputs go to outp (rows, cols) and out2p (rows, kdim or cols) by element
+// stores, and omap / omap2 are not read.
+template <int BN, int TB, bool RG, class AOp, class Epi>
 __global__ void __launch_bounds__(384, 1)
     gemm_rs_kernel(const __grid_constant__ CUtensorMap bmap,
                    const __grid_constant__ CUtensorMap omap,
                    const __grid_constant__ CUtensorMap omap2, const AOp aop0, const Epi epi,
                    int rows, int cols, int kdim, float* __restrict__ part1,
-                   float* __restrict__ part2) {
+                   float* __restrict__ part2, bf16* __restrict__ outp,
+                   bf16* __restrict__ out2p) {
   using Cfg = RsCfg<BN, AOp::kTiles, AOp::kStoreA>;
   constexpr int SA = Cfg::SA, SB = Cfg::SB;
   // BN = 256 keeps one set of A fragments: a second one beside its 128
@@ -783,9 +1003,17 @@ __global__ void __launch_bounds__(384, 1)
   // (kStoreA) chunk jj of tile tt's converted A, in column tile 0: stmatrix
   // into this warpgroup's staging box and out by one TMA store (thread 0
   // waited for the previous store to read the box before the barrier that
-  // precedes the conversion)
+  // precedes the conversion); with RG by the warpgroup's predicated stores,
+  // which end before its next conversion barrier
   auto store_a = [&](const uint32_t(&f)[4][4], int tt, int jj) {
-    if constexpr (AOp::kStoreA) {
+    if constexpr (AOp::kStoreA && RG) {
+      if (tt < ntiles && tt % ntn == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) stsm_frag(ast, kk, f[kk]);
+        bar_sync(6 + wg, 128);
+        store_box2<64>(out2p, ast, (tt / ntn) * kBM + 64 * wg, rows, kdim, jj * kBK);
+      }
+    } else if constexpr (AOp::kStoreA) {
       if (tt < ntiles && tt % ntn == 0) {
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) stsm_frag(ast, kk, f[kk]);
@@ -913,7 +1141,11 @@ __global__ void __launch_bounds__(384, 1)
       }
       fence_proxy_async();
       bar_sync(4 + wg, 128);
-      if (lt == 0 && rw0 < rows) {
+      if constexpr (RG) {
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          store_box2<64>(outp, ost + c * kChunk, rw0, rows, cols, col0 + 64 * c);
+      } else if (lt == 0 && rw0 < rows) {
 #pragma unroll
         for (int c = 0; c < BN / 64; ++c)
           if (col0 + 64 * c < cols) tma_store_3d(&omap, ost + c * kChunk, col0 + 64 * c, rw0);
@@ -928,7 +1160,11 @@ __global__ void __launch_bounds__(384, 1)
         for (int p = 0; p < BN / 16; ++p) stsm_frag(ost + (p / 4) * kChunk, p % 4, out2[p]);
         fence_proxy_async();
         bar_sync(4 + wg, 128);
-        if (lt == 0 && rw0 < rows) {
+        if constexpr (RG) {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            store_box2<64>(out2p, ost + c * kChunk, rw0, rows, cols, col0 + 64 * c);
+        } else if (lt == 0 && rw0 < rows) {
 #pragma unroll
           for (int c = 0; c < BN / 64; ++c)
             if (col0 + 64 * c < cols)
@@ -963,8 +1199,9 @@ struct DwCfg {
   static constexpr int D_BYTES = BN / 64 * kChunk;       // 64 pixels x BN columns
   // x, dz, z (and with RES the residual r, like x)
   static constexpr int STAGE = (RES ? 2 : 1) * X_BYTES + 2 * D_BYTES;
-  static constexpr int BAR_OFF = kStages * STAGE;
-  static constexpr int SMEM = 1024 + BAR_OFF + 2 * kStages * 8;
+  static constexpr int S = kStages;
+  static constexpr int BAR_OFF = S * STAGE;
+  static constexpr int SMEM = 1024 + BAR_OFF + 2 * S * 8;
 };
 
 // 8 bf16 values of a 16-byte unit, through f(e, v) -> v
@@ -983,21 +1220,25 @@ __device__ __forceinline__ uint4 map8(uint4 u, F f) {
 // pixels [z * per, min(M, (z + 1) * per)), per a multiple of 128.
 // Consumer warpgroup w writes its float32 partial of the block's 64 x BN
 // tile of dw to ws[((2 z + w) * K + k) * N + n]. With RES (K5) x_hat is
-// relu(x * a + b + r) of x and the residual r (rmap, staged like x).
-template <int BN, bool RES>
+// relu(x * a + b + r) of x and the residual r (rmap, staged like x). With
+// RG the producer warpgroup's 128 threads copy the stage's boxes from xp,
+// dzp, zp, rp (the maps are not read), wait for their copies and arrive;
+// the partials are written element by element.
+template <int BN, bool RES, bool RG>
 __global__ void __launch_bounds__(384, 1)
     dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dzmap,
               const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap rmap,
               const float* __restrict__ a, const float* __restrict__ b,
               const float* __restrict__ ds1, const float* __restrict__ ds2,
               float* __restrict__ ws, int M, int K, int N, int prologue, int relu, int stats,
-              int per) {
+              int per, const bf16* __restrict__ xp, const bf16* __restrict__ dzp,
+              const bf16* __restrict__ zp, const bf16* __restrict__ rp) {
   using Cfg = DwCfg<BN, RES>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Cfg::BAR_OFF);
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + Cfg::S;
   const int kc0 = blockIdx.x * kDwRows;
   const int n0 = blockIdx.y * BN;
   const int mb = blockIdx.z * per;
@@ -1005,8 +1246,8 @@ __global__ void __launch_bounds__(384, 1)
   const int nch = (me - mb + 63) / 64;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
+    for (int s = 0; s < Cfg::S; ++s) {
+      mbar_init(&full[s], RG ? 128 : 1);  // (RG) one arrival per producer thread
       mbar_init(&empty[s], 4);  // the four warps of the stage's warpgroup
     }
     mbar_fence_init();
@@ -1014,11 +1255,30 @@ __global__ void __launch_bounds__(384, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {  // producer warpgroup
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
+    // (RG) 56 registers for the copies' batches of rows; the consumers give
+    // up 8 (the 64,512 granted at launch: 128 x 56 + 256 x 224)
+    setmaxnreg_dec<RG ? 56 : 40>();
+    if constexpr (RG) {
       for (int j = 0; j < nch; ++j) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        const int s = j % Cfg::S;
+        mbar_wait(&empty[s], ((j / Cfg::S) & 1) ^ 1);
+        uint8_t* dst = smem + s * Cfg::STAGE;
+        const int m = mb + 64 * j;
+        load_box2<64, false>(dst, xp, m, M, K, kc0);
+        if (RES) load_box2<64, false>(dst + Cfg::X_BYTES + 2 * Cfg::D_BYTES, rp, m, M, K, kc0);
+        for (int c = 0; c < BN / 64; ++c) {
+          load_box2<64, false>(dst + Cfg::X_BYTES + c * kChunk, dzp, m, M, N, n0 + 64 * c);
+          if (stats)
+            load_box2<64, false>(dst + Cfg::X_BYTES + Cfg::D_BYTES + c * kChunk, zp, m, M, N,
+                                 n0 + 64 * c);
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        mbar_arrive(&full[s]);
+      }
+    } else if (threadIdx.x == 0) {
+      for (int j = 0; j < nch; ++j) {
+        const int s = j % Cfg::S;
+        mbar_wait(&empty[s], ((j / Cfg::S) & 1) ^ 1);
         mbar_arrive_expect_tx(&full[s],
                               (RES ? 2 : 1) * Cfg::X_BYTES + (stats ? 2 : 1) * Cfg::D_BYTES);
         uint8_t* dst = smem + s * Cfg::STAGE;
@@ -1037,15 +1297,15 @@ __global__ void __launch_bounds__(384, 1)
     return;
   }
 
-  setmaxnreg_inc<232>();
+  setmaxnreg_inc<RG ? 224 : 232>();
   const int wg = threadIdx.x / 128 - 1;
   const int lt = threadIdx.x % 128;
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   for (int j = wg; j < nch; j += 2) {
-    const int s = j % kStages;
-    mbar_wait(&full[s], (j / kStages) & 1);
+    const int s = j % Cfg::S;
+    mbar_wait(&full[s], (j / Cfg::S) & 1);
     uint8_t* xt = smem + s * Cfg::STAGE;
     uint8_t* dzt = xt + Cfg::X_BYTES;
     const uint8_t* zt = dzt + Cfg::D_BYTES;
@@ -1063,12 +1323,14 @@ __global__ void __launch_bounds__(384, 1)
         const uint4 ru = *reinterpret_cast<const uint4*>(rt + m * 128 + (u & 7) * 16);
         const uint32_t rw[4] = {ru.x, ru.y, ru.z, ru.w};
         *p = map8(*p, [&](int e, float v) {
+          if (RG && kc + e >= K) return 0.f;  // (RG) a unit across K's end
           const float2 rr = unpack(rw[e >> 1]);
           return relu_f(__fadd_rn(affine(v, __ldg(a + kc + e), __ldg(b + kc + e)),
                                   (e & 1) ? rr.y : rr.x));
         });
       } else if (prologue || relu) {
         *p = map8(*p, [&](int e, float v) {
+          if (RG && kc + e >= K) return 0.f;
           if (prologue) v = round_to<bf16>(affine(v, __ldg(a + kc + e), __ldg(b + kc + e)));
           return relu ? relu_f(v) : v;
         });
@@ -1086,6 +1348,7 @@ __global__ void __launch_bounds__(384, 1)
         const uint4 zu = *reinterpret_cast<const uint4*>(zt + off);
         const uint32_t zw[4] = {zu.x, zu.y, zu.z, zu.w};
         *p = map8(*p, [&](int e, float v) {
+          if (RG && n + e >= N) return 0.f;  // (RG) a unit across N's end
           const float2 zz = unpack(zw[e >> 1]);
           const float zv = (e & 1) ? zz.y : zz.x;
           return round_to<bf16>(__fadd_rn(__fadd_rn(v, __ldg(ds1 + n + e)),
@@ -1115,9 +1378,15 @@ __global__ void __launch_bounds__(384, 1)
     if (c >= N) continue;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (r0 + 8 * i < K)
-        store2<float>(out + (size_t)(r0 + 8 * i) * N + c, acc[4 * j + 2 * i],
-                      acc[4 * j + 2 * i + 1]);
+      if (r0 + 8 * i < K) {
+        float* o = out + (size_t)(r0 + 8 * i) * N + c;
+        if constexpr (RG) {  // rows of any length: element stores
+          o[0] = acc[4 * j + 2 * i];
+          if (c + 1 < N) o[1] = acc[4 * j + 2 * i + 1];
+        } else {
+          store2<float>(o, acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
   }
 }
 
@@ -1133,84 +1402,114 @@ inline int sm_count() {
   return n;
 }
 
-template <int BN, int TB, class AOp, class Epi>
+// the row length of the ragged route's weight copy: a multiple of 8 (16
+// bytes of bf16, as TMA needs)
+inline int pad8(int n) { return (n + 7) / 8 * 8; }
+
+// out (K, np) = w (K, N) bf16 with zero columns from N on
+__global__ void __launch_bounds__(256)
+    pad_cols_kernel(const bf16* __restrict__ w, bf16* __restrict__ out, int K, int N, int np) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (size_t)K * np) return;
+  const int k = int(i / np), n = int(i % np);
+  out[i] = n < N ? w[(size_t)k * N + n] : __float2bfloat16(0.f);
+}
+
+// the ragged route's copy of w (K, N): (K, pad8(N)) into wpad
+inline cudaError_t pad_cols(const void* w, void* wpad, int K, int N, cudaStream_t s) {
+  const size_t n = (size_t)K * pad8(N);
+  pad_cols_kernel<<<unsigned((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(w), static_cast<bf16*>(wpad), K, N, pad8(N));
+  return cudaGetLastError();
+}
+
+template <int BN, int TB, bool RG, class AOp, class Epi>
 cudaError_t run_rs(const void* w, void* out, const AOp& aop, const Epi& epi, int rows, int cols,
                    int kdim, float* part1, float* part2, cudaStream_t s, void* out2) {
   // TB: w (kdim, cols), boxes of 64 columns x 64 rows; else w (cols,
-  // kdim), boxes of 64 columns x BN rows; out (rows, cols) in 64 x 64
-  // boxes, out2 (rows, kdim) with kStoreA, (rows, cols) with kOut2
+  // kdim), boxes of 64 columns x BN rows (with RG w is pad_cols' copy:
+  // rows of pad8(cols) or pad8(kdim)); out (rows, cols) in 64 x 64 boxes,
+  // out2 (rows, kdim) with kStoreA, (rows, cols) with kOut2 (with RG no
+  // maps: predicated stores)
   using Cfg = RsCfg<BN, AOp::kTiles, AOp::kStoreA>;
-  CUtensorMap bmap, omap, omap2;
-  bool ok = (TB ? make_map(&bmap, w, cols, kdim, 1, 64, 128)
-                : make_map(&bmap, w, kdim, cols, 1, BN, 128)) &&
-            make_map(&omap, out, cols, rows, 1, 64, 128);
-  if (AOp::kStoreA || Epi::kOut2)
-    ok = ok && out2 != nullptr &&
-         make_map(&omap2, out2, AOp::kStoreA ? kdim : cols, rows, 1, 64, 128);
-  else
-    omap2 = omap;
+  CUtensorMap bmap, omap{}, omap2{};
+  const int ldw = TB ? (RG ? pad8(cols) : cols) : (RG ? pad8(kdim) : kdim);
+  bool ok = TB ? make_map(&bmap, w, ldw, kdim, 1, 64, 128)
+               : make_map(&bmap, w, ldw, cols, 1, BN, 128);
+  if (AOp::kStoreA || Epi::kOut2) ok = ok && out2 != nullptr;
+  if (!RG) {
+    ok = ok && make_map(&omap, out, cols, rows, 1, 64, 128);
+    if (AOp::kStoreA || Epi::kOut2)
+      ok = ok && make_map(&omap2, out2, AOp::kStoreA ? kdim : cols, rows, 1, 64, 128);
+    else
+      omap2 = omap;
+  }
   if (!ok) return cudaErrorInvalidValue;
-  auto kern = gemm_rs_kernel<BN, TB, AOp, Epi>;
+  auto kern = gemm_rs_kernel<BN, TB, RG, AOp, Epi>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (e != cudaSuccess) return e;
   const int tiles = ((rows + kBM - 1) / kBM) * ((cols + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, 384, Cfg::SMEM, s>>>(bmap, omap, omap2, aop, epi, rows, cols, kdim, part1, part2);
+  kern<<<grid, 384, Cfg::SMEM, s>>>(bmap, omap, omap2, aop, epi, rows, cols, kdim, part1, part2,
+                                    static_cast<bf16*>(out), static_cast<bf16*>(out2));
   return cudaGetLastError();
 }
 
 // out (rows x cols, bf16) = A B with BN = 64, 128 or (BNMAX 256) 256
 // fitted to cols; with part1 != nullptr, the epilogue's column sums per 64
 // rows; out2: the second output of an operand with kStoreA or an epilogue
-// with kOut2
-template <int BNMAX, int TB, class AOp, class Epi>
+// with kOut2. RG: the ragged policy (the operand's too; BNMAX at most 128)
+template <int BNMAX, int TB, bool RG = false, class AOp, class Epi>
 cudaError_t gemm_rs(const void* w, void* out, const AOp& aop, const Epi& epi, int rows, int cols,
                     int kdim, float* part1, float* part2, cudaStream_t s,
                     void* out2 = nullptr) {
+  static_assert(!RG || BNMAX <= 128, "the ragged copies keep no registers for BN = 256");
   if (cols <= 64)
-    return run_rs<64, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
+    return run_rs<64, TB, RG>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
   if constexpr (BNMAX >= 256) {
     if (cols > 128)
-      return run_rs<256, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
+      return run_rs<256, TB, RG>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
   }
-  return run_rs<128, TB>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
+  return run_rs<128, TB, RG>(w, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
 }
 
-template <int BN, bool RES>
+template <int BN, bool RES, bool RG>
 cudaError_t run_dw(const void* x, const void* dz, const void* z, const void* r, const float* a,
                    const float* b, const float* ds1, const float* ds2, float* ws, int M, int K,
                    int N, int prologue, int relu, int stats, int splits, int per,
                    cudaStream_t s) {
   using Cfg = DwCfg<BN, RES>;
-  CUtensorMap xm, dm, zm, rm;
-  if (!make_map(&xm, x, K, M, 1, 64, 128) || !make_map(&dm, dz, N, M, 1, 64, 128) ||
-      !make_map(&zm, stats ? z : dz, N, M, 1, 64, 128) ||
-      !make_map(&rm, RES ? r : x, K, M, 1, 64, 128))
+  CUtensorMap xm{}, dm{}, zm{}, rm{};
+  if (!RG && (!make_map(&xm, x, K, M, 1, 64, 128) || !make_map(&dm, dz, N, M, 1, 64, 128) ||
+              !make_map(&zm, stats ? z : dz, N, M, 1, 64, 128) ||
+              !make_map(&rm, RES ? r : x, K, M, 1, 64, 128)))
     return cudaErrorInvalidValue;
-  auto kern = dw_kernel<BN, RES>;
+  auto kern = dw_kernel<BN, RES, RG>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (e != cudaSuccess) return e;
   dim3 grid((K + kDwRows - 1) / kDwRows, (N + BN - 1) / BN, splits);
   kern<<<grid, 384, Cfg::SMEM, s>>>(xm, dm, zm, rm, a, b, ds1, ds2, ws, M, K, N, prologue, relu,
-                                    stats, per);
+                                    stats, per, static_cast<const bf16*>(x),
+                                    static_cast<const bf16*>(dz), static_cast<const bf16*>(z),
+                                    static_cast<const bf16*>(r));
   return cudaGetLastError();
 }
 
 // ws holds 2 x splits x K x N float32 partials of dw (one per consumer
 // warpgroup and split); BN = 64 for N <= 64, else 128. RES: x_hat =
-// relu(x * a + b + r) of x and the residual r (K5)
-template <bool RES = false>
+// relu(x * a + b + r) of x and the residual r (K5). RG: the ragged policy
+template <bool RES = false, bool RG = false>
 cudaError_t gemm_dw(const void* x, const void* dz, const void* z, const float* a, const float* b,
                     const float* ds1, const float* ds2, float* ws, int M, int K, int N,
                     int prologue, int relu, int stats, int splits, int per, cudaStream_t s,
                     const void* r = nullptr) {
   if (N <= 64)
-    return run_dw<64, RES>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
-                           splits, per, s);
-  return run_dw<128, RES>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
-                          splits, per, s);
+    return run_dw<64, RES, RG>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
+                               splits, per, s);
+  return run_dw<128, RES, RG>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
+                              splits, per, s);
 }
 
 }  // namespace sm90

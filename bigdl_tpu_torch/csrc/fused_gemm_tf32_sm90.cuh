@@ -1,11 +1,12 @@
 // Shared core of the float32 tensor-core routes of the fused ResNet kernels
 // for Hopper (fused_matmul_tf32_sm90.cu: K3 and K3-nhwc, forward and
-// backward; fused_chain_tf32_sm90.cu: K5, forward and backward). It
-// computes what fused_gemm.cuh computes for float32 - the same operands
-// (x_hat = act(x * a + b), dz_eff = dz + ds1 + 2 z ds2, the residual
-// junction h = relu(z * a + b + r)), the same epilogues and the same
-// fixed-order second pass (sum_rows), with no atomics, so reruns agree bit
-// for bit - on wgmma ... .tf32 with float32 accumulators, in 3xTF32: every
+// backward; fused_chain_tf32_sm90.cu: K5, forward and backward; at any K
+// and N, with the ragged policy below, fused_matmul.cu and fused_chain.cu).
+// It computes the bf16 core's operands in float32 (x_hat = act(x * a + b),
+// dz_eff = dz + ds1 + 2 z ds2, the residual junction h = relu(z * a + b +
+// r)), its epilogues and the fixed-order second pass (sum_rows), with no
+// atomics, so reruns agree bit for bit - on wgmma ... .tf32 with float32
+// accumulators, in 3xTF32: every
 // float32 operand x is split into hi = tf32_rn(x) and lo = tf32_rn(x - hi)
 // (x = hi + lo within 2^-21 |x|), and each product is hi hi + hi lo + lo hi
 // (the lo lo term, 2^-22 of it, is left out), which holds the float32
@@ -69,6 +70,31 @@
 // own float32 partial, which sum_rows adds in a fixed order. Shared memory
 // at BN = 128: the four transposed tiles (64 KB), 1 KB of ds1 / ds2, and
 // four stages of 40 KB (K3: 225 KB) or three of 48 KB (K5, with r: 209 KB).
+//
+// Two load / store policies, a template parameter RG of the operands and
+// kernels. Aligned (RG = false, the f32_sm90 route: K and N multiples of
+// 4): the copies and TMA above, which need rows of 16-byte multiples and
+// 16-byte aligned bases. Ragged (RG = true, the f32 route: any K and N,
+// fused_matmul.cu / fused_chain.cu): the same kernels, rings, swizzle,
+// prologues, 3xTF32 split, promote and column sums, with
+// - A, and dw's staged x, r, dz and z tiles, copied into the same swizzled
+//   boxes: an operand whose rows are 16-byte multiples by the aligned
+//   policy's 16-byte cp.async, any other one float32 element a thread by
+//   4-byte cp.async (zero-filled outside the operand), a warp reading 32
+//   neighbouring columns of one row at a time (coalesced); dw's producer
+//   warpgroup issues them (all 128 threads, each operand's path chosen once
+//   outside its loops) and its full barrier counts their cp.async
+//   arrivals;
+// - the chunk's column parameters by 16-byte cp.async that reads only the
+//   columns before ld (the rest zero-filled), so that columns k >= K enter
+//   the product as 0 after the prologue, as on the aligned route;
+// - the weight (B) still by TMA, from hi / lo halves that split_w_kernel
+//   writes with the contraction zero-padded to a whole stage (kpad): only
+//   weight-sized scratch, no activation is copied or padded;
+// - z, h, dx and K5's dz / dr written from the same staging tiles by
+//   predicated stores: 16 bytes a thread where the output's rows are
+//   16-byte multiples, else one element, a warp one row of 32 columns at a
+//   time.
 #pragma once
 
 #include "fused_gemm_sm90.cuh"
@@ -165,6 +191,98 @@ __device__ __forceinline__ void unit_params4(uint8_t* p, const float* src, int c
     *reinterpret_cast<float4*>(p) = make_float4(fill, fill, fill, fill);
 }
 
+// -- the ragged policy's copies -----------------------------------------------------
+
+// the contraction of the ragged route's split weight: padded to whole stages
+inline int kpad(int k) { return (k + kBK - 1) / kBK * kBK; }
+
+// the unit_params4 of a ragged row: columns c .. c + 3 of src (16-byte
+// aligned, c a multiple of 4) that lie before ld, zeros from ld on; or all
+// `fill` without a source
+__device__ __forceinline__ void unit_params4r(uint8_t* p, const float* src, int c, int ld,
+                                              float fill) {
+  if (src != nullptr) {
+    cp_async16n(p, src, c, ld);
+  } else {
+    *reinterpret_cast<float4*>(p) = make_float4(fill, fill, fill, fill);
+  }
+}
+
+// rows of 16-byte multiples from a 16-byte aligned base
+__device__ __forceinline__ bool wide4(const float* src, int ld) {
+  return !(ld & 3) && !(reinterpret_cast<uintptr_t>(src) & 15);
+}
+
+// A swizzled box of R rows x 32 float32 columns <- rows r0 .. r0 + R - 1,
+// columns c0 .. c0 + 31 of row-major (rows, ld) src, zeros outside it (and
+// everywhere without `on`). WIDE (rows of 16-byte multiples from a 16-byte
+// aligned base: wide4): 16-byte cp.async, thread lt copying unit lt % 8 of
+// rows lt / 8 + 16 i (the aligned policy's copies); else 4-byte cp.async,
+// thread lt copying column lt % 32 of rows lt / 32 + 4 i. FAST: the row
+// loop unrolled; else (a producer warpgroup, 40 registers) one row at a
+// time.
+template <int R, bool WIDE, bool FAST = true>
+__device__ __forceinline__ void load_box4(uint8_t* box, const float* src, int r0, int rows,
+                                          int ld, int c0, bool on = true) {
+  const int lt = threadIdx.x % 128;
+  if constexpr (WIDE) {
+    const int u = lt & 7;
+    const bool in = on && c0 + 4 * u < ld;
+#pragma unroll
+    for (int i = 0; i < R / 16; ++i) {
+      const int rl = (lt >> 3) + 16 * i;
+      const bool ok = in && r0 + rl < rows;
+      cp_async16(box + swz(rl, u), ok ? src + (size_t)(r0 + rl) * ld + c0 + 4 * u : src, ok);
+    }
+    return;
+  }
+  const int c = c0 + (lt & 31);
+  const bool in = on && c < ld;
+  const float* p = src + (size_t)(r0 + (lt >> 5)) * ld + c;
+  auto row = [&](int i) {
+    const int rl = (lt >> 5) + 4 * i;
+    const bool ok = in && r0 + rl < rows;
+    cp_async4(box + swz4(rl, lt & 31), ok ? p + (size_t)4 * i * ld : src, ok);
+  };
+  if constexpr (FAST) {
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) row(i);
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < R / 4; ++i) row(i);
+  }
+}
+
+// The inverse: rows r0 .. and columns c0 .. of row-major (rows, ld) dst
+// from a swizzled box of R rows x 32 columns, elements outside dst skipped:
+// 16-byte stores, unit lt % 8 of rows lt / 8 + 16 i, where dst's rows are
+// 16-byte multiples (wide4), else element stores, column lt % 32 of rows
+// lt / 32 + 4 i
+template <int R>
+__device__ __forceinline__ void store_box4(float* dst, const uint8_t* box, int r0, int rows,
+                                           int ld, int c0) {
+  const int lt = threadIdx.x % 128;
+  if (wide4(dst, ld)) {
+    const int u = lt & 7;
+    if (c0 + 4 * u >= ld) return;
+#pragma unroll
+    for (int i = 0; i < R / 16; ++i) {
+      const int rl = (lt >> 3) + 16 * i;
+      if (r0 + rl < rows)
+        *reinterpret_cast<float4*>(dst + (size_t)(r0 + rl) * ld + c0 + 4 * u) =
+            *reinterpret_cast<const float4*>(box + swz(rl, u));
+    }
+    return;
+  }
+  const int c = c0 + (lt & 31);
+  if (c >= ld) return;
+#pragma unroll
+  for (int i = 0; i < R / 4; ++i) {
+    const int rl = (lt >> 5) + 4 * i;
+    if (r0 + rl < rows) dst[(size_t)(r0 + rl) * ld + c] = lds_f(box + swz4(rl, lt & 31));
+  }
+}
+
 // -- A operands ---------------------------------------------------------------------
 //
 // The raw float32 A tile of a 32-deep chunk lands in a slot as the bf16
@@ -175,7 +293,9 @@ __device__ __forceinline__ void unit_params4(uint8_t* p, const float* src, int c
 // 8 of each; convert(st, hi, lo, raw, prm) reads this thread's fragment
 // values (register e of k8 slice kk: row 16 wq + g + 8 (e & 1), column 8 kk +
 // q + 4 (e >> 1)) and leaves them split for wgmma. Columns past ld read x =
-// a = b = 0 and give 0; rows past the end give values never written.
+// a = b = 0 and give 0; rows past the end give values never written. With
+// RG the rows are copied by load_box4 and the parameters by unit_params4r
+// (the warpgroup's first row is st.ir0 - lt / 8); convert is the same.
 
 // fragment register e of k8 slice kk: its row in the warpgroup's 64 and its
 // column in the chunk's 32
@@ -189,6 +309,7 @@ __device__ __forceinline__ int frag_col(int kk, int e) {
 
 // x_hat = act(x * a + b) of row-major (rows, ld) x (K3; without a prologue
 // a = 1 and b = 0, which leave x as it is); the ReLU keeps NaN
+template <bool RG = false>
 struct XHatF {
   static constexpr int kTiles = 1;
   static constexpr bool kStoreA = false;
@@ -206,6 +327,17 @@ struct XHatF {
     const int lt = threadIdx.x % 128;
     const int u = lt & 7;
     const int c = k0 + 4 * u;
+    if constexpr (RG) {
+      if (wide4(x, ld))
+        load_box4<64, true>(raw, x, st.ir0 - (lt >> 3), rows, ld, k0);
+      else
+        load_box4<64, false>(raw, x, st.ir0 - (lt >> 3), rows, ld, k0);
+      if (lt < 8) {
+        unit_params4r(prm + 16 * u, a, c, ld, 1.f);
+        unit_params4r(prm + 128 + 16 * u, b, c, ld, 0.f);
+      }
+      return;
+    }
     const bool in = c < ld;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -238,6 +370,7 @@ struct XHatF {
 // dz_eff = dz + ds1 + 2 z ds2 of row-major (rows, ld) dz and z: the A
 // operand of K3's and K5's dx. A slot holds the dz tile, then the z tile;
 // without stats z, ds1 and ds2 are zeros, which leave dz as it is.
+template <bool RG = false>
 struct DzEffF {
   static constexpr int kTiles = 2;
   static constexpr bool kStoreA = false;
@@ -256,6 +389,21 @@ struct DzEffF {
     const int lt = threadIdx.x % 128;
     const int u = lt & 7;
     const int n = k0 + 4 * u;
+    if constexpr (RG) {
+      const int r0 = st.ir0 - (lt >> 3);
+      if (wide4(dz, ld) && wide4(stats ? z : dz, ld)) {
+        load_box4<64, true>(raw, dz, r0, rows, ld, k0);
+        load_box4<64, true>(raw + kATile, stats ? z : dz, r0, rows, ld, k0, stats);
+      } else {
+        load_box4<64, false>(raw, dz, r0, rows, ld, k0);
+        load_box4<64, false>(raw + kATile, stats ? z : dz, r0, rows, ld, k0, stats);
+      }
+      if (lt < 8) {
+        unit_params4r(prm + 16 * u, stats ? ds1 : nullptr, n, ld, 0.f);
+        unit_params4r(prm + 128 + 16 * u, stats ? ds2 : nullptr, n, ld, 0.f);
+      }
+      return;
+    }
     const bool in = n < ld;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -292,6 +440,7 @@ struct DzEffF {
 // the A operand of its forward, written over the raw z tile it was read
 // from (kStoreA: the kernel stores that box). A slot holds the z tile, then
 // the r tile, with the chunk's a and b beside them.
+template <bool RG = false>
 struct ResidF {
   static constexpr int kTiles = 2;
   static constexpr bool kStoreA = true;
@@ -310,6 +459,21 @@ struct ResidF {
     const int lt = threadIdx.x % 128;
     const int u = lt & 7;
     const int c = k0 + 4 * u;
+    if constexpr (RG) {
+      const int r0 = st.ir0 - (lt >> 3);
+      if (wide4(z, ld) && wide4(r, ld)) {
+        load_box4<64, true>(raw, z, r0, rows, ld, k0);
+        load_box4<64, true>(raw + kATile, r, r0, rows, ld, k0);
+      } else {
+        load_box4<64, false>(raw, z, r0, rows, ld, k0);
+        load_box4<64, false>(raw + kATile, r, r0, rows, ld, k0);
+      }
+      if (lt < 8) {
+        unit_params4r(prm + 16 * u, a, c, ld, 0.f);
+        unit_params4r(prm + 128 + 16 * u, b, c, ld, 0.f);
+      }
+      return;
+    }
     const bool in = c < ld;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -370,14 +534,15 @@ struct Cfg {
 // is a second output: with AOp::kStoreA the converted A (rows, kdim),
 // written once by the tiles of column tile 0; with Epi::kOut2 the
 // epilogue's second value (rows, cols), through the staging tile after the
-// first.
-template <int BN, class AOp, class Epi>
+// first. With RG the outputs go to outp (rows, cols) and out2p (rows, kdim
+// or cols) by predicated stores, and omap / omap2 are not read.
+template <int BN, bool RG, class AOp, class Epi>
 __global__ void __launch_bounds__(384, 1)
     rs_kernel(const __grid_constant__ CUtensorMap bhi, const __grid_constant__ CUtensorMap blo,
               const __grid_constant__ CUtensorMap omap,
               const __grid_constant__ CUtensorMap omap2, const AOp aop0, const Epi epi,
               int rows, int cols, int kdim, float* __restrict__ part1,
-              float* __restrict__ part2) {
+              float* __restrict__ part2, float* __restrict__ outp, float* __restrict__ out2p) {
   using C = Cfg<BN, AOp::kTiles>;
   constexpr int SA = C::SA, SB = C::SB;
   static_assert(C::kFits, "shared memory of one block");
@@ -453,9 +618,16 @@ __global__ void __launch_bounds__(384, 1)
   // (kStoreA) chunk jj of tile tt's converted A, written over its raw tile
   // at aw + o: out by one TMA store in column tile 0 (thread 0 waited for
   // the stores of earlier chunks to read their slots before the barrier
-  // that precedes the conversion, so no copy lands in a slot being stored)
+  // that precedes the conversion, so no copy lands in a slot being stored);
+  // with RG by the warpgroup's predicated stores, which end before its next
+  // conversion barrier
   auto store_a = [&](int tt, int jj, int o) {
-    if constexpr (AOp::kStoreA) {
+    if constexpr (AOp::kStoreA && RG) {
+      if (tt < ntiles && tt % ntn == 0) {
+        bar_sync(6 + wg, 128);
+        store_box4<64>(out2p, aw + o, (tt / ntn) * kBM + 64 * wg, rows, kdim, jj * kBK);
+      }
+    } else if constexpr (AOp::kStoreA) {
       if (tt < ntiles && tt % ntn == 0) {
         fence_proxy_async();
         bar_sync(6 + wg, 128);
@@ -570,7 +742,11 @@ __global__ void __launch_bounds__(384, 1)
       }
       fence_proxy_async();
       bar_sync(4 + wg, 128);
-      if (lt == 0 && rw0 < rows) {
+      if constexpr (RG) {
+#pragma unroll
+        for (int p = 0; p < BN / 32; ++p)
+          store_box4<64>(outp, ost + p * kBox, rw0, rows, cols, col0 + 32 * p);
+      } else if (lt == 0 && rw0 < rows) {
 #pragma unroll
         for (int p = 0; p < BN / 32; ++p)
           if (col0 + 32 * p < cols) tma_store_3d(&omap, ost + p * kBox, col0 + 32 * p, rw0);
@@ -591,7 +767,11 @@ __global__ void __launch_bounds__(384, 1)
           }
         fence_proxy_async();
         bar_sync(4 + wg, 128);
-        if (lt == 0 && rw0 < rows) {
+        if constexpr (RG) {
+#pragma unroll
+          for (int p = 0; p < BN / 32; ++p)
+            store_box4<64>(out2p, ost + p * kBox, rw0, rows, cols, col0 + 32 * p);
+        } else if (lt == 0 && rw0 < rows) {
 #pragma unroll
           for (int p = 0; p < BN / 32; ++p)
             if (col0 + 32 * p < cols)
@@ -614,37 +794,40 @@ __global__ void __launch_bounds__(384, 1)
 }
 
 // hi and lo (tf32 values kept as float32) of w (K, N) float32: as stored
-// (trans = 0) or transposed to (N, K). 32 x 32 tiles, 256 threads.
+// (trans = 0, rows of ldo >= N) or transposed to (N, K) (rows of ldo >=
+// K), the columns from N (or K) to ldo zeros. 32 x 32 tiles, 256 threads.
 __global__ void __launch_bounds__(256)
     split_w_kernel(const float* __restrict__ w, float* __restrict__ hi, float* __restrict__ lo,
-                   int K, int N, int trans) {
+                   int K, int N, int trans, int ldo) {
   __shared__ float t[32][33];
   const int tx = threadIdx.x % 32;
   const int ty = threadIdx.x / 32;
   const int k0 = blockIdx.y * 32;
   const int n0 = blockIdx.x * 32;
+  const int ke = trans ? ldo : K;  // the extents written
+  const int ne = trans ? N : ldo;
   for (int i = ty; i < 32; i += 8) {
     const int k = k0 + i, n = n0 + tx;
-    if (k >= K || n >= N) continue;
-    const float v = w[(size_t)k * N + n];
+    if (k >= ke || n >= ne) continue;
+    const float v = k < K && n < N ? w[(size_t)k * N + n] : 0.f;
     if (trans) {
       t[i][tx] = v;
     } else {
       uint32_t h, l;
       split(v, h, l);
-      hi[(size_t)k * N + n] = __uint_as_float(h);
-      lo[(size_t)k * N + n] = __uint_as_float(l);
+      hi[(size_t)k * ldo + n] = __uint_as_float(h);
+      lo[(size_t)k * ldo + n] = __uint_as_float(l);
     }
   }
   if (!trans) return;
   __syncthreads();
   for (int i = ty; i < 32; i += 8) {
     const int n = n0 + i, k = k0 + tx;
-    if (k >= K || n >= N) continue;
+    if (k >= ke || n >= ne) continue;
     uint32_t h, l;
     split(t[tx][i], h, l);
-    hi[(size_t)n * K + k] = __uint_as_float(h);
-    lo[(size_t)n * K + k] = __uint_as_float(l);
+    hi[(size_t)n * ldo + k] = __uint_as_float(h);
+    lo[(size_t)n * ldo + k] = __uint_as_float(l);
   }
 }
 
@@ -670,15 +853,18 @@ struct DwCfg {
 // pixels [z * per, min(M, (z + 1) * per)). Consumer warpgroup w writes its
 // float32 partial of the block's 64 x BN tile of dw to ws[((2 z + w) * K +
 // k) * N + n]. With RES (K5) x_hat is relu(x * a + b + r) of x and the
-// residual r (rmap, staged like x).
-template <int BN, bool RES>
+// residual r (rmap, staged like x). With RG the producer warpgroup's 128
+// threads copy the stage's boxes from xp, dzp, zp, rp element by element
+// (the maps are not read) and the partials are written element by element.
+template <int BN, bool RES, bool RG>
 __global__ void __launch_bounds__(384, 1)
     dw_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dzmap,
               const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap rmap,
               const float* __restrict__ a, const float* __restrict__ b,
               const float* __restrict__ ds1, const float* __restrict__ ds2,
               float* __restrict__ ws, int M, int K, int N, int prologue, int relu, int stats,
-              int per) {
+              int per, const float* __restrict__ xp, const float* __restrict__ dzp,
+              const float* __restrict__ zp, const float* __restrict__ rp) {
   using C = DwCfg<BN, RES>;
   constexpr int S = C::S;
   extern __shared__ uint8_t smem_raw[];
@@ -698,7 +884,7 @@ __global__ void __launch_bounds__(384, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], RG ? 128 : 1);  // (RG) one cp.async arrival per producer thread
       mbar_init(&empty[s], 4);  // the four warps of the stage's warpgroup
     }
     mbar_fence_init();
@@ -707,7 +893,47 @@ __global__ void __launch_bounds__(384, 1)
 
   if (threadIdx.x < 128) {  // producer warpgroup
     setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
+    if constexpr (RG) {
+      // x (and r) 16-byte wide or not, dz (and z) likewise: each path in
+      // a loop of its own (a branch per box costs the narrow path ~30%)
+      const bool xw = wide4(xp, K) && (!RES || wide4(rp, K));
+      const bool dw = wide4(dzp, N) && (!stats || wide4(zp, N));
+      for (int j = 0; j < nch; ++j) {
+        const int s = j % S;
+        mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        uint8_t* dst = smem + C::ST_OFF + s * C::STAGE;
+        uint8_t* rdst = dst + C::X_BYTES + 2 * C::D_BYTES;
+        uint8_t* ddst = dst + C::X_BYTES;
+        const int m = mb + 32 * j;
+        if (xw) {
+          for (int c = 0; c < nx; ++c) {
+            load_box4<32, true, false>(dst + c * kTileB, xp, m, M, K, kc0 + 32 * c);
+            if (RES) load_box4<32, true, false>(rdst + c * kTileB, rp, m, M, K, kc0 + 32 * c);
+          }
+        } else {
+          for (int c = 0; c < nx; ++c) {
+            load_box4<32, false, false>(dst + c * kTileB, xp, m, M, K, kc0 + 32 * c);
+            if (RES) load_box4<32, false, false>(rdst + c * kTileB, rp, m, M, K, kc0 + 32 * c);
+          }
+        }
+        if (dw) {
+          for (int p = 0; p < nd; ++p) {
+            load_box4<32, true, false>(ddst + p * kTileB, dzp, m, M, N, n0 + 32 * p);
+            if (stats)
+              load_box4<32, true, false>(ddst + C::D_BYTES + p * kTileB, zp, m, M, N, n0 + 32 * p);
+          }
+        } else {
+          for (int p = 0; p < nd; ++p) {
+            load_box4<32, false, false>(ddst + p * kTileB, dzp, m, M, N, n0 + 32 * p);
+            if (stats)
+              load_box4<32, false, false>(ddst + C::D_BYTES + p * kTileB, zp, m, M, N,
+                                          n0 + 32 * p);
+          }
+        }
+        cp_async_arrive(&full[s]);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    } else if (threadIdx.x == 0) {
       for (int j = 0; j < nch; ++j) {
         const int s = j % S;
         mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
@@ -848,9 +1074,15 @@ __global__ void __launch_bounds__(384, 1)
     if (c >= N) continue;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (r0 + 8 * i < K)
-        store2<float>(out + (size_t)(r0 + 8 * i) * N + c, acc[4 * jj + 2 * i],
-                      acc[4 * jj + 2 * i + 1]);
+      if (r0 + 8 * i < K) {
+        float* o = out + (size_t)(r0 + 8 * i) * N + c;
+        if constexpr (RG) {  // rows of any length: element stores
+          o[0] = acc[4 * jj + 2 * i];
+          if (c + 1 < N) o[1] = acc[4 * jj + 2 * i + 1];
+        } else {
+          store2<float>(o, acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+        }
+      }
   }
 }
 
@@ -872,89 +1104,99 @@ inline bool make_map_f32(CUtensorMap* map, const void* ptr, int inner, int outer
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// hi / lo of w: trans = the forward's w^T (N, K), else dx's w (K, N); with
+// pad (the ragged route) the contraction (K, or N) zero-padded to kpad
 inline cudaError_t split_w(const void* w, float* hi, float* lo, int K, int N, bool trans,
-                           cudaStream_t s) {
-  const dim3 grid((N + 31) / 32, (K + 31) / 32);
-  split_w_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(w), hi, lo, K, N, trans);
+                           cudaStream_t s, bool pad = false) {
+  const int inner = trans ? K : N;
+  const int ldo = pad ? kpad(inner) : inner;
+  const dim3 grid(((trans ? N : ldo) + 31) / 32, ((trans ? ldo : K) + 31) / 32);
+  split_w_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(w), hi, lo, K, N, trans, ldo);
   return cudaGetLastError();
 }
 
-template <int BN, class AOp, class Epi>
+template <int BN, bool RG, class AOp, class Epi>
 cudaError_t run_rs(const float* bhi, const float* blo, void* out, const AOp& aop, const Epi& epi,
                    int rows, int cols, int kdim, float* part1, float* part2, cudaStream_t s,
                    void* out2) {
-  // bhi / blo (cols, kdim) in boxes of 32 contraction columns x BN rows;
-  // out (rows, cols) in 64 x 32 boxes, out2 (rows, kdim) with kStoreA,
-  // (rows, cols) with kOut2
+  // bhi / blo (cols, kdim; with RG kpad(kdim)) in boxes of 32 contraction
+  // columns x BN rows; out (rows, cols) in 64 x 32 boxes, out2 (rows, kdim)
+  // with kStoreA, (rows, cols) with kOut2 (with RG no maps: predicated stores)
   using C = Cfg<BN, AOp::kTiles>;
-  CUtensorMap mh, ml, mo, mo2;
-  bool ok = make_map_f32(&mh, bhi, kdim, cols, BN) && make_map_f32(&ml, blo, kdim, cols, BN) &&
-            make_map_f32(&mo, out, cols, rows, 64);
-  if (AOp::kStoreA || Epi::kOut2)
-    ok = ok && out2 != nullptr &&
-         make_map_f32(&mo2, out2, AOp::kStoreA ? kdim : cols, rows, 64);
-  else
-    mo2 = mo;
+  CUtensorMap mh, ml, mo{}, mo2{};
+  const int ldb = RG ? kpad(kdim) : kdim;
+  bool ok = make_map_f32(&mh, bhi, ldb, cols, BN) && make_map_f32(&ml, blo, ldb, cols, BN);
+  if (AOp::kStoreA || Epi::kOut2) ok = ok && out2 != nullptr;
+  if (!RG) {
+    ok = ok && make_map_f32(&mo, out, cols, rows, 64);
+    if (AOp::kStoreA || Epi::kOut2)
+      ok = ok && make_map_f32(&mo2, out2, AOp::kStoreA ? kdim : cols, rows, 64);
+    else
+      mo2 = mo;
+  }
   if (!ok) return cudaErrorInvalidValue;
-  auto kern = rs_kernel<BN, AOp, Epi>;
+  auto kern = rs_kernel<BN, RG, AOp, Epi>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
   const int tiles = ((rows + kBM - 1) / kBM) * ((cols + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  kern<<<grid, 384, C::SMEM, s>>>(mh, ml, mo, mo2, aop, epi, rows, cols, kdim, part1, part2);
+  kern<<<grid, 384, C::SMEM, s>>>(mh, ml, mo, mo2, aop, epi, rows, cols, kdim, part1, part2,
+                                  static_cast<float*>(out), static_cast<float*>(out2));
   return cudaGetLastError();
 }
 
 // out (rows x cols, float32) = A B with BN = 128 for cols > 64 where shared
 // memory allows, else 64; with part1 != nullptr, the epilogue's column sums
 // per 64 rows; out2: the second output of an operand with kStoreA or an
-// epilogue with kOut2
-template <class AOp, class Epi>
+// epilogue with kOut2. RG: the ragged policy (the operand's too)
+template <bool RG = false, class AOp, class Epi>
 cudaError_t gemm(const float* bhi, const float* blo, void* out, const AOp& aop, const Epi& epi,
                  int rows, int cols, int kdim, float* part1, float* part2, cudaStream_t s,
                  void* out2 = nullptr) {
   if constexpr (Cfg<128, AOp::kTiles>::kFits) {
     if (cols > 64)
-      return run_rs<128>(bhi, blo, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
+      return run_rs<128, RG>(bhi, blo, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
   }
-  return run_rs<64>(bhi, blo, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
+  return run_rs<64, RG>(bhi, blo, out, aop, epi, rows, cols, kdim, part1, part2, s, out2);
 }
 
-template <int BN, bool RES>
+template <int BN, bool RES, bool RG>
 cudaError_t run_dw(const void* x, const void* dz, const void* z, const void* r, const float* a,
                    const float* b, const float* ds1, const float* ds2, float* ws, int M, int K,
                    int N, int prologue, int relu, int stats, int splits, int per,
                    cudaStream_t s) {
   using C = DwCfg<BN, RES>;
-  CUtensorMap xm, dm, zm, rm;
-  if (!make_map_f32(&xm, x, K, M, 32) || !make_map_f32(&dm, dz, N, M, 32) ||
-      !make_map_f32(&zm, stats ? z : dz, N, M, 32) ||
-      !make_map_f32(&rm, RES ? r : x, K, M, 32))
+  CUtensorMap xm{}, dm{}, zm{}, rm{};
+  if (!RG && (!make_map_f32(&xm, x, K, M, 32) || !make_map_f32(&dm, dz, N, M, 32) ||
+              !make_map_f32(&zm, stats ? z : dz, N, M, 32) ||
+              !make_map_f32(&rm, RES ? r : x, K, M, 32)))
     return cudaErrorInvalidValue;
-  auto kern = dw_kernel<BN, RES>;
+  auto kern = dw_kernel<BN, RES, RG>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
   dim3 grid((K + 63) / 64, (N + BN - 1) / BN, splits);
   kern<<<grid, 384, C::SMEM, s>>>(xm, dm, zm, rm, a, b, ds1, ds2, ws, M, K, N, prologue, relu,
-                                  stats, per);
+                                  stats, per, static_cast<const float*>(x),
+                                  static_cast<const float*>(dz), static_cast<const float*>(z),
+                                  static_cast<const float*>(r));
   return cudaGetLastError();
 }
 
 // ws holds 2 x splits x K x N float32 partials of dw (one per consumer
 // warpgroup and split); BN = 64 for N <= 64, else 128. RES: x_hat =
-// relu(x * a + b + r) of x and the residual r (K5)
-template <bool RES = false>
+// relu(x * a + b + r) of x and the residual r (K5). RG: the ragged policy
+template <bool RES = false, bool RG = false>
 cudaError_t gemm_dw(const void* x, const void* dz, const void* z, const float* a, const float* b,
                     const float* ds1, const float* ds2, float* ws, int M, int K, int N,
                     int prologue, int relu, int stats, int splits, int per, cudaStream_t s,
                     const void* r = nullptr) {
   if (N <= 64)
-    return run_dw<64, RES>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
-                           splits, per, s);
-  return run_dw<128, RES>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
-                          splits, per, s);
+    return run_dw<64, RES, RG>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
+                               splits, per, s);
+  return run_dw<128, RES, RG>(x, dz, z, r, a, b, ds1, ds2, ws, M, K, N, prologue, relu, stats,
+                              splits, per, s);
 }
 
 }  // namespace tf32

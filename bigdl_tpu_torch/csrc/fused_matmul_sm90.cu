@@ -57,7 +57,7 @@ cudaError_t bwd(const void* x, const void* w, const float* a, const float* b, co
                 int prologue, int relu, int stats, int splits, int rows_per_split,
                 cudaStream_t s) {
   // dx (M, K) = dz_eff (M, N) . w (K, N)^T, with the ReLU mask, a, da, db
-  DzEffA aop{};
+  DzEffA<> aop{};
   aop.dz = static_cast<const bf16*>(dz);
   aop.z = static_cast<const bf16*>(z);
   aop.ds1 = ds1;

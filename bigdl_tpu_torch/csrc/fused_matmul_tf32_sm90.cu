@@ -41,7 +41,7 @@ cudaError_t fwd(const void* x, const void* w, const float* a, const float* b, vo
   float* wlo = wsplit + (size_t)K * N;
   cudaError_t e = split_w(w, whi, wlo, K, N, true, s);
   if (e != cudaSuccess) return e;
-  XHatF aop{};
+  XHatF<> aop{};
   aop.x = static_cast<const float*>(x);
   aop.a = prologue ? a : nullptr;
   aop.b = prologue ? b : nullptr;
@@ -66,7 +66,7 @@ cudaError_t bwd(const void* x, const void* w, const float* a, const float* b, co
   float* wlo = wsplit + (size_t)K * N;
   cudaError_t e = split_w(w, whi, wlo, K, N, false, s);
   if (e != cudaSuccess) return e;
-  DzEffF aop{};
+  DzEffF<> aop{};
   aop.dz = static_cast<const float*>(dz);
   aop.z = static_cast<const float*>(z);
   aop.ds1 = ds1;

@@ -34,8 +34,12 @@ SOURCES = {"flash_fwd": ("flash_fwd.cu", "attn_tile.cuh"),
            "flash_fwd_sm90": ("flash_fwd_sm90.cu", "attn_sm90.cuh"),
            "flash_bwd_sm90": ("flash_bwd_sm90.cu", "attn_sm90.cuh"),
            "paged_attention": ("paged_attention.cu", "attn_tile.cuh"),
-           "fused_matmul": ("fused_matmul.cu", "fused_gemm.cuh"),
-           "fused_chain": ("fused_chain.cu", "fused_gemm.cuh"),
+           "fused_matmul": ("fused_matmul.cu", "fused_gemm_tf32_sm90.cuh",
+                            "fused_gemm_sm90.cuh", "attn_sm90.cuh",
+                            "fused_gemm.cuh"),
+           "fused_chain": ("fused_chain.cu", "fused_gemm_tf32_sm90.cuh",
+                           "fused_gemm_sm90.cuh", "attn_sm90.cuh",
+                           "fused_gemm.cuh"),
            "fused_conv": ("fused_conv.cu", "fused_gemm.cuh"),
            "fused_matmul_sm90": ("fused_matmul_sm90.cu", "fused_gemm_sm90.cuh",
                                  "attn_sm90.cuh", "fused_gemm.cuh"),

@@ -22,8 +22,11 @@ N)):
   junction) takes ``csrc/fused_chain_tf32_sm90.cu`` (3xTF32 wgmma over the
   core of ``csrc/fused_gemm_tf32_sm90.cuh``: each float32 operand split
   into tf32 hi and lo halves, three products);
-- ``"bf16_ragged"``: other bfloat16 shapes, and ``"f32"``: other float32
-  shapes, take the CUDA-core kernels of ``csrc/fused_chain.cu``.
+- ``"f32"`` and ``"bf16_ragged"``: other float32 and bfloat16 shapes (any
+  K and N) take ``csrc/fused_chain.cu``: the same 3xTF32 and bf16 kernels
+  with their ragged load / store policy (element copies of z, r, dh, dzo
+  and zo, the weight prepared with zero-padded rows, predicated stores of
+  h, zo, dz and dr), so no activation is copied or padded.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it. Besides ``<wrapper>.launches``, each wrapper counts
@@ -46,8 +49,8 @@ import torch
 
 from ..utils.engine import refuse_unported
 from . import _build, _flops
-from .fused_matmul import _DTYPES, _TC_SPLITS, _PART_ROWS, _RAGGED, \
-    _check_aligned, _dz_eff, _f32, _ptr, _stream, _wsplit, dw_splits, route
+from .fused_matmul import _ALIGNED, _DTYPES, _TC_SPLITS, _PART_ROWS, \
+    _RAGGED, _check_aligned, _dz_eff, _f32, _ptr, _stream, _wsplit, route
 
 # each route's (library, symbol) for the forward and backward
 _FWD_FN = {"bf16_sm90": ("fused_chain_sm90", "bigdl_fused_chain_sm90_fwd"),
@@ -141,7 +144,7 @@ def fused_chain_fwd(z, r, a, b, w, stats: bool = True):
     M, K = z.shape
     N = w.shape[1]
     rt = route(z.dtype, K, N)
-    if rt in _TC_SPLITS:
+    if rt in _ALIGNED:
         _check_aligned("fused_chain_fwd", z, r, w)
     h = torch.empty_like(z)
     zo = torch.empty((M, N), dtype=z.dtype, device=z.device)
@@ -191,22 +194,18 @@ def fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1, ds2, stats: bool = True):
     M, K = z.shape
     N = w.shape[1]
     rt = route(z.dtype, K, N)
-    if rt in _TC_SPLITS:
+    if rt in _ALIGNED:
         _check_aligned("fused_chain_bwd", z, r, w, dh, dzo,
                        *((zo,) if stats else ()))
     dz, dr = torch.empty_like(z), torch.empty_like(z)
     dw = torch.empty_like(w)
     dadb = torch.empty((2, K), device=z.device)
     part = torch.empty((2, -(-M // _PART_ROWS[rt]), K), device=z.device)
-    if rt in _TC_SPLITS:        # two partials a split, one per warpgroup
-        splits, per = _TC_SPLITS[rt](M, K, N)
-        ws = torch.empty((2 * splits, K, N), device=z.device)
-    else:
-        splits, per = dw_splits(M, K, N)
-        ws = torch.empty((splits, K, N), device=z.device)
+    splits, per = _TC_SPLITS[rt](M, K, N)   # two partials a split
+    ws = torch.empty((2 * splits, K, N), device=z.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
     d1, d2 = (_f32(ds1), _f32(ds2)) if stats else (None, None)
-    wsp, extra = _wsplit(rt, K, N, z.device)   # held, like af / bf
+    wsp, extra = _wsplit(rt, K, N, z.device, fwd=False)   # held, like af
     fn = _build.function(*_BWD_FN[rt],
                          _BWD_ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(z.data_ptr(), r.data_ptr(), af.data_ptr(), bf.data_ptr(),

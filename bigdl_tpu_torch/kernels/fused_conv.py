@@ -39,8 +39,8 @@ import torch.nn.functional as F
 
 from ..utils.engine import refuse_unported
 from . import _build, _flops
-from .fused_matmul import (_DTYPES, _PART_ROWS, _RAGGED, _check_aligned,
-                           _f32, _ptr, _stream, _wsplit)
+from .fused_matmul import (_BM, _DTYPES, _RAGGED, _check_aligned, _f32,
+                           _ptr, _stream, _wsplit)
 from .fused_matmul import route as _k3_route
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -52,6 +52,9 @@ _FWD_FN = {"bf16_sm90": ("fused_conv_sm90", "bigdl_fused_conv_sm90_fwd"),
            "f32": ("fused_conv", "bigdl_fused_conv_fwd")}
 # the tensor-core routes (TMA and 16-byte copies: 16-byte aligned x and w)
 _TC = ("bf16_sm90", "f32_sm90")
+# rows each partial of the column sums covers, per route (the tensor-core
+# cores' kPartRows; fused_gemm.cuh's kBM on the CUDA cores)
+_PART_ROWS = {"bf16_sm90": 64, _RAGGED: _BM, "f32_sm90": 64, "f32": _BM}
 
 
 def route(dtype, c: int, n: int) -> str:
@@ -140,7 +143,7 @@ def fused_conv_fwd(x, w, a, b, stride: int = 1, stats: bool = True):
         part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=x.device)
         s = torch.empty((2, N), device=x.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    wsp, extra = _wsplit(rt, 9 * C, N, x.device)
+    wsp, extra = _wsplit(rt, 9 * C, N, x.device, takes=("f32_sm90",))
     fn = _build.function(*_FWD_FN[rt],
                          _ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(x.data_ptr(), w.data_ptr(), af.data_ptr(), bf.data_ptr(),

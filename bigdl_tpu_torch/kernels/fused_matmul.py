@@ -14,15 +14,19 @@ kernels by dtype and one shape rule (:func:`route`):
 - ``"bf16_sm90"``: bfloat16 with K and N multiples of 8 (every ResNet-50
   call) takes ``csrc/fused_matmul_sm90.cu`` (bf16 wgmma, the weight
   through TMA, the prologue in registers);
-- ``"bf16_ragged"``: other bfloat16 shapes take the CUDA-core kernels of
-  ``csrc/fused_matmul.cu`` in bf16 (the tensor-core kernels need rows of
-  16-byte multiples for TMA);
+- ``"bf16_ragged"``: other bfloat16 shapes (the ragged route: any K and
+  N) take ``csrc/fused_matmul.cu``: the same bf16 kernels with their ragged
+  load / store policy (element copies of the activations, the weight copied
+  with rows zero-padded to 8, predicated stores);
 - ``"f32_sm90"``: float32 with K and N multiples of 4 (every ResNet-50
   call) takes ``csrc/fused_matmul_tf32_sm90.cu`` (3xTF32 wgmma: each
   float32 operand split into tf32 hi and lo halves, three products, which
   keeps float32 accuracy);
-- ``"f32"``: other float32 shapes take ``csrc/fused_matmul.cu`` (float32
-  FMAs on the CUDA cores).
+- ``"f32"``: other float32 shapes (the ragged route: any K and N) take
+  ``csrc/fused_matmul.cu``: the same 3xTF32 kernels with their ragged load
+  / store policy (element copies of the activations, the weight's split
+  halves zero-padded to whole stages, predicated stores), so no
+  activation is copied or padded.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it. Besides ``<wrapper>.launches``, each wrapper counts
@@ -52,9 +56,9 @@ from ..utils.engine import refuse_unported
 from . import _build, _flops
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# dtype -> (tensor-core route, the multiple K and N must be of for it, the
-# CUDA-core route of the other shapes); each route's (library, symbol) for
-# the forward and backward
+# dtype -> (aligned route, the multiple K and N must be of for it, the
+# ragged route of the other shapes); each route's (library, symbol) for the
+# forward and backward
 _ROUTES = {torch.bfloat16: ("bf16_sm90", 8, "bf16_ragged"),
            torch.float32: ("f32_sm90", 4, "f32")}
 _RAGGED = "bf16_ragged"
@@ -68,10 +72,11 @@ _BWD_FN = {"bf16_sm90": ("fused_matmul_sm90", "bigdl_fused_matmul_sm90_bwd"),
            "f32_sm90": ("fused_matmul_tf32_sm90",
                         "bigdl_fused_matmul_tf32_sm90_bwd"),
            "f32": ("fused_matmul", "bigdl_fused_matmul_bwd")}
-_BM = 128          # rows of the CUDA-core kernels' output tile (kBM)
-# rows each partial of the column sums covers, per route (fused_gemm.cuh
-# kBM; the tensor-core cores' kPartRows: one per consumer warpgroup)
-_PART_ROWS = {"bf16_sm90": 64, _RAGGED: _BM, "f32_sm90": 64, "f32": _BM}
+_BM = 128          # rows of the CUDA-core kernels' output tile (K4's kBM)
+_KBK = 32          # contraction depth of a 3xTF32 stage (kBK)
+# rows each partial of the column sums covers: the tensor-core cores'
+# kPartRows, one per consumer warpgroup, on every route
+_PART_ROWS = dict.fromkeys(_FWD_FN, 64)
 _SMS = 132         # streaming multiprocessors of an H100 SXM
 _FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
@@ -84,17 +89,6 @@ def _ptr(t):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def dw_splits(rows: int, k: int, n: int):
-    """(splits, rows per split) of the weight gradient's M-long
-    contraction: enough (K/128 x N/BN x splits) blocks for about four per
-    SM, at least 256 pixels per split, a multiple of 16 rows each."""
-    bn = 64 if n <= 64 else 128
-    tiles = -(-k // _BM) * -(-n // bn)
-    want = max(1, min(-(-4 * _SMS // tiles), -(-rows // 256)))
-    per = -(-(-(-rows // want)) // 16) * 16
-    return -(-rows // per), per
 
 
 def _dw_splits_sm(rows, k, n, quantum):
@@ -123,9 +117,14 @@ def dw_splits_tf32(rows: int, k: int, n: int):
     return _dw_splits_sm(rows, k, n, 64)
 
 
-# the tensor-core routes (TMA: 16-byte aligned operands) and their
-# weight-gradient splits (two partials a split)
-_TC_SPLITS = {"bf16_sm90": dw_splits_sm90, "f32_sm90": dw_splits_tf32}
+# each route's weight-gradient splits (two partials a split, on the
+# tensor-core cores of every route); the aligned routes read their operands
+# by TMA and 16-byte copies
+_TC_SPLITS = {"bf16_sm90": dw_splits_sm90, _RAGGED: dw_splits_sm90,
+              "f32_sm90": dw_splits_tf32, "f32": dw_splits_tf32}
+_ALIGNED = ("bf16_sm90", "f32_sm90")
+# the routes whose C entries take the weight's scratch
+_WSPLIT = ("f32_sm90", "f32", _RAGGED)
 
 
 def route(dtype, k: int, n: int) -> str:
@@ -145,15 +144,36 @@ def _check_aligned(fn, *tensors):
                              f"aligned tensors (data_ptr {t.data_ptr():#x})")
 
 
-def _wsplit(rt, k, n, device):
-    """(scratch, the trailing C arguments) of a route: the 3xTF32 entries
-    take 2 x K x N float32 for the weight's tf32 hi and lo halves, which
-    their prep kernel writes each call; the other routes take none. The
-    caller holds the scratch until the launch is queued."""
-    if rt != "f32_sm90":
+def wsplit_elems(rt, k, n, fwd=True):
+    """float32 elements of a call's weight scratch, which the entry's prep
+    kernel writes each call. The 3xTF32 routes: the weight's tf32 hi and lo
+    halves, B of the product - w^T (N rows of K) for the forward, w (K rows
+    of N) for dx -, the ragged route ``"f32"`` with B's rows zero-padded to
+    whole 32-deep stages (K, or N, rounded up to 32) so that TMA can read
+    them. ``"bf16_ragged"``: w (K, N) copied with rows zero-padded to a
+    multiple of 8 (16 bytes), K x N8 bf16, for both products. 0 on
+    ``"bf16_sm90"``."""
+    if rt == "f32_sm90":
+        return 2 * k * n
+    if rt == "f32":
+        rows, inner = (n, k) if fwd else (k, n)
+        return 2 * rows * (-(-inner // _KBK) * _KBK)
+    if rt == _RAGGED:
+        return -(-k * (-(-n // 8) * 8) // 2)
+    return 0
+
+
+def _wsplit(rt, k, n, device, fwd=True, takes=_WSPLIT):
+    """(scratch, the trailing C arguments) of a route's forward (``fwd``)
+    or backward: for the routes in ``takes`` (those whose entries take the
+    argument) ``wsplit_elems`` float32, passed as the entry's last argument
+    (None for none); no argument on the others. The caller holds the
+    scratch until the launch is queued."""
+    if rt not in takes:
         return None, ()
-    t = torch.empty(2 * k * n, device=device)
-    return t, (t.data_ptr(),)
+    size = wsplit_elems(rt, k, n, fwd)
+    t = torch.empty(size, device=device) if size else None
+    return t, (_ptr(t),)
 
 
 def _prologue(x, a, b, relu):
@@ -259,7 +279,7 @@ def fused_matmul_fwd(x, w, a=None, b=None, relu: bool = False,
     M, K = x.shape
     N = w.shape[1]
     rt = route(x.dtype, K, N)
-    if rt in _TC_SPLITS:
+    if rt in _ALIGNED:
         _check_aligned("fused_matmul_fwd", x, w)
     z = torch.empty((M, N), dtype=x.dtype, device=x.device)
     part = s = None
@@ -309,23 +329,19 @@ def fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2, relu: bool = False,
     M, K = x.shape
     N = w.shape[1]
     rt = route(x.dtype, K, N)
-    if rt in _TC_SPLITS:
+    if rt in _ALIGNED:
         _check_aligned("fused_matmul_bwd", x, w, dz, *((z,) if stats else ()))
     prologue = a is not None
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
     dadb = torch.empty((2, K), device=x.device) if prologue else None
-    if rt in _TC_SPLITS:        # two partials a split, one per warpgroup
-        splits, per = _TC_SPLITS[rt](M, K, N)
-        ws = torch.empty((2 * splits, K, N), device=x.device)
-    else:
-        splits, per = dw_splits(M, K, N)
-        ws = torch.empty((splits, K, N), device=x.device)
+    splits, per = _TC_SPLITS[rt](M, K, N)   # two partials a split
+    ws = torch.empty((2 * splits, K, N), device=x.device)
     part = (torch.empty((2, -(-M // _PART_ROWS[rt]), K), device=x.device)
             if prologue else None)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
     d1, d2 = (_f32(ds1), _f32(ds2)) if stats else (None, None)
-    wsp, extra = _wsplit(rt, K, N, x.device)   # held, like af / bf
+    wsp, extra = _wsplit(rt, K, N, x.device, fwd=False)   # held, like af
     fn = _build.function(*_BWD_FN[rt],
                          _BWD_ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(x.data_ptr(), w.data_ptr(), _ptr(af), _ptr(bf),

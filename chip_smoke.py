@@ -38,15 +38,22 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    with the launches by route, and the bf16 flash pair timed at D = 96
    (hidden 768, 8 heads) at the training shape. The fused ResNet kernels
    are checked on all four routes (bf16 and float32 in 3xTF32 on the
-   tensor cores; ragged bf16 and the other float32 shapes on the CUDA
-   cores) at small and ragged shapes, at pad taps where relu(b) != 0, K3
-   and K5 also without statistics at M = 147 and K5 at the ReLU's tie,
-   with the float32 launches by route, and, with two launches bit for bit
-   equal, at every distinct ResNet-50 B256/224 shape of K3 (forward and
-   backward), K4 and K5 in bf16 and every B32/224 shape of K3, K4 and K5
-   in float32 (also on the CUDA-core route, for comparison; K5's h also
-   written into a NaN-filled buffer, which must come back whole), each
-   timed with its library call and bound; the launches a step times the
+   tensor cores, aligned and, for K3 / K5 at any other K and N, with the
+   cores' ragged load / store policy; K4's ragged shapes on the CUDA
+   cores) at small and ragged shapes (K ending mid-k8 / mid-k16), at pad
+   taps where relu(b) != 0, K3 and K5 also without statistics at M = 147
+   and K5 at the ReLU's tie, with the float32 launches by route, and,
+   with two launches bit for bit equal, at every distinct ResNet-50
+   B256/224 shape of K3 (forward and backward), K4 and K5 in bf16 and
+   every B32/224 shape of K3, K4 and K5 in float32 (also forced onto the
+   ragged route, for comparison; K5's h also written into a NaN-filled
+   buffer, which must come back whole), and K3 / K5 at truly ragged
+   shapes in both dtypes (K3 K 63 / N 255, K5 K 255 / N 63; each call's
+   peak memory beyond its outputs held to its weight-sized scratch), each
+   timed with its library call and bound; then the width-50
+   ``FusedBottleneckChain``'s training step beside the width-48 one in
+   both dtypes (card against CPU, launches by route, device ms, peak
+   memory: no activation copied or padded); the launches a step times the
    time of each family is printed against the measured steps of phases 7
    and 8. K5's bf16 stage-0 junction must take at most 1.0 ms forward and
    3.0 ms backward; in float32 at B32, K3's stage-0 conv3 at most 0.12 /
@@ -55,7 +62,10 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    backward) and K4's float32 stage-0 call cuDNN's float32 conv, timed in
    the same run, and K2's decode case must take at most a third of the
    unsplit kernel's time.
-   The tensor-core libraries (``*_sm90``) must build without spills;
+   The tensor-core libraries (``*_sm90``) must build without spills (the
+   ragged ``fused_matmul`` / ``fused_chain`` report theirs: the bf16 ragged
+   dw kernels' consumers spill at the 224 registers they leave their
+   producer's batched loads);
 3. runs ``Transformer.generate`` on the flagship TransformerLM (vocab
    32000, hidden 1024, 16 heads, filter 4096, 12 layers, bf16 weights,
    batch 8, prompt 128) and checks ``prefill`` (causal flash kernel)
@@ -336,7 +346,7 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ``bench_transformer_lm``'s width, float32 parameters, B16/T1024, on a
    one-rank NCCL group - replicated equal to ``LocalOptimizer`` after 3
    steps, then ``replicated``, ``zero1``, ``zero1`` with
-   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 1 warm-up and 3
+   ``compress="bf16"`` and with ``wire_dtype="bf16"``, 1 warm-up and 2
    timed steps each (step ms, tokens/s, peak GiB, K1 launches by route,
    the collectives' bytes a step, NCCL's kernel ms in a profiled step);
    (b) ResNet-50 fused NHWC float32 B32/224, local / replicated (equal
@@ -487,7 +497,10 @@ phase 19's K1 launches, both ranks, on ``flash_fwd`` / ``flash_bwd``
 ``paged_attention``; phase 20's agents' K2 launches on
 ``paged_attention`` and their flash launches on ``flash_fwd_chunk``;
 phase 23's DLClassifier fits on the ``_f32`` K3 / K5 / K4 rows and its
-transforms on the ``_eval`` rows);
+transforms on the ``_eval`` rows; the four ragged K3 / K5 rows
+(``fused_matmul_f32_ragged``, ``fused_chain_f32_ragged`` and their bf16
+twins) at the truly ragged shapes, the backward's readings beside the
+forward's, with the width-50 chain step's launches on their routes);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -634,9 +647,10 @@ def n_copies(bytes_per_set):
 
 def bound(nbytes, flops, dtype, route=None):
     """(bound ms, 'bytes' | 'operations'): the larger of the two times. The
-    3xTF32 route (``f32_sm90``) runs three tf32 products for each float32
-    one, so its operations count three times at the tf32 rate; other
-    float32 work counts at the CUDA cores' float32 rate."""
+    3xTF32 route (``f32_sm90``; K3's and K5's ``f32`` too, whose callers
+    pass ``f32_sm90``) runs three tf32 products for each float32 one, so its
+    operations count three times at the tf32 rate; other float32 work
+    counts at the CUDA cores' float32 rate."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     if route == "f32_sm90":
         t_ops = 3 * flops / TF32_FLOPS * 1e3
@@ -955,13 +969,70 @@ def _same(torch, got, again):
                for p, q in zip(got, again))
 
 
+def _tc_route(rec):
+    """The route whose bound a K3 / K5 record takes: both float32 routes
+    run 3xTF32."""
+    return "f32_sm90" if rec["dtype"] == "torch.float32" else rec["route"]
+
+
+def extra_peak(torch, fn):
+    """Bytes one ``fn()`` call holds on the card at its peak beyond the
+    storage of the tensors it returns (its scratch, partials and any copy
+    it makes), and those returned bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in out if t is not None}
+    return peak - sum(kept.values()), sum(kept.values())
+
+
+def _weight_sized(rt, M, Kd, N, bwd, esz):
+    """Bytes of a K3 / K5 call's scratch that is not M-sized activation
+    (its weight's scratch, column-sum partials, dw partials, float32
+    parameter copies), plus 2 MiB of the allocator's rounding: what a call
+    may hold beyond its outputs if it copies or pads no activation."""
+    from bigdl_tpu_torch.kernels import fused_matmul as fm
+    cols = Kd if bwd else N
+    b = 4 * fm.wsplit_elems(rt, Kd, N, not bwd)
+    b += 4 * 2 * -(-M // fm._PART_ROWS[rt]) * cols
+    if bwd:
+        b += 4 * 2 * fm._TC_SPLITS[rt](M, Kd, N)[0] * Kd * N
+        b += esz * Kd * N
+    return b + 4 * 8 * (Kd + N) + 2 * 2**20
+
+
+def _mem_check(torch, what, rec, fwd_fn, bwd_fn, M, Kd, N, esz, act):
+    """Each call's peak bytes beyond its outputs against its weight-sized
+    scratch (``_weight_sized``); ``act``: the smallest M-sized operand's
+    bytes, which a copied or padded activation would add."""
+    for tag, fn, bwd in (("fwd", fwd_fn, False), ("bwd", bwd_fn, True)):
+        extra, kept = extra_peak(torch, fn)
+        allowed = _weight_sized(rec["route"], M, Kd, N, bwd, esz)
+        rec[f"{tag}_extra_bytes"] = extra
+        rec[f"{tag}_allowed_bytes"] = allowed
+        check(extra <= allowed < act, f"{what} {tag}: {extra} bytes held "
+              f"beyond its {kept} bytes of outputs, over its weight-sized "
+              f"scratch {allowed} (an M-sized operand: {act} bytes): {rec}")
+    print(f"  {what} peak bytes beyond the outputs: fwd "
+          f"{rec['fwd_extra_bytes']} (weight-sized scratch "
+          f"{rec['fwd_allowed_bytes']}), bwd {rec['bwd_extra_bytes']} "
+          f"({rec['bwd_allowed_bytes']}); smallest M-sized operand {act}",
+          flush=True)
+
+
 def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
-            plain=True):
+            plain=True, mem=False):
     """K3 forward (and backward) against the plain versions on one set of
     inputs, and a second launch bit for bit against the first; timed:
     kernel, plain version (with ``plain``) and the bare product (cuBLAS
     ``x @ w``; for the backward ``dz @ w.T`` and ``x.T @ dz``), which
-    computes the product alone, without the prologue and statistics."""
+    computes the product alone, without the prologue and statistics.
+    ``mem``: each call's peak memory beyond its outputs is held to its
+    weight-sized scratch (no activation copied or padded)."""
     from bigdl_tpu_torch.kernels.fused_matmul import route
     g = torch.Generator(device="cuda").manual_seed(M + Kd + N)
     x = torch.randn(M, Kd, device="cuda", generator=g).to(dtype)
@@ -998,6 +1069,13 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
     check(max(errs) <= tol, f"fused_matmul disagrees with its plain version: "
           f"{rec}")
     check(same, f"fused_matmul: two launches differ: {rec}")
+    if mem:
+        _mem_check(torch, f"K3 {M}x{Kd}x{N} {dtype}", rec,
+                   lambda: K.fused_matmul_fwd(x, w, a, b, relu, stats),
+                   lambda: K.fused_matmul_bwd(x, w, a, b, z, dz, ds1, ds2,
+                                              relu, stats),
+                   M, Kd, N, _esz(torch, dtype),
+                   _esz(torch, dtype) * M * min(Kd, N))
     if not timed:
         return rec
     e = _esz(torch, dtype)
@@ -1010,7 +1088,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
             x, w, a, b, relu, stats), 1, reps=5) if plain else None,
         library_ms=graph_ms(torch, lambda i: x @ w, 1, reps=10))
     rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
-        nbytes, 2.0 * M * Kd * N, dtype, rec["route"])
+        nbytes, 2.0 * M * Kd * N, dtype, _tc_route(rec))
     if bwd:
         # reads x, w, a, b, dz, z, ds1, ds2; writes dx, dw, da, db
         nbytes = (e * (2 * M * Kd + 2 * Kd * N + 2 * M * N)
@@ -1025,7 +1103,7 @@ def k3_case(torch, K, M, Kd, N, dtype, prologue, relu, stats, timed, bwd=True,
             library_ms=graph_ms(torch, lambda i: (dz @ w.T, x.T @ dz), 1,
                                 reps=5, iters=5))
         rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
-            nbytes, 4.0 * M * Kd * N, dtype, rec["route"])
+            nbytes, 4.0 * M * Kd * N, dtype, _tc_route(rec))
     print(f"  K3 timing {rec}", flush=True)
     return rec
 
@@ -1058,7 +1136,7 @@ def _k5_nan_h(torch, K, z, r, a, b, w, h_ref):
 
 
 def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
-            tie=False, nan_h=False):
+            tie=False, nan_h=False, mem=False):
     """K5 forward and backward against the plain versions, and a second
     launch bit for bit against the first; timed like K3, the bare product
     being ``h @ w`` (and ``dzo @ w.T``, ``h.T @ dzo``). ``tie``: z = r = 0
@@ -1066,7 +1144,7 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
     (the ReLU's tie, whose gradient is 0 on both sides). ``nan_h``: the
     forward's C entry is also called on an h pre-filled with NaN, which
     must come back equal to the plain version's h everywhere (written in
-    full by the kernel)."""
+    full by the kernel). ``mem``: as K3's."""
     from bigdl_tpu_torch.kernels.fused_matmul import route
     g = torch.Generator(device="cuda").manual_seed(B + H + Kd + N)
     M = B * H * H
@@ -1108,6 +1186,13 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
     check(same, f"fused_chain: two launches differ: {rec}")
     check(rec.get("nan_h_equal", True), f"fused_chain: h not written in full "
           f"(NaN left in a pre-filled h): {rec}")
+    if mem:
+        _mem_check(torch, f"K5 {M}x{Kd}x{N} {dtype}", rec,
+                   lambda: K.fused_chain_fwd(z, r, a, b, w, stats),
+                   lambda: K.fused_chain_bwd(z, r, a, b, w, zo, dh, dzo, ds1,
+                                             ds2, stats),
+                   M, Kd, N, _esz(torch, dtype),
+                   _esz(torch, dtype) * M * min(Kd, N))
     if not timed:
         return rec
     e = _esz(torch, dtype)
@@ -1120,7 +1205,7 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
     # reads z, r, w, a, b; writes h, zo, s1, s2
     rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = bound(
         e * (3 * M * Kd + Kd * N + M * N) + 4 * (2 * Kd + 2 * N),
-        2.0 * M * Kd * N, dtype, rec["route"])
+        2.0 * M * Kd * N, dtype, _tc_route(rec))
     rec["bwd"] = dict(
         ms=graph_ms(torch, lambda i: K.fused_chain_bwd(
             z, r, a, b, w, zo, dh, dzo, ds1, ds2, True), 1, reps=5, iters=5),
@@ -1132,7 +1217,7 @@ def k5_case(torch, K, B, H, Kd, N, dtype, timed, plain=True, stats=True,
     # reads z, r, w, a, b, dh, dzo, zo, ds1, ds2; writes dz, dr, da, db, dw
     rec["bwd"]["bound_ms"], rec["bwd"]["bound_by"] = bound(
         e * (5 * M * Kd + 2 * Kd * N + 2 * M * N) + 4 * (4 * Kd + 2 * N),
-        4.0 * M * Kd * N, dtype, rec["route"])
+        4.0 * M * Kd * N, dtype, _tc_route(rec))
     print(f"  K5 timing {rec}", flush=True)
     return rec
 
@@ -1251,14 +1336,24 @@ def resnet_shapes(torch, K):
 
 # phase 8's batch: Optimizer.create at B32/224 on float32 parameters
 FB = 32
+# the bottleneck chain of phase 2's ragged step: two FusedBottleneck blocks
+# at width w (nin 2 w -> w -> 4 w, then 4 w -> w -> 4 w), w = 50 (conv1
+# ragged in N, conv3 in K, the junction's next conv1 in N) against w = 48
+# (all aligned), at (batch, image side) per dtype
+CHAIN_RAGGED, CHAIN_ALIGNED = 50, 48
+CHAIN_SHAPE = {"torch.float32": (32, 56), "torch.bfloat16": (64, 56)}
+# the batch (x 56 x 56 rows) of phase 2's truly ragged K3 / K5 shapes per
+# dtype: phase 8's in float32, the B256 training step's in bf16
+RAGGED_BATCH = {"torch.float32": FB, "torch.bfloat16": RB}
 
 
 @contextlib.contextmanager
-def cuda_core_route(torch):
-    """K3, K4 and K5 float32 calls on the CUDA-core route
-    (csrc/fused_matmul.cu, csrc/fused_conv.cu, csrc/fused_chain.cu: float32
-    FMAs, the route of float32 shapes outside the 3xTF32 rules, and of
-    every float32 call before them), at any shape."""
+def ragged_route(torch):
+    """K3, K4 and K5 float32 calls on the ragged route ``f32``, the route
+    of float32 shapes outside the aligned 3xTF32 rules, at any shape: K3 and
+    K5 on csrc/fused_matmul.cu and csrc/fused_chain.cu (3xTF32 with the
+    ragged load / store policy), K4 on csrc/fused_conv.cu (float32 FMAs on
+    the CUDA cores)."""
     from bigdl_tpu_torch.kernels import (fused_chain as fc, fused_conv as fcv,
                                          fused_matmul as fm)
     rule, conv_rule = fm.route, fcv.route
@@ -1278,17 +1373,18 @@ def resnet_shapes_f32(torch, K):
     backward) in float32, the calls of phase 8, and of K4 (phase 7's
     float32 step runs it), held against the plain versions (two launches
     bit for bit; K5's h also into a NaN-filled buffer) and timed with the
-    library call and the bound, on the 3xTF32 route and then on the
-    CUDA-core route; the plain versions are timed at stage 0. Returns
-    ({family: [(name, launches a step, timing)]} of each route, {name:
-    case record} of each route)."""
+    library call and the bound, on the 3xTF32 route and then forced onto
+    the ragged route (``ragged_route``: K3 / K5 on 3xTF32 with the ragged
+    policy, K4 on the CUDA cores); the plain versions are timed at stage 0.
+    Returns ({family: [(name, launches a step, timing)]} of each route,
+    {name: case record} of each route)."""
     f32 = torch.float32
     fams, recs_by_route = [], []
     for cc in (False, True):
         fam = {"K3 fwd": [], "K3 bwd": [], "K5 fwd": [], "K5 bwd": [],
                "K4": []}
         recs = {}
-        with (cuda_core_route(torch) if cc else contextlib.nullcontext()):
+        with (ragged_route(torch) if cc else contextlib.nullcontext()):
             for name, (M, Kd, N, pro), n in RESNET_K3:
                 r = recs[name] = k3_case(
                     torch, K, M // RB * FB, Kd, N, f32, pro, pro, True, True,
@@ -1314,11 +1410,170 @@ def resnet_shapes_f32(torch, K):
     for f, rows in fams[0].items():
         for (name, n, r), (_, _, o) in zip(rows, fams[1][f]):
             print(f"  float32 B{FB} {f} {name}: {n} a step x {r['ms']:.4f} "
-                  f"ms 3xTF32, {o['ms']:.4f} ms CUDA cores (library "
+                  f"ms 3xTF32, {o['ms']:.4f} ms on the ragged route "
+                  f"({'CUDA cores' if f == 'K4' else '3xTF32'}; library "
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-                  f"{r['bound_by']}; CUDA-core bound {o['bound_ms']:.4f})",
-                  flush=True)
+                  f"{r['bound_by']}; the ragged route's bound "
+                  f"{o['bound_ms']:.4f})", flush=True)
     return fams, recs_by_route
+
+
+def _chain(torch, width, dev, seed=0):
+    """A FusedBottleneckChain of two FusedBottleneck blocks at ``width``
+    (nin 2 w -> w -> 4 w, then 4 w -> w -> 4 w; the 3x3 convs unfused),
+    its weights drawn from ``seed`` on the CPU, on ``dev``."""
+    from bigdl_tpu_torch.models import FusedBottleneck, FusedBottleneckChain
+    torch.manual_seed(seed)
+    m = FusedBottleneckChain([FusedBottleneck(2 * width, width, 1, 4, False),
+                              FusedBottleneck(4 * width, width, 1, 4, False)])
+    return m.to(dev)
+
+
+def _chain_step(torch, m, x, bf16):
+    """One training step of a chain: the forward in training mode (bf16:
+    ``bf16_params`` of the float32 masters, as the bf16 recipe) and the
+    gradients of sum(sin(out / 2)) by autograd. Returns (out, new state,
+    {leaf: gradient})."""
+    from bigdl_tpu_torch.convert import flatten
+    from bigdl_tpu_torch.utils.amp import bf16_params
+    params = m.params
+    out, ns = m.apply(bf16_params(params) if bf16 else params, m.state, x,
+                      training=True)
+    loss = torch.sin(out.float() * 0.5).sum()
+    leaves = flatten(params)
+    return out, ns, dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()))))
+
+
+def chain_ms(torch, step, n=2):
+    """A training step's device ms (the kernels' summed device time a step,
+    ``torch.profiler`` over ``n`` steps; the eager step is host-paced), the
+    fused K3 / K5 kernels' share of it (the cores' rs / dw / split / pad /
+    sum kernels, and the CUDA-core ones), and the eager wall ms a step
+    (CUDA events)."""
+    per = launch_ms(torch, step, n)
+    fused = ("rs_kernel", "dw_kernel", "split_w_kernel", "pad_cols_kernel",
+             "sum_rows_kernel", "gemm_kernel", "gemm_rs_kernel")
+    return {"ms": sum(per.values()),
+            "fused_ms": sum(v for k, v in per.items() if k in fused),
+            "wall_ms": event_ms(torch, step, reps=2, iters=3)}
+
+
+def _chain_errs(got, want):
+    (o, s, g), (ow, sw, gw) = got, want
+    return {"out": _rel_err(o, ow),
+            "state": max(_rel_err(s[k], sw[k]) for k in sw),
+            "grads": max(_rel_err(g[k], gw[k]) for k in gw)}
+
+
+def ragged_chain(torch, K):
+    """The ragged routes on the path a user reaches them by: a
+    FusedBottleneckChain at width 50 (CHAIN_RAGGED: conv1 ragged in N,
+    conv3 in K, the junction's next conv1 in N; bf16 also the projection,
+    K = 100) beside the same chain at width 48 (all aligned), in float32
+    and bf16 (the bf16 recipe). Per dtype: the width-50 chain's training
+    step on a B2/28 batch on the card against the CPU on the same weights
+    and inputs (float32: card against CPU; bf16: each against the CPU's
+    float32 step, the card at most twice the CPU's distance plus 1e-3);
+    then per width the step at CHAIN_SHAPE: its K3 / K5 launches by route
+    (counts set to 0 just before the first step, read just after: every
+    call on the route its (K, N) gives), its device ms (``chain_ms``) and
+    its peak memory beyond the model and batch. The width-50 step's peak
+    must stay within half a width-50 activation of the width-48 step's
+    scaled by 50 / 48: no activation is copied or padded. TF32 off (the 3x3
+    convs run on cuDNN). Returns {dtype: {width: record}}."""
+    from collections import Counter
+    from bigdl_tpu_torch.convert import flatten
+    from bigdl_tpu_torch.kernels.fused_matmul import route
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        bf16 = dt == torch.bfloat16
+        B, S = CHAIN_SHAPE[str(dt)]
+        recs = out[str(dt)] = {}
+        w = CHAIN_RAGGED
+        xs = np.random.RandomState(w).randn(2, 28, 28, 2 * w).astype(
+            np.float32)
+        runs = {}
+        for where, rdt in (("cuda", dt), ("cpu", dt)) + (
+                (("truth", torch.float32),) if bf16 else ()):
+            dev = "cpu" if where == "truth" else where
+            o, ns, g = _chain_step(torch, _chain(torch, w, dev),
+                                   torch.from_numpy(xs).to(dev, rdt),
+                                   rdt == torch.bfloat16)
+            runs[where] = (o.detach().float().cpu(),
+                           {k: v.float().cpu()
+                            for k, v in flatten(ns).items()},
+                           {k: v.float().cpu() for k, v in g.items()})
+        rec = recs[w] = {"width": w, "dtype": str(dt)}
+        if bf16:
+            rec["card_vs_f32"] = _chain_errs(runs["cuda"], runs["truth"])
+            rec["cpu_vs_f32"] = _chain_errs(runs["cpu"], runs["truth"])
+            ok = all(rec["card_vs_f32"][k] <= 2 * rec["cpu_vs_f32"][k]
+                     + 1e-3 for k in rec["card_vs_f32"])
+        else:
+            # float32 everywhere, sums in other orders; the gradients pass
+            # back through the one-pass BatchNorm variances of the B2 batch
+            # (1568 pixels), which amplify the rounding
+            rec["card_vs_cpu"] = _chain_errs(runs["cuda"], runs["cpu"])
+            e = rec["card_vs_cpu"]
+            ok = e["out"] <= 1e-4 and e["state"] <= 1e-4 and \
+                e["grads"] <= 1e-3
+        check(ok, f"the width-{w} chain's step on the card disagrees with "
+              f"the CPU: {rec}")
+        for w in (CHAIN_RAGGED, CHAIN_ALIGNED):
+            rec = recs.setdefault(w, {"width": w, "dtype": str(dt)})
+            m = _chain(torch, w, "cuda")
+            x = torch.from_numpy(np.random.RandomState(w).randn(
+                B, S, S, 2 * w).astype(np.float32)).to("cuda", dt)
+            step = lambda: _chain_step(torch, m, x, bf16)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            step()
+            torch.cuda.synchronize()
+            routes = K.launches_by_route()
+            k3 = Counter(route(dt, k, n) for k, n in (
+                (2 * w, w), (w, 4 * w), (2 * w, 4 * w), (w, 4 * w)))
+            k5 = Counter([route(dt, 4 * w, w)])
+            want = {"fused_matmul_fwd": k3, "fused_matmul_bwd": k3,
+                    "fused_chain_fwd": k5, "fused_chain_bwd": k5}
+            rec["routes"] = {n: {r: c for r, c in routes[n].items() if c}
+                             for n in want}
+            check(all(rec["routes"][n] == dict(c) for n, c in want.items()),
+                  f"the width-{w} chain's step ({dt}) launched "
+                  f"{rec['routes']}, expected {want}")
+            rec.update(chain_ms(torch, step))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            rec["peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+            del m, x
+        r, a = recs[CHAIN_RAGGED], recs[CHAIN_ALIGNED]
+        scaled = a["peak_extra_bytes"] * CHAIN_RAGGED / CHAIN_ALIGNED
+        act = B * S * S * CHAIN_RAGGED * _esz(torch, dt)
+        r["excess_over_aligned_bytes"] = r["peak_extra_bytes"] - scaled
+        print(f"  width-{CHAIN_RAGGED} chain step ({dt}, B{B}/{S}): "
+              f"{r['ms']:.4f} device ms against {a['ms']:.4f} at width "
+              f"{CHAIN_ALIGNED} (ratio {r['ms'] / a['ms']:.3f}, widths "
+              f"{CHAIN_RAGGED / CHAIN_ALIGNED:.3f}; K3 / K5 kernels "
+              f"{r['fused_ms']:.4f} against {a['fused_ms']:.4f}; eager wall "
+              f"{r['wall_ms']:.4f} against {a['wall_ms']:.4f}); launches "
+              f"{r['routes']} "
+              f"against {a['routes']}; card against CPU "
+              f"{r.get('card_vs_cpu', r.get('card_vs_f32'))} (CPU bf16 "
+              f"{r.get('cpu_vs_f32')}); peak memory beyond model and batch "
+              f"{r['peak_extra_bytes']} bytes against {a['peak_extra_bytes']}"
+              f" at width {CHAIN_ALIGNED} ({scaled:.0f} scaled by the widths:"
+              f" {r['excess_over_aligned_bytes']:.0f} over it; half a "
+              f"width-{CHAIN_RAGGED} activation {act // 2})", flush=True)
+        check(r["excess_over_aligned_bytes"] < act // 2,
+              f"the width-{CHAIN_RAGGED} chain step ({dt}) holds "
+              f"{r['excess_over_aligned_bytes']:.0f} bytes more than the "
+              f"aligned step scaled: an activation copied or padded?")
+    return out
 
 
 def _print_families(fam):
@@ -1614,6 +1869,14 @@ def resnet_card_vs_cpu(torch, K, dtype, truth=None, B=2, S=224):
     check(rec["pool_grad_equal"], "max pool ties routed differently on the "
           "card and the CPU")
     return rec, out["cpu"]
+
+
+def _first_diffs(torch, got, want, n=4):
+    """The first ``n`` elements (flat index, got, want) where two tensors of
+    one shape differ."""
+    g, w = got.flatten(), want.flatten()
+    idx = torch.nonzero(g != w).flatten()[:n].tolist()
+    return [(i, g[i].item(), w[i].item()) for i in idx]
 
 
 def trace_steps(torch, step, n=2, top=20, per_call=1, convs=True):
@@ -3604,11 +3867,17 @@ def loop_depth(torch, K, card, S=LOOP_S, dev="cuda", tmp=None):
                 outs[where] = flatten(p)
             for k, v in outs["cpu"].items():
                 ref = float(v.abs().max()) or 1.0
-                errs.append(float((outs[dev][k].cpu() - v).abs().max())
-                            / ref)
-            f_out[name] = {"losses": f["losses"], "rel_err": max(errs)}
-            check(max(errs) <= 1e-6, f"(f) {name} update on the card "
-                  f"against the CPU: relative error {max(errs):.3g}")
+                errs.append((float((outs[dev][k].cpu() - v).abs().max())
+                             / ref, k))
+            bad = [e for e in errs if not e[0] <= 1e-6]    # NaN included
+            worst, leaf = bad[0] if bad else max(errs)
+            f_out[name] = {"losses": f["losses"], "rel_err": worst}
+            check(not bad, f"(f) {name} update on the card against "
+                  f"the CPU: relative error {worst:.3g} at leaf {leaf}, "
+                  f"first differing elements (index, card, CPU) "
+                  f"{_first_diffs(torch, outs[dev][leaf].cpu(), outs['cpu'][leaf])}"
+                  f", its start {init[leaf].flatten()[:4].tolist()} and "
+                  f"gradient {grads[leaf].flatten()[:4].tolist()}")
         print(f"    (f) 2 iterations each, losses finite, parameters moved; "
               f"one update of ResNet-50's tree on the card against the CPU "
               f"(relative): " + ", ".join(
@@ -5910,7 +6179,7 @@ def _det_same(torch, name, got, want):
 # (a) the flagship at bench_transformer_lm's width through DistriOptimizer,
 # (b) ResNet-50 fused NHWC float32, (c) two ranks sharing the card over
 # gloo, (d) the failure detectors and the elastic restart
-DIST18 = dict(B=16, T=1024, warm=1, timed=3, local_steps=3, res_B=32,
+DIST18 = dict(B=16, T=1024, warm=1, timed=2, local_steps=3, res_B=32,
               res_S=224, res_steps=3, gloo_layers=2, gloo_steps=2,
               gloo_lr=0.1, elastic_halt=2, elastic_steps=4)
 # (c) and (d) train at lr 0.1 (SGD, momentum 0.9): at (a)'s 0.01 three
@@ -6190,7 +6459,7 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
     layers, float32 parameters, B16/T1024, ``LMCriterion``, SGD 0.01
     momentum 0.9) on this process's one-rank NCCL group: LocalOptimizer 3
     steps, replicated 3 steps equal to it, then each of MODES18 1 warm-up
-    and 3 timed steps (step ms, tokens/s, peak GiB, K1 launches by route,
+    and 2 timed steps (step ms, tokens/s, peak GiB, K1 launches by route,
     the collectives' bytes a step from the counters) and one more step
     under the profiler (NCCL's kernels' ms). (b) ResNet-50 fused NHWC
     float32 B32/224: LocalOptimizer, replicated (its BatchNorm running
@@ -6490,8 +6759,9 @@ def distributed(torch, K, card, dev="cuda", tmp=None):
 # time limit; (a) serves the first ``n_req`` (4) of phase 4's 16 and (b)
 # the first ``fsdp_req`` (4) with their budgets capped at ``fsdp_budget``
 # (32: the serving time is the decode steps of the longest budget), and
-# phase 18 (a) times 3 steps a mode after one warm step, which leaves room
-# for phases 22 and 23 under that limit. (a2) adds the host KV tier under the tensor-parallel mesh,
+# phase 18 (a) times 2 steps a mode after one warm step (3 until the ragged
+# K3 / K5 checks joined phase 2), which leaves room for phases 22 and 23
+# under that limit. (a2) adds the host KV tier under the tensor-parallel mesh,
 # (c) the engine over FSDP on the same 4-layer cut.
 MP19 = dict(n_req=4, prompt=(32, 257), budget=(16, 65), slots=8, block=16,
             chunk=32, max_seq=384, max_len=512,
@@ -9527,13 +9797,20 @@ def main():
     k1_d96 = flash_case(torch, K, 16, 8, 1024, 1024, 96, bf, True, 0, 1024,
                         timed=True)
     k1b_d96 = bwd_case(torch, K, 16, 8, 1024, 96, bf, True, timed=True)
-    # the fused ResNet kernels: small and ragged shapes in both dtypes,
+    # the fused ResNet kernels: small and ragged shapes in both dtypes (K
+    # ending mid-k8 / mid-k16 and N not a multiple of 4 or 8 on the ragged
+    # routes: K3 at K = 63 and 6, K5's junction at K = 24 / N = 6 with h
+    # into a NaN-filled buffer and at K = 255 / N = 63 at the ReLU's tie),
     # then the three timed ResNet-50 shapes at B256/224
     for dt in (f32, bf):
         k3_case(torch, K, 300, 24, 40, dt, True, True, True, False)
         k3_case(torch, K, 257, 130, 70, dt, False, False, True, False)
         k3_case(torch, K, 129, 16, 8, dt, True, False, False, False)
+        k3_case(torch, K, 129, 63, 50, dt, True, True, True, False)
+        k3_case(torch, K, 77, 6, 24, dt, True, True, False, False)
         k5_case(torch, K, 2, 5, 48, 24, dt, False)
+        k5_case(torch, K, 2, 5, 24, 6, dt, False, nan_h=True)
+        k5_case(torch, K, 3, 7, 255, 63, dt, False, tie=True)
         k4_case(torch, K, 2, 8, 16, 24, 1, dt, False)
         k4_case(torch, K, 2, 7, 32, 40, 2, dt, False)
     # bf16 pad taps that would give relu(b) = 1 or 2 if the prologue came
@@ -9549,8 +9826,8 @@ def main():
     k5_case(torch, K, 2, 5, 44, 20, bf, False)
     # K3 and K5 in float32: the 3xTF32 route (K and N multiples of 4) at M
     # = 147 without statistics, contraction and column tails (K = 20 and
-    # 132, N = 36 and 68) and the ReLU's tie; the CUDA-core route for K or
-    # N not a multiple of 4; K4 in float32 on the 3xTF32 route (C a
+    # 132, N = 36 and 68) and the ReLU's tie; the ragged route for K or N
+    # not a multiple of 4; K4 in float32 on the 3xTF32 route (C a
     # multiple of 32) at pad taps where relu(b) = 1, stride 1 and 2, and on
     # the CUDA-core route at C = 72; then the launches by route (each K3 /
     # K5 case launches the forward and the backward twice, each K4 case the
@@ -9583,7 +9860,8 @@ def main():
     k3_s0, k3_s3, k5_s0 = recs["s0 conv3"], recs["s3 proj"], recs["s0 junction"]
     k4_s0, k4_s1 = recs["s0 3x3"], recs["s1 3x3/2"]
     # the float32 routes at phase 8's shapes (B32): every K3, K4 and K5
-    # shape on the 3xTF32 route, then on the CUDA-core route
+    # shape on the 3xTF32 route, then forced onto the ragged route (K3 /
+    # K5: csrc/fused_matmul.cu / fused_chain.cu; K4: the CUDA cores)
     (fam32, fam_cc), (recs32, recs_cc) = resnet_shapes_f32(torch, K)
     k3_f32, k5_f32 = recs32["s0 conv3"], recs32["s0 junction"]
     k4_f32 = recs32["s0 3x3"]
@@ -9591,6 +9869,28 @@ def main():
     # a multiple of 32 only) at the same shape; the plain version is the
     # same function on the same inputs
     k4_cc = dict(recs_cc["s0 3x3"], plain_ms=k4_f32["plain_ms"])
+    t_rag = time.perf_counter()
+    # the ragged routes at truly ragged shapes: K3 at K = 63 / N = 255
+    # (B32 x 56 x 56 rows in float32, B256 in bf16) and K5's stage-0
+    # junction at K = 255 / N = 63, timed with the bare products and the
+    # bound; each call's peak memory beyond its outputs held to its
+    # weight-sized scratch (no activation copied or padded)
+    rag = {}
+    for dt in (f32, bf):
+        rb = RAGGED_BATCH[str(dt)]
+        rag[("K3", dt)] = k3_case(torch, K, rb * 56 * 56, 63, 255, dt, True,
+                                  True, True, True, mem=True)
+        rag[("K5", dt)] = k5_case(torch, K, rb, 56, 255, 63, dt, True,
+                                  mem=True)
+        check(rag[("K3", dt)]["route"] == rag[("K5", dt)]["route"]
+              == {f32: "f32", bf: "bf16_ragged"}[dt],
+              f"ragged shapes off the ragged route: {rag}")
+    # the user-visible ragged path: a width-50 bottleneck chain's training
+    # step beside the width-48 one, card against CPU, in both dtypes
+    t_chain = time.perf_counter()
+    chain = ragged_chain(torch, K)
+    print(f"    truly ragged shapes {t_chain - t_rag:.1f} s, bottleneck chain "
+          f"step {time.perf_counter() - t_chain:.1f} s", flush=True)
     # the K5 bf16 stage-0 junction's limits (ms a call)
     check(k5_s0["fwd"]["ms"] <= 1.0 and k5_s0["bwd"]["ms"] <= 3.0,
           f"K5 stage-0 junction over its limits (1.0 ms forward, 3.0 ms "
@@ -9977,6 +10277,21 @@ def main():
             out["unsplit_ms"] = rec["unsplit_ms"]
         return out
 
+    def ragged_rec(name, source, replaces, fam_name, dt, route, fwd, bwd):
+        """A ragged route's row: the truly ragged shape's forward timing,
+        its backward's beside it, and the launches of the width-50 chain
+        step on the route (forward and backward)."""
+        r = rag[(fam_name, dt)]
+        launches = chain[str(dt)][CHAIN_RAGGED]["routes"]
+        out = kernel_rec(name, source, replaces,
+                         dict(r["fwd"], max_abs_err=r["max_abs_err"],
+                              route=route),
+                         launches[fwd].get(route, 0)
+                         + launches[bwd].get(route, 0))
+        out.update(shape=r["shape"], **{f"bwd_{k}": v for k, v in
+                                        r["bwd"].items()})
+        return out
+
     for name, rec in (
             ("flash_fwd serving prefill (8x16, T=128, causal, bf16)", k1_main),
             ("flash_fwd chunk form (8x16, S=32, q_offset=96, kv_len=128)",
@@ -10080,13 +10395,21 @@ def main():
                  else f"{tot / step8:.1%} of phase 8's {step8:.1f} ms step")
         print(f"    float32 {f} (B32): {sum(n for _, n, _ in rows)} launches "
               f"a step, sum of launches x ms {tot:.3f} ms = {share} "
-              f"(CUDA-core route {cc:.3f} ms); library "
+              f"(forced onto the ragged route {cc:.3f} ms); library "
               f"{sum(n * r['library_ms'] for _, n, r in rows):.3f} ms, bound "
               f"{sum(n * r['bound_ms'] for _, n, r in rows):.3f} ms",
               flush=True)
     print(f"    float32 K3 + K5 a B32 step: {tot32:.3f} ms = "
-          f"{tot32 / step8:.1%} of phase 8's step (CUDA-core route "
-          f"{tot_cc:.3f} ms)", flush=True)
+          f"{tot32 / step8:.1%} of phase 8's step (forced onto the ragged "
+          f"route {tot_cc:.3f} ms)", flush=True)
+    for (fam_name, dt), r in rag.items():
+        for tag in ("fwd", "bwd"):
+            t = r[tag]
+            print(f"    {fam_name} {tag} ragged {r['shape']} {dt} "
+                  f"({r['route']}): {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f}, bare products {t['library_ms']:.4f},"
+                  f" bound {t['bound_ms']:.4f} ({t['bound_by']})",
+                  flush=True)
     # the tensor-core kernels keep their accumulators in registers: ptxas
     # must report no spill (-1: no build log)
     check(all(v == 0 for v in sm90_spills.values()),
@@ -10241,6 +10564,22 @@ def main():
                    "bigdl_tpu_torch/csrc/fused_conv.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,
                    r7["fused_routes"]["fused_conv_fwd"]["f32"]),
+        ragged_rec("fused_matmul_f32_ragged",
+                   "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:344", "K3", f32, "f32",
+                   "fused_matmul_fwd", "fused_matmul_bwd"),
+        ragged_rec("fused_chain_f32_ragged",
+                   "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:318", "K5", f32, "f32",
+                   "fused_chain_fwd", "fused_chain_bwd"),
+        ragged_rec("fused_matmul_bf16_ragged",
+                   "bigdl_tpu_torch/csrc/fused_matmul.cu",
+                   "bigdl_tpu/kernels/fused_matmul.py:344", "K3", bf,
+                   "bf16_ragged", "fused_matmul_fwd", "fused_matmul_bwd"),
+        ragged_rec("fused_chain_bf16_ragged",
+                   "bigdl_tpu_torch/csrc/fused_chain.cu",
+                   "bigdl_tpu/kernels/fused_chain.py:318", "K5", bf,
+                   "bf16_ragged", "fused_chain_fwd", "fused_chain_bwd"),
         kernel_rec("fused_matmul_eval",
                    "bigdl_tpu_torch/csrc/fused_matmul_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:688", r10["eval"]["K3"],

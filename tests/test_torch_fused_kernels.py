@@ -40,7 +40,6 @@ from bigdl_tpu_torch.kernels import (_build, fused_bn_relu_conv3x3,
                                      fused_bn_relu_matmul,
                                      fused_bn_relu_matmul_nhwc,
                                      fused_residual_matmul_nhwc)
-from bigdl_tpu_torch.kernels.fused_matmul import dw_splits
 
 torch.set_num_threads(1)
 F32, BF16 = "float32", "bfloat16"
@@ -94,6 +93,14 @@ K3_CASES = [
     (130, 136, 72, True, True, True, BF16),  # K and N past one tile
     (77, 72, 40, True, True, False, BF16),   # bf16 eval; K not a multiple of 64
     (200, 16, 136, False, True, True, BF16),  # bf16 ReLU alone, ragged M
+    # ragged K and N (the f32 / bf16_ragged routes on the card): K ends
+    # mid-k8 / mid-k16 (63, 130, 6), N not a multiple of 4 or 8
+    (129, 63, 50, True, True, True, F32),
+    (129, 63, 50, True, True, True, BF16),
+    (257, 130, 70, False, False, True, F32),
+    (257, 130, 70, False, False, True, BF16),
+    (77, 6, 24, True, True, True, F32),
+    (77, 6, 24, True, True, False, BF16),
 ]
 
 
@@ -175,6 +182,36 @@ def test_fused_chain_plain_matches_pallas_interpret(dt):
     B, H, W, K, N = 2, 4, 4, 48, 24
     js, ts = _inputs(11, [((B, H, W, K), "randn"), ((B, H, W, K), "randn"),
                           ((K,), "scale"), ((K,), "randn"), ((K, N), "w")],
+                     dt)
+    m = B * H * W
+
+    def jfwd(z, r, a, b, w):
+        return jfc.fused_residual_matmul_nhwc(z, r, w, a, b, interpret=True)
+
+    jout = jfwd(*js)
+    jg = jax.grad(lambda *a: _chain_loss(*jfwd(*a), m, jnp),
+                  argnums=(0, 1, 2, 3, 4))(*js)
+    z, r, a, b, w = ts
+    out = fused_residual_matmul_nhwc(z, r, w, a, b)
+    assert out[0].shape == (B, H, W, K) and out[1].shape == (B, H, W, N)
+    for got, want in zip(out, jout):
+        assert _rel(got, want) <= VAL_TOL[dt]
+    _chain_loss(*out, m, torch).backward()
+    for name, t, g in zip("zrabw", ts, jg):
+        assert t.grad.dtype == t.dtype, name
+        assert _rel(t.grad, g) <= GRAD_TOL[dt], (name, _rel(t.grad, g))
+
+
+@pytest.mark.parametrize("K,N,dt", [(42, 20, F32), (42, 20, BF16),
+                                    (24, 6, F32), (24, 6, BF16),
+                                    (63, 50, F32)])
+def test_fused_chain_ragged_junctions_match_pallas_interpret(K, N, dt):
+    """Junctions whose K or N is not a multiple of 4 (float32) or 8 (bf16),
+    the ragged routes on the card, at the loss of
+    test_fused_chain_plain_matches_pallas_interpret."""
+    B, H, W = 2, 3, 5
+    js, ts = _inputs(K + N, [((B, H, W, K), "randn"), ((B, H, W, K), "randn"),
+                             ((K,), "scale"), ((K,), "randn"), ((K, N), "w")],
                      dt)
     m = B * H * W
 
@@ -308,15 +345,6 @@ def test_cpu_runs_launch_no_kernel_and_other_devices_raise():
                          "meta"), meta[0], meta[0]))):
         with pytest.raises(RuntimeError, match="no kernel for device"):
             fn(*args)
-
-
-@pytest.mark.parametrize("M,K,N", [(802816, 64, 256), (802816, 64, 64),
-                                   (12544, 1024, 2048), (200704, 256, 64),
-                                   (300, 24, 40), (1, 8, 8)])
-def test_dw_splits_cover_every_row_once(M, K, N):
-    splits, per = dw_splits(M, K, N)
-    assert per % 16 == 0 and splits >= 1
-    assert (splits - 1) * per < M <= splits * per
 
 
 def test_each_library_digest_covers_the_headers_its_source_includes():

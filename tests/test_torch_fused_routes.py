@@ -22,7 +22,11 @@ ROUTES = {"bf16_sm90", "bf16_ragged", "f32_sm90", "f32"}   # K3, K4, K5
 TENSOR_CORE_LIBS = ["fused_matmul_sm90", "fused_conv_sm90", "fused_chain_sm90",
                     "fused_matmul_tf32_sm90", "fused_chain_tf32_sm90",
                     "fused_conv_tf32_sm90", "flash_fwd_tf32_sm90",
-                    "flash_bwd_tf32_sm90", "paged_attention_sm90"]
+                    "flash_bwd_tf32_sm90", "paged_attention_sm90",
+                    "fused_matmul", "fused_chain"]
+# the libraries of K3's and K5's ragged float32 route (f32): the 3xTF32
+# core with its ragged load / store policy
+RAGGED_LIBS = ("fused_matmul", "fused_chain")
 
 # ResNet-50 at B256/224: the shape tables chip_smoke.py checks and times
 # on the card (models/resnet.py: conv1 of block 0, conv3 and projection per
@@ -91,11 +95,13 @@ def test_fused_routes_by_dtype_and_one_shape_rule():
                                  (7, 9)])
 def test_float32_route_rule(k, n):
     """float32: K and N multiples of 4 (rows of 16-byte multiples, as TMA
-    needs) take the 3xTF32 route, any other shape the CUDA cores."""
+    needs) take the aligned 3xTF32 route, any other shape the ragged one;
+    both are the 3xTF32 core, one partial of the column sums per 64 rows
+    (a consumer warpgroup's)."""
     want = "f32_sm90" if k % 4 == 0 and n % 4 == 0 else "f32"
     assert fm.route(torch.float32, k, n) == want
     assert fch.route(torch.float32, k, n) == want
-    assert fm._PART_ROWS[want] == (64 if want == "f32_sm90" else fm._BM)
+    assert fm._PART_ROWS[want] == 64
 
 
 @pytest.mark.parametrize("lib", TENSOR_CORE_LIBS)
@@ -114,13 +120,107 @@ def test_tensor_core_sources_call_no_library(lib):
                        for f in _build.SOURCES[lib])
         assert "wgmma" not in core and "cp.async.cg.shared.global" in core
         return
-    tf32 = lib.endswith("_tf32_sm90")
+    tf32 = lib.endswith("_tf32_sm90") or lib in RAGGED_LIBS
     header = "fused_gemm_tf32_sm90.cuh" if tf32 else "fused_gemm_sm90.cuh"
     core = "".join((_build.CSRC / f).read_text() for f in _build.SOURCES[lib])
     assert header in _build.SOURCES[lib]
     assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k8\.f32\.tf32"
                      if tf32 else
                      r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k16", core)
+    if lib in RAGGED_LIBS:      # float32 on 3xTF32, bf16 on bf16 wgmma
+        assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k16\.f32"
+                         r"\.bf16", core)
+
+
+@pytest.mark.parametrize("lib,ops", [
+    ("fused_matmul", ("XHatF<true>", "DzEffF<true>", "DxEpi2<float, true>",
+                      "gemm_dw<false, true>", "XHatA<1, true>",
+                      "DzEffA<true>", "DxEpi2<bf16, true>")),
+    ("fused_chain", ("ResidF<true>", "DzEffF<true>",
+                     "ChainDxEpi2<float, true>", "gemm_dw<true, true>",
+                     "ResidA<true>", "DzEffA<true>",
+                     "ChainDxEpi2<bf16, true>"))])
+def test_ragged_entries_run_the_tensor_core_cores(lib, ops):
+    """fused_matmul.cu and fused_chain.cu (the f32 and bf16_ragged routes)
+    instantiate the cores' operands, epilogues and weight gradient with the
+    ragged policy (RG = true) in both dtypes; the CUDA-core functors of
+    fused_gemm.cuh (XHat, DzEff, Resid, ColsOf, RowsOf) are gone from
+    them."""
+    src = (_build.CSRC / _build.SOURCES[lib][0]).read_text()
+    for op in ops:
+        assert op in src, (lib, op)
+    for gone in ("XHat<", "DzEff<", "Resid<", "ColsOf<", "RowsOf<",
+                 "StoreSplit"):
+        assert gone not in src, (lib, gone)
+
+
+@pytest.mark.parametrize("k,n", [(63, 50), (64, 256), (6, 24), (130, 70),
+                                 (1, 1), (255, 63), (2048, 512), (33, 17)])
+def test_weight_scratch_sizes_per_route(k, n):
+    """The weight's scratch of each route's forward and backward: the
+    aligned 3xTF32 route its hi and lo halves (2 K N); the ragged float32
+    route B's rows zero-padded to whole 32-deep stages (the forward's B is
+    w^T, N rows of K; dx's is w, K rows of N); bf16_ragged w's rows padded
+    to a multiple of 8 (K x N8 bf16 in float32 elements), the same for both
+    products; none on bf16_sm90. K4 passes the scratch on f32_sm90 only."""
+    up = lambda v, q: -(-v // q) * q
+    want = {("f32_sm90", True): 2 * k * n, ("f32_sm90", False): 2 * k * n,
+            ("f32", True): 2 * n * up(k, 32), ("f32", False): 2 * k * up(n, 32),
+            ("bf16_ragged", True): -(-k * up(n, 8) // 2),
+            ("bf16_ragged", False): -(-k * up(n, 8) // 2),
+            ("bf16_sm90", True): 0, ("bf16_sm90", False): 0}
+    for (rt, fwd), elems in want.items():
+        assert fm.wsplit_elems(rt, k, n, fwd) == elems, (rt, fwd)
+        t, extra = fm._wsplit(rt, k, n, "cpu", fwd)
+        if rt == "bf16_sm90":
+            assert t is None and extra == ()
+        else:
+            assert t.numel() == elems and extra == (t.data_ptr(),)
+    assert 2 * want[("bf16_ragged", True)] >= k * up(n, 8)   # bf16 elements
+    for rt in ("f32", "bf16_ragged", "bf16_sm90"):
+        assert fm._wsplit(rt, 9 * k, n, "cpu", takes=("f32_sm90",)) == (
+            None, ())
+
+
+@pytest.mark.parametrize("rt,M,K,N", [
+    ("f32", 100352, 63, 255), ("f32", 100352, 255, 63), ("f32", 129, 63, 50),
+    ("f32", 1, 1, 1), ("f32", 300, 6, 24), ("f32", 3136 * 32, 50, 200),
+    ("bf16_ragged", 802816, 63, 255), ("bf16_ragged", 802816, 255, 63),
+    ("bf16_ragged", 129, 63, 50), ("bf16_ragged", 1, 1, 1),
+    ("bf16_ragged", 200704, 200, 50), ("bf16_ragged", 77, 6, 24)])
+def test_ragged_dw_splits_cover_every_row_once(rt, M, K, N):
+    """The ragged routes split dw as their cores do (two partials a
+    split): float32 in 64-row multiples (dw_splits_tf32), bf16 in 128-row
+    multiples (dw_splits_sm90), every pixel in exactly one split, about one
+    block per SM at the large shapes."""
+    split = fm._TC_SPLITS[rt]
+    assert split is (fm.dw_splits_tf32 if rt == "f32" else fm.dw_splits_sm90)
+    quantum = 64 if rt == "f32" else 128
+    splits, per = split(M, K, N)
+    assert per % quantum == 0 and splits >= 1
+    assert (splits - 1) * per < M <= splits * per
+    bn = 64 if N <= 64 else 128
+    if M >= 12544:
+        assert splits * -(-K // 64) * -(-N // bn) <= 2 * fm._SMS
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_resnet50_routes_unchanged_and_width_50_chain_ragged(dt):
+    """route() sends every ResNet-50 K3 and K5 shape to the aligned route
+    of its dtype and the width-50 bottleneck chain's calls (conv1 ragged in
+    N, conv3 in K, the junction's next conv1 in N) to the ragged one; the
+    width-48 chain stays aligned."""
+    aligned = {torch.float32: "f32_sm90", torch.bfloat16: "bf16_sm90"}[dt]
+    ragged = {torch.float32: "f32", torch.bfloat16: "bf16_ragged"}[dt]
+    for _, K, N in K3_SHAPES:
+        assert fm.route(dt, K, N) == aligned
+    for _, K, N in K5_SHAPES:
+        assert fch.route(dt, K, N) == aligned
+    for w, want in ((chip_smoke.CHAIN_RAGGED, ragged),
+                    (chip_smoke.CHAIN_ALIGNED, aligned)):
+        nin, nout = 2 * w, 4 * w
+        for k, n in ((nin, w), (w, nout), (nout, w)):
+            assert fm.route(dt, k, n) == want, (w, k, n)
 
 
 @pytest.mark.parametrize("M,K,N", K3_SHAPES)
@@ -144,7 +244,7 @@ def test_k4_float32_route_rule(k, n):
     route, any other shape the CUDA cores; partials per route."""
     want = "f32_sm90" if k % 32 == 0 and n % 4 == 0 else "f32"
     assert fc.route(torch.float32, k, n) == want
-    assert fm._PART_ROWS[want] == (64 if want == "f32_sm90" else fm._BM)
+    assert fc._PART_ROWS[want] == (64 if want == "f32_sm90" else fm._BM)
 
 
 @pytest.mark.parametrize("batch", [32, 256])

@@ -224,6 +224,30 @@ def test_fused_bottleneck_chain_matches_jax_kernels(monkeypatch):
     assert set(kernels.launch_counts().values()) == {0}   # CPU: plain
 
 
+def test_ragged_width_chain_matches_jax_kernels(monkeypatch):
+    """A chain at widths that are not multiples of 4 or 8 (nin 20 -> nmid
+    6 -> 24, then 24 -> 6 -> 24), the ragged routes on the card: conv1 is
+    ragged in N, conv3 in K, the junction's next conv1 in N. Forward,
+    statistics and gradients against JAX's kernels in interpret mode."""
+    monkeypatch.setenv("BIGDL_TPU_FLASH", "interpret")
+    import bigdl_tpu_torch.models.resnet as tresnet
+
+    def blocks(mod):
+        return [mod.FusedBottleneck(20, 6, 1, 4, False),
+                mod.FusedBottleneck(24, 6, 1, 4, False)]
+
+    x = np.random.RandomState(6).randn(2, 6, 6, 20).astype(np.float32)
+    jc = jresnet.FusedBottleneckChain(blocks(jresnet))
+    jp, js = jc.init(jax.random.PRNGKey(3))
+    tc = _load(FusedBottleneckChain(blocks(tresnet)), jp, js)
+    for training in (True, False):
+        jout, jns, _, jg = _jax_run(jc, jp, js, x, training, _sin_loss)
+        out, ns, _, g = _port_run(tc, x, training, _sin_loss)
+        assert _rel(out, jout) <= TOL
+        _trees_close(convert.to_numpy_tree(ns), _np(jns), TOL, "state")
+        _trees_close(convert.to_numpy_tree(g), _np(jg), GRAD_TOL, "grads")
+
+
 # -- the full model -----------------------------------------------------------
 
 def _ce(y):
