@@ -2,9 +2,10 @@
 // (flash_fwd_tf32_sm90.cu, flash_bwd_tf32_sm90.cu), over the 3xTF32 core of
 // fused_gemm_tf32_sm90.cuh (tf32_rn, split, the register-A wgmma at N = 64
 // and 128): the shared-memory wgmma (both operands K-major), the register-A
-// wgmma at the other head dims, the order vt_pos of a transposed operand
-// whose contraction runs over keys or queries, and the host's 3-D tensor
-// maps of float32 arrays.
+// wgmma at the other head dims, the byte offset of a float32 element in a
+// TMA-swizzled box, the order vt_pos of a transposed operand whose
+// contraction runs over keys or queries, and the host's 3-D tensor maps of
+// float32 arrays.
 //
 // The A fragment of a tf32 register-A wgmma takes columns (q, q + 4) of each
 // k8 slice (register e: row g + 8 (e & 1), column q + 4 (e >> 1)), while a
@@ -47,7 +48,18 @@ __device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t da, u
 }
 
 // register-A products (wgmma_tf32, declared in fused_gemm_tf32_sm90.cuh with
-// N = 64 and 128) at the other head dims
+// N = 64 and 128) at the other head dims, and at N = 8 (the wide forward's
+// S over 8-key tiles)
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t db,
+                                                 int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
 template <>
 __device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
                                                   int keep) {
@@ -106,6 +118,15 @@ __device__ __forceinline__ void wgmma_tf32<112>(float (&d)[56], const uint32_t (
       "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
+// byte offset of float32 column c (< SW / 4) of row r in a box of SW-byte
+// rows as TMA's SW-byte swizzle lays it out (the 16-byte unit index XORed
+// with the row's bits above it: SW = 128, 64 or 32)
+template <int SW>
+__device__ __forceinline__ int swz_f32(int r, int c) {
+  const int off = r * SW + 4 * c;
+  return off ^ ((off >> 3) & (SW == 128 ? 0x70 : SW == 64 ? 0x30 : 0x10));
 }
 
 // position of key k inside its group of 8 in V^T: keys 0, 2, 4, 6 first, then

@@ -7,7 +7,7 @@
 // q_offset + r and sees keys <= q_offset + r), over the first kv_len keys only.
 // Returns o (B, H, Tq, D) in bf16 and the per-row log-sum-exp lse (B, H, Tq)
 // in float32; rows that see no key give o = 0 and lse = -inf. float32 inputs
-// stay on the CUDA-core kernel of flash_fwd.cu.
+// take the 3xTF32 kernels of flash_fwd_tf32_sm90.cu.
 //
 // What bounds it on an H100: at the training shape (T = 1024, D = 64, causal)
 // the two products do 4 * D operations per (row, visible key) pair against

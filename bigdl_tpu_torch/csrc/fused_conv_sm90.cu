@@ -4,9 +4,10 @@
 // Replaces, for bf16 inputs whose C and N are multiples of 8, the Pallas
 // kernel of bigdl_tpu/kernels/fused_conv.py `_cvfwd` (its backward,
 // `_cv_bwd`, is plain XLA there and plain PyTorch here). It computes what
-// fused_conv.cu computes (that file's note gives the formulas; it stays
-// the float32 route and the route of bf16 shapes outside that rule), with
-// the same C entry point and arguments: an implicit GEMM over NHWC x (B, H,
+// fused_conv.cu computes (that file's note gives the formulas; it runs
+// the bf16 shapes outside that rule on this kernel's core with a ragged
+// gather), with its C entry arguments but the last (the weight's scratch,
+// which this route does not need): an implicit GEMM over NHWC x (B, H,
 // W, C) and HWIO w (3, 3, C, N) whose rows are output pixels and whose
 // contraction runs over the 9 C (tap, channel) pairs in the weight's row
 // order.

@@ -6,8 +6,8 @@
 // of 4, the Pallas kernel of bigdl_tpu/kernels/fused_conv.py `_cvfwd` (its
 // backward, `_cv_bwd`, is plain XLA there and plain PyTorch here). It
 // computes what fused_conv.cu computes (that file's note gives the
-// formulas; it stays the route of the other float32 shapes), with the same
-// C entry arguments and one more, the scratch of the split weight: an
+// formulas; it runs the other float32 shapes on this kernel's core with a
+// ragged gather), with the same C entry arguments: an
 // implicit GEMM over NHWC x (B, H, W, C) and HWIO w (3, 3, C, N) whose rows
 // are output pixels and whose contraction runs over the 9 C (tap, channel)
 // pairs in the weight's row order.
@@ -16,8 +16,8 @@
 // output pixel against about (C / stride^2 + N) float32 elements moved;
 // 3xTF32 runs three tf32 products for each (495 TF/s dense, so 165 TF/s of
 // float32 work, a balance point near 50 operations per byte), and every
-// ResNet-50 shape is far above it: the tensor cores bound it. The CUDA-core
-// route is capped by 67 TF/s of float32 FMA. What the design does
+// ResNet-50 shape is far above it: the tensor cores bound it. What the
+// design does
 // (fused_gemm_tf32_sm90.cuh's rs_kernel, the K3 forward's kernel, with a
 // 3x3 gather as its A operand): the weight is split once a call into tf32
 // hi and lo halves of w^T (N x 9 C, K-major: tf32 wgmma takes no

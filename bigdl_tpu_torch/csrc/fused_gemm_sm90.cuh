@@ -5,9 +5,11 @@
 // = dz + ds1 + 2 z ds2, the 3x3 conv's tap gather, the residual junction h
 // = relu(z * a + b + r)), their epilogues (z with its column sums s1/s2, dx
 // with da/db, K5's dz and dr) and fused_gemm.cuh's fixed-order second pass
-// (sum_rows) with bf16 wgmma and float32 accumulators in registers; fused_gemm_tf32_sm90.cuh (which reuses this
-// header's rings, staging stores and column sums) is the float32
-// tensor-core route, fused_gemm.cuh K4's CUDA-core route of other shapes.
+// (sum_rows) with bf16 wgmma and float32 accumulators in registers;
+// fused_gemm_tf32_sm90.cuh (which reuses this header's rings, staging
+// stores and column sums) is the float32 tensor-core route. fused_conv.cu
+// runs K4's ragged bf16 shapes on gemm_rs_kernel with a ragged 3x3 gather
+// of its own (XHatA<9>'s conversion).
 //
 // gemm_rs_kernel: C (rows x cols) = A (rows x kdim) B (kdim x cols).
 // - One block: a producer warpgroup (one working thread, registers given
@@ -66,7 +68,8 @@
 // kernels (as in fused_gemm_tf32_sm90.cuh). Aligned (RG = false, the
 // bf16_sm90 route: K and N multiples of 8): the 16-byte copies and TMA
 // above. Ragged (RG = true, the bf16_ragged route: any K and N,
-// fused_matmul.cu / fused_chain.cu): the same kernels, rings, swizzle,
+// fused_matmul.cu / fused_chain.cu; K4's fused_conv.cu with a 3x3
+// gather of its own): the same kernels, rings, swizzle,
 // prologues, fragments and column sums, with
 // - A, and dw's staged x, r, dz and z tiles, copied into the same swizzled
 //   boxes: an operand whose rows are 16-byte multiples by the aligned

@@ -1,7 +1,9 @@
 // Shared core of the float32 tensor-core routes of the fused ResNet kernels
 // for Hopper (fused_matmul_tf32_sm90.cu: K3 and K3-nhwc, forward and
-// backward; fused_chain_tf32_sm90.cu: K5, forward and backward; at any K
-// and N, with the ragged policy below, fused_matmul.cu and fused_chain.cu).
+// backward; fused_chain_tf32_sm90.cu: K5, forward and backward;
+// fused_conv_tf32_sm90.cu: K4; at any K and N, with the ragged policy
+// below, fused_matmul.cu and fused_chain.cu, and fused_conv.cu with a 3x3
+// gather of its own).
 // It computes the bf16 core's operands in float32 (x_hat = act(x * a + b),
 // dz_eff = dz + ds1 + 2 z ds2, the residual junction h = relu(z * a + b +
 // r)), its epilogues and the fixed-order second pass (sum_rows), with no
@@ -75,8 +77,8 @@
 // kernels. Aligned (RG = false, the f32_sm90 route: K and N multiples of
 // 4): the copies and TMA above, which need rows of 16-byte multiples and
 // 16-byte aligned bases. Ragged (RG = true, the f32 route: any K and N,
-// fused_matmul.cu / fused_chain.cu): the same kernels, rings, swizzle,
-// prologues, 3xTF32 split, promote and column sums, with
+// fused_matmul.cu / fused_chain.cu / fused_conv.cu): the same kernels,
+// rings, swizzle, prologues, 3xTF32 split, promote and column sums, with
 // - A, and dw's staged x, r, dz and z tiles, copied into the same swizzled
 //   boxes: an operand whose rows are 16-byte multiples by the aligned
 //   policy's 16-byte cp.async, any other one float32 element a thread by

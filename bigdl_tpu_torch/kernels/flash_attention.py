@@ -10,13 +10,17 @@ Replaces the Pallas kernels of ``bigdl_tpu/kernels/flash_attention.py``:
   TMA-staged tiles);
 - ``"f32_sm90"``: float32 calls up to the widest head dim of the 3xTF32
   kernels (wgmma on tf32 hi and lo halves of each float32 operand, three
-  products, which keeps float32 accuracy) take them: forwards with D up
-  to 112 ``csrc/flash_fwd_tf32_sm90.cu`` (a split kernel writes K's and
-  V^T's halves into scratch first; :func:`fwd_route`), backwards with D up
-  to 64 ``csrc/flash_bwd_tf32_sm90.cu`` (the streamed tiles split and
-  transposed in shared memory; :func:`bwd_route`);
-- ``"f32"``: wider float32 calls take the CUDA-core kernels
-  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (float32 FMAs).
+  products, which keeps float32 accuracy) take them: every forward (D up
+  to 256) ``csrc/flash_fwd_tf32_sm90.cu`` (up to D = 112 a split kernel
+  writes K's and V^T's halves into scratch first and Q's halves are kept
+  in shared memory; past it the kernel's producer warpgroup splits raw K
+  and V tiles in shared memory, Q stays raw there and is split in
+  registers, and P V runs in slices of at most 64 output columns;
+  :func:`fwd_route`),
+  backwards with D up to 64 ``csrc/flash_bwd_tf32_sm90.cu`` (the streamed
+  tiles split and transposed in shared memory; :func:`bwd_route`);
+- ``"f32"``: wider float32 backwards take the CUDA-core kernels of
+  ``csrc/flash_bwd.cu`` (float32 FMAs).
 
 Each source's header note says what bounds it on an H100 and what the design
 does about it. Besides ``<wrapper>.launches``, each wrapper counts its
@@ -27,8 +31,8 @@ Head dims: each route's kernels are instantiated for the widths in
 between them goes to the next wider one with q, k, v (and dO)
 zero-padded and the scale of the true D (:func:`head_dim_width`), which is
 exact: zero columns add nothing to q.k and give zero output columns. Such
-calls count under ``"<route>_padded"``. A float32 forward call past the
-3xTF32 kernel's widest D takes the CUDA-core route; a D past a dtype's
+calls count under ``"<route>_padded"``. A float32 backward call past the
+3xTF32 kernel's widest D takes the CUDA-core route; a D past a route's
 widest raises.
 
 :func:`flash_fwd` and :func:`flash_bwd` are the wrappers: tensors on the CPU
@@ -55,23 +59,24 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # each route's (library, symbol) for the forward and backward (the routes:
 # fwd_route, bwd_route)
 _FWD_FN = {"bf16_sm90": ("flash_fwd_sm90", "bigdl_flash_fwd_sm90"),
-           "f32_sm90": ("flash_fwd_tf32_sm90", "bigdl_flash_fwd_tf32_sm90"),
-           "f32": ("flash_fwd", "bigdl_flash_fwd")}
+           "f32_sm90": ("flash_fwd_tf32_sm90", "bigdl_flash_fwd_tf32_sm90")}
 _BWD_FN = {"bf16_sm90": ("flash_bwd_sm90", "bigdl_flash_bwd_sm90"),
            "f32_sm90": ("flash_bwd_tf32_sm90", "bigdl_flash_bwd_tf32_sm90"),
            "f32": ("flash_bwd", "bigdl_flash_bwd")}
 # the head dims each route's kernels are instantiated for: every multiple
 # of 16, up to 128 on the bf16 tensor cores (the accumulators of wider rows
-# would not fit the consumers' registers), up to 112 for the 3xTF32 forward
-# (the two float32 halves of a 128-row Q tile and two stages of K and V^T
-# halves fill a block's shared memory) and 64 for the 3xTF32 backward (the
-# hi and lo halves of 128 rows of K and V, the split and transposed set of a
-# 32-row tile and two raw stages fill it), and on the CUDA cores as far as
-# their float32 tiles fit in shared memory (the backward keeps four 64-row
-# tiles of D + 1 floats)
+# would not fit the consumers' registers), up to 256 for the 3xTF32 forward
+# (past 112 Q stays raw in shared memory and the key tiles narrow to 16 or
+# 8 keys, so that a raw 128-row Q tile, two split stages of K and V^T halves
+# and a raw K / V stage fit; P V in slices of at most 64 columns keeps the
+# float32 row of 256 in registers) and 64 for the 3xTF32 backward (the hi
+# and lo halves of 128
+# rows of K and V, the split and transposed set of a 32-row tile and two
+# raw stages fill a block's shared memory), and on the CUDA cores as far
+# as their float32 tiles fit in shared memory (the backward keeps four
+# 64-row tiles of D + 1 floats)
 _FWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
-             "f32_sm90": tuple(range(16, 113, 16)),
-             "f32": tuple(range(16, 257, 16))}
+             "f32_sm90": tuple(range(16, 257, 16))}
 _BWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
              "f32_sm90": tuple(range(16, 65, 16)),
              "f32": tuple(range(16, 193, 16))}
@@ -79,6 +84,7 @@ _PADDED = "_padded"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 _SPLIT_KEYS = 8    # the 3xTF32 scratch holds kv_len keys rounded up to 8
+_SPLIT_WIDEST = 112   # the widest D of the 3xTF32 forward that takes it
 _F32_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                      + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = {
@@ -137,12 +143,9 @@ def head_dim_width(fn: str, route: str, d: int, dims) -> int:
 
 def fwd_route(dtype, d: int) -> str:
     """K1-fwd's route for a call with head dim ``d``: bfloat16 ->
-    ``"bf16_sm90"``; float32 -> ``"f32_sm90"`` (3xTF32) up to the widest
-    head dim that kernel is instantiated for, else ``"f32"`` (the CUDA
-    cores)."""
-    if dtype == torch.bfloat16:
-        return "bf16_sm90"
-    return "f32_sm90" if d <= _FWD_DIMS["f32_sm90"][-1] else "f32"
+    ``"bf16_sm90"``; float32 -> ``"f32_sm90"`` (3xTF32) at every head dim
+    (past its widest, 256, :func:`head_dim_width` raises)."""
+    return "bf16_sm90" if dtype == torch.bfloat16 else "f32_sm90"
 
 
 def bwd_route(dtype, d: int) -> str:
@@ -157,12 +160,15 @@ def bwd_route(dtype, d: int) -> str:
 
 def _kv_split(route, B, H, kv_len, w, device):
     """(scratch, the trailing C arguments) of a forward route: the 3xTF32
-    entry takes 4 x B x H x kvp x w float32 (kvp: kv_len rounded up to 8,
-    at least 8) for the tf32 hi and lo halves of K and V^T, which its split
-    kernel writes each call; the other routes take none. The caller holds
-    the scratch until the launch is queued."""
+    entry takes, up to w = 112, 4 x B x H x kvp x w float32 (kvp: kv_len
+    rounded up to 8, at least 8) for the tf32 hi and lo halves of K and
+    V^T, which its split kernel writes each call; past it a null pointer
+    (the wide kernel splits K and V in shared memory); the other routes take
+    none. The caller holds the scratch until the launch is queued."""
     if route != "f32_sm90":
         return None, ()
+    if w > _SPLIT_WIDEST:
+        return None, (None,)
     kvp = -(-max(kv_len, 1) // _SPLIT_KEYS) * _SPLIT_KEYS
     t = torch.empty(4 * B * H * kvp * w, device=device)
     return t, (t.data_ptr(),)

@@ -8,14 +8,19 @@ dtype and one shape rule per dtype (:func:`route`):
 - ``"bf16_sm90"``: bfloat16 with C and N multiples of 8 (every ResNet-50
   call) takes ``csrc/fused_conv_sm90.cu`` (an implicit GEMM on bf16 wgmma,
   the tap gather and the prologue in registers);
-- ``"bf16_ragged"``: other bfloat16 shapes take the CUDA-core kernel of
-  ``csrc/fused_conv.cu`` in bf16;
 - ``"f32_sm90"``: float32 with C a multiple of 32 and N a multiple of 4
   (every ResNet-50 call) takes ``csrc/fused_conv_tf32_sm90.cu`` (the same
   implicit GEMM in 3xTF32 on wgmma: each float32 operand split into tf32
   hi and lo halves, three products, which keeps float32 accuracy; a 32-deep
   chunk of the contraction is one tap);
-- ``"f32"``: other float32 shapes take ``csrc/fused_conv.cu``.
+- ``"bf16_ragged"`` and ``"f32"``: the other shapes of either dtype take
+  ``csrc/fused_conv.cu``, the same two cores with their ragged load /
+  store policy and a ragged 3x3 gather: the contraction runs tap-major
+  with each tap's channels zero-padded in the weight's scratch to Cp (C
+  rounded up to 8 in bf16, to 32 in float32: :func:`wsplit_elems`), the
+  gather copies each input pixel's C channels (16 bytes a thread where
+  the rows allow, else 8, 4 or 2 bytes a lane) and no activation is
+  copied or padded.
 
 Each source's header note says what bounds it on an H100 and what the
 design does about it; ``fused_conv_fwd.launches_by_route`` counts the
@@ -39,8 +44,8 @@ import torch.nn.functional as F
 
 from ..utils.engine import refuse_unported
 from . import _build, _flops
-from .fused_matmul import (_BM, _DTYPES, _RAGGED, _check_aligned, _f32,
-                           _ptr, _stream, _wsplit)
+from .fused_matmul import (_DTYPES, _KBK, _RAGGED, _check_aligned, _f32,
+                           _ptr, _stream)
 from .fused_matmul import route as _k3_route
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -50,18 +55,40 @@ _FWD_FN = {"bf16_sm90": ("fused_conv_sm90", "bigdl_fused_conv_sm90_fwd"),
            "f32_sm90": ("fused_conv_tf32_sm90",
                         "bigdl_fused_conv_tf32_sm90_fwd"),
            "f32": ("fused_conv", "bigdl_fused_conv_fwd")}
-# the tensor-core routes (TMA and 16-byte copies: 16-byte aligned x and w)
+# the aligned routes (TMA and 16-byte copies: 16-byte aligned x and w)
 _TC = ("bf16_sm90", "f32_sm90")
-# rows each partial of the column sums covers, per route (the tensor-core
-# cores' kPartRows; fused_gemm.cuh's kBM on the CUDA cores)
-_PART_ROWS = {"bf16_sm90": 64, _RAGGED: _BM, "f32_sm90": 64, "f32": _BM}
+# rows each partial of the column sums covers: the tensor-core cores'
+# kPartRows, one per consumer warpgroup, on every route
+_PART_ROWS = dict.fromkeys(_FWD_FN, 64)
+
+
+def _up(v, q):
+    return -(-v // q) * q
+
+
+def wsplit_elems(rt, c: int, n: int) -> int:
+    """float32 elements of a K4 call's weight scratch, which the entry's
+    prep kernel writes each call: ``"f32_sm90"`` the tf32 hi and lo halves
+    of w^T (N rows of 9 C); ``"f32"`` the same with each tap's channels
+    zero-padded to C rounded up to 32 (a 32-deep chunk is one tap: N rows
+    of 9 Cp); ``"bf16_ragged"`` a bf16 copy of w (9 Cp rows of N rounded up
+    to 8, Cp = C rounded up to 8: a unit of 8 channels is in one tap, rows
+    of 16-byte multiples for TMA); 0 on ``"bf16_sm90"`` (its entry takes no
+    scratch)."""
+    if rt == "f32_sm90":
+        return 2 * 9 * c * n
+    if rt == "f32":
+        return 2 * n * 9 * _up(c, _KBK)
+    if rt == _RAGGED:
+        return -(-9 * _up(c, 8) * _up(n, 8) // 2)
+    return 0
 
 
 def route(dtype, c: int, n: int) -> str:
     """K4's route: ``fused_matmul.route`` for bfloat16; float32 takes
     ``"f32_sm90"`` (3xTF32) when C is a multiple of 32 (a 32-deep chunk of
-    the contraction is one tap) and N a multiple of 4, else ``"f32"`` (the
-    CUDA cores)."""
+    the contraction is one tap) and N a multiple of 4, else ``"f32"`` (3xTF32
+    with the ragged policy and per-tap padding)."""
     if dtype == torch.float32:
         return "f32_sm90" if c % 32 == 0 and n % 4 == 0 else "f32"
     return _k3_route(dtype, c, n)
@@ -143,7 +170,9 @@ def fused_conv_fwd(x, w, a, b, stride: int = 1, stats: bool = True):
         part = torch.empty((2, -(-M // _PART_ROWS[rt]), N), device=x.device)
         s = torch.empty((2, N), device=x.device)
     af, bf = _f32(a), _f32(b)      # held until the launch is queued
-    wsp, extra = _wsplit(rt, 9 * C, N, x.device, takes=("f32_sm90",))
+    size = wsplit_elems(rt, C, N)
+    wsp = torch.empty(size, device=x.device) if size else None   # held
+    extra = () if rt == "bf16_sm90" else (_ptr(wsp),)
     fn = _build.function(*_FWD_FN[rt],
                          _ARGTYPES + [ctypes.c_void_p] * len(extra))
     err = fn(x.data_ptr(), w.data_ptr(), af.data_ptr(), bf.data_ptr(),

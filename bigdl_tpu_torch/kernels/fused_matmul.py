@@ -72,7 +72,6 @@ _BWD_FN = {"bf16_sm90": ("fused_matmul_sm90", "bigdl_fused_matmul_sm90_bwd"),
            "f32_sm90": ("fused_matmul_tf32_sm90",
                         "bigdl_fused_matmul_tf32_sm90_bwd"),
            "f32": ("fused_matmul", "bigdl_fused_matmul_bwd")}
-_BM = 128          # rows of the CUDA-core kernels' output tile (K4's kBM)
 _KBK = 32          # contraction depth of a 3xTF32 stage (kBK)
 # rows each partial of the column sums covers: the tensor-core cores'
 # kPartRows, one per consumer warpgroup, on every route
@@ -163,13 +162,13 @@ def wsplit_elems(rt, k, n, fwd=True):
     return 0
 
 
-def _wsplit(rt, k, n, device, fwd=True, takes=_WSPLIT):
+def _wsplit(rt, k, n, device, fwd=True):
     """(scratch, the trailing C arguments) of a route's forward (``fwd``)
-    or backward: for the routes in ``takes`` (those whose entries take the
-    argument) ``wsplit_elems`` float32, passed as the entry's last argument
-    (None for none); no argument on the others. The caller holds the
-    scratch until the launch is queued."""
-    if rt not in takes:
+    or backward: for the routes whose entries take the argument
+    (``_WSPLIT``) ``wsplit_elems`` float32, passed as the entry's last
+    argument (None for none); no argument on the others. The caller holds
+    the scratch until the launch is queued."""
+    if rt not in _WSPLIT:
         return None, ()
     size = wsplit_elems(rt, k, n, fwd)
     t = torch.empty(size, device=device) if size else None

@@ -18,30 +18,37 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    CUDA graphs of back-to-back launches on inputs rotated past the 50 MB
    L2 where the call can be captured. The flash kernels are checked on
    their routes (bf16: the tensor-core kernels; float32: in 3xTF32 on the
-   tensor cores, the forward up to D = 112 and the backward up to D = 64,
-   past them on the CUDA cores) at ragged T, D = 32/64/128, the chunk
-   form and kv_len = 0, the backward also in the ring form (external
+   tensor cores, the forward at every D up to 256 - past D = 112 the wide
+   kernel, Q raw in shared memory and P V in slices - and the backward up
+   to D = 64, past it on the CUDA cores) at ragged T, D = 32/64/128, the
+   chunk form and kv_len = 0, the backward also in the ring form (external
    delta, float32 gradients) and for bitwise-equal reruns; the float32
    forward and backward timed at (8,16,256,64) and (2,16,1024,64) on
-   3xTF32, each also on the CUDA-core route, and at D = 128 (forward) /
-   96 (backward) on the CUDA cores; K2 (split-K, ``paged_attention_sm90``)
+   3xTF32 (the backward also on the CUDA-core route), the wide forward at
+   (8,16,256,D) for D = 128, 192 and 256, causal, and in the chunk form at
+   D = 128, and checked non-causal and in the chunk form at each of those
+   D, and the backward at D = 96 on the CUDA cores; then one float32
+   forward of a 2-layer TransformerLM at the flagship's widths with 8
+   heads (D = 128) against the CPU, its flash launches two on ``f32_sm90``;
+   K2 (split-K, ``paged_attention_sm90``)
    at decode in float32 and bf16 pages, at positions up to 4096, in the
    chunk form (S = 32) and at the speculative verify (B8, S = 5), each
    timed beside the unsplit kernel it succeeds
    (``paged_attention.cu``), with grouped-query heads, the padded slot at
    position 0, a table one split wide and bitwise-equal reruns; then
    every other head dim the attention kernels are instantiated for (each
-   multiple of 16 up to 128 on the bf16 flash kernels, up to 112 on the
-   float32 forward's 3xTF32 route and 256 on its CUDA-core route and on
-   K2, up to 64 on the float32 backward's 3xTF32 route and 192 on its
-   CUDA-core route) and their padded route (a D not a multiple of 16),
+   multiple of 16 up to 128 on the bf16 flash kernels, up to 256 on the
+   float32 forward's 3xTF32 route and on K2, up to 64 on the float32
+   backward's 3xTF32 route and 192 on its CUDA-core route) and their
+   padded route (a D not a multiple of 16),
    with the launches by route, and the bf16 flash pair timed at D = 96
    (hidden 768, 8 heads) at the training shape. The fused ResNet kernels
    are checked on all four routes (bf16 and float32 in 3xTF32 on the
-   tensor cores, aligned and, for K3 / K5 at any other K and N, with the
-   cores' ragged load / store policy; K4's ragged shapes on the CUDA
-   cores) at small and ragged shapes (K ending mid-k8 / mid-k16), at pad
-   taps where relu(b) != 0, K3 and K5 also without statistics at M = 147
+   tensor cores, aligned and, at any other K and N (K4: C and N), with
+   the cores' ragged load / store policy, K4's with a ragged 3x3 gather
+   over taps zero-padded in its weight's scratch) at small and ragged
+   shapes (K ending mid-k8 / mid-k16; K4 at C = 50, 20 and 7, N odd), at
+   pad taps where relu(b) != 0, K3 and K5 also without statistics at M = 147
    and K5 at the ReLU's tie, with the float32 launches by route, and,
    with two launches bit for bit equal, at every distinct ResNet-50
    B256/224 shape of K3 (forward and backward), K4 and K5 in bf16 and
@@ -49,19 +56,23 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    ragged route, for comparison; K5's h also written into a NaN-filled
    buffer, which must come back whole), and K3 / K5 at truly ragged
    shapes in both dtypes (K3 K 63 / N 255, K5 K 255 / N 63; each call's
-   peak memory beyond its outputs held to its weight-sized scratch), each
+   peak memory beyond its outputs held to its weight-sized scratch) and
+   K4 at the width-50 chain's 3x3 (C = N = 50, float32 B32/56 and bf16
+   B64/56) and the bf16 stage-0 shape forced onto ``bf16_ragged``, each
    timed with its library call and bound; then the width-50
    ``FusedBottleneckChain``'s training step beside the width-48 one in
-   both dtypes (card against CPU, launches by route, device ms, peak
-   memory: no activation copied or padded); the launches a step times the
+   both dtypes, their 3x3 convs through K4 (``fused_conv2``; card against
+   CPU, launches by route, device ms, peak memory: no activation copied
+   or padded); the launches a step times the
    time of each family is printed against the measured steps of phases 7
    and 8. K5's bf16 stage-0 junction must take at most 1.0 ms forward and
    3.0 ms backward; in float32 at B32, K3's stage-0 conv3 at most 0.12 /
    0.40 ms and K5's stage-0 junction 0.20 / 0.60 ms; the float32 flash
    forward and backward at (8,16,256,64) must beat SDPA (forward,
-   backward) and K4's float32 stage-0 call cuDNN's float32 conv, timed in
-   the same run, and K2's decode case must take at most a third of the
-   unsplit kernel's time.
+   backward) and K4's float32 stage-0 call, on its aligned route and
+   forced onto the ragged one, cuDNN's float32 conv, timed in the same
+   run, and K2's decode case must take at most a third of the unsplit
+   kernel's time.
    The tensor-core libraries (``*_sm90``) must build without spills (the
    ragged ``fused_matmul`` / ``fused_chain`` report theirs: the bf16 ragged
    dw kernels' consumers spill at the 224 registers they leave their
@@ -475,14 +486,18 @@ launches of ``generate`` and of phase 11's ``generate_beam``, ``flash_fwd_train`
 launches of the five remat-off training steps, ``flash_bwd`` likewise,
 ``flash_fwd_chunk`` with the ``prefill_chunked`` launches, the ``_f32``
 rows at the ``LocalOptimizer`` shape with its launches by route, the
-CUDA-core forward's row at D = 128 and backward's at D = 96; K2's rows at
+wide 3xTF32 forward's row (``flash_fwd_f32_wide``) at D = 128 with the
+D = 128 LM forward's launches, the CUDA-core backward's at D = 96; K2's rows at
 the decode and long decode cases with the serving launches by route, its
 verify row with the verify launches (S = 5) of phase 9's two speculative
 runs, and the unsplit kernel's row at the decode case; the fused ResNet kernels at
 their timed shapes with the launches of the four ResNet-50 steps of the arm
 that runs them, their ``_f32`` rows (3xTF32) at phase 8's stage-0 shape
 with its launches (K4's with those of phase 7's float32 step, and its
-CUDA-core route's row beside it; each with phase 12's launches added;
+ragged routes' rows beside it, ``fused_conv_f32_ragged`` at the stage-0
+shape forced onto ``f32`` and ``fused_conv_bf16_ragged`` at the width-50
+chain's 3x3, each with the chain step's launches on its route; each with
+phase 12's launches added;
 phase 15's K1 launches on the ``_f32`` rows and its flash entries' on
 their routes' rows, its ``predict_class`` launches on the ``_eval``
 rows; phase 16's bf16 K3 / K5 launches on the bf16 rows, its float32
@@ -490,7 +505,9 @@ ones on the ``_f32`` rows and its validation's on the ``_eval`` rows;
 ``flash_fwd_moe`` / ``flash_bwd_moe`` at the MoE LM's shape with phase
 17's training launches, and its ``generate`` launches on ``flash_fwd``);
 the flash, K3, K4 and K5 rows carry their
-``dtype_route``, the 3xTF32 rows their CUDA-core route's ``cuda_core_ms``);
+``dtype_route``, the 3xTF32 flash backward rows their CUDA-core route's
+``cuda_core_ms``, K4's aligned float32 row its ragged route's
+``ragged_ms``);
 phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows;
 phase 19's K1 launches, both ranks, on ``flash_fwd`` / ``flash_bwd``
 (bf16) and the ``_f32`` rows, its K2 serving launches on
@@ -647,10 +664,11 @@ def n_copies(bytes_per_set):
 
 def bound(nbytes, flops, dtype, route=None):
     """(bound ms, 'bytes' | 'operations'): the larger of the two times. The
-    3xTF32 route (``f32_sm90``; K3's and K5's ``f32`` too, whose callers
-    pass ``f32_sm90``) runs three tf32 products for each float32 one, so its
-    operations count three times at the tf32 rate; other float32 work
-    counts at the CUDA cores' float32 rate."""
+    3xTF32 route (``f32_sm90``; K3's, K4's and K5's ``f32`` too, whose
+    callers pass ``f32_sm90``) runs three tf32 products for each float32
+    one, so its operations count three times at the tf32 rate; other
+    float32 work (the flash backward's ``f32``) counts at the CUDA cores'
+    float32 rate."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     if route == "f32_sm90":
         t_ops = 3 * flops / TF32_FLOPS * 1e3
@@ -660,21 +678,6 @@ def bound(nbytes, flops, dtype, route=None):
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
-
-@contextlib.contextmanager
-def cuda_core_flash(torch):
-    """float32 flash forward calls on the CUDA-core route (csrc/flash_fwd.cu:
-    float32 FMAs, the route of head dims past the 3xTF32 kernel's widest,
-    and of every float32 call before it), at any head dim it takes."""
-    from bigdl_tpu_torch.kernels import flash_attention as fa
-    rule = fa.fwd_route
-    fa.fwd_route = lambda dtype, d: (
-        "f32" if dtype == torch.float32 else rule(dtype, d))
-    try:
-        yield
-    finally:
-        fa.fwd_route = rule
-
 
 @contextlib.contextmanager
 def cuda_core_bwd(torch):
@@ -709,8 +712,7 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
                timed):
     """K1-fwd against flash_fwd_reference; timed: the wrapper's call (on
     the 3xTF32 route the split kernel and the attention kernel), the plain
-    version and SDPA, and on the 3xTF32 route also the CUDA-core route at
-    the same shape."""
+    version and SDPA."""
     g = torch.Generator(device="cuda").manual_seed(B * 1000 + Tq)
     esz = torch.empty((), dtype=dtype).element_size()
     per_set = esz * (B * H * Tq * D * 2 + 2 * B * H * Tkv * D) + 4 * B * H * Tq
@@ -777,11 +779,6 @@ def flash_case(torch, K, B, H, Tq, Tkv, D, dtype, causal, q_offset, kv_len,
             kv_len=kv_len)),
         bound_ms=bound_ms, bound_by=bound_by)
     if rec["route"] == "f32_sm90":
-        with cuda_core_flash(torch):
-            rec["cuda_core_ms"] = graph_ms(torch, lambda i: K.flash_fwd(
-                qs[i], ks[i], vs[i], causal=causal, q_offset=q_offset,
-                kv_len=kv_len), sets)
-            rec["cuda_core_bound_ms"] = bound(nbytes, flops, dtype)[0]
         rec["launch_ms"] = launch_ms(torch, lambda: K.flash_fwd(
             qs[0], ks[0], vs[0], causal=causal, q_offset=q_offset,
             kv_len=kv_len))
@@ -868,6 +865,53 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
         rec["launch_ms"] = launch_ms(torch, lambda: K.flash_bwd(
             q, k, v, o, lse, do, causal))
     print(f"  K1-bwd timing {rec}", flush=True)
+    return rec
+
+
+def wide_head_lm(torch, K, B=2, T=256):
+    """One float32 forward of a 2-layer TransformerLM at the flagship's
+    widths (hidden 1024, filter 4096, vocab 32000) with 8 heads, D = 128:
+    the wide 3xTF32 flash forward on a user's path. The card's logits
+    against the CPU's on the same weights and tokens (within CPU_TOL of
+    the largest |logit|: float32 with TF32 off, sums in other orders), and
+    its K1-fwd launches by route, counted from 0 just before the forward:
+    exactly one a layer, on ``f32_sm90``, and no other kernel."""
+    from bigdl_tpu_torch.models import TransformerLM
+    cfg = dict(FLAGSHIP, num_heads=8, num_layers=2)
+    cpu = TransformerLM(**cfg, device="cpu", seed=27)
+    gpu = TransformerLM(**cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.RandomState(27).randint(
+        0, cfg["vocab_size"], (B, T)).astype(np.int64))
+    with torch.no_grad():
+        want = cpu.call(cpu.params, tokens)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        got = gpu.call(gpu.params, tokens.cuda())
+        torch.cuda.synchronize()
+        routes = K.launches_by_route()["flash_fwd"]
+        counts = K.launch_counts()
+    got = got.float().cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rec = {"shape": [B, T], "head_dim": cfg["hidden_size"] // 8,
+           "logit_err": err, "largest_logit": scale, "tol": CPU_TOL,
+           "routes": {r: n for r, n in routes.items() if n},
+           "launches": counts}
+    print(f"  K1 wide-head LM forward {rec}", flush=True)
+    check(tuple(got.shape) == (B, T, cfg["vocab_size"])
+          and torch.isfinite(got).all().item(),
+          f"the D = 128 LM forward: logits {tuple(got.shape)} not finite "
+          f"or of the wrong shape")
+    check(err <= CPU_TOL * scale, f"the D = 128 LM forward's logits "
+          f"{err:.3g} from the CPU's (largest |logit| {scale:.3g}, "
+          f"tolerance {CPU_TOL} of it)")
+    check(rec["routes"] == {"f32_sm90": 2}
+          and {n: c for n, c in counts.items() if c} == {"flash_fwd": 2},
+          f"the D = 128 LM forward launched {rec['routes']} / {counts}: "
+          f"expected flash_fwd twice on f32_sm90 (one a layer)")
+    del cpu, gpu
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1263,10 +1307,13 @@ def k4_case(torch, K, B, H, C, N, stride, dtype, timed, bias=None,
             x, w, a, b, stride, True), 1, reps=3) if plain else None,
         library_ms=graph_ms(torch, lambda i: F.conv2d(
             xc, wc, stride=stride, padding=1), 1, reps=10))
+    # both float32 routes run 3xTF32 (the bound counts C, not the padded
+    # taps: the function's own work)
     rec["bound_ms"], rec["bound_by"] = bound(
         e * (B * H * H * C + 9 * C * N + B * H2 * H2 * N) + 4 * (2 * C + 2 * N),
-        2.0 * B * H2 * H2 * 9 * C * N, dtype, rec["route"])
-    if rec["route"] == "f32_sm90":
+        2.0 * B * H2 * H2 * 9 * C * N, dtype,
+        "f32_sm90" if rec["route"] == "f32" else rec["route"])
+    if rec["route"] != "bf16_sm90":
         rec["launch_ms"] = launch_ms(torch, lambda: K.fused_conv_fwd(
             x, w, a, b, stride, True))
     print(f"  K4 timing {rec}", flush=True)
@@ -1349,18 +1396,18 @@ RAGGED_BATCH = {"torch.float32": FB, "torch.bfloat16": RB}
 
 @contextlib.contextmanager
 def ragged_route(torch):
-    """K3, K4 and K5 float32 calls on the ragged route ``f32``, the route
-    of float32 shapes outside the aligned 3xTF32 rules, at any shape: K3 and
-    K5 on csrc/fused_matmul.cu and csrc/fused_chain.cu (3xTF32 with the
-    ragged load / store policy), K4 on csrc/fused_conv.cu (float32 FMAs on
-    the CUDA cores)."""
+    """K3, K4 and K5 calls on their dtype's ragged route (``f32``,
+    ``bf16_ragged``), the route of shapes outside the aligned rules, at any
+    shape: K3, K5 and K4 on csrc/fused_matmul.cu, csrc/fused_chain.cu and
+    csrc/fused_conv.cu (3xTF32 or bf16 wgmma with the ragged load / store
+    policy; K4 with its ragged 3x3 gather)."""
     from bigdl_tpu_torch.kernels import (fused_chain as fc, fused_conv as fcv,
                                          fused_matmul as fm)
     rule, conv_rule = fm.route, fcv.route
     fm.route = fc.route = lambda dtype, k, n: (
-        "f32" if dtype == torch.float32 else rule(dtype, k, n))
+        "f32" if dtype == torch.float32 else "bf16_ragged")
     fcv.route = lambda dtype, c, n: (
-        "f32" if dtype == torch.float32 else conv_rule(dtype, c, n))
+        "f32" if dtype == torch.float32 else "bf16_ragged")
     try:
         yield
     finally:
@@ -1374,8 +1421,9 @@ def resnet_shapes_f32(torch, K):
     float32 step runs it), held against the plain versions (two launches
     bit for bit; K5's h also into a NaN-filled buffer) and timed with the
     library call and the bound, on the 3xTF32 route and then forced onto
-    the ragged route (``ragged_route``: K3 / K5 on 3xTF32 with the ragged
-    policy, K4 on the CUDA cores); the plain versions are timed at stage 0.
+    the ragged route (``ragged_route``: K3 / K5 / K4 on 3xTF32 with the
+    ragged policy, K4 with its ragged 3x3 gather); the plain versions are
+    timed at stage 0.
     Returns ({family: [(name, launches a step, timing)]} of each route,
     {name: case record} of each route)."""
     f32 = torch.float32
@@ -1411,7 +1459,7 @@ def resnet_shapes_f32(torch, K):
         for (name, n, r), (_, _, o) in zip(rows, fams[1][f]):
             print(f"  float32 B{FB} {f} {name}: {n} a step x {r['ms']:.4f} "
                   f"ms 3xTF32, {o['ms']:.4f} ms on the ragged route "
-                  f"({'CUDA cores' if f == 'K4' else '3xTF32'}; library "
+                  f"(3xTF32, the ragged policy; library "
                   f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
                   f"{r['bound_by']}; the ragged route's bound "
                   f"{o['bound_ms']:.4f})", flush=True)
@@ -1420,12 +1468,14 @@ def resnet_shapes_f32(torch, K):
 
 def _chain(torch, width, dev, seed=0):
     """A FusedBottleneckChain of two FusedBottleneck blocks at ``width``
-    (nin 2 w -> w -> 4 w, then 4 w -> w -> 4 w; the 3x3 convs unfused),
-    its weights drawn from ``seed`` on the CPU, on ``dev``."""
+    (nin 2 w -> w -> 4 w, then 4 w -> w -> 4 w; the 3x3 convs through K4,
+    ``fused_conv2``), its weights drawn from ``seed`` on the CPU, on
+    ``dev``."""
     from bigdl_tpu_torch.models import FusedBottleneck, FusedBottleneckChain
     torch.manual_seed(seed)
-    m = FusedBottleneckChain([FusedBottleneck(2 * width, width, 1, 4, False),
-                              FusedBottleneck(4 * width, width, 1, 4, False)])
+    m = FusedBottleneckChain([
+        FusedBottleneck(2 * width, width, 1, 4, False, fused_conv2=True),
+        FusedBottleneck(4 * width, width, 1, 4, False, fused_conv2=True)])
     return m.to(dev)
 
 
@@ -1448,12 +1498,13 @@ def _chain_step(torch, m, x, bf16):
 def chain_ms(torch, step, n=2):
     """A training step's device ms (the kernels' summed device time a step,
     ``torch.profiler`` over ``n`` steps; the eager step is host-paced), the
-    fused K3 / K5 kernels' share of it (the cores' rs / dw / split / pad /
-    sum kernels, and the CUDA-core ones), and the eager wall ms a step
-    (CUDA events)."""
+    fused K3 / K5 / K4 kernels' share of it (the cores' rs / dw / weight
+    preparation / sum kernels), and the eager wall ms a step (CUDA
+    events)."""
     per = launch_ms(torch, step, n)
     fused = ("rs_kernel", "dw_kernel", "split_w_kernel", "pad_cols_kernel",
-             "sum_rows_kernel", "gemm_kernel", "gemm_rs_kernel")
+             "split_taps_kernel", "pad_taps_kernel", "sum_rows_kernel",
+             "gemm_rs_kernel")
     return {"ms": sum(per.values()),
             "fused_ms": sum(v for k, v in per.items() if k in fused),
             "wall_ms": event_ms(torch, step, reps=2, iters=3)}
@@ -1470,20 +1521,26 @@ def ragged_chain(torch, K):
     """The ragged routes on the path a user reaches them by: a
     FusedBottleneckChain at width 50 (CHAIN_RAGGED: conv1 ragged in N,
     conv3 in K, the junction's next conv1 in N; bf16 also the projection,
-    K = 100) beside the same chain at width 48 (all aligned), in float32
-    and bf16 (the bf16 recipe). Per dtype: the width-50 chain's training
+    K = 100; the 3x3 convs through K4 at C = N = 50, on the ragged route in
+    both dtypes) beside the same chain at width 48 (K3 / K5 aligned; K4 at
+    C = 48 on the float32 ragged route, 48 not being a multiple of 32, and
+    on bf16_sm90), in float32 and bf16 (the bf16 recipe). Per dtype: the
+    width-50 chain's training
     step on a B2/28 batch on the card against the CPU on the same weights
     and inputs (float32: card against CPU; bf16: each against the CPU's
     float32 step, the card at most twice the CPU's distance plus 1e-3);
-    then per width the step at CHAIN_SHAPE: its K3 / K5 launches by route
-    (counts set to 0 just before the first step, read just after: every
-    call on the route its (K, N) gives), its device ms (``chain_ms``) and
+    then per width the step at CHAIN_SHAPE: its K3 / K5 / K4 launches by
+    route (counts set to 0 just before the first step, read just after:
+    every call on the route its (K, N) or (C, N) gives; K4's backward is
+    plain ops), its device ms (``chain_ms``) and
     its peak memory beyond the model and batch. The width-50 step's peak
     must stay within half a width-50 activation of the width-48 step's
     scaled by 50 / 48: no activation is copied or padded. TF32 off (the 3x3
-    convs run on cuDNN). Returns {dtype: {width: record}}."""
+    convs' backward runs on cuDNN, as K4's backward is plain ops). Returns
+    {dtype: {width: record}}."""
     from collections import Counter
     from bigdl_tpu_torch.convert import flatten
+    from bigdl_tpu_torch.kernels.fused_conv import route as conv_route
     from bigdl_tpu_torch.kernels.fused_matmul import route
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1536,8 +1593,10 @@ def ragged_chain(torch, K):
             k3 = Counter(route(dt, k, n) for k, n in (
                 (2 * w, w), (w, 4 * w), (2 * w, 4 * w), (w, 4 * w)))
             k5 = Counter([route(dt, 4 * w, w)])
+            k4 = Counter([conv_route(dt, w, w)] * 2)   # one a block
             want = {"fused_matmul_fwd": k3, "fused_matmul_bwd": k3,
-                    "fused_chain_fwd": k5, "fused_chain_bwd": k5}
+                    "fused_chain_fwd": k5, "fused_chain_bwd": k5,
+                    "fused_conv_fwd": k4}
             rec["routes"] = {n: {r: c for r, c in routes[n].items() if c}
                              for n in want}
             check(all(rec["routes"][n] == dict(c) for n, c in want.items()),
@@ -1558,7 +1617,7 @@ def ragged_chain(torch, K):
         print(f"  width-{CHAIN_RAGGED} chain step ({dt}, B{B}/{S}): "
               f"{r['ms']:.4f} device ms against {a['ms']:.4f} at width "
               f"{CHAIN_ALIGNED} (ratio {r['ms'] / a['ms']:.3f}, widths "
-              f"{CHAIN_RAGGED / CHAIN_ALIGNED:.3f}; K3 / K5 kernels "
+              f"{CHAIN_RAGGED / CHAIN_ALIGNED:.3f}; K3 / K5 / K4 kernels "
               f"{r['fused_ms']:.4f} against {a['fused_ms']:.4f}; eager wall "
               f"{r['wall_ms']:.4f} against {a['wall_ms']:.4f}); launches "
               f"{r['routes']} "
@@ -9685,18 +9744,29 @@ def main():
     k1_train = flash_case(torch, K, 16, 16, 1024, 1024, 64, bf, True, 0,
                           1024, timed=True)
     # the float32 route at the LocalOptimizer shape (phase 6: B8/T256) and
-    # at T = 1024, each also on the CUDA-core route; then a head dim past
-    # the 3xTF32 kernel's widest (112), which stays on the CUDA cores
+    # at T = 1024; then the wide kernel (D past 112): causal at (8,16,256,D)
+    # for D = 128, 192 and 256 and the chunk form at D = 128, timed, and
+    # non-causal and chunk cases at each of those D
     k1_f32 = flash_case(torch, K, 8, 16, 256, 256, 64, f32, True, 0, 256,
                         timed=True)
     k1_f32_long = flash_case(torch, K, 2, 16, 1024, 1024, 64, f32, True, 0,
                              1024, timed=True)
-    k1_f32_wide = flash_case(torch, K, 8, 16, 256, 256, 128, f32, True, 0,
-                             256, timed=True)
-    check(k1_f32["route"] == k1_f32_long["route"] == "f32_sm90"
-          and k1_f32_wide["route"] == "f32",
+    k1_wide = {D: flash_case(torch, K, 8, 16, 256, 256, D, f32, True, 0, 256,
+                             timed=True) for D in (128, 192, 256)}
+    k1_f32_wide = k1_wide[128]
+    k1_wide_chunk = flash_case(torch, K, 8, 16, 32, 384, 128, f32, True, 96,
+                               128, timed=True)
+    for D in (128, 192, 256):
+        flash_case(torch, K, 4, 8, 100, 260, D, f32, False, 0, 260, False)
+        flash_case(torch, K, 4, 8, 32, 384, D, f32, True, 96, 200, False)
+    check(all(r["route"] == "f32_sm90" for r in (
+        k1_f32, k1_f32_long, k1_wide_chunk, *k1_wide.values())),
           f"float32 flash routes {k1_f32['route']}, {k1_f32_long['route']}, "
-          f"{k1_f32_wide['route']}: expected f32_sm90 at D = 64, f32 at 128")
+          f"{ {d: r['route'] for d, r in k1_wide.items()} }: expected "
+          f"f32_sm90 at every D")
+    # a user's path to the wide kernel: a float32 LM at the flagship's
+    # widths with 8 heads (D = 128)
+    k1_lm = wide_head_lm(torch, K)
     # K1-bwd: bf16 at the training shape, ragged T, D = 32 and 128, the
     # ring form (external delta, float32 gradients); float32 beside: the
     # 3xTF32 route (D <= 64) timed at phase 6's shape and at T = 1024 (each
@@ -9744,12 +9814,11 @@ def main():
     check("paged_combine_kernel" in k2_main["launch_ms"],
           f"K2 decode case launched {k2_main['launch_ms']}")
     # head dims: every instantiation the first cases left out (each
-    # multiple of 16 up to 128 on the bf16 flash kernels, up to 112 on the
-    # float32 flash forward's 3xTF32 route and up to 256 on its CUDA-core
-    # route and on K2, up to 64 on the float32 backward's 3xTF32 route and
-    # up to 192 on its CUDA-core route) and the padded route of each kernel
-    # (a D not a multiple of 16), each against its plain version; then the
-    # launches by route
+    # multiple of 16 up to 128 on the bf16 flash kernels, up to 256 on the
+    # float32 flash forward's 3xTF32 route and on K2, up to 64 on the
+    # float32 backward's 3xTF32 route and up to 192 on its CUDA-core route)
+    # and the padded route of each kernel (a D not a multiple of 16), each
+    # against its plain version; then the launches by route
     K.reset_launch_counts()
     new_dims = [d for d in range(16, 257, 16) if d not in (32, 64, 128)]
     for D in new_dims:
@@ -9770,15 +9839,13 @@ def main():
     n_f32 = len(new_dims)
     n_bwd = len([d for d in new_dims if d <= 192])
     n_bf = len([d for d in new_dims if d <= 128])
-    n_tc = len([d for d in new_dims if d <= 112])
     n_tcb = len([d for d in new_dims if d <= 64])
     # float32: flash_case launches the forward once, bwd_case the forward
-    # once (3xTF32 up to D = 112) and the backward twice (the rerun check,
+    # once (3xTF32 at every D) and the backward twice (the rerun check,
     # 3xTF32 up to D = 64); paged_case launches K2 twice (the rerun check)
     hd_want = {
         "flash_fwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
-                      "f32_sm90": 2 * n_tc, "f32_sm90_padded": 2,
-                      "f32": n_f32 + n_bwd - 2 * n_tc, "f32_padded": 0},
+                      "f32_sm90": n_f32 + n_bwd, "f32_sm90_padded": 2},
         "flash_bwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
                       "f32_sm90": 2 * n_tcb, "f32_sm90_padded": 2,
                       "f32": 2 * (n_bwd - n_tcb), "f32_padded": 0},
@@ -9787,7 +9854,7 @@ def main():
                             "f32": 0, "f32_padded": 0, "bf16": 0,
                             "bf16_padded": 0}}
     print(f"    head dims {new_dims} (bf16 flash and K2 up to 128, float32 "
-          f"forward on 3xTF32 up to 112, float32 backward on 3xTF32 up to "
+          f"forward on 3xTF32 up to 256, float32 backward on 3xTF32 up to "
           f"64 and up to 192), padded D = 40 / 100; launches by route "
           f"{ {n: hd_routes[n] for n in hd_want} }", flush=True)
     check(all(hd_routes[n] == r for n, r in hd_want.items()),
@@ -9813,6 +9880,12 @@ def main():
         k5_case(torch, K, 3, 7, 255, 63, dt, False, tie=True)
         k4_case(torch, K, 2, 8, 16, 24, 1, dt, False)
         k4_case(torch, K, 2, 7, 32, 40, 2, dt, False)
+        # K4's ragged routes at truly ragged shapes: C = 50 (float32 rows
+        # of 200 bytes, bf16 of 100), 20 and 7 (bf16 rows at odd element
+        # addresses), N odd, pad taps at relu(b) = 1
+        k4_case(torch, K, 2, 8, 50, 50, 1, dt, False, bias=1.0)
+        k4_case(torch, K, 2, 7, 20, 13, 2, dt, False)
+        k4_case(torch, K, 1, 6, 7, 13, 2, dt, False, bias=1.0)
     # bf16 pad taps that would give relu(b) = 1 or 2 if the prologue came
     # after the padding, at stride 1 and 2 and with C not a multiple of 64
     k4_case(torch, K, 2, 7, 64, 64, 1, bf, False, bias=1.0)
@@ -9829,7 +9902,7 @@ def main():
     # 132, N = 36 and 68) and the ReLU's tie; the ragged route for K or N
     # not a multiple of 4; K4 in float32 on the 3xTF32 route (C a
     # multiple of 32) at pad taps where relu(b) = 1, stride 1 and 2, and on
-    # the CUDA-core route at C = 72; then the launches by route (each K3 /
+    # the ragged route at C = 72; then the launches by route (each K3 /
     # K5 case launches the forward and the backward twice, each K4 case the
     # forward twice: the rerun check)
     K.reset_launch_counts()
@@ -9861,13 +9934,13 @@ def main():
     k4_s0, k4_s1 = recs["s0 3x3"], recs["s1 3x3/2"]
     # the float32 routes at phase 8's shapes (B32): every K3, K4 and K5
     # shape on the 3xTF32 route, then forced onto the ragged route (K3 /
-    # K5: csrc/fused_matmul.cu / fused_chain.cu; K4: the CUDA cores)
+    # K5 / K4: csrc/fused_matmul.cu / fused_chain.cu / fused_conv.cu)
     (fam32, fam_cc), (recs32, recs_cc) = resnet_shapes_f32(torch, K)
     k3_f32, k5_f32 = recs32["s0 conv3"], recs32["s0 junction"]
     k4_f32 = recs32["s0 3x3"]
-    # the CUDA-core route's row (now taken by K4 float32 shapes with C not
-    # a multiple of 32 only) at the same shape; the plain version is the
-    # same function on the same inputs
+    # K4's ragged float32 route's row (taken by float32 shapes with C not
+    # a multiple of 32 or N of 4) at the same shape; the plain version is
+    # the same function on the same inputs
     k4_cc = dict(recs_cc["s0 3x3"], plain_ms=k4_f32["plain_ms"])
     t_rag = time.perf_counter()
     # the ragged routes at truly ragged shapes: K3 at K = 63 / N = 255
@@ -9885,6 +9958,21 @@ def main():
         check(rag[("K3", dt)]["route"] == rag[("K5", dt)]["route"]
               == {f32: "f32", bf: "bf16_ragged"}[dt],
               f"ragged shapes off the ragged route: {rag}")
+    # K4's ragged routes timed: the width-50 chain's 3x3 (C = N = 50) at
+    # its step's batch in each dtype, and the bf16 stage-0 shape forced
+    # onto bf16_ragged (the float32 one is resnet_shapes_f32's)
+    rag4 = {}
+    for dt in (f32, bf):
+        B50, S50 = CHAIN_SHAPE[str(dt)]
+        rag4[dt] = k4_case(torch, K, B50, S50, CHAIN_RAGGED, CHAIN_RAGGED, 1,
+                           dt, True, plain=dt == bf)
+    with ragged_route(torch):
+        rag4["s0", bf] = k4_case(torch, K, RAGGED_BATCH[str(bf)], 56, 64, 64,
+                                 1, bf, True, plain=False)
+    check(rag4[f32]["route"] == "f32"
+          and rag4[bf]["route"] == rag4["s0", bf]["route"] == "bf16_ragged",
+          f"K4's ragged shapes off their routes: "
+          f"{ {k: r['route'] for k, r in rag4.items()} }")
     # the user-visible ragged path: a width-50 bottleneck chain's training
     # step beside the width-48 one, card against CPU, in both dtypes
     t_chain = time.perf_counter()
@@ -9909,7 +9997,9 @@ def main():
     lib_ms = {"K1-fwd f32 (8,16,256,64)": (k1_f32["ms"], k1_f32["library_ms"]),
               "K1-bwd f32 (8,16,256,64)": (k1b_f32["ms"],
                                            k1b_f32["library_ms"]),
-              "K4 f32 s0 B32": (k4_f32["ms"], k4_f32["library_ms"])}
+              "K4 f32 s0 B32": (k4_f32["ms"], k4_f32["library_ms"]),
+              "K4 f32 s0 B32, ragged route": (k4_cc["ms"],
+                                              k4_cc["library_ms"])}
     print(f"    3xTF32 (ms, library ms) {lib_ms}", flush=True)
     check(all(ms < lib for ms, lib in lib_ms.values()),
           f"3xTF32 flash forward, backward or K4 not faster than the "
@@ -10271,6 +10361,8 @@ def main():
             out["dtype_route"] = rec["route"]
         if "cuda_core_ms" in rec:   # a 3xTF32 row's CUDA-core route, same call
             out["cuda_core_ms"] = rec["cuda_core_ms"]
+        if "ragged_ms" in rec:      # K4 f32: its ragged route, same call
+            out["ragged_ms"] = rec["ragged_ms"]
         if "launch_ms" in rec:      # ms covers these launches (profiler)
             out["launch_ms"] = rec["launch_ms"]
         if "unsplit_ms" in rec:     # K2: the kernel it succeeds, same call
@@ -10302,8 +10394,14 @@ def main():
              "(8x16, T=256, causal)", k1_f32),
             ("flash_fwd float32 3xTF32 route (2x16, T=1024, causal)",
              k1_f32_long),
-            ("flash_fwd float32 CUDA-core route, D=128 (8x16, T=256, causal)",
-             k1_f32_wide),
+            ("flash_fwd float32 3xTF32 wide kernel, D=128 (8x16, T=256, "
+             "causal)", k1_wide[128]),
+            ("flash_fwd float32 3xTF32 wide kernel, D=192 (8x16, T=256, "
+             "causal)", k1_wide[192]),
+            ("flash_fwd float32 3xTF32 wide kernel, D=256 (8x16, T=256, "
+             "causal)", k1_wide[256]),
+            ("flash_fwd float32 3xTF32 wide kernel, D=128, chunk form (8x16, "
+             "S=32, q_offset=96, kv_len=128)", k1_wide_chunk),
             ("flash_bwd training shape (16x16, T=1024, causal, bf16)",
              k1b_main),
             ("flash_bwd float32 3xTF32 route, dK/dV + dQ kernels (8x16, "
@@ -10356,8 +10454,13 @@ def main():
                       ("K5 float32 stage-0 junction bwd (B32)", k5_f32["bwd"]),
                       ("K4 stage-0 3x3", k4_s0), ("K4 stage-1 3x3/2", k4_s1),
                       ("K4 float32 stage-0 3x3 (B32)", k4_f32),
-                      ("K4 float32 stage-0 3x3 (B32), CUDA-core route",
-                       k4_cc)):
+                      ("K4 float32 stage-0 3x3 (B32), ragged route", k4_cc),
+                      ("K4 float32 3x3 C = N = 50 (B32/56), ragged route",
+                       dict(rag4[f32], plain_ms=float("nan"))),
+                      ("K4 bf16 3x3 C = N = 50 (B64/56), ragged route",
+                       rag4[bf]),
+                      ("K4 bf16 stage-0 3x3 (B256), forced onto the ragged "
+                       "route", dict(rag4["s0", bf], plain_ms=float("nan")))):
         print(f"    {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}, "
               f"bare product {rec['library_ms']:.4f}, bound "
               f"{rec['bound_ms']:.4f} ({rec['bound_by']})"
@@ -10450,10 +10553,10 @@ def main():
                    r6["routes"]["flash_fwd"]["f32_sm90"] + r15["k1"]
                    + l18["flash_fwd"] + l19["flash_fwd_f32"]
                    + r15["entry_routes"]["flash_fwd"].get("f32_sm90", 0)),
-        kernel_rec("flash_fwd_f32_cuda_cores",
-                   "bigdl_tpu_torch/csrc/flash_fwd.cu",
+        kernel_rec("flash_fwd_f32_wide",
+                   "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32_wide,
-                   r6["routes"]["flash_fwd"]["f32"]),
+                   k1_lm["routes"]["f32_sm90"]),
         kernel_rec("flash_bwd_f32",
                    "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
@@ -10556,14 +10659,21 @@ def main():
         kernel_rec("fused_conv_f32",
                    "bigdl_tpu_torch/csrc/fused_conv_tf32_sm90.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188",
-                   dict(k4_f32, cuda_core_ms=k4_cc["ms"]),
+                   dict(k4_f32, ragged_ms=k4_cc["ms"]),
                    r7["fused_routes"]["fused_conv_fwd"]["f32_sm90"]
                    + l12["fused_conv_fwd"] + l18["fused_conv_fwd"]
                    + l23["fused_conv_fwd"]),
         kernel_rec("fused_conv_f32_ragged",
                    "bigdl_tpu_torch/csrc/fused_conv.cu",
                    "bigdl_tpu/kernels/fused_conv.py:188", k4_cc,
-                   r7["fused_routes"]["fused_conv_fwd"]["f32"]),
+                   r7["fused_routes"]["fused_conv_fwd"]["f32"]
+                   + chain[str(f32)][CHAIN_RAGGED]["routes"][
+                       "fused_conv_fwd"].get("f32", 0)),
+        kernel_rec("fused_conv_bf16_ragged",
+                   "bigdl_tpu_torch/csrc/fused_conv.cu",
+                   "bigdl_tpu/kernels/fused_conv.py:188", rag4[bf],
+                   chain[str(bf)][CHAIN_RAGGED]["routes"][
+                       "fused_conv_fwd"].get("bf16_ragged", 0)),
         ragged_rec("fused_matmul_f32_ragged",
                    "bigdl_tpu_torch/csrc/fused_matmul.cu",
                    "bigdl_tpu/kernels/fused_matmul.py:344", "K3", f32, "f32",

@@ -263,6 +263,11 @@ def test_fused_chain_without_stats_matches_pallas_interpret():
     (2, 8, 8, 16, 24, 2, BF16),
     (2, 7, 5, 16, 8, 2, BF16),     # odd planes in bf16
     (1, 5, 6, 72, 16, 1, BF16),    # C not a multiple of 64: chunks span taps
+    # truly ragged: C not a multiple of 4 or 8, N odd (the ragged routes)
+    (2, 8, 8, 50, 50, 1, F32),
+    (2, 7, 5, 20, 13, 2, F32),
+    (2, 8, 8, 50, 50, 1, BF16),
+    (1, 6, 6, 7, 13, 2, BF16),
 ])
 def test_fused_conv_plain_matches_pallas_interpret(B, H, W, C, N, stride, dt):
     js, ts = _inputs(B + H + C + stride, [
@@ -363,7 +368,7 @@ def test_each_library_digest_covers_the_headers_its_source_includes():
     attention = {n for n, f in _build.SOURCES.items()
                  if "attn_tile.cuh" in f}
     fused = {n for n, f in _build.SOURCES.items() if "fused_gemm.cuh" in f}
-    assert attention == {"flash_fwd", "flash_bwd", "paged_attention",
+    assert attention == {"flash_bwd", "paged_attention",
                          "paged_attention_sm90"}
     assert fused == {"fused_matmul", "fused_chain", "fused_conv",
                      "fused_matmul_sm90", "fused_conv_sm90",

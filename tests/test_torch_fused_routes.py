@@ -23,10 +23,10 @@ TENSOR_CORE_LIBS = ["fused_matmul_sm90", "fused_conv_sm90", "fused_chain_sm90",
                     "fused_matmul_tf32_sm90", "fused_chain_tf32_sm90",
                     "fused_conv_tf32_sm90", "flash_fwd_tf32_sm90",
                     "flash_bwd_tf32_sm90", "paged_attention_sm90",
-                    "fused_matmul", "fused_chain"]
-# the libraries of K3's and K5's ragged float32 route (f32): the 3xTF32
-# core with its ragged load / store policy
-RAGGED_LIBS = ("fused_matmul", "fused_chain")
+                    "fused_matmul", "fused_chain", "fused_conv"]
+# the libraries of K3's, K5's and K4's ragged routes (f32, bf16_ragged): the
+# 3xTF32 and bf16 cores with their ragged load / store policy
+RAGGED_LIBS = ("fused_matmul", "fused_chain", "fused_conv")
 
 # ResNet-50 at B256/224: the shape tables chip_smoke.py checks and times
 # on the card (models/resnet.py: conv1 of block 0, conv3 and projection per
@@ -51,10 +51,11 @@ def test_resnet50_tables_hold_every_fused_launch_of_a_step():
 
 def test_fused_routes_by_dtype_and_one_shape_rule():
     """bf16 with contraction and columns multiples of 8 goes to the
-    tensor-core sources, other bf16 shapes to the CUDA-core ones; K3 and
-    K5 in float32 with multiples of 4, and K4 in float32 with C a multiple
-    of 32 and N of 4, go to the 3xTF32 sources, other float32 shapes to the
-    CUDA-core ones; every route's library is in the build list with its
+    aligned tensor-core sources, other bf16 shapes to the ragged ones; K3
+    and K5 in float32 with multiples of 4, and K4 in float32 with C a
+    multiple of 32 and N of 4, go to the aligned 3xTF32 sources, other
+    float32 shapes to the ragged ones (one library a kernel for both
+    dtypes); every route's library is in the build list with its
     headers."""
     assert fm._ROUTES == {torch.bfloat16: ("bf16_sm90", 8, "bf16_ragged"),
                           torch.float32: ("f32_sm90", 4, "f32")}
@@ -139,19 +140,29 @@ def test_tensor_core_sources_call_no_library(lib):
     ("fused_chain", ("ResidF<true>", "DzEffF<true>",
                      "ChainDxEpi2<float, true>", "gemm_dw<true, true>",
                      "ResidA<true>", "DzEffA<true>",
-                     "ChainDxEpi2<bf16, true>"))])
+                     "ChainDxEpi2<bf16, true>")),
+    ("fused_conv", ("struct XHatConvFR", "gemm<true>(whi, wlo",
+                    "split_taps_kernel", "struct XHatConvA : XHatA<9>",
+                    "gemm_rs<128, 1, true>(wpad", "pad_taps_kernel"))])
 def test_ragged_entries_run_the_tensor_core_cores(lib, ops):
-    """fused_matmul.cu and fused_chain.cu (the f32 and bf16_ragged routes)
-    instantiate the cores' operands, epilogues and weight gradient with the
-    ragged policy (RG = true) in both dtypes; the CUDA-core functors of
-    fused_gemm.cuh (XHat, DzEff, Resid, ColsOf, RowsOf) are gone from
-    them."""
+    """fused_matmul.cu, fused_chain.cu and fused_conv.cu (the f32 and
+    bf16_ragged routes) instantiate the cores' operands, epilogues and
+    weight gradient with the ragged policy (RG = true) in both dtypes (K4:
+    its ragged 3x3 gathers over the 3xTF32 and bf16 cores, the tap-padded
+    weight preparation); the CUDA-core GEMM of fused_gemm.cuh and its
+    functors (XHat, DzEff, Resid, Im2col, ColsOf, RowsOf, StoreZ) are gone
+    from every source and header."""
     src = (_build.CSRC / _build.SOURCES[lib][0]).read_text()
     for op in ops:
         assert op in src, (lib, op)
     for gone in ("XHat<", "DzEff<", "Resid<", "ColsOf<", "RowsOf<",
-                 "StoreSplit"):
+                 "StoreSplit", "Im2col", "StoreZ<"):
         assert gone not in src, (lib, gone)
+    gemm = (_build.CSRC / "fused_gemm.cuh").read_text()
+    for gone in ("Im2col", "ColsOf", "StoreZ", "Tiles", "gemm_kernel",
+                 "load_tile"):
+        assert gone not in gemm, gone
+    assert "sum_rows_kernel" in gemm and "affine" in gemm
 
 
 @pytest.mark.parametrize("k,n", [(63, 50), (64, 256), (6, 24), (130, 70),
@@ -162,7 +173,7 @@ def test_weight_scratch_sizes_per_route(k, n):
     route B's rows zero-padded to whole 32-deep stages (the forward's B is
     w^T, N rows of K; dx's is w, K rows of N); bf16_ragged w's rows padded
     to a multiple of 8 (K x N8 bf16 in float32 elements), the same for both
-    products; none on bf16_sm90. K4 passes the scratch on f32_sm90 only."""
+    products; none on bf16_sm90."""
     up = lambda v, q: -(-v // q) * q
     want = {("f32_sm90", True): 2 * k * n, ("f32_sm90", False): 2 * k * n,
             ("f32", True): 2 * n * up(k, 32), ("f32", False): 2 * k * up(n, 32),
@@ -177,9 +188,32 @@ def test_weight_scratch_sizes_per_route(k, n):
         else:
             assert t.numel() == elems and extra == (t.data_ptr(),)
     assert 2 * want[("bf16_ragged", True)] >= k * up(n, 8)   # bf16 elements
-    for rt in ("f32", "bf16_ragged", "bf16_sm90"):
-        assert fm._wsplit(rt, 9 * k, n, "cpu", takes=("f32_sm90",)) == (
-            None, ())
+
+
+@pytest.mark.parametrize("c,n", [(50, 50), (48, 48), (20, 13), (7, 13),
+                                 (64, 64), (16, 24), (1, 1), (72, 16)])
+def test_k4_weight_scratch_is_the_tap_padded_weight(c, n):
+    """K4's weight scratch per route: f32_sm90 the hi and lo halves of w^T
+    (N rows of 9 C); the ragged float32 route the same with each tap's
+    channels padded to C rounded up to 32, so a 32-deep chunk of the
+    contraction is one tap (N rows of 9 Cp); bf16_ragged a bf16 copy of 9
+    Cp rows (Cp: C rounded up to 8, so a unit of 8 channels is in one tap)
+    of N rounded up to 8, in float32 elements; none on bf16_sm90. Every
+    size is weight-sized: at most 2 x 32 / C + ... times the weight, never
+    a multiple of the activations."""
+    up = lambda v, q: -(-v // q) * q
+    want = {"f32_sm90": 2 * 9 * c * n, "f32": 2 * n * 9 * up(c, 32),
+            "bf16_ragged": -(-9 * up(c, 8) * up(n, 8) // 2), "bf16_sm90": 0}
+    for rt, elems in want.items():
+        assert fc.wsplit_elems(rt, c, n) == elems, rt
+    assert want["f32"] >= want["f32_sm90"]
+    assert want["f32"] == want["f32_sm90"] or c % 32
+    assert 2 * want["bf16_ragged"] >= 9 * up(c, 8) * up(n, 8)
+    # the padding a tap costs: 1.28x at C = 50 and 2x at C = 16 in float32
+    assert fc.wsplit_elems("f32", 50, n) / fc.wsplit_elems(
+        "f32_sm90", 50, n) == 64 / 50
+    assert fc.wsplit_elems("f32", 16, n) == 2 * fc.wsplit_elems(
+        "f32_sm90", 16, n)
 
 
 @pytest.mark.parametrize("rt,M,K,N", [
@@ -240,11 +274,14 @@ def test_resnet50_k3_calls_take_the_tensor_core_route(M, K, N):
                                  (2048, 4)])
 def test_k4_float32_route_rule(k, n):
     """float32 K4: C a multiple of 32 (a 32-deep chunk of the contraction
-    is one tap) and N of 4 (TMA rows of 16-byte multiples) take the 3xTF32
-    route, any other shape the CUDA cores; partials per route."""
+    is one tap) and N of 4 (TMA rows of 16-byte multiples) take the aligned
+    3xTF32 route, any other shape the ragged one (the same core, per-tap
+    padding); one partial per 64 rows on either (the cores' kPartRows)."""
     want = "f32_sm90" if k % 32 == 0 and n % 4 == 0 else "f32"
     assert fc.route(torch.float32, k, n) == want
-    assert fc._PART_ROWS[want] == (64 if want == "f32_sm90" else fm._BM)
+    assert fc._PART_ROWS[want] == 64
+    assert fc._PART_ROWS == dict.fromkeys(
+        ("bf16_sm90", "bf16_ragged", "f32_sm90", "f32"), 64)
 
 
 @pytest.mark.parametrize("batch", [32, 256])
@@ -261,8 +298,7 @@ def test_resnet50_k4_float32_calls_take_the_3xtf32_route(H, C, N, stride,
     rows = fm._PART_ROWS["f32_sm90"]
     parts = -(-M // rows)
     assert (parts - 1) * rows < M <= parts * rows
-    wsp, extra = fm._wsplit("f32_sm90", 9 * C, N, "cpu")
-    assert wsp.numel() == 2 * 9 * C * N and extra == (wsp.data_ptr(),)
+    assert fc.wsplit_elems("f32_sm90", C, N) == 2 * 9 * C * N
 
 
 @pytest.mark.parametrize("H,C,N,stride", K4_SHAPES)

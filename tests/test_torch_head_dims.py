@@ -3,14 +3,14 @@
 JAX's Pallas kernels take the whole head dim D as one block, so a
 TransformerLM with D = 96 (hidden 768, 8 heads) or 16 runs there. The
 port's CUDA kernels are instantiated per D: every multiple of 16 up to 256
-on the CUDA-core routes (the float32 flash backward up to 192), up to 128
-on the bf16 tensor-core route and up to 112 on the float32 flash
-forward's 3xTF32 route (a wider float32 forward takes the CUDA cores);
-another D takes the next wider instantiation on its route, zero-padded
-(the padded route), and a D past the widest raises. These tests hold the
-plain versions against the Pallas kernels in interpret mode at D = 16 and
-96, and the wrappers' tables against the ``case`` lines of the CUDA
-sources. The kernels themselves, padded route included, are held against
+on the float32 flash forward's 3xTF32 route and on K2, up to 192 on the
+float32 flash backward's CUDA-core route (up to 64 on its 3xTF32 route),
+up to 128 on the bf16 tensor-core route; another D takes the next wider
+instantiation on its route, zero-padded (the padded route), and a D past
+the widest raises. These tests hold the plain versions against the Pallas
+kernels in interpret mode at D = 16 and 96 (the forward also at 128 and
+256, the 3xTF32 forward's wide kernel), and the wrappers' tables against
+the ``case`` lines of the CUDA sources. The kernels themselves, padded route included, are held against
 the plain versions on the card by ``chip_smoke.py``.
 
 Tolerance, float32: atol = rtol = 1e-5 (same softmax in float32, other
@@ -41,7 +41,7 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
-@pytest.mark.parametrize("D", [16, 96])
+@pytest.mark.parametrize("D", [16, 96, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_plain_matches_pallas_interpret(D, causal):
     rng = np.random.RandomState(D)
@@ -100,8 +100,6 @@ def _cases(source, pattern):
 
 
 @pytest.mark.parametrize("table,route,source,pattern", [
-    (fa._FWD_DIMS, "f32", "flash_fwd.cu",
-     r"case (\d+): return bigdl::launch_flash"),
     (fa._BWD_DIMS, "f32", "flash_bwd.cu",
      r"case (\d+): return bigdl::launch_bwd"),
     (fa._FWD_DIMS, "bf16_sm90", "flash_fwd_sm90.cu",
@@ -116,7 +114,7 @@ def _cases(source, pattern):
      r"case (\d+): return dispatch_tpr"),
     ({"pages": pa._DIMS}, "pages", "paged_attention_sm90.cu",
      r"case (\d+): return launch<T"),
-], ids=["flash_fwd_f32", "flash_bwd_f32", "flash_fwd_bf16",
+], ids=["flash_bwd_f32", "flash_fwd_bf16",
         "flash_fwd_f32_tf32", "flash_bwd_bf16", "flash_bwd_f32_tf32", "paged",
         "paged_split"])
 def test_every_claimed_head_dim_is_instantiated_or_padded(table, route,
@@ -138,23 +136,26 @@ def test_every_claimed_head_dim_is_instantiated_or_padded(table, route,
 
 
 def test_routes_cover_every_multiple_of_16_up_to_their_widest():
-    assert fa._FWD_DIMS["f32"] == tuple(range(16, 257, 16))
+    assert set(fa._FWD_DIMS) == {"bf16_sm90", "f32_sm90"}
     assert fa._BWD_DIMS["f32"] == tuple(range(16, 193, 16))
     assert pa._DIMS == tuple(range(16, 257, 16))
     assert fa._FWD_DIMS["bf16_sm90"] == fa._BWD_DIMS["bf16_sm90"] == tuple(
         range(16, 129, 16))
-    assert fa._FWD_DIMS["f32_sm90"] == tuple(range(16, 113, 16))
+    assert fa._FWD_DIMS["f32_sm90"] == tuple(range(16, 257, 16))
     assert fa._BWD_DIMS["f32_sm90"] == tuple(range(16, 65, 16))
-    # float32 forward: past 112 the CUDA-core route, padded there too
+    # float32 forward: the 3xTF32 route at every D, padded past 112 too
     assert [fa.fwd_route(torch.float32, d) for d in (112, 113, 128, 256)] == [
-        "f32_sm90", "f32", "f32", "f32"]
+        "f32_sm90", "f32_sm90", "f32_sm90", "f32_sm90"]
     # float32 backward: past 64 the CUDA-core route
     assert [fa.bwd_route(torch.float32, d) for d in (48, 64, 65, 192)] == [
         "f32_sm90", "f32_sm90", "f32", "f32"]
     # K2: the split-K kernel at every head dim, both page dtypes
     assert {pa.route(dt, d) for dt in (torch.float32, torch.bfloat16)
             for d in pa._DIMS} == {"f32_split", "bf16_split"}
-    assert fa.head_dim_width("t", "f32", 120, fa._FWD_DIMS["f32"]) == 128
+    assert fa.head_dim_width("t", "f32_sm90", 120,
+                             fa._FWD_DIMS["f32_sm90"]) == 128
+    assert fa.head_dim_width("t", "f32_sm90", 250,
+                             fa._FWD_DIMS["f32_sm90"]) == 256
     # the padded route takes the rest: D = 40 -> 48, 100 -> 112, 8 -> 16
     assert [fa.head_dim_width("t", "bf16_sm90", d, fa._FWD_DIMS["bf16_sm90"])
             for d in (40, 100, 8, 96)] == [48, 112, 16, 96]
@@ -174,8 +175,7 @@ def test_cpu_calls_at_any_head_dim_take_the_plain_version(D):
                                    torch.zeros((1,), dtype=torch.int32))
     routes = kernels.launches_by_route()
     assert set(routes["flash_fwd"]) == {"bf16_sm90", "bf16_sm90_padded",
-                                        "f32_sm90", "f32_sm90_padded",
-                                        "f32", "f32_padded"}
+                                        "f32_sm90", "f32_sm90_padded"}
     assert set(routes["flash_bwd"]) == {"bf16_sm90", "bf16_sm90_padded",
                                         "f32_sm90", "f32_sm90_padded",
                                         "f32", "f32_padded"}
@@ -184,3 +184,26 @@ def test_cpu_calls_at_any_head_dim_take_the_plain_version(D):
         "f32", "f32_padded", "bf16", "bf16_padded"}
     assert all(set(r.values()) == {0} for r in routes.values())
     assert set(kernels.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("D,kv_len", [(128, 256), (200, 77), (256, 1),
+                                      (256, 0), (144, 1024), (112, 77),
+                                      (100, 1), (64, 0)])
+def test_flash_scratch_is_the_split_halves_up_to_112_and_none_past(D, kv_len):
+    """A float32 forward takes the 3xTF32 route at D rounded up to 16. Up
+    to 112 its scratch holds K's and V^T's tf32 hi and lo halves at that
+    width: 4 x B x H x kvp x w float32, kvp = kv_len rounded up to 8 (at
+    least 8). Past 112 (the wide kernel, which splits K and V in shared
+    memory) it takes none: the entry's scratch argument is a null
+    pointer."""
+    B, H = 2, 3
+    w = fa.head_dim_width("flash_fwd", fa.fwd_route(torch.float32, D), D,
+                          fa._FWD_DIMS["f32_sm90"])
+    assert fa.fwd_route(torch.float32, D) == "f32_sm90"
+    assert w == -(-D // 16) * 16
+    ws, extra = fa._kv_split("f32_sm90", B, H, kv_len, w, "cpu")
+    if w > 112:
+        assert ws is None and extra == (None,)
+        return
+    kvp = max(8, -(-kv_len // 8) * 8)
+    assert ws.numel() == 4 * B * H * kvp * w and extra == (ws.data_ptr(),)

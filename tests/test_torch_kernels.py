@@ -234,17 +234,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_flash_routes_by_dtype_one_kernel_each():
-    """bf16 goes to the tensor-core sources; float32 to the 3xTF32 sources
-    up to their widest head dims and to the CUDA-core ones past them;
-    every route's library is in the build list with its headers, and each
-    source exists."""
+    """bf16 goes to the tensor-core sources; float32 forwards to the 3xTF32
+    source at every head dim, float32 backwards to the 3xTF32 source up to
+    its widest head dim and to the CUDA-core one past it; every route's
+    library is in the build list with its headers, and each source exists;
+    the CUDA-core forward is gone."""
     from bigdl_tpu_torch.kernels import _build
     from bigdl_tpu_torch.kernels import flash_attention as fa
     assert {fa.bwd_route(torch.bfloat16, 64), fa.bwd_route(torch.float32, 64),
             fa.bwd_route(torch.float32, 80)} == {"bf16_sm90", "f32_sm90",
                                                   "f32"}
-    assert set(fa._FWD_FN) == {"bf16_sm90", "f32_sm90", "f32"}
-    assert set(fa._BWD_FN) == set(fa._FWD_FN)
+    assert set(fa._FWD_FN) == {"bf16_sm90", "f32_sm90"}
+    assert set(fa._BWD_FN) == {"bf16_sm90", "f32_sm90", "f32"}
+    assert "flash_fwd" not in _build.SOURCES
+    assert not (_build.CSRC / "flash_fwd.cu").exists()
     for table in (fa._FWD_FN, fa._BWD_FN):
         libs = {route: lib for route, (lib, _) in table.items()}
         assert libs["bf16_sm90"].endswith("_sm90")
@@ -294,20 +297,22 @@ def test_paged_route_is_the_split_kernel_for_every_head_dim(dt, d):
 
 @pytest.mark.parametrize("d", [8, 16, 40, 64, 100, 112, 113, 120, 128, 256])
 def test_flash_forward_route_by_dtype_and_head_dim(d):
-    """float32: 3xTF32 up to D = 112 (padded between its instantiations),
-    the CUDA cores past it; bf16: its tensor-core route at any D it
-    takes; the backward keeps one route a dtype."""
+    """float32: 3xTF32 at every D up to 256 (padded between its
+    instantiations; past 112 the wide kernel), with the scratch of K's and
+    V^T's halves at the call's width up to 112 and none past it; bf16: its
+    tensor-core route at any D it takes."""
     from bigdl_tpu_torch.kernels import flash_attention as fa
-    want = "f32_sm90" if d <= 112 else "f32"
+    want = "f32_sm90"
     assert fa.fwd_route(torch.float32, d) == want
     assert fa.fwd_route(torch.bfloat16, d) == "bf16_sm90"
     w = fa.head_dim_width("t", want, d, fa._FWD_DIMS[want])
     assert w >= d and w - d < 16
     kv, extra = fa._kv_split(want, 2, 3, 77, w, "cpu")
-    if want == "f32_sm90":
+    if w <= 112:
         assert kv.numel() == 4 * 2 * 3 * 80 * w and extra == (kv.data_ptr(),)
-    else:
-        assert kv is None and extra == ()
+    else:       # the wide kernel splits K and V in shared memory
+        assert kv is None and extra == (None,)
+    assert fa._kv_split("bf16_sm90", 2, 3, 77, w, "cpu") == (None, ())
 
 
 def test_cpu_flash_calls_count_no_launch_on_any_route():
@@ -316,11 +321,14 @@ def test_cpu_flash_calls_count_no_launch_on_any_route():
     conv = fused
     flash = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32_sm90": 0,
              "f32_sm90_padded": 0, "f32": 0, "f32_padded": 0}
+    flash_fwd_routes = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32_sm90": 0,
+                        "f32_sm90_padded": 0}
     paged = {"f32_split": 0, "f32_split_padded": 0, "bf16_split": 0,
              "bf16_split_padded": 0, "f32": 0, "f32_padded": 0, "bf16": 0,
              "bf16_padded": 0}
     assert kernels.launches_by_route() == {
-        "flash_fwd": flash, "flash_bwd": flash, "paged_attention": paged,
+        "flash_fwd": flash_fwd_routes, "flash_bwd": flash,
+        "paged_attention": paged,
         "fused_matmul_fwd": fused, "fused_matmul_bwd": fused,
         "fused_chain_fwd": fused, "fused_chain_bwd": fused,
         "fused_conv_fwd": conv}

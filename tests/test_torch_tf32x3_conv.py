@@ -6,6 +6,10 @@ kernel ``fused_bn_relu_conv3x3`` run in interpret mode.
 The kernel is an implicit GEMM: output pixels are rows, the contraction
 runs over the 9 C (tap, channel) pairs in the HWIO weight's row order, and
 each 32-deep chunk of it is one tap and 32 channels (C a multiple of 32).
+The ragged route (``csrc/fused_conv.cu``, any C) runs the same core over
+a tap-major contraction whose taps are padded with zero channels to Cp, C
+rounded up to 32, so that a chunk is still one tap: the model pads the
+gathered rows and the weight alike.
 For each chunk it gathers the shifted input pixels, applies relu(x * a +
 b) in float32 (each operation rounded), sets a tap that lies in the zero
 padding to 0 after that prologue (not relu(b)), splits the values and the
@@ -44,16 +48,29 @@ def gather9(x, a, b, stride):
     return torch.cat(taps, -1).reshape(B * H2 * W2, 9 * C), (B, H2, W2)
 
 
+def pad_taps(m, C, Cp, axis):
+    """m with its 9 C (tap, channel) columns (axis 1) or rows (axis 0)
+    zero-padded tap by tap to 9 Cp."""
+    t = m.reshape(m.shape[0], 9, C) if axis == 1 else m.reshape(9, C, -1)
+    pad = (0, Cp - C) if axis == 1 else (0, 0, 0, Cp - C)
+    t = torch.nn.functional.pad(t, pad)
+    return t.reshape(m.shape[0], 9 * Cp) if axis == 1 else t.reshape(
+        9 * Cp, -1)
+
+
 def conv_model(x, w, a, b, stride, passes=3):
-    """(z, s1, s2) as the 3xTF32 kernel computes them (passes=3), or with
-    one TF32 pass (hi hi alone, passes=1)."""
+    """(z, s1, s2) as the 3xTF32 kernels compute them (passes=3), or with
+    one TF32 pass (hi hi alone, passes=1): C a multiple of 32 as the
+    aligned kernel (Cp = C), any other C as the ragged one (each tap's
+    channels padded to Cp, the next multiple of 32)."""
     C, N = x.shape[3], w.shape[3]
-    assert C % CHUNK == 0          # a chunk of the contraction is one tap
+    Cp = -(-C // CHUNK) * CHUNK    # a chunk of the contraction is one tap
     A, (B, H2, W2) = gather9(x, a, b, stride)
-    W9 = w.reshape(9 * C, N)
+    A = pad_taps(A, C, Cp, 1)
+    W9 = pad_taps(w.reshape(9 * C, N), C, Cp, 0)
     (ah, al), (bh, bl) = split(A), split(W9)
     z = torch.zeros(A.shape[0], N)
-    for k in range(0, 9 * C, CHUNK):
+    for k in range(0, 9 * Cp, CHUNK):
         s = slice(k, k + CHUNK)
         if passes == 3:
             part = al[:, s] @ bh[s] + ah[:, s] @ bl[s] + ah[:, s] @ bh[s]
@@ -85,6 +102,8 @@ CASES = [
     (2, 9, 64, 40, 2, 1.0),     # stride 2, odd H
     (1, 6, 32, 36, 1, None),
     (1, 8, 96, 32, 2, 2.0),
+    (2, 8, 50, 50, 1, 1.0),     # the ragged route: taps padded 50 -> 64
+    (2, 7, 20, 13, 2, None),    # ... 20 -> 32, N odd, stride 2
 ]
 
 

@@ -2,12 +2,17 @@
 forward on the tensor cores (``csrc/flash_fwd_tf32_sm90.cu``), held against
 the JAX package's Pallas kernel run in interpret mode.
 
-Per key tile (64 keys, 32 past D = 64) the kernel takes S = Q K^T as three
-tf32 products of the hi / lo halves (``tests/test_torch_tf32x3.py``'s
-``tf32_rn`` and ``split``), the online softmax (m, l) in float32 with
+Per key tile (64 keys, 32 past D = 64; the wide kernel past D = 112: 32
+keys at D = 128, 16 up to 192, 8 past it) the kernel takes S = Q K^T as
+three tf32 products of the hi / lo halves (``tests/test_torch_tf32x3.py``'s
+``tf32_rn`` and ``split``; the wide kernel sums them per 64 columns of D
+and adds those sums to S in float32, in order), the online softmax (m, l)
+in float32 with
 exp2, P split into hi and lo in registers and P V as three products into a
 fresh sum that joins the output as acc = acc * alpha + tile (the promotion
-that keeps the tensor cores' accumulation from drifting). V^T holds each
+that keeps the tensor cores' accumulation from drifting; the wide kernel
+does it per slice of at most 64 output columns, which the model's
+elementwise acc * alpha + tile already is: each column's sum is its own). V^T holds each
 group of 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7, so that the S
 accumulator's registers are P's A fragment without a shuffle; the model
 takes P V through that order, and one test builds the fragment from an
@@ -42,7 +47,29 @@ def vt_pos(k):
 
 
 def _tile(d):
-    return 64 if d <= 64 else 32
+    """Keys a tile: the D <= 112 kernel 64 up to D = 64, else 32; the wide
+    kernel as many as a raw 128-row Q tile, two split sets of K and V^T
+    halves and one raw K / V stage in a block's 227 KB let it (32 at D =
+    128, 16 up to 192, 8 past it)."""
+    if d <= 112:
+        return 64 if d <= 64 else 32
+    return 32 if d <= 128 else 16 if d <= 192 else 8
+
+
+def _qk(qh, ql, kh, kl, passes):
+    """S of one key tile: the D <= 112 kernel sums the products over all
+    of D at once; the wide kernel promotes a fresh sum per 64 columns of D
+    into S with float32 adds."""
+    D = qh.shape[-1]
+    blocks = [slice(0, D)] if D <= 112 else [
+        slice(c, c + 64) for c in range(0, D, 64)]
+    s = None
+    for b in blocks:
+        kbh, kbl = kh[..., b].transpose(2, 3), kl[..., b].transpose(2, 3)
+        part = (_three(qh[..., b], ql[..., b], kbh, kbl) if passes == 3
+                else qh[..., b] @ kbh)
+        s = part if s is None else s + part
+    return s
 
 
 def _three(ah, al, bh, bl):
@@ -72,10 +99,7 @@ def flash_model(q, k, v, causal, q_offset=0, kv_len=None, passes=3):
         kt = k[:, :, j0:j0 + bk]
         vt = v[:, :, [j0 + i for i in order]].transpose(2, 3)
         kh, kl = split(kt)
-        if passes == 3:
-            s = _three(qh, ql, kh.transpose(2, 3), kl.transpose(2, 3))
-        else:
-            s = qh @ kh.transpose(2, 3)
+        s = _qk(qh, ql, kh, kl, passes)
         cols = j0 + torch.arange(bk)
         keep = cols[None, :] < kv_len
         if causal:
@@ -139,6 +163,12 @@ CASES = [
     (1, 2, 40, 40, 16, True, 0, None),
     (1, 2, 70, 70, 96, True, 0, None),        # 32-key tiles past D = 64
     (1, 1, 8, 1024, 64, False, 0, None),      # rows of 1024 keys
+    # the wide kernel: 32-key tiles at D = 128, 16 at 160, 8 at 256
+    (1, 2, 70, 70, 128, True, 0, None),
+    (1, 2, 32, 160, 128, True, 96, 128),      # a chunk at D = 128
+    (1, 2, 40, 40, 256, True, 0, None),
+    (1, 2, 50, 90, 160, False, 0, None),
+    (1, 1, 24, 300, 256, False, 0, None),
 ]
 
 
