@@ -2,9 +2,10 @@
 // (flash_fwd_tf32_sm90.cu, flash_bwd_tf32_sm90.cu), over the 3xTF32 core of
 // fused_gemm_tf32_sm90.cuh (tf32_rn, split, the register-A wgmma at N = 64
 // and 128): the shared-memory wgmma (both operands K-major), the register-A
-// wgmma at the other head dims, the byte offset of a float32 element in a
+// wgmma at the other widths, the byte offset of a float32 element in a
 // TMA-swizzled box, the order vt_pos of a transposed operand whose
-// contraction runs over keys or queries, and the host's 3-D tensor maps of
+// contraction runs over keys or queries, the column slices of a wide
+// product, a named barrier's arrival, and the host's 3-D tensor maps of
 // float32 arrays.
 //
 // The A fragment of a tf32 register-A wgmma takes columns (q, q + 4) of each
@@ -15,6 +16,8 @@
 // 7 (vt_pos) makes an accumulator's registers {d0, d2, d1, d3} of slice kk
 // the A fragment of k8 slice kk, with no shuffle.
 #pragma once
+
+#include <utility>
 
 #include "fused_gemm_tf32_sm90.cuh"
 
@@ -48,8 +51,9 @@ __device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t da, u
 }
 
 // register-A products (wgmma_tf32, declared in fused_gemm_tf32_sm90.cuh with
-// N = 64 and 128) at the other head dims, and at N = 8 (the wide forward's
-// S over 8-key tiles)
+// N = 64 and 128) at the other head dims and half head dims (the wide
+// backward's dQ columns), and at N = 8 (the wide forward's S over 8-key
+// tiles)
 template <>
 __device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t db,
                                                  int keep) {
@@ -81,6 +85,16 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&
 }
 
 template <>
+__device__ __forceinline__ void wgmma_tf32<40>(float (&d)[20], const uint32_t (&a)[4], uint64_t db,
+                                                  int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
                                                   int keep) {
   asm volatile(
@@ -91,12 +105,42 @@ __device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&
 }
 
 template <>
+__device__ __forceinline__ void wgmma_tf32<56>(float (&d)[28], const uint32_t (&a)[4], uint64_t db,
+                                                  int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<72>(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+                                                  int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
                                                   int keep) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<88>(float (&d)[44], const uint32_t (&a)[4], uint64_t db,
+                                                  int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, {%44, %45, %46, %47}, %48, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(keep));
 }
 
@@ -127,6 +171,26 @@ template <int SW>
 __device__ __forceinline__ int swz_f32(int r, int c) {
   const int off = r * SW + 4 * c;
   return off ^ ((off >> 3) & (SW == 128 ? 0x70 : SW == 64 ? 0x30 : 0x10));
+}
+
+// the output columns [C0, C0 + N) of one slice of a wide product, as a type
+template <int N, int C0>
+struct PvCols {
+  static constexpr int value = N;
+  static constexpr int c0 = C0;
+};
+
+// f(PvCols<64, 64 s>{}) for s = 0, 1, ... in order
+template <class F, int... S>
+__device__ __forceinline__ void for_each_slice(std::integer_sequence<int, S...>, F&& f) {
+  (f(PvCols<64, 64 * S>{}), ...);
+}
+
+// arrives at named barrier `id` over `n` threads without waiting (the
+// waiting side calls bar_sync): orders this thread's shared-memory writes
+// before the waiters' reads
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // position of key k inside its group of 8 in V^T: keys 0, 2, 4, 6 first, then

@@ -1,5 +1,5 @@
-// Shared core of the CUDA-core attention kernels (paged_attention.cu;
-// flash_bwd.cu and paged_attention_sm90.cu use parts of it): one 256-thread
+// Shared core of the CUDA-core attention kernel paged_attention.cu
+// (paged_attention_sm90.cu uses parts of it): one 256-thread
 // block owns R = 256 / TPR query rows, TPR lanes per row, and streams
 // 64-key K/V tiles through shared memory with a float32 online softmax (m,
 // l, acc) kept in registers.

@@ -14,7 +14,7 @@
 // rounded to bf16 before their products, where JAX rounds them
 // (flash_attention.py:215, :218, :256). There are no atomics: reruns give
 // bitwise-equal gradients. float32 inputs take flash_bwd_tf32_sm90.cu (D up
-// to 64) or the CUDA-core kernels of flash_bwd.cu.
+// to 192).
 //
 // What bounds it on an H100: the seven products per tile pair (two for S and
 // dP in each kernel, dV and dK in the first, dQ in the second) do 14 * D

@@ -9,8 +9,8 @@
 // sits at global position q_offset + r and sees keys <= q_offset + r), over
 // the first kv_len keys only; o (B, H, Tq, D) and the per-row log-sum-exp
 // lse (B, H, Tq) in float32; rows that see no key give o = 0 and lse =
-// -inf. The float32 backward (flash_bwd_tf32_sm90.cu, or flash_bwd.cu past
-// D = 64) reads o and lse as they are.
+// -inf. The float32 backward (flash_bwd_tf32_sm90.cu, D up to 192) reads o
+// and lse as they are.
 //
 // What bounds it on an H100: 4 D operations per (row, visible key) pair, run
 // three times as tf32 products (495 TF/s dense, so 165 TF/s of float32
@@ -74,8 +74,6 @@
 // producer (up to D = 112 one working thread, registers given back with
 // setmaxnreg; past it all 128 threads split K and V, on 40 registers),
 // warpgroups 1 and 2 the consumers.
-#include <utility>
-
 #include "attn_tf32_sm90.cuh"
 
 namespace bigdl_fg {
@@ -414,19 +412,6 @@ struct WideCfg {
   // every tile starts on its swizzle's repeat (8 rows)
   static_assert(K_BYTES % (8 * SW) == 0 && V_BYTES % (8 * SWV) == 0, "tile alignment");
 };
-
-// the output columns [C0, C0 + N) of one P V slice, as a type
-template <int N, int C0>
-struct PvCols {
-  static constexpr int value = N;
-  static constexpr int c0 = C0;
-};
-
-// f(PvCols<64, 64 s>{}) for s = 0, 1, ... in order
-template <class F, int... S>
-__device__ __forceinline__ void for_each_slice(std::integer_sequence<int, S...>, F&& f) {
-  (f(PvCols<64, 64 * S>{}), ...);
-}
 
 template <int D>
 __global__ void __launch_bounds__(384, 1)

@@ -17,10 +17,12 @@ Replaces the Pallas kernels of ``bigdl_tpu/kernels/flash_attention.py``:
   and V tiles in shared memory, Q stays raw there and is split in
   registers, and P V runs in slices of at most 64 output columns;
   :func:`fwd_route`),
-  backwards with D up to 64 ``csrc/flash_bwd_tf32_sm90.cu`` (the streamed
-  tiles split and transposed in shared memory; :func:`bwd_route`);
-- ``"f32"``: wider float32 backwards take the CUDA-core kernels of
-  ``csrc/flash_bwd.cu`` (float32 FMAs).
+  every backward (D up to 192) ``csrc/flash_bwd_tf32_sm90.cu`` (the
+  streamed tiles split and transposed in shared memory; up to D = 64 a
+  block owns 128 keys or queries, their K and V (or Q and dO) halves in
+  shared memory; past it 64, kept raw and split in registers, and the
+  block's two consumer warpgroups share out the products: S and P with
+  dV, dP and dS with dK, half of dQ's columns each; :func:`bwd_route`).
 
 Each source's header note says what bounds it on an H100 and what the design
 does about it. Besides ``<wrapper>.launches``, each wrapper counts its
@@ -31,9 +33,8 @@ Head dims: each route's kernels are instantiated for the widths in
 between them goes to the next wider one with q, k, v (and dO)
 zero-padded and the scale of the true D (:func:`head_dim_width`), which is
 exact: zero columns add nothing to q.k and give zero output columns. Such
-calls count under ``"<route>_padded"``. A float32 backward call past the
-3xTF32 kernel's widest D takes the CUDA-core route; a D past a route's
-widest raises.
+calls count under ``"<route>_padded"``. A D past a route's widest
+raises.
 
 :func:`flash_fwd` and :func:`flash_bwd` are the wrappers: tensors on the CPU
 take :func:`flash_fwd_reference` / :func:`flash_bwd_reference`, the plain
@@ -61,36 +62,31 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _FWD_FN = {"bf16_sm90": ("flash_fwd_sm90", "bigdl_flash_fwd_sm90"),
            "f32_sm90": ("flash_fwd_tf32_sm90", "bigdl_flash_fwd_tf32_sm90")}
 _BWD_FN = {"bf16_sm90": ("flash_bwd_sm90", "bigdl_flash_bwd_sm90"),
-           "f32_sm90": ("flash_bwd_tf32_sm90", "bigdl_flash_bwd_tf32_sm90"),
-           "f32": ("flash_bwd", "bigdl_flash_bwd")}
+           "f32_sm90": ("flash_bwd_tf32_sm90", "bigdl_flash_bwd_tf32_sm90")}
 # the head dims each route's kernels are instantiated for: every multiple
 # of 16, up to 128 on the bf16 tensor cores (the accumulators of wider rows
 # would not fit the consumers' registers), up to 256 for the 3xTF32 forward
 # (past 112 Q stays raw in shared memory and the key tiles narrow to 16 or
 # 8 keys, so that a raw 128-row Q tile, two split stages of K and V^T halves
 # and a raw K / V stage fit; P V in slices of at most 64 columns keeps the
-# float32 row of 256 in registers) and 64 for the 3xTF32 backward (the hi
-# and lo halves of 128
-# rows of K and V, the split and transposed set of a 32-row tile and two
-# raw stages fill a block's shared memory), and on the CUDA cores as far
-# as their float32 tiles fit in shared memory (the backward keeps four
-# 64-row tiles of D + 1 floats)
+# float32 row of 256 in registers) and 192 for the 3xTF32 backward (past
+# 64 a block's 64 raw rows of K and V, or Q and dO, the split and
+# transposed set of a streamed tile narrowed to 16 rows and its raw stage
+# fill a block's shared memory at D = 192)
 _FWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
              "f32_sm90": tuple(range(16, 257, 16))}
 _BWD_DIMS = {"bf16_sm90": tuple(range(16, 129, 16)),
-             "f32_sm90": tuple(range(16, 65, 16)),
-             "f32": tuple(range(16, 193, 16))}
+             "f32_sm90": tuple(range(16, 193, 16))}
 _PADDED = "_padded"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_void_p])
 _SPLIT_KEYS = 8    # the 3xTF32 scratch holds kv_len keys rounded up to 8
 _SPLIT_WIDEST = 112   # the widest D of the 3xTF32 forward that takes it
-_F32_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_void_p])
 _BWD_ARGTYPES = {
     "bf16_sm90": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                   + [ctypes.c_float, ctypes.c_void_p]),
-    "f32_sm90": _F32_BWD_ARGTYPES, "f32": _F32_BWD_ARGTYPES}
+    "f32_sm90": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_void_p])}
 
 
 def flash_fwd_reference(q, k, v, causal: bool = False, q_offset: int = 0,
@@ -150,12 +146,9 @@ def fwd_route(dtype, d: int) -> str:
 
 def bwd_route(dtype, d: int) -> str:
     """K1-bwd's route for a call with head dim ``d``: bfloat16 ->
-    ``"bf16_sm90"``; float32 -> ``"f32_sm90"`` (3xTF32) up to the widest
-    head dim that kernel is instantiated for, else ``"f32"`` (the CUDA
-    cores)."""
-    if dtype == torch.bfloat16:
-        return "bf16_sm90"
-    return "f32_sm90" if d <= _BWD_DIMS["f32_sm90"][-1] else "f32"
+    ``"bf16_sm90"``; float32 -> ``"f32_sm90"`` (3xTF32) at every head dim
+    (past its widest, 192, :func:`head_dim_width` raises)."""
+    return "bf16_sm90" if dtype == torch.bfloat16 else "f32_sm90"
 
 
 def _kv_split(route, B, H, kv_len, w, device):

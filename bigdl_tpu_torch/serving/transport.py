@@ -309,9 +309,9 @@ class TransportServer:
             t = threading.Thread(
                 target=self._conn_loop, args=(conn,),
                 name=f"{THREAD_PREFIX}-conn[{self.name}]", daemon=True)
-            with self._lock:
+            with self._lock:   # close() joins only started threads
                 self._threads.append(t)
-            t.start()
+                t.start()
 
     def _conn_loop(self, conn: _Conn):
         try:
@@ -387,7 +387,9 @@ class TransportServer:
             except OSError:
                 pass
         me = threading.current_thread()
-        for t in list(self._threads):
+        with self._lock:
+            threads = list(self._threads)
+        for t in threads:
             if t is not me:   # a handler may close its own server
                 t.join(5.0)
         if self._accept_thread is not None and self._accept_thread is not me:

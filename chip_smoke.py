@@ -20,16 +20,21 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    their routes (bf16: the tensor-core kernels; float32: in 3xTF32 on the
    tensor cores, the forward at every D up to 256 - past D = 112 the wide
    kernel, Q raw in shared memory and P V in slices - and the backward up
-   to D = 64, past it on the CUDA cores) at ragged T, D = 32/64/128, the
-   chunk form and kv_len = 0, the backward also in the ring form (external
-   delta, float32 gradients) and for bitwise-equal reruns; the float32
-   forward and backward timed at (8,16,256,64) and (2,16,1024,64) on
-   3xTF32 (the backward also on the CUDA-core route), the wide forward at
-   (8,16,256,D) for D = 128, 192 and 256, causal, and in the chunk form at
-   D = 128, and checked non-causal and in the chunk form at each of those
-   D, and the backward at D = 96 on the CUDA cores; then one float32
-   forward of a 2-layer TransformerLM at the flagship's widths with 8
-   heads (D = 128) against the CPU, its flash launches two on ``f32_sm90``;
+   to D = 192 - past D = 64 the wide pair, 64 raw fixed rows a block and
+   the products shared out between its two consumer warpgroups) at ragged
+   T, D = 32/64/128, the chunk form and kv_len = 0, the backward also in
+   the ring form (external delta, float32 gradients, at D = 64, 128 and a
+   padded 100) and for bitwise-equal reruns; the float32 forward and
+   backward timed at (8,16,256,64) and (2,16,1024,64) on 3xTF32, the wide
+   forward at (8,16,256,D) for D = 128, 192 and 256, causal, and in the
+   chunk form at D = 128, and checked non-causal and in the chunk form at
+   each of those D, and the wide backward timed at (8,8,256,D) for D = 96,
+   128 and 192, causal; then one float32 forward of a 2-layer
+   TransformerLM at the flagship's widths with 8 heads (D = 128) against
+   the CPU, its flash launches two on ``f32_sm90``, and one training step
+   of it (forward, ``lm_loss_chunked``, ``torch.autograd.grad``) against
+   the CPU, two ``flash_fwd`` and two ``flash_bwd`` launches on
+   ``f32_sm90``;
    K2 (split-K, ``paged_attention_sm90``)
    at decode in float32 and bf16 pages, at positions up to 4096, in the
    chunk form (S = 32) and at the speculative verify (B8, S = 5), each
@@ -38,9 +43,9 @@ It builds the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` and then:
    position 0, a table one split wide and bitwise-equal reruns; then
    every other head dim the attention kernels are instantiated for (each
    multiple of 16 up to 128 on the bf16 flash kernels, up to 256 on the
-   float32 forward's 3xTF32 route and on K2, up to 64 on the float32
-   backward's 3xTF32 route and 192 on its CUDA-core route) and their
-   padded route (a D not a multiple of 16),
+   float32 forward's 3xTF32 route and on K2, up to 192 on the float32
+   backward's, causal and, past 64, non-causal) and their padded route (a
+   D not a multiple of 16),
    with the launches by route, and the bf16 flash pair timed at D = 96
    (hidden 768, 8 heads) at the training shape. The fused ResNet kernels
    are checked on all four routes (bf16 and float32 in 3xTF32 on the
@@ -487,7 +492,8 @@ launches of the five remat-off training steps, ``flash_bwd`` likewise,
 ``flash_fwd_chunk`` with the ``prefill_chunked`` launches, the ``_f32``
 rows at the ``LocalOptimizer`` shape with its launches by route, the
 wide 3xTF32 forward's row (``flash_fwd_f32_wide``) at D = 128 with the
-D = 128 LM forward's launches, the CUDA-core backward's at D = 96; K2's rows at
+D = 128 LM forward's and training step's launches, the wide backward's
+(``flash_bwd_f32_wide``) at D = 128 with the training step's; K2's rows at
 the decode and long decode cases with the serving launches by route, its
 verify row with the verify launches (S = 5) of phase 9's two speculative
 runs, and the unsplit kernel's row at the decode case; the fused ResNet kernels at
@@ -505,8 +511,7 @@ ones on the ``_f32`` rows and its validation's on the ``_eval`` rows;
 ``flash_fwd_moe`` / ``flash_bwd_moe`` at the MoE LM's shape with phase
 17's training launches, and its ``generate`` launches on ``flash_fwd``);
 the flash, K3, K4 and K5 rows carry their
-``dtype_route``, the 3xTF32 flash backward rows their CUDA-core route's
-``cuda_core_ms``, K4's aligned float32 row its ragged route's
+``dtype_route``, K4's aligned float32 row its ragged route's
 ``ragged_ms``);
 phase 18's float32 K1 / K3 / K4 / K5 launches on the ``_f32`` rows;
 phase 19's K1 launches, both ranks, on ``flash_fwd`` / ``flash_bwd``
@@ -666,9 +671,8 @@ def bound(nbytes, flops, dtype, route=None):
     """(bound ms, 'bytes' | 'operations'): the larger of the two times. The
     3xTF32 route (``f32_sm90``; K3's, K4's and K5's ``f32`` too, whose
     callers pass ``f32_sm90``) runs three tf32 products for each float32
-    one, so its operations count three times at the tf32 rate; other
-    float32 work (the flash backward's ``f32``) counts at the CUDA cores'
-    float32 rate."""
+    one, so its operations count three times at the tf32 rate; other work
+    counts at its dtype's peak rate."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
     if route == "f32_sm90":
         t_ops = 3 * flops / TF32_FLOPS * 1e3
@@ -678,21 +682,6 @@ def bound(nbytes, flops, dtype, route=None):
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
-
-@contextlib.contextmanager
-def cuda_core_bwd(torch):
-    """float32 flash backward calls on the CUDA-core route (csrc/flash_bwd.cu:
-    float32 FMAs, the route of head dims past the 3xTF32 kernel's widest,
-    and of every float32 call before it), at any head dim it takes."""
-    from bigdl_tpu_torch.kernels import flash_attention as fa
-    rule = fa.bwd_route
-    fa.bwd_route = lambda dtype, d: (
-        "f32" if dtype == torch.float32 else rule(dtype, d))
-    try:
-        yield
-    finally:
-        fa.bwd_route = rule
-
 
 @contextlib.contextmanager
 def unsplit_paged():
@@ -858,10 +847,6 @@ def bwd_case(torch, K, B, H, T, D, dtype, causal, timed, ring=False):
             out, (qg, kg, vg), do, retain_graph=True)),
         bound_ms=bound_ms, bound_by=bound_by)
     if rec["route"] == "f32_sm90":
-        with cuda_core_bwd(torch):
-            rec["cuda_core_ms"] = graph_ms(torch, lambda i: K.flash_bwd(
-                q, k, v, o, lse, do, causal), 1, reps=5, iters=5)
-            rec["cuda_core_bound_ms"] = bound(nbytes, flops, dtype)[0]
         rec["launch_ms"] = launch_ms(torch, lambda: K.flash_bwd(
             q, k, v, o, lse, do, causal))
     print(f"  K1-bwd timing {rec}", flush=True)
@@ -910,6 +895,71 @@ def wide_head_lm(torch, K, B=2, T=256):
           and {n: c for n, c in counts.items() if c} == {"flash_fwd": 2},
           f"the D = 128 LM forward launched {rec['routes']} / {counts}: "
           f"expected flash_fwd twice on f32_sm90 (one a layer)")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def wide_head_step(torch, K, B=2, T=256):
+    """One float32 training step of wide_head_lm's model (2 layers at the
+    flagship's widths, 8 heads, D = 128): hidden_states in training mode,
+    lm_loss_chunked(chunk=128), torch.autograd.grad of every parameter, on
+    the card and on the CPU from the same weights and tokens. The loss
+    within CPU_TOL of the CPU's; every parameter's gradient within CPU_TOL
+    of its largest |gradient| on the CPU (float32 with TF32 off on both
+    sides, sums taken in other orders: the CPU's float32 step reads within
+    2e-6 of a float64 one at this shape); launches counted from 0 just
+    before the step: exactly one flash_fwd and one flash_bwd a layer, on
+    ``f32_sm90``, and no other kernel."""
+    from bigdl_tpu_torch.convert import flatten
+    from bigdl_tpu_torch.models import TransformerLM, lm_loss_chunked
+    cfg = dict(FLAGSHIP, num_heads=8, num_layers=2)
+    cpu = TransformerLM(**cfg, device="cpu", seed=27)
+    gpu = TransformerLM(**cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.RandomState(28).randint(
+        0, cfg["vocab_size"], (B, T + 1)).astype(np.int64))
+    out = {}
+    for m, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        x, y = tokens[:, :-1].to(dev), tokens[:, 1:].to(dev)
+        leaves = flatten(m.params)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+        h = m.hidden_states(m.params, x, training=True)
+        loss = lm_loss_chunked(h, m.params["embed"], y, chunk=128)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            routes = K.launches_by_route()
+            counts = K.launch_counts()
+        out[dev] = (loss.item(), {k: g.float().cpu()
+                                  for k, g in zip(leaves, grads)})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    errs = {k: float((gg[k] - gc[k]).abs().max())
+            / max(float(gc[k].abs().max()), 1e-30) for k in gc}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    rec = {"shape": [B, T], "head_dim": cfg["hidden_size"] // 8,
+           "loss": lg, "loss_cpu": lc, "loss_err": abs(lg - lc),
+           "grad_err_worst3": worst, "tol": CPU_TOL,
+           "routes": {n: {r: c for r, c in routes[n].items() if c}
+                      for n in ("flash_fwd", "flash_bwd")},
+           "launches": {n: c for n, c in counts.items() if c}}
+    print(f"  K1 wide-head LM training step {rec}", flush=True)
+    check(math.isfinite(lg) and all(torch.isfinite(g).all().item()
+                                    for g in gg.values()),
+          f"the D = 128 LM step: loss {lg} or a gradient not finite")
+    check(abs(lg - lc) <= CPU_TOL * max(1.0, abs(lc)),
+          f"the D = 128 LM step's loss {lg} from the CPU's {lc}")
+    check(worst[0][1] <= CPU_TOL, f"the D = 128 LM step's gradients from "
+          f"the CPU's (error over the leaf's largest |gradient|, tolerance "
+          f"{CPU_TOL}): {worst}")
+    check(rec["routes"] == {"flash_fwd": {"f32_sm90": 2},
+                            "flash_bwd": {"f32_sm90": 2}}
+          and rec["launches"] == {"flash_fwd": 2, "flash_bwd": 2},
+          f"the D = 128 LM step launched {rec['routes']} / "
+          f"{rec['launches']}: expected flash_fwd and flash_bwd twice each "
+          f"on f32_sm90 (one a layer)")
     del cpu, gpu
     torch.cuda.empty_cache()
     return rec
@@ -9764,14 +9814,16 @@ def main():
           f"float32 flash routes {k1_f32['route']}, {k1_f32_long['route']}, "
           f"{ {d: r['route'] for d, r in k1_wide.items()} }: expected "
           f"f32_sm90 at every D")
-    # a user's path to the wide kernel: a float32 LM at the flagship's
-    # widths with 8 heads (D = 128)
+    # a user's path to the wide kernels: a float32 LM at the flagship's
+    # widths with 8 heads (D = 128), a forward and a training step
     k1_lm = wide_head_lm(torch, K)
+    k1_step = wide_head_step(torch, K)
     # K1-bwd: bf16 at the training shape, ragged T, D = 32 and 128, the
     # ring form (external delta, float32 gradients); float32 beside: the
-    # 3xTF32 route (D <= 64) timed at phase 6's shape and at T = 1024 (each
-    # also on the CUDA-core route), ragged and non-causal, the ring form,
-    # and D = 96 past its widest (the CUDA-core route, timed)
+    # 3xTF32 route timed at phase 6's shape and at T = 1024 (D = 64, the
+    # narrow pair) and at (8,8,256,D) for D = 96, 128 and 192 (the wide
+    # pair), ragged and non-causal, the ring form at D = 64, 128 and 100
+    # (padded)
     k1b_main = bwd_case(torch, K, 16, 16, 1024, 64, bf, True, timed=True)
     k1b_f32 = bwd_case(torch, K, 8, 16, 256, 64, f32, True, timed=True)
     k1b_f32_long = bwd_case(torch, K, 2, 16, 1024, 64, f32, True, timed=True)
@@ -9784,12 +9836,17 @@ def main():
     bwd_case(torch, K, 2, 8, 200, 128, f32, True, False)
     bwd_case(torch, K, 4, 16, 300, 64, bf, False, False, ring=True)
     bwd_case(torch, K, 4, 16, 300, 64, f32, True, False, ring=True)
-    k1b_f32_wide = bwd_case(torch, K, 8, 8, 256, 96, f32, True, timed=True)
-    check(k1b_f32["route"] == k1b_f32_long["route"] == "f32_sm90"
-          and k1b_f32_wide["route"] == "f32",
+    bwd_case(torch, K, 4, 8, 300, 128, f32, True, False, ring=True)
+    bwd_case(torch, K, 2, 4, 77, 100, f32, True, False, ring=True)
+    bwd_case(torch, K, 4, 8, 100, 128, f32, False, False)
+    k1b_wide = {D: bwd_case(torch, K, 8, 8, 256, D, f32, True, timed=True)
+                for D in (96, 128, 192)}
+    check(all(r["route"] == "f32_sm90" for r in (
+        k1b_f32, k1b_f32_long, *k1b_wide.values())),
           f"float32 flash backward routes {k1b_f32['route']}, "
-          f"{k1b_f32_long['route']}, {k1b_f32_wide['route']}: expected "
-          f"f32_sm90 at D = 64, f32 at 96")
+          f"{k1b_f32_long['route']}, "
+          f"{ {d: r['route'] for d, r in k1b_wide.items()} }: expected "
+          f"f32_sm90 at every D")
     # K2 (split-K) at the decode shape in float32 and bf16 pages and at
     # positions up to 4096, timed with the kernel it succeeds; the chunk
     # form (S = 32); GQA; a table one split wide (no combine kernel)
@@ -9815,10 +9872,10 @@ def main():
           f"K2 decode case launched {k2_main['launch_ms']}")
     # head dims: every instantiation the first cases left out (each
     # multiple of 16 up to 128 on the bf16 flash kernels, up to 256 on the
-    # float32 flash forward's 3xTF32 route and on K2, up to 64 on the
-    # float32 backward's 3xTF32 route and up to 192 on its CUDA-core route)
-    # and the padded route of each kernel (a D not a multiple of 16), each
-    # against its plain version; then the launches by route
+    # float32 flash forward's 3xTF32 route and on K2, up to 192 on the
+    # float32 backward's, causal and, past 64, non-causal too) and the
+    # padded route of each kernel (a D not a multiple of 16), each against
+    # its plain version; then the launches by route
     K.reset_launch_counts()
     new_dims = [d for d in range(16, 257, 16) if d not in (32, 64, 128)]
     for D in new_dims:
@@ -9826,6 +9883,8 @@ def main():
         paged_case(torch, K, 4, 8, 4, 1, D, 16, f32, False)
         if D <= 192:
             bwd_case(torch, K, 2, 4, 77, D, f32, True, False)
+        if 64 < D <= 192:
+            bwd_case(torch, K, 2, 4, 77, D, f32, False, False)
         if D <= 128:
             flash_case(torch, K, 2, 4, 77, 77, D, bf, True, 0, 77, False)
             bwd_case(torch, K, 2, 4, 77, D, bf, True, False)
@@ -9839,23 +9898,24 @@ def main():
     n_f32 = len(new_dims)
     n_bwd = len([d for d in new_dims if d <= 192])
     n_bf = len([d for d in new_dims if d <= 128])
-    n_tcb = len([d for d in new_dims if d <= 64])
+    n_wide = len([d for d in new_dims if 64 < d <= 192])
     # float32: flash_case launches the forward once, bwd_case the forward
-    # once (3xTF32 at every D) and the backward twice (the rerun check,
-    # 3xTF32 up to D = 64); paged_case launches K2 twice (the rerun check)
+    # once and the backward twice (the rerun check), both on 3xTF32 at
+    # every D; paged_case launches K2 twice (the rerun check)
     hd_want = {
         "flash_fwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
-                      "f32_sm90": n_f32 + n_bwd, "f32_sm90_padded": 2},
+                      "f32_sm90": n_f32 + n_bwd + n_wide,
+                      "f32_sm90_padded": 2},
         "flash_bwd": {"bf16_sm90": 2 * n_bf, "bf16_sm90_padded": 2,
-                      "f32_sm90": 2 * n_tcb, "f32_sm90_padded": 2,
-                      "f32": 2 * (n_bwd - n_tcb), "f32_padded": 0},
+                      "f32_sm90": 2 * (n_bwd + n_wide),
+                      "f32_sm90_padded": 2},
         "paged_attention": {"f32_split": 2 * n_f32, "f32_split_padded": 2,
                             "bf16_split": 2 * n_bf, "bf16_split_padded": 0,
                             "f32": 0, "f32_padded": 0, "bf16": 0,
                             "bf16_padded": 0}}
     print(f"    head dims {new_dims} (bf16 flash and K2 up to 128, float32 "
           f"forward on 3xTF32 up to 256, float32 backward on 3xTF32 up to "
-          f"64 and up to 192), padded D = 40 / 100; launches by route "
+          f"192), padded D = 40 / 100; launches by route "
           f"{ {n: hd_routes[n] for n in hd_want} }", flush=True)
     check(all(hd_routes[n] == r for n, r in hd_want.items()),
           f"head-dim cases launched {hd_routes}, expected {hd_want}")
@@ -10359,8 +10419,6 @@ def main():
                "library_ms": rec["library_ms"]}
         if "route" in rec:          # the wrapper's route (dtype, shape rule)
             out["dtype_route"] = rec["route"]
-        if "cuda_core_ms" in rec:   # a 3xTF32 row's CUDA-core route, same call
-            out["cuda_core_ms"] = rec["cuda_core_ms"]
         if "ragged_ms" in rec:      # K4 f32: its ragged route, same call
             out["ragged_ms"] = rec["ragged_ms"]
         if "launch_ms" in rec:      # ms covers these launches (profiler)
@@ -10408,8 +10466,12 @@ def main():
              "T=256, causal)", k1b_f32),
             ("flash_bwd float32 3xTF32 route (2x16, T=1024, causal)",
              k1b_f32_long),
-            ("flash_bwd float32 CUDA-core route, D=96 (8x8, T=256, causal)",
-             k1b_f32_wide),
+            ("flash_bwd float32 3xTF32 wide pair, D=96 (8x8, T=256, causal)",
+             k1b_wide[96]),
+            ("flash_bwd float32 3xTF32 wide pair, D=128 (8x8, T=256, causal)",
+             k1b_wide[128]),
+            ("flash_bwd float32 3xTF32 wide pair, D=192 (8x8, T=256, causal)",
+             k1b_wide[192]),
             ("flash_fwd D=96 (16x8, T=1024, causal, bf16)", k1_d96),
             ("flash_bwd D=96 (16x8, T=1024, causal, bf16)", k1b_d96),
             ("flash_fwd MoE LM shape (8x16, T=1024, causal, bf16)",
@@ -10423,9 +10485,6 @@ def main():
                  else "")
               + (f" (delta op {rec['delta_ms']:.4f} ms, kernel pair "
                  f"{rec['kernels_ms']:.4f} ms)" if "delta_ms" in rec else "")
-              + (f"; CUDA-core route {rec['cuda_core_ms']:.4f} ms (bound "
-                 f"{rec['cuda_core_bound_ms']:.4f})" if "cuda_core_ms" in rec
-                 else "")
               + (f"; launches (profiler, ms a call) {rec['launch_ms']}"
                  if "launch_ms" in rec else ""))
     for name, rec in (
@@ -10556,17 +10615,18 @@ def main():
         kernel_rec("flash_fwd_f32_wide",
                    "bigdl_tpu_torch/csrc/flash_fwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:128", k1_f32_wide,
-                   k1_lm["routes"]["f32_sm90"]),
+                   k1_lm["routes"]["f32_sm90"]
+                   + k1_step["routes"]["flash_fwd"]["f32_sm90"]),
         kernel_rec("flash_bwd_f32",
                    "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
                    "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32,
                    r6["routes"]["flash_bwd"]["f32_sm90"] + r15["k1b"]
                    + l18["flash_bwd"] + l19["flash_bwd_f32"]
                    + r15["entry_routes"]["flash_bwd"].get("f32_sm90", 0)),
-        kernel_rec("flash_bwd_f32_cuda_cores",
-                   "bigdl_tpu_torch/csrc/flash_bwd.cu",
-                   "bigdl_tpu/kernels/flash_attention.py:263", k1b_f32_wide,
-                   r6["routes"]["flash_bwd"]["f32"]),
+        kernel_rec("flash_bwd_f32_wide",
+                   "bigdl_tpu_torch/csrc/flash_bwd_tf32_sm90.cu",
+                   "bigdl_tpu/kernels/flash_attention.py:263", k1b_wide[128],
+                   k1_step["routes"]["flash_bwd"]["f32_sm90"]),
         kernel_rec("paged_attention",
                    "bigdl_tpu_torch/csrc/paged_attention_sm90.cu",
                    "bigdl_tpu/kernels/paged_attention.py:107", k2_main,

@@ -368,8 +368,7 @@ def test_each_library_digest_covers_the_headers_its_source_includes():
     attention = {n for n, f in _build.SOURCES.items()
                  if "attn_tile.cuh" in f}
     fused = {n for n, f in _build.SOURCES.items() if "fused_gemm.cuh" in f}
-    assert attention == {"flash_bwd", "paged_attention",
-                         "paged_attention_sm90"}
+    assert attention == {"paged_attention", "paged_attention_sm90"}
     assert fused == {"fused_matmul", "fused_chain", "fused_conv",
                      "fused_matmul_sm90", "fused_conv_sm90",
                      "fused_chain_sm90", "fused_matmul_tf32_sm90",

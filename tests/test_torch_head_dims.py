@@ -100,8 +100,6 @@ def _cases(source, pattern):
 
 
 @pytest.mark.parametrize("table,route,source,pattern", [
-    (fa._BWD_DIMS, "f32", "flash_bwd.cu",
-     r"case (\d+): return bigdl::launch_bwd"),
     (fa._FWD_DIMS, "bf16_sm90", "flash_fwd_sm90.cu",
      r"case (\d+): return bigdl::sm90::launch_fwd"),
     (fa._FWD_DIMS, "f32_sm90", "flash_fwd_tf32_sm90.cu",
@@ -114,7 +112,7 @@ def _cases(source, pattern):
      r"case (\d+): return dispatch_tpr"),
     ({"pages": pa._DIMS}, "pages", "paged_attention_sm90.cu",
      r"case (\d+): return launch<T"),
-], ids=["flash_bwd_f32", "flash_fwd_bf16",
+], ids=["flash_fwd_bf16",
         "flash_fwd_f32_tf32", "flash_bwd_bf16", "flash_bwd_f32_tf32", "paged",
         "paged_split"])
 def test_every_claimed_head_dim_is_instantiated_or_padded(table, route,
@@ -137,18 +135,18 @@ def test_every_claimed_head_dim_is_instantiated_or_padded(table, route,
 
 def test_routes_cover_every_multiple_of_16_up_to_their_widest():
     assert set(fa._FWD_DIMS) == {"bf16_sm90", "f32_sm90"}
-    assert fa._BWD_DIMS["f32"] == tuple(range(16, 193, 16))
+    assert set(fa._BWD_DIMS) == {"bf16_sm90", "f32_sm90"}
     assert pa._DIMS == tuple(range(16, 257, 16))
     assert fa._FWD_DIMS["bf16_sm90"] == fa._BWD_DIMS["bf16_sm90"] == tuple(
         range(16, 129, 16))
     assert fa._FWD_DIMS["f32_sm90"] == tuple(range(16, 257, 16))
-    assert fa._BWD_DIMS["f32_sm90"] == tuple(range(16, 65, 16))
+    assert fa._BWD_DIMS["f32_sm90"] == tuple(range(16, 193, 16))
     # float32 forward: the 3xTF32 route at every D, padded past 112 too
     assert [fa.fwd_route(torch.float32, d) for d in (112, 113, 128, 256)] == [
         "f32_sm90", "f32_sm90", "f32_sm90", "f32_sm90"]
-    # float32 backward: past 64 the CUDA-core route
+    # float32 backward: the 3xTF32 route at every D, past 64 the wide pair
     assert [fa.bwd_route(torch.float32, d) for d in (48, 64, 65, 192)] == [
-        "f32_sm90", "f32_sm90", "f32", "f32"]
+        "f32_sm90", "f32_sm90", "f32_sm90", "f32_sm90"]
     # K2: the split-K kernel at every head dim, both page dtypes
     assert {pa.route(dt, d) for dt in (torch.float32, torch.bfloat16)
             for d in pa._DIMS} == {"f32_split", "bf16_split"}
@@ -177,8 +175,7 @@ def test_cpu_calls_at_any_head_dim_take_the_plain_version(D):
     assert set(routes["flash_fwd"]) == {"bf16_sm90", "bf16_sm90_padded",
                                         "f32_sm90", "f32_sm90_padded"}
     assert set(routes["flash_bwd"]) == {"bf16_sm90", "bf16_sm90_padded",
-                                        "f32_sm90", "f32_sm90_padded",
-                                        "f32", "f32_padded"}
+                                        "f32_sm90", "f32_sm90_padded"}
     assert set(routes["paged_attention"]) == {
         "f32_split", "f32_split_padded", "bf16_split", "bf16_split_padded",
         "f32", "f32_padded", "bf16", "bf16_padded"}

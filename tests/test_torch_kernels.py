@@ -234,20 +234,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_flash_routes_by_dtype_one_kernel_each():
-    """bf16 goes to the tensor-core sources; float32 forwards to the 3xTF32
-    source at every head dim, float32 backwards to the 3xTF32 source up to
-    its widest head dim and to the CUDA-core one past it; every route's
-    library is in the build list with its headers, and each source exists;
-    the CUDA-core forward is gone."""
+    """bf16 goes to the tensor-core sources; float32 forwards and backwards
+    to the 3xTF32 sources at every head dim; every route's library is in
+    the build list with its headers, and each source exists; the CUDA-core
+    forward and backward are gone."""
     from bigdl_tpu_torch.kernels import _build
     from bigdl_tpu_torch.kernels import flash_attention as fa
     assert {fa.bwd_route(torch.bfloat16, 64), fa.bwd_route(torch.float32, 64),
-            fa.bwd_route(torch.float32, 80)} == {"bf16_sm90", "f32_sm90",
-                                                  "f32"}
+            fa.bwd_route(torch.float32, 80)} == {"bf16_sm90", "f32_sm90"}
     assert set(fa._FWD_FN) == {"bf16_sm90", "f32_sm90"}
-    assert set(fa._BWD_FN) == {"bf16_sm90", "f32_sm90", "f32"}
-    assert "flash_fwd" not in _build.SOURCES
-    assert not (_build.CSRC / "flash_fwd.cu").exists()
+    assert set(fa._BWD_FN) == set(fa._BWD_ARGTYPES) == {"bf16_sm90",
+                                                         "f32_sm90"}
+    for gone in ("flash_fwd", "flash_bwd"):
+        assert gone not in _build.SOURCES
+        assert not (_build.CSRC / f"{gone}.cu").exists()
     for table in (fa._FWD_FN, fa._BWD_FN):
         libs = {route: lib for route, (lib, _) in table.items()}
         assert libs["bf16_sm90"].endswith("_sm90")
@@ -266,11 +266,11 @@ def test_flash_routes_by_dtype_one_kernel_each():
 
 @pytest.mark.parametrize("d", [8, 16, 40, 48, 64, 65, 80, 96, 128, 192])
 def test_flash_backward_route_by_dtype_and_head_dim(d):
-    """float32: 3xTF32 up to D = 64 (padded between its instantiations),
-    the CUDA cores past it; bf16: its tensor-core route; the route's
-    width is the next instantiation."""
+    """float32: 3xTF32 at every D up to 192 (padded between its
+    instantiations; past 64 the wide pair); bf16: its tensor-core route;
+    the route's width is the next instantiation."""
     from bigdl_tpu_torch.kernels import flash_attention as fa
-    want = "f32_sm90" if d <= 64 else "f32"
+    want = "f32_sm90"
     assert fa.bwd_route(torch.float32, d) == want
     assert fa.bwd_route(torch.bfloat16, d) == "bf16_sm90"
     w = fa.head_dim_width("t", want, d, fa._BWD_DIMS[want])
@@ -320,7 +320,7 @@ def test_cpu_flash_calls_count_no_launch_on_any_route():
     fused = {"bf16_sm90": 0, "bf16_ragged": 0, "f32_sm90": 0, "f32": 0}
     conv = fused
     flash = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32_sm90": 0,
-             "f32_sm90_padded": 0, "f32": 0, "f32_padded": 0}
+             "f32_sm90_padded": 0}
     flash_fwd_routes = {"bf16_sm90": 0, "bf16_sm90_padded": 0, "f32_sm90": 0,
                         "f32_sm90_padded": 0}
     paged = {"f32_split": 0, "f32_split_padded": 0, "bf16_split": 0,

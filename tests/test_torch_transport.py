@@ -196,3 +196,44 @@ def test_pick_advertise_host_and_wait_for_port_equal_jax():
         assert pt.wait_for_port("127.0.0.1", srv.port, timeout_s=5)
     finally:
         srv.close()
+
+
+def test_close_while_a_connection_thread_is_starting():
+    """close() racing the accept loop between registering a connection's
+    thread and starting it: close() waits for the start (the accept loop
+    starts the thread under the server's lock) and joins a started thread,
+    instead of raising on an unstarted one."""
+    import socket
+    import threading
+    from unittest import mock
+    registered, release = threading.Event(), threading.Event()
+    real_start = threading.Thread.start
+
+    def slow_start(self):
+        if self.name == f"{pt.THREAD_PREFIX}-conn[w]":
+            registered.set()
+            release.wait(5)
+        real_start(self)
+
+    errors = []
+
+    def close(srv):
+        try:
+            srv.close()
+        except Exception as e:      # noqa: BLE001 - recorded for the assert
+            errors.append(e)
+
+    with mock.patch.object(threading.Thread, "start", slow_start):
+        srv = pt.TransportServer(_echo, name="w").start()
+        sock = socket.create_connection(("127.0.0.1", srv.port), timeout=5)
+        try:
+            assert registered.wait(5)
+            closer = threading.Thread(target=close, args=(srv,))
+            closer.start()
+            closer.join(0.3)        # close() is under way before the start
+            release.set()
+            closer.join(10)
+        finally:
+            release.set()
+            sock.close()
+    assert not closer.is_alive() and errors == []
